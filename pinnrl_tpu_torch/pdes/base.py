@@ -1,0 +1,471 @@
+"""PDE problem base class: physics, BC/IC targets, sampling, loss assembly.
+
+The main-path subset of ``pinnrl_tpu.pdes.base``. A PDE subclass writes its
+residual against ``u`` / ``directional_derivative`` / ``laplacian``; here
+``u`` is the stacked-jet :class:`BundleView`, so the residual runs batched
+over the collocation points. Randomness comes from an explicit
+``torch.Generator`` instead of a PRNG key.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+the generic derivative engine behind periodic/Neumann BC losses and gPINN
+(item 10), inverse mode and observation data (item 13), the smoothness
+penalty and hard-IC transform (item 13), and the non-uniform samplers
+(items 7 and 13).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from pinnrl_tpu_torch.config import PDESettings, TrainingConfig
+from pinnrl_tpu_torch.ops.losses import apply_loss_fn
+from pinnrl_tpu_torch.sampling import (
+    sample_adaptive,
+    sample_residual_based,
+    sample_stratified,
+    sample_uniform,
+)
+
+Coeffs = Dict[str, torch.Tensor]
+
+# Populated by @register_pde; maps pde_type -> class.
+PDE_CLASSES: Dict[str, type] = {}
+
+
+def register_pde(cls):
+    PDE_CLASSES[cls.pde_type] = cls
+    return cls
+
+
+def _default_generator(device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(0)
+
+
+class PDEBase:
+    """Base PDE problem."""
+
+    pde_type = "base"
+    default_parameters: Dict[str, Any] = {}
+    system_size: int = 1
+    spatial_orders: Tuple[int, ...] = (1, 2)
+    temporal_orders: Tuple[int, ...] = (1,)
+    bundle_compatible: bool = True
+
+    def __init__(self, settings: PDESettings, training: Optional[TrainingConfig] = None) -> None:
+        self.settings = settings
+        self.training = training
+        self.dimension = int(settings.dimension)
+        self.domain = [(float(lo), float(hi)) for lo, hi in settings.domain]
+        self.time_domain = (float(settings.time_domain[0]), float(settings.time_domain[1]))
+        self.parameters: Dict[str, Any] = {**self.default_parameters, **(settings.parameters or {})}
+        self.trainable_parameters = list(settings.trainable_parameters or [])
+        if self.trainable_parameters:
+            raise NotImplementedError("inverse mode is not ported yet (ROADMAP item 13)")
+        self.observations = None
+        if settings.observation_data is not None:
+            raise NotImplementedError("observation data is not ported yet (ROADMAP item 13)")
+
+        self.boundary_conditions: Dict[str, Callable] = {}
+        for bc_type, bc_params in (settings.boundary_conditions or {}).items():
+            self.boundary_conditions[bc_type] = self._create_boundary_condition(
+                bc_type, bc_params or {}
+            )
+        if settings.initial_condition:
+            self.boundary_conditions["initial"] = self._create_boundary_condition(
+                "initial", settings.initial_condition
+            )
+        self._fast_bundle_fn = None
+        self._fused_residual_loss = None
+
+    @staticmethod
+    def create(pde_type: str, settings: PDESettings, training: Optional[TrainingConfig] = None):
+        """Name-based factory."""
+        key = pde_type.lower().replace("-", "_").replace(" ", "_")
+        key = {"burgersequation": "burgers"}.get(key, key)
+        if key not in PDE_CLASSES:
+            raise ValueError(
+                f"PDE type {pde_type!r} is not ported yet (ROADMAP item 11); "
+                f"ported: {sorted(PDE_CLASSES)}"
+            )
+        return PDE_CLASSES[key](settings, training)
+
+    # ------------------------------------------------------------------ #
+    # Coefficients
+    # ------------------------------------------------------------------ #
+
+    def init_coeffs(self) -> Coeffs:
+        return {}
+
+    def coeff(self, coeffs: Optional[Coeffs], name: str, default: Any = None):
+        if coeffs is not None and name in coeffs:
+            return coeffs[name]
+        if name in self.parameters:
+            val = self.parameters[name]
+            return val if isinstance(val, (list, tuple)) else float(val)
+        if default is not None:
+            return default
+        raise KeyError(f"PDE parameter {name!r} not configured and no default")
+
+    @property
+    def true_parameters(self) -> Dict[str, float]:
+        return {}
+
+    # ------------------------------------------------------------------ #
+    # Physics
+    # ------------------------------------------------------------------ #
+
+    def residual_pointwise(self, u, z: torch.Tensor, coeffs: Optional[Coeffs]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def exact_solution(self, x: torch.Tensor, t: torch.Tensor, coeffs: Optional[Coeffs] = None):
+        return None
+
+    def attach_fast_bundle(self, model, enable: str | bool = "auto") -> bool:
+        """Attach the stacked-jet residual path for ``model``; returns
+        whether it is active."""
+        from pinnrl_tpu_torch.ops import jet_mlp
+
+        if enable in (False, "off", "false"):
+            self._fast_bundle_fn = None
+            return False
+        if enable == "on":
+            enable = True
+        ok = self.bundle_compatible and self.system_size == 1 and jet_mlp.supports(model, self)
+        if not ok:
+            if enable is True:
+                raise ValueError(
+                    "stacked_jet=true but the PDE/model pair does not support "
+                    f"the fast bundle path (pde={self.pde_type}, "
+                    f"arch={model.config.architecture})"
+                )
+            self._fast_bundle_fn = None
+            return False
+        self._fast_bundle_fn = jet_mlp.make_bundle_fn(
+            model,
+            self.dimension,
+            spatial_order=max(self.spatial_orders, default=0),
+            temporal_order=max(self.temporal_orders, default=0),
+        )
+        return True
+
+    def attach_fused_residual_kernel(self, model, enable: str | bool = "auto") -> bool:
+        """Attach the fused residual-loss kernel (ops/kernels/fused_step.py):
+        hand-written CUDA kernels compute mean r^2 and its parameter
+        gradient. On CPU tensors the same callable runs its plain version."""
+        from pinnrl_tpu_torch.ops.kernels import fused_step
+
+        if enable in (False, "off", "false"):
+            self._fused_residual_loss = None
+            return False
+        if not fused_step.supports(model, self, self.training):
+            if enable is True or enable == "on":
+                raise ValueError(
+                    "fused residual kernel requested but unsupported for "
+                    f"pde={self.pde_type}, arch={model.config.architecture}"
+                )
+            self._fused_residual_loss = None
+            return False
+        self._fused_residual_loss = fused_step.make_fused_residual_loss(model, self)
+        return True
+
+    def compute_residual(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> torch.Tensor:
+        """Batched residual (N, 1) through the stacked-jet bundle."""
+        if self._fast_bundle_fn is None:
+            raise NotImplementedError(
+                "residuals need the stacked-jet bundle: call attach_fast_bundle; "
+                "the generic derivative engine is ROADMAP item 10"
+            )
+        from pinnrl_tpu_torch.ops.jet_mlp import BundleView
+
+        z = torch.cat([x, t], dim=-1)
+        value, streams = self._fast_bundle_fn(params, z)
+        return self.residual_pointwise(BundleView(value, streams), z, coeffs).reshape(-1, 1)
+
+    # ------------------------------------------------------------------ #
+    # BC / IC targets
+    # ------------------------------------------------------------------ #
+
+    def _create_boundary_condition(self, bc_type: str, params: Dict[str, Any]) -> Callable:
+        if bc_type in ("left", "right"):
+            bc_type = "dirichlet"
+        if bc_type == "dirichlet":
+            if params.get("type") == "exact":
+                if not self.settings.exact_solution:
+                    raise ValueError(
+                        f"{self.pde_type}: boundary type 'exact' requires an "
+                        "exact_solution config block"
+                    )
+                return lambda x, t: self.exact_solution(x, t)
+            value = float(params.get("value", 0.0) or 0.0)
+            return lambda x, t: torch.full_like(x[:, 0:1], value)
+        if bc_type in ("neumann", "periodic"):
+            # Enforced structurally in _boundary_loss (not ported yet).
+            value = float(params.get("value", 0.0) or 0.0) if bc_type == "neumann" else 0.0
+            return lambda x, t: torch.full_like(x[:, 0:1], value)
+        if bc_type == "initial":
+            return self._create_initial_condition(params)
+        return lambda x, t: torch.zeros_like(x[:, 0:1])
+
+    def _create_initial_condition(self, params: Dict[str, Any]) -> Callable:
+        ic_type = params.get("type", "sine")
+        if ic_type == "exact":
+            if not self.settings.exact_solution:
+                raise ValueError(
+                    f"{self.pde_type}: initial type 'exact' requires an "
+                    "exact_solution config block"
+                )
+            return lambda x, t: self.exact_solution(x, t)
+        if ic_type in ("sine", "sin", "sin_exp_decay"):
+            A = float(params.get("amplitude", 1.0))
+            k = float(params.get("frequency", 1.0))
+            return lambda x, t: A * torch.sin(k * torch.pi * x[:, 0:1])
+        if ic_type == "tanh":
+            eps = float(params.get("epsilon", 0.1))
+            return lambda x, t: torch.tanh(x[:, 0:1] / eps)
+        if ic_type == "gaussian":
+            mean = float(params.get("mean", params.get("center", 0.0)))
+            std = float(params.get("std", params.get("sigma", 0.1)))
+            A = float(params.get("amplitude", 1.0))
+            return lambda x, t: A * torch.exp(-((x[:, 0:1] - mean) ** 2) / (2 * std**2))
+        if ic_type == "fixed":
+            value = float(params.get("value", 0.0))
+            return lambda x, t: torch.full_like(x[:, 0:1], value)
+        if ic_type == "random":
+            raise NotImplementedError("the 'random' initial condition is not ported yet (ROADMAP item 11)")
+        if ic_type == "small_angle":
+            theta0 = float(params.get("initial_angle", 0.5))
+            return lambda x, t: torch.full_like(x[:, 0:1], theta0)
+        if ic_type == "option":
+            strike = float(params.get("strike", params.get("strike_price", 100.0)))
+            if params.get("option_type", "call") == "call":
+                return lambda x, t: torch.clamp(x[:, 0:1] - strike, min=0.0)
+            return lambda x, t: torch.clamp(strike - x[:, 0:1], min=0.0)
+        return lambda x, t: torch.zeros_like(x[:, 0:1])
+
+    # ------------------------------------------------------------------ #
+    # Sampling
+    # ------------------------------------------------------------------ #
+
+    def generate_collocation_points(self, generator: torch.Generator, num_points: int,
+                                    strategy: str = "uniform", **kwargs):
+        if strategy == "uniform":
+            return sample_uniform(generator, num_points, self.domain, self.time_domain)
+        if strategy == "stratified":
+            return sample_stratified(generator, num_points, self.domain, self.time_domain)
+        if strategy == "residual_based":
+            return sample_residual_based(generator, num_points, self.domain, self.time_domain, **kwargs)
+        if strategy == "adaptive":
+            return sample_adaptive(generator, num_points, self.domain, self.time_domain, **kwargs)
+        raise ValueError(f"Unknown sampling strategy {strategy!r}")
+
+    def _bc_counts(self, n_colloc: int) -> Tuple[int, int]:
+        """(num_boundary_points, num_initial_points) as configured; sized
+        from the collocation batch when unconfigured."""
+        n_b = n_i = 0
+        if self.training is not None:
+            n_b = int(getattr(self.training, "num_boundary_points", 0) or 0)
+            n_i = int(getattr(self.training, "num_initial_points", 0) or 0)
+        if n_b <= 0:
+            n_b = max(n_colloc // 10, 16)
+        if n_i <= 0:
+            n_i = max(n_colloc // 5, 16)
+        return n_b, n_i
+
+    def _space_bounds(self, device):
+        los = torch.tensor([lo for lo, _ in self.domain], dtype=torch.float32, device=device)
+        his = torch.tensor([hi for _, hi in self.domain], dtype=torch.float32, device=device)
+        return los, his
+
+    def _uniform(self, generator, n: int, lo, hi):
+        u = torch.rand((n, lo.shape[0]), generator=generator, device=generator.device)
+        return lo + (hi - lo) * u
+
+    def _sample_boundary_time(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        lo, hi = self.time_domain
+        u = torch.rand((n, 1), generator=generator, device=generator.device)
+        return lo + (hi - lo) * u
+
+    def _sample_face(self, generator: torch.Generator, n: int, axis: int, face_val: float):
+        """n points on one face: the pinned coordinate at the face value."""
+        los, his = self._space_bounds(generator.device)
+        x = self._uniform(generator, n, los, his)
+        x[:, axis] = face_val
+        return x
+
+    def _sample_boundary_points(self, generator: torch.Generator, n: int):
+        """Fresh boundary points, ``n`` split evenly across the 2*dim faces."""
+        per_face = max(n // (2 * self.dimension), 1)
+        xs, ts = [], []
+        for axis in range(self.dimension):
+            for face_val in self.domain[axis]:
+                xs.append(self._sample_face(generator, per_face, axis, face_val))
+                ts.append(self._sample_boundary_time(generator, per_face))
+        return torch.cat(xs, dim=0), torch.cat(ts, dim=0)
+
+    def _sample_initial_points(self, generator: torch.Generator, n: int):
+        """Fresh spatial points at ``time_domain[0]``."""
+        los, his = self._space_bounds(generator.device)
+        x = self._uniform(generator, n, los, his)
+        return x, torch.full((n, 1), self.time_domain[0], dtype=torch.float32, device=x.device)
+
+    # ------------------------------------------------------------------ #
+    # Loss assembly
+    # ------------------------------------------------------------------ #
+
+    def _loss(self, diff: torch.Tensor) -> torch.Tensor:
+        lf, delta = "mse", 1.0
+        if self.training is not None:
+            lf = getattr(self.training, "loss_function", "mse")
+            delta = float(getattr(self.training, "huber_delta", 1.0))
+        return apply_loss_fn(diff, lf, delta)
+
+    def _residual_loss(self, residual: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Residual reduction; with ``training.causal_eps > 0`` points are
+        sorted by time and weighted w_i = exp(-eps * sum_{t_j < t_i} r_j^2 / N)
+        (weights carry no gradient)."""
+        eps = float(getattr(self.training, "causal_eps", 0.0) or 0.0) if self.training else 0.0
+        if eps <= 0.0:
+            return self._loss(residual)
+        if residual.ndim == 2 and residual.shape[1] > 1:
+            r2 = torch.sum(residual**2, dim=1)
+        else:
+            r2 = residual.reshape(-1) ** 2
+        order = torch.argsort(t.reshape(-1), stable=True)
+        r2_sorted = r2[order]
+        n = r2_sorted.shape[0]
+        cum_prev = torch.cumsum(r2_sorted, dim=0) - r2_sorted
+        w = torch.exp(-eps * cum_prev / n).detach()
+        return torch.sum(w * r2_sorted) / torch.clamp(torch.sum(w), min=1e-12)
+
+    def _training_mode(self) -> str:
+        return getattr(self.training, "mode", "forward") if self.training else "forward"
+
+    def _loss_weights(self) -> Dict[str, float]:
+        if self.training is None:
+            return {}
+        return dict(getattr(self.training, "loss_weights", {}) or {})
+
+    def _boundary_loss(self, apply_fn, params, generator: torch.Generator, n_b: int) -> torch.Tensor:
+        """Every registered (non-initial) boundary condition on fresh points."""
+        loss = torch.zeros((), device=generator.device)
+        for bc_type, bc_func in self.boundary_conditions.items():
+            if bc_type == "initial":
+                continue
+            if bc_type in ("periodic", "neumann"):
+                raise NotImplementedError(
+                    f"{bc_type} boundary losses need the generic derivative "
+                    "engine, not ported yet (ROADMAP item 10)"
+                )
+            x_b, t_b = self._sample_boundary_points(generator, n_b)
+            u_b = apply_fn(params, torch.cat([x_b, t_b], dim=-1)).reshape(x_b.shape[0], -1)[:, 0:1]
+            loss = loss + self._loss(u_b - bc_func(x_b, t_b))
+        return loss
+
+    def compute_loss(self, apply_fn, params, x: torch.Tensor, t: torch.Tensor,
+                     coeffs: Optional[Coeffs] = None,
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """All loss components on fresh BC/IC points drawn from ``generator``.
+
+        The residual term goes through the fused kernel whenever it is
+        attached, validation included (there the kernel skips its reverse
+        pass).
+        """
+        lw = self._loss_weights()
+        if float(lw.get("smoothness", 0.0)) > 0:
+            raise NotImplementedError("the smoothness penalty is not ported yet (ROADMAP item 13)")
+        if float(lw.get("gpinn", 0.0)) > 0:
+            raise NotImplementedError("the gPINN penalty is not ported yet (ROADMAP item 10)")
+        generator = generator if generator is not None else _default_generator(x.device)
+        use_fused = (
+            self._fused_residual_loss is not None
+            and not coeffs
+            and x.dtype == torch.float32
+        )
+        if use_fused:
+            residual_loss = self._fused_residual_loss(params, torch.cat([x, t], dim=-1))
+        else:
+            residual = self.compute_residual(apply_fn, params, x, t, coeffs)
+            residual_loss = self._residual_loss(residual, t)
+
+        n_b, n_i = self._bc_counts(x.shape[0])
+        boundary_loss = self._boundary_loss(apply_fn, params, generator, n_b)
+
+        x_i, t_i = self._sample_initial_points(generator, n_i)
+        u_initial = apply_fn(params, torch.cat([x_i, t_i], dim=-1)).reshape(x_i.shape[0], -1)[:, 0:1]
+        ic_fn = self.boundary_conditions.get("initial")
+        u_target_i = ic_fn(x_i, t_i) if ic_fn is not None else torch.zeros_like(u_initial)
+        initial_loss = self._loss(u_initial - u_target_i)
+
+        zero = torch.zeros((), device=x.device)
+        return self._assemble_total(residual_loss, boundary_loss, initial_loss, zero, zero, zero)
+
+    def _assemble_total(self, residual_loss, boundary_loss, initial_loss, smoothness_loss,
+                        data_loss, gpinn_loss) -> Dict[str, torch.Tensor]:
+        """Mode gating + fixed/adaptive weighting."""
+        lw = self._loss_weights()
+        smoothness_weight = float(lw.get("smoothness", 0.0))
+        gpinn_weight = float(lw.get("gpinn", 0.0))
+        data_weight = float(lw.get("data", 1.0))
+        mode = self._training_mode()
+        residual_active = 0.0 if mode == "data_only" else 1.0
+        ic_bc_active = residual_active
+        if mode in ("inverse", "data_only", "data_augmented") and data_weight <= 0.0:
+            data_weight = 1.0
+        losses = {
+            "residual": residual_loss,
+            "boundary": boundary_loss,
+            "initial": initial_loss,
+            "smoothness": smoothness_loss,
+            "data": data_loss,
+            "gpinn": gpinn_loss,
+        }
+        aw_enabled = bool(
+            self.training is not None
+            and getattr(self.training, "adaptive_weights", None) is not None
+            and self.training.adaptive_weights.enabled
+        )
+        if aw_enabled:
+            w_res = w_bc = w_ic = 1.0
+        else:
+            w_res = float(lw.get("pde", lw.get("residual", 1.0)))
+            w_bc = float(lw.get("boundary", 10.0))
+            w_ic = float(lw.get("initial", 10.0))
+        losses["total"] = (
+            residual_active * w_res * residual_loss
+            + ic_bc_active * w_bc * boundary_loss
+            + ic_bc_active * w_ic * initial_loss
+            + smoothness_weight * smoothness_loss
+            + residual_active * gpinn_weight * gpinn_loss
+            + data_weight * data_loss
+        )
+        return losses
+
+    # ------------------------------------------------------------------ #
+    # Validation
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def validate(self, apply_fn, params, coeffs: Optional[Coeffs] = None,
+                 generator: Optional[torch.Generator] = None,
+                 num_points: int = 1000) -> Dict[str, float]:
+        """Error metrics against the exact solution (``l2_error`` is the
+        mean SQUARED error, as in the reference; ``rel_l2`` the relative L2
+        norm)."""
+        device = next(iter(params.values())).device
+        generator = generator if generator is not None else _default_generator(device)
+        x, t = sample_uniform(generator, num_points, self.domain, self.time_domain)
+        u_exact = self.exact_solution(x, t, coeffs)
+        pred = apply_fn(params, torch.cat([x, t], dim=-1)).reshape(x.shape[0], -1)[:, 0:1]
+        if u_exact is None:
+            return {"l2_error": float("nan"), "max_error": float("nan"), "mean_error": float("nan")}
+        u_exact = u_exact.reshape(pred.shape)
+        err = torch.abs(pred - u_exact)
+        rel = torch.sqrt(torch.sum((pred - u_exact) ** 2)) / (torch.sqrt(torch.sum(u_exact**2)) + 1e-12)
+        return {
+            "l2_error": float(torch.mean(err**2)),
+            "max_error": float(torch.max(err)),
+            "mean_error": float(torch.mean(err)),
+            "rel_l2": float(rel),
+        }
