@@ -14,8 +14,9 @@
 //   embed_kernel          z -> affine map -> [sin, cos] and the closed-form
 //                         phase-rotation streams, written as the stacked
 //                         (4N, 2m) input [value; d/dx; d2/dx2; d/dt].
-//   sgemm_kernel          FP32 tiled GEMM (64x64x16 tiles in shared memory,
-//                         4x4 register micro-tile, FMA on the CUDA cores, no
+//   sgemm_kernel          FP32 tiled GEMM from sgemm_f32.cuh (shared with
+//                         mlp_score.cu: 64x64x16 tiles in shared memory, 4x4
+//                         register micro-tile, FMA on the CUDA cores, no
 //                         TF32), any strides: the stacked forward X W^T, the
 //                         backward dX = dY W and dW = dY^T X (split over K;
 //                         the split partials are summed by colsum).
@@ -41,12 +42,10 @@
 
 #include <cuda_runtime.h>
 
+#include "sgemm_f32.cuh"
+
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int GEMM_THREADS = 256;
 constexpr int COLSUM_ROWS = 256;
 constexpr float LN_EPS = 1e-6f;  // flax.linen.LayerNorm default
 
@@ -84,83 +83,7 @@ __global__ void embed_kernel(const float* __restrict__ z, const float* __restric
     r3[m + j] = -sn * p1t;
 }
 
-// ----------------------------------------------------------------- gemm --
-// C[m, n] = sum_{k in split} A[m*sam + k*sak] * B[k*sbk + n*sbn] (+ bias[n]
-// for m < bias_rows). blockIdx.z is the K split; split z writes to
-// C + z * split_stride.
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-sgemm_kernel(int M, int N, int K, const float* __restrict__ A, long long sam, long long sak,
-             const float* __restrict__ B, long long sbk, long long sbn, float* __restrict__ C,
-             long long ldc, const float* __restrict__ bias, int bias_rows, int k_chunk,
-             long long split_stride) {
-    __shared__ float As[BK][BM + 4];
-    __shared__ float Bs[BK][BN + 4];
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    const int kbeg = blockIdx.z * k_chunk;
-    const int kend = min(K, kbeg + k_chunk);
-    const bool a_kfast = (sak == 1);
-    const bool b_nfast = (sbn == 1);
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = kbeg; k0 < kend; k0 += BK) {
-        for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
-            int mm, kk;
-            if (a_kfast) { kk = i % BK; mm = i / BK; } else { mm = i % BM; kk = i / BM; }
-            const int gm = m0 + mm, gk = k0 + kk;
-            As[kk][mm] = (gm < M && gk < kend) ? A[(long long)gm * sam + (long long)gk * sak] : 0.0f;
-        }
-        for (int i = tid; i < BN * BK; i += GEMM_THREADS) {
-            int nn, kk;
-            if (b_nfast) { nn = i % BN; kk = i / BN; } else { kk = i % BK; nn = i / BK; }
-            const int gn = n0 + nn, gk = k0 + kk;
-            Bs[kk][nn] = (gn < N && gk < kend) ? B[(long long)gk * sbk + (long long)gn * sbn] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-    float* Cz = C + (long long)blockIdx.z * split_stride;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int gm = m0 + ty * 4 + i;
-        if (gm >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int gn = n0 + tx * 4 + j;
-            if (gn >= N) continue;
-            float v = acc[i][j];
-            if (bias != nullptr && gm < bias_rows) v += bias[gn];
-            Cz[(long long)gm * ldc + gn] = v;
-        }
-    }
-}
-
 // ------------------------------------------------------------ transport --
-
-__device__ __forceinline__ float warp_sum(float v) {
-    // Butterfly: every lane ends with the same value (float + commutes).
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
-}
 
 // Row statistics of the LayerNorm streams for one point (two-pass, as the
 // plain transport computes them).

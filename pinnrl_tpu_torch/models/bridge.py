@@ -5,6 +5,9 @@
 - ``LayerNorm_i/{scale, bias}``        <-> ``LayerNorm_i.{weight, bias}``
 - ``constants/FourierFeatures_0/B``    <-> the ``FourierFeatures_0.B`` buffer
 
+The same rules carry the DQN agent's tree (``dqn_params_from_flax`` /
+``dqn_params_to_flax``): ``Dense_{0,1,2}`` and ``LayerNorm_{0,1}``.
+
 Both sides are plain numpy here, so the module imports neither JAX nor
 flax: callers hand over ``jax.tree_util.tree_map(np.asarray, ...)``.
 """
@@ -63,3 +66,26 @@ def params_to_flax(state: Mapping[str, torch.Tensor]):
         else:
             raise KeyError(f"no bridge rule for state_dict entry {key!r}")
     return params, ({"constants": constants} if constants else {})
+
+
+_DQN_TREE = {
+    "Dense_0": {"kernel", "bias"}, "LayerNorm_0": {"scale", "bias"},
+    "Dense_1": {"kernel", "bias"}, "LayerNorm_1": {"scale", "bias"},
+    "Dense_2": {"kernel", "bias"},
+}
+
+
+def dqn_params_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``DQNNetwork``'s flax ``params`` -> the port's DQN parameter dict."""
+    tree = {module: set(leaves) for module, leaves in params_np.items()}
+    if tree != _DQN_TREE:
+        raise KeyError(f"not a DQNNetwork parameter tree: {tree}")
+    return params_from_flax(params_np)
+
+
+def dqn_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's DQN parameter dict -> ``DQNNetwork``'s flax ``params``."""
+    params, constants = params_to_flax(state)
+    if constants or {m: set(v) for m, v in params.items()} != _DQN_TREE:
+        raise KeyError(f"not a DQN parameter dict: {sorted(state)}")
+    return params

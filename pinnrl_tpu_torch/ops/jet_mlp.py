@@ -191,6 +191,9 @@ def make_bundle_fn(
             v[:dimension] = -frame_speed
         return (v * model._in_scale).reshape(1, in_dim)
 
+    # Built once: writing into a device tensor from Python is a host round trip.
+    directions = {ax: _net_direction(ax) for ax, _k in groups}
+
     def bundle_fn(params: Dict[str, torch.Tensor], z: torch.Tensor):
         w0 = model.map_inputs(z)
         if is_fourier:
@@ -202,7 +205,7 @@ def make_bundle_fn(
             sin0, cos0 = torch.sin(p0), torch.cos(p0)
             h_streams: List[List[torch.Tensor]] = []
             for ax, k in groups:
-                p1 = s * (_net_direction(ax) @ B)  # (1, m): constant over the batch
+                p1 = s * (directions[ax] @ B)  # (1, m): constant over the batch
                 s_cur, c_cur = sin0, cos0
                 streams_g = []
                 for _ in range(k):
@@ -215,7 +218,7 @@ def make_bundle_fn(
             h0 = w0
             h_streams = []
             for ax, k in groups:
-                v = _net_direction(ax).expand_as(w0)
+                v = directions[ax].expand_as(w0)
                 h_streams.append([v] + [torch.zeros_like(w0) for _ in range(k - 1)])
 
         def _dense(i: int, prim, streams):

@@ -8,9 +8,8 @@ over the collocation points. Randomness comes from an explicit
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the generic derivative engine behind periodic/Neumann BC losses and gPINN
-(item 10), inverse mode and observation data (item 13), the smoothness
-penalty and hard-IC transform (item 13), and the non-uniform samplers
-(items 7 and 13).
+(item 10), inverse mode and observation data (item 13), and the smoothness
+penalty and hard-IC transform (item 13).
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from pinnrl_tpu_torch.sampling import (
     sample_stratified,
     sample_uniform,
 )
+from pinnrl_tpu_torch.sampling.strategies import _bounds
 
 Coeffs = Dict[str, torch.Tensor]
 
@@ -183,6 +183,15 @@ class PDEBase:
         value, streams = self._fast_bundle_fn(params, z)
         return self.residual_pointwise(BundleView(value, streams), z, coeffs).reshape(-1, 1)
 
+    def residual_score(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> torch.Tensor:
+        """Per-point residual magnitude, shape (N,): RAR pool scoring and the
+        RL reward. Channels of a system residual are l2-collapsed. Callers
+        run it under ``torch.no_grad()``."""
+        r = self.compute_residual(apply_fn, params, x, t, coeffs)
+        if r.ndim == 2 and r.shape[1] > 1:
+            return torch.sqrt(torch.sum(r * r, dim=1))
+        return torch.abs(r.reshape(-1))
+
     # ------------------------------------------------------------------ #
     # BC / IC targets
     # ------------------------------------------------------------------ #
@@ -249,15 +258,21 @@ class PDEBase:
     # ------------------------------------------------------------------ #
 
     def generate_collocation_points(self, generator: torch.Generator, num_points: int,
-                                    strategy: str = "uniform", **kwargs):
+                                    strategy: str = "uniform",
+                                    residual_fn: Optional[Callable] = None,
+                                    score_fn: Optional[Callable] = None, **kwargs):
+        """Strategy dispatcher. Extra ``kwargs`` go to RAR (``pool_factor``,
+        ``uniform_floor``, ``power``: the RAD hyper-parameters)."""
         if strategy == "uniform":
             return sample_uniform(generator, num_points, self.domain, self.time_domain)
         if strategy == "stratified":
             return sample_stratified(generator, num_points, self.domain, self.time_domain)
         if strategy == "residual_based":
-            return sample_residual_based(generator, num_points, self.domain, self.time_domain, **kwargs)
+            return sample_residual_based(generator, num_points, self.domain, self.time_domain,
+                                         residual_fn=residual_fn, **kwargs)
         if strategy == "adaptive":
-            return sample_adaptive(generator, num_points, self.domain, self.time_domain, **kwargs)
+            return sample_adaptive(generator, num_points, self.domain, self.time_domain,
+                                   score_fn=score_fn)
         raise ValueError(f"Unknown sampling strategy {strategy!r}")
 
     def _bc_counts(self, n_colloc: int) -> Tuple[int, int]:
@@ -274,9 +289,10 @@ class PDEBase:
         return n_b, n_i
 
     def _space_bounds(self, device):
-        los = torch.tensor([lo for lo, _ in self.domain], dtype=torch.float32, device=device)
-        his = torch.tensor([hi for _, hi in self.domain], dtype=torch.float32, device=device)
-        return los, his
+        """The spatial bounds as tensors, cached per device (building them
+        is a host-to-device copy, which would make every step wait)."""
+        lo, hi = _bounds(self.domain, self.time_domain, device)
+        return lo[:-1], hi[:-1]
 
     def _uniform(self, generator, n: int, lo, hi):
         u = torch.rand((n, lo.shape[0]), generator=generator, device=generator.device)

@@ -1,0 +1,8 @@
+"""RL-driven collocation sampling: the DQN agent (``rl/dqn.py``)."""
+
+from pinnrl_tpu_torch.rl.dqn import (  # noqa: F401
+    CollocationAgent,
+    DQNNetwork,
+    RLAgent,
+    RLAgentState,
+)

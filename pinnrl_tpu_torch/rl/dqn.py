@@ -1,0 +1,282 @@
+"""DQN agent for RL-driven collocation sampling.
+
+The port of ``pinnrl_tpu.rl.dqn``. The replay buffer, the TD update, the
+target sync and the epsilon-greedy choice run on the agent's device:
+
+- ``RLAgentState`` holds the policy and target parameter dicts, the Adam
+  state, the ring buffers, and ``epsilon`` and ``episode_reward`` as device
+  tensors. ``ptr``, ``size`` and ``steps`` are Python ints: each is a
+  function of the step count, so keeping them on the host costs no sync,
+  and "enough samples to train" and "time to sync the target" are host
+  comparisons of ints.
+- ``select_action`` scores the candidate points with the ``fused_mlp_score``
+  kernel on every call and picks Q or uniform random scores with
+  ``torch.where`` on a device-side Bernoulli draw, exploring or not.
+- Methods update the state in place and return it (the JAX agent returns a
+  new one).
+
+Every draw comes from an explicit ``torch.Generator``; the deterministic
+part of each method takes its draws as tensors (``_select``, ``_train_on``),
+so the tests feed both packages the same numbers.
+
+Not ported yet: ``CollocationAgent`` (ROADMAP item 13) and saving or loading
+an agent's state (item 9).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pinnrl_tpu_torch.ops.kernels import mlp
+from pinnrl_tpu_torch.training.trainer import AdamStep
+
+_LN_EPS = 1e-6  # flax.linen.LayerNorm default
+
+
+def _xavier_dense(in_dim: int, out_dim: int, generator: torch.Generator) -> nn.Linear:
+    """``nn.Linear`` with flax's ``xavier_uniform`` kernel init and zero bias."""
+    layer = nn.Linear(in_dim, out_dim)
+    with torch.no_grad():
+        nn.init.xavier_uniform_(layer.weight, generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+class DQNNetwork(nn.Module):
+    """Dense -> LayerNorm -> ReLU (x2) -> Dense(action_dim)."""
+
+    def __init__(self, state_dim: int = 2, action_dim: int = 1, hidden_dim: int = 512,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.Dense_0 = _xavier_dense(state_dim, hidden_dim, gen)
+        self.LayerNorm_0 = nn.LayerNorm(hidden_dim, eps=_LN_EPS)
+        self.Dense_1 = _xavier_dense(hidden_dim, hidden_dim, gen)
+        self.LayerNorm_1 = nn.LayerNorm(hidden_dim, eps=_LN_EPS)
+        self.Dense_2 = _xavier_dense(hidden_dim, action_dim, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.LayerNorm_0(self.Dense_0(x)))
+        x = torch.relu(self.LayerNorm_1(self.Dense_1(x)))
+        return self.Dense_2(x)
+
+
+@dataclass
+class RLAgentState:
+    policy_params: Dict[str, torch.Tensor]
+    target_params: Dict[str, torch.Tensor]
+    opt_state: AdamStep
+    # Ring replay buffer of per-point transitions
+    buf_state: torch.Tensor  # (capacity, state_dim)
+    buf_reward: torch.Tensor  # (capacity,)
+    buf_next: torch.Tensor  # (capacity, state_dim)
+    buf_done: torch.Tensor  # (capacity,)
+    ptr: int
+    size: int
+    epsilon: torch.Tensor  # () float32, on the device
+    steps: int
+    episode_reward: torch.Tensor  # () float32, on the device
+
+
+class RLAgent:
+    """DQN agent: policy and target networks, replay, epsilon decay."""
+
+    def __init__(
+        self,
+        state_dim: int = 2,
+        action_dim: int = 1,
+        hidden_dim: int = 512,
+        learning_rate: float = 1e-3,
+        gamma: float = 0.99,
+        epsilon_start: float = 1.0,
+        epsilon_end: float = 0.01,
+        epsilon_decay: float = 0.995,
+        memory_size: int = 10000,
+        batch_size: int = 124,
+        target_update: int = 100,
+        reward_weights: Optional[Dict[str, float]] = None,
+        device: str | torch.device = "cpu",
+    ) -> None:
+        self.state_dim = state_dim
+        self.action_dim = action_dim
+        self.hidden_dim = hidden_dim
+        self.learning_rate = float(learning_rate)
+        self.gamma = gamma
+        self.epsilon_end = epsilon_end
+        self.epsilon_decay = epsilon_decay
+        self.epsilon_start = epsilon_start
+        self.memory_size = memory_size
+        self.batch_size = batch_size
+        self.target_update = target_update
+        self.reward_weights = reward_weights or {
+            "residual": 1.0,
+            "boundary": 1.0,
+            "initial": 1.0,
+            "exploration": 0.1,
+        }
+        self.device = torch.device(device)
+        # The structure that functional_call evaluates; its own weights are unused.
+        self.network = DQNNetwork(state_dim, action_dim, hidden_dim).to(self.device)
+
+    def init(self, generator: torch.Generator) -> RLAgentState:
+        """A fresh state; the weights are drawn from ``generator`` on the CPU
+        (so a seed gives the same weights on every device) and moved."""
+        net = DQNNetwork(self.state_dim, self.action_dim, self.hidden_dim, generator)
+        policy = {k: v.detach().to(self.device).requires_grad_(True)
+                  for k, v in net.named_parameters()}
+        target = {k: v.detach().clone() for k, v in policy.items()}
+        cap, dev = self.memory_size, self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        return RLAgentState(
+            policy_params=policy,
+            target_params=target,
+            opt_state=AdamStep(list(policy.values()), lambda count: self.learning_rate,
+                               1.0, 0.9, 0.999, 0.0),
+            buf_state=zeros(cap, self.state_dim),
+            buf_reward=zeros(cap),
+            buf_next=zeros(cap, self.state_dim),
+            buf_done=zeros(cap),
+            ptr=0,
+            size=0,
+            epsilon=torch.full((), self.epsilon_start, dtype=torch.float32, device=dev),
+            steps=0,
+            episode_reward=zeros(),
+        )
+
+    def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        """The plain network on ``params`` (autograd-differentiable)."""
+        return torch.func.functional_call(self.network, params, (x,))
+
+    # ------------------------------------------------------------------ #
+    # Acting
+    # ------------------------------------------------------------------ #
+
+    def select_action(self, state: RLAgentState, points: torch.Tensor,
+                      generator: torch.Generator) -> torch.Tensor:
+        """Epsilon-greedy scores over candidate points: policy Q with
+        probability 1 - eps, uniform random scores with probability eps."""
+        u_explore = torch.rand((), generator=generator, device=points.device)
+        r = torch.rand((points.shape[0],), generator=generator, device=points.device)
+        return self._select(state, points, u_explore, r)
+
+    def _select(self, state: RLAgentState, points: torch.Tensor, u_explore: torch.Tensor,
+                r: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            q = mlp.fused_mlp_score(points, state.policy_params)[..., 0]
+            return torch.where(u_explore < state.epsilon, r, q)
+
+    def score_fn(self, state: RLAgentState, generator: torch.Generator):
+        """``sample_adaptive``'s ``score_fn(grid)`` hook for this state."""
+        return lambda grid: self.select_action(state, grid, generator)
+
+    def compute_reward(self, residual_loss, boundary_loss, initial_loss, exploration_bonus=0.0):
+        """reward = -sum(w_i * loss_i) + w_explore * bonus, element-wise
+        (per-point |residual| with the step's scalar BC and IC losses)."""
+        w = self.reward_weights
+        return (
+            -w["residual"] * residual_loss
+            - w["boundary"] * boundary_loss
+            - w["initial"] * initial_loss
+            + w["exploration"] * exploration_bonus
+        )
+
+    # ------------------------------------------------------------------ #
+    # Learning
+    # ------------------------------------------------------------------ #
+
+    def push(self, state: RLAgentState, s: torch.Tensor, r: torch.Tensor,
+             s_next: torch.Tensor, done: torch.Tensor) -> RLAgentState:
+        """Write a batch of per-point transitions into the ring buffer."""
+        n = s.shape[0]
+        cap = self.memory_size
+        idx = (torch.arange(n, device=state.buf_state.device) + state.ptr) % cap
+        state.buf_state.index_copy_(0, idx, s.to(state.buf_state.dtype))
+        state.buf_reward.index_copy_(0, idx, torch.broadcast_to(r, (n,)).to(state.buf_reward.dtype))
+        state.buf_next.index_copy_(0, idx, s_next.to(state.buf_next.dtype))
+        state.buf_done.index_copy_(0, idx, torch.broadcast_to(done, (n,)).to(state.buf_done.dtype))
+        state.ptr = (state.ptr + n) % cap
+        state.size = min(state.size + n, cap)
+        return state
+
+    def _td_loss(self, policy_params, target_params,
+                 batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """Huber (delta 1) TD loss; the target network's max is taken even
+        where done = 1."""
+        s, r, s_next, done = batch
+        q = self.apply(policy_params, s)[..., 0]
+        with torch.no_grad():
+            q_next = self.apply(target_params, s_next).max(dim=-1).values
+            target = r + (1.0 - done) * self.gamma * q_next
+        return F.huber_loss(q, target, delta=1.0)
+
+    def _train(self, state: RLAgentState, generator: torch.Generator) -> RLAgentState:
+        idx = torch.randint(0, max(state.size, 1), (self.batch_size,), generator=generator,
+                            device=state.buf_state.device)
+        return self._train_on(state, idx)
+
+    def _train_on(self, state: RLAgentState, idx: torch.Tensor) -> RLAgentState:
+        """One clipped Adam step on the TD loss of the transitions at ``idx``."""
+        batch = tuple(buf.index_select(0, idx) for buf in
+                      (state.buf_state, state.buf_reward, state.buf_next, state.buf_done))
+        params = list(state.policy_params.values())
+        with torch.enable_grad():
+            loss = self._td_loss(state.policy_params, state.target_params, batch)
+            grads = torch.autograd.grad(loss, params)
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.opt_state.step()
+        return state
+
+    def update(self, state: RLAgentState, s: torch.Tensor, reward: torch.Tensor,
+               s_next: torch.Tensor, done: torch.Tensor,
+               generator: torch.Generator) -> RLAgentState:
+        """push -> target sync every ``target_update`` steps -> train when the
+        buffer holds at least ``batch_size``. Epsilon decays once per epoch
+        in the trainer (``update_epsilon``), not here."""
+        state = self.push(state, s, reward, s_next, done)
+        state.steps += 1
+        state.episode_reward = state.episode_reward + torch.mean(reward)
+        if state.steps % self.target_update == 0:
+            with torch.no_grad():
+                for k, p in state.policy_params.items():
+                    state.target_params[k].copy_(p)
+        if state.size >= self.batch_size:
+            state = self._train(state, generator)
+        return state
+
+    def update_epsilon(self, state: RLAgentState) -> RLAgentState:
+        state.epsilon = torch.clamp(state.epsilon * self.epsilon_decay, min=self.epsilon_end)
+        return state
+
+    def get_statistics(self, state: RLAgentState) -> Dict[str, float]:
+        return {
+            "epsilon": float(state.epsilon),
+            "steps": int(state.steps),
+            "buffer_size": int(state.size),
+            "episode_reward": float(state.episode_reward),
+        }
+
+    # ------------------------------------------------------------------ #
+    # Persistence
+    # ------------------------------------------------------------------ #
+
+    def save_state(self, path: str, state: RLAgentState) -> None:
+        raise NotImplementedError("saving the agent's state is not ported yet (ROADMAP item 9)")
+
+    def load_state(self, path: str, template: RLAgentState) -> RLAgentState:
+        raise NotImplementedError("loading the agent's state is not ported yet (ROADMAP item 9)")
+
+
+class CollocationAgent:
+    """The lighter scorer without replay or target network."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        raise NotImplementedError("CollocationAgent is not ported yet (ROADMAP item 13)")

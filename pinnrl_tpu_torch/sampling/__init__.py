@@ -1,6 +1,7 @@
-"""Collocation sampling (uniform is ported; see strategies.py)."""
+"""Collocation sampling: uniform, stratified, RAR and RL-adaptive (strategies.py)."""
 
 from pinnrl_tpu_torch.sampling.strategies import (  # noqa: F401
+    make_grid,
     sample_adaptive,
     sample_residual_based,
     sample_stratified,

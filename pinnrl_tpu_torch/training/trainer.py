@@ -1,16 +1,19 @@
 """PDETrainer: the Adam training loop of the port.
 
-Each step samples uniform collocation points, computes the loss components
+Each step samples collocation points (uniform, stratified, RAR, or
+RL-adaptive through the DQN agent's scores), computes the loss components
 (the residual through the fused kernel when attached, BC and IC through
 ``model.apply``), back-propagates, clips by global norm and takes an Adam
-step — the JAX package's scanned step, run eagerly. Losses stay on the
-device during an epoch; the host reads them once per epoch.
+step — the JAX package's scanned step, run eagerly. With an agent, the step
+then rewards the agent on the updated parameters and takes its DQN update.
+Losses stay on the device during an epoch; the host reads them once per
+epoch, and nothing in a step reads a device value back.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-L-BFGS and the adam_lbfgs switch (item 8), RAR sampling (item 7), the RL
-agent, adaptive loss weights, EMA, ensembles, inverse mode and hard-IC
-(item 13), the plateau scheduler, profiling, experiment directories and
-checkpoints (item 9), and device meshes (item 14).
+L-BFGS and the adam_lbfgs switch (item 8), adaptive loss weights, EMA,
+ensembles, inverse mode and hard-IC (item 13), the plateau scheduler,
+profiling, experiment directories and checkpoints (item 9), and device
+meshes (item 14).
 """
 
 from __future__ import annotations
@@ -79,21 +82,18 @@ class AdamStep:
 
 
 class PDETrainer:
-    """Trains a PINN on a PDE problem with Adam."""
+    """Trains a PINN on a PDE problem with Adam (and, given ``rl_agent``, an
+    ``rl.RLAgent`` that chooses the collocation points)."""
 
     def __init__(self, model: PINNModel, pde: PDEBase, config: Config,
                  rl_agent: Optional[Any] = None, mesh: Optional[Any] = None) -> None:
         t = config.training
-        if rl_agent is not None:
-            raise _unported("the RL sampling agent", 13)
+        if rl_agent is not None and rl_agent.device != model.device:
+            raise ValueError(f"the RL agent is on {rl_agent.device}, the model on {model.device}")
         if mesh is not None:
             raise _unported("device-mesh data parallelism", 14)
         if t.optimizer != "adam":
             raise _unported(f"optimizer {t.optimizer!r}", 8)
-        if t.collocation_distribution == "residual_based":
-            raise _unported("residual-based (RAR) sampling", 7)
-        if t.collocation_distribution != "uniform":
-            raise _unported(f"{t.collocation_distribution!r} sampling", 13)
         if t.adaptive_weights.enabled:
             raise _unported("adaptive loss weights", 13)
         if float(t.param_ema) > 0.0:
@@ -116,7 +116,10 @@ class PDETrainer:
         self.config = config
         self.tcfg = t
         self.device = model.device
-        self.strategy = t.collocation_distribution
+        self.rl_agent = rl_agent
+        # Attaching an agent forces adaptive sampling.
+        self.strategy = "adaptive" if rl_agent is not None else t.collocation_distribution
+        self._rl_state = None
         self.optimizer_name = t.optimizer
         self.fast_bundle_active = pde.attach_fast_bundle(model, enable=t.get("stacked_jet", "auto"))
         self.fused_kernel_active = pde.attach_fused_residual_kernel(
@@ -162,16 +165,51 @@ class PDETrainer:
     def _loss_components(self, params: Dict[str, torch.Tensor], x, t, generator):
         return self.pde.compute_loss(self.model.apply, params, x, t, coeffs={}, generator=generator)
 
+    def _sample(self, generator: torch.Generator, n: int, params: Dict[str, torch.Tensor]):
+        if self.strategy == "residual_based":
+            def residual_fn(xx, tt):
+                return self.pde.residual_score(self.model.apply, params, xx, tt)
+
+            with torch.no_grad():
+                return self.pde.generate_collocation_points(generator, n, "residual_based",
+                                                            residual_fn=residual_fn)
+        if self.strategy == "adaptive" and self.rl_agent is not None:
+            return self.pde.generate_collocation_points(
+                generator, n, "adaptive",
+                score_fn=self.rl_agent.score_fn(self._rl_state, generator))
+        return self.pde.generate_collocation_points(generator, n, self.strategy)
+
+    def _init_rl_state(self, seed: int):
+        """The agent's initial state: weights from a CPU generator seeded
+        with ``seed``."""
+        return self.rl_agent.init(torch.Generator().manual_seed(seed))
+
+    def _rl_update(self, params, x, t, losses, generator: torch.Generator) -> None:
+        """Reward the agent on the updated parameters and take its update:
+        per-point |residual| of the first ``min(128, batch)`` points plus the
+        step's BC and IC losses, as bandit transitions (done = 1)."""
+        n_push = min(128, x.shape[0])
+        with torch.no_grad():
+            pts = torch.cat([x[:n_push], t[:n_push]], dim=-1)
+            res = self.pde.residual_score(self.model.apply, params, x[:n_push], t[:n_push])
+            reward = self.rl_agent.compute_reward(res, losses["boundary"].detach(),
+                                                  losses["initial"].detach())
+        done = torch.ones((), device=x.device)
+        self._rl_state = self.rl_agent.update(self._rl_state, pts, reward, pts, done, generator)
+
     def _step(self, params: Dict[str, torch.Tensor], opt: AdamStep, generator: torch.Generator,
               batch_size: int) -> torch.Tensor:
-        """sample -> loss -> backward -> clip -> Adam. Returns the detached
-        [total, residual, boundary, initial, smoothness, data] on the device."""
-        x, t = self.pde.generate_collocation_points(generator, batch_size, self.strategy)
+        """sample -> loss -> backward -> clip -> Adam (-> the agent's update).
+        Returns the detached [total, residual, boundary, initial, smoothness,
+        data] on the device."""
+        x, t = self._sample(generator, batch_size, params)
         losses = self._loss_components(params, x, t, generator)
         for p in opt.params:
             p.grad = None
         losses["total"].backward()
         opt.step()
+        if self.rl_agent is not None:
+            self._rl_update(params, x, t, losses, generator)
         return torch.stack([losses["total"]] + [losses[k] for k in _COMPONENTS]).detach()
 
     @torch.no_grad()
@@ -203,6 +241,8 @@ class PDETrainer:
         opt = self._make_adam(num_epochs, steps_per_epoch, list(params.values()))
         gen = torch.Generator(device=self.device).manual_seed(seed)
         val_gen = torch.Generator(device=self.device).manual_seed(10_000 + seed)
+        if self.rl_agent is not None:
+            self._rl_state = self._init_rl_state(seed)
 
         es = t.early_stopping
         best_val = float("inf")
@@ -213,6 +253,9 @@ class PDETrainer:
         for epoch in range(num_epochs):
             t0 = time.time()
             per_step = [self._step(params, opt, gen, batch_size) for _ in range(steps_per_epoch)]
+            if self.rl_agent is not None:
+                # Once per epoch, so exploration anneals over the run's horizon.
+                self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
             means = torch.stack(per_step).mean(dim=0).tolist()  # one host read per epoch
             self.history["train_loss"].append(means[0])
             for k, v in zip(_COMPONENTS, means[1:]):
@@ -240,6 +283,7 @@ class PDETrainer:
         self._final_state = {
             "params": {"net": params, "coeffs": {}},
             "opt_state": opt.optimizer.state_dict(),
+            "rl": self._rl_state,
         }
         return {
             "history": self.history,

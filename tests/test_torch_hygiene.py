@@ -23,7 +23,7 @@ def test_port_imports_without_jax():
         "import pinnrl_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(pinnrl_tpu_torch.__path__, 'pinnrl_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 18 and 'pinnrl_tpu_torch.rl.dqn' in mods, mods\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
@@ -79,13 +79,15 @@ def test_yaml_config_needs_pyyaml(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    """On CPU tensors both wrappers run their plain versions: the launch
+    """On CPU tensors every wrapper runs its plain version: the launch
     counters stay 0 and the results equal the plain functions exactly."""
     from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
-    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp
+    from pinnrl_tpu_torch.rl import RLAgent
     from torch_parity_helpers import burgers_pair, points
 
-    before = (fourier_feats.fourier_features.launches, fused_step.fused_residual_loss.launches)
+    counters = (fourier_feats.fourier_features, fused_step.fused_residual_loss, mlp.fused_mlp_score)
+    before = tuple(c.launches for c in counters)
     x = torch.from_numpy(np.random.default_rng(0).random((16, 2), np.float32))
     B = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8)).astype(np.float32))
     assert torch.equal(fourier_feats.fourier_features(x, B), fourier_feats.fourier_features_plain(x, B))
@@ -97,16 +99,23 @@ def test_cpu_tensors_take_the_plain_versions():
     bundle_fn = make_bundle_fn(pair.tmodel, 1, 2, 1)
     ref = fused_step.fused_residual_loss_plain(bundle_fn, pair.tpde, pair.tmodel.params, z)
     assert torch.equal(fn(pair.tmodel.params, z), ref)
-    after = (fourier_feats.fourier_features.launches, fused_step.fused_residual_loss.launches)
-    assert before == after == (0, 0)
+    q_params = RLAgent(hidden_dim=16).init(torch.Generator().manual_seed(0)).policy_params
+    with torch.no_grad():
+        assert torch.equal(mlp.fused_mlp_score(z, q_params), mlp.fused_mlp_score_plain(z, q_params))
+    after = tuple(c.launches for c in counters)
+    assert before == after == (0, 0, 0)
 
 
 def test_wrappers_reject_other_devices():
-    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, mlp
+    from pinnrl_tpu_torch.rl import RLAgent
 
     x = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported devices"):
         fourier_feats.fourier_features(x, torch.zeros((2, 8), device="meta"))
+    q_params = RLAgent(hidden_dim=16).init(torch.Generator().manual_seed(0)).policy_params
+    with pytest.raises(ValueError, match="unsupported device"):
+        mlp.fused_mlp_score(x, q_params)
 
 
 def test_unported_features_raise():
@@ -128,7 +137,7 @@ def test_unported_features_raise():
     cfg.model.arch_params["modified"] = False
     model, pde = PINNModel(cfg), create_pde(cfg)
     for field, value, item in (("optimizer", "adam_lbfgs", 8),
-                               ("collocation_distribution", "residual_based", 7),
+                               ("scheduler_type", "reduce_lr", 9),
                                ("param_ema", 0.9, 13), ("ensemble_size", 2, 13)):
         old = getattr(cfg.training, field)
         setattr(cfg.training, field, value)

@@ -6,7 +6,9 @@ version on the same CUDA tensors. Marked ``cuda``; each test skips (from the
 
 Tolerances: Fourier features 1e-5 relative to max (sincosf vs torch's
 sin/cos on the same f32 phases); fused loss 1e-5 relative and gradients
-1e-4 relative to each gradient's max (sums in another order).
+1e-4 relative to each gradient's max (sums in another order); the MLP
+scorer 1e-4 relative to max (the JAX suite's bound for its kernel: sums in
+another order through two LayerNorms).
 """
 
 import numpy as np
@@ -88,3 +90,38 @@ def test_fused_residual_loss_matches_plain(cuda_device, hidden, mapping, n):
     torch.cuda.synchronize()
     assert fused_step.fused_residual_loss.launches == before + 1
     assert float(l_val) == float(lk.detach())
+
+
+@pytest.mark.parametrize("n,hidden,action_dim", [(10000, 512, 1), (1000, 128, 4), (37, 40, 3)])
+def test_fused_mlp_score_matches_plain(cuda_device, n, hidden, action_dim):
+    from pinnrl_tpu_torch.ops.kernels import mlp
+    from pinnrl_tpu_torch.rl import RLAgent
+
+    agent = RLAgent(hidden_dim=hidden, action_dim=action_dim, device=cuda_device)
+    params = agent.init(torch.Generator().manual_seed(2)).policy_params
+    with torch.no_grad():  # LayerNorm away from (1, 0), so its terms count
+        for k in ("LayerNorm_0.weight", "LayerNorm_1.weight", "LayerNorm_0.bias", "LayerNorm_1.bias"):
+            params[k].add_(0.1 * torch.randn(params[k].shape, device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = 2.0 * torch.rand((n, 2), generator=gen, device=cuda_device) - 1.0
+    before = mlp.fused_mlp_score.launches
+    with torch.no_grad():
+        got = mlp.fused_mlp_score(x, params)
+        ref = mlp.fused_mlp_score_plain(x, params)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_score.launches == before + 1
+    assert got.shape == (n, action_dim) and torch.isfinite(got).all()
+    assert _rel(got, ref) < 1e-4
+
+
+def test_fused_mlp_score_rejects_bad_inputs(cuda_device):
+    from pinnrl_tpu_torch.ops.kernels import mlp
+    from pinnrl_tpu_torch.rl import RLAgent
+
+    params = RLAgent(hidden_dim=32, device=cuda_device).init(torch.Generator()).policy_params
+    with pytest.raises(ValueError):
+        mlp.fused_mlp_score(torch.zeros((8, 3), device=cuda_device), params)
+    with pytest.raises(ValueError):
+        mlp.fused_mlp_score(torch.zeros((0, 2), device=cuda_device), params)
+    with pytest.raises(TypeError):
+        mlp.fused_mlp_score(torch.zeros((8, 2), device=cuda_device, dtype=torch.float64), params)

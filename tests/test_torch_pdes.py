@@ -74,8 +74,16 @@ def test_samplers_shapes_and_ranges():
     x, t = pair.tpde.generate_collocation_points(gen, 40, "uniform")
     assert x.shape == (40, 1) and t.shape == (40, 1)
     assert float(x.abs().max()) <= 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        pair.tpde.generate_collocation_points(gen, 40, "residual_based")
+    pair.tpde.attach_fast_bundle(pair.tmodel)
+
+    def residual_fn(xx, tt):
+        return pair.tpde.residual_score(pair.tmodel.apply, pair.tmodel.params, xx, tt)
+
+    with torch.no_grad():
+        x, t = pair.tpde.generate_collocation_points(gen, 40, "residual_based", residual_fn=residual_fn)
+    assert x.shape == (40, 1) and t.shape == (40, 1)
+    assert float(x.abs().max()) <= 1.0 and float(t.min()) >= 0.0 and float(t.max()) <= 1.0
+    assert len(set(x[:, 0].tolist())) == 40  # drawn without replacement from the pool
 
 
 def test_validate_reports_finite_metrics():

@@ -6,7 +6,8 @@ CUDA card.
 
 For the Burgers recipe slice of ``chip_smoke.py`` (Fourier 256x3, mapping
 128, batch 8192, BC/IC 4096), once with the hand-written kernels and once on
-the plain path (fused residual off, plain Fourier features), it prints:
+the plain path (fused residual off, plain Fourier features and MLP scorer),
+it prints:
 
   * the host-clock step time (median, q1, q3) of ``--steps`` unprofiled steps,
     each ending in ``torch.cuda.synchronize()``, after 5 warm-up steps;
@@ -16,12 +17,16 @@ the plain path (fused residual off, plain Fourier features), it prints:
     median step (1 - busy / median), and the device time and launch count of
     each kernel name per step.
 
+With ``--rl`` the step is the RL-driven one: the DQN agent of the shipped
+defaults scores the 100x100 grid and takes its update on every step.
+
 The chrome traces go to ``--out``. The script imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import sys
@@ -110,6 +115,7 @@ def main() -> int:
     ap.add_argument("--profiled", type=int, default=10, help="steps under torch.profiler")
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "profile"),
                     help="directory for the chrome traces and summary.json")
+    ap.add_argument("--rl", action="store_true", help="profile the RL-driven step")
     args = ap.parse_args()
 
     import torch
@@ -117,7 +123,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step_torch: no CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import burgers_recipe_config, nvidia_smi_line, plain_fourier_features
+    from chip_smoke import (burgers_recipe_config, make_agent, nvidia_smi_line,
+                            plain_fourier_features, plain_mlp_score)
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
@@ -125,19 +132,24 @@ def main() -> int:
     card = nvidia_smi_line()
     out = Path(args.out)
     results = []
+    prefix = "rl_" if args.rl else ""
     for label in ("kernels", "plain"):
         cfg = burgers_recipe_config("cuda")
+        cfg.rl.enabled = args.rl
         if label == "plain":
             cfg.training.fused_residual_kernel = "off"
-        trainer = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+        agent = make_agent(cfg) if args.rl else None
+        trainer = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, rl_agent=agent)
         if trainer.fused_kernel_active != (label == "kernels"):
             raise AssertionError(f"{label}: fused_kernel_active={trainer.fused_kernel_active}")
-        if label == "plain":
-            with plain_fourier_features():
-                results.append(profile(trainer, cfg, label, args.steps, args.profiled, out, card))
-        else:
-            results.append(profile(trainer, cfg, label, args.steps, args.profiled, out, card))
-    (out / "summary.json").write_text(json.dumps({"card": card, "runs": results}, indent=1))
+        if agent is not None:
+            trainer._rl_state = trainer._init_rl_state(0)
+        with contextlib.ExitStack() as plain:
+            if label == "plain":
+                plain.enter_context(plain_fourier_features())
+                plain.enter_context(plain_mlp_score())
+            results.append(profile(trainer, cfg, prefix + label, args.steps, args.profiled, out, card))
+    (out / f"{prefix}summary.json").write_text(json.dumps({"card": card, "runs": results}, indent=1))
     if "jax" in sys.modules:
         raise AssertionError("profile_step_torch imported jax")
     return 0
