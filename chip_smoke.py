@@ -26,10 +26,26 @@ Phases (each raises on failure, and the script then exits non-zero):
                counted under ``torch.cuda.set_sync_debug_mode("warn")``.
   9. timing  — ``fused_mlp_score`` against its plain version, and median ms
                per RL step with the kernels and on the plain path.
+ 10. kdv     — the KdV convergence recipe (Fourier 256x3, mapping 256 with
+               the shipped ``feature_seed`` 0 basis, batch 8192, causal
+               eps 1.0, order-3 residual) through ``build_recipe_config`` ->
+               ``create_pde`` -> ``PINNModel`` -> ``PDETrainer.train`` for 60
+               Adam steps and 5 validations, then ``validate``; every
+               residual loss goes through kernel 1's causal order-3 variant.
+               Then kernel 1's KdV-causal parity on the trained parameters.
+ 11. kdv timing — host syncs of one warm KdV step (time sort included)
+               against the uniform Burgers step; kernel 1 on KdV-causal loss
+               + gradients against its plain version, and median ms per KdV
+               step with the kernels and on the plain path.
+
+Phase 3 holds kernel 1 against its plain version in four variants: Burgers
+and KdV, each plain and causal (eps 1.0), at N = 8192, and KdV-causal again
+at N = 5000 (not a multiple of the scan block).
 
 The second-to-last line is a JSON object describing each kernel (its
-``launches`` are those of the RL slice, the path that runs all three); the
-last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
+``launches`` are those of the RL slice, the path that runs all three, and
+``kdv_launches`` those of the KdV slice); the last line is
+``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -44,14 +60,21 @@ import time
 import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 # The Burgers recipe: 13 epochs x 4 steps of batch 8192 on 40000 points = 52 steps.
 EPOCHS = 13
+# The KdV recipe: 5 epochs x 12 steps of batch 8192 on 100000 points = 60 steps.
+KDV_EPOCHS = 5
 FF_TOL = 1e-5       # rel to max |ref|: sincosf vs torch's sin/cos, same f32 inputs
-LOSS_TOL = 1e-5     # rel: sums run in another order than the plain version's
-GRAD_TOL = 1e-4     # rel to each gradient's max |ref| (the JAX suite's fused-kernel bound)
 MLP_TOL = 1e-4      # rel to max |ref| (the JAX suite's bound for the MLP scorer kernel)
 RAR_STEPS = 4       # one epoch of 4 steps
+# Kernel 1, (loss rel, each gradient rel to its max |ref|): sums run in another
+# order than the plain version's. The JAX suite's bounds: fused kernel 1e-5 /
+# 1e-4, causal 1e-4 / 1e-3 (tests/test_pallas_parity_tpu.py:152-155, 186-189),
+# order 3 2e-4 on the loss (tests/test_kernels.py:271-273).
+FUSED_TOLS = {"burgers": (1e-5, 1e-4), "burgers_causal": (1e-4, 1e-3),
+              "kdv": (2e-4, 1e-3), "kdv_causal": (2e-4, 1e-3)}
 
 
 def nvidia_smi_line() -> str:
@@ -89,6 +112,25 @@ def burgers_recipe_config(device: str):
     t.loss_weights["smoothness"] = 0.0
     t.validation_frequency = max(t.num_epochs // 4, 1)
     return cfg
+
+
+def kdv_recipe_config(device: str, causal: bool = True):
+    """The shipped KdV recipe (``build_recipe_config("kdv")``), cut to
+    ``KDV_EPOCHS`` epochs; ``causal=False`` drops its causal weighting."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+
+    cfg = build_recipe_config("kdv", epochs=KDV_EPOCHS, device=device)
+    if not causal:
+        cfg.training.causal_eps = 0.0
+    return cfg
+
+
+def time_sorted(x, t):
+    """(x, t) -> z sorted by time, as ``compute_loss`` hands it to the
+    causal kernel."""
+    import torch
+
+    return torch.cat([x, t], dim=-1)[torch.argsort(t.reshape(-1), stable=True)]
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -274,45 +316,65 @@ def main() -> int:
     if not (ff_rel < FF_TOL and ff_grad_rel < FF_TOL):
         raise AssertionError("fourier_features kernel disagrees with its plain version")
 
-    assert pde.attach_fast_bundle(model) and fused_step.supports(model, pde, cfg.training)
-    fused = fused_step.make_fused_residual_loss(model, pde)
-    bundle_fn = make_bundle_fn(model, 1, 2, 1)
-    x, t = pde.generate_collocation_points(gen, 8192, "uniform")
-    z = torch.cat([x, t], dim=-1)
-    params = model.params
-
-    def fused_grads(p, zz):
-        loss = fused(p, zz)
+    def fused_grads(v, p, zz):
+        loss = v.fn(p, zz)
         return loss, torch.autograd.grad(loss, list(p.values()))
 
-    def plain_grads(p, zz):
-        loss = fused_step.fused_residual_loss_plain(bundle_fn, pde, p, zz)
+    def plain_grads(v, p, zz):
+        loss = fused_step.fused_residual_loss_plain(v.bundle_fn, v.pde, p, zz)
         return loss, torch.autograd.grad(loss, list(p.values()))
 
-    def compare(tag, p, zz):
-        lk, gk_ = fused_grads(p, zz)
+    def variant(vcfg):
+        """Kernel 1 and its plain version for one configuration, seeded init."""
+        vpde, vmodel = create_pde(vcfg), PINNModel(vcfg, seed=0)
+        assert vpde.attach_fast_bundle(vmodel) and fused_step.supports(vmodel, vpde, vcfg.training)
+        return SimpleNamespace(
+            pde=vpde, model=vmodel, fn=fused_step.make_fused_residual_loss(vmodel, vpde),
+            bundle_fn=make_bundle_fn(vmodel, 1, max(vpde.spatial_orders), max(vpde.temporal_orders)))
+
+    def compare(name, tag, p, zz):
+        """Kernel 1 against its plain version (loss and every gradient) on
+        time-sorted points ``zz``; keeps the worst absolute error per variant
+        in ``fused_errs``."""
+        v = variants[name]
+        loss_tol, grad_tol = FUSED_TOLS[name]
+        lk, gk_ = fused_grads(v, p, zz)
         lk = lk.detach()
-        lp, gp_ = plain_grads(p, zz)
+        lp, gp_ = plain_grads(v, p, zz)
         lp = lp.detach()
         torch.cuda.synchronize()
         loss_rel = abs(float(lk) - float(lp)) / max(abs(float(lp)), 1e-30)
         worst_abs, worst_rel, worst_name = abs(float(lk) - float(lp)), 0.0, ""
-        for name, a, b in zip(p.keys(), gk_, gp_):
+        for pname, a, b in zip(p.keys(), gk_, gp_):
             if not torch.isfinite(a).all():
-                raise AssertionError(f"{tag}: non-finite kernel gradient for {name}")
+                raise AssertionError(f"{name} {tag}: non-finite kernel gradient for {pname}")
             d = float((a - b).abs().max())
             rel = d / max(float(b.abs().max()), 1e-30)
             worst_abs = max(worst_abs, d)
             if rel > worst_rel:
-                worst_rel, worst_name = rel, name
-        print(f"[parity] fused_residual_loss {tag}: loss {float(lk):.8e} vs plain {float(lp):.8e} "
-              f"(rel {loss_rel:.3e}, tol {LOSS_TOL:g}); worst grad rel {worst_rel:.3e} "
-              f"({worst_name}, tol {GRAD_TOL:g}); max_abs_err {worst_abs:.3e}", flush=True)
-        if not (loss_rel < LOSS_TOL and worst_rel < GRAD_TOL):
-            raise AssertionError(f"fused_residual_loss kernel disagrees with its plain version ({tag})")
-        return worst_abs
+                worst_rel, worst_name = rel, pname
+        print(f"[parity] fused_residual_loss {name} {tag}: loss {float(lk):.8e} vs plain "
+              f"{float(lp):.8e} (rel {loss_rel:.3e}, tol {loss_tol:g}); worst grad rel "
+              f"{worst_rel:.3e} ({worst_name}, tol {grad_tol:g}); max_abs_err {worst_abs:.3e}",
+              flush=True)
+        if not (loss_rel < loss_tol and worst_rel < grad_tol):
+            raise AssertionError(f"fused_residual_loss kernel disagrees with its plain version "
+                                 f"({name}, {tag})")
+        fused_errs[name] = max(fused_errs.get(name, 0.0), worst_abs)
 
-    fused_err = compare("N=8192 seeded init", params, z)
+    burgers_causal_cfg = burgers_recipe_config("cuda")
+    burgers_causal_cfg.training.causal_eps = 1.0
+    variants = {"burgers": variant(burgers_recipe_config("cuda")),
+                "burgers_causal": variant(burgers_causal_cfg),
+                "kdv": variant(kdv_recipe_config("cuda", causal=False)),
+                "kdv_causal": variant(kdv_recipe_config("cuda"))}
+    fused_errs = {}
+    for name, v in variants.items():
+        z = time_sorted(*v.pde.generate_collocation_points(gen, 8192, "uniform"))
+        compare(name, "N=8192 seeded init", v.model.params, z)
+    v = variants["kdv_causal"]
+    compare("kdv_causal", "N=5000 seeded init", v.model.params,
+            time_sorted(*v.pde.generate_collocation_points(gen, 5000, "uniform")))
 
     rl_cfg = burgers_recipe_config("cuda")
     rl_cfg.rl.enabled = True
@@ -394,16 +456,16 @@ def main() -> int:
     print(f"[slice] validate(20000): rel_l2 {val['rel_l2']:.4e} max_error {val['max_error']:.4e} "
           f"(no bar at {n_steps} steps)", flush=True)
     x, t = pde.generate_collocation_points(gen, 8192, "uniform")
-    compare("N=8192 trained params", {k: v.detach().requires_grad_(True) for k, v in net.items()},
-            torch.cat([x, t], dim=-1))
+    compare("burgers", "N=8192 trained params",
+            {k: v.detach().requires_grad_(True) for k, v in net.items()}, torch.cat([x, t], dim=-1))
 
     # ---- 5. timing ----------------------------------------------------- #
     ff_ms = cuda_ms(lambda: fourier_feats.fourier_features(x_ff, B, True), iters=200)
     ff_plain_ms = cuda_ms(lambda: fourier_feats.fourier_features_plain(x_ff, B, True), iters=200)
     z = torch.cat([x, t], dim=-1)
     p = {k: v.detach().requires_grad_(True) for k, v in net.items()}
-    fused_ms = cuda_ms(lambda: fused_grads(p, z), iters=20)
-    fused_plain_ms = cuda_ms(lambda: plain_grads(p, z), iters=20)
+    fused_ms = cuda_ms(lambda: fused_grads(variants["burgers"], p, z), iters=20)
+    fused_plain_ms = cuda_ms(lambda: plain_grads(variants["burgers"], p, z), iters=20)
     print(f"[timing] fourier_features (4096,2)x(2,128): kernel {ff_ms:.4f} ms, plain {ff_plain_ms:.4f} ms ({card})")
     print(f"[timing] fused_residual_loss N=8192 loss+grads: kernel {fused_ms:.3f} ms, "
           f"plain {fused_plain_ms:.3f} ms ({card})", flush=True)
@@ -548,18 +610,104 @@ def main() -> int:
           f"{len(rl_kernel_times)}: kernels {statistics.median(rl_kernel_times):.3f} ms, plain path "
           f"{statistics.median(rl_plain_times):.3f} ms ({card})", flush=True)
 
+    # ---- 10. kdv slice --------------------------------------------------- #
+    from pinnrl_tpu_torch.models.fourier import feature_basis
+
+    kcfg = kdv_recipe_config("cuda")
+    kpde = create_pde(kcfg)
+    kmodel = PINNModel(kcfg, seed=0)
+    ktrainer = PDETrainer(kmodel, kpde, kcfg)
+    kt = kcfg.training
+    if not (ktrainer.fused_kernel_active and kt.causal_eps == 1.0 and max(kpde.spatial_orders) == 3):
+        raise AssertionError("the KdV slice is not on kernel 1's causal order-3 variant")
+    kB = kmodel.constants["FourierFeatures_0.B"]
+    if not (tuple(kcfg.model.hidden_dims) == (256, 256, 256) and tuple(kB.shape) == (2, 256)
+            and torch.equal(kB.cpu(), 0.75 * feature_basis(0, 2, 256))):
+        raise AssertionError("the KdV model is not the recipe's 256x3 trunk on the shipped "
+                             "feature_seed 0 basis x 0.75")
+    k_steps_per_epoch = kt.num_collocation_points // kt.batch_size
+    k_steps = KDV_EPOCHS * k_steps_per_epoch
+    k_val_every = kt.validation_frequency
+    k_vals = sum(1 for e in range(1, KDV_EPOCHS + 1) if e % k_val_every == 0 or e == KDV_EPOCHS)
+    fourier_feats.fourier_features.launches = 0
+    fused_step.fused_residual_loss.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_res = ktrainer.train(seed=0)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    kdv_launches = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+                    "fourier_features": fourier_feats.fourier_features.launches}
+    k_hist = k_res["history"]["train_loss"]
+    print(f"[kdv] fused_kernel_active={ktrainer.fused_kernel_active} causal_eps={kt.causal_eps} "
+          f"steps={k_steps} ({KDV_EPOCHS} epochs x {k_steps_per_epoch}, batch {kt.batch_size} of "
+          f"{kt.num_collocation_points}) validations={k_vals} train {k_s:.2f} s; launches: "
+          f"{kdv_launches}; B = 0.75 x shipped seed0_2x256: True", flush=True)
+    print(f"[kdv] epoch mean losses: {' '.join(f'{v:.4e}' for v in k_hist)}", flush=True)
+    if len(k_hist) != KDV_EPOCHS or not all(v == v and abs(v) != float("inf") for v in k_hist):
+        raise AssertionError(f"KdV slice: non-finite or missing losses: {k_hist}")
+    if not k_hist[-1] < k_hist[0]:
+        raise AssertionError(f"KdV slice: loss did not fall: first epoch {k_hist[0]}, last {k_hist[-1]}")
+    if len(k_res["history"]["val_loss"]) != k_vals:
+        raise AssertionError(f"KdV slice: {len(k_res['history']['val_loss'])} validations, "
+                             f"expected {k_vals}")
+    if kdv_launches["fused_residual_loss"] != k_steps + k_vals:
+        raise AssertionError(f"KdV slice: fused kernel launched {kdv_launches['fused_residual_loss']} "
+                             f"times in {k_steps} steps and {k_vals} validations")
+    if kdv_launches["fourier_features"] < 2 * (k_steps + k_vals):
+        raise AssertionError(f"KdV slice: fourier_features launched {kdv_launches['fourier_features']} "
+                             f"times, expected >= {2 * (k_steps + k_vals)}")
+    k_net = ktrainer._final_state["params"]["net"]
+    k_val = kpde.validate(kmodel.apply, k_net, num_points=20000)
+    if not all(v == v for v in k_val.values()):
+        raise AssertionError(f"KdV slice: non-finite validation metrics {k_val}")
+    print(f"[kdv] validate(20000): rel_l2 {k_val['rel_l2']:.4e} max_error {k_val['max_error']:.4e} "
+          f"(no bar at {k_steps} steps; the JAX rows reach < 1e-3 after 1500 epochs)", flush=True)
+    k_p = {k: v.detach().requires_grad_(True) for k, v in k_net.items()}
+    k_z = time_sorted(*kpde.generate_collocation_points(gen, 8192, "uniform"))
+    compare("kdv_causal", "N=8192 trained params", k_p, k_z)
+
+    # ---- 11. kdv syncs and timing ------------------------------------------ #
+    n_sync_kdv, kdv_sites = count_syncs(ktrainer, kt.batch_size)
+    print(f"[syncs] one warm KdV step (time sort included): {n_sync_kdv} {kdv_sites}; "
+          f"uniform Burgers step {n_sync_uni}", flush=True)
+    if n_sync_kdv > n_sync_uni:
+        raise AssertionError(f"the KdV step makes {n_sync_kdv} host syncs, the uniform step {n_sync_uni}")
+    kdv_ms = cuda_ms(lambda: fused_grads(variants["kdv_causal"], k_p, k_z), iters=20)
+    kdv_plain_ms = cuda_ms(lambda: plain_grads(variants["kdv_causal"], k_p, k_z), iters=20)
+    print(f"[timing] fused_residual_loss KdV causal N=8192 (5 streams) loss+grads: kernel "
+          f"{kdv_ms:.3f} ms, plain {kdv_plain_ms:.3f} ms ({card})", flush=True)
+    plain_kcfg = kdv_recipe_config("cuda")
+    plain_kcfg.training.fused_residual_kernel = "off"
+    plain_ktrainer = PDETrainer(PINNModel(plain_kcfg, seed=0), create_pde(plain_kcfg), plain_kcfg)
+    assert not plain_ktrainer.fused_kernel_active
+    k_kernel_times, k_plain_times = [], []
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            k_kernel_times += step_times(ktrainer, 15, KDV_EPOCHS, kt.batch_size)
+        else:
+            with plain_fourier_features():
+                k_plain_times += step_times(plain_ktrainer, 15, KDV_EPOCHS, kt.batch_size)
+    print(f"[timing] KdV train step (batch 8192 causal, BC 4096, IC 4096), median of "
+          f"{len(k_kernel_times)}: kernels {statistics.median(k_kernel_times):.3f} ms, plain path "
+          f"{statistics.median(k_plain_times):.3f} ms ({card})", flush=True)
+
     if "jax" in sys.modules:
         raise AssertionError("chip_smoke imported jax")
     kernels = [
         {"name": "fused_residual_loss", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fused_residual.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fused_step.py:277",
-         "launches": rl_launches["fused_residual_loss"], "max_abs_err": fused_err,
-         "ms": fused_ms, "plain_ms": fused_plain_ms},
+         "launches": rl_launches["fused_residual_loss"],
+         "kdv_launches": kdv_launches["fused_residual_loss"],
+         "variants": list(FUSED_TOLS), "max_abs_err": max(fused_errs.values()),
+         "ms": fused_ms, "plain_ms": fused_plain_ms,
+         "kdv_causal_ms": kdv_ms, "kdv_causal_plain_ms": kdv_plain_ms},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
-         "launches": rl_launches["fourier_features"], "max_abs_err": ff_err,
+         "launches": rl_launches["fourier_features"],
+         "kdv_launches": kdv_launches["fourier_features"], "max_abs_err": ff_err,
          "ms": ff_ms, "plain_ms": ff_plain_ms},
         {"name": "fused_mlp_score", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/mlp_score.cu",

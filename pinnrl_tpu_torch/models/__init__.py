@@ -57,11 +57,6 @@ def create_module(model_cfg: ModelConfig, generator: Optional[torch.Generator] =
             **common,
         )
     if arch == "fourier":
-        if ap.get("feature_seed") is not None:
-            raise NotImplementedError(
-                "fourier feature_seed is not ported yet (ROADMAP item 12); "
-                "bridge the JAX basis with models.bridge.params_from_flax"
-            )
         return FourierNetwork(
             hidden_dims=tuple(model_cfg.hidden_dims),
             mapping_size=int(ap.get("mapping_size", 512)),
@@ -69,6 +64,7 @@ def create_module(model_cfg: ModelConfig, generator: Optional[torch.Generator] =
             periodic=bool(ap.get("periodic", True)),
             modified=bool(ap.get("modified", False)),
             trainable_features=bool(ap.get("trainable_features", False)),
+            feature_seed=ap.get("feature_seed"),
             activation=model_cfg.activation,
             dropout=model_cfg.dropout,
             layer_norm=model_cfg.layer_norm,

@@ -4,17 +4,44 @@
 counterpart of the flax ``constants`` collection; ``s = 2 pi`` when periodic.
 Batched inputs go through the hand-written CUDA kernel
 (``ops/kernels/fourier_feats.py``) on a CUDA tensor.
+
+With ``feature_seed`` the basis is the JAX package's: its unit normal draws
+``jax.random.normal(PRNGKey(feature_seed), (in_dim, mapping_size))`` are
+shipped as data in ``config/feature_bases.json`` (threefry cannot be drawn
+without JAX), and scaled here exactly as JAX scales them.
 """
 
 from __future__ import annotations
 
+import functools
+import json
 import math
+from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from pinnrl_tpu_torch.models.base import dense, get_activation
+
+_BASES_JSON = Path(__file__).resolve().parents[1] / "config" / "feature_bases.json"
+
+
+@functools.lru_cache(maxsize=None)
+def _shipped_bases() -> dict:
+    return json.loads(_BASES_JSON.read_text())
+
+
+def feature_basis(seed: int, in_dim: int, mapping_size: int) -> torch.Tensor:
+    """The unit normal basis JAX draws from ``PRNGKey(seed)``, (in_dim, m) f32."""
+    key = f"seed{int(seed)}_{int(in_dim)}x{int(mapping_size)}"
+    rows = _shipped_bases().get(key)
+    if rows is None:
+        raise NotImplementedError(
+            f"no shipped Fourier basis {key!r} in config/feature_bases.json "
+            f"(have {sorted(_shipped_bases())}); other feature seeds are ROADMAP item 12"
+        )
+    return torch.tensor(rows, dtype=torch.float32)
 
 
 class FourierFeatures(nn.Module):
@@ -25,6 +52,7 @@ class FourierFeatures(nn.Module):
         scale: float | tuple = 4.0,
         periodic: bool = True,
         generator: Optional[torch.Generator] = None,
+        feature_seed: Optional[int] = None,
     ) -> None:
         super().__init__()
         self.periodic = bool(periodic)
@@ -33,7 +61,11 @@ class FourierFeatures(nn.Module):
             raise ValueError(f"anisotropic scale needs {in_dim} entries, got {s.shape[0]}")
         if s.ndim == 1:
             s = s[:, None]  # one scale per input dimension (row of B)
-        B = s * torch.randn(in_dim, mapping_size, generator=generator)
+        if feature_seed is not None:
+            unit = feature_basis(feature_seed, in_dim, mapping_size)
+        else:
+            unit = torch.randn(in_dim, mapping_size, generator=generator)
+        B = s * unit
         self.register_buffer("B", B)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +100,7 @@ class FourierNetwork(nn.Module):
         layer_norm: bool = True,
         modified: bool = False,
         trainable_features: bool = False,
+        feature_seed: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
@@ -85,7 +118,8 @@ class FourierNetwork(nn.Module):
         self.layer_norm = bool(layer_norm)
         self.n_hidden = len(hidden_dims)
         self.FourierFeatures_0 = FourierFeatures(
-            input_dim, mapping_size, scale, periodic, generator=generator
+            input_dim, mapping_size, scale, periodic, generator=generator,
+            feature_seed=feature_seed,
         )
         widths = [2 * mapping_size, *hidden_dims]
         for i in range(self.n_hidden):

@@ -1,8 +1,9 @@
-"""PDE problem layer. Burgers is ported; the other PDEs are ROADMAP item 11."""
+"""PDE problem layer. Burgers and KdV are ported; the other PDEs are ROADMAP item 11."""
 
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, PDEBase  # noqa: F401
 from pinnrl_tpu_torch.pdes.burgers import BurgersEquation  # noqa: F401
+from pinnrl_tpu_torch.pdes.kdv import KdVEquation  # noqa: F401
 
 def create_pde(config: Config) -> PDEBase:
     """Build the PDE problem from a full Config."""

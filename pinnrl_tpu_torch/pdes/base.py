@@ -83,7 +83,7 @@ class PDEBase:
     def create(pde_type: str, settings: PDESettings, training: Optional[TrainingConfig] = None):
         """Name-based factory."""
         key = pde_type.lower().replace("-", "_").replace(" ", "_")
-        key = {"burgersequation": "burgers"}.get(key, key)
+        key = {"burgersequation": "burgers", "kdvequation": "kdv"}.get(key, key)
         if key not in PDE_CLASSES:
             raise ValueError(
                 f"PDE type {pde_type!r} is not ported yet (ROADMAP item 11); "
@@ -152,8 +152,8 @@ class PDEBase:
 
     def attach_fused_residual_kernel(self, model, enable: str | bool = "auto") -> bool:
         """Attach the fused residual-loss kernel (ops/kernels/fused_step.py):
-        hand-written CUDA kernels compute mean r^2 and its parameter
-        gradient. On CPU tensors the same callable runs its plain version."""
+        hand-written CUDA kernels compute the (causally weighted) mean r^2
+        and its parameter gradient. On CPU tensors the same callable runs its plain version."""
         from pinnrl_tpu_torch.ops.kernels import fused_step
 
         if enable in (False, "off", "false"):
@@ -337,11 +337,15 @@ class PDEBase:
             delta = float(getattr(self.training, "huber_delta", 1.0))
         return apply_loss_fn(diff, lf, delta)
 
+    def causal_eps(self) -> float:
+        """``training.causal_eps`` (0 without a training config)."""
+        return float(getattr(self.training, "causal_eps", 0.0) or 0.0) if self.training else 0.0
+
     def _residual_loss(self, residual: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Residual reduction; with ``training.causal_eps > 0`` points are
         sorted by time and weighted w_i = exp(-eps * sum_{t_j < t_i} r_j^2 / N)
         (weights carry no gradient)."""
-        eps = float(getattr(self.training, "causal_eps", 0.0) or 0.0) if self.training else 0.0
+        eps = self.causal_eps()
         if eps <= 0.0:
             return self._loss(residual)
         if residual.ndim == 2 and residual.shape[1] > 1:
@@ -386,7 +390,7 @@ class PDEBase:
 
         The residual term goes through the fused kernel whenever it is
         attached, validation included (there the kernel skips its reverse
-        pass).
+        pass); with causal weighting the points reach it sorted by time.
         """
         lw = self._loss_weights()
         if float(lw.get("smoothness", 0.0)) > 0:
@@ -400,7 +404,12 @@ class PDEBase:
             and x.dtype == torch.float32
         )
         if use_fused:
-            residual_loss = self._fused_residual_loss(params, torch.cat([x, t], dim=-1))
+            z = torch.cat([x, t], dim=-1)
+            if self.causal_eps() > 0.0:
+                # The kernel weights the points in the order given: sort by
+                # time here, outside it, as the JAX package does in XLA.
+                z = torch.index_select(z, 0, torch.argsort(t.reshape(-1), stable=True))
+            residual_loss = self._fused_residual_loss(params, z)
         else:
             residual = self.compute_residual(apply_fn, params, x, t, coeffs)
             residual_loss = self._residual_loss(residual, t)

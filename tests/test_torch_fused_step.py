@@ -79,15 +79,18 @@ def test_kernel_launcher_with_plain_twins_matches_autograd(layer_norm):
     assert none == {} and torch.equal(loss_only, loss)
 
 
+@pytest.mark.parametrize("x_order", [2, 3])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("layer_norm", [True, False])
-def test_transport_backward_matches_autograd(dtype, tol, layer_norm):
+def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order):
+    """The hand-derived reverse pass of the [value; x1..xK; t1] transport,
+    K = 2 (Burgers) and K = 3 (KdV)."""
     rng = np.random.default_rng(11)
-    n, width = 24, 40
-    H = torch.tensor(rng.standard_normal((4 * n, width)), dtype=dtype, requires_grad=True)
+    n, width, streams = 24, 40, 2 + x_order
+    H = torch.tensor(rng.standard_normal((streams * n, width)), dtype=dtype, requires_grad=True)
     gamma = torch.tensor(1.0 + 0.2 * rng.standard_normal(width), dtype=dtype, requires_grad=True)
     beta = torch.tensor(0.2 * rng.standard_normal(width), dtype=dtype, requires_grad=True)
-    GA = torch.tensor(rng.standard_normal((4 * n, width)), dtype=dtype)
+    GA = torch.tensor(rng.standard_normal((streams * n, width)), dtype=dtype)
     g, b = (gamma, beta) if layer_norm else (None, None)
     out = fused_step._transport_fwd_plain(H, g, b, n)
     inputs = [H, gamma, beta] if layer_norm else [H]
@@ -129,13 +132,14 @@ def test_supports_scope():
     assert fused_step.supports(pair.tmodel, pair.tpde, pair.tcfg.training)
     assert pair.tpde.attach_fused_residual_kernel(pair.tmodel)
     causal = burgers_pair(causal_eps=0.5)
-    assert not fused_step.supports(causal.tmodel, causal.tpde, causal.tcfg.training)
-    with pytest.raises(ValueError, match="unsupported"):
-        causal.tpde.attach_fused_residual_kernel(causal.tmodel, enable="on")
+    assert fused_step.supports(causal.tmodel, causal.tpde, causal.tcfg.training)
+    assert causal.tpde.attach_fused_residual_kernel(causal.tmodel, enable="on")
     ff = burgers_pair(arch="feedforward")
     assert not fused_step.supports(ff.tmodel, ff.tpde)
     pair.tcfg.training.loss_function = "mae"
     assert not fused_step.supports(pair.tmodel, pair.tpde, pair.tcfg.training)
+    with pytest.raises(ValueError, match="unsupported"):
+        pair.tpde.attach_fused_residual_kernel(pair.tmodel, enable="on")
     # No width gate: narrow trunks stay on the kernel.
     narrow = burgers_pair(hidden=(8,), mapping=4)
     assert fused_step.supports(narrow.tmodel, narrow.tpde)

@@ -23,7 +23,8 @@ def test_port_imports_without_jax():
         "import pinnrl_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(pinnrl_tpu_torch.__path__, 'pinnrl_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 18 and 'pinnrl_tpu_torch.rl.dqn' in mods, mods\n"
+        "assert len(mods) >= 21 and 'pinnrl_tpu_torch.rl.dqn' in mods, mods\n"
+        "assert {'pinnrl_tpu_torch.pdes.kdv', 'pinnrl_tpu_torch.benchmarks.convergence'} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"

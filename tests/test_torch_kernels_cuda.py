@@ -6,7 +6,8 @@ version on the same CUDA tensors. Marked ``cuda``; each test skips (from the
 
 Tolerances: Fourier features 1e-5 relative to max (sincosf vs torch's
 sin/cos on the same f32 phases); fused loss 1e-5 relative and gradients
-1e-4 relative to each gradient's max (sums in another order); the MLP
+1e-4 relative to each gradient's max (sums in another order), 2e-4 and
+1e-3 for the KdV causal variant (order-3 jets, causal weights); the MLP
 scorer 1e-4 relative to max (the JAX suite's bound for its kernel: sums in
 another order through two LayerNorms).
 """
@@ -90,6 +91,53 @@ def test_fused_residual_loss_matches_plain(cuda_device, hidden, mapping, n):
     torch.cuda.synchronize()
     assert fused_step.fused_residual_loss.launches == before + 1
     assert float(l_val) == float(lk.detach())
+
+
+@pytest.mark.parametrize("hidden,mapping,n", [((256, 256, 256), 256, 8192), ((32, 24), 16, 300)])
+def test_fused_residual_loss_kdv_causal_matches_plain(cuda_device, hidden, mapping, n):
+    """Kernel 1's order-3, causal variant on the KdV recipe (eps 1.0) on
+    time-sorted points: loss 2e-4 relative, gradients 1e-3 relative to max
+    (the JAX suite's order-3 and causal bounds)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    cfg = build_recipe_config("kdv", device="cuda")
+    cfg.model.hidden_dims = list(hidden)
+    cfg.model.arch_params["mapping_size"] = mapping
+    cfg.model.arch_params.pop("feature_seed")
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    fn = fused_step.make_fused_residual_loss(model, pde)
+    bundle_fn = make_bundle_fn(model, 1, 3, 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x, t = pde.generate_collocation_points(gen, n, "uniform")
+    z = torch.cat([x, t], dim=-1)[torch.argsort(t.reshape(-1), stable=True)]
+    params = model.params
+    lk = fn(params, z)
+    gk = torch.autograd.grad(lk, list(params.values()))
+    lp = fused_step.fused_residual_loss_plain(bundle_fn, pde, params, z)
+    gp = torch.autograd.grad(lp, list(params.values()))
+    torch.cuda.synchronize()
+    assert abs(float(lk.detach()) - float(lp.detach())) / abs(float(lp.detach())) < 2e-4
+    for name, a, b in zip(params, gk, gp):
+        assert _rel(a, b) < 1e-3, name
+
+
+@pytest.mark.parametrize("n", [1, 1000, 5000, 8192])
+def test_causal_scan_matches_plain(cuda_device, n):
+    """The three-pass scan kernels against the plain twin: [w, w r^2] to
+    1e-5 relative to max (f32 sums in another order inside exp)."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    r = 2.0 * torch.randn((n, 1), generator=gen, device=cuda_device)
+    got = fused_step._cuda_ops(cuda_device).causal_weights(r, n, 1.0)
+    ref = fused_step._TorchOps().causal_weights(r, n, 1.0)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 2) and float(got[0, 0]) == 1.0
+    assert _rel(got[:, 0], ref[:, 0]) < 1e-5 and _rel(got[:, 1], ref[:, 1]) < 1e-5
 
 
 @pytest.mark.parametrize("n,hidden,action_dim", [(10000, 512, 1), (1000, 128, 4), (37, 40, 3)])

@@ -1,7 +1,7 @@
 """Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
 
-Each helper makes the same small Burgers problem in the JAX package and in
-the port, and bridges the JAX model's parameters into the port's model, so
+Each helper makes the same small Burgers or KdV problem in the JAX package
+and in the port, and bridges the JAX model's parameters into the port's model, so
 both sides evaluate the same function. Inputs are made with numpy from a
 seed and handed to both as arrays.
 """
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 TRAVELING_WAVE = {"type": "traveling_wave", "amplitude": 0.5, "speed": 0.5, "center": -0.25}
+KDV_DOMAIN = dict(domain=((-15.0, 15.0),), time_domain=(0.0, 5.0))  # for points(...)
 
 
 def rel_to_max(got, ref) -> float:
@@ -24,10 +25,14 @@ def rel_to_max(got, ref) -> float:
     return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-30))
 
 
-def _configure(cfg, *, hidden, mapping, periodic, layer_norm, scale, causal_eps):
+def _configure(cfg, **kw):
     cfg.pde.parameters.update({"nu": 0.01})
     cfg.pde.exact_solution = dict(TRAVELING_WAVE)
     cfg.pde.initial_condition = {"type": "traveling_wave"}
+    return _configure_model_training(cfg, **kw)
+
+
+def _configure_model_training(cfg, *, hidden, mapping, periodic, layer_norm, scale, causal_eps):
     cfg.model.hidden_dims = list(hidden)
     cfg.model.layer_norm = layer_norm
     cfg.model.arch_params.update({"mapping_size": mapping, "scale": scale, "periodic": periodic})
@@ -60,18 +65,39 @@ def burgers_pair(*, arch="fourier", hidden=(32, 32), mapping=16, periodic=True,
     ``ln_jitter`` perturbs the LayerNorm scale/bias away from flax's (1, 0)
     init so their gradients and the gamma/beta terms are exercised."""
     from pinnrl_tpu.config import load_config as jax_load_config
-    from pinnrl_tpu.models import PINNModel as JaxModel
-    from pinnrl_tpu.pdes import create_pde as jax_create_pde
     from pinnrl_tpu_torch.config import load_config
-    from pinnrl_tpu_torch.models import PINNModel
-    from pinnrl_tpu_torch.pdes import create_pde
 
     kw = dict(hidden=hidden, mapping=mapping, periodic=periodic, layer_norm=layer_norm,
               scale=scale, causal_eps=causal_eps)
     jcfg = _configure(jax_load_config(pde_type="burgers", architecture=arch), **kw)
     tcfg = _configure(load_config(pde_type="burgers", architecture=arch, device="cpu"), **kw)
+    return _pair(jcfg, tcfg, seed=seed, jitter_ln=ln_jitter and layer_norm)
+
+
+def kdv_pair(*, hidden=(32, 32), mapping=16, periodic=True, layer_norm=True, scale=0.75,
+             causal_eps=0.0, seed=0, ln_jitter=True):
+    """The KdV problem (soliton IC and exact solution on [-15, 15] x [0, 5],
+    Dirichlet u = 0) on a Fourier trunk in both packages, bridged as
+    ``burgers_pair`` bridges Burgers."""
+    from pinnrl_tpu.config import load_config as jax_load_config
+    from pinnrl_tpu_torch.config import load_config
+
+    kw = dict(hidden=hidden, mapping=mapping, periodic=periodic, layer_norm=layer_norm,
+              scale=scale, causal_eps=causal_eps)
+    jcfg = _configure_model_training(jax_load_config(pde_type="kdv", architecture="fourier"), **kw)
+    tcfg = _configure_model_training(
+        load_config(pde_type="kdv", architecture="fourier", device="cpu"), **kw)
+    return _pair(jcfg, tcfg, seed=seed, jitter_ln=ln_jitter and layer_norm)
+
+
+def _pair(jcfg, tcfg, *, seed, jitter_ln):
+    from pinnrl_tpu.models import PINNModel as JaxModel
+    from pinnrl_tpu.pdes import create_pde as jax_create_pde
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+
     jpde, jmodel = jax_create_pde(jcfg), JaxModel(jcfg, seed=seed)
-    if ln_jitter and layer_norm:
+    if jitter_ln:
         rng = np.random.default_rng(seed + 100)
 
         def jitter(path, leaf):

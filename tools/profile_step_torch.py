@@ -18,7 +18,9 @@ it prints:
     each kernel name per step.
 
 With ``--rl`` the step is the RL-driven one: the DQN agent of the shipped
-defaults scores the 100x100 grid and takes its update on every step.
+defaults scores the 100x100 grid and takes its update on every step. With
+``--kdv`` it is a step of the KdV recipe (``build_recipe_config("kdv")``:
+Fourier 256x3, mapping 256, batch 8192, causal eps 1.0, order-3 residual).
 
 The chrome traces go to ``--out``. The script imports no JAX.
 """
@@ -59,12 +61,10 @@ def _union_us(intervals) -> float:
 def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card: str):
     import torch
 
-    from chip_smoke import EPOCHS
-
     dev = trainer.device
     steps_per_epoch = cfg.training.num_collocation_points // cfg.training.batch_size
     params = trainer.model.params
-    opt = trainer._make_adam(EPOCHS, steps_per_epoch, list(params.values()))
+    opt = trainer._make_adam(cfg.training.num_epochs, steps_per_epoch, list(params.values()))
     gen = torch.Generator(device=dev).manual_seed(7)
 
     def step():
@@ -115,7 +115,9 @@ def main() -> int:
     ap.add_argument("--profiled", type=int, default=10, help="steps under torch.profiler")
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "profile"),
                     help="directory for the chrome traces and summary.json")
-    ap.add_argument("--rl", action="store_true", help="profile the RL-driven step")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--rl", action="store_true", help="profile the RL-driven step")
+    kind.add_argument("--kdv", action="store_true", help="profile the KdV recipe's causal step")
     args = ap.parse_args()
 
     import torch
@@ -123,7 +125,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step_torch: no CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import (burgers_recipe_config, make_agent, nvidia_smi_line,
+    from chip_smoke import (burgers_recipe_config, kdv_recipe_config, make_agent, nvidia_smi_line,
                             plain_fourier_features, plain_mlp_score)
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.pdes import create_pde
@@ -132,9 +134,9 @@ def main() -> int:
     card = nvidia_smi_line()
     out = Path(args.out)
     results = []
-    prefix = "rl_" if args.rl else ""
+    prefix = "rl_" if args.rl else "kdv_" if args.kdv else ""
     for label in ("kernels", "plain"):
-        cfg = burgers_recipe_config("cuda")
+        cfg = kdv_recipe_config("cuda") if args.kdv else burgers_recipe_config("cuda")
         cfg.rl.enabled = args.rl
         if label == "plain":
             cfg.training.fused_residual_kernel = "off"
