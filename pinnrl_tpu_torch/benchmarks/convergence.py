@@ -6,8 +6,9 @@ optimizer schedule); ``build_recipe_config`` materialises it into a
 ``Config`` and ``run_convergence`` trains it and reports rel-L2, max error,
 wall time and points per second.
 
-Ported: the ``kdv`` and ``burgers`` recipes. ``run_convergence("burgers")``
-raises in the trainer, since its ``adam_lbfgs`` optimizer is ROADMAP item 8.
+Ported: the ``heat``, ``kdv`` and ``burgers`` recipes.
+``run_convergence("heat")`` and ``run_convergence("burgers")`` raise in the
+trainer, since their ``adam_lbfgs`` optimizer is ROADMAP item 8.
 The other recipes raise naming item 11 (their PDEs); experiment directories
 and resume raise naming item 9; time-marching raises naming item 13 (no
 shipped recipe is multi-stage).
@@ -41,6 +42,17 @@ class ConvergenceResult:
 # Tuned recipes: (arch, model overrides, training overrides), copied from
 # pinnrl_tpu/benchmarks/convergence.py, whose comments give their sweeps.
 RECIPES: Dict[str, dict] = {
+    "heat": dict(
+        arch="fourier",
+        # The sin(pi x) decay mode wants a low-frequency basis: scale 0.75.
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=0.75),
+        training=dict(
+            num_epochs=3000, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.4,
+            learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
     "kdv": dict(
         arch="fourier",
         # feature_seed pins the random-Fourier basis (shipped as data in

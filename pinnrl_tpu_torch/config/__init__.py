@@ -470,7 +470,7 @@ class Config(_DictAccess):
         self.logging = _build_simple(LoggingConfig, raw.get("logging", {}))
         self.paths = _build_simple(PathsConfig, raw.get("paths", {}))
 
-        self.device = self._resolve_device(device or raw.get("device", "cuda"))
+        self.device = resolve_device(device or raw.get("device", "cuda"))
         self._validate()
 
     @classmethod
@@ -506,7 +506,7 @@ class Config(_DictAccess):
         self.evaluation = _build_simple(EvaluationConfig, d.get("evaluation", {}))
         self.logging = _build_simple(LoggingConfig, d.get("logging", {}))
         self.paths = _build_simple(PathsConfig, d.get("paths", {}))
-        self.device = self._resolve_device(d.get("device", "cuda"))
+        self.device = resolve_device(d.get("device", "cuda"))
         self._validate()
         return self
 
@@ -540,30 +540,6 @@ class Config(_DictAccess):
         kwargs["lbfgs"] = _build_simple(LBFGSConfig, lbfgs_block)
         kwargs["lr_scheduler"] = sched
         return TrainingConfig(**kwargs)
-
-    @staticmethod
-    def _resolve_device(requested: str) -> str:
-        """Resolve the torch device name. No fallback: an accelerator that
-        is asked for and absent raises.
-
-        ``"tpu"`` (the shared defaults' spelling of "the accelerator") and
-        ``"gpu"`` mean ``"cuda"``; ``"cuda:N"`` keeps its index.
-        """
-        import torch
-
-        requested = (requested or "cuda").lower()
-        if requested == "cpu":
-            return "cpu"
-        if requested in ("tpu", "gpu"):
-            requested = "cuda"
-        if requested == "cuda" or requested.startswith("cuda:"):
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"device {requested!r} requested but torch.cuda.is_available() "
-                    "is False; pass device='cpu' to run on the host"
-                )
-            return requested
-        raise ValueError(f"Unknown device {requested!r}; valid: cpu, cuda, cuda:N")
 
     def _validate(self) -> None:
         """Cross-field validation (reference: config/__init__.py:612-674)."""
@@ -612,6 +588,31 @@ class Config(_DictAccess):
             "logging": _asdict(self.logging),
             "paths": _asdict(self.paths),
         }
+
+
+def resolve_device(requested: Optional[str] = "cuda") -> str:
+    """Resolve a torch device name. No fallback: an accelerator that is
+    asked for and absent raises. The port's entry points default to the
+    card, as the JAX package runs on its default backend.
+
+    ``"tpu"`` (the shared defaults' spelling of "the accelerator") and
+    ``"gpu"`` mean ``"cuda"``; ``"cuda:N"`` keeps its index.
+    """
+    import torch
+
+    requested = str(requested or "cuda").lower()
+    if requested == "cpu":
+        return "cpu"
+    if requested in ("tpu", "gpu"):
+        requested = "cuda"
+    if requested == "cuda" or requested.startswith("cuda:"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {requested!r} requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run on the host"
+            )
+        return requested
+    raise ValueError(f"Unknown device {requested!r}; valid: cpu, cuda, cuda:N")
 
 
 def _build_simple(cls: type, block: Dict[str, Any]):

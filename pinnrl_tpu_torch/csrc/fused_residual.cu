@@ -1,13 +1,14 @@
 // Fused residual loss of the Fourier PINN and its gradient with respect to
-// every network parameter, for the Burgers residual r = u_t + u u_x - nu u_xx
-// and the KdV residual r = u_t + 6 u u_x + u_xxx, plain (loss = mean_i r_i^2)
+// every network parameter, for the Burgers residual r = u_t + u u_x - nu u_xx,
+// the heat residual r = u_t - alpha u_xx and the KdV residual
+// r = u_t + 6 u u_x + u_xxx, plain (loss = mean_i r_i^2)
 // or causally weighted (loss = sum_i w_i r_i^2 / sum_i w_i with
 // w_i = exp(-eps sum_{j<i} r_j^2 / N) over the time-sorted batch; the
 // weights carry no gradient).
 //
 // Replaces the whole of the Pallas kernel pinnrl_tpu/ops/kernels/fused_step.py:277
 // (make_fused_residual_loss: _run / _tile_loss, behind the custom-VJP
-// fused_loss) for Burgers and KdV, causal or not. The TPU program keeps one
+// fused_loss) for Burgers, heat and KdV, causal or not. The TPU program keeps one
 // batch tile's whole forward and backward live set in VMEM, takes the
 // backward from jax.vjp inside the kernel, and carries the causal prefix
 // from one grid step to the next because its grid runs in order on one
@@ -20,7 +21,7 @@
 //   embed_kernel<K>       z -> affine map -> [sin, cos] and the closed-form
 //                         phase-rotation streams, written as the stacked
 //                         ((2+K)N, 2m) input [value; x1..xK; t1], K = 2
-//                         (Burgers) or 3 (KdV).
+//                         (Burgers, heat) or 3 (KdV).
 //   sgemm_kernel          FP32 tiled GEMM from sgemm_f32.cuh (shared with
 //                         mlp_score.cu: 64x64x16 tiles in shared memory, 4x4
 //                         register micro-tile, FMA on the CUDA cores, no
@@ -34,7 +35,7 @@
 //                         recomputes the forward quantities from the saved
 //                         pre-activation instead of storing them, and writes
 //                         per-point LayerNorm scale/bias gradient rows.
-//   burgers_kernel, kdv_kernel  r and the stream cotangents: plain, r^2 and
+//   burgers_kernel, heat_kernel, kdv_kernel  r and the stream cotangents: plain, r^2 and
 //                         2r/N dr/dU; causal, r and the unscaled dr/dU.
 //   causal scan           three deterministic passes over the sorted r^2:
 //                         per-block sums, one block's exclusive scan of the
@@ -430,8 +431,8 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
 }
 
 // ------------------------------------------------------------ residuals --
-// U: stacked network outputs (bias included), Burgers [u; u_x; u_xx; u_t],
-// KdV [u; u_x; u_xx; u_xxx; u_t]. Plain: out = r^2, dU = 2r/N dr/dU.
+// U: stacked network outputs (bias included), Burgers and heat
+// [u; u_x; u_xx; u_t], KdV [u; u_x; u_xx; u_xxx; u_t]. Plain: out = r^2, dU = 2r/N dr/dU.
 // Causal: out = r, dU = dr/dU (scaled later by causal_scale_kernel).
 
 __global__ void burgers_kernel(const float* __restrict__ U, float* __restrict__ dU,
@@ -454,6 +455,22 @@ __global__ void burgers_kernel(const float* __restrict__ U, float* __restrict__ 
     dU[i] = c * ux;
     dU[n + i] = c * u;
     dU[2 * n + i] = -c * nu;
+    dU[3 * n + i] = c;
+}
+
+// Heat: r = u_t - alpha u_xx, linear (dr/du_t = 1, dr/du_xx = -alpha).
+__global__ void heat_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                            float* __restrict__ out, int n, float alpha, float two_over_n,
+                            int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float uxx = U[2 * n + i], ut = U[3 * n + i];
+    const float r = ut - alpha * uxx;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = 0.0f;
+    dU[n + i] = 0.0f;
+    dU[2 * n + i] = -c * alpha;
     dU[3 * n + i] = c;
 }
 
@@ -666,6 +683,14 @@ extern "C" int fr_burgers(const float* U, float* dU, float* out, int n, float nu
     if (n > 0)
         burgers_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, nu,
                                                                        2.0f / (float)n, causal);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fr_heat(const float* U, float* dU, float* out, int n, float alpha, int causal,
+                       void* stream) {
+    if (n > 0)
+        heat_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, alpha,
+                                                                    2.0f / (float)n, causal);
     return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
-// FP32 tiled GEMM and a warp reduction, shared by fused_residual.cu and
-// mlp_score.cu (each is built into its own library, so the unnamed
-// namespace gives each its own copy).
+// FP32 tiled GEMM and a warp reduction, shared by fused_residual.cu,
+// mlp_score.cu and siren.cu (each is built into its own library, so the
+// unnamed namespace gives each its own copy).
 //
-// sgemm_kernel: 64x64x16 tiles in shared memory, a 4x4 register micro-tile
-// per thread, FMA on the CUDA cores (no TF32), any strides, an optional
-// bias on the first bias_rows rows, and an optional split over K.
+// sgemm_tile: one block's 64x64 output tile, 64x64x16 tiles in shared
+// memory, a 4x4 register micro-tile per thread, FMA on the CUDA cores (no
+// TF32), any strides; kernels add their own epilogue (siren.cu: bias, scale
+// and sin). sgemm_kernel: the plain product with an optional bias on the
+// first bias_rows rows and an optional split over K.
 
 #pragma once
 
@@ -17,29 +19,20 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int GEMM_THREADS = 256;
 
-// C[m, n] = sum_{k in split} A[m*sam + k*sak] * B[k*sbk + n*sbn] (+ bias[n]
-// for m < bias_rows). blockIdx.z is the K split; split z writes to
-// C + z * split_stride.
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-sgemm_kernel(int M, int N, int K, const float* __restrict__ A, long long sam, long long sak,
-             const float* __restrict__ B, long long sbk, long long sbn, float* __restrict__ C,
-             long long ldc, const float* __restrict__ bias, int bias_rows, int k_chunk,
-             long long split_stride) {
+// acc += the (BM x BN) tile at rows m0.., columns n0.. of
+// sum_{k in [kbeg, kend)} A[m*sam + k*sak] * B[k*sbk + n*sbn], by a block of
+// GEMM_THREADS threads; thread tid holds rows m0 + 4 (tid / 16) + i and
+// columns n0 + 4 (tid % 16) + j. Rows, columns and k past the ends read 0.
+__device__ __forceinline__ void sgemm_tile(int M, int N, const float* __restrict__ A, long long sam,
+                                           long long sak, const float* __restrict__ B, long long sbk,
+                                           long long sbn, int m0, int n0, int kbeg, int kend,
+                                           float (&acc)[4][4]) {
     __shared__ float As[BK][BM + 4];
     __shared__ float Bs[BK][BN + 4];
     const int tid = threadIdx.x;
     const int tx = tid % 16, ty = tid / 16;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    const int kbeg = blockIdx.z * k_chunk;
-    const int kend = min(K, kbeg + k_chunk);
     const bool a_kfast = (sak == 1);
     const bool b_nfast = (sbn == 1);
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
     for (int k0 = kbeg; k0 < kend; k0 += BK) {
         for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
@@ -69,6 +62,27 @@ sgemm_kernel(int M, int N, int K, const float* __restrict__ A, long long sam, lo
         }
         __syncthreads();
     }
+}
+
+// C[m, n] = sum_{k in split} A[m*sam + k*sak] * B[k*sbk + n*sbn] (+ bias[n]
+// for m < bias_rows). blockIdx.z is the K split; split z writes to
+// C + z * split_stride.
+
+__global__ void __launch_bounds__(GEMM_THREADS)
+sgemm_kernel(int M, int N, int K, const float* __restrict__ A, long long sam, long long sak,
+             const float* __restrict__ B, long long sbk, long long sbn, float* __restrict__ C,
+             long long ldc, const float* __restrict__ bias, int bias_rows, int k_chunk,
+             long long split_stride) {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+    const int kbeg = blockIdx.z * k_chunk;
+    const int kend = min(K, kbeg + k_chunk);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    sgemm_tile(M, N, A, sam, sak, B, sbk, sbn, m0, n0, kbeg, kend, acc);
     float* Cz = C + (long long)blockIdx.z * split_stride;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

@@ -15,21 +15,23 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from pinnrl_tpu_torch.config import Config, ModelConfig
+from pinnrl_tpu_torch.config import Config, ModelConfig, resolve_device
 from pinnrl_tpu_torch.models.base import count_parameters
 from pinnrl_tpu_torch.models.feedforward import FeedForwardNetwork
 from pinnrl_tpu_torch.models.fourier import FourierNetwork
+from pinnrl_tpu_torch.models.siren import SIREN
 
 __all__ = [
     "PINNModel",
     "create_module",
     "FeedForwardNetwork",
     "FourierNetwork",
+    "SIREN",
     "count_parameters",
     "PORTED_ARCHITECTURES",
 ]
 
-PORTED_ARCHITECTURES = ("feedforward", "fourier")
+PORTED_ARCHITECTURES = ("feedforward", "fourier", "siren")
 
 
 def _parse_scale(v):
@@ -71,6 +73,13 @@ def create_module(model_cfg: ModelConfig, generator: Optional[torch.Generator] =
             generator=generator,
             **common,
         )
+    if arch == "siren":
+        return SIREN(
+            hidden_dims=tuple(model_cfg.hidden_dims),
+            omega_0=float(ap.get("omega_0", 30.0)),
+            generator=generator,
+            **common,
+        )
     raise ValueError(
         f"architecture {arch!r} is not ported yet (ROADMAP item 12); "
         f"ported: {PORTED_ARCHITECTURES}"
@@ -96,7 +105,7 @@ class PINNModel:
         self.config = model_cfg
         self.architecture_name = model_cfg.architecture
         if device is None:
-            device = config.device if isinstance(config, Config) else "cpu"
+            device = config.device if isinstance(config, Config) else resolve_device("cuda")
         self.device = torch.device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         self.module = create_module(model_cfg, gen).to(self.device)

@@ -42,6 +42,20 @@ def count_parameters(params: torch.nn.Module | Mapping[str, torch.Tensor]) -> in
     return int(sum(p.numel() for p in params.values()))
 
 
+def layer_norm(norm: torch.nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``norm(x)``; inside a ``torch.func`` transform, the same function in
+    plain ops (two-pass variance, as torch's). torch's fused layer_norm has
+    a forward-mode rule that is wrong from the second order on (nested
+    ``torch.func.jvp`` gives wrong u_xx), while plain ops nest exactly; the
+    fused op stays where no transform is active (one launch, not six)."""
+    if not torch._C._are_functorch_transforms_active():
+        return norm(x)
+    mean = x.mean(dim=-1, keepdim=True)
+    c = x - mean
+    var = (c * c).mean(dim=-1, keepdim=True)
+    return c * torch.rsqrt(var + norm.eps) * norm.weight + norm.bias
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """flax's default kernel init: truncated normal (±2σ), variance 1/fan_in.
 

@@ -4,6 +4,9 @@
 - ``Dense_i/bias``                     <-> ``Dense_i.bias``
 - ``LayerNorm_i/{scale, bias}``        <-> ``LayerNorm_i.{weight, bias}``
 - ``constants/FourierFeatures_0/B``    <-> the ``FourierFeatures_0.B`` buffer
+- ``SIRENLayer_i/{kernel, bias}``      <-> ``SIRENLayer_i.{kernel, bias}`` (flax's
+  (in, out) layout kept: it is the SIREN kernel's W); SIREN's final layer is
+  ``Dense_0`` under the Dense rule
 
 The same rules carry the DQN agent's tree (``dqn_params_from_flax`` /
 ``dqn_params_to_flax``): ``Dense_{0,1,2}`` and ``LayerNorm_{0,1}``.
@@ -36,6 +39,8 @@ def params_from_flax(
                 out[f"{module}.{_LN_NAMES[name]}"] = torch.from_numpy(arr.copy())
             elif module.startswith("Dense_") and name == "bias":
                 out[f"{module}.bias"] = torch.from_numpy(arr.copy())
+            elif module.startswith("SIRENLayer_") and name in ("kernel", "bias"):
+                out[f"{module}.{name}"] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"no bridge rule for flax leaf {module}/{name}")
     for collection, modules in (constants_np or {}).items():
@@ -61,6 +66,8 @@ def params_to_flax(state: Mapping[str, torch.Tensor]):
             params.setdefault(module, {})[leaf] = np.ascontiguousarray(arr.T) if name == "weight" else arr
         elif module.startswith("LayerNorm_"):
             params.setdefault(module, {})[inv_ln[name]] = arr
+        elif module.startswith("SIRENLayer_") and name in ("kernel", "bias"):
+            params.setdefault(module, {})[name] = arr
         elif module.startswith("FourierFeatures_"):
             constants.setdefault(module, {})[name] = arr
         else:

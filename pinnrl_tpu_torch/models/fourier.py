@@ -22,7 +22,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pinnrl_tpu_torch.models.base import dense, get_activation
+from pinnrl_tpu_torch.models.base import dense, get_activation, layer_norm
 
 _BASES_JSON = Path(__file__).resolve().parents[1] / "config" / "feature_bases.json"
 
@@ -133,6 +133,6 @@ class FourierNetwork(nn.Module):
         for i in range(self.n_hidden):
             x = getattr(self, f"Dense_{i}")(x)
             if self.layer_norm:
-                x = getattr(self, f"LayerNorm_{i}")(x)
+                x = layer_norm(getattr(self, f"LayerNorm_{i}"), x)
             x = self.act(x)
         return getattr(self, f"Dense_{self.n_hidden}")(x)

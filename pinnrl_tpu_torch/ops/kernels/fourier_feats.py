@@ -1,11 +1,20 @@
 """Fused Fourier-feature embedding: [sin(s x@B), cos(s x@B)], s = 2 pi or 1.
 
 CUDA kernel: ``csrc/fourier_feats.cu``. On a CUDA tensor ``fourier_features``
-launches it (or raises); on a CPU tensor it runs ``fourier_features_plain``.
-Its gradient is written on the kernel's own output, as the JAX jvp rule is:
-g_proj = s (g_sin cos - g_cos sin), g_x = g_proj @ B^T, g_B = x^T @ g_proj.
-The forward-mode (jvp) rule waits for the generic derivative engine
-(ROADMAP item 10).
+launches it through ``_FourierFeaturesFn`` (or raises); on a CPU tensor it
+runs ``fourier_features_plain``. Both derivative rules are written on the
+kernel's own output, as the JAX ``custom_jvp`` rule is
+(``pinnrl_tpu/ops/kernels/fourier_feats.py``):
+
+- jvp: d[sin, cos] = [cos, -sin] s (dx B + x dB), in plain ops on the
+  output, which an enclosing ``jvp`` or ``grad`` differentiates again (the
+  periodic boundary loss differentiates the network through it);
+- backward: g_proj = s (g_sin cos - g_cos sin), g_x = g_proj B^T,
+  g_B = x^T g_proj.
+
+``_FourierFeaturesFn`` takes the launch as an argument, so the CPU tests run
+it with ``fourier_features_plain`` in its place. ``fourier_features.jvps``
+counts the jvp rule's runs on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ import math
 
 import torch
 
-from pinnrl_tpu_torch.ops.kernels import _build
+from pinnrl_tpu_torch.ops.kernels import _build, _jvp
 
 _TWO_PI = 2.0 * math.pi
 
@@ -58,12 +67,18 @@ def fourier_features_cuda(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True)
 
 
 class _FourierFeaturesFn(torch.autograd.Function):
+    """[sin(s x B), cos(s x B)] with ``launch`` computing the primal."""
+
     @staticmethod
-    def forward(ctx, x, B, two_pi: bool):
-        out = fourier_features_cuda(x, B, two_pi)
-        ctx.save_for_backward(x, B, out)
+    def forward(x, B, two_pi: bool, launch):
+        return launch(x, B, two_pi)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, B, two_pi, _launch = inputs
+        ctx.save_for_backward(x, B, output)
+        ctx.save_for_forward(x, B, output)
         ctx.two_pi = two_pi
-        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -73,7 +88,34 @@ class _FourierFeaturesFn(torch.autograd.Function):
         g_proj = s * (g[:, :m] * out[:, m:] - g[:, m:] * out[:, :m])
         gx = g_proj @ B.t() if ctx.needs_input_grad[0] else None
         gB = x.t() @ g_proj if ctx.needs_input_grad[1] else None
-        return gx, gB, None
+        return gx, gB, None, None
+
+    @staticmethod
+    def jvp(ctx, dx, dB, _two_pi, _launch):
+        level, (x, B, out, dx, dB) = _jvp.lower(*ctx.saved_tensors, dx, dB)
+        if out.device.type == "cuda":
+            fourier_features.jvps += 1
+        m = B.shape[1]
+        s = _TWO_PI if ctx.two_pi else 1.0
+        with _jvp.forward_mode(level):
+            terms = [t for t in (None if dx is None else dx @ B,
+                                 None if dB is None else x @ dB) if t is not None]
+            dproj = terms[0] if len(terms) == 1 else terms[0] + terms[1]
+            dproj = s * dproj
+            return torch.cat([out[..., m:] * dproj, -out[..., :m] * dproj], dim=-1)
+
+    @staticmethod
+    def vmap(info, in_dims, x, B, two_pi, launch):
+        x_bd, B_bd = in_dims[:2]
+        if B_bd is None:
+            # Rows are independent: fold the batch into x's rows, one call.
+            xb = x.movedim(x_bd, 0)
+            out = _FourierFeaturesFn.apply(xb.reshape(-1, xb.shape[-1]), B, two_pi, launch)
+            return out.reshape(*xb.shape[:-1], 2 * B.shape[-1]), 0
+        outs = [_FourierFeaturesFn.apply(x if x_bd is None else x.select(x_bd, i),
+                                         B.select(B_bd, i), two_pi, launch)
+                for i in range(info.batch_size)]
+        return torch.stack(outs), 0
 
 
 def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
@@ -82,8 +124,9 @@ def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> t
     if x.device.type == "cpu" and B.device.type == "cpu":
         return fourier_features_plain(x, B, two_pi)
     if x.device.type == "cuda":
-        return _FourierFeaturesFn.apply(x, B, bool(two_pi))
+        return _FourierFeaturesFn.apply(x, B, bool(two_pi), fourier_features_cuda)
     raise ValueError(f"fourier_features: unsupported devices x={x.device}, B={B.device}")
 
 
 fourier_features.launches = 0
+fourier_features.jvps = 0

@@ -1,5 +1,5 @@
-"""Fused residual loss: the (causally weighted) mean r^2 of the Burgers or
-KdV residual AND its parameter gradient, computed by hand-written CUDA
+"""Fused residual loss: the (causally weighted) mean r^2 of the Burgers,
+KdV or heat residual AND its parameter gradient, computed by hand-written CUDA
 kernels (``csrc/fused_residual.cu``).
 
 ``make_fused_residual_loss(model, pde)`` returns ``fn(params, z)``, which
@@ -25,9 +25,9 @@ the scan's block arithmetic and all the layout and stride bookkeeping against
 autograd — and the chip smoke test compares the CUDA set with the plain
 version on the card.
 
-Scope: one space dimension, spatial order 2 (Burgers, 4 stacked streams) or
-3 (KdV, 5 streams), temporal order 1, causal or not, float32. The other
-PDEs' residuals wait for their PDEs (ROADMAP item 11).
+Scope: one space dimension, spatial order 2 (Burgers and heat, 4 stacked
+streams) or 3 (KdV, 5 streams), temporal order 1, causal or not, float32.
+The other PDEs' residuals wait for their PDEs (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ _GEMM_TILE = 64
 _GEMM_BK = 16
 _COLSUM_ROWS = 256
 _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
-_RESIDUALS = ("burgers", "kdv")
+_RESIDUALS = ("burgers", "heat", "kdv")
 _TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs for split-K products
 
 
@@ -270,6 +270,14 @@ class _TorchOps:
         c = (2.0 / n) * r
         return torch.stack([c * ux, c * u, -c * nu, c]).reshape(-1, 1), (r * r).reshape(n, 1)
 
+    def heat(self, U, n, alpha, causal):
+        _u, _ux, uxx, ut = U.reshape(4, n)
+        r = ut - alpha * uxx
+        one, zero = torch.ones_like(r), torch.zeros_like(r)
+        c = one if causal else (2.0 / n) * r
+        dU = torch.stack([zero, zero, -c * alpha, c]).reshape(-1, 1)
+        return dU, (r if causal else r * r).reshape(n, 1)
+
     def kdv(self, U, n, causal):
         u, ux, uxx, uxxx, ut = U.reshape(5, n)
         r = ut + 6.0 * u * ux + uxxx
@@ -303,6 +311,8 @@ class _CudaOps:
         "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "fr_burgers": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                                ctypes.c_void_p],
+        "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_void_p],
         "fr_kdv": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "fr_causal_weights": [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_void_p],
@@ -369,6 +379,13 @@ class _CudaOps:
         out = self._empty(n, 1)
         _build.check(self.lib.fr_burgers(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
                                          float(nu), int(causal), self.stream), "burgers_kernel")
+        return dU, out
+
+    def heat(self, U, n, alpha, causal):
+        dU = torch.empty_like(U)
+        out = self._empty(n, 1)
+        _build.check(self.lib.fr_heat(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
+                                      float(alpha), int(causal), self.stream), "heat_kernel")
         return dU, out
 
     def kdv(self, U, n, causal):
@@ -469,7 +486,8 @@ class _Spec:
     periodic: bool
     x_order: int  # K: the stacked streams are [value; x1..xK; t1]
     residual: str  # one of _RESIDUALS
-    nu: float  # Burgers' viscosity (KdV has no coefficient)
+    nu: float  # Burgers' viscosity (0 for the others)
+    alpha: float  # heat's diffusivity (0 for the others)
     causal_eps: float  # 0 = plain mean r^2
     lo: torch.Tensor
     scale: torch.Tensor
@@ -496,6 +514,8 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
     U = _linear(ops, X[-1], P[f"Dense_{L}.weight"], P[f"Dense_{L}.bias"], n)
     if spec.residual == "burgers":
         G, out = ops.burgers(U, n, spec.nu, causal)
+    elif spec.residual == "heat":
+        G, out = ops.heat(U, n, spec.alpha, causal)
     else:
         G, out = ops.kdv(U, n, causal)
     if causal:
@@ -606,6 +626,7 @@ def _spec(model, pde) -> _Spec:
         x_order=max(pde.spatial_orders),
         residual=pde.pde_type,
         nu=float(pde._nu(None)) if pde.pde_type == "burgers" else 0.0,
+        alpha=float(pde._alpha(None)) if pde.pde_type == "heat" else 0.0,
         causal_eps=pde.causal_eps(),
         lo=model._in_lo.contiguous(),
         scale=model._in_scale.contiguous(),
@@ -636,7 +657,7 @@ def make_fused_residual_loss(model, pde) -> Callable[[Dict[str, torch.Tensor], t
 def supports(model, pde, training=None) -> bool:
     """The structural conditions of the stacked-jet bundle, the reductions
     the kernel hard-codes (plain MSE, no trainable coefficients), and this
-    port's scope: the Burgers or KdV residual on a Fourier trunk in one
+    port's scope: the Burgers, KdV or heat residual on a Fourier trunk in one
     space dimension, causal or not, no moving frame. No width gate: the
     TPU's gate was a TPU measurement, and no H100 measurement has set one."""
     from pinnrl_tpu_torch.ops import jet_mlp

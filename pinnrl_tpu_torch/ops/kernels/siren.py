@@ -1,0 +1,138 @@
+"""Fused SIREN layer: sin(omega (x @ W + b)).
+
+CUDA kernel: ``csrc/siren.cu``. On a CUDA tensor ``siren_layer`` launches it
+through ``_SirenFn`` (or raises); on a CPU tensor it runs
+``siren_layer_plain``. Every SIREN layer of a residual runs inside nested
+``torch.func.jvp`` (the generic derivative engine, ``ops/derivatives.py``),
+so the Function carries the JAX kernel's ``custom_jvp`` rule
+(``pinnrl_tpu/ops/kernels/siren.py``): the primal comes through the
+Function itself, the tangent cos(omega pre) omega (dx W + x dW + db) is
+written in plain ops, which an enclosing ``jvp`` or ``grad`` differentiates
+again. The pre-activation is recomputed there and in ``backward``, as JAX
+does, rather than written out by the kernel: the kernel stays one output,
+and a forward without autograd (validation) moves no extra bytes.
+
+``_SirenFn`` takes the launch as an argument, so the CPU tests run the
+Function with ``siren_layer_plain`` in its place and hold its ``jvp``,
+``backward`` and ``vmap`` rules against the plain function.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pinnrl_tpu_torch.ops.kernels import _build, _jvp
+
+
+def siren_layer_plain(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                      omega: float = 30.0) -> torch.Tensor:
+    """The plain PyTorch version of the kernel."""
+    return torch.sin(omega * (x @ W + b))
+
+
+def _lib():
+    lib = _build.load_library("siren")
+    fn = lib.siren_forward
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES["siren_forward"]
+    return lib
+
+
+_ARGTYPES = {
+    "siren_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def siren_layer_cuda(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                     omega: float = 30.0) -> torch.Tensor:
+    """Launch the CUDA kernel on x (..., k), W (k, m), b (m,); counts one
+    launch."""
+    if (W.ndim != 2 or W.shape[0] < 1 or b.shape != (W.shape[1],) or x.ndim < 1
+            or x.shape[-1] != W.shape[0]):
+        raise ValueError(f"siren_layer: shapes x {tuple(x.shape)}, W {tuple(W.shape)}, "
+                         f"b {tuple(b.shape)} do not chain")
+    for name, t in (("x", x), ("W", W), ("b", b)):
+        _build.require_cuda_f32(f"siren_layer {name}", t)
+        if t.device != x.device:
+            raise ValueError(f"siren_layer: {name} on {t.device}, x on {x.device}")
+    k, m = W.shape
+    n = x.numel() // k
+    out = torch.empty((*x.shape[:-1], m), dtype=torch.float32, device=x.device)
+    status = _lib().siren_forward(x.data_ptr(), W.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  n, k, m, float(omega), _build.stream_handle(x.device))
+    _build.check(status, "siren_kernel")
+    siren_layer.launches += 1
+    return out
+
+
+class _SirenFn(torch.autograd.Function):
+    """sin(omega (x W + b)) with ``launch`` computing the primal."""
+
+    @staticmethod
+    def forward(x, W, b, omega: float, launch):
+        return launch(x, W, b, omega)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, W, b, omega, _launch = inputs
+        ctx.save_for_backward(x, W, b)
+        ctx.save_for_forward(x, W, b)
+        ctx.omega = omega
+
+    @staticmethod
+    def backward(ctx, g):
+        x, W, b = ctx.saved_tensors
+        om = ctx.omega
+        g_pre = g * (om * torch.cos(om * (x @ W + b)))
+        g2 = g_pre.reshape(-1, W.shape[1])
+        gx = g_pre @ W.t() if ctx.needs_input_grad[0] else None
+        gW = x.reshape(-1, W.shape[0]).t() @ g2 if ctx.needs_input_grad[1] else None
+        gb = g2.sum(dim=0) if ctx.needs_input_grad[2] else None
+        return gx, gW, gb, None, None
+
+    @staticmethod
+    def jvp(ctx, dx, dW, db, _omega, _launch):
+        level, (x, W, b, dx, dW, db) = _jvp.lower(*ctx.saved_tensors, dx, dW, db)
+        om = ctx.omega
+        with _jvp.forward_mode(level):
+            pre = x @ W + b
+            terms = [t for t in (None if dx is None else dx @ W,
+                                 None if dW is None else x @ dW, db) if t is not None]
+            dpre = terms[0]
+            for t in terms[1:]:
+                dpre = dpre + t
+            return torch.cos(om * pre) * (om * dpre)
+
+    @staticmethod
+    def vmap(info, in_dims, x, W, b, omega, launch):
+        x_bd, W_bd, b_bd = in_dims[:3]
+        if W_bd is None and b_bd is None:
+            # Rows are independent: fold the batch into x's rows, one call.
+            xb = x.movedim(x_bd, 0)
+            out = _SirenFn.apply(xb.reshape(-1, xb.shape[-1]), W, b, omega, launch)
+            return out.reshape(*xb.shape[:-1], W.shape[1]), 0
+
+        def pick(t, bd, i):
+            return t if bd is None else t.select(bd, i)
+
+        outs = [_SirenFn.apply(pick(x, x_bd, i), pick(W, W_bd, i), pick(b, b_bd, i), omega, launch)
+                for i in range(info.batch_size)]
+        return torch.stack(outs), 0
+
+
+def siren_layer(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                omega: float = 30.0) -> torch.Tensor:
+    """sin(omega (x @ W + b)) for x (..., k), W (k, m), b (m,): the CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors; anything else
+    raises. No width gate: the JAX kernel's %128 gate is a TPU tiling fact."""
+    if all(t.device.type == "cpu" for t in (x, W, b)):
+        return siren_layer_plain(x, W, b, omega)
+    if x.device.type == "cuda":
+        return _SirenFn.apply(x, W, b, float(omega), siren_layer_cuda)
+    raise ValueError(f"siren_layer: unsupported devices x={x.device}, W={W.device}, b={b.device}")
+
+
+siren_layer.launches = 0

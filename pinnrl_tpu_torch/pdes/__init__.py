@@ -1,8 +1,10 @@
-"""PDE problem layer. Burgers and KdV are ported; the other PDEs are ROADMAP item 11."""
+"""PDE problem layer. Burgers, KdV and heat (one space dimension) are
+ported; the other PDEs and heat_2d are ROADMAP item 11."""
 
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, PDEBase  # noqa: F401
 from pinnrl_tpu_torch.pdes.burgers import BurgersEquation  # noqa: F401
+from pinnrl_tpu_torch.pdes.heat import HeatEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.kdv import KdVEquation  # noqa: F401
 
 def create_pde(config: Config) -> PDEBase:

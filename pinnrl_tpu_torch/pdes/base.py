@@ -1,15 +1,18 @@
 """PDE problem base class: physics, BC/IC targets, sampling, loss assembly.
 
 The main-path subset of ``pinnrl_tpu.pdes.base``. A PDE subclass writes its
-residual against ``u`` / ``directional_derivative`` / ``laplacian``; here
-``u`` is the stacked-jet :class:`BundleView`, so the residual runs batched
-over the collocation points. Randomness comes from an explicit
-``torch.Generator`` instead of a PRNG key.
+residual against ``u`` / ``directional_derivative`` / ``laplacian``; ``u``
+is the stacked-jet :class:`BundleView` where the model supports it and the
+batched scalar network otherwise (the generic engine, nested jvp:
+``ops/derivatives.py``), so the residual runs batched over the collocation
+points either way. Randomness comes from an explicit ``torch.Generator``
+instead of a PRNG key; where a test must feed JAX's draws, the public
+function takes the draws and hands them as tensors to a deterministic
+helper (``_periodic_terms``, ``_validate_on``).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the generic derivative engine behind periodic/Neumann BC losses and gPINN
-(item 10), inverse mode and observation data (item 13), and the smoothness
-penalty and hard-IC transform (item 13).
+the Neumann BC loss and gPINN (item 10), inverse mode and observation data
+(item 13), and the smoothness penalty and hard-IC transform (item 13).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from pinnrl_tpu_torch.config import PDESettings, TrainingConfig
+from pinnrl_tpu_torch.ops.derivatives import make_scalar_fn, value_and_derivative
 from pinnrl_tpu_torch.ops.losses import apply_loss_fn
 from pinnrl_tpu_torch.sampling import (
     sample_adaptive,
@@ -83,7 +87,8 @@ class PDEBase:
     def create(pde_type: str, settings: PDESettings, training: Optional[TrainingConfig] = None):
         """Name-based factory."""
         key = pde_type.lower().replace("-", "_").replace(" ", "_")
-        key = {"burgersequation": "burgers", "kdvequation": "kdv"}.get(key, key)
+        key = {"burgersequation": "burgers", "kdvequation": "kdv", "heatequation": "heat",
+               "heat_2d": "heat", "heat2d": "heat"}.get(key, key)
         if key not in PDE_CLASSES:
             raise ValueError(
                 f"PDE type {pde_type!r} is not ported yet (ROADMAP item 11); "
@@ -170,18 +175,22 @@ class PDEBase:
         self._fused_residual_loss = fused_step.make_fused_residual_loss(model, self)
         return True
 
-    def compute_residual(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> torch.Tensor:
-        """Batched residual (N, 1) through the stacked-jet bundle."""
-        if self._fast_bundle_fn is None:
-            raise NotImplementedError(
-                "residuals need the stacked-jet bundle: call attach_fast_bundle; "
-                "the generic derivative engine is ROADMAP item 10"
-            )
-        from pinnrl_tpu_torch.ops.jet_mlp import BundleView
+    def _scalar_u(self, apply_fn: Callable, params):
+        """The batched scalar restriction of the network (channel 0)."""
+        return make_scalar_fn(apply_fn, params)
 
+    def compute_residual(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> torch.Tensor:
+        """Batched residual (N, 1): through the stacked-jet bundle when it is
+        attached, else through the generic engine (nested jvp of the
+        network)."""
         z = torch.cat([x, t], dim=-1)
-        value, streams = self._fast_bundle_fn(params, z)
-        return self.residual_pointwise(BundleView(value, streams), z, coeffs).reshape(-1, 1)
+        if self._fast_bundle_fn is not None:
+            from pinnrl_tpu_torch.ops.jet_mlp import BundleView
+
+            value, streams = self._fast_bundle_fn(params, z)
+            return self.residual_pointwise(BundleView(value, streams), z, coeffs).reshape(-1, 1)
+        u = self._scalar_u(apply_fn, params)
+        return self.residual_pointwise(u, z, coeffs).reshape(-1, 1)
 
     def residual_score(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> torch.Tensor:
         """Per-point residual magnitude, shape (N,): RAR pool scoring and the
@@ -210,7 +219,7 @@ class PDEBase:
             value = float(params.get("value", 0.0) or 0.0)
             return lambda x, t: torch.full_like(x[:, 0:1], value)
         if bc_type in ("neumann", "periodic"):
-            # Enforced structurally in _boundary_loss (not ported yet).
+            # Enforced structurally in _boundary_loss (Neumann not ported yet).
             value = float(params.get("value", 0.0) or 0.0) if bc_type == "neumann" else 0.0
             return lambda x, t: torch.full_like(x[:, 0:1], value)
         if bc_type == "initial":
@@ -367,17 +376,48 @@ class PDEBase:
             return {}
         return dict(getattr(self.training, "loss_weights", {}) or {})
 
+    def _periodic_loss(self, u_scalar, generator: torch.Generator, n: int) -> torch.Tensor:
+        """True periodicity: opposite-face value and first-derivative
+        matching per axis, on ``n // (2 dim)`` fresh points per axis (free
+        coordinates uniform, times from ``_sample_boundary_time``)."""
+        per_axis = max(n // (2 * self.dimension), 1)
+        los, his = self._space_bounds(generator.device)
+        draws = []
+        for _axis in range(self.dimension):
+            free = self._uniform(generator, per_axis, los, his)
+            draws.append((free, self._sample_boundary_time(generator, per_axis)))
+        return self._periodic_terms(u_scalar, draws)
+
+    def _periodic_terms(self, u_scalar, draws) -> torch.Tensor:
+        """The periodic loss on given draws: per axis, ``(free, t)`` with
+        ``free`` (n, dim) and ``t`` (n, 1). The low and high faces go through
+        the network as one batch, and one jvp gives value and derivative."""
+        loss = torch.zeros((), device=draws[0][0].device)
+        for axis, (free, t_ax) in enumerate(draws):
+            n = free.shape[0]
+            z = torch.cat([torch.cat([free, t_ax], dim=1)] * 2, dim=0)
+            z[:n, axis] = self.domain[axis][0]
+            z[n:, axis] = self.domain[axis][1]
+            u, du = value_and_derivative(u_scalar, z, axis)
+            loss = loss + self._loss(u[:n] - u[n:])
+            loss = loss + self._loss(du[:n] - du[n:])
+        return loss
+
     def _boundary_loss(self, apply_fn, params, generator: torch.Generator, n_b: int) -> torch.Tensor:
-        """Every registered (non-initial) boundary condition on fresh points."""
+        """Every registered (non-initial) boundary condition on fresh points;
+        periodic conditions in their structural form."""
         loss = torch.zeros((), device=generator.device)
+        u_scalar = self._scalar_u(apply_fn, params)
         for bc_type, bc_func in self.boundary_conditions.items():
             if bc_type == "initial":
                 continue
-            if bc_type in ("periodic", "neumann"):
+            if bc_type == "neumann":
                 raise NotImplementedError(
-                    f"{bc_type} boundary losses need the generic derivative "
-                    "engine, not ported yet (ROADMAP item 10)"
+                    "the Neumann boundary loss is not ported yet (ROADMAP item 10)"
                 )
+            if bc_type == "periodic":
+                loss = loss + self._periodic_loss(u_scalar, generator, n_b)
+                continue
             x_b, t_b = self._sample_boundary_points(generator, n_b)
             u_b = apply_fn(params, torch.cat([x_b, t_b], dim=-1)).reshape(x_b.shape[0], -1)[:, 0:1]
             loss = loss + self._loss(u_b - bc_func(x_b, t_b))
@@ -481,6 +521,10 @@ class PDEBase:
         device = next(iter(params.values())).device
         generator = generator if generator is not None else _default_generator(device)
         x, t = sample_uniform(generator, num_points, self.domain, self.time_domain)
+        return self._validate_on(apply_fn, params, x, t, coeffs)
+
+    def _validate_on(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> Dict[str, Any]:
+        """``validate``'s metrics on the given points."""
         u_exact = self.exact_solution(x, t, coeffs)
         pred = apply_fn(params, torch.cat([x, t], dim=-1)).reshape(x.shape[0], -1)[:, 0:1]
         if u_exact is None:

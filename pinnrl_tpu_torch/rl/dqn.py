@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pinnrl_tpu_torch.config import resolve_device
 from pinnrl_tpu_torch.ops.kernels import mlp
 from pinnrl_tpu_torch.training.trainer import AdamStep
 
@@ -100,7 +101,7 @@ class RLAgent:
         batch_size: int = 124,
         target_update: int = 100,
         reward_weights: Optional[Dict[str, float]] = None,
-        device: str | torch.device = "cpu",
+        device: Optional[str | torch.device] = None,
     ) -> None:
         self.state_dim = state_dim
         self.action_dim = action_dim
@@ -119,7 +120,8 @@ class RLAgent:
             "initial": 1.0,
             "exploration": 0.1,
         }
-        self.device = torch.device(device)
+        # The card unless the caller names a device; raises without one.
+        self.device = torch.device(resolve_device("cuda") if device is None else device)
         # The structure that functional_call evaluates; its own weights are unused.
         self.network = DQNNetwork(state_dim, action_dim, hidden_dim).to(self.device)
 

@@ -17,6 +17,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from pinnrl_tpu_torch.config import resolve_device
+
 Domain = Sequence[Tuple[float, float]]
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -154,8 +156,11 @@ def sample_residual_based(
 
 
 def make_grid(domain: Domain, time_domain: Tuple[float, float], points_per_axis: int = 100,
-              device="cpu") -> torch.Tensor:
-    """Regular grid over (space, time), flattened to (G, dim + 1)."""
+              device=None) -> torch.Tensor:
+    """Regular grid over (space, time), flattened to (G, dim + 1), on
+    ``device`` (the card unless the caller names one; raises without it)."""
+    if device is None:
+        device = resolve_device("cuda")
     axes = [torch.linspace(lo, hi, points_per_axis, device=device) for lo, hi in domain]
     axes.append(torch.linspace(time_domain[0], time_domain[1], points_per_axis, device=device))
     mesh = torch.meshgrid(*axes, indexing="ij")

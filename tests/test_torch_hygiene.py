@@ -23,8 +23,10 @@ def test_port_imports_without_jax():
         "import pinnrl_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(pinnrl_tpu_torch.__path__, 'pinnrl_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 21 and 'pinnrl_tpu_torch.rl.dqn' in mods, mods\n"
-        "assert {'pinnrl_tpu_torch.pdes.kdv', 'pinnrl_tpu_torch.benchmarks.convergence'} <= set(mods)\n"
+        "assert len(mods) >= 25 and 'pinnrl_tpu_torch.rl.dqn' in mods, mods\n"
+        "assert {'pinnrl_tpu_torch.pdes.kdv', 'pinnrl_tpu_torch.benchmarks.convergence',\n"
+        "        'pinnrl_tpu_torch.ops.kernels.siren', 'pinnrl_tpu_torch.models.siren',\n"
+        "        'pinnrl_tpu_torch.ops.derivatives', 'pinnrl_tpu_torch.pdes.heat'} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
@@ -100,7 +102,7 @@ def test_cpu_tensors_take_the_plain_versions():
     bundle_fn = make_bundle_fn(pair.tmodel, 1, 2, 1)
     ref = fused_step.fused_residual_loss_plain(bundle_fn, pair.tpde, pair.tmodel.params, z)
     assert torch.equal(fn(pair.tmodel.params, z), ref)
-    q_params = RLAgent(hidden_dim=16).init(torch.Generator().manual_seed(0)).policy_params
+    q_params = RLAgent(hidden_dim=16, device="cpu").init(torch.Generator().manual_seed(0)).policy_params
     with torch.no_grad():
         assert torch.equal(mlp.fused_mlp_score(z, q_params), mlp.fused_mlp_score_plain(z, q_params))
     after = tuple(c.launches for c in counters)
@@ -114,7 +116,7 @@ def test_wrappers_reject_other_devices():
     x = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported devices"):
         fourier_feats.fourier_features(x, torch.zeros((2, 8), device="meta"))
-    q_params = RLAgent(hidden_dim=16).init(torch.Generator().manual_seed(0)).policy_params
+    q_params = RLAgent(hidden_dim=16, device="cpu").init(torch.Generator().manual_seed(0)).policy_params
     with pytest.raises(ValueError, match="unsupported device"):
         mlp.fused_mlp_score(x, q_params)
 
@@ -125,10 +127,24 @@ def test_unported_features_raise():
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
 
+    # SIREN and heat are ported: both build.
+    siren = PINNModel(load_config(pde_type="burgers", architecture="siren", device="cpu"))
+    assert siren.architecture_name == "siren" and "SIRENLayer_6.kernel" in siren.params
+    assert create_pde(load_config(pde_type="heat", device="cpu")).pde_type == "heat"
     with pytest.raises(ValueError, match="not ported yet"):
-        PINNModel(load_config(pde_type="burgers", architecture="siren", device="cpu"))
+        PINNModel(load_config(pde_type="burgers", architecture="resnet", device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        create_pde(load_config(pde_type="heat_2d", device="cpu"))
     with pytest.raises(ValueError, match="ROADMAP item 11"):
-        create_pde(load_config(pde_type="heat", device="cpu"))
+        create_pde(load_config(pde_type="wave", device="cpu"))
+    neumann = load_config(pde_type="burgers", architecture="fourier", device="cpu")
+    neumann.pde.boundary_conditions = {"neumann": {"value": 0.0}}
+    neumann.model.hidden_dims = [8]
+    neumann.model.arch_params["mapping_size"] = 4
+    n_pde = create_pde(neumann)
+    n_model = PINNModel(neumann)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        n_pde.compute_loss(n_model.apply, n_model.params, torch.zeros(8, 1), torch.zeros(8, 1))
     cfg = load_config(pde_type="burgers", architecture="fourier", device="cpu")
     cfg.model.hidden_dims = [8]
     cfg.model.arch_params["mapping_size"] = 4

@@ -74,5 +74,10 @@ def test_supports_and_unported_routes():
     assert not jet_mlp.supports(pair.tmodel)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         jet_mlp.make_bundle_fn(pair.tmodel, 1, 2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        directional_derivative(lambda z: z, torch.zeros(2), 0, 1)
+    # Any other point function takes the generic engine (nested jvp), which
+    # names its modes.
+    z = torch.tensor([[0.5, 2.0], [1.5, -1.0]])
+    (d1,) = directional_derivative(lambda zz: zz[:, 0] ** 2 * zz[:, 1], z, 0, 1)
+    assert torch.allclose(d1, 2.0 * z[:, 0] * z[:, 1])
+    with pytest.raises(ValueError, match="Unknown derivative mode"):
+        directional_derivative(lambda zz: zz[:, 0], z, 0, 1, mode="taylor")

@@ -84,7 +84,7 @@ def test_unknown_basis_raises(seed, in_dim, m):
 # ------------------------------------------------------------------- recipes
 
 
-@pytest.mark.parametrize("key", ["kdv", "burgers"])
+@pytest.mark.parametrize("key", ["kdv", "burgers", "heat"])
 def test_recipes_and_configs_equal_jax(key):
     assert convergence.RECIPES[key] == jax_conv.RECIPES[key]
     a = jax_conv.build_recipe_config(key, epochs=7).to_dict()
@@ -96,13 +96,14 @@ def test_recipes_and_configs_equal_jax(key):
 
 def test_harness_raises_for_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        convergence.build_recipe_config("heat", device="cpu")
+        convergence.build_recipe_config("wave", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         convergence.run_convergence("kdv", epochs=1, experiment_dir="unused", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         convergence.run_time_marching("kdv")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        convergence.run_convergence("burgers", epochs=1, device="cpu")
+    for key in ("burgers", "heat"):  # adam_lbfgs
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+            convergence.run_convergence(key, epochs=1, device="cpu")
 
 
 def test_run_convergence_trains_and_reports(monkeypatch):

@@ -9,7 +9,10 @@ sin/cos on the same f32 phases); fused loss 1e-5 relative and gradients
 1e-4 relative to each gradient's max (sums in another order), 2e-4 and
 1e-3 for the KdV causal variant (order-3 jets, causal weights); the MLP
 scorer 1e-4 relative to max (the JAX suite's bound for its kernel: sums in
-another order through two LayerNorms).
+another order through two LayerNorms); the SIREN layer 1e-5 relative to
+max, and the kernels' jvp rules at order k 1e-4 x 10^(k-1) relative to max
+(the JAX suite's bounds for its SIREN and Fourier kernels,
+tests/test_pallas_parity_tpu.py).
 """
 
 import numpy as np
@@ -173,3 +176,114 @@ def test_fused_mlp_score_rejects_bad_inputs(cuda_device):
         mlp.fused_mlp_score(torch.zeros((0, 2), device=cuda_device), params)
     with pytest.raises(TypeError):
         mlp.fused_mlp_score(torch.zeros((8, 2), device=cuda_device, dtype=torch.float64), params)
+
+
+def _siren_inputs(n, k, m, device, seed):
+    """x like a SIREN layer's input (the mapped coordinates, or the previous
+    layer's sin), W and b from the SIREN init at omega 30."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = 2.0 * torch.rand((n, k), generator=gen, device=device) - 1.0
+    bound = 1.0 / k if k <= 2 else (6.0 / k) ** 0.5 / 30.0
+    W = bound * (2.0 * torch.rand((k, m), generator=gen, device=device) - 1.0)
+    b = 0.1 * torch.randn((m,), generator=gen, device=device)
+    return x, W, b
+
+
+@pytest.mark.parametrize("n,k,m", [(2048, 2, 124), (2048, 124, 124), (5000, 124, 124), (37, 5, 13)])
+def test_siren_kernel_matches_plain(cuda_device, n, k, m):
+    from pinnrl_tpu_torch.ops.kernels import siren
+
+    x, W, b = _siren_inputs(n, k, m, cuda_device, n + k)
+    before = siren.siren_layer.launches
+    with torch.no_grad():
+        got = siren.siren_layer(x, W, b, 30.0)
+        ref = siren.siren_layer_plain(x, W, b, 30.0)
+    torch.cuda.synchronize()
+    assert siren.siren_layer.launches == before + 1
+    assert got.shape == (n, m) and torch.isfinite(got).all()
+    assert _rel(got, ref) < 1e-5
+
+
+def _nested(f, x, v, order):
+    for _ in range(order):
+        f = (lambda prev: (lambda xx: torch.func.jvp(prev, (xx,), (v,))[1]))(f)
+    return f(x)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_kernel_jvp_rules_on_card(cuda_device, order):
+    """Nested jvp through _SirenFn (two 124-wide layers) and through
+    _FourierFeaturesFn against the plain functions on the card."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, siren
+
+    x, W1, b1 = _siren_inputs(2048, 2, 124, cuda_device, 1)
+    _, W2, b2 = _siren_inputs(1, 124, 124, cuda_device, 2)
+    v = torch.zeros_like(x)
+    v[:, 0] = 1.0
+
+    def net(layer):
+        return lambda xx: layer(layer(xx, W1, b1, 30.0), W2, b2, 30.0).sum(-1)
+
+    got = _nested(net(siren.siren_layer), x, v, order)
+    ref = _nested(net(siren.siren_layer_plain), x, v, order)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < 1e-4 * 10 ** (order - 1)
+
+    B = 0.75 * torch.randn((2, 128), generator=torch.Generator(device=cuda_device).manual_seed(3),
+                           device=cuda_device)
+    Wf = 0.1 * torch.randn((256, 8), generator=torch.Generator(device=cuda_device).manual_seed(4),
+                           device=cuda_device)
+
+    def ff_net(ff):
+        return lambda xx: torch.tanh(ff(xx, B) @ Wf).sum(-1)
+
+    before = fourier_feats.fourier_features.jvps
+    got = _nested(ff_net(fourier_feats.fourier_features), x, v, order)
+    ref = _nested(ff_net(fourier_feats.fourier_features_plain), x, v, order)
+    torch.cuda.synchronize()
+    assert fourier_feats.fourier_features.jvps > before
+    assert _rel(got, ref) < 1e-4 * 10 ** (order - 1)
+
+
+def test_siren_rejects_bad_inputs(cuda_device):
+    from pinnrl_tpu_torch.ops.kernels import siren
+
+    x, W, b = _siren_inputs(8, 4, 6, cuda_device, 0)
+    with pytest.raises(TypeError):
+        siren.siren_layer(x.double(), W.double(), b.double())
+    with pytest.raises(ValueError):
+        siren.siren_layer(x, W[:3], b)
+    with pytest.raises(ValueError):
+        siren.siren_layer(x, W, b[:5])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_residual_loss_heat_matches_plain(cuda_device, causal):
+    """Kernel 1's heat variant on the heat recipe (256x3, mapping 128) at
+    N = 8192: loss 1e-5 relative, gradients 1e-4 relative to max (1e-4 and
+    1e-3 causal)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    cfg = build_recipe_config("heat", device="cuda")
+    cfg.training.optimizer = "adam"
+    cfg.training.causal_eps = 1.0 if causal else 0.0
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    fn = fused_step.make_fused_residual_loss(model, pde)
+    bundle_fn = make_bundle_fn(model, 1, 2, 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x, t = pde.generate_collocation_points(gen, 8192, "uniform")
+    z = torch.cat([x, t], dim=-1)[torch.argsort(t.reshape(-1), stable=True)]
+    params = model.params
+    lk = fn(params, z)
+    gk = torch.autograd.grad(lk, list(params.values()))
+    lp = fused_step.fused_residual_loss_plain(bundle_fn, pde, params, z)
+    gp = torch.autograd.grad(lp, list(params.values()), allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    loss_tol, grad_tol = (1e-4, 1e-3) if causal else (1e-5, 1e-4)
+    assert abs(float(lk.detach()) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
+    for name, a, b in zip(params, gk, gp):
+        assert _rel(a, b) < grad_tol, name  # the output bias: 0 in both

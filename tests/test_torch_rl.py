@@ -69,7 +69,7 @@ def agent_pair(hidden=32, action_dim=1, memory=64, batch=16, epsilon=1.0, jitter
     if jitter:
         jstate = jstate.replace(policy_params=_jitter(jstate.policy_params, 1),
                                 target_params=_jitter(jstate.target_params, 2))
-    tagent = RLAgent(**args)
+    tagent = RLAgent(**args, device="cpu")
     tstate = tagent.init(torch.Generator().manual_seed(0))
     _load(tstate.policy_params, jstate.policy_params)
     _load(tstate.target_params, jstate.target_params)
@@ -231,7 +231,7 @@ def test_update_trains_once_the_buffer_holds_a_batch():
 def test_compute_reward_matches_jax():
     weights = {"residual": 0.7, "boundary": 1.3, "initial": 0.4, "exploration": 0.2}
     jagent = JaxRLAgent(hidden_dim=8, reward_weights=weights)
-    tagent = RLAgent(hidden_dim=8, reward_weights=weights)
+    tagent = RLAgent(hidden_dim=8, reward_weights=weights, device="cpu")
     rng = np.random.default_rng(10)
     res = np.abs(rng.standard_normal(64)).astype(np.float32)
     b, i, bonus = np.float32(0.37), np.float32(2.5), np.float32(0.8)
@@ -291,7 +291,7 @@ def test_one_rl_step_matches_jax(monkeypatch):
     def draw(arr):
         return torch.from_numpy(np.array(arr))
 
-    grid = make_grid(pair.tpde.domain, pair.tpde.time_domain, ppa)
+    grid = make_grid(pair.tpde.domain, pair.tpde.time_domain, ppa, device="cpu")
     scores = tagent._select(trl, grid, draw(jax.random.uniform(k_bern)),
                             draw(jax.random.uniform(k_rand, (ppa * ppa,))))
     lo, hi = _bounds(pair.tpde.domain, pair.tpde.time_domain, "cpu")
@@ -338,7 +338,7 @@ def _small_trainer(distribution, agent=None):
 
 
 def test_trainer_with_agent_returns_finite_history():
-    agent = RLAgent(hidden_dim=32, memory_size=256, batch_size=16)
+    agent = RLAgent(hidden_dim=32, memory_size=256, batch_size=16, device="cpu")
     trainer, pair = _small_trainer("uniform", agent)
     assert trainer.strategy == "adaptive"
     res = trainer.train(num_epochs=2, seed=0)

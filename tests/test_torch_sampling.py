@@ -43,7 +43,7 @@ def _score_t(g):
 @pytest.mark.parametrize("domain,ppa", [(DOMAIN, 10), ([(-1.0, 1.0), (0.0, 2.0)], 7), (DOMAIN, 100)])
 def test_make_grid_matches_jax(domain, ppa):
     ref = np.asarray(jstrat.make_grid(domain, TIME, ppa))
-    got = tstrat.make_grid(domain, TIME, ppa)
+    got = tstrat.make_grid(domain, TIME, ppa, device="cpu")
     assert got.shape == ref.shape == (ppa ** (len(domain) + 1), len(domain) + 1)
     assert _close(got, ref)
 
@@ -75,7 +75,7 @@ def test_sample_adaptive_matches_jax(n):
     else:
         u = jax.random.uniform(k_pick, (n, G), minval=_TINY, maxval=1.0)
     jit = jax.random.uniform(k_jit, (n, 2), minval=-0.5, maxval=0.5)
-    grid = tstrat.make_grid(DOMAIN, TIME, ppa)
+    grid = tstrat.make_grid(DOMAIN, TIME, ppa, device="cpu")
     lo, hi = tstrat._bounds(DOMAIN, TIME, "cpu")
     x, t = tstrat._adaptive_pick(grid, _score_t(grid), n, draw(u), draw(jit), lo, hi, ppa)
     assert x.shape == (n, 1) and t.shape == (n, 1)

@@ -1,7 +1,7 @@
 """Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
 
-Each helper makes the same small Burgers or KdV problem in the JAX package
-and in the port, and bridges the JAX model's parameters into the port's model, so
+Each helper makes the same small Burgers, KdV or heat problem in the JAX
+package and in the port, and bridges the JAX model's parameters into the port's model, so
 both sides evaluate the same function. Inputs are made with numpy from a
 seed and handed to both as arrays.
 """
@@ -16,6 +16,7 @@ import torch
 
 TRAVELING_WAVE = {"type": "traveling_wave", "amplitude": 0.5, "speed": 0.5, "center": -0.25}
 KDV_DOMAIN = dict(domain=((-15.0, 15.0),), time_domain=(0.0, 5.0))  # for points(...)
+HEAT_DOMAIN = dict(domain=((0.0, 2.0),), time_domain=(0.0, 10.0))
 
 
 def rel_to_max(got, ref) -> float:
@@ -88,6 +89,36 @@ def kdv_pair(*, hidden=(32, 32), mapping=16, periodic=True, layer_norm=True, sca
     tcfg = _configure_model_training(
         load_config(pde_type="kdv", architecture="fourier", device="cpu"), **kw)
     return _pair(jcfg, tcfg, seed=seed, jitter_ln=ln_jitter and layer_norm)
+
+
+def siren_kdv_pair(*, hidden=(124,) * 7, omega=30.0, seed=0):
+    """The shipped KdV configuration (``load_config(pde_type="kdv")``: a
+    SIREN, omega_0 30) in both packages, at ``hidden`` widths, bridged;
+    BC/IC counts cut to 32 each."""
+    from pinnrl_tpu.config import load_config as jax_load_config
+    from pinnrl_tpu_torch.config import load_config
+
+    cfgs = [jax_load_config(pde_type="kdv"), load_config(pde_type="kdv", device="cpu")]
+    for cfg in cfgs:
+        assert cfg.model.architecture == "siren"
+        cfg.model.hidden_dims = list(hidden)
+        cfg.model.arch_params["omega_0"] = omega
+        cfg.training.num_boundary_points = cfg.training.num_initial_points = 32
+    return _pair(*cfgs, seed=seed, jitter_ln=False)
+
+
+def heat_pair(*, hidden=(16, 16), mapping=8, scale=0.75, layer_norm=True, causal_eps=0.0, seed=0):
+    """The shipped heat configuration (Fourier trunk, periodic BC,
+    sin_exp_decay IC and exact solution on [0, 2] x [0, 10]) in both
+    packages at small width, bridged."""
+    from pinnrl_tpu.config import load_config as jax_load_config
+    from pinnrl_tpu_torch.config import load_config
+
+    kw = dict(hidden=hidden, mapping=mapping, periodic=True, layer_norm=layer_norm, scale=scale,
+              causal_eps=causal_eps)
+    jcfg = _configure_model_training(jax_load_config(pde_type="heat"), **kw)
+    tcfg = _configure_model_training(load_config(pde_type="heat", device="cpu"), **kw)
+    return _pair(jcfg, tcfg, seed=seed, jitter_ln=layer_norm)
 
 
 def _pair(jcfg, tcfg, *, seed, jitter_ln):

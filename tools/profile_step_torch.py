@@ -14,22 +14,30 @@ it prints:
   * from a ``torch.profiler`` trace of ``--profiled`` further steps: the
     device's busy time per step (the union of the kernel, memcpy and memset
     intervals, so overlaps count once), the idle share of the unprofiled
-    median step (1 - busy / median), and the device time and launch count of
-    each kernel name per step.
+    median step (1 - busy / median), the device launches per step (kernels,
+    memcpys and memsets), and the device time and launch count of each
+    kernel name per step.
 
 With ``--rl`` the step is the RL-driven one: the DQN agent of the shipped
 defaults scores the 100x100 grid and takes its update on every step. With
 ``--kdv`` it is a step of the KdV recipe (``build_recipe_config("kdv")``:
 Fourier 256x3, mapping 256, batch 8192, causal eps 1.0, order-3 residual).
+With ``--siren-kdv`` it is a step of KdV as shipped
+(``load_config(pde_type="kdv")``: SIREN 124x7, omega_0 30, batch 2048, the
+order-3 residual through nested jvp; plain = every SIREN layer on its plain
+version). With ``--heat`` it is a step of the heat recipe (Fourier 256x3,
+mapping 128, batch 8192, periodic BCs through one jvp, Adam).
 
-The chrome traces go to ``--out``. The script imports no JAX.
+The chrome traces go to ``--out``, gzipped. The script imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gzip
 import json
+import shutil
 import statistics
 import sys
 import time
@@ -89,6 +97,9 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
     trace = out / f"trace_{label}.json"
     prof.export_chrome_trace(str(trace))
     ivs = _device_intervals(trace)
+    with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)  # a nested-jvp step's trace runs to hundreds of MB
+    trace.unlink()
     if not ivs:
         raise RuntimeError(f"{label}: the profiler recorded no device activity")
     busy = _union_us(ivs) / 1e3 / profiled
@@ -99,12 +110,13 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
     print(f"[{label}] step ms (host clock, {steps} steps): median {med:.3f} q1 {q1:.3f} "
           f"q3 {q3:.3f} ({card})")
     print(f"[{label}] device busy {busy:.3f} ms/step over {profiled} profiled steps; "
-          f"idle share of the median step {1.0 - busy / med:.3f} ({card})")
+          f"idle share of the median step {1.0 - busy / med:.3f}; "
+          f"{len(ivs) / profiled:.1f} device launches/step ({card})")
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (ms, count) in rows[:15]:
         print(f"[{label}]   {ms:8.4f} ms/step  {count / profiled:6.1f} launches/step  {name[:90]}")
     return {"label": label, "median_ms": med, "q1_ms": q1, "q3_ms": q3, "busy_ms": busy,
-            "idle_share": 1.0 - busy / med,
+            "idle_share": 1.0 - busy / med, "launches_per_step": len(ivs) / profiled,
             "kernels": [{"name": n, "ms_per_step": v[0], "launches_per_step": v[1] / profiled}
                         for n, v in rows]}
 
@@ -118,6 +130,9 @@ def main() -> int:
     kind = ap.add_mutually_exclusive_group()
     kind.add_argument("--rl", action="store_true", help="profile the RL-driven step")
     kind.add_argument("--kdv", action="store_true", help="profile the KdV recipe's causal step")
+    kind.add_argument("--siren-kdv", action="store_true",
+                      help="profile a step of KdV as shipped (SIREN 124x7, nested jvp)")
+    kind.add_argument("--heat", action="store_true", help="profile the heat recipe's step")
     args = ap.parse_args()
 
     import torch
@@ -125,8 +140,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step_torch: no CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import (burgers_recipe_config, kdv_recipe_config, make_agent, nvidia_smi_line,
-                            plain_fourier_features, plain_mlp_score)
+    from chip_smoke import (burgers_recipe_config, heat_recipe_config, kdv_recipe_config,
+                            make_agent, nvidia_smi_line, plain_fourier_features, plain_mlp_score,
+                            plain_siren, siren_kdv_config)
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
@@ -134,15 +150,17 @@ def main() -> int:
     card = nvidia_smi_line()
     out = Path(args.out)
     results = []
-    prefix = "rl_" if args.rl else "kdv_" if args.kdv else ""
+    prefix = ("rl_" if args.rl else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
+              else "heat_" if args.heat else "")
+    configs = {"kdv_": kdv_recipe_config, "siren_kdv_": siren_kdv_config, "heat_": heat_recipe_config}
     for label in ("kernels", "plain"):
-        cfg = kdv_recipe_config("cuda") if args.kdv else burgers_recipe_config("cuda")
+        cfg = configs.get(prefix, burgers_recipe_config)("cuda")
         cfg.rl.enabled = args.rl
         if label == "plain":
             cfg.training.fused_residual_kernel = "off"
         agent = make_agent(cfg) if args.rl else None
         trainer = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, rl_agent=agent)
-        if trainer.fused_kernel_active != (label == "kernels"):
+        if trainer.fused_kernel_active != (label == "kernels" and not args.siren_kdv):
             raise AssertionError(f"{label}: fused_kernel_active={trainer.fused_kernel_active}")
         if agent is not None:
             trainer._rl_state = trainer._init_rl_state(0)
@@ -150,6 +168,7 @@ def main() -> int:
             if label == "plain":
                 plain.enter_context(plain_fourier_features())
                 plain.enter_context(plain_mlp_score())
+                plain.enter_context(plain_siren())
             results.append(profile(trainer, cfg, prefix + label, args.steps, args.profiled, out, card))
     (out / f"{prefix}summary.json").write_text(json.dumps({"card": card, "runs": results}, indent=1))
     if "jax" in sys.modules:
