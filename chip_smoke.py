@@ -61,21 +61,38 @@ Phases (each raises on failure, and the script then exits non-zero):
  15. siren/heat timing — host syncs of one warm step of each; each new
                kernel against its plain version and cuBLAS; median ms per
                step with the kernels and on the plain path.
+ 16. gemm      — the products of one kernel-1 call (Burgers N=8192: 4
+               streams, 256x3, mapping 128; KdV N=8192: 5 streams, mapping
+               256) through three routes on the same operands, in turns
+               (old, new, cuBLAS, cuBLAS, new, old): the GEMM core of
+               ``csrc/sgemm_sm90.cuh`` and the output layer's row passes as
+               kernel 1 runs them (``fr_gemm``, ``fr_rowdot``, ``fr_outer``,
+               ``fr_wcolsum``), the old 64x64x16 tile through kernel 4's
+               ``ms_gemm`` with the arguments kernel 1 gave that tile, and ``torch.mm``
+               (TF32 off); each result against a float64 ``torch.mm``;
+               device ms per product by CUDA-graph replay.
 
-Phase 3 holds kernel 1 against its plain version in six variants: Burgers,
-heat and KdV, each plain and causal (eps 1.0), at N = 8192, and KdV-causal
-again at N = 5000 (not a multiple of the scan block).
+Phase 2 prints ``ptxas``'s report (registers, shared memory, spills) for
+every kernel and fails if a kernel of the GEMM core spills. Phase 3 holds
+kernel 1 against its plain version in six variants: Burgers, heat and KdV,
+each plain and causal (eps 1.0), at N = 8192, and KdV-causal again at
+N = 5000 (not a multiple of the scan block); Burgers and KdV-causal must
+give bit-identical loss and gradients in two calls on the same inputs.
 
 The second-to-last line is a JSON object describing each kernel: its
 ``launches`` are those of the RL slice for kernels 1, 2 and 4 (the path
 that runs all three) and of the siren-kdv slice for kernel 3;
 ``kdv_launches`` and ``heat_launches`` those of the KdV and heat slices;
-``ms`` and ``plain_ms`` device time per call (CUDA-graph replays for the
-small kernels 2 and 3, whose eager calls are host-bound: ``eager_ms``; CUDA
-events around eager calls for kernels 1 and 4); ``bound_ms`` the larger of
+``ms`` and ``plain_ms`` device time per call (CUDA-graph replays for kernels
+1, 2 and 3, whose eager calls are host-bound: ``eager_ms``; CUDA events
+around eager calls for kernel 4); ``bound_ms`` the larger of
 its operations over the card's FP32 peak and its bytes over the memory
 rate, for the shapes it is timed at; ``library_ms``
 the cuBLAS FP32 products of the same shapes (``library_call`` says which).
+Kernel 1's entry also carries phase 16's summed ms per PDE: ``gemm_ms``
+(its products as it runs them now), ``gemm_old_tile_ms`` and
+``gemm_library_ms``; kernel 3's carries ``blocks``, the thread blocks it
+launches at (2048, 124) -> 124.
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -84,6 +101,7 @@ from __future__ import annotations
 import contextlib
 import json
 import linecache
+import re
 import statistics
 import subprocess
 import sys
@@ -107,6 +125,10 @@ HEAT_EPOCHS = 13
 SIREN_TOL = 1e-5    # rel to max: the JAX suite's bound for its SIREN kernel
 JVP_TOL = 1e-4      # order k: JVP_TOL x 10^(k-1) rel to max (the JAX suite's kernel jvp bounds)
 SIREN_GRAD_TOL = 1e-3  # each gradient of the order-3 residual loss, rel to its max
+# Phase 16, rel to max |float64 ref|: an FP32 sum of K terms in another order
+# drifts by about sqrt(K) eps; 1e-5 for K <= 512, 1e-4 for the dW products
+# over K = 32768 / 40960 stacked rows.
+GEMM_TOL, GEMM_TOL_LONG_K = 1e-5, 1e-4
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, 700 W): FP32
 # outside the tensor cores (TF32 is excluded by the port's precision rule)
 # and HBM3.
@@ -200,17 +222,109 @@ def bound(ops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def fused_gemms(params, x_order: int, n: int):
-    """The (M, K, N) products of one kernel-1 loss + gradients call on ``n``
-    points: per layer the stacked forward X W^T, dW = dY^T X and (past the
-    first layer) dX = dY W, over (2 + x_order) n stacked rows."""
+def gemm_tol(K: int) -> float:
+    return GEMM_TOL if K <= 512 else GEMM_TOL_LONG_K
+
+
+def gemm_products(params, x_order: int, n: int):
+    """(kind, (M, K, N)) of the products of one kernel-1 loss + gradients
+    call on ``n`` points: per layer the stacked forward X W^T ("fwd"),
+    dW = dY^T X ("dw") and (past the first layer) dX = dY W ("dx"), over
+    (2 + x_order) n stacked rows."""
     rows = (2 + x_order) * n
-    shapes = []
+    prods = []
     n_dense = sum(1 for k in params if k.startswith("Dense_") and k.endswith(".weight"))
     for i in range(n_dense):
         out, inp = params[f"Dense_{i}.weight"].shape
-        shapes += [(rows, inp, out), (out, rows, inp)] + ([(rows, out, inp)] if i else [])
-    return shapes
+        prods += [("fwd", (rows, inp, out)), ("dw", (out, rows, inp))]
+        prods += [("dx", (rows, out, inp))] if i else []
+    return prods
+
+
+def fused_gemms(params, x_order: int, n: int):
+    """The (M, K, N) shapes of ``gemm_products``."""
+    return [shape for _, shape in gemm_products(params, x_order, n)]
+
+
+def old_tile_split(M: int, N: int, K: int):
+    """The (splits, k_chunk) over K kernel 1 used with the 64x64x16 tile of
+    ``csrc/sgemm_f32.cuh``: the old route of phase 16."""
+    from pinnrl_tpu_torch.ops.kernels.fused_step import _cdiv
+
+    tiles = _cdiv(M, 64) * _cdiv(N, 64)
+    splits = max(1, min(_cdiv(264, tiles), _cdiv(K, 512)))
+    k_chunk = _cdiv(_cdiv(K, splits), 16) * 16
+    return _cdiv(K, k_chunk), k_chunk
+
+
+def gemm_routes(kind: str, P, Q, new_ops, old_ops):
+    """(new, old, cuBLAS) callables for one product on operands P, Q: "fwd"
+    X (R, K), W (N, K) -> X W^T; "dx" G (R, out), W (out, K) -> G W; "dw"
+    G (R, out), X (R, K) -> G^T X. new: kernel 1's launcher
+    (``fused_step._linear*``: the GEMM core, or a row pass for one column);
+    old: the 64x64x16 tile through ``ms_gemm`` with kernel 1's former launcher
+    arguments (split partials summed by kernel 1's colsum)."""
+    import torch
+
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    def old_fwd():
+        return fused_step._gemm_linear(old_ops, P, Q, None, 0)
+
+    def old_dx():
+        R, out = P.shape
+        K = Q.shape[1]
+        dX = torch.empty((R, K), device=P.device)
+        old_ops.gemm(R, K, out, P, out, 1, Q, K, 1, dX, K, None, 0, 1, out)
+        return dX
+
+    def old_dw():
+        R, out = P.shape
+        K = Q.shape[1]
+        splits, k_chunk = old_tile_split(out, K, R)
+        buf = torch.empty((splits, out, K), device=P.device)
+        old_ops.gemm(out, K, R, P, 1, out, Q, K, 1, buf, K, None, 0, splits, k_chunk)
+        return buf[0] if splits == 1 else new_ops.colsum(buf, splits, out * K, out * K, 1.0).reshape(out, K)
+
+    return {
+        "fwd": (lambda: fused_step._linear(new_ops, P, Q, None, 0), old_fwd, lambda: torch.mm(P, Q.t())),
+        "dx": (lambda: fused_step._linear_dx(new_ops, P, Q), old_dx, lambda: torch.mm(P, Q)),
+        "dw": (lambda: fused_step._linear_dw(new_ops, P, Q), old_dw, lambda: torch.mm(P.t(), Q)),
+    }[kind]
+
+
+def gemm_operands(kind: str, shape, gen, device):
+    """Seeded normal operands (P, Q) of one product, laid out as kernel 1
+    holds them (see ``gemm_routes``)."""
+    import torch
+
+    M, K, N = shape
+    if kind == "fwd":
+        dims = ((M, K), (N, K))
+    elif kind == "dx":
+        dims = ((M, K), (K, N))
+    else:
+        dims = ((K, M), (K, N))
+    return tuple(torch.randn(d, generator=gen, device=device) for d in dims)
+
+
+def ptxas_report(log: str):
+    """(entry, registers, smem bytes, spill store bytes, spill load bytes)
+    per kernel in an ``nvcc -Xptxas -v`` log."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), int(m.group(2) or 0), *spill))
+            name = None
+    return rows
 
 
 def cublas_ms(shapes, device, iters: int = 20) -> float:
@@ -426,12 +540,17 @@ def main() -> int:
     names = ("fourier_feats", "fused_residual", "mlp_score", "siren")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         list(pool.map(_build.load_library, names))  # one nvcc per source, all at once
+    core_spills = []
     for name in names:
         print(f"[build] {name}: {_build.BUILD_SECONDS[name]:.2f} s", flush=True)
-        for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"[build]   {line.strip()}")
+        for entry, regs, smem, spill_st, spill_ld in ptxas_report(_build.BUILD_LOG.get(name, "")):
+            print(f"[build]   ptxas {entry}: {regs} registers, {smem} bytes smem, spill stores "
+                  f"{spill_st} B, spill loads {spill_ld} B")
+            if "_sm90_kernel" in entry:
+                core_spills.append(spill_st + spill_ld)
     print(f"[build] total {time.perf_counter() - t0:.2f} s ({card})", flush=True)
+    if not core_spills or any(core_spills):
+        raise AssertionError(f"GEMM core kernels: spill bytes {core_spills} (want all 0)")
 
     # ---- 3. parity ----------------------------------------------------- #
     cfg = burgers_recipe_config("cuda")
@@ -514,9 +633,18 @@ def main() -> int:
                 "kdv": variant(kdv_recipe_config("cuda", causal=False)),
                 "kdv_causal": variant(kdv_recipe_config("cuda"))}
     fused_errs = {}
+    parity_z = {}
     for name, v in variants.items():
-        z = time_sorted(*v.pde.generate_collocation_points(gen, 8192, "uniform"))
+        z = parity_z[name] = time_sorted(*v.pde.generate_collocation_points(gen, 8192, "uniform"))
         compare(name, "N=8192 seeded init", v.model.params, z)
+    for name in ("burgers", "kdv_causal"):  # split-K partials in a fixed order: no drift
+        v = variants[name]
+        (l1, g1), (l2, g2) = (fused_grads(v, v.model.params, parity_z[name]) for _ in range(2))
+        same = torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+        print(f"[parity] fused_residual_loss {name}: two calls on the same inputs bit-identical "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError(f"kernel 1 ({name}) is not deterministic")
     v = variants["kdv_causal"]
     compare("kdv_causal", "N=5000 seeded init", v.model.params,
             time_sorted(*v.pde.generate_collocation_points(gen, 5000, "uniform")))
@@ -610,13 +738,15 @@ def main() -> int:
     ff_plain_ms = graph_ms(lambda: fourier_feats.fourier_features_plain(x_ff, B, True))
     z = torch.cat([x, t], dim=-1)
     p = {k: v.detach().requires_grad_(True) for k, v in net.items()}
-    fused_ms = cuda_ms(lambda: fused_grads(variants["burgers"], p, z), iters=20)
-    fused_plain_ms = cuda_ms(lambda: plain_grads(variants["burgers"], p, z), iters=20)
+    fused_ms = graph_ms(lambda: fused_grads(variants["burgers"], p, z), iters=10, replays=5)
+    fused_plain_ms = graph_ms(lambda: plain_grads(variants["burgers"], p, z), iters=10, replays=5)
+    fused_eager_ms = cuda_ms(lambda: fused_grads(variants["burgers"], p, z), iters=20)
     print(f"[timing] fourier_features (4096,2)x(2,128), device time per call (CUDA graph): kernel "
           f"{ff_ms:.4f} ms, plain {ff_plain_ms:.4f} ms; eager calls, CUDA events: kernel "
           f"{ff_eager_ms:.4f} ms ({card})")
-    print(f"[timing] fused_residual_loss N=8192 loss+grads: kernel {fused_ms:.3f} ms, "
-          f"plain {fused_plain_ms:.3f} ms ({card})", flush=True)
+    print(f"[timing] fused_residual_loss N=8192 loss+grads, device time per call (CUDA graph): "
+          f"kernel {fused_ms:.3f} ms, plain {fused_plain_ms:.3f} ms; eager calls, CUDA events: "
+          f"kernel {fused_eager_ms:.3f} ms ({card})", flush=True)
 
     plain_cfg = burgers_recipe_config("cuda")
     plain_cfg.training.fused_residual_kernel = "off"
@@ -821,10 +951,12 @@ def main() -> int:
           f"uniform Burgers step {n_sync_uni}", flush=True)
     if n_sync_kdv > n_sync_uni:
         raise AssertionError(f"the KdV step makes {n_sync_kdv} host syncs, the uniform step {n_sync_uni}")
-    kdv_ms = cuda_ms(lambda: fused_grads(variants["kdv_causal"], k_p, k_z), iters=20)
-    kdv_plain_ms = cuda_ms(lambda: plain_grads(variants["kdv_causal"], k_p, k_z), iters=20)
+    kdv_ms = graph_ms(lambda: fused_grads(variants["kdv_causal"], k_p, k_z), iters=10, replays=5)
+    kdv_plain_ms = graph_ms(lambda: plain_grads(variants["kdv_causal"], k_p, k_z), iters=10, replays=5)
+    kdv_eager_ms = cuda_ms(lambda: fused_grads(variants["kdv_causal"], k_p, k_z), iters=20)
     print(f"[timing] fused_residual_loss KdV causal N=8192 (5 streams) loss+grads: kernel "
-          f"{kdv_ms:.3f} ms, plain {kdv_plain_ms:.3f} ms ({card})", flush=True)
+          f"{kdv_ms:.3f} ms, plain {kdv_plain_ms:.3f} ms (CUDA graph); eager calls, CUDA events: "
+          f"kernel {kdv_eager_ms:.3f} ms ({card})", flush=True)
     plain_kcfg = kdv_recipe_config("cuda")
     plain_kcfg.training.fused_residual_kernel = "off"
     plain_ktrainer = PDETrainer(PINNModel(plain_kcfg, seed=0), create_pde(plain_kcfg), plain_kcfg)
@@ -874,6 +1006,12 @@ def main() -> int:
               f"(tol {SIREN_TOL:g})", flush=True)
         if not (tuple(sk.shape) == (xs.shape[0], 124) and rel < SIREN_TOL):
             raise AssertionError(f"siren_layer kernel disagrees with its plain version at {tag}")
+    siren_blocks = siren.launch_blocks(2048, 124)
+    print(f"[parity] siren_layer (2048,124)->124 launches {siren_blocks} blocks "
+          f"((5000,124)->124: {siren.launch_blocks(5000, 124)}) for "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
+    if siren_blocks < torch.cuda.get_device_properties(0).multi_processor_count:
+        raise AssertionError(f"kernel 3 launches {siren_blocks} blocks, fewer than the card's SMs")
 
     hcfg = heat_recipe_config("cuda")
     hpde = create_pde(hcfg)
@@ -1050,10 +1188,12 @@ def main() -> int:
     h_z = torch.cat(hpde.generate_collocation_points(gen, 8192, "uniform"), dim=-1)
     h_p = {k: v.detach().requires_grad_(True) for k, v in h_net.items()}
     compare("heat", "N=8192 trained params", h_p, h_z)
-    heat_ms = cuda_ms(lambda: fused_grads(hv, h_p, h_z), iters=20)
-    heat_plain_ms = cuda_ms(lambda: plain_grads(hv, h_p, h_z), iters=20)
+    heat_ms = graph_ms(lambda: fused_grads(hv, h_p, h_z), iters=10, replays=5)
+    heat_plain_ms = graph_ms(lambda: plain_grads(hv, h_p, h_z), iters=10, replays=5)
+    heat_eager_ms = cuda_ms(lambda: fused_grads(hv, h_p, h_z), iters=20)
     print(f"[timing] fused_residual_loss heat N=8192 loss+grads: kernel {heat_ms:.3f} ms, plain "
-          f"{heat_plain_ms:.3f} ms ({card})", flush=True)
+          f"{heat_plain_ms:.3f} ms (CUDA graph); eager calls, CUDA events: kernel "
+          f"{heat_eager_ms:.3f} ms ({card})", flush=True)
     s_kernel_times, s_plain_times = [], []
     for order in ("plain", "kernel", "kernel", "plain"):
         if order == "kernel":
@@ -1078,6 +1218,47 @@ def main() -> int:
     print(f"[timing] heat train step (batch 8192, periodic BC 4096, IC 4096), median of "
           f"{len(h_kernel_times)}: kernels {statistics.median(h_kernel_times):.3f} ms, plain path "
           f"{statistics.median(h_plain_times):.3f} ms ({card})", flush=True)
+
+    # ---- 16. gemm: new core, old tile, cuBLAS --------------------------------- #
+    new_ops, old_ops = fused_step._cuda_ops(dev), mlp._cuda_ops(dev)
+    gemm_sum = {}
+    for pde_name, x_order, gparams in (("burgers", 2, variants["burgers"].model.params),
+                                       ("kdv", 3, variants["kdv_causal"].model.params)):
+        prods = gemm_products(gparams, x_order, 8192)
+        ops_ = [gemm_operands(kind, shape, gen, dev) for kind, shape in prods]
+        routes = [gemm_routes(kind, P, Q, new_ops, old_ops) for (kind, _), (P, Q) in zip(prods, ops_)]
+        errs = []
+        for (kind, (M, K, N)), (P, Q), fns in zip(prods, ops_, routes):
+            P64, Q64 = P.double(), Q.double()
+            ref = {"fwd": lambda: P64 @ Q64.t(), "dx": lambda: P64 @ Q64,
+                   "dw": lambda: P64.t() @ Q64}[kind]()
+            scale = float(ref.abs().max())
+            got = [float((f().double() - ref).abs().max()) / scale for f in fns]
+            errs.append(got)
+            tol = gemm_tol(K)
+            if not max(got) < tol:
+                raise AssertionError(f"GEMM {pde_name} {kind} {M}x{K}x{N}: rel err (new, old tile, "
+                                     f"cuBLAS) {got} above {tol:g}")
+        ms = {r: [0.0] * len(prods) for r in ("new", "old", "lib")}
+        for route in ("old", "new", "lib", "lib", "new", "old"):
+            col = ("new", "old", "lib").index(route)
+            for i, fns in enumerate(routes):
+                ms[route][i] += graph_ms(fns[col], iters=10, replays=5) / 2.0
+        torch.cuda.synchronize()
+        for i, (kind, (M, K, N)) in enumerate(prods):
+            large = min(M, K, N) > 1
+            print(f"[gemm] {pde_name} {kind} {M}x{K}x{N}{'' if large else ' (row pass)'}: new "
+                  f"{ms['new'][i]:.4f} ms, old tile {ms['old'][i]:.4f} ms, cuBLAS {ms['lib'][i]:.4f} "
+                  f"ms; rel err new {errs[i][0]:.2e} old {errs[i][1]:.2e} cuBLAS {errs[i][2]:.2e} "
+                  f"(tol {gemm_tol(K):g}); faster than the old tile: "
+                  f"{ms['new'][i] < ms['old'][i]}", flush=True)
+        gemm_sum[pde_name] = {r: sum(v) for r, v in ms.items()}
+        print(f"[gemm] {pde_name} N=8192, {len(prods)} products summed: new {gemm_sum[pde_name]['new']:.4f} "
+              f"ms, old tile {gemm_sum[pde_name]['old']:.4f} ms, cuBLAS {gemm_sum[pde_name]['lib']:.4f} ms "
+              f"({card})", flush=True)
+        if not gemm_sum[pde_name]["new"] < gemm_sum[pde_name]["old"]:
+            raise AssertionError(f"GEMM core slower than the old tile over the {pde_name} call")
+        del ops_, routes
 
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
@@ -1112,11 +1293,15 @@ def main() -> int:
          "kdv_launches": kdv_launches["fused_residual_loss"],
          "heat_launches": heat_launches["fused_residual_loss"],
          "variants": list(FUSED_TOLS), "max_abs_err": max(fused_errs.values()),
-         "ms": fused_ms, "plain_ms": fused_plain_ms,
+         "ms": fused_ms, "plain_ms": fused_plain_ms, "eager_ms": fused_eager_ms,
          "bound_ms": fused_bound[0], "bound_by": fused_bound[1], "library_ms": fused_lib_ms,
          "library_call": "torch.mm (FP32, TF32 off) of the call's GEMM shapes, Burgers N=8192",
          "kdv_causal_ms": kdv_ms, "kdv_causal_plain_ms": kdv_plain_ms,
-         "heat_ms": heat_ms, "heat_plain_ms": heat_plain_ms},
+         "kdv_causal_eager_ms": kdv_eager_ms,
+         "heat_ms": heat_ms, "heat_plain_ms": heat_plain_ms, "heat_eager_ms": heat_eager_ms,
+         "gemm_ms": {k: v["new"] for k, v in gemm_sum.items()},
+         "gemm_old_tile_ms": {k: v["old"] for k, v in gemm_sum.items()},
+         "gemm_library_ms": {k: v["lib"] for k, v in gemm_sum.items()}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -1129,7 +1314,7 @@ def main() -> int:
         {"name": "siren_layer", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/siren.cu",
          "replaces": "pinnrl_tpu/ops/kernels/siren.py:29",
-         "launches": siren_launches, "max_abs_err": siren_err,
+         "launches": siren_launches, "max_abs_err": siren_err, "blocks": siren_blocks,
          "ms": siren_ms, "plain_ms": siren_plain_ms, "eager_ms": siren_eager_ms,
          "bound_ms": siren_bound[0], "bound_by": siren_bound[1], "library_ms": siren_lib_ms,
          "library_call": "torch.addmm(b, x, W) (FP32, TF32 off) at (2048,124)x(124,124), no sin"},

@@ -22,12 +22,18 @@
 //                         phase-rotation streams, written as the stacked
 //                         ((2+K)N, 2m) input [value; x1..xK; t1], K = 2
 //                         (Burgers, heat) or 3 (KdV).
-//   sgemm_kernel          FP32 tiled GEMM from sgemm_f32.cuh (shared with
-//                         mlp_score.cu: 64x64x16 tiles in shared memory, 4x4
-//                         register micro-tile, FMA on the CUDA cores, no
-//                         TF32), any strides: the stacked forward X W^T, the
-//                         backward dX = dY W and dW = dY^T X (split over K;
-//                         the split partials are summed by colsum).
+//   gemm_sm90_kernel<..>  the FP32 GEMM core of sgemm_sm90.cuh (shared with
+//                         siren.cu): 128x128 tiles, 8x8 per thread, a 3-slice
+//                         cp.async / register ring, FMA on the CUDA cores, no
+//                         TF32, templated on the operands' layouts: the
+//                         stacked forward X W^T (A, B k-contiguous), the
+//                         backward dX = dY W (B n-contiguous) and
+//                         dW = dY^T X (A m-contiguous, split over K; the
+//                         split partials are summed by colsum).
+//   rowdot_kernel, outer_kernel, colsum_partial_kernel<true>  the output
+//                         layer's products (out = 1) as row passes: U = X w + b
+//                         one warp per row, dX = dU w an outer product, dW =
+//                         dU^T X a weighted deterministic column sum.
 //   transport_fwd_kernel<K>  one warp per point: LayerNorm + tanh Taylor
 //                         transport of the 2+K streams (ops/jet_mlp.py).
 //   transport_bwd_kernel<K>  its hand-derived reverse pass (the formulas are
@@ -48,24 +54,131 @@
 //                         so the result is identical from run to run; they
 //                         also give sum w and sum w r^2.
 //
-// What bounds it on an H100: at batch 8192 and width 256 each layer's three
-// products are S*8192 x 256 x 256 FMAs, S = 5 for KdV (40960 rows); these
-// FP32 CUDA-core GEMMs are compute-bound (67 TFLOP/s FP32 peak) and take most
-// of the device time, while transport, embedding, residual, scan and column
-// sums are memory-bound row passes over (S N, 256) tensors. This version
-// keeps every stacked activation in device memory between kernels and aims
-// at being right; tensor-core (wgmma/TMA) GEMMs and fusing the transport
-// into the GEMM epilogue are later work.
+// What bounds it on an H100: at batch 8192 and width 256 each hidden layer's
+// three products are S*8192 x 256 x 256 FMAs, S = 4 (Burgers, heat) or 5
+// (KdV); these FP32 CUDA-core GEMMs are bound by operations (67 TFLOP/s FP32
+// peak) and take most of the device time. The GEMM core feeds the FFMA pipes
+// with float4 shared loads (4 per 64 FFMAs) and overlaps the next slices'
+// loads with the arithmetic (sgemm_sm90.cuh). The output layer's products
+// (one column) are bound by bytes, so they skip the tile and stream their
+// operand once. Transport, embedding, residual, scan and column sums are
+// memory-bound row passes over (S N, 256) tensors in device memory between
+// kernels; fusing the transport into the GEMM epilogue is later work.
 
 #include <cuda_runtime.h>
 
-#include "sgemm_f32.cuh"
+#include "sgemm_sm90.cuh"
 
 namespace {
 
 constexpr int COLSUM_ROWS = 256;
 constexpr int SCAN_BLOCK = 1024;   // points per block of the causal scan = threads per block
 constexpr float LN_EPS = 1e-6f;    // flax.linen.LayerNorm default
+constexpr int ROW_THREADS = 256;   // 8 warps, one row each (rowdot_kernel)
+
+__device__ __forceinline__ float warp_sum(float v) {
+    // Butterfly: every lane ends with the same value (float + commutes).
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+// ----------------------------------------------------------------- GEMM --
+// C[m, n] = sum_{k in split} A[m*sam + k*sak] * B[k*sbk + n*sbn] (+ bias[n]
+// for m < bias_rows). blockIdx.z is the K split; split z writes to
+// C + z * split_stride. vec_store: C, ldc and split_stride allow float4 stores.
+
+struct LinearEpi {
+    float* C;
+    long long ldc;
+    const float* bias;
+    int bias_rows, N;
+    bool vec;
+    __device__ __forceinline__ void operator()(int gm, int gn, const float* v) const {
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            o[j] = v[j];
+            if (bias != nullptr && gm < bias_rows && gn + j < N) o[j] += bias[gn + j];
+        }
+        float* c = C + (long long)gm * ldc + gn;
+        if (vec && gn + 3 < N) {
+            *reinterpret_cast<float4*>(c) = make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (gn + j < N) c[j] = o[j];
+        }
+    }
+};
+
+template <bool A_KFAST, bool B_KFAST, bool VEC>
+__global__ void __launch_bounds__(TileLarge::THREADS, 2)
+gemm_sm90_kernel(int M, int N, int K, const float* __restrict__ A, long long sam, long long sak,
+                 const float* __restrict__ B, long long sbk, long long sbn, float* __restrict__ C,
+                 long long ldc, const float* __restrict__ bias, int bias_rows, int k_chunk,
+                 long long split_stride, int vec_store) {
+    const int m0 = blockIdx.y * TileLarge::BM, n0 = blockIdx.x * TileLarge::BN;
+    const int kbeg = blockIdx.z * k_chunk;
+    const int kend = min(K, kbeg + k_chunk);
+    float acc[4 * TileLarge::QM][4 * TileLarge::QN];
+#pragma unroll
+    for (int i = 0; i < 4 * TileLarge::QM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * TileLarge::QN; ++j) acc[i][j] = 0.0f;
+    gemm_sm90_tile<TileLarge, A_KFAST, B_KFAST, VEC>(M, N, A, sam, sak, B, sbk, sbn, m0, n0, kbeg,
+                                                     kend, acc);
+    const LinearEpi epi{C + (long long)blockIdx.z * split_stride, ldc, bias, bias_rows, N,
+                        vec_store != 0};
+    gemm_sm90_store<TileLarge>(acc, M, N, m0, n0, epi);
+}
+
+// ------------------------------------------------- output layer (out = 1) --
+// Y[r] = X[r, :] . w (+ b[0] for r < bias_rows), one warp per row;
+// vec: X's rows and w allow float4 loads.
+__global__ void __launch_bounds__(ROW_THREADS)
+rowdot_kernel(const float* __restrict__ X, const float* __restrict__ w,
+              const float* __restrict__ b, float* __restrict__ Y, int R, int K, int bias_rows,
+              int vec) {
+    const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= R) return;
+    const float* x = X + (long long)row * K;
+    float s = 0.0f;
+    if (vec) {
+        const float4* x4 = reinterpret_cast<const float4*>(x);
+        const float4* w4 = reinterpret_cast<const float4*>(w);
+        for (int j = lane; j < K / 4; j += 32) {
+            const float4 a = x4[j], c = __ldg(w4 + j);
+            s = fmaf(a.x, c.x, s);
+            s = fmaf(a.y, c.y, s);
+            s = fmaf(a.z, c.z, s);
+            s = fmaf(a.w, c.w, s);
+        }
+    } else {
+        for (int j = lane; j < K; j += 32) s = fmaf(x[j], w[j], s);
+    }
+    s = warp_sum(s);
+    if (lane == 0) Y[row] = (b != nullptr && row < bias_rows) ? s + b[0] : s;
+}
+
+// out[r, k] = g[r] * w[k] over (R, K); vec: four columns per thread.
+__global__ void outer_kernel(const float* __restrict__ g, const float* __restrict__ w,
+                             float* __restrict__ out, int R, int K, int vec) {
+    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (vec) {
+        const int kq = K / 4;
+        if (idx >= (long long)R * kq) return;
+        const int r = (int)(idx / kq), c = (int)(idx % kq) * 4;
+        const float gr = g[r];
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(w + c));
+        *reinterpret_cast<float4*>(out + (long long)r * K + c) =
+            make_float4(gr * wv.x, gr * wv.y, gr * wv.z, gr * wv.w);
+    } else {
+        if (idx >= (long long)R * K) return;
+        out[idx] = g[idx / K] * w[idx % K];
+    }
+}
 
 // ---------------------------------------------------------------- embed --
 
@@ -589,15 +702,23 @@ __global__ void causal_scale_kernel(float* __restrict__ dU, const float* __restr
 
 // --------------------------------------------------------------- colsum --
 
-__global__ void colsum_partial_kernel(const float* __restrict__ A, int rows, int cols,
-                                      long long ld, float* __restrict__ partial) {
+// WEIGHTED: sums g[r] A[r, col] (the output layer's dW), else A[r, col].
+template <bool WEIGHTED>
+__global__ void colsum_partial_kernel(const float* __restrict__ A, const float* __restrict__ g,
+                                      int rows, int cols, long long ld,
+                                      float* __restrict__ partial) {
     __shared__ float sm[8][33];
     const int col = blockIdx.x * 32 + threadIdx.x;
     const int r0 = blockIdx.y * COLSUM_ROWS;
     const int r1 = min(rows, r0 + COLSUM_ROWS);
     float acc = 0.0f;
     if (col < cols)
-        for (int r = r0 + threadIdx.y; r < r1; r += 8) acc += A[(long long)r * ld + col];
+        for (int r = r0 + threadIdx.y; r < r1; r += 8) {
+            if constexpr (WEIGHTED)
+                acc = fmaf(g[r], A[(long long)r * ld + col], acc);
+            else
+                acc += A[(long long)r * ld + col];
+        }
     sm[threadIdx.y][threadIdx.x] = acc;
     __syncthreads();
     if (threadIdx.y == 0 && col < cols) {
@@ -639,15 +760,72 @@ extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const 
     return (int)cudaGetLastError();
 }
 
+template <bool A_KFAST, bool B_KFAST>
+void launch_gemm_sm90(bool vec, dim3 grid, cudaStream_t st, int M, int N, int K, const float* A,
+                      long long sam, long long sak, const float* B, long long sbk, long long sbn,
+                      float* C, long long ldc, const float* bias, int bias_rows, int k_chunk,
+                      long long split_stride, int vec_store) {
+    if (vec)
+        gemm_sm90_kernel<A_KFAST, B_KFAST, true><<<grid, TileLarge::THREADS, 0, st>>>(
+            M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, k_chunk, split_stride,
+            vec_store);
+    else
+        gemm_sm90_kernel<A_KFAST, B_KFAST, false><<<grid, TileLarge::THREADS, 0, st>>>(
+            M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, k_chunk, split_stride,
+            vec_store);
+}
+
+// The layouts pick the kernel: kernel 1's forward (A and B k-contiguous),
+// dX (A k-contiguous, B n-contiguous) and dW (A m-contiguous, B
+// n-contiguous); any other strides take the last one's guarded scalar path.
+// The float4 / cp.async paths run where both operands allow them and k_chunk
+// keeps splits on float4 boundaries, the guarded scalar path otherwise.
 extern "C" int fr_gemm(int M, int N, int K, const float* A, long long sam, long long sak,
                        const float* B, long long sbk, long long sbn, float* C, long long ldc,
                        const float* bias, int bias_rows, int splits, int k_chunk,
                        long long split_stride, void* stream) {
     if (M > 0 && N > 0) {
-        dim3 grid(cdiv(N, BN), cdiv(M, BM), (unsigned)splits);
-        sgemm_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-            M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, k_chunk, split_stride);
+        const bool a_kfast = sak == 1;
+        const bool b_kfast = sbn != 1 && sbk == 1;
+        const bool vec = k_chunk % 4 == 0 &&
+                         (a_kfast ? sm90_vec_ok(A, sak, sam, K) : sm90_vec_ok(A, sam, sak, M)) &&
+                         (b_kfast ? sm90_vec_ok(B, sbk, sbn, K) : sm90_vec_ok(B, sbn, sbk, N));
+        const int vec_store = (reinterpret_cast<uintptr_t>(C) & 15) == 0 && ldc % 4 == 0 &&
+                              split_stride % 4 == 0;
+        const dim3 grid(cdiv(N, TileLarge::BN), cdiv(M, TileLarge::BM), (unsigned)splits);
+        cudaStream_t st = (cudaStream_t)stream;
+        if (a_kfast && b_kfast)
+            launch_gemm_sm90<true, true>(vec, grid, st, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc,
+                                         bias, bias_rows, k_chunk, split_stride, vec_store);
+        else if (a_kfast)
+            launch_gemm_sm90<true, false>(vec, grid, st, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc,
+                                          bias, bias_rows, k_chunk, split_stride, vec_store);
+        else
+            launch_gemm_sm90<false, false>(vec && !b_kfast, grid, st, M, N, K, A, sam, sak, B, sbk,
+                                           sbn, C, ldc, bias, bias_rows, k_chunk, split_stride,
+                                           vec_store);
     }
+    return (int)cudaGetLastError();
+}
+
+// Y (R, 1) = X (R, K) w^T (+ b on the first bias_rows rows).
+extern "C" int fr_rowdot(const float* X, const float* w, const float* b, float* Y, int R, int K,
+                         int bias_rows, void* stream) {
+    const int vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    if (R > 0)
+        rowdot_kernel<<<cdiv(R, ROW_THREADS / 32), ROW_THREADS, 0, (cudaStream_t)stream>>>(
+            X, w, b, Y, R, K, bias_rows, vec);
+    return (int)cudaGetLastError();
+}
+
+// out (R, K) = g (R, 1) w (1, K).
+extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K, void* stream) {
+    const int vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    const long long total = (long long)R * (vec ? K / 4 : K);
+    if (total > 0)
+        outer_kernel<<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(g, w, out, R, K, vec);
     return (int)cudaGetLastError();
 }
 
@@ -727,8 +905,23 @@ extern "C" int fr_colsum(const float* A, int rows, int cols, long long ld, float
     const int chunks = (int)cdiv(rows, COLSUM_ROWS);
     if (cols > 0 && rows > 0) {
         dim3 grid(cdiv(cols, 32), (unsigned)chunks);
-        colsum_partial_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(A, rows, cols, ld, partial);
+        colsum_partial_kernel<false><<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
+            A, nullptr, rows, cols, ld, partial);
         colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks, cols, scale, out);
+    }
+    return (int)cudaGetLastError();
+}
+
+// out (cols) = sum_r g[r] A[r, :], the fixed-order two passes of fr_colsum;
+// partial: ceil(rows / COLSUM_ROWS) x cols scratch.
+extern "C" int fr_wcolsum(const float* g, const float* A, int rows, int cols, long long ld,
+                          float* partial, float* out, void* stream) {
+    const int chunks = (int)cdiv(rows, COLSUM_ROWS);
+    if (cols > 0 && rows > 0) {
+        dim3 grid(cdiv(cols, 32), (unsigned)chunks);
+        colsum_partial_kernel<true><<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
+            A, g, rows, cols, ld, partial);
+        colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks, cols, 1.0f, out);
     }
     return (int)cudaGetLastError();
 }

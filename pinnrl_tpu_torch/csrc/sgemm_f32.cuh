@@ -1,12 +1,12 @@
-// FP32 tiled GEMM and a warp reduction, shared by fused_residual.cu,
-// mlp_score.cu and siren.cu (each is built into its own library, so the
-// unnamed namespace gives each its own copy).
+// FP32 tiled GEMM and a warp reduction. Only mlp_score.cu (kernel 4) uses
+// them now; kernels 1 and 3 run on the Hopper core of sgemm_sm90.cuh, and
+// chip_smoke.py times this tile (through ms_gemm) beside it as the yardstick.
 //
 // sgemm_tile: one block's 64x64 output tile, 64x64x16 tiles in shared
 // memory, a 4x4 register micro-tile per thread, FMA on the CUDA cores (no
-// TF32), any strides; kernels add their own epilogue (siren.cu: bias, scale
-// and sin). sgemm_kernel: the plain product with an optional bias on the
-// first bias_rows rows and an optional split over K.
+// TF32), any strides; kernels add their own epilogue. sgemm_kernel: the
+// plain product with an optional bias on the first bias_rows rows and an
+// optional split over K.
 
 #pragma once
 

@@ -1,0 +1,280 @@
+// FP32 GEMM core for Hopper (sm_90a), shared by fused_residual.cu (kernel 1's
+// products) and siren.cu (kernel 3). Each is built into its own library, so
+// the unnamed namespace gives each its own copy.
+//
+// What bounds it on an H100: the products are FP32 on the CUDA cores (the
+// port's precision rule excludes TF32), so the ceiling is 67 TFLOP/s of FFMA.
+// An SM issues at most one shared-memory load per four FFMAs it can retire;
+// the FFMA pipes stay fed only if each shared load brings several operands
+// and global loads overlap the arithmetic. The 64x64x16 tile of
+// sgemm_f32.cuh (4x4 per thread, 8 scalar shared loads per 16 FFMAs, scalar
+// global loads, one buffer) is bound by shared-memory issue and by the
+// stalls between slices.
+//
+// Design:
+//   - Block tile BM x BN, QM x QN quadrants of 4x4 accumulators per thread
+//     (TileLarge: 128x128, 256 threads, 8x8 = 2x2 quadrants; TileSmall:
+//     32x32, 64 threads, one 4x4 quadrant). A thread's quadrants lie BM/QM
+//     rows and BN/QN columns apart, so every shared read is a float4 that
+//     neighbouring threads take from neighbouring addresses (no bank
+//     conflicts): per k, QM + QN float4 loads feed 16 QM QN FFMAs (4 per 64
+//     for TileLarge).
+//   - Both operands sit k-major in shared memory (As[k][m], Bs[k][n]), rows
+//     padded by 4 floats, in a ring of STAGES slices of BK = 8.
+//   - An operand whose contiguous dimension is m (A) or n (B) matches that
+//     layout: 16-byte cp.async copies it straight into the ring, two slices
+//     ahead of the one being computed. A k-contiguous operand must be
+//     transposed on the way in, which cp.async cannot do: each thread loads
+//     its float4 of the slice two ahead into registers before computing,
+//     and stores it transposed after. The padding makes that store
+//     conflict-free (the two k-quads of a warp land 16 banks apart).
+//   - VEC = false takes any strides and any ragged edge (K = 2 in SIREN's
+//     first layer, a leading dimension or base not 16-byte aligned): guarded
+//     scalar loads through the same registers and the same ring.
+//   - One __syncthreads per slice; the epilogue is the caller's functor, fed
+//     four neighbouring columns of one row at a time.
+// FMA only: no TF32, no tensor cores, no library call.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int SM90_BK = 8;      // k per slice
+constexpr int SM90_STAGES = 3;  // slices in the shared-memory ring
+constexpr int SM90_PAD = 4;     // floats of padding per shared row
+
+template <int BM_, int BN_, int QM_, int QN_>
+struct TileCfg {
+    static constexpr int BM = BM_, BN = BN_, QM = QM_, QN = QN_;
+    static constexpr int TY = BM / (4 * QM);  // threads along m
+    static constexpr int TX = BN / (4 * QN);  // threads along n
+    static constexpr int THREADS = TX * TY;
+    static constexpr int LDA = BM + SM90_PAD;
+    static constexpr int LDB = BN + SM90_PAD;
+};
+
+using TileLarge = TileCfg<128, 128, 2, 2>;
+using TileSmall = TileCfg<32, 32, 1, 1>;
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One operand P of the product, rows r (m for A, n for B) and depth k:
+// element (r, k) at P[r * sr + k * sk]; R rows. Its shared slice is
+// S[k][r], k in [0, BK), r in [0, ROWS), row length LD.
+// KFAST: k is the contiguous dimension (sk == 1 when VEC).
+// VEC: the float4 paths (checked by the host: the contiguous stride is 1, the
+// other a multiple of 4, the contiguous extent a multiple of 4, the base
+// 16-byte aligned); otherwise guarded scalar loads with any strides.
+template <int ROWS, int LD, int THREADS, bool KFAST, bool VEC>
+struct Operand {
+    static constexpr bool ASYNC = VEC && !KFAST;
+    static constexpr int NV = ROWS * SM90_BK / 4 / THREADS;  // float4 per thread per slice
+    static constexpr int NS = ROWS * SM90_BK / THREADS;      // scalars per thread per slice
+    static_assert(NV >= 1 && NV * 4 * THREADS == ROWS * SM90_BK, "tile and threads do not divide");
+    static constexpr int NREG = ASYNC ? 1 : (VEC ? 4 * NV : NS);
+
+    const float* P;
+    long long sr, sk;
+    int R, r0;
+    float reg[NREG];
+
+    // cp.async part of slice k0 into S (ASYNC only).
+    __device__ __forceinline__ void issue(float* S, int k0, int kend, int tid) {
+        if constexpr (ASYNC) {
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+                const int c = tid + v * THREADS;
+                const int kk = c / (ROWS / 4);
+                const int rq = (c % (ROWS / 4)) * 4;
+                const int gk = k0 + kk, gr = r0 + rq;
+                const bool ok = gk < kend && gr < R;
+                const float* src = ok ? P + (long long)gk * sk + gr : P;
+                cp_async16(S + kk * LD + rq, src, ok ? 16 : 0);
+            }
+        }
+    }
+
+    // Global -> registers for slice k0 (register paths only).
+    __device__ __forceinline__ void fetch(int k0, int kend, int tid) {
+        if constexpr (!ASYNC && VEC) {
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+                const int c = tid + v * THREADS;
+                const int r = c / (SM90_BK / 4);
+                const int kq = (c % (SM90_BK / 4)) * 4;
+                const int gr = r0 + r, gk = k0 + kq;
+                float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (gr < R && gk < kend)
+                    x = __ldg(reinterpret_cast<const float4*>(P + (long long)gr * sr + gk));
+                reg[4 * v] = x.x;
+                reg[4 * v + 1] = x.y;
+                reg[4 * v + 2] = x.z;
+                reg[4 * v + 3] = x.w;
+            }
+        } else if constexpr (!VEC) {
+#pragma unroll
+            for (int e = 0; e < NS; ++e) {
+                const int i = tid + e * THREADS;
+                int r, kk;
+                if (KFAST) { kk = i % SM90_BK; r = i / SM90_BK; } else { r = i % ROWS; kk = i / ROWS; }
+                const int gr = r0 + r, gk = k0 + kk;
+                reg[e] = (gr < R && gk < kend) ? P[(long long)gr * sr + (long long)gk * sk] : 0.f;
+            }
+        }
+    }
+
+    // Registers -> S (register paths only); the float4 path transposes.
+    __device__ __forceinline__ void store(float* S, int tid) const {
+        if constexpr (!ASYNC && VEC) {
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+                const int c = tid + v * THREADS;
+                const int r = c / (SM90_BK / 4);
+                const int kq = (c % (SM90_BK / 4)) * 4;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) S[(kq + j) * LD + r] = reg[4 * v + j];
+            }
+        } else if constexpr (!VEC) {
+#pragma unroll
+            for (int e = 0; e < NS; ++e) {
+                const int i = tid + e * THREADS;
+                int r, kk;
+                if (KFAST) { kk = i % SM90_BK; r = i / SM90_BK; } else { r = i % ROWS; kk = i / ROWS; }
+                S[kk * LD + r] = reg[e];
+            }
+        }
+    }
+
+    __device__ __forceinline__ void load_now(float* S, int k0, int kend, int tid) {
+        issue(S, k0, kend, tid);
+        fetch(k0, kend, tid);
+        store(S, tid);
+    }
+};
+
+// acc += the (BM x BN) tile at rows m0.., columns n0.. of
+// sum_{k in [kbeg, kend)} A[m*sam + k*sak] * B[k*sbk + n*sbn]. Thread tid
+// (tx = tid % TX, ty = tid / TX) holds acc[4 qm + i][4 qn + j] for row
+// m0 + qm BM/QM + 4 ty + i and column n0 + qn BN/QN + 4 tx + j. Out-of-range
+// rows, columns and k read 0. B_KFAST: B's contiguous dimension is k.
+template <class Cfg, bool A_KFAST, bool B_KFAST, bool VEC>
+__device__ __forceinline__ void gemm_sm90_tile(int M, int N, const float* __restrict__ A,
+                                               long long sam, long long sak,
+                                               const float* __restrict__ B, long long sbk,
+                                               long long sbn, int m0, int n0, int kbeg, int kend,
+                                               float (&acc)[4 * Cfg::QM][4 * Cfg::QN]) {
+    constexpr int BK = SM90_BK, S = SM90_STAGES;
+    constexpr int QM = Cfg::QM, QN = Cfg::QN, LDA = Cfg::LDA, LDB = Cfg::LDB;
+    __shared__ __align__(16) float As[S][BK * LDA];
+    __shared__ __align__(16) float Bs[S][BK * LDB];
+    const int tid = threadIdx.x;
+    const int tx = tid % Cfg::TX, ty = tid / Cfg::TX;
+
+    Operand<Cfg::BM, LDA, Cfg::THREADS, A_KFAST, VEC> a{A, sam, sak, M, m0};
+    Operand<Cfg::BN, LDB, Cfg::THREADS, B_KFAST, VEC> b{B, sbn, sbk, N, n0};
+
+    const int nk = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+        if (s < nk) {
+            a.load_now(As[s], kbeg + s * BK, kend, tid);
+            b.load_now(Bs[s], kbeg + s * BK, kend, tid);
+        }
+        cp_async_commit();
+    }
+    int rd = 0, wr = S - 1;
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<S - 2>();  // slice kt's copies have landed
+        __syncthreads();         // ... for every thread; slice kt-1 is free
+        const bool pre = kt + S - 1 < nk;
+        const int k_pre = kbeg + (kt + S - 1) * BK;
+        if (pre) {
+            a.issue(As[wr], k_pre, kend, tid);
+            b.issue(Bs[wr], k_pre, kend, tid);
+            a.fetch(k_pre, kend, tid);
+            b.fetch(k_pre, kend, tid);
+        }
+        cp_async_commit();
+        const float* as = As[rd];
+        const float* bs = Bs[rd];
+#pragma unroll
+        for (int kk = 0; kk < BK; ++kk) {
+            float av[4 * QM], bv[4 * QN];
+#pragma unroll
+            for (int q = 0; q < QM; ++q) {
+                const float4 v =
+                    *reinterpret_cast<const float4*>(as + kk * LDA + q * (Cfg::BM / QM) + 4 * ty);
+                av[4 * q] = v.x; av[4 * q + 1] = v.y; av[4 * q + 2] = v.z; av[4 * q + 3] = v.w;
+            }
+#pragma unroll
+            for (int q = 0; q < QN; ++q) {
+                const float4 v =
+                    *reinterpret_cast<const float4*>(bs + kk * LDB + q * (Cfg::BN / QN) + 4 * tx);
+                bv[4 * q] = v.x; bv[4 * q + 1] = v.y; bv[4 * q + 2] = v.z; bv[4 * q + 3] = v.w;
+            }
+#pragma unroll
+            for (int i = 0; i < 4 * QM; ++i)
+#pragma unroll
+                for (int j = 0; j < 4 * QN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        if (pre) {  // slice kt-1's buffer: every thread left it before the barrier above
+            a.store(As[wr], tid);
+            b.store(Bs[wr], tid);
+        }
+        rd = rd == S - 1 ? 0 : rd + 1;
+        wr = wr == S - 1 ? 0 : wr + 1;
+    }
+    cp_async_wait<0>();
+}
+
+// Hands the epilogue each run of four neighbouring columns of one row:
+// epi(gm, gn, v) with v[j] the sum at (gm, gn + j); columns gn + j >= N are
+// the epilogue's to skip.
+template <class Cfg, class Epi>
+__device__ __forceinline__ void gemm_sm90_store(const float (&acc)[4 * Cfg::QM][4 * Cfg::QN],
+                                                int M, int N, int m0, int n0, const Epi& epi) {
+    const int tx = threadIdx.x % Cfg::TX, ty = threadIdx.x / Cfg::TX;
+#pragma unroll
+    for (int qm = 0; qm < Cfg::QM; ++qm)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int gm = m0 + qm * (Cfg::BM / Cfg::QM) + 4 * ty + i;
+            if (gm >= M) continue;
+#pragma unroll
+            for (int qn = 0; qn < Cfg::QN; ++qn) {
+                const int gn = n0 + qn * (Cfg::BN / Cfg::QN) + 4 * tx;
+                if (gn >= N) continue;
+                float v[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) v[j] = acc[4 * qm + i][4 * qn + j];
+                epi(gm, gn, v);
+            }
+        }
+}
+
+// Host side: may the float4 paths take this operand? The contiguous stride
+// is 1, the other stride and the contiguous extent are multiples of 4, and
+// the base is 16-byte aligned.
+inline bool sm90_vec_ok(const float* p, long long s_contig, long long s_other, long long extent) {
+    return s_contig == 1 && s_other % 4 == 0 && extent % 4 == 0 &&
+           (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace

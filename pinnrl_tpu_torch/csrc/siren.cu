@@ -6,55 +6,83 @@
 // What bounds it on an H100: at the shipped SIREN (124 wide, batch 2048)
 // one hidden layer is 2 n k m = 63 MFLOP over ~2 MB of traffic, ~0.9 us of
 // FP32 CUDA-core time at the card's peak, so at this size launch latency
-// and the card's fill (64 tiles for 132 SMs) dominate, not bytes or FLOPs.
-// Design: the shared 64x64x16 FP32 tile of sgemm_f32.cuh (FMA, no TF32,
-// every edge guarded: 124 is no multiple of a tile and the first layer has
-// k = 2), then bias, scale and sin in the epilogue, so the pre-activation
-// never goes to memory. The reverse pass and the jvp rule recompute it in
-// plain ops, as the JAX rule does (ops/kernels/siren.py).
+// and the card's fill dominate, not bytes or FLOPs. A 64x64 tile gives 64
+// blocks for 132 SMs and left half the card idle.
+// Design: the 32x32 tile of the GEMM core in sgemm_sm90.cuh (64 threads,
+// 4x4 per thread, k in slices of 8 through a 3-slice ring; FMA, no TF32):
+// 256 blocks at (2048, 124) -> 124, 628 at (5000, 124) -> 124. x is
+// k-contiguous (float4 loads stored transposed), W n-contiguous (cp.async);
+// the guarded scalar path takes k = 2 in the first layer and any operand
+// that is not 16-byte aligned. Bias, scale and sin run in the epilogue, so
+// the pre-activation never goes to memory. The reverse pass and the jvp rule
+// recompute it in plain ops, as the JAX rule does (ops/kernels/siren.py).
 // Precision: full-range sinf, never __sinf and never --use_fast_math: at
 // omega = 30 the phases reach tens of radians.
 
 #include <cuda_runtime.h>
 
-#include "sgemm_f32.cuh"
+#include "sgemm_sm90.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(GEMM_THREADS)
-siren_kernel(int n, int k, int m, const float* __restrict__ x, const float* __restrict__ W,
-             const float* __restrict__ b, float omega, float* __restrict__ out) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;  // m0: rows of x, n0: features
+// out[row, col..col+3] = sin(omega (v + b)), float4 stores where aligned.
+struct SirenEpi {
+    float* out;
+    const float* b;
+    float omega;
+    int m;
+    bool vec;
+    __device__ __forceinline__ void operator()(int row, int col, const float* v) const {
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = col + j < m ? sinf(omega * (v[j] + b[col + j])) : 0.0f;
+        float* c = out + (long long)row * m + col;
+        if (vec && col + 3 < m) {
+            *reinterpret_cast<float4*>(c) = make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (col + j < m) c[j] = o[j];
+        }
+    }
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(TileSmall::THREADS)
+siren_sm90_kernel(int n, int k, int m, const float* __restrict__ x, const float* __restrict__ W,
+                  const float* __restrict__ b, float omega, float* __restrict__ out, int vec_store) {
+    const int m0 = blockIdx.y * TileSmall::BM, n0 = blockIdx.x * TileSmall::BN;  // rows, features
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    sgemm_tile(n, m, x, k, 1, W, m, 1, m0, n0, 0, k, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = m0 + ty * 4 + i;
-        if (row >= n) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = n0 + tx * 4 + j;
-            if (col >= m) continue;
-            out[(long long)row * m + col] = sinf(omega * (acc[i][j] + b[col]));
-        }
-    }
+    gemm_sm90_tile<TileSmall, true, false, VEC>(n, m, x, k, 1, W, m, 1, m0, n0, 0, k, acc);
+    gemm_sm90_store<TileSmall>(acc, n, m, m0, n0, SirenEpi{out, b, omega, m, vec_store != 0});
 }
 
 inline unsigned cdiv(long long a, long long c) { return (unsigned)((a + c - 1) / c); }
 
 }  // namespace
 
+// Blocks siren_forward launches for an (n, k) x (k, m) layer.
+extern "C" int siren_blocks(int n, int m) {
+    return (int)(cdiv(m, TileSmall::BN) * cdiv(n, TileSmall::BM));
+}
+
 // Launches on the given stream and returns cudaGetLastError().
 extern "C" int siren_forward(const float* x, const float* W, const float* b, float* out, int n,
                              int k, int m, float omega, void* stream) {
     if (n > 0 && m > 0) {
-        dim3 grid(cdiv(m, BN), cdiv(n, BM));
-        siren_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(n, k, m, x, W, b, omega, out);
+        const dim3 grid(cdiv(m, TileSmall::BN), cdiv(n, TileSmall::BM));
+        const bool vec = sm90_vec_ok(x, 1, k, k) && sm90_vec_ok(W, 1, m, m);
+        const int vec_store = m % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+        if (vec)
+            siren_sm90_kernel<true><<<grid, TileSmall::THREADS, 0, (cudaStream_t)stream>>>(
+                n, k, m, x, W, b, omega, out, vec_store);
+        else
+            siren_sm90_kernel<false><<<grid, TileSmall::THREADS, 0, (cudaStream_t)stream>>>(
+                n, k, m, x, W, b, omega, out, vec_store);
     }
     return (int)cudaGetLastError();
 }

@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build (or find cached) in this process, and
-# the compiler's report (registers, shared memory, spills per kernel).
+# the compiler's report (registers, shared memory, spills per kernel), kept
+# beside the library as lib<name>-<hash>.log so a cached build has it too.
 BUILD_SECONDS: Dict[str, float] = {}
 BUILD_LOG: Dict[str, str] = {}
 
@@ -76,8 +77,10 @@ def load_library(name: str) -> ctypes.CDLL:
                 f"nvcc failed for {source.name} (rc {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
+        target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
-        BUILD_LOG[name] = proc.stdout + proc.stderr
+    log = target.with_suffix(".log")
+    BUILD_LOG[name] = log.read_text() if log.exists() else ""
     BUILD_SECONDS[name] = time.perf_counter() - t0
     lib = ctypes.CDLL(str(target))
     _LOADED[name] = lib

@@ -43,12 +43,15 @@ from pinnrl_tpu_torch.ops.jet_mlp import BundleView, _transport_block, make_bund
 from pinnrl_tpu_torch.ops.kernels import _build
 
 _LN_EPS = 1e-6
-_GEMM_TILE = 64
-_GEMM_BK = 16
+_GEMM_TILE = 128  # the GEMM core's output tile (csrc/sgemm_sm90.cuh: TileLarge)
+_GEMM_BK = 8  # its k per shared-memory slice
 _COLSUM_ROWS = 256
 _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
 _RESIDUALS = ("burgers", "heat", "kdv")
-_TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs for split-K products
+# Split-K products: one wave of the GEMM core on the H100, two 128x128 blocks
+# on each of its 132 SMs.
+_TARGET_BLOCKS = 264
+_MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 
 
 # --------------------------------------------------------------------------- #
@@ -297,6 +300,18 @@ class _TorchOps:
     def colsum(self, A, rows, cols, ld, scale):
         return A.as_strided((rows, cols), (ld, 1), A.storage_offset()).sum(dim=0) * scale
 
+    def rowdot(self, X, w, b, bias_rows):
+        Y = X @ w.t()
+        if b is not None:
+            Y[:bias_rows] += b
+        return Y
+
+    def outer(self, G, w):
+        return G @ w
+
+    def wcolsum(self, G, X):
+        return G.t() @ X
+
 
 class _CudaOps:
     """The CUDA kernels of ``csrc/fused_residual.cu`` behind the same methods."""
@@ -319,6 +334,10 @@ class _CudaOps:
         "fr_causal_scale": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "fr_colsum": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        "fr_rowdot": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "fr_outer": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "fr_wcolsum": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     }
 
     def __init__(self, device: torch.device) -> None:
@@ -352,7 +371,7 @@ class _CudaOps:
     def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
         _build.check(self.lib.fr_gemm(M, N, K, A.data_ptr(), sam, sak, B.data_ptr(), sbk, sbn,
                                       C.data_ptr(), ldc, self._ptr(bias), bias_rows, splits,
-                                      k_chunk, M * N, self.stream), "sgemm_kernel")
+                                      k_chunk, M * N, self.stream), "gemm_sm90_kernel")
 
     def transport_fwd(self, H, gamma, beta, n):
         A = torch.empty_like(H)
@@ -416,6 +435,28 @@ class _CudaOps:
                      "colsum kernels")
         return out
 
+    def rowdot(self, X, w, b, bias_rows):
+        R, K = X.shape
+        Y = self._empty(R, 1)
+        _build.check(self.lib.fr_rowdot(X.data_ptr(), w.data_ptr(), self._ptr(b), Y.data_ptr(), R,
+                                        K, bias_rows, self.stream), "rowdot_kernel")
+        return Y
+
+    def outer(self, G, w):
+        R, K = G.shape[0], w.shape[1]
+        out = self._empty(R, K)
+        _build.check(self.lib.fr_outer(G.data_ptr(), w.data_ptr(), out.data_ptr(), R, K,
+                                       self.stream), "outer_kernel")
+        return out
+
+    def wcolsum(self, G, X):
+        R, K = X.shape
+        partial = self._empty(_cdiv(R, _COLSUM_ROWS), K)
+        out = self._empty(1, K)
+        _build.check(self.lib.fr_wcolsum(G.data_ptr(), X.data_ptr(), R, K, K, partial.data_ptr(),
+                                         out.data_ptr(), self.stream), "weighted colsum kernels")
+        return out
+
 
 _CUDA_OPS: Dict[torch.device, _CudaOps] = {}
 
@@ -433,8 +474,9 @@ def _cuda_ops(device: torch.device) -> _CudaOps:
 # --------------------------------------------------------------------------- #
 
 
-def _linear(ops, X, W, b, bias_rows: int):
-    """X (R, K) @ W^T (W: (out, K)) + b on the first ``bias_rows`` rows."""
+def _gemm_linear(ops, X, W, b, bias_rows: int):
+    """X (R, K) @ W^T (W: (out, K)) + b on the first ``bias_rows`` rows, as
+    one GEMM (``ops.gemm``)."""
     R, K = X.shape
     out = W.shape[0]
     Y = torch.empty((R, out), dtype=X.dtype, device=X.device)
@@ -442,9 +484,22 @@ def _linear(ops, X, W, b, bias_rows: int):
     return Y
 
 
+# The output layer (out = 1) is a product with one column: its bound is
+# bytes, so it runs as a row pass (rowdot, outer, wcolsum) and not as a tile.
+
+
+def _linear(ops, X, W, b, bias_rows: int):
+    """X (R, K) @ W^T (W: (out, K)) + b on the first ``bias_rows`` rows."""
+    if W.shape[0] == 1:
+        return ops.rowdot(X, W, b, bias_rows)
+    return _gemm_linear(ops, X, W, b, bias_rows)
+
+
 def _linear_dx(ops, G, W):
     """G (R, out) @ W (out, K) -> (R, K)."""
     R, out = G.shape
+    if out == 1:
+        return ops.outer(G, W)
     K = W.shape[1]
     dX = torch.empty((R, K), dtype=G.dtype, device=G.device)
     ops.gemm(R, K, out, G, out, 1, W, K, 1, dX, K, None, 0, 1, out)
@@ -456,10 +511,11 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _split_k(M: int, N: int, K: int) -> Tuple[int, int]:
-    """(splits, k_chunk) for an (M, N) product with a long K: enough blocks
-    to fill the card, at least 512 of K per split, chunks a multiple of BK."""
+    """(splits, k_chunk) for an (M, N) product with a long K: about
+    ``_TARGET_BLOCKS`` blocks of the core's tile, at least ``_MIN_SPLIT_K`` of
+    K per split, chunks a multiple of BK."""
     tiles = _cdiv(M, _GEMM_TILE) * _cdiv(N, _GEMM_TILE)
-    splits = max(1, min(_cdiv(_TARGET_BLOCKS, tiles), _cdiv(K, 512)))
+    splits = max(1, min(_cdiv(_TARGET_BLOCKS, tiles), _cdiv(K, _MIN_SPLIT_K)))
     k_chunk = _cdiv(_cdiv(K, splits), _GEMM_BK) * _GEMM_BK
     return _cdiv(K, k_chunk), k_chunk
 
@@ -468,6 +524,8 @@ def _linear_dw(ops, G, X):
     """G^T (out, R) @ X (R, K) -> (out, K), split over R with a
     deterministic reduction of the split partials."""
     R, out = G.shape
+    if out == 1:
+        return ops.wcolsum(G, X)
     K = X.shape[1]
     splits, k_chunk = _split_k(out, K, R)
     buf = torch.empty((splits, out, K), dtype=G.dtype, device=G.device)

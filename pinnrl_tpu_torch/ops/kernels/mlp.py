@@ -124,7 +124,7 @@ def _score(ops, x: torch.Tensor, P: Mapping[str, torch.Tensor], eps: float) -> t
     """Host launcher shared by both op sets: first layer, GEMM, head."""
     H1 = ops.dense_ln_relu_in(x, P["Dense_0.weight"], P["Dense_0.bias"],
                               P["LayerNorm_0.weight"], P["LayerNorm_0.bias"], eps)
-    H2 = fused_step._linear(ops, H1, P["Dense_1.weight"], P["Dense_1.bias"], H1.shape[0])
+    H2 = fused_step._gemm_linear(ops, H1, P["Dense_1.weight"], P["Dense_1.bias"], H1.shape[0])
     return ops.ln_relu_head(H2, P["LayerNorm_1.weight"], P["LayerNorm_1.bias"],
                             P["Dense_2.weight"], P["Dense_2.bias"], eps)
 

@@ -34,16 +34,23 @@ def siren_layer_plain(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
 
 def _lib():
     lib = _build.load_library("siren")
-    fn = lib.siren_forward
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES["siren_forward"]
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.restype is not ctypes.c_int or fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
     return lib
 
 
 _ARGTYPES = {
     "siren_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+    "siren_blocks": [ctypes.c_int] * 2,
 }
+
+
+def launch_blocks(n: int, m: int) -> int:
+    """The thread blocks the CUDA kernel launches for n rows and m features."""
+    return _lib().siren_blocks(n, m)
 
 
 def siren_layer_cuda(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
@@ -63,7 +70,7 @@ def siren_layer_cuda(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     out = torch.empty((*x.shape[:-1], m), dtype=torch.float32, device=x.device)
     status = _lib().siren_forward(x.data_ptr(), W.data_ptr(), b.data_ptr(), out.data_ptr(),
                                   n, k, m, float(omega), _build.stream_handle(x.device))
-    _build.check(status, "siren_kernel")
+    _build.check(status, "siren_sm90_kernel")
     siren_layer.launches += 1
     return out
 

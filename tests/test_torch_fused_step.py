@@ -148,5 +148,5 @@ def test_supports_scope():
 @pytest.mark.parametrize("M,N,K", [(256, 256, 32768), (1, 256, 32768), (256, 256, 100), (64, 64, 8192)])
 def test_split_k_covers_k(M, N, K):
     splits, chunk = fused_step._split_k(M, N, K)
-    assert chunk % 16 == 0 and splits >= 1
+    assert chunk % fused_step._GEMM_BK == 0 and splits >= 1
     assert (splits - 1) * chunk < K <= splits * chunk

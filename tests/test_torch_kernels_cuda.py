@@ -12,7 +12,10 @@ scorer 1e-4 relative to max (the JAX suite's bound for its kernel: sums in
 another order through two LayerNorms); the SIREN layer 1e-5 relative to
 max, and the kernels' jvp rules at order k 1e-4 x 10^(k-1) relative to max
 (the JAX suite's bounds for its SIREN and Fourier kernels,
-tests/test_pallas_parity_tpu.py).
+tests/test_pallas_parity_tpu.py). The GEMM core and the output layer's row
+passes against float64 ``torch.mm``: 1e-5 relative to max for K <= 512,
+1e-4 above (FP32 sums of K terms in another order drift by about
+sqrt(K) eps); split-K and kernel 1 bit-identical across two calls.
 """
 
 import numpy as np
@@ -287,3 +290,173 @@ def test_fused_residual_loss_heat_matches_plain(cuda_device, causal):
     assert abs(float(lk.detach()) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
     for name, a, b in zip(params, gk, gp):
         assert _rel(a, b) < grad_tol, name  # the output bias: 0 in both
+
+
+# --------------------------------------------------------------------------- #
+# The GEMM core (csrc/sgemm_sm90.cuh) and the output layer's row passes
+# --------------------------------------------------------------------------- #
+# Tolerance: rel to max |float64 torch.mm| of the same operands, 1e-5 for
+# K <= 512 and 1e-4 above (an FP32 sum of K terms in another order drifts by
+# about sqrt(K) eps).
+
+
+def _gemm_tol(K):
+    return 1e-5 if K <= 512 else 1e-4
+
+
+def _offset_matrix(rows, cols, offset, gen, device):
+    """A contiguous (rows, cols) float32 matrix starting ``offset`` floats
+    into its buffer (offset 1: not 16-byte aligned)."""
+    buf = torch.randn(rows * cols + offset, generator=gen, device=device)
+    return buf[offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("pde,rows,widths", [
+    ("burgers", 4 * 8192, (256, 256, 256, 256, 1)),  # mapping 128 -> 256 features
+    ("kdv", 5 * 8192, (512, 256, 256, 256, 1)),  # mapping 256 -> 512 features
+])
+def test_gemm_core_matches_float64_at_kernel1_products(cuda_device, pde, rows, widths):
+    """Each product of one kernel-1 call, through the launcher's routing
+    (the core for the hidden layers, row passes for the output layer)."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    ops = fused_step._cuda_ops(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    for i, (inp, out) in enumerate(zip(widths[:-1], widths[1:])):
+        X = torch.randn((rows, inp), generator=gen, device=cuda_device)
+        W = torch.randn((out, inp), generator=gen, device=cuda_device)
+        b = torch.randn((out,), generator=gen, device=cuda_device)
+        G = torch.randn((rows, out), generator=gen, device=cuda_device)
+        X64, W64, G64 = X.double(), W.double(), G.double()
+        ref = X64 @ W64.t()
+        ref[: rows // 4] += b.double()
+        checks = [(fused_step._linear(ops, X, W, b, rows // 4), ref, inp),
+                  (fused_step._linear_dw(ops, G, X), G64.t() @ X64, rows)]
+        if i:
+            checks.append((fused_step._linear_dx(ops, G, W), G64 @ W64, out))
+        for got, want, K in checks:
+            assert got.shape == want.shape
+            assert _rel(got.double(), want) < _gemm_tol(K), (pde, i, K)
+
+
+@pytest.mark.parametrize("layout", ["xwt", "gw", "gtx", "gtwt"])
+@pytest.mark.parametrize("M,N,K,offset", [
+    (130, 70, 37, 0), (1, 129, 200, 0), (257, 1, 64, 0), (96, 124, 1, 0), (2048, 124, 2, 0),
+    (200, 124, 124, 1), (384, 256, 1000, 0), (200, 132, 96, 0), (129, 131, 133, 1),
+])
+def test_gemm_core_ragged_and_unaligned(cuda_device, layout, M, N, K, offset):
+    """``fr_gemm`` on every layout kernel 1 uses (A, B k-contiguous; B
+    n-contiguous; A m-contiguous, split over K) and on one it does not (A
+    m-contiguous, B k-contiguous: the guarded scalar path), at M, N, K that
+    are no multiple of 128, 8 or 4, K in {1, 2}, one row or column, and
+    operands one float past a 16-byte boundary, with a bias on the first
+    rows."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(M * 7 + N * 3 + K)
+    if layout == "xwt":
+        A = _offset_matrix(M, K, offset, gen, cuda_device)
+        B = _offset_matrix(N, K, offset, gen, cuda_device)
+        args, ref = (A, K, 1, B, 1, K), A.double() @ B.double().t()
+    elif layout == "gw":
+        A = _offset_matrix(M, K, offset, gen, cuda_device)
+        B = _offset_matrix(K, N, offset, gen, cuda_device)
+        args, ref = (A, K, 1, B, N, 1), A.double() @ B.double()
+    elif layout == "gtx":
+        A = _offset_matrix(K, M, offset, gen, cuda_device)
+        B = _offset_matrix(K, N, offset, gen, cuda_device)
+        args, ref = (A, 1, M, B, N, 1), A.double().t() @ B.double()
+    else:
+        A = _offset_matrix(K, M, offset, gen, cuda_device)
+        B = _offset_matrix(N, K, offset, gen, cuda_device)
+        args, ref = (A, 1, M, B, 1, K), A.double().t() @ B.double().t()
+    # dW (gtx) is split over K and takes no bias, as in the launcher.
+    splits, k_chunk = fused_step._split_k(M, N, K) if layout == "gtx" else (1, K)
+    bias = None if layout == "gtx" else torch.randn((N,), generator=gen, device=cuda_device)
+    bias_rows = M // 2
+    if bias is not None:
+        ref[:bias_rows] += bias.double()
+    C = torch.full((splits, M, N), float("nan"), device=cuda_device)
+    fused_step._cuda_ops(cuda_device).gemm(M, N, K, *args, C, N, bias, bias_rows, splits, k_chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(C).all()
+    assert _rel(C.double().sum(0), ref) < _gemm_tol(K)
+
+
+def test_gemm_split_k_is_bit_identical(cuda_device):
+    """dW over 32768 rows in 64 splits, twice: fixed-order partials and
+    colsum, no float atomics, so the two results are equal bit for bit."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    ops = fused_step._cuda_ops(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    G = torch.randn((32768, 256), generator=gen, device=cuda_device)
+    X = torch.randn((32768, 256), generator=gen, device=cuda_device)
+    assert fused_step._split_k(256, 256, 32768)[0] > 1
+    first = fused_step._linear_dw(ops, G, X)
+    second = fused_step._linear_dw(ops, G, X)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _rel(first.double(), G.double().t() @ X.double()) < _gemm_tol(32768)
+
+
+@pytest.mark.parametrize("R,K,offset", [(32768, 256, 0), (40960, 256, 0), (300, 37, 0), (77, 256, 1)])
+def test_output_layer_row_passes_match_float64(cuda_device, R, K, offset):
+    """rowdot (U = X w + b on the first rows), outer (dX = dU w) and
+    wcolsum (dW = dU^T X) against float64, float4 and scalar paths."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    ops = fused_step._cuda_ops(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(R + K)
+    X = _offset_matrix(R, K, offset, gen, cuda_device)
+    w = _offset_matrix(1, K, offset, gen, cuda_device)
+    b = torch.randn((1,), generator=gen, device=cuda_device)
+    g = torch.randn((R, 1), generator=gen, device=cuda_device)
+    X64, w64, g64 = X.double(), w.double(), g.double()
+    ref = X64 @ w64.t()
+    ref[: R // 4] += b.double()
+    assert _rel(ops.rowdot(X, w, b, R // 4).double(), ref) < _gemm_tol(K)
+    assert _rel(ops.outer(g, w).double(), g64 @ w64) < 1e-7
+    assert _rel(ops.wcolsum(g, X).double(), g64.t() @ X64) < _gemm_tol(R)
+
+
+def test_fused_residual_loss_is_bit_identical_across_calls(cuda_device):
+    """Kernel 1 at the Burgers recipe's width: two calls on the same inputs
+    give the same loss and gradients bit for bit."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    cfg = load_config(pde_type="burgers", architecture="fourier", device="cuda")
+    cfg.model.hidden_dims = [256, 256, 256]
+    cfg.model.arch_params.update({"mapping_size": 128, "scale": 2.0})
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    fn = fused_step.make_fused_residual_loss(model, pde)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    z = torch.cat(pde.generate_collocation_points(gen, 8192, "uniform"), dim=-1)
+    runs = []
+    for _ in range(2):
+        loss = fn(model.params, z)
+        runs.append((loss.detach(), torch.autograd.grad(loss, list(model.params.values()))))
+    torch.cuda.synchronize()
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("n,k,m,offset", [(2048, 124, 124, 1), (2048, 2, 124, 0), (37, 5, 13, 1)])
+def test_siren_kernel_unaligned_and_fill(cuda_device, n, k, m, offset):
+    """Kernel 3's 32x32 tile on an x one float past a 16-byte boundary (the
+    guarded scalar path), and its grid: at least one block per SM at the
+    shipped SIREN's (2048, 124) -> 124."""
+    from pinnrl_tpu_torch.ops.kernels import siren
+
+    _, W, b = _siren_inputs(n, k, m, cuda_device, n + k + 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = _offset_matrix(n, k, offset, gen, cuda_device).uniform_(-1.0, 1.0, generator=gen)
+    with torch.no_grad():
+        got = siren.siren_layer(x, W, b, 30.0)
+        ref = siren.siren_layer_plain(x, W, b, 30.0)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < 1e-5
+    assert siren.launch_blocks(2048, 124) >= torch.cuda.get_device_properties(0).multi_processor_count
