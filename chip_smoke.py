@@ -24,8 +24,12 @@ Phases (each raises on failure, and the script then exits non-zero):
   7. rar     — 4 steps of the recipe with residual-based (RAR) sampling.
   8. syncs   — host round trips of one RL step against one uniform step,
                counted under ``torch.cuda.set_sync_debug_mode("warn")``.
-  9. timing  — ``fused_mlp_score`` against its plain version, and median ms
-               per RL step with the kernels and on the plain path.
+  9. timing  — ``fused_mlp_score`` against its plain version and cuBLAS by
+               CUDA-graph replay (and its eager calls); each of its four
+               launches apart, with the product's split and blocks; the
+               product's layout A/B (W2^T n-contiguous against W2 as is)
+               and split A/B (unsplit against two over K), in turns; median
+               ms per RL step with the kernels and on the plain path.
  10. kdv     — the KdV convergence recipe (Fourier 256x3, mapping 256 with
                the shipped ``feature_seed`` 0 basis, batch 8192, causal
                eps 1.0, order-3 residual) through ``build_recipe_config`` ->
@@ -63,36 +67,40 @@ Phases (each raises on failure, and the script then exits non-zero):
                step with the kernels and on the plain path.
  16. gemm      — the products of one kernel-1 call (Burgers N=8192: 4
                streams, 256x3, mapping 128; KdV N=8192: 5 streams, mapping
-               256) through three routes on the same operands, in turns
-               (old, new, cuBLAS, cuBLAS, new, old): the GEMM core of
+               256) through two routes on the same operands, in turns
+               (new, cuBLAS, cuBLAS, new): the GEMM core of
                ``csrc/sgemm_sm90.cuh`` and the output layer's row passes as
                kernel 1 runs them (``fr_gemm``, ``fr_rowdot``, ``fr_outer``,
-               ``fr_wcolsum``), the old 64x64x16 tile through kernel 4's
-               ``ms_gemm`` with the arguments kernel 1 gave that tile, and ``torch.mm``
-               (TF32 off); each result against a float64 ``torch.mm``;
-               device ms per product by CUDA-graph replay.
+               ``fr_wcolsum``), and ``torch.mm`` (TF32 off); each result
+               against a float64 ``torch.mm``; device ms per product by
+               CUDA-graph replay.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, spills) for
-every kernel and fails if a kernel of the GEMM core spills. Phase 3 holds
-kernel 1 against its plain version in six variants: Burgers, heat and KdV,
-each plain and causal (eps 1.0), at N = 8192, and KdV-causal again at
-N = 5000 (not a multiple of the scan block); Burgers and KdV-causal must
-give bit-identical loss and gradients in two calls on the same inputs.
+every kernel and fails unless each library that runs the GEMM core
+(kernels 1, 3 and 4) has core kernels and none of them spills. Phase 3
+holds kernel 1 against its plain version in six variants: Burgers, heat
+and KdV, each plain and causal (eps 1.0), at N = 8192, and KdV-causal again
+at N = 5000 (not a multiple of the scan block); Burgers and KdV-causal must
+give bit-identical loss and gradients in two calls on the same inputs; and
+kernel 4 against its plain version at three widths, with its product's
+split as chosen and forced to each setting, bit-identical in two calls.
 
 The second-to-last line is a JSON object describing each kernel: its
 ``launches`` are those of the RL slice for kernels 1, 2 and 4 (the path
 that runs all three) and of the siren-kdv slice for kernel 3;
 ``kdv_launches`` and ``heat_launches`` those of the KdV and heat slices;
-``ms`` and ``plain_ms`` device time per call (CUDA-graph replays for kernels
-1, 2 and 3, whose eager calls are host-bound: ``eager_ms``; CUDA events
-around eager calls for kernel 4); ``bound_ms`` the larger of
-its operations over the card's FP32 peak and its bytes over the memory
-rate, for the shapes it is timed at; ``library_ms``
-the cuBLAS FP32 products of the same shapes (``library_call`` says which).
-Kernel 1's entry also carries phase 16's summed ms per PDE: ``gemm_ms``
-(its products as it runs them now), ``gemm_old_tile_ms`` and
-``gemm_library_ms``; kernel 3's carries ``blocks``, the thread blocks it
-launches at (2048, 124) -> 124.
+``ms`` and ``plain_ms`` device time per call by CUDA-graph replay (the
+kernels' eager calls are host-bound: ``eager_ms``); ``bound_ms`` the larger
+of its operations over the card's FP32 peak and its bytes over the memory
+rate, for the shapes it is timed at; ``library_ms`` the cuBLAS FP32
+products of the same shapes by CUDA-graph replay (``library_call`` says
+which). Kernel 1's entry also carries phase 16's summed ms per PDE:
+``gemm_ms`` (its products as it runs them) and ``gemm_library_ms``; kernel
+3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124;
+kernel 4's ``launch_ms`` (each launch), ``splits`` (the launcher's choice,
+``mlp._product_split``) and ``blocks`` of its product (read from the
+launch's own grid, ``ms_gemm_blocks``), and phase 9's A/Bs
+``product_ab_ms`` and ``split_ab_ms``.
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -246,51 +254,55 @@ def fused_gemms(params, x_order: int, n: int):
     return [shape for _, shape in gemm_products(params, x_order, n)]
 
 
-def old_tile_split(M: int, N: int, K: int):
-    """The (splits, k_chunk) over K kernel 1 used with the 64x64x16 tile of
-    ``csrc/sgemm_f32.cuh``: the old route of phase 16."""
-    from pinnrl_tpu_torch.ops.kernels.fused_step import _cdiv
-
-    tiles = _cdiv(M, 64) * _cdiv(N, 64)
-    splits = max(1, min(_cdiv(264, tiles), _cdiv(K, 512)))
-    k_chunk = _cdiv(_cdiv(K, splits), 16) * 16
-    return _cdiv(K, k_chunk), k_chunk
-
-
-def gemm_routes(kind: str, P, Q, new_ops, old_ops):
-    """(new, old, cuBLAS) callables for one product on operands P, Q: "fwd"
+def gemm_routes(kind: str, P, Q, ops):
+    """(core, cuBLAS) callables for one product on operands P, Q: "fwd"
     X (R, K), W (N, K) -> X W^T; "dx" G (R, out), W (out, K) -> G W; "dw"
-    G (R, out), X (R, K) -> G^T X. new: kernel 1's launcher
-    (``fused_step._linear*``: the GEMM core, or a row pass for one column);
-    old: the 64x64x16 tile through ``ms_gemm`` with kernel 1's former launcher
-    arguments (split partials summed by kernel 1's colsum)."""
+    G (R, out), X (R, K) -> G^T X. core: kernel 1's launcher
+    (``fused_step._linear*``: the GEMM core, or a row pass for one column)."""
     import torch
 
     from pinnrl_tpu_torch.ops.kernels import fused_step
 
-    def old_fwd():
-        return fused_step._gemm_linear(old_ops, P, Q, None, 0)
-
-    def old_dx():
-        R, out = P.shape
-        K = Q.shape[1]
-        dX = torch.empty((R, K), device=P.device)
-        old_ops.gemm(R, K, out, P, out, 1, Q, K, 1, dX, K, None, 0, 1, out)
-        return dX
-
-    def old_dw():
-        R, out = P.shape
-        K = Q.shape[1]
-        splits, k_chunk = old_tile_split(out, K, R)
-        buf = torch.empty((splits, out, K), device=P.device)
-        old_ops.gemm(out, K, R, P, 1, out, Q, K, 1, buf, K, None, 0, splits, k_chunk)
-        return buf[0] if splits == 1 else new_ops.colsum(buf, splits, out * K, out * K, 1.0).reshape(out, K)
-
     return {
-        "fwd": (lambda: fused_step._linear(new_ops, P, Q, None, 0), old_fwd, lambda: torch.mm(P, Q.t())),
-        "dx": (lambda: fused_step._linear_dx(new_ops, P, Q), old_dx, lambda: torch.mm(P, Q)),
-        "dw": (lambda: fused_step._linear_dw(new_ops, P, Q), old_dw, lambda: torch.mm(P.t(), Q)),
+        "fwd": (lambda: fused_step._linear(ops, P, Q, None, 0), lambda: torch.mm(P, Q.t())),
+        "dx": (lambda: fused_step._linear_dx(ops, P, Q), lambda: torch.mm(P, Q)),
+        "dw": (lambda: fused_step._linear_dw(ops, P, Q), lambda: torch.mm(P.t(), Q)),
     }[kind]
+
+
+def scorer_launches(ops, x, P, eps: float = 1e-6):
+    """Kernel 4's launches as ``mlp._score`` makes them for grid ``x``, each
+    a callable on its own inputs: ({"transpose", "first_pass", "product",
+    "head"}, the product per (splits, W2 transposed) for the A/Bs, the
+    splits ``mlp._product_split`` picks)."""
+    import torch
+
+    from pinnrl_tpu_torch.ops.kernels import _gemm_core, mlp
+
+    n, h = x.shape[0], P["Dense_1.weight"].shape[0]
+    W2, b2 = P["Dense_1.weight"], P["Dense_1.bias"]
+    first = (x, P["Dense_0.weight"], P["Dense_0.bias"], P["LayerNorm_0.weight"],
+             P["LayerNorm_0.bias"], eps)
+    H1, W2t = ops.dense_ln_relu_in(*first), ops.transpose(W2)
+    plans = {s: _gemm_core.split_chunks(h, s) for s in (1, 2)}
+    partials = {s: torch.empty((plans[s][0], n, h), device=x.device) for s in plans}
+
+    def product(s: int, transposed: bool):
+        splits, k_chunk = plans[s]
+        B, sbk, sbn = (W2t, h, 1) if transposed else (W2, 1, h)
+        bias = b2 if splits == 1 else None
+        return lambda: ops.gemm(n, h, h, H1, h, 1, B, sbk, sbn, partials[s], h, bias, n, splits,
+                                k_chunk)
+
+    chosen = mlp._product_split(n, h, h)[0]
+    product(chosen, True)()  # the head's input
+    head = (partials[chosen], None if chosen == 1 else b2, P["LayerNorm_1.weight"],
+            P["LayerNorm_1.bias"], P["Dense_2.weight"], P["Dense_2.bias"], eps)
+    launches = {"transpose": lambda: ops.transpose(W2),
+                "first_pass": lambda: ops.dense_ln_relu_in(*first),
+                "product": product(chosen, True),
+                "head": lambda: ops.ln_relu_head(*head)}
+    return launches, {(s, t): product(s, t) for s in plans for t in (True, False)}, chosen
 
 
 def gemm_operands(kind: str, shape, gen, device):
@@ -329,14 +341,15 @@ def ptxas_report(log: str):
 
 def cublas_ms(shapes, device, iters: int = 20) -> float:
     """Device ms of one FP32 cuBLAS product (``torch.mm``, TF32 off) of each
-    (M, K, N) in ``shapes``, in sequence, on random operands."""
+    (M, K, N) in ``shapes``, in sequence, on random operands, by CUDA-graph
+    replay."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(0)
     ops = [(torch.randn((m, k), generator=gen, device=device),
             torch.randn((k, n), generator=gen, device=device)) for m, k, n in shapes]
     assert not torch.backends.cuda.matmul.allow_tf32
-    return cuda_ms(lambda: [torch.mm(a, b) for a, b in ops], iters=iters)
+    return graph_ms(lambda: [torch.mm(a, b) for a, b in ops], iters=iters)
 
 
 def time_sorted(x, t):
@@ -540,17 +553,18 @@ def main() -> int:
     names = ("fourier_feats", "fused_residual", "mlp_score", "siren")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         list(pool.map(_build.load_library, names))  # one nvcc per source, all at once
-    core_spills = []
+    core_spills = {name: [] for name in ("fused_residual", "siren", "mlp_score")}
     for name in names:
         print(f"[build] {name}: {_build.BUILD_SECONDS[name]:.2f} s", flush=True)
         for entry, regs, smem, spill_st, spill_ld in ptxas_report(_build.BUILD_LOG.get(name, "")):
             print(f"[build]   ptxas {entry}: {regs} registers, {smem} bytes smem, spill stores "
                   f"{spill_st} B, spill loads {spill_ld} B")
             if "_sm90_kernel" in entry:
-                core_spills.append(spill_st + spill_ld)
-    print(f"[build] total {time.perf_counter() - t0:.2f} s ({card})", flush=True)
-    if not core_spills or any(core_spills):
-        raise AssertionError(f"GEMM core kernels: spill bytes {core_spills} (want all 0)")
+                core_spills[name].append(spill_st + spill_ld)
+    print(f"[build] total {time.perf_counter() - t0:.2f} s; GEMM-core kernels' spill bytes per "
+          f"library: {core_spills} ({card})", flush=True)
+    if not all(core_spills.values()) or any(map(any, core_spills.values())):
+        raise AssertionError(f"GEMM core kernels: spill bytes {core_spills} (want kernels, all 0)")
 
     # ---- 3. parity ----------------------------------------------------- #
     cfg = burgers_recipe_config("cuda")
@@ -653,21 +667,39 @@ def main() -> int:
     rl_cfg.rl.enabled = True
     grid = make_grid(pde.domain, pde.time_domain, 100, dev)
     mlp_err = 0.0
+    mlp_ops = mlp._cuda_ops(dev)
     for hidden, a_dim, xs in ((rl_cfg.rl.hidden_dim, rl_cfg.rl.action_dim, grid),
-                              (128, 4, 2.0 * torch.rand((1000, 2), generator=gen, device=dev) - 1.0)):
+                              (128, 4, 2.0 * torch.rand((1000, 2), generator=gen, device=dev) - 1.0),
+                              (40, 3, 2.0 * torch.rand((37, 2), generator=gen, device=dev) - 1.0)):
         rl_cfg.rl.hidden_dim, rl_cfg.rl.action_dim = hidden, a_dim
         q_params = make_agent(rl_cfg).init(torch.Generator().manual_seed(1)).policy_params
+        # LayerNorm away from its init (1, 0), so its terms count.
+        q_params = {k: v.detach() + (0.1 * torch.randn(v.shape, generator=gen, device=dev)
+                                     if k.startswith("LayerNorm") else 0.0)
+                    for k, v in q_params.items()}
+        chosen = mlp._product_split(xs.shape[0], hidden, hidden)[0]
         with torch.no_grad():
             qk = mlp.fused_mlp_score(xs, q_params)
+            qk2 = mlp.fused_mlp_score(xs, q_params)
             qp = mlp.fused_mlp_score_plain(xs, q_params)
+            forced = {s: mlp._score(mlp_ops, xs, q_params, 1e-6, splits=s) for s in (1, 2)}
         torch.cuda.synchronize()
-        err = float((qk - qp).abs().max())
-        rel = err / float(qp.abs().max())
-        mlp_err = max(mlp_err, err)
-        print(f"[parity] fused_mlp_score ({xs.shape[0]},2)->{hidden}->{hidden}->{a_dim}: "
-              f"max_abs_err {err:.3e} rel {rel:.3e} (tol {MLP_TOL:g})", flush=True)
-        if not (tuple(qk.shape) == (xs.shape[0], a_dim) and rel < MLP_TOL):
-            raise AssertionError("fused_mlp_score kernel disagrees with its plain version")
+        tag = f"({xs.shape[0]},2)->{hidden}->{hidden}->{a_dim}"
+        for label, q in [(f"split {chosen} (chosen)", qk)] + [(f"split {s} forced", v)
+                                                               for s, v in forced.items()]:
+            err = float((q - qp).abs().max())
+            rel = err / float(qp.abs().max())
+            mlp_err = max(mlp_err, err)
+            print(f"[parity] fused_mlp_score {tag}, product {label}: max_abs_err {err:.3e} "
+                  f"rel {rel:.3e} (tol {MLP_TOL:g})", flush=True)
+            if not (tuple(q.shape) == (xs.shape[0], a_dim) and rel < MLP_TOL):
+                raise AssertionError(f"fused_mlp_score kernel disagrees with its plain version "
+                                     f"({tag}, {label})")
+        same = torch.equal(qk, qk2)
+        print(f"[parity] fused_mlp_score {tag}: two calls on the same inputs bit-identical {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"kernel 4 is not deterministic ({tag})")
     rl_cfg = burgers_recipe_config("cuda")
     rl_cfg.rl.epsilon_start = 0.0
     greedy = make_agent(rl_cfg)
@@ -866,11 +898,37 @@ def main() -> int:
 
     # ---- 9. rl timing ---------------------------------------------------- #
     q_params = {k: v.detach() for k, v in st.policy_params.items()}
+    g_n, h_mlp = grid.shape[0], q_params["Dense_1.weight"].shape[0]
+    mlp_shapes = [(g_n, 2, h_mlp), (g_n, h_mlp, h_mlp), (g_n, h_mlp, 1)]
     with torch.no_grad():
-        mlp_ms = cuda_ms(lambda: mlp.fused_mlp_score(grid, q_params), iters=100)
-        mlp_plain_ms = cuda_ms(lambda: mlp.fused_mlp_score_plain(grid, q_params), iters=100)
-    print(f"[timing] fused_mlp_score (10000,2)->512->512->1: kernel {mlp_ms:.4f} ms, "
-          f"plain {mlp_plain_ms:.4f} ms ({card})", flush=True)
+        mlp_eager_ms = cuda_ms(lambda: mlp.fused_mlp_score(grid, q_params), iters=100)
+        mlp_ms = graph_ms(lambda: mlp.fused_mlp_score(grid, q_params))
+        mlp_plain_ms = graph_ms(lambda: mlp.fused_mlp_score_plain(grid, q_params))
+        mlp_lib_ms = cublas_ms(mlp_shapes, dev, iters=50)
+        launches, products, mlp_splits = scorer_launches(mlp_ops, grid, q_params)
+        mlp_launch_ms = {k: graph_ms(f) for k, f in launches.items()}
+        product_ab = {k: 0.0 for k in products}
+        for k in list(products) + list(reversed(products)):  # in turns
+            product_ab[k] += graph_ms(products[k]) / 2.0
+        split_ab = {1: 0.0, 2: 0.0}
+        for s in (1, 2, 2, 1):
+            split_ab[s] += graph_ms(lambda s=s: mlp._score(mlp_ops, grid, q_params, 1e-6, splits=s)) / 2.0
+    mlp_blocks = mlp_ops.gemm_blocks(g_n, h_mlp, mlp_splits)  # the launch's own grid
+    print(f"[timing] fused_mlp_score ({g_n},2)->{h_mlp}->{h_mlp}->1, device time per call (CUDA "
+          f"graph): kernel {mlp_ms:.4f} ms, plain {mlp_plain_ms:.4f} ms, cuBLAS (its 3 products, "
+          f"no LayerNorm) {mlp_lib_ms:.4f} ms; eager calls, CUDA events: kernel {mlp_eager_ms:.4f} "
+          f"ms ({card})", flush=True)
+    flop = 2.0 * g_n * h_mlp * h_mlp
+    print(f"[timing] fused_mlp_score launches (CUDA graph): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in mlp_launch_ms.items())
+          + f" (sum {sum(mlp_launch_ms.values()):.4f}); product split {mlp_splits} over K, "
+          f"{mlp_blocks} blocks of 128x128, {flop / mlp_launch_ms['product'] / 1e9:.1f} TFLOP/s "
+          f"({card})", flush=True)
+    print("[timing] fused_mlp_score product A/B (CUDA graph, in turns): "
+          + ", ".join(f"{'W2^T (B n-contiguous)' if t else 'W2 as is (B k-contiguous)'} split {s} "
+                      f"{v:.4f} ms ({flop / v / 1e9:.1f} TFLOP/s)" for (s, t), v in product_ab.items())
+          + f"; whole call split 1 {split_ab[1]:.4f} ms, split 2 {split_ab[2]:.4f} ms ({card})",
+          flush=True)
     plain_rl_cfg = burgers_recipe_config("cuda")
     plain_rl_cfg.rl.enabled = True
     plain_rl_cfg.training.fused_residual_kernel = "off"
@@ -1219,14 +1277,14 @@ def main() -> int:
           f"{len(h_kernel_times)}: kernels {statistics.median(h_kernel_times):.3f} ms, plain path "
           f"{statistics.median(h_plain_times):.3f} ms ({card})", flush=True)
 
-    # ---- 16. gemm: new core, old tile, cuBLAS --------------------------------- #
-    new_ops, old_ops = fused_step._cuda_ops(dev), mlp._cuda_ops(dev)
+    # ---- 16. gemm: the core against cuBLAS ------------------------------------ #
+    core_ops = fused_step._cuda_ops(dev)
     gemm_sum = {}
     for pde_name, x_order, gparams in (("burgers", 2, variants["burgers"].model.params),
                                        ("kdv", 3, variants["kdv_causal"].model.params)):
         prods = gemm_products(gparams, x_order, 8192)
         ops_ = [gemm_operands(kind, shape, gen, dev) for kind, shape in prods]
-        routes = [gemm_routes(kind, P, Q, new_ops, old_ops) for (kind, _), (P, Q) in zip(prods, ops_)]
+        routes = [gemm_routes(kind, P, Q, core_ops) for (kind, _), (P, Q) in zip(prods, ops_)]
         errs = []
         for (kind, (M, K, N)), (P, Q), fns in zip(prods, ops_, routes):
             P64, Q64 = P.double(), Q.double()
@@ -1237,27 +1295,23 @@ def main() -> int:
             errs.append(got)
             tol = gemm_tol(K)
             if not max(got) < tol:
-                raise AssertionError(f"GEMM {pde_name} {kind} {M}x{K}x{N}: rel err (new, old tile, "
-                                     f"cuBLAS) {got} above {tol:g}")
-        ms = {r: [0.0] * len(prods) for r in ("new", "old", "lib")}
-        for route in ("old", "new", "lib", "lib", "new", "old"):
-            col = ("new", "old", "lib").index(route)
+                raise AssertionError(f"GEMM {pde_name} {kind} {M}x{K}x{N}: rel err (core, cuBLAS) "
+                                     f"{got} above {tol:g}")
+        ms = {r: [0.0] * len(prods) for r in ("new", "lib")}
+        for route in ("new", "lib", "lib", "new"):
+            col = ("new", "lib").index(route)
             for i, fns in enumerate(routes):
                 ms[route][i] += graph_ms(fns[col], iters=10, replays=5) / 2.0
         torch.cuda.synchronize()
         for i, (kind, (M, K, N)) in enumerate(prods):
             large = min(M, K, N) > 1
-            print(f"[gemm] {pde_name} {kind} {M}x{K}x{N}{'' if large else ' (row pass)'}: new "
-                  f"{ms['new'][i]:.4f} ms, old tile {ms['old'][i]:.4f} ms, cuBLAS {ms['lib'][i]:.4f} "
-                  f"ms; rel err new {errs[i][0]:.2e} old {errs[i][1]:.2e} cuBLAS {errs[i][2]:.2e} "
-                  f"(tol {gemm_tol(K):g}); faster than the old tile: "
-                  f"{ms['new'][i] < ms['old'][i]}", flush=True)
+            print(f"[gemm] {pde_name} {kind} {M}x{K}x{N}{'' if large else ' (row pass)'}: core "
+                  f"{ms['new'][i]:.4f} ms, cuBLAS {ms['lib'][i]:.4f} ms; rel err core "
+                  f"{errs[i][0]:.2e} cuBLAS {errs[i][1]:.2e} (tol {gemm_tol(K):g})", flush=True)
         gemm_sum[pde_name] = {r: sum(v) for r, v in ms.items()}
-        print(f"[gemm] {pde_name} N=8192, {len(prods)} products summed: new {gemm_sum[pde_name]['new']:.4f} "
-              f"ms, old tile {gemm_sum[pde_name]['old']:.4f} ms, cuBLAS {gemm_sum[pde_name]['lib']:.4f} ms "
+        print(f"[gemm] {pde_name} N=8192, {len(prods)} products summed: core "
+              f"{gemm_sum[pde_name]['new']:.4f} ms, cuBLAS {gemm_sum[pde_name]['lib']:.4f} ms "
               f"({card})", flush=True)
-        if not gemm_sum[pde_name]["new"] < gemm_sum[pde_name]["old"]:
-            raise AssertionError(f"GEMM core slower than the old tile over the {pde_name} call")
         del ops_, routes
 
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
@@ -1270,11 +1324,8 @@ def main() -> int:
     n_ff, d_ff, m_ff = x_ff.shape[0], x_ff.shape[1], B.shape[1]
     ff_bound = bound(2.0 * n_ff * d_ff * m_ff + 3.0 * n_ff * m_ff,
                      4.0 * (n_ff * d_ff + d_ff * m_ff + 2 * n_ff * m_ff))
-    g_n, h_mlp = grid.shape[0], q_params["Dense_1.weight"].shape[0]
-    mlp_shapes = [(g_n, 2, h_mlp), (g_n, h_mlp, h_mlp), (g_n, h_mlp, 1)]
     mlp_bound = bound(sum(2.0 * m * k * n for m, k, n in mlp_shapes) + 2 * 8.0 * g_n * h_mlp,
                       4.0 * (grid.numel() + sum(v.numel() for v in q_params.values()) + g_n))
-    mlp_lib_ms = cublas_ms(mlp_shapes, dev, iters=50)
     n3, k3, m3 = xs3.shape[0], W3.shape[0], W3.shape[1]
     siren_bound = bound(2.0 * n3 * k3 * m3 + 3.0 * n3 * m3, 4.0 * (n3 * k3 + k3 * m3 + m3 + n3 * m3))
     print(f"[bounds] FP32 {FP32_FLOPS:.3g} FLOP/s, HBM {HBM_BYTES_S:.3g} B/s: fused_residual_loss "
@@ -1300,7 +1351,6 @@ def main() -> int:
          "kdv_causal_eager_ms": kdv_eager_ms,
          "heat_ms": heat_ms, "heat_plain_ms": heat_plain_ms, "heat_eager_ms": heat_eager_ms,
          "gemm_ms": {k: v["new"] for k, v in gemm_sum.items()},
-         "gemm_old_tile_ms": {k: v["old"] for k, v in gemm_sum.items()},
          "gemm_library_ms": {k: v["lib"] for k, v in gemm_sum.items()}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
@@ -1322,9 +1372,12 @@ def main() -> int:
          "source": "pinnrl_tpu_torch/csrc/mlp_score.cu",
          "replaces": "pinnrl_tpu/ops/kernels/mlp.py:75",
          "launches": rl_launches["fused_mlp_score"], "max_abs_err": mlp_err,
-         "ms": mlp_ms, "plain_ms": mlp_plain_ms,
+         "ms": mlp_ms, "plain_ms": mlp_plain_ms, "eager_ms": mlp_eager_ms,
          "bound_ms": mlp_bound[0], "bound_by": mlp_bound[1], "library_ms": mlp_lib_ms,
-         "library_call": "torch.mm (FP32, TF32 off) of its three layer products, no LayerNorm"},
+         "library_call": "torch.mm (FP32, TF32 off) of its three layer products, no LayerNorm",
+         "launch_ms": mlp_launch_ms, "splits": mlp_splits, "blocks": mlp_blocks,
+         "product_ab_ms": {f"{'w2t' if t else 'w2'}_split{s}": v for (s, t), v in product_ab.items()},
+         "split_ab_ms": {f"split{s}": v for s, v in split_ab.items()}},
     ]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

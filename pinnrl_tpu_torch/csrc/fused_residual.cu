@@ -23,7 +23,7 @@
 //                         ((2+K)N, 2m) input [value; x1..xK; t1], K = 2
 //                         (Burgers, heat) or 3 (KdV).
 //   gemm_sm90_kernel<..>  the FP32 GEMM core of sgemm_sm90.cuh (shared with
-//                         siren.cu): 128x128 tiles, 8x8 per thread, a 3-slice
+//                         siren.cu and mlp_score.cu): 128x128 tiles, 8x8 per thread, a 3-slice
 //                         cp.async / register ring, FMA on the CUDA cores, no
 //                         TF32, templated on the operands' layouts: the
 //                         stacked forward X W^T (A, B k-contiguous), the
@@ -81,56 +81,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     return v;
-}
-
-// ----------------------------------------------------------------- GEMM --
-// C[m, n] = sum_{k in split} A[m*sam + k*sak] * B[k*sbk + n*sbn] (+ bias[n]
-// for m < bias_rows). blockIdx.z is the K split; split z writes to
-// C + z * split_stride. vec_store: C, ldc and split_stride allow float4 stores.
-
-struct LinearEpi {
-    float* C;
-    long long ldc;
-    const float* bias;
-    int bias_rows, N;
-    bool vec;
-    __device__ __forceinline__ void operator()(int gm, int gn, const float* v) const {
-        float o[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            o[j] = v[j];
-            if (bias != nullptr && gm < bias_rows && gn + j < N) o[j] += bias[gn + j];
-        }
-        float* c = C + (long long)gm * ldc + gn;
-        if (vec && gn + 3 < N) {
-            *reinterpret_cast<float4*>(c) = make_float4(o[0], o[1], o[2], o[3]);
-        } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                if (gn + j < N) c[j] = o[j];
-        }
-    }
-};
-
-template <bool A_KFAST, bool B_KFAST, bool VEC>
-__global__ void __launch_bounds__(TileLarge::THREADS, 2)
-gemm_sm90_kernel(int M, int N, int K, const float* __restrict__ A, long long sam, long long sak,
-                 const float* __restrict__ B, long long sbk, long long sbn, float* __restrict__ C,
-                 long long ldc, const float* __restrict__ bias, int bias_rows, int k_chunk,
-                 long long split_stride, int vec_store) {
-    const int m0 = blockIdx.y * TileLarge::BM, n0 = blockIdx.x * TileLarge::BN;
-    const int kbeg = blockIdx.z * k_chunk;
-    const int kend = min(K, kbeg + k_chunk);
-    float acc[4 * TileLarge::QM][4 * TileLarge::QN];
-#pragma unroll
-    for (int i = 0; i < 4 * TileLarge::QM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4 * TileLarge::QN; ++j) acc[i][j] = 0.0f;
-    gemm_sm90_tile<TileLarge, A_KFAST, B_KFAST, VEC>(M, N, A, sam, sak, B, sbk, sbn, m0, n0, kbeg,
-                                                     kend, acc);
-    const LinearEpi epi{C + (long long)blockIdx.z * split_stride, ldc, bias, bias_rows, N,
-                        vec_store != 0};
-    gemm_sm90_store<TileLarge>(acc, M, N, m0, n0, epi);
 }
 
 // ------------------------------------------------- output layer (out = 1) --
@@ -760,51 +710,15 @@ extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const 
     return (int)cudaGetLastError();
 }
 
-template <bool A_KFAST, bool B_KFAST>
-void launch_gemm_sm90(bool vec, dim3 grid, cudaStream_t st, int M, int N, int K, const float* A,
-                      long long sam, long long sak, const float* B, long long sbk, long long sbn,
-                      float* C, long long ldc, const float* bias, int bias_rows, int k_chunk,
-                      long long split_stride, int vec_store) {
-    if (vec)
-        gemm_sm90_kernel<A_KFAST, B_KFAST, true><<<grid, TileLarge::THREADS, 0, st>>>(
-            M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, k_chunk, split_stride,
-            vec_store);
-    else
-        gemm_sm90_kernel<A_KFAST, B_KFAST, false><<<grid, TileLarge::THREADS, 0, st>>>(
-            M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, k_chunk, split_stride,
-            vec_store);
-}
-
-// The layouts pick the kernel: kernel 1's forward (A and B k-contiguous),
-// dX (A k-contiguous, B n-contiguous) and dW (A m-contiguous, B
-// n-contiguous); any other strides take the last one's guarded scalar path.
-// The float4 / cp.async paths run where both operands allow them and k_chunk
-// keeps splits on float4 boundaries, the guarded scalar path otherwise.
+// The layouts pick the kernel (sm90_gemm): kernel 1's forward (A and B
+// k-contiguous), dX (A k-contiguous, B n-contiguous) and dW (A m-contiguous,
+// B n-contiguous).
 extern "C" int fr_gemm(int M, int N, int K, const float* A, long long sam, long long sak,
                        const float* B, long long sbk, long long sbn, float* C, long long ldc,
                        const float* bias, int bias_rows, int splits, int k_chunk,
                        long long split_stride, void* stream) {
-    if (M > 0 && N > 0) {
-        const bool a_kfast = sak == 1;
-        const bool b_kfast = sbn != 1 && sbk == 1;
-        const bool vec = k_chunk % 4 == 0 &&
-                         (a_kfast ? sm90_vec_ok(A, sak, sam, K) : sm90_vec_ok(A, sam, sak, M)) &&
-                         (b_kfast ? sm90_vec_ok(B, sbk, sbn, K) : sm90_vec_ok(B, sbn, sbk, N));
-        const int vec_store = (reinterpret_cast<uintptr_t>(C) & 15) == 0 && ldc % 4 == 0 &&
-                              split_stride % 4 == 0;
-        const dim3 grid(cdiv(N, TileLarge::BN), cdiv(M, TileLarge::BM), (unsigned)splits);
-        cudaStream_t st = (cudaStream_t)stream;
-        if (a_kfast && b_kfast)
-            launch_gemm_sm90<true, true>(vec, grid, st, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc,
-                                         bias, bias_rows, k_chunk, split_stride, vec_store);
-        else if (a_kfast)
-            launch_gemm_sm90<true, false>(vec, grid, st, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc,
-                                          bias, bias_rows, k_chunk, split_stride, vec_store);
-        else
-            launch_gemm_sm90<false, false>(vec && !b_kfast, grid, st, M, N, K, A, sam, sak, B, sbk,
-                                           sbn, C, ldc, bias, bias_rows, k_chunk, split_stride,
-                                           vec_store);
-    }
+    sm90_gemm<true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk,
+                    split_stride, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,16 @@
-// FP32 GEMM core for Hopper (sm_90a), shared by fused_residual.cu (kernel 1's
-// products) and siren.cu (kernel 3). Each is built into its own library, so
-// the unnamed namespace gives each its own copy.
+// FP32 GEMM core for Hopper (sm_90a), the port's one GEMM: fused_residual.cu
+// (kernel 1's products), siren.cu (kernel 3) and mlp_score.cu (kernel 4's
+// hidden product). Each is built into its own library, so the unnamed
+// namespace gives each its own copy.
 //
 // What bounds it on an H100: the products are FP32 on the CUDA cores (the
 // port's precision rule excludes TF32), so the ceiling is 67 TFLOP/s of FFMA.
 // An SM issues at most one shared-memory load per four FFMAs it can retire;
 // the FFMA pipes stay fed only if each shared load brings several operands
-// and global loads overlap the arithmetic. The 64x64x16 tile of
-// sgemm_f32.cuh (4x4 per thread, 8 scalar shared loads per 16 FFMAs, scalar
-// global loads, one buffer) is bound by shared-memory issue and by the
-// stalls between slices.
+// and global loads overlap the arithmetic. A 64x64x16 tile with 4x4 per
+// thread (8 scalar shared loads per 16 FFMAs, scalar global loads, one
+// buffer), which the port used first, is bound by shared-memory issue and
+// by the stalls between slices.
 //
 // Design:
 //   - Block tile BM x BN, QM x QN quadrants of 4x4 accumulators per thread
@@ -33,12 +34,17 @@
 //     scalar loads through the same registers and the same ring.
 //   - One __syncthreads per slice; the epilogue is the caller's functor, fed
 //     four neighbouring columns of one row at a time.
+//   - gemm_sm90_kernel (launched by sm90_gemm) is the large tile with a
+//     linear layer's epilogue: a bias on the first rows, or one K split's
+//     partial. Kernels 1 and 4 launch it; kernel 3 has a tile of its own.
 // FMA only: no TF32, no tensor cores, no library call.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -269,12 +275,113 @@ __device__ __forceinline__ void gemm_sm90_store(const float (&acc)[4 * Cfg::QM][
         }
 }
 
+// ------------------------------------------------- the linear-layer GEMM --
+// C[m, n] = sum_{k in split} A[m*sam + k*sak] * B[k*sbk + n*sbn] (+ bias[n]
+// for m < bias_rows) on the large tile: kernel 1's products and kernel 4's
+// hidden product. blockIdx.z is the K split; split z writes to
+// C + z * split_stride. vec_store: C, ldc and split_stride allow float4 stores.
+// ROW_BIAS = false drops the row test (the bias, if any, goes on every row):
+// kernel 4's product compiled with the row test ran 4% slower alone and its
+// whole call 15% slower on an H100, at the same registers (PERF.md §6).
+
+template <bool ROW_BIAS>
+struct LinearEpi {
+    float* C;
+    long long ldc;
+    const float* bias;
+    int bias_rows, N;
+    bool vec;
+    __device__ __forceinline__ void operator()(int gm, int gn, const float* v) const {
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            o[j] = v[j];
+            if (bias != nullptr && (!ROW_BIAS || gm < bias_rows) && gn + j < N)
+                o[j] += bias[gn + j];
+        }
+        float* c = C + (long long)gm * ldc + gn;
+        if (vec && gn + 3 < N) {
+            *reinterpret_cast<float4*>(c) = make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (gn + j < N) c[j] = o[j];
+        }
+    }
+};
+
+template <bool A_KFAST, bool B_KFAST, bool VEC, bool ROW_BIAS>
+__global__ void __launch_bounds__(TileLarge::THREADS, 2)
+gemm_sm90_kernel(int M, int N, int K, const float* __restrict__ A, long long sam, long long sak,
+                 const float* __restrict__ B, long long sbk, long long sbn, float* __restrict__ C,
+                 long long ldc, const float* __restrict__ bias, int bias_rows, int k_chunk,
+                 long long split_stride, int vec_store) {
+    const int m0 = blockIdx.y * TileLarge::BM, n0 = blockIdx.x * TileLarge::BN;
+    const int kbeg = blockIdx.z * k_chunk;
+    const int kend = min(K, kbeg + k_chunk);
+    float acc[4 * TileLarge::QM][4 * TileLarge::QN];
+#pragma unroll
+    for (int i = 0; i < 4 * TileLarge::QM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * TileLarge::QN; ++j) acc[i][j] = 0.0f;
+    gemm_sm90_tile<TileLarge, A_KFAST, B_KFAST, VEC>(M, N, A, sam, sak, B, sbk, sbn, m0, n0, kbeg,
+                                                     kend, acc);
+    const LinearEpi<ROW_BIAS> epi{C + (long long)blockIdx.z * split_stride, ldc, bias, bias_rows,
+                                  N, vec_store != 0};
+    gemm_sm90_store<TileLarge>(acc, M, N, m0, n0, epi);
+}
+
 // Host side: may the float4 paths take this operand? The contiguous stride
 // is 1, the other stride and the contiguous extent are multiples of 4, and
 // the base is 16-byte aligned.
 inline bool sm90_vec_ok(const float* p, long long s_contig, long long s_other, long long extent) {
     return s_contig == 1 && s_other % 4 == 0 && extent % 4 == 0 &&
            (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Host side: the grid gemm_sm90_kernel runs for an (M, N) product split in
+// `splits` over K.
+inline dim3 sm90_grid(int M, int N, int splits) {
+    return dim3((unsigned)((N + TileLarge::BN - 1) / TileLarge::BN),
+                (unsigned)((M + TileLarge::BM - 1) / TileLarge::BM), (unsigned)splits);
+}
+
+// Host side: launches gemm_sm90_kernel on `stream`. The layouts pick the
+// instantiation: A and B k-contiguous (X W^T), A k-contiguous and B
+// n-contiguous (G W), A m-contiguous and B n-contiguous (G^T X); any other
+// strides take the last one's guarded scalar path. The float4 / cp.async
+// paths run where both operands allow them and k_chunk keeps splits on
+// float4 boundaries, the guarded scalar path otherwise. Each library that calls
+// it instantiates six kernels, for its own ROW_BIAS.
+template <bool ROW_BIAS>
+inline void sm90_gemm(int M, int N, int K, const float* A, long long sam, long long sak,
+                      const float* B, long long sbk, long long sbn, float* C, long long ldc,
+                      const float* bias, int bias_rows, int splits, int k_chunk,
+                      long long split_stride, cudaStream_t stream) {
+    if (M <= 0 || N <= 0) return;
+    using T = std::true_type;
+    using F = std::false_type;
+    const int vec_store =
+        (reinterpret_cast<uintptr_t>(C) & 15) == 0 && ldc % 4 == 0 && split_stride % 4 == 0;
+    const dim3 grid = sm90_grid(M, N, splits);
+    const auto launch = [&](auto a, auto b, auto v) {
+        gemm_sm90_kernel<decltype(a)::value, decltype(b)::value, decltype(v)::value, ROW_BIAS>
+            <<<grid, TileLarge::THREADS, 0, stream>>>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc,
+                                                      bias, bias_rows, k_chunk, split_stride,
+                                                      vec_store);
+    };
+    const bool a_kfast = sak == 1;
+    const bool b_kfast = sbn != 1 && sbk == 1;
+    const bool vec = k_chunk % 4 == 0 &&
+                     (a_kfast ? sm90_vec_ok(A, sak, sam, K) : sm90_vec_ok(A, sam, sak, M)) &&
+                     (b_kfast ? sm90_vec_ok(B, sbk, sbn, K) : sm90_vec_ok(B, sbn, sbk, N));
+    if (a_kfast && b_kfast) {
+        if (vec) launch(T{}, T{}, T{}); else launch(T{}, T{}, F{});
+    } else if (a_kfast) {
+        if (vec) launch(T{}, F{}, T{}); else launch(T{}, F{}, F{});
+    } else {
+        if (vec && !b_kfast) launch(F{}, F{}, T{}); else launch(F{}, F{}, F{});
+    }
 }
 
 }  // namespace

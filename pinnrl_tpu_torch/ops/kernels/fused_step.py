@@ -40,17 +40,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from pinnrl_tpu_torch.ops.jet_mlp import BundleView, _transport_block, make_bundle_fn
-from pinnrl_tpu_torch.ops.kernels import _build
+from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core
+from pinnrl_tpu_torch.ops.kernels._gemm_core import TARGET_BLOCKS, TILE, cdiv, split_chunks
 
 _LN_EPS = 1e-6
-_GEMM_TILE = 128  # the GEMM core's output tile (csrc/sgemm_sm90.cuh: TileLarge)
-_GEMM_BK = 8  # its k per shared-memory slice
 _COLSUM_ROWS = 256
 _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
 _RESIDUALS = ("burgers", "heat", "kdv")
-# Split-K products: one wave of the GEMM core on the H100, two 128x128 blocks
-# on each of its 132 SMs.
-_TARGET_BLOCKS = 264
 _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 
 
@@ -232,7 +228,7 @@ def _exclusive_scan_plain(x: torch.Tensor, block: int) -> torch.Tensor:
     passes: block sums, an exclusive scan of the block sums, and an
     exclusive scan inside each block plus its block's offset."""
     n = x.shape[0]
-    nb = _cdiv(n, block)
+    nb = cdiv(n, block)
     rows = torch.zeros(nb * block, dtype=x.dtype, device=x.device)
     rows[:n] = x
     rows = rows.reshape(nb, block)
@@ -249,14 +245,8 @@ class _TorchOps:
         return _embed_plain(z, lo, sc, B, two_pi, x_order)
 
     def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
-        Av = A.as_strided((M, K), (sam, sak), A.storage_offset())
-        Bv = B.as_strided((K, N), (sbk, sbn), B.storage_offset())
-        for s in range(splits):
-            k0, k1 = s * k_chunk, min(K, (s + 1) * k_chunk)
-            out = Av[:, k0:k1] @ Bv[k0:k1]
-            if bias is not None:
-                out[:bias_rows] += bias
-            C.as_strided((M, N), (ldc, 1), C.storage_offset() + s * M * N).copy_(out)
+        _gemm_core.gemm_plain(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
+                              k_chunk)
 
     def transport_fwd(self, H, gamma, beta, n):
         return _transport_fwd_plain(H, gamma, beta, n)
@@ -318,10 +308,7 @@ class _CudaOps:
 
     _ARGTYPES = {
         "fr_embed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "fr_gemm": [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-           ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+        "fr_gemm": _gemm_core.GEMM_ARGTYPES,
         "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "fr_burgers": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -415,7 +402,7 @@ class _CudaOps:
         return dU, out
 
     def causal_weights(self, r, n, eps):
-        block_sums = self._empty(_cdiv(n, _SCAN_BLOCK))
+        block_sums = self._empty(cdiv(n, _SCAN_BLOCK))
         WR = self._empty(n, 2)
         _build.check(self.lib.fr_causal_weights(r.data_ptr(), n, float(eps), block_sums.data_ptr(),
                                                 WR.data_ptr(), self.stream), "causal scan kernels")
@@ -428,7 +415,7 @@ class _CudaOps:
         return dU
 
     def colsum(self, A, rows, cols, ld, scale):
-        partial = self._empty(_cdiv(rows, _COLSUM_ROWS), cols)
+        partial = self._empty(cdiv(rows, _COLSUM_ROWS), cols)
         out = self._empty(cols)
         _build.check(self.lib.fr_colsum(A.data_ptr(), rows, cols, ld, float(scale),
                                         partial.data_ptr(), out.data_ptr(), self.stream),
@@ -451,7 +438,7 @@ class _CudaOps:
 
     def wcolsum(self, G, X):
         R, K = X.shape
-        partial = self._empty(_cdiv(R, _COLSUM_ROWS), K)
+        partial = self._empty(cdiv(R, _COLSUM_ROWS), K)
         out = self._empty(1, K)
         _build.check(self.lib.fr_wcolsum(G.data_ptr(), X.data_ptr(), R, K, K, partial.data_ptr(),
                                          out.data_ptr(), self.stream), "weighted colsum kernels")
@@ -506,18 +493,12 @@ def _linear_dx(ops, G, W):
     return dX
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def _split_k(M: int, N: int, K: int) -> Tuple[int, int]:
     """(splits, k_chunk) for an (M, N) product with a long K: about
-    ``_TARGET_BLOCKS`` blocks of the core's tile, at least ``_MIN_SPLIT_K`` of
+    ``TARGET_BLOCKS`` blocks of the core's tile, at least ``_MIN_SPLIT_K`` of
     K per split, chunks a multiple of BK."""
-    tiles = _cdiv(M, _GEMM_TILE) * _cdiv(N, _GEMM_TILE)
-    splits = max(1, min(_cdiv(_TARGET_BLOCKS, tiles), _cdiv(K, _MIN_SPLIT_K)))
-    k_chunk = _cdiv(_cdiv(K, splits), _GEMM_BK) * _GEMM_BK
-    return _cdiv(K, k_chunk), k_chunk
+    tiles = cdiv(M, TILE) * cdiv(N, TILE)
+    return split_chunks(K, max(1, min(cdiv(TARGET_BLOCKS, tiles), cdiv(K, _MIN_SPLIT_K))))
 
 
 def _linear_dw(ops, G, X):

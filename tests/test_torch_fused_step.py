@@ -18,7 +18,7 @@ from torch_parity_helpers import burgers_pair, points, rel_to_max, torch_params
 
 from pinnrl_tpu.ops.kernels import fused_step as jax_fused
 from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
-from pinnrl_tpu_torch.ops.kernels import fused_step
+from pinnrl_tpu_torch.ops.kernels import _gemm_core, fused_step
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -148,5 +148,5 @@ def test_supports_scope():
 @pytest.mark.parametrize("M,N,K", [(256, 256, 32768), (1, 256, 32768), (256, 256, 100), (64, 64, 8192)])
 def test_split_k_covers_k(M, N, K):
     splits, chunk = fused_step._split_k(M, N, K)
-    assert chunk % fused_step._GEMM_BK == 0 and splits >= 1
+    assert chunk % _gemm_core.BK == 0 and splits >= 1
     assert (splits - 1) * chunk < K <= splits * chunk

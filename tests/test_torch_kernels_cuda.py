@@ -15,7 +15,8 @@ max, and the kernels' jvp rules at order k 1e-4 x 10^(k-1) relative to max
 tests/test_pallas_parity_tpu.py). The GEMM core and the output layer's row
 passes against float64 ``torch.mm``: 1e-5 relative to max for K <= 512,
 1e-4 above (FP32 sums of K terms in another order drift by about
-sqrt(K) eps); split-K and kernel 1 bit-identical across two calls.
+sqrt(K) eps); split-K, kernel 1 and the MLP scorer bit-identical across
+two calls.
 """
 
 import numpy as np
@@ -146,26 +147,134 @@ def test_causal_scan_matches_plain(cuda_device, n):
     assert _rel(got[:, 0], ref[:, 0]) < 1e-5 and _rel(got[:, 1], ref[:, 1]) < 1e-5
 
 
-@pytest.mark.parametrize("n,hidden,action_dim", [(10000, 512, 1), (1000, 128, 4), (37, 40, 3)])
-def test_fused_mlp_score_matches_plain(cuda_device, n, hidden, action_dim):
-    from pinnrl_tpu_torch.ops.kernels import mlp
+def _scorer_params(hidden, action_dim, device, state_dim=2):
+    """The agent's seeded init, LayerNorm moved away from (1, 0) so its
+    terms count."""
     from pinnrl_tpu_torch.rl import RLAgent
 
-    agent = RLAgent(hidden_dim=hidden, action_dim=action_dim, device=cuda_device)
+    agent = RLAgent(state_dim=state_dim, hidden_dim=hidden, action_dim=action_dim, device=device)
     params = agent.init(torch.Generator().manual_seed(2)).policy_params
-    with torch.no_grad():  # LayerNorm away from (1, 0), so its terms count
+    gen = torch.Generator(device=device).manual_seed(hidden)
+    with torch.no_grad():
         for k in ("LayerNorm_0.weight", "LayerNorm_1.weight", "LayerNorm_0.bias", "LayerNorm_1.bias"):
-            params[k].add_(0.1 * torch.randn(params[k].shape, device=cuda_device))
+            params[k].add_(0.1 * torch.randn(params[k].shape, generator=gen, device=device))
+    return {k: v.detach() for k, v in params.items()}
+
+
+# (10000, 512, 1): the shipped agent on the 100x100 grid; 10001: a ragged
+# last tile; h = 30 and 16 below 4 float4 per lane, h = 30 no multiple of 4
+# (the scalar paths); N = 1: one row.
+@pytest.mark.parametrize("n,hidden,action_dim", [
+    (10000, 512, 1), (1000, 128, 4), (37, 40, 3), (1, 512, 1), (10001, 512, 1), (300, 30, 2),
+    (37, 16, 1),
+])
+def test_fused_mlp_score_matches_plain(cuda_device, n, hidden, action_dim):
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    params = _scorer_params(hidden, action_dim, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     x = 2.0 * torch.rand((n, 2), generator=gen, device=cuda_device) - 1.0
     before = mlp.fused_mlp_score.launches
     with torch.no_grad():
         got = mlp.fused_mlp_score(x, params)
+        again = mlp.fused_mlp_score(x, params)
         ref = mlp.fused_mlp_score_plain(x, params)
     torch.cuda.synchronize()
-    assert mlp.fused_mlp_score.launches == before + 1
+    assert mlp.fused_mlp_score.launches == before + 2
     assert got.shape == (n, action_dim) and torch.isfinite(got).all()
     assert _rel(got, ref) < 1e-4
+    assert torch.equal(got, again)  # fixed-order sums, no atomics
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("n,hidden", [(10000, 512), (10001, 512), (300, 30), (1000, 128)])
+def test_fused_mlp_score_split_settings(cuda_device, splits, n, hidden):
+    """The launcher on the card with the product's split forced to each
+    setting: 1e-4 of the plain version, and the same bits in two calls."""
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    params = _scorer_params(hidden, 1, cuda_device)
+    x = 2.0 * torch.rand((n, 2), generator=torch.Generator(device=cuda_device).manual_seed(n),
+                         device=cuda_device) - 1.0
+    ops = mlp._cuda_ops(cuda_device)
+    with torch.no_grad():
+        first = mlp._score(ops, x, params, 1e-6, splits=splits)
+        second = mlp._score(ops, x, params, 1e-6, splits=splits)
+        ref = mlp.fused_mlp_score_plain(x, params)
+    torch.cuda.synchronize()
+    assert _rel(first, ref) < 1e-4
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 5])
+def test_fused_mlp_score_input_widths(cuda_device, d):
+    """The first pass's register path for each d in 1..4, and its guarded
+    scalar path for d = 5."""
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    params = _scorer_params(512, 1, cuda_device, state_dim=d)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = 2.0 * torch.rand((1000, d), generator=gen, device=cuda_device) - 1.0
+    with torch.no_grad():
+        got = mlp.fused_mlp_score(x, params)
+        ref = mlp.fused_mlp_score_plain(x, params)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < 1e-4
+
+
+def test_fused_mlp_score_unaligned_views(cuda_device):
+    """x, b1 and the head's operands one float past a 16-byte boundary: the
+    first pass reads x by scalars and, with b1 unaligned, takes its guarded
+    scalar path, as the head does."""
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    params = _scorer_params(512, 2, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = _offset_matrix(10000, 2, 1, gen, cuda_device).uniform_(-1.0, 1.0, generator=gen)
+    shifted = dict(params)
+    for k in ("Dense_0.bias", "LayerNorm_1.weight", "Dense_2.weight"):
+        v = params[k]
+        shifted[k] = _offset_matrix(1, v.numel(), 1, gen, cuda_device).copy_(v.reshape(1, -1)).view(v.shape)
+    assert x.data_ptr() % 16 and shifted["Dense_2.weight"].data_ptr() % 16
+    with torch.no_grad():
+        got = mlp.fused_mlp_score(x, shifted)
+        ref = mlp.fused_mlp_score_plain(x, params)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < 1e-4
+
+
+@pytest.mark.parametrize("rows,cols", [(512, 512), (30, 77), (1, 5)])
+def test_scorer_transpose_kernel(cuda_device, rows, cols):
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    W = torch.randn((rows, cols), generator=torch.Generator(device=cuda_device).manual_seed(rows),
+                    device=cuda_device)
+    got = mlp._cuda_ops(cuda_device).transpose(W)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mlp._TorchOps().transpose(W))
+
+
+@pytest.mark.parametrize("n,h,splits", [(10000, 512, 2), (10001, 512, 1), (1, 30, 2)])
+def test_scorer_gemm_blocks_match_the_twin(cuda_device, n, h, splits):
+    """``ms_gemm_blocks`` reads the grid ``ms_gemm`` launches; its twin
+    counts 128x128 tiles times splits."""
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    got = mlp._cuda_ops(cuda_device).gemm_blocks(n, h, splits)
+    assert got == mlp._TorchOps().gemm_blocks(n, h, splits)
+
+
+@pytest.mark.parametrize("bias_rows,splits", [(4, 2), (2, 1)])
+def test_scorer_gemm_refuses_a_bias_on_split_partials(cuda_device, bias_rows, splits):
+    """A bias on split partials or on fewer than M rows: ``ms_gemm`` returns
+    an error without launching, as its twin raises."""
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    A, B = torch.ones((4, 8), device=cuda_device), torch.ones((8, 4), device=cuda_device)
+    C, bias = torch.empty((2, 4, 4), device=cuda_device), torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        mlp._cuda_ops(cuda_device).gemm(4, 4, 8, A, 8, 1, B, 4, 1, C, 4, bias, bias_rows, splits,
+                                        8 // splits)
 
 
 def test_fused_mlp_score_rejects_bad_inputs(cuda_device):

@@ -10,7 +10,8 @@ Tolerances (each with its reason):
 - scorer and Q values 1e-5 relative to max: both sides are f32 with the
   same two-pass LayerNorm; only the summation order differs;
 - the host launcher with the plain twins 1e-6: the same torch operations,
-  one GEMM through ``as_strided`` views;
+  one GEMM through ``as_strided`` views (against JAX at the shipped width,
+  with the product split over K, the scorer's 1e-5);
 - TD loss and gradients 1e-5 relative to max (f32, same formulas);
 - policy parameters after one Adam step 2.5e-4 absolute: a quarter of one
   step at lr 1e-3, since Adam turns gradient differences near zero into
@@ -120,6 +121,22 @@ def test_kernel_launcher_rehearsal_matches_plain(n, action_dim, hidden):
     got = mlp._score(mlp._TorchOps(), x, params, 1e-6)
     assert got.shape == (n, action_dim)
     assert rel_to_max(got, mlp.fused_mlp_score_plain(x, params)) < REHEARSAL_TOL
+
+
+def test_kernel_launcher_rehearsal_at_the_shipped_width_matches_jax():
+    """The CUDA launch sequence with the plain twins at the shipped agent
+    (hidden 512, action_dim 1) on the 100x100 grid of the Burgers domain,
+    where the product is split in two over K, against the JAX
+    ``fused_mlp_score`` on the same flax parameters."""
+    _, jstate, _, tstate = agent_pair(hidden=512, action_dim=1)
+    axes = np.meshgrid(np.linspace(-1.0, 1.0, 100), np.linspace(0.0, 1.0, 100), indexing="ij")
+    x = np.stack([a.reshape(-1) for a in axes], axis=-1).astype(np.float32)
+    assert mlp._product_split(x.shape[0], 512, 512)[0] == 2
+    ref = np.asarray(jax_fused_mlp_score(jnp.asarray(x), jstate.policy_params))
+    params = {k: v.detach() for k, v in tstate.policy_params.items()}
+    got = mlp._score(mlp._TorchOps(), torch.from_numpy(x), params, 1e-6)
+    assert got.shape == (10000, 1)
+    assert rel_to_max(got, ref) < SCORE_TOL
 
 
 @pytest.mark.parametrize("epsilon", [0.0, 1.0])
