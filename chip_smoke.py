@@ -15,7 +15,10 @@ Phases (each raises on failure, and the script then exits non-zero):
                ``validate``; the kernels' launch counters must show the main
                path used them on every step and every validation.
   5. timing  — median ms per training step with the kernels and on the plain
-               path, and each kernel against its plain version.
+               path, and each kernel against its plain version; kernel 2 at
+               the main path's three shapes by CUDA-graph replay and eager,
+               beside an empty kernel on its grid (the launch floor) and the
+               host cost of its eager call split by piece (``ff_host_split``).
   6. rl      — the same recipe with RL-driven sampling: an ``RLAgent`` with
                the shipped defaults (hidden 512) scores the 100x100 grid
                through ``fused_mlp_score`` on every step and takes its DQN
@@ -75,11 +78,16 @@ Phases (each raises on failure, and the script then exits non-zero):
                against a float64 ``torch.mm``; device ms per product by
                CUDA-graph replay.
 
-Phase 2 prints ``ptxas``'s report (registers, shared memory, spills) for
-every kernel and fails unless each library that runs the GEMM core
-(kernels 1, 3 and 4) has core kernels and none of them spills. Phase 3
-holds kernel 1 against its plain version in six variants: Burgers, heat
-and KdV, each plain and causal (eps 1.0), at N = 8192, and KdV-causal again
+Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
+spills) for every kernel and fails unless each library that runs the GEMM
+core (kernels 1, 3 and 4) has core kernels and none of them spills, and
+unless kernel 2's four instantiations (d = 1..3 and the edge path) are
+built without spills. Phase 3 holds kernel 2 against its plain version at
+the main path's shapes ((4096,2)x(2,128), (4096,2)x(2,256), (20000,2)x(2,128))
+and at a ragged (4999,3)x(3,127) with x and B one float past a 16-byte
+boundary, each bit-identical in two calls, and kernel 1 against its plain
+version in six variants: Burgers, heat and KdV, each plain and causal (eps
+1.0), at N = 8192, and KdV-causal again
 at N = 5000 (not a multiple of the scan block); Burgers and KdV-causal must
 give bit-identical loss and gradients in two calls on the same inputs; and
 kernel 4 against its plain version at three widths, with its product's
@@ -100,7 +108,9 @@ which). Kernel 1's entry also carries phase 16's summed ms per PDE:
 kernel 4's ``launch_ms`` (each launch), ``splits`` (the launcher's choice,
 ``mlp._product_split``) and ``blocks`` of its product (read from the
 launch's own grid, ``ms_gemm_blocks``), and phase 9's A/Bs
-``product_ab_ms`` and ``split_ab_ms``.
+``product_ab_ms`` and ``split_ab_ms``. Kernel 2's carries ``floor_ms`` (the
+empty kernel on its grid), ``shapes`` (ms, plain, eager and bound at each
+shape timed), ``host_us`` (the split of its eager call) and ``ptxas``.
 The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -321,17 +331,18 @@ def gemm_operands(kind: str, shape, gen, device):
 
 
 def ptxas_report(log: str):
-    """(entry, registers, smem bytes, spill store bytes, spill load bytes)
-    per kernel in an ``nvcc -Xptxas -v`` log."""
-    rows, name, spill = [], None, (0, 0)
+    """(entry, registers, smem bytes, spill store bytes, spill load bytes,
+    stack frame bytes) per kernel in an ``nvcc -Xptxas -v`` log."""
+    rows, name, spill = [], None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name, spill = m.group(1), (0, 0)
+            name, spill = m.group(1), (0, 0, 0)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m and name:
-            spill = (int(m.group(1)), int(m.group(2)))
+            spill = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
             rows.append((name, int(m.group(1)), int(m.group(2) or 0), *spill))
@@ -401,6 +412,69 @@ def graph_ms(fn, iters: int = 50, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def ff_empty_launch(x, B):
+    """A callable that launches the empty kernel of ``fourier_feats.cu`` on
+    the grid ``fourier_features(x, B)`` launches: the floor of one launch
+    of that shape."""
+    from pinnrl_tpu_torch.ops.kernels import _build, fourier_feats
+
+    n, d = x.shape
+    m = B.shape[1]
+    path, _, rows = fourier_feats.launch_plan(n, d, m, B.data_ptr() % 16 == 0,
+                                              fourier_feats._sm_count(x.get_device()))
+    lib = fourier_feats._lib()
+    return lambda: _build.check(lib.ff_empty(m, path, rows, _build.stream_handle(x.device)),
+                                "empty_kernel")
+
+
+def host_us(fn, calls: int = 1000, warmup: int = 50) -> float:
+    """Host microseconds per call of ``fn`` (perf_counter over ``calls``
+    calls, then one ``synchronize``)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def ff_host_split(x, B, calls: int = 1000):
+    """Host microseconds of one eager ``fourier_features(x, B)`` call on the
+    card ("call") and of each piece of its launch path alone: the device
+    dispatch and ``needs_rules``, the input check, the launch plan, the bound
+    library, the current stream, the output's allocation, the ctypes call
+    with its kernel launch and status check; "rest" is the call less the
+    pieces. "function" is a call through ``_FourierFeaturesFn`` (where a
+    derivative rule can be asked)."""
+    from pinnrl_tpu_torch.ops.kernels import _build, fourier_feats as ff
+
+    n, d = x.shape
+    m = B.shape[1]
+    index = x.get_device()
+    path, _, rows = ff.launch_plan(n, d, m, B.data_ptr() % 16 == 0, ff._sm_count(index))
+    lib, out, stream = ff._lib(), x.new_empty((n, 2 * m)), _build.stream_handle(index)
+    pieces = {
+        "dispatch": lambda: (x.is_cpu and B.is_cpu) or (x.is_cuda and ff.needs_rules(x, B)),
+        "check": lambda: ff._accepts(x, B),
+        "plan": lambda: ff.launch_plan(n, d, m, B.data_ptr() % 16 == 0, ff._sm_count(index)),
+        "library": ff._lib,
+        "stream": lambda: _build.stream_handle(index),
+        "alloc": lambda: x.new_empty((n, 2 * m)),
+        "launch": lambda: _build.check(lib.ff_forward(x.data_ptr(), B.data_ptr(), out.data_ptr(), n, d,
+                                                      m, path, rows, 1, stream), "ff_forward"),
+    }
+    split = {"call": host_us(lambda: ff.fourier_features(x, B, True), calls)}
+    split.update({k: host_us(f, calls) for k, f in pieces.items()})
+    split["rest"] = split["call"] - sum(split[k] for k in pieces)
+    split["function"] = host_us(lambda: ff._FourierFeaturesFn.apply(x, B, True, ff.fourier_features_cuda),
+                                calls)
+    return split
 
 
 @contextlib.contextmanager
@@ -554,17 +628,23 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         list(pool.map(_build.load_library, names))  # one nvcc per source, all at once
     core_spills = {name: [] for name in ("fused_residual", "siren", "mlp_score")}
+    ff_ptxas = {}  # kernel 2's instantiations: (registers, spill bytes, stack frame bytes)
     for name in names:
         print(f"[build] {name}: {_build.BUILD_SECONDS[name]:.2f} s", flush=True)
-        for entry, regs, smem, spill_st, spill_ld in ptxas_report(_build.BUILD_LOG.get(name, "")):
-            print(f"[build]   ptxas {entry}: {regs} registers, {smem} bytes smem, spill stores "
-                  f"{spill_st} B, spill loads {spill_ld} B")
+        for entry, regs, smem, spill_st, spill_ld, stack in ptxas_report(_build.BUILD_LOG.get(name, "")):
+            print(f"[build]   ptxas {entry}: {regs} registers, {smem} bytes smem, stack frame "
+                  f"{stack} B, spill stores {spill_st} B, spill loads {spill_ld} B")
             if "_sm90_kernel" in entry:
                 core_spills[name].append(spill_st + spill_ld)
+            if "fourier_features_kernel" in entry:
+                ff_ptxas[entry] = (regs, spill_st + spill_ld, stack)
     print(f"[build] total {time.perf_counter() - t0:.2f} s; GEMM-core kernels' spill bytes per "
-          f"library: {core_spills} ({card})", flush=True)
+          f"library: {core_spills}; fourier_features_kernel<D> (registers, spill bytes, stack "
+          f"frame bytes): {sorted(ff_ptxas.values())} ({card})", flush=True)
     if not all(core_spills.values()) or any(map(any, core_spills.values())):
         raise AssertionError(f"GEMM core kernels: spill bytes {core_spills} (want kernels, all 0)")
+    if len(ff_ptxas) != 4 or any(spill for _, spill, _ in ff_ptxas.values()):
+        raise AssertionError(f"fourier_features_kernel: {ff_ptxas} (want D = 0..3, 0 spill bytes)")
 
     # ---- 3. parity ----------------------------------------------------- #
     cfg = burgers_recipe_config("cuda")
@@ -572,23 +652,46 @@ def main() -> int:
     model = PINNModel(cfg, seed=0)
     gen = torch.Generator(device=dev).manual_seed(123)
 
+    from pinnrl_tpu_torch.models.fourier import feature_basis
+
     x_ff = 2.0 * torch.rand((4096, 2), generator=gen, device=dev) - 1.0
     B = model.constants["FourierFeatures_0.B"]
-    ff_k = fourier_feats.fourier_features(x_ff, B, True)
-    ff_p = fourier_feats.fourier_features_plain(x_ff, B, True)
-    torch.cuda.synchronize()
-    ff_err = float((ff_k - ff_p).abs().max())
-    ff_rel = ff_err / float(ff_p.abs().max())
+    B256 = (0.75 * feature_basis(0, 2, 256)).to(dev)  # the KdV recipe's basis
+    x_val = 2.0 * torch.rand((20000, 2), generator=gen, device=dev) - 1.0  # validation's rows
+    # The main path's shapes (BC / IC of the Burgers and heat recipes, of the
+    # KdV recipe, validation) and a ragged one with x and B one float past a
+    # 16-byte boundary (the edge path).
+    ff_shapes = {"(4096,2)x(2,128)": (x_ff, B), "(4096,2)x(2,256)": (x_ff, B256),
+                 "(20000,2)x(2,128)": (x_val, B)}
+    x_rag = torch.empty(4999 * 3 + 1, device=dev)[1:].view(4999, 3).uniform_(-1.0, 1.0, generator=gen)
+    B_rag = torch.empty(3 * 127 + 1, device=dev)[1:].view(3, 127).normal_(0.0, 1.33, generator=gen)
+    ff_err = 0.0
+    for tag, (xs, Bs) in list(ff_shapes.items()) + [("(4999,3)x(3,127) unaligned", (x_rag, B_rag))]:
+        ff_k = fourier_feats.fourier_features(xs, Bs, True)
+        ff_k2 = fourier_feats.fourier_features(xs, Bs, True)
+        ff_p = fourier_feats.fourier_features_plain(xs, Bs, True)
+        torch.cuda.synchronize()
+        err = float((ff_k - ff_p).abs().max())
+        ff_rel = err / float(ff_p.abs().max())
+        ff_err = max(ff_err, err)
+        path = fourier_feats.launch_plan(*xs.shape, Bs.shape[1], Bs.data_ptr() % 16 == 0,
+                                         fourier_feats._sm_count(xs.get_device()))
+        print(f"[parity] fourier_features {tag} (path {path[0]}, grid {path[1]}x{path[2]}): "
+              f"max_abs_err {err:.3e} rel {ff_rel:.3e} (tol {FF_TOL:g}); max phase "
+              f"{float((xs @ Bs).abs().max()) * fourier_feats._TWO_PI:.1f} rad; two calls "
+              f"bit-identical {torch.equal(ff_k, ff_k2)}", flush=True)
+        if not (ff_rel < FF_TOL and torch.equal(ff_k, ff_k2)):
+            raise AssertionError(f"fourier_features kernel disagrees with its plain version ({tag})")
     xg = x_ff.clone().requires_grad_(True)
-    g_out = torch.randn(ff_k.shape, generator=gen, device=dev)
+    g_out = torch.randn((4096, 256), generator=gen, device=dev)
     gk = torch.autograd.grad(fourier_feats.fourier_features(xg, B, True), xg, g_out)[0]
     gp = torch.autograd.grad(fourier_feats.fourier_features_plain(xg, B, True), xg, g_out)[0]
     torch.cuda.synchronize()
     ff_grad_rel = float((gk - gp).abs().max()) / float(gp.abs().max())
-    print(f"[parity] fourier_features (4096,2)x(2,128): max_abs_err {ff_err:.3e} "
-          f"rel {ff_rel:.3e} grad_rel {ff_grad_rel:.3e} (tol {FF_TOL:g})", flush=True)
-    if not (ff_rel < FF_TOL and ff_grad_rel < FF_TOL):
-        raise AssertionError("fourier_features kernel disagrees with its plain version")
+    print(f"[parity] fourier_features (4096,2)x(2,128) gradient: rel {ff_grad_rel:.3e} "
+          f"(tol {FF_TOL:g})", flush=True)
+    if not ff_grad_rel < FF_TOL:
+        raise AssertionError("fourier_features kernel's gradient disagrees with its plain version")
 
     def fused_grads(v, p, zz):
         loss = v.fn(p, zz)
@@ -765,17 +868,34 @@ def main() -> int:
             {k: v.detach().requires_grad_(True) for k, v in net.items()}, torch.cat([x, t], dim=-1))
 
     # ---- 5. timing ----------------------------------------------------- #
-    ff_eager_ms = cuda_ms(lambda: fourier_feats.fourier_features(x_ff, B, True), iters=200)
-    ff_ms = graph_ms(lambda: fourier_feats.fourier_features(x_ff, B, True))
-    ff_plain_ms = graph_ms(lambda: fourier_feats.fourier_features_plain(x_ff, B, True))
+    ff_times = {}
+    for tag, (xs, Bs) in ff_shapes.items():
+        n_s, d_s, m_s = xs.shape[0], xs.shape[1], Bs.shape[1]
+        ff_times[tag] = {
+            "ms": graph_ms(lambda: fourier_feats.fourier_features(xs, Bs, True)),
+            "plain_ms": graph_ms(lambda: fourier_feats.fourier_features_plain(xs, Bs, True)),
+            "eager_ms": cuda_ms(lambda: fourier_feats.fourier_features(xs, Bs, True), iters=200)}
+        ff_times[tag]["bound_ms"], ff_times[tag]["bound_by"] = bound(
+            2.0 * n_s * d_s * m_s + 3.0 * n_s * m_s, 4.0 * (n_s * d_s + d_s * m_s + 2 * n_s * m_s))
+    ff_ms, ff_plain_ms, ff_eager_ms, ff_bound_ms, ff_bound_by = (
+        ff_times["(4096,2)x(2,128)"][k] for k in ("ms", "plain_ms", "eager_ms", "bound_ms", "bound_by"))
+    ff_floor_ms = graph_ms(ff_empty_launch(x_ff, B))
+    ff_host = ff_host_split(x_ff, B)
+    for tag, v in ff_times.items():
+        print(f"[timing] fourier_features {tag}, device time per call (CUDA graph): kernel "
+              f"{v['ms']:.5f} ms, plain {v['plain_ms']:.5f} ms, bound {v['bound_ms']:.5f} ms "
+              f"({v['bound_ms'] / v['ms']:.0%} of it); eager calls, CUDA events: kernel "
+              f"{v['eager_ms']:.5f} ms ({card})", flush=True)
+    print(f"[timing] fourier_features launch floor: an empty kernel on the (4096,2)x(2,128) call's "
+          f"grid {ff_floor_ms:.5f} ms per launch (CUDA graph) against the kernel's {ff_ms:.5f} ms "
+          f"({card})", flush=True)
+    print("[timing] fourier_features eager host cost per call, us (perf_counter, 1000 calls each): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ff_host.items()) + f" ({card})", flush=True)
     z = torch.cat([x, t], dim=-1)
     p = {k: v.detach().requires_grad_(True) for k, v in net.items()}
     fused_ms = graph_ms(lambda: fused_grads(variants["burgers"], p, z), iters=10, replays=5)
     fused_plain_ms = graph_ms(lambda: plain_grads(variants["burgers"], p, z), iters=10, replays=5)
     fused_eager_ms = cuda_ms(lambda: fused_grads(variants["burgers"], p, z), iters=20)
-    print(f"[timing] fourier_features (4096,2)x(2,128), device time per call (CUDA graph): kernel "
-          f"{ff_ms:.4f} ms, plain {ff_plain_ms:.4f} ms; eager calls, CUDA events: kernel "
-          f"{ff_eager_ms:.4f} ms ({card})")
     print(f"[timing] fused_residual_loss N=8192 loss+grads, device time per call (CUDA graph): "
           f"kernel {fused_ms:.3f} ms, plain {fused_plain_ms:.3f} ms; eager calls, CUDA events: "
           f"kernel {fused_eager_ms:.3f} ms ({card})", flush=True)
@@ -947,8 +1067,6 @@ def main() -> int:
           f"{statistics.median(rl_plain_times):.3f} ms ({card})", flush=True)
 
     # ---- 10. kdv slice --------------------------------------------------- #
-    from pinnrl_tpu_torch.models.fourier import feature_basis
-
     kcfg = kdv_recipe_config("cuda")
     kpde = create_pde(kcfg)
     kmodel = PINNModel(kcfg, seed=0)
@@ -1321,16 +1439,13 @@ def main() -> int:
     fused_bound = bound(sum(2.0 * m * k * n for m, k, n in fused_shapes),
                         4.0 * (z.numel() + 2 * n_params + B.numel() + 1))
     fused_lib_ms = cublas_ms(fused_shapes, dev)
-    n_ff, d_ff, m_ff = x_ff.shape[0], x_ff.shape[1], B.shape[1]
-    ff_bound = bound(2.0 * n_ff * d_ff * m_ff + 3.0 * n_ff * m_ff,
-                     4.0 * (n_ff * d_ff + d_ff * m_ff + 2 * n_ff * m_ff))
     mlp_bound = bound(sum(2.0 * m * k * n for m, k, n in mlp_shapes) + 2 * 8.0 * g_n * h_mlp,
                       4.0 * (grid.numel() + sum(v.numel() for v in q_params.values()) + g_n))
     n3, k3, m3 = xs3.shape[0], W3.shape[0], W3.shape[1]
     siren_bound = bound(2.0 * n3 * k3 * m3 + 3.0 * n3 * m3, 4.0 * (n3 * k3 + k3 * m3 + m3 + n3 * m3))
     print(f"[bounds] FP32 {FP32_FLOPS:.3g} FLOP/s, HBM {HBM_BYTES_S:.3g} B/s: fused_residual_loss "
           f"Burgers N=8192 {fused_bound[0]:.4f} ms ({fused_bound[1]}), its GEMMs on cuBLAS "
-          f"{fused_lib_ms:.3f} ms; fourier_features {ff_bound[0]:.5f} ms ({ff_bound[1]}); "
+          f"{fused_lib_ms:.3f} ms; fourier_features {ff_bound_ms:.5f} ms ({ff_bound_by}); "
           f"fused_mlp_score {mlp_bound[0]:.4f} ms ({mlp_bound[1]}), cuBLAS {mlp_lib_ms:.4f} ms; "
           f"siren_layer {siren_bound[0]:.5f} ms ({siren_bound[1]}) ({card})", flush=True)
 
@@ -1360,7 +1475,11 @@ def main() -> int:
          "heat_launches": heat_launches["fourier_features"],
          "heat_jvps": heat_launches["fourier_features_jvps"], "max_abs_err": ff_err,
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
-         "bound_ms": ff_bound[0], "bound_by": ff_bound[1], "library_ms": None},
+         "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
+         "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,
+         "ptxas": {"registers": sorted({v[0] for v in ff_ptxas.values()}),
+                   "stack_frame_bytes": sorted({v[2] for v in ff_ptxas.values()}),
+                   "spill_bytes": sum(v[1] for v in ff_ptxas.values())}},
         {"name": "siren_layer", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/siren.cu",
          "replaces": "pinnrl_tpu/ops/kernels/siren.py:29",

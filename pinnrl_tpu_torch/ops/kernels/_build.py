@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
@@ -87,9 +87,11 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def stream_handle(device: torch.device) -> int:
-    """The raw ``cudaStream_t`` of torch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(device: Union[torch.device, int]) -> int:
+    """The raw ``cudaStream_t`` of torch's current stream on ``device`` (a
+    device or its index), read without building a ``torch.cuda.Stream``."""
+    index = device if isinstance(device, int) else device.index
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if index is None else index)
 
 
 def check(status: int, what: str) -> None:

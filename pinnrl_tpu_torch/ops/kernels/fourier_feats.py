@@ -1,10 +1,10 @@
 """Fused Fourier-feature embedding: [sin(s x@B), cos(s x@B)], s = 2 pi or 1.
 
 CUDA kernel: ``csrc/fourier_feats.cu``. On a CUDA tensor ``fourier_features``
-launches it through ``_FourierFeaturesFn`` (or raises); on a CPU tensor it
-runs ``fourier_features_plain``. Both derivative rules are written on the
-kernel's own output, as the JAX ``custom_jvp`` rule is
-(``pinnrl_tpu/ops/kernels/fourier_feats.py``):
+launches it (or raises), through ``_FourierFeaturesFn`` where a derivative
+rule can be asked; on a CPU tensor it runs ``fourier_features_plain``. Both
+derivative rules are written on the kernel's own output, as the JAX
+``custom_jvp`` rule is (``pinnrl_tpu/ops/kernels/fourier_feats.py``):
 
 - jvp: d[sin, cos] = [cos, -sin] s (dx B + x dB), in plain ops on the
   output, which an enclosing ``jvp`` or ``grad`` differentiates again (the
@@ -15,18 +15,38 @@ kernel's own output, as the JAX ``custom_jvp`` rule is
 ``_FourierFeaturesFn`` takes the launch as an argument, so the CPU tests run
 it with ``fourier_features_plain`` in its place. ``fourier_features.jvps``
 counts the jvp rule's runs on CUDA tensors.
+
+The launch path is kept short, because a call moves ~4 MB and its device
+time is a few microseconds: a call that no derivative rule can be asked of
+(no input needs a gradient, no ``torch.func`` transform and no forward-AD
+level is active: the BC and IC losses, validation) launches the kernel
+without going through ``_FourierFeaturesFn``, whose ``apply`` costs tens of
+microseconds of host time (``needs_rules``); the ctypes functions are
+bound once; shape, dtype, device and layout are checked in one function
+(``_accepts``; ``_reject`` names what failed); the stream is read raw.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Tuple
 
 import torch
+import torch.autograd.forward_ad as _fwad
 
 from pinnrl_tpu_torch.ops.kernels import _build, _jvp
 
 _TWO_PI = 2.0 * math.pi
+
+# The kernel's block (csrc/fourier_feats.cu): QUADS feature quads (features
+# on the edge path) by ROWS rows; the vector path takes d <= MAX_VEC_D.
+QUADS, ROWS, MAX_VEC_D = 32, 8, 3
+# Blocks along the rows per SM: each block strides over rows, reusing the B
+# it holds in registers.
+BLOCKS_PER_SM = 4
+_MAX_GRID_Y = 65535
 
 
 def fourier_features_plain(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
@@ -37,30 +57,68 @@ def fourier_features_plain(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True
     return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
 
 
-def _lib():
+_ARGTYPES = {
+    "ff_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "ff_empty": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library, its functions bound once."""
     lib = _build.load_library("fourier_feats")
-    fn = lib.fourier_features_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib
 
 
-def fourier_features_cuda(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel (forward only); counts one launch."""
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_plan(n: int, d: int, m: int, b_aligned: bool, sms: int) -> Tuple[int, int, int]:
+    """(path, grid_cols, grid_rows) of the kernel for x (n, d), B (d, m):
+    path d for the vector path (d <= MAX_VEC_D, m % 4 == 0, B 16-byte
+    aligned), else 0, the edge path; grid_cols blocks across the feature
+    quads (features on the edge path), grid_rows along the rows: enough
+    for every row to have a thread, at most BLOCKS_PER_SM per SM."""
+    path = d if d <= MAX_VEC_D and m % 4 == 0 and b_aligned else 0
+    cols = -(-(m // 4 if path else m) // QUADS)
+    rows = min(-(-n // ROWS), max(BLOCKS_PER_SM * sms // max(cols, 1), 1), _MAX_GRID_Y)
+    return path, cols, max(rows, 1)
+
+
+def _accepts(x: torch.Tensor, B: torch.Tensor) -> bool:
+    """x (n, d) and B (d, m): contiguous float32 on one CUDA device."""
+    return (x.ndim == 2 and B.ndim == 2 and x.shape[1] == B.shape[0] and x.is_cuda
+            and x.dtype == torch.float32 and B.dtype == torch.float32 and x.is_contiguous()
+            and B.is_contiguous() and B.get_device() == x.get_device())
+
+
+def _reject(x: torch.Tensor, B: torch.Tensor) -> None:
+    """Raise for the first of ``_accepts``'s conditions that x, B fail."""
     if x.ndim != 2 or B.ndim != 2 or x.shape[1] != B.shape[0]:
         raise ValueError(f"fourier_features: shapes {tuple(x.shape)} @ {tuple(B.shape)} do not chain")
     _build.require_cuda_f32("fourier_features x", x)
     _build.require_cuda_f32("fourier_features B", B)
-    if x.device != B.device:
-        raise ValueError(f"fourier_features: x on {x.device}, B on {B.device}")
+    raise ValueError(f"fourier_features: x on {x.device}, B on {B.device}")
+
+
+def fourier_features_cuda(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
+    """Launch the CUDA kernel (forward only); counts one launch."""
+    if not _accepts(x, B):
+        _reject(x, B)
     n, d = x.shape
     m = B.shape[1]
-    out = torch.empty((n, 2 * m), dtype=torch.float32, device=x.device)
-    status = _lib().fourier_features_launch(
-        x.data_ptr(), B.data_ptr(), out.data_ptr(), n, d, m, int(bool(two_pi)),
-        _build.stream_handle(x.device),
-    )
+    index = x.get_device()
+    b_ptr = B.data_ptr()
+    path, _, rows = launch_plan(n, d, m, b_ptr % 16 == 0, _sm_count(index))
+    out = x.new_empty((n, 2 * m))
+    status = _lib().ff_forward(x.data_ptr(), b_ptr, out.data_ptr(), n, d, m, path, rows,
+                               1 if two_pi else 0, _build.stream_handle(index))
     _build.check(status, "fourier_features_kernel")
     fourier_features.launches += 1
     return out
@@ -118,13 +176,24 @@ class _FourierFeaturesFn(torch.autograd.Function):
         return torch.stack(outs), 0
 
 
+def needs_rules(x: torch.Tensor, B: torch.Tensor) -> bool:
+    """Whether a derivative rule of ``_FourierFeaturesFn`` can be asked of a
+    call on x, B: a ``torch.func`` transform (jvp, grad, vmap) is active, a
+    forward-AD level is open, or autograd records and an input needs a
+    gradient. Otherwise the output is the primal alone."""
+    return (torch._C._are_functorch_transforms_active() or _fwad._current_level >= 0
+            or (torch.is_grad_enabled() and (x.requires_grad or B.requires_grad)))
+
+
 def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
     """[sin(s x@B), cos(s x@B)] for x (N, d), B (d, m): the CUDA kernel on
     CUDA tensors, the plain version on CPU tensors; anything else raises."""
-    if x.device.type == "cpu" and B.device.type == "cpu":
+    if x.is_cpu and B.is_cpu:
         return fourier_features_plain(x, B, two_pi)
-    if x.device.type == "cuda":
-        return _FourierFeaturesFn.apply(x, B, bool(two_pi), fourier_features_cuda)
+    if x.is_cuda:
+        if needs_rules(x, B):
+            return _FourierFeaturesFn.apply(x, B, bool(two_pi), fourier_features_cuda)
+        return fourier_features_cuda(x, B, two_pi)
     raise ValueError(f"fourier_features: unsupported devices x={x.device}, B={B.device}")
 
 

@@ -5,6 +5,9 @@ Tolerance 1e-5 relative to max: f32, phases up to tens of radians, where
 one ulp of the phase is ~4e-6.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +40,143 @@ def test_primal_and_gradient_match_jax(periodic, d):
     assert rel_to_max(out_t, out_j) < TOL
     assert rel_to_max(gx_t, gx_j) < TOL
     assert rel_to_max(gB_t, gB_j) < TOL
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_primal_and_gradient_match_jax_at_kdv_width(periodic):
+    """Mapping 256, the KdV recipe's width, on 300 rows."""
+    rng = np.random.default_rng(256)
+    x = (2.0 * rng.random((300, 2)) - 1.0).astype(np.float32)
+    B = (0.75 * rng.standard_normal((2, 256))).astype(np.float32)
+    g = rng.standard_normal((300, 512)).astype(np.float32)
+
+    out_j, vjp = jax.vjp(lambda a, b: jax_ff(a, b, periodic), jnp.asarray(x), jnp.asarray(B))
+    gx_j, gB_j = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    Bt = torch.from_numpy(B).requires_grad_(True)
+    out_t = fourier_features(xt, Bt, periodic)
+    gx_t, gB_t = torch.autograd.grad(out_t, (xt, Bt), torch.from_numpy(g))
+
+    assert rel_to_max(out_t, out_j) < TOL
+    assert rel_to_max(gx_t, gx_j) < TOL
+    assert rel_to_max(gB_t, gB_j) < TOL
+
+
+# ------------------------------------------------------- the CUDA launch path
+# What the launcher decides on the host, rehearsed here: the C entry points
+# and their bindings, the path and grid of launch_plan (through a twin of the
+# kernel's thread mapping), when a call needs the Function's rules, and the
+# checks made before a pointer is handed over.
+
+
+def test_cuda_bindings_match_the_c_entry_points():
+    """Every extern "C" function of fourier_feats.cu has a ctypes binding
+    with as many arguments, and every binding a C function."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats as ff
+
+    src = (Path(ff.__file__).resolve().parents[2] / "csrc" / "fourier_feats.cu").read_text()
+    entries = {m.group(1): m.group(2) for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert set(entries) == set(ff._ARGTYPES)
+    for name, args in entries.items():
+        assert len(args.split(",")) == len(ff._ARGTYPES[name]), name
+    for const, value in (("QUADS", ff.QUADS), ("ROWS", ff.ROWS), ("MAX_VEC_D", ff.MAX_VEC_D)):
+        assert re.search(rf"constexpr int {const} = {value};", src), const
+
+
+def _mapping_twin(x, B, two_pi, plan):
+    """The output the kernel writes under ``plan``, following its thread
+    mapping: block (bx, by), thread (tx, ty) takes column unit
+    bx * QUADS + tx (a quad of features on the vector path, one feature on
+    the edge path) and rows by * ROWS + ty + k * grid_rows * ROWS. Returns
+    the output (NaN where nothing was written) and the writes per element."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats as ff
+    from pinnrl_tpu_torch.ops.kernels.fourier_feats import fourier_features_plain
+
+    path, cols, rows = plan
+    n, m = x.shape[0], B.shape[1]
+    width = 4 if path else 1
+    units = min(cols * ff.QUADS, m // width)  # threads past the last unit return
+    out = torch.full((n, 2 * m), float("nan"), dtype=x.dtype)
+    writes = torch.zeros((n, 2 * m), dtype=torch.int64)
+    step = rows * ff.ROWS
+    for start in range(0, n, step):  # one pass of the grid-stride loop
+        r = slice(start, min(start + step, n))
+        feats = fourier_features_plain(x[r], B[:, : units * width], two_pi)
+        out[r, : units * width] = feats[:, : units * width]
+        out[r, m: m + units * width] = feats[:, units * width:]
+        writes[r, : units * width] += 1
+        writes[r, m: m + units * width] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("n,d,m,aligned,path", [
+    (4096, 2, 128, True, 2), (4096, 2, 256, True, 2), (20000, 2, 128, True, 2), (1, 1, 4, True, 1),
+    (7, 3, 256, True, 3), (5000, 3, 127, True, 0), (300, 4, 128, True, 0), (64, 2, 128, False, 0),
+    (33, 2, 5, True, 0), (9, 1, 1, True, 0),
+])
+def test_launch_plan_covers_every_output_once(n, d, m, aligned, path, sms):
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats as ff
+
+    plan = ff.launch_plan(n, d, m, aligned, sms)
+    assert plan[0] == path
+    cols, rows = plan[1:]
+    assert 1 <= rows <= min(-(-n // ff.ROWS), 65535)
+    assert cols * rows <= max(ff.BLOCKS_PER_SM * sms, cols)
+    rng = np.random.default_rng(n + m)
+    x = torch.from_numpy(2.0 * rng.random((n, d)) - 1.0)
+    B = torch.from_numpy(2.0 * rng.standard_normal((d, m)))
+    out, writes = _mapping_twin(x, B, True, plan)
+    assert bool((writes == 1).all())
+    assert rel_to_max(out, ff.fourier_features_plain(x, B, True)) < 1e-12
+
+
+def test_launch_plan_grid_limits():
+    """Rows grow with n up to BLOCKS_PER_SM per SM, split across the column
+    blocks, and never pass CUDA's grid-y limit."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats as ff
+
+    assert ff.launch_plan(10**9, 2, 128, True, 132) == (2, 1, ff.BLOCKS_PER_SM * 132)
+    assert ff.launch_plan(10**9, 2, 256, True, 132) == (2, 2, ff.BLOCKS_PER_SM * 66)
+    assert ff.launch_plan(10**9, 2, 10**6, False, 132) == (0, 31250, 1)
+    assert ff.launch_plan(10**9, 2, 128, True, 10**6)[2] == 65535
+    assert ff.launch_plan(0, 2, 128, True, 132) == (2, 1, 1)
+
+
+def test_needs_rules_only_where_a_rule_can_be_asked():
+    """The launch skips the Function only where none of its rules could
+    run: no gradient wanted, no torch.func transform, no forward-AD level."""
+    import torch.autograd.forward_ad as fwad
+
+    from pinnrl_tpu_torch.ops.kernels.fourier_feats import needs_rules
+
+    x, B = torch.zeros((4, 2)), torch.zeros((2, 8))
+    assert not needs_rules(x, B)
+    assert needs_rules(x.requires_grad_(True), B) and needs_rules(B, x)
+    with torch.no_grad():
+        assert not needs_rules(x, B)
+    x = x.detach()
+    seen = []
+    torch.func.jvp(lambda a: seen.append(needs_rules(a, B)) or a, (x,), (x,))
+    torch.func.vmap(lambda a: seen.append(needs_rules(a, B)) or a)(x)
+    torch.func.grad(lambda a: seen.append(needs_rules(a, B)) or a.sum())(x)
+    with fwad.dual_level():
+        seen.append(needs_rules(x, B))
+    assert seen == [True] * 4
+    assert not needs_rules(x, B)
+
+
+def test_cuda_launch_checks_on_host_tensors():
+    """The launch's one check names what failed, before any library is
+    loaded: host tensors, shapes that do not chain."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats as ff
+
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ff.fourier_features_cuda(torch.zeros((4, 2)), torch.zeros((2, 8)))
+    with pytest.raises(ValueError, match="do not chain"):
+        ff.fourier_features_cuda(torch.zeros((4, 3)), torch.zeros((2, 8)))
+    with pytest.raises(ValueError, match="do not chain"):
+        ff.fourier_features_cuda(torch.zeros(4), torch.zeros((2, 8)))
 
 
 def test_cuda_function_backward_formula_on_cpu():

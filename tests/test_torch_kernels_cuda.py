@@ -52,6 +52,102 @@ def test_fourier_features_kernel_matches_plain(cuda_device, periodic):
     assert _rel(got, ref) < 1e-5
 
 
+def _ff_inputs(n, d, m, gen, device, x_offset=0, b_offset=0):
+    """x in [-1, 1]^d, B ~ 2 N(0, 1) (the Burgers recipe's scale) times 2 / d
+    for d > 2, so the phases stay at the recipes' scale (up to ~100 rad);
+    each optionally ``offset`` floats past a 16-byte boundary."""
+    x = _offset_matrix(n, d, x_offset, gen, device).uniform_(-1.0, 1.0, generator=gen)
+    B = _offset_matrix(d, m, b_offset, gen, device).mul_(2.0 * min(1.0, 2.0 / d))
+    return x, B
+
+
+@pytest.mark.parametrize("m", [1, 5, 127, 128, 256])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 7, 4096, 5000, 20000])
+def test_fourier_features_shapes(cuda_device, n, d, m):
+    """Both s settings at every shape class: the vector path (d <= 3, m %
+    4 == 0) and the edge path (d = 4, or m in {1, 5, 127}), rows below one
+    block, ragged, and above one step of the grid."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+
+    x, B = _ff_inputs(n, d, m, torch.Generator(device=cuda_device).manual_seed(n + 10 * d + m),
+                      cuda_device)
+    for two_pi in (True, False):
+        before = fourier_feats.fourier_features.launches
+        got = fourier_feats.fourier_features(x, B, two_pi)
+        ref = fourier_feats.fourier_features_plain(x, B, two_pi)
+        torch.cuda.synchronize()
+        assert fourier_feats.fourier_features.launches == before + 1
+        assert got.shape == (n, 2 * m) and torch.isfinite(got).all()
+        assert _rel(got, ref) < 1e-5, two_pi
+
+
+@pytest.mark.parametrize("n,d,m", [(4096, 2, 128), (5000, 3, 256), (7, 1, 4)])
+@pytest.mark.parametrize("x_offset,b_offset", [(1, 0), (0, 1), (1, 1), (2, 2)])
+def test_fourier_features_unaligned_views(cuda_device, n, d, m, x_offset, b_offset):
+    """x one or two floats past a 16-byte boundary keeps the vector path
+    (x is read by scalar loads); an unaligned B takes the edge path."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+
+    x, B = _ff_inputs(n, d, m, torch.Generator(device=cuda_device).manual_seed(n + m), cuda_device,
+                      x_offset, b_offset)
+    assert x.data_ptr() % 16 == 4 * x_offset % 16 and B.data_ptr() % 16 == 4 * b_offset % 16
+    path = fourier_feats.launch_plan(n, d, m, B.data_ptr() % 16 == 0, 132)[0]
+    assert path == (0 if b_offset else d)
+    got = fourier_feats.fourier_features(x, B, True)
+    ref = fourier_feats.fourier_features_plain(x, B, True)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < 1e-5
+
+
+def test_fourier_features_bit_identical_and_paths_agree(cuda_device):
+    """Two calls give the same bits, and the edge path forced on an aligned
+    (4096, 2) x (2, 128) gives the vector path's bits (the same fmaf chain
+    and sincosf per feature)."""
+    from pinnrl_tpu_torch.ops.kernels import _build, fourier_feats
+
+    x, B = _ff_inputs(4096, 2, 128, torch.Generator(device=cuda_device).manual_seed(8), cuda_device)
+    first = fourier_feats.fourier_features(x, B, True)
+    second = fourier_feats.fourier_features(x, B, True)
+    edge = torch.empty_like(first)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, rows = fourier_feats.launch_plan(4096, 2, 128, False, sms)
+    _build.check(fourier_feats._lib().ff_forward(
+        x.data_ptr(), B.data_ptr(), edge.data_ptr(), 4096, 2, 128, 0, rows, 1,
+        _build.stream_handle(x.device)), "fourier_features_kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, edge)
+
+
+@pytest.mark.parametrize("path,d,m,b_offset,rows", [
+    (2, 3, 128, 0, 4), (2, 2, 126, 0, 4), (2, 2, 128, 1, 4), (4, 4, 128, 0, 4), (0, 2, 128, 0, 0),
+    (0, 2, 128, 0, 65536),
+])
+def test_fourier_features_launcher_refuses_a_wrong_plan(cuda_device, path, d, m, b_offset, rows):
+    """``ff_forward`` returns an error without launching for a vector path
+    the inputs do not admit (d != path, m % 4, unaligned B, d > 3) or a grid
+    out of range, rather than reading the wrong layout."""
+    from pinnrl_tpu_torch.ops.kernels import _build, fourier_feats
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x, B = _ff_inputs(16, d, m, gen, cuda_device, 0, b_offset)
+    out = torch.empty((16, 2 * m), device=cuda_device)
+    status = fourier_feats._lib().ff_forward(x.data_ptr(), B.data_ptr(), out.data_ptr(), 16, d, m,
+                                             path, rows, 1, _build.stream_handle(x.device))
+    assert status != 0
+
+
+def test_fourier_features_launch_floor_kernel(cuda_device):
+    """The empty kernel (the launch-floor yardstick) launches on the plan's
+    grid."""
+    from pinnrl_tpu_torch.ops.kernels import _build, fourier_feats
+
+    path, _, rows = fourier_feats.launch_plan(4096, 2, 128, True, 132)
+    _build.check(fourier_feats._lib().ff_empty(128, path, rows, _build.stream_handle(cuda_device)),
+                 "empty_kernel")
+    torch.cuda.synchronize()
+
+
 def test_fourier_features_rejects_bad_inputs(cuda_device):
     from pinnrl_tpu_torch.ops.kernels import fourier_feats
 
@@ -61,6 +157,11 @@ def test_fourier_features_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         fourier_feats.fourier_features(torch.zeros((8, 3), device=cuda_device),
                                        torch.zeros((2, 4), device=cuda_device))
+    with pytest.raises(ValueError):  # B on the host
+        fourier_feats.fourier_features(torch.zeros((8, 2), device=cuda_device), torch.zeros((2, 4)))
+    with pytest.raises(ValueError):  # a transposed (non-contiguous) B
+        fourier_feats.fourier_features(torch.zeros((8, 2), device=cuda_device),
+                                       torch.zeros((4, 2), device=cuda_device).t())
 
 
 @pytest.mark.parametrize("hidden,mapping,n", [((256, 256, 256), 128, 8192), ((32, 24), 16, 300)])
