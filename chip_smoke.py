@@ -77,6 +77,23 @@ Phases (each raises on failure, and the script then exits non-zero):
                ``fr_wcolsum``), and ``torch.mm`` (TF32 off); each result
                against a float64 ``torch.mm``; device ms per product by
                CUDA-graph replay.
+ 17. lbfgs     — the Burgers and heat recipes as shipped, Adam then L-BFGS
+               (``optimizer="adam_lbfgs"``), through ``run_convergence(key,
+               seed=0, epochs=E, device="cuda")``: Burgers at 8 epochs (4 of
+               RAR Adam, 16 steps; then 4 L-BFGS iterations on all 40000
+               points), heat at 10 (4 Adam epochs, then 6 L-BFGS
+               iterations). Kernel 1 must launch exactly once per Adam step,
+               per L-BFGS evaluation and per validation; for heat, kernel 2's
+               jvp rule too; the L-BFGS train loss must be finite and must not
+               rise within the round (optax's approximate-decrease slack,
+               1e-6 of the loss, aside).
+ 18. lbfgs timing — median ms per L-BFGS iteration of the Burgers recipe
+               (N = 40000) with the kernels and on the plain path, in turns;
+               the objective's evaluations per iteration; host syncs of one
+               iteration under ``set_sync_debug_mode("warn")``, which must be
+               its host reads (one per evaluation); kernel 1 at N = 40000
+               against its plain version by CUDA-graph replay, with its bound
+               and cuBLAS on its products.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -88,8 +105,10 @@ and at a ragged (4999,3)x(3,127) with x and B one float past a 16-byte
 boundary, each bit-identical in two calls, and kernel 1 against its plain
 version in six variants: Burgers, heat and KdV, each plain and causal (eps
 1.0), at N = 8192, and KdV-causal again
-at N = 5000 (not a multiple of the scan block); Burgers and KdV-causal must
-give bit-identical loss and gradients in two calls on the same inputs; and
+at N = 5000 (not a multiple of the scan block); Burgers and heat again at
+N = 40000 (the L-BFGS phase's batch); Burgers and KdV-causal at 8192, and
+Burgers and heat at 40000, must give bit-identical loss and gradients in two
+calls on the same inputs (L-BFGS needs a deterministic objective); and
 kernel 4 against its plain version at three widths, with its product's
 split as chosen and forced to each setting, bit-identical in two calls.
 
@@ -103,7 +122,13 @@ of its operations over the card's FP32 peak and its bytes over the memory
 rate, for the shapes it is timed at; ``library_ms`` the cuBLAS FP32
 products of the same shapes by CUDA-graph replay (``library_call`` says
 which). Kernel 1's entry also carries phase 16's summed ms per PDE:
-``gemm_ms`` (its products as it runs them) and ``gemm_library_ms``; kernel
+``gemm_ms`` (its products as it runs them) and ``gemm_library_ms``, and
+the L-BFGS phase's numbers: ``lbfgs_launches`` (phase 17, per recipe),
+``n40000_ms``, ``n40000_plain_ms``, ``n40000_bound_ms`` and
+``n40000_library_ms`` (phase 18) and ``lbfgs_iteration_ms`` (kernels and
+plain), ``lbfgs_evaluations_per_iteration`` and
+``lbfgs_syncs_per_iteration``; kernel 2's carries its phase-17 launches and
+heat's jvps (``lbfgs_launches``); kernel
 3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124;
 kernel 4's ``launch_ms`` (each launch), ``splits`` (the launcher's choice,
 ``mlp._product_split``) and ``blocks`` of its product (read from the
@@ -119,6 +144,7 @@ from __future__ import annotations
 import contextlib
 import json
 import linecache
+import math
 import re
 import statistics
 import subprocess
@@ -155,6 +181,13 @@ HBM_BYTES_S = 3.35e12
 FF_TOL = 1e-5       # rel to max |ref|: sincosf vs torch's sin/cos, same f32 inputs
 MLP_TOL = 1e-4      # rel to max |ref| (the JAX suite's bound for the MLP scorer kernel)
 RAR_STEPS = 4       # one epoch of 4 steps
+# Phase 17: the recipes through run_convergence, Adam then L-BFGS: Burgers 4 +
+# 4 epochs (switch ratio 0.5), heat 4 + 6 (0.4). Phase 18: L-BFGS iterations
+# timed per path and turn, after 2 warm-up iterations.
+LBFGS_EPOCHS = {"burgers": 8, "heat": 10}
+LBFGS_TIMED = 6
+LBFGS_N = 40000     # the recipes' collocation points: the L-BFGS batch
+APPROX_DEC_RTOL = 1e-6  # optax's approximate-decrease slack of the zoom line search
 # Kernel 1, (loss rel, each gradient rel to its max |ref|): sums run in another
 # order than the plain version's. The JAX suite's bounds: fused kernel 1e-5 /
 # 1e-4, causal 1e-4 / 1e-3 (tests/test_pallas_parity_tpu.py:152-155, 186-189),
@@ -173,8 +206,8 @@ def nvidia_smi_line() -> str:
 
 
 def burgers_recipe_config(device: str):
-    """The shipped Burgers recipe, with Adam only (L-BFGS is not ported
-    yet) and uniform sampling."""
+    """The shipped Burgers recipe with Adam only and uniform sampling (its
+    L-BFGS phase runs in phase 17)."""
     from pinnrl_tpu_torch.config import load_config
 
     cfg = load_config(pde_type="burgers", architecture="fourier", device=device)
@@ -224,7 +257,7 @@ def siren_kdv_config(device: str):
 
 def heat_recipe_config(device: str, causal: bool = False):
     """The heat recipe (``build_recipe_config("heat")``) with Adam only
-    (L-BFGS is not ported yet), cut to ``HEAT_EPOCHS`` epochs."""
+    (its L-BFGS phase runs in phase 17), cut to ``HEAT_EPOCHS`` epochs."""
     from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
 
     cfg = build_recipe_config("heat", epochs=HEAT_EPOCHS, device=device)
@@ -516,6 +549,50 @@ def plain_mlp_score():
         mlp.fused_mlp_score = kernel
 
 
+@contextlib.contextmanager
+def captured_trainers():
+    """The ``PDETrainer``s whose ``train`` runs inside the block, in order
+    (their histories, for the checks)."""
+    from pinnrl_tpu_torch.training import trainer as trainer_mod
+
+    seen = []
+    train = trainer_mod.PDETrainer.train
+
+    def recording(self, *args, **kwargs):
+        seen.append(self)
+        return train(self, *args, **kwargs)
+
+    trainer_mod.PDETrainer.train = recording
+    try:
+        yield seen
+    finally:
+        trainer_mod.PDETrainer.train = train
+
+
+def lbfgs_iteration_times(tr, batch, n: int, seed: int = 3):
+    """Host-clock ms of ``n`` L-BFGS iterations of ``tr`` on ``batch`` (a
+    fresh optimizer, 2 warm-up iterations), each ending in
+    ``torch.cuda.synchronize()``; and the objective's evaluations per
+    iteration over all of them."""
+    import torch
+
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    params = tr.model.params
+    opt = tr._make_lbfgs(list(params.values()))
+    g = torch.Generator(device=tr.device).manual_seed(seed)
+    evals = LBFGS.evaluations
+    times = []
+    for i in range(n + 2):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        tr._lbfgs_step(params, opt, batch, g)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - s) * 1e3)
+    return times, (LBFGS.evaluations - evals) / (n + 2)
+
+
 def make_agent(cfg):
     """The agent ``training/train.py`` builds from ``cfg.rl``."""
     from pinnrl_tpu_torch.rl import RLAgent
@@ -765,6 +842,17 @@ def main() -> int:
     v = variants["kdv_causal"]
     compare("kdv_causal", "N=5000 seeded init", v.model.params,
             time_sorted(*v.pde.generate_collocation_points(gen, 5000, "uniform")))
+    for name in ("burgers", "heat"):  # the L-BFGS phase's batch: every collocation point
+        v = variants[name]
+        z = parity_z[f"{name}_{LBFGS_N}"] = torch.cat(
+            v.pde.generate_collocation_points(gen, LBFGS_N, "uniform"), dim=-1)
+        compare(name, f"N={LBFGS_N} seeded init", v.model.params, z)
+        (l1, g1), (l2, g2) = (fused_grads(v, v.model.params, z) for _ in range(2))
+        same = torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+        print(f"[parity] fused_residual_loss {name} N={LBFGS_N}: two calls on the same inputs "
+              f"bit-identical {same}", flush=True)
+        if not same:
+            raise AssertionError(f"kernel 1 ({name}, N={LBFGS_N}) is not deterministic")
 
     rl_cfg = burgers_recipe_config("cuda")
     rl_cfg.rl.enabled = True
@@ -1432,6 +1520,111 @@ def main() -> int:
               f"({card})", flush=True)
         del ops_, routes
 
+    # ---- 17. lbfgs: the recipes as shipped, Adam then L-BFGS -------------------- #
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config, run_convergence
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    lbfgs_runs = {}
+    for key, epochs in LBFGS_EPOCHS.items():
+        rt = build_recipe_config(key, epochs=epochs, device="cuda").training
+        switch = int(rt.adam_lbfgs_switch_ratio * epochs)
+        adam_steps = switch * (rt.num_collocation_points // rt.batch_size)
+        fused_step.fused_residual_loss.launches = 0
+        fourier_feats.fourier_features.launches = 0
+        fourier_feats.fourier_features.jvps = 0
+        evals0, reads0 = LBFGS.evaluations, LBFGS.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captured_trainers() as seen:
+            conv = run_convergence(key, seed=0, epochs=epochs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+               "fourier_features": fourier_feats.fourier_features.launches,
+               "fourier_features_jvps": fourier_feats.fourier_features.jvps,
+               "evaluations": LBFGS.evaluations - evals0, "host_reads": LBFGS.host_reads - reads0}
+        (ltr,) = seen
+        hist = ltr.history
+        losses, n_vals = hist["train_loss"], len(hist["val_loss"])
+        lbfgs_losses = losses[switch:]
+        print(f"[lbfgs] {key}: run_convergence(seed=0, epochs={epochs}) {wall:.2f} s: "
+              f"{rt.collocation_distribution} Adam {switch} epochs ({adam_steps} steps of "
+              f"{rt.batch_size}), then {len(lbfgs_losses)} L-BFGS iterations on "
+              f"{rt.num_collocation_points} points; validations {n_vals}; {run}", flush=True)
+        print(f"[lbfgs] {key}: epoch losses {' '.join(f'{v:.6e}' for v in losses)}; "
+              f"rel_l2 {conv.rel_l2:.4e} max_error {conv.max_error:.4e} (no bar at {epochs} "
+              f"epochs); points/s {conv.points_per_sec:.0f} ({card})", flush=True)
+        if not (ltr.switch_epoch == switch and len(losses) == epochs and len(lbfgs_losses) > 0):
+            raise AssertionError(f"{key}: switch {ltr.switch_epoch}, {len(losses)} epochs")
+        if not (ltr.fused_kernel_active and all(map(math.isfinite, losses + hist["val_loss"]))):
+            raise AssertionError(f"{key}: kernel 1 off or non-finite losses {losses}")
+        for a, b in zip(lbfgs_losses, lbfgs_losses[1:]):
+            if not b <= a + APPROX_DEC_RTOL * abs(a):
+                raise AssertionError(f"{key}: the L-BFGS loss rose within its round: {lbfgs_losses}")
+        want = adam_steps + run["evaluations"] + n_vals
+        if run["fused_residual_loss"] != want:
+            raise AssertionError(f"{key}: kernel 1 launched {run['fused_residual_loss']} times, want "
+                                 f"{adam_steps} Adam steps + {run['evaluations']} L-BFGS evaluations "
+                                 f"+ {n_vals} validations = {want}")
+        if run["evaluations"] < 2 * len(lbfgs_losses) or run["host_reads"] != run["evaluations"]:
+            raise AssertionError(f"{key}: {run['evaluations']} evaluations and {run['host_reads']} "
+                                 f"host reads in {len(lbfgs_losses)} iterations")
+        if key == "heat" and run["fourier_features_jvps"] != want:
+            raise AssertionError(f"heat: kernel 2's jvp rule ran {run['fourier_features_jvps']} "
+                                 f"times, want one per loss ({want})")
+        if not all(math.isfinite(v) for v in (conv.rel_l2, conv.max_error, conv.points_per_sec)):
+            raise AssertionError(f"{key}: non-finite result {conv}")
+        lbfgs_runs[key] = (run, ltr)
+
+    # ---- 18. lbfgs timing ------------------------------------------------------ #
+    lt = lbfgs_runs["burgers"][1]
+    lbatch = lt._lbfgs_batch(0, 0, LBFGS_N)
+    plain_lcfg = build_recipe_config("burgers", epochs=LBFGS_EPOCHS["burgers"], device="cuda")
+    plain_lcfg.training.fused_residual_kernel = "off"
+    plain_lmodel = PINNModel(plain_lcfg, seed=0)
+    plain_lmodel.module.load_state_dict(lt.model.module.state_dict())
+    plain_lt = PDETrainer(plain_lmodel, create_pde(plain_lcfg), plain_lcfg)
+    assert lt.fused_kernel_active and not plain_lt.fused_kernel_active
+    it_ms = {"kernels": [], "plain": []}
+    it_evals = {"kernels": [], "plain": []}
+    for order in ("plain", "kernels", "kernels", "plain"):
+        with plain_fourier_features() if order == "plain" else contextlib.nullcontext():
+            times, evals = lbfgs_iteration_times(plain_lt if order == "plain" else lt, lbatch,
+                                                 LBFGS_TIMED)
+        it_ms[order] += times
+        it_evals[order].append(evals)
+    lbfgs_ms = {k: statistics.median(v) for k, v in it_ms.items()}
+    lbfgs_evals = {k: sum(v) / len(v) for k, v in it_evals.items()}
+    sopt = lt._make_lbfgs(list(lt.model.params.values()))
+    sgen = torch.Generator(device=dev).manual_seed(5)
+    lt._lbfgs_step(lt.model.params, sopt, lbatch, sgen)  # warm: the ring holds a pair
+    evals0, reads0 = LBFGS.evaluations, LBFGS.host_reads
+    sync_sites = record_syncs(lambda: lt._lbfgs_step(lt.model.params, sopt, lbatch, sgen))
+    sync_evals, sync_reads = LBFGS.evaluations - evals0, LBFGS.host_reads - reads0
+    print(f"[lbfgs timing] one L-BFGS iteration (N={LBFGS_N}, BC/IC 4096, memory 50), median of "
+          f"{len(it_ms['kernels'])}: kernels {lbfgs_ms['kernels']:.3f} ms, plain path "
+          f"{lbfgs_ms['plain']:.3f} ms; evaluations per iteration: kernels "
+          f"{lbfgs_evals['kernels']:.2f}, plain {lbfgs_evals['plain']:.2f} ({card})", flush=True)
+    print(f"[syncs] one warm L-BFGS iteration: {len(sync_sites)} {sorted(set(sync_sites))}; "
+          f"{sync_evals} evaluations, {sync_reads} host reads", flush=True)
+    if len(sync_sites) != sync_reads or sync_reads != sync_evals:
+        raise AssertionError(f"an L-BFGS iteration made {len(sync_sites)} host syncs for "
+                             f"{sync_evals} evaluations and {sync_reads} host reads")
+    v = variants["burgers"]
+    z40 = parity_z[f"burgers_{LBFGS_N}"]
+    p40 = {k: p.detach().requires_grad_(True) for k, p in v.model.params.items()}
+    n40_ms = graph_ms(lambda: fused_grads(v, p40, z40), iters=5, replays=5)
+    n40_plain_ms = graph_ms(lambda: plain_grads(v, p40, z40), iters=5, replays=5)
+    n40_shapes = fused_gemms(v.model.params, 2, LBFGS_N)
+    n40_bound = bound(sum(2.0 * m * k * n for m, k, n in n40_shapes),
+                      4.0 * (z40.numel() + 2 * sum(p.numel() for p in p40.values()) + B.numel() + 1))
+    n40_lib_ms = cublas_ms(n40_shapes, dev, iters=5)
+    print(f"[timing] fused_residual_loss Burgers N={LBFGS_N} loss+grads, device time per call (CUDA "
+          f"graph): kernel {n40_ms:.3f} ms, plain {n40_plain_ms:.3f} ms, bound {n40_bound[0]:.3f} ms "
+          f"({n40_bound[1]}; {n40_bound[0] / n40_ms:.0%} of it), cuBLAS on its {len(n40_shapes)} "
+          f"products {n40_lib_ms:.3f} ms ({card})", flush=True)
+    del p40, plain_lt, plain_lmodel
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -1466,7 +1659,12 @@ def main() -> int:
          "kdv_causal_eager_ms": kdv_eager_ms,
          "heat_ms": heat_ms, "heat_plain_ms": heat_plain_ms, "heat_eager_ms": heat_eager_ms,
          "gemm_ms": {k: v["new"] for k, v in gemm_sum.items()},
-         "gemm_library_ms": {k: v["lib"] for k, v in gemm_sum.items()}},
+         "gemm_library_ms": {k: v["lib"] for k, v in gemm_sum.items()},
+         "lbfgs_launches": {k: r["fused_residual_loss"] for k, (r, _) in lbfgs_runs.items()},
+         "n40000_ms": n40_ms, "n40000_plain_ms": n40_plain_ms, "n40000_bound_ms": n40_bound[0],
+         "n40000_bound_by": n40_bound[1], "n40000_library_ms": n40_lib_ms,
+         "lbfgs_iteration_ms": lbfgs_ms, "lbfgs_evaluations_per_iteration": lbfgs_evals,
+         "lbfgs_syncs_per_iteration": len(sync_sites)},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -1474,6 +1672,8 @@ def main() -> int:
          "kdv_launches": kdv_launches["fourier_features"],
          "heat_launches": heat_launches["fourier_features"],
          "heat_jvps": heat_launches["fourier_features_jvps"], "max_abs_err": ff_err,
+         "lbfgs_launches": {k: {"launches": r["fourier_features"], "jvps": r["fourier_features_jvps"]}
+                            for k, (r, _) in lbfgs_runs.items()},
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
          "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
          "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,

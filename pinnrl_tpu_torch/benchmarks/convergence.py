@@ -6,9 +6,11 @@ optimizer schedule); ``build_recipe_config`` materialises it into a
 ``Config`` and ``run_convergence`` trains it and reports rel-L2, max error,
 wall time and points per second.
 
-Ported: the ``heat``, ``kdv`` and ``burgers`` recipes.
-``run_convergence("heat")`` and ``run_convergence("burgers")`` raise in the
-trainer, since their ``adam_lbfgs`` optimizer is ROADMAP item 8.
+Ported: the ``heat``, ``kdv`` and ``burgers`` recipes; heat and burgers
+train with Adam, then L-BFGS on every collocation point (``adam_lbfgs``).
+``points_per_sec`` counts each epoch at its own batch: the Adam epochs'
+steps times the batch, each L-BFGS epoch's iterations times the L-BFGS
+batch (the JAX package counts every epoch at the Adam batch).
 The other recipes raise naming item 11 (their PDEs); experiment directories
 and resume raise naming item 9; time-marching raises naming item 13 (no
 shipped recipe is multi-stage).
@@ -171,8 +173,6 @@ def run_convergence(
     wall = time.perf_counter() - t0
     params = trainer._final_state["params"]["net"]
     val = pde.validate(model.apply, params, num_points=20000)
-    batch = min(t.batch_size, t.num_collocation_points)
-    steps = len(trainer.history["train_loss"]) * max(t.num_collocation_points // batch, 1)
     return ConvergenceResult(
         pde=pde_key,
         architecture=recipe["arch"],
@@ -181,9 +181,24 @@ def run_convergence(
         max_error=val.get("max_error", float("nan")),
         final_train_loss=res["final_train_loss"],
         wall_time_s=wall,
-        points_per_sec=steps * batch / wall,
+        points_per_sec=_points_trained(t, trainer.switch_epoch, len(trainer.history["train_loss"]))
+        / wall,
         seed=seed,
     )
+
+
+def _points_trained(t, switch_epoch: Optional[int], epochs: int) -> int:
+    """Collocation points that ``epochs`` epochs went through: each Adam
+    epoch's steps times its batch, each L-BFGS epoch's iterations times the
+    L-BFGS batch."""
+    n = t.num_collocation_points
+    lbfgs_batch = min(t.lbfgs.batch_size or n, n)
+    if t.optimizer == "lbfgs":
+        return epochs * max(n // lbfgs_batch, 1) * lbfgs_batch
+    batch = min(t.batch_size, n)
+    adam_epochs = epochs if switch_epoch is None else min(epochs, switch_epoch)
+    phase2_batch = lbfgs_batch  # phase2_optimizer "adam" also steps once per epoch on it
+    return adam_epochs * max(n // batch, 1) * batch + (epochs - adam_epochs) * phase2_batch
 
 
 def results_to_csv(results: Sequence[ConvergenceResult]) -> str:

@@ -1,19 +1,29 @@
-"""PDETrainer: the Adam training loop of the port.
+"""PDETrainer: the training loop of the port (Adam, L-BFGS, and Adam then
+L-BFGS).
 
-Each step samples collocation points (uniform, stratified, RAR, or
+An Adam step samples collocation points (uniform, stratified, RAR, or
 RL-adaptive through the DQN agent's scores), computes the loss components
 (the residual through the fused kernel when attached, BC and IC through
 ``model.apply``), back-propagates, clips by global norm and takes an Adam
 step — the JAX package's scanned step, run eagerly. With an agent, the step
 then rewards the agent on the updated parameters and takes its DQN update.
 Losses stay on the device during an epoch; the host reads them once per
-epoch, and nothing in a step reads a device value back.
+epoch, and nothing in an Adam step reads a device value back.
+
+``optimizer="adam_lbfgs"`` switches at ``int(adam_lbfgs_switch_ratio *
+num_epochs)`` to one L-BFGS iteration per epoch (``training/lbfgs.py``) on
+a deterministic objective: one fixed uniform batch of ``lbfgs.batch_size``
+(default: every collocation point) and fixed BC/IC points, both drawn from
+seeds of the run's seed and the round, redrawn with the optimizer restarted
+every ``lbfgs.resample_every`` epochs of the phase. ``phase2_optimizer=
+"adam"`` runs a fresh Adam on fresh batches instead. Validation runs at the
+ends of the JAX package's chunks: every ``validation_frequency`` epochs,
+counted afresh from the switch and from each resample round.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-L-BFGS and the adam_lbfgs switch (item 8), adaptive loss weights, EMA,
-ensembles, inverse mode and hard-IC (item 13), the plateau scheduler,
-profiling, experiment directories and checkpoints (item 9), and device
-meshes (item 14).
+float64 residuals (item 8b), adaptive loss weights, EMA, ensembles, inverse
+mode and hard-IC (item 13), the plateau scheduler, profiling, experiment
+directories and checkpoints (item 9), and device meshes (item 14).
 """
 
 from __future__ import annotations
@@ -29,13 +39,14 @@ import torch
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.models import PINNModel
 from pinnrl_tpu_torch.pdes.base import PDEBase
+from pinnrl_tpu_torch.training.lbfgs import LBFGS
 
 logger = logging.getLogger(__name__)
 
 _COMPONENTS = ("residual", "boundary", "initial", "smoothness", "data")
 
 
-def _unported(what: str, item: int):
+def _unported(what: str, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
 
 
@@ -70,6 +81,9 @@ class AdamStep:
                              weight_decay=float(weight_decay or 0.0))
         self.count = 0
 
+    def state_dict(self) -> dict:
+        return self.optimizer.state_dict()
+
     def step(self) -> None:
         grads = [p.grad for p in self.params]
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -82,8 +96,9 @@ class AdamStep:
 
 
 class PDETrainer:
-    """Trains a PINN on a PDE problem with Adam (and, given ``rl_agent``, an
-    ``rl.RLAgent`` that chooses the collocation points)."""
+    """Trains a PINN on a PDE problem with Adam, L-BFGS or Adam then L-BFGS
+    (and, given ``rl_agent``, an ``rl.RLAgent`` that chooses the collocation
+    points of the Adam steps)."""
 
     def __init__(self, model: PINNModel, pde: PDEBase, config: Config,
                  rl_agent: Optional[Any] = None, mesh: Optional[Any] = None) -> None:
@@ -92,8 +107,6 @@ class PDETrainer:
             raise ValueError(f"the RL agent is on {rl_agent.device}, the model on {model.device}")
         if mesh is not None:
             raise _unported("device-mesh data parallelism", 14)
-        if t.optimizer != "adam":
-            raise _unported(f"optimizer {t.optimizer!r}", 8)
         if t.adaptive_weights.enabled:
             raise _unported("adaptive loss weights", 13)
         if float(t.param_ema) > 0.0:
@@ -109,7 +122,7 @@ class PDETrainer:
         if t.profile_dir:
             raise _unported("profiler traces", 9)
         if t.residual_dtype != "float32":
-            raise _unported("float64 residuals", 8)
+            raise _unported("float64 residuals", "8b")
 
         self.model = model
         self.pde = pde
@@ -157,6 +170,23 @@ class PDETrainer:
             oc.beta2,
             oc.weight_decay,
         )
+
+    def _make_lbfgs(self, params: List[torch.Tensor]) -> LBFGS:
+        """optax.lbfgs(memory_size=lbfgs.history_size) with a 25-step zoom
+        line search, as the JAX package builds it; neither reads the config's
+        max_iter, tolerance_grad, tolerance_change or line_search_fn."""
+        return LBFGS(params, self.tcfg.lbfgs.history_size, max_linesearch_steps=25)
+
+    def _lbfgs_batch(self, seed: int, round_index: int, n: int):
+        """One L-BFGS round's fixed objective: a uniform batch of ``n``
+        points and the seed of its BC/IC points, both from the run's seed and
+        the round (the JAX package folds the round into PRNGKey(0xF1EED ^
+        seed)), whatever the sampling strategy of the Adam steps."""
+        batch_seed, loss_seed = (int(v) for v in np.random.SeedSequence(
+            [(0xF1EED ^ seed) & 0xFFFFFFFF, round_index]).generate_state(2))
+        x, t = self.pde.generate_collocation_points(
+            torch.Generator(device=self.device).manual_seed(batch_seed), n, "uniform")
+        return x, t, loss_seed
 
     # ------------------------------------------------------------------ #
     # One step
@@ -212,6 +242,26 @@ class PDETrainer:
             self._rl_update(params, x, t, losses, generator)
         return torch.stack([losses["total"]] + [losses[k] for k in _COMPONENTS]).detach()
 
+    def _lbfgs_step(self, params: Dict[str, torch.Tensor], opt: LBFGS, batch,
+                    generator: torch.Generator) -> torch.Tensor:
+        """One L-BFGS iteration on the round's ``batch`` = (x, t, BC/IC seed)
+        (-> the agent's update). Returns the components at the starting
+        point, as ``_step`` does."""
+        x, t, loss_seed = batch
+        loss_gen = torch.Generator(device=self.device)
+
+        def objective():
+            # Reseeded at every evaluation: the line search sees one function.
+            losses = self._loss_components(params, x, t, loss_gen.manual_seed(loss_seed))
+            grads = torch.autograd.grad(losses["total"], opt.params, allow_unused=True,
+                                        materialize_grads=True)
+            return losses["total"], grads, losses
+
+        losses = opt.step(objective)[2]
+        if self.rl_agent is not None:
+            self._rl_update(params, x, t, losses, generator)
+        return torch.stack([losses["total"]] + [losses[k] for k in _COMPONENTS]).detach()
+
     @torch.no_grad()
     def _val_loss(self, params, generator: torch.Generator) -> float:
         x, t = self.pde.generate_collocation_points(
@@ -234,55 +284,111 @@ class PDETrainer:
         num_epochs = num_epochs or t.num_epochs
         batch_size = batch_size or t.batch_size
         num_points = num_points or t.num_collocation_points
+        # L-BFGS runs on one fixed batch per round: every collocation point
+        # unless training.lbfgs.batch_size caps it.
+        lbfgs_bs = min(t.lbfgs.batch_size or num_points, num_points)
+        if self.optimizer_name == "lbfgs":
+            batch_size = lbfgs_bs
         batch_size = min(batch_size, num_points)
         steps_per_epoch = max(num_points // batch_size, 1)
+        # The switch against the horizon train() was given.
+        self.switch_epoch = (int(t.adam_lbfgs_switch_ratio * num_epochs)
+                             if self.optimizer_name == "adam_lbfgs" else None)
 
         params = self.model.params
-        opt = self._make_adam(num_epochs, steps_per_epoch, list(params.values()))
+        leaves = list(params.values())
+        lbfgs_mode = self.optimizer_name == "lbfgs"
+        # Phase-1 Adam anneals its cosine over its own phase.
+        adam_epochs = self.switch_epoch or num_epochs
+        opt = (self._make_lbfgs(leaves) if lbfgs_mode
+               else self._make_adam(adam_epochs, steps_per_epoch, leaves))
+        lr_schedule = self._make_lr_schedule(adam_epochs, steps_per_epoch)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         val_gen = torch.Generator(device=self.device).manual_seed(10_000 + seed)
         if self.rl_agent is not None:
             self._rl_state = self._init_rl_state(seed)
 
+        switched = lbfgs_mode or self.switch_epoch is None
+        phase_start = self.switch_epoch or 0
+        resample = t.lbfgs.resample_every
+        batch = None  # the L-BFGS round's (x, t, BC/IC seed)
         es = t.early_stopping
         best_val = float("inf")
         patience_count = 0
         status = "completed"
         start_time = time.time()
         val_every = max(int(t.validation_frequency), 1)
-        for epoch in range(num_epochs):
-            t0 = time.time()
-            per_step = [self._step(params, opt, gen, batch_size) for _ in range(steps_per_epoch)]
-            if self.rl_agent is not None:
-                # Once per epoch, so exploration anneals over the run's horizon.
-                self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
-            means = torch.stack(per_step).mean(dim=0).tolist()  # one host read per epoch
-            self.history["train_loss"].append(means[0])
-            for k, v in zip(_COMPONENTS, means[1:]):
-                self.history["loss_components"][k].append(v)
-            self.history["epoch_time"].append(time.time() - t0)
-            self.history["learning_rate"].append(opt.schedule((epoch + 1) * steps_per_epoch))
-            if not np.isfinite(means[0]):
-                logger.warning("Non-finite loss at epoch %d; stopping", epoch + 1)
-                status = "failed"
+        epoch = 0
+        stop = False
+        while epoch < num_epochs and not stop:
+            if not switched and epoch >= self.switch_epoch:
+                switched = True
+                steps_per_epoch = 1
+                logger.info("Switching optimizer: adam -> %s at epoch %d", t.phase2_optimizer, epoch)
+                if t.phase2_optimizer == "lbfgs":
+                    opt, lbfgs_mode = self._make_lbfgs(leaves), True
+                else:
+                    # Fresh batches and a fresh Adam, its cosine to 0 over the rest.
+                    batch_size = lbfgs_bs
+                    opt = AdamStep(leaves, cosine_decay(t.phase2_learning_rate,
+                                                        max(num_epochs - epoch, 1), 0.0),
+                                   t.gradient_clip_norm, 0.9, 0.999, 0.0)
+            if lbfgs_mode:
+                done_in_phase = epoch - phase_start
+                if batch is None or (resample and done_in_phase > 0 and done_in_phase % resample == 0):
+                    if batch is not None:
+                        opt = self._make_lbfgs(leaves)  # a new round restarts the optimizer
+                    batch = self._lbfgs_batch(seed, done_in_phase // resample if resample else 0,
+                                              lbfgs_bs)
+            # Validation ends each chunk of the JAX package's loop: every
+            # validation_frequency epochs, clipped at the switch and at rounds.
+            chunk = min(val_every, num_epochs - epoch)
+            if not switched:
+                chunk = min(chunk, max(self.switch_epoch - epoch, 1))
+            if lbfgs_mode and resample:
+                next_round = phase_start + ((epoch - phase_start) // resample + 1) * resample
+                chunk = min(chunk, max(next_round - epoch, 1))
+            for _ in range(chunk):
+                t0 = time.time()
+                if lbfgs_mode:
+                    per_step = [self._lbfgs_step(params, opt, batch, gen) for _ in range(steps_per_epoch)]
+                else:
+                    per_step = [self._step(params, opt, gen, batch_size) for _ in range(steps_per_epoch)]
+                if self.rl_agent is not None:
+                    # Once per epoch, so exploration anneals over the run's horizon.
+                    self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
+                means = torch.stack(per_step).mean(dim=0).tolist()  # one host read per epoch
+                self.history["train_loss"].append(means[0])
+                for k, v in zip(_COMPONENTS, means[1:]):
+                    self.history["loss_components"][k].append(v)
+                self.history["epoch_time"].append(time.time() - t0)
+                # As the JAX package records it: the phase-1 schedule at the
+                # epoch's end, after the switch too (ROADMAP queue 3).
+                self.history["learning_rate"].append(lr_schedule((epoch + 1) * steps_per_epoch))
+                epoch += 1
+                if not np.isfinite(means[0]):
+                    logger.warning("Non-finite loss at epoch %d; stopping", epoch)
+                    status = "failed"
+                    stop = True
+                    break
+            if stop:
                 break
-            if (epoch + 1) % val_every and epoch + 1 != num_epochs:
-                continue
             val_loss = self._val_loss(params, val_gen)
             self.history["val_loss"].append(val_loss)
-            logger.info("epoch %d/%d train=%.4e val=%.4e", epoch + 1, num_epochs, means[0], val_loss)
+            logger.info("epoch %d/%d train=%.4e val=%.4e", epoch, num_epochs,
+                        self.history["train_loss"][-1], val_loss)
             if es.enabled:
                 if val_loss < best_val - es.min_delta:
                     best_val, patience_count = val_loss, 0
                 else:
                     patience_count += 1
                     if patience_count >= es.patience:
-                        logger.info("Early stopping at epoch %d", epoch + 1)
-                        break
+                        logger.info("Early stopping at epoch %d", epoch)
+                        stop = True
 
         self._final_state = {
             "params": {"net": params, "coeffs": {}},
-            "opt_state": opt.optimizer.state_dict(),
+            "opt_state": opt.state_dict(),
             "rl": self._rl_state,
         }
         return {

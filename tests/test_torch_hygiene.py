@@ -26,7 +26,8 @@ def test_port_imports_without_jax():
         "assert len(mods) >= 25 and 'pinnrl_tpu_torch.rl.dqn' in mods, mods\n"
         "assert {'pinnrl_tpu_torch.pdes.kdv', 'pinnrl_tpu_torch.benchmarks.convergence',\n"
         "        'pinnrl_tpu_torch.ops.kernels.siren', 'pinnrl_tpu_torch.models.siren',\n"
-        "        'pinnrl_tpu_torch.ops.derivatives', 'pinnrl_tpu_torch.pdes.heat'} <= set(mods)\n"
+        "        'pinnrl_tpu_torch.ops.derivatives', 'pinnrl_tpu_torch.pdes.heat',\n"
+        "        'pinnrl_tpu_torch.training.lbfgs'} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
@@ -153,7 +154,7 @@ def test_unported_features_raise():
         PINNModel(cfg)
     cfg.model.arch_params["modified"] = False
     model, pde = PINNModel(cfg), create_pde(cfg)
-    for field, value, item in (("optimizer", "adam_lbfgs", 8),
+    for field, value, item in (("residual_dtype", "float64", 8),
                                ("scheduler_type", "reduce_lr", 9),
                                ("param_ema", 0.9, 13), ("ensemble_size", 2, 13)):
         old = getattr(cfg.training, field)

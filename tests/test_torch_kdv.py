@@ -37,6 +37,7 @@ from pinnrl_tpu_torch.models import PINNModel
 from pinnrl_tpu_torch.models.fourier import feature_basis
 from pinnrl_tpu_torch.pdes import create_pde
 from pinnrl_tpu_torch.training import PDETrainer
+from pinnrl_tpu_torch.training.lbfgs import LBFGS
 
 BASES = Path(convergence.__file__).resolve().parents[1] / "config" / "feature_bases.json"
 
@@ -101,9 +102,28 @@ def test_harness_raises_for_what_is_not_ported():
         convergence.run_convergence("kdv", epochs=1, experiment_dir="unused", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         convergence.run_time_marching("kdv")
-    for key in ("burgers", "heat"):  # adam_lbfgs
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            convergence.run_convergence(key, epochs=1, device="cpu")
+
+
+@pytest.mark.parametrize("key,epochs,lbfgs_epochs", [("burgers", 4, 2), ("heat", 5, 3)])
+def test_run_convergence_trains_the_adam_lbfgs_recipes(monkeypatch, key, epochs, lbfgs_epochs):
+    """The Burgers (RAR) and heat recipes through the runner at CPU size
+    (narrow trunk, 256 points, batch 128): 2 Adam epochs of 2 steps at the
+    recipe's switch ratio, then L-BFGS epochs on all 256 points."""
+    recipe = convergence.RECIPES[key]
+    assert recipe["training"]["optimizer"] == "adam_lbfgs"
+    small = {**recipe, "model": {**recipe["model"], "hidden_dims": [16, 16], "mapping_size": 8},
+             "training": {**recipe["training"], "num_collocation_points": 256, "batch_size": 128,
+                          "num_boundary_points": 32, "num_initial_points": 32}}
+    monkeypatch.setitem(convergence.RECIPES, key, small)
+    evals = LBFGS.evaluations
+    res = convergence.run_convergence(key, seed=0, epochs=epochs, device="cpu")
+    assert (res.pde, res.epochs, res.seed) == (key, epochs, 0)
+    assert LBFGS.evaluations - evals >= 2 * lbfgs_epochs  # an initial evaluation and a trial each
+    assert all(np.isfinite(v) for v in (res.rel_l2, res.max_error, res.final_train_loss,
+                                        res.points_per_sec))
+    # Adam epochs at their batch, L-BFGS epochs at theirs (all 256 points).
+    points = res.points_per_sec * res.wall_time_s
+    assert abs(points - (2 * 2 * 128 + lbfgs_epochs * 256)) < 1e-6 * points
 
 
 def test_run_convergence_trains_and_reports(monkeypatch):

@@ -3,6 +3,7 @@
 CUDA card.
 
     python3 tools/profile_step_torch.py [--steps 20] [--profiled 10] [--out chiprun_out/profile]
+        [--rl | --kdv | --siren-kdv | --heat] [--lbfgs]
 
 For the Burgers recipe slice of ``chip_smoke.py`` (Fourier 256x3, mapping
 128, batch 8192, BC/IC 4096), once with the hand-written kernels and once on
@@ -26,7 +27,12 @@ With ``--siren-kdv`` it is a step of KdV as shipped
 (``load_config(pde_type="kdv")``: SIREN 124x7, omega_0 30, batch 2048, the
 order-3 residual through nested jvp; plain = every SIREN layer on its plain
 version). With ``--heat`` it is a step of the heat recipe (Fourier 256x3,
-mapping 128, batch 8192, periodic BCs through one jvp, Adam).
+mapping 128, batch 8192, periodic BCs through one jvp, Adam). With
+``--lbfgs`` it is one L-BFGS iteration of the recipe's second phase
+(``training/lbfgs.py``: memory 50, zoom line search) on one fixed batch of
+all 40000 collocation points and fixed BC/IC points, from a fresh optimizer
+at the seeded initial weights (the Burgers recipe, or the heat recipe with
+``--heat``); it also prints the objective's evaluations per iteration.
 
 The chrome traces go to ``--out``, gzipped. The script imports no JAX.
 """
@@ -66,19 +72,30 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card: str):
+def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card: str,
+            lbfgs: bool = False):
     import torch
+
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
 
     dev = trainer.device
     steps_per_epoch = cfg.training.num_collocation_points // cfg.training.batch_size
     params = trainer.model.params
-    opt = trainer._make_adam(cfg.training.num_epochs, steps_per_epoch, list(params.values()))
     gen = torch.Generator(device=dev).manual_seed(7)
+    if lbfgs:
+        opt = trainer._make_lbfgs(list(params.values()))
+        batch = trainer._lbfgs_batch(7, 0, cfg.training.num_collocation_points)
 
-    def step():
-        trainer._step(params, opt, gen, cfg.training.batch_size)
+        def step():
+            trainer._lbfgs_step(params, opt, batch, gen)
+    else:
+        opt = trainer._make_adam(cfg.training.num_epochs, steps_per_epoch, list(params.values()))
+
+        def step():
+            trainer._step(params, opt, gen, cfg.training.batch_size)
 
     times = []
+    evals = LBFGS.evaluations
     for i in range(5 + steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -87,12 +104,15 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
         if i >= 5:
             times.append((time.perf_counter() - t0) * 1e3)
     q1, med, q3 = statistics.quantiles(times, n=4)
+    evals_timed = (LBFGS.evaluations - evals) / (5 + steps)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    evals = LBFGS.evaluations
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(profiled):
             step()
         torch.cuda.synchronize()
+    evals_profiled = (LBFGS.evaluations - evals) / profiled
     out.mkdir(parents=True, exist_ok=True)
     trace = out / f"trace_{label}.json"
     prof.export_chrome_trace(str(trace))
@@ -112,11 +132,16 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
     print(f"[{label}] device busy {busy:.3f} ms/step over {profiled} profiled steps; "
           f"idle share of the median step {1.0 - busy / med:.3f}; "
           f"{len(ivs) / profiled:.1f} device launches/step ({card})")
+    if lbfgs:
+        print(f"[{label}] objective evaluations per iteration: {evals_timed:.2f} (timed), "
+              f"{evals_profiled:.2f} (profiled)")
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (ms, count) in rows[:15]:
         print(f"[{label}]   {ms:8.4f} ms/step  {count / profiled:6.1f} launches/step  {name[:90]}")
     return {"label": label, "median_ms": med, "q1_ms": q1, "q3_ms": q3, "busy_ms": busy,
             "idle_share": 1.0 - busy / med, "launches_per_step": len(ivs) / profiled,
+            **({"evaluations_per_step": evals_timed, "evaluations_per_profiled_step": evals_profiled}
+               if lbfgs else {}),
             "kernels": [{"name": n, "ms_per_step": v[0], "launches_per_step": v[1] / profiled}
                         for n, v in rows]}
 
@@ -133,6 +158,9 @@ def main() -> int:
     kind.add_argument("--siren-kdv", action="store_true",
                       help="profile a step of KdV as shipped (SIREN 124x7, nested jvp)")
     kind.add_argument("--heat", action="store_true", help="profile the heat recipe's step")
+    ap.add_argument("--lbfgs", action="store_true",
+                    help="profile one L-BFGS iteration on all 40000 points (Burgers, or with --heat "
+                         "the heat recipe)")
     args = ap.parse_args()
 
     import torch
@@ -150,11 +178,12 @@ def main() -> int:
     card = nvidia_smi_line()
     out = Path(args.out)
     results = []
-    prefix = ("rl_" if args.rl else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
-              else "heat_" if args.heat else "")
+    prefix = ("lbfgs_" if args.lbfgs else "") + (
+        "rl_" if args.rl else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
+        else "heat_" if args.heat else "")
     configs = {"kdv_": kdv_recipe_config, "siren_kdv_": siren_kdv_config, "heat_": heat_recipe_config}
     for label in ("kernels", "plain"):
-        cfg = configs.get(prefix, burgers_recipe_config)("cuda")
+        cfg = configs.get(prefix.removeprefix("lbfgs_"), burgers_recipe_config)("cuda")
         cfg.rl.enabled = args.rl
         if label == "plain":
             cfg.training.fused_residual_kernel = "off"
@@ -169,7 +198,8 @@ def main() -> int:
                 plain.enter_context(plain_fourier_features())
                 plain.enter_context(plain_mlp_score())
                 plain.enter_context(plain_siren())
-            results.append(profile(trainer, cfg, prefix + label, args.steps, args.profiled, out, card))
+            results.append(profile(trainer, cfg, prefix + label, args.steps, args.profiled, out, card,
+                                   lbfgs=args.lbfgs))
     (out / f"{prefix}summary.json").write_text(json.dumps({"card": card, "runs": results}, indent=1))
     if "jax" in sys.modules:
         raise AssertionError("profile_step_torch imported jax")
