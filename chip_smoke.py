@@ -94,6 +94,26 @@ Phases (each raises on failure, and the script then exits non-zero):
                its host reads (one per evaluation); kernel 1 at N = 40000
                against its plain version by CUDA-graph replay, with its bound
                and cuBLAS on its products.
+ 19. scope     — kernel 1's one-dimensional scope: its convection (x-order
+               1, 3 streams), Allen-Cahn and Black-Scholes (to maturity)
+               variants on their recipes' Fourier 256x3 trunks, plain and
+               causal, at N = 8192 and N = 40000, and Black-Scholes as
+               shipped (feedforward 128x7 with LayerNorm) at N = 8192, each
+               against its plain version and bit-identical in two calls;
+               each timed by CUDA-graph replay beside its plain version, its
+               bound and cuBLAS on its products (N = 40000: the recipes as
+               shipped, not causal).
+ 20. recipes   — the convection, Allen-Cahn, Black-Scholes and Allen-Cahn
+               dynamics (spectral target, periodic BCs) recipes through
+               ``run_convergence(key, seed=0, epochs=6, device="cuda")``: 3
+               Adam epochs of 4 steps, then 3 L-BFGS iterations on all 40000
+               points. Losses finite, falling over the run and not rising
+               within the L-BFGS round; kernel 1 exactly once per loss,
+               kernel 2 exactly twice per loss plus once for the final
+               validate, its jvp rule once per loss for the periodic recipe;
+               rel-L2 printed. Then 10 Adam steps of Black-Scholes as shipped
+               (``load_config(pde_type="black_scholes")``): kernel 1 once per
+               loss, kernel 2 never, finite losses.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -127,7 +147,12 @@ the L-BFGS phase's numbers: ``lbfgs_launches`` (phase 17, per recipe),
 ``n40000_ms``, ``n40000_plain_ms``, ``n40000_bound_ms`` and
 ``n40000_library_ms`` (phase 18) and ``lbfgs_iteration_ms`` (kernels and
 plain), ``lbfgs_evaluations_per_iteration`` and
-``lbfgs_syncs_per_iteration``; kernel 2's carries its phase-17 launches and
+``lbfgs_syncs_per_iteration``, phase 19's ``scope_1d`` (per variant: its
+streams, trunk, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+``library_ms``, and the same with ``n40000_``) and phase 20's
+``scope_1d_launches`` (per recipe: kernel 1's and kernel 2's launches, the
+jvp rule's, the L-BFGS evaluations, rel-L2 and wall seconds); kernel 2's
+carries its phase-17 launches and
 heat's jvps (``lbfgs_launches``); kernel
 3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124;
 kernel 4's ``launch_ms`` (each launch), ``splits`` (the launcher's choice,
@@ -194,7 +219,23 @@ APPROX_DEC_RTOL = 1e-6  # optax's approximate-decrease slack of the zoom line se
 # order 3 2e-4 on the loss (tests/test_kernels.py:271-273).
 FUSED_TOLS = {"burgers": (1e-5, 1e-4), "burgers_causal": (1e-4, 1e-3),
               "heat": (1e-5, 1e-4), "heat_causal": (1e-4, 1e-3),
-              "kdv": (2e-4, 1e-3), "kdv_causal": (2e-4, 1e-3)}
+              "kdv": (2e-4, 1e-3), "kdv_causal": (2e-4, 1e-3),
+              "convection": (1e-5, 1e-4), "convection_causal": (1e-4, 1e-3),
+              "allen_cahn": (1e-5, 1e-4), "allen_cahn_causal": (1e-4, 1e-3),
+              "black_scholes": (1e-5, 1e-4), "black_scholes_causal": (1e-4, 1e-3),
+              "black_scholes_ff": (1e-5, 1e-4)}
+# Phase 19: kernel 1's one-dimensional scope. The recipes' variants (Fourier
+# 256x3, mapping 128: convection with 3 stacked streams, Allen-Cahn and
+# Black-Scholes to maturity with 4), plain and causal, and Black-Scholes as
+# shipped (feedforward 128x7 with LayerNorm, calendar time).
+SCOPE_VARIANTS = ("convection", "convection_causal", "allen_cahn", "allen_cahn_causal",
+                  "black_scholes", "black_scholes_causal", "black_scholes_ff")
+# Phase 20: the four recipes through run_convergence, 3 Adam epochs (12 steps)
+# then 3 L-BFGS iterations; Black-Scholes as shipped for SHIPPED_BS_EPOCHS
+# epochs of 2 Adam steps (batch 2048 of 5000).
+SCOPE_RECIPE_EPOCHS = 6
+SCOPE_RECIPES = ("convection", "allen_cahn", "black_scholes", "allen_cahn_dynamics")
+SHIPPED_BS_EPOCHS = 5
 
 
 def nvidia_smi_line() -> str:
@@ -264,6 +305,28 @@ def heat_recipe_config(device: str, causal: bool = False):
     cfg.training.optimizer = "adam"
     cfg.training.causal_eps = 1.0 if causal else 0.0
     return cfg
+
+
+def scope_variant_config(name: str, device: str):
+    """The configuration of a phase-19 variant (``SCOPE_VARIANTS``)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.config import load_config
+
+    if name == "black_scholes_ff":
+        return load_config(pde_type="black_scholes", device=device)
+    key = name.removesuffix("_causal")
+    cfg = build_recipe_config(key, device=device)
+    cfg.training.causal_eps = 1.0 if name.endswith("_causal") else 0.0
+    return cfg
+
+
+def kernel1_bound(params, x_order: int, z, B):
+    """(ms, what bounds it) of one kernel-1 loss + gradients call: its GEMMs'
+    operations; its bytes: z, the parameters read, the gradients written,
+    the Fourier basis and the loss."""
+    n_params = sum(v.numel() for v in params.values())
+    return bound(sum(2.0 * m * k * n for m, k, n in fused_gemms(params, x_order, z.shape[0])),
+                 4.0 * (z.numel() + 2 * n_params + (0 if B is None else B.numel()) + 1))
 
 
 def bound(ops: float, nbytes: float):
@@ -686,6 +749,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
     import pinnrl_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
+    from pinnrl_tpu_torch.config import load_config
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.ops.derivatives import make_scalar_fn
     from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
@@ -1625,6 +1689,126 @@ def main() -> int:
           f"products {n40_lib_ms:.3f} ms ({card})", flush=True)
     del p40, plain_lt, plain_lmodel
 
+    # ---- 19. kernel 1's one-dimensional scope ---------------------------------- #
+    def bit_identical(v, p, zz):
+        (l1, g1), (l2, g2) = (fused_grads(v, p, zz) for _ in range(2))
+        return torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+    scope = {}
+    for name in SCOPE_VARIANTS:
+        v = variants[name] = variant(scope_variant_config(name, "cuda"))
+        x_order, B_v = max(v.pde.spatial_orders), v.model.constants.get("FourierFeatures_0.B")
+        p = {k: t_.detach().requires_grad_(True) for k, t_ in v.model.params.items()}
+        row = scope[name] = {"streams": 2 + x_order, "trunk": v.model.config.architecture,
+                             "widths": list(v.model.config.hidden_dims)}
+        for n in ((8192,) if name == "black_scholes_ff" else (8192, LBFGS_N)):
+            zz = time_sorted(*v.pde.generate_collocation_points(gen, n, "uniform"))
+            compare(name, f"N={n} seeded init", p, zz)
+            same = bit_identical(v, p, zz)
+            print(f"[scope] fused_residual_loss {name} N={n}: two calls on the same inputs "
+                  f"bit-identical {same}", flush=True)
+            if not same:
+                raise AssertionError(f"kernel 1 ({name}, N={n}) is not deterministic")
+            if n != 8192 and name.endswith("_causal"):
+                continue  # the L-BFGS batch is timed for the recipes as shipped (not causal)
+            tag = "" if n == 8192 else f"n{n}_"
+            iters = 10 if n == 8192 else 5
+            row[f"{tag}ms"] = graph_ms(lambda: fused_grads(v, p, zz), iters=iters, replays=5)
+            row[f"{tag}plain_ms"] = graph_ms(lambda: plain_grads(v, p, zz), iters=iters, replays=5)
+            row[f"{tag}bound_ms"], row[f"{tag}bound_by"] = kernel1_bound(p, x_order, zz, B_v)
+            shapes = fused_gemms(p, x_order, n)
+            row[f"{tag}library_ms"] = cublas_ms(shapes, dev, iters=iters)
+            print(f"[timing] fused_residual_loss {name} N={n} ({row['streams']} streams, "
+                  f"{row['trunk']} {row['widths']}) loss+grads, device time per call (CUDA graph): "
+                  f"kernel {row[f'{tag}ms']:.3f} ms, plain {row[f'{tag}plain_ms']:.3f} ms, bound "
+                  f"{row[f'{tag}bound_ms']:.3f} ms ({row[f'{tag}bound_by']}; "
+                  f"{row[f'{tag}bound_ms'] / row[f'{tag}ms']:.0%} of it), cuBLAS on its "
+                  f"{len(shapes)} products {row[f'{tag}library_ms']:.3f} ms ({card})", flush=True)
+        del p
+
+    # ---- 20. the new recipes, Adam then L-BFGS, and Black-Scholes as shipped ---- #
+    scope_runs = {}
+    for key in SCOPE_RECIPES:
+        rt = build_recipe_config(key, epochs=SCOPE_RECIPE_EPOCHS, device="cuda").training
+        switch = int(rt.adam_lbfgs_switch_ratio * SCOPE_RECIPE_EPOCHS)
+        adam_steps = switch * (rt.num_collocation_points // rt.batch_size)
+        fused_step.fused_residual_loss.launches = 0
+        fourier_feats.fourier_features.launches = 0
+        fourier_feats.fourier_features.jvps = 0
+        evals0 = LBFGS.evaluations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captured_trainers() as seen:
+            conv = run_convergence(key, seed=0, epochs=SCOPE_RECIPE_EPOCHS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+               "fourier_features": fourier_feats.fourier_features.launches,
+               "fourier_features_jvps": fourier_feats.fourier_features.jvps,
+               "evaluations": LBFGS.evaluations - evals0}
+        (ltr,) = seen
+        hist = ltr.history
+        losses, n_vals = hist["train_loss"], len(hist["val_loss"])
+        lbfgs_losses = losses[switch:]
+        periodic = "periodic" in ltr.pde.boundary_conditions
+        n_losses = adam_steps + run["evaluations"] + n_vals
+        # Per loss: kernel 1 once; kernel 2 on the BC (or periodic faces) and
+        # the IC points, and its jvp rule once where the BC is periodic; one
+        # more kernel-2 launch for run_convergence's validate(20000).
+        want = {"fused_residual_loss": n_losses, "fourier_features": 2 * n_losses + 1,
+                "fourier_features_jvps": n_losses if periodic else 0}
+        print(f"[scope] {key}: run_convergence(seed=0, epochs={SCOPE_RECIPE_EPOCHS}) {wall:.2f} s: "
+              f"Adam {switch} epochs ({adam_steps} steps of {rt.batch_size}), then "
+              f"{len(lbfgs_losses)} L-BFGS iterations on {rt.num_collocation_points} points; "
+              f"validations {n_vals}; {run} ({card})", flush=True)
+        print(f"[scope] {key}: epoch losses {' '.join(f'{x_:.6e}' for x_ in losses)}; rel_l2 "
+              f"{conv.rel_l2:.4e} max_error {conv.max_error:.4e} (no bar at "
+              f"{SCOPE_RECIPE_EPOCHS} epochs)", flush=True)
+        if not (ltr.switch_epoch == switch and len(losses) == SCOPE_RECIPE_EPOCHS
+                and ltr.fused_kernel_active and all(map(math.isfinite, losses + hist["val_loss"]))):
+            raise AssertionError(f"{key}: switch {ltr.switch_epoch}, kernel 1 "
+                                 f"{ltr.fused_kernel_active}, losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{key}: the loss did not fall: {losses}")
+        for a, b in zip(lbfgs_losses, lbfgs_losses[1:]):
+            if not b <= a + APPROX_DEC_RTOL * abs(a):
+                raise AssertionError(f"{key}: the L-BFGS loss rose within its round: {lbfgs_losses}")
+        if any(run[k] != w for k, w in want.items()):
+            raise AssertionError(f"{key}: launches {run}, want {want} ({adam_steps} Adam steps + "
+                                 f"{run['evaluations']} L-BFGS evaluations + {n_vals} validations)")
+        if not all(math.isfinite(x_) for x_ in (conv.rel_l2, conv.max_error, conv.points_per_sec)):
+            raise AssertionError(f"{key}: non-finite result {conv}")
+        scope_runs[key] = {**run, "rel_l2": conv.rel_l2, "wall_s": wall}
+
+    bs_cfg = load_config(pde_type="black_scholes", device="cuda")
+    bs_t = bs_cfg.training
+    bs_t.num_epochs = SHIPPED_BS_EPOCHS
+    bs_trainer = PDETrainer(PINNModel(bs_cfg, seed=0), create_pde(bs_cfg), bs_cfg)
+    if not (bs_trainer.fused_kernel_active and bs_cfg.model.architecture == "feedforward"):
+        raise AssertionError("Black-Scholes as shipped is not on kernel 1's feedforward path")
+    bs_steps = SHIPPED_BS_EPOCHS * (bs_t.num_collocation_points // bs_t.batch_size)
+    bs_vals = sum(1 for e in range(1, SHIPPED_BS_EPOCHS + 1)
+                  if e % bs_t.validation_frequency == 0 or e == SHIPPED_BS_EPOCHS)
+    fused_step.fused_residual_loss.launches = 0
+    fourier_feats.fourier_features.launches = 0
+    bs_hist = bs_trainer.train(seed=0)["history"]["train_loss"]
+    torch.cuda.synchronize()
+    bs_run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+              "fourier_features": fourier_feats.fourier_features.launches}
+    print(f"[scope] black_scholes as shipped (feedforward {list(bs_cfg.model.hidden_dims)}, "
+          f"LayerNorm {bs_cfg.model.layer_norm}, batch {bs_t.batch_size} of "
+          f"{bs_t.num_collocation_points}): {bs_steps} Adam steps, {bs_vals} validations; {bs_run}; "
+          f"epoch losses {' '.join(f'{x_:.6e}' for x_ in bs_hist)}", flush=True)
+    if bs_run != {"fused_residual_loss": bs_steps + bs_vals, "fourier_features": 0}:
+        raise AssertionError(f"black_scholes as shipped: launches {bs_run}, want "
+                             f"{bs_steps + bs_vals} of kernel 1 and none of kernel 2")
+    # Shipped, the residual reads calendar time against a payoff IC at t = 0
+    # (pdes/black_scholes.py) and Adam runs at lr 5e-3: its loss wanders over
+    # a few steps, so only finiteness is checked here.
+    if not all(map(math.isfinite, bs_hist)):
+        raise AssertionError(f"black_scholes as shipped: losses {bs_hist}")
+    scope_runs["black_scholes_shipped"] = bs_run
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -1664,7 +1848,8 @@ def main() -> int:
          "n40000_ms": n40_ms, "n40000_plain_ms": n40_plain_ms, "n40000_bound_ms": n40_bound[0],
          "n40000_bound_by": n40_bound[1], "n40000_library_ms": n40_lib_ms,
          "lbfgs_iteration_ms": lbfgs_ms, "lbfgs_evaluations_per_iteration": lbfgs_evals,
-         "lbfgs_syncs_per_iteration": len(sync_sites)},
+         "lbfgs_syncs_per_iteration": len(sync_sites),
+         "scope_1d": scope, "scope_1d_launches": scope_runs},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",

@@ -6,12 +6,16 @@ optimizer schedule); ``build_recipe_config`` materialises it into a
 ``Config`` and ``run_convergence`` trains it and reports rel-L2, max error,
 wall time and points per second.
 
-Ported: the ``heat``, ``kdv`` and ``burgers`` recipes; heat and burgers
-train with Adam, then L-BFGS on every collocation point (``adam_lbfgs``).
+Ported: the ``heat``, ``kdv``, ``burgers``, ``convection``, ``allen_cahn``,
+``black_scholes`` and ``allen_cahn_dynamics`` recipes; all but kdv train
+with Adam, then L-BFGS on every collocation point (``adam_lbfgs``).
+``allen_cahn_dynamics`` is the Allen-Cahn PDE (``pde_type``) against its
+ETDRK4 spectral trajectory.
 ``points_per_sec`` counts each epoch at its own batch: the Adam epochs'
 steps times the batch, each L-BFGS epoch's iterations times the L-BFGS
 batch (the JAX package counts every epoch at the Adam batch).
-The other recipes raise naming item 11 (their PDEs); experiment directories
+The other recipes raise naming item 11 (their PDEs: wave, pendulum,
+Cahn-Hilliard, heat_2d); experiment directories
 and resume raise naming item 9; time-marching raises naming item 13 (no
 shipped recipe is multi-stage).
 """
@@ -87,6 +91,80 @@ RECIPES: Dict[str, dict] = {
             optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
             learning_rate=2e-3, weight_decay=0.0,
             collocation_distribution="residual_based",
+        ),
+    ),
+    "convection": dict(
+        # Linear advection of sin(2 pi (x - t)). IC frequency 2.0 so the IC
+        # matches the exact solution at t = 0; exact-aware Dirichlet BCs
+        # because the inflow boundary value -sin(2 pi t) is nonzero.
+        arch="fourier",
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=1.0),
+        pde=dict(
+            initial_condition={"type": "sin", "amplitude": 1.0, "frequency": 2.0},
+            boundary_conditions={"dirichlet": {"type": "exact"}},
+        ),
+        training=dict(
+            num_epochs=1500, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
+    "allen_cahn": dict(
+        # The genuine stationary interface tanh(x / (sqrt(2) eps)).
+        arch="fourier",
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=2.0),
+        pde=dict(
+            exact_solution={"type": "stationary_interface"},
+            initial_condition={"type": "stationary_interface"},
+            boundary_conditions={"dirichlet": {"type": "exact"}},
+        ),
+        training=dict(
+            num_epochs=1500, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
+    "black_scholes": dict(
+        # The self-consistent time-to-maturity convention and the textbook
+        # normal-CDF closed form.
+        arch="fourier",
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=1.0),
+        pde=dict(
+            parameters={"sigma": 0.2, "r": 0.05, "time_convention": "to_maturity"},
+            exact_solution={"type": "black_scholes", "strike": 100.0,
+                            "option_type": "call", "cdf": True},
+            boundary_conditions={"dirichlet": {"type": "exact"}},
+        ),
+        training=dict(
+            num_epochs=1500, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
+    "allen_cahn_dynamics": dict(
+        # A time-dependent phase-field target: the ETDRK4 spectral
+        # trajectory of domain formation and interface relaxation from
+        # large-amplitude modes (0.6 / 0.3).
+        pde_type="allen_cahn",
+        arch="fourier",
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=1.0),
+        pde=dict(
+            parameters={"epsilon": 0.5},
+            domain=[[0.0, 6.283185307179586]],
+            time_domain=[0.0, 4.0],
+            exact_solution={"type": "spectral", "ic_modes": [[1, 0.6], [2, 0.3]],
+                            "nx": 128, "dt": 2e-3},
+            initial_condition={"type": "spectral"},
+            boundary_conditions={"periodic": {}},
+        ),
+        training=dict(
+            num_epochs=3000, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
         ),
     ),
 }

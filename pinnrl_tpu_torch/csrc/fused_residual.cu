@@ -1,14 +1,21 @@
-// Fused residual loss of the Fourier PINN and its gradient with respect to
-// every network parameter, for the Burgers residual r = u_t + u u_x - nu u_xx,
-// the heat residual r = u_t - alpha u_xx and the KdV residual
-// r = u_t + 6 u u_x + u_xxx, plain (loss = mean_i r_i^2)
-// or causally weighted (loss = sum_i w_i r_i^2 / sum_i w_i with
-// w_i = exp(-eps sum_{j<i} r_j^2 / N) over the time-sorted batch; the
-// weights carry no gradient).
+// Fused residual loss of a Fourier or feedforward PINN in one space dimension
+// and its gradient with respect to every network parameter, for the residuals
+//   Burgers         r = u_t + u u_x - nu u_xx
+//   heat            r = u_t - alpha u_xx
+//   KdV             r = u_t + 6 u u_x + u_xxx
+//   convection      r = u_t + v u_x
+//   Allen-Cahn      r = u_t - eps^2 u_xx - u + u^3
+//   Black-Scholes   r = V_t - s rate V + s (sigma^2/2 S^2 V_SS + rate S V_S),
+//                   S = x, s = +1 (calendar time) or -1 (time to maturity),
+// plain (loss = mean_i r_i^2) or causally weighted (loss = sum_i w_i r_i^2 /
+// sum_i w_i with w_i = exp(-eps sum_{j<i} r_j^2 / N) over the time-sorted
+// batch; the weights carry no gradient).
 //
 // Replaces the whole of the Pallas kernel pinnrl_tpu/ops/kernels/fused_step.py:277
 // (make_fused_residual_loss: _run / _tile_loss, behind the custom-VJP
-// fused_loss) for Burgers, heat and KdV, causal or not. The TPU program keeps one
+// fused_loss) in one space dimension: every residual above, spatial order 1
+// (convection), 2 or 3 (KdV), causal or not, on either trunk; two space
+// dimensions and the moving frame are not ported yet. The TPU program keeps one
 // batch tile's whole forward and backward live set in VMEM, takes the
 // backward from jax.vjp inside the kernel, and carries the causal prefix
 // from one grid step to the next because its grid runs in order on one
@@ -20,8 +27,13 @@
 //
 //   embed_kernel<K>       z -> affine map -> [sin, cos] and the closed-form
 //                         phase-rotation streams, written as the stacked
-//                         ((2+K)N, 2m) input [value; x1..xK; t1], K = 2
-//                         (Burgers, heat) or 3 (KdV).
+//                         ((2+K)N, 2m) input [value; x1..xK; t1], K = 1
+//                         (convection), 2 (Burgers, heat, Allen-Cahn,
+//                         Black-Scholes) or 3 (KdV).
+//   affine_input_kernel   the feedforward trunk's ((2+K)N, 2) input: the
+//                         affine map and its constant direction rows; the
+//                         first GEMM then has two input columns (the core's
+//                         guarded scalar path).
 //   gemm_sm90_kernel<..>  the FP32 GEMM core of sgemm_sm90.cuh (shared with
 //                         siren.cu and mlp_score.cu): 128x128 tiles, 8x8 per thread, a 3-slice
 //                         cp.async / register ring, FMA on the CUDA cores, no
@@ -35,14 +47,17 @@
 //                         one warp per row, dX = dU w an outer product, dW =
 //                         dU^T X a weighted deterministic column sum.
 //   transport_fwd_kernel<K>  one warp per point: LayerNorm + tanh Taylor
-//                         transport of the 2+K streams (ops/jet_mlp.py).
+//                         transport of the 2+K streams (ops/jet_mlp.py);
+//                         every term of stream 2 sits behind KX >= 2.
 //   transport_bwd_kernel<K>  its hand-derived reverse pass (the formulas are
 //                         in fused_step.py: _transport_bwd_plain). It
 //                         recomputes the forward quantities from the saved
 //                         pre-activation instead of storing them, and writes
 //                         per-point LayerNorm scale/bias gradient rows.
-//   burgers_kernel, heat_kernel, kdv_kernel  r and the stream cotangents: plain, r^2 and
-//                         2r/N dr/dU; causal, r and the unscaled dr/dU.
+//   burgers_kernel, heat_kernel, kdv_kernel, convection_kernel,
+//   allen_cahn_kernel, black_scholes_kernel  r and the stream cotangents:
+//                         plain, r^2 and 2r/N dr/dU; causal, r and the
+//                         unscaled dr/dU. black_scholes_kernel reads z (S).
 //   causal scan           three deterministic passes over the sorted r^2:
 //                         per-block sums, one block's exclusive scan of the
 //                         block sums, then each block's local exclusive scan
@@ -55,9 +70,10 @@
 //                         also give sum w and sum w r^2.
 //
 // What bounds it on an H100: at batch 8192 and width 256 each hidden layer's
-// three products are S*8192 x 256 x 256 FMAs, S = 4 (Burgers, heat) or 5
-// (KdV); these FP32 CUDA-core GEMMs are bound by operations (67 TFLOP/s FP32
-// peak) and take most of the device time. The GEMM core feeds the FFMA pipes
+// three products are S*8192 x 256 x 256 FMAs, S = 3 (convection), 4 (Burgers,
+// heat, Allen-Cahn, Black-Scholes) or 5 (KdV); these FP32 CUDA-core GEMMs are
+// bound by operations (67 TFLOP/s FP32 peak) and take most of the device
+// time. The GEMM core feeds the FFMA pipes
 // with float4 shared loads (4 per 64 FFMAs) and overlaps the next slices'
 // loads with the arithmetic (sgemm_sm90.cuh). The output layer's products
 // (one column) are bound by bytes, so they skip the tile and stream their
@@ -170,6 +186,29 @@ __global__ void embed_kernel(const float* __restrict__ z, const float* __restric
     rt[m + j] = -sn * p1t;
 }
 
+// Feedforward trunk: the stacked ((2+KX)n, 2) input [w0; sc_x e_x; 0 x (KX-1);
+// sc_t e_t] of the first Dense layer, w0 = (z - lo) sc - 1 (the input map is
+// affine, so each direction is a constant row). One thread per point.
+__global__ void affine_input_kernel(const float* __restrict__ z, const float* __restrict__ lo,
+                                    const float* __restrict__ sc, float* __restrict__ X, int n,
+                                    int kx) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float s0 = sc[0], s1 = sc[1];
+    const long long stride = 2LL * n;
+    float* r = X + 2LL * i;
+    r[0] = (z[2LL * i] - lo[0]) * s0 - 1.0f;
+    r[1] = (z[2LL * i + 1] - lo[1]) * s1 - 1.0f;
+    r[stride] = s0;
+    r[stride + 1] = 0.0f;
+    for (int k = 2; k <= kx; ++k) {
+        r[k * stride] = 0.0f;
+        r[k * stride + 1] = 0.0f;
+    }
+    r[(kx + 1) * stride] = 0.0f;
+    r[(kx + 1) * stride + 1] = s1;
+}
+
 // ------------------------------------------------------------ transport --
 // Streams of one point: index 0 the value, 1..KX the x-group, KX+1 = T the
 // first t-derivative. h points at the value row; stream s is h[s * stride].
@@ -181,8 +220,8 @@ struct RowStats {
     float mu[KX + 2];
     float r;   // 1 / sqrt(var0 + eps)
     float S1;  // s1 of the x-group = mean(c0 c1) r
-    float V2;  // mean(c1^2 + c0 c2)
-    float S2;  // (V2 - S1^2) r
+    float V2;  // mean(c1^2 + c0 c2)            (KX >= 2)
+    float S2;  // (V2 - S1^2) r                 (KX >= 2)
     float V3;  // mean(3 c1 c2 + c0 c3)        (KX = 3)
     float S3;  // (V3 - 3 S1 S2) r              (KX = 3)
     float St;  // s1 of the t-group = mean(c0 ct) r
@@ -205,21 +244,28 @@ __device__ RowStats<KX> row_stats(const float* h, long long stride, int W, int l
     float v0 = 0.f, v01 = 0.f, v2 = 0.f, v3 = 0.f, v0t = 0.f;
     for (int j = lane; j < W; j += 32) {
         const float c0 = h[j] - st.mu[0], c1 = h[stride + j] - st.mu[1];
-        const float c2 = h[2 * stride + j] - st.mu[2], ct = h[T * stride + j] - st.mu[T];
+        const float ct = h[T * stride + j] - st.mu[T];
         v0 += c0 * c0;
         v01 += c0 * c1;
-        v2 += c1 * c1 + c0 * c2;
         v0t += c0 * ct;
-        if constexpr (KX >= 3) {
-            const float c3 = h[3 * stride + j] - st.mu[3];
-            v3 += 3.0f * c1 * c2 + c0 * c3;
+        if constexpr (KX >= 2) {
+            const float c2 = h[2 * stride + j] - st.mu[2];
+            v2 += c1 * c1 + c0 * c2;
+            if constexpr (KX >= 3) {
+                const float c3 = h[3 * stride + j] - st.mu[3];
+                v3 += 3.0f * c1 * c2 + c0 * c3;
+            }
         }
     }
     const float var0 = warp_sum(v0) / fw;
     st.r = 1.0f / sqrtf(var0 + LN_EPS);
     st.S1 = (warp_sum(v01) / fw) * st.r;
-    st.V2 = warp_sum(v2) / fw;
-    st.S2 = (st.V2 - st.S1 * st.S1) * st.r;
+    st.V2 = 0.f;
+    st.S2 = 0.f;
+    if constexpr (KX >= 2) {
+        st.V2 = warp_sum(v2) / fw;
+        st.S2 = (st.V2 - st.S1 * st.S1) * st.r;
+    }
     st.St = (warp_sum(v0t) / fw) * st.r;
     st.V3 = 0.f;
     st.S3 = 0.f;
@@ -255,7 +301,7 @@ __device__ __forceinline__ Elem<KX> elem_ln(const RowStats<KX>& st, const float*
     for (int s = 0; s <= T; ++s) e.c[s] = hv[s] - st.mu[s];
     e.q[0] = e.c[0] * st.r;
     e.q[1] = (e.c[1] - e.q[0] * st.S1) * st.r;
-    e.q[2] = (e.c[2] - 2.0f * e.q[1] * st.S1 - e.q[0] * st.S2) * st.r;
+    if constexpr (KX >= 2) e.q[2] = (e.c[2] - 2.0f * e.q[1] * st.S1 - e.q[0] * st.S2) * st.r;
     if constexpr (KX >= 3)
         e.q[3] = (e.c[3] - 3.0f * e.q[2] * st.S1 - 3.0f * e.q[1] * st.S2 - e.q[0] * st.S3) * st.r;
     e.q[T] = (e.c[T] - e.q[0] * st.St) * st.r;
@@ -302,7 +348,7 @@ __global__ void transport_fwd_kernel(const float* __restrict__ H, const float* _
         const Elem<KX> e = use_ln ? elem_ln<KX>(st, hv, gamma[j], beta[j]) : elem_plain<KX>(hv);
         o[j] = e.a0;
         o[stride + j] = e.d1 * e.y[1];
-        o[2 * stride + j] = e.d1 * e.y[2] + e.d2 * e.y[1] * e.y[1];
+        if constexpr (KX >= 2) o[2 * stride + j] = e.d1 * e.y[2] + e.d2 * e.y[1] * e.y[1];
         if constexpr (KX >= 3)
             o[3 * stride + j] = e.d1 * e.y[3] + 3.0f * e.d2 * e.y[1] * e.y[2]
                               + e.d3 * e.y[1] * e.y[1] * e.y[1];
@@ -323,12 +369,19 @@ __device__ __forceinline__ ElemGrad<KX> elem_grad(const Elem<KX>& e, const RowSt
                                                   float g, const float* Go, int use_ln) {
     constexpr int T = KX + 1;
     ElemGrad<KX> r;
-    const float Gd1 = Go[1] * e.y[1] + Go[2] * e.y[2] + Go[T] * e.y[T];
-    const float Gd2 = Go[2] * e.y[1] * e.y[1];
-    r.Gy[1] = Go[1] * e.d1 + 2.0f * Go[2] * e.d2 * e.y[1];
-    r.Gy[2] = Go[2] * e.d1;
+    float Ga;
+    if constexpr (KX >= 2) {
+        const float Gd1 = Go[1] * e.y[1] + Go[2] * e.y[2] + Go[T] * e.y[T];
+        const float Gd2 = Go[2] * e.y[1] * e.y[1];
+        r.Gy[1] = Go[1] * e.d1 + 2.0f * Go[2] * e.d2 * e.y[1];
+        r.Gy[2] = Go[2] * e.d1;
+        Ga = Go[0] - 2.0f * e.a0 * Gd1 + Gd2 * (4.0f * e.a0 * e.a0 - 2.0f * e.d1);
+    } else {
+        const float Gd1 = Go[1] * e.y[1] + Go[T] * e.y[T];
+        r.Gy[1] = Go[1] * e.d1;
+        Ga = Go[0] - 2.0f * e.a0 * Gd1;
+    }
     r.Gy[T] = Go[T] * e.d1;
-    float Ga = Go[0] - 2.0f * e.a0 * Gd1 + Gd2 * (4.0f * e.a0 * e.a0 - 2.0f * e.d1);
     if constexpr (KX >= 3) {
         const float Go3 = Go[3];
         const float y1 = e.y[1], y2 = e.y[2], a0 = e.a0;
@@ -347,10 +400,13 @@ __device__ __forceinline__ ElemGrad<KX> elem_grad(const Elem<KX>& e, const RowSt
             r.Gq[1] = r.Gy[1] * g - 2.0f * r.Gq[2] * st.S1 * st.r - 3.0f * r.Gq[3] * st.S2 * st.r;
             r.Gq[0] = r.Gy[0] * g
                     - (r.Gq[T] * st.St + r.Gq[3] * st.S3 + r.Gq[2] * st.S2 + r.Gq[1] * st.S1) * st.r;
-        } else {
+        } else if constexpr (KX == 2) {
             r.Gq[2] = r.Gy[2] * g;
             r.Gq[1] = r.Gy[1] * g - 2.0f * r.Gq[2] * st.S1 * st.r;
             r.Gq[0] = r.Gy[0] * g - (r.Gq[T] * st.St + r.Gq[2] * st.S2 + r.Gq[1] * st.S1) * st.r;
+        } else {
+            r.Gq[1] = r.Gy[1] * g;
+            r.Gq[0] = r.Gy[0] * g - (r.Gq[T] * st.St + r.Gq[1] * st.S1) * st.r;
         }
     }
     return r;
@@ -367,12 +423,18 @@ __device__ __forceinline__ void centred_grads(const Elem<KX>& e, const ElemGrad<
                                               float inv_w, float* Gc) {
     constexpr int T = KX + 1;
     const float r = st.r;
-    Gc[1] = gr.Gq[1] * r + (2.0f * sc.GV2 * e.c[1] + sc.GS1 * r * e.c[0]) * inv_w;
-    Gc[2] = gr.Gq[2] * r + sc.GV2 * e.c[0] * inv_w;
     Gc[T] = gr.Gq[T] * r + sc.GSt * r * e.c[0] * inv_w;
-    Gc[0] = gr.Gq[0] * r
-          + (sc.GSt * r * e.c[T] + sc.GV2 * e.c[2] + sc.GS1 * r * e.c[1] + 2.0f * sc.Gvar0 * e.c[0])
-                * inv_w;
+    if constexpr (KX >= 2) {
+        Gc[1] = gr.Gq[1] * r + (2.0f * sc.GV2 * e.c[1] + sc.GS1 * r * e.c[0]) * inv_w;
+        Gc[2] = gr.Gq[2] * r + sc.GV2 * e.c[0] * inv_w;
+        Gc[0] = gr.Gq[0] * r
+              + (sc.GSt * r * e.c[T] + sc.GV2 * e.c[2] + sc.GS1 * r * e.c[1]
+                 + 2.0f * sc.Gvar0 * e.c[0]) * inv_w;
+    } else {
+        Gc[1] = gr.Gq[1] * r + sc.GS1 * r * e.c[0] * inv_w;
+        Gc[0] = gr.Gq[0] * r
+              + (sc.GSt * r * e.c[T] + sc.GS1 * r * e.c[1] + 2.0f * sc.Gvar0 * e.c[0]) * inv_w;
+    }
     if constexpr (KX >= 3) {
         Gc[0] = Gc[0] + sc.GV3 * e.c[3] * inv_w;
         Gc[1] = Gc[1] + 3.0f * sc.GV3 * e.c[2] * inv_w;
@@ -424,7 +486,9 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
         const Elem<KX> e = elem_ln<KX>(st, hv, g, beta[j]);
         const ElemGrad<KX> gr = elem_grad<KX>(e, st, g, Go, 1);
         Rt0 += gr.Gq[T] * e.q[0]; Rtt += gr.Gq[T] * e.q[T];
-        R21 += gr.Gq[2] * e.q[1]; R20 += gr.Gq[2] * e.q[0]; R22 += gr.Gq[2] * e.q[2];
+        if constexpr (KX >= 2) {
+            R21 += gr.Gq[2] * e.q[1]; R20 += gr.Gq[2] * e.q[0]; R22 += gr.Gq[2] * e.q[2];
+        }
         R10 += gr.Gq[1] * e.q[0]; R11 += gr.Gq[1] * e.q[1];
         R00 += gr.Gq[0] * e.q[0];
         if constexpr (KX >= 3) {
@@ -437,14 +501,20 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
         Ggamma[base + j] = gg;
         Gbeta[base + j] = gr.Gy[0];
     }
-    Rt0 = warp_sum(Rt0); Rtt = warp_sum(Rtt); R21 = warp_sum(R21); R20 = warp_sum(R20);
-    R22 = warp_sum(R22); R10 = warp_sum(R10); R11 = warp_sum(R11); R00 = warp_sum(R00);
+    Rt0 = warp_sum(Rt0); Rtt = warp_sum(Rtt);
+    R10 = warp_sum(R10); R11 = warp_sum(R11); R00 = warp_sum(R00);
     RowScalars sc;
     const float r = st.r;
     sc.GSt = -Rt0 * r;
-    sc.GS2 = -R20 * r;
-    sc.GS1 = -2.0f * R21 * r - R10 * r;
-    float Rdiag = Rtt + R22 + R11 + R00;
+    sc.GS2 = 0.f;
+    sc.GS1 = -R10 * r;
+    float Rdiag = Rtt + R11 + R00;
+    if constexpr (KX >= 2) {
+        R21 = warp_sum(R21); R20 = warp_sum(R20); R22 = warp_sum(R22);
+        sc.GS2 = -R20 * r;
+        sc.GS1 = -2.0f * R21 * r - R10 * r;
+        Rdiag = Rtt + R22 + R11 + R00;
+    }
     sc.GS3 = 0.f;
     sc.GV3 = 0.f;
     if constexpr (KX >= 3) {
@@ -456,8 +526,13 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
         Rdiag = Rdiag + R33 + sc.GS3 * st.S3;
     }
     sc.GV2 = sc.GS2 * r;
-    sc.GS1 = sc.GS1 - 2.0f * st.S1 * r * sc.GS2;
-    const float Gr = (Rdiag + sc.GSt * st.St + sc.GS2 * st.S2 + sc.GS1 * st.S1) / r;
+    float Gr;
+    if constexpr (KX >= 2) {
+        sc.GS1 = sc.GS1 - 2.0f * st.S1 * r * sc.GS2;
+        Gr = (Rdiag + sc.GSt * st.St + sc.GS2 * st.S2 + sc.GS1 * st.S1) / r;
+    } else {
+        Gr = (Rdiag + sc.GSt * st.St + sc.GS1 * st.S1) / r;
+    }
     sc.Gvar0 = -0.5f * r * r * r * Gr;
     const float inv_w = 1.0f / (float)W;
 
@@ -550,6 +625,58 @@ __global__ void kdv_kernel(const float* __restrict__ U, float* __restrict__ dU,
     dU[2 * n + i] = 0.0f;
     dU[3 * n + i] = c;
     dU[4 * n + i] = c;
+}
+
+// Convection: r = u_t + v u_x over U = [u; u_x; u_t] (dr/dU = [0, v, 1]).
+__global__ void convection_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                                  float* __restrict__ out, int n, float v, float two_over_n,
+                                  int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float ux = U[n + i], ut = U[2 * n + i];
+    const float r = ut + v * ux;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = 0.0f;
+    dU[n + i] = c * v;
+    dU[2 * n + i] = c;
+}
+
+// Allen-Cahn: r = u_t - eps^2 u_xx - u + u^3 (dr/dU = [3u^2 - 1, 0, -eps^2, 1]).
+__global__ void allen_cahn_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                                  float* __restrict__ out, int n, float eps2, float two_over_n,
+                                  int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float u = U[i], uxx = U[2 * n + i], ut = U[3 * n + i];
+    const float r = ((ut - eps2 * uxx) - u) + u * u * u;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = c * (3.0f * u * u - 1.0f);
+    dU[n + i] = 0.0f;
+    dU[2 * n + i] = -c * eps2;
+    dU[3 * n + i] = c;
+}
+
+// Black-Scholes with time sign s (+1 calendar, -1 to maturity) and S = z[i, 0]:
+// r = V_t - s rate V + s (h S^2 V_SS + rate S V_S), h = sigma^2 / 2
+// (dr/dU = [-s rate, s rate S, s h S^2, 1]). The one residual that reads z.
+__global__ void black_scholes_kernel(const float* __restrict__ U, const float* __restrict__ z,
+                                     float* __restrict__ dU, float* __restrict__ out, int n,
+                                     float sign, float half_sigma2, float rate, float two_over_n,
+                                     int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float V = U[i], VS = U[n + i], VSS = U[2 * n + i], Vt = U[3 * n + i];
+    const float S = z[2LL * i];
+    const float cSS = half_sigma2 * (S * S), cS = rate * S;
+    const float r = (Vt - (sign * rate) * V) + sign * (cSS * VSS + cS * VS);
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = -c * (sign * rate);
+    dU[n + i] = c * (sign * cS);
+    dU[2 * n + i] = c * (sign * cSS);
+    dU[3 * n + i] = c;
 }
 
 // ---------------------------------------------------------- causal scan --
@@ -694,19 +821,34 @@ inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) /
 
 // ------------------------------------------------------- C entry points --
 // Each launches on the given stream and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an x-order other than 2 or 3).
+// cudaErrorInvalidValue for an x-order other than 1, 2 or 3).
+
+inline bool kx_ok(int kx) { return kx >= 1 && kx <= 3; }
 
 extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const float* B,
                         float* X, int n, int m, int two_pi, int kx, void* stream) {
     const float s = two_pi ? 6.283185307179586f : 1.0f;
     const long long total = (long long)n * m;
-    if (kx != 2 && kx != 3) return (int)cudaErrorInvalidValue;
+    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
     if (total > 0) {
+        const unsigned grid = cdiv(total, 256);
+        cudaStream_t st = (cudaStream_t)stream;
         if (kx == 3)
-            embed_kernel<3><<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m, s);
+            embed_kernel<3><<<grid, 256, 0, st>>>(z, lo, sc, B, X, n, m, s);
+        else if (kx == 2)
+            embed_kernel<2><<<grid, 256, 0, st>>>(z, lo, sc, B, X, n, m, s);
         else
-            embed_kernel<2><<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m, s);
+            embed_kernel<1><<<grid, 256, 0, st>>>(z, lo, sc, B, X, n, m, s);
     }
+    return (int)cudaGetLastError();
+}
+
+// X ((2+kx)n, 2): the feedforward trunk's stacked input.
+extern "C" int fr_affine_input(const float* z, const float* lo, const float* sc, float* X, int n,
+                               int kx, void* stream) {
+    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
+    if (n > 0)
+        affine_input_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx);
     return (int)cudaGetLastError();
 }
 
@@ -745,12 +887,15 @@ extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K
 
 extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float* beta, float* A,
                                 int n, int W, int use_ln, int kx, void* stream) {
-    if (kx != 2 && kx != 3) return (int)cudaErrorInvalidValue;
+    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
     if (n > 0) {
+        cudaStream_t st = (cudaStream_t)stream;
         if (kx == 3)
-            transport_fwd_kernel<3><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln);
+            transport_fwd_kernel<3><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, A, n, W, use_ln);
+        else if (kx == 2)
+            transport_fwd_kernel<2><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, A, n, W, use_ln);
         else
-            transport_fwd_kernel<2><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln);
+            transport_fwd_kernel<1><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, A, n, W, use_ln);
     }
     return (int)cudaGetLastError();
 }
@@ -758,14 +903,18 @@ extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float*
 extern "C" int fr_transport_bwd(const float* H, const float* gamma, const float* beta,
                                 const float* GA, float* GH, float* Ggamma, float* Gbeta, int n,
                                 int W, int use_ln, int kx, void* stream) {
-    if (kx != 2 && kx != 3) return (int)cudaErrorInvalidValue;
+    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
     if (n > 0) {
+        cudaStream_t st = (cudaStream_t)stream;
         if (kx == 3)
-            transport_bwd_kernel<3><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(
-                H, gamma, beta, GA, GH, Ggamma, Gbeta, n, W, use_ln);
+            transport_bwd_kernel<3><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, GA, GH, Ggamma,
+                                                                Gbeta, n, W, use_ln);
+        else if (kx == 2)
+            transport_bwd_kernel<2><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, GA, GH, Ggamma,
+                                                                Gbeta, n, W, use_ln);
         else
-            transport_bwd_kernel<2><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(
-                H, gamma, beta, GA, GH, Ggamma, Gbeta, n, W, use_ln);
+            transport_bwd_kernel<1><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, GA, GH, Ggamma,
+                                                                Gbeta, n, W, use_ln);
     }
     return (int)cudaGetLastError();
 }
@@ -790,6 +939,32 @@ extern "C" int fr_kdv(const float* U, float* dU, float* out, int n, int causal, 
     if (n > 0)
         kdv_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, 2.0f / (float)n,
                                                                    causal);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fr_convection(const float* U, float* dU, float* out, int n, float v, int causal,
+                             void* stream) {
+    if (n > 0)
+        convection_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, v,
+                                                                          2.0f / (float)n, causal);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fr_allen_cahn(const float* U, float* dU, float* out, int n, float eps2, int causal,
+                             void* stream) {
+    if (n > 0)
+        allen_cahn_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, eps2,
+                                                                          2.0f / (float)n, causal);
+    return (int)cudaGetLastError();
+}
+
+// z: the (n, 2) points, S = z[i, 0].
+extern "C" int fr_black_scholes(const float* U, const float* z, float* dU, float* out, int n,
+                                float sign, float half_sigma2, float rate, int causal,
+                                void* stream) {
+    if (n > 0)
+        black_scholes_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            U, z, dU, out, n, sign, half_sigma2, rate, 2.0f / (float)n, causal);
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-"""Fused residual loss: the (causally weighted) mean r^2 of the Burgers,
-KdV or heat residual AND its parameter gradient, computed by hand-written CUDA
-kernels (``csrc/fused_residual.cu``).
+"""Fused residual loss: the (causally weighted) mean r^2 of a PDE's residual
+AND its parameter gradient, computed by hand-written CUDA kernels
+(``csrc/fused_residual.cu``).
 
 ``make_fused_residual_loss(model, pde)`` returns ``fn(params, z)``, which
 ``PDEBase.compute_loss`` calls for the residual term. On a CUDA tensor it
@@ -25,9 +25,14 @@ the scan's block arithmetic and all the layout and stride bookkeeping against
 autograd — and the chip smoke test compares the CUDA set with the plain
 version on the card.
 
-Scope: one space dimension, spatial order 2 (Burgers and heat, 4 stacked
-streams) or 3 (KdV, 5 streams), temporal order 1, causal or not, float32.
-The other PDEs' residuals wait for their PDEs (ROADMAP item 11).
+Scope: one space dimension, temporal order 1, causal or not, float32, on a
+Fourier trunk (the embedding's closed-form phase-rotation streams) or a
+feedforward trunk (the input map's constant direction rows, then a first
+GEMM with two input columns), with the residual of Burgers, heat or
+Allen-Cahn (spatial order 2, 4 stacked streams), Black-Scholes (order 2;
+the one residual that reads z, for S), KdV (order 3, 5 streams) or
+convection (order 1, 3 streams). Two space dimensions and the moving frame
+are ROADMAP queue 2's K1b and K1d'.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from pinnrl_tpu_torch.ops.kernels._gemm_core import TARGET_BLOCKS, TILE, cdiv, s
 _LN_EPS = 1e-6
 _COLSUM_ROWS = 256
 _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
-_RESIDUALS = ("burgers", "heat", "kdv")
+_RESIDUALS = ("burgers", "heat", "kdv", "convection", "allen_cahn", "black_scholes")
 _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 
 
@@ -73,6 +78,17 @@ def _embed_plain(z, lo, sc, B, two_pi: bool, x_order: int) -> torch.Tensor:
     return torch.cat(rows, dim=0)
 
 
+def _affine_input_plain(z, lo, sc, x_order: int) -> torch.Tensor:
+    """Stacked ((2 + x_order) N, 2) input of the feedforward trunk's first
+    layer, [w0; sc_x e_x; 0 x (x_order - 1); sc_t e_t] with w0 = (z - lo) sc
+    - 1: the plain bundle's direction rows (jet_mlp.make_bundle_fn)."""
+    n = z.shape[0]
+    w0 = (z - lo) * sc - 1.0
+    dirs = torch.diag(sc)  # row k: sc_k e_k
+    rows = [w0, dirs[0].expand(n, 2), w0.new_zeros(((x_order - 1) * n, 2)), dirs[1].expand(n, 2)]
+    return torch.cat(rows, dim=0)
+
+
 def _transport_fwd_plain(H, gamma, beta, n: int) -> torch.Tensor:
     """LayerNorm + tanh transport of the stacked (S n, W) pre-activations,
     S = 2 + K streams [value; x1..xK; t1]."""
@@ -82,7 +98,7 @@ def _transport_fwd_plain(H, gamma, beta, n: int) -> torch.Tensor:
 
 
 def _transport_bwd_plain(H, gamma, beta, GA, n: int):
-    """Hand-derived reverse pass of ``_transport_fwd_plain``, x-order K in {2, 3}.
+    """Hand-derived reverse pass of ``_transport_fwd_plain``, x-order K in {1, 2, 3}.
 
     Forward, per point (row means over the width W; r = 1/sqrt(var0+eps)):
         c_k = h_k - mean(h_k)                      k in {0, 1, .., K, t}
@@ -118,7 +134,10 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int):
         G_c2 = G_q2 r + (G_V2 c0 + 3 G_V3 c1) / W ;  G_c3 = G_q3 r + G_V3 c0 / W
         G_ct = G_qt r + G_St r c0 / W
     and G_h = G_c - mean(G_c), because centring is self-adjoint. Terms
-    marked K = 3 (q3, S3, V3, G_o3, ...) are absent at K = 2. The CUDA
+    marked K = 3 (q3, S3, V3, G_o3, ...) are absent at K = 2, and every
+    term of stream 2 (q2, S2, V2, d2, G_o2, R2j, ...) is absent at K = 1
+    (convection: G_d1 = G_o1 y1 + G_ot yt, G_y1 = G_o1 d1, G_a0 += -2 a0 G_d1,
+    G_S1 = -R10 r, G_c1 = G_q1 r + G_S1 r c0 / W). The CUDA
     transport_bwd_kernel<K> evaluates exactly these formulas.
 
     Returns (GH, Ggamma_rows, Gbeta_rows): per-point rows of the LayerNorm
@@ -142,17 +161,18 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int):
         cx = [h - mean(h) for h in hx]
         r = 1.0 / torch.sqrt(mean(c0 * c0) + _LN_EPS)
         S1 = mean(c0 * cx[0]) * r
-        V2 = mean(cx[0] * cx[0] + c0 * cx[1])
-        S2 = (V2 - S1 * S1) * r
         St = mean(c0 * ct) * r
         q0 = c0 * r
         q1 = (cx[0] - q0 * S1) * r
-        q2 = (cx[1] - 2.0 * q1 * S1 - q0 * S2) * r
-        qx = [q1, q2]
+        qx = [q1]
+        if K >= 2:
+            V2 = mean(cx[0] * cx[0] + c0 * cx[1])
+            S2 = (V2 - S1 * S1) * r
+            qx.append((cx[1] - 2.0 * q1 * S1 - q0 * S2) * r)
         if K == 3:
             V3 = mean(3.0 * cx[0] * cx[1] + c0 * cx[2])
             S3 = (V3 - 3.0 * S1 * S2) * r
-            qx.append((cx[2] - 3.0 * q2 * S1 - 3.0 * q1 * S2 - q0 * S3) * r)
+            qx.append((cx[2] - 3.0 * qx[1] * S1 - 3.0 * q1 * S2 - q0 * S3) * r)
         qt = (ct - q0 * St) * r
         y0, yx, yt = q0 * gamma + beta, [q * gamma for q in qx], qt * gamma
     else:
@@ -160,22 +180,25 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int):
     a0 = torch.tanh(y0)
     d1 = 1.0 - a0 * a0
     d2 = -2.0 * a0 * d1
-    y1, y2 = yx[0], yx[1]
-    Go1, Go2 = Gox[0], Gox[1]
-
-    Gd1 = Go1 * y1 + Go2 * y2 + Got * yt
-    Gd2 = Go2 * y1 * y1
-    Gy1 = Go1 * d1 + 2.0 * Go2 * d2 * y1
-    Gy2 = Go2 * d1
+    y1, Go1 = yx[0], Gox[0]
     Gyt = Got * d1
-    Ga = Ga0 - 2.0 * a0 * Gd1 + Gd2 * (4.0 * a0 * a0 - 2.0 * d1)
-    Gyx = [Gy1, Gy2]
+    if K == 1:
+        Gd1 = Go1 * y1 + Got * yt
+        Ga = Ga0 - 2.0 * a0 * Gd1
+        Gyx = [Go1 * d1]
+    else:
+        y2, Go2 = yx[1], Gox[1]
+        Gd1 = Go1 * y1 + Go2 * y2 + Got * yt
+        Gd2 = Go2 * y1 * y1
+        Ga = Ga0 - 2.0 * a0 * Gd1 + Gd2 * (4.0 * a0 * a0 - 2.0 * d1)
+        Gyx = [Go1 * d1 + 2.0 * Go2 * d2 * y1, Go2 * d1]
     if K == 3:
         y3, Go3 = yx[2], Gox[2]
         d3 = -2.0 * d1 * (1.0 - 3.0 * a0 * a0)
         Ga = Ga + Go3 * (-2.0 * a0 * y3 + 3.0 * y1 * y2 * (4.0 * a0 * a0 - 2.0 * d1)
                          + y1 * y1 * y1 * (4.0 * a0 * (1.0 - 3.0 * a0 * a0) + 12.0 * a0 * d1))
-        Gyx = [Gy1 + Go3 * (3.0 * d2 * y2 + 3.0 * d3 * y1 * y1), Gy2 + 3.0 * Go3 * d2 * y1, Go3 * d1]
+        Gyx = [Gyx[0] + Go3 * (3.0 * d2 * y2 + 3.0 * d3 * y1 * y1), Gyx[1] + 3.0 * Go3 * d2 * y1,
+               Go3 * d1]
     Gy0 = Ga * d1
     if gamma is None:
         return torch.cat([Gy0, *Gyx, Gyt], dim=0), None, None
@@ -186,15 +209,22 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int):
         Gq2 = Gyx[1] * gamma - 3.0 * Gq3 * S1 * r
         Gq1 = Gyx[0] * gamma - 2.0 * Gq2 * S1 * r - 3.0 * Gq3 * S2 * r
         Gq0 = Gy0 * gamma - (Gqt * St + Gq3 * S3 + Gq2 * S2 + Gq1 * S1) * r
-    else:
+    elif K == 2:
         Gq2 = Gyx[1] * gamma
         Gq1 = Gyx[0] * gamma - 2.0 * Gq2 * S1 * r
         Gq0 = Gy0 * gamma - (Gqt * St + Gq2 * S2 + Gq1 * S1) * r
+    else:
+        Gq1 = Gyx[0] * gamma
+        Gq0 = Gy0 * gamma - (Gqt * St + Gq1 * S1) * r
 
     GSt = -rsum(Gqt * q0) * r
-    GS2 = -rsum(Gq2 * q0) * r
-    GS1 = -2.0 * rsum(Gq2 * q1) * r - rsum(Gq1 * q0) * r
-    Rdiag = rsum(Gqt * qt) + rsum(Gq2 * q2) + rsum(Gq1 * q1) + rsum(Gq0 * q0)
+    GS1 = -rsum(Gq1 * q0) * r
+    Rdiag = rsum(Gqt * qt) + rsum(Gq1 * q1) + rsum(Gq0 * q0)
+    if K >= 2:
+        q2 = qx[1]
+        GS2 = -rsum(Gq2 * q0) * r
+        GS1 = GS1 - 2.0 * rsum(Gq2 * q1) * r
+        Rdiag = Rdiag + rsum(Gq2 * q2)
     if K == 3:
         q3 = qx[2]
         GS3 = -rsum(Gq3 * q0) * r
@@ -202,19 +232,24 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int):
         GS1 = GS1 - 3.0 * rsum(Gq3 * q2) * r - 3.0 * S2 * r * GS3
         GV3 = GS3 * r
         Rdiag = Rdiag + rsum(Gq3 * q3) + GS3 * S3
-    GV2 = GS2 * r
-    GS1 = GS1 - 2.0 * S1 * r * GS2
-    Gr = (Rdiag + GSt * St + GS2 * S2 + GS1 * S1) / r
+    Gr_num = Rdiag + GSt * St
+    if K >= 2:
+        GV2 = GS2 * r
+        GS1 = GS1 - 2.0 * S1 * r * GS2
+        Gr_num = Gr_num + GS2 * S2
+    Gr = (Gr_num + GS1 * S1) / r
     Gvar0 = -0.5 * r * r * r * Gr
     inv_w = 1.0 / W
-    Gc1 = Gq1 * r + (2.0 * GV2 * cx[0] + GS1 * r * c0) * inv_w
-    Gc2 = Gq2 * r + GV2 * c0 * inv_w
     Gct = Gqt * r + GSt * r * c0 * inv_w
-    Gc0 = Gq0 * r + (GSt * r * ct + GV2 * cx[1] + GS1 * r * cx[0] + 2.0 * Gvar0 * c0) * inv_w
-    Gcx = [Gc1, Gc2]
+    Gc1 = Gq1 * r + GS1 * r * c0 * inv_w
+    Gc0 = Gq0 * r + (GSt * r * ct + GS1 * r * cx[0] + 2.0 * Gvar0 * c0) * inv_w
+    Gcx = [Gc1]
+    if K >= 2:
+        Gc0 = Gc0 + GV2 * cx[1] * inv_w
+        Gcx = [Gc1 + 2.0 * GV2 * cx[0] * inv_w, Gq2 * r + GV2 * c0 * inv_w]
     if K == 3:
         Gc0 = Gc0 + GV3 * cx[2] * inv_w
-        Gcx = [Gc1 + 3.0 * GV3 * cx[1] * inv_w, Gc2 + 3.0 * GV3 * cx[0] * inv_w,
+        Gcx = [Gcx[0] + 3.0 * GV3 * cx[1] * inv_w, Gcx[1] + 3.0 * GV3 * cx[0] * inv_w,
                Gq3 * r + GV3 * c0 * inv_w]
     GH = torch.cat([Gc0 - mean(Gc0), *[g - mean(g) for g in Gcx], Gct - mean(Gct)], dim=0)
     Ggamma = Gy0 * q0 + Gyt * qt
@@ -243,6 +278,9 @@ class _TorchOps:
 
     def embed(self, z, lo, sc, B, two_pi, x_order):
         return _embed_plain(z, lo, sc, B, two_pi, x_order)
+
+    def affine_input(self, z, lo, sc, x_order):
+        return _affine_input_plain(z, lo, sc, x_order)
 
     def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
         _gemm_core.gemm_plain(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
@@ -278,6 +316,29 @@ class _TorchOps:
         dU = torch.stack([c * (6.0 * ux), c * (6.0 * u), torch.zeros_like(c), c, c]).reshape(-1, 1)
         return dU, (r if causal else r * r).reshape(n, 1)
 
+    def convection(self, U, n, v, causal):
+        _u, ux, ut = U.reshape(3, n)
+        r = ut + v * ux
+        c = torch.ones_like(r) if causal else (2.0 / n) * r
+        dU = torch.stack([torch.zeros_like(c), c * v, c]).reshape(-1, 1)
+        return dU, (r if causal else r * r).reshape(n, 1)
+
+    def allen_cahn(self, U, n, eps2, causal):
+        u, _ux, uxx, ut = U.reshape(4, n)
+        r = ((ut - eps2 * uxx) - u) + u * u * u
+        c = torch.ones_like(r) if causal else (2.0 / n) * r
+        dU = torch.stack([c * (3.0 * u * u - 1.0), torch.zeros_like(c), -c * eps2, c])
+        return dU.reshape(-1, 1), (r if causal else r * r).reshape(n, 1)
+
+    def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal):
+        V, VS, VSS, Vt = U.reshape(4, n)
+        S = z[:, 0]
+        cSS, cS = half_sigma2 * (S * S), rate * S
+        r = (Vt - (sign * rate) * V) + sign * (cSS * VSS + cS * VS)
+        c = torch.ones_like(r) if causal else (2.0 / n) * r
+        dU = torch.stack([-c * (sign * rate), c * (sign * cS), c * (sign * cSS), c])
+        return dU.reshape(-1, 1), (r if causal else r * r).reshape(n, 1)
+
     def causal_weights(self, r, n, eps):
         r2 = (r * r).reshape(-1)
         w = torch.exp(-eps * _exclusive_scan_plain(r2, _SCAN_BLOCK) / n)
@@ -308,6 +369,7 @@ class _CudaOps:
 
     _ARGTYPES = {
         "fr_embed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "fr_affine_input": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "fr_gemm": _gemm_core.GEMM_ARGTYPES,
         "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
@@ -316,6 +378,12 @@ class _CudaOps:
         "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                             ctypes.c_void_p],
         "fr_kdv": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "fr_convection": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                                  ctypes.c_void_p],
+        "fr_allen_cahn": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                                  ctypes.c_void_p],
+        "fr_black_scholes": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_void_p],
         "fr_causal_weights": [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_void_p],
         "fr_causal_scale": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
@@ -353,6 +421,14 @@ class _CudaOps:
         _build.check(self.lib.fr_embed(z.data_ptr(), lo.data_ptr(), sc.data_ptr(), B.data_ptr(),
                                        X.data_ptr(), n, m, int(two_pi), x_order, self.stream),
                      "embed_kernel")
+        return X
+
+    def affine_input(self, z, lo, sc, x_order):
+        n = z.shape[0]
+        X = self._empty((2 + x_order) * n, 2)
+        _build.check(self.lib.fr_affine_input(z.data_ptr(), lo.data_ptr(), sc.data_ptr(),
+                                              X.data_ptr(), n, x_order, self.stream),
+                     "affine_input_kernel")
         return X
 
     def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
@@ -399,6 +475,30 @@ class _CudaOps:
         out = self._empty(n, 1)
         _build.check(self.lib.fr_kdv(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, int(causal),
                                      self.stream), "kdv_kernel")
+        return dU, out
+
+    def convection(self, U, n, v, causal):
+        dU = torch.empty_like(U)
+        out = self._empty(n, 1)
+        _build.check(self.lib.fr_convection(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
+                                            float(v), int(causal), self.stream), "convection_kernel")
+        return dU, out
+
+    def allen_cahn(self, U, n, eps2, causal):
+        dU = torch.empty_like(U)
+        out = self._empty(n, 1)
+        _build.check(self.lib.fr_allen_cahn(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
+                                            float(eps2), int(causal), self.stream),
+                     "allen_cahn_kernel")
+        return dU, out
+
+    def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal):
+        dU = torch.empty_like(U)
+        out = self._empty(n, 1)
+        _build.check(self.lib.fr_black_scholes(U.data_ptr(), z.data_ptr(), dU.data_ptr(),
+                                               out.data_ptr(), n, float(sign), float(half_sigma2),
+                                               float(rate), int(causal), self.stream),
+                     "black_scholes_kernel")
         return dU, out
 
     def causal_weights(self, r, n, eps):
@@ -525,13 +625,19 @@ class _Spec:
     periodic: bool
     x_order: int  # K: the stacked streams are [value; x1..xK; t1]
     residual: str  # one of _RESIDUALS
-    nu: float  # Burgers' viscosity (0 for the others)
-    alpha: float  # heat's diffusivity (0 for the others)
     causal_eps: float  # 0 = plain mean r^2
     lo: torch.Tensor
     scale: torch.Tensor
-    B: torch.Tensor
+    B: Optional[torch.Tensor]  # the Fourier basis; None: a feedforward trunk
     leaf_names: List[str]
+    # The residual's coefficients (0 where the PDE has none of them).
+    nu: float = 0.0  # Burgers' viscosity
+    alpha: float = 0.0  # heat's diffusivity
+    velocity: float = 0.0  # convection's v
+    epsilon: float = 0.0  # Allen-Cahn's interface width
+    sigma: float = 0.0  # Black-Scholes' volatility
+    rate: float = 0.0  # Black-Scholes' interest rate r
+    sign: float = 0.0  # Black-Scholes' time sign: +1 calendar, -1 to maturity
 
 
 def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor],
@@ -542,7 +648,10 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
     n = z.shape[0]
     L = spec.n_hidden
     causal = spec.causal_eps > 0.0
-    X = [ops.embed(z, spec.lo, spec.scale, spec.B, spec.periodic, spec.x_order)]
+    if spec.B is None:
+        X = [ops.affine_input(z, spec.lo, spec.scale, spec.x_order)]
+    else:
+        X = [ops.embed(z, spec.lo, spec.scale, spec.B, spec.periodic, spec.x_order)]
     Hs = []
     for i in range(L):
         H = _linear(ops, X[-1], P[f"Dense_{i}.weight"], P[f"Dense_{i}.bias"], n)
@@ -555,8 +664,14 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
         G, out = ops.burgers(U, n, spec.nu, causal)
     elif spec.residual == "heat":
         G, out = ops.heat(U, n, spec.alpha, causal)
-    else:
+    elif spec.residual == "kdv":
         G, out = ops.kdv(U, n, causal)
+    elif spec.residual == "convection":
+        G, out = ops.convection(U, n, spec.velocity, causal)
+    elif spec.residual == "allen_cahn":
+        G, out = ops.allen_cahn(U, n, spec.epsilon**2, causal)
+    else:
+        G, out = ops.black_scholes(U, z, n, spec.sign, 0.5 * spec.sigma**2, spec.rate, causal)
     if causal:
         # out is r, G the unscaled dr/dU: weights, then [sum w, sum w r^2].
         WR = ops.causal_weights(out, n, spec.causal_eps)
@@ -639,7 +754,8 @@ def fused_residual_loss(spec: _Spec, bundle_fn, pde, params, z) -> torch.Tensor:
     for name, t in zip(spec.leaf_names, leaves):
         _build.require_cuda_f32(f"fused_residual_loss {name}", t)
     for name, t in (("lo", spec.lo), ("scale", spec.scale), ("B", spec.B)):
-        _build.require_cuda_f32(f"fused_residual_loss {name}", t)
+        if t is not None:
+            _build.require_cuda_f32(f"fused_residual_loss {name}", t)
     if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
         return _FusedResidualFn.apply(spec, z, *leaves)
     return _launch(spec, z, leaves, need_grads=False)[0]
@@ -658,19 +774,32 @@ def _spec(model, pde) -> _Spec:
         if use_ln:
             names += [f"LayerNorm_{i}.weight", f"LayerNorm_{i}.bias"]
     names += [f"Dense_{n_hidden}.weight", f"Dense_{n_hidden}.bias"]
+    kind = pde.pde_type
+    coeffs = {}  # read once here, as floats: the kernels take them by value
+    if kind == "burgers":
+        coeffs["nu"] = float(pde._nu(None))
+    elif kind == "heat":
+        coeffs["alpha"] = float(pde._alpha(None))
+    elif kind == "convection":
+        coeffs["velocity"] = float(pde._velocity(None)[0])
+    elif kind == "allen_cahn":
+        coeffs["epsilon"] = float(pde._eps(None))
+    elif kind == "black_scholes":
+        coeffs.update(sigma=float(pde._sigma(None)), rate=float(pde._r(None)),
+                      sign=pde.time_sign())
     return _Spec(
         n_hidden=n_hidden,
         use_ln=use_ln,
         periodic=bool(cfg.arch_params.get("periodic", True)),
         x_order=max(pde.spatial_orders),
-        residual=pde.pde_type,
-        nu=float(pde._nu(None)) if pde.pde_type == "burgers" else 0.0,
-        alpha=float(pde._alpha(None)) if pde.pde_type == "heat" else 0.0,
+        residual=kind,
         causal_eps=pde.causal_eps(),
         lo=model._in_lo.contiguous(),
         scale=model._in_scale.contiguous(),
-        B=model.constants["FourierFeatures_0.B"].contiguous(),
+        B=(model.constants["FourierFeatures_0.B"].contiguous()
+           if cfg.architecture == "fourier" else None),
         leaf_names=names,
+        **coeffs,
     )
 
 
@@ -694,11 +823,14 @@ def make_fused_residual_loss(model, pde) -> Callable[[Dict[str, torch.Tensor], t
 
 
 def supports(model, pde, training=None) -> bool:
-    """The structural conditions of the stacked-jet bundle, the reductions
-    the kernel hard-codes (plain MSE, no trainable coefficients), and this
-    port's scope: the Burgers, KdV or heat residual on a Fourier trunk in one
-    space dimension, causal or not, no moving frame. No width gate: the
-    TPU's gate was a TPU measurement, and no H100 measurement has set one."""
+    """The reference's ``supports`` in one space dimension: the structural
+    conditions of the stacked-jet bundle (a Fourier or feedforward trunk),
+    the reductions the kernel hard-codes (plain MSE, no trainable
+    coefficients), temporal order 1 and spatial order at most 3, causal or
+    not; and this port's residuals (``_RESIDUALS``). Two exclusions stay: a
+    moving frame and more than one space dimension (two space dimensions are
+    ROADMAP queue 2's K1b). No width gate: the TPU's gate was a TPU
+    measurement, and no H100 measurement has set one."""
     from pinnrl_tpu_torch.ops import jet_mlp
 
     if not (pde.bundle_compatible and pde.system_size == 1 and jet_mlp.supports(model, pde)):
@@ -709,7 +841,7 @@ def supports(model, pde, training=None) -> bool:
         return False
     if pde.pde_type not in _RESIDUALS or pde.dimension != 1:
         return False
-    if model.config.architecture != "fourier" or model._frame_speed is not None:
+    if model.config.architecture not in ("fourier", "feedforward") or model._frame_speed is not None:
         return False
     if max(pde.spatial_orders, default=0) > 3 or max(pde.temporal_orders, default=0) != 1:
         return False

@@ -1,9 +1,13 @@
-"""PDE problem layer. Burgers, KdV and heat (one space dimension) are
-ported; the other PDEs and heat_2d are ROADMAP item 11."""
+"""PDE problem layer. Burgers, KdV, heat (one space dimension), convection,
+Allen-Cahn (with its spectral dynamics target) and Black-Scholes are
+ported; wave, pendulum, Cahn-Hilliard and heat_2d are ROADMAP item 11."""
 
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, PDEBase  # noqa: F401
+from pinnrl_tpu_torch.pdes.allen_cahn import AllenCahnEquation  # noqa: F401
+from pinnrl_tpu_torch.pdes.black_scholes import BlackScholesEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.burgers import BurgersEquation  # noqa: F401
+from pinnrl_tpu_torch.pdes.convection import ConvectionEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.heat import HeatEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.kdv import KdVEquation  # noqa: F401
 
@@ -15,4 +19,4 @@ def create_pde(config: Config) -> PDEBase:
             "inverse mode requires pde.trainable_parameters (use --identify "
             "or set pde.trainable_parameters in the config)"
         )
-    return PDEBase.create(config.pde_type, config.pde, config.training)
+    return PDEBase.create(config.pde_type, config.pde, config.training, device=config.device)

@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from pinnrl_tpu_torch.config import PDESettings, TrainingConfig
+from pinnrl_tpu_torch.config import PDESettings, TrainingConfig, resolve_device
 from pinnrl_tpu_torch.ops.derivatives import make_scalar_fn, value_and_derivative
 from pinnrl_tpu_torch.ops.losses import apply_loss_fn
 from pinnrl_tpu_torch.sampling import (
@@ -36,6 +36,18 @@ Coeffs = Dict[str, torch.Tensor]
 
 # Populated by @register_pde; maps pde_type -> class.
 PDE_CLASSES: Dict[str, type] = {}
+_ALIASES = {
+    "heatequation": "heat",
+    "waveequation": "wave",
+    "burgersequation": "burgers",
+    "kdvequation": "kdv",
+    "convectionequation": "convection",
+    "allencahn": "allen_cahn",
+    "cahnhilliard": "cahn_hilliard",
+    "blackscholes": "black_scholes",
+    "pendulumequation": "pendulum",
+}
+_UNPORTED = ("wave", "pendulum", "cahn_hilliard")  # ROADMAP item 11
 
 
 def register_pde(cls):
@@ -57,9 +69,12 @@ class PDEBase:
     temporal_orders: Tuple[int, ...] = (1,)
     bundle_compatible: bool = True
 
-    def __init__(self, settings: PDESettings, training: Optional[TrainingConfig] = None) -> None:
+    def __init__(self, settings: PDESettings, training: Optional[TrainingConfig] = None,
+                 device: Optional[str] = None) -> None:
         self.settings = settings
         self.training = training
+        # Where the PDE builds what it holds itself (a reference trajectory).
+        self.device = torch.device(resolve_device(device))
         self.dimension = int(settings.dimension)
         self.domain = [(float(lo), float(hi)) for lo, hi in settings.domain]
         self.time_domain = (float(settings.time_domain[0]), float(settings.time_domain[1]))
@@ -84,17 +99,19 @@ class PDEBase:
         self._fused_residual_loss = None
 
     @staticmethod
-    def create(pde_type: str, settings: PDESettings, training: Optional[TrainingConfig] = None):
-        """Name-based factory."""
+    def create(pde_type: str, settings: PDESettings, training: Optional[TrainingConfig] = None,
+               device: Optional[str] = None):
+        """Name-based factory; ``device`` as ``resolve_device`` reads it (the
+        card unless the caller asks for the CPU)."""
         key = pde_type.lower().replace("-", "_").replace(" ", "_")
-        key = {"burgersequation": "burgers", "kdvequation": "kdv", "heatequation": "heat",
-               "heat_2d": "heat", "heat2d": "heat"}.get(key, key)
+        key = {"heat_2d": "heat", "heat2d": "heat"}.get(key, key)
+        key = _ALIASES.get(key, key)
+        if key in _UNPORTED:
+            raise ValueError(f"PDE type {pde_type!r} is not ported yet (ROADMAP item 11: "
+                             f"{', '.join(_UNPORTED)})")
         if key not in PDE_CLASSES:
-            raise ValueError(
-                f"PDE type {pde_type!r} is not ported yet (ROADMAP item 11); "
-                f"ported: {sorted(PDE_CLASSES)}"
-            )
-        return PDE_CLASSES[key](settings, training)
+            raise ValueError(f"Unknown PDE type {pde_type!r}; valid: {sorted(PDE_CLASSES)}")
+        return PDE_CLASSES[key](settings, training, device=device)
 
     # ------------------------------------------------------------------ #
     # Coefficients

@@ -33,13 +33,13 @@ class HeatEquation(PDEBase):
     spatial_orders = (2,)
     temporal_orders = (1,)
 
-    def __init__(self, settings, training=None):
+    def __init__(self, settings, training=None, device=None):
         if int(settings.dimension) != 1:
             raise NotImplementedError(
                 f"the heat equation in {settings.dimension} space dimensions (heat_2d) is not "
                 "ported yet (ROADMAP item 11): kernel 1 covers one space dimension"
             )
-        super().__init__(settings, training)
+        super().__init__(settings, training, device)
         if "alpha" not in self.parameters:
             raise ValueError("heat equation requires parameter 'alpha'")
 

@@ -22,8 +22,8 @@ class KdVEquation(PDEBase):
     spatial_orders = (1, 3)
     temporal_orders = (1,)
 
-    def __init__(self, settings, training=None):
-        super().__init__(settings, training)
+    def __init__(self, settings, training=None, device=None):
+        super().__init__(settings, training, device)
         if str(self.parameters.get("formulation", "direct")) == "first_order":
             raise NotImplementedError(
                 "the first-order KdV system (u, u_x, u_xx) needs jvp of a vector "

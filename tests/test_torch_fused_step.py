@@ -79,12 +79,12 @@ def test_kernel_launcher_with_plain_twins_matches_autograd(layer_norm):
     assert none == {} and torch.equal(loss_only, loss)
 
 
-@pytest.mark.parametrize("x_order", [2, 3])
+@pytest.mark.parametrize("x_order", [1, 2, 3])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("layer_norm", [True, False])
 def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order):
     """The hand-derived reverse pass of the [value; x1..xK; t1] transport,
-    K = 2 (Burgers) and K = 3 (KdV)."""
+    K = 1 (convection), K = 2 (Burgers) and K = 3 (KdV)."""
     rng = np.random.default_rng(11)
     n, width, streams = 24, 40, 2 + x_order
     H = torch.tensor(rng.standard_normal((streams * n, width)), dtype=dtype, requires_grad=True)
@@ -103,6 +103,54 @@ def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order):
         assert rel_to_max(Gb.sum(0), ref[2]) < tol
     else:
         assert Gg is None and Gb is None
+
+
+def _bundle_streams(monkeypatch, arch, x_order, n=40):
+    """(model, z, the plain bundle's stacked first-layer input) for a
+    Fourier (mapping 8) or feedforward trunk at x-order ``x_order``: what
+    the bundle hands the first Dense layer's ``F.linear``."""
+    import torch.nn.functional as F
+
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+
+    cfg = load_config(pde_type="burgers", architecture=arch, device="cpu")
+    cfg.model.hidden_dims = [8]
+    cfg.model.arch_params.update({"mapping_size": 8, "scale": 2.0})
+    model = PINNModel(cfg, seed=0)
+    params = dict(model.params)
+    captured, linear = [], F.linear
+
+    def spy(x, w, b=None):
+        if w is params["Dense_0.weight"]:
+            captured.append(x)
+        return linear(x, w, b)
+
+    monkeypatch.setattr(F, "linear", spy)
+    x, t = points(4, n)
+    z = torch.from_numpy(np.concatenate([x, t], axis=1))
+    make_bundle_fn(model, 1, x_order, 1)(params, z)
+    (stacked,) = captured
+    return model, z, stacked
+
+
+@pytest.mark.parametrize("x_order", [1, 2, 3])
+@pytest.mark.parametrize("arch", ["fourier", "feedforward"])
+def test_stacked_input_twins_match_the_bundle(monkeypatch, arch, x_order):
+    """``_embed_plain`` (Fourier) and ``_affine_input_plain`` (feedforward):
+    the stacked input [value; x1..xK; t1] that the plain bundle feeds the
+    first Dense layer, at x-orders 1-3. Fourier: 1e-6 relative to max (the
+    phase rotations in another order); feedforward: equal."""
+    model, z, ref = _bundle_streams(monkeypatch, arch, x_order)
+    lo, sc = model._in_lo, model._in_scale
+    if arch == "fourier":
+        got = fused_step._embed_plain(z, lo, sc, model.constants["FourierFeatures_0.B"], True,
+                                      x_order)
+        assert got.shape == ref.shape and rel_to_max(got, ref) < 1e-6
+    else:
+        got = fused_step._affine_input_plain(z, lo, sc, x_order)
+        assert got.shape == ref.shape == ((2 + x_order) * z.shape[0], 2)
+        assert torch.equal(got, ref)
 
 
 def test_causal_residual_loss_matches_jax():
@@ -127,6 +175,31 @@ def test_causal_residual_loss_matches_jax():
     assert rel_to_max(g_t["LayerNorm_0.weight"], ref) < GRAD_TOL
 
 
+_SCOPE_PDES = ("burgers", "heat", "kdv", "convection", "allen_cahn", "black_scholes")
+
+
+@pytest.mark.parametrize("pde_type", _SCOPE_PDES)
+@pytest.mark.parametrize("arch", ["fourier", "feedforward", "siren"])
+def test_supports_matches_the_reference_in_one_dimension(pde_type, arch):
+    """The PDE x architecture matrix: the port's ``supports`` agrees with the
+    JAX reference's, except for the reference's width gate (every width here
+    is below its 128: the port has no width gate)."""
+    from pinnrl_tpu.ops.kernels import fused_step as jax_fused
+    from torch_parity_helpers import pde_pair
+
+    pair = pde_pair(pde_type, arch=arch, hidden=(16, 16), mapping=8)
+    ref = jax_fused.supports(pair.jmodel, pair.jpde, pair.jcfg.training)
+    assert not ref  # the reference's width gate (16 < 128)
+    pair.jcfg.model.hidden_dims = [128, 128]
+    pair.jcfg.model.arch_params["mapping_size"] = 128
+    from pinnrl_tpu.models import PINNModel as JaxModel
+
+    wide = JaxModel(pair.jcfg, seed=0)
+    ref = jax_fused.supports(wide, pair.jpde, pair.jcfg.training)
+    assert ref == (arch != "siren")
+    assert fused_step.supports(pair.tmodel, pair.tpde, pair.tcfg.training) == ref
+
+
 def test_supports_scope():
     pair = burgers_pair()
     assert fused_step.supports(pair.tmodel, pair.tpde, pair.tcfg.training)
@@ -134,8 +207,22 @@ def test_supports_scope():
     causal = burgers_pair(causal_eps=0.5)
     assert fused_step.supports(causal.tmodel, causal.tpde, causal.tcfg.training)
     assert causal.tpde.attach_fused_residual_kernel(causal.tmodel, enable="on")
+    # A feedforward trunk is in scope (its affine input, then the same GEMMs).
     ff = burgers_pair(arch="feedforward")
-    assert not fused_step.supports(ff.tmodel, ff.tpde)
+    assert fused_step.supports(ff.tmodel, ff.tpde)
+    assert fused_step._spec(ff.tmodel, ff.tpde).B is None
+    # Still out: a moving frame, two space dimensions (K1b), order 4, temporal order 2.
+    frame = burgers_pair()
+    frame.tmodel._frame_speed = 0.5
+    assert not fused_step.supports(frame.tmodel, frame.tpde)
+    wide = burgers_pair()
+    wide.tpde.dimension = 2
+    assert not fused_step.supports(wide.tmodel, wide.tpde)
+    for orders in (dict(spatial_orders=(4,)), dict(temporal_orders=(2,))):
+        odd = burgers_pair()
+        for k, v in orders.items():
+            setattr(odd.tpde, k, v)
+        assert not fused_step.supports(odd.tmodel, odd.tpde), orders
     pair.tcfg.training.loss_function = "mae"
     assert not fused_step.supports(pair.tmodel, pair.tpde, pair.tcfg.training)
     with pytest.raises(ValueError, match="unsupported"):

@@ -25,8 +25,8 @@ import numpy as np
 import optax
 import pytest
 import torch
-from torch_parity_helpers import (HEAT_DOMAIN, _pair, heat_pair, points, rel_to_max,
-                                  torch_params)
+from torch_parity_helpers import (HEAT_DOMAIN, _pair, heat_pair, inject_periodic_draws,
+                                  jax_periodic_draws, points, rel_to_max, torch_params)
 
 from pinnrl_tpu.benchmarks import convergence as jax_conv
 from pinnrl_tpu.ops.kernels import fused_step as jax_fused
@@ -136,18 +136,6 @@ def test_validate_matches_jax():
     assert np.isfinite(metrics["periodic_bc_error"]) and metrics["has_nan"] is False
 
 
-def _jax_periodic_draws(jpde, key, n):
-    """The per-axis (free, t) draws of pinnrl_tpu's _periodic_loss(key, n)."""
-    per_axis = max(n // (2 * jpde.dimension), 1)
-    los, his = jpde._space_bounds()
-    draws = []
-    for _axis in range(jpde.dimension):
-        key, k_free, k_t = jax.random.split(key, 3)
-        free = jax.random.uniform(k_free, (per_axis, jpde.dimension), minval=los, maxval=his)
-        draws.append((_t(free), _t(jpde._sample_boundary_time(k_t, per_axis))))
-    return draws
-
-
 def test_periodic_loss_matches_jax():
     pair = heat_pair()
     key = jax.random.PRNGKey(9)
@@ -158,7 +146,7 @@ def test_periodic_loss_matches_jax():
     l_j, g_j = jax.value_and_grad(jloss)(pair.jmodel.params)
     params = torch_params(pair.tmodel)
     u = pair.tpde._scalar_u(pair.tmodel.apply, params)
-    l_t = pair.tpde._periodic_terms(u, _jax_periodic_draws(pair.jpde, key, 64))
+    l_t = pair.tpde._periodic_terms(u, jax_periodic_draws(pair.jpde, key, 64))
     assert abs(float(l_t.detach()) - float(l_j)) / abs(float(l_j)) < 1e-5
     for name, g in zip(params, torch.autograd.grad(l_t, list(params.values()))):
         module, leaf = name.split(".")
@@ -167,19 +155,6 @@ def test_periodic_loss_matches_jax():
         assert rel_to_max(got, np.asarray(g_j[module][jleaf])) < 1e-4, name
     gen = torch.Generator().manual_seed(0)
     assert torch.isfinite(pair.tpde._periodic_loss(u, gen, 64))
-
-
-def _inject_heat_draws(monkeypatch, pair, key, n_colloc):
-    """Make the port's compute_loss use the periodic and IC draws that
-    pinnrl_tpu's compute_loss takes from ``key``."""
-    jpde, tpde = pair.jpde, pair.tpde
-    k_b, k_i = jax.random.split(jax.random.fold_in(key, 0xB0), 2)
-    n_b, n_i = jpde._bc_counts(n_colloc)
-    _, k_bc = jax.random.split(k_b)  # the one (periodic) boundary condition
-    draws = _jax_periodic_draws(jpde, k_bc, n_b)
-    xi, ti = (_t(a) for a in jpde._sample_initial_points(k_i, n_i))
-    monkeypatch.setattr(tpde, "_periodic_loss", lambda u, gen, n: tpde._periodic_terms(u, draws))
-    monkeypatch.setattr(tpde, "_sample_initial_points", lambda gen, n: (xi, ti))
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -192,7 +167,7 @@ def test_compute_loss_matches_jax(monkeypatch, fused):
     key = jax.random.PRNGKey(4)
     ref = pair.jpde.compute_loss(pair.jmodel.apply, pair.jmodel.params, jnp.asarray(x),
                                  jnp.asarray(t), key=key)
-    _inject_heat_draws(monkeypatch, pair, key, 128)
+    inject_periodic_draws(monkeypatch, pair, key, 128)
     got = pair.tpde.compute_loss(pair.tmodel.apply, pair.tmodel.params, _t(x), _t(t))
     for k in ("residual", "boundary", "initial", "total"):
         assert abs(float(got[k].detach()) - float(ref[k])) / abs(float(ref[k])) < 1e-5, k
@@ -245,7 +220,7 @@ def test_one_adam_step_of_the_recipe_matches_optax(monkeypatch):
     updates, _ = jopt.update(g_j, jopt.init(jparams), jparams)
     jparams = optax.apply_updates(jparams, updates)
 
-    _inject_heat_draws(monkeypatch, pair, key, 128)
+    inject_periodic_draws(monkeypatch, pair, key, 128)
     losses = ttr._loss_components(params, _t(x), _t(t), None)
     losses["total"].backward()
     topt.step()

@@ -16,7 +16,11 @@ tests/test_pallas_parity_tpu.py). The GEMM core and the output layer's row
 passes against float64 ``torch.mm``: 1e-5 relative to max for K <= 512,
 1e-4 above (FP32 sums of K terms in another order drift by about
 sqrt(K) eps); split-K, kernel 1 and the MLP scorer bit-identical across
-two calls.
+two calls. Kernel 1's convection (x-order 1), Allen-Cahn and Black-Scholes
+variants and its feedforward trunk: loss 1e-5 relative and gradients 1e-4
+relative to max (1e-4 and 1e-3 causal), bit-identical across two calls;
+its feedforward input kernel 1e-6 relative to max (an fmaf where the plain
+version rounds twice).
 """
 
 import numpy as np
@@ -524,10 +528,15 @@ def _offset_matrix(rows, cols, offset, gen, device):
 @pytest.mark.parametrize("pde,rows,widths", [
     ("burgers", 4 * 8192, (256, 256, 256, 256, 1)),  # mapping 128 -> 256 features
     ("kdv", 5 * 8192, (512, 256, 256, 256, 1)),  # mapping 256 -> 512 features
+    ("convection", 3 * 8192, (256, 256, 256, 256, 1)),
+    ("black_scholes_ff", 4 * 8192, (2,) + (128,) * 7 + (1,)),  # the shipped feedforward 128x7
 ])
 def test_gemm_core_matches_float64_at_kernel1_products(cuda_device, pde, rows, widths):
     """Each product of one kernel-1 call, through the launcher's routing
-    (the core for the hidden layers, row passes for the output layer)."""
+    (the core for the hidden layers, row passes for the output layer). The
+    feedforward trunk's first layer has two input columns (the core's
+    guarded path): its forward, dW and, though the launcher never needs it,
+    dX."""
     from pinnrl_tpu_torch.ops.kernels import fused_step
 
     ops = fused_step._cuda_ops(cuda_device)
@@ -542,7 +551,7 @@ def test_gemm_core_matches_float64_at_kernel1_products(cuda_device, pde, rows, w
         ref[: rows // 4] += b.double()
         checks = [(fused_step._linear(ops, X, W, b, rows // 4), ref, inp),
                   (fused_step._linear_dw(ops, G, X), G64.t() @ X64, rows)]
-        if i:
+        if i or inp == 2:
             checks.append((fused_step._linear_dx(ops, G, W), G64 @ W64, out))
         for got, want, K in checks:
             assert got.shape == want.shape
@@ -670,3 +679,90 @@ def test_siren_kernel_unaligned_and_fill(cuda_device, n, k, m, offset):
     torch.cuda.synchronize()
     assert _rel(got, ref) < 1e-5
     assert siren.launch_blocks(2048, 124) >= torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _variant_config(key, arch, causal):
+    """A kernel-1 configuration at recipe width: the convergence recipe
+    ``key`` (Fourier 256x3, mapping 128), or the PDE's shipped block on its
+    feedforward trunk (Black-Scholes: 128x7 with LayerNorm, as shipped)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.config import load_config
+
+    if arch == "fourier":
+        cfg = build_recipe_config(key, device="cuda")
+    else:
+        cfg = load_config(pde_type=key, architecture="feedforward", device="cuda")
+    cfg.training.causal_eps = 1.0 if causal else 0.0
+    return cfg
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("key,arch", [("convection", "fourier"), ("allen_cahn", "fourier"),
+                                      ("black_scholes", "fourier"), ("convection", "feedforward"),
+                                      ("black_scholes", "feedforward")])
+def test_fused_residual_loss_new_variants_match_plain(cuda_device, key, arch, causal):
+    """Kernel 1's convection (3 streams), Allen-Cahn and Black-Scholes
+    variants, on a Fourier and on a feedforward trunk, plain and causal, at
+    N = 8192 on time-sorted points; two calls bit-identical."""
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    cfg = _variant_config(key, arch, causal)
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    assert fused_step.supports(model, pde, cfg.training)
+    fn = fused_step.make_fused_residual_loss(model, pde)
+    bundle_fn = make_bundle_fn(model, 1, max(pde.spatial_orders), 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x, t = pde.generate_collocation_points(gen, 8192, "uniform")
+    z = torch.cat([x, t], dim=-1)[torch.argsort(t.reshape(-1), stable=True)]
+    params = model.params
+    runs = []
+    for _ in range(2):
+        lk = fn(params, z)
+        runs.append((lk.detach(), torch.autograd.grad(lk, list(params.values()))))
+    lp = fused_step.fused_residual_loss_plain(bundle_fn, pde, params, z)
+    gp = torch.autograd.grad(lp, list(params.values()), allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+    loss_tol, grad_tol = (1e-4, 1e-3) if causal else (1e-5, 1e-4)
+    assert abs(float(l1) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
+    for name, a, b in zip(params, g1, gp):
+        assert torch.isfinite(a).all() and _rel(a, b) < grad_tol, name
+
+
+@pytest.mark.parametrize("x_order", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 300, 8192])
+def test_affine_input_kernel_matches_twin(cuda_device, x_order, n):
+    """The feedforward trunk's stacked input: the value rows to 1e-6
+    relative to max, the direction rows exactly."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    z = torch.rand((n, 2), generator=gen, device=cuda_device) * 200.0
+    lo = torch.tensor([0.0, 0.0], device=cuda_device)
+    sc = torch.tensor([0.01, 2.0], device=cuda_device)
+    got = fused_step._cuda_ops(cuda_device).affine_input(z, lo, sc, x_order)
+    ref = fused_step._affine_input_plain(z, lo, sc, x_order)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == ((2 + x_order) * n, 2)
+    assert _rel(got[:n], ref[:n]) < 1e-6 and torch.equal(got[n:], ref[n:])
+
+
+@pytest.mark.parametrize("kx", [0, 4])
+def test_kernel1_entry_points_refuse_an_x_order_out_of_scope(cuda_device, kx):
+    from pinnrl_tpu_torch.ops.kernels import _build, fused_step
+
+    ops = fused_step._cuda_ops(cuda_device)
+    z = torch.zeros((8, 2), device=cuda_device)
+    X = torch.empty((6 * 8, 2), device=cuda_device)
+    one = torch.ones(2, device=cuda_device)
+    stream = _build.stream_handle(cuda_device)
+    assert ops.lib.fr_affine_input(z.data_ptr(), one.data_ptr(), one.data_ptr(), X.data_ptr(), 8,
+                                   kx, stream) != 0
+    H = torch.zeros((6 * 8, 4), device=cuda_device)
+    assert ops.lib.fr_transport_fwd(H.data_ptr(), None, None, H.data_ptr(), 8, 4, 0, kx,
+                                    stream) != 0
+

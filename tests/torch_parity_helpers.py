@@ -1,7 +1,7 @@
 """Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
 
-Each helper makes the same small Burgers, KdV or heat problem in the JAX
-package and in the port, and bridges the JAX model's parameters into the port's model, so
+Each helper makes the same small problem (Burgers, KdV, heat, convection,
+Allen-Cahn or Black-Scholes) in the JAX package and in the port, and bridges the JAX model's parameters into the port's model, so
 both sides evaluate the same function. Inputs are made with numpy from a
 seed and handed to both as arrays.
 """
@@ -17,6 +17,10 @@ import torch
 TRAVELING_WAVE = {"type": "traveling_wave", "amplitude": 0.5, "speed": 0.5, "center": -0.25}
 KDV_DOMAIN = dict(domain=((-15.0, 15.0),), time_domain=(0.0, 5.0))  # for points(...)
 HEAT_DOMAIN = dict(domain=((0.0, 2.0),), time_domain=(0.0, 10.0))
+# The shipped config blocks' domains (for points(...)).
+DOMAINS = {"convection": dict(domain=((0.0, 2.0),), time_domain=(0.0, 1.0)),
+           "allen_cahn": dict(domain=((-1.0, 1.0),), time_domain=(0.0, 1.0)),
+           "black_scholes": dict(domain=((0.0, 200.0),), time_domain=(0.0, 1.0))}
 
 
 def rel_to_max(got, ref) -> float:
@@ -121,6 +125,52 @@ def heat_pair(*, hidden=(16, 16), mapping=8, scale=0.75, layer_norm=True, causal
     return _pair(jcfg, tcfg, seed=seed, jitter_ln=layer_norm)
 
 
+# Kernel 1 against its references, by causal eps: (loss relative, each
+# gradient relative to its max): the JAX suite's bounds for its fused kernel
+# (tests/test_pallas_parity_tpu.py), plain and causal.
+FUSED_TOLS = {0.0: (1e-5, 1e-4), 1.0: (1e-4, 1e-3)}
+
+
+def small_recipe_trainer(key: str, epochs: int = 6):
+    """A ``PDETrainer`` on the convergence recipe ``key`` cut to CPU size:
+    trunk 16x2, mapping 8, 256 points in batches of 128, 32 BC and IC
+    points, ``epochs`` epochs."""
+    from pinnrl_tpu_torch.benchmarks import convergence
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    cfg = convergence.build_recipe_config(key, epochs=epochs, device="cpu")
+    cfg.model.hidden_dims = [16, 16]
+    cfg.model.arch_params["mapping_size"] = 8
+    t = cfg.training
+    t.num_collocation_points, t.batch_size = 256, 128
+    t.num_boundary_points = t.num_initial_points = 32
+    return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+
+
+def pde_pair(pde_type, *, arch="fourier", hidden=(32, 24), mapping=16, periodic=True,
+             layer_norm=True, scale=1.0, causal_eps=0.0, seed=0, ln_jitter=True, pde=None):
+    """The shipped config block of ``pde_type`` on an ``arch`` trunk at small
+    width in both packages, bridged; ``pde`` overrides entries of the PDE
+    block (``parameters`` merged) in both."""
+    from pinnrl_tpu.config import load_config as jax_load_config
+    from pinnrl_tpu_torch.config import load_config
+
+    kw = dict(hidden=hidden, mapping=mapping, periodic=periodic, layer_norm=layer_norm,
+              scale=scale, causal_eps=causal_eps)
+    cfgs = [jax_load_config(pde_type=pde_type, architecture=arch),
+            load_config(pde_type=pde_type, architecture=arch, device="cpu")]
+    for cfg in cfgs:
+        for k, v in (pde or {}).items():
+            if k == "parameters":
+                cfg.pde.parameters.update(v)
+            else:
+                setattr(cfg.pde, k, v)
+        _configure_model_training(cfg, **kw)
+    return _pair(*cfgs, seed=seed, jitter_ln=ln_jitter and layer_norm)
+
+
 def _pair(jcfg, tcfg, *, seed, jitter_ln):
     from pinnrl_tpu.models import PINNModel as JaxModel
     from pinnrl_tpu.pdes import create_pde as jax_create_pde
@@ -165,6 +215,96 @@ def jax_bc_ic_points(jpde, key, n_colloc):
     xb, tb = jpde._sample_boundary_points(k_bc, n_b)
     xi, ti = jpde._sample_initial_points(k_i, n_i)
     return [np.array(a) for a in (xb, tb, xi, ti)]
+
+
+def jax_periodic_draws(jpde, key, n):
+    """The per-axis (free, t) draws of pinnrl_tpu's _periodic_loss(key, n),
+    as tensors."""
+    per_axis = max(n // (2 * jpde.dimension), 1)
+    los, his = jpde._space_bounds()
+    draws = []
+    for _axis in range(jpde.dimension):
+        key, k_free, k_t = jax.random.split(key, 3)
+        free = jax.random.uniform(k_free, (per_axis, jpde.dimension), minval=los, maxval=his)
+        draws.append((torch.from_numpy(np.array(free)),
+                      torch.from_numpy(np.array(jpde._sample_boundary_time(k_t, per_axis)))))
+    return draws
+
+
+def inject_periodic_draws(monkeypatch, pair, key, n_colloc):
+    """Make the port's compute_loss use the periodic and IC draws that
+    pinnrl_tpu's compute_loss takes from ``key`` (one periodic BC)."""
+    jpde, tpde = pair.jpde, pair.tpde
+    k_b, k_i = jax.random.split(jax.random.fold_in(key, 0xB0), 2)
+    n_b, n_i = jpde._bc_counts(n_colloc)
+    _, k_bc = jax.random.split(k_b)
+    draws = jax_periodic_draws(jpde, k_bc, n_b)
+    xi, ti = (torch.from_numpy(np.array(a)) for a in jpde._sample_initial_points(k_i, n_i))
+    monkeypatch.setattr(tpde, "_periodic_loss", lambda u, gen, n: tpde._periodic_terms(u, draws))
+    monkeypatch.setattr(tpde, "_sample_initial_points", lambda gen, n: (xi, ti))
+
+
+def sorted_z(seed: int, n: int, domain):
+    """(n, 2) float32 points from ``points(seed, n, **domain)``, sorted by
+    time (the order the causal kernel takes)."""
+    x, t = points(seed, n, **domain)
+    z = np.concatenate([x, t], axis=1)
+    return z[np.argsort(z[:, 1], kind="stable")]
+
+
+def jax_grad_rels(grads, g_j):
+    """{port name: rel to max} of port gradients (torch layout) against a
+    flax gradient tree."""
+    out = {}
+    for name, g in grads.items():
+        module, leaf = name.split(".")
+        jleaf = {"weight": "kernel" if module.startswith("Dense") else "scale", "bias": "bias"}[leaf]
+        got = g.detach().numpy()
+        out[name] = rel_to_max(got.T if got.ndim == 2 else got, np.asarray(g_j[module][jleaf]))
+    return out
+
+
+def launcher_vs_jax_kernel(pair, z):
+    """Kernel 1's host launcher run with its plain twins (``_TorchOps``) on
+    the port's model against the JAX Pallas kernel in interpret mode (tile
+    32) on the bridged model, on the time-sorted points ``z``: (loss
+    relative error, {name: gradient error relative to its max}). Causal
+    when the port's PDE is."""
+    from pinnrl_tpu.ops.kernels import fused_step as jax_fused
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    fused_j = jax_fused.make_fused_residual_loss(pair.jmodel, pair.jpde, tile=32, interpret=True,
+                                                 causal_eps=pair.tpde.causal_eps())
+    l_j, g_j = jax.value_and_grad(lambda p: fused_j(p, jax.numpy.asarray(z)))(pair.jmodel.params)
+    spec = fused_step._spec(pair.tmodel, pair.tpde)
+    params = {k: v.detach() for k, v in pair.tmodel.params.items()}
+    with torch.no_grad():
+        loss, grads = fused_step._loss_and_grads(fused_step._TorchOps(), spec, torch.from_numpy(z),
+                                                 params)
+    assert sorted(grads) == sorted(params)
+    return abs(float(loss) - float(l_j)) / abs(float(l_j)), jax_grad_rels(grads, g_j)
+
+
+def plain_vs_launcher(pair, z):
+    """The launcher with the plain twins against autograd through the plain
+    version (bundle -> residual -> loss) on the same port model: (loss
+    relative error, {name: gradient error relative to its max})."""
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    tpde = pair.tpde
+    params = torch_params(pair.tmodel)
+    bundle_fn = make_bundle_fn(pair.tmodel, 1, max(tpde.spatial_orders), 1)
+    ref = fused_step.fused_residual_loss_plain(bundle_fn, tpde, params, torch.from_numpy(z))
+    g_ref = torch.autograd.grad(ref, list(params.values()), allow_unused=True,
+                                materialize_grads=True)
+    spec = fused_step._spec(pair.tmodel, tpde)
+    with torch.no_grad():
+        loss, grads = fused_step._loss_and_grads(fused_step._TorchOps(), spec, torch.from_numpy(z),
+                                                 {k: v.detach() for k, v in params.items()})
+    rels = {name: rel_to_max(grads[name], g) for name, g in zip(params, g_ref)}
+    ref = float(ref.detach())
+    return abs(float(loss) - ref) / abs(ref), rels
 
 
 def inject_points(monkeypatch, tpde, xb, tb, xi, ti):

@@ -2,8 +2,11 @@
 """Train the port's convergence recipes at full length on one CUDA card and
 report their accuracy.
 
-    python3 tools/convergence_torch.py [--pde burgers heat] [--seed 0] [--epochs E]
+    python3 tools/convergence_torch.py [--pde burgers heat ...] [--seed 0] [--epochs E]
         [--out build/convergence]
+
+``--pde`` takes any key of the port's ``RECIPES`` (burgers, heat, kdv,
+convection, allen_cahn, black_scholes, allen_cahn_dynamics).
 
 Each recipe runs as shipped through
 ``pinnrl_tpu_torch.benchmarks.convergence.run_convergence(key, seed=...,
