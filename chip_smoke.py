@@ -114,6 +114,23 @@ Phases (each raises on failure, and the script then exits non-zero):
                rel-L2 printed. Then 10 Adam steps of Black-Scholes as shipped
                (``load_config(pde_type="black_scholes")``): kernel 1 once per
                loss, kernel 2 never, finite losses.
+ 21. nd        — kernel 1 in two and three space dimensions and in a
+               co-moving frame: heat_2d at its recipe's width (Fourier
+               256x3, mapping 128, 6 stacked streams) at N = 8192 and 40000,
+               causal, on a feedforward 256x3 trunk and in a frame of speed
+               0.7; the Burgers recipe in that frame (one dimension); every
+               residual in two dimensions and heat in three (64x48, mapping
+               32, N = 4096). Each against its plain version and
+               bit-identical in two calls; the full-width ones timed by
+               CUDA-graph replay beside the plain version, the bound and
+               cuBLAS on their products.
+ 22. heat_2d   — the heat_2d recipe through ``run_convergence("heat_2d",
+               seed=0, epochs=6, device="cuda")``: 3 Adam epochs of 4 steps,
+               then 3 L-BFGS iterations on all 40000 points. Losses finite,
+               falling, not rising within the L-BFGS round; kernel 1 exactly
+               once per loss; kernel 2 on the (N, 3) BC and IC points (basis
+               (3, 128)) exactly twice per loss plus twice for heat's
+               ``validate``, its jvp rule never.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -149,11 +166,13 @@ the L-BFGS phase's numbers: ``lbfgs_launches`` (phase 17, per recipe),
 plain), ``lbfgs_evaluations_per_iteration`` and
 ``lbfgs_syncs_per_iteration``, phase 19's ``scope_1d`` (per variant: its
 streams, trunk, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
-``library_ms``, and the same with ``n40000_``) and phase 20's
+``library_ms``, and the same with ``n40000_``), phase 20's
 ``scope_1d_launches`` (per recipe: kernel 1's and kernel 2's launches, the
-jvp rule's, the L-BFGS evaluations, rel-L2 and wall seconds); kernel 2's
-carries its phase-17 launches and
-heat's jvps (``lbfgs_launches``); kernel
+jvp rule's, the L-BFGS evaluations, rel-L2 and wall seconds), phase 21's
+``scope_nd`` (per variant: its dimension, streams, frame speed, trunk and,
+at full width, the timings as ``scope_1d``'s) and phase 22's
+``heat_2d_launches``; kernel 2's carries its phase-17 launches and heat's
+jvps (``lbfgs_launches``) and its phase-22 launches; kernel
 3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124;
 kernel 4's ``launch_ms`` (each launch), ``splits`` (the launcher's choice,
 ``mlp._product_split``) and ``blocks`` of its product (read from the
@@ -223,7 +242,12 @@ FUSED_TOLS = {"burgers": (1e-5, 1e-4), "burgers_causal": (1e-4, 1e-3),
               "convection": (1e-5, 1e-4), "convection_causal": (1e-4, 1e-3),
               "allen_cahn": (1e-5, 1e-4), "allen_cahn_causal": (1e-4, 1e-3),
               "black_scholes": (1e-5, 1e-4), "black_scholes_causal": (1e-4, 1e-3),
-              "black_scholes_ff": (1e-5, 1e-4)}
+              "black_scholes_ff": (1e-5, 1e-4),
+              **{k: (1e-4, 1e-3) if k.endswith("causal") else (1e-5, 1e-4)
+                 for k in ("heat_2d", "heat_2d_causal", "heat_2d_ff", "heat_2d_frame",
+                           "burgers_frame", "burgers_2d", "heat_3d", "convection_2d",
+                           "allen_cahn_2d", "black_scholes_2d")},
+              "kdv_2d": (2e-4, 1e-3)}
 # Phase 19: kernel 1's one-dimensional scope. The recipes' variants (Fourier
 # 256x3, mapping 128: convection with 3 stacked streams, Allen-Cahn and
 # Black-Scholes to maturity with 4), plain and causal, and Black-Scholes as
@@ -236,6 +260,20 @@ SCOPE_VARIANTS = ("convection", "convection_causal", "allen_cahn", "allen_cahn_c
 SCOPE_RECIPE_EPOCHS = 6
 SCOPE_RECIPES = ("convection", "allen_cahn", "black_scholes", "allen_cahn_dynamics")
 SHIPPED_BS_EPOCHS = 5
+# Phase 21: kernel 1 beyond one dimension and in a co-moving frame. At the
+# heat_2d recipe's width (Fourier 256x3, mapping 128, 6 stacked streams):
+# heat_2d at N 8192 and 40000, causal, on a feedforward 256x3 trunk, and in
+# a frame of speed 0.7; the Burgers recipe in that frame (one dimension).
+# Small (64x48, mapping 32, N 4096): every residual in two dimensions and
+# heat in three. Bounds as phase 19's, by causal eps.
+ND_VARIANTS = ("heat_2d", "heat_2d_causal", "heat_2d_ff", "heat_2d_frame", "burgers_frame")
+ND_SMALL = ("burgers_2d", "heat_3d", "kdv_2d", "convection_2d", "allen_cahn_2d",
+            "black_scholes_2d")
+FRAME_SPEED = 0.7
+ND_SMALL_N = 4096
+# Phase 22: the heat_2d recipe through run_convergence, 3 Adam epochs (12
+# steps of 8192) then 3 L-BFGS iterations on all 40000 points.
+HEAT_2D_EPOCHS = 6
 
 
 def nvidia_smi_line() -> str:
@@ -320,12 +358,41 @@ def scope_variant_config(name: str, device: str):
     return cfg
 
 
-def kernel1_bound(params, x_order: int, z, B):
+def nd_variant_config(name: str, device: str):
+    """The configuration of a phase-21 variant (``ND_VARIANTS``, ``ND_SMALL``)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+
+    if name in ND_VARIANTS:
+        cfg = build_recipe_config(name.split("_")[0] if name.startswith("burgers") else "heat_2d",
+                                  device=device)
+        if name.startswith("burgers"):
+            cfg.training.collocation_distribution = "uniform"
+        if name.endswith("_ff"):
+            cfg.model.architecture = "feedforward"
+        if name.endswith("_frame"):
+            cfg.model.arch_params["moving_frame_speed"] = FRAME_SPEED
+        cfg.training.causal_eps = 1.0 if name.endswith("_causal") else 0.0
+        return cfg
+    key, dim = name.rsplit("_", 1)
+    dim = int(dim[0])
+    cfg = build_recipe_config(key, device=device)
+    cfg.pde.dimension, cfg.model.input_dim = dim, dim + 1
+    cfg.pde.domain = [list(cfg.pde.domain[0])] * dim
+    if key == "convection":
+        cfg.pde.parameters["velocity"] = [1.0, -0.5, 0.25][:dim]
+    cfg.model.hidden_dims = [64, 48]
+    cfg.model.arch_params["mapping_size"] = 32
+    cfg.model.arch_params.pop("feature_seed", None)  # the shipped bases are for one dimension
+    cfg.training.causal_eps = 0.0
+    return cfg
+
+
+def kernel1_bound(params, x_order: int, z, B, dim: int = 1):
     """(ms, what bounds it) of one kernel-1 loss + gradients call: its GEMMs'
     operations; its bytes: z, the parameters read, the gradients written,
     the Fourier basis and the loss."""
     n_params = sum(v.numel() for v in params.values())
-    return bound(sum(2.0 * m * k * n for m, k, n in fused_gemms(params, x_order, z.shape[0])),
+    return bound(sum(2.0 * m * k * n for m, k, n in fused_gemms(params, x_order, z.shape[0], dim)),
                  4.0 * (z.numel() + 2 * n_params + (0 if B is None else B.numel()) + 1))
 
 
@@ -340,12 +407,12 @@ def gemm_tol(K: int) -> float:
     return GEMM_TOL if K <= 512 else GEMM_TOL_LONG_K
 
 
-def gemm_products(params, x_order: int, n: int):
+def gemm_products(params, x_order: int, n: int, dim: int = 1):
     """(kind, (M, K, N)) of the products of one kernel-1 loss + gradients
-    call on ``n`` points: per layer the stacked forward X W^T ("fwd"),
-    dW = dY^T X ("dw") and (past the first layer) dX = dY W ("dx"), over
-    (2 + x_order) n stacked rows."""
-    rows = (2 + x_order) * n
+    call on ``n`` points in ``dim`` space dimensions: per layer the stacked
+    forward X W^T ("fwd"), dW = dY^T X ("dw") and (past the first layer)
+    dX = dY W ("dx"), over (2 + dim x_order) n stacked rows."""
+    rows = (2 + dim * x_order) * n
     prods = []
     n_dense = sum(1 for k in params if k.startswith("Dense_") and k.endswith(".weight"))
     for i in range(n_dense):
@@ -355,9 +422,9 @@ def gemm_products(params, x_order: int, n: int):
     return prods
 
 
-def fused_gemms(params, x_order: int, n: int):
+def fused_gemms(params, x_order: int, n: int, dim: int = 1):
     """The (M, K, N) shapes of ``gemm_products``."""
-    return [shape for _, shape in gemm_products(params, x_order, n)]
+    return [shape for _, shape in gemm_products(params, x_order, n, dim)]
 
 
 def gemm_routes(kind: str, P, Q, ops):
@@ -850,7 +917,8 @@ def main() -> int:
         assert vpde.attach_fast_bundle(vmodel) and fused_step.supports(vmodel, vpde, vcfg.training)
         return SimpleNamespace(
             pde=vpde, model=vmodel, fn=fused_step.make_fused_residual_loss(vmodel, vpde),
-            bundle_fn=make_bundle_fn(vmodel, 1, max(vpde.spatial_orders), max(vpde.temporal_orders)))
+            bundle_fn=make_bundle_fn(vmodel, vpde.dimension, max(vpde.spatial_orders),
+                                     max(vpde.temporal_orders)))
 
     def compare(name, tag, p, zz):
         """Kernel 1 against its plain version (loss and every gradient) on
@@ -1809,6 +1877,98 @@ def main() -> int:
         raise AssertionError(f"black_scholes as shipped: losses {bs_hist}")
     scope_runs["black_scholes_shipped"] = bs_run
 
+    # ---- 21. kernel 1 beyond one dimension and in a co-moving frame ------------ #
+    scope_nd = {}
+    for name in ND_VARIANTS + ND_SMALL:
+        v = variants[name] = variant(nd_variant_config(name, "cuda"))
+        dim, x_order = v.pde.dimension, max(v.pde.spatial_orders)
+        B_v = v.model.constants.get("FourierFeatures_0.B")
+        p = {k: t_.detach().requires_grad_(True) for k, t_ in v.model.params.items()}
+        row = scope_nd[name] = {"dimension": dim, "streams": 2 + dim * x_order,
+                                "frame_speed": v.model._frame_speed,
+                                "trunk": v.model.config.architecture,
+                                "widths": list(v.model.config.hidden_dims)}
+        sizes = (8192, LBFGS_N) if name == "heat_2d" else (ND_SMALL_N if name in ND_SMALL else 8192,)
+        for n in sizes:
+            zz = time_sorted(*v.pde.generate_collocation_points(gen, n, "uniform"))
+            compare(name, f"N={n} seeded init", p, zz)
+            same = bit_identical(v, p, zz)
+            print(f"[nd] fused_residual_loss {name} N={n}: two calls on the same inputs "
+                  f"bit-identical {same}", flush=True)
+            if not same:
+                raise AssertionError(f"kernel 1 ({name}, N={n}) is not deterministic")
+            if name in ND_SMALL:
+                continue  # checked, not timed: not a shipped shape
+            tag = "" if n == 8192 else f"n{n}_"
+            iters = 10 if n == 8192 else 5
+            row[f"{tag}ms"] = graph_ms(lambda: fused_grads(v, p, zz), iters=iters, replays=5)
+            row[f"{tag}plain_ms"] = graph_ms(lambda: plain_grads(v, p, zz), iters=iters, replays=5)
+            row[f"{tag}bound_ms"], row[f"{tag}bound_by"] = kernel1_bound(p, x_order, zz, B_v, dim)
+            shapes = fused_gemms(p, x_order, n, dim)
+            row[f"{tag}library_ms"] = cublas_ms(shapes, dev, iters=iters)
+            print(f"[timing] fused_residual_loss {name} N={n} ({row['streams']} streams, "
+                  f"{row['trunk']} {row['widths']}, frame {row['frame_speed']}) loss+grads, device "
+                  f"time per call (CUDA graph): kernel {row[f'{tag}ms']:.3f} ms, plain "
+                  f"{row[f'{tag}plain_ms']:.3f} ms, bound {row[f'{tag}bound_ms']:.3f} ms "
+                  f"({row[f'{tag}bound_by']}; {row[f'{tag}bound_ms'] / row[f'{tag}ms']:.0%} of it), "
+                  f"cuBLAS on its {len(shapes)} products {row[f'{tag}library_ms']:.3f} ms ({card})",
+                  flush=True)
+        del p
+
+    # ---- 22. the heat_2d recipe, Adam then L-BFGS ------------------------------- #
+    rt = build_recipe_config("heat_2d", epochs=HEAT_2D_EPOCHS, device="cuda").training
+    switch = int(rt.adam_lbfgs_switch_ratio * HEAT_2D_EPOCHS)
+    adam_steps = switch * (rt.num_collocation_points // rt.batch_size)
+    fused_step.fused_residual_loss.launches = 0
+    fourier_feats.fourier_features.launches = 0
+    fourier_feats.fourier_features.jvps = 0
+    evals0 = LBFGS.evaluations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with captured_trainers() as seen:
+        conv = run_convergence("heat_2d", seed=0, epochs=HEAT_2D_EPOCHS, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    heat_2d_run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+                   "fourier_features": fourier_feats.fourier_features.launches,
+                   "fourier_features_jvps": fourier_feats.fourier_features.jvps,
+                   "evaluations": LBFGS.evaluations - evals0}
+    (ltr,) = seen
+    hist = ltr.history
+    losses, n_vals = hist["train_loss"], len(hist["val_loss"])
+    lbfgs_losses = losses[switch:]
+    B2 = ltr.model.constants["FourierFeatures_0.B"]
+    n_losses = adam_steps + heat_2d_run["evaluations"] + n_vals
+    # Per loss: kernel 1 once; kernel 2 on the (N, 3) BC and IC points (the
+    # Dirichlet box, no jvp); two more kernel-2 launches for validate(20000)
+    # (heat's metrics and its NaN and bound checks each run the network).
+    want = {"fused_residual_loss": n_losses, "fourier_features": 2 * n_losses + 2,
+            "fourier_features_jvps": 0}
+    print(f"[heat_2d] run_convergence(seed=0, epochs={HEAT_2D_EPOCHS}) {wall:.2f} s: Adam {switch} "
+          f"epochs ({adam_steps} steps of {rt.batch_size}), then {len(lbfgs_losses)} L-BFGS "
+          f"iterations on {rt.num_collocation_points} points; validations {n_vals}; kernel 2's "
+          f"basis {tuple(B2.shape)}; {heat_2d_run} ({card})", flush=True)
+    print(f"[heat_2d] epoch losses {' '.join(f'{x_:.6e}' for x_ in losses)}; rel_l2 "
+          f"{conv.rel_l2:.4e} max_error {conv.max_error:.4e} (no bar at {HEAT_2D_EPOCHS} epochs)",
+          flush=True)
+    if not (ltr.switch_epoch == switch and len(losses) == HEAT_2D_EPOCHS
+            and ltr.fused_kernel_active and ltr.pde.dimension == 2 and tuple(B2.shape) == (3, 128)
+            and all(map(math.isfinite, losses + hist["val_loss"]))):
+        raise AssertionError(f"heat_2d: switch {ltr.switch_epoch}, kernel 1 "
+                             f"{ltr.fused_kernel_active}, basis {tuple(B2.shape)}, losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"heat_2d: the loss did not fall: {losses}")
+    for a, b in zip(lbfgs_losses, lbfgs_losses[1:]):
+        if not b <= a + APPROX_DEC_RTOL * abs(a):
+            raise AssertionError(f"heat_2d: the L-BFGS loss rose within its round: {lbfgs_losses}")
+    if any(heat_2d_run[k] != w for k, w in want.items()):
+        raise AssertionError(f"heat_2d: launches {heat_2d_run}, want {want} ({adam_steps} Adam "
+                             f"steps + {heat_2d_run['evaluations']} L-BFGS evaluations + {n_vals} "
+                             f"validations)")
+    if not all(math.isfinite(x_) for x_ in (conv.rel_l2, conv.max_error, conv.points_per_sec)):
+        raise AssertionError(f"heat_2d: non-finite result {conv}")
+    heat_2d_run.update(rel_l2=conv.rel_l2, wall_s=wall)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -1849,7 +2009,8 @@ def main() -> int:
          "n40000_bound_by": n40_bound[1], "n40000_library_ms": n40_lib_ms,
          "lbfgs_iteration_ms": lbfgs_ms, "lbfgs_evaluations_per_iteration": lbfgs_evals,
          "lbfgs_syncs_per_iteration": len(sync_sites),
-         "scope_1d": scope, "scope_1d_launches": scope_runs},
+         "scope_1d": scope, "scope_1d_launches": scope_runs,
+         "scope_nd": scope_nd, "heat_2d_launches": heat_2d_run},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -1859,6 +2020,7 @@ def main() -> int:
          "heat_jvps": heat_launches["fourier_features_jvps"], "max_abs_err": ff_err,
          "lbfgs_launches": {k: {"launches": r["fourier_features"], "jvps": r["fourier_features_jvps"]}
                             for k, (r, _) in lbfgs_runs.items()},
+         "heat_2d_launches": heat_2d_run["fourier_features"],
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
          "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
          "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,

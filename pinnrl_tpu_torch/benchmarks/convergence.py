@@ -6,16 +6,17 @@ optimizer schedule); ``build_recipe_config`` materialises it into a
 ``Config`` and ``run_convergence`` trains it and reports rel-L2, max error,
 wall time and points per second.
 
-Ported: the ``heat``, ``kdv``, ``burgers``, ``convection``, ``allen_cahn``,
-``black_scholes`` and ``allen_cahn_dynamics`` recipes; all but kdv train
-with Adam, then L-BFGS on every collocation point (``adam_lbfgs``).
+Ported: the ``heat``, ``kdv``, ``burgers``, ``heat_2d``, ``convection``,
+``allen_cahn``, ``black_scholes`` and ``allen_cahn_dynamics`` recipes; all
+but kdv train with Adam, then L-BFGS on every collocation point
+(``adam_lbfgs``).
 ``allen_cahn_dynamics`` is the Allen-Cahn PDE (``pde_type``) against its
 ETDRK4 spectral trajectory.
 ``points_per_sec`` counts each epoch at its own batch: the Adam epochs'
 steps times the batch, each L-BFGS epoch's iterations times the L-BFGS
 batch (the JAX package counts every epoch at the Adam batch).
 The other recipes raise naming item 11 (their PDEs: wave, pendulum,
-Cahn-Hilliard, heat_2d); experiment directories
+Cahn-Hilliard); experiment directories
 and resume raise naming item 9; time-marching raises naming item 13 (no
 shipped recipe is multi-stage).
 """
@@ -91,6 +92,19 @@ RECIPES: Dict[str, dict] = {
             optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
             learning_rate=2e-3, weight_decay=0.0,
             collocation_distribution="residual_based",
+        ),
+    ),
+    "heat_2d": dict(
+        arch="fourier",
+        # The single smooth 2-D sine mode wants a low-frequency basis (scale
+        # 0.5); the config's default loss weights (residual 15, boundary 20,
+        # initial 10) beat boosted BC/IC weights.
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=0.5),
+        training=dict(
+            num_epochs=3000, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=8192, num_initial_points=8192,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
         ),
     ),
     "convection": dict(

@@ -1,38 +1,43 @@
-// Fused residual loss of a Fourier or feedforward PINN in one space dimension
-// and its gradient with respect to every network parameter, for the residuals
-//   Burgers         r = u_t + u u_x - nu u_xx
-//   heat            r = u_t - alpha u_xx
-//   KdV             r = u_t + 6 u u_x + u_xxx
-//   convection      r = u_t + v u_x
-//   Allen-Cahn      r = u_t - eps^2 u_xx - u + u^3
-//   Black-Scholes   r = V_t - s rate V + s (sigma^2/2 S^2 V_SS + rate S V_S),
-//                   S = x, s = +1 (calendar time) or -1 (time to maturity),
+// Fused residual loss of a Fourier or feedforward PINN in D = 1, 2 or 3 space
+// dimensions and its gradient with respect to every network parameter, for
+// the residuals (sums over the axes ax)
+//   Burgers         r = u_t + u sum u_x - nu sum u_xx
+//   heat            r = u_t - alpha sum u_xx
+//   KdV             r = u_t + 6 u sum u_x + sum u_xxx
+//   convection      r = u_t + sum v_ax u_x
+//   Allen-Cahn      r = u_t - eps^2 sum u_xx - u + u^3
+//   Black-Scholes   r = V_t - s rate V + s sum (sigma^2/2 S^2 V_SS + rate S V_S),
+//                   S = x_ax, s = +1 (calendar time) or -1 (time to maturity),
 // plain (loss = mean_i r_i^2) or causally weighted (loss = sum_i w_i r_i^2 /
 // sum_i w_i with w_i = exp(-eps sum_{j<i} r_j^2 / N) over the time-sorted
-// batch; the weights carry no gradient).
+// batch; the weights carry no gradient), with or without a co-moving frame
+// (the network sees (x - c t, t)).
 //
 // Replaces the whole of the Pallas kernel pinnrl_tpu/ops/kernels/fused_step.py:277
 // (make_fused_residual_loss: _run / _tile_loss, behind the custom-VJP
-// fused_loss) in one space dimension: every residual above, spatial order 1
-// (convection), 2 or 3 (KdV), causal or not, on either trunk; two space
-// dimensions and the moving frame are not ported yet. The TPU program keeps one
+// fused_loss) up to three space dimensions: every residual above, spatial
+// order 1 (convection), 2 or 3 (KdV), causal or not, framed or not, on either
+// trunk. The stacked streams are [value; D x-groups of KX; t1], S = 2 + D KX
+// (jet_mlp's order); the x-groups share the value stream's LayerNorm and tanh
+// factors, so each kernel takes D and KX as template parameters, and D = 1
+// evaluates the one-dimensional expressions unchanged. The TPU program keeps one
 // batch tile's whole forward and backward live set in VMEM, takes the
 // backward from jax.vjp inside the kernel, and carries the causal prefix
 // from one grid step to the next because its grid runs in order on one
-// core. An SM's 227 KB cannot hold that live set (S = 4 or 5 stacked streams
+// core. An SM's 227 KB cannot hold that live set (S = 3 to 11 stacked streams
 // x width 256 x several saved tensors per point), there is no AD inside a
 // CUDA kernel, and CTAs run in no order, so the work is split into a few
 // kernels that the host launches in sequence on one stream
 // (ops/kernels/fused_step.py):
 //
-//   embed_kernel<K>       z -> affine map -> [sin, cos] and the closed-form
+//   embed_kernel<D,K>     z -> affine map -> [sin, cos] and the closed-form
 //                         phase-rotation streams, written as the stacked
-//                         ((2+K)N, 2m) input [value; x1..xK; t1], K = 1
-//                         (convection), 2 (Burgers, heat, Allen-Cahn,
+//                         ((2+DK)N, 2m) input [value; per axis x1..xK; t1],
+//                         K = 1 (convection), 2 (Burgers, heat, Allen-Cahn,
 //                         Black-Scholes) or 3 (KdV).
-//   affine_input_kernel   the feedforward trunk's ((2+K)N, 2) input: the
+//   affine_input_kernel<D>  the feedforward trunk's ((2+DK)N, D+1) input: the
 //                         affine map and its constant direction rows; the
-//                         first GEMM then has two input columns (the core's
+//                         first GEMM then has D+1 input columns (the core's
 //                         guarded scalar path).
 //   gemm_sm90_kernel<..>  the FP32 GEMM core of sgemm_sm90.cuh (shared with
 //                         siren.cu and mlp_score.cu): 128x128 tiles, 8x8 per thread, a 3-slice
@@ -46,16 +51,16 @@
 //                         layer's products (out = 1) as row passes: U = X w + b
 //                         one warp per row, dX = dU w an outer product, dW =
 //                         dU^T X a weighted deterministic column sum.
-//   transport_fwd_kernel<K>  one warp per point: LayerNorm + tanh Taylor
-//                         transport of the 2+K streams (ops/jet_mlp.py);
-//                         every term of stream 2 sits behind KX >= 2.
-//   transport_bwd_kernel<K>  its hand-derived reverse pass (the formulas are
+//   transport_fwd_kernel<D,K>  one warp per point: LayerNorm + tanh Taylor
+//                         transport of the 2+DK streams (ops/jet_mlp.py);
+//                         every term of a group's stream 2 sits behind KX >= 2.
+//   transport_bwd_kernel<D,K>  its hand-derived reverse pass (the formulas are
 //                         in fused_step.py: _transport_bwd_plain). It
 //                         recomputes the forward quantities from the saved
 //                         pre-activation instead of storing them, and writes
 //                         per-point LayerNorm scale/bias gradient rows.
-//   burgers_kernel, heat_kernel, kdv_kernel, convection_kernel,
-//   allen_cahn_kernel, black_scholes_kernel  r and the stream cotangents:
+//   burgers_kernel<D>, heat_kernel<D>, kdv_kernel<D>, convection_kernel<D>,
+//   allen_cahn_kernel<D>, black_scholes_kernel<D>  r and the stream cotangents:
 //                         plain, r^2 and 2r/N dr/dU; causal, r and the
 //                         unscaled dr/dU. black_scholes_kernel reads z (S).
 //   causal scan           three deterministic passes over the sorted r^2:
@@ -70,8 +75,9 @@
 //                         also give sum w and sum w r^2.
 //
 // What bounds it on an H100: at batch 8192 and width 256 each hidden layer's
-// three products are S*8192 x 256 x 256 FMAs, S = 3 (convection), 4 (Burgers,
-// heat, Allen-Cahn, Black-Scholes) or 5 (KdV); these FP32 CUDA-core GEMMs are
+// three products are S*8192 x 256 x 256 FMAs, S = 2 + D K: in one dimension 3
+// (convection), 4 (Burgers, heat, Allen-Cahn, Black-Scholes) or 5 (KdV), in two
+// 6 for heat_2d; these FP32 CUDA-core GEMMs are
 // bound by operations (67 TFLOP/s FP32 peak) and take most of the device
 // time. The GEMM core feeds the FFMA pipes
 // with float4 shared loads (4 per 64 FFMAs) and overlaps the next slices'
@@ -82,6 +88,8 @@
 // kernels; fusing the transport into the GEMM epilogue is later work.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "sgemm_sm90.cuh"
 
@@ -147,22 +155,71 @@ __global__ void outer_kernel(const float* __restrict__ g, const float* __restric
 }
 
 // ---------------------------------------------------------------- embed --
+// Streams of one point: index 0 the value, then D x-groups of KX (group g's
+// order k, k = 1..KX, is stream 1 + g KX + k - 1), T = D KX + 1 the first
+// t-derivative; NS = D KX + 2 streams in all (jet_mlp's stacking order).
 
-template <int KX>
+// Calls f(Int<g>{}) for g = B..E-1 as straight-line code. The x-groups are
+// walked this way and not by unrolled loops: the compiler then sees the
+// one-dimensional kernel's statements in its order, fuses the same products
+// into FMAs, and D = 1 keeps its bits.
+template <int B, int E, typename F>
+__device__ __forceinline__ void for_groups(F&& f) {
+    if constexpr (B < E) {
+        f(std::integral_constant<int, B>{});
+        for_groups<B + 1, E>(f);
+    }
+}
+
+template <int D, int KX>
+struct Layout {
+    static constexpr int T = D * KX + 1;
+    static constexpr int NS = D * KX + 2;
+    __host__ __device__ static constexpr int base(int g) { return 1 + g * KX; }  // group g's first
+};
+
+// The network input of one point of z (n, D+1): w = (x - lo) sc - 1, with
+// x = (z_x - c t, t) in a co-moving frame of speed c (frame != 0).
+template <int D>
+__device__ __forceinline__ void affine_map(const float* __restrict__ zr, const float* __restrict__ lo,
+                                           const float* __restrict__ sc, int frame, float c,
+                                           float* w) {
+    const float t = zr[D];
+    for_groups<0, D>([&](auto a_) {
+        constexpr int a = decltype(a_)::value;
+        // The shift rounds its product and its difference as the plain
+        // version does (no fused multiply-add).
+        const float x = frame ? __fsub_rn(zr[a], __fmul_rn(c, t)) : zr[a];
+        w[a] = (x - lo[a]) * sc[a] - 1.0f;
+    });
+    w[D] = (t - lo[D]) * sc[D] - 1.0f;
+}
+
+template <int D, int KX>
 __global__ void embed_kernel(const float* __restrict__ z, const float* __restrict__ lo,
                              const float* __restrict__ sc, const float* __restrict__ B,
-                             float* __restrict__ X, int n, int m, float s) {
+                             float* __restrict__ X, int n, int m, float s, int frame, float c) {
+    using L = Layout<D, KX>;
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= (long long)n * m) return;
     const int row = (int)(idx / m);
     const int j = (int)(idx % m);
-    const float w0 = (z[2LL * row] - lo[0]) * sc[0] - 1.0f;
-    const float w1 = (z[2LL * row + 1] - lo[1]) * sc[1] - 1.0f;
-    const float b0 = B[j];
-    const float b1 = B[m + j];
-    const float p = s * (w0 * b0 + w1 * b1);
-    const float p1x = s * (sc[0] * b0);  // d p / dx (constant over the batch)
-    const float p1t = s * (sc[1] * b1);  // d p / dt
+    float w[D + 1];
+    affine_map<D>(z + (long long)(D + 1) * row, lo, sc, frame, c, w);
+    float acc = w[0] * B[j];
+#pragma unroll
+    for (int a = 1; a <= D; ++a) acc = acc + w[a] * B[(long long)a * m + j];
+    const float p = s * acc;
+    // d p / dt (constant over the batch); in the frame also -c sc_ax B_ax.
+    float p1t = s * (sc[D] * B[(long long)D * m + j]);
+    if (frame) {
+        float v = (-c * sc[0]) * B[j];
+        for_groups<1, D>([&](auto a_) {
+            constexpr int a = decltype(a_)::value;
+            v = v + (-c * sc[a]) * B[(long long)a * m + j];
+        });
+        p1t = s * (v + sc[D] * B[(long long)D * m + j]);
+    }
     float sn, cs;
     sincosf(p, &sn, &cs);
     const long long w2 = 2LL * m;
@@ -170,68 +227,80 @@ __global__ void embed_kernel(const float* __restrict__ z, const float* __restric
     float* r0 = X + (long long)row * w2;
     r0[j] = sn;
     r0[m + j] = cs;
-    // d sin(p) = cos(p) p1 ; d cos(p) = -sin(p) p1, order by order.
-    float sk = sn, ck = cs;
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        const float p1x = s * (sc[g] * B[(long long)g * m + j]);  // d p / dx_g
+        // d sin(p) = cos(p) p1 ; d cos(p) = -sin(p) p1, order by order.
+        float sk = sn, ck = cs;
 #pragma unroll
-    for (int k = 1; k <= KX; ++k) {
-        const float s_next = ck * p1x, c_next = -sk * p1x;
-        sk = s_next;
-        ck = c_next;
-        float* rk = r0 + k * stride;
-        rk[j] = sk;
-        rk[m + j] = ck;
-    }
-    float* rt = r0 + (KX + 1) * stride;
+        for (int k = 1; k <= KX; ++k) {
+            const float s_next = ck * p1x, c_next = -sk * p1x;
+            sk = s_next;
+            ck = c_next;
+            float* rk = r0 + (L::base(g) + k - 1) * stride;
+            rk[j] = sk;
+            rk[m + j] = ck;
+        }
+    });
+    float* rt = r0 + L::T * stride;
     rt[j] = cs * p1t;
     rt[m + j] = -sn * p1t;
 }
 
-// Feedforward trunk: the stacked ((2+KX)n, 2) input [w0; sc_x e_x; 0 x (KX-1);
-// sc_t e_t] of the first Dense layer, w0 = (z - lo) sc - 1 (the input map is
+// Feedforward trunk: the stacked ((2 + dim kx) n, dim+1) input of the first
+// Dense layer, [w; per axis: sc_ax e_ax, 0 x (kx - 1); the t-direction sc_t
+// e_t, with -c sc_ax on the spatial columns in a frame] (the input map is
 // affine, so each direction is a constant row). One thread per point.
+template <int D>
 __global__ void affine_input_kernel(const float* __restrict__ z, const float* __restrict__ lo,
                                     const float* __restrict__ sc, float* __restrict__ X, int n,
-                                    int kx) {
+                                    int kx, int frame, float c) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float s0 = sc[0], s1 = sc[1];
-    const long long stride = 2LL * n;
-    float* r = X + 2LL * i;
-    r[0] = (z[2LL * i] - lo[0]) * s0 - 1.0f;
-    r[1] = (z[2LL * i + 1] - lo[1]) * s1 - 1.0f;
-    r[stride] = s0;
-    r[stride + 1] = 0.0f;
-    for (int k = 2; k <= kx; ++k) {
-        r[k * stride] = 0.0f;
-        r[k * stride + 1] = 0.0f;
-    }
-    r[(kx + 1) * stride] = 0.0f;
-    r[(kx + 1) * stride + 1] = s1;
+    constexpr int C = D + 1;  // columns
+    const long long stride = (long long)C * n;
+    float* r = X + (long long)C * i;
+    affine_map<D>(z + (long long)C * i, lo, sc, frame, c, r);
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        float* rg = r + (1 + (long long)g * kx) * stride;
+#pragma unroll
+        for (int a = 0; a < C; ++a) rg[a] = a == g ? sc[a] : 0.0f;
+        for (int k = 2; k <= kx; ++k)
+#pragma unroll
+            for (int a = 0; a < C; ++a) rg[(k - 1) * stride + a] = 0.0f;
+    });
+    float* rt = r + (1 + (long long)D * kx) * stride;
+    for_groups<0, D>([&](auto a_) {
+        constexpr int a = decltype(a_)::value;
+        rt[a] = frame ? -c * sc[a] : 0.0f;
+    });
+    rt[D] = sc[D];
 }
 
 // ------------------------------------------------------------ transport --
-// Streams of one point: index 0 the value, 1..KX the x-group, KX+1 = T the
-// first t-derivative. h points at the value row; stream s is h[s * stride].
+// h points at the value row of one point; stream s is h[s * stride].
 
 // Row statistics of the LayerNorm streams for one point (two-pass, as the
-// plain transport computes them).
-template <int KX>
+// plain transport computes them): shared r and St, one S1..S3 per x-group.
+template <int D, int KX>
 struct RowStats {
-    float mu[KX + 2];
-    float r;   // 1 / sqrt(var0 + eps)
-    float S1;  // s1 of the x-group = mean(c0 c1) r
-    float V2;  // mean(c1^2 + c0 c2)            (KX >= 2)
-    float S2;  // (V2 - S1^2) r                 (KX >= 2)
-    float V3;  // mean(3 c1 c2 + c0 c3)        (KX = 3)
-    float S3;  // (V3 - 3 S1 S2) r              (KX = 3)
-    float St;  // s1 of the t-group = mean(c0 ct) r
+    float mu[D * KX + 2];
+    float r;      // 1 / sqrt(var0 + eps)
+    float S1[D];  // mean(c0 c1) r
+    float V2[D];  // mean(c1^2 + c0 c2)            (KX >= 2)
+    float S2[D];  // (V2 - S1^2) r                 (KX >= 2)
+    float V3[D];  // mean(3 c1 c2 + c0 c3)        (KX = 3)
+    float S3[D];  // (V3 - 3 S1 S2) r              (KX = 3)
+    float St;     // s1 of the t-group = mean(c0 ct) r
 };
 
-template <int KX>
-__device__ RowStats<KX> row_stats(const float* h, long long stride, int W, int lane) {
-    constexpr int T = KX + 1;
-    RowStats<KX> st;
-    float a[KX + 2];
+template <int D, int KX>
+__device__ RowStats<D, KX> row_stats(const float* h, long long stride, int W, int lane) {
+    using L = Layout<D, KX>;
+    constexpr int T = L::T;
+    RowStats<D, KX> st;
+    float a[L::NS];
 #pragma unroll
     for (int s = 0; s <= T; ++s) a[s] = 0.f;
     for (int j = lane; j < W; j += 32) {
@@ -241,50 +310,74 @@ __device__ RowStats<KX> row_stats(const float* h, long long stride, int W, int l
     const float fw = (float)W;
 #pragma unroll
     for (int s = 0; s <= T; ++s) st.mu[s] = warp_sum(a[s]) / fw;
-    float v0 = 0.f, v01 = 0.f, v2 = 0.f, v3 = 0.f, v0t = 0.f;
+    // Statements in the one-dimensional kernel's order (the compiler's choice
+    // of which product to fuse into an FMA follows it), so D = 1 keeps its bits.
+    float v0 = 0.f, v0t = 0.f, v01[D], v2[D], v3[D];
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        v01[g] = v2[g] = v3[g] = 0.f;
+    });
     for (int j = lane; j < W; j += 32) {
-        const float c0 = h[j] - st.mu[0], c1 = h[stride + j] - st.mu[1];
+        float c1[D];
+        const float c0 = h[j] - st.mu[0];
+        for_groups<0, D>([&](auto g_) {
+            constexpr int g = decltype(g_)::value;
+            c1[g] = h[L::base(g) * stride + j] - st.mu[L::base(g)];
+        });
         const float ct = h[T * stride + j] - st.mu[T];
         v0 += c0 * c0;
-        v01 += c0 * c1;
+        for_groups<0, D>([&](auto g_) {
+            constexpr int g = decltype(g_)::value;
+            v01[g] += c0 * c1[g];
+        });
         v0t += c0 * ct;
-        if constexpr (KX >= 2) {
-            const float c2 = h[2 * stride + j] - st.mu[2];
-            v2 += c1 * c1 + c0 * c2;
-            if constexpr (KX >= 3) {
-                const float c3 = h[3 * stride + j] - st.mu[3];
-                v3 += 3.0f * c1 * c2 + c0 * c3;
+        for_groups<0, D>([&](auto g_) {
+            constexpr int g = decltype(g_)::value;
+            const int b = L::base(g);
+            if constexpr (KX >= 2) {
+                const float c2 = h[(b + 1) * stride + j] - st.mu[b + 1];
+                v2[g] += c1[g] * c1[g] + c0 * c2;
+                if constexpr (KX >= 3) {
+                    const float c3 = h[(b + 2) * stride + j] - st.mu[b + 2];
+                    v3[g] += 3.0f * c1[g] * c2 + c0 * c3;
+                }
             }
-        }
+        });
     }
     const float var0 = warp_sum(v0) / fw;
     st.r = 1.0f / sqrtf(var0 + LN_EPS);
-    st.S1 = (warp_sum(v01) / fw) * st.r;
-    st.V2 = 0.f;
-    st.S2 = 0.f;
-    if constexpr (KX >= 2) {
-        st.V2 = warp_sum(v2) / fw;
-        st.S2 = (st.V2 - st.S1 * st.S1) * st.r;
-    }
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        st.S1[g] = (warp_sum(v01[g]) / fw) * st.r;
+        st.V2[g] = 0.f;
+        st.S2[g] = 0.f;
+        if constexpr (KX >= 2) {
+            st.V2[g] = warp_sum(v2[g]) / fw;
+            st.S2[g] = (st.V2[g] - st.S1[g] * st.S1[g]) * st.r;
+        }
+    });
     st.St = (warp_sum(v0t) / fw) * st.r;
-    st.V3 = 0.f;
-    st.S3 = 0.f;
-    if constexpr (KX >= 3) {
-        st.V3 = warp_sum(v3) / fw;
-        st.S3 = (st.V3 - 3.0f * st.S1 * st.S2) * st.r;
-    }
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        st.V3[g] = 0.f;
+        st.S3[g] = 0.f;
+        if constexpr (KX >= 3) {
+            st.V3[g] = warp_sum(v3[g]) / fw;
+            st.S3[g] = (st.V3[g] - 3.0f * st.S1[g] * st.S2[g]) * st.r;
+        }
+    });
     return st;
 }
 
 // Forward quantities of one element.
-template <int KX>
+template <int D, int KX>
 struct Elem {
-    float c[KX + 2], q[KX + 2], y[KX + 2];
+    float c[D * KX + 2], q[D * KX + 2], y[D * KX + 2];
     float a0, d1, d2, d3;
 };
 
-template <int KX>
-__device__ __forceinline__ void activate(Elem<KX>& e) {
+template <int D, int KX>
+__device__ __forceinline__ void activate(Elem<D, KX>& e) {
     e.a0 = tanhf(e.y[0]);
     e.d1 = 1.0f - e.a0 * e.a0;
     e.d2 = -2.0f * e.a0 * e.d1;
@@ -292,18 +385,25 @@ __device__ __forceinline__ void activate(Elem<KX>& e) {
     if constexpr (KX >= 3) e.d3 = -2.0f * e.d1 * (1.0f - 3.0f * e.a0 * e.a0);
 }
 
-template <int KX>
-__device__ __forceinline__ Elem<KX> elem_ln(const RowStats<KX>& st, const float* hv, float g,
-                                            float b) {
-    constexpr int T = KX + 1;
-    Elem<KX> e;
+template <int D, int KX>
+__device__ __forceinline__ Elem<D, KX> elem_ln(const RowStats<D, KX>& st, const float* hv, float g,
+                                               float b) {
+    using L = Layout<D, KX>;
+    constexpr int T = L::T;
+    Elem<D, KX> e;
 #pragma unroll
     for (int s = 0; s <= T; ++s) e.c[s] = hv[s] - st.mu[s];
     e.q[0] = e.c[0] * st.r;
-    e.q[1] = (e.c[1] - e.q[0] * st.S1) * st.r;
-    if constexpr (KX >= 2) e.q[2] = (e.c[2] - 2.0f * e.q[1] * st.S1 - e.q[0] * st.S2) * st.r;
-    if constexpr (KX >= 3)
-        e.q[3] = (e.c[3] - 3.0f * e.q[2] * st.S1 - 3.0f * e.q[1] * st.S2 - e.q[0] * st.S3) * st.r;
+    for_groups<0, D>([&](auto gr_) {
+        constexpr int gr = decltype(gr_)::value;
+        const int k = L::base(gr);
+        [[maybe_unused]] const float S1 = st.S1[gr], S2 = st.S2[gr];
+        e.q[k] = (e.c[k] - e.q[0] * S1) * st.r;
+        if constexpr (KX >= 2) e.q[k + 1] = (e.c[k + 1] - 2.0f * e.q[k] * S1 - e.q[0] * S2) * st.r;
+        if constexpr (KX >= 3)
+            e.q[k + 2] = (e.c[k + 2] - 3.0f * e.q[k + 1] * S1 - 3.0f * e.q[k] * S2
+                          - e.q[0] * st.S3[gr]) * st.r;
+    });
     e.q[T] = (e.c[T] - e.q[0] * st.St) * st.r;
     e.y[0] = e.q[0] * g + b;
 #pragma unroll
@@ -312,146 +412,212 @@ __device__ __forceinline__ Elem<KX> elem_ln(const RowStats<KX>& st, const float*
     return e;
 }
 
-template <int KX>
-__device__ __forceinline__ Elem<KX> elem_plain(const float* hv) {
-    Elem<KX> e;
+template <int D, int KX>
+__device__ __forceinline__ Elem<D, KX> elem_plain(const float* hv) {
+    Elem<D, KX> e;
 #pragma unroll
-    for (int s = 0; s <= KX + 1; ++s) e.y[s] = hv[s];
+    for (int s = 0; s <= D * KX + 1; ++s) e.y[s] = hv[s];
     activate(e);
     return e;
 }
 
-template <int KX>
+template <int D, int KX>
 __device__ __forceinline__ void load_streams(const float* p, long long stride, int j, float* v) {
 #pragma unroll
-    for (int s = 0; s <= KX + 1; ++s) v[s] = p[s * stride + j];
+    for (int s = 0; s <= D * KX + 1; ++s) v[s] = p[s * stride + j];
 }
 
-// H: stacked ((2+KX)n, W) pre-activations [value; x1..xKX; t1] (bias
-// included). A: the stacked outputs [tanh; o1..oKX; ot].
-template <int KX>
+// H: stacked ((2 + D KX) n, W) pre-activations [value; D x-groups of KX; t1]
+// (bias included). A: the stacked outputs [tanh; per group o1..oKX; ot].
+template <int D, int KX>
 __global__ void transport_fwd_kernel(const float* __restrict__ H, const float* __restrict__ gamma,
                                      const float* __restrict__ beta, float* __restrict__ A,
                                      int n, int W, int use_ln) {
-    constexpr int T = KX + 1;
+    using L = Layout<D, KX>;
+    constexpr int T = L::T;
     const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (warp >= n) return;
     const long long stride = (long long)n * W;
     const float* h = H + (long long)warp * W;
     float* o = A + (long long)warp * W;
-    RowStats<KX> st;
-    if (use_ln) st = row_stats<KX>(h, stride, W, lane);
+    RowStats<D, KX> st;
+    if (use_ln) st = row_stats<D, KX>(h, stride, W, lane);
     for (int j = lane; j < W; j += 32) {
-        float hv[KX + 2];
-        load_streams<KX>(h, stride, j, hv);
-        const Elem<KX> e = use_ln ? elem_ln<KX>(st, hv, gamma[j], beta[j]) : elem_plain<KX>(hv);
+        float hv[L::NS];
+        load_streams<D, KX>(h, stride, j, hv);
+        const Elem<D, KX> e = use_ln ? elem_ln<D, KX>(st, hv, gamma[j], beta[j])
+                                     : elem_plain<D, KX>(hv);
         o[j] = e.a0;
-        o[stride + j] = e.d1 * e.y[1];
-        if constexpr (KX >= 2) o[2 * stride + j] = e.d1 * e.y[2] + e.d2 * e.y[1] * e.y[1];
-        if constexpr (KX >= 3)
-            o[3 * stride + j] = e.d1 * e.y[3] + 3.0f * e.d2 * e.y[1] * e.y[2]
-                              + e.d3 * e.y[1] * e.y[1] * e.y[1];
+        for_groups<0, D>([&](auto g_) {
+            constexpr int g = decltype(g_)::value;
+            const int k = L::base(g);
+            o[k * stride + j] = e.d1 * e.y[k];
+            if constexpr (KX >= 2)
+                o[(k + 1) * stride + j] = e.d1 * e.y[k + 1] + e.d2 * e.y[k] * e.y[k];
+            if constexpr (KX >= 3)
+                o[(k + 2) * stride + j] = e.d1 * e.y[k + 2] + 3.0f * e.d2 * e.y[k] * e.y[k + 1]
+                                        + e.d3 * e.y[k] * e.y[k] * e.y[k];
+        });
         o[T * stride + j] = e.d1 * e.y[T];
     }
 }
 
 // Cotangents of one element before the row reductions (see the derivation
-// in ops/kernels/fused_step.py: _transport_bwd_plain).
-template <int KX>
+// in ops/kernels/fused_step.py: _transport_bwd_plain). Group 0's terms come
+// first and the others are added after them, so D = 1 evaluates the
+// one-group expressions unchanged.
+template <int D, int KX>
 struct ElemGrad {
-    float Gy[KX + 2];  // cotangents of the y streams
-    float Gq[KX + 2];  // complete cotangents of the q streams (LayerNorm on)
+    float Gy[D * KX + 2];  // cotangents of the y streams
+    float Gq[D * KX + 2];  // complete cotangents of the q streams (LayerNorm on)
 };
 
-template <int KX>
-__device__ __forceinline__ ElemGrad<KX> elem_grad(const Elem<KX>& e, const RowStats<KX>& st,
-                                                  float g, const float* Go, int use_ln) {
-    constexpr int T = KX + 1;
-    ElemGrad<KX> r;
+template <int D, int KX>
+__device__ __forceinline__ ElemGrad<D, KX> elem_grad(const Elem<D, KX>& e,
+                                                     const RowStats<D, KX>& st, float g,
+                                                     const float* Go, int use_ln) {
+    using L = Layout<D, KX>;
+    constexpr int T = L::T;
+    ElemGrad<D, KX> r;
     float Ga;
     if constexpr (KX >= 2) {
-        const float Gd1 = Go[1] * e.y[1] + Go[2] * e.y[2] + Go[T] * e.y[T];
-        const float Gd2 = Go[2] * e.y[1] * e.y[1];
-        r.Gy[1] = Go[1] * e.d1 + 2.0f * Go[2] * e.d2 * e.y[1];
-        r.Gy[2] = Go[2] * e.d1;
+        float Gd1 = Go[1] * e.y[1] + Go[2] * e.y[2];
+        for_groups<1, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            const int k = L::base(gr);
+            Gd1 = Gd1 + (Go[k] * e.y[k] + Go[k + 1] * e.y[k + 1]);
+        });
+        Gd1 = Gd1 + Go[T] * e.y[T];
+        float Gd2 = Go[2] * e.y[1] * e.y[1];
+        for_groups<1, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            const int k = L::base(gr);
+            Gd2 = Gd2 + Go[k + 1] * e.y[k] * e.y[k];
+        });
+        for_groups<0, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            const int k = L::base(gr);
+            r.Gy[k] = Go[k] * e.d1 + 2.0f * Go[k + 1] * e.d2 * e.y[k];
+            r.Gy[k + 1] = Go[k + 1] * e.d1;
+        });
         Ga = Go[0] - 2.0f * e.a0 * Gd1 + Gd2 * (4.0f * e.a0 * e.a0 - 2.0f * e.d1);
     } else {
-        const float Gd1 = Go[1] * e.y[1] + Go[T] * e.y[T];
-        r.Gy[1] = Go[1] * e.d1;
+        float Gd1 = Go[1] * e.y[1];
+        for_groups<1, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            Gd1 = Gd1 + Go[1 + gr] * e.y[1 + gr];
+        });
+        Gd1 = Gd1 + Go[T] * e.y[T];
+        for_groups<0, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            r.Gy[1 + gr] = Go[1 + gr] * e.d1;
+        });
         Ga = Go[0] - 2.0f * e.a0 * Gd1;
     }
     r.Gy[T] = Go[T] * e.d1;
     if constexpr (KX >= 3) {
-        const float Go3 = Go[3];
-        const float y1 = e.y[1], y2 = e.y[2], a0 = e.a0;
-        Ga = Ga + Go3 * (-2.0f * a0 * e.y[3] + 3.0f * y1 * y2 * (4.0f * a0 * a0 - 2.0f * e.d1)
-                         + y1 * y1 * y1 * (4.0f * a0 * (1.0f - 3.0f * a0 * a0) + 12.0f * a0 * e.d1));
-        r.Gy[1] = r.Gy[1] + Go3 * (3.0f * e.d2 * y2 + 3.0f * e.d3 * y1 * y1);
-        r.Gy[2] = r.Gy[2] + 3.0f * Go3 * e.d2 * y1;
-        r.Gy[3] = Go3 * e.d1;
+        const float a0 = e.a0;
+        for_groups<0, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            const int k = L::base(gr);
+            const float Go3 = Go[k + 2];
+            const float y1 = e.y[k], y2 = e.y[k + 1];
+            Ga = Ga + Go3 * (-2.0f * a0 * e.y[k + 2] + 3.0f * y1 * y2 * (4.0f * a0 * a0 - 2.0f * e.d1)
+                             + y1 * y1 * y1 * (4.0f * a0 * (1.0f - 3.0f * a0 * a0) + 12.0f * a0 * e.d1));
+            r.Gy[k] = r.Gy[k] + Go3 * (3.0f * e.d2 * y2 + 3.0f * e.d3 * y1 * y1);
+            r.Gy[k + 1] = r.Gy[k + 1] + 3.0f * Go3 * e.d2 * y1;
+            r.Gy[k + 2] = Go3 * e.d1;
+        });
     }
     r.Gy[0] = Ga * e.d1;
     if (use_ln) {
         r.Gq[T] = r.Gy[T] * g;
-        if constexpr (KX >= 3) {
-            r.Gq[3] = r.Gy[3] * g;
-            r.Gq[2] = r.Gy[2] * g - 3.0f * r.Gq[3] * st.S1 * st.r;
-            r.Gq[1] = r.Gy[1] * g - 2.0f * r.Gq[2] * st.S1 * st.r - 3.0f * r.Gq[3] * st.S2 * st.r;
-            r.Gq[0] = r.Gy[0] * g
-                    - (r.Gq[T] * st.St + r.Gq[3] * st.S3 + r.Gq[2] * st.S2 + r.Gq[1] * st.S1) * st.r;
-        } else if constexpr (KX == 2) {
-            r.Gq[2] = r.Gy[2] * g;
-            r.Gq[1] = r.Gy[1] * g - 2.0f * r.Gq[2] * st.S1 * st.r;
-            r.Gq[0] = r.Gy[0] * g - (r.Gq[T] * st.St + r.Gq[2] * st.S2 + r.Gq[1] * st.S1) * st.r;
-        } else {
-            r.Gq[1] = r.Gy[1] * g;
-            r.Gq[0] = r.Gy[0] * g - (r.Gq[T] * st.St + r.Gq[1] * st.S1) * st.r;
-        }
+        for_groups<0, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            const int k = L::base(gr);
+            if constexpr (KX >= 3) {
+                r.Gq[k + 2] = r.Gy[k + 2] * g;
+                r.Gq[k + 1] = r.Gy[k + 1] * g - 3.0f * r.Gq[k + 2] * st.S1[gr] * st.r;
+                r.Gq[k] = r.Gy[k] * g - 2.0f * r.Gq[k + 1] * st.S1[gr] * st.r
+                        - 3.0f * r.Gq[k + 2] * st.S2[gr] * st.r;
+            } else if constexpr (KX == 2) {
+                r.Gq[k + 1] = r.Gy[k + 1] * g;
+                r.Gq[k] = r.Gy[k] * g - 2.0f * r.Gq[k + 1] * st.S1[gr] * st.r;
+            } else {
+                r.Gq[k] = r.Gy[k] * g;
+            }
+        });
+        float acc = r.Gq[T] * st.St;  // G_qt St + sum over groups of G_qk S_k
+        for_groups<0, D>([&](auto gr_) {
+            constexpr int gr = decltype(gr_)::value;
+            const int k = L::base(gr);
+            if constexpr (KX >= 3) acc = acc + r.Gq[k + 2] * st.S3[gr];
+            if constexpr (KX >= 2) acc = acc + r.Gq[k + 1] * st.S2[gr];
+            acc = acc + r.Gq[k] * st.S1[gr];
+        });
+        r.Gq[0] = r.Gy[0] * g - acc * st.r;
     }
     return r;
 }
 
+template <int D>
 struct RowScalars {
-    float GSt, GS1, GS2, GS3, GV2, GV3, Gvar0;
+    float GSt, Gvar0;
+    float GS1[D], GS2[D], GS3[D], GV2[D], GV3[D];
 };
 
 // Cotangents of the centred streams c of one element.
-template <int KX>
-__device__ __forceinline__ void centred_grads(const Elem<KX>& e, const ElemGrad<KX>& gr,
-                                              const RowStats<KX>& st, const RowScalars& sc,
+template <int D, int KX>
+__device__ __forceinline__ void centred_grads(const Elem<D, KX>& e, const ElemGrad<D, KX>& gr,
+                                              const RowStats<D, KX>& st, const RowScalars<D>& sc,
                                               float inv_w, float* Gc) {
-    constexpr int T = KX + 1;
+    using L = Layout<D, KX>;
+    constexpr int T = L::T;
     const float r = st.r;
     Gc[T] = gr.Gq[T] * r + sc.GSt * r * e.c[0] * inv_w;
-    if constexpr (KX >= 2) {
-        Gc[1] = gr.Gq[1] * r + (2.0f * sc.GV2 * e.c[1] + sc.GS1 * r * e.c[0]) * inv_w;
-        Gc[2] = gr.Gq[2] * r + sc.GV2 * e.c[0] * inv_w;
-        Gc[0] = gr.Gq[0] * r
-              + (sc.GSt * r * e.c[T] + sc.GV2 * e.c[2] + sc.GS1 * r * e.c[1]
-                 + 2.0f * sc.Gvar0 * e.c[0]) * inv_w;
-    } else {
-        Gc[1] = gr.Gq[1] * r + sc.GS1 * r * e.c[0] * inv_w;
-        Gc[0] = gr.Gq[0] * r
-              + (sc.GSt * r * e.c[T] + sc.GS1 * r * e.c[1] + 2.0f * sc.Gvar0 * e.c[0]) * inv_w;
-    }
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        const int k = L::base(g);
+        if constexpr (KX >= 2) {
+            Gc[k] = gr.Gq[k] * r + (2.0f * sc.GV2[g] * e.c[k] + sc.GS1[g] * r * e.c[0]) * inv_w;
+            Gc[k + 1] = gr.Gq[k + 1] * r + sc.GV2[g] * e.c[0] * inv_w;
+        } else {
+            Gc[k] = gr.Gq[k] * r + sc.GS1[g] * r * e.c[0] * inv_w;
+        }
+    });
+    // G_St r ct + sum over groups of (G_V2 c2 + G_S1 r c1) + 2 G_var0 c0
+    float acc = sc.GSt * r * e.c[T];
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        const int k = L::base(g);
+        if constexpr (KX >= 2) acc = acc + sc.GV2[g] * e.c[k + 1];
+        acc = acc + sc.GS1[g] * r * e.c[k];
+    });
+    Gc[0] = gr.Gq[0] * r + (acc + 2.0f * sc.Gvar0 * e.c[0]) * inv_w;
     if constexpr (KX >= 3) {
-        Gc[0] = Gc[0] + sc.GV3 * e.c[3] * inv_w;
-        Gc[1] = Gc[1] + 3.0f * sc.GV3 * e.c[2] * inv_w;
-        Gc[2] = Gc[2] + 3.0f * sc.GV3 * e.c[1] * inv_w;
-        Gc[3] = gr.Gq[3] * r + sc.GV3 * e.c[0] * inv_w;
+        for_groups<0, D>([&](auto g_) {
+            constexpr int g = decltype(g_)::value;
+            const int k = L::base(g);
+            Gc[0] = Gc[0] + sc.GV3[g] * e.c[k + 2] * inv_w;
+            Gc[k] = Gc[k] + 3.0f * sc.GV3[g] * e.c[k + 1] * inv_w;
+            Gc[k + 1] = Gc[k + 1] + 3.0f * sc.GV3[g] * e.c[k] * inv_w;
+            Gc[k + 2] = gr.Gq[k + 2] * r + sc.GV3[g] * e.c[0] * inv_w;
+        });
     }
 }
 
-// GA: stacked ((2+KX)n, W) cotangents of the transport outputs. Writes GH
+// GA: stacked ((2 + D KX)n, W) cotangents of the transport outputs. Writes GH
 // (cotangents of H) and, with LayerNorm, per-point rows of the scale and
 // bias gradients (summed over points by colsum afterwards).
-template <int KX>
+template <int D, int KX>
 __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* __restrict__ gamma,
                                      const float* __restrict__ beta, const float* __restrict__ GA,
                                      float* __restrict__ GH, float* __restrict__ Ggamma,
                                      float* __restrict__ Gbeta, int n, int W, int use_ln) {
-    constexpr int T = KX + 1;
+    using L = Layout<D, KX>;
+    constexpr int T = L::T;
+    constexpr int NS = L::NS;
     const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (warp >= n) return;
@@ -463,38 +629,52 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
 
     if (!use_ln) {
         for (int j = lane; j < W; j += 32) {
-            float hv[KX + 2], Go[KX + 2];
-            load_streams<KX>(h, stride, j, hv);
-            load_streams<KX>(ga, stride, j, Go);
-            const Elem<KX> e = elem_plain<KX>(hv);
-            const ElemGrad<KX> gr = elem_grad<KX>(e, RowStats<KX>{}, 1.0f, Go, 0);
+            float hv[NS], Go[NS];
+            load_streams<D, KX>(h, stride, j, hv);
+            load_streams<D, KX>(ga, stride, j, Go);
+            const Elem<D, KX> e = elem_plain<D, KX>(hv);
+            const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, RowStats<D, KX>{}, 1.0f, Go, 0);
 #pragma unroll
             for (int s = 0; s <= T; ++s) o[s * stride + j] = gr.Gy[s];
         }
         return;
     }
 
-    const RowStats<KX> st = row_stats<KX>(h, stride, W, lane);
-    // Pass A: row sums of the q-stream cotangents against the q streams.
-    float R00 = 0.f, R10 = 0.f, R11 = 0.f, R20 = 0.f, R21 = 0.f, R22 = 0.f, Rt0 = 0.f, Rtt = 0.f;
-    float R30 = 0.f, R31 = 0.f, R32 = 0.f, R33 = 0.f;
+    const RowStats<D, KX> st = row_stats<D, KX>(h, stride, W, lane);
+    // Pass A: row sums R_kj of the q-stream cotangents against the q streams,
+    // per group (k, j = 0..3 within the group; j = 0 is the shared q0).
+    float R00 = 0.f, Rt0 = 0.f, Rtt = 0.f;
+    float R10[D], R11[D], R20[D], R21[D], R22[D], R30[D], R31[D], R32[D], R33[D];
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        R10[g] = R11[g] = R20[g] = R21[g] = R22[g] = R30[g] = R31[g] = R32[g] = R33[g] = 0.f;
+    });
     for (int j = lane; j < W; j += 32) {
         const float g = gamma[j];
-        float hv[KX + 2], Go[KX + 2];
-        load_streams<KX>(h, stride, j, hv);
-        load_streams<KX>(ga, stride, j, Go);
-        const Elem<KX> e = elem_ln<KX>(st, hv, g, beta[j]);
-        const ElemGrad<KX> gr = elem_grad<KX>(e, st, g, Go, 1);
+        float hv[NS], Go[NS];
+        load_streams<D, KX>(h, stride, j, hv);
+        load_streams<D, KX>(ga, stride, j, Go);
+        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j]);
+        const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, st, g, Go, 1);
         Rt0 += gr.Gq[T] * e.q[0]; Rtt += gr.Gq[T] * e.q[T];
-        if constexpr (KX >= 2) {
-            R21 += gr.Gq[2] * e.q[1]; R20 += gr.Gq[2] * e.q[0]; R22 += gr.Gq[2] * e.q[2];
-        }
-        R10 += gr.Gq[1] * e.q[0]; R11 += gr.Gq[1] * e.q[1];
+        for_groups<0, D>([&](auto x_) {
+            constexpr int x = decltype(x_)::value;
+            const int k = L::base(x);
+            if constexpr (KX >= 2) {
+                R21[x] += gr.Gq[k + 1] * e.q[k]; R20[x] += gr.Gq[k + 1] * e.q[0];
+                R22[x] += gr.Gq[k + 1] * e.q[k + 1];
+            }
+            R10[x] += gr.Gq[k] * e.q[0]; R11[x] += gr.Gq[k] * e.q[k];
+        });
         R00 += gr.Gq[0] * e.q[0];
-        if constexpr (KX >= 3) {
-            R30 += gr.Gq[3] * e.q[0]; R31 += gr.Gq[3] * e.q[1];
-            R32 += gr.Gq[3] * e.q[2]; R33 += gr.Gq[3] * e.q[3];
-        }
+        for_groups<0, D>([&](auto x_) {
+            constexpr int x = decltype(x_)::value;
+            const int k = L::base(x);
+            if constexpr (KX >= 3) {
+                R30[x] += gr.Gq[k + 2] * e.q[0]; R31[x] += gr.Gq[k + 2] * e.q[k];
+                R32[x] += gr.Gq[k + 2] * e.q[k + 1]; R33[x] += gr.Gq[k + 2] * e.q[k + 2];
+            }
+        });
         float gg = 0.f;
 #pragma unroll
         for (int s = 0; s <= T; ++s) gg += gr.Gy[s] * e.q[s];
@@ -502,52 +682,78 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
         Gbeta[base + j] = gr.Gy[0];
     }
     Rt0 = warp_sum(Rt0); Rtt = warp_sum(Rtt);
-    R10 = warp_sum(R10); R11 = warp_sum(R11); R00 = warp_sum(R00);
-    RowScalars sc;
+    for_groups<0, D>([&](auto x_) {
+        constexpr int x = decltype(x_)::value;
+        R10[x] = warp_sum(R10[x]); R11[x] = warp_sum(R11[x]);
+    });
+    R00 = warp_sum(R00);
+    RowScalars<D> sc;
     const float r = st.r;
     sc.GSt = -Rt0 * r;
-    sc.GS2 = 0.f;
-    sc.GS1 = -R10 * r;
-    float Rdiag = Rtt + R11 + R00;
-    if constexpr (KX >= 2) {
-        R21 = warp_sum(R21); R20 = warp_sum(R20); R22 = warp_sum(R22);
-        sc.GS2 = -R20 * r;
-        sc.GS1 = -2.0f * R21 * r - R10 * r;
-        Rdiag = Rtt + R22 + R11 + R00;
-    }
-    sc.GS3 = 0.f;
-    sc.GV3 = 0.f;
-    if constexpr (KX >= 3) {
-        R30 = warp_sum(R30); R31 = warp_sum(R31); R32 = warp_sum(R32); R33 = warp_sum(R33);
-        sc.GS3 = -R30 * r;
-        sc.GS2 = sc.GS2 - 3.0f * R31 * r - 3.0f * st.S1 * r * sc.GS3;
-        sc.GS1 = sc.GS1 - 3.0f * R32 * r - 3.0f * st.S2 * r * sc.GS3;
-        sc.GV3 = sc.GS3 * r;
-        Rdiag = Rdiag + R33 + sc.GS3 * st.S3;
-    }
-    sc.GV2 = sc.GS2 * r;
-    float Gr;
-    if constexpr (KX >= 2) {
-        sc.GS1 = sc.GS1 - 2.0f * st.S1 * r * sc.GS2;
-        Gr = (Rdiag + sc.GSt * st.St + sc.GS2 * st.S2 + sc.GS1 * st.S1) / r;
-    } else {
-        Gr = (Rdiag + sc.GSt * st.St + sc.GS1 * st.S1) / r;
-    }
+    for_groups<0, D>([&](auto x_) {
+        constexpr int x = decltype(x_)::value;
+        sc.GS2[x] = 0.f;
+        sc.GS1[x] = -R10[x] * r;
+        if constexpr (KX >= 2) {
+            R21[x] = warp_sum(R21[x]); R20[x] = warp_sum(R20[x]); R22[x] = warp_sum(R22[x]);
+            sc.GS2[x] = -R20[x] * r;
+            sc.GS1[x] = -2.0f * R21[x] * r - R10[x] * r;
+        }
+    });
+    // Rdiag = Rtt + sum over groups of (R22 + R11) + R00, then each group's
+    // R33 + G_S3 S3; Gr's numerator adds G_St St and each group's G_S2 S2 + G_S1 S1.
+    float Rdiag = Rtt;
+    for_groups<0, D>([&](auto x_) {
+        constexpr int x = decltype(x_)::value;
+        if constexpr (KX >= 2) Rdiag = Rdiag + R22[x];
+        Rdiag = Rdiag + R11[x];
+    });
+    Rdiag = Rdiag + R00;
+    for_groups<0, D>([&](auto x_) {
+        constexpr int x = decltype(x_)::value;
+        sc.GS3[x] = 0.f;
+        sc.GV3[x] = 0.f;
+    });
+    for_groups<0, D>([&](auto x_) {
+        constexpr int x = decltype(x_)::value;
+        if constexpr (KX >= 3) {
+            R30[x] = warp_sum(R30[x]); R31[x] = warp_sum(R31[x]);
+            R32[x] = warp_sum(R32[x]); R33[x] = warp_sum(R33[x]);
+            sc.GS3[x] = -R30[x] * r;
+            sc.GS2[x] = sc.GS2[x] - 3.0f * R31[x] * r - 3.0f * st.S1[x] * r * sc.GS3[x];
+            sc.GS1[x] = sc.GS1[x] - 3.0f * R32[x] * r - 3.0f * st.S2[x] * r * sc.GS3[x];
+            sc.GV3[x] = sc.GS3[x] * r;
+            Rdiag = Rdiag + R33[x] + sc.GS3[x] * st.S3[x];
+        }
+        sc.GV2[x] = sc.GS2[x] * r;
+    });
+    if constexpr (KX >= 2)
+        for_groups<0, D>([&](auto x_) {
+            constexpr int x = decltype(x_)::value;
+            sc.GS1[x] = sc.GS1[x] - 2.0f * st.S1[x] * r * sc.GS2[x];
+        });
+    float num = Rdiag + sc.GSt * st.St;
+    for_groups<0, D>([&](auto x_) {
+        constexpr int x = decltype(x_)::value;
+        if constexpr (KX >= 2) num = num + sc.GS2[x] * st.S2[x];
+        num = num + sc.GS1[x] * st.S1[x];
+    });
+    const float Gr = num / r;
     sc.Gvar0 = -0.5f * r * r * r * Gr;
     const float inv_w = 1.0f / (float)W;
 
     // Pass B: means of the centred-stream cotangents.
-    float m[KX + 2];
+    float m[NS];
 #pragma unroll
     for (int s = 0; s <= T; ++s) m[s] = 0.f;
     for (int j = lane; j < W; j += 32) {
         const float g = gamma[j];
-        float hv[KX + 2], Go[KX + 2], Gc[KX + 2];
-        load_streams<KX>(h, stride, j, hv);
-        load_streams<KX>(ga, stride, j, Go);
-        const Elem<KX> e = elem_ln<KX>(st, hv, g, beta[j]);
-        const ElemGrad<KX> gr = elem_grad<KX>(e, st, g, Go, 1);
-        centred_grads<KX>(e, gr, st, sc, inv_w, Gc);
+        float hv[NS], Go[NS], Gc[NS];
+        load_streams<D, KX>(h, stride, j, hv);
+        load_streams<D, KX>(ga, stride, j, Go);
+        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j]);
+        const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, st, g, Go, 1);
+        centred_grads<D, KX>(e, gr, st, sc, inv_w, Gc);
 #pragma unroll
         for (int s = 0; s <= T; ++s) m[s] += Gc[s];
     }
@@ -557,126 +763,192 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
     // Pass C: centring is self-adjoint: G_h = G_c - mean(G_c).
     for (int j = lane; j < W; j += 32) {
         const float g = gamma[j];
-        float hv[KX + 2], Go[KX + 2], Gc[KX + 2];
-        load_streams<KX>(h, stride, j, hv);
-        load_streams<KX>(ga, stride, j, Go);
-        const Elem<KX> e = elem_ln<KX>(st, hv, g, beta[j]);
-        const ElemGrad<KX> gr = elem_grad<KX>(e, st, g, Go, 1);
-        centred_grads<KX>(e, gr, st, sc, inv_w, Gc);
+        float hv[NS], Go[NS], Gc[NS];
+        load_streams<D, KX>(h, stride, j, hv);
+        load_streams<D, KX>(ga, stride, j, Go);
+        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j]);
+        const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, st, g, Go, 1);
+        centred_grads<D, KX>(e, gr, st, sc, inv_w, Gc);
 #pragma unroll
         for (int s = 0; s <= T; ++s) o[s * stride + j] = Gc[s] - m[s];
     }
 }
 
 // ------------------------------------------------------------ residuals --
-// U: stacked network outputs (bias included), Burgers and heat
-// [u; u_x; u_xx; u_t], KdV [u; u_x; u_xx; u_xxx; u_t]. Plain: out = r^2, dU = 2r/N dr/dU.
-// Causal: out = r, dU = dr/dU (scaled later by causal_scale_kernel).
+// U: the stacked network outputs (bias included) [u; per axis u_x..; u_t]:
+// Burgers, heat, Allen-Cahn and Black-Scholes [u; D x (u_x, u_xx); u_t], KdV
+// [u; D x (u_x, u_xx, u_xxx); u_t], convection [u; D x u_x; u_t]. The sums over
+// the axes start from axis 0, so D = 1 evaluates the one-axis expressions.
+// Plain: out = r^2, dU = 2r/N dr/dU. Causal: out = r, dU = dr/dU (scaled
+// later by causal_scale_kernel).
 
+template <int D>
 __global__ void burgers_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                float* __restrict__ out, int n, float nu, float two_over_n,
                                int causal) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float u = U[i], ux = U[n + i], uxx = U[2 * n + i], ut = U[3 * n + i];
+    const float u = U[i], ut = U[(2 * D + 1) * n + i];
+    float ux = U[n + i], uxx = U[2 * n + i];
+    for_groups<1, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        ux = ux + U[(1 + 2 * g) * n + i];
+        uxx = uxx + U[(2 + 2 * g) * n + i];
+    });
     const float r = (ut + u * ux) - nu * uxx;
-    if (causal) {
-        out[i] = r;
-        dU[i] = ux;
-        dU[n + i] = u;
-        dU[2 * n + i] = -nu;
-        dU[3 * n + i] = 1.0f;
-        return;
-    }
-    out[i] = r * r;
-    const float c = two_over_n * r;
-    dU[i] = c * ux;
-    dU[n + i] = c * u;
-    dU[2 * n + i] = -c * nu;
-    dU[3 * n + i] = c;
+    const float c = causal ? 1.0f : two_over_n * r;
+    out[i] = causal ? r : r * r;
+    dU[i] = causal ? ux : c * ux;
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        dU[(1 + 2 * g) * n + i] = causal ? u : c * u;
+        dU[(2 + 2 * g) * n + i] = causal ? -nu : -c * nu;
+    });
+    dU[(2 * D + 1) * n + i] = c;
 }
 
-// Heat: r = u_t - alpha u_xx, linear (dr/du_t = 1, dr/du_xx = -alpha).
+// Heat: r = u_t - alpha sum u_xx, linear (dr/du_t = 1, dr/du_xx = -alpha).
+template <int D>
 __global__ void heat_kernel(const float* __restrict__ U, float* __restrict__ dU,
                             float* __restrict__ out, int n, float alpha, float two_over_n,
                             int causal) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float uxx = U[2 * n + i], ut = U[3 * n + i];
+    float uxx = U[2 * n + i];
+    for_groups<1, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        uxx = uxx + U[(2 + 2 * g) * n + i];
+    });
+    const float ut = U[(2 * D + 1) * n + i];
     const float r = ut - alpha * uxx;
     out[i] = causal ? r : r * r;
     const float c = causal ? 1.0f : two_over_n * r;
     dU[i] = 0.0f;
-    dU[n + i] = 0.0f;
-    dU[2 * n + i] = -c * alpha;
-    dU[3 * n + i] = c;
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        dU[(1 + 2 * g) * n + i] = 0.0f;
+        dU[(2 + 2 * g) * n + i] = -c * alpha;
+    });
+    dU[(2 * D + 1) * n + i] = c;
 }
 
+// KdV: r = u_t + 6 u sum u_x + sum u_xxx.
+template <int D>
 __global__ void kdv_kernel(const float* __restrict__ U, float* __restrict__ dU,
                            float* __restrict__ out, int n, float two_over_n, int causal) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float u = U[i], ux = U[n + i], uxxx = U[3 * n + i], ut = U[4 * n + i];
+    const float u = U[i], ut = U[(3 * D + 1) * n + i];
+    float ux = U[n + i], uxxx = U[3 * n + i];
+    for_groups<1, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        ux = ux + U[(1 + 3 * g) * n + i];
+        uxxx = uxxx + U[(3 + 3 * g) * n + i];
+    });
     const float r = ut + 6.0f * u * ux + uxxx;
     out[i] = causal ? r : r * r;
     const float c = causal ? 1.0f : two_over_n * r;
     dU[i] = c * (6.0f * ux);
-    dU[n + i] = c * (6.0f * u);
-    dU[2 * n + i] = 0.0f;
-    dU[3 * n + i] = c;
-    dU[4 * n + i] = c;
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        dU[(1 + 3 * g) * n + i] = c * (6.0f * u);
+        dU[(2 + 3 * g) * n + i] = 0.0f;
+        dU[(3 + 3 * g) * n + i] = c;
+    });
+    dU[(3 * D + 1) * n + i] = c;
 }
 
-// Convection: r = u_t + v u_x over U = [u; u_x; u_t] (dr/dU = [0, v, 1]).
+// Convection: r = u_t + sum v_ax u_x over U = [u; D x u_x; u_t]
+// (dr/dU = [0, v_0, .., v_{D-1}, 1]).
+template <int D>
 __global__ void convection_kernel(const float* __restrict__ U, float* __restrict__ dU,
-                                  float* __restrict__ out, int n, float v, float two_over_n,
-                                  int causal) {
+                                  float* __restrict__ out, int n, float v0, float v1, float v2,
+                                  float two_over_n, int causal) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float ux = U[n + i], ut = U[2 * n + i];
-    const float r = ut + v * ux;
+    const float v[3] = {v0, v1, v2};
+    float vx = v[0] * U[n + i];
+    for_groups<1, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        vx = vx + v[g] * U[(1 + g) * n + i];
+    });
+    const float ut = U[(D + 1) * n + i];
+    const float r = ut + vx;
     out[i] = causal ? r : r * r;
     const float c = causal ? 1.0f : two_over_n * r;
     dU[i] = 0.0f;
-    dU[n + i] = c * v;
-    dU[2 * n + i] = c;
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        dU[(1 + g) * n + i] = c * v[g];
+    });
+    dU[(D + 1) * n + i] = c;
 }
 
-// Allen-Cahn: r = u_t - eps^2 u_xx - u + u^3 (dr/dU = [3u^2 - 1, 0, -eps^2, 1]).
+// Allen-Cahn: r = u_t - eps^2 sum u_xx - u + u^3 (dr/du = 3u^2 - 1, dr/du_xx = -eps^2).
+template <int D>
 __global__ void allen_cahn_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                   float* __restrict__ out, int n, float eps2, float two_over_n,
                                   int causal) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float u = U[i], uxx = U[2 * n + i], ut = U[3 * n + i];
+    const float u = U[i], ut = U[(2 * D + 1) * n + i];
+    float uxx = U[2 * n + i];
+    for_groups<1, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        uxx = uxx + U[(2 + 2 * g) * n + i];
+    });
     const float r = ((ut - eps2 * uxx) - u) + u * u * u;
     out[i] = causal ? r : r * r;
     const float c = causal ? 1.0f : two_over_n * r;
     dU[i] = c * (3.0f * u * u - 1.0f);
-    dU[n + i] = 0.0f;
-    dU[2 * n + i] = -c * eps2;
-    dU[3 * n + i] = c;
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        dU[(1 + 2 * g) * n + i] = 0.0f;
+        dU[(2 + 2 * g) * n + i] = -c * eps2;
+    });
+    dU[(2 * D + 1) * n + i] = c;
 }
 
-// Black-Scholes with time sign s (+1 calendar, -1 to maturity) and S = z[i, 0]:
-// r = V_t - s rate V + s (h S^2 V_SS + rate S V_S), h = sigma^2 / 2
-// (dr/dU = [-s rate, s rate S, s h S^2, 1]). The one residual that reads z.
+// Black-Scholes with time sign s (+1 calendar, -1 to maturity) and S = z[i, ax]
+// along each axis: r = V_t - s rate V + s sum (h S^2 V_SS + rate S V_S),
+// h = sigma^2 / 2 (dr/dU = [-s rate; per axis s rate S, s h S^2; 1]). The one
+// residual that reads z (n, D+1).
+template <int D>
 __global__ void black_scholes_kernel(const float* __restrict__ U, const float* __restrict__ z,
                                      float* __restrict__ dU, float* __restrict__ out, int n,
                                      float sign, float half_sigma2, float rate, float two_over_n,
                                      int causal) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float V = U[i], VS = U[n + i], VSS = U[2 * n + i], Vt = U[3 * n + i];
-    const float S = z[2LL * i];
-    const float cSS = half_sigma2 * (S * S), cS = rate * S;
-    const float r = (Vt - (sign * rate) * V) + sign * (cSS * VSS + cS * VS);
+    float VS[D], VSS[D], cSS[D], cS[D];
+    const float V = U[i];
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        VS[g] = U[(1 + 2 * g) * n + i];
+        VSS[g] = U[(2 + 2 * g) * n + i];
+    });
+    const float Vt = U[(2 * D + 1) * n + i];
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        const float S = z[(long long)(D + 1) * i + g];
+        cSS[g] = half_sigma2 * (S * S);
+        cS[g] = rate * S;
+    });
+    float sum = cSS[0] * VSS[0] + cS[0] * VS[0];
+    for_groups<1, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        sum = sum + (cSS[g] * VSS[g] + cS[g] * VS[g]);
+    });
+    const float r = (Vt - (sign * rate) * V) + sign * sum;
     out[i] = causal ? r : r * r;
     const float c = causal ? 1.0f : two_over_n * r;
     dU[i] = -c * (sign * rate);
-    dU[n + i] = c * (sign * cS);
-    dU[2 * n + i] = c * (sign * cSS);
-    dU[3 * n + i] = c;
+    for_groups<0, D>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        dU[(1 + 2 * g) * n + i] = c * (sign * cS[g]);
+        dU[(2 + 2 * g) * n + i] = c * (sign * cSS[g]);
+    });
+    dU[(2 * D + 1) * n + i] = c;
 }
 
 // ---------------------------------------------------------- causal scan --
@@ -821,34 +1093,65 @@ inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) /
 
 // ------------------------------------------------------- C entry points --
 // Each launches on the given stream and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an x-order other than 1, 2 or 3).
+// cudaErrorInvalidValue for an x-order other than 1, 2 or 3, or a number of
+// space dimensions other than 1, 2 or 3).
 
 inline bool kx_ok(int kx) { return kx >= 1 && kx <= 3; }
+inline bool dim_ok(int dim) { return dim >= 1 && dim <= 3; }
 
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// fn(Int<D>{}) for the runtime dim (checked by dim_ok).
+template <typename Fn>
+inline void with_dim(int dim, Fn&& fn) {
+    if (dim == 3)
+        fn(Int<3>{});
+    else if (dim == 2)
+        fn(Int<2>{});
+    else
+        fn(Int<1>{});
+}
+
+// fn(Int<D>{}, Int<KX>{}) for the runtime dim and kx (checked by dim_ok, kx_ok).
+template <typename Fn>
+inline void with_dim_kx(int dim, int kx, Fn&& fn) {
+    with_dim(dim, [&](auto d) {
+        if (kx == 3)
+            fn(d, Int<3>{});
+        else if (kx == 2)
+            fn(d, Int<2>{});
+        else
+            fn(d, Int<1>{});
+    });
+}
+
+// X ((2 + dim kx) n, 2m): the Fourier trunk's stacked input of z (n, dim+1);
+// frame != 0: a co-moving frame of speed c.
 extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const float* B,
-                        float* X, int n, int m, int two_pi, int kx, void* stream) {
+                        float* X, int n, int m, int two_pi, int kx, int dim, int frame, float c,
+                        void* stream) {
     const float s = two_pi ? 6.283185307179586f : 1.0f;
     const long long total = (long long)n * m;
-    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
-    if (total > 0) {
-        const unsigned grid = cdiv(total, 256);
-        cudaStream_t st = (cudaStream_t)stream;
-        if (kx == 3)
-            embed_kernel<3><<<grid, 256, 0, st>>>(z, lo, sc, B, X, n, m, s);
-        else if (kx == 2)
-            embed_kernel<2><<<grid, 256, 0, st>>>(z, lo, sc, B, X, n, m, s);
-        else
-            embed_kernel<1><<<grid, 256, 0, st>>>(z, lo, sc, B, X, n, m, s);
-    }
+    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (total > 0)
+        with_dim_kx(dim, kx, [&](auto d, auto k) {
+            embed_kernel<decltype(d)::value, decltype(k)::value>
+                <<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m, s,
+                                                                     frame, c);
+        });
     return (int)cudaGetLastError();
 }
 
-// X ((2+kx)n, 2): the feedforward trunk's stacked input.
+// X ((2 + dim kx) n, dim+1): the feedforward trunk's stacked input.
 extern "C" int fr_affine_input(const float* z, const float* lo, const float* sc, float* X, int n,
-                               int kx, void* stream) {
-    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
+                               int kx, int dim, int frame, float c, void* stream) {
+    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        affine_input_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx);
+        with_dim(dim, [&](auto d) {
+            affine_input_kernel<decltype(d)::value>
+                <<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx, frame, c);
+        });
     return (int)cudaGetLastError();
 }
 
@@ -886,85 +1189,97 @@ extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K
 }
 
 extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float* beta, float* A,
-                                int n, int W, int use_ln, int kx, void* stream) {
-    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        cudaStream_t st = (cudaStream_t)stream;
-        if (kx == 3)
-            transport_fwd_kernel<3><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, A, n, W, use_ln);
-        else if (kx == 2)
-            transport_fwd_kernel<2><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, A, n, W, use_ln);
-        else
-            transport_fwd_kernel<1><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, A, n, W, use_ln);
-    }
+                                int n, int W, int use_ln, int kx, int dim, void* stream) {
+    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (n > 0)
+        with_dim_kx(dim, kx, [&](auto d, auto k) {
+            transport_fwd_kernel<decltype(d)::value, decltype(k)::value>
+                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln);
+        });
     return (int)cudaGetLastError();
 }
 
 extern "C" int fr_transport_bwd(const float* H, const float* gamma, const float* beta,
                                 const float* GA, float* GH, float* Ggamma, float* Gbeta, int n,
-                                int W, int use_ln, int kx, void* stream) {
-    if (!kx_ok(kx)) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        cudaStream_t st = (cudaStream_t)stream;
-        if (kx == 3)
-            transport_bwd_kernel<3><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, GA, GH, Ggamma,
-                                                                Gbeta, n, W, use_ln);
-        else if (kx == 2)
-            transport_bwd_kernel<2><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, GA, GH, Ggamma,
-                                                                Gbeta, n, W, use_ln);
-        else
-            transport_bwd_kernel<1><<<cdiv(n, 8), 256, 0, st>>>(H, gamma, beta, GA, GH, Ggamma,
-                                                                Gbeta, n, W, use_ln);
-    }
-    return (int)cudaGetLastError();
-}
-
-extern "C" int fr_burgers(const float* U, float* dU, float* out, int n, float nu, int causal,
-                          void* stream) {
+                                int W, int use_ln, int kx, int dim, void* stream) {
+    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        burgers_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, nu,
-                                                                       2.0f / (float)n, causal);
+        with_dim_kx(dim, kx, [&](auto d, auto k) {
+            transport_bwd_kernel<decltype(d)::value, decltype(k)::value>
+                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
+                                                               Gbeta, n, W, use_ln);
+        });
     return (int)cudaGetLastError();
 }
 
-extern "C" int fr_heat(const float* U, float* dU, float* out, int n, float alpha, int causal,
-                       void* stream) {
+// The residuals over U ((2 + dim K) n, 1); out (n, 1) and dU as U.
+extern "C" int fr_burgers(const float* U, float* dU, float* out, int n, int dim, float nu,
+                          int causal, void* stream) {
+    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        heat_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, alpha,
-                                                                    2.0f / (float)n, causal);
+        with_dim(dim, [&](auto d) {
+            burgers_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                U, dU, out, n, nu, 2.0f / (float)n, causal);
+        });
     return (int)cudaGetLastError();
 }
 
-extern "C" int fr_kdv(const float* U, float* dU, float* out, int n, int causal, void* stream) {
+extern "C" int fr_heat(const float* U, float* dU, float* out, int n, int dim, float alpha,
+                       int causal, void* stream) {
+    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        kdv_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, 2.0f / (float)n,
-                                                                   causal);
+        with_dim(dim, [&](auto d) {
+            heat_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                U, dU, out, n, alpha, 2.0f / (float)n, causal);
+        });
     return (int)cudaGetLastError();
 }
 
-extern "C" int fr_convection(const float* U, float* dU, float* out, int n, float v, int causal,
-                             void* stream) {
+extern "C" int fr_kdv(const float* U, float* dU, float* out, int n, int dim, int causal,
+                      void* stream) {
+    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        convection_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, v,
-                                                                          2.0f / (float)n, causal);
+        with_dim(dim, [&](auto d) {
+            kdv_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                U, dU, out, n, 2.0f / (float)n, causal);
+        });
     return (int)cudaGetLastError();
 }
 
-extern "C" int fr_allen_cahn(const float* U, float* dU, float* out, int n, float eps2, int causal,
-                             void* stream) {
+// v0, v1, v2: the velocity along each axis (those past dim unused).
+extern "C" int fr_convection(const float* U, float* dU, float* out, int n, int dim, float v0,
+                             float v1, float v2, int causal, void* stream) {
+    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        allen_cahn_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, eps2,
-                                                                          2.0f / (float)n, causal);
+        with_dim(dim, [&](auto d) {
+            convection_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                U, dU, out, n, v0, v1, v2, 2.0f / (float)n, causal);
+        });
     return (int)cudaGetLastError();
 }
 
-// z: the (n, 2) points, S = z[i, 0].
+extern "C" int fr_allen_cahn(const float* U, float* dU, float* out, int n, int dim, float eps2,
+                             int causal, void* stream) {
+    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (n > 0)
+        with_dim(dim, [&](auto d) {
+            allen_cahn_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                U, dU, out, n, eps2, 2.0f / (float)n, causal);
+        });
+    return (int)cudaGetLastError();
+}
+
+// z: the (n, dim+1) points, S = z[i, ax] along axis ax.
 extern "C" int fr_black_scholes(const float* U, const float* z, float* dU, float* out, int n,
-                                float sign, float half_sigma2, float rate, int causal,
+                                int dim, float sign, float half_sigma2, float rate, int causal,
                                 void* stream) {
+    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        black_scholes_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
-            U, z, dU, out, n, sign, half_sigma2, rate, 2.0f / (float)n, causal);
+        with_dim(dim, [&](auto d) {
+            black_scholes_kernel<decltype(d)::value>
+                <<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                    U, z, dU, out, n, sign, half_sigma2, rate, 2.0f / (float)n, causal);
+        });
     return (int)cudaGetLastError();
 }
 

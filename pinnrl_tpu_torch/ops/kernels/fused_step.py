@@ -25,14 +25,17 @@ the scan's block arithmetic and all the layout and stride bookkeeping against
 autograd — and the chip smoke test compares the CUDA set with the plain
 version on the card.
 
-Scope: one space dimension, temporal order 1, causal or not, float32, on a
+Scope: d = 1 to 3 space dimensions, temporal order 1, causal or not,
+float32, with or without a co-moving frame (the input (x - c t, t)), on a
 Fourier trunk (the embedding's closed-form phase-rotation streams) or a
 feedforward trunk (the input map's constant direction rows, then a first
-GEMM with two input columns), with the residual of Burgers, heat or
-Allen-Cahn (spatial order 2, 4 stacked streams), Black-Scholes (order 2;
-the one residual that reads z, for S), KdV (order 3, 5 streams) or
-convection (order 1, 3 streams). Two space dimensions and the moving frame
-are ROADMAP queue 2's K1b and K1d'.
+GEMM with d + 1 input columns), with the residual of Burgers, heat or
+Allen-Cahn (spatial order K = 2), Black-Scholes (order 2; the one residual
+that reads z, for S along each axis), KdV (order 3) or convection (order 1,
+one velocity per axis). The stacked streams are [value; axis 0: 1..K; ..;
+axis d-1: 1..K; t1], S = 2 + d K of them (the bundle's order); the x-groups
+share the value stream's LayerNorm and tanh factors, and the residuals sum
+over the axes.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ _LN_EPS = 1e-6
 _COLSUM_ROWS = 256
 _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
 _RESIDUALS = ("burgers", "heat", "kdv", "convection", "allen_cahn", "black_scholes")
+_MAX_DIM = 3  # space dimensions the CUDA kernels are instantiated for
 _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 
 
@@ -60,201 +64,261 @@ _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 # --------------------------------------------------------------------------- #
 
 
-def _embed_plain(z, lo, sc, B, two_pi: bool, x_order: int) -> torch.Tensor:
-    """Stacked ((2 + x_order) N, 2m) Fourier input [value; x1..xK; t1]: the
-    phase-rotation recurrence (s, c) <- (c p1, -s p1) of jet_mlp."""
+def _embed_plain(z, lo, sc, B, two_pi: bool, x_order: int, frame: Optional[float]) -> torch.Tensor:
+    """Stacked ((2 + d K) N, 2m) Fourier input [value; axis 0: x1..xK; ..;
+    axis d-1: x1..xK; t1] of the (N, d+1) points z, K = ``x_order``: the
+    phase-rotation recurrence (s, c) <- (c p1, -s p1) of jet_mlp, with
+    p1 = s sc_ax B_ax along axis ax. In a co-moving frame of speed c the
+    network sees (x - c t, t), so the t-direction's rate is
+    p1t = s (sc_t B_t - c sum_ax sc_ax B_ax)."""
     s = 2.0 * math.pi if two_pi else 1.0
-    w0 = (z - lo) * sc - 1.0
+    d = z.shape[1] - 1
+    w0 = _affine_map(z, lo, sc, frame)
     p = s * (w0 @ B)
-    p1x = s * (sc[0] * B[0])
-    p1t = s * (sc[1] * B[1])
     sn, cs = torch.sin(p), torch.cos(p)
     rows = [torch.cat([sn, cs], dim=-1)]
-    s_cur, c_cur = sn, cs
-    for _ in range(x_order):
-        s_cur, c_cur = c_cur * p1x, -s_cur * p1x
-        rows.append(torch.cat([s_cur, c_cur], dim=-1))
+    for ax in range(d):
+        p1 = s * (sc[ax] * B[ax])
+        s_cur, c_cur = sn, cs
+        for _ in range(x_order):
+            s_cur, c_cur = c_cur * p1, -s_cur * p1
+            rows.append(torch.cat([s_cur, c_cur], dim=-1))
+    p1t = s * (_t_direction(sc, frame) @ B)
     rows.append(torch.cat([cs * p1t, -sn * p1t], dim=-1))
     return torch.cat(rows, dim=0)
 
 
-def _affine_input_plain(z, lo, sc, x_order: int) -> torch.Tensor:
-    """Stacked ((2 + x_order) N, 2) input of the feedforward trunk's first
-    layer, [w0; sc_x e_x; 0 x (x_order - 1); sc_t e_t] with w0 = (z - lo) sc
-    - 1: the plain bundle's direction rows (jet_mlp.make_bundle_fn)."""
-    n = z.shape[0]
-    w0 = (z - lo) * sc - 1.0
+def _affine_map(z, lo, sc, frame: Optional[float]) -> torch.Tensor:
+    """The network input w0 = (x - lo) sc - 1 of z, with x = (z_x - c t, t)
+    in a co-moving frame of speed c (``PINNModel.map_inputs``)."""
+    if frame is not None:
+        d = z.shape[1] - 1
+        z = torch.cat([z[:, :d] - frame * z[:, d:], z[:, d:]], dim=1)
+    return (z - lo) * sc - 1.0
+
+
+def _t_direction(sc, frame: Optional[float]) -> torch.Tensor:
+    """The t-direction in network-input space: sc_t e_t, and in a co-moving
+    frame of speed c also -c sc_ax on every spatial column."""
+    if frame is None:
+        return torch.diag(sc)[-1]
+    return torch.cat([-frame * sc[:-1], sc[-1:]])
+
+
+def _affine_input_plain(z, lo, sc, x_order: int, frame: Optional[float]) -> torch.Tensor:
+    """Stacked ((2 + d K) N, d+1) input of the feedforward trunk's first
+    layer, [w0; per axis: sc_ax e_ax, 0 x (K - 1); the t-direction], K =
+    ``x_order``: the plain bundle's direction rows (jet_mlp.make_bundle_fn)."""
+    n, d = z.shape[0], z.shape[1] - 1
     dirs = torch.diag(sc)  # row k: sc_k e_k
-    rows = [w0, dirs[0].expand(n, 2), w0.new_zeros(((x_order - 1) * n, 2)), dirs[1].expand(n, 2)]
+    rows = [_affine_map(z, lo, sc, frame)]
+    for ax in range(d):
+        rows += [dirs[ax].expand(n, d + 1), z.new_zeros(((x_order - 1) * n, d + 1))]
+    rows.append(_t_direction(sc, frame).expand(n, d + 1))
     return torch.cat(rows, dim=0)
 
 
-def _transport_fwd_plain(H, gamma, beta, n: int) -> torch.Tensor:
+def _split_streams(T: torch.Tensor, n: int, dim: int):
+    """(value, the ``dim`` x-groups' stream lists, t1) of a stacked (S n, W)
+    tensor, S = 2 + dim K."""
+    hs = T.split(n, dim=0)
+    k = (len(hs) - 2) // dim
+    return hs[0], [list(hs[1 + g * k: 1 + (g + 1) * k]) for g in range(dim)], hs[-1]
+
+
+def _transport_fwd_plain(H, gamma, beta, n: int, dim: int) -> torch.Tensor:
     """LayerNorm + tanh transport of the stacked (S n, W) pre-activations,
-    S = 2 + K streams [value; x1..xK; t1]."""
-    hs = H.split(n, dim=0)
-    a0, (xs, (ot,)) = _transport_block(hs[0], [list(hs[1:-1]), [hs[-1]]], gamma, beta, "tanh")
-    return torch.cat([a0, *xs, ot], dim=0)
+    S = 2 + dim K streams [value; ``dim`` x-groups of K; t1]."""
+    h0, hx, ht = _split_streams(H, n, dim)
+    a0, groups = _transport_block(h0, [*hx, [ht]], gamma, beta, "tanh")
+    return torch.cat([a0, *[o for g in groups for o in g]], dim=0)
 
 
-def _transport_bwd_plain(H, gamma, beta, GA, n: int):
-    """Hand-derived reverse pass of ``_transport_fwd_plain``, x-order K in {1, 2, 3}.
+def _mean(v):
+    return torch.mean(v, dim=-1, keepdim=True)
 
-    Forward, per point (row means over the width W; r = 1/sqrt(var0+eps)):
-        c_k = h_k - mean(h_k)                      k in {0, 1, .., K, t}
+
+def _rsum(v):
+    return torch.sum(v, dim=-1, keepdim=True)
+
+
+def _ln_group(c0, q0, r, c):
+    """One x-group's LayerNorm row scalars and q streams from its K centred
+    streams ``c``: ([S1..SK], [V2..VK], [q1..qK])."""
+    K = len(c)
+    S = [_mean(c0 * c[0]) * r]
+    V = []
+    q = [(c[0] - q0 * S[0]) * r]
+    if K >= 2:
+        V.append(_mean(c[0] * c[0] + c0 * c[1]))
+        S.append((V[0] - S[0] * S[0]) * r)
+        q.append((c[1] - 2.0 * q[0] * S[0] - q0 * S[1]) * r)
+    if K == 3:
+        V.append(_mean(3.0 * c[0] * c[1] + c0 * c[2]))
+        S.append((V[1] - 3.0 * S[0] * S[1]) * r)
+        q.append((c[2] - 3.0 * q[1] * S[0] - 3.0 * q[0] * S[1] - q0 * S[2]) * r)
+    return S, V, q
+
+
+def _tanh_group_bwd(a0, d1, d2, d3, y, Go):
+    """One x-group's share of the tanh transport's reverse: (its term of
+    G_a0, [G_y1..G_yK])."""
+    K = len(y)
+    if K == 1:
+        return -2.0 * a0 * (Go[0] * y[0]), [Go[0] * d1]
+    Gd1 = Go[0] * y[0] + Go[1] * y[1]
+    Gd2 = Go[1] * y[0] * y[0]
+    Ga = -2.0 * a0 * Gd1 + Gd2 * (4.0 * a0 * a0 - 2.0 * d1)
+    Gy = [Go[0] * d1 + 2.0 * Go[1] * d2 * y[0], Go[1] * d1]
+    if K == 3:
+        y1, y2, y3 = y
+        Ga = Ga + Go[2] * (-2.0 * a0 * y3 + 3.0 * y1 * y2 * (4.0 * a0 * a0 - 2.0 * d1)
+                           + y1 * y1 * y1 * (4.0 * a0 * (1.0 - 3.0 * a0 * a0) + 12.0 * a0 * d1))
+        Gy = [Gy[0] + Go[2] * (3.0 * d2 * y2 + 3.0 * d3 * y1 * y1), Gy[1] + 3.0 * Go[2] * d2 * y1,
+              Go[2] * d1]
+    return Ga, Gy
+
+
+def _ln_group_bwd(Gy, q0, q, S, r, gamma):
+    """One x-group's complete q cotangents [G_q1..G_qK] and its row scalars'
+    cotangents [G_S1..G_SK] (see ``_transport_bwd_plain``)."""
+    K = len(Gy)
+    Gq = [g * gamma for g in Gy]
+    if K == 3:
+        Gq[1] = Gq[1] - 3.0 * Gq[2] * S[0] * r
+        Gq[0] = Gq[0] - 3.0 * Gq[2] * S[1] * r
+    if K >= 2:
+        Gq[0] = Gq[0] - 2.0 * Gq[1] * S[0] * r
+
+    def R(k, j):  # R_kj = sum G_qk q_j over the row
+        return _rsum(Gq[k - 1] * (q0 if j == 0 else q[j - 1]))
+
+    GS = [-R(1, 0) * r]
+    if K >= 2:
+        GS = [-(R(1, 0) + 2.0 * R(2, 1)) * r, -R(2, 0) * r]
+    if K == 3:
+        GS3 = -R(3, 0) * r
+        GS[1] = GS[1] - 3.0 * R(3, 1) * r - 3.0 * S[0] * r * GS3
+        GS[0] = GS[0] - 3.0 * R(3, 2) * r - 3.0 * S[1] * r * GS3
+        GS.append(GS3)
+    if K >= 2:
+        GS[0] = GS[0] - 2.0 * S[0] * r * GS[1]
+    return Gq, GS, sum(R(k, k) for k in range(1, K + 1))
+
+
+def _transport_bwd_plain(H, gamma, beta, GA, n: int, dim: int):
+    """Hand-derived reverse pass of ``_transport_fwd_plain``: ``dim`` x-groups
+    (axes) of x-order K in {1, 2, 3} beside the value and the t-stream.
+
+    Forward, per point (row means over the width W; r = 1/sqrt(var0+eps)).
+    Shared by every group: c0 = h0 - mean(h0), q0 = c0 r, y0 = q0 g + b,
+    a0 = tanh(y0), d1 = 1 - a0^2, d2 = -2 a0 d1, d3 = -2 d1 (1 - 3 a0^2);
+    St = mean(c0 ct) r, qt = (ct - q0 St) r, yt = qt g, ot = d1 yt. Per
+    x-group (its own streams c_k = h_k - mean(h_k), k = 1..K):
         S1 = mean(c0 c1) r ;  V2 = mean(c1^2 + c0 c2) ;  S2 = (V2 - S1^2) r
         V3 = mean(3 c1 c2 + c0 c3) ;  S3 = (V3 - 3 S1 S2) r       (K = 3)
-        St = mean(c0 ct) r
-        q0 = c0 r ;  q1 = (c1 - q0 S1) r ;  q2 = (c2 - 2 q1 S1 - q0 S2) r
+        q1 = (c1 - q0 S1) r ;  q2 = (c2 - 2 q1 S1 - q0 S2) r
         q3 = (c3 - 3 q2 S1 - 3 q1 S2 - q0 S3) r                    (K = 3)
-        qt = (ct - q0 St) r
-        y0 = q0 g + b ;  y_k = q_k g ;  a0 = tanh(y0)
-        d1 = 1 - a0^2 ;  d2 = -2 a0 d1 ;  d3 = -2 d1 (1 - 3 a0^2)
-        o1 = d1 y1 ;  o2 = d1 y2 + d2 y1^2 ;  ot = d1 yt
+        y_k = q_k g ;  o1 = d1 y1 ;  o2 = d1 y2 + d2 y1^2
         o3 = d1 y3 + 3 d2 y1 y2 + d3 y1^3                          (K = 3)
-    Reverse (G_v is the cotangent of v):
-        G_d1 = sum_k G_ok y_k (k in 1..K, t) ; G_d2 = G_o2 y1^2 + 3 G_o3 y1 y2
-        G_d3 = G_o3 y1^3 ;  G_y1 = G_o1 d1 + 2 G_o2 d2 y1 + G_o3 (3 d2 y2 + 3 d3 y1^2)
+    Reverse (G_v is the cotangent of v; sum_x runs over the x-groups):
+        G_a0 += -2 a0 G_ot yt + sum_x [-2 a0 G_d1 + (4 a0^2 - 2 d1) G_d2
+                + (4 a0 (1 - 3 a0^2) + 12 a0 d1) G_d3]
+          per group G_d1 = G_o1 y1 + G_o2 y2 + G_o3 y3,
+          G_d2 = G_o2 y1^2 + 3 G_o3 y1 y2, G_d3 = G_o3 y1^3
+        G_y1 = G_o1 d1 + 2 G_o2 d2 y1 + G_o3 (3 d2 y2 + 3 d3 y1^2)
         G_y2 = G_o2 d1 + 3 G_o3 d2 y1 ;  G_y3 = G_o3 d1 ;  G_yt = G_ot d1
-        G_a0 += -2 a0 G_d1 + (4 a0^2 - 2 d1) G_d2 + (4 a0 (1 - 3 a0^2) + 12 a0 d1) G_d3
         G_y0 = G_a0 d1
-    then the complete q cotangents, in reverse order,
+    then the complete q cotangents, per group in reverse order,
         G_q3 = G_y3 g ;  G_q2 = G_y2 g - 3 G_q3 S1 r
         G_q1 = G_y1 g - 2 G_q2 S1 r - 3 G_q3 S2 r ;  G_qt = G_yt g
-        G_q0 = G_y0 g - (G_qt St + G_q3 S3 + G_q2 S2 + G_q1 S1) r
-    twelve row sums R_kj = sum G_qk q_j give the row scalars' cotangents
-        G_S3 = -R30 r ;  G_S2 = -(R20 + 3 R31) r - 3 S1 r G_S3 ;  G_St = -Rt0 r
+        G_q0 = G_y0 g - (G_qt St + sum_x (G_q3 S3 + G_q2 S2 + G_q1 S1)) r
+    per group the row sums R_kj = sum G_qk q_j give its row scalars'
+    cotangents
+        G_S3 = -R30 r ;  G_S2 = -(R20 + 3 R31) r - 3 S1 r G_S3
         G_S1 = -(R10 + 2 R21 + 3 R32) r - 2 S1 r G_S2 - 3 S2 r G_S3
-        G_V2 = G_S2 r ;  G_V3 = G_S3 r
-        G_r = (sum_k R_kk + G_S1 S1 + G_S2 S2 + G_S3 S3 + G_St St) / r
+        G_V2 = G_S2 r ;  G_V3 = G_S3 r ;  G_St = -Rt0 r
+    and the shared ones take every group's terms,
+        G_r = (R00 + Rtt + G_St St + sum_x (sum_k R_kk + G_S1 S1 + G_S2 S2
+               + G_S3 S3)) / r
         G_var0 = -r^3 G_r / 2
     the centred cotangents element-wise,
-        G_c0 = G_q0 r + (G_St r ct + G_V2 c2 + G_V3 c3 + G_S1 r c1 + 2 G_var0 c0) / W
+        G_c0 = G_q0 r + (G_St r ct + sum_x (G_S1 r c1 + G_V2 c2 + G_V3 c3)
+               + 2 G_var0 c0) / W
         G_c1 = G_q1 r + (2 G_V2 c1 + 3 G_V3 c2 + G_S1 r c0) / W
         G_c2 = G_q2 r + (G_V2 c0 + 3 G_V3 c1) / W ;  G_c3 = G_q3 r + G_V3 c0 / W
         G_ct = G_qt r + G_St r c0 / W
     and G_h = G_c - mean(G_c), because centring is self-adjoint. Terms
     marked K = 3 (q3, S3, V3, G_o3, ...) are absent at K = 2, and every
-    term of stream 2 (q2, S2, V2, d2, G_o2, R2j, ...) is absent at K = 1
-    (convection: G_d1 = G_o1 y1 + G_ot yt, G_y1 = G_o1 d1, G_a0 += -2 a0 G_d1,
-    G_S1 = -R10 r, G_c1 = G_q1 r + G_S1 r c0 / W). The CUDA
-    transport_bwd_kernel<K> evaluates exactly these formulas.
+    term of stream 2 (q2, S2, V2, d2, G_o2, R2j, ...) is absent at K = 1.
+    The CUDA transport_bwd_kernel<D, KX> evaluates exactly these formulas.
 
     Returns (GH, Ggamma_rows, Gbeta_rows): per-point rows of the LayerNorm
     parameter gradients (``None`` without LayerNorm).
     """
-    hs = H.split(n, dim=0)
-    gs = GA.split(n, dim=0)
-    K = len(hs) - 2
-    h0, hx, ht = hs[0], hs[1:-1], hs[-1]
-    Ga0, Gox, Got = gs[0], gs[1:-1], gs[-1]
+    h0, hx, ht = _split_streams(H, n, dim)
+    Ga0, Gox, Got = _split_streams(GA, n, dim)
     W = H.shape[1]
-
-    def mean(v):
-        return torch.mean(v, dim=-1, keepdim=True)
-
-    def rsum(v):
-        return torch.sum(v, dim=-1, keepdim=True)
-
     if gamma is not None:
-        c0, ct = h0 - mean(h0), ht - mean(ht)
-        cx = [h - mean(h) for h in hx]
-        r = 1.0 / torch.sqrt(mean(c0 * c0) + _LN_EPS)
-        S1 = mean(c0 * cx[0]) * r
-        St = mean(c0 * ct) * r
+        c0, ct = h0 - _mean(h0), ht - _mean(ht)
+        cx = [[h - _mean(h) for h in grp] for grp in hx]
+        r = 1.0 / torch.sqrt(_mean(c0 * c0) + _LN_EPS)
         q0 = c0 * r
-        q1 = (cx[0] - q0 * S1) * r
-        qx = [q1]
-        if K >= 2:
-            V2 = mean(cx[0] * cx[0] + c0 * cx[1])
-            S2 = (V2 - S1 * S1) * r
-            qx.append((cx[1] - 2.0 * q1 * S1 - q0 * S2) * r)
-        if K == 3:
-            V3 = mean(3.0 * cx[0] * cx[1] + c0 * cx[2])
-            S3 = (V3 - 3.0 * S1 * S2) * r
-            qx.append((cx[2] - 3.0 * qx[1] * S1 - 3.0 * q1 * S2 - q0 * S3) * r)
+        St = _mean(c0 * ct) * r
         qt = (ct - q0 * St) * r
-        y0, yx, yt = q0 * gamma + beta, [q * gamma for q in qx], qt * gamma
+        lns = [_ln_group(c0, q0, r, c) for c in cx]
+        y0, yt = q0 * gamma + beta, qt * gamma
+        yx = [[qk * gamma for qk in q] for _S, _V, q in lns]
     else:
-        y0, yx, yt = h0, list(hx), ht
+        y0, yx, yt = h0, hx, ht
     a0 = torch.tanh(y0)
     d1 = 1.0 - a0 * a0
     d2 = -2.0 * a0 * d1
-    y1, Go1 = yx[0], Gox[0]
-    Gyt = Got * d1
-    if K == 1:
-        Gd1 = Go1 * y1 + Got * yt
-        Ga = Ga0 - 2.0 * a0 * Gd1
-        Gyx = [Go1 * d1]
-    else:
-        y2, Go2 = yx[1], Gox[1]
-        Gd1 = Go1 * y1 + Go2 * y2 + Got * yt
-        Gd2 = Go2 * y1 * y1
-        Ga = Ga0 - 2.0 * a0 * Gd1 + Gd2 * (4.0 * a0 * a0 - 2.0 * d1)
-        Gyx = [Go1 * d1 + 2.0 * Go2 * d2 * y1, Go2 * d1]
-    if K == 3:
-        y3, Go3 = yx[2], Gox[2]
-        d3 = -2.0 * d1 * (1.0 - 3.0 * a0 * a0)
-        Ga = Ga + Go3 * (-2.0 * a0 * y3 + 3.0 * y1 * y2 * (4.0 * a0 * a0 - 2.0 * d1)
-                         + y1 * y1 * y1 * (4.0 * a0 * (1.0 - 3.0 * a0 * a0) + 12.0 * a0 * d1))
-        Gyx = [Gyx[0] + Go3 * (3.0 * d2 * y2 + 3.0 * d3 * y1 * y1), Gyx[1] + 3.0 * Go3 * d2 * y1,
-               Go3 * d1]
-    Gy0 = Ga * d1
+    d3 = -2.0 * d1 * (1.0 - 3.0 * a0 * a0)
+    Ga = Ga0 - 2.0 * a0 * (Got * yt)
+    Gyx = []
+    for y, Go in zip(yx, Gox):
+        Ga_g, Gy = _tanh_group_bwd(a0, d1, d2, d3, y, Go)
+        Ga = Ga + Ga_g
+        Gyx.append(Gy)
+    Gy0, Gyt = Ga * d1, Got * d1
     if gamma is None:
-        return torch.cat([Gy0, *Gyx, Gyt], dim=0), None, None
+        return torch.cat([Gy0, *[g for Gy in Gyx for g in Gy], Gyt], dim=0), None, None
 
-    Gqt = Gyt * gamma
-    if K == 3:
-        Gq3 = Gyx[2] * gamma
-        Gq2 = Gyx[1] * gamma - 3.0 * Gq3 * S1 * r
-        Gq1 = Gyx[0] * gamma - 2.0 * Gq2 * S1 * r - 3.0 * Gq3 * S2 * r
-        Gq0 = Gy0 * gamma - (Gqt * St + Gq3 * S3 + Gq2 * S2 + Gq1 * S1) * r
-    elif K == 2:
-        Gq2 = Gyx[1] * gamma
-        Gq1 = Gyx[0] * gamma - 2.0 * Gq2 * S1 * r
-        Gq0 = Gy0 * gamma - (Gqt * St + Gq2 * S2 + Gq1 * S1) * r
-    else:
-        Gq1 = Gyx[0] * gamma
-        Gq0 = Gy0 * gamma - (Gqt * St + Gq1 * S1) * r
-
-    GSt = -rsum(Gqt * q0) * r
-    GS1 = -rsum(Gq1 * q0) * r
-    Rdiag = rsum(Gqt * qt) + rsum(Gq1 * q1) + rsum(Gq0 * q0)
-    if K >= 2:
-        q2 = qx[1]
-        GS2 = -rsum(Gq2 * q0) * r
-        GS1 = GS1 - 2.0 * rsum(Gq2 * q1) * r
-        Rdiag = Rdiag + rsum(Gq2 * q2)
-    if K == 3:
-        q3 = qx[2]
-        GS3 = -rsum(Gq3 * q0) * r
-        GS2 = GS2 - 3.0 * rsum(Gq3 * q1) * r - 3.0 * S1 * r * GS3
-        GS1 = GS1 - 3.0 * rsum(Gq3 * q2) * r - 3.0 * S2 * r * GS3
-        GV3 = GS3 * r
-        Rdiag = Rdiag + rsum(Gq3 * q3) + GS3 * S3
-    Gr_num = Rdiag + GSt * St
-    if K >= 2:
-        GV2 = GS2 * r
-        GS1 = GS1 - 2.0 * S1 * r * GS2
-        Gr_num = Gr_num + GS2 * S2
-    Gr = (Gr_num + GS1 * S1) / r
-    Gvar0 = -0.5 * r * r * r * Gr
     inv_w = 1.0 / W
+    Gqt = Gyt * gamma
+    GSt = -_rsum(Gqt * q0) * r
+    groups = [_ln_group_bwd(Gy, q0, q, S, r, gamma) for Gy, (S, _V, q) in zip(Gyx, lns)]
+    Gq_S = Gqt * St
+    Gr_num = _rsum(Gqt * qt) + GSt * St
+    for (Gq, GS, Rkk), (S, _V, _q) in zip(groups, lns):
+        Gq_S = Gq_S + sum(g * s for g, s in zip(Gq, S))
+        Gr_num = Gr_num + Rkk + sum(g * s for g, s in zip(GS, S))
+    Gq0 = Gy0 * gamma - Gq_S * r
+    Gr = (Gr_num + _rsum(Gq0 * q0)) / r
+    Gvar0 = -0.5 * r * r * r * Gr
+    Gc0_w = GSt * r * ct + 2.0 * Gvar0 * c0
+    Gcx = []
+    for (Gq, GS, _R), c in zip(groups, cx):
+        K = len(c)
+        GV = [gs * r for gs in GS[1:]]  # G_V2, G_V3
+        Gc0_w = Gc0_w + GS[0] * r * c[0]
+        Gc = [Gq[0] * r + GS[0] * r * c0 * inv_w]
+        if K >= 2:
+            Gc0_w = Gc0_w + GV[0] * c[1]
+            Gc = [Gc[0] + 2.0 * GV[0] * c[0] * inv_w, Gq[1] * r + GV[0] * c0 * inv_w]
+        if K == 3:
+            Gc0_w = Gc0_w + GV[1] * c[2]
+            Gc = [Gc[0] + 3.0 * GV[1] * c[1] * inv_w, Gc[1] + 3.0 * GV[1] * c[0] * inv_w,
+                  Gq[2] * r + GV[1] * c0 * inv_w]
+        Gcx += Gc
+    Gc0 = Gq0 * r + Gc0_w * inv_w
     Gct = Gqt * r + GSt * r * c0 * inv_w
-    Gc1 = Gq1 * r + GS1 * r * c0 * inv_w
-    Gc0 = Gq0 * r + (GSt * r * ct + GS1 * r * cx[0] + 2.0 * Gvar0 * c0) * inv_w
-    Gcx = [Gc1]
-    if K >= 2:
-        Gc0 = Gc0 + GV2 * cx[1] * inv_w
-        Gcx = [Gc1 + 2.0 * GV2 * cx[0] * inv_w, Gq2 * r + GV2 * c0 * inv_w]
-    if K == 3:
-        Gc0 = Gc0 + GV3 * cx[2] * inv_w
-        Gcx = [Gcx[0] + 3.0 * GV3 * cx[1] * inv_w, Gcx[1] + 3.0 * GV3 * cx[0] * inv_w,
-               Gq3 * r + GV3 * c0 * inv_w]
-    GH = torch.cat([Gc0 - mean(Gc0), *[g - mean(g) for g in Gcx], Gct - mean(Gct)], dim=0)
+    GH = torch.cat([g - _mean(g) for g in (Gc0, *Gcx, Gct)], dim=0)
     Ggamma = Gy0 * q0 + Gyt * qt
-    for g, q in zip(Gyx, qx):
-        Ggamma = Ggamma + g * q
+    for Gy, (_S, _V, q) in zip(Gyx, lns):
+        for g, qk in zip(Gy, q):
+            Ggamma = Ggamma + g * qk
     return GH, Ggamma, Gy0
 
 
@@ -273,71 +337,84 @@ def _exclusive_scan_plain(x: torch.Tensor, block: int) -> torch.Tensor:
     return (offsets[:, None] + local).reshape(-1)[:n]
 
 
+def _residual_scale(r, n: int, causal: bool) -> torch.Tensor:
+    """The factor of dr/dU in a residual's cotangent: 2r/N plain, 1 causal
+    (the causal weights scale it later)."""
+    return torch.ones_like(r) if causal else (2.0 / n) * r
+
+
+def _residual_out(r, n: int, causal: bool, dU_rows) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dU stacked (S n, 1), out (n, 1)): out is r^2 plain, r causal."""
+    return torch.cat(dU_rows).reshape(-1, 1), (r if causal else r * r).reshape(n, 1)
+
+
 class _TorchOps:
     """Plain PyTorch twins of the kernels, one method per C entry point."""
 
-    def embed(self, z, lo, sc, B, two_pi, x_order):
-        return _embed_plain(z, lo, sc, B, two_pi, x_order)
+    def embed(self, z, lo, sc, B, two_pi, x_order, frame):
+        return _embed_plain(z, lo, sc, B, two_pi, x_order, frame)
 
-    def affine_input(self, z, lo, sc, x_order):
-        return _affine_input_plain(z, lo, sc, x_order)
+    def affine_input(self, z, lo, sc, x_order, frame):
+        return _affine_input_plain(z, lo, sc, x_order, frame)
 
     def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
         _gemm_core.gemm_plain(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
                               k_chunk)
 
-    def transport_fwd(self, H, gamma, beta, n):
-        return _transport_fwd_plain(H, gamma, beta, n)
+    def transport_fwd(self, H, gamma, beta, n, dim):
+        return _transport_fwd_plain(H, gamma, beta, n, dim)
 
-    def transport_bwd(self, H, gamma, beta, GA, n):
-        return _transport_bwd_plain(H, gamma, beta, GA, n)
+    def transport_bwd(self, H, gamma, beta, GA, n, dim):
+        return _transport_bwd_plain(H, gamma, beta, GA, n, dim)
 
-    def burgers(self, U, n, nu, causal):
-        u, ux, uxx, ut = U.reshape(4, n)
+    # The residuals: U is the stacked (S n, 1) output [u; per axis u_x..; u_t]
+    # (``_split_streams``); each returns (dU, out): plain, 2r/N dr/dU and r^2;
+    # causal, dr/dU and r. Sums over the axes run in axis order.
+
+    def burgers(self, U, n, dim, nu, causal):
+        u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+        ux, uxx = sum(g[0] for g in gx), sum(g[1] for g in gx)
         r = (ut + u * ux) - nu * uxx
-        if causal:
-            one = torch.ones_like(u)
-            return torch.stack([ux, u, -nu * one, one]).reshape(-1, 1), r.reshape(n, 1)
-        c = (2.0 / n) * r
-        return torch.stack([c * ux, c * u, -c * nu, c]).reshape(-1, 1), (r * r).reshape(n, 1)
+        c = _residual_scale(r, n, causal)
+        return _residual_out(r, n, causal, [c * ux, *[v for _ in gx for v in (c * u, -c * nu)], c])
 
-    def heat(self, U, n, alpha, causal):
-        _u, _ux, uxx, ut = U.reshape(4, n)
-        r = ut - alpha * uxx
-        one, zero = torch.ones_like(r), torch.zeros_like(r)
-        c = one if causal else (2.0 / n) * r
-        dU = torch.stack([zero, zero, -c * alpha, c]).reshape(-1, 1)
-        return dU, (r if causal else r * r).reshape(n, 1)
+    def heat(self, U, n, dim, alpha, causal):
+        _u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+        r = ut - alpha * sum(g[1] for g in gx)
+        c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
+        return _residual_out(r, n, causal, [zero, *[v for _ in gx for v in (zero, -c * alpha)], c])
 
-    def kdv(self, U, n, causal):
-        u, ux, uxx, uxxx, ut = U.reshape(5, n)
-        r = ut + 6.0 * u * ux + uxxx
-        c = torch.ones_like(r) if causal else (2.0 / n) * r
-        dU = torch.stack([c * (6.0 * ux), c * (6.0 * u), torch.zeros_like(c), c, c]).reshape(-1, 1)
-        return dU, (r if causal else r * r).reshape(n, 1)
+    def kdv(self, U, n, dim, causal):
+        u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+        ux = sum(g[0] for g in gx)
+        r = ut + 6.0 * u * ux + sum(g[2] for g in gx)
+        c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
+        return _residual_out(r, n, causal,
+                             [c * (6.0 * ux), *[v for _ in gx for v in (c * (6.0 * u), zero, c)], c])
 
-    def convection(self, U, n, v, causal):
-        _u, ux, ut = U.reshape(3, n)
-        r = ut + v * ux
-        c = torch.ones_like(r) if causal else (2.0 / n) * r
-        dU = torch.stack([torch.zeros_like(c), c * v, c]).reshape(-1, 1)
-        return dU, (r if causal else r * r).reshape(n, 1)
+    def convection(self, U, n, velocity, causal):
+        _u, gx, ut = _split_streams(U.reshape(-1), n, len(velocity))
+        r = ut + sum(v * g[0] for v, g in zip(velocity, gx))
+        c = _residual_scale(r, n, causal)
+        return _residual_out(r, n, causal, [torch.zeros_like(r), *[c * v for v in velocity], c])
 
-    def allen_cahn(self, U, n, eps2, causal):
-        u, _ux, uxx, ut = U.reshape(4, n)
-        r = ((ut - eps2 * uxx) - u) + u * u * u
-        c = torch.ones_like(r) if causal else (2.0 / n) * r
-        dU = torch.stack([c * (3.0 * u * u - 1.0), torch.zeros_like(c), -c * eps2, c])
-        return dU.reshape(-1, 1), (r if causal else r * r).reshape(n, 1)
+    def allen_cahn(self, U, n, dim, eps2, causal):
+        u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+        r = ((ut - eps2 * sum(g[1] for g in gx)) - u) + u * u * u
+        c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
+        return _residual_out(r, n, causal,
+                             [c * (3.0 * u * u - 1.0), *[v for _ in gx for v in (zero, -c * eps2)], c])
 
     def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal):
-        V, VS, VSS, Vt = U.reshape(4, n)
-        S = z[:, 0]
+        """S = z[:, ax] along each axis ax."""
+        V, gx, Vt = _split_streams(U.reshape(-1), n, z.shape[1] - 1)
+        S = z[:, :-1].t()
         cSS, cS = half_sigma2 * (S * S), rate * S
-        r = (Vt - (sign * rate) * V) + sign * (cSS * VSS + cS * VS)
-        c = torch.ones_like(r) if causal else (2.0 / n) * r
-        dU = torch.stack([-c * (sign * rate), c * (sign * cS), c * (sign * cSS), c])
-        return dU.reshape(-1, 1), (r if causal else r * r).reshape(n, 1)
+        r = (Vt - (sign * rate) * V) + sign * sum(cSS[ax] * g[1] + cS[ax] * g[0]
+                                                  for ax, g in enumerate(gx))
+        c = _residual_scale(r, n, causal)
+        per_axis = [v for ax in range(len(gx)) for v in (c * (sign * cS[ax]), c * (sign * cSS[ax]))]
+        return _residual_out(r, n, causal, [-c * (sign * rate), *per_axis, c])
 
     def causal_weights(self, r, n, eps):
         r2 = (r * r).reshape(-1)
@@ -368,21 +445,22 @@ class _CudaOps:
     """The CUDA kernels of ``csrc/fused_residual.cu`` behind the same methods."""
 
     _ARGTYPES = {
-        "fr_embed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "fr_affine_input": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "fr_embed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+        "fr_affine_input": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p],
         "fr_gemm": _gemm_core.GEMM_ARGTYPES,
-        "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "fr_burgers": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p],
-        "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_void_p],
-        "fr_kdv": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-        "fr_convection": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                                  ctypes.c_void_p],
-        "fr_allen_cahn": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                                  ctypes.c_void_p],
-        "fr_black_scholes": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float] * 3
+        "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "fr_burgers": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
+                                                                   ctypes.c_void_p],
+        "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
+                                                                ctypes.c_void_p],
+        "fr_kdv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "fr_convection": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_void_p],
+        "fr_allen_cahn": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
+                                                                      ctypes.c_void_p],
+        "fr_black_scholes": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_void_p],
         "fr_causal_weights": [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_void_p],
@@ -415,19 +493,22 @@ class _CudaOps:
     def _ptr(t: Optional[torch.Tensor]):
         return None if t is None else t.data_ptr()
 
-    def embed(self, z, lo, sc, B, two_pi, x_order):
-        n, m = z.shape[0], B.shape[1]
-        X = self._empty((2 + x_order) * n, 2 * m)
+    def embed(self, z, lo, sc, B, two_pi, x_order, frame):
+        (n, d1), m = z.shape, B.shape[1]
+        X = self._empty((2 + (d1 - 1) * x_order) * n, 2 * m)
         _build.check(self.lib.fr_embed(z.data_ptr(), lo.data_ptr(), sc.data_ptr(), B.data_ptr(),
-                                       X.data_ptr(), n, m, int(two_pi), x_order, self.stream),
+                                       X.data_ptr(), n, m, int(two_pi), x_order, d1 - 1,
+                                       int(frame is not None), float(frame or 0.0), self.stream),
                      "embed_kernel")
         return X
 
-    def affine_input(self, z, lo, sc, x_order):
-        n = z.shape[0]
-        X = self._empty((2 + x_order) * n, 2)
+    def affine_input(self, z, lo, sc, x_order, frame):
+        n, d1 = z.shape
+        X = self._empty((2 + (d1 - 1) * x_order) * n, d1)
         _build.check(self.lib.fr_affine_input(z.data_ptr(), lo.data_ptr(), sc.data_ptr(),
-                                              X.data_ptr(), n, x_order, self.stream),
+                                              X.data_ptr(), n, x_order, d1 - 1,
+                                              int(frame is not None), float(frame or 0.0),
+                                              self.stream),
                      "affine_input_kernel")
         return X
 
@@ -436,15 +517,15 @@ class _CudaOps:
                                       C.data_ptr(), ldc, self._ptr(bias), bias_rows, splits,
                                       k_chunk, M * N, self.stream), "gemm_sm90_kernel")
 
-    def transport_fwd(self, H, gamma, beta, n):
+    def transport_fwd(self, H, gamma, beta, n, dim):
         A = torch.empty_like(H)
         _build.check(self.lib.fr_transport_fwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                A.data_ptr(), n, H.shape[1], int(gamma is not None),
-                                               H.shape[0] // n - 2, self.stream),
+                                               (H.shape[0] // n - 2) // dim, dim, self.stream),
                      "transport_fwd_kernel")
         return A
 
-    def transport_bwd(self, H, gamma, beta, GA, n):
+    def transport_bwd(self, H, gamma, beta, GA, n, dim):
         GH = torch.empty_like(H)
         use_ln = gamma is not None
         Gg = self._empty(n, H.shape[1]) if use_ln else None
@@ -452,42 +533,44 @@ class _CudaOps:
         _build.check(self.lib.fr_transport_bwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                GA.data_ptr(), GH.data_ptr(), self._ptr(Gg),
                                                self._ptr(Gb), n, H.shape[1], int(use_ln),
-                                               H.shape[0] // n - 2, self.stream),
+                                               (H.shape[0] // n - 2) // dim, dim, self.stream),
                      "transport_bwd_kernel")
         return GH, Gg, Gb
 
-    def burgers(self, U, n, nu, causal):
+    def burgers(self, U, n, dim, nu, causal):
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
-        _build.check(self.lib.fr_burgers(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
+        _build.check(self.lib.fr_burgers(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
                                          float(nu), int(causal), self.stream), "burgers_kernel")
         return dU, out
 
-    def heat(self, U, n, alpha, causal):
+    def heat(self, U, n, dim, alpha, causal):
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
-        _build.check(self.lib.fr_heat(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
+        _build.check(self.lib.fr_heat(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
                                       float(alpha), int(causal), self.stream), "heat_kernel")
         return dU, out
 
-    def kdv(self, U, n, causal):
+    def kdv(self, U, n, dim, causal):
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
-        _build.check(self.lib.fr_kdv(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, int(causal),
-                                     self.stream), "kdv_kernel")
+        _build.check(self.lib.fr_kdv(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
+                                     int(causal), self.stream), "kdv_kernel")
         return dU, out
 
-    def convection(self, U, n, v, causal):
+    def convection(self, U, n, velocity, causal):
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
+        v = [float(x) for x in velocity] + [0.0] * (3 - len(velocity))
         _build.check(self.lib.fr_convection(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
-                                            float(v), int(causal), self.stream), "convection_kernel")
+                                            len(velocity), *v, int(causal), self.stream),
+                     "convection_kernel")
         return dU, out
 
-    def allen_cahn(self, U, n, eps2, causal):
+    def allen_cahn(self, U, n, dim, eps2, causal):
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
-        _build.check(self.lib.fr_allen_cahn(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
+        _build.check(self.lib.fr_allen_cahn(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
                                             float(eps2), int(causal), self.stream),
                      "allen_cahn_kernel")
         return dU, out
@@ -496,8 +579,9 @@ class _CudaOps:
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
         _build.check(self.lib.fr_black_scholes(U.data_ptr(), z.data_ptr(), dU.data_ptr(),
-                                               out.data_ptr(), n, float(sign), float(half_sigma2),
-                                               float(rate), int(causal), self.stream),
+                                               out.data_ptr(), n, z.shape[1] - 1, float(sign),
+                                               float(half_sigma2), float(rate), int(causal),
+                                               self.stream),
                      "black_scholes_kernel")
         return dU, out
 
@@ -623,7 +707,9 @@ class _Spec:
     n_hidden: int
     use_ln: bool
     periodic: bool
-    x_order: int  # K: the stacked streams are [value; x1..xK; t1]
+    dimension: int  # d space axes, 1..3
+    x_order: int  # K: the stacked streams are [value; per axis x1..xK; t1]
+    frame_speed: Optional[float]  # c of a co-moving frame (x - c t, t); None: none
     residual: str  # one of _RESIDUALS
     causal_eps: float  # 0 = plain mean r^2
     lo: torch.Tensor
@@ -633,7 +719,7 @@ class _Spec:
     # The residual's coefficients (0 where the PDE has none of them).
     nu: float = 0.0  # Burgers' viscosity
     alpha: float = 0.0  # heat's diffusivity
-    velocity: float = 0.0  # convection's v
+    velocity: Tuple[float, ...] = ()  # convection's v, one per axis
     epsilon: float = 0.0  # Allen-Cahn's interface width
     sigma: float = 0.0  # Black-Scholes' volatility
     rate: float = 0.0  # Black-Scholes' interest rate r
@@ -648,28 +734,30 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
     n = z.shape[0]
     L = spec.n_hidden
     causal = spec.causal_eps > 0.0
+    d = spec.dimension
     if spec.B is None:
-        X = [ops.affine_input(z, spec.lo, spec.scale, spec.x_order)]
+        X = [ops.affine_input(z, spec.lo, spec.scale, spec.x_order, spec.frame_speed)]
     else:
-        X = [ops.embed(z, spec.lo, spec.scale, spec.B, spec.periodic, spec.x_order)]
+        X = [ops.embed(z, spec.lo, spec.scale, spec.B, spec.periodic, spec.x_order,
+                       spec.frame_speed)]
     Hs = []
     for i in range(L):
         H = _linear(ops, X[-1], P[f"Dense_{i}.weight"], P[f"Dense_{i}.bias"], n)
         gamma = P[f"LayerNorm_{i}.weight"] if spec.use_ln else None
         beta = P[f"LayerNorm_{i}.bias"] if spec.use_ln else None
         Hs.append(H)
-        X.append(ops.transport_fwd(H, gamma, beta, n))
+        X.append(ops.transport_fwd(H, gamma, beta, n, d))
     U = _linear(ops, X[-1], P[f"Dense_{L}.weight"], P[f"Dense_{L}.bias"], n)
     if spec.residual == "burgers":
-        G, out = ops.burgers(U, n, spec.nu, causal)
+        G, out = ops.burgers(U, n, d, spec.nu, causal)
     elif spec.residual == "heat":
-        G, out = ops.heat(U, n, spec.alpha, causal)
+        G, out = ops.heat(U, n, d, spec.alpha, causal)
     elif spec.residual == "kdv":
-        G, out = ops.kdv(U, n, causal)
+        G, out = ops.kdv(U, n, d, causal)
     elif spec.residual == "convection":
         G, out = ops.convection(U, n, spec.velocity, causal)
     elif spec.residual == "allen_cahn":
-        G, out = ops.allen_cahn(U, n, spec.epsilon**2, causal)
+        G, out = ops.allen_cahn(U, n, d, spec.epsilon**2, causal)
     else:
         G, out = ops.black_scholes(U, z, n, spec.sign, 0.5 * spec.sigma**2, spec.rate, causal)
     if causal:
@@ -695,7 +783,7 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
         j = i - 1
         gamma = P[f"LayerNorm_{j}.weight"] if spec.use_ln else None
         beta = P[f"LayerNorm_{j}.bias"] if spec.use_ln else None
-        G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n)
+        G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n, d)
         if spec.use_ln:
             width = Gg.shape[1]
             grads[f"LayerNorm_{j}.weight"] = ops.colsum(Gg, n, width, width, 1.0)
@@ -748,8 +836,9 @@ def fused_residual_loss(spec: _Spec, bundle_fn, pde, params, z) -> torch.Tensor:
     if z.device.type != "cuda":
         raise ValueError(f"fused_residual_loss: unsupported device {z.device}")
     _build.require_cuda_f32("fused_residual_loss z", z)
-    if z.ndim != 2 or z.shape[1] != 2:
-        raise ValueError(f"fused_residual_loss: z must be (N, 2), got {tuple(z.shape)}")
+    if z.ndim != 2 or z.shape[1] != spec.dimension + 1:
+        raise ValueError(f"fused_residual_loss: z must be (N, {spec.dimension + 1}), "
+                         f"got {tuple(z.shape)}")
     leaves = [params[k] for k in spec.leaf_names]
     for name, t in zip(spec.leaf_names, leaves):
         _build.require_cuda_f32(f"fused_residual_loss {name}", t)
@@ -781,7 +870,7 @@ def _spec(model, pde) -> _Spec:
     elif kind == "heat":
         coeffs["alpha"] = float(pde._alpha(None))
     elif kind == "convection":
-        coeffs["velocity"] = float(pde._velocity(None)[0])
+        coeffs["velocity"] = tuple(float(v) for v in pde._velocity(None))
     elif kind == "allen_cahn":
         coeffs["epsilon"] = float(pde._eps(None))
     elif kind == "black_scholes":
@@ -791,7 +880,9 @@ def _spec(model, pde) -> _Spec:
         n_hidden=n_hidden,
         use_ln=use_ln,
         periodic=bool(cfg.arch_params.get("periodic", True)),
+        dimension=pde.dimension,
         x_order=max(pde.spatial_orders),
+        frame_speed=model._frame_speed,
         residual=kind,
         causal_eps=pde.causal_eps(),
         lo=model._in_lo.contiguous(),
@@ -805,8 +896,8 @@ def _spec(model, pde) -> _Spec:
 
 def make_fused_residual_loss(model, pde) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]:
     """Build ``fn(params, z) -> residual loss`` whose gradient comes from the
-    kernels' own backward. ``z`` is (N, 2) physical coordinates (x, t),
-    sorted by time when the loss is causal."""
+    kernels' own backward. ``z`` is (N, d+1) physical coordinates
+    (x_1..x_d, t), sorted by time when the loss is causal."""
     if not supports(model, pde):
         raise ValueError(
             f"fused residual kernel does not support pde={pde.pde_type}, "
@@ -823,14 +914,14 @@ def make_fused_residual_loss(model, pde) -> Callable[[Dict[str, torch.Tensor], t
 
 
 def supports(model, pde, training=None) -> bool:
-    """The reference's ``supports`` in one space dimension: the structural
-    conditions of the stacked-jet bundle (a Fourier or feedforward trunk),
-    the reductions the kernel hard-codes (plain MSE, no trainable
+    """The reference's ``supports``: the structural conditions of the
+    stacked-jet bundle (a Fourier or feedforward trunk, a co-moving frame
+    or none), the reductions the kernel hard-codes (plain MSE, no trainable
     coefficients), temporal order 1 and spatial order at most 3, causal or
-    not; and this port's residuals (``_RESIDUALS``). Two exclusions stay: a
-    moving frame and more than one space dimension (two space dimensions are
-    ROADMAP queue 2's K1b). No width gate: the TPU's gate was a TPU
-    measurement, and no H100 measurement has set one."""
+    not; and this port's residuals (``_RESIDUALS``) in 1 to 3 space
+    dimensions (the kernels are instantiated for d <= 3; more is ROADMAP
+    queue 2's K1e). No width gate: the TPU's gate was a TPU measurement,
+    and no H100 measurement has set one."""
     from pinnrl_tpu_torch.ops import jet_mlp
 
     if not (pde.bundle_compatible and pde.system_size == 1 and jet_mlp.supports(model, pde)):
@@ -839,9 +930,9 @@ def supports(model, pde, training=None) -> bool:
         return False
     if training is not None and getattr(training, "loss_function", "mse") != "mse":
         return False
-    if pde.pde_type not in _RESIDUALS or pde.dimension != 1:
+    if pde.pde_type not in _RESIDUALS or not 1 <= pde.dimension <= _MAX_DIM:
         return False
-    if model.config.architecture not in ("fourier", "feedforward") or model._frame_speed is not None:
+    if model.config.architecture not in ("fourier", "feedforward"):
         return False
     if max(pde.spatial_orders, default=0) > 3 or max(pde.temporal_orders, default=0) != 1:
         return False

@@ -1,6 +1,6 @@
-"""PDE problem layer. Burgers, KdV, heat (one space dimension), convection,
+"""PDE problem layer. Burgers, KdV, heat (``heat_2d`` included), convection,
 Allen-Cahn (with its spectral dynamics target) and Black-Scholes are
-ported; wave, pendulum, Cahn-Hilliard and heat_2d are ROADMAP item 11."""
+ported; wave, pendulum and Cahn-Hilliard are ROADMAP item 11."""
 
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, PDEBase  # noqa: F401

@@ -91,7 +91,7 @@ def test_kernel1_launcher_matches_jax_interpret_kernel(arch, eps):
     the plain twins, against the JAX kernel (tile 32) in interpret mode."""
     pair = pde_pair("convection", arch=arch, causal_eps=eps)
     spec = fused_step._spec(pair.tmodel, pair.tpde)
-    assert (spec.x_order, spec.residual, spec.velocity) == (1, "convection", 1.0)
+    assert (spec.x_order, spec.residual, spec.velocity) == (1, "convection", (1.0,))
     assert (spec.B is None) == (arch == "feedforward")
     loss_rel, grad_rels = launcher_vs_jax_kernel(pair, sorted_z(7, 256, DOMAIN))
     loss_tol, grad_tol = FUSED_TOLS[eps]

@@ -79,24 +79,27 @@ def test_kernel_launcher_with_plain_twins_matches_autograd(layer_norm):
     assert none == {} and torch.equal(loss_only, loss)
 
 
+@pytest.mark.parametrize("dim", [1, 2, 3])
 @pytest.mark.parametrize("x_order", [1, 2, 3])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("layer_norm", [True, False])
-def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order):
-    """The hand-derived reverse pass of the [value; x1..xK; t1] transport,
-    K = 1 (convection), K = 2 (Burgers) and K = 3 (KdV)."""
+def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order, dim):
+    """The hand-derived reverse pass of the [value; dim x-groups of x1..xK;
+    t1] transport, K = 1 (convection), K = 2 (Burgers) and K = 3 (KdV), in
+    1-3 space dimensions."""
     rng = np.random.default_rng(11)
-    n, width, streams = 24, 40, 2 + x_order
+    n, width, streams = 24, 40, 2 + dim * x_order
     H = torch.tensor(rng.standard_normal((streams * n, width)), dtype=dtype, requires_grad=True)
     gamma = torch.tensor(1.0 + 0.2 * rng.standard_normal(width), dtype=dtype, requires_grad=True)
     beta = torch.tensor(0.2 * rng.standard_normal(width), dtype=dtype, requires_grad=True)
     GA = torch.tensor(rng.standard_normal((streams * n, width)), dtype=dtype)
     g, b = (gamma, beta) if layer_norm else (None, None)
-    out = fused_step._transport_fwd_plain(H, g, b, n)
+    out = fused_step._transport_fwd_plain(H, g, b, n, dim)
     inputs = [H, gamma, beta] if layer_norm else [H]
     ref = torch.autograd.grad(out, inputs, GA)
     GH, Gg, Gb = fused_step._transport_bwd_plain(
-        H.detach(), None if g is None else gamma.detach(), None if b is None else beta.detach(), GA, n)
+        H.detach(), None if g is None else gamma.detach(), None if b is None else beta.detach(), GA, n,
+        dim)
     assert rel_to_max(GH, ref[0]) < tol
     if layer_norm:
         assert rel_to_max(Gg.sum(0), ref[1]) < tol
@@ -105,9 +108,10 @@ def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order):
         assert Gg is None and Gb is None
 
 
-def _bundle_streams(monkeypatch, arch, x_order, n=40):
+def _bundle_streams(monkeypatch, arch, x_order, dim=1, frame=None, n=40):
     """(model, z, the plain bundle's stacked first-layer input) for a
-    Fourier (mapping 8) or feedforward trunk at x-order ``x_order``: what
+    Fourier (mapping 8) or feedforward trunk at x-order ``x_order`` in
+    ``dim`` space dimensions, in a co-moving frame of speed ``frame``: what
     the bundle hands the first Dense layer's ``F.linear``."""
     import torch.nn.functional as F
 
@@ -115,8 +119,12 @@ def _bundle_streams(monkeypatch, arch, x_order, n=40):
     from pinnrl_tpu_torch.models import PINNModel
 
     cfg = load_config(pde_type="burgers", architecture=arch, device="cpu")
+    cfg.pde.dimension, cfg.model.input_dim = dim, dim + 1
+    cfg.pde.domain = [[-1.0, 1.0], [0.0, 2.0], [-3.0, 0.5]][:dim]
     cfg.model.hidden_dims = [8]
     cfg.model.arch_params.update({"mapping_size": 8, "scale": 2.0})
+    if frame is not None:
+        cfg.model.arch_params["moving_frame_speed"] = frame
     model = PINNModel(cfg, seed=0)
     params = dict(model.params)
     captured, linear = [], F.linear
@@ -127,29 +135,31 @@ def _bundle_streams(monkeypatch, arch, x_order, n=40):
         return linear(x, w, b)
 
     monkeypatch.setattr(F, "linear", spy)
-    x, t = points(4, n)
+    x, t = points(4, n, domain=tuple(map(tuple, cfg.pde.domain)))
     z = torch.from_numpy(np.concatenate([x, t], axis=1))
-    make_bundle_fn(model, 1, x_order, 1)(params, z)
+    make_bundle_fn(model, dim, x_order, 1)(params, z)
     (stacked,) = captured
     return model, z, stacked
 
 
+@pytest.mark.parametrize("dim,frame", [(1, None), (2, None), (3, None), (1, 0.7), (2, -1.3)])
 @pytest.mark.parametrize("x_order", [1, 2, 3])
 @pytest.mark.parametrize("arch", ["fourier", "feedforward"])
-def test_stacked_input_twins_match_the_bundle(monkeypatch, arch, x_order):
+def test_stacked_input_twins_match_the_bundle(monkeypatch, arch, x_order, dim, frame):
     """``_embed_plain`` (Fourier) and ``_affine_input_plain`` (feedforward):
-    the stacked input [value; x1..xK; t1] that the plain bundle feeds the
-    first Dense layer, at x-orders 1-3. Fourier: 1e-6 relative to max (the
+    the stacked input [value; per axis x1..xK; t1] that the plain bundle
+    feeds the first Dense layer, at x-orders 1-3 in 1-3 space dimensions,
+    with and without a co-moving frame. Fourier: 1e-6 relative to max (the
     phase rotations in another order); feedforward: equal."""
-    model, z, ref = _bundle_streams(monkeypatch, arch, x_order)
+    model, z, ref = _bundle_streams(monkeypatch, arch, x_order, dim, frame)
     lo, sc = model._in_lo, model._in_scale
     if arch == "fourier":
         got = fused_step._embed_plain(z, lo, sc, model.constants["FourierFeatures_0.B"], True,
-                                      x_order)
+                                      x_order, frame)
         assert got.shape == ref.shape and rel_to_max(got, ref) < 1e-6
     else:
-        got = fused_step._affine_input_plain(z, lo, sc, x_order)
-        assert got.shape == ref.shape == ((2 + x_order) * z.shape[0], 2)
+        got = fused_step._affine_input_plain(z, lo, sc, x_order, frame)
+        assert got.shape == ref.shape == ((2 + dim * x_order) * z.shape[0], dim + 1)
         assert torch.equal(got, ref)
 
 
@@ -211,13 +221,16 @@ def test_supports_scope():
     ff = burgers_pair(arch="feedforward")
     assert fused_step.supports(ff.tmodel, ff.tpde)
     assert fused_step._spec(ff.tmodel, ff.tpde).B is None
-    # Still out: a moving frame, two space dimensions (K1b), order 4, temporal order 2.
+    # In: a moving frame and two or three space dimensions. Out: four space
+    # dimensions (past the kernels' instantiations), order 4, temporal order 2.
     frame = burgers_pair()
     frame.tmodel._frame_speed = 0.5
-    assert not fused_step.supports(frame.tmodel, frame.tpde)
-    wide = burgers_pair()
-    wide.tpde.dimension = 2
-    assert not fused_step.supports(wide.tmodel, wide.tpde)
+    assert fused_step.supports(frame.tmodel, frame.tpde)
+    assert fused_step._spec(frame.tmodel, frame.tpde).frame_speed == 0.5
+    for dim, admitted in ((2, True), (3, True), (4, False)):
+        wide = burgers_pair()
+        wide.tpde.dimension = dim
+        assert fused_step.supports(wide.tmodel, wide.tpde) == admitted, dim
     for orders in (dict(spatial_orders=(4,)), dict(temporal_orders=(2,))):
         odd = burgers_pair()
         for k, v in orders.items():
@@ -237,3 +250,27 @@ def test_split_k_covers_k(M, N, K):
     splits, chunk = fused_step._split_k(M, N, K)
     assert chunk % _gemm_core.BK == 0 and splits >= 1
     assert (splits - 1) * chunk < K <= splits * chunk
+
+
+@pytest.mark.parametrize("pde_type", _SCOPE_PDES)
+@pytest.mark.parametrize("arch", ["fourier", "feedforward"])
+def test_launcher_matches_jax_kernel_in_two_dimensions(pde_type, arch):
+    """Every residual of kernel 1 in two space dimensions (convection with
+    one velocity per axis; Black-Scholes reading S along each axis), through
+    the launcher with the plain twins, against the JAX kernel (tile 32) in
+    interpret mode."""
+    from torch_parity_helpers import FUSED_TOLS, launcher_vs_jax_kernel, pde_pair, sorted_z
+
+    over = {"parameters": {"velocity": [0.5, -1.5]}} if pde_type == "convection" else None
+    pair = pde_pair(pde_type, arch=arch, pde=over, dim=2)
+    spec = fused_step._spec(pair.tmodel, pair.tpde)
+    assert spec.dimension == 2
+    if pde_type == "convection":
+        assert spec.velocity == (0.5, -1.5)
+    domain = dict(domain=tuple(map(tuple, pair.tcfg.pde.domain)),
+                  time_domain=tuple(pair.tcfg.pde.time_domain))
+    loss_rel, grad_rels = launcher_vs_jax_kernel(pair, sorted_z(5, 96, domain))
+    loss_tol, grad_tol = FUSED_TOLS[0.0]
+    assert loss_rel < loss_tol
+    for name, rel in grad_rels.items():
+        assert rel < grad_tol, name

@@ -244,8 +244,10 @@ def test_heat_train_returns_finite_history():
 
 
 def test_heat_2d_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        create_pde(load_config(pde_type="heat_2d", device="cpu"))
+    """heat_2d no longer raises: it builds the heat equation in two space
+    dimensions (tests/test_torch_heat_2d.py holds it against JAX)."""
+    pde = create_pde(load_config(pde_type="heat_2d", device="cpu"))
+    assert (pde.pde_type, pde.dimension) == ("heat", 2)
 
 
 # ---------------------------------------------------------------- kernel 1

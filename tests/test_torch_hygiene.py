@@ -128,14 +128,13 @@ def test_unported_features_raise():
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
 
-    # SIREN and heat are ported: both build.
+    # SIREN, heat and heat_2d are ported: all build.
     siren = PINNModel(load_config(pde_type="burgers", architecture="siren", device="cpu"))
     assert siren.architecture_name == "siren" and "SIRENLayer_6.kernel" in siren.params
     assert create_pde(load_config(pde_type="heat", device="cpu")).pde_type == "heat"
     with pytest.raises(ValueError, match="not ported yet"):
         PINNModel(load_config(pde_type="burgers", architecture="resnet", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        create_pde(load_config(pde_type="heat_2d", device="cpu"))
+    assert create_pde(load_config(pde_type="heat_2d", device="cpu")).dimension == 2
     with pytest.raises(ValueError, match="ROADMAP item 11"):
         create_pde(load_config(pde_type="wave", device="cpu"))
     neumann = load_config(pde_type="burgers", architecture="fourier", device="cpu")

@@ -20,7 +20,14 @@ two calls. Kernel 1's convection (x-order 1), Allen-Cahn and Black-Scholes
 variants and its feedforward trunk: loss 1e-5 relative and gradients 1e-4
 relative to max (1e-4 and 1e-3 causal), bit-identical across two calls;
 its feedforward input kernel 1e-6 relative to max (an fmaf where the plain
-version rounds twice).
+version rounds twice). Kernel 1 in two and three space dimensions and in a
+co-moving frame: the same bounds; its Fourier input kernel 1e-4 relative
+to max (an fmaf in the affine map where the plain version rounds twice
+moves a phase of tens of radians by an ulp of w times 2 pi B, and the
+order-K streams scale that by p1^K, up to ~800 here), its feedforward input
+kernel 1e-6 (the direction rows equal without a frame), its transport
+kernels 1e-5 relative to max per stacked tensor and its residual kernels
+1e-6.
 """
 
 import numpy as np
@@ -744,8 +751,8 @@ def test_affine_input_kernel_matches_twin(cuda_device, x_order, n):
     z = torch.rand((n, 2), generator=gen, device=cuda_device) * 200.0
     lo = torch.tensor([0.0, 0.0], device=cuda_device)
     sc = torch.tensor([0.01, 2.0], device=cuda_device)
-    got = fused_step._cuda_ops(cuda_device).affine_input(z, lo, sc, x_order)
-    ref = fused_step._affine_input_plain(z, lo, sc, x_order)
+    got = fused_step._cuda_ops(cuda_device).affine_input(z, lo, sc, x_order, None)
+    ref = fused_step._affine_input_plain(z, lo, sc, x_order, None)
     torch.cuda.synchronize()
     assert got.shape == ref.shape == ((2 + x_order) * n, 2)
     assert _rel(got[:n], ref[:n]) < 1e-6 and torch.equal(got[n:], ref[n:])
@@ -761,8 +768,160 @@ def test_kernel1_entry_points_refuse_an_x_order_out_of_scope(cuda_device, kx):
     one = torch.ones(2, device=cuda_device)
     stream = _build.stream_handle(cuda_device)
     assert ops.lib.fr_affine_input(z.data_ptr(), one.data_ptr(), one.data_ptr(), X.data_ptr(), 8,
-                                   kx, stream) != 0
+                                   kx, 1, 0, 0.0, stream) != 0
     H = torch.zeros((6 * 8, 4), device=cuda_device)
-    assert ops.lib.fr_transport_fwd(H.data_ptr(), None, None, H.data_ptr(), 8, 4, 0, kx,
+    assert ops.lib.fr_transport_fwd(H.data_ptr(), None, None, H.data_ptr(), 8, 4, 0, kx, 1,
                                     stream) != 0
 
+
+
+@pytest.mark.parametrize("dim", [0, 4])
+def test_kernel1_entry_points_refuse_a_dimension_out_of_scope(cuda_device, dim):
+    from pinnrl_tpu_torch.ops.kernels import _build, fused_step
+
+    ops = fused_step._cuda_ops(cuda_device)
+    stream = _build.stream_handle(cuda_device)
+    buf = torch.zeros(4096, device=cuda_device)
+    p = buf.data_ptr()
+    assert ops.lib.fr_embed(p, p, p, p, p, 8, 4, 1, 2, dim, 0, 0.0, stream) != 0
+    assert ops.lib.fr_affine_input(p, p, p, p, 8, 2, dim, 0, 0.0, stream) != 0
+    assert ops.lib.fr_transport_fwd(p, None, None, p, 8, 4, 0, 2, dim, stream) != 0
+    assert ops.lib.fr_transport_bwd(p, None, None, p, p, None, None, 8, 4, 0, 2, dim,
+                                    stream) != 0
+    assert ops.lib.fr_heat(p, p, p, 8, dim, 1.0, 0, stream) != 0
+    assert ops.lib.fr_convection(p, p, p, 8, dim, 1.0, 1.0, 1.0, 0, stream) != 0
+
+
+@pytest.mark.parametrize("frame", [None, 0.7])
+@pytest.mark.parametrize("x_order", [1, 2, 3])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_stacked_input_kernels_match_twins(cuda_device, dim, x_order, frame):
+    """embed_kernel<D, KX> and affine_input_kernel<D> against their twins at
+    (4999, dim+1) points, mapping 64, with and without a frame."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(dim * 10 + x_order)
+    n = 4999
+    z = torch.rand((n, dim + 1), generator=gen, device=cuda_device) * 3.0 - 1.0
+    lo = -torch.ones(dim + 1, device=cuda_device)
+    sc = torch.rand(dim + 1, generator=gen, device=cuda_device) + 0.5
+    B = torch.randn((dim + 1, 64), generator=gen, device=cuda_device)
+    ops = fused_step._cuda_ops(cuda_device)
+    got = ops.embed(z, lo, sc, B, True, x_order, frame)
+    ref = fused_step._embed_plain(z, lo, sc, B, True, x_order, frame)
+    got_ff = ops.affine_input(z, lo, sc, x_order, frame)
+    ref_ff = fused_step._affine_input_plain(z, lo, sc, x_order, frame)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == ((2 + dim * x_order) * n, 128)
+    assert _rel(got, ref) < 1e-4
+    assert got_ff.shape == ref_ff.shape == ((2 + dim * x_order) * n, dim + 1)
+    assert _rel(got_ff[:n], ref_ff[:n]) < 1e-6
+    if frame is None:
+        assert torch.equal(got_ff[n:], ref_ff[n:])
+    else:
+        assert _rel(got_ff[n:], ref_ff[n:]) < 1e-6
+
+
+@pytest.mark.parametrize("layer_norm", [True, False])
+@pytest.mark.parametrize("x_order", [1, 2, 3])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_transport_kernels_match_twins(cuda_device, dim, x_order, layer_norm):
+    """transport_fwd_kernel<D, KX> and transport_bwd_kernel<D, KX> against
+    the twins on seeded (S n, 256) tensors."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(dim * 10 + x_order)
+    n, width, streams = 300, 256, 2 + dim * x_order
+    H = torch.randn((streams * n, width), generator=gen, device=cuda_device)
+    GA = torch.randn((streams * n, width), generator=gen, device=cuda_device)
+    gamma = 1.0 + 0.2 * torch.randn(width, generator=gen, device=cuda_device)
+    beta = 0.2 * torch.randn(width, generator=gen, device=cuda_device)
+    g, b = (gamma, beta) if layer_norm else (None, None)
+    ops = fused_step._cuda_ops(cuda_device)
+    A = ops.transport_fwd(H, g, b, n, dim)
+    GH, Gg, Gb = ops.transport_bwd(H, g, b, GA, n, dim)
+    A_ref = fused_step._transport_fwd_plain(H, g, b, n, dim)
+    GH_ref, Gg_ref, Gb_ref = fused_step._transport_bwd_plain(H, g, b, GA, n, dim)
+    torch.cuda.synchronize()
+    assert _rel(A, A_ref) < 1e-5 and _rel(GH, GH_ref) < 1e-5
+    if layer_norm:
+        assert _rel(Gg, Gg_ref) < 1e-5 and _rel(Gb, Gb_ref) < 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_residual_kernels_match_twins(cuda_device, dim, causal):
+    """The six residual kernels at D = 1-3 against their twins on seeded
+    stacked outputs."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(dim)
+    n = 5000
+    z = torch.rand((n, dim + 1), generator=gen, device=cuda_device) * 2.0
+    cuda_ops, plain = fused_step._cuda_ops(cuda_device), fused_step._TorchOps()
+    velocity = (0.5, -1.5, 2.0)[:dim]
+    for name, K, args in (("burgers", 2, (dim, 0.01)), ("heat", 2, (dim, 0.3)), ("kdv", 3, (dim,)),
+                          ("convection", 1, (velocity,)), ("allen_cahn", 2, (dim, 0.09))):
+        U = torch.randn(((2 + dim * K) * n, 1), generator=gen, device=cuda_device)
+        got = getattr(cuda_ops, name)(U, n, *args, causal)
+        ref = getattr(plain, name)(U, n, *args, causal)
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            assert a.shape == r.shape and _rel(a, r) < 1e-6, name
+    U = torch.randn(((2 + dim * 2) * n, 1), generator=gen, device=cuda_device)
+    got = cuda_ops.black_scholes(U, z, n, -1.0, 0.02, 0.05, causal)
+    ref = plain.black_scholes(U, z, n, -1.0, 0.02, 0.05, causal)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and _rel(a, r) < 1e-6, "black_scholes"
+
+
+@pytest.mark.parametrize("case", ["heat_2d", "heat_2d_causal", "heat_2d_feedforward",
+                                  "heat_2d_frame", "burgers_frame", "heat_3d"])
+def test_fused_residual_loss_beyond_one_dimension_matches_plain(cuda_device, case):
+    """Kernel 1 in two and three space dimensions and in a co-moving frame
+    through ``make_fused_residual_loss`` at N = 8192, narrow trunks; two
+    calls bit-identical."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    if case == "burgers_frame":
+        cfg = load_config(pde_type="burgers", architecture="fourier", device="cuda")
+    elif case == "heat_3d":
+        cfg = load_config(pde_type="heat", architecture="fourier", device="cuda")
+        cfg.pde.dimension, cfg.model.input_dim = 3, 4
+        cfg.pde.domain = [list(cfg.pde.domain[0])] * 3
+    else:
+        cfg = build_recipe_config("heat_2d", device="cuda")
+        if case.endswith("feedforward"):
+            cfg.model.architecture = "feedforward"
+    cfg.model.hidden_dims = [64, 48]
+    cfg.model.arch_params["mapping_size"] = 32
+    cfg.training.causal_eps = 1.0 if case.endswith("causal") else 0.0
+    if case.endswith("frame"):
+        cfg.model.arch_params["moving_frame_speed"] = 0.7
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    assert fused_step.supports(model, pde, cfg.training)
+    fn = fused_step.make_fused_residual_loss(model, pde)
+    bundle_fn = make_bundle_fn(model, pde.dimension, max(pde.spatial_orders), 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x, t = pde.generate_collocation_points(gen, 8192, "uniform")
+    z = torch.cat([x, t], dim=-1)[torch.argsort(t.reshape(-1), stable=True)]
+    params = model.params
+    runs = []
+    for _ in range(2):
+        lk = fn(params, z)
+        runs.append((lk.detach(), torch.autograd.grad(lk, list(params.values()))))
+    lp = fused_step.fused_residual_loss_plain(bundle_fn, pde, params, z)
+    gp = torch.autograd.grad(lp, list(params.values()), allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+    loss_tol, grad_tol = (1e-4, 1e-3) if case.endswith("causal") else (1e-5, 1e-4)
+    assert abs(float(l1) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
+    for name, a, b in zip(params, g1, gp):
+        assert torch.isfinite(a).all() and _rel(a, b) < grad_tol, name

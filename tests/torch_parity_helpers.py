@@ -150,10 +150,13 @@ def small_recipe_trainer(key: str, epochs: int = 6):
 
 
 def pde_pair(pde_type, *, arch="fourier", hidden=(32, 24), mapping=16, periodic=True,
-             layer_norm=True, scale=1.0, causal_eps=0.0, seed=0, ln_jitter=True, pde=None):
+             layer_norm=True, scale=1.0, causal_eps=0.0, seed=0, ln_jitter=True, pde=None,
+             dim=None, frame=None):
     """The shipped config block of ``pde_type`` on an ``arch`` trunk at small
     width in both packages, bridged; ``pde`` overrides entries of the PDE
-    block (``parameters`` merged) in both."""
+    block (``parameters`` merged) in both. ``dim`` poses the problem in that
+    many space dimensions (the block's first axis repeated); ``frame`` gives
+    the model a co-moving frame of that speed."""
     from pinnrl_tpu.config import load_config as jax_load_config
     from pinnrl_tpu_torch.config import load_config
 
@@ -167,6 +170,12 @@ def pde_pair(pde_type, *, arch="fourier", hidden=(32, 24), mapping=16, periodic=
                 cfg.pde.parameters.update(v)
             else:
                 setattr(cfg.pde, k, v)
+        if dim is not None:
+            cfg.pde.dimension = dim
+            cfg.pde.domain = [list(cfg.pde.domain[0])] * dim
+            cfg.model.input_dim = dim + 1
+        if frame is not None:
+            cfg.model.arch_params["moving_frame_speed"] = frame
         _configure_model_training(cfg, **kw)
     return _pair(*cfgs, seed=seed, jitter_ln=ln_jitter and layer_norm)
 
@@ -245,11 +254,11 @@ def inject_periodic_draws(monkeypatch, pair, key, n_colloc):
 
 
 def sorted_z(seed: int, n: int, domain):
-    """(n, 2) float32 points from ``points(seed, n, **domain)``, sorted by
+    """(n, d+1) float32 points from ``points(seed, n, **domain)``, sorted by
     time (the order the causal kernel takes)."""
     x, t = points(seed, n, **domain)
     z = np.concatenate([x, t], axis=1)
-    return z[np.argsort(z[:, 1], kind="stable")]
+    return z[np.argsort(z[:, -1], kind="stable")]
 
 
 def jax_grad_rels(grads, g_j):
@@ -294,7 +303,7 @@ def plain_vs_launcher(pair, z):
 
     tpde = pair.tpde
     params = torch_params(pair.tmodel)
-    bundle_fn = make_bundle_fn(pair.tmodel, 1, max(tpde.spatial_orders), 1)
+    bundle_fn = make_bundle_fn(pair.tmodel, tpde.dimension, max(tpde.spatial_orders), 1)
     ref = fused_step.fused_residual_loss_plain(bundle_fn, tpde, params, torch.from_numpy(z))
     g_ref = torch.autograd.grad(ref, list(params.values()), allow_unused=True,
                                 materialize_grads=True)

@@ -6,7 +6,7 @@ report their accuracy.
         [--out build/convergence]
 
 ``--pde`` takes any key of the port's ``RECIPES`` (burgers, heat, kdv,
-convection, allen_cahn, black_scholes, allen_cahn_dynamics).
+heat_2d, convection, allen_cahn, black_scholes, allen_cahn_dynamics).
 
 Each recipe runs as shipped through
 ``pinnrl_tpu_torch.benchmarks.convergence.run_convergence(key, seed=...,
