@@ -131,6 +131,32 @@ Phases (each raises on failure, and the script then exits non-zero):
                once per loss; kernel 2 on the (N, 3) BC and IC points (basis
                (3, 128)) exactly twice per loss plus twice for heat's
                ``validate``, its jvp rule never.
+ 23. second order — float64 parameters with float32 points on the Burgers
+               recipe take the plain path (kernel 1 never launches); kernel 2
+               and its jvp rule (orders 1-2 along t) against their plain
+               versions at (4096,2)x(2,128) with B's x-row zero (the pendulum
+               recipes' basis); then the wave, pendulum and
+               pendulum_nonlinear recipes through ``run_convergence(key,
+               seed=0, epochs=6, device="cuda")``: 3 Adam epochs of 4 steps,
+               then 3 L-BFGS iterations on all 40000 points, the residual on
+               the plain bundle (temporal order 2). Losses finite, falling,
+               not rising within the L-BFGS round; kernel 1 never; kernel 2
+               exactly three times per loss (BC, IC, velocity IC) plus once
+               for ``validate``, its jvp rule once per loss; the same counted
+               alone for one Adam step, one L-BFGS iteration and one
+               ``validate``; host syncs 0 per Adam step and one per L-BFGS
+               evaluation; median ms per Adam step and per L-BFGS iteration
+               with kernel 2 and on the plain path, in turns, and the plain
+               bundle's residual loss and gradients at N = 40000 by CUDA-graph
+               replay, with its share of an L-BFGS iteration.
+ 24. shipped  — wave as shipped (``load_config(pde_type="wave")``: SIREN
+               124x7, omega_0 30, batch 2048 of 5000): kernel 3 against its
+               plain version at its shapes on wave's weights, wave's order-2
+               residual loss and gradients through kernel 3 against the plain
+               path, then 6 Adam steps and a validation with kernel 3
+               exactly 7 x 7 times per loss; the pendulum as shipped (ResNet
+               512x7 on the generic engine) for 6 Adam steps, no kernel;
+               finite losses and ``validate`` metrics.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -171,9 +197,15 @@ streams, trunk, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
 jvp rule's, the L-BFGS evaluations, rel-L2 and wall seconds), phase 21's
 ``scope_nd`` (per variant: its dimension, streams, frame speed, trunk and,
 at full width, the timings as ``scope_1d``'s) and phase 22's
-``heat_2d_launches``; kernel 2's carries its phase-17 launches and heat's
-jvps (``lbfgs_launches``) and its phase-22 launches; kernel
-3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124;
+``heat_2d_launches``, phase 23's ``second_order_launches`` (0 per recipe)
+and ``float64_params_launches``; kernel 2's carries its phase-17 launches
+and heat's jvps (``lbfgs_launches``), its phase-22 launches and phase 23's
+``second_order`` (per recipe: launches, jvps, evaluations, ``per`` step,
+host syncs, Adam-step and L-BFGS-iteration ms with the kernel and plain,
+the bundle's ms and share of an iteration, rel-L2 and wall seconds) and ``zero_x_row`` (its timing there); kernel
+3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124,
+and phase 24's ``wave_launches``, ``wave_max_abs_err`` and
+``shipped_second_order``;
 kernel 4's ``launch_ms`` (each launch), ``splits`` (the launcher's choice,
 ``mlp._product_split``) and ``blocks`` of its product (read from the
 launch's own grid, ``ms_gemm_blocks``), and phase 9's A/Bs
@@ -274,6 +306,17 @@ ND_SMALL_N = 4096
 # Phase 22: the heat_2d recipe through run_convergence, 3 Adam epochs (12
 # steps of 8192) then 3 L-BFGS iterations on all 40000 points.
 HEAT_2D_EPOCHS = 6
+# Phase 23: the three recipes second order in time (wave, pendulum,
+# pendulum_nonlinear) through run_convergence, 3 Adam epochs (12 steps of
+# 8192) then 3 L-BFGS iterations on all 40000 points; then Adam steps and
+# L-BFGS iterations timed with kernel 2 and on the plain path, in turns.
+SECOND_ORDER_RECIPES = ("wave", "pendulum", "pendulum_nonlinear")
+SECOND_ORDER_EPOCHS = 6
+SECOND_ORDER_TIMED = 6
+# Phase 24: wave and the pendulum as shipped (SIREN 124x7; ResNet 512x7),
+# SHIPPED_SECOND_ORDER_EPOCHS epochs of 2 Adam steps (batch 2048 of 5000).
+SHIPPED_SECOND_ORDER_EPOCHS = 3
+F64_TOL = 1e-12     # float64 parameters: the loss against the plain path's, rel
 
 
 def nvidia_smi_line() -> str:
@@ -1969,6 +2012,317 @@ def main() -> int:
         raise AssertionError(f"heat_2d: non-finite result {conv}")
     heat_2d_run.update(rel_l2=conv.rel_l2, wall_s=wall)
 
+    # ---- 23. wave and the pendulums: temporal order 2, Adam then L-BFGS -------- #
+    # Float64 parameters take the plain path (kernel 1 refuses them), float32
+    # points and all, as the JAX package gates its kernel.
+    f64_tr = lbfgs_runs["burgers"][1]
+    p64 = {k: t_.detach().double() for k, t_ in f64_tr.model.params.items()}
+    x64, t64 = f64_tr.pde.generate_collocation_points(gen, 8192, "uniform")
+    fused_step.fused_residual_loss.launches = 0
+    l64 = f64_tr.pde.compute_loss(f64_tr.model.apply, p64, x64, t64,
+                                  generator=torch.Generator(device=dev).manual_seed(0))
+    r64 = f64_tr.pde._residual_loss(f64_tr.pde.compute_residual(f64_tr.model.apply, p64, x64, t64),
+                                    t64)
+    torch.cuda.synchronize()
+    f64_rel = abs(float(l64["residual"]) - float(r64)) / abs(float(r64))
+    f64_launches = fused_step.fused_residual_loss.launches
+    print(f"[second-order] Burgers recipe, float64 parameters and float32 points: kernel 1 "
+          f"launched {f64_launches} times; residual loss "
+          f"{float(l64['residual']):.6e} ({l64['residual'].dtype}) against the plain path's: rel "
+          f"{f64_rel:.3e} (tol {F64_TOL:g})", flush=True)
+    if not (f64_launches == 0 and l64["residual"].dtype == torch.float64
+            and f64_rel < F64_TOL and all(math.isfinite(float(v)) for v in l64.values())):
+        raise AssertionError("float64 parameters did not take the plain path")
+    del p64, l64, r64
+
+    # Kernel 2 at the pendulum recipes' shape: the IC points (4096, 2) on the
+    # basis whose x-row is zero (scale (0, 1)); forward, and its jvp rule
+    # along t at orders 1-2 through the network, each against its plain
+    # version.
+    pcfg = build_recipe_config("pendulum_nonlinear", device="cuda")
+    ppde, pmodel = create_pde(pcfg), PINNModel(pcfg, seed=0)
+    Bp = pmodel.constants["FourierFeatures_0.B"]
+    zp = torch.cat(ppde._sample_initial_points(gen, 4096), dim=-1)
+    xp = pmodel.map_inputs(zp)
+    with torch.no_grad():
+        fk = fourier_feats.fourier_features(xp, Bp, True)
+        fp = fourier_feats.fourier_features_plain(xp, Bp, True)
+    torch.cuda.synchronize()
+    zero_row = not bool(Bp[0].any())
+    ff0_err = float((fk - fp).abs().max())
+    ff0_rel = ff0_err / float(fp.abs().max())
+    print(f"[second-order] fourier_features (4096,2)x(2,128), the x-row of B zero {zero_row}: "
+          f"max_abs_err {ff0_err:.3e} rel {ff0_rel:.3e} (tol {FF_TOL:g})", flush=True)
+    if not (zero_row and tuple(Bp.shape) == (2, 128) and ff0_rel < FF_TOL):
+        raise AssertionError("fourier_features disagrees with its plain version on the zero x-row")
+    ff_err = max(ff_err, ff0_err)
+    up = make_scalar_fn(pmodel.apply, {k: v.detach() for k, v in pmodel.params.items()})
+    with torch.no_grad():
+        dk = directional_derivative(up, zp, 1, 2)
+        with plain_fourier_features():
+            dp = directional_derivative(up, zp, 1, 2)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(dk, dp), start=1):
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        tol = JVP_TOL * 10 ** (k - 1)
+        print(f"[second-order] fourier_features jvp rule, order {k} d/dt of the pendulum recipe's "
+              f"network (4096 IC points): rel {rel:.3e} (tol {tol:g})", flush=True)
+        if not rel < tol:
+            raise AssertionError(f"fourier_features's jvp rule disagrees at order {k} (zero x-row)")
+    ff0 = {"ms": graph_ms(lambda: fourier_feats.fourier_features(xp, Bp, True)),
+           "plain_ms": graph_ms(lambda: fourier_feats.fourier_features_plain(xp, Bp, True))}
+    ff0["bound_ms"], ff0["bound_by"] = bound(2.0 * 4096 * 2 * 128 + 3.0 * 4096 * 128,
+                                             4.0 * (4096 * 2 + 2 * 128 + 2 * 4096 * 128))
+    print(f"[timing] fourier_features (4096,2)x(2,128) zero x-row, device time per call (CUDA "
+          f"graph): kernel {ff0['ms']:.5f} ms, plain {ff0['plain_ms']:.5f} ms, bound "
+          f"{ff0['bound_ms']:.5f} ms ({card})", flush=True)
+    del ppde, pmodel
+
+    second_runs = {}
+    for key in SECOND_ORDER_RECIPES:
+        rt = build_recipe_config(key, epochs=SECOND_ORDER_EPOCHS, device="cuda").training
+        switch = int(rt.adam_lbfgs_switch_ratio * SECOND_ORDER_EPOCHS)
+        adam_steps = switch * (rt.num_collocation_points // rt.batch_size)
+        fused_step.fused_residual_loss.launches = 0
+        fourier_feats.fourier_features.launches = 0
+        fourier_feats.fourier_features.jvps = 0
+        evals0, reads0 = LBFGS.evaluations, LBFGS.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captured_trainers() as seen:
+            conv = run_convergence(key, seed=0, epochs=SECOND_ORDER_EPOCHS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+               "fourier_features": fourier_feats.fourier_features.launches,
+               "fourier_features_jvps": fourier_feats.fourier_features.jvps,
+               "evaluations": LBFGS.evaluations - evals0, "host_reads": LBFGS.host_reads - reads0}
+        (ltr,) = seen
+        hist = ltr.history
+        losses, n_vals = hist["train_loss"], len(hist["val_loss"])
+        lbfgs_losses = losses[switch:]
+        n_losses = adam_steps + run["evaluations"] + n_vals
+        # Per loss: kernel 2 on the BC, the IC and the velocity IC's points,
+        # its jvp rule once (the velocity IC's u_t); the residual runs on the
+        # plain bundle (kernel 1 refuses temporal order 2); one more kernel-2
+        # launch for run_convergence's validate(20000).
+        want = {"fused_residual_loss": 0, "fourier_features": 3 * n_losses + 1,
+                "fourier_features_jvps": n_losses}
+        print(f"[second-order] {key}: run_convergence(seed=0, epochs={SECOND_ORDER_EPOCHS}) "
+              f"{wall:.2f} s: Adam {switch} epochs ({adam_steps} steps of {rt.batch_size}), then "
+              f"{len(lbfgs_losses)} L-BFGS iterations on {rt.num_collocation_points} points; "
+              f"validations {n_vals}; {run} ({card})", flush=True)
+        print(f"[second-order] {key}: epoch losses {' '.join(f'{x_:.6e}' for x_ in losses)}; "
+              f"rel_l2 {conv.rel_l2:.4e} max_error {conv.max_error:.4e} (no bar at "
+              f"{SECOND_ORDER_EPOCHS} epochs)", flush=True)
+        if not (ltr.switch_epoch == switch and len(losses) == SECOND_ORDER_EPOCHS
+                and ltr.fast_bundle_active and not ltr.fused_kernel_active
+                and all(map(math.isfinite, losses + hist["val_loss"]))):
+            raise AssertionError(f"{key}: switch {ltr.switch_epoch}, bundle {ltr.fast_bundle_active}, "
+                                 f"kernel 1 {ltr.fused_kernel_active}, losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{key}: the loss did not fall: {losses}")
+        for a, b in zip(lbfgs_losses, lbfgs_losses[1:]):
+            if not b <= a + APPROX_DEC_RTOL * abs(a):
+                raise AssertionError(f"{key}: the L-BFGS loss rose within its round: {lbfgs_losses}")
+        if any(run[k] != w for k, w in want.items()) or run["host_reads"] != run["evaluations"]:
+            raise AssertionError(f"{key}: launches {run}, want {want} ({adam_steps} Adam steps + "
+                                 f"{run['evaluations']} L-BFGS evaluations + {n_vals} validations)")
+        if not all(math.isfinite(x_) for x_ in (conv.rel_l2, conv.max_error, conv.points_per_sec)):
+            raise AssertionError(f"{key}: non-finite result {conv}")
+
+        # Launches of one Adam step, one L-BFGS iteration and one validate,
+        # each counted alone.
+        lbatch = ltr._lbfgs_batch(0, 0, LBFGS_N)
+        per = {}
+        params = ltr.model.params
+        aopt = ltr._make_adam(1, 1, list(params.values()))
+        sopt = ltr._make_lbfgs(list(params.values()))
+        sgen = torch.Generator(device=dev).manual_seed(5)
+        for what, fn in (("adam_step", lambda: ltr._step(params, aopt, sgen, rt.batch_size)),
+                         ("lbfgs_iteration", lambda: ltr._lbfgs_step(params, sopt, lbatch, sgen)),
+                         ("validate", lambda: ltr.pde.validate(ltr.model.apply, params,
+                                                               num_points=20000))):
+            fourier_feats.fourier_features.launches = 0
+            fourier_feats.fourier_features.jvps = 0
+            evals0 = LBFGS.evaluations
+            fn()
+            torch.cuda.synchronize()
+            per[what] = {"launches": fourier_feats.fourier_features.launches,
+                         "jvps": fourier_feats.fourier_features.jvps,
+                         "evaluations": LBFGS.evaluations - evals0}
+        it = per["lbfgs_iteration"]
+        if not (per["adam_step"] == {"launches": 3, "jvps": 1, "evaluations": 0}
+                and it["evaluations"] >= 2 and it["launches"] == 3 * it["evaluations"]
+                and it["jvps"] == it["evaluations"]
+                and per["validate"] == {"launches": 1, "jvps": 0, "evaluations": 0}):
+            raise AssertionError(f"{key}: kernel 2's launches per step {per}")
+        adam_syncs, adam_sites = count_syncs(ltr, rt.batch_size)
+        evals0, reads0 = LBFGS.evaluations, LBFGS.host_reads
+        l_sites = record_syncs(lambda: ltr._lbfgs_step(params, sopt, lbatch, sgen))
+        l_evals, l_reads = LBFGS.evaluations - evals0, LBFGS.host_reads - reads0
+        print(f"[syncs] {key}: one warm Adam step {adam_syncs} {adam_sites}; one L-BFGS iteration "
+              f"{len(l_sites)} {sorted(set(l_sites))}, {l_evals} evaluations, {l_reads} host reads",
+              flush=True)
+        if adam_syncs or len(l_sites) != l_reads or l_reads != l_evals:
+            raise AssertionError(f"{key}: {adam_syncs} host syncs per Adam step; {len(l_sites)} "
+                                 f"per L-BFGS iteration of {l_evals} evaluations")
+        timed = {"kernels": {"adam": [], "lbfgs": [], "evals": []},
+                 "plain": {"adam": [], "lbfgs": [], "evals": []}}
+        for order in ("plain", "kernels", "kernels", "plain"):
+            with plain_fourier_features() if order == "plain" else contextlib.nullcontext():
+                timed[order]["adam"] += step_times(ltr, SECOND_ORDER_TIMED, 1, rt.batch_size)
+                times, evals = lbfgs_iteration_times(ltr, lbatch, SECOND_ORDER_TIMED)
+            timed[order]["lbfgs"] += times
+            timed[order]["evals"].append(evals)
+        ms = {o: {"adam_step_ms": statistics.median(v["adam"]),
+                  "lbfgs_iteration_ms": statistics.median(v["lbfgs"]),
+                  "evaluations_per_iteration": sum(v["evals"]) / len(v["evals"])}
+              for o, v in timed.items()}
+        # The plain bundle's share of an L-BFGS iteration: the residual loss
+        # and its parameter gradients on the iteration's 40000 points (device
+        # time by CUDA-graph replay) times the evaluations per iteration,
+        # over the iteration's host-clock median.
+        xl, tl, _ = lbatch
+        pr = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+        def bundle_grads():
+            r = ltr.pde.compute_residual(ltr.model.apply, pr, xl, tl)
+            return torch.autograd.grad(ltr.pde._residual_loss(r, tl), list(pr.values()),
+                                       allow_unused=True, materialize_grads=True)
+
+        bundle_ms = graph_ms(bundle_grads, iters=5, replays=5)
+        bundle_share = (bundle_ms * ms["kernels"]["evaluations_per_iteration"]
+                        / ms["kernels"]["lbfgs_iteration_ms"])
+        print(f"[timing] {key}: the plain bundle's residual loss + gradients at N={LBFGS_N}, "
+              f"device time per call (CUDA graph) {bundle_ms:.3f} ms: "
+              f"{bundle_share:.1%} of an L-BFGS iteration ({card})", flush=True)
+        del pr
+        print(f"[timing] {key}: Adam step (batch {rt.batch_size}, BC/IC {rt.num_initial_points}), "
+              f"median of {len(timed['kernels']['adam'])}: kernel 2 "
+              f"{ms['kernels']['adam_step_ms']:.3f} ms, plain {ms['plain']['adam_step_ms']:.3f} ms; "
+              f"L-BFGS iteration (N={LBFGS_N}), median of {len(timed['kernels']['lbfgs'])}: kernel 2 "
+              f"{ms['kernels']['lbfgs_iteration_ms']:.3f} ms "
+              f"({ms['kernels']['evaluations_per_iteration']:.2f} evaluations), plain "
+              f"{ms['plain']['lbfgs_iteration_ms']:.3f} ms "
+              f"({ms['plain']['evaluations_per_iteration']:.2f}) ({card})", flush=True)
+        second_runs[key] = {**run, "rel_l2": conv.rel_l2, "wall_s": wall, "per": per,
+                            "adam_syncs": adam_syncs, "lbfgs_syncs": len(l_sites),
+                            "lbfgs_evaluations": l_evals, "bundle_ms": bundle_ms,
+                            "bundle_share_of_lbfgs_iteration": bundle_share, **ms}
+        del ltr, seen
+
+    # ---- 24. the shipped defaults: wave on its SIREN, the pendulum on its ResNet - #
+    wcfg = load_config(pde_type="wave", device="cuda")
+    wt = wcfg.training
+    wt.num_epochs = SHIPPED_SECOND_ORDER_EPOCHS
+    w_omega = float(wcfg.model.arch_params["omega_0"])
+    if not (wcfg.model.architecture == "siren" and tuple(wcfg.model.hidden_dims) == (124,) * 7
+            and w_omega == 30.0 and wt.batch_size == 2048):
+        raise AssertionError("the shipped wave configuration is not the 124x7 SIREN at omega 30")
+    wpde, wmodel = create_pde(wcfg), PINNModel(wcfg, seed=0)
+    wp = wmodel.params
+    w_x, w_t = wpde.generate_collocation_points(gen, wt.num_initial_points, "uniform")
+    w_in = [wmodel.map_inputs(torch.cat([w_x, w_t], dim=-1))]
+    with torch.no_grad():
+        w_in.append(siren.siren_layer_plain(w_in[0], wp["SIRENLayer_0.kernel"],
+                                            wp["SIRENLayer_0.bias"], w_omega))
+    wave_siren_err = 0.0
+    for tag, (xs, i) in {"(2048,2)->124": (w_in[0][:2048], 0),
+                         "(2048,124)->124": (w_in[1][:2048], 1),
+                         "(5000,124)->124": (w_in[1], 1)}.items():
+        W, b = wp[f"SIRENLayer_{i}.kernel"].detach(), wp[f"SIRENLayer_{i}.bias"].detach()
+        with torch.no_grad():
+            sk = siren.siren_layer(xs, W, b, w_omega)
+            spl = siren.siren_layer_plain(xs, W, b, w_omega)
+        torch.cuda.synchronize()
+        err = float((sk - spl).abs().max())
+        rel = err / float(spl.abs().max())
+        wave_siren_err = max(wave_siren_err, err)
+        print(f"[shipped] wave SIREN: siren_layer {tag}: max_abs_err {err:.3e} rel {rel:.3e} "
+              f"(tol {SIREN_TOL:g})", flush=True)
+        if not rel < SIREN_TOL:
+            raise AssertionError(f"siren_layer disagrees with its plain version on wave at {tag}")
+    siren_err = max(siren_err, wave_siren_err)
+
+    def wave_residual_grads(p, zz):
+        r = wpde.compute_residual(wmodel.apply, p, zz[:, :1], zz[:, 1:])
+        loss = torch.mean(r * r)
+        # The residual u_tt - c^2 u_xx does not depend on the head's bias: its gradient is 0.
+        return loss, torch.autograd.grad(loss, list(p.values()), allow_unused=True,
+                                         materialize_grads=True)
+
+    w_z = torch.cat([w_x, w_t], dim=-1)[:2048]
+    w_p = {k: v.detach().requires_grad_(True) for k, v in wp.items()}
+    lk, gk_ = wave_residual_grads(w_p, w_z)
+    with plain_siren():
+        lp, gp_ = wave_residual_grads(w_p, w_z)
+    torch.cuda.synchronize()
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gk_, gp_))
+    loss_rel = abs(float(lk.detach()) - float(lp.detach())) / abs(float(lp.detach()))
+    print(f"[shipped] wave's order-2 residual loss through kernel 3 (N=2048, 124x7): loss rel "
+          f"{loss_rel:.3e}; worst gradient rel {worst:.3e} (tol {SIREN_GRAD_TOL:g})", flush=True)
+    if not (loss_rel < SIREN_GRAD_TOL and worst < SIREN_GRAD_TOL):
+        raise AssertionError("wave's residual-loss gradients through kernel 3 disagree with plain")
+    del w_p, gk_, gp_
+
+    pend_cfg = load_config(pde_type="pendulum", device="cuda")
+    shipped_second = {}
+    for name, scfg_, spde_, smodel_ in (
+            ("wave", wcfg, wpde, wmodel),
+            ("pendulum", pend_cfg, create_pde(pend_cfg), PINNModel(pend_cfg, seed=0))):
+        st2 = scfg_.training
+        st2.num_epochs = SHIPPED_SECOND_ORDER_EPOCHS
+        trainer2 = PDETrainer(smodel_, spde_, scfg_)
+        if trainer2.fast_bundle_active or trainer2.fused_kernel_active:
+            raise AssertionError(f"{name} as shipped is not on the generic engine")
+        if name == "pendulum" and not (scfg_.model.architecture == "resnet"
+                                       and (scfg_.model.hidden_dim, scfg_.model.num_blocks) == (512, 7)):
+            raise AssertionError("the shipped pendulum configuration is not the ResNet 512x7")
+        steps2 = SHIPPED_SECOND_ORDER_EPOCHS * (st2.num_collocation_points // st2.batch_size)
+        vals2 = sum(1 for e in range(1, SHIPPED_SECOND_ORDER_EPOCHS + 1)
+                    if e % st2.validation_frequency == 0 or e == SHIPPED_SECOND_ORDER_EPOCHS)
+        siren.siren_layer.launches = 0
+        fourier_feats.fourier_features.launches = 0
+        fused_step.fused_residual_loss.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res2 = trainer2.train(seed=0)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        run2 = {"siren_layer": siren.siren_layer.launches,
+                "fourier_features": fourier_feats.fourier_features.launches,
+                "fused_residual_loss": fused_step.fused_residual_loss.launches}
+        hist2 = res2["history"]["train_loss"]
+        net2 = trainer2._final_state["params"]["net"]
+        val2 = spde_.validate(smodel_.apply, net2, num_points=20000)
+        if name == "wave":
+            n_layers2 = len(scfg_.model.hidden_dims)
+            # Per loss: u_tt and u_xx (two nested jvps: two evaluations each),
+            # the BC, the IC and the velocity IC (one jvp): 7 evaluations,
+            # each through every layer.
+            evals2 = (max(spde_.temporal_orders) + spde_.dimension * max(spde_.spatial_orders) + 3)
+            want2 = {"siren_layer": evals2 * n_layers2 * (steps2 + vals2), "fourier_features": 0,
+                     "fused_residual_loss": 0}
+        else:
+            want2 = {"siren_layer": 0, "fourier_features": 0, "fused_residual_loss": 0}
+        arch2 = scfg_.model.architecture
+        print(f"[shipped] {name} as shipped ({arch2} {list(scfg_.model.hidden_dims)}, batch "
+              f"{st2.batch_size} of {st2.num_collocation_points}, BC/IC {st2.num_boundary_points}): "
+              f"{steps2} Adam steps, {vals2} validation(s), {wall2:.2f} s; launches {run2} (want "
+              f"{want2}); epoch losses {' '.join(f'{v:.4e}' for v in hist2)}; validate(20000) rel_l2 "
+              f"{val2['rel_l2']:.4e} (no bar) ({card})", flush=True)
+        if not (len(hist2) == SHIPPED_SECOND_ORDER_EPOCHS and all(map(math.isfinite, hist2))
+                and len(res2["history"]["val_loss"]) == vals2
+                and all(math.isfinite(v) for v in val2.values())):
+            raise AssertionError(f"{name} as shipped: losses {hist2}, validation {val2}")
+        if run2 != want2:
+            raise AssertionError(f"{name} as shipped: launches {run2}, want {want2}")
+        shipped_second[name] = {**run2, "steps": steps2, "validations": vals2, "wall_s": wall2,
+                                "rel_l2": val2["rel_l2"]}
+    del wpde, wmodel
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -2010,7 +2364,9 @@ def main() -> int:
          "lbfgs_iteration_ms": lbfgs_ms, "lbfgs_evaluations_per_iteration": lbfgs_evals,
          "lbfgs_syncs_per_iteration": len(sync_sites),
          "scope_1d": scope, "scope_1d_launches": scope_runs,
-         "scope_nd": scope_nd, "heat_2d_launches": heat_2d_run},
+         "scope_nd": scope_nd, "heat_2d_launches": heat_2d_run,
+         "second_order_launches": {k: r["fused_residual_loss"] for k, r in second_runs.items()},
+         "float64_params_launches": f64_launches},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -2021,6 +2377,7 @@ def main() -> int:
          "lbfgs_launches": {k: {"launches": r["fourier_features"], "jvps": r["fourier_features_jvps"]}
                             for k, (r, _) in lbfgs_runs.items()},
          "heat_2d_launches": heat_2d_run["fourier_features"],
+         "second_order": second_runs, "zero_x_row": {**ff0, "max_abs_err": ff0_err},
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
          "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
          "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,
@@ -2031,6 +2388,8 @@ def main() -> int:
          "source": "pinnrl_tpu_torch/csrc/siren.cu",
          "replaces": "pinnrl_tpu/ops/kernels/siren.py:29",
          "launches": siren_launches, "max_abs_err": siren_err, "blocks": siren_blocks,
+         "wave_launches": shipped_second["wave"]["siren_layer"], "wave_max_abs_err": wave_siren_err,
+         "shipped_second_order": shipped_second,
          "ms": siren_ms, "plain_ms": siren_plain_ms, "eager_ms": siren_eager_ms,
          "bound_ms": siren_bound[0], "bound_by": siren_bound[1], "library_ms": siren_lib_ms,
          "library_call": "torch.addmm(b, x, W) (FP32, TF32 off) at (2048,124)x(124,124), no sin"},

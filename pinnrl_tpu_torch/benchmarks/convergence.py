@@ -6,17 +6,17 @@ optimizer schedule); ``build_recipe_config`` materialises it into a
 ``Config`` and ``run_convergence`` trains it and reports rel-L2, max error,
 wall time and points per second.
 
-Ported: the ``heat``, ``kdv``, ``burgers``, ``heat_2d``, ``convection``,
-``allen_cahn``, ``black_scholes`` and ``allen_cahn_dynamics`` recipes; all
-but kdv train with Adam, then L-BFGS on every collocation point
-(``adam_lbfgs``).
+Ported: the ``heat``, ``kdv``, ``wave``, ``burgers``, ``heat_2d``,
+``convection``, ``allen_cahn``, ``black_scholes``, ``pendulum``,
+``allen_cahn_dynamics`` and ``pendulum_nonlinear`` recipes; all but kdv
+train with Adam, then L-BFGS on every collocation point (``adam_lbfgs``).
 ``allen_cahn_dynamics`` is the Allen-Cahn PDE (``pde_type``) against its
-ETDRK4 spectral trajectory.
+ETDRK4 spectral trajectory; ``pendulum_nonlinear`` the pendulum against its
+Jacobi-elliptic solution.
 ``points_per_sec`` counts each epoch at its own batch: the Adam epochs'
 steps times the batch, each L-BFGS epoch's iterations times the L-BFGS
 batch (the JAX package counts every epoch at the Adam batch).
-The other recipes raise naming item 11 (their PDEs: wave, pendulum,
-Cahn-Hilliard); experiment directories
+The Cahn-Hilliard recipes raise naming item 11; experiment directories
 and resume raise naming item 9; time-marching raises naming item 13 (no
 shipped recipe is multi-stage).
 """
@@ -73,6 +73,19 @@ RECIPES: Dict[str, dict] = {
             optimizer="adam", causal_eps=1.0,
             num_boundary_points=4096, num_initial_points=4096,
             learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
+    "wave": dict(
+        arch="fourier",
+        # The sin(2 pi (x - c t)) mode wants a low-frequency basis: scale 0.35.
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=0.35),
+        training=dict(
+            num_epochs=3000, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=1e-3, weight_decay=0.0,
+            loss_weights={"residual": 1.0, "boundary": 100.0, "initial": 100.0,
+                          "smoothness": 0.0, "data": 10.0},
         ),
     ),
     "burgers": dict(
@@ -149,6 +162,48 @@ RECIPES: Dict[str, dict] = {
             parameters={"sigma": 0.2, "r": 0.05, "time_convention": "to_maturity"},
             exact_solution={"type": "black_scholes", "strike": 100.0,
                             "option_type": "call", "cdf": True},
+            boundary_conditions={"dirichlet": {"type": "exact"}},
+        ),
+        training=dict(
+            num_epochs=1500, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
+    "pendulum": dict(
+        # The linearized restoring force, so theta0 cos(omega t) is exact; the
+        # anisotropic scale (0, 1) gives zero x-frequencies, so the network
+        # is exactly independent of the dummy spatial axis.
+        arch="fourier",
+        model=dict(
+            hidden_dims=[256, 256, 256], mapping_size=128, scale=(0.0, 1.0)
+        ),
+        pde=dict(
+            parameters={"g": 9.81, "L": 1.0, "linearized": True},
+            boundary_conditions={"dirichlet": {"type": "exact"}},
+        ),
+        training=dict(
+            num_epochs=1500, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
+    "pendulum_nonlinear": dict(
+        # The nonlinear residual against the exact Jacobi-elliptic solution
+        # at amplitude 0.5 rad (ops/special.py); the basis pinned by
+        # feature_seed 0, like KdV's.
+        pde_type="pendulum",
+        arch="fourier",
+        model=dict(
+            hidden_dims=[256, 256, 256], mapping_size=128, scale=(0.0, 1.0),
+            feature_seed=0,
+        ),
+        pde=dict(
+            parameters={"g": 9.81, "L": 1.0},
+            exact_solution={"type": "elliptic", "initial_angle": 0.5},
+            initial_condition={"type": "small_angle", "initial_angle": 0.5},
             boundary_conditions={"dirichlet": {"type": "exact"}},
         ),
         training=dict(

@@ -19,6 +19,7 @@ from pinnrl_tpu_torch.config import Config, ModelConfig, resolve_device
 from pinnrl_tpu_torch.models.base import count_parameters
 from pinnrl_tpu_torch.models.feedforward import FeedForwardNetwork
 from pinnrl_tpu_torch.models.fourier import FourierNetwork
+from pinnrl_tpu_torch.models.resnet import ResNet
 from pinnrl_tpu_torch.models.siren import SIREN
 
 __all__ = [
@@ -26,12 +27,13 @@ __all__ = [
     "create_module",
     "FeedForwardNetwork",
     "FourierNetwork",
+    "ResNet",
     "SIREN",
     "count_parameters",
     "PORTED_ARCHITECTURES",
 ]
 
-PORTED_ARCHITECTURES = ("feedforward", "fourier", "siren")
+PORTED_ARCHITECTURES = ("feedforward", "fourier", "resnet", "siren")
 
 
 def _parse_scale(v):
@@ -70,6 +72,15 @@ def create_module(model_cfg: ModelConfig, generator: Optional[torch.Generator] =
             activation=model_cfg.activation,
             dropout=model_cfg.dropout,
             layer_norm=model_cfg.layer_norm,
+            generator=generator,
+            **common,
+        )
+    if arch == "resnet":
+        return ResNet(
+            hidden_dim=model_cfg.hidden_dim,
+            num_blocks=model_cfg.num_blocks,
+            activation=model_cfg.activation,
+            dropout=model_cfg.dropout,
             generator=generator,
             **common,
         )

@@ -71,9 +71,22 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Ten
     return weight
 
 
-def dense(in_dim: int, out_dim: int, generator: torch.Generator) -> torch.nn.Linear:
-    """``nn.Linear`` with flax ``nn.Dense`` defaults (lecun-normal, zero bias)."""
-    layer = torch.nn.Linear(in_dim, out_dim)
+class Dense(torch.nn.Linear):
+    """``nn.Linear`` that promotes its input and parameters to a common
+    dtype, as flax's ``nn.Dense`` does: float32 features into float64
+    weights give float64, where ``nn.Linear`` raises."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w, b = x.to(dt), w.to(dt), b.to(dt)
+        return F.linear(x, w, b)
+
+
+def dense(in_dim: int, out_dim: int, generator: torch.Generator) -> Dense:
+    """A ``Dense`` with flax ``nn.Dense`` defaults (lecun-normal, zero bias)."""
+    layer = Dense(in_dim, out_dim)
     lecun_normal_(layer.weight, generator)
     with torch.no_grad():
         layer.bias.zero_()

@@ -7,6 +7,9 @@
 - ``SIRENLayer_i/{kernel, bias}``      <-> ``SIRENLayer_i.{kernel, bias}`` (flax's
   (in, out) layout kept: it is the SIREN kernel's W); SIREN's final layer is
   ``Dense_0`` under the Dense rule
+- nested modules (ResNet's ``ResNetBlock_i/Dense_0/kernel``) <-> dotted
+  paths (``ResNetBlock_i.Dense_0.weight``), each leaf under the rule of its
+  innermost module
 
 The same rules carry the DQN agent's tree (``dqn_params_from_flax`` /
 ``dqn_params_to_flax``): ``Dense_{0,1,2}`` and ``LayerNorm_{0,1}``.
@@ -30,19 +33,7 @@ def params_from_flax(
 ) -> Dict[str, torch.Tensor]:
     """flax ``params`` (+ ``constants`` collections) -> torch state_dict."""
     out: Dict[str, torch.Tensor] = {}
-    for module, leaves in params_np.items():
-        for name, value in leaves.items():
-            arr = np.asarray(value, dtype=np.float32)
-            if module.startswith("Dense_") and name == "kernel":
-                out[f"{module}.weight"] = torch.from_numpy(np.array(arr.T, order="C"))
-            elif module.startswith("LayerNorm_"):
-                out[f"{module}.{_LN_NAMES[name]}"] = torch.from_numpy(arr.copy())
-            elif module.startswith("Dense_") and name == "bias":
-                out[f"{module}.bias"] = torch.from_numpy(arr.copy())
-            elif module.startswith("SIRENLayer_") and name in ("kernel", "bias"):
-                out[f"{module}.{name}"] = torch.from_numpy(arr.copy())
-            else:
-                raise KeyError(f"no bridge rule for flax leaf {module}/{name}")
+    _leaves_from_flax(params_np, "", out)
     for collection, modules in (constants_np or {}).items():
         if collection != "constants":
             raise KeyError(f"no bridge rule for flax collection {collection!r}")
@@ -53,22 +44,47 @@ def params_from_flax(
     return out
 
 
+def _leaves_from_flax(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """The leaves of one level of a flax ``params`` tree into ``out``; a
+    module holding modules is walked with its name as a path prefix."""
+    for module, leaves in tree.items():
+        if any(isinstance(v, Mapping) for v in leaves.values()):
+            _leaves_from_flax(leaves, f"{prefix}{module}.", out)
+            continue
+        for name, value in leaves.items():
+            arr = np.asarray(value, dtype=np.float32)
+            path = f"{prefix}{module}"
+            if module.startswith("Dense_") and name == "kernel":
+                out[f"{path}.weight"] = torch.from_numpy(np.array(arr.T, order="C"))
+            elif module.startswith("LayerNorm_"):
+                out[f"{path}.{_LN_NAMES[name]}"] = torch.from_numpy(arr.copy())
+            elif module.startswith("Dense_") and name == "bias":
+                out[f"{path}.bias"] = torch.from_numpy(arr.copy())
+            elif module.startswith("SIRENLayer_") and name in ("kernel", "bias"):
+                out[f"{path}.{name}"] = torch.from_numpy(arr.copy())
+            else:
+                raise KeyError(f"no bridge rule for flax leaf {path.replace('.', '/')}/{name}")
+
+
 def params_to_flax(state: Mapping[str, torch.Tensor]):
     """torch state_dict -> (flax ``params`` tree, ``constants`` tree) of numpy."""
     params: Dict[str, Dict[str, np.ndarray]] = {}
     constants: Dict[str, Dict[str, np.ndarray]] = {}
     inv_ln = {v: k for k, v in _LN_NAMES.items()}
     for key, value in state.items():
-        module, name = key.rsplit(".", 1)
+        *outer, module, name = key.split(".")
         arr = value.detach().cpu().numpy()
+        node = params
+        for parent in outer:  # a nested module (ResNetBlock_i.Dense_0.weight)
+            node = node.setdefault(parent, {})
         if module.startswith("Dense_"):
             leaf = "kernel" if name == "weight" else name
-            params.setdefault(module, {})[leaf] = np.ascontiguousarray(arr.T) if name == "weight" else arr
+            node.setdefault(module, {})[leaf] = np.ascontiguousarray(arr.T) if name == "weight" else arr
         elif module.startswith("LayerNorm_"):
-            params.setdefault(module, {})[inv_ln[name]] = arr
+            node.setdefault(module, {})[inv_ln[name]] = arr
         elif module.startswith("SIRENLayer_") and name in ("kernel", "bias"):
-            params.setdefault(module, {})[name] = arr
-        elif module.startswith("FourierFeatures_"):
+            node.setdefault(module, {})[name] = arr
+        elif module.startswith("FourierFeatures_") and not outer:
             constants.setdefault(module, {})[name] = arr
         else:
             raise KeyError(f"no bridge rule for state_dict entry {key!r}")

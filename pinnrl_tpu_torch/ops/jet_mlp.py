@@ -224,9 +224,12 @@ def make_bundle_fn(
         def _dense(i: int, prim, streams):
             W = params[f"Dense_{i}.weight"]
             b = params[f"Dense_{i}.bias"]
-            flat = [prim] + [st for g in streams for st in g]
+            flat = torch.cat([prim] + [st for g in streams for st in g], dim=0)
+            if flat.dtype != W.dtype:  # promote, as flax's Dense does
+                dt = torch.promote_types(flat.dtype, W.dtype)
+                flat, W, b = flat.to(dt), W.to(dt), b.to(dt)
             n_each = prim.shape[0]
-            out = F.linear(torch.cat(flat, dim=0), W)
+            out = F.linear(flat, W)
             parts = list(torch.split(out, n_each, dim=0))
             new_streams, j = [], 1
             for g in streams:

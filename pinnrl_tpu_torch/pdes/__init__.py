@@ -1,6 +1,7 @@
 """PDE problem layer. Burgers, KdV, heat (``heat_2d`` included), convection,
-Allen-Cahn (with its spectral dynamics target) and Black-Scholes are
-ported; wave, pendulum and Cahn-Hilliard are ROADMAP item 11."""
+Allen-Cahn (with its spectral dynamics target), Black-Scholes, wave and the
+pendulum (with its Jacobi-elliptic exact solution) are ported;
+Cahn-Hilliard is ROADMAP item 11."""
 
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, PDEBase  # noqa: F401
@@ -10,6 +11,8 @@ from pinnrl_tpu_torch.pdes.burgers import BurgersEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.convection import ConvectionEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.heat import HeatEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.kdv import KdVEquation  # noqa: F401
+from pinnrl_tpu_torch.pdes.pendulum import PendulumEquation  # noqa: F401
+from pinnrl_tpu_torch.pdes.wave import WaveEquation  # noqa: F401
 
 def create_pde(config: Config) -> PDEBase:
     """Build the PDE problem from a full Config."""

@@ -47,7 +47,7 @@ _ALIASES = {
     "blackscholes": "black_scholes",
     "pendulumequation": "pendulum",
 }
-_UNPORTED = ("wave", "pendulum", "cahn_hilliard")  # ROADMAP item 11
+_UNPORTED = ("cahn_hilliard",)  # ROADMAP item 11
 
 
 def register_pde(cls):
@@ -459,6 +459,7 @@ class PDEBase:
             self._fused_residual_loss is not None
             and not coeffs
             and x.dtype == torch.float32
+            and all(p.dtype == torch.float32 for p in params.values())
         )
         if use_fused:
             z = torch.cat([x, t], dim=-1)
@@ -482,6 +483,27 @@ class PDEBase:
 
         zero = torch.zeros((), device=x.device)
         return self._assemble_total(residual_loss, boundary_loss, initial_loss, zero, zero, zero)
+
+    def _add_velocity_ic(self, losses: Dict[str, torch.Tensor], apply_fn, params,
+                         generator: torch.Generator, n_colloc: int, target_fn: Callable):
+        """Adds the velocity initial condition u_t(x, t0) = target_fn(x, t0)
+        of a PDE second order in time (wave, pendulum) on a fresh IC draw
+        from ``generator``, taken after every draw of the base loss (so the
+        other PDEs' streams are unchanged), to ``initial`` and, at the
+        configured IC weight, to ``total``."""
+        from pinnrl_tpu_torch.ops.derivatives import directional_derivative
+
+        _, n_i = self._bc_counts(n_colloc)
+        x_i, t_i = self._sample_initial_points(generator, n_i)
+        u = self._scalar_u(apply_fn, params)
+        z_i = torch.cat([x_i, t_i], dim=-1)
+        u_t0 = directional_derivative(u, z_i, self.dimension, 1)[0].reshape(-1, 1)
+        velocity_ic = self._loss(u_t0 - target_fn(x_i, t_i))
+        losses["initial"] = losses["initial"] + velocity_ic
+        w_ic = float(self._loss_weights().get("initial", 10.0))
+        active = 0.0 if self._training_mode() == "data_only" else 1.0
+        losses["total"] = losses["total"] + active * w_ic * velocity_ic
+        return losses
 
     def _assemble_total(self, residual_loss, boundary_loss, initial_loss, smoothness_loss,
                         data_loss, gpinn_loss) -> Dict[str, torch.Tensor]:

@@ -274,3 +274,28 @@ def test_launcher_matches_jax_kernel_in_two_dimensions(pde_type, arch):
     assert loss_rel < loss_tol
     for name, rel in grad_rels.items():
         assert rel < grad_tol, name
+
+
+@pytest.mark.parametrize("arch", ["fourier", "feedforward"])
+def test_float64_parameters_take_the_plain_path(arch):
+    """As the JAX package gates its kernel: any parameter that is not
+    float32 sends the residual to the plain path (the kernel's launcher
+    refuses such leaves). The fused callable must not be called, and the
+    residual term equals ``compute_residual`` + ``_residual_loss`` on the
+    same inputs, promoted to float64 as flax's Dense promotes."""
+    pair = burgers_pair(arch=arch)
+    pde, model = pair.tpde, pair.tmodel
+    pde.attach_fast_bundle(model)
+    assert pde.attach_fused_residual_kernel(model)
+
+    def refuse(params, z):
+        raise AssertionError("kernel 1 called with float64 parameters")
+
+    pde._fused_residual_loss = refuse
+    params = {k: v.detach().double() for k, v in model.params.items()}
+    x, t = (torch.from_numpy(a) for a in points(11, 128))
+    losses = pde.compute_loss(model.apply, params, x, t, generator=torch.Generator().manual_seed(0))
+    ref = pde._residual_loss(pde.compute_residual(model.apply, params, x, t), t)
+    assert losses["residual"].dtype == torch.float64
+    assert torch.equal(losses["residual"], ref)
+    assert all(torch.isfinite(v) for v in losses.values())

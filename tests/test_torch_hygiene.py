@@ -128,15 +128,19 @@ def test_unported_features_raise():
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
 
-    # SIREN, heat and heat_2d are ported: all build.
+    # SIREN, ResNet, heat, heat_2d, wave and the pendulum are ported: all build.
     siren = PINNModel(load_config(pde_type="burgers", architecture="siren", device="cpu"))
     assert siren.architecture_name == "siren" and "SIRENLayer_6.kernel" in siren.params
     assert create_pde(load_config(pde_type="heat", device="cpu")).pde_type == "heat"
-    with pytest.raises(ValueError, match="not ported yet"):
-        PINNModel(load_config(pde_type="burgers", architecture="resnet", device="cpu"))
+    resnet = PINNModel(load_config(pde_type="burgers", architecture="resnet", device="cpu"))
+    assert resnet.architecture_name == "resnet" and "ResNetBlock_6.Dense_1.weight" in resnet.params
+    with pytest.raises(ValueError, match="not ported yet.*ROADMAP item 12"):
+        PINNModel(load_config(pde_type="burgers", architecture="attention", device="cpu"))
     assert create_pde(load_config(pde_type="heat_2d", device="cpu")).dimension == 2
+    assert create_pde(load_config(pde_type="wave", device="cpu")).pde_type == "wave"
+    assert create_pde(load_config(pde_type="pendulum", device="cpu")).pde_type == "pendulum"
     with pytest.raises(ValueError, match="ROADMAP item 11"):
-        create_pde(load_config(pde_type="wave", device="cpu"))
+        create_pde(load_config(pde_type="cahn_hilliard", device="cpu"))
     neumann = load_config(pde_type="burgers", architecture="fourier", device="cpu")
     neumann.pde.boundary_conditions = {"neumann": {"value": 0.0}}
     neumann.model.hidden_dims = [8]

@@ -97,7 +97,7 @@ def test_recipes_and_configs_equal_jax(key):
 
 def test_harness_raises_for_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        convergence.build_recipe_config("wave", device="cpu")
+        convergence.build_recipe_config("cahn_hilliard", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         convergence.run_convergence("kdv", epochs=1, experiment_dir="unused", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):

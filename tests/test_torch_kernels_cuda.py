@@ -925,3 +925,49 @@ def test_fused_residual_loss_beyond_one_dimension_matches_plain(cuda_device, cas
     assert abs(float(l1) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
     for name, a, b in zip(params, g1, gp):
         assert torch.isfinite(a).all() and _rel(a, b) < grad_tol, name
+
+
+def test_float64_parameters_take_the_plain_path_on_card(cuda_device):
+    """Kernel 1 refuses float64 leaves, so compute_loss gates them to the
+    plain path, as the JAX package does: no launch, float64 losses equal to
+    compute_residual + _residual_loss."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    cfg = load_config(pde_type="burgers", architecture="fourier", device="cuda")
+    cfg.model.hidden_dims = [64, 64]
+    cfg.model.arch_params["mapping_size"] = 32
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    pde.attach_fast_bundle(model)
+    assert pde.attach_fused_residual_kernel(model)
+    params = {k: v.detach().double() for k, v in model.params.items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, t = pde.generate_collocation_points(gen, 1024, "uniform")
+    fused_step.fused_residual_loss.launches = 0
+    losses = pde.compute_loss(model.apply, params, x, t, generator=gen)
+    ref = pde._residual_loss(pde.compute_residual(model.apply, params, x, t), t)
+    assert fused_step.fused_residual_loss.launches == 0
+    assert losses["residual"].dtype == torch.float64
+    assert _rel(losses["residual"], ref) < 1e-12
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+
+
+def test_pendulum_velocity_target_on_card(cuda_device):
+    """The elliptic solution and its jvp in t on CUDA points (the ladder
+    runs on the host as 0-d tensors) against the same on the CPU."""
+    from pinnrl_tpu_torch.ops.special import pendulum_theta
+
+    t = torch.linspace(0.0, 10.0, 4096).reshape(-1, 1)
+    omega = float(torch.sqrt(torch.tensor(9.81)))
+
+    def f(s):
+        return pendulum_theta(s, 0.5, omega)
+
+    v_c, d_c = torch.func.jvp(f, (t,), (torch.ones_like(t),))
+    tg = t.to(cuda_device)
+    v_g, d_g = torch.func.jvp(f, (tg,), (torch.ones_like(tg),))
+    assert v_g.is_cuda and d_g.is_cuda
+    assert float((v_g.cpu() - v_c).abs().max()) < 1e-5
+    assert float((d_g.cpu() - d_c).abs().max()) < 1e-5

@@ -1,13 +1,14 @@
 """Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
 
 Each helper makes the same small problem (Burgers, KdV, heat, convection,
-Allen-Cahn or Black-Scholes) in the JAX package and in the port, and bridges the JAX model's parameters into the port's model, so
+Allen-Cahn, Black-Scholes, wave or the pendulum) in the JAX package and in the port, and bridges the JAX model's parameters into the port's model, so
 both sides evaluate the same function. Inputs are made with numpy from a
 seed and handed to both as arrays.
 """
 
 from __future__ import annotations
 
+import itertools
 from types import SimpleNamespace
 
 import jax
@@ -133,8 +134,9 @@ FUSED_TOLS = {0.0: (1e-5, 1e-4), 1.0: (1e-4, 1e-3)}
 
 def small_recipe_trainer(key: str, epochs: int = 6):
     """A ``PDETrainer`` on the convergence recipe ``key`` cut to CPU size:
-    trunk 16x2, mapping 8, 256 points in batches of 128, 32 BC and IC
-    points, ``epochs`` epochs."""
+    trunk 16x2, mapping 8 (a random basis: the shipped ``feature_seed``
+    bases are at the recipes' mapping), 256 points in batches of 128, 32 BC
+    and IC points, ``epochs`` epochs."""
     from pinnrl_tpu_torch.benchmarks import convergence
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.pdes import create_pde
@@ -143,6 +145,7 @@ def small_recipe_trainer(key: str, epochs: int = 6):
     cfg = convergence.build_recipe_config(key, epochs=epochs, device="cpu")
     cfg.model.hidden_dims = [16, 16]
     cfg.model.arch_params["mapping_size"] = 8
+    cfg.model.arch_params.pop("feature_seed", None)
     t = cfg.training
     t.num_collocation_points, t.batch_size = 256, 128
     t.num_boundary_points = t.num_initial_points = 32
@@ -262,15 +265,18 @@ def sorted_z(seed: int, n: int, domain):
 
 
 def jax_grad_rels(grads, g_j):
-    """{port name: rel to max} of port gradients (torch layout) against a
-    flax gradient tree."""
-    out = {}
-    for name, g in grads.items():
-        module, leaf = name.split(".")
-        jleaf = {"weight": "kernel" if module.startswith("Dense") else "scale", "bias": "bias"}[leaf]
-        got = g.detach().numpy()
-        out[name] = rel_to_max(got.T if got.ndim == 2 else got, np.asarray(g_j[module][jleaf]))
-    return out
+    """{flax path: rel to max} of port gradients (a name -> tensor dict in
+    torch layout, nested names included) against a flax gradient tree,
+    through the parameter bridge."""
+    from pinnrl_tpu_torch.models.bridge import params_to_flax
+
+    def flat(tree):
+        return {jax.tree_util.keystr(p): np.asarray(v)
+                for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    got, ref = flat(params_to_flax(grads)[0]), flat(g_j)
+    assert sorted(got) == sorted(ref)
+    return {k: rel_to_max(got[k], ref[k]) for k in ref}
 
 
 def launcher_vs_jax_kernel(pair, z):
@@ -316,9 +322,20 @@ def plain_vs_launcher(pair, z):
     return abs(float(loss) - ref) / abs(ref), rels
 
 
-def inject_points(monkeypatch, tpde, xb, tb, xi, ti):
-    """Make the port's PDE return these BC and IC points."""
+def inject_points(monkeypatch, tpde, xb, tb, xi, ti, velocity=None):
+    """Make the port's PDE return these BC and IC points; with ``velocity``
+    ((x, t) arrays), its IC draws alternate between (xi, ti) and those, as
+    a loss with a velocity IC draws them (wave, pendulum)."""
     monkeypatch.setattr(tpde, "_sample_boundary_points",
                         lambda gen, n: (torch.from_numpy(xb), torch.from_numpy(tb)))
+    draws = itertools.cycle([(xi, ti)] + ([tuple(velocity)] if velocity is not None else []))
     monkeypatch.setattr(tpde, "_sample_initial_points",
-                        lambda gen, n: (torch.from_numpy(xi), torch.from_numpy(ti)))
+                        lambda gen, n: tuple(torch.from_numpy(a) for a in next(draws)))
+
+
+def jax_velocity_points(jpde, key, n_colloc):
+    """The velocity-IC points that pinnrl_tpu's wave and pendulum
+    compute_loss draw from ``key``."""
+    _, n_i = jpde._bc_counts(n_colloc)
+    xv, tv = jpde._sample_initial_points(jax.random.fold_in(key, 0x1C), n_i)
+    return np.array(xv), np.array(tv)

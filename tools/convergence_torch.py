@@ -6,7 +6,8 @@ report their accuracy.
         [--out build/convergence]
 
 ``--pde`` takes any key of the port's ``RECIPES`` (burgers, heat, kdv,
-heat_2d, convection, allen_cahn, black_scholes, allen_cahn_dynamics).
+heat_2d, convection, allen_cahn, black_scholes, allen_cahn_dynamics, wave,
+pendulum, pendulum_nonlinear).
 
 Each recipe runs as shipped through
 ``pinnrl_tpu_torch.benchmarks.convergence.run_convergence(key, seed=...,

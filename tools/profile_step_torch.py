@@ -3,7 +3,7 @@
 CUDA card.
 
     python3 tools/profile_step_torch.py [--steps 20] [--profiled 10] [--out chiprun_out/profile]
-        [--rl | --kdv | --siren-kdv | --heat] [--lbfgs]
+        [--rl | --kdv | --siren-kdv | --heat | --recipe KEY] [--lbfgs]
 
 For the Burgers recipe slice of ``chip_smoke.py`` (Fourier 256x3, mapping
 128, batch 8192, BC/IC 4096), once with the hand-written kernels and once on
@@ -28,11 +28,17 @@ With ``--siren-kdv`` it is a step of KdV as shipped
 order-3 residual through nested jvp; plain = every SIREN layer on its plain
 version). With ``--heat`` it is a step of the heat recipe (Fourier 256x3,
 mapping 128, batch 8192, periodic BCs through one jvp, Adam). With
+``--recipe wave``, ``pendulum`` or ``pendulum_nonlinear`` it is a step of
+that recipe (Fourier 256x3, mapping 128, batch 8192: the residual on the
+plain bundle at temporal order 2, kernel 2 on the BC, IC and velocity-IC
+points and its jvp rule in the velocity IC; plain = kernel 2's plain
+version). With
 ``--lbfgs`` it is one L-BFGS iteration of the recipe's second phase
 (``training/lbfgs.py``: memory 50, zoom line search) on one fixed batch of
 all 40000 collocation points and fixed BC/IC points, from a fresh optimizer
 at the seeded initial weights (the Burgers recipe, or the heat recipe with
-``--heat``); it also prints the objective's evaluations per iteration.
+``--heat``, or ``--recipe``'s); it also prints the objective's evaluations
+per iteration.
 
 The chrome traces go to ``--out``, gzipped. The script imports no JAX.
 """
@@ -158,6 +164,8 @@ def main() -> int:
     kind.add_argument("--siren-kdv", action="store_true",
                       help="profile a step of KdV as shipped (SIREN 124x7, nested jvp)")
     kind.add_argument("--heat", action="store_true", help="profile the heat recipe's step")
+    kind.add_argument("--recipe", choices=("wave", "pendulum", "pendulum_nonlinear"),
+                      help="profile a step of this recipe, second order in time")
     ap.add_argument("--lbfgs", action="store_true",
                     help="profile one L-BFGS iteration on all 40000 points (Burgers, or with --heat "
                          "the heat recipe)")
@@ -171,6 +179,7 @@ def main() -> int:
     from chip_smoke import (burgers_recipe_config, heat_recipe_config, kdv_recipe_config,
                             make_agent, nvidia_smi_line, plain_fourier_features, plain_mlp_score,
                             plain_siren, siren_kdv_config)
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
@@ -180,8 +189,12 @@ def main() -> int:
     results = []
     prefix = ("lbfgs_" if args.lbfgs else "") + (
         "rl_" if args.rl else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
-        else "heat_" if args.heat else "")
+        else "heat_" if args.heat else f"{args.recipe}_" if args.recipe else "")
     configs = {"kdv_": kdv_recipe_config, "siren_kdv_": siren_kdv_config, "heat_": heat_recipe_config}
+    if args.recipe:
+        configs[f"{args.recipe}_"] = lambda device: build_recipe_config(args.recipe, device=device)
+    # Kernel 1 takes neither the SIREN nor a residual second order in time.
+    kernel1 = not (args.siren_kdv or args.recipe)
     for label in ("kernels", "plain"):
         cfg = configs.get(prefix.removeprefix("lbfgs_"), burgers_recipe_config)("cuda")
         cfg.rl.enabled = args.rl
@@ -189,7 +202,7 @@ def main() -> int:
             cfg.training.fused_residual_kernel = "off"
         agent = make_agent(cfg) if args.rl else None
         trainer = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, rl_agent=agent)
-        if trainer.fused_kernel_active != (label == "kernels" and not args.siren_kdv):
+        if trainer.fused_kernel_active != (label == "kernels" and kernel1):
             raise AssertionError(f"{label}: fused_kernel_active={trainer.fused_kernel_active}")
         if agent is not None:
             trainer._rl_state = trainer._init_rl_state(0)
