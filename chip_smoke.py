@@ -56,7 +56,7 @@ Phases (each raises on failure, and the script then exits non-zero):
                5e-3 cosine, weights 15/20/10) through ``create_pde`` ->
                ``PINNModel`` -> ``PDETrainer.train`` for 50 steps and 3
                validations, the residual through the generic engine (nested
-               jvp); kernel 3 launches exactly 7 x 7 times per loss. The
+               jvp); kernel 3 launches exactly 5 x 7 times per loss. The
                shipped learning rate makes this network's loss rise, as in
                the JAX package; a second run of 20 steps at lr 1e-4 must
                descend.
@@ -154,9 +154,36 @@ Phases (each raises on failure, and the script then exits non-zero):
                plain version at its shapes on wave's weights, wave's order-2
                residual loss and gradients through kernel 3 against the plain
                path, then 6 Adam steps and a validation with kernel 3
-               exactly 7 x 7 times per loss; the pendulum as shipped (ResNet
+               exactly 5 x 7 times per loss; the pendulum as shipped (ResNet
                512x7 on the generic engine) for 6 Adam steps, no kernel;
                finite losses and ``validate`` metrics.
+ 25. cahn-hilliard — the three Cahn-Hilliard recipes through
+               ``run_convergence(key, seed=0, epochs=E, device="cuda")``:
+               the 2-D headline (attention 124x4, the mixed form, Dirichlet
+               and Neumann; Adam only) for 12 steps, the dynamics (Fourier
+               256x3, the mixed form against its ETDRK4 trajectory, mass and
+               mu-H2 penalties, causal) for 12 Adam steps and 3 L-BFGS
+               iterations on all 40000 points, the biharmonic (Fourier
+               128x3, the direct form: four nested jvps) for 9 Adam steps and
+               1 L-BFGS iteration. Losses finite, falling, not rising within
+               the L-BFGS round; the penalties in the dynamics loss; kernel 1
+               never; kernel 2 exactly ``CH_FF_PER_LOSS`` per loss (launches,
+               jvp-rule calls) and once per ``validate``, also counted alone
+               for one Adam step, one L-BFGS iteration and one ``validate``;
+               host syncs 0 per Adam step and one per L-BFGS evaluation;
+               median ms per Adam step and per L-BFGS iteration with kernel 2
+               and on its plain version, in turns.
+ 26. order 4  — kernel 2's jvp rule nested to order 4 along x on the
+               biharmonic recipe's network (its basis's t-row zero) against
+               the plain version at each order, and kernel 2 timed there at
+               (4096,2)x(2,64) by CUDA-graph replay; the direct residual, its loss
+               and every parameter gradient through kernel 2 (N = 4096), and
+               the dynamics recipe's mixed residual and gradients (N = 8192),
+               against the plain version.
+ 27. shipped CH — Cahn-Hilliard as shipped (``load_config(pde_type=
+               "cahn_hilliard")``: ResNet 512x7, the direct form in 1-D, the
+               random IC, Dirichlet and Neumann) for 4 Adam steps: finite, no
+               kernel.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -197,15 +224,21 @@ streams, trunk, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
 jvp rule's, the L-BFGS evaluations, rel-L2 and wall seconds), phase 21's
 ``scope_nd`` (per variant: its dimension, streams, frame speed, trunk and,
 at full width, the timings as ``scope_1d``'s) and phase 22's
-``heat_2d_launches``, phase 23's ``second_order_launches`` (0 per recipe)
-and ``float64_params_launches``; kernel 2's carries its phase-17 launches
+``heat_2d_launches``, phase 23's ``second_order_launches`` (0 per recipe),
+``float64_params_launches`` and phases 25 and 27's ``cahn_hilliard_launches``
+(0 per recipe); kernel 2's carries its phase-17 launches
 and heat's jvps (``lbfgs_launches``), its phase-22 launches and phase 23's
 ``second_order`` (per recipe: launches, jvps, evaluations, ``per`` step,
 host syncs, Adam-step and L-BFGS-iteration ms with the kernel and plain,
-the bundle's ms and share of an iteration, rel-L2 and wall seconds) and ``zero_x_row`` (its timing there); kernel
+the bundle's ms and share of an iteration, rel-L2 and wall seconds), ``zero_x_row`` (its timing there),
+phase 25's ``cahn_hilliard`` (per recipe: the run's launches and jvps, per
+loss and per step, host syncs, Adam-step and L-BFGS-iteration ms with the
+kernel and plain, rel-L2 and wall seconds), phase 26's ``order4`` (each
+order's error, the residuals' and gradients') and phase 27's
+``cahn_hilliard_shipped_launches``; kernel
 3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124,
 and phase 24's ``wave_launches``, ``wave_max_abs_err`` and
-``shipped_second_order``;
+``shipped_second_order``, and phases 25 and 27's ``cahn_hilliard_launches``;
 kernel 4's ``launch_ms`` (each launch), ``splits`` (the launcher's choice,
 ``mlp._product_split``) and ``blocks`` of its product (read from the
 launch's own grid, ``ms_gemm_blocks``), and phase 9's A/Bs
@@ -317,6 +350,34 @@ SECOND_ORDER_TIMED = 6
 # SHIPPED_SECOND_ORDER_EPOCHS epochs of 2 Adam steps (batch 2048 of 5000).
 SHIPPED_SECOND_ORDER_EPOCHS = 3
 F64_TOL = 1e-12     # float64 parameters: the loss against the plain path's, rel
+# Phase 25: the Cahn-Hilliard recipes through run_convergence: the 2-D
+# headline (attention 124x4, Adam only) 3 epochs of 4 steps of 4096; the
+# dynamics 3 Adam epochs of 4 steps of 8192, then 3 L-BFGS iterations on all
+# 40000 points; the biharmonic 10 epochs of one step of 4096, whose 0.9846
+# switch leaves 9 Adam steps, then 1 L-BFGS iteration.
+CH_RECIPES = ("cahn_hilliard", "cahn_hilliard_dynamics", "cahn_hilliard_biharmonic")
+CH_EPOCHS = {"cahn_hilliard": 3, "cahn_hilliard_dynamics": 6, "cahn_hilliard_biharmonic": 10}
+# Kernel 2 per loss (launches, jvp-rule calls), as
+# tests/test_torch_cahn_hilliard.py counts them on the CPU (the plain version
+# through _FourierFeaturesFn). Dynamics: the mixed residual twice (the loss
+# and mu-H2), each the head, one order-2 nest along x (2 rule calls) and one
+# jvp along t (1), the periodic faces (one jvp), the IC and the mass grid.
+# Biharmonic: the direct residual (u_t, then the chemical potential's
+# order-2 nest: 3 launches, 7 rule calls), the BC and the IC. One launch per
+# validate.
+CH_FF_PER_LOSS = {"cahn_hilliard": (0, 0), "cahn_hilliard_dynamics": (9, 7),
+                  "cahn_hilliard_biharmonic": (5, 7)}
+CH_TIMED = 3        # Adam steps and L-BFGS iterations timed per turn
+# Phase 26: kernel 2 under nested jvp to order 4 (orders k = 1..4 at
+# JVP_TOL x 10^(k-1), the JAX suite's progression); the direct residual, its
+# loss and each parameter gradient, and the mixed residual and gradients, at
+# CH_GRAD_TOL relative to max (phase 12's bound for the order-3 residual).
+CH_JVP_ORDER = 4
+CH_GRAD_TOL = 1e-3
+CH_PARITY_N = {"cahn_hilliard_biharmonic": 4096, "cahn_hilliard_dynamics": 8192}
+# Phase 27: Cahn-Hilliard as shipped (ResNet 512x7, the direct form in 1-D,
+# the random IC, Dirichlet and Neumann): 2 epochs of 2 Adam steps of 2048.
+SHIPPED_CH_EPOCHS = 2
 
 
 def nvidia_smi_line() -> str:
@@ -849,6 +910,300 @@ def count_syncs(tr, batch: int):
     tr._step(params, opt, g, batch)  # warm-up
     sites = record_syncs(lambda: tr._step(params, opt, g, batch))
     return len(sites), sorted(set(sites))
+
+
+def ch_recipe_runs(dev, card: str):
+    """Phase 25 (see the module docstring): per recipe, the run's launches,
+    the launches of one Adam step, L-BFGS iteration and validate alone, host
+    syncs, and Adam-step and L-BFGS-iteration ms with kernel 2 and plain."""
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config, run_convergence
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, siren
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    ff = fourier_feats.fourier_features
+    runs = {}
+    for key in CH_RECIPES:
+        epochs = CH_EPOCHS[key]
+        rt = build_recipe_config(key, epochs=epochs, device="cuda").training
+        has_lbfgs = rt.optimizer == "adam_lbfgs"
+        switch = int(rt.adam_lbfgs_switch_ratio * epochs) if has_lbfgs else epochs
+        adam_steps = switch * (rt.num_collocation_points // rt.batch_size)
+        per_launches, per_jvps = CH_FF_PER_LOSS[key]
+        fused_step.fused_residual_loss.launches = siren.siren_layer.launches = 0
+        ff.launches = ff.jvps = 0
+        evals0, reads0 = LBFGS.evaluations, LBFGS.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captured_trainers() as seen:
+            conv = run_convergence(key, seed=0, epochs=epochs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+               "siren_layer": siren.siren_layer.launches, "fourier_features": ff.launches,
+               "fourier_features_jvps": ff.jvps, "evaluations": LBFGS.evaluations - evals0,
+               "host_reads": LBFGS.host_reads - reads0}
+        (ltr,) = seen
+        hist = ltr.history
+        losses, n_vals = hist["train_loss"], len(hist["val_loss"])
+        n_losses = adam_steps + run["evaluations"] + n_vals
+        # Per loss as CH_FF_PER_LOSS; one more launch for run_convergence's
+        # validate(20000) on a Fourier trunk.
+        fourier = ltr.model.architecture_name == "fourier"
+        want = {"fused_residual_loss": 0, "siren_layer": 0,
+                "fourier_features": per_launches * n_losses + int(fourier),
+                "fourier_features_jvps": per_jvps * n_losses}
+        print(f"[cahn-hilliard] {key}: run_convergence(seed=0, epochs={epochs}) {wall:.2f} s: "
+              f"Adam {switch} epochs ({adam_steps} steps of {rt.batch_size}), then "
+              f"{len(losses) - switch} L-BFGS iterations on "
+              f"{min(rt.lbfgs.batch_size or rt.num_collocation_points, rt.num_collocation_points)} "
+              f"points; validations {n_vals}; {run} (want {want}) ({card})", flush=True)
+        print(f"[cahn-hilliard] {key}: epoch losses {' '.join(f'{v:.6e}' for v in losses)}; "
+              f"rel_l2 {conv.rel_l2:.4e} max_error {conv.max_error:.4e} (no bar at {epochs} "
+              f"epochs)", flush=True)
+        if not (ltr.switch_epoch == (switch if has_lbfgs else None) and len(losses) == epochs
+                and not ltr.fast_bundle_active and not ltr.fused_kernel_active
+                and all(map(math.isfinite, losses + hist["val_loss"]))):
+            raise AssertionError(f"{key}: switch {ltr.switch_epoch}, bundle "
+                                 f"{ltr.fast_bundle_active}, kernel 1 {ltr.fused_kernel_active}, "
+                                 f"losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{key}: the loss did not fall: {losses}")
+        lbfgs_losses = losses[switch:]
+        for a, b in zip(lbfgs_losses, lbfgs_losses[1:]):
+            if not b <= a + APPROX_DEC_RTOL * abs(a):
+                raise AssertionError(f"{key}: the L-BFGS loss rose within its round: {lbfgs_losses}")
+        if (any(run[k] != w for k, w in want.items()) or run["host_reads"] != run["evaluations"]
+                or (has_lbfgs and run["evaluations"] < 2)):
+            raise AssertionError(f"{key}: launches {run}, want {want} ({adam_steps} Adam steps + "
+                                 f"{run['evaluations']} L-BFGS evaluations + {n_vals} validations)")
+        if not all(math.isfinite(v) for v in (conv.rel_l2, conv.max_error, conv.points_per_sec)):
+            raise AssertionError(f"{key}: non-finite result {conv}")
+
+        params = ltr.model.params
+        pde = ltr.pde
+        gen = torch.Generator(device=dev).manual_seed(25)
+        x, t = pde.generate_collocation_points(gen, rt.batch_size, "uniform")
+        with torch.no_grad():
+            terms = pde.compute_loss(ltr.model.apply, params, x, t, generator=gen)
+        want_terms = {"mass", "mu_h2"} if key == "cahn_hilliard_dynamics" else set()
+        if ({"mass", "mu_h2"} & set(terms)) != want_terms or not all(
+                math.isfinite(float(v)) for v in terms.values()):
+            raise AssertionError(f"{key}: loss terms {sorted(terms)}, want the penalties "
+                                 f"{sorted(want_terms)}, all finite")
+
+        # Kernel 2's launches of one Adam step, one L-BFGS iteration and one
+        # validate, each counted alone.
+        lbatch = ltr._lbfgs_batch(0, 0, rt.num_collocation_points) if has_lbfgs else None
+        aopt = ltr._make_adam(1, 1, list(params.values()))
+        sopt = ltr._make_lbfgs(list(params.values()))
+        sgen = torch.Generator(device=dev).manual_seed(5)
+        steps = [("adam_step", lambda: ltr._step(params, aopt, sgen, rt.batch_size)),
+                 ("validate", lambda: pde.validate(ltr.model.apply, params, num_points=20000))]
+        if has_lbfgs:
+            steps.insert(1, ("lbfgs_iteration", lambda: ltr._lbfgs_step(params, sopt, lbatch, sgen)))
+        per = {}
+        for what, fn in steps:
+            ff.launches = ff.jvps = 0
+            evals0 = LBFGS.evaluations
+            fn()
+            torch.cuda.synchronize()
+            per[what] = {"launches": ff.launches, "jvps": ff.jvps,
+                         "evaluations": LBFGS.evaluations - evals0}
+        it = per.get("lbfgs_iteration")
+        if not (per["adam_step"] == {"launches": per_launches, "jvps": per_jvps, "evaluations": 0}
+                and per["validate"] == {"launches": int(fourier), "jvps": 0, "evaluations": 0}
+                and (it is None or (it["evaluations"] >= 2
+                                    and it["launches"] == per_launches * it["evaluations"]
+                                    and it["jvps"] == per_jvps * it["evaluations"]))):
+            raise AssertionError(f"{key}: kernel 2's launches per step {per}")
+        adam_syncs, adam_sites = count_syncs(ltr, rt.batch_size)
+        l_sites, l_evals, l_reads = [], 0, 0
+        if has_lbfgs:
+            evals0, reads0 = LBFGS.evaluations, LBFGS.host_reads
+            l_sites = record_syncs(lambda: ltr._lbfgs_step(params, sopt, lbatch, sgen))
+            l_evals, l_reads = LBFGS.evaluations - evals0, LBFGS.host_reads - reads0
+        print(f"[syncs] {key}: one warm Adam step {adam_syncs} {adam_sites}; one L-BFGS iteration "
+              f"{len(l_sites)} {sorted(set(l_sites))}, {l_evals} evaluations, {l_reads} host reads",
+              flush=True)
+        if adam_syncs or len(l_sites) != l_reads or l_reads != l_evals:
+            raise AssertionError(f"{key}: {adam_syncs} host syncs per Adam step; {len(l_sites)} "
+                                 f"per L-BFGS iteration of {l_evals} evaluations")
+
+        timed = {o: {"adam": [], "lbfgs": [], "evals": []} for o in ("kernels", "plain")}
+        for order in ("plain", "kernels", "kernels", "plain"):
+            with plain_fourier_features() if order == "plain" else contextlib.nullcontext():
+                timed[order]["adam"] += step_times(ltr, CH_TIMED, 1, rt.batch_size)
+                if has_lbfgs:
+                    times, evals = lbfgs_iteration_times(ltr, lbatch, CH_TIMED)
+                    timed[order]["lbfgs"] += times
+                    timed[order]["evals"].append(evals)
+        ms = {o: {"adam_step_ms": statistics.median(v["adam"]),
+                  "lbfgs_iteration_ms": statistics.median(v["lbfgs"]) if v["lbfgs"] else None,
+                  "evaluations_per_iteration": (sum(v["evals"]) / len(v["evals"])
+                                                if v["evals"] else None)}
+              for o, v in timed.items()}
+        print(f"[timing] {key}: Adam step (batch {rt.batch_size}), median of "
+              f"{len(timed['kernels']['adam'])}: kernel 2 {ms['kernels']['adam_step_ms']:.3f} ms, "
+              f"plain {ms['plain']['adam_step_ms']:.3f} ms; L-BFGS iteration: kernel 2 "
+              f"{ms['kernels']['lbfgs_iteration_ms']} ms "
+              f"({ms['kernels']['evaluations_per_iteration']} evaluations), plain "
+              f"{ms['plain']['lbfgs_iteration_ms']} ms ({card})", flush=True)
+        runs[key] = {**run, "per_loss": {"launches": per_launches, "jvps": per_jvps},
+                     "rel_l2": conv.rel_l2, "wall_s": wall, "per": per, "adam_syncs": adam_syncs,
+                     "lbfgs_syncs": len(l_sites), "lbfgs_evaluations": l_evals, **ms}
+        del ltr, seen, pde, params
+    return runs
+
+
+def ch_order4_parity(dev, card: str):
+    """Phase 26: kernel 2 against its plain version under nested jvp to
+    order 4 on the biharmonic recipe's network (its basis's t-row zero), the
+    direct residual, its loss and parameter gradients there, and the
+    dynamics recipe's mixed residual and gradients."""
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.derivatives import directional_derivative, make_scalar_fn
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    ff = fourier_feats.fourier_features
+    out = {}
+    for key, n in CH_PARITY_N.items():
+        cfg = build_recipe_config(key, device="cuda")
+        pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(26)
+        x, t = pde.generate_collocation_points(gen, n, "uniform")
+        entry = {"n": n}
+        if key == "cahn_hilliard_biharmonic":
+            B = model.constants["FourierFeatures_0.B"]
+            if B[1].any():
+                raise AssertionError("the biharmonic recipe's basis has a non-zero t-row")
+            z = torch.cat([x, t], dim=-1)
+            u = make_scalar_fn(model.apply, model.params)
+            ff.launches = ff.jvps = 0
+            with torch.no_grad():
+                dk = directional_derivative(u, z, 0, CH_JVP_ORDER)
+                entry["launches"], entry["jvps"] = ff.launches, ff.jvps
+                with plain_fourier_features():
+                    dp = directional_derivative(u, z, 0, CH_JVP_ORDER)
+            torch.cuda.synchronize()
+            entry["orders"] = []
+            for k, (a, b) in enumerate(zip(dk, dp), start=1):
+                err = float((a - b).abs().max())
+                rel = err / float(b.abs().max())
+                tol = JVP_TOL * 10 ** (k - 1)
+                entry["orders"].append({"order": k, "max_abs_err": err, "rel": rel, "tol": tol})
+                print(f"[order-4] fourier_features jvp rule, order {k} d/dx of the biharmonic "
+                      f"recipe's network ({n} points): max_abs_err {err:.3e} rel {rel:.3e} "
+                      f"(tol {tol:g})", flush=True)
+                if not rel < tol:
+                    raise AssertionError(f"kernel 2's jvp rule disagrees at order {k}")
+            # One nest of CH_JVP_ORDER jvps: one launch, the rule once per level.
+            if not (entry["launches"] == 1 and entry["jvps"] == CH_JVP_ORDER):
+                raise AssertionError(f"the order-{CH_JVP_ORDER} chain did not go through kernel 2 "
+                                     f"once with {CH_JVP_ORDER} rule calls: {entry}")
+            # Kernel 2 alone at the recipe's embedding, (n, 2) x (2, 64).
+            zm = model.map_inputs(z)
+            m = B.shape[1]
+            entry["ms"] = graph_ms(lambda: fourier_feats.fourier_features(zm, B, True))
+            entry["plain_ms"] = graph_ms(lambda: fourier_feats.fourier_features_plain(zm, B, True))
+            entry["bound_ms"], entry["bound_by"] = bound(2.0 * n * 2 * m + 3.0 * n * m,
+                                                         4.0 * (n * 2 + 2 * m + 2 * n * m))
+            print(f"[timing] fourier_features ({n},2)x(2,{m}) zero t-row, device time per call "
+                  f"(CUDA graph): kernel {entry['ms']:.5f} ms, plain {entry['plain_ms']:.5f} ms, "
+                  f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}) ({card})", flush=True)
+        p = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+
+        def residual_grads():
+            r = pde.compute_residual(model.apply, p, x, t)
+            loss = pde._residual_loss(r, t)
+            return r.detach(), loss.detach(), torch.autograd.grad(
+                loss, list(p.values()), allow_unused=True, materialize_grads=True)
+
+        ff.launches = 0
+        rk, lk, gk = residual_grads()
+        torch.cuda.synchronize()
+        if not ff.launches:
+            raise AssertionError(f"{key}: the residual did not go through kernel 2")
+        with plain_fourier_features():
+            rp, lp, gp = residual_grads()
+        torch.cuda.synchronize()
+        err = float((rk - rp).abs().max())
+        rel = err / float(rp.abs().max())
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        grad_rels = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                     for a, b in zip(gk, gp)]
+        entry.update({"residual_shape": list(rk.shape), "residual_max_abs_err": err,
+                      "residual_rel": rel, "loss_rel": loss_rel, "worst_gradient_rel": max(grad_rels),
+                      "tol": CH_GRAD_TOL})
+        print(f"[order-4] {key}: residual {tuple(rk.shape)} through kernel 2 against plain "
+              f"(N={n}): max_abs_err {err:.3e} rel {rel:.3e}; residual loss rel {loss_rel:.3e}; "
+              f"worst gradient rel {max(grad_rels):.3e} (tol {CH_GRAD_TOL:g}) ({card})", flush=True)
+        if not (rel < CH_GRAD_TOL and loss_rel < CH_GRAD_TOL and max(grad_rels) < CH_GRAD_TOL
+                and all(map(math.isfinite, grad_rels))):
+            raise AssertionError(f"{key}: the residual through kernel 2 disagrees with plain")
+        out[key] = entry
+        del pde, model, p, gk, gp
+    return out
+
+
+def ch_shipped(dev, card: str):
+    """Phase 27: Cahn-Hilliard as shipped (``load_config(pde_type=
+    "cahn_hilliard")``): a few Adam steps on the card, finite, no kernel."""
+    import torch
+
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, siren
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    cfg = load_config(pde_type="cahn_hilliard", device="cuda")
+    st = cfg.training
+    st.num_epochs = SHIPPED_CH_EPOCHS
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    if not (cfg.model.architecture == "resnet"
+            and (cfg.model.hidden_dim, cfg.model.num_blocks) == (512, 7)
+            and pde.system_size == 1 and pde.dimension == 1
+            and cfg.pde.initial_condition.get("type") == "random"
+            and list(pde.boundary_conditions) == ["dirichlet", "neumann", "initial"]):
+        raise AssertionError("the shipped Cahn-Hilliard configuration is not the ResNet 512x7 "
+                             "direct 1-D form with the random IC, Dirichlet and Neumann")
+    trainer = PDETrainer(model, pde, cfg)
+    if trainer.fast_bundle_active or trainer.fused_kernel_active:
+        raise AssertionError("Cahn-Hilliard as shipped is not on the generic engine")
+    steps = SHIPPED_CH_EPOCHS * (st.num_collocation_points // st.batch_size)
+    vals = sum(1 for e in range(1, SHIPPED_CH_EPOCHS + 1)
+               if e % st.validation_frequency == 0 or e == SHIPPED_CH_EPOCHS)
+    siren.siren_layer.launches = fourier_feats.fourier_features.launches = 0
+    fused_step.fused_residual_loss.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.train(seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {"siren_layer": siren.siren_layer.launches,
+           "fourier_features": fourier_feats.fourier_features.launches,
+           "fused_residual_loss": fused_step.fused_residual_loss.launches}
+    hist = res["history"]["train_loss"]
+    val = pde.validate(model.apply, trainer._final_state["params"]["net"], num_points=20000)
+    print(f"[shipped] cahn_hilliard as shipped (resnet 512x7, direct 1-D, random IC, Dirichlet + "
+          f"Neumann, batch {st.batch_size} of {st.num_collocation_points}, BC/IC "
+          f"{st.num_boundary_points}): {steps} Adam steps, {vals} validation(s), {wall:.2f} s; "
+          f"launches {run}; epoch losses {' '.join(f'{v:.4e}' for v in hist)}; validate(20000) "
+          f"rel_l2 {val['rel_l2']:.4e} (no bar) ({card})", flush=True)
+    if not (len(hist) == SHIPPED_CH_EPOCHS and all(map(math.isfinite, hist))
+            and len(res["history"]["val_loss"]) == vals
+            and all(math.isfinite(v) for v in val.values())):
+        raise AssertionError(f"cahn_hilliard as shipped: losses {hist}, validation {val}")
+    if any(run.values()):
+        raise AssertionError(f"cahn_hilliard as shipped launched a kernel: {run}")
+    return {**run, "steps": steps, "validations": vals, "wall_s": wall, "rel_l2": val["rel_l2"],
+            "epoch_losses": hist}
 
 
 def main() -> int:
@@ -1504,9 +1859,9 @@ def main() -> int:
     s_vals = sum(1 for e in range(1, SIREN_EPOCHS + 1)
                  if e % st_.validation_frequency == 0 or e == SIREN_EPOCHS)
     # Per loss, the network is evaluated on u, on u_t (one jvp), on u_x, u_xx
-    # and u_xxx (one, two and three nested jvps: one evaluation each), on the
-    # BC and on the IC points: 7 evaluations, each through every layer.
-    s_evals = 1 + max(spde.temporal_orders) + max(spde.spatial_orders) + 2
+    # and u_xxx (one nest of three jvps), on the BC and on the IC points: 5
+    # evaluations, each through every layer.
+    s_evals = 1 + 1 + 1 + 2
     siren.siren_layer.launches = 0
     fourier_feats.fourier_features.launches = 0
     fused_step.fused_residual_loss.launches = 0
@@ -2299,10 +2654,10 @@ def main() -> int:
         val2 = spde_.validate(smodel_.apply, net2, num_points=20000)
         if name == "wave":
             n_layers2 = len(scfg_.model.hidden_dims)
-            # Per loss: u_tt and u_xx (two nested jvps: two evaluations each),
-            # the BC, the IC and the velocity IC (one jvp): 7 evaluations,
-            # each through every layer.
-            evals2 = (max(spde_.temporal_orders) + spde_.dimension * max(spde_.spatial_orders) + 3)
+            # Per loss: u_tt and u_xx (one nest of two jvps each), the BC,
+            # the IC and the velocity IC (one jvp): 5 evaluations, each
+            # through every layer.
+            evals2 = 1 + 1 + 3
             want2 = {"siren_layer": evals2 * n_layers2 * (steps2 + vals2), "fourier_features": 0,
                      "fused_residual_loss": 0}
         else:
@@ -2322,6 +2677,11 @@ def main() -> int:
         shipped_second[name] = {**run2, "steps": steps2, "validations": vals2, "wall_s": wall2,
                                 "rel_l2": val2["rel_l2"]}
     del wpde, wmodel
+
+    # ---- 25-27. Cahn-Hilliard: the three recipes, order-4 parity, as shipped -- #
+    ch_runs = ch_recipe_runs(dev, card)
+    ch_parity = ch_order4_parity(dev, card)
+    ch_shipped_run = ch_shipped(dev, card)
 
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
@@ -2366,7 +2726,9 @@ def main() -> int:
          "scope_1d": scope, "scope_1d_launches": scope_runs,
          "scope_nd": scope_nd, "heat_2d_launches": heat_2d_run,
          "second_order_launches": {k: r["fused_residual_loss"] for k, r in second_runs.items()},
-         "float64_params_launches": f64_launches},
+         "float64_params_launches": f64_launches,
+         "cahn_hilliard_launches": {**{k: r["fused_residual_loss"] for k, r in ch_runs.items()},
+                                    "shipped": ch_shipped_run["fused_residual_loss"]}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -2378,6 +2740,8 @@ def main() -> int:
                             for k, (r, _) in lbfgs_runs.items()},
          "heat_2d_launches": heat_2d_run["fourier_features"],
          "second_order": second_runs, "zero_x_row": {**ff0, "max_abs_err": ff0_err},
+         "cahn_hilliard": ch_runs, "order4": ch_parity,
+         "cahn_hilliard_shipped_launches": ch_shipped_run["fourier_features"],
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
          "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
          "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,
@@ -2389,6 +2753,8 @@ def main() -> int:
          "replaces": "pinnrl_tpu/ops/kernels/siren.py:29",
          "launches": siren_launches, "max_abs_err": siren_err, "blocks": siren_blocks,
          "wave_launches": shipped_second["wave"]["siren_layer"], "wave_max_abs_err": wave_siren_err,
+         "cahn_hilliard_launches": {**{k: r["siren_layer"] for k, r in ch_runs.items()},
+                                    "shipped": ch_shipped_run["siren_layer"]},
          "shipped_second_order": shipped_second,
          "ms": siren_ms, "plain_ms": siren_plain_ms, "eager_ms": siren_eager_ms,
          "bound_ms": siren_bound[0], "bound_by": siren_bound[1], "library_ms": siren_lib_ms,

@@ -6,18 +6,21 @@ optimizer schedule); ``build_recipe_config`` materialises it into a
 ``Config`` and ``run_convergence`` trains it and reports rel-L2, max error,
 wall time and points per second.
 
-Ported: the ``heat``, ``kdv``, ``wave``, ``burgers``, ``heat_2d``,
-``convection``, ``allen_cahn``, ``black_scholes``, ``pendulum``,
-``allen_cahn_dynamics`` and ``pendulum_nonlinear`` recipes; all but kdv
-train with Adam, then L-BFGS on every collocation point (``adam_lbfgs``).
-``allen_cahn_dynamics`` is the Allen-Cahn PDE (``pde_type``) against its
-ETDRK4 spectral trajectory; ``pendulum_nonlinear`` the pendulum against its
-Jacobi-elliptic solution.
+All 14 recipes are ported: ``heat``, ``kdv``, ``wave``, ``burgers``,
+``heat_2d``, ``convection``, ``allen_cahn``, ``black_scholes``,
+``pendulum``, ``allen_cahn_dynamics``, ``pendulum_nonlinear``,
+``cahn_hilliard_dynamics``, ``cahn_hilliard_biharmonic`` and
+``cahn_hilliard``; all but kdv and cahn_hilliard train with Adam, then
+L-BFGS (``adam_lbfgs``). ``allen_cahn_dynamics`` and
+``cahn_hilliard_dynamics`` run against their ETDRK4 spectral trajectories,
+``pendulum_nonlinear`` against the pendulum's Jacobi-elliptic solution,
+``cahn_hilliard_biharmonic`` is the direct fourth-order form and
+``cahn_hilliard`` the 2-D mixed form on the attention trunk.
 ``points_per_sec`` counts each epoch at its own batch: the Adam epochs'
 steps times the batch, each L-BFGS epoch's iterations times the L-BFGS
 batch (the JAX package counts every epoch at the Adam batch).
-The Cahn-Hilliard recipes raise naming item 11; experiment directories
-and resume raise naming item 9; time-marching raises naming item 13 (no
+An unknown key raises KeyError; experiment directories and resume raise
+naming item 9; time-marching raises naming item 13 (no
 shipped recipe is multi-stage).
 """
 
@@ -236,6 +239,84 @@ RECIPES: Dict[str, dict] = {
             learning_rate=2e-3, weight_decay=0.0,
         ),
     ),
+    "cahn_hilliard_dynamics": dict(
+        # Fourth-order phase-field dynamics against the ETDRK4 trajectory
+        # from large-amplitude modes, in the mixed (u, mu) form; eps 0.5
+        # keeps the linear growth rate 1/(4 eps^2) at 1. The mass penalty
+        # pins the conserved mean, mu_h2 the k^2-amplified compatibility
+        # error; causal weighting; L-BFGS polish.
+        pde_type="cahn_hilliard",
+        arch="fourier",
+        model=dict(hidden_dims=[256, 256, 256], mapping_size=128, scale=1.0,
+                   output_dim=2),
+        pde=dict(
+            parameters={"epsilon": 0.5, "formulation": "mixed"},
+            domain=[[0.0, 6.283185307179586]],
+            time_domain=[0.0, 4.0],
+            dimension=1,
+            exact_solution={"type": "spectral", "ic_modes": [[1, 0.6], [2, 0.3]],
+                            "nx": 256, "dt": 1e-3},
+            initial_condition={"type": "spectral"},
+            boundary_conditions={"periodic": {}},
+        ),
+        training=dict(
+            num_epochs=8000, num_collocation_points=40000, batch_size=8192,
+            num_boundary_points=4096, num_initial_points=4096,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+            learning_rate=2e-3, weight_decay=0.0,
+            loss_weights={"mass": 100.0, "mu_h2": 0.1},
+            causal_eps=1.0,
+        ),
+    ),
+    "cahn_hilliard_biharmonic": dict(
+        # The direct fourth-order residual (four nested jvps) against the
+        # 1-D standing interface tanh(x / (sqrt(2) eps)): a t-free basis
+        # (scale (1, 0)), a long cosine horizon, then L-BFGS rounds on
+        # fresh batches (the batch of 16384 is capped at the 4096
+        # collocation points, as in the JAX package).
+        pde_type="cahn_hilliard",
+        arch="fourier",
+        model=dict(hidden_dims=[128, 128, 128], mapping_size=64,
+                   scale=(1.0, 0.0)),
+        pde=dict(
+            dimension=1,
+            parameters={"epsilon": 0.18, "formulation": "direct"},
+            domain=[[-1.0, 1.0]],
+            time_domain=[0.0, 1.0],
+            exact_solution={"type": "stationary_interface"},
+            initial_condition={"type": "stationary_interface"},
+            boundary_conditions={"dirichlet": {"type": "exact"}},
+        ),
+        training=dict(
+            num_epochs=97500, num_collocation_points=4096, batch_size=4096,
+            num_boundary_points=512, num_initial_points=512,
+            optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.9846,
+            lbfgs_batch_size=16384, lbfgs_resample_every=500,
+            learning_rate=2e-3, weight_decay=0.0,
+        ),
+    ),
+    "cahn_hilliard": dict(
+        # The 2-D headline: the standing interface tanh(x / (sqrt(2) eps)),
+        # exact in any dimension, on the self-attention trunk (its factory
+        # reads arch_params.hidden_dim, 124; hidden_dims is unused), in the
+        # mixed (u, mu) form. The shipped block's Dirichlet (the exact
+        # trace here) and zero-Neumann BCs stay.
+        arch="attention",
+        model=dict(hidden_dims=[128, 128, 128, 128], output_dim=2),
+        pde=dict(
+            dimension=2,
+            domain=[[-0.5, 0.5], [-0.5, 0.5]],
+            time_domain=[0.0, 1.0],
+            parameters={"formulation": "mixed"},
+            exact_solution={"type": "stationary_interface"},
+            initial_condition={"type": "stationary_interface"},
+        ),
+        training=dict(
+            num_epochs=2000, num_collocation_points=20000, batch_size=4096,
+            num_boundary_points=4096, num_initial_points=4096,
+            learning_rate=1e-3, weight_decay=0.0,
+        ),
+    ),
 }
 
 
@@ -245,7 +326,7 @@ def _unported(what: str, item: int) -> NotImplementedError:
 
 def _recipe(pde_key: str) -> dict:
     if pde_key not in RECIPES:
-        raise _unported(f"the convergence recipe {pde_key!r} (ported: {sorted(RECIPES)})", 11)
+        raise KeyError(f"unknown convergence recipe {pde_key!r}; valid: {sorted(RECIPES)}")
     return RECIPES[pde_key]
 
 

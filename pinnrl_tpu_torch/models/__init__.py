@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from pinnrl_tpu_torch.config import Config, ModelConfig, resolve_device
+from pinnrl_tpu_torch.models.attention import AttentionNetwork
 from pinnrl_tpu_torch.models.base import count_parameters
 from pinnrl_tpu_torch.models.feedforward import FeedForwardNetwork
 from pinnrl_tpu_torch.models.fourier import FourierNetwork
@@ -25,6 +26,7 @@ from pinnrl_tpu_torch.models.siren import SIREN
 __all__ = [
     "PINNModel",
     "create_module",
+    "AttentionNetwork",
     "FeedForwardNetwork",
     "FourierNetwork",
     "ResNet",
@@ -33,7 +35,7 @@ __all__ = [
     "PORTED_ARCHITECTURES",
 ]
 
-PORTED_ARCHITECTURES = ("feedforward", "fourier", "resnet", "siren")
+PORTED_ARCHITECTURES = ("attention", "feedforward", "fourier", "resnet", "siren")
 
 
 def _parse_scale(v):
@@ -88,6 +90,16 @@ def create_module(model_cfg: ModelConfig, generator: Optional[torch.Generator] =
         return SIREN(
             hidden_dims=tuple(model_cfg.hidden_dims),
             omega_0=float(ap.get("omega_0", 30.0)),
+            generator=generator,
+            **common,
+        )
+    if arch == "attention":
+        return AttentionNetwork(
+            hidden_dim=int(ap.get("hidden_dim", 124)),
+            num_layers=int(ap.get("num_layers", ap.get("num_blocks", 4))),
+            num_heads=int(ap.get("num_heads", 4)),
+            activation=model_cfg.activation if model_cfg.activation != "tanh" else "gelu",
+            dropout=model_cfg.dropout,
             generator=generator,
             **common,
         )

@@ -64,17 +64,28 @@ def _check_mode(mode: str) -> None:
 
 
 def _nested_jvp(u: PointFn, z: torch.Tensor, v: torch.Tensor, order: int) -> List[torch.Tensor]:
-    """Orders 1..order of the directional derivative via nested jvp."""
-    derivs = []
-    fn = u
-    for _ in range(order):
+    """Orders 1..order of the directional derivative from one nest of
+    ``order`` jvps. Level j returns the j-th derivative as its tangent; its
+    primal, which it computes anyway, is the (j-1)-th, and it passes that
+    out with the orders below as aux. Eager torch cannot drop an unused
+    value as XLA does, so evaluating each order's nest on its own would
+    recompute orders 1..k-1 for order k."""
+    if order < 1:
+        return []
+
+    def first(zz):
+        return torch.func.jvp(u, (zz,), (v,))[1], []
+
+    fn = first
+    for _ in range(order - 1):
         prev = fn
 
         def fn(zz, _prev=prev):  # loop-local closure over _prev
-            return torch.func.jvp(_prev, (zz,), (v,))[1]
+            below, deriv, lower = torch.func.jvp(_prev, (zz,), (v,), has_aux=True)
+            return deriv, lower + [below]
 
-        derivs.append(fn(z))
-    return derivs
+    deriv, lower = fn(z)
+    return lower + [deriv]
 
 
 def value_and_derivative(u: PointFn, z: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,14 +103,20 @@ def directional_derivative(u, z: torch.Tensor, axis: int, order: int,
 
 
 def laplacian(u, z: torch.Tensor, spatial_axes: Sequence[int], mode: str = "jvp") -> torch.Tensor:
-    """Sum of pure second directional derivatives over the spatial axes, (N,)."""
-    total = None
-    for ax in spatial_axes:
-        d2 = directional_derivative(u, z, ax, 2, mode=mode)[1]
-        total = d2 if total is None else total + d2
-    if total is None:
+    """Sum of pure second directional derivatives over the spatial axes, (N,).
+    Over two or more axes of a point function, one order-2 nest vmapped over
+    the axes' tangents: the primal and its first pass run once for all."""
+    axes = list(spatial_axes)
+    if not axes:
         return torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
-    return total
+    if isinstance(u, BundleView) or len(axes) == 1:
+        total = directional_derivative(u, z, axes[0], 2, mode=mode)[1]
+        for ax in axes[1:]:
+            total = total + directional_derivative(u, z, ax, 2, mode=mode)[1]
+        return total
+    _check_mode(mode)
+    tangents = torch.stack([_tangent(z, ax) for ax in axes])
+    return torch.func.vmap(lambda v: _nested_jvp(u, z, v, 2)[1])(tangents).sum(dim=0)
 
 
 def derivative_bundle(

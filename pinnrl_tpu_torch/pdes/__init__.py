@@ -1,13 +1,15 @@
-"""PDE problem layer. Burgers, KdV, heat (``heat_2d`` included), convection,
-Allen-Cahn (with its spectral dynamics target), Black-Scholes, wave and the
-pendulum (with its Jacobi-elliptic exact solution) are ported;
-Cahn-Hilliard is ROADMAP item 11."""
+"""PDE problem layer: every PDE of the JAX package. Burgers, KdV (direct and
+first-order forms), heat (``heat_2d`` included), convection, Allen-Cahn and
+Cahn-Hilliard (direct and mixed forms; both with their spectral dynamics
+targets), Black-Scholes, wave and the pendulum (with its Jacobi-elliptic
+exact solution)."""
 
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, PDEBase  # noqa: F401
 from pinnrl_tpu_torch.pdes.allen_cahn import AllenCahnEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.black_scholes import BlackScholesEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.burgers import BurgersEquation  # noqa: F401
+from pinnrl_tpu_torch.pdes.cahn_hilliard import CahnHilliardEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.convection import ConvectionEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.heat import HeatEquation  # noqa: F401
 from pinnrl_tpu_torch.pdes.kdv import KdVEquation  # noqa: F401

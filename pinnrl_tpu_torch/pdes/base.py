@@ -1,28 +1,38 @@
 """PDE problem base class: physics, BC/IC targets, sampling, loss assembly.
 
-The main-path subset of ``pinnrl_tpu.pdes.base``. A PDE subclass writes its
+The counterpart of ``pinnrl_tpu.pdes.base``. A PDE subclass writes its
 residual against ``u`` / ``directional_derivative`` / ``laplacian``; ``u``
 is the stacked-jet :class:`BundleView` where the model supports it and the
 batched scalar network otherwise (the generic engine, nested jvp:
 ``ops/derivatives.py``), so the residual runs batched over the collocation
-points either way. Randomness comes from an explicit ``torch.Generator``
-instead of a PRNG key; where a test must feed JAX's draws, the public
-function takes the draws and hands them as tensors to a deterministic
-helper (``_periodic_terms``, ``_validate_on``).
+points either way. A PDE posed as an auxiliary system (``system_size`` k >
+1: Cahn-Hilliard's mixed form, KdV's first-order form) writes
+``residual_pointwise_system`` against the batched restriction of the
+network to its first k channels, and its residual is (N, k). Randomness
+comes from an explicit ``torch.Generator`` instead of a PRNG key; where a
+test must feed JAX's draws, the public function takes the draws and hands
+them as tensors to a deterministic helper (``_periodic_terms``,
+``_neumann_terms``, ``_validate_on``).
+
+The ``random`` initial condition is JAX's fixed random Fourier series; its
+threefry draws are shipped as data in ``config/random_ic_bases.json``.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the Neumann BC loss and gPINN (item 10), inverse mode and observation data
-(item 13), and the smoothness penalty and hard-IC transform (item 13).
+gPINN (item 10), inverse mode and observation data (item 13), and the
+smoothness penalty and hard-IC transform (item 13).
 """
 
 from __future__ import annotations
 
+import functools
+import json
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from pinnrl_tpu_torch.config import PDESettings, TrainingConfig, resolve_device
-from pinnrl_tpu_torch.ops.derivatives import make_scalar_fn, value_and_derivative
+from pinnrl_tpu_torch.ops.derivatives import _tangent, make_scalar_fn, value_and_derivative
 from pinnrl_tpu_torch.ops.losses import apply_loss_fn
 from pinnrl_tpu_torch.sampling import (
     sample_adaptive,
@@ -47,7 +57,27 @@ _ALIASES = {
     "blackscholes": "black_scholes",
     "pendulumequation": "pendulum",
 }
-_UNPORTED = ("cahn_hilliard",)  # ROADMAP item 11
+_RANDOM_IC_JSON = Path(__file__).resolve().parents[1] / "config" / "random_ic_bases.json"
+
+
+@functools.lru_cache(maxsize=None)
+def _shipped_random_ic_bases() -> dict:
+    return json.loads(_RANDOM_IC_JSON.read_text())
+
+
+def random_ic_basis(seed: int, n_modes: int, dimension: int):
+    """(W (dimension, n_modes), phase (n_modes,), amp (n_modes,)) float32:
+    the random Fourier series JAX draws for the ``random`` IC from
+    ``PRNGKey(seed)`` (W scaled by 4, amp by 1/sqrt(n_modes), as JAX does)."""
+    key = f"seed{int(seed)}_modes{int(n_modes)}_d{int(dimension)}"
+    entry = _shipped_random_ic_bases().get(key)
+    if entry is None:
+        raise NotImplementedError(
+            f"no shipped random-IC series {key!r} in config/random_ic_bases.json "
+            f"(have {sorted(_shipped_random_ic_bases())}); other seeds, mode counts and "
+            "dimensions are ROADMAP item 11"
+        )
+    return tuple(torch.tensor(entry[k], dtype=torch.float32) for k in ("W", "phase", "amp"))
 
 
 def register_pde(cls):
@@ -106,9 +136,6 @@ class PDEBase:
         key = pde_type.lower().replace("-", "_").replace(" ", "_")
         key = {"heat_2d": "heat", "heat2d": "heat"}.get(key, key)
         key = _ALIASES.get(key, key)
-        if key in _UNPORTED:
-            raise ValueError(f"PDE type {pde_type!r} is not ported yet (ROADMAP item 11: "
-                             f"{', '.join(_UNPORTED)})")
         if key not in PDE_CLASSES:
             raise ValueError(f"Unknown PDE type {pde_type!r}; valid: {sorted(PDE_CLASSES)}")
         return PDE_CLASSES[key](settings, training, device=device)
@@ -139,6 +166,13 @@ class PDEBase:
     # ------------------------------------------------------------------ #
 
     def residual_pointwise(self, u, z: torch.Tensor, coeffs: Optional[Coeffs]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def residual_pointwise_system(self, uvec, z: torch.Tensor,
+                                  coeffs: Optional[Coeffs]) -> torch.Tensor:
+        """The residual vector of an auxiliary system, batched: ``uvec``
+        maps z (N, d+1) to the first ``system_size`` channels (N, k); returns
+        (N, k) (dynamics and compatibility residuals)."""
         raise NotImplementedError
 
     def exact_solution(self, x: torch.Tensor, t: torch.Tensor, coeffs: Optional[Coeffs] = None):
@@ -197,10 +231,17 @@ class PDEBase:
         return make_scalar_fn(apply_fn, params)
 
     def compute_residual(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> torch.Tensor:
-        """Batched residual (N, 1): through the stacked-jet bundle when it is
-        attached, else through the generic engine (nested jvp of the
-        network)."""
+        """Batched residual: (N, system_size) for an auxiliary system, else
+        (N, 1) through the stacked-jet bundle when it is attached or the
+        generic engine (nested jvp of the network)."""
         z = torch.cat([x, t], dim=-1)
+        if self.system_size > 1:
+            k = self.system_size
+
+            def uvec(zz: torch.Tensor) -> torch.Tensor:
+                return apply_fn(params, zz).reshape(zz.shape[0], -1)[:, :k]
+
+            return self.residual_pointwise_system(uvec, z, coeffs).reshape(-1, k)
         if self._fast_bundle_fn is not None:
             from pinnrl_tpu_torch.ops.jet_mlp import BundleView
 
@@ -236,7 +277,8 @@ class PDEBase:
             value = float(params.get("value", 0.0) or 0.0)
             return lambda x, t: torch.full_like(x[:, 0:1], value)
         if bc_type in ("neumann", "periodic"):
-            # Enforced structurally in _boundary_loss (Neumann not ported yet).
+            # Enforced structurally in _boundary_loss: the Neumann target is
+            # the outward normal derivative's; periodic has none.
             value = float(params.get("value", 0.0) or 0.0) if bc_type == "neumann" else 0.0
             return lambda x, t: torch.full_like(x[:, 0:1], value)
         if bc_type == "initial":
@@ -268,7 +310,16 @@ class PDEBase:
             value = float(params.get("value", 0.0))
             return lambda x, t: torch.full_like(x[:, 0:1], value)
         if ic_type == "random":
-            raise NotImplementedError("the 'random' initial condition is not ported yet (ROADMAP item 11)")
+            # A fixed random Fourier series of the coordinates, JAX's draws.
+            amplitude = float(params.get("amplitude", 0.1))
+            W, phase, amp = (a.to(self.device) for a in random_ic_basis(
+                int(params.get("seed", 0)), int(params.get("n_modes", 16)), self.dimension))
+
+            def random_ic(x, t):
+                feats = torch.sin(x[:, : self.dimension] @ W + phase)
+                return amplitude * (feats @ amp).reshape(-1, 1)
+
+            return random_ic
         if ic_type == "small_angle":
             theta0 = float(params.get("initial_angle", 0.5))
             return lambda x, t: torch.full_like(x[:, 0:1], theta0)
@@ -420,18 +471,49 @@ class PDEBase:
             loss = loss + self._loss(du[:n] - du[n:])
         return loss
 
+    def _neumann_loss(self, u_scalar, bc_func: Callable, generator: torch.Generator,
+                      n: int) -> torch.Tensor:
+        """The outward normal derivative matched to the target on ``n //
+        (2 dim)`` fresh points per face, drawn as ``_sample_boundary_points``
+        draws them: per axis, the low face then the high, each x then t."""
+        per_face = max(n // (2 * self.dimension), 1)
+        draws = []
+        for axis in range(self.dimension):
+            for face_val in self.domain[axis]:
+                x_f = self._sample_face(generator, per_face, axis, face_val)
+                draws.append((x_f, self._sample_boundary_time(generator, per_face)))
+        return self._neumann_terms(u_scalar, bc_func, draws)
+
+    def _neumann_terms(self, u_scalar, bc_func: Callable, draws) -> torch.Tensor:
+        """The Neumann loss on given draws: ``[(x_f, t_f), ...]`` per face in
+        ``_neumann_loss``'s order. Every face goes through one jvp, each row
+        with its face's outward normal as tangent (-e_axis on the low face,
+        +e_axis on the high), which gives the outward normal derivative."""
+        faces = [torch.cat([x_f, t_f], dim=1) for x_f, t_f in draws]
+        normals = [(-1.0 if i % 2 == 0 else 1.0) * _tangent(z_f, i // 2)
+                   for i, z_f in enumerate(faces)]
+        z = torch.cat(faces, dim=0)
+        du_dn = torch.func.jvp(u_scalar, (z,), (torch.cat(normals, dim=0),))[1].reshape(-1, 1)
+        loss = torch.zeros((), device=z.device)
+        start = 0
+        for x_f, t_f in draws:
+            stop = start + x_f.shape[0]
+            loss = loss + self._loss(du_dn[start:stop] - bc_func(x_f, t_f))
+            start = stop
+        return loss
+
     def _boundary_loss(self, apply_fn, params, generator: torch.Generator, n_b: int) -> torch.Tensor:
-        """Every registered (non-initial) boundary condition on fresh points;
-        periodic conditions in their structural form."""
+        """Every registered (non-initial) boundary condition on fresh points,
+        in the order of the BC dict; periodic and Neumann conditions in their
+        structural forms."""
         loss = torch.zeros((), device=generator.device)
         u_scalar = self._scalar_u(apply_fn, params)
         for bc_type, bc_func in self.boundary_conditions.items():
             if bc_type == "initial":
                 continue
             if bc_type == "neumann":
-                raise NotImplementedError(
-                    "the Neumann boundary loss is not ported yet (ROADMAP item 10)"
-                )
+                loss = loss + self._neumann_loss(u_scalar, bc_func, generator, n_b)
+                continue
             if bc_type == "periodic":
                 loss = loss + self._periodic_loss(u_scalar, generator, n_b)
                 continue

@@ -171,3 +171,38 @@ def test_layer_norm_nests_under_jvp():
         eps = 1e-5
         fd = (d1(x + eps * v) - d1(x - eps * v)) / (2 * eps)
     assert rel_to_max(d2, fd) < 1e-6
+
+
+@pytest.mark.parametrize("arch", ["siren", "fourier"])
+def test_nested_jvp_takes_every_order_from_one_nest(arch):
+    """``directional_derivative`` to order k evaluates the network once (one
+    nest of k jvps, the lower orders from its primals) and gives, for a
+    scalar and a 2-channel restriction, exactly what a separate nest per
+    order gives, values and parameter gradients alike."""
+    pair, z = _net(arch)
+    zt = torch.from_numpy(z)
+    calls = [0]
+
+    def uvec(zz):
+        calls[0] += 1
+        out = pair.tmodel.apply(pair.tmodel.params, zz).reshape(zz.shape[0], -1)
+        return torch.cat([out, 2.0 * out**2], dim=1)
+
+    def per_order(u, v, order):
+        fn = u
+        for _ in range(order):
+            fn = (lambda prev: lambda zz: torch.func.jvp(prev, (zz,), (v,))[1])(fn)
+        return fn(zt)
+
+    params = [p for p in pair.tmodel.params.values() if p.requires_grad]
+    for u in (lambda zz: uvec(zz)[:, 0], uvec):
+        for axis, order in ((0, 1), (0, 3), (1, 2)):
+            calls[0] = 0
+            got = td.directional_derivative(u, zt, axis, order)
+            assert calls[0] == 1 and len(got) == order
+            for k, g in enumerate(got):
+                ref = per_order(u, td._tangent(zt, axis), k + 1)
+                assert torch.equal(g, ref), (axis, order, k + 1)
+                g_got = torch.autograd.grad(g.sum(), params, retain_graph=True)
+                g_ref = torch.autograd.grad(ref.sum(), params)
+                assert all(torch.equal(a, b) for a, b in zip(g_got, g_ref)), (axis, order, k + 1)

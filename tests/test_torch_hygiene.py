@@ -27,7 +27,8 @@ def test_port_imports_without_jax():
         "assert {'pinnrl_tpu_torch.pdes.kdv', 'pinnrl_tpu_torch.benchmarks.convergence',\n"
         "        'pinnrl_tpu_torch.ops.kernels.siren', 'pinnrl_tpu_torch.models.siren',\n"
         "        'pinnrl_tpu_torch.ops.derivatives', 'pinnrl_tpu_torch.pdes.heat',\n"
-        "        'pinnrl_tpu_torch.training.lbfgs'} <= set(mods)\n"
+        "        'pinnrl_tpu_torch.training.lbfgs', 'pinnrl_tpu_torch.pdes.cahn_hilliard',\n"
+        "        'pinnrl_tpu_torch.models.attention'} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
@@ -44,6 +45,25 @@ def test_defaults_snapshot_equals_yaml():
     snap = json.loads((REPO / "pinnrl_tpu_torch/config/defaults.json").read_text())
     ref = yaml.safe_load((REPO / "pinnrl_tpu/config/config.yaml").read_text())
     assert snap == ref
+
+
+def test_random_ic_table_equals_jax_draws():
+    """config/random_ic_bases.json holds, bit for bit, the draws of the
+    JAX package's ``random`` IC: W x 4, phase, amp / sqrt(n_modes)."""
+    import jax
+    import jax.numpy as jnp
+
+    table = json.loads((REPO / "pinnrl_tpu_torch/config/random_ic_bases.json").read_text())
+    assert sorted(table) == ["seed0_modes16_d1", "seed0_modes16_d2", "seed0_modes16_d3"]
+    for key, entry in table.items():
+        seed, modes, dim = (int(part.lstrip("seedmod")) for part in key.split("_"))
+        k_w, k_p, k_a = jax.random.split(jax.random.PRNGKey(seed), 3)
+        ref = {"W": jax.random.normal(k_w, (dim, modes)) * 4.0,
+               "phase": jax.random.uniform(k_p, (modes,), maxval=2 * jnp.pi),
+               "amp": jax.random.normal(k_a, (modes,)) / jnp.sqrt(modes)}
+        for name, value in ref.items():
+            got = np.asarray(entry[name], np.float32)
+            assert got.tobytes() == np.asarray(value, np.float32).tobytes(), (key, name)
 
 
 def test_config_matches_jax_config():
@@ -135,20 +155,28 @@ def test_unported_features_raise():
     resnet = PINNModel(load_config(pde_type="burgers", architecture="resnet", device="cpu"))
     assert resnet.architecture_name == "resnet" and "ResNetBlock_6.Dense_1.weight" in resnet.params
     with pytest.raises(ValueError, match="not ported yet.*ROADMAP item 12"):
-        PINNModel(load_config(pde_type="burgers", architecture="attention", device="cpu"))
+        PINNModel(load_config(pde_type="burgers", architecture="autoencoder", device="cpu"))
     assert create_pde(load_config(pde_type="heat_2d", device="cpu")).dimension == 2
     assert create_pde(load_config(pde_type="wave", device="cpu")).pde_type == "wave"
     assert create_pde(load_config(pde_type="pendulum", device="cpu")).pde_type == "pendulum"
-    with pytest.raises(ValueError, match="ROADMAP item 11"):
-        create_pde(load_config(pde_type="cahn_hilliard", device="cpu"))
+    # Cahn-Hilliard, the attention trunk and the Neumann loss are ported.
+    assert create_pde(load_config(pde_type="cahn_hilliard", device="cpu")).pde_type == "cahn_hilliard"
+    attention = load_config(pde_type="burgers", architecture="attention", device="cpu")
+    attention.model.arch_params.update({"hidden_dim": 8, "num_layers": 1, "num_heads": 2})
+    assert PINNModel(attention).architecture_name == "attention"
     neumann = load_config(pde_type="burgers", architecture="fourier", device="cpu")
     neumann.pde.boundary_conditions = {"neumann": {"value": 0.0}}
     neumann.model.hidden_dims = [8]
     neumann.model.arch_params["mapping_size"] = 4
     n_pde = create_pde(neumann)
     n_model = PINNModel(neumann)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        n_pde.compute_loss(n_model.apply, n_model.params, torch.zeros(8, 1), torch.zeros(8, 1))
+    n_losses = n_pde.compute_loss(n_model.apply, n_model.params, torch.zeros(8, 1),
+                                  torch.zeros(8, 1))
+    assert bool(torch.isfinite(n_losses["boundary"]))
+    neumann.training.loss_weights["gpinn"] = 0.1
+    with pytest.raises(NotImplementedError, match="gPINN.*ROADMAP item 10"):
+        create_pde(neumann).compute_loss(n_model.apply, n_model.params, torch.zeros(8, 1),
+                                         torch.zeros(8, 1))
     cfg = load_config(pde_type="burgers", architecture="fourier", device="cpu")
     cfg.model.hidden_dims = [8]
     cfg.model.arch_params["mapping_size"] = 4

@@ -96,8 +96,8 @@ def test_recipes_and_configs_equal_jax(key):
 
 
 def test_harness_raises_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        convergence.build_recipe_config("cahn_hilliard", device="cpu")
+    with pytest.raises(KeyError, match="unknown convergence recipe"):
+        convergence.build_recipe_config("no_such_recipe", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         convergence.run_convergence("kdv", epochs=1, experiment_dir="unused", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
@@ -218,10 +218,45 @@ def test_soliton_satisfies_the_pde():
 
 
 def test_first_order_formulation_raises():
+    """The first-order system is posed in one space dimension only, as in
+    the JAX package."""
     cfg = load_config(pde_type="kdv", architecture="fourier", device="cpu")
     cfg.pde.parameters["formulation"] = "first_order"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    cfg.pde.dimension = 2
+    cfg.pde.domain = [[-15.0, 15.0]] * 2
+    with pytest.raises(ValueError, match="dimension=1 only"):
         create_pde(cfg)
+
+
+def test_first_order_residual_matches_jax():
+    """The (u, p, q) system on a 3-channel head: one x-jvp and one t-jvp of
+    the restriction, (N, 3); 1e-5 relative to max (first-order jvps)."""
+    from torch_parity_helpers import _configure_model_training, _pair
+
+    from pinnrl_tpu.config import load_config as jax_load_config
+
+    cfgs = [jax_load_config(pde_type="kdv", architecture="fourier"),
+            load_config(pde_type="kdv", architecture="fourier", device="cpu")]
+    for cfg in cfgs:
+        cfg.pde.parameters["formulation"] = "first_order"
+        cfg.model.output_dim = cfg.pde.output_dim = 3
+        _configure_model_training(cfg, hidden=(32, 24), mapping=16, periodic=True,
+                                  layer_norm=True, scale=0.75, causal_eps=0.0)
+    pair = _pair(*cfgs, seed=0, jitter_ln=True)
+    assert pair.tpde.system_size == pair.jpde.system_size == 3
+    assert pair.tpde.spatial_orders == (1,)
+    assert not pair.tpde.attach_fast_bundle(pair.tmodel)
+    x, t = points(13, 64, **KDV_DOMAIN)
+    ref = pair.jpde.compute_residual(pair.jmodel.apply, pair.jmodel.params, jnp.asarray(x),
+                                     jnp.asarray(t))
+    with torch.no_grad():
+        got = pair.tpde.compute_residual(pair.tmodel.apply, pair.tmodel.params,
+                                         torch.from_numpy(x), torch.from_numpy(t))
+        score = pair.tpde.residual_score(pair.tmodel.apply, pair.tmodel.params,
+                                         torch.from_numpy(x), torch.from_numpy(t))
+    assert got.shape == (64, 3)
+    assert rel_to_max(got, np.asarray(ref)) < 1e-5
+    assert torch.equal(score, torch.sqrt(torch.sum(got * got, dim=1)))
 
 
 # ------------------------------------------------------------- compute_loss

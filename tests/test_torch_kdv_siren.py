@@ -106,8 +106,8 @@ def test_rar_sampling_scores_through_the_engine():
 def test_siren_layer_calls_per_step_and_validation(monkeypatch):
     """The count chip_smoke.py asserts on the card, derived here from the
     code: a KdV step evaluates the network on u, u_t (one jvp), u_x..u_xxx
-    (one, two and three nested jvps), the BC and the IC points: 7
-    evaluations of every SIREN layer; validation the same."""
+    (one nest of three jvps), the BC and the IC points: 5 evaluations of
+    every SIREN layer; validation the same."""
     pair = _small_cfg(siren_kdv_pair(hidden=(16,) * 3))
     calls = []
     plain = siren.siren_layer
@@ -121,10 +121,10 @@ def test_siren_layer_calls_per_step_and_validation(monkeypatch):
     params = pair.tmodel.params
     opt = trainer._make_adam(1, 1, list(params.values()))
     trainer._step(params, opt, torch.Generator().manual_seed(0), 64)
-    assert len(calls) == 7 * 3
+    assert len(calls) == 5 * 3
     calls.clear()
     trainer._val_loss(params, torch.Generator().manual_seed(1))
-    assert len(calls) == 7 * 3
+    assert len(calls) == 5 * 3
 
 
 def test_first_adam_step_at_the_shipped_rate_matches_optax(monkeypatch):

@@ -27,7 +27,11 @@ moves a phase of tens of radians by an ulp of w times 2 pi B, and the
 order-K streams scale that by p1^K, up to ~800 here), its feedforward input
 kernel 1e-6 (the direction rows equal without a frame), its transport
 kernels 1e-5 relative to max per stacked tensor and its residual kernels
-1e-6.
+1e-6. Cahn-Hilliard: kernel 2's jvp rule nested to order 4 on the
+biharmonic recipe's network (its basis's t-row zero) at 1e-4 x 10^(k-1)
+relative to max at order k, and the direct (order-4) residual, its loss and
+each parameter gradient through kernel 2 at 1e-3 relative to max (the
+bound of the order-3 residual loss's gradients through kernel 3).
 """
 
 import numpy as np
@@ -971,3 +975,68 @@ def test_pendulum_velocity_target_on_card(cuda_device):
     assert v_g.is_cuda and d_g.is_cuda
     assert float((v_g.cpu() - v_c).abs().max()) < 1e-5
     assert float((d_g.cpu() - d_c).abs().max()) < 1e-5
+
+
+def _biharmonic(device, n):
+    """The biharmonic recipe's PDE and network (Fourier 128x3, mapping 64,
+    scale (1, 0)) on ``device``, and n uniform points."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    cfg = build_recipe_config("cahn_hilliard_biharmonic", device="cuda")
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    x, t = pde.generate_collocation_points(torch.Generator(device=device).manual_seed(1), n,
+                                           "uniform")
+    return pde, model, x, t
+
+
+def test_fourier_features_jvp_rule_at_order_4_on_card(cuda_device):
+    """Four nested jvps along x of the biharmonic recipe's network: every
+    order through kernel 2's rule against the plain version."""
+    from pinnrl_tpu_torch.ops.derivatives import directional_derivative, make_scalar_fn
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+
+    pde, model, x, t = _biharmonic(cuda_device, 2048)
+    assert not model.constants["FourierFeatures_0.B"][1].any()
+    z = torch.cat([x, t], dim=-1)
+    u = make_scalar_fn(model.apply, model.params)
+    before = fourier_feats.fourier_features.jvps
+    with torch.no_grad():
+        got = directional_derivative(u, z, 0, 4)
+        assert fourier_feats.fourier_features.jvps - before >= 4
+        plain = fourier_feats.fourier_features
+        fourier_feats.fourier_features = fourier_feats.fourier_features_plain
+        try:
+            ref = directional_derivative(u, z, 0, 4)
+        finally:
+            fourier_feats.fourier_features = plain
+    for k, (a, b) in enumerate(zip(got, ref), start=1):
+        assert _rel(a, b) < 1e-4 * 10 ** (k - 1), k
+
+
+def test_cahn_hilliard_direct_residual_gradients_through_kernel2(cuda_device):
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+
+    pde, model, x, t = _biharmonic(cuda_device, 1024)
+    params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+
+    def loss_and_grads():
+        r = pde.compute_residual(model.apply, params, x, t)
+        loss = pde._residual_loss(r, t)
+        return r, loss, torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                            materialize_grads=True)
+
+    before = fourier_feats.fourier_features.launches
+    r_k, l_k, g_k = loss_and_grads()
+    assert fourier_feats.fourier_features.launches > before
+    plain = fourier_feats.fourier_features
+    fourier_feats.fourier_features = fourier_feats.fourier_features_plain
+    try:
+        r_p, l_p, g_p = loss_and_grads()
+    finally:
+        fourier_feats.fourier_features = plain
+    assert _rel(r_k.detach(), r_p.detach()) < 1e-3
+    assert abs(float(l_k) - float(l_p)) / abs(float(l_p)) < 1e-3
+    for a, b in zip(g_k, g_p):
+        assert _rel(a, b) < 1e-3

@@ -182,8 +182,9 @@ def test_fourier_features_calls_per_loss(monkeypatch):
 
 
 def test_siren_layer_calls_per_loss(monkeypatch):
-    """Wave on its shipped SIREN: u_tt (two nested jvps), u_xx (two), the
-    BC, the IC and the velocity IC (one jvp): 7 evaluations of each layer."""
+    """Wave on its shipped SIREN: u_tt (one nest of two jvps), u_xx (one),
+    the BC, the IC and the velocity IC (one jvp): 5 evaluations of each
+    layer."""
     pair = siren_wave_pair(hidden=(16,) * 3)
     calls = []
     plain = siren.siren_layer
@@ -197,7 +198,7 @@ def test_siren_layer_calls_per_loss(monkeypatch):
     assert not trainer.fast_bundle_active and not trainer.fused_kernel_active
     x, t = (_t(a) for a in points(2, 64, **_domain(1)))
     trainer._loss_components(pair.tmodel.params, x, t, torch.Generator().manual_seed(1))
-    assert len(calls) == 7 * 3
+    assert len(calls) == 5 * 3
 
 
 def test_recipe_config_matches_jax():

@@ -1,9 +1,10 @@
 """Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
 
 Each helper makes the same small problem (Burgers, KdV, heat, convection,
-Allen-Cahn, Black-Scholes, wave or the pendulum) in the JAX package and in the port, and bridges the JAX model's parameters into the port's model, so
-both sides evaluate the same function. Inputs are made with numpy from a
-seed and handed to both as arrays.
+Allen-Cahn, Black-Scholes, wave, the pendulum or Cahn-Hilliard) in the JAX
+package and in the port, and bridges the JAX model's parameters into the
+port's model, so both sides evaluate the same function. Inputs are made
+with numpy from a seed and handed to both as arrays.
 """
 
 from __future__ import annotations
@@ -339,3 +340,98 @@ def jax_velocity_points(jpde, key, n_colloc):
     _, n_i = jpde._bc_counts(n_colloc)
     xv, tv = jpde._sample_initial_points(jax.random.fold_in(key, 0x1C), n_i)
     return np.array(xv), np.array(tv)
+
+
+def ch_pair(formulation="direct", dim=1, *, arch="fourier", hidden=(32, 24), mapping=16,
+            scale=1.0, eps=0.1, domain=(-0.5, 0.5), time_domain=(0.0, 1.0), pde=None,
+            training=None, arch_params=None, seed=0):
+    """The shipped Cahn-Hilliard block (its Dirichlet and zero-Neumann BCs)
+    in ``formulation`` over ``dim`` copies of ``domain``, against the
+    standing interface (exact, IC and Dirichlet trace) unless ``pde``
+    overrides entries (``parameters`` merged); an ``arch`` trunk at small
+    width (``arch_params`` merged), a 2-channel head for the mixed form;
+    ``training`` entries set on the training config (``loss_weights``
+    merged). Both packages, bridged; BC/IC counts 32."""
+    from pinnrl_tpu.config import load_config as jax_load_config
+    from pinnrl_tpu_torch.config import load_config
+
+    cfgs = [jax_load_config(pde_type="cahn_hilliard", architecture=arch),
+            load_config(pde_type="cahn_hilliard", architecture=arch, device="cpu")]
+    for cfg in cfgs:
+        cfg.pde.parameters.update({"formulation": formulation, "epsilon": eps})
+        cfg.pde.dimension = dim
+        cfg.pde.domain = [list(domain)] * dim
+        cfg.pde.time_domain = list(time_domain)
+        cfg.pde.exact_solution = {"type": "stationary_interface"}
+        cfg.pde.initial_condition = {"type": "stationary_interface"}
+        for k, v in (pde or {}).items():
+            if k == "parameters":
+                cfg.pde.parameters.update(v)
+            else:
+                setattr(cfg.pde, k, v)
+        cfg.model.input_dim = dim + 1
+        cfg.model.output_dim = cfg.pde.output_dim = 2 if formulation == "mixed" else 1
+        _configure_model_training(cfg, hidden=hidden, mapping=mapping, periodic=True,
+                                  layer_norm=True, scale=scale, causal_eps=0.0)
+        cfg.model.arch_params.update(arch_params or {})
+        for k, v in (training or {}).items():
+            if k == "loss_weights":
+                cfg.training.loss_weights.update(v)
+            else:
+                setattr(cfg.training, k, v)
+    return _pair(*cfgs, seed=seed, jitter_ln=True)
+
+
+def jax_loss_draws(jpde, key, n_colloc):
+    """Every draw pinnrl_tpu's compute_loss (Cahn-Hilliard's included)
+    takes from ``key``, as numpy arrays: per registered BC in dict order
+    (``dirichlet``: (x, t); ``neumann``: [(x_f, t_f)] per face;
+    ``periodic``: the per-axis (free, t) tensors), the IC points, and the
+    mass and mu-H2 penalties' times."""
+    dim = jpde.dimension
+    k_b, k_i = jax.random.split(jax.random.fold_in(key, 0xB0), 2)
+    n_b, n_i = jpde._bc_counts(n_colloc)
+    out = {}
+    for bc_type in jpde.boundary_conditions:
+        if bc_type == "initial":
+            continue
+        k_b, k_bc = jax.random.split(k_b)
+        if bc_type == "neumann":
+            per_face, faces = max(n_b // (2 * dim), 1), []
+            for axis in range(dim):
+                for face_val in jpde.domain[axis]:
+                    k_bc, k_x, k_t = jax.random.split(k_bc, 3)
+                    faces.append((np.array(jpde._sample_face(k_x, per_face, axis, face_val)),
+                                  np.array(jpde._sample_boundary_time(k_t, per_face))))
+            out["neumann"] = faces
+        elif bc_type == "periodic":
+            out["periodic"] = jax_periodic_draws(jpde, k_bc, n_b)
+        else:
+            out["dirichlet"] = [np.array(a) for a in jpde._sample_boundary_points(k_bc, n_b)]
+    out["initial"] = [np.array(a) for a in jpde._sample_initial_points(k_i, n_i)]
+    lo, hi = jpde.time_domain
+    for name, tag, k in (("mass", 0x3A55, 16), ("mu_h2", 0x4D55, 8)):
+        out[name] = np.array(jax.random.uniform(jax.random.fold_in(key, tag), (k, 1),
+                                                minval=lo, maxval=hi))
+    return out
+
+
+def inject_loss_draws(monkeypatch, tpde, draws):
+    """Make the port's compute_loss use ``jax_loss_draws``'s draws."""
+    def t(a):
+        return torch.from_numpy(a)
+
+    if "dirichlet" in draws:
+        xb, tb = draws["dirichlet"]
+        monkeypatch.setattr(tpde, "_sample_boundary_points", lambda gen, n: (t(xb), t(tb)))
+    if "neumann" in draws:
+        faces = [(t(x), t(tt)) for x, tt in draws["neumann"]]
+        monkeypatch.setattr(tpde, "_neumann_loss",
+                            lambda u, f, gen, n: tpde._neumann_terms(u, f, faces))
+    if "periodic" in draws:
+        monkeypatch.setattr(tpde, "_periodic_loss",
+                            lambda u, gen, n: tpde._periodic_terms(u, draws["periodic"]))
+    xi, ti = draws["initial"]
+    monkeypatch.setattr(tpde, "_sample_initial_points", lambda gen, n: (t(xi), t(ti)))
+    times = {16: t(draws["mass"]), 8: t(draws["mu_h2"])}
+    monkeypatch.setattr(tpde, "_draw_times", lambda gen, k: times[k])

@@ -7,7 +7,8 @@ report their accuracy.
 
 ``--pde`` takes any key of the port's ``RECIPES`` (burgers, heat, kdv,
 heat_2d, convection, allen_cahn, black_scholes, allen_cahn_dynamics, wave,
-pendulum, pendulum_nonlinear).
+pendulum, pendulum_nonlinear, cahn_hilliard, cahn_hilliard_dynamics,
+cahn_hilliard_biharmonic).
 
 Each recipe runs as shipped through
 ``pinnrl_tpu_torch.benchmarks.convergence.run_convergence(key, seed=...,

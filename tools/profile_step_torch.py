@@ -3,7 +3,7 @@
 CUDA card.
 
     python3 tools/profile_step_torch.py [--steps 20] [--profiled 10] [--out chiprun_out/profile]
-        [--rl | --kdv | --siren-kdv | --heat | --recipe KEY] [--lbfgs]
+        [--rl | --kdv | --siren-kdv | --heat | --recipe KEY [--alternate ROUNDS]] [--lbfgs]
 
 For the Burgers recipe slice of ``chip_smoke.py`` (Fourier 256x3, mapping
 128, batch 8192, BC/IC 4096), once with the hand-written kernels and once on
@@ -32,13 +32,27 @@ mapping 128, batch 8192, periodic BCs through one jvp, Adam). With
 that recipe (Fourier 256x3, mapping 128, batch 8192: the residual on the
 plain bundle at temporal order 2, kernel 2 on the BC, IC and velocity-IC
 points and its jvp rule in the velocity IC; plain = kernel 2's plain
-version). With
+version). ``--recipe cahn_hilliard`` (attention 124x4, the mixed 2-D form,
+batch 4096), ``cahn_hilliard_dynamics`` (Fourier 256x3, the mixed form with
+its mass and mu-H2 penalties, causal) and ``cahn_hilliard_biharmonic``
+(Fourier 128x3, mapping 64, the direct form: four nested jvps, batch 4096)
+run the residual on the generic engine (nested jvp), kernel 2 inside the
+Fourier recipes' jvps through its rule. With
 ``--lbfgs`` it is one L-BFGS iteration of the recipe's second phase
 (``training/lbfgs.py``: memory 50, zoom line search) on one fixed batch of
-all 40000 collocation points and fixed BC/IC points, from a fresh optimizer
+all the recipe's collocation points (40000; 4096 for the biharmonic) and fixed BC/IC points, from a fresh optimizer
 at the seeded initial weights (the Burgers recipe, or the heat recipe with
 ``--heat``, or ``--recipe``'s); it also prints the objective's evaluations
 per iteration.
+
+With ``--alternate ROUNDS`` (with ``--recipe``) one trainer takes
+``--steps`` host-clocked steps (or, with ``--lbfgs``, L-BFGS iterations,
+reported per objective evaluation) with kernel 2 and then on its plain
+version, in turns (kernel first in even rounds, plain first in odd ones),
+for ``ROUNDS`` rounds; it prints each side's median and quartiles, the
+caching allocator's new segments and retries on each side, and the
+functions with the most host time in a ``cProfile`` of one step of each;
+no trace is taken.
 
 The chrome traces go to ``--out``, gzipped. The script imports no JAX.
 """
@@ -152,6 +166,84 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
                         for n, v in rows]}
 
 
+def alternate(trainer, cfg, label: str, rounds: int, steps: int, card: str, lbfgs: bool = False):
+    """Kernel 2 against its plain version in turns on one trainer (see the
+    module docstring); returns the summary it prints."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    from chip_smoke import plain_fourier_features
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    params = trainer.model.params
+    gen = torch.Generator(device=trainer.device).manual_seed(7)
+    if lbfgs:
+        opt = trainer._make_lbfgs(list(params.values()))
+        batch = trainer._lbfgs_batch(7, 0, cfg.training.num_collocation_points)
+
+        def step():
+            trainer._lbfgs_step(params, opt, batch, gen)
+    else:
+        opt = trainer._make_adam(cfg.training.num_epochs, 1, list(params.values()))
+
+        def step():
+            trainer._step(params, opt, gen, cfg.training.batch_size)
+
+    def side(mode):
+        return plain_fourier_features() if mode == "plain" else contextlib.nullcontext()
+
+    def alloc():
+        st = torch.cuda.memory_stats()
+        return st.get("segment.all.allocated", 0), st.get("num_alloc_retries", 0)
+
+    times = {"kernel": [], "plain": []}
+    segments = {"kernel": [0, 0], "plain": [0, 0]}
+    for r in range(rounds):
+        for mode in (("kernel", "plain") if r % 2 == 0 else ("plain", "kernel")):
+            with side(mode):
+                step()  # warm
+                before = alloc()
+                for _ in range(steps):
+                    evals = LBFGS.evaluations
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    times[mode].append(ms / (LBFGS.evaluations - evals) if lbfgs else ms)
+                after = alloc()
+                segments[mode] = [s + a - b for s, a, b in zip(segments[mode], after, before)]
+    what = "ms per L-BFGS evaluation" if lbfgs else "ms per Adam step"
+    summary = {"label": label, "unit": what, "rounds": rounds, "card": card}
+    for mode, v in times.items():
+        q1, med, q3 = statistics.quantiles(v, n=4)
+        summary[mode] = {"median": med, "q1": q1, "q3": q3, "n": len(v),
+                         "new_segments": segments[mode][0], "alloc_retries": segments[mode][1]}
+        print(f"[{label}] {mode}: {what} median {med:.3f} q1 {q1:.3f} q3 {q3:.3f} over {len(v)} "
+              f"in {rounds} rounds; allocator: {segments[mode][0]} new segments, "
+              f"{segments[mode][1]} retries ({card})", flush=True)
+    for mode in ("kernel", "plain"):
+        with side(mode):
+            step()
+            torch.cuda.synchronize()
+            prof = cProfile.Profile()
+            prof.enable()
+            step()
+            torch.cuda.synchronize()
+            prof.disable()
+        text = io.StringIO()
+        stats = pstats.Stats(prof, stream=text)
+        stats.sort_stats("tottime").print_stats(18)
+        summary[mode]["cprofile_s"] = stats.total_tt
+        summary[mode]["cprofile_calls"] = stats.total_calls
+        print(f"[{label}] {mode}: cProfile of one step, {stats.total_calls} calls, "
+              f"{stats.total_tt:.3f} s\n" + text.getvalue().split("\n\n", 1)[-1].strip(), flush=True)
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20, help="unprofiled steps timed after warm-up")
@@ -164,8 +256,12 @@ def main() -> int:
     kind.add_argument("--siren-kdv", action="store_true",
                       help="profile a step of KdV as shipped (SIREN 124x7, nested jvp)")
     kind.add_argument("--heat", action="store_true", help="profile the heat recipe's step")
-    kind.add_argument("--recipe", choices=("wave", "pendulum", "pendulum_nonlinear"),
-                      help="profile a step of this recipe, second order in time")
+    kind.add_argument("--recipe", choices=("wave", "pendulum", "pendulum_nonlinear",
+                                           "cahn_hilliard", "cahn_hilliard_dynamics",
+                                           "cahn_hilliard_biharmonic"),
+                      help="profile a step of this recipe (kernel 1 off its path)")
+    ap.add_argument("--alternate", type=int, default=0, metavar="ROUNDS",
+                    help="with --recipe: kernel 2 and its plain version in turns on one trainer")
     ap.add_argument("--lbfgs", action="store_true",
                     help="profile one L-BFGS iteration on all 40000 points (Burgers, or with --heat "
                          "the heat recipe)")
@@ -193,7 +289,20 @@ def main() -> int:
     configs = {"kdv_": kdv_recipe_config, "siren_kdv_": siren_kdv_config, "heat_": heat_recipe_config}
     if args.recipe:
         configs[f"{args.recipe}_"] = lambda device: build_recipe_config(args.recipe, device=device)
-    # Kernel 1 takes neither the SIREN nor a residual second order in time.
+    if args.alternate:
+        if not args.recipe:
+            ap.error("--alternate needs --recipe")
+        cfg = configs[f"{args.recipe}_"]("cuda")
+        trainer = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+        summary = alternate(trainer, cfg, prefix + "alternate", args.alternate, args.steps, card,
+                            lbfgs=args.lbfgs)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"{prefix}alternate.json").write_text(json.dumps(summary, indent=1))
+        if "jax" in sys.modules:
+            raise AssertionError("profile_step_torch imported jax")
+        return 0
+    # Kernel 1 takes neither the SIREN, nor a residual second order in time,
+    # nor Cahn-Hilliard.
     kernel1 = not (args.siren_kdv or args.recipe)
     for label in ("kernels", "plain"):
         cfg = configs.get(prefix.removeprefix("lbfgs_"), burgers_recipe_config)("cuda")
