@@ -184,6 +184,30 @@ Phases (each raises on failure, and the script then exits non-zero):
                "cahn_hilliard")``: ResNet 512x7, the direct form in 1-D, the
                random IC, Dirichlet and Neumann) for 4 Adam steps: finite, no
                kernel.
+ 28. inverse — both ``benchmarks/inverse.py`` recipes as shipped (Fourier
+               128x3, mapping 64, batch 4096 of 20000, BC/IC 2048, 2000
+               observations at 1% noise; heat's alpha, Black-Scholes' sigma
+               and r), cut to 200 of their 2000 epochs, through
+               ``run_inverse``: kernel 1 never (live coefficients), kernel 2
+               three times per loss (heat with one jvp-rule call), every
+               coefficient nearer the truth at the end than at the start, 0
+               host syncs per Adam step; kernel 2 against its plain version
+               on the data term's (2000,2)x(2,64) and on the loss's gradients
+               (each coefficient's and every leaf's); Adam-step ms with kernel
+               2 and plain, in turns.
+ 29. data_augmented — the Burgers recipe for 6 epochs forward and with 2000
+               synthetic observations: kernel 1 once per Adam step, L-BFGS
+               evaluation and validation in both, kernel 2 twice and three
+               times per loss; the data_augmented loss and gradients with
+               kernel 1 against the plain path.
+ 30. cli     — ``training.train.main`` in-process in a temporary directory:
+               heat inverse and Burgers on the shipped Fourier 512x4 trunk
+               (mapping 512) with ``--rl``, 4 epochs each: the experiment
+               directory's files, metadata, history and exact launches of
+               kernels 1, 2 and 4 (one more kernel-2 launch per validation for
+               the live snapshot), kernel 1 at 512x4 against its plain
+               version, ``final_model.npz`` and ``rl_agent.npz`` loaded back;
+               then ``benchmarks.cli inverse --pde heat --epochs 4 --csv``.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -235,7 +259,13 @@ phase 25's ``cahn_hilliard`` (per recipe: the run's launches and jvps, per
 loss and per step, host syncs, Adam-step and L-BFGS-iteration ms with the
 kernel and plain, rel-L2 and wall seconds), phase 26's ``order4`` (each
 order's error, the residuals' and gradients') and phase 27's
-``cahn_hilliard_shipped_launches``; kernel
+``cahn_hilliard_shipped_launches``, phase 28's ``inverse`` (per recipe:
+launches, jvps, identified values, syncs, the data term's timing and
+errors, Adam-step ms), phase 29's ``data_augmented_launches`` and phase
+30's ``cli_launches``; kernel 1's also ``inverse_launches`` (0),
+``data_augmented`` (per mode) and its parity there, ``cli_launches`` and
+``shipped_fourier_512`` (its parity on the shipped trunk); kernel 4's
+``cli_launches``; kernel
 3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124,
 and phase 24's ``wave_launches``, ``wave_max_abs_err`` and
 ``shipped_second_order``, and phases 25 and 27's ``cahn_hilliard_launches``;
@@ -378,6 +408,24 @@ CH_PARITY_N = {"cahn_hilliard_biharmonic": 4096, "cahn_hilliard_dynamics": 8192}
 # Phase 27: Cahn-Hilliard as shipped (ResNet 512x7, the direct form in 1-D,
 # the random IC, Dirichlet and Neumann): 2 epochs of 2 Adam steps of 2048.
 SHIPPED_CH_EPOCHS = 2
+
+
+# Phase 28: both inverse recipes as shipped, cut to 200 of their 2000 epochs
+# (800 Adam steps of batch 4096 each). Kernel 2 per loss (launches, jvp-rule
+# calls): heat IC, periodic faces (through the rule) and data; Black-Scholes
+# Dirichlet, IC and data (tests/test_torch_inverse.py counts them on the CPU).
+INVERSE_EPOCHS = 200
+INVERSE_FF_PER_LOSS = {"heat": (3, 1), "black_scholes": (3, 0)}
+INVERSE_TIMED = 10
+# Phase 29: the Burgers recipe forward and with 2000 synthetic observations
+# (data_augmented), 6 epochs: 3 Adam (12 RAR steps), then 3 L-BFGS.
+DATA_AUG_EPOCHS = 6
+DATA_AUG_OBS = 2000
+# Phase 30: the training CLI, 4 epochs of 2 Adam steps (batch 2048 of 5000).
+CLI_EPOCHS = 4
+CLI_FILES = {"config.yaml", "experiment.log", "final_model.json", "final_model.npz",
+             "history.json", "live_snapshot.npz", "metadata.json", "metrics.json",
+             "visualizations"}
 
 
 def nvidia_smi_line() -> str:
@@ -813,7 +861,7 @@ def lbfgs_iteration_times(tr, batch, n: int, seed: int = 3):
     from pinnrl_tpu_torch.training.lbfgs import LBFGS
 
     params = tr.model.params
-    opt = tr._make_lbfgs(list(params.values()))
+    opt = tr._make_lbfgs(tr._leaves(params))
     g = torch.Generator(device=tr.device).manual_seed(seed)
     evals = LBFGS.evaluations
     times = []
@@ -827,20 +875,6 @@ def lbfgs_iteration_times(tr, batch, n: int, seed: int = 3):
     return times, (LBFGS.evaluations - evals) / (n + 2)
 
 
-def make_agent(cfg):
-    """The agent ``training/train.py`` builds from ``cfg.rl``."""
-    from pinnrl_tpu_torch.rl import RLAgent
-
-    rl = cfg.rl
-    return RLAgent(
-        state_dim=cfg.model.input_dim, action_dim=rl.action_dim, hidden_dim=rl.hidden_dim,
-        learning_rate=rl.learning_rate, gamma=rl.gamma, epsilon_start=rl.epsilon_start,
-        epsilon_end=rl.epsilon_end, epsilon_decay=rl.epsilon_decay, memory_size=rl.memory_size,
-        batch_size=rl.batch_size, target_update=rl.target_update,
-        reward_weights=dict(rl.reward_weights), device=cfg.device,
-    )
-
-
 def step_times(tr, n: int, epochs: int, batch: int, seed: int = 7):
     """Host-clock ms of ``n`` training steps after 3 warm-up steps, each
     ending in ``torch.cuda.synchronize()``."""
@@ -848,7 +882,7 @@ def step_times(tr, n: int, epochs: int, batch: int, seed: int = 7):
 
     params = tr.model.params
     steps_per_epoch = tr.tcfg.num_collocation_points // batch
-    opt = tr._make_adam(epochs, steps_per_epoch, list(params.values()))
+    opt = tr._make_adam(epochs, steps_per_epoch, tr._leaves(params))
     g = torch.Generator(device=tr.device).manual_seed(seed)
     if tr.rl_agent is not None and tr._rl_state is None:
         tr._rl_state = tr._init_rl_state(0)
@@ -903,7 +937,7 @@ def count_syncs(tr, batch: int):
     import torch
 
     params = tr.model.params
-    opt = tr._make_adam(1, 1, list(params.values()))
+    opt = tr._make_adam(1, 1, tr._leaves(params))
     g = torch.Generator(device=tr.device).manual_seed(11)
     if tr.rl_agent is not None and tr._rl_state is None:
         tr._rl_state = tr._init_rl_state(0)
@@ -1206,6 +1240,359 @@ def ch_shipped(dev, card: str):
             "epoch_losses": hist}
 
 
+def grad_rel(a, b) -> float:
+    """max |a - b| / max |b| (0-d tensors too)."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def inverse_runs(dev, card: str):
+    """Phase 28 (see the module docstring): per inverse recipe, the run's
+    launches (kernel 1 none, kernel 2 exact per loss), the coefficients'
+    approach to the truth, host syncs per Adam step, kernel 2 against its
+    plain version on the data term and on the loss's gradients, and Adam-step
+    ms with kernel 2 and plain, in turns."""
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks.inverse import RECIPES, run_inverse
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step
+
+    ff = fourier_feats.fourier_features
+    loss_tol, grad_tol = FUSED_TOLS["burgers"]
+    runs = {}
+    for key, recipe in RECIPES.items():
+        fused_step.fused_residual_loss.launches = 0
+        ff.launches = ff.jvps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captured_trainers() as seen:
+            results = run_inverse(key, seed=0, epochs=INVERSE_EPOCHS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (tr,) = seen
+        t = tr.tcfg
+        run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+               "fourier_features": ff.launches, "fourier_features_jvps": ff.jvps}
+        hist = tr.history
+        steps = INVERSE_EPOCHS * (t.num_collocation_points // t.batch_size)
+        n_losses = steps + len(hist["val_loss"])
+        per_launches, per_jvps = INVERSE_FF_PER_LOSS[key]
+        want = {"fused_residual_loss": 0, "fourier_features": per_launches * n_losses,
+                "fourier_features_jvps": per_jvps * n_losses}
+        approach = {r.parameter: (abs(r.initial_guess - r.true_value), abs(r.identified - r.true_value))
+                    for r in results}
+        print(f"[inverse] {key}: run_inverse(seed=0, epochs={INVERSE_EPOCHS}) {wall:.2f} s: {steps} "
+              f"Adam steps of {t.batch_size}, {len(hist['val_loss'])} validations, "
+              f"{tr.pde.observations[0].shape[0]} observations; launches {run} (want {want}); "
+              + "; ".join(f"{r.parameter} {r.initial_guess:g} -> {r.identified:.6g} (truth "
+                          f"{r.true_value:g}, rel error {r.rel_error:.4e})" for r in results)
+              + f" ({card})", flush=True)
+        losses = hist["train_loss"]
+        if not (len(losses) == INVERSE_EPOCHS and all(map(math.isfinite, losses + hist["val_loss"]))
+                and not tr.fused_kernel_active and tr.fast_bundle_active
+                and all(len(hist[f"param_{r.parameter}"]) == INVERSE_EPOCHS for r in results)):
+            raise AssertionError(f"{key}: losses {losses[-3:]}, kernel 1 {tr.fused_kernel_active}")
+        if run != want:
+            raise AssertionError(f"{key}: launches {run}, want {want}")
+        if not all(end < start for start, end in approach.values()):
+            raise AssertionError(f"{key}: |coefficient - truth| at start and end {approach}")
+
+        syncs, sites = count_syncs(tr, t.batch_size)
+        print(f"[syncs] {key} inverse: one warm Adam step {syncs} {sites}", flush=True)
+        if syncs:
+            raise AssertionError(f"{key}: {syncs} host syncs per Adam step")
+
+        # Kernel 2 against its plain version on the data term's embedding.
+        model, pde = tr.model, tr.pde
+        x_obs, t_obs, _ = pde.observations
+        z_obs = model.map_inputs(torch.cat([x_obs, t_obs], dim=-1)).contiguous()
+        B = model.constants["FourierFeatures_0.B"]
+        periodic = model.module.FourierFeatures_0.periodic
+        with torch.no_grad():
+            fk = fourier_feats.fourier_features(z_obs, B, periodic)
+            fp = fourier_feats.fourier_features_plain(z_obs, B, periodic)
+        torch.cuda.synchronize()
+        data_err = float((fk - fp).abs().max())
+        data_rel = data_err / float(fp.abs().max())
+        n_o, d_o, m_o = z_obs.shape[0], z_obs.shape[1], B.shape[1]
+        data_ms = {"ms": graph_ms(lambda: fourier_feats.fourier_features(z_obs, B, periodic)),
+                   "plain_ms": graph_ms(lambda: fourier_feats.fourier_features_plain(z_obs, B, periodic))}
+        data_ms["bound_ms"], data_ms["bound_by"] = bound(2.0 * n_o * d_o * m_o + 3.0 * n_o * m_o,
+                                                         4.0 * (n_o * d_o + d_o * m_o + 2 * n_o * m_o))
+
+        # The loss and its gradients (each coefficient's, every leaf's).
+        params = model.params
+        gen = torch.Generator(device=dev).manual_seed(28)
+        x, tt = pde.generate_collocation_points(gen, t.batch_size, "uniform")
+
+        def loss_and_grads():
+            losses = tr._loss_components(params, x, tt, torch.Generator(device=dev).manual_seed(29))
+            return losses["total"].detach(), torch.autograd.grad(losses["total"], tr._leaves(params))
+
+        l_k, g_k = loss_and_grads()
+        with plain_fourier_features():
+            l_p, g_p = loss_and_grads()
+        torch.cuda.synchronize()
+        names = sorted(tr.coeffs)
+        loss_rel = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+        coeff_rel = {n: grad_rel(a, b) for n, a, b in zip(names, g_k, g_p)}
+        leaf_rel = max(grad_rel(a, b) for a, b in zip(g_k[len(names):], g_p[len(names):]))
+        print(f"[parity] {key} inverse: fourier_features on the data term ({n_o},{d_o})x({d_o},{m_o}): "
+              f"max_abs_err {data_err:.3e} rel {data_rel:.3e} (tol {FF_TOL:g}); {data_ms['ms']:.5f} ms, "
+              f"plain {data_ms['plain_ms']:.5f} ms, bound {data_ms['bound_ms']:.5f} ms "
+              f"({data_ms['bound_by']}); loss through kernel 2 rel {loss_rel:.3e} (tol {loss_tol:g}), "
+              f"coefficient gradients rel {coeff_rel}, worst leaf gradient rel {leaf_rel:.3e} "
+              f"(tol {grad_tol:g}) ({card})", flush=True)
+        if not (data_rel < FF_TOL and loss_rel < loss_tol and leaf_rel < grad_tol
+                and all(v < grad_tol for v in coeff_rel.values())):
+            raise AssertionError(f"{key}: kernel 2 disagrees with its plain version in inverse mode")
+
+        timed = {"kernels": [], "plain": []}
+        for order in ("plain", "kernels", "kernels", "plain"):
+            with plain_fourier_features() if order == "plain" else contextlib.nullcontext():
+                timed[order] += step_times(tr, INVERSE_TIMED, 1, t.batch_size)
+        ms = {o: statistics.median(v) for o, v in timed.items()}
+        print(f"[timing] {key} inverse: Adam step (batch {t.batch_size}), median of "
+              f"{len(timed['kernels'])}: kernel 2 {ms['kernels']:.3f} ms, plain {ms['plain']:.3f} ms "
+              f"({card})", flush=True)
+        runs[key] = {**run, "per_loss": {"launches": per_launches, "jvps": per_jvps},
+                     "steps": steps, "validations": len(hist["val_loss"]), "wall_s": wall,
+                     "identified": {r.parameter: r.identified for r in results},
+                     "rel_error": {r.parameter: r.rel_error for r in results},
+                     "adam_syncs": syncs, "data_term": {"shape": [n_o, d_o, m_o],
+                                                        "max_abs_err": data_err, **data_ms},
+                     "loss_rel": loss_rel, "coefficient_grad_rel": coeff_rel,
+                     "leaf_grad_rel": leaf_rel, "adam_step_ms": ms}
+        del tr, seen, model, pde, params
+    return runs
+
+
+def data_augmented_runs(dev, card: str):
+    """Phase 29: the Burgers recipe forward and in data_augmented mode with
+    synthetic observations; kernel 1 once per Adam step, L-BFGS evaluation
+    and validation in both, kernel 2 once more per loss with the data term,
+    and the data_augmented loss and gradients with kernel 1 against plain."""
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    ff = fourier_feats.fourier_features
+    runs = {}
+    for mode in ("forward", "data_augmented"):
+        cfg = build_recipe_config("burgers", epochs=DATA_AUG_EPOCHS, device="cuda")
+        cfg.training.mode = mode
+        pde = create_pde(cfg)
+        if mode == "data_augmented":
+            pde.generate_synthetic_observations(
+                torch.Generator(device=dev).manual_seed(cfg.pde.observation_seed), DATA_AUG_OBS, 0.01)
+        tr = PDETrainer(PINNModel(cfg, seed=0), pde, cfg)
+        if not (tr.fused_kernel_active and tr.coeffs == {}):
+            raise AssertionError(f"{mode}: kernel 1 {tr.fused_kernel_active}, coefficients {tr.coeffs}")
+        t = cfg.training
+        fused_step.fused_residual_loss.launches = 0
+        ff.launches = ff.jvps = 0
+        evals0 = LBFGS.evaluations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tr.train(seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        evals = LBFGS.evaluations - evals0
+        adam_steps = tr.switch_epoch * (t.num_collocation_points // t.batch_size)
+        n_losses = adam_steps + evals + len(tr.history["val_loss"])
+        per_ff = 3 if mode == "data_augmented" else 2
+        run = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+               "fourier_features": ff.launches, "fourier_features_jvps": ff.jvps}
+        want = {"fused_residual_loss": n_losses, "fourier_features": per_ff * n_losses,
+                "fourier_features_jvps": 0}
+        losses = res["history"]["train_loss"]
+        data = res["history"]["loss_components"]["data"]
+        print(f"[data] burgers {mode}: {wall:.2f} s, {adam_steps} Adam steps, {evals} L-BFGS "
+              f"evaluations, {len(tr.history['val_loss'])} validations; launches {run} (want {want}); "
+              f"epoch losses {' '.join(f'{v:.4e}' for v in losses)}; data term "
+              f"{' '.join(f'{v:.3e}' for v in data)} ({card})", flush=True)
+        if not (len(losses) == DATA_AUG_EPOCHS and all(map(math.isfinite, losses))):
+            raise AssertionError(f"{mode}: losses {losses}")
+        if run != want:
+            raise AssertionError(f"{mode}: launches {run}, want {want}")
+        if (mode == "data_augmented") != all(v > 0.0 for v in data):
+            raise AssertionError(f"{mode}: data term {data}")
+        runs[mode] = {**run, "adam_steps": adam_steps, "evaluations": evals,
+                      "validations": len(tr.history["val_loss"]), "wall_s": wall,
+                      "per_loss": {"fused_residual_loss": 1, "fourier_features": per_ff}}
+
+    # The data_augmented loss and gradients with kernel 1 and on the plain path.
+    loss_tol, grad_tol = FUSED_TOLS["burgers"]
+    params = tr.model.params
+    x, tt = pde.generate_collocation_points(torch.Generator(device=dev).manual_seed(29),
+                                            t.batch_size, "uniform")
+
+    def loss_and_grads():
+        losses = tr._loss_components(params, x, tt, torch.Generator(device=dev).manual_seed(30))
+        grads = torch.autograd.grad(losses["total"], tr._leaves(params), allow_unused=True,
+                                    materialize_grads=True)
+        return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+    before = fused_step.fused_residual_loss.launches
+    l_k, g_k = loss_and_grads()
+    fused = pde._fused_residual_loss
+    pde._fused_residual_loss = None
+    try:
+        l_p, g_p = loss_and_grads()
+    finally:
+        pde._fused_residual_loss = fused
+    rels = {k: abs(l_k[k] - l_p[k]) / abs(l_p[k]) for k in ("total", "residual", "data")}
+    worst = max(grad_rel(a, b) for a, b in zip(g_k, g_p))
+    print(f"[parity] burgers data_augmented at the trained parameters (N={t.batch_size}): loss "
+          f"rel {rels} (tol {loss_tol:g}); worst gradient rel {worst:.3e} (tol {grad_tol:g}); kernel 1 "
+          f"launched {fused_step.fused_residual_loss.launches - before} ({card})", flush=True)
+    if not (all(v < loss_tol for v in rels.values()) and worst < grad_tol
+            and fused_step.fused_residual_loss.launches - before == 1):
+        raise AssertionError("data_augmented: kernel 1's loss disagrees with the plain path")
+    runs["parity"] = {"loss_rel": rels, "grad_rel": worst}
+    return runs
+
+
+def cli_runs(dev, card: str):
+    """Phase 30: ``training.train.main`` in-process (heat inverse, Burgers on
+    the shipped Fourier trunk with --rl), each directory's files, metadata,
+    history and launches, kernel 1 on the shipped 512x4 trunk against its
+    plain version, the saved model and agent state round-tripped, then the
+    benchmark CLI's inverse subcommand and its CSV."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks import cli as bench_cli
+    from pinnrl_tpu_torch.config import Config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp
+    from pinnrl_tpu_torch.training import train as train_cli
+
+    ff = fourier_feats.fourier_features
+    counters = {"fused_residual_loss": fused_step.fused_residual_loss, "fourier_features": ff,
+                "fused_mlp_score": mlp.fused_mlp_score}
+    runs = {}
+    common = ["--epochs", str(CLI_EPOCHS)]
+    cases = {"heat_inverse": ["--pde", "heat", "--mode", "inverse", "--identify", "alpha",
+                              "--initial-guess", "alpha=0.5", "--obs-noise", "0.01"],
+             "burgers_rl": ["--pde", "burgers", "--arch", "fourier", "--rl"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in cases.items():
+            for c in counters.values():
+                c.launches = 0
+            ff.jvps = 0
+            out = Path(tmp) / name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with captured_trainers() as seen:
+                rc = train_cli.main(argv + common + ["--results-dir", str(out)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            (tr,) = seen
+            (exp,) = out.iterdir()
+            run = {k: c.launches for k, c in counters.items()}
+            run["fourier_features_jvps"] = ff.jvps
+            files = {p.name for p in exp.iterdir()}
+            meta = json.loads((exp / "metadata.json").read_text())
+            hist = json.loads((exp / "history.json").read_text())
+            t = tr.tcfg
+            steps = CLI_EPOCHS * (t.num_collocation_points // t.batch_size)
+            vals = len(hist["val_loss"])
+            inverse = name == "heat_inverse"
+            # Per loss: heat inverse IC, periodic faces (rule) and data; Burgers
+            # BC and IC; one more launch per validation for the live snapshot.
+            want = {"fused_residual_loss": 0 if inverse else steps + vals,
+                    "fourier_features": (3 if inverse else 2) * (steps + vals) + vals,
+                    "fused_mlp_score": 0 if inverse else steps,
+                    "fourier_features_jvps": (steps + vals) if inverse else 0}
+            want_files = CLI_FILES | (set() if inverse else {"rl_agent.npz"})
+            print(f"[cli] {name}: main({' '.join(argv + common)}) rc {rc}, {wall:.2f} s, {steps} "
+                  f"steps, {vals} validation(s), trunk {tr.model.config.hidden_dims}, mapping {tr.model.config.arch_params.get('mapping_size')}; files "
+                  f"{sorted(files)}; status {meta['status']}; identified "
+                  f"{meta.get('identified_parameters')}; launches {run} (want {want}) ({card})",
+                  flush=True)
+            if not (rc == 0 and files == want_files and meta["status"] == "completed"
+                    and len(hist["train_loss"]) == CLI_EPOCHS
+                    and all(map(math.isfinite, hist["train_loss"]))):
+                raise AssertionError(f"{name}: rc {rc}, files {sorted(files)}, meta {meta}")
+            if inverse and len(hist["param_alpha"]) != CLI_EPOCHS:
+                raise AssertionError(f"{name}: param_alpha {hist['param_alpha']}")
+            if run != want:
+                raise AssertionError(f"{name}: launches {run}, want {want}")
+            with np.load(exp / "live_snapshot.npz") as snap:
+                if snap["u_pred"].shape != (60, 60) or not np.isfinite(snap["residual"]).all():
+                    raise AssertionError(f"{name}: live snapshot {snap['u_pred'].shape}")
+
+            # The saved model and agent state, loaded back.
+            snap_cfg = Config.from_snapshot(json.loads((exp / "config.yaml").read_text()))
+            loaded = PINNModel(snap_cfg, seed=1)
+            loaded.load_state(str(exp / "final_model.npz"))
+            if not all(torch.equal(loaded.module.state_dict()[k], v)
+                       for k, v in tr.model.module.state_dict().items()):
+                raise AssertionError(f"{name}: final_model.npz does not round-trip")
+            entry = {**run, "steps": steps, "validations": vals, "wall_s": wall}
+            if not inverse:
+                agent, state = tr.rl_agent, tr._rl_state
+                back = agent.load_state(str(exp / "rl_agent.npz"),
+                                        agent.init(torch.Generator().manual_seed(1)))
+                same = (all(torch.equal(back.policy_params[k], v) for k, v in state.policy_params.items())
+                        and all(torch.equal(back.target_params[k], v)
+                                for k, v in state.target_params.items())
+                        and torch.equal(back.buf_state, state.buf_state)
+                        and torch.equal(back.epsilon, state.epsilon)
+                        and (back.ptr, back.size, back.steps) == (state.ptr, state.size, state.steps))
+                if not same:
+                    raise AssertionError(f"{name}: rl_agent.npz does not round-trip")
+
+                # Kernel 1 on the shipped Fourier trunk against its plain version.
+                pde = tr.pde
+                loss_tol, grad_tol = FUSED_TOLS["burgers"]
+                p = {k: v.detach().requires_grad_(True) for k, v in tr.model.params.items()}
+                x, tt = pde.generate_collocation_points(torch.Generator(device=dev).manual_seed(31),
+                                                        t.batch_size, "uniform")
+                z = torch.cat([x, tt], dim=-1)
+                lk = pde._fused_residual_loss(p, z)
+                gk = torch.autograd.grad(lk, list(p.values()))
+                bundle_fn = make_bundle_fn(tr.model, pde.dimension, max(pde.spatial_orders),
+                                           max(pde.temporal_orders))
+                lp = fused_step.fused_residual_loss_plain(bundle_fn, pde, p, z)
+                gp = torch.autograd.grad(lp, list(p.values()), allow_unused=True,
+                                         materialize_grads=True)
+                torch.cuda.synchronize()
+                loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+                worst = max(grad_rel(a, b) for a, b in zip(gk, gp))
+                err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+                print(f"[parity] kernel 1 on the shipped Fourier trunk "
+                      f"({tr.model.config.hidden_dims}, mapping "
+                      f"{tr.model.config.arch_params.get('mapping_size')}, N={t.batch_size}): loss rel "
+                      f"{loss_rel:.3e} (tol {loss_tol:g}); worst gradient rel {worst:.3e} (tol "
+                      f"{grad_tol:g}), max_abs_err {err:.3e} ({card})", flush=True)
+                if not (loss_rel < loss_tol and worst < grad_tol):
+                    raise AssertionError("kernel 1 disagrees with its plain version at 512x4")
+                entry["kernel1_512"] = {"loss_rel": loss_rel, "grad_rel": worst, "max_abs_err": err}
+            runs[name] = entry
+
+        csv_path = Path(tmp) / "inverse.csv"
+        rc = bench_cli.main(["inverse", "--pde", "heat", "--epochs", str(CLI_EPOCHS),
+                             "--csv", str(csv_path)])
+        lines = csv_path.read_text().strip().split("\n")
+        print(f"[cli] benchmarks.cli inverse --pde heat --epochs {CLI_EPOCHS}: rc {rc}; {lines}",
+              flush=True)
+        if not (rc == 0 and lines[0] == "pde,parameter,true_value,initial_guess,identified,"
+                "rel_error,epochs,noise,wall_time_s,seed" and lines[1].startswith("heat,alpha,")):
+            raise AssertionError(f"benchmarks.cli inverse: rc {rc}, {lines}")
+    return runs
+
+
+
 def main() -> int:
     import torch
 
@@ -1222,6 +1609,7 @@ def main() -> int:
     from pinnrl_tpu_torch.sampling import make_grid
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.train import make_agent
 
     dev = torch.device("cuda")
     card = nvidia_smi_line()
@@ -2683,6 +3071,11 @@ def main() -> int:
     ch_parity = ch_order4_parity(dev, card)
     ch_shipped_run = ch_shipped(dev, card)
 
+    # ---- 28-30. inverse recipes, data_augmented, the CLIs ------------------- #
+    inv_runs = inverse_runs(dev, card)
+    aug_runs = data_augmented_runs(dev, card)
+    cli = cli_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -2728,7 +3121,12 @@ def main() -> int:
          "second_order_launches": {k: r["fused_residual_loss"] for k, r in second_runs.items()},
          "float64_params_launches": f64_launches,
          "cahn_hilliard_launches": {**{k: r["fused_residual_loss"] for k, r in ch_runs.items()},
-                                    "shipped": ch_shipped_run["fused_residual_loss"]}},
+                                    "shipped": ch_shipped_run["fused_residual_loss"]},
+         "inverse_launches": {k: r["fused_residual_loss"] for k, r in inv_runs.items()},
+         "data_augmented": {k: aug_runs[k] for k in ("forward", "data_augmented")},
+         "data_augmented_parity": aug_runs["parity"],
+         "cli_launches": {k: r["fused_residual_loss"] for k, r in cli.items()},
+         "shipped_fourier_512": cli["burgers_rl"]["kernel1_512"]},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -2742,6 +3140,11 @@ def main() -> int:
          "second_order": second_runs, "zero_x_row": {**ff0, "max_abs_err": ff0_err},
          "cahn_hilliard": ch_runs, "order4": ch_parity,
          "cahn_hilliard_shipped_launches": ch_shipped_run["fourier_features"],
+         "inverse": inv_runs,
+         "data_augmented_launches": {k: aug_runs[k]["fourier_features"]
+                                     for k in ("forward", "data_augmented")},
+         "cli_launches": {k: {"launches": r["fourier_features"], "jvps": r["fourier_features_jvps"]}
+                          for k, r in cli.items()},
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
          "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
          "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,
@@ -2763,6 +3166,7 @@ def main() -> int:
          "source": "pinnrl_tpu_torch/csrc/mlp_score.cu",
          "replaces": "pinnrl_tpu/ops/kernels/mlp.py:75",
          "launches": rl_launches["fused_mlp_score"], "max_abs_err": mlp_err,
+         "cli_launches": {k: r["fused_mlp_score"] for k, r in cli.items()},
          "ms": mlp_ms, "plain_ms": mlp_plain_ms, "eager_ms": mlp_eager_ms,
          "bound_ms": mlp_bound[0], "bound_by": mlp_bound[1], "library_ms": mlp_lib_ms,
          "library_call": "torch.mm (FP32, TF32 off) of its three layer products, no LayerNorm",

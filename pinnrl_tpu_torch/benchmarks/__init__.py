@@ -1,7 +1,8 @@
-"""Benchmarks: the convergence harness's recipe builder and runner.
+"""Benchmarks: the convergence harness (recipe builder and runner), the
+inverse-problem harness and the benchmark CLI (``benchmarks/cli.py``).
 
-The FDM baselines, the sampling/inverse/operator harnesses and the CLI are
-ROADMAP item 14.
+The FDM baselines (item 11) and the sampling and operator harnesses (item
+14) are not ported yet.
 """
 
 from pinnrl_tpu_torch.benchmarks.convergence import (  # noqa: F401

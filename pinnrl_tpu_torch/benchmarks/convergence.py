@@ -19,9 +19,10 @@ L-BFGS (``adam_lbfgs``). ``allen_cahn_dynamics`` and
 ``points_per_sec`` counts each epoch at its own batch: the Adam epochs'
 steps times the batch, each L-BFGS epoch's iterations times the L-BFGS
 batch (the JAX package counts every epoch at the Adam batch).
-An unknown key raises KeyError; experiment directories and resume raise
-naming item 9; time-marching raises naming item 13 (no
-shipped recipe is multi-stage).
+An unknown key raises KeyError; ``experiment_dir`` writes the run's
+experiment directory (no plots, validation at least every tenth of the
+run, as the JAX package does); resume raises naming item 9; time-marching
+raises naming item 13 (no shipped recipe is multi-stage).
 """
 
 from __future__ import annotations
@@ -388,16 +389,20 @@ def run_convergence(
 
     ``train_seed`` (default: ``seed``) varies only the training draws; the
     model seed fixes the initial weights."""
-    if experiment_dir is not None or resume_from is not None:
-        raise _unported("experiment directories and resume", 9)
+    if resume_from is not None:
+        raise _unported("checkpoint resume", 9)
     recipe = _recipe(pde_key)
     cfg = build_recipe_config(pde_key, epochs, device=device)
     t = cfg.training
+    if experiment_dir:
+        cfg.evaluation.save_plots = False
+        t.validation_frequency = min(t.validation_frequency, max(t.num_epochs // 10, 1))
     pde = create_pde(cfg)
     model = PINNModel(cfg, seed=seed)
     trainer = PDETrainer(model, pde, cfg)
     t0 = time.perf_counter()
-    res = trainer.train(seed=seed if train_seed is None else train_seed)
+    res = trainer.train(seed=seed if train_seed is None else train_seed,
+                        experiment_dir=experiment_dir)
     wall = time.perf_counter() - t0
     params = trainer._final_state["params"]["net"]
     val = pde.validate(model.apply, params, num_points=20000)

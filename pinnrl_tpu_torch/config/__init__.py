@@ -631,10 +631,15 @@ def load_config(
 
 
 def _read_config_file(path: Path) -> Dict[str, Any]:
-    """JSON by suffix; anything else is YAML, which needs PyYAML."""
-    if path.suffix == ".json":
-        with open(path) as f:
-            return json.load(f) or {}
+    """JSON by suffix, or by content: a ``.yaml`` whose text is JSON (the
+    ``config.yaml`` an experiment directory holds) reads without PyYAML.
+    Anything else is YAML, which needs PyYAML."""
+    text = path.read_text()
+    try:
+        return json.loads(text) or {}
+    except ValueError:
+        if path.suffix == ".json":
+            raise
     try:
         import yaml
     except ImportError as exc:
@@ -642,5 +647,4 @@ def _read_config_file(path: Path) -> Dict[str, Any]:
             f"reading the YAML config {str(path)!r} needs PyYAML; "
             "install it or pass a .json config_path"
         ) from exc
-    with open(path) as f:
-        return yaml.safe_load(f) or {}
+    return yaml.safe_load(text) or {}

@@ -10,12 +10,15 @@ optional ``output_transform(z, out)`` runs in physical coordinates after it.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from pinnrl_tpu_torch.config import Config, ModelConfig, resolve_device
+from pinnrl_tpu_torch.config import Config, ModelConfig, _asdict, resolve_device
 from pinnrl_tpu_torch.models.attention import AttentionNetwork
 from pinnrl_tpu_torch.models.base import count_parameters
 from pinnrl_tpu_torch.models.feedforward import FeedForwardNetwork
@@ -183,3 +186,24 @@ class PINNModel:
 
     def count_parameters(self) -> int:
         return count_parameters(self.module)
+
+    def save_state(self, path: str) -> None:
+        """The weights as ``.npz``, keyed by flax path (``params/Dense_0/kernel``,
+        ``constants/FourierFeatures_0/B``: ``models/bridge.py``'s rules), and
+        the model config beside it (``.json``), as the JAX package's
+        ``final_model.msgpack`` and its sidecar."""
+        from pinnrl_tpu_torch.models.bridge import flat_flax_arrays
+
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "wb") as f:
+            np.savez(f, **flat_flax_arrays(self.module.state_dict()))
+        path.with_suffix(".json").write_text(json.dumps(_asdict(self.config), indent=2, default=str))
+
+    def load_state(self, path: str) -> None:
+        """Load weights that ``save_state`` wrote."""
+        from pinnrl_tpu_torch.models.bridge import state_from_flat_flax
+
+        with np.load(path) as data:
+            state = state_from_flat_flax({k: data[k] for k in data.files})
+        self.module.load_state_dict(state, strict=True)

@@ -16,6 +16,8 @@ The same rules carry the DQN agent's tree (``dqn_params_from_flax`` /
 
 Both sides are plain numpy here, so the module imports neither JAX nor
 flax: callers hand over ``jax.tree_util.tree_map(np.asarray, ...)``.
+``flat_flax_arrays`` / ``state_from_flat_flax`` flatten the two flax trees
+into ``"params/Dense_0/kernel"``-style keys (a saved model's ``.npz``).
 """
 
 from __future__ import annotations
@@ -112,3 +114,32 @@ def dqn_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str,
     if constants or {m: set(v) for m, v in params.items()} != _DQN_TREE:
         raise KeyError(f"not a DQN parameter dict: {sorted(state)}")
     return params
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            _flatten(v, f"{prefix}{k}/", out)
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+
+
+def flat_flax_arrays(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """torch state_dict -> {"params/<flax path>": array, "constants/<...>": array}."""
+    params, constants = params_to_flax(state)
+    out: Dict[str, np.ndarray] = {}
+    _flatten({"params": params, **constants}, "", out)
+    return out
+
+
+def state_from_flat_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``flat_flax_arrays``."""
+    trees: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split("/")
+        node = trees
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    constants = {k: v for k, v in trees.items() if k != "params"}
+    return params_from_flax(trees.get("params", {}), constants)

@@ -17,9 +17,18 @@ them as tensors to a deterministic helper (``_periodic_terms``,
 The ``random`` initial condition is JAX's fixed random Fourier series; its
 threefry draws are shipped as data in ``config/random_ic_bases.json``.
 
+Inverse and data modes: the coefficients named in ``trainable_parameters``
+are 0-d float32 tensors on the PDE's device (``init_coeffs``, seeded from
+the initial guesses), which the trainer optimizes with the network and
+passes to every loss; ``coeff`` hands the live tensor to the residual, so
+the gradient reaches it. Observations (``set_observations``: an ``.npz``
+path, a dict or an (x, t, u) tuple through ``observation_data``, or
+``generate_synthetic_observations`` at the true coefficients) add the data
+term, which draws nothing.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-gPINN (item 10), inverse mode and observation data (item 13), and the
-smoothness penalty and hard-IC transform (item 13).
+gPINN (item 10), the smoothness penalty and hard-IC transform (item 13),
+and observations from The Well (item 14).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import json
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pinnrl_tpu_torch.config import PDESettings, TrainingConfig, resolve_device
@@ -109,12 +119,18 @@ class PDEBase:
         self.domain = [(float(lo), float(hi)) for lo, hi in settings.domain]
         self.time_domain = (float(settings.time_domain[0]), float(settings.time_domain[1]))
         self.parameters: Dict[str, Any] = {**self.default_parameters, **(settings.parameters or {})}
+        # Inverse problems: the true values stay in ``self.parameters``; the
+        # initial guesses seed the coefficients ``init_coeffs`` returns.
         self.trainable_parameters = list(settings.trainable_parameters or [])
-        if self.trainable_parameters:
-            raise NotImplementedError("inverse mode is not ported yet (ROADMAP item 13)")
-        self.observations = None
+        self._true_parameters = {k: float(self.parameters[k]) for k in self.trainable_parameters}
+        self._initial_guesses = {
+            k: float((settings.parameter_initial_guesses or {}).get(k, self.parameters[k]))
+            for k in self.trainable_parameters
+        }
+        # Observations (x (N, d), t (N, 1), u (N, k)) for the data term.
+        self.observations: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
         if settings.observation_data is not None:
-            raise NotImplementedError("observation data is not ported yet (ROADMAP item 13)")
+            self._load_observation_data(settings.observation_data)
 
         self.boundary_conditions: Dict[str, Callable] = {}
         for bc_type, bc_params in (settings.boundary_conditions or {}).items():
@@ -145,7 +161,10 @@ class PDEBase:
     # ------------------------------------------------------------------ #
 
     def init_coeffs(self) -> Coeffs:
-        return {}
+        """The trainable coefficients, 0-d float32 tensors on the PDE's
+        device, seeded from the initial guesses."""
+        return {k: torch.tensor(v, dtype=torch.float32, device=self.device)
+                for k, v in self._initial_guesses.items()}
 
     def coeff(self, coeffs: Optional[Coeffs], name: str, default: Any = None):
         if coeffs is not None and name in coeffs:
@@ -157,9 +176,18 @@ class PDEBase:
             return default
         raise KeyError(f"PDE parameter {name!r} not configured and no default")
 
+    def canonicalize_coeffs(self, coeffs: Dict[str, float]) -> Dict[str, float]:
+        """The canonical representative of identified coefficients where the
+        PDE fixes a parameter only up to a symmetry (Black-Scholes' sigma
+        enters as sigma^2). Identity by default."""
+        return dict(coeffs)
+
     @property
     def true_parameters(self) -> Dict[str, float]:
-        return {}
+        return dict(self._true_parameters)
+
+    def get_trainable_parameter_values(self, coeffs: Coeffs) -> Dict[str, float]:
+        return {k: float(v.detach()) for k, v in coeffs.items()}
 
     # ------------------------------------------------------------------ #
     # Physics
@@ -352,6 +380,58 @@ class PDEBase:
                                    score_fn=score_fn)
         raise ValueError(f"Unknown sampling strategy {strategy!r}")
 
+    # ------------------------------------------------------------------ #
+    # Observations (inverse and data modes)
+    # ------------------------------------------------------------------ #
+
+    def _load_observation_data(self, spec: Any) -> None:
+        """An ``.npz`` path with keys x, t, u, a dict of arrays, or an
+        (x, t, u) tuple."""
+        if isinstance(spec, dict) and spec.get("source") == "well":
+            raise NotImplementedError(
+                "observations from The Well are not ported yet (ROADMAP item 14)")
+        if isinstance(spec, str):
+            with np.load(spec) as data:
+                self.set_observations(data["x"], data["t"], data["u"])
+            return
+        if isinstance(spec, dict):
+            self.set_observations(spec["x"], spec["t"], spec["u"])
+            return
+        if isinstance(spec, (tuple, list)) and len(spec) == 3:
+            self.set_observations(*spec)
+            return
+        raise ValueError(f"Unsupported observation_data spec: {type(spec)}")
+
+    def set_observations(self, x, t, u) -> None:
+        """Arrays or tensors -> float32 tensors on the PDE's device, shaped
+        (N, d), (N, 1) and (N, k)."""
+        kw = dict(dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(x, **kw).reshape(-1, self.dimension)
+        t = torch.as_tensor(t, **kw).reshape(-1, 1)
+        u = torch.as_tensor(u, **kw).reshape(x.shape[0], -1)
+        self.observations = (x, t, u)
+
+    def generate_synthetic_observations(self, generator: torch.Generator, num_points: int = 200,
+                                        noise: float = 0.0) -> None:
+        """Uniform points from ``generator``, the exact solution there at the
+        TRUE coefficients (``coeffs=None`` reads the configured values), plus
+        Gaussian noise of standard deviation ``noise`` from ``generator``."""
+        x, t = sample_uniform(generator, num_points, self.domain, self.time_domain)
+        u = self.exact_solution(x, t, coeffs=None)
+        if u is None:
+            raise ValueError(f"{self.pde_type}: no exact solution to synthesize observations from")
+        if noise > 0:
+            u = u + noise * torch.randn(u.shape, generator=generator, device=generator.device)
+        self.set_observations(x, t, u)
+
+    def _compute_data_loss(self, apply_fn: Callable, params) -> Optional[torch.Tensor]:
+        """The observation misfit; None without observations."""
+        if self.observations is None:
+            return None
+        x_obs, t_obs, u_obs = self.observations
+        pred = apply_fn(params, torch.cat([x_obs, t_obs], dim=-1)).reshape(u_obs.shape[0], -1)
+        return self._loss(pred - u_obs)
+
     def _bc_counts(self, n_colloc: int) -> Tuple[int, int]:
         """(num_boundary_points, num_initial_points) as configured; sized
         from the collocation batch when unconfigured."""
@@ -528,8 +608,10 @@ class PDEBase:
         """All loss components on fresh BC/IC points drawn from ``generator``.
 
         The residual term goes through the fused kernel whenever it is
-        attached, validation included (there the kernel skips its reverse
-        pass); with causal weighting the points reach it sorted by time.
+        attached and no live coefficients are given (``coeffs`` empty, as the
+        JAX package gates it), validation included (there the kernel skips
+        its reverse pass); with causal weighting the points reach it sorted
+        by time. The data term, on the observations, comes after every draw.
         """
         lw = self._loss_weights()
         if float(lw.get("smoothness", 0.0)) > 0:
@@ -564,7 +646,9 @@ class PDEBase:
         initial_loss = self._loss(u_initial - u_target_i)
 
         zero = torch.zeros((), device=x.device)
-        return self._assemble_total(residual_loss, boundary_loss, initial_loss, zero, zero, zero)
+        data_loss = self._compute_data_loss(apply_fn, params)
+        return self._assemble_total(residual_loss, boundary_loss, initial_loss, zero,
+                                    zero if data_loss is None else data_loss, zero)
 
     def _add_velocity_ic(self, losses: Dict[str, torch.Tensor], apply_fn, params,
                          generator: torch.Generator, n_colloc: int, target_fn: Callable):

@@ -69,7 +69,9 @@ class KdVEquation(PDEBase):
             return None
         c = self._speed(coeffs)
         xs = x[:, 0:1] if self.dimension == 1 else torch.sum(x, dim=1, keepdim=True)
-        arg = 0.5 * math.sqrt(c) * (xs - c * t)
+        # A live (trainable) speed is a tensor: its root keeps the gradient.
+        root = torch.sqrt(c) if isinstance(c, torch.Tensor) else math.sqrt(c)
+        arg = 0.5 * root * (xs - c * t)
         return 0.5 * c / torch.cosh(arg) ** 2
 
     def _create_initial_condition(self, params: Dict) -> Callable:

@@ -19,8 +19,12 @@ Every draw comes from an explicit ``torch.Generator``; the deterministic
 part of each method takes its draws as tensors (``_select``, ``_train_on``),
 so the tests feed both packages the same numbers.
 
-Not ported yet: ``CollocationAgent`` (ROADMAP item 13) and saving or loading
-an agent's state (item 9).
+``save_state`` / ``load_state`` keep a state in an ``.npz``: the policy
+and target weights by flax path (``models/bridge.py``), the Adam moments
+and step counts, the replay buffer, epsilon, the episode reward and the
+counters.
+
+Not ported yet: ``CollocationAgent`` (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -270,11 +275,60 @@ class RLAgent:
     # Persistence
     # ------------------------------------------------------------------ #
 
+    _BUFFERS = ("buf_state", "buf_reward", "buf_next", "buf_done", "epsilon", "episode_reward")
+    _COUNTERS = ("ptr", "size", "steps")
+
     def save_state(self, path: str, state: RLAgentState) -> None:
-        raise NotImplementedError("saving the agent's state is not ported yet (ROADMAP item 9)")
+        """``state`` as an ``.npz`` (see the module docstring)."""
+        from pinnrl_tpu_torch.models.bridge import dqn_params_to_flax
+
+        out = {}
+        for tag, net in (("policy", state.policy_params), ("target", state.target_params)):
+            params = dqn_params_to_flax({k: v.detach() for k, v in net.items()})
+            for module, leaves in params.items():
+                for leaf, value in leaves.items():
+                    out[f"{tag}/{module}/{leaf}"] = value
+        opt = state.opt_state
+        for name, p in state.policy_params.items():
+            for key, value in opt.optimizer.state.get(p, {}).items():
+                out[f"adam/{name}/{key}"] = value.detach().cpu().numpy()
+        out["adam_count"] = np.asarray(opt.count)
+        for name in self._BUFFERS:
+            out[name] = getattr(state, name).detach().cpu().numpy()
+        for name in self._COUNTERS:
+            out[name] = np.asarray(getattr(state, name))
+        with open(path, "wb") as f:
+            np.savez(f, **out)
 
     def load_state(self, path: str, template: RLAgentState) -> RLAgentState:
-        raise NotImplementedError("loading the agent's state is not ported yet (ROADMAP item 9)")
+        """Fill ``template`` (a state of this agent, e.g. ``init``'s) in
+        place with what ``save_state`` wrote, and return it."""
+        from pinnrl_tpu_torch.models.bridge import dqn_params_from_flax
+
+        with np.load(path) as data:
+            arrays = {k: data[k] for k in data.files}
+        with torch.no_grad():
+            for tag, net in (("policy", template.policy_params), ("target", template.target_params)):
+                tree: Dict[str, Dict[str, np.ndarray]] = {}
+                for key, value in arrays.items():
+                    if key.startswith(f"{tag}/"):
+                        _, module, leaf = key.split("/")
+                        tree.setdefault(module, {})[leaf] = value
+                for k, v in dqn_params_from_flax(tree).items():
+                    net[k].copy_(v)
+            opt = template.opt_state
+            for name, p in template.policy_params.items():
+                saved = {key.rsplit("/", 1)[1]: v for key, v in arrays.items()
+                         if key.startswith(f"adam/{name}/")}
+                if saved:
+                    opt.optimizer.state[p] = {k: torch.as_tensor(v).to(
+                        p.device if k != "step" else "cpu") for k, v in saved.items()}
+            opt.count = int(arrays["adam_count"])
+            for name in self._BUFFERS:
+                getattr(template, name).copy_(torch.as_tensor(arrays[name]))
+        for name in self._COUNTERS:
+            setattr(template, name, int(arrays[name]))
+        return template
 
 
 class CollocationAgent:

@@ -10,6 +10,23 @@ then rewards the agent on the updated parameters and takes its DQN update.
 Losses stay on the device during an epoch; the host reads them once per
 epoch, and nothing in an Adam step reads a device value back.
 
+In the inverse and data modes the PDE's trainable coefficients
+(``pde.init_coeffs()``, 0-d tensors) are optimized with the network: Adam
+and L-BFGS take them as leaves beside the network's (first, as
+``jax.tree_util`` orders ``{"coeffs", "net"}``), clipping takes the global
+norm over both, and every loss, RAR score, RL reward and validation loss
+reads them live. The epoch's host read also takes their values
+(``history["param_<name>"]``).
+
+Given ``experiment_dir``, ``train`` writes the JAX package's
+experiment-directory protocol (``utils/io.py``): ``.running`` (removed at
+the end and on failure), ``visualizations/``, ``config.yaml`` (the
+``to_dict()`` snapshot as JSON text, which YAML readers take as is),
+``metadata.json``, ``experiment.log``, and at each validation
+``history.json``, ``metrics.json`` and ``live_snapshot.npz``; at the end
+the final model as ``final_model.npz`` (flax path names) and the agent's
+state as ``rl_agent.npz``.
+
 ``optimizer="adam_lbfgs"`` switches at ``int(adam_lbfgs_switch_ratio *
 num_epochs)`` to one L-BFGS iteration per epoch (``training/lbfgs.py``) on
 a deterministic objective: one fixed uniform batch of ``lbfgs.batch_size``
@@ -21,16 +38,20 @@ ends of the JAX package's chunks: every ``validation_frequency`` epochs,
 counted afresh from the switch and from each resample round.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-float64 residuals (item 8b), adaptive loss weights, EMA, ensembles, inverse
-mode and hard-IC (item 13), the plateau scheduler, profiling, experiment
-directories and checkpoints (item 9), and device meshes (item 14).
+float64 residuals (item 8b), adaptive loss weights, EMA, ensembles and
+hard-IC (item 13), the plateau scheduler, profiling, checkpoints and resume
+(item 9), the plots and report of an experiment directory (items 14 and
+11; logged, not raised), and device meshes (item 14).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import time
+from datetime import datetime
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -40,6 +61,11 @@ from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.models import PINNModel
 from pinnrl_tpu_torch.pdes.base import PDEBase
 from pinnrl_tpu_torch.training.lbfgs import LBFGS
+from pinnrl_tpu_torch.utils.io import (
+    save_live_snapshot,
+    save_training_metrics,
+    write_config_snapshot,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -68,7 +94,9 @@ class AdamStep:
 
     Clipping follows optax: scale = min(1, max_norm / ||g||) with no
     epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). The scale stays
-    on the device, so a step does not wait for the host.
+    on the device, so a step does not wait for the host. A leaf that got no
+    gradient steps with a zero one, as optax treats it (torch's optimizers
+    would skip it).
     """
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float],
@@ -85,6 +113,9 @@ class AdamStep:
         return self.optimizer.state_dict()
 
     def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         scale = torch.clamp(self.clip_norm / norm, max=1.0)
@@ -113,8 +144,6 @@ class PDETrainer:
             raise _unported("EMA weight averaging", 13)
         if int(t.ensemble_size) > 1:
             raise _unported("deep ensembles", 13)
-        if t.mode != "forward":
-            raise _unported(f"training mode {t.mode!r}", 13)
         if getattr(config.model, "hard_ic", False):
             raise _unported("the hard-IC output transform", 13)
         if t.scheduler_type == "reduce_lr":
@@ -138,6 +167,9 @@ class PDETrainer:
         self.fused_kernel_active = pde.attach_fused_residual_kernel(
             model, enable=t.get("fused_residual_kernel", "auto")
         )
+        # The live trainable coefficients (empty in forward mode); train()
+        # restarts them from the initial guesses.
+        self.coeffs = self._init_coeffs()
         self.history: Dict[str, Any] = {
             "train_loss": [],
             "val_loss": [],
@@ -145,6 +177,16 @@ class PDETrainer:
             "epoch_time": [],
             "loss_components": {k: [] for k in _COMPONENTS},
         }
+        for name in pde.trainable_parameters:
+            self.history[f"param_{name}"] = []
+
+    def _init_coeffs(self) -> Dict[str, torch.Tensor]:
+        return {k: v.requires_grad_(True) for k, v in self.pde.init_coeffs().items()}
+
+    def _leaves(self, params: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """What the optimizers update: the coefficients (by name), then the
+        network's leaves."""
+        return [self.coeffs[k] for k in sorted(self.coeffs)] + list(params.values())
 
     # ------------------------------------------------------------------ #
     # Optimizer construction
@@ -193,12 +235,13 @@ class PDETrainer:
     # ------------------------------------------------------------------ #
 
     def _loss_components(self, params: Dict[str, torch.Tensor], x, t, generator):
-        return self.pde.compute_loss(self.model.apply, params, x, t, coeffs={}, generator=generator)
+        return self.pde.compute_loss(self.model.apply, params, x, t, coeffs=self.coeffs,
+                                     generator=generator)
 
     def _sample(self, generator: torch.Generator, n: int, params: Dict[str, torch.Tensor]):
         if self.strategy == "residual_based":
             def residual_fn(xx, tt):
-                return self.pde.residual_score(self.model.apply, params, xx, tt)
+                return self.pde.residual_score(self.model.apply, params, xx, tt, self.coeffs)
 
             with torch.no_grad():
                 return self.pde.generate_collocation_points(generator, n, "residual_based",
@@ -221,7 +264,8 @@ class PDETrainer:
         n_push = min(128, x.shape[0])
         with torch.no_grad():
             pts = torch.cat([x[:n_push], t[:n_push]], dim=-1)
-            res = self.pde.residual_score(self.model.apply, params, x[:n_push], t[:n_push])
+            res = self.pde.residual_score(self.model.apply, params, x[:n_push], t[:n_push],
+                                          self.coeffs)
             reward = self.rl_agent.compute_reward(res, losses["boundary"].detach(),
                                                   losses["initial"].detach())
         done = torch.ones((), device=x.device)
@@ -276,8 +320,6 @@ class PDETrainer:
     def train(self, num_epochs: Optional[int] = None, batch_size: Optional[int] = None,
               num_points: Optional[int] = None, experiment_dir: Optional[str] = None,
               seed: int = 0, resume_from: Optional[str] = None) -> Dict[str, Any]:
-        if experiment_dir is not None:
-            raise _unported("experiment directories", 9)
         if resume_from is not None:
             raise _unported("checkpoint resume", 9)
         t = self.tcfg
@@ -295,8 +337,22 @@ class PDETrainer:
         self.switch_epoch = (int(t.adam_lbfgs_switch_ratio * num_epochs)
                              if self.optimizer_name == "adam_lbfgs" else None)
 
+        exp = Path(experiment_dir) if experiment_dir else None
+        log_handler = None
+        if exp:
+            exp.mkdir(parents=True, exist_ok=True)
+            (exp / "visualizations").mkdir(exist_ok=True)
+            (exp / ".running").touch()
+            if not (exp / "config.yaml").exists():
+                write_config_snapshot(exp / "config.yaml", self.config)
+            self._write_metadata(exp, status="running", num_epochs=num_epochs, identified=False)
+            log_handler = logging.FileHandler(exp / "experiment.log")
+            logger.addHandler(log_handler)
+
         params = self.model.params
-        leaves = list(params.values())
+        self.coeffs = self._init_coeffs()
+        leaves = self._leaves(params)
+        names = list(self.pde.trainable_parameters)
         lbfgs_mode = self.optimizer_name == "lbfgs"
         # Phase-1 Adam anneals its cosine over its own phase.
         adam_epochs = self.switch_epoch or num_epochs
@@ -320,83 +376,166 @@ class PDETrainer:
         val_every = max(int(t.validation_frequency), 1)
         epoch = 0
         stop = False
-        while epoch < num_epochs and not stop:
-            if not switched and epoch >= self.switch_epoch:
-                switched = True
-                steps_per_epoch = 1
-                logger.info("Switching optimizer: adam -> %s at epoch %d", t.phase2_optimizer, epoch)
-                if t.phase2_optimizer == "lbfgs":
-                    opt, lbfgs_mode = self._make_lbfgs(leaves), True
-                else:
-                    # Fresh batches and a fresh Adam, its cosine to 0 over the rest.
-                    batch_size = lbfgs_bs
-                    opt = AdamStep(leaves, cosine_decay(t.phase2_learning_rate,
-                                                        max(num_epochs - epoch, 1), 0.0),
-                                   t.gradient_clip_norm, 0.9, 0.999, 0.0)
-            if lbfgs_mode:
-                done_in_phase = epoch - phase_start
-                if batch is None or (resample and done_in_phase > 0 and done_in_phase % resample == 0):
-                    if batch is not None:
-                        opt = self._make_lbfgs(leaves)  # a new round restarts the optimizer
-                    batch = self._lbfgs_batch(seed, done_in_phase // resample if resample else 0,
-                                              lbfgs_bs)
-            # Validation ends each chunk of the JAX package's loop: every
-            # validation_frequency epochs, clipped at the switch and at rounds.
-            chunk = min(val_every, num_epochs - epoch)
-            if not switched:
-                chunk = min(chunk, max(self.switch_epoch - epoch, 1))
-            if lbfgs_mode and resample:
-                next_round = phase_start + ((epoch - phase_start) // resample + 1) * resample
-                chunk = min(chunk, max(next_round - epoch, 1))
-            for _ in range(chunk):
-                t0 = time.time()
+        try:
+            while epoch < num_epochs and not stop:
+                if not switched and epoch >= self.switch_epoch:
+                    switched = True
+                    steps_per_epoch = 1
+                    logger.info("Switching optimizer: adam -> %s at epoch %d",
+                                t.phase2_optimizer, epoch)
+                    if t.phase2_optimizer == "lbfgs":
+                        opt, lbfgs_mode = self._make_lbfgs(leaves), True
+                    else:
+                        # Fresh batches and a fresh Adam, its cosine to 0 over the rest.
+                        batch_size = lbfgs_bs
+                        opt = AdamStep(leaves, cosine_decay(t.phase2_learning_rate,
+                                                            max(num_epochs - epoch, 1), 0.0),
+                                       t.gradient_clip_norm, 0.9, 0.999, 0.0)
                 if lbfgs_mode:
-                    per_step = [self._lbfgs_step(params, opt, batch, gen) for _ in range(steps_per_epoch)]
-                else:
-                    per_step = [self._step(params, opt, gen, batch_size) for _ in range(steps_per_epoch)]
-                if self.rl_agent is not None:
-                    # Once per epoch, so exploration anneals over the run's horizon.
-                    self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
-                means = torch.stack(per_step).mean(dim=0).tolist()  # one host read per epoch
-                self.history["train_loss"].append(means[0])
-                for k, v in zip(_COMPONENTS, means[1:]):
-                    self.history["loss_components"][k].append(v)
-                self.history["epoch_time"].append(time.time() - t0)
-                # As the JAX package records it: the phase-1 schedule at the
-                # epoch's end, after the switch too (ROADMAP queue 3).
-                self.history["learning_rate"].append(lr_schedule((epoch + 1) * steps_per_epoch))
-                epoch += 1
-                if not np.isfinite(means[0]):
-                    logger.warning("Non-finite loss at epoch %d; stopping", epoch)
-                    status = "failed"
-                    stop = True
-                    break
-            if stop:
-                break
-            val_loss = self._val_loss(params, val_gen)
-            self.history["val_loss"].append(val_loss)
-            logger.info("epoch %d/%d train=%.4e val=%.4e", epoch, num_epochs,
-                        self.history["train_loss"][-1], val_loss)
-            if es.enabled:
-                if val_loss < best_val - es.min_delta:
-                    best_val, patience_count = val_loss, 0
-                else:
-                    patience_count += 1
-                    if patience_count >= es.patience:
-                        logger.info("Early stopping at epoch %d", epoch)
+                    done_in_phase = epoch - phase_start
+                    if batch is None or (resample and done_in_phase > 0
+                                         and done_in_phase % resample == 0):
+                        if batch is not None:
+                            opt = self._make_lbfgs(leaves)  # a new round restarts the optimizer
+                        batch = self._lbfgs_batch(
+                            seed, done_in_phase // resample if resample else 0, lbfgs_bs)
+                # Validation ends each chunk of the JAX package's loop: every
+                # validation_frequency epochs, clipped at the switch and at rounds.
+                chunk = min(val_every, num_epochs - epoch)
+                if not switched:
+                    chunk = min(chunk, max(self.switch_epoch - epoch, 1))
+                if lbfgs_mode and resample:
+                    next_round = phase_start + ((epoch - phase_start) // resample + 1) * resample
+                    chunk = min(chunk, max(next_round - epoch, 1))
+                for _ in range(chunk):
+                    t0 = time.time()
+                    if lbfgs_mode:
+                        per_step = [self._lbfgs_step(params, opt, batch, gen)
+                                    for _ in range(steps_per_epoch)]
+                    else:
+                        per_step = [self._step(params, opt, gen, batch_size)
+                                    for _ in range(steps_per_epoch)]
+                    if self.rl_agent is not None:
+                        # Once per epoch, so exploration anneals over the run's horizon.
+                        self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
+                    row = torch.stack(per_step).mean(dim=0)
+                    if names:
+                        row = torch.cat([row, torch.stack([self.coeffs[k].detach() for k in names])])
+                    values = row.tolist()  # one host read per epoch
+                    means, coeff_values = values[:1 + len(_COMPONENTS)], values[1 + len(_COMPONENTS):]
+                    self.history["train_loss"].append(means[0])
+                    for k, v in zip(_COMPONENTS, means[1:]):
+                        self.history["loss_components"][k].append(v)
+                    for k, v in zip(names, coeff_values):
+                        self.history[f"param_{k}"].append(v)
+                    self.history["epoch_time"].append(time.time() - t0)
+                    # As the JAX package records it: the phase-1 schedule at the
+                    # epoch's end, after the switch too (ROADMAP queue 3).
+                    self.history["learning_rate"].append(lr_schedule((epoch + 1) * steps_per_epoch))
+                    epoch += 1
+                    if not np.isfinite(means[0]):
+                        logger.warning("Non-finite loss at epoch %d; stopping", epoch)
+                        status = "failed"
                         stop = True
+                        break
+                if stop:
+                    break
+                val_loss = self._val_loss(params, val_gen)
+                self.history["val_loss"].append(val_loss)
+                logger.info("epoch %d/%d train=%.4e val=%.4e", epoch, num_epochs,
+                            self.history["train_loss"][-1], val_loss)
+                if exp:
+                    save_training_metrics(exp, self.history)
+                    self._write_metadata(exp, status="running", num_epochs=num_epochs,
+                                         current_epoch=epoch)
+                    save_live_snapshot(exp, self.pde, self.model,
+                                       {"net": params, "coeffs": self.coeffs}, grid=60)
+                if es.enabled:
+                    if val_loss < best_val - es.min_delta:
+                        best_val, patience_count = val_loss, 0
+                    else:
+                        patience_count += 1
+                        if patience_count >= es.patience:
+                            logger.info("Early stopping at epoch %d", epoch)
+                            stop = True
+        except Exception:
+            if exp:
+                (exp / ".running").unlink(missing_ok=True)
+            raise
+        finally:
+            # Detach the run's log handler: one per call would pile up.
+            if log_handler is not None:
+                logger.removeHandler(log_handler)
+                log_handler.close()
 
-        self._final_state = {
-            "params": {"net": params, "coeffs": {}},
-            "opt_state": opt.state_dict(),
-            "rl": self._rl_state,
-        }
-        return {
+        wall = time.time() - start_time
+        identified = self.pde.canonicalize_coeffs(
+            self.pde.get_trainable_parameter_values(self.coeffs))
+        result = {
             "history": self.history,
             "final_train_loss": self.history["train_loss"][-1] if self.history["train_loss"] else None,
             "best_val_loss": best_val if best_val < float("inf") else None,
-            "identified_parameters": {},
+            "identified_parameters": identified,
             "true_parameters": self.pde.true_parameters,
-            "wall_time_s": time.time() - start_time,
+            "wall_time_s": wall,
             "status": status,
         }
+        if exp:
+            if self.config.evaluation.save_plots:
+                logger.info("evaluation.save_plots: the plots and report.html (ROADMAP item 14) "
+                            "and heat's fdm_comparison.json (item 11) are not ported yet")
+            save_training_metrics(exp, self.history)
+            self._write_metadata(exp, status=status, num_epochs=num_epochs,
+                                 current_epoch=len(self.history["train_loss"]), wall_time_s=wall)
+            self.model.save_state(str(exp / "final_model.npz"))
+            if self.rl_agent is not None:
+                self.rl_agent.save_state(str(exp / "rl_agent.npz"), self._rl_state)
+            (exp / ".running").unlink(missing_ok=True)
+        self._final_state = {
+            "params": {"net": params, "coeffs": self.coeffs},
+            "opt_state": opt.state_dict(),
+            "rl": self._rl_state,
+        }
+        return result
+
+    # ------------------------------------------------------------------ #
+    # Experiment metadata
+    # ------------------------------------------------------------------ #
+
+    def _write_metadata(self, exp: Path, status: str, num_epochs: int, current_epoch: int = 0,
+                        wall_time_s: Optional[float] = None, identified: bool = True) -> None:
+        """metadata.json, merged into what is there, with the JAX package's
+        keys; ``identified_parameters`` reads the live coefficients (not
+        before the first epoch, as in the JAX package)."""
+        meta_path = exp / "metadata.json"
+        meta = {}
+        if meta_path.exists():
+            try:
+                meta = json.loads(meta_path.read_text())
+            except ValueError:
+                meta = {}
+        meta.update({
+            "status": status,
+            "pde_type": self.pde.pde_type,
+            "architecture": self.model.architecture_name,
+            "mode": self.tcfg.mode,
+            "optimizer": self.optimizer_name,
+            "rl_enabled": self.rl_agent is not None,
+            "sampling_strategy": self.strategy,
+            "num_epochs": num_epochs,
+            "current_epoch": current_epoch,
+            "parameters": {
+                k: (list(v) if isinstance(v, (list, tuple))
+                    else v if isinstance(v, (str, bool)) else float(v))
+                for k, v in self.pde.parameters.items()
+            },
+            "trainable_parameters": self.pde.trainable_parameters,
+            "true_parameters": self.pde.true_parameters,
+            "timestamp": datetime.now().isoformat(),
+            "num_model_parameters": self.model.count_parameters(),
+        })
+        if identified and self.coeffs:
+            meta["identified_parameters"] = self.pde.get_trainable_parameter_values(self.coeffs)
+        if wall_time_s is not None:
+            meta["wall_time_s"] = wall_time_s
+        meta_path.write_text(json.dumps(meta, indent=2, default=str))

@@ -28,7 +28,9 @@ def test_port_imports_without_jax():
         "        'pinnrl_tpu_torch.ops.kernels.siren', 'pinnrl_tpu_torch.models.siren',\n"
         "        'pinnrl_tpu_torch.ops.derivatives', 'pinnrl_tpu_torch.pdes.heat',\n"
         "        'pinnrl_tpu_torch.training.lbfgs', 'pinnrl_tpu_torch.pdes.cahn_hilliard',\n"
-        "        'pinnrl_tpu_torch.models.attention'} <= set(mods)\n"
+        "        'pinnrl_tpu_torch.models.attention', 'pinnrl_tpu_torch.training.train',\n"
+        "        'pinnrl_tpu_torch.benchmarks.inverse', 'pinnrl_tpu_torch.benchmarks.cli',\n"
+        "        'pinnrl_tpu_torch.utils.io'} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
@@ -195,4 +197,4 @@ def test_unported_features_raise():
         setattr(cfg.training, field, old)
     trainer = PDETrainer(model, pde, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        trainer.train(num_epochs=1, experiment_dir="unused")
+        trainer.train(num_epochs=1, resume_from="unused")

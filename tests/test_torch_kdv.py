@@ -99,7 +99,7 @@ def test_harness_raises_for_what_is_not_ported():
     with pytest.raises(KeyError, match="unknown convergence recipe"):
         convergence.build_recipe_config("no_such_recipe", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        convergence.run_convergence("kdv", epochs=1, experiment_dir="unused", device="cpu")
+        convergence.run_convergence("kdv", epochs=1, resume_from="unused", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         convergence.run_time_marching("kdv")
 

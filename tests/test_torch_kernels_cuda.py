@@ -31,7 +31,10 @@ kernels 1e-5 relative to max per stacked tensor and its residual kernels
 biharmonic recipe's network (its basis's t-row zero) at 1e-4 x 10^(k-1)
 relative to max at order k, and the direct (order-4) residual, its loss and
 each parameter gradient through kernel 2 at 1e-3 relative to max (the
-bound of the order-3 residual loss's gradients through kernel 3).
+bound of the order-3 residual loss's gradients through kernel 3). The heat
+inverse recipe: its loss (data term included) 1e-5 relative and its
+gradients (alpha's and every leaf's) 1e-4 relative to max through kernel 2
+against the plain version, as kernel 1's loss and gradients.
 """
 
 import numpy as np
@@ -1040,3 +1043,45 @@ def test_cahn_hilliard_direct_residual_gradients_through_kernel2(cuda_device):
     assert abs(float(l_k) - float(l_p)) / abs(float(l_p)) < 1e-3
     for a, b in zip(g_k, g_p):
         assert _rel(a, b) < 1e-3
+
+
+def test_heat_inverse_loss_and_coefficient_gradient_through_kernel2(cuda_device):
+    """The heat inverse recipe's loss on 2000 noisy observations and its
+    gradients with respect to alpha and the network, with kernel 2 and with
+    its plain version on the same points; kernel 2 launches three times per
+    loss (IC, periodic faces, data) and runs its jvp rule once."""
+    from pinnrl_tpu_torch.benchmarks.inverse import build_inverse_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    cfg = build_inverse_config("heat", epochs=1, device="cuda")
+    pde = create_pde(cfg)
+    pde.generate_synthetic_observations(torch.Generator(device=cuda_device).manual_seed(1000),
+                                        2000, 0.01)
+    tr = PDETrainer(PINNModel(cfg, seed=0), pde, cfg)
+    assert not tr.fused_kernel_active and sorted(tr.coeffs) == ["alpha"]
+    params = tr.model.params
+    x, t = pde.generate_collocation_points(torch.Generator(device=cuda_device).manual_seed(2),
+                                           4096, "uniform")
+
+    def loss_and_grads():
+        losses = tr._loss_components(params, x, t, torch.Generator(device=cuda_device).manual_seed(3))
+        return losses, torch.autograd.grad(losses["total"], tr._leaves(params))
+
+    ff = fourier_feats.fourier_features
+    launches, jvps = ff.launches, ff.jvps
+    l_k, g_k = loss_and_grads()
+    torch.cuda.synchronize()
+    assert (ff.launches - launches, ff.jvps - jvps) == (3, 1)
+    fourier_feats.fourier_features = fourier_feats.fourier_features_plain
+    try:
+        l_p, g_p = loss_and_grads()
+    finally:
+        fourier_feats.fourier_features = ff
+    for k in ("total", "data", "boundary", "initial", "residual"):
+        assert abs(float(l_k[k]) - float(l_p[k])) <= 1e-5 * abs(float(l_p[k])), k
+    assert float(l_k["data"]) > 0
+    for a, b in zip(g_k, g_p):
+        assert _rel(a, b) < 1e-4

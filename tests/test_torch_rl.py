@@ -266,14 +266,31 @@ def test_update_epsilon_follows_the_jax_schedule():
     assert float(tstate.epsilon) == pytest.approx(0.05)
 
 
-def test_unported_agent_parts_raise():
-    _, _, tagent, tstate = agent_pair()
+def test_unported_agent_parts_raise(tmp_path):
+    """CollocationAgent still raises; saving and loading an agent's state is
+    ported: a state after a few updates round-trips exactly (weights,
+    Adam moments and counts, replay buffer, epsilon, counters)."""
+    _, _, tagent, tstate = agent_pair(batch=8)
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         CollocationAgent()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tagent.save_state("unused", tstate)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tagent.load_state("unused", tstate)
+    gen = torch.Generator().manual_seed(2)
+    for _ in range(3):
+        s = torch.rand((8, 2), generator=gen)
+        tstate = tagent.update(tstate, s, torch.rand(8, generator=gen), s, torch.ones(()), gen)
+    tstate = tagent.update_epsilon(tstate)
+    tagent.save_state(str(tmp_path / "rl_agent.npz"), tstate)
+    loaded = tagent.load_state(str(tmp_path / "rl_agent.npz"),
+                               tagent.init(torch.Generator().manual_seed(9)))
+    for tag in ("policy_params", "target_params"):
+        for k, v in getattr(tstate, tag).items():
+            assert torch.equal(getattr(loaded, tag)[k], v), (tag, k)
+    for name in ("buf_state", "buf_reward", "buf_next", "buf_done", "epsilon", "episode_reward"):
+        assert torch.equal(getattr(loaded, name), getattr(tstate, name)), name
+    assert (loaded.ptr, loaded.size, loaded.steps) == (tstate.ptr, tstate.size, tstate.steps)
+    assert loaded.opt_state.count == tstate.opt_state.count == 3  # a batch of 8 from the first update on
+    saved_opt, new_opt = tstate.opt_state.optimizer.state, loaded.opt_state.optimizer.state
+    for p, q in zip(tstate.policy_params.values(), loaded.policy_params.values()):
+        assert all(torch.equal(saved_opt[p][k], new_opt[q][k]) for k in saved_opt[p])
 
 
 def test_one_rl_step_matches_jax(monkeypatch):

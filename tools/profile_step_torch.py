@@ -3,7 +3,8 @@
 CUDA card.
 
     python3 tools/profile_step_torch.py [--steps 20] [--profiled 10] [--out chiprun_out/profile]
-        [--rl | --kdv | --siren-kdv | --heat | --recipe KEY [--alternate ROUNDS]] [--lbfgs]
+        [--rl | --kdv | --siren-kdv | --heat | --recipe KEY [--alternate ROUNDS]
+         | --inverse KEY] [--lbfgs]
 
 For the Burgers recipe slice of ``chip_smoke.py`` (Fourier 256x3, mapping
 128, batch 8192, BC/IC 4096), once with the hand-written kernels and once on
@@ -37,7 +38,12 @@ batch 4096), ``cahn_hilliard_dynamics`` (Fourier 256x3, the mixed form with
 its mass and mu-H2 penalties, causal) and ``cahn_hilliard_biharmonic``
 (Fourier 128x3, mapping 64, the direct form: four nested jvps, batch 4096)
 run the residual on the generic engine (nested jvp), kernel 2 inside the
-Fourier recipes' jvps through its rule. With
+Fourier recipes' jvps through its rule. ``--inverse heat`` or
+``black_scholes`` is a step of that inverse recipe
+(``benchmarks/inverse.py``: Fourier 128x3, mapping 64, batch 4096, BC/IC
+2048, 2000 observations at 1% noise; alpha, or sigma and r, optimized with
+the network; kernel 1 off, the residual on the plain bundle; plain = kernel
+2's plain version). With
 ``--lbfgs`` it is one L-BFGS iteration of the recipe's second phase
 (``training/lbfgs.py``: memory 50, zoom line search) on one fixed batch of
 all the recipe's collocation points (40000; 4096 for the biharmonic) and fixed BC/IC points, from a fresh optimizer
@@ -103,13 +109,13 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
     params = trainer.model.params
     gen = torch.Generator(device=dev).manual_seed(7)
     if lbfgs:
-        opt = trainer._make_lbfgs(list(params.values()))
+        opt = trainer._make_lbfgs(trainer._leaves(params))
         batch = trainer._lbfgs_batch(7, 0, cfg.training.num_collocation_points)
 
         def step():
             trainer._lbfgs_step(params, opt, batch, gen)
     else:
-        opt = trainer._make_adam(cfg.training.num_epochs, steps_per_epoch, list(params.values()))
+        opt = trainer._make_adam(cfg.training.num_epochs, steps_per_epoch, trainer._leaves(params))
 
         def step():
             trainer._step(params, opt, gen, cfg.training.batch_size)
@@ -181,7 +187,7 @@ def alternate(trainer, cfg, label: str, rounds: int, steps: int, card: str, lbfg
     params = trainer.model.params
     gen = torch.Generator(device=trainer.device).manual_seed(7)
     if lbfgs:
-        opt = trainer._make_lbfgs(list(params.values()))
+        opt = trainer._make_lbfgs(trainer._leaves(params))
         batch = trainer._lbfgs_batch(7, 0, cfg.training.num_collocation_points)
 
         def step():
@@ -260,6 +266,8 @@ def main() -> int:
                                            "cahn_hilliard", "cahn_hilliard_dynamics",
                                            "cahn_hilliard_biharmonic"),
                       help="profile a step of this recipe (kernel 1 off its path)")
+    kind.add_argument("--inverse", choices=("heat", "black_scholes"),
+                      help="profile a step of this inverse recipe (kernel 1 off its path)")
     ap.add_argument("--alternate", type=int, default=0, metavar="ROUNDS",
                     help="with --recipe: kernel 2 and its plain version in turns on one trainer")
     ap.add_argument("--lbfgs", action="store_true",
@@ -273,22 +281,29 @@ def main() -> int:
         print("profile_step_torch: no CUDA card", file=sys.stderr)
         return 2
     from chip_smoke import (burgers_recipe_config, heat_recipe_config, kdv_recipe_config,
-                            make_agent, nvidia_smi_line, plain_fourier_features, plain_mlp_score,
+                            nvidia_smi_line, plain_fourier_features, plain_mlp_score,
                             plain_siren, siren_kdv_config)
     from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.benchmarks.inverse import RECIPES as INVERSE_RECIPES
+    from pinnrl_tpu_torch.benchmarks.inverse import build_inverse_config
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.pdes import create_pde
     from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.train import make_agent
 
     card = nvidia_smi_line()
     out = Path(args.out)
     results = []
     prefix = ("lbfgs_" if args.lbfgs else "") + (
         "rl_" if args.rl else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
-        else "heat_" if args.heat else f"{args.recipe}_" if args.recipe else "")
+        else "heat_" if args.heat else f"{args.recipe}_" if args.recipe
+        else f"inverse_{args.inverse}_" if args.inverse else "")
     configs = {"kdv_": kdv_recipe_config, "siren_kdv_": siren_kdv_config, "heat_": heat_recipe_config}
     if args.recipe:
         configs[f"{args.recipe}_"] = lambda device: build_recipe_config(args.recipe, device=device)
+    if args.inverse:
+        configs[f"inverse_{args.inverse}_"] = lambda device: build_inverse_config(args.inverse,
+                                                                                  device=device)
     if args.alternate:
         if not args.recipe:
             ap.error("--alternate needs --recipe")
@@ -303,14 +318,19 @@ def main() -> int:
         return 0
     # Kernel 1 takes neither the SIREN, nor a residual second order in time,
     # nor Cahn-Hilliard.
-    kernel1 = not (args.siren_kdv or args.recipe)
+    kernel1 = not (args.siren_kdv or args.recipe or args.inverse)
     for label in ("kernels", "plain"):
         cfg = configs.get(prefix.removeprefix("lbfgs_"), burgers_recipe_config)("cuda")
         cfg.rl.enabled = args.rl
         if label == "plain":
             cfg.training.fused_residual_kernel = "off"
         agent = make_agent(cfg) if args.rl else None
-        trainer = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, rl_agent=agent)
+        pde = create_pde(cfg)
+        if args.inverse:
+            obs = INVERSE_RECIPES[args.inverse]["obs"]
+            pde.generate_synthetic_observations(torch.Generator(device="cuda").manual_seed(1000),
+                                                obs["num_points"], obs["noise"])
+        trainer = PDETrainer(PINNModel(cfg, seed=0), pde, cfg, rl_agent=agent)
         if trainer.fused_kernel_active != (label == "kernels" and kernel1):
             raise AssertionError(f"{label}: fused_kernel_active={trainer.fused_kernel_active}")
         if agent is not None:
