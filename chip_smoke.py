@@ -208,6 +208,31 @@ Phases (each raises on failure, and the script then exits non-zero):
                the live snapshot), kernel 1 at 512x4 against its plain
                version, ``final_model.npz`` and ``rl_agent.npz`` loaded back;
                then ``benchmarks.cli inverse --pde heat --epochs 4 --csv``.
+ 31. sampling — ``benchmarks/sampling.py``'s ``run_sampling_benchmark`` at
+               the harness's own width (64x3 Fourier MLP, mapping 32; DQN
+               hidden 64, replay 4096, batch 64), batch 1024: Burgers under
+               every strategy, ``adaptive[resfeat_improve]`` and a
+               ``windows=2`` run, and wave (kernel 2's jvp rule), 30 and 12
+               steps: kernel 1 never, kernel 4 once per adaptive step,
+               kernel 2 per BC/IC loss and per ``_evaluate`` (the warm-up
+               copy's steps counted too), each strategy's loss falling; ms
+               per step, points/s and host syncs per step per strategy;
+               kernel 4 at (10000, 2) and (10000, 3) -> 64 on the harness's
+               agents and kernel 2 at mapping 32 on its BC, IC and
+               evaluation rows against their plain versions (and kernel 2's
+               jvp rule at orders 1-2), timed by CUDA-graph replay beside
+               the bound and, for kernel 4, cuBLAS's three products.
+ 32. fdm     — ``benchmarks.cli fdm --pde all`` on the card; each solve's
+               L2 error and field against a CPU run of the same solve;
+               both stability guards raise.
+ 33. operator — in a temporary ``PINNRL_WELL_CACHE``: the point-wise
+               ``run_operator_benchmark("synthetic_heat_2d")`` (the
+               registry's FNO 256x4, 16 modes, 8192 points, 6 epochs; no
+               kernel; the training loss falls), the gridded run (width 32,
+               12 modes, 4 blocks, 40 steps, a 96^2 transfer row),
+               ``GridFNO2D`` on the card against the CPU on the same weights
+               (48^2 and 96^2), and ``training.train --pde heat_2d
+               --dataset synthetic_heat_2d --epochs 2``.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -265,7 +290,10 @@ errors, Adam-step ms), phase 29's ``data_augmented_launches`` and phase
 30's ``cli_launches``; kernel 1's also ``inverse_launches`` (0),
 ``data_augmented`` (per mode) and its parity there, ``cli_launches`` and
 ``shipped_fourier_512`` (its parity on the shipped trunk); kernel 4's
-``cli_launches``; kernel
+``cli_launches``, and ``sampling`` (phase 31: its shapes' parity and
+timings, its launches per run); kernel 2's ``sampling`` the same and the
+harness's rows; kernel 1's ``sampling_launches`` and ``operator_launches``
+(0); kernel
 3's carries ``blocks``, the thread blocks it launches at (2048, 124) -> 124,
 and phase 24's ``wave_launches``, ``wave_max_abs_err`` and
 ``shipped_second_order``, and phases 25 and 27's ``cahn_hilliard_launches``;
@@ -275,7 +303,8 @@ launch's own grid, ``ms_gemm_blocks``), and phase 9's A/Bs
 ``product_ab_ms`` and ``split_ab_ms``. Kernel 2's carries ``floor_ms`` (the
 empty kernel on its grid), ``shapes`` (ms, plain, eager and bound at each
 shape timed), ``host_us`` (the split of its eager call) and ``ptxas``.
-The last line is ``{"ok": true, "device": {...}}``. Imports no JAX.
+A ``[harnesses]`` line before it carries phases 31-33's rows. The last
+line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -423,6 +452,27 @@ DATA_AUG_EPOCHS = 6
 DATA_AUG_OBS = 2000
 # Phase 30: the training CLI, 4 epochs of 2 Adam steps (batch 2048 of 5000).
 CLI_EPOCHS = 4
+# Phase 31: the sampling harness (``benchmarks/sampling.py``) at its own
+# width (64x3, mapping 32; DQN hidden 64, replay 4096, batch 64), batch 1024:
+# (pde, strategy, windows), SAMPLING_EPOCHS steps each, after the harness's
+# warm-up copy. Kernel 2 per step (launches, jvp-rule calls): Burgers BC and
+# IC; wave BC, IC and the velocity IC through the rule; one launch per
+# ``_evaluate``.
+SAMPLING_BATCH = 1024
+SAMPLING_EPOCHS = {"burgers": 30, "wave": 12}
+SAMPLING_CASES = (("burgers", "uniform", 0), ("burgers", "stratified", 0),
+                  ("burgers", "residual_based", 0), ("burgers", "adaptive", 0),
+                  ("burgers", "adaptive[resfeat_improve]", 0), ("burgers", "adaptive", 2),
+                  ("wave", "uniform", 0))
+SAMPLING_FF_PER_STEP = {"burgers": (2, 0), "wave": (3, 1)}
+# Phase 32: the FDM L2 errors and fields, card against CPU.
+FDM_TOL = 1e-5
+# Phase 33: the point-wise operator run's epochs (2 steps of 4096 each) and
+# the gridded run's steps; GridFNO2D card against CPU, rel to max (cuFFT and
+# pocketfft sum in other orders).
+OPERATOR_EPOCHS = 6
+GRIDDED_EPOCHS = 40
+GRID_FNO_TOL = 1e-5
 CLI_FILES = {"config.yaml", "experiment.log", "final_model.json", "final_model.npz",
              "history.json", "live_snapshot.npz", "metadata.json", "metrics.json",
              "visualizations"}
@@ -1590,6 +1640,359 @@ def cli_runs(dev, card: str):
                 "rel_error,epochs,noise,wall_time_s,seed" and lines[1].startswith("heat,alpha,")):
             raise AssertionError(f"benchmarks.cli inverse: rc {rc}, {lines}")
     return runs
+
+
+def _mlp_bound(n: int, d: int, h: int, params):
+    """(ms, what bounds it) of one scorer call on (n, d) points, width h:
+    its three products and LayerNorm / ReLU work; the grid, the weights and
+    the scores moved once."""
+    return bound(2.0 * n * (d * h + h * h + h) + 2 * 8.0 * n * h,
+                 4.0 * (n * d + sum(v.numel() for v in params.values()) + n))
+
+
+def _ff_bound(n: int, d: int, m: int):
+    return bound(2.0 * n * d * m + 3.0 * n * m, 4.0 * (n * d + d * m + 2 * n * m))
+
+
+def sampling_runs(dev, card: str):
+    """Phase 31 (see the module docstring): the sampling harness's
+    strategies, their exact launches, falling losses, ms per step, points/s
+    and host syncs per step; kernel 4 at h = 64, d = 2 and 3, and kernel 2
+    at mapping 32 on the harness's own shapes and weights."""
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks import sampling
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp
+    from pinnrl_tpu_torch.sampling import make_grid
+
+    ff = fourier_feats.fourier_features
+    counters = {"fused_residual_loss": fused_step.fused_residual_loss, "fourier_features": ff,
+                "fused_mlp_score": mlp.fused_mlp_score}
+    seen = {}  # id(_Run) -> its losses, step by step (device tensors)
+    step_on = sampling._Run.step_on
+
+    def recording(self, *args, **kwargs):
+        loss = step_on(self, *args, **kwargs)
+        seen.setdefault(id(self), []).append(loss)
+        return loss
+
+    sampling._Run.step_on = recording
+    rows = {}
+    try:
+        for pde_key, strategy, windows in SAMPLING_CASES:
+            epochs = SAMPLING_EPOCHS[pde_key]
+            for c in counters.values():
+                c.launches = 0
+            ff.jvps = 0
+            seen.clear()
+            (r,) = sampling.run_sampling_benchmark(pde=pde_key, strategies=[strategy],
+                                                   epochs=epochs, batch=SAMPLING_BATCH, seed=0,
+                                                   windows=windows, device="cuda")
+            torch.cuda.synchronize()
+            run = {k: c.launches for k, c in counters.items()}
+            run["fourier_features_jvps"] = ff.jvps
+            per_phase = sampling._phase_epochs(epochs, windows)
+            steps = epochs + min(per_phase[0], sampling.WARMUP_STEPS)  # the warm-up copy's too
+            adaptive = strategy.startswith("adaptive")
+            per_step = SAMPLING_FF_PER_STEP[pde_key]
+            want = {"fused_residual_loss": 0, "fourier_features": per_step[0] * steps + 1,
+                    "fused_mlp_score": steps if adaptive else 0,
+                    "fourier_features_jvps": per_step[1] * steps}
+            (losses,) = [torch.stack(v).tolist() for v in seen.values() if len(v) == epochs]
+            head, tail = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+            label = f"{pde_key} {r.strategy}" + (f" windows={windows}" if windows else "")
+            print(f"[sampling] {label}: {epochs} steps of {SAMPLING_BATCH} (+ {steps - epochs} "
+                  f"warm-up), {r.wall_time_s * 1e3 / epochs:.3f} ms per step, "
+                  f"{r.points_per_sec:.1f} points/s; loss {head:.4e} -> {tail:.4e} (mean of the "
+                  f"first and last 3), final {r.final_loss:.4e}, rel_l2 {r.rel_l2:.4e}, l2 "
+                  f"{r.l2_error:.4e}; launches {run} (want {want}) ({card})", flush=True)
+            if not (all(map(math.isfinite, losses)) and math.isfinite(r.rel_l2)
+                    and math.isfinite(r.l2_error) and r.epochs == epochs and tail < head):
+                raise AssertionError(f"{label}: losses {losses}, row {r}")
+            if run != want:
+                raise AssertionError(f"{label}: launches {run}, want {want}")
+            rows[label] = {**run, "steps": epochs, "warmup_steps": steps - epochs,
+                           "ms_per_step": r.wall_time_s * 1e3 / epochs,
+                           "points_per_sec": r.points_per_sec, "wall_s": r.wall_time_s,
+                           "loss_head": head, "loss_tail": tail, "rel_l2": r.rel_l2}
+    finally:
+        sampling._Run.step_on = step_on
+
+    # Host syncs of one warm step, per strategy.
+    syncs = {}
+    for strategy in ("uniform", "stratified", "residual_based", "adaptive",
+                     "adaptive[resfeat_improve]"):
+        ((base, variant),) = sampling.parse_strategies([strategy])
+        run = sampling._Run("burgers", base, 10, SAMPLING_BATCH, 2e-3, 0, rl_variant=variant,
+                            device="cuda")
+        g = torch.Generator(device=dev).manual_seed(31)
+        for _ in range(2):
+            run.step(run.pde, g)
+        sites = record_syncs(lambda: run.step(run.pde, g))
+        syncs[strategy] = len(sites)
+        print(f"[syncs] sampling {strategy}: one warm step {len(sites)} {sorted(set(sites))}",
+              flush=True)
+
+    # Kernel 4 at the harness's width on its agents' weights (after 10 steps),
+    # on the 100 x 100 grid and the grid with the residual feature.
+    k4 = {}
+    for variant in ("coord", "resfeat"):
+        run = sampling._Run("burgers", "adaptive", 10, SAMPLING_BATCH, 2e-3, 0, rl_variant=variant,
+                            device="cuda")
+        g = torch.Generator(device=dev).manual_seed(32)
+        for _ in range(10):
+            run.step(run.pde, g)
+        q = {k: v.detach() for k, v in run.rl_state.policy_params.items()}
+        grid = make_grid(run.pde.domain, run.pde.time_domain, 100, device=dev)
+        with torch.no_grad():
+            if variant == "resfeat":
+                grid = torch.cat([grid, run.res_feature(run.params, grid)], dim=-1)
+            n, d = grid.shape
+            h = q["Dense_1.weight"].shape[0]
+            s1 = mlp.fused_mlp_score(grid, q)
+            s2 = mlp.fused_mlp_score(grid, q)
+            sp = mlp.fused_mlp_score_plain(grid, q)
+            torch.cuda.synchronize()
+            err = float((s1 - sp).abs().max())
+            rel = err / float(sp.abs().max())
+            same = torch.equal(s1, s2)
+            times = {"ms": graph_ms(lambda: mlp.fused_mlp_score(grid, q)),
+                     "plain_ms": graph_ms(lambda: mlp.fused_mlp_score_plain(grid, q)),
+                     "library_ms": cublas_ms([(n, d, h), (n, h, h), (n, h, 1)], dev, iters=50)}
+        times["bound_ms"], times["bound_by"] = _mlp_bound(n, d, h, q)
+        tag = f"({n},{d})->{h}->{h}->1"
+        print(f"[parity] fused_mlp_score {tag} on the harness's {variant} agent: max_abs_err "
+              f"{err:.3e} rel {rel:.3e} (tol {MLP_TOL:g}); two calls bit-identical {same}; "
+              f"kernel {times['ms']:.5f} ms, plain {times['plain_ms']:.5f} ms, cuBLAS (its 3 "
+              f"products) {times['library_ms']:.5f} ms, bound {times['bound_ms']:.5f} ms "
+              f"({times['bound_by']}) (CUDA graph) ({card})", flush=True)
+        if not (rel < MLP_TOL and same):
+            raise AssertionError(f"fused_mlp_score disagrees with its plain version at {tag}")
+        k4[tag] = {"max_abs_err": err, **times, "launches_per_step": 1}
+
+    # Kernel 2 at mapping 32 on the harness's rows: the BC and IC batches
+    # and the 64^2 evaluation grid, mapped as the network maps them.
+    run = sampling._Run("burgers", "uniform", 10, SAMPLING_BATCH, 2e-3, 0, device="cuda")
+    model, pde = run.model, run.pde
+    B = model.constants["FourierFeatures_0.B"]
+    periodic = model.module.FourierFeatures_0.periodic
+    g = torch.Generator(device=dev).manual_seed(33)
+    xb, tb = pde._sample_boundary_points(g, pde._bc_counts(SAMPLING_BATCH)[0])
+    xi, ti = pde._sample_initial_points(g, pde._bc_counts(SAMPLING_BATCH)[1])
+    xe, te = sampling._fixed_validation_grid(pde)
+    k2 = {}
+    for what, (xs, ts) in (("bc", (xb, tb)), ("ic", (xi, ti)), ("evaluate", (xe, te))):
+        z = model.map_inputs(torch.cat([xs, ts], dim=-1)).contiguous()
+        n, d, m = z.shape[0], z.shape[1], B.shape[1]
+        with torch.no_grad():
+            f1 = fourier_feats.fourier_features(z, B, periodic)
+            f2 = fourier_feats.fourier_features(z, B, periodic)
+            fp = fourier_feats.fourier_features_plain(z, B, periodic)
+        torch.cuda.synchronize()
+        err = float((f1 - fp).abs().max())
+        rel = err / float(fp.abs().max())
+        times = {"ms": graph_ms(lambda: fourier_feats.fourier_features(z, B, periodic)),
+                 "plain_ms": graph_ms(lambda: fourier_feats.fourier_features_plain(z, B, periodic))}
+        times["bound_ms"], times["bound_by"] = _ff_bound(n, d, m)
+        plan = fourier_feats.launch_plan(n, d, m, B.data_ptr() % 16 == 0,
+                                         fourier_feats._sm_count(z.get_device()))
+        tag = f"({n},{d})x({d},{m}) {what}"
+        print(f"[parity] fourier_features {tag} (path {plan[0]}, grid {plan[1]}x{plan[2]}): "
+              f"max_abs_err {err:.3e} rel {rel:.3e} (tol {FF_TOL:g}); two calls bit-identical "
+              f"{torch.equal(f1, f2)}; kernel {times['ms']:.5f} ms, plain {times['plain_ms']:.5f} "
+              f"ms, bound {times['bound_ms']:.5f} ms ({times['bound_by']}) (CUDA graph) ({card})",
+              flush=True)
+        if not (rel < FF_TOL and torch.equal(f1, f2)):
+            raise AssertionError(f"fourier_features disagrees with its plain version at {tag}")
+        k2[tag] = {"max_abs_err": err, **times}
+    # Its jvp rule at mapping 32 (wave's velocity IC runs through it): orders
+    # 1-2 along t on the IC rows, against the plain version.
+    z = model.map_inputs(torch.cat([xi, ti], dim=-1)).contiguous()
+    v = torch.zeros_like(z)
+    v[:, -1] = 1.0
+    jvp_err = {}
+    for order in (1, 2):
+        def nest(fn, k):
+            if k == 0:
+                return lambda zz: fn(zz, B, periodic)
+            inner = nest(fn, k - 1)
+            return lambda zz: torch.func.jvp(inner, (zz,), (v,))[1]
+        got = nest(fourier_feats.fourier_features, order)(z)
+        ref = nest(fourier_feats.fourier_features_plain, order)(z)
+        torch.cuda.synchronize()
+        jvp_err[order] = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"[parity] fourier_features jvp rule at ({z.shape[0]},2)x(2,{B.shape[1]}), orders 1-2 "
+          f"along t: rel {jvp_err} (tol JVP_TOL x 10^(k-1), {JVP_TOL:g})", flush=True)
+    if not all(e < JVP_TOL * 10 ** (k - 1) for k, e in jvp_err.items()):
+        raise AssertionError("fourier_features' jvp rule disagrees with its plain version at m = 32")
+    return {"runs": rows, "syncs_per_step": syncs, "kernel4": k4, "kernel2": k2,
+            "kernel2_jvp_rel": jvp_err}
+
+
+def fdm_runs(dev, card: str):
+    """Phase 32: ``cli fdm --pde all`` on the card, each L2 error against a
+    CPU run of the same solve, the fields too, and both stability guards."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks import cli as bench_cli
+    from pinnrl_tpu_torch.benchmarks.fdm import solve_heat_1d, solve_wave_1d
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = Path(tmp) / "fdm.csv"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = bench_cli.main(["fdm", "--pde", "all", "--csv", str(csv_path)])
+        cli_wall = time.perf_counter() - t0
+        lines = csv_path.read_text().strip().split("\n")
+    if not (rc == 0 and lines[0] == "pde,scheme,stability,l2_error" and len(lines) == 3):
+        raise AssertionError(f"cli fdm: rc {rc}, {lines}")
+    out = {"cli_wall_s": cli_wall}
+    for name, solve in (("heat", solve_heat_1d), ("wave", solve_wave_1d)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_res = solve(device="cuda")
+        wall = time.perf_counter() - t0
+        cpu_res = solve(device="cpu")
+        field = float(np.abs(card_res.u - cpu_res.u).max())
+        printed = float(next(ln for ln in lines if ln.startswith(name)).split(",")[-1])
+        print(f"[fdm] {name} ({card_res.scheme}, {card_res.u.shape[0]} steps x "
+              f"{card_res.u.shape[1]} points, stability {card_res.stability:.4f}): l2 card "
+              f"{card_res.l2_error:.6e}, CPU {cpu_res.l2_error:.6e} (tol {FDM_TOL:g}), CSV "
+              f"{printed:.3e}; field max |card - CPU| {field:.3e}; solve {wall * 1e3:.1f} ms on "
+              f"the card ({card})", flush=True)
+        if not (abs(card_res.l2_error - cpu_res.l2_error) < FDM_TOL and field < FDM_TOL
+                and abs(printed - card_res.l2_error) <= 6e-4 * card_res.l2_error):
+            raise AssertionError(f"fdm {name}: the card's solve disagrees with the CPU's")
+        out[name] = {"l2_error": card_res.l2_error, "cpu_l2_error": cpu_res.l2_error,
+                     "field_max_diff": field, "stability": card_res.stability, "solve_ms": wall * 1e3}
+    for name, solve, kw, match in (("heat", solve_heat_1d, dict(alpha=1.0, nx=201, nt=11, t_max=1.0),
+                                    "unstable"),
+                                   ("wave", solve_wave_1d, dict(c=10.0, nx=1001, nt=11, t_max=1.0),
+                                    "CFL")):
+        try:
+            solve(device="cuda", **kw)
+        except ValueError as exc:
+            if match not in str(exc):
+                raise
+            print(f"[fdm] {name} guard raised: {exc}", flush=True)
+        else:
+            raise AssertionError(f"fdm {name}: the stability guard did not raise")
+    return out
+
+
+def operator_runs(dev, card: str):
+    """Phase 33: the point-wise operator run (the registry's FNO 256x4, 16
+    modes, 8192 points, a few epochs; no kernel), the gridded run with a
+    96^2 transfer row, ``GridFNO2D`` on the card against the CPU on the same
+    weights, and ``train --dataset synthetic_heat_2d`` for 2 epochs; the
+    Well cache in a temporary directory."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks import operator
+    from pinnrl_tpu_torch.datasets.synthetic import ensure_synthetic_well_cache
+    from pinnrl_tpu_torch.models.fno_grid import GridFNO2D
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp, siren
+    from pinnrl_tpu_torch.training import train as train_cli
+
+    counters = {"fused_residual_loss": fused_step.fused_residual_loss,
+                "fourier_features": fourier_feats.fourier_features,
+                "siren_layer": siren.siren_layer, "fused_mlp_score": mlp.fused_mlp_score}
+    old_cache = os.environ.get("PINNRL_WELL_CACHE")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["PINNRL_WELL_CACHE"] = str(Path(tmp) / "well")
+        try:
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            with captured_trainers() as seen:
+                r = operator.run_operator_benchmark("synthetic_heat_2d", epochs=OPERATOR_EPOCHS,
+                                                    n_points=8192, seed=0, device="cuda")
+            torch.cuda.synchronize()
+            (tr,) = seen
+            launches = {k: c.launches for k, c in counters.items()}
+            hist = tr.history["train_loss"]
+            ap = tr.model.config.arch_params
+            steps = OPERATOR_EPOCHS * (tr.tcfg.num_collocation_points // tr.tcfg.batch_size)
+            print(f"[operator] point-wise {r.dataset} ({r.architecture} {ap['hidden_dim']}x"
+                  f"{ap['num_blocks']}, {ap['modes']} modes, {r.mode}, {r.train_points} points): "
+                  f"{OPERATOR_EPOCHS} epochs ({steps} steps) in {r.wall_time_s:.2f} s, "
+                  f"{r.wall_time_s * 1e3 / steps:.1f} ms per step; train loss "
+                  f"{' '.join(f'{v:.4e}' for v in hist)}; held-out rel_l2 {r.test_rel_l2:.4e} "
+                  f"(no bar at {OPERATOR_EPOCHS} epochs), max error {r.test_max_error:.4e}; "
+                  f"launches {launches} ({card})", flush=True)
+            if not ((ap["hidden_dim"], ap["num_blocks"], ap["modes"]) == (256, 4, 16)
+                    and all(map(math.isfinite, hist)) and hist[-1] < hist[0]
+                    and math.isfinite(r.test_rel_l2) and not any(launches.values())):
+                raise AssertionError(f"point-wise operator: losses {hist}, row {r}, {launches}")
+            out["pointwise"] = {"rel_l2": r.test_rel_l2, "wall_s": r.wall_time_s,
+                                "ms_per_step": r.wall_time_s * 1e3 / steps, "losses": hist,
+                                "launches": launches}
+
+            rs = operator.run_gridded_operator_benchmark(epochs=GRIDDED_EPOCHS,
+                                                         transfer_resolutions=(96,), seed=0,
+                                                         device="cuda")
+            print(f"[operator] gridded ({rs[0].epochs} steps of 16 pairs, width 32, 12 modes, 4 "
+                  f"blocks): {rs[0].wall_time_s:.2f} s, {rs[0].wall_time_s * 1e3 / rs[0].epochs:.2f} "
+                  f"ms per step, final loss {rs[0].final_train_loss:.4e}; "
+                  + "; ".join(f"{x.dataset} rel_l2 {x.test_rel_l2:.4e} max {x.test_max_error:.4e}"
+                              for x in rs) + f" ({card})", flush=True)
+            if not (len(rs) == 2 and all(math.isfinite(x.test_rel_l2) for x in rs)
+                    and math.isfinite(rs[0].final_train_loss)):
+                raise AssertionError(f"gridded operator: rows {rs}")
+            out["gridded"] = {x.dataset: {"rel_l2": x.test_rel_l2, "epochs": x.epochs,
+                                          "wall_s": x.wall_time_s} for x in rs}
+
+            # GridFNO2D on the card against the CPU, the same weights, at the
+            # training grid and the transfer grid.
+            fno = GridFNO2D(grid=(48, 48), generator=torch.Generator().manual_seed(0))
+            fno_card = GridFNO2D(grid=(48, 48)).to(dev)
+            fno_card.load_state_dict(fno.state_dict())
+            grid_err = {}
+            for res in (48, 96):
+                a = torch.randn((4, res, res, 1), generator=torch.Generator().manual_seed(res))
+                with torch.no_grad():
+                    ref = fno(a)
+                    got = fno_card(a.to(dev)).cpu()
+                grid_err[res] = float((got - ref).abs().max()) / float(ref.abs().max())
+            print(f"[operator] GridFNO2D card vs CPU forward, rel to max: {grid_err} (tol "
+                  f"{GRID_FNO_TOL:g}) ({card})", flush=True)
+            if not all(e < GRID_FNO_TOL for e in grid_err.values()):
+                raise AssertionError(f"GridFNO2D's card forward disagrees with the CPU's: {grid_err}")
+            out["grid_fno_card_vs_cpu"] = grid_err
+
+            ensure_synthetic_well_cache(split="train", n_traj=1, n_points=4096, seed=0)
+            results = Path(tmp) / "runs"
+            argv = ["--pde", "heat_2d", "--dataset", "synthetic_heat_2d", "--epochs", "2",
+                    "--results-dir", str(results)]
+            t0 = time.perf_counter()
+            rc = train_cli.main(argv)
+            wall = time.perf_counter() - t0
+            (exp,) = results.iterdir()
+            meta = json.loads((exp / "metadata.json").read_text())
+            thist = json.loads((exp / "history.json").read_text())["train_loss"]
+            print(f"[operator] train {' '.join(argv[:6])}: rc {rc}, {wall:.2f} s, {exp.name}, "
+                  f"mode {meta['mode']}, losses {thist} ({card})", flush=True)
+            if not (rc == 0 and meta["status"] == "completed" and meta["mode"] == "data_only"
+                    and "synthetic_heat_2d" in exp.name and len(thist) == 2
+                    and all(map(math.isfinite, thist))):
+                raise AssertionError(f"train --dataset: rc {rc}, {meta}")
+            out["train_dataset"] = {"wall_s": wall, "losses": thist}
+        finally:
+            if old_cache is None:
+                os.environ.pop("PINNRL_WELL_CACHE", None)
+            else:
+                os.environ["PINNRL_WELL_CACHE"] = old_cache
+    return out
 
 
 
@@ -3076,6 +3479,11 @@ def main() -> int:
     aug_runs = data_augmented_runs(dev, card)
     cli = cli_runs(dev, card)
 
+    # ---- 31-33. the sampling, fdm and operator harnesses --------------------- #
+    samp = sampling_runs(dev, card)
+    fdm = fdm_runs(dev, card)
+    op = operator_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -3126,7 +3534,9 @@ def main() -> int:
          "data_augmented": {k: aug_runs[k] for k in ("forward", "data_augmented")},
          "data_augmented_parity": aug_runs["parity"],
          "cli_launches": {k: r["fused_residual_loss"] for k, r in cli.items()},
-         "shipped_fourier_512": cli["burgers_rl"]["kernel1_512"]},
+         "shipped_fourier_512": cli["burgers_rl"]["kernel1_512"],
+         "sampling_launches": {k: r["fused_residual_loss"] for k, r in samp["runs"].items()},
+         "operator_launches": op["pointwise"]["launches"]["fused_residual_loss"]},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -3145,6 +3555,11 @@ def main() -> int:
                                      for k in ("forward", "data_augmented")},
          "cli_launches": {k: {"launches": r["fourier_features"], "jvps": r["fourier_features_jvps"]}
                           for k, r in cli.items()},
+         "sampling": {"shapes": samp["kernel2"], "jvp_rel": samp["kernel2_jvp_rel"],
+                      "launches": {k: {"launches": r["fourier_features"],
+                                       "jvps": r["fourier_features_jvps"]}
+                                   for k, r in samp["runs"].items()},
+                      "harness": samp["runs"], "syncs_per_step": samp["syncs_per_step"]},
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
          "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
          "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,
@@ -3167,6 +3582,8 @@ def main() -> int:
          "replaces": "pinnrl_tpu/ops/kernels/mlp.py:75",
          "launches": rl_launches["fused_mlp_score"], "max_abs_err": mlp_err,
          "cli_launches": {k: r["fused_mlp_score"] for k, r in cli.items()},
+         "sampling": {"shapes": samp["kernel4"],
+                      "launches": {k: r["fused_mlp_score"] for k, r in samp["runs"].items()}},
          "ms": mlp_ms, "plain_ms": mlp_plain_ms, "eager_ms": mlp_eager_ms,
          "bound_ms": mlp_bound[0], "bound_by": mlp_bound[1], "library_ms": mlp_lib_ms,
          "library_call": "torch.mm (FP32, TF32 off) of its three layer products, no LayerNorm",
@@ -3174,6 +3591,7 @@ def main() -> int:
          "product_ab_ms": {f"{'w2t' if t else 'w2'}_split{s}": v for (s, t), v in product_ab.items()},
          "split_ab_ms": {f"split{s}": v for s, v in split_ab.items()}},
     ]
+    print(f"[harnesses] {json.dumps({'sampling': samp['runs'], 'fdm': fdm, 'operator': op})}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

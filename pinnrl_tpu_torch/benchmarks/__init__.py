@@ -1,9 +1,7 @@
 """Benchmarks: the convergence harness (recipe builder and runner), the
-inverse-problem harness and the benchmark CLI (``benchmarks/cli.py``).
-
-The FDM baselines (item 11) and the sampling and operator harnesses (item
-14) are not ported yet.
-"""
+inverse-problem, sampling-strategy and operator harnesses, the FDM
+baselines (``benchmarks/fdm.py``) and the benchmark CLI
+(``benchmarks/cli.py``)."""
 
 from pinnrl_tpu_torch.benchmarks.convergence import (  # noqa: F401
     RECIPES,

@@ -1,13 +1,16 @@
 """Benchmark CLI (``pinnrl-benchmark``), as ``pinnrl_tpu.benchmarks.cli``.
 
+    python -m pinnrl_tpu_torch.benchmarks.cli fdm
+    python -m pinnrl_tpu_torch.benchmarks.cli sampling --pde burgers --csv out.csv
+    python -m pinnrl_tpu_torch.benchmarks.cli operator --dataset synthetic_heat_2d
+    python -m pinnrl_tpu_torch.benchmarks.cli operator --gridded --transfer 96
     python -m pinnrl_tpu_torch.benchmarks.cli inverse --pde all --csv out.csv
     python -m pinnrl_tpu_torch.benchmarks.cli convergence --pde heat
 
-``inverse`` and ``convergence`` run on the card unless ``--device cpu``;
-``--csv`` appends rows to an existing file. ``convergence --time-marching``
-raises naming ROADMAP item 13; ``fdm`` (item 11), ``sampling`` and
-``operator`` (item 14) keep the JAX package's flags and raise naming their
-items.
+The JAX package's subcommands and flags; each runs on the card unless
+``--device cpu``. ``--csv`` appends rows to an existing file (``fdm``
+writes its file anew, as JAX's does). ``convergence --time-marching``
+raises naming ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -41,15 +44,87 @@ def _write_csv(path: str, text: str) -> None:
 
 
 def _fdm_command(args) -> int:
-    raise _unported("the FDM baselines (benchmarks/fdm.py)", 11)
+    from pinnrl_tpu_torch.benchmarks.fdm import solve_heat_1d, solve_wave_1d
+
+    rows = []
+    if args.pde in ("heat", "all"):
+        r = solve_heat_1d(nx=args.nx or 51, nt=args.nt or 2001, t_max=args.t_max,
+                          device=args.device)
+        rows.append(("heat", r.scheme, f"{r.stability:.4f}", f"{r.l2_error:.3e}"))
+    if args.pde in ("wave", "all"):
+        r = solve_wave_1d(nx=args.nx or 101, nt=args.nt or 2001, t_max=args.t_max,
+                          device=args.device)
+        rows.append(("wave", r.scheme, f"{r.stability:.4f}", f"{r.l2_error:.3e}"))
+    _print_table(rows, ["pde", "scheme", "stability", "l2_error"])
+    if args.csv:
+        Path(args.csv).write_text(
+            "pde,scheme,stability,l2_error\n"
+            + "\n".join(",".join(map(str, r)) for r in rows)
+            + "\n"
+        )
+        print(f"CSV written to {args.csv}")
+    return 0
 
 
 def _sampling_command(args) -> int:
-    raise _unported("the sampling benchmark", 14)
+    from pinnrl_tpu_torch.benchmarks.sampling import results_to_csv, run_sampling_benchmark
+
+    results = run_sampling_benchmark(
+        pde=args.pde,
+        strategies=args.strategies.split(",") if args.strategies else None,
+        epochs=args.epochs,
+        batch=args.batch,
+        lr=args.lr,
+        seed=args.seed,
+        arch=args.arch,
+        device=args.device,
+    )
+    rows = [
+        (
+            r.pde, r.architecture, r.strategy, f"{r.final_loss:.3e}",
+            f"{r.l2_error:.3e}", f"{r.rel_l2:.3e}", f"{r.wall_time_s:.2f}",
+            f"{r.points_per_sec:.0f}",
+        )
+        for r in results
+    ]
+    _print_table(rows, ["pde", "arch", "strategy", "final_loss", "l2_error", "rel_l2",
+                        "wall_s", "pts/sec"])
+    if args.csv:
+        _write_csv(args.csv, results_to_csv(results))
+    return 0
 
 
 def _operator_command(args) -> int:
-    raise _unported("the operator benchmark", 14)
+    from pinnrl_tpu_torch.benchmarks.operator import (
+        results_to_csv,
+        run_gridded_operator_benchmark,
+        run_operator_benchmark,
+    )
+
+    if args.transfer is not None and not args.gridded:
+        raise SystemExit(
+            "pinnrl-benchmark operator: --transfer requires --gridded "
+            "(resolution transfer is a property of the gridded FNO only)"
+        )
+    if args.gridded:
+        results = run_gridded_operator_benchmark(
+            dataset=args.dataset, epochs=args.epochs, seed=args.seed,
+            transfer_resolutions=tuple(args.transfer or ()), device=args.device,
+        )
+    else:
+        results = [run_operator_benchmark(
+            dataset=args.dataset, arch=args.arch, epochs=args.epochs,
+            n_traj=args.traj, n_points=args.points, seed=args.seed, device=args.device,
+        )]
+    _print_table(
+        [(r.dataset, r.architecture, r.mode, r.epochs,
+          f"{r.test_rel_l2:.3e}", f"{r.test_max_error:.3e}",
+          f"{r.wall_time_s:.0f}") for r in results],
+        ["dataset", "arch", "mode", "epochs", "test_rel_l2", "max_err", "wall_s"],
+    )
+    if args.csv:
+        _write_csv(args.csv, results_to_csv(results))
+    return 0
 
 
 def _inverse_command(args) -> int:
@@ -97,15 +172,16 @@ def main(argv=None) -> int:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p_fdm = sub.add_parser("fdm", help="Finite-difference baseline solves (not ported yet)")
+    p_fdm = sub.add_parser("fdm", help="Finite-difference baseline solves")
     p_fdm.add_argument("--pde", choices=["heat", "wave", "all"], default="all")
     p_fdm.add_argument("--nx", type=int, default=None)
     p_fdm.add_argument("--nt", type=int, default=None)
     p_fdm.add_argument("--t-max", type=float, default=0.5)
+    p_fdm.add_argument("--device", default="cuda", help="cuda | cpu")
     p_fdm.add_argument("--csv", default=None)
     p_fdm.set_defaults(func=_fdm_command)
 
-    p_s = sub.add_parser("sampling", help="Collocation-strategy comparison (not ported yet)")
+    p_s = sub.add_parser("sampling", help="Collocation-strategy comparison")
     p_s.add_argument("--pde", choices=["heat", "wave", "burgers", "kdv"], default="heat")
     p_s.add_argument("--strategies", default=None,
                      help="Comma list of uniform,stratified,residual_based,adaptive")
@@ -115,6 +191,7 @@ def main(argv=None) -> int:
     p_s.add_argument("--seed", type=int, default=0)
     p_s.add_argument("--arch", default="fourier",
                      help="Model architecture for every strategy (e.g. fourier, resnet)")
+    p_s.add_argument("--device", default="cuda", help="cuda | cpu")
     p_s.add_argument("--csv", default=None)
     p_s.set_defaults(func=_sampling_command)
 
@@ -128,15 +205,21 @@ def main(argv=None) -> int:
     p_c.add_argument("--csv", default=None)
     p_c.set_defaults(func=_convergence_command)
 
-    p_o = sub.add_parser("operator", help="Well-pipeline FNO operator run (not ported yet)")
-    p_o.add_argument("--dataset", default="synthetic_heat_2d")
+    p_o = sub.add_parser("operator", help="Well-pipeline FNO operator run")
+    p_o.add_argument("--dataset", default="synthetic_heat_2d",
+                     help="Well registry entry (synthetic_heat_2d works offline)")
     p_o.add_argument("--arch", default=None, help="Override registry architecture")
     p_o.add_argument("--epochs", type=int, default=2000)
     p_o.add_argument("--traj", type=int, default=1)
     p_o.add_argument("--points", type=int, default=8192)
     p_o.add_argument("--seed", type=int, default=0)
-    p_o.add_argument("--gridded", action="store_true")
-    p_o.add_argument("--transfer", type=int, nargs="*", default=None, metavar="RES")
+    p_o.add_argument("--gridded", action="store_true",
+                     help="Gridded 2D FNO on whole-field time-advance pairs, evaluated on "
+                          "held-out trajectories")
+    p_o.add_argument("--transfer", type=int, nargs="*", default=None, metavar="RES",
+                     help="(gridded only) also evaluate on the held-out trajectories "
+                          "regenerated at these resolutions, e.g. --transfer 96 128")
+    p_o.add_argument("--device", default="cuda", help="cuda | cpu")
     p_o.add_argument("--csv", default=None)
     p_o.set_defaults(func=_operator_command)
 

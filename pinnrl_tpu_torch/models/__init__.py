@@ -22,6 +22,7 @@ from pinnrl_tpu_torch.config import Config, ModelConfig, _asdict, resolve_device
 from pinnrl_tpu_torch.models.attention import AttentionNetwork
 from pinnrl_tpu_torch.models.base import count_parameters
 from pinnrl_tpu_torch.models.feedforward import FeedForwardNetwork
+from pinnrl_tpu_torch.models.fno import FNONetwork
 from pinnrl_tpu_torch.models.fourier import FourierNetwork
 from pinnrl_tpu_torch.models.resnet import ResNet
 from pinnrl_tpu_torch.models.siren import SIREN
@@ -31,6 +32,7 @@ __all__ = [
     "create_module",
     "AttentionNetwork",
     "FeedForwardNetwork",
+    "FNONetwork",
     "FourierNetwork",
     "ResNet",
     "SIREN",
@@ -38,7 +40,7 @@ __all__ = [
     "PORTED_ARCHITECTURES",
 ]
 
-PORTED_ARCHITECTURES = ("attention", "feedforward", "fourier", "resnet", "siren")
+PORTED_ARCHITECTURES = ("attention", "feedforward", "fno", "fourier", "resnet", "siren")
 
 
 def _parse_scale(v):
@@ -93,6 +95,16 @@ def create_module(model_cfg: ModelConfig, generator: Optional[torch.Generator] =
         return SIREN(
             hidden_dims=tuple(model_cfg.hidden_dims),
             omega_0=float(ap.get("omega_0", 30.0)),
+            generator=generator,
+            **common,
+        )
+    if arch == "fno":
+        return FNONetwork(
+            hidden_dim=int(ap.get("hidden_dim", 256)),
+            num_blocks=int(ap.get("num_blocks", 4)),
+            modes=int(ap.get("modes", 16)),
+            activation=model_cfg.activation if model_cfg.activation != "tanh" else "gelu",
+            dropout=model_cfg.dropout,
             generator=generator,
             **common,
         )

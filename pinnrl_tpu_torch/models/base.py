@@ -11,10 +11,24 @@ from typing import Callable, Dict, Mapping
 import torch
 import torch.nn.functional as F
 
+_SQRT_2_OVER_PI = 0.7978845608028654
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu`` (the tanh approximation). Inside a ``torch.func``
+    transform, the same function in plain ops, as JAX writes it: torch's
+    fused op differentiates its derivative through cosh, which overflows
+    for |x| >~ 50 and turns the gradient of a nested jvp into NaN (the
+    FNO's pre-activations reach that); plain tanh nests exactly."""
+    if not torch._C._are_functorch_transforms_active():
+        return F.gelu(x, approximate="tanh")
+    return x * (0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * x**3))))
+
+
 ACTIVATIONS: Dict[str, Callable] = {
     "tanh": torch.tanh,
     "relu": F.relu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": gelu,
     "sigmoid": torch.sigmoid,
     "silu": F.silu,
     "swish": F.silu,

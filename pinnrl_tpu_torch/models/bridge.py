@@ -7,6 +7,8 @@
 - ``SIRENLayer_i/{kernel, bias}``      <-> ``SIRENLayer_i.{kernel, bias}`` (flax's
   (in, out) layout kept: it is the SIREN kernel's W); SIREN's final layer is
   ``Dense_0`` under the Dense rule
+- ``SpectralConv_i/{w_re, w_im}`` and ``SpectralConv2d_i/{w_real, w_imag}``
+  (the FNOs' spectral weights) <-> the same names, the same layout
 - nested modules (ResNet's ``ResNetBlock_i/Dense_0/kernel``) <-> dotted
   paths (``ResNetBlock_i.Dense_0.weight``), each leaf under the rule of its
   innermost module
@@ -28,6 +30,13 @@ import numpy as np
 import torch
 
 _LN_NAMES = {"scale": "weight", "bias": "bias"}
+# Leaves kept by name and layout: the SIREN kernel's W and the FNOs' spectral weights.
+_AS_IS = {"SIRENLayer_": ("kernel", "bias"), "SpectralConv2d_": ("w_real", "w_imag"),
+          "SpectralConv_": ("w_re", "w_im")}
+
+
+def _as_is(module: str, name: str) -> bool:
+    return any(module.startswith(prefix) and name in names for prefix, names in _AS_IS.items())
 
 
 def params_from_flax(
@@ -62,7 +71,7 @@ def _leaves_from_flax(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch
                 out[f"{path}.{_LN_NAMES[name]}"] = torch.from_numpy(arr.copy())
             elif module.startswith("Dense_") and name == "bias":
                 out[f"{path}.bias"] = torch.from_numpy(arr.copy())
-            elif module.startswith("SIRENLayer_") and name in ("kernel", "bias"):
+            elif _as_is(module, name):
                 out[f"{path}.{name}"] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"no bridge rule for flax leaf {path.replace('.', '/')}/{name}")
@@ -84,7 +93,7 @@ def params_to_flax(state: Mapping[str, torch.Tensor]):
             node.setdefault(module, {})[leaf] = np.ascontiguousarray(arr.T) if name == "weight" else arr
         elif module.startswith("LayerNorm_"):
             node.setdefault(module, {})[inv_ln[name]] = arr
-        elif module.startswith("SIRENLayer_") and name in ("kernel", "bias"):
+        elif _as_is(module, name):
             node.setdefault(module, {})[name] = arr
         elif module.startswith("FourierFeatures_") and not outer:
             constants.setdefault(module, {})[name] = arr

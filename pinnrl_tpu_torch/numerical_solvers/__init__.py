@@ -1,7 +1,7 @@
-"""Numerical reference solvers. The spectral phase-field solver (ETDRK4) is
-ported; the heat finite-difference solver of ``pinnrl_tpu`` is not (no
-path of the port reads it)."""
+"""Numerical reference solvers: the spectral phase-field solver (ETDRK4)
+and the heat finite-difference wrapper (``HeatEquationFDM``)."""
 
+from pinnrl_tpu_torch.numerical_solvers.heat_fdm import HeatEquationFDM  # noqa: F401
 from pinnrl_tpu_torch.numerical_solvers.spectral import (  # noqa: F401
     SpectralResult,
     build_phase_field_reference,

@@ -22,13 +22,13 @@ are 0-d float32 tensors on the PDE's device (``init_coeffs``, seeded from
 the initial guesses), which the trainer optimizes with the network and
 passes to every loss; ``coeff`` hands the live tensor to the residual, so
 the gradient reaches it. Observations (``set_observations``: an ``.npz``
-path, a dict or an (x, t, u) tuple through ``observation_data``, or
-``generate_synthetic_observations`` at the true coefficients) add the data
-term, which draws nothing.
+path, a dict, an (x, t, u) tuple or a The Well spec ``{"source": "well",
+"name": ..., ...}`` (``datasets.load_well_slice``'s arguments) through
+``observation_data``, or ``generate_synthetic_observations`` at the true
+coefficients) add the data term, which draws nothing.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-gPINN (item 10), the smoothness penalty and hard-IC transform (item 13),
-and observations from The Well (item 14).
+gPINN (item 10), the smoothness penalty and hard-IC transform (item 13).
 """
 
 from __future__ import annotations
@@ -385,11 +385,15 @@ class PDEBase:
     # ------------------------------------------------------------------ #
 
     def _load_observation_data(self, spec: Any) -> None:
-        """An ``.npz`` path with keys x, t, u, a dict of arrays, or an
-        (x, t, u) tuple."""
+        """An ``.npz`` path with keys x, t, u, a dict of arrays, an (x, t, u)
+        tuple, or a The Well spec (``{"source": "well", ...}``: the rest are
+        ``load_well_slice``'s arguments)."""
         if isinstance(spec, dict) and spec.get("source") == "well":
-            raise NotImplementedError(
-                "observations from The Well are not ported yet (ROADMAP item 14)")
+            from pinnrl_tpu_torch.datasets import load_well_slice
+
+            arrs = load_well_slice(**{k: v for k, v in spec.items() if k != "source"})
+            self.set_observations(arrs["x"], arrs["t"], arrs["u"])
+            return
         if isinstance(spec, str):
             with np.load(spec) as data:
                 self.set_observations(data["x"], data["t"], data["u"])

@@ -7,8 +7,10 @@ The JAX package's flags, precedence (CLI > PDE block > architecture block >
 dataclass defaults) and failure protocol. ``--device`` is ``cuda`` (the
 default; it raises without a card) or ``cpu``. Synthetic observations are
 drawn from ``torch.Generator(device).manual_seed(pde.observation_seed)``.
-``--dataset`` (The Well) raises naming ROADMAP item 14, and ``--profile-dir``
-reaches the trainer, which raises naming item 9.
+``--dataset NAME`` trains against a The Well registry entry (its domain,
+dimensions, channels and recommended mode; the observations through
+``datasets.load_well_slice`` and its cache, ``$PINNRL_WELL_CACHE``).
+``--profile-dir`` reaches the trainer, which raises naming ROADMAP item 9.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from pathlib import Path
 import torch
 
 from pinnrl_tpu_torch.config import Config
+from pinnrl_tpu_torch.datasets import get_entry
 from pinnrl_tpu_torch.models import PINNModel
 from pinnrl_tpu_torch.pdes import PDE_REGISTRY, create_pde
 from pinnrl_tpu_torch.rl import RLAgent
@@ -63,7 +66,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--optimizer", choices=["adam", "lbfgs", "adam_lbfgs"], default=None)
     p.add_argument("--mode", choices=["forward", "inverse", "data_only", "data_augmented"],
                    default=None)
-    p.add_argument("--dataset", default=None, help="Well dataset name (not ported yet)")
+    p.add_argument("--dataset", default=None, help="Well dataset name")
     p.add_argument("--dataset-split", default="train")
     p.add_argument("--dataset-traj", type=int, default=1)
     p.add_argument("--dataset-points", type=int, default=4096)
@@ -89,8 +92,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_config(args: argparse.Namespace) -> Config:
     """Apply the CLI overrides on top of the config file or the defaults."""
-    if args.dataset:
-        raise NotImplementedError("--dataset (The Well) is not ported yet (ROADMAP item 14)")
     cfg = Config(config_path=args.config, pde_type=resolve_pde_key(args.pde),
                  architecture=args.arch, device=args.device)
     t = cfg.training
@@ -138,10 +139,36 @@ def build_config(args: argparse.Namespace) -> Config:
     if args.obs_points is not None:
         cfg.pde.num_observation_points = args.obs_points
 
+    if args.dataset:
+        _apply_well_dataset_defaults(cfg, args)
+
     # The overrides mutate a validated Config: check its invariants again
     # (e.g. --mode inverse without --identify).
     cfg._validate()
     return cfg
+
+
+def _apply_well_dataset_defaults(cfg: Config, args: argparse.Namespace) -> None:
+    """The registry entry's defaults over the config: the observation spec,
+    the domain and dimensions, the channels and (unless ``--mode`` was
+    given) the recommended mode."""
+    entry = get_entry(args.dataset)
+    cfg.pde.observation_data = {
+        "source": "well",
+        "name": entry.name,
+        "split": args.dataset_split,
+        "n_traj": args.dataset_traj,
+        "n_points": args.dataset_points,
+        "seed": args.dataset_seed,
+        "base": args.dataset_base,
+    }
+    cfg.pde.dimension = entry.n_spatial_dims
+    cfg.pde.domain = [list(d) for d in entry.domain]
+    cfg.pde.time_domain = list(entry.time_domain)
+    cfg.model.input_dim = entry.default_input_dim
+    cfg.model.output_dim = entry.default_output_dim
+    if args.mode is None:
+        cfg.training.mode = entry.recommended_mode
 
 
 def make_agent(cfg: Config) -> RLAgent:
@@ -205,7 +232,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     setup_logging()
     cfg = build_config(args)
-    run_training(cfg, seed=args.seed)
+    run_training(cfg, seed=args.seed, dataset_tag=args.dataset or None)
     return 0
 
 

@@ -40,8 +40,9 @@ counted afresh from the switch and from each resample round.
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 float64 residuals (item 8b), adaptive loss weights, EMA, ensembles and
 hard-IC (item 13), the plateau scheduler, profiling, checkpoints and resume
-(item 9), the plots and report of an experiment directory (items 14 and
-11; logged, not raised), and device meshes (item 14).
+(item 9), the plots, report and heat's ``fdm_comparison.json`` of an
+experiment directory (item 14; logged, not raised), and device meshes
+(item 14).
 """
 
 from __future__ import annotations
@@ -93,17 +94,19 @@ class AdamStep:
     learning-rate schedule, as the JAX package's optax chain.
 
     Clipping follows optax: scale = min(1, max_norm / ||g||) with no
-    epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). The scale stays
-    on the device, so a step does not wait for the host. A leaf that got no
+    epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6); ``clip_norm``
+    None does not clip (a bare ``optax.adam``). The scale stays on the
+    device, so a step does not wait for the host. A leaf that got no
     gradient steps with a zero one, as optax treats it (torch's optimizers
     would skip it).
     """
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float],
-                 clip_norm: float, beta1: float, beta2: float, weight_decay: float) -> None:
+                 clip_norm: Optional[float], beta1: float, beta2: float,
+                 weight_decay: float) -> None:
         self.params = params
         self.schedule = schedule
-        self.clip_norm = float(clip_norm)
+        self.clip_norm = None if clip_norm is None else float(clip_norm)
         cls = torch.optim.AdamW if weight_decay and weight_decay > 0 else torch.optim.Adam
         self.optimizer = cls(params, lr=schedule(0), betas=(beta1, beta2), eps=1e-8,
                              weight_decay=float(weight_decay or 0.0))
@@ -116,10 +119,10 @@ class AdamStep:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        scale = torch.clamp(self.clip_norm / norm, max=1.0)
-        torch._foreach_mul_(grads, scale)
+        if self.clip_norm is not None:
+            grads = [p.grad for p in self.params]
+            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            torch._foreach_mul_(grads, torch.clamp(self.clip_norm / norm, max=1.0))
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.count)
         self.optimizer.step()
@@ -482,8 +485,8 @@ class PDETrainer:
         }
         if exp:
             if self.config.evaluation.save_plots:
-                logger.info("evaluation.save_plots: the plots and report.html (ROADMAP item 14) "
-                            "and heat's fdm_comparison.json (item 11) are not ported yet")
+                logger.info("evaluation.save_plots: the plots, report.html and heat's "
+                            "fdm_comparison.json are not ported yet (ROADMAP item 14)")
             save_training_metrics(exp, self.history)
             self._write_metadata(exp, status=status, num_epochs=num_epochs,
                                  current_epoch=len(self.history["train_loss"]), wall_time_s=wall)

@@ -30,8 +30,13 @@ def test_port_imports_without_jax():
         "        'pinnrl_tpu_torch.training.lbfgs', 'pinnrl_tpu_torch.pdes.cahn_hilliard',\n"
         "        'pinnrl_tpu_torch.models.attention', 'pinnrl_tpu_torch.training.train',\n"
         "        'pinnrl_tpu_torch.benchmarks.inverse', 'pinnrl_tpu_torch.benchmarks.cli',\n"
-        "        'pinnrl_tpu_torch.utils.io'} <= set(mods)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton')]\n"
+        "        'pinnrl_tpu_torch.utils.io', 'pinnrl_tpu_torch.benchmarks.sampling',\n"
+        "        'pinnrl_tpu_torch.benchmarks.fdm', 'pinnrl_tpu_torch.benchmarks.operator',\n"
+        "        'pinnrl_tpu_torch.datasets.registry', 'pinnrl_tpu_torch.datasets.well_loader',\n"
+        "        'pinnrl_tpu_torch.datasets.synthetic', 'pinnrl_tpu_torch.models.fno',\n"
+        "        'pinnrl_tpu_torch.models.fno_grid',\n"
+        "        'pinnrl_tpu_torch.numerical_solvers.heat_fdm'} <= set(mods)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton', 'the_well')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
         "assert not _build._LOADED\n"
@@ -41,6 +46,26 @@ def test_port_imports_without_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    """No module of pinnrl_tpu_torch and not chip_smoke.py imports jax,
+    flax, optax or pinnrl_tpu, at any depth of the file (lazy imports
+    included)."""
+    import ast
+
+    banned = {"jax", "jaxlib", "flax", "optax", "pinnrl_tpu"}
+    files = sorted((REPO / "pinnrl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 40
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not {n.split(".")[0] for n in names} & banned, (path, names)
 
 
 def test_defaults_snapshot_equals_yaml():

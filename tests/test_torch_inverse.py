@@ -307,9 +307,9 @@ def test_kernel1_gate_in_both_directions(monkeypatch):
         assert (tr.coeffs == {}) == (not trainable)
 
 
-def test_observation_loaders(tmp_path):
-    """An .npz path, a dict and a tuple load as the JAX package loads them;
-    The Well raises naming its item."""
+def test_observation_loaders(tmp_path, monkeypatch):
+    """An .npz path, a dict, a tuple and a The Well spec load as the JAX
+    package loads them."""
     from pinnrl_tpu.config import load_config as jax_load_config
     from pinnrl_tpu.pdes import create_pde as jax_create_pde
 
@@ -322,10 +322,17 @@ def test_observation_loaders(tmp_path):
         got, ref = create_pde(tcfg).observations, jax_create_pde(jcfg).observations
         for a, b in zip(got, ref):
             assert a.shape == b.shape and np.array_equal(a.numpy(), np.asarray(b))
+    from pinnrl_tpu_torch.datasets.synthetic import ensure_synthetic_well_cache
+
+    monkeypatch.setenv("PINNRL_WELL_CACHE", str(tmp_path / "well"))
+    ensure_synthetic_well_cache(n_traj=1, n_points=40, seed=0)
+    spec = {"source": "well", "name": "synthetic_heat_2d", "n_traj": 1, "n_points": 40}
+    jcfg, tcfg = jax_load_config(pde_type="heat_2d"), load_config(pde_type="heat_2d", device="cpu")
+    jcfg.pde.observation_data = tcfg.pde.observation_data = spec
+    got, ref = create_pde(tcfg).observations, jax_create_pde(jcfg).observations
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and np.array_equal(a.numpy(), np.asarray(b))
     tcfg = load_config(pde_type="heat", device="cpu")
-    tcfg.pde.observation_data = {"source": "well", "name": "anything"}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        create_pde(tcfg)
     tcfg.pde.observation_data = 3.0
     with pytest.raises(ValueError, match="Unsupported observation_data"):
         create_pde(tcfg)

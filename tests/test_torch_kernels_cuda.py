@@ -34,7 +34,10 @@ each parameter gradient through kernel 2 at 1e-3 relative to max (the
 bound of the order-3 residual loss's gradients through kernel 3). The heat
 inverse recipe: its loss (data term included) 1e-5 relative and its
 gradients (alpha's and every leaf's) 1e-4 relative to max through kernel 2
-against the plain version, as kernel 1's loss and gradients.
+against the plain version, as kernel 1's loss and gradients. The sampling
+harness's shapes: the scorer at hidden 64 on (10000, 2) and (10000, 3) at
+its 1e-4, kernel 2 at mapping 32 at its 1e-5 and its jvp rule at its
+orders' bounds.
 """
 
 import numpy as np
@@ -1085,3 +1088,48 @@ def test_heat_inverse_loss_and_coefficient_gradient_through_kernel2(cuda_device)
     assert float(l_k["data"]) > 0
     for a, b in zip(g_k, g_p):
         assert _rel(a, b) < 1e-4
+
+
+# The sampling harness's shapes: its agent (hidden 64) on the 100 x 100 grid
+# with (x, t) and with the residual feature, and its Fourier trunk (mapping
+# 32) on the BC / IC batches (5000 rows) and the 64^2 evaluation grid.
+@pytest.mark.parametrize("d", [2, 3])
+def test_fused_mlp_score_at_the_sampling_harness_width(cuda_device, d):
+    from pinnrl_tpu_torch.ops.kernels import mlp
+
+    params = _scorer_params(64, 1, cuda_device, state_dim=d)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = 2.0 * torch.rand((10000, d), generator=gen, device=cuda_device) - 1.0
+    before = mlp.fused_mlp_score.launches
+    with torch.no_grad():
+        got = mlp.fused_mlp_score(x, params)
+        again = mlp.fused_mlp_score(x, params)
+        ref = mlp.fused_mlp_score_plain(x, params)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_score.launches == before + 2
+    assert got.shape == (10000, 1) and _rel(got, ref) < 1e-4 and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n", [5000, 4096])
+def test_fourier_features_at_mapping_32(cuda_device, n):
+    """The harness's basis (2, 32): eight feature quads; forward, gradient
+    and the jvp rule (wave's velocity IC) at orders 1-2 along t."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = 2.0 * torch.rand((n, 2), generator=gen, device=cuda_device) - 1.0
+    B = 2.0 * torch.randn((2, 32), generator=gen, device=cuda_device)
+    got = fourier_feats.fourier_features(x, B, True)
+    assert _rel(got, fourier_feats.fourier_features_plain(x, B, True)) < 1e-5
+    assert torch.equal(got, fourier_feats.fourier_features(x, B, True))
+    xg = x.clone().requires_grad_(True)
+    g_out = torch.randn((n, 64), generator=gen, device=cuda_device)
+    gk = torch.autograd.grad(fourier_feats.fourier_features(xg, B, True), xg, g_out)[0]
+    gp = torch.autograd.grad(fourier_feats.fourier_features_plain(xg, B, True), xg, g_out)[0]
+    assert _rel(gk, gp) < 1e-5
+    v = torch.zeros_like(x)
+    v[:, 1] = 1.0
+    for order in (1, 2):
+        k = _nested(lambda xx: fourier_feats.fourier_features(xx, B, True), x, v, order)
+        p = _nested(lambda xx: fourier_feats.fourier_features_plain(xx, B, True), x, v, order)
+        assert _rel(k, p) < 1e-4 * 10 ** (order - 1), order

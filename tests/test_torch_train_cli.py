@@ -67,7 +67,11 @@ def test_flags_resolve_and_refuse_as_jax():
     with pytest.raises(ValueError, match="inverse mode requires"):
         train.build_config(train.parse_args(["--pde", "heat", "--mode", "inverse",
                                              "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    argv = ["--pde", "heat_2d", "--dataset", "synthetic_heat_2d"]
+    well = train.build_config(train.parse_args(argv + ["--device", "cpu"]))
+    assert well.training.mode == "data_only" and well.pde.observation_data["source"] == "well"
+    assert well.to_dict()["pde"] == jax_train.build_config(jax_train.parse_args(argv)).to_dict()["pde"]
+    with pytest.raises(KeyError, match="Unknown Well dataset"):
         train.build_config(train.parse_args(["--pde", "heat", "--dataset", "x", "--device", "cpu"]))
     cfg = train.build_config(train.parse_args(["--pde", "heat", "--profile-dir", "p",
                                                "--device", "cpu"]))
