@@ -233,6 +233,35 @@ Phases (each raises on failure, and the script then exits non-zero):
                ``GridFNO2D`` on the card against the CPU on the same weights
                (48^2 and 96^2), and ``training.train --pde heat_2d
                --dataset synthetic_heat_2d --epochs 2``.
+ 34. levers  — the Burgers recipe slice (phase 4's: Fourier 256x3,
+               mapping 128, batch 8192 of 40000, uniform), 4 epochs per
+               lever, each run's launches counted: RBW and LRW adaptive
+               weights (kernel 1 exactly once per step and validation, the
+               weighted loss finite and falling, the weights summing to 1);
+               ``reduce_lr`` with patience 1 at lr 1e-2 (the scale after
+               every step printed; it must drop); ``param_ema`` 0.99 with adam_lbfgs
+               (phase 2 must start from the debiased average; kernel 1 once
+               per Adam step, L-BFGS evaluation and validation); the
+               smoothness and gPINN penalties at 0.1 (kernel 1 per loss,
+               kernel 2's jvp rule under gPINN); a run checkpointed at epoch
+               2 and resumed in a fresh trainer, against the uninterrupted
+               run (bit-identity printed; within 1e-6); ``profile_dir`` (a
+               Chrome trace of the second chunk, its device kernel events
+               counted); host syncs of one Adam step under each of RBW, LRW,
+               the plateau, EMA and the penalties: none.
+ 35. marching — ``run_time_marching("kdv", n_windows=4,
+               epochs_per_window=2)`` at the recipe's width (Fourier 256x3,
+               mapping 256, ``feature_seed`` 0, batch 8192, causal): per
+               window kernel 1 once per loss and kernel 2 twice per loss (the
+               Dirichlet faces and the IC), three times from window 1 on
+               (the inherited IC through the previous window's model); each
+               window's parameters unchanged by the later windows;
+               ``benchmarks.cli convergence --pde heat --time-marching 2
+               --epochs 8``; ``run_multistage`` on the heat recipe with one
+               correction stage, 4 epochs each (kernel 1 on stage 0 only;
+               the base unchanged); hard IC on the wave recipe and on the
+               Burgers slice, 3 epochs (the IC loss under 1e-10, kernel 1
+               never); ``CollocationAgent`` on the card, 5 updates.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -303,7 +332,10 @@ launch's own grid, ``ms_gemm_blocks``), and phase 9's A/Bs
 ``product_ab_ms`` and ``split_ab_ms``. Kernel 2's carries ``floor_ms`` (the
 empty kernel on its grid), ``shapes`` (ms, plain, eager and bound at each
 shape timed), ``host_us`` (the split of its eager call) and ``ptxas``.
-A ``[harnesses]`` line before it carries phases 31-33's rows. The last
+A ``[harnesses]`` line before it carries phases 31-33's rows, and a
+``[levers]`` line phases 34-35's (kernel 1's entry carries their launches,
+``resume`` and, per window, ``kdv_time_marching_launches``; kernel 2's
+its launches there). The last
 line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -473,9 +505,20 @@ FDM_TOL = 1e-5
 OPERATOR_EPOCHS = 6
 GRIDDED_EPOCHS = 40
 GRID_FNO_TOL = 1e-5
-CLI_FILES = {"config.yaml", "experiment.log", "final_model.json", "final_model.npz",
-             "history.json", "live_snapshot.npz", "metadata.json", "metrics.json",
-             "visualizations"}
+CLI_FILES = {"checkpoint.json", "checkpoint.npz", "config.yaml", "experiment.log",
+             "final_model.json", "final_model.npz", "history.json", "live_snapshot.npz",
+             "metadata.json", "metrics.json", "visualizations"}
+# Phase 34: the Burgers recipe slice per lever, 4 epochs of 4 steps (with
+# adam_lbfgs: 2 Adam epochs, then 2 L-BFGS iterations on all 40000 points).
+LEVER_EPOCHS = 4
+# Phase 35: the heat recipe and its correction stage, epochs each; hard IC
+# on wave and the Burgers slice, epochs; the IC loss's bound under hard IC
+# (MSE: the velocity IC's target against the exact solution's jvp, float32
+# rounding); CollocationAgent updates.
+MULTISTAGE_EPOCHS = 4
+HARD_IC_EPOCHS = 3
+HARD_IC_TOL = 1e-10
+COLLOCATION_UPDATES = 5
 
 
 def nvidia_smi_line() -> str:
@@ -1995,6 +2038,378 @@ def operator_runs(dev, card: str):
     return out
 
 
+def _launches():
+    """The four kernels' launch counters and kernel 2's jvp-rule calls."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp, siren
+
+    ff = fourier_feats.fourier_features
+    return {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+            "fourier_features": ff.launches, "fourier_features_jvps": ff.jvps,
+            "siren_layer": siren.siren_layer.launches,
+            "fused_mlp_score": mlp.fused_mlp_score.launches}
+
+
+@contextlib.contextmanager
+def per_train_launches():
+    """Each ``PDETrainer.train`` inside the block, in order: (trainer, the
+    launches its run made, by difference, and a copy of the network's
+    parameters at its end)."""
+    import torch
+
+    from pinnrl_tpu_torch.training import trainer as trainer_mod
+
+    seen = []
+    train = trainer_mod.PDETrainer.train
+
+    def recording(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = _launches()
+        res = train(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen.append((self, {k: v - before[k] for k, v in _launches().items()},
+                     {k: v.detach().clone() for k, v in self.model.params.items()}))
+        return res
+
+    trainer_mod.PDETrainer.train = recording
+    try:
+        yield seen
+    finally:
+        trainer_mod.PDETrainer.train = train
+
+
+def lever_config(device: str, **training):
+    """The Burgers recipe slice (``burgers_recipe_config``: Fourier 256x3,
+    mapping 128, batch 8192 of 40000, uniform, Adam) at ``LEVER_EPOCHS``
+    epochs, one validation per epoch, with ``training``'s overrides."""
+    cfg = burgers_recipe_config(device)
+    t = cfg.training
+    t.num_epochs, t.validation_frequency = LEVER_EPOCHS, 1
+    for k, v in training.items():
+        setattr(t, k, v)
+    return cfg
+
+
+def lever_runs(dev, card: str):
+    """Phase 34: the trainer's levers on the Burgers recipe slice (see the
+    module docstring)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+    from pinnrl_tpu_torch.training.trainer import AdamStep
+
+    steps_per_epoch = 40000 // 8192
+    out = {}
+
+    def trainer(cfg):
+        return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+
+    def check_syncs(name, tr):
+        """Host round trips of one warm Adam step of the lever's trainer
+        (an EMA step too where the trainer keeps a shadow): none."""
+        n, sites = count_syncs(tr, 8192)
+        out[name]["syncs_per_step"] = n
+        print(f"[levers] {name}: host syncs per Adam step {n} {sites} ({card})", flush=True)
+        if n:
+            raise AssertionError(f"{name}: {n} host syncs per Adam step at {sites}")
+
+    def run(name, tr, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with per_train_launches() as seen:
+            res = tr.train(seed=0, **kw)
+        wall = time.perf_counter() - t0
+        ((_, launches, _),) = seen
+        hist = res["history"]
+        entry = {"launches": launches, "train_loss": hist["train_loss"], "wall_s": wall,
+                 "validations": len(hist["val_loss"])}
+        out[name] = entry
+        return res, entry
+
+    # Adaptive weights: kernel 1 once per step and per validation, the loss
+    # finite and falling, each epoch's mean weights summing to 1.
+    for strategy in ("rbw", "lrw"):
+        cfg = lever_config("cuda")
+        cfg.training.adaptive_weights.enabled = True
+        cfg.training.adaptive_weights.strategy = strategy
+        tr = trainer(cfg)
+        res, e = run(strategy, tr)
+        hist = res["history"]
+        steps = LEVER_EPOCHS * steps_per_epoch
+        want = steps + e["validations"]
+        sums = [sum(w[:3]) for w in hist["adaptive_weights"]]
+        print(f"[levers] {strategy}: {steps} Adam steps, {e['validations']} validations in "
+              f"{e['wall_s']:.2f} s; weighted loss "
+              f"{' '.join(f'{v:.4e}' for v in hist['train_loss'])}; "
+              f"weights {[[round(v, 4) for v in w[:3]] for w in hist['adaptive_weights']]}; "
+              f"launches {e['launches']} (kernel 1 want {want}) ({card})", flush=True)
+        if not (e["launches"]["fused_residual_loss"] == want
+                and all(map(math.isfinite, hist["train_loss"]))
+                and hist["train_loss"][-1] < hist["train_loss"][0]
+                and all(abs(s - 1.0) < 1e-5 for s in sums)):
+            raise AssertionError(f"{strategy}: {e}, weight sums {sums}")
+        check_syncs(strategy, tr)
+
+    # The plateau schedule: a patience of 1 step at lr 1e-2 (at the recipe's
+    # 2e-3 the slice's loss falls at every one of its 16 steps); the scale
+    # after every step.
+    cfg = lever_config("cuda", scheduler_type="reduce_lr")
+    cfg.training.lr_scheduler.patience = 1
+    cfg.training.optimizer_config.learning_rate = 1e-2
+    tr = trainer(cfg)
+    scales = []
+    step = AdamStep.step
+
+    def recording_step(self, value=None):
+        step(self, value)
+        if self.plateau is not None:
+            scales.append(self.scale.clone())
+
+    AdamStep.step = recording_step
+    try:
+        res, e = run("reduce_lr", tr)
+    finally:
+        AdamStep.step = step
+    traj = [float(s) for s in scales]
+    e["scales"] = traj
+    print(f"[levers] reduce_lr (factor {cfg.training.lr_scheduler.factor}, patience 1, lr "
+          f"1e-2): scale after each step {traj}; learning_rate history {res['history']['learning_rate']}; "
+          f"launches {e['launches']} ({card})", flush=True)
+    if not (len(traj) == LEVER_EPOCHS * steps_per_epoch and min(traj) < 1.0
+            and all(map(math.isfinite, e["train_loss"]))):
+        raise AssertionError(f"reduce_lr: scales {traj}")
+    check_syncs("reduce_lr", tr)
+
+    # EMA 0.99 with adam_lbfgs: phase 2 starts from the debiased average.
+    cfg = lever_config("cuda", param_ema=0.99, optimizer="adam_lbfgs",
+                       adam_lbfgs_switch_ratio=0.5)
+    tr = trainer(cfg)
+    at_switch, starts = [], []
+    ema_apply, lbfgs_step = tr._ema_apply, tr._lbfgs_step
+
+    def recording_apply(params):
+        if not at_switch:
+            at_switch.append([a.clone() for a in tr._ema_read()])
+        ema_apply(params)
+
+    def recording_lbfgs(params, opt, batch, generator):
+        if not starts:
+            starts.append([p.detach().clone() for p in params.values()])
+        return lbfgs_step(params, opt, batch, generator)
+
+    tr._ema_apply, tr._lbfgs_step = recording_apply, recording_lbfgs
+    evals0 = LBFGS.evaluations
+    res, e = run("ema_adam_lbfgs", tr)
+    evals = LBFGS.evaluations - evals0
+    switch = LEVER_EPOCHS // 2
+    want = switch * steps_per_epoch + evals + e["validations"]
+    same = all(torch.equal(a, b) for a, b in zip(at_switch[0], starts[0]))
+    e.update(evaluations=evals, starts_from_average=same)
+    print(f"[levers] param_ema 0.99, adam_lbfgs: {switch} Adam epochs, {LEVER_EPOCHS - switch} "
+          f"L-BFGS iterations ({evals} evaluations); phase 2 starts from the debiased average: "
+          f"{same}; losses {e['train_loss']}; launches {e['launches']} (kernel 1 want {want}) "
+          f"({card})", flush=True)
+    if not (same and e["launches"]["fused_residual_loss"] == want
+            and all(map(math.isfinite, e["train_loss"]))):
+        raise AssertionError(f"ema: {e}")
+    check_syncs("ema_adam_lbfgs", tr)
+
+    # The smoothness and gPINN penalties at 0.1 each.
+    cfg = lever_config("cuda")
+    cfg.training.loss_weights.update({"smoothness": 0.1, "gpinn": 0.1})
+    tr = trainer(cfg)
+    res, e = run("penalties", tr)
+    comps = res["history"]["loss_components"]
+    want = LEVER_EPOCHS * steps_per_epoch + e["validations"]
+    print(f"[levers] smoothness 0.1 + gPINN 0.1: losses {e['train_loss']}; smoothness "
+          f"{comps['smoothness']}; {e['wall_s']:.2f} s; launches {e['launches']} (kernel 1 want "
+          f"{want}) ({card})", flush=True)
+    if not (e["launches"]["fused_residual_loss"] == want
+            and e["launches"]["fourier_features_jvps"] > 0
+            and all(map(math.isfinite, e["train_loss"]))
+            and e["train_loss"][-1] < e["train_loss"][0] and min(comps["smoothness"]) > 0.0):
+        raise AssertionError(f"penalties: {e}")
+    check_syncs("penalties", tr)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # Checkpointed at epoch 2 and resumed against the uninterrupted run.
+        keep = Path(tmp) / "ck"
+        tr = trainer(lever_config("cuda", optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+                                  param_ema=0.9))
+        save = tr._save_checkpoint
+
+        def saving(path, epoch, *args):
+            save(path, epoch, *args)
+            if epoch == 2:
+                keep.mkdir()
+                for f in ("checkpoint.npz", "checkpoint.json"):
+                    (keep / f).write_bytes((path.parent / f).read_bytes())
+
+        tr._save_checkpoint = saving
+        res, e = run("uninterrupted", tr, experiment_dir=str(Path(tmp) / "a"))
+        tr2 = trainer(lever_config("cuda", optimizer="adam_lbfgs", adam_lbfgs_switch_ratio=0.5,
+                                   param_ema=0.9))
+        res2, e2 = run("resumed", tr2, experiment_dir=str(Path(tmp) / "b"),
+                       resume_from=str(keep / "checkpoint.npz"))
+        p1, p2 = tr.model.params, tr2.model.params
+        bits = (res2["history"]["train_loss"] == res["history"]["train_loss"]
+                and all(torch.equal(p1[k], p2[k]) for k in p1))
+        p_diff = max(float((p1[k] - p2[k]).detach().abs().max()) for k in p1)
+        l_diff = max(abs(a - b) / abs(b) for a, b in zip(res2["history"]["train_loss"],
+                                                         res["history"]["train_loss"]))
+        out["resume"] = {"bit_identical": bits, "max_param_diff": p_diff, "max_loss_rel": l_diff,
+                         "resumed_launches": e2["launches"]}
+        print(f"[levers] resume at epoch 2 of {LEVER_EPOCHS} (adam_lbfgs, EMA 0.9): bit-identical "
+              f"to the uninterrupted run: {bits}; largest parameter difference {p_diff:.3e}, "
+              f"largest train_loss relative difference {l_diff:.3e}; the resumed run's launches "
+              f"{e2['launches']} ({card})", flush=True)
+        if not (p_diff <= 1e-6 and l_diff <= 1e-6):
+            raise AssertionError(f"resume: {out['resume']}")
+
+        # One profiler trace of the chunk after the first.
+        prof_dir = Path(tmp) / "prof"
+        tr = trainer(lever_config("cuda", profile_dir=str(prof_dir)))
+        res, e = run("profile", tr)
+        files = sorted(p.name for p in prof_dir.iterdir())
+        events = json.loads((prof_dir / files[0]).read_text())["traceEvents"]
+        device_events = sum(1 for ev in events if ev.get("cat") == "kernel")
+        e.update(files=files, events=len(events), kernel_events=device_events)
+        print(f"[levers] profile_dir: {files}, {len(events)} events, {device_events} device kernel "
+              f"events ({card})", flush=True)
+        if files != ["trace_epoch1.json"] or not events:
+            raise AssertionError(f"profile_dir: {files}")
+    return out
+
+
+def marching_runs(dev, card: str):
+    """Phase 35: time-marching, the heat CLI's time-marching row,
+    multi-stage correction, hard-IC and ``CollocationAgent`` (see the module
+    docstring)."""
+    import contextlib as _ctx
+    import io
+
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks import cli as bench_cli
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config, run_time_marching
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.rl import CollocationAgent
+    from pinnrl_tpu_torch.training import PDETrainer, StageSpec, run_multistage
+
+    out = {}
+    # KdV in 4 windows of 2 epochs at the recipe's width.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with per_train_launches() as seen:
+        r = run_time_marching("kdv", seed=0, n_windows=4, epochs_per_window=2, device="cuda")
+    wall = time.perf_counter() - t0
+    windows = []
+    for w, (tr, launches, _) in enumerate(seen):
+        steps = 2 * (tr.tcfg.num_collocation_points // tr.tcfg.batch_size)
+        n_losses = steps + len(tr.history["val_loss"])
+        # Per loss: the Dirichlet faces and the IC through the window's own
+        # model, and from window 1 on the inherited IC's target through the
+        # previous window's model.
+        want = {"fused_residual_loss": n_losses, "fourier_features": (2 if w == 0 else 3) * n_losses}
+        windows.append({"launches": launches, "want": want, "time_domain": tr.pde.time_domain,
+                        "train_loss": tr.history["train_loss"]})
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"kdv window {w}: launches {launches}, want {want}")
+    # Each window's parameters as its training left them (the next window's
+    # inherited IC reads them).
+    unchanged = all(torch.equal(tr.model.params[k], end[k]) for tr, _, end in seen for k in end)
+    tr0 = seen[0][0]
+    ap = tr0.model.config.arch_params
+    print(f"[marching] run_time_marching('kdv', 4 windows x 2 epochs; Fourier "
+          f"{tr0.model.config.hidden_dims}, mapping {ap['mapping_size']}, feature_seed "
+          f"{ap.get('feature_seed')}, batch {tr0.tcfg.batch_size}, causal {tr0.tcfg.causal_eps}): "
+          f"{r.pde} rel_l2 {r.rel_l2:.4e}, max error {r.max_error:.4e}, {wall:.2f} s; per window "
+          f"{windows}; earlier windows unchanged: {unchanged} ({card})", flush=True)
+    if not (r.pde == "kdv_tm4" and len(seen) == 4 and unchanged and math.isfinite(r.rel_l2)):
+        raise AssertionError(f"kdv time-marching: {r}, unchanged {unchanged}")
+    out["kdv_tm4"] = {"rel_l2": r.rel_l2, "wall_s": wall, "windows": windows}
+
+    # The benchmark CLI's time-marching row at the heat recipe's width.
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _ctx.redirect_stdout(buf):
+        rc = bench_cli.main(["convergence", "--pde", "heat", "--time-marching", "2", "--epochs",
+                             "8", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(f"[marching] benchmarks.cli convergence --pde heat --time-marching 2 --epochs 8: rc {rc}, "
+          f"{wall:.2f} s:\n{text.rstrip()}\n({card})", flush=True)
+    if not (rc == 0 and "heat_tm2" in text):
+        raise AssertionError(f"cli --time-marching: rc {rc}, {text}")
+    out["cli_heat_tm2"] = {"wall_s": wall, "table": text}
+
+    # Multi-stage: the heat recipe and one correction stage, 4 epochs each.
+    cfg = build_recipe_config("heat", epochs=MULTISTAGE_EPOCHS, device="cuda")
+    t0 = time.perf_counter()
+    with per_train_launches() as seen:
+        ms = run_multistage(cfg, [StageSpec(epochs=MULTISTAGE_EPOCHS)], seed=0)
+    wall = time.perf_counter() - t0
+    k1 = [launches["fused_residual_loss"] for _, launches, _ in seen]
+    base_tr, _, base_end = seen[0]
+    base_same = all(torch.equal(base_tr.model.params[k], v) for k, v in base_end.items())
+    print(f"[marching] run_multistage(heat, 1 correction stage, {MULTISTAGE_EPOCHS} epochs each): "
+          f"eps {ms.eps_history}, rel_l2 per stage "
+          f"{[m['rel_l2'] for m in ms.stage_metrics]}, {wall:.2f} s; kernel 1 per stage {k1}; "
+          f"base unchanged by the correction stage: {base_same}; launches "
+          f"{[launches for _, launches, _ in seen]} ({card})", flush=True)
+    if not (len(k1) == 2 and k1[0] > 0 and k1[1] == 0 and base_same
+            and all(math.isfinite(m["rel_l2"]) for m in ms.stage_metrics)):
+        raise AssertionError(f"multistage: kernel 1 {k1}")
+    out["multistage"] = {"kernel1_per_stage": k1, "eps": ms.eps_history, "wall_s": wall,
+                         "rel_l2": [m["rel_l2"] for m in ms.stage_metrics],
+                         "launches": [launches for _, launches, _ in seen]}
+
+    # Hard IC: wave (second-order ramp) and the Burgers slice (kernel 1 off).
+    for key in ("wave", "burgers"):
+        if key == "wave":
+            cfg = build_recipe_config("wave", epochs=HARD_IC_EPOCHS, device="cuda")
+        else:
+            cfg = lever_config("cuda")
+            cfg.training.num_epochs = HARD_IC_EPOCHS
+        cfg.model.hard_ic = True
+        tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+        with per_train_launches() as seen:
+            res = tr.train(seed=0)
+        ((_, launches, _),) = seen
+        ic = res["history"]["loss_components"]["initial"]
+        print(f"[marching] hard IC on {key}: IC loss per epoch {ic}; losses "
+              f"{res['history']['train_loss']}; launches {launches} ({card})", flush=True)
+        if not (launches["fused_residual_loss"] == 0 and max(ic) < HARD_IC_TOL
+                and all(map(math.isfinite, res["history"]["train_loss"]))):
+            raise AssertionError(f"hard IC {key}: IC {ic}, {launches}")
+        out[f"hard_ic_{key}"] = {"ic_loss": ic, "launches": launches}
+
+    # CollocationAgent on the card.
+    agent = CollocationAgent(device="cuda")
+    state = agent.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pts = torch.rand((4096, 2), generator=gen, device=dev)
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    for _ in range(COLLOCATION_UPDATES):
+        reward = torch.rand((4096, 1), generator=gen, device=dev)
+        state = agent.update(state, pts, reward, pts)
+        state = agent.update_epsilon(state)
+    scores = agent.get_action(state, pts, gen)
+    moved = max(float((state.params[k].detach() - before[k]).abs().max()) for k in before)
+    print(f"[marching] CollocationAgent: {COLLOCATION_UPDATES} updates on 4096 points, largest "
+          f"parameter move {moved:.3e}, epsilon {float(state.epsilon):.4f}, scores "
+          f"{tuple(scores.shape)} finite {bool(torch.isfinite(scores).all())} ({card})", flush=True)
+    if not (moved > 0 and scores.shape == (4096, 1) and bool(torch.isfinite(scores).all())):
+        raise AssertionError("CollocationAgent on the card")
+    out["collocation_agent"] = {"updates": COLLOCATION_UPDATES, "moved": moved}
+    return out
+
 
 def main() -> int:
     import torch
@@ -3484,6 +3899,10 @@ def main() -> int:
     fdm = fdm_runs(dev, card)
     op = operator_runs(dev, card)
 
+    # ---- 34-35. the trainer's levers; time-marching and multi-stage -------- #
+    levers = lever_runs(dev, card)
+    marching = marching_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -3536,7 +3955,15 @@ def main() -> int:
          "cli_launches": {k: r["fused_residual_loss"] for k, r in cli.items()},
          "shipped_fourier_512": cli["burgers_rl"]["kernel1_512"],
          "sampling_launches": {k: r["fused_residual_loss"] for k, r in samp["runs"].items()},
-         "operator_launches": op["pointwise"]["launches"]["fused_residual_loss"]},
+         "operator_launches": op["pointwise"]["launches"]["fused_residual_loss"],
+         "lever_launches": {k: v["launches"]["fused_residual_loss"] for k, v in levers.items()
+                            if "launches" in v},
+         "resume": levers["resume"],
+         "kdv_time_marching_launches": [w["launches"]["fused_residual_loss"]
+                                        for w in marching["kdv_tm4"]["windows"]],
+         "multistage_launches": marching["multistage"]["kernel1_per_stage"],
+         "hard_ic_launches": {k: marching[f"hard_ic_{k}"]["launches"]["fused_residual_loss"]
+                              for k in ("wave", "burgers")}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -3555,6 +3982,14 @@ def main() -> int:
                                      for k in ("forward", "data_augmented")},
          "cli_launches": {k: {"launches": r["fourier_features"], "jvps": r["fourier_features_jvps"]}
                           for k, r in cli.items()},
+         "lever_launches": {k: {"launches": v["launches"]["fourier_features"],
+                                "jvps": v["launches"]["fourier_features_jvps"]}
+                            for k, v in levers.items() if "launches" in v},
+         "kdv_time_marching_launches": [w["launches"]["fourier_features"]
+                                        for w in marching["kdv_tm4"]["windows"]],
+         "multistage_launches": [{"launches": v["fourier_features"],
+                                  "jvps": v["fourier_features_jvps"]}
+                                 for v in marching["multistage"]["launches"]],
          "sampling": {"shapes": samp["kernel2"], "jvp_rel": samp["kernel2_jvp_rel"],
                       "launches": {k: {"launches": r["fourier_features"],
                                        "jvps": r["fourier_features_jvps"]}
@@ -3592,6 +4027,7 @@ def main() -> int:
          "split_ab_ms": {f"split{s}": v for s, v in split_ab.items()}},
     ]
     print(f"[harnesses] {json.dumps({'sampling': samp['runs'], 'fdm': fdm, 'operator': op})}")
+    print(f"[levers] {json.dumps({'levers': levers, 'marching': marching}, default=str)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

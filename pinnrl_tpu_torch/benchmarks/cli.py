@@ -6,11 +6,13 @@
     python -m pinnrl_tpu_torch.benchmarks.cli operator --gridded --transfer 96
     python -m pinnrl_tpu_torch.benchmarks.cli inverse --pde all --csv out.csv
     python -m pinnrl_tpu_torch.benchmarks.cli convergence --pde heat
+    python -m pinnrl_tpu_torch.benchmarks.cli convergence --pde kdv --time-marching 4
 
 The JAX package's subcommands and flags; each runs on the card unless
 ``--device cpu``. ``--csv`` appends rows to an existing file (``fdm``
-writes its file anew, as JAX's does). ``convergence --time-marching``
-raises naming ROADMAP item 13.
+writes its file anew, as JAX's does). ``convergence --time-marching N``
+trains N time windows (``run_time_marching``); ``--epochs`` is then the
+total, split evenly across them.
 """
 
 from __future__ import annotations
@@ -18,8 +20,6 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
-
-from pinnrl_tpu_torch.benchmarks.convergence import _unported
 
 
 def _print_table(rows, headers):
@@ -147,13 +147,23 @@ def _inverse_command(args) -> int:
 
 
 def _convergence_command(args) -> int:
-    from pinnrl_tpu_torch.benchmarks.convergence import RECIPES, results_to_csv, run_convergence
+    from pinnrl_tpu_torch.benchmarks.convergence import (
+        RECIPES,
+        results_to_csv,
+        run_convergence,
+        run_time_marching,
+    )
 
-    if args.time_marching:
-        raise _unported("time-marching", 13)
     pdes = list(RECIPES) if args.pde == "all" else [args.pde]
-    results = [run_convergence(p, seed=args.seed, epochs=args.epochs, device=args.device)
-               for p in pdes]
+    if args.time_marching:
+        # --epochs is the total, split evenly across the windows.
+        per_window = max(args.epochs // args.time_marching, 1) if args.epochs else None
+        results = [run_time_marching(p, seed=args.seed, n_windows=args.time_marching,
+                                     epochs_per_window=per_window, device=args.device)
+                   for p in pdes]
+    else:
+        results = [run_convergence(p, seed=args.seed, epochs=args.epochs, device=args.device)
+                   for p in pdes]
     rows = [
         (r.pde, r.architecture, r.epochs, f"{r.rel_l2:.3e}", f"{r.max_error:.3e}",
          f"{r.wall_time_s:.0f}", f"{r.points_per_sec:.0f}")
@@ -200,7 +210,7 @@ def main(argv=None) -> int:
     p_c.add_argument("--epochs", type=int, default=None, help="Override recipe epochs")
     p_c.add_argument("--seed", type=int, default=0)
     p_c.add_argument("--time-marching", type=int, default=0, metavar="N_WINDOWS",
-                     help="Train N sequential time windows (not ported yet)")
+                     help="Train N sequential time windows (IC inherited between windows)")
     p_c.add_argument("--device", default="cuda", help="cuda | cpu")
     p_c.add_argument("--csv", default=None)
     p_c.set_defaults(func=_convergence_command)

@@ -20,9 +20,17 @@ L-BFGS (``adam_lbfgs``). ``allen_cahn_dynamics`` and
 steps times the batch, each L-BFGS epoch's iterations times the L-BFGS
 batch (the JAX package counts every epoch at the Adam batch).
 An unknown key raises KeyError; ``experiment_dir`` writes the run's
-experiment directory (no plots, validation at least every tenth of the
-run, as the JAX package does); resume raises naming item 9; time-marching
-raises naming item 13 (no shipped recipe is multi-stage).
+experiment directory with its checkpoints (no plots, validation at least
+every tenth of the run, as the JAX package does), and ``resume_from``
+continues from such a checkpoint. A recipe with ``stages`` trains through
+``training.multistage.run_multistage`` (no shipped recipe has them).
+
+``run_time_marching`` trains the horizon as equal windows, each from the
+previous window's weights (copied: the port's trainer updates parameters in
+place) with its IC taken from the previous window's model at the window's
+start, and validates the stitched solution on 20000 / n_windows points per
+window. Those points come from ``torch.Generator().manual_seed(1234)``
+(JAX: ``PRNGKey(1234)``).
 """
 
 from __future__ import annotations
@@ -31,10 +39,15 @@ import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
+import numpy as np
+import torch
+
 from pinnrl_tpu_torch.config import Config, load_config
 from pinnrl_tpu_torch.models import PINNModel
 from pinnrl_tpu_torch.pdes import create_pde
+from pinnrl_tpu_torch.sampling import sample_uniform
 from pinnrl_tpu_torch.training import PDETrainer
+from pinnrl_tpu_torch.training.multistage import StageSpec, run_multistage
 
 
 @dataclass
@@ -321,10 +334,6 @@ RECIPES: Dict[str, dict] = {
 }
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
-
-
 def _recipe(pde_key: str) -> dict:
     if pde_key not in RECIPES:
         raise KeyError(f"unknown convergence recipe {pde_key!r}; valid: {sorted(RECIPES)}")
@@ -388,9 +397,9 @@ def run_convergence(
     """Train one recipe and validate it on 20000 uniform points.
 
     ``train_seed`` (default: ``seed``) varies only the training draws; the
-    model seed fixes the initial weights."""
-    if resume_from is not None:
-        raise _unported("checkpoint resume", 9)
+    model seed fixes the initial weights (and the Fourier basis), so a run
+    resumed from ``experiment_dir``'s checkpoint keeps ``seed`` and may vary
+    ``train_seed`` to draw fresh L-BFGS batches."""
     recipe = _recipe(pde_key)
     cfg = build_recipe_config(pde_key, epochs, device=device)
     t = cfg.training
@@ -398,11 +407,28 @@ def run_convergence(
         cfg.evaluation.save_plots = False
         t.validation_frequency = min(t.validation_frequency, max(t.num_epochs // 10, 1))
     pde = create_pde(cfg)
+    stages = recipe.get("stages")
+    if stages:
+        # The base and its correction stages; ``epochs`` caps the base.
+        specs = [StageSpec(**s) for s in stages]
+        t0 = time.perf_counter()
+        ms = run_multistage(cfg, specs, seed=seed, pde=pde)
+        wall = time.perf_counter() - t0
+        val = ms.stage_metrics[-1]
+        total_epochs = t.num_epochs + sum(s.epochs or t.num_epochs for s in specs)
+        batch = min(t.batch_size, t.num_collocation_points)
+        steps = total_epochs * max(t.num_collocation_points // batch, 1)
+        return ConvergenceResult(
+            pde=pde_key, architecture=recipe["arch"], epochs=total_epochs,
+            rel_l2=val.get("rel_l2", float("nan")), max_error=val.get("max_error", float("nan")),
+            final_train_loss=float("nan"), wall_time_s=wall,
+            points_per_sec=steps * batch / wall, seed=seed,
+        )
     model = PINNModel(cfg, seed=seed)
     trainer = PDETrainer(model, pde, cfg)
     t0 = time.perf_counter()
     res = trainer.train(seed=seed if train_seed is None else train_seed,
-                        experiment_dir=experiment_dir)
+                        experiment_dir=experiment_dir, resume_from=resume_from)
     wall = time.perf_counter() - t0
     params = trainer._final_state["params"]["net"]
     val = pde.validate(model.apply, params, num_points=20000)
@@ -445,6 +471,93 @@ def results_to_csv(results: Sequence[ConvergenceResult]) -> str:
 
 
 def run_time_marching(pde_key: str, seed: int = 0, n_windows: int = 4,
-                      epochs_per_window: Optional[int] = None, mutate=None) -> ConvergenceResult:
-    """Time-marching training over sequential windows of the horizon."""
-    raise _unported("time-marching", 13)
+                      epochs_per_window: Optional[int] = None, mutate=None,
+                      device: str = "cuda") -> ConvergenceResult:
+    """Time-marching training: window k trains on [t_k, t_{k+1}] with its
+    initial condition taken from window k-1's trained model at t_k (window
+    0 keeps the problem's IC) and starts from window k-1's weights. The
+    stitched solution is validated window by window against the exact
+    solution and aggregated into one rel-L2, returned as ``<key>_tm<N>``.
+
+    ``mutate(cfg)``, when given, is applied to every window's config; it
+    must keep the window's ``time_domain`` and ``num_epochs``. Window k's
+    inherited IC reads window k-1's parameters, which no later window's
+    optimizer holds (each window starts from copies)."""
+    cfg0 = build_recipe_config(pde_key, device=device)
+    t_lo_full, t_hi_full = cfg0.pde.time_domain
+    edges = np.linspace(t_lo_full, t_hi_full, n_windows + 1)
+    epw = epochs_per_window or max(cfg0.training.num_epochs // n_windows, 1)
+
+    prev = None  # (apply_fn, params) of the previous window's model
+    window_models = []
+    total_wall = 0.0
+    total_loss = 0.0
+    for w in range(n_windows):
+        cfg = build_recipe_config(pde_key, epochs=epw, device=device)
+        cfg.pde.time_domain = [float(edges[w]), float(edges[w + 1])]
+        cfg.training.validation_frequency = max(epw // 2, 1)
+        if mutate is not None:
+            mutate(cfg)
+        pde = create_pde(cfg)
+        model = PINNModel(cfg, seed=seed)
+        if prev is not None:
+            prev_apply, prev_params = prev
+            t_anchor = float(edges[w])
+
+            def inherited_ic(x, t, _a=prev_apply, _p=prev_params, _t=t_anchor):
+                z = torch.cat([x, torch.full((x.shape[0], 1), _t, dtype=x.dtype, device=x.device)],
+                              dim=-1)
+                return _a(_p, z).reshape(x.shape[0], -1)[:, 0:1]
+
+            pde.boundary_conditions["initial"] = inherited_ic
+            # Warm start from the previous window's weights, as copies.
+            with torch.no_grad():
+                for k, p in model.params.items():
+                    p.copy_(prev_params[k])
+        trainer = PDETrainer(model, pde, cfg)
+        t0 = time.perf_counter()
+        res = trainer.train(seed=seed + w)
+        total_wall += time.perf_counter() - t0
+        total_loss = res["final_train_loss"]
+        params = trainer._final_state["params"]["net"]
+        window_models.append((model.apply, params, pde))
+        prev = (model.apply, params)
+
+    x_t = [_stitch_points(pde, 20000 // n_windows) for _, _, pde in window_models]
+    rel_l2, max_err = _stitched_errors(window_models, x_t)
+    t = cfg0.training
+    batch = min(t.batch_size, t.num_collocation_points)
+    steps = n_windows * epw * max(t.num_collocation_points // batch, 1)
+    return ConvergenceResult(
+        pde=f"{pde_key}_tm{n_windows}",
+        architecture=RECIPES[pde_key]["arch"],
+        epochs=n_windows * epw,
+        rel_l2=rel_l2,
+        max_error=max_err,
+        final_train_loss=total_loss,
+        wall_time_s=total_wall,
+        points_per_sec=steps * batch / max(total_wall, 1e-9),
+        seed=seed,
+    )
+
+
+def _stitch_points(pde, n: int):
+    """A window's validation points: uniform, from a generator seeded 1234."""
+    return sample_uniform(torch.Generator(device=pde.device).manual_seed(1234), n, pde.domain,
+                          pde.time_domain)
+
+
+@torch.no_grad()
+def _stitched_errors(window_models, x_t):
+    """(rel-L2, max error) of the stitched solution: each window's (apply,
+    params, pde) on its points ``x_t[k]`` = (x, t), the squared errors and
+    the exact solution's squares summed over every window."""
+    err_sq, exact_sq, max_err = 0.0, 0.0, 0.0
+    for (apply_fn, params, pde), (x, tt) in zip(window_models, x_t):
+        ex = pde.exact_solution(x, tt)
+        pred = apply_fn(params, torch.cat([x, tt], -1)).reshape(x.shape[0], -1)[:, 0:1]
+        diff = (pred - ex.reshape(pred.shape)).cpu().numpy()  # float32 sums, as JAX's
+        err_sq += float((diff**2).sum())
+        exact_sq += float((ex.cpu().numpy() ** 2).sum())
+        max_err = max(max_err, float(np.abs(diff).max()))
+    return (err_sq ** 0.5) / ((exact_sq ** 0.5) + 1e-12), max_err

@@ -27,8 +27,12 @@ path, a dict, an (x, t, u) tuple or a The Well spec ``{"source": "well",
 ``observation_data``, or ``generate_synthetic_observations`` at the true
 coefficients) add the data term, which draws nothing.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-gPINN (item 10), the smoothness penalty and hard-IC transform (item 13).
+The loss's optional terms, as the JAX package computes them: the
+finite-difference smoothness penalty (``loss_weights.smoothness``), the
+gPINN penalty (``loss_weights.gpinn``: mean over points of |dr/dz|^2, one
+``torch.func.jvp`` of the batched residual per input axis on the nested-jvp
+engine) and the hard-IC output transform (``hard_ic_transform``). None of
+them draws, so the generator's stream is JAX's order of draws.
 """
 
 from __future__ import annotations
@@ -618,10 +622,6 @@ class PDEBase:
         by time. The data term, on the observations, comes after every draw.
         """
         lw = self._loss_weights()
-        if float(lw.get("smoothness", 0.0)) > 0:
-            raise NotImplementedError("the smoothness penalty is not ported yet (ROADMAP item 13)")
-        if float(lw.get("gpinn", 0.0)) > 0:
-            raise NotImplementedError("the gPINN penalty is not ported yet (ROADMAP item 10)")
         generator = generator if generator is not None else _default_generator(x.device)
         use_fused = (
             self._fused_residual_loss is not None
@@ -651,8 +651,109 @@ class PDEBase:
 
         zero = torch.zeros((), device=x.device)
         data_loss = self._compute_data_loss(apply_fn, params)
-        return self._assemble_total(residual_loss, boundary_loss, initial_loss, zero,
-                                    zero if data_loss is None else data_loss, zero)
+        smoothness_loss = gpinn_loss = zero
+        if float(lw.get("smoothness", 0.0)) > 0:
+            smoothness_loss = self._fd_smoothness(apply_fn, params, x, t)
+        if float(lw.get("gpinn", 0.0)) > 0:
+            gpinn_loss = self._gpinn_loss(apply_fn, params, x, t, coeffs)
+        return self._assemble_total(residual_loss, boundary_loss, initial_loss, smoothness_loss,
+                                    zero if data_loss is None else data_loss, gpinn_loss)
+
+    def _fd_smoothness(self, apply_fn, params, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The finite-difference gradient-magnitude penalty: per space axis,
+        mean |du| of a forward and a backward difference of step 1e-4, each
+        shifted point clipped to the domain."""
+        eps = 1e-4
+
+        def u_fn(xx):
+            return apply_fn(params, torch.cat([xx, t], dim=-1)).reshape(xx.shape[0], -1)[:, 0:1]
+
+        u_c = u_fn(x)
+        loss = torch.zeros((), device=x.device)
+        for d in range(self.dimension):
+            lo, hi = self.domain[d]
+            x_p, x_m = x.clone(), x.clone()
+            x_p[:, d] = torch.clamp(x[:, d] + eps, lo, hi)
+            x_m[:, d] = torch.clamp(x[:, d] - eps, lo, hi)
+            du_f = (u_fn(x_p) - u_c) / eps
+            du_b = (u_c - u_fn(x_m)) / eps
+            loss = loss + torch.mean(torch.abs(du_f)) + torch.mean(torch.abs(du_b))
+        return loss
+
+    def _gpinn_loss(self, apply_fn, params, x: torch.Tensor, t: torch.Tensor,
+                    coeffs: Optional[Coeffs] = None) -> torch.Tensor:
+        """The gradient-enhanced residual penalty (gPINN): mean over the
+        points of |grad_z r|^2, summed over a system's channels. The residual
+        is point-wise, so one jvp of the batched residual with tangent e_k on
+        every point gives dr/dz_k per point; it runs on the nested-jvp
+        engine, one order above the residual (KdV: 4)."""
+        z = torch.cat([x, t], dim=-1)
+        if self.system_size > 1:
+            k = self.system_size
+
+            def uvec(zz: torch.Tensor) -> torch.Tensor:
+                return apply_fn(params, zz).reshape(zz.shape[0], -1)[:, :k]
+
+            def r_fn(zz):
+                return self.residual_pointwise_system(uvec, zz, coeffs).reshape(zz.shape[0], -1)
+        else:
+            u = self._scalar_u(apply_fn, params)
+
+            def r_fn(zz):
+                return self.residual_pointwise(u, zz, coeffs).reshape(zz.shape[0], -1)
+
+        sq = 0.0
+        for axis in range(z.shape[1]):
+            g = torch.func.jvp(r_fn, (z,), (_tangent(z, axis),))[1]
+            sq = sq + torch.sum(g**2, dim=-1)
+        return torch.mean(sq)
+
+    def hard_ic_transform(self) -> Callable:
+        """An output transform that imposes the initial condition exactly:
+
+            u(x, t) = u0(x) [+ (t - t0) v0(x)] + ramp(t) net(x, t)
+
+        with ramp tanh(tau) for a PDE first order in time and tanh(tau)^2
+        (zero value and slope at t0) for one second order in time, tau = (t -
+        t0) / T. T is ``hard_ic_timescale`` (the PDE block's, else its
+        parameters') or min(horizon, 1). The velocity v0 is d/dt of the
+        exact solution at t0 (a ``torch.func.jvp`` in t) where one is
+        configured, else 0. Scalar (``output_dim == 1``) PDEs only; the
+        trainer installs it when ``model.hard_ic`` is set."""
+        ic_fn = self.boundary_conditions.get("initial")
+        if ic_fn is None:
+            raise ValueError(f"{self.pde_type}: hard_ic requires an initial condition")
+        if int(self.settings.output_dim or 1) != 1:
+            raise ValueError("hard_ic supports scalar (output_dim == 1) PDEs only")
+        t0 = float(self.time_domain[0])
+        horizon = float(self.time_domain[1]) - t0
+        timescale = float(getattr(self.settings, "hard_ic_timescale", None)
+                          or self.parameters.get("hard_ic_timescale")
+                          or min(horizon, 1.0))
+        second_order = 2 in tuple(self.temporal_orders)
+        has_exact = bool(self.settings.exact_solution)
+
+        def transform(z: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+            flat = z.reshape(-1, z.shape[-1])
+            x, t = flat[:, :-1], flat[:, -1:]
+            tt0 = torch.full_like(t, t0)
+            u0 = ic_fn(x, tt0)
+            tau = (t - t0) / timescale
+            if second_order:
+                ramp = torch.tanh(tau) ** 2
+                if has_exact:
+                    v0 = torch.func.jvp(lambda s: self.exact_solution(x, s), (tt0,),
+                                        (torch.ones_like(tt0),))[1]
+                else:
+                    v0 = torch.zeros_like(u0)
+                base = u0 + (t - t0) * v0
+            else:
+                ramp = torch.tanh(tau)
+                base = u0
+            res = base + ramp * out.reshape(flat.shape[0], -1)
+            return res.reshape(out.shape)
+
+        return transform
 
     def _add_velocity_ic(self, losses: Dict[str, torch.Tensor], apply_fn, params,
                          generator: torch.Generator, n_colloc: int, target_fn: Callable):

@@ -2,6 +2,7 @@
 
 from pinnrl_tpu_torch.rl.dqn import (  # noqa: F401
     CollocationAgent,
+    CollocationAgentState,
     DQNNetwork,
     RLAgent,
     RLAgentState,

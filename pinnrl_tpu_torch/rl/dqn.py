@@ -22,9 +22,11 @@ so the tests feed both packages the same numbers.
 ``save_state`` / ``load_state`` keep a state in an ``.npz``: the policy
 and target weights by flax path (``models/bridge.py``), the Adam moments
 and step counts, the replay buffer, epsilon, the episode reward and the
-counters.
+counters. ``state_arrays`` / ``load_arrays`` give and take the same
+arrays in memory (a trainer's checkpoint holds them).
 
-Not ported yet: ``CollocationAgent`` (ROADMAP item 13).
+``CollocationAgent`` is the lighter scorer without replay or target
+network.
 """
 
 from __future__ import annotations
@@ -278,8 +280,8 @@ class RLAgent:
     _BUFFERS = ("buf_state", "buf_reward", "buf_next", "buf_done", "epsilon", "episode_reward")
     _COUNTERS = ("ptr", "size", "steps")
 
-    def save_state(self, path: str, state: RLAgentState) -> None:
-        """``state`` as an ``.npz`` (see the module docstring)."""
+    def state_arrays(self, state: RLAgentState) -> Dict[str, np.ndarray]:
+        """``state`` as numpy arrays (see the module docstring)."""
         from pinnrl_tpu_torch.models.bridge import dqn_params_to_flax
 
         out = {}
@@ -297,16 +299,18 @@ class RLAgent:
             out[name] = getattr(state, name).detach().cpu().numpy()
         for name in self._COUNTERS:
             out[name] = np.asarray(getattr(state, name))
-        with open(path, "wb") as f:
-            np.savez(f, **out)
+        return out
 
-    def load_state(self, path: str, template: RLAgentState) -> RLAgentState:
+    def save_state(self, path: str, state: RLAgentState) -> None:
+        """``state`` as an ``.npz`` (``state_arrays``)."""
+        with open(path, "wb") as f:
+            np.savez(f, **self.state_arrays(state))
+
+    def load_arrays(self, arrays: Dict[str, np.ndarray], template: RLAgentState) -> RLAgentState:
         """Fill ``template`` (a state of this agent, e.g. ``init``'s) in
-        place with what ``save_state`` wrote, and return it."""
+        place with what ``state_arrays`` gave, and return it."""
         from pinnrl_tpu_torch.models.bridge import dqn_params_from_flax
 
-        with np.load(path) as data:
-            arrays = {k: data[k] for k in data.files}
         with torch.no_grad():
             for tag, net in (("policy", template.policy_params), ("target", template.target_params)):
                 tree: Dict[str, Dict[str, np.ndarray]] = {}
@@ -330,9 +334,105 @@ class RLAgent:
             setattr(template, name, int(arrays[name]))
         return template
 
+    def load_state(self, path: str, template: RLAgentState) -> RLAgentState:
+        """Load what ``save_state`` wrote into ``template`` (see ``load_arrays``)."""
+        with np.load(path) as data:
+            return self.load_arrays({k: data[k] for k in data.files}, template)
+
+
+@dataclass
+class CollocationAgentState:
+    params: Dict[str, torch.Tensor]  # Dense_0..Dense_L, torch layout
+    opt_state: AdamStep
+    epsilon: torch.Tensor  # () float32, on the device
+
+
+def _lecun_dense(in_dim: int, out_dim: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """flax ``nn.Dense``'s init: a lecun-normal kernel (a normal truncated
+    at two deviations, rescaled to variance 1 / fan_in) and a zero bias."""
+    std = (1.0 / in_dim) ** 0.5 / 0.87962566103423978
+    w = torch.empty(out_dim, in_dim)
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    return {"weight": w, "bias": torch.zeros(out_dim)}
+
 
 class CollocationAgent:
-    """The lighter scorer without replay or target network."""
+    """The lighter point scorer: a ReLU MLP (``num_layers`` Dense + ReLU,
+    then a Dense head) with a naive Q update, no replay buffer and no target
+    network (``pinnrl_tpu.rl.dqn.CollocationAgent``). Its parameters use the
+    bridge's names (``Dense_i.weight`` / ``Dense_i.bias``); methods update
+    the state in place and return it. ``get_action`` draws from a
+    ``torch.Generator`` and hands the draws to ``_act``."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError("CollocationAgent is not ported yet (ROADMAP item 13)")
+    def __init__(self, state_dim: int = 2, action_dim: int = 1, hidden_dim: int = 64,
+                 num_layers: int = 3, learning_rate: float = 1e-3, gamma: float = 0.99,
+                 epsilon_start: float = 1.0, epsilon_end: float = 0.01,
+                 epsilon_decay: float = 0.995, device: Optional[str | torch.device] = None) -> None:
+        self.state_dim = state_dim
+        self.action_dim = action_dim
+        self.hidden_dim = hidden_dim
+        self.num_layers = num_layers
+        self.learning_rate = float(learning_rate)
+        self.gamma = gamma
+        self.epsilon_start = epsilon_start
+        self.epsilon_end = epsilon_end
+        self.epsilon_decay = epsilon_decay
+        # The card unless the caller names a device; raises without one.
+        self.device = torch.device(resolve_device("cuda") if device is None else device)
+
+    def init(self, generator: torch.Generator) -> CollocationAgentState:
+        """A fresh state; the weights are drawn from ``generator`` on the CPU
+        and moved."""
+        params = {}
+        dims = [self.state_dim] + [self.hidden_dim] * self.num_layers + [self.action_dim]
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            for leaf, v in _lecun_dense(a, b, generator).items():
+                params[f"Dense_{i}.{leaf}"] = v.to(self.device).requires_grad_(True)
+        return CollocationAgentState(
+            params=params,
+            opt_state=AdamStep(list(params.values()), lambda count: self.learning_rate,
+                               None, 0.9, 0.999, 0.0),
+            epsilon=torch.full((), self.epsilon_start, dtype=torch.float32, device=self.device),
+        )
+
+    def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = F.relu(F.linear(x, params[f"Dense_{i}.weight"], params[f"Dense_{i}.bias"]))
+        L = self.num_layers
+        return F.linear(x, params[f"Dense_{L}.weight"], params[f"Dense_{L}.bias"])
+
+    def _act(self, state: CollocationAgentState, points: torch.Tensor, u: torch.Tensor,
+             r: torch.Tensor) -> torch.Tensor:
+        """Random scores ``r`` where ``u < epsilon`` (explore), else Q."""
+        with torch.no_grad():
+            q = self.apply(state.params, points)
+        return torch.where(u < state.epsilon, r, q)
+
+    def get_action(self, state: CollocationAgentState, points: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+        """Epsilon-greedy scores of ``points`` (N, state_dim): Q, or normal
+        random scores when it explores."""
+        u = torch.rand((), generator=generator, device=points.device)
+        r = torch.randn((points.shape[0], self.action_dim), generator=generator,
+                        device=points.device)
+        return self._act(state, points, u, r)
+
+    def update(self, state: CollocationAgentState, s: torch.Tensor, reward: torch.Tensor,
+               s_next: torch.Tensor) -> CollocationAgentState:
+        """One Adam step on mean((Q(s) - (reward + gamma Q(s')))^2), Q(s')
+        detached; ``reward`` broadcasts against Q's (N, action_dim) as in
+        the JAX package."""
+        p = state.params
+        with torch.no_grad():
+            q_next = self.apply(p, s_next)
+        q = self.apply(p, s)
+        loss = torch.mean((q - (reward + self.gamma * q_next)) ** 2)
+        for leaf in state.opt_state.params:
+            leaf.grad = None
+        loss.backward()
+        state.opt_state.step()
+        return state
+
+    def update_epsilon(self, state: CollocationAgentState) -> CollocationAgentState:
+        state.epsilon = torch.clamp(state.epsilon * self.epsilon_decay, min=self.epsilon_end)
+        return state

@@ -287,3 +287,33 @@ class LBFGS:
         return {"count": self.count, "stepsize": float(self.stepsize), "s_memory": self.s_memory,
                 "y_memory": self.y_memory, "rho": self.rho, "params": self._w_prev,
                 "grads": self._g_prev}
+
+    def arrays(self, names: Sequence[str]) -> dict:
+        """The state as numpy arrays (a checkpoint's): the memory, the
+        step count and first guess, and the last iterate and gradient."""
+        out = {"lbfgs/count": np.asarray(self.count), "lbfgs/stepsize": np.asarray(self.stepsize),
+               "lbfgs/names": np.asarray(list(names))}
+        for key in ("s_memory", "y_memory", "rho"):
+            out[f"lbfgs/{key}"] = getattr(self, key).cpu().numpy()
+        if self._w_prev is not None:
+            out["lbfgs/w_prev"] = self._w_prev.cpu().numpy()
+            out["lbfgs/g_prev"] = self._g_prev.cpu().numpy()
+        return out
+
+    def load_arrays(self, arrays: dict, names: Sequence[str]) -> None:
+        """Restore what ``arrays`` wrote; raises KeyError on the state of
+        another problem."""
+        if list(arrays["lbfgs/names"]) != list(names) or \
+                arrays["lbfgs/s_memory"].shape != tuple(self.s_memory.shape):
+            raise KeyError("the L-BFGS memory does not match these parameters")
+        dev = self.s_memory.device
+
+        def load(key):
+            return torch.as_tensor(arrays[key]).to(dev)
+
+        for key in ("s_memory", "y_memory", "rho"):
+            setattr(self, key, load(f"lbfgs/{key}"))
+        self.count = int(arrays["lbfgs/count"])
+        self.stepsize = self.F(arrays["lbfgs/stepsize"])
+        if "lbfgs/w_prev" in arrays:
+            self._w_prev, self._g_prev = load("lbfgs/w_prev"), load("lbfgs/g_prev")

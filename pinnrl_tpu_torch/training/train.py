@@ -10,7 +10,8 @@ drawn from ``torch.Generator(device).manual_seed(pde.observation_seed)``.
 ``--dataset NAME`` trains against a The Well registry entry (its domain,
 dimensions, channels and recommended mode; the observations through
 ``datasets.load_well_slice`` and its cache, ``$PINNRL_WELL_CACHE``).
-``--profile-dir`` reaches the trainer, which raises naming ROADMAP item 9.
+``--profile-dir DIR`` writes one ``torch.profiler`` Chrome trace of a
+chunk after the first into DIR.
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", help="cuda | cpu")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--results-dir", default=None)
-    p.add_argument("--profile-dir", default=None, help="Profiler traces (not ported yet)")
+    p.add_argument("--profile-dir", default=None,
+                   help="Write one torch.profiler Chrome trace of a chunk after the first")
     return p.parse_args(argv)
 
 

@@ -18,14 +18,52 @@ norm over both, and every loss, RAR score, RL reward and validation loss
 reads them live. The epoch's host read also takes their values
 (``history["param_<name>"]``).
 
+The levers, each as the JAX package runs it:
+
+- adaptive loss weights (``training.adaptive_weights``, RBW or LRW;
+  ``adaptive_weights.py``): the weights are updated from the step's
+  component losses (RBW) or from the global norms of the residual, boundary
+  and initial gradients (LRW: one ``torch.autograd.grad`` per component on
+  the step's one forward), detached, and weight the total that is
+  back-propagated; ``history["adaptive_weights"]`` holds each epoch's mean
+  weights, padded to 4. Off under a pure ``"lbfgs"`` optimizer; refused with
+  an L-BFGS phase 2 (the JAX package crashes there at the switch);
+- ``scheduler_type="reduce_lr"``: optax's ``reduce_on_plateau(factor,
+  patience, accumulation_size=1)`` (rtol 1e-4) on each step's total before
+  the update, its scale on the device inside ``AdamStep``; the
+  ``learning_rate`` history reads ``learning_rate * scale`` at each
+  validation (1 after a switch, as JAX's L-BFGS state has no scale);
+- ``param_ema``: a zero-initialized shadow of the network updated after
+  every Adam step and debiased by ``1 - d^n`` when read; phase 2 starts from
+  the average (and restarts the shadow), and a run whose last phase is
+  stochastic ends on it;
+- ``model.hard_ic``: the PDE's ``hard_ic_transform`` installed as the
+  model's output transform before the bundle and kernel 1 are attached (so
+  neither is, and the residual runs on the nested-jvp engine);
+- ``profile_dir``: one ``torch.profiler`` trace (CUDA activities on the
+  card) of the first chunk after the start, exported as a Chrome trace
+  (``trace_epoch<E>.json``; JAX writes a TensorBoard trace);
+- checkpoints: with ``experiment_dir``, every validation writes
+  ``checkpoint.npz`` (the parameters and coefficients by the bridge's flax
+  paths; Adam's moments, step counts and plateau state, or L-BFGS's memory;
+  the adaptive-weight state; the EMA shadow and count; the agent's arrays;
+  the training and validation generators' states) and ``checkpoint.json``
+  (the epoch and the history). ``train(resume_from=...)`` restores them
+  and continues the same stream. An optimizer state that does not match
+  the run's first optimizer (an L-BFGS-phase checkpoint loaded into an Adam
+  template) keeps the fresh one and logs it, as JAX's fallback does. The
+  L-BFGS rounds' batches derive from ``seed``: a resumed run with the same
+  seed keeps its batches, one with another seed draws fresh ones (JAX folds
+  the seed into its restored round key to the same end).
+
 Given ``experiment_dir``, ``train`` writes the JAX package's
 experiment-directory protocol (``utils/io.py``): ``.running`` (removed at
 the end and on failure), ``visualizations/``, ``config.yaml`` (the
 ``to_dict()`` snapshot as JSON text, which YAML readers take as is),
 ``metadata.json``, ``experiment.log``, and at each validation
-``history.json``, ``metrics.json`` and ``live_snapshot.npz``; at the end
-the final model as ``final_model.npz`` (flax path names) and the agent's
-state as ``rl_agent.npz``.
+``history.json``, ``metrics.json``, ``live_snapshot.npz`` and the
+checkpoint; at the end the final model as ``final_model.npz`` (flax path
+names) and the agent's state as ``rl_agent.npz``.
 
 ``optimizer="adam_lbfgs"`` switches at ``int(adam_lbfgs_switch_ratio *
 num_epochs)`` to one L-BFGS iteration per epoch (``training/lbfgs.py``) on
@@ -38,22 +76,21 @@ ends of the JAX package's chunks: every ``validation_frequency`` epochs,
 counted afresh from the switch and from each resample round.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-float64 residuals (item 8b), adaptive loss weights, EMA, ensembles and
-hard-IC (item 13), the plateau scheduler, profiling, checkpoints and resume
-(item 9), the plots, report and heat's ``fdm_comparison.json`` of an
-experiment directory (item 14; logged, not raised), and device meshes
-(item 14).
+float64 residuals (item 8b), deep ensembles (item 13), the plots, report
+and heat's ``fdm_comparison.json`` of an experiment directory (item 14;
+logged, not raised), and device meshes (item 14).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
 import time
 from datetime import datetime
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +98,7 @@ import torch
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.models import PINNModel
 from pinnrl_tpu_torch.pdes.base import PDEBase
+from pinnrl_tpu_torch.training.adaptive_weights import AdaptiveLossWeights, AdaptiveWeightState
 from pinnrl_tpu_torch.training.lbfgs import LBFGS
 from pinnrl_tpu_torch.utils.io import (
     save_live_snapshot,
@@ -71,6 +109,9 @@ from pinnrl_tpu_torch.utils.io import (
 logger = logging.getLogger(__name__)
 
 _COMPONENTS = ("residual", "boundary", "initial", "smoothness", "data")
+_AW_FIELDS = ("running", "weights", "prev_weights", "initialized")
+# optax.contrib.reduce_on_plateau's defaults besides factor and patience.
+_PLATEAU_RTOL = 1e-4
 
 
 def _unported(what: str, item):
@@ -91,7 +132,8 @@ def cosine_decay(init_value: float, decay_steps: int, alpha: float) -> Callable[
 
 class AdamStep:
     """clip_by_global_norm -> Adam (or decoupled AdamW) with a per-step
-    learning-rate schedule, as the JAX package's optax chain.
+    learning-rate schedule, as the JAX package's optax chain; with
+    ``plateau=(factor, patience)``, optax's ``reduce_on_plateau`` after it.
 
     Clipping follows optax: scale = min(1, max_norm / ||g||) with no
     epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6); ``clip_norm``
@@ -99,23 +141,49 @@ class AdamStep:
     device, so a step does not wait for the host. A leaf that got no
     gradient steps with a zero one, as optax treats it (torch's optimizers
     would skip it).
+
+    The plateau state (scale, best value, plateau count) is device tensors.
+    Each step reads the value handed to ``step`` (accumulation size 1),
+    updates the scale first and steps at ``scale * lr``: scaling the Adam
+    update, AdamW's decay term included, as optax scales the chain's
+    output. On the card the optimizer is then ``capturable`` (its learning
+    rate a device tensor, which a non-capturable torch Adam reads back).
     """
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float],
                  clip_norm: Optional[float], beta1: float, beta2: float,
-                 weight_decay: float) -> None:
+                 weight_decay: float, plateau: Optional[Tuple[float, int]] = None) -> None:
         self.params = params
         self.schedule = schedule
         self.clip_norm = None if clip_norm is None else float(clip_norm)
+        self.plateau = plateau
         cls = torch.optim.AdamW if weight_decay and weight_decay > 0 else torch.optim.Adam
+        device = params[0].device
         self.optimizer = cls(params, lr=schedule(0), betas=(beta1, beta2), eps=1e-8,
-                             weight_decay=float(weight_decay or 0.0))
+                             weight_decay=float(weight_decay or 0.0),
+                             capturable=plateau is not None and device.type == "cuda")
         self.count = 0
+        if plateau is not None:
+            self.scale = torch.ones((), device=device)
+            self.best = torch.full((), float("inf"), device=device)
+            self.plateau_count = torch.zeros((), dtype=torch.int32, device=device)
 
     def state_dict(self) -> dict:
         return self.optimizer.state_dict()
 
-    def step(self) -> None:
+    def _update_scale(self, value: torch.Tensor) -> None:
+        """reduce_on_plateau's ``_update_scale`` (cooldown 0, atol 0,
+        min_scale 0) on one value."""
+        factor, patience = self.plateau
+        value = value.detach().to(self.best.dtype)
+        improved = value < (1 - _PLATEAU_RTOL) * self.best
+        self.best = torch.where(improved, value, self.best)
+        count = torch.where(improved, 0, self.plateau_count + 1)
+        hit = count == patience
+        self.plateau_count = torch.where(hit, 0, count)
+        self.scale = torch.clamp(torch.where(hit, self.scale * factor, self.scale), min=0.0)
+
+    def step(self, value: Optional[torch.Tensor] = None) -> None:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -123,10 +191,54 @@ class AdamStep:
             grads = [p.grad for p in self.params]
             norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             torch._foreach_mul_(grads, torch.clamp(self.clip_norm / norm, max=1.0))
+        lr = self.schedule(self.count)
+        if self.plateau is not None:
+            self._update_scale(value)
+            lr = self.scale * lr
         for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.count)
+            group["lr"] = lr
         self.optimizer.step()
         self.count += 1
+
+    def plateau_scale(self) -> float:
+        """The plateau's scale (a host read), 1 without a plateau."""
+        return float(self.scale) if self.plateau is not None else 1.0
+
+    def arrays(self, names: List[str]) -> Dict[str, np.ndarray]:
+        """The state as numpy arrays: per leaf (``names``, in the order of
+        ``params``) Adam's moments and step count, the step counter and the
+        plateau state."""
+        out = {"count": np.asarray(self.count)}
+        for name, p in zip(names, self.params):
+            for key, value in self.optimizer.state.get(p, {}).items():
+                out[f"adam/{name}/{key}"] = value.detach().cpu().numpy()
+        if self.plateau is not None:
+            for key in ("scale", "best", "plateau_count"):
+                out[f"plateau/{key}"] = getattr(self, key).cpu().numpy()
+        return out
+
+    @torch.no_grad()
+    def load_arrays(self, arrays: Dict[str, np.ndarray], names: List[str]) -> None:
+        """Restore what ``arrays`` wrote; raises KeyError on a state of
+        another shape of optimizer."""
+        if (self.plateau is not None) != ("plateau/scale" in arrays):
+            raise KeyError("the plateau state does not match")
+        capturable = self.optimizer.param_groups[0]["capturable"]
+        state = {}
+        for name, p in zip(names, self.params):
+            saved = {key.rsplit("/", 1)[1]: v for key, v in arrays.items()
+                     if key.startswith(f"adam/{name}/")}
+            if not saved and int(arrays["count"]) > 0:
+                raise KeyError(f"no Adam state for {name}")
+            if saved:
+                state[p] = {k: torch.as_tensor(v).to(p.device if k != "step" or capturable
+                                                     else "cpu") for k, v in saved.items()}
+        for p, st in state.items():
+            self.optimizer.state[p] = st
+        self.count = int(arrays["count"])
+        if self.plateau is not None:
+            for key in ("scale", "best", "plateau_count"):
+                setattr(self, key, torch.as_tensor(arrays[f"plateau/{key}"]).to(self.scale.device))
 
 
 class PDETrainer:
@@ -141,20 +253,24 @@ class PDETrainer:
             raise ValueError(f"the RL agent is on {rl_agent.device}, the model on {model.device}")
         if mesh is not None:
             raise _unported("device-mesh data parallelism", 14)
-        if t.adaptive_weights.enabled:
-            raise _unported("adaptive loss weights", 13)
-        if float(t.param_ema) > 0.0:
-            raise _unported("EMA weight averaging", 13)
         if int(t.ensemble_size) > 1:
             raise _unported("deep ensembles", 13)
-        if getattr(config.model, "hard_ic", False):
-            raise _unported("the hard-IC output transform", 13)
-        if t.scheduler_type == "reduce_lr":
-            raise _unported("the plateau scheduler", 9)
-        if t.profile_dir:
-            raise _unported("profiler traces", 9)
         if t.residual_dtype != "float32":
             raise _unported("float64 residuals", "8b")
+        # Adaptive weights are off under pure L-BFGS, as in the JAX package.
+        aw = t.adaptive_weights
+        self.aw_enabled = bool(aw.enabled and t.optimizer != "lbfgs")
+        if self.aw_enabled and t.optimizer == "adam_lbfgs" and t.phase2_optimizer == "lbfgs":
+            # The JAX package trains the Adam phase, then crashes at the switch
+            # (its adaptive step calls the line search without grad and value_fn).
+            raise ValueError("adaptive_weights cannot be combined with optimizer='adam_lbfgs' "
+                             "and phase2_optimizer='lbfgs' (the L-BFGS phase takes no adaptive "
+                             "weights); use phase2_optimizer='adam' or disable adaptive_weights")
+        self.adaptive_weights = AdaptiveLossWeights(
+            strategy=aw.strategy, alpha=aw.alpha, eps=float(aw.eps),
+            initial_weights=list(aw.initial_weights)[:3] if aw.initial_weights else None,
+            num_components=3, device=model.device)
+        self._ema_decay = float(t.param_ema)
 
         self.model = model
         self.pde = pde
@@ -166,6 +282,10 @@ class PDETrainer:
         self.strategy = "adaptive" if rl_agent is not None else t.collocation_distribution
         self._rl_state = None
         self.optimizer_name = t.optimizer
+        # Hard IC first: with an output transform neither the bundle nor
+        # kernel 1 attaches.
+        if getattr(config.model, "hard_ic", False) and model.output_transform is None:
+            model.output_transform = pde.hard_ic_transform()
         self.fast_bundle_active = pde.attach_fast_bundle(model, enable=t.get("stacked_jet", "auto"))
         self.fused_kernel_active = pde.attach_fused_residual_kernel(
             model, enable=t.get("fused_residual_kernel", "auto")
@@ -173,12 +293,15 @@ class PDETrainer:
         # The live trainable coefficients (empty in forward mode); train()
         # restarts them from the initial guesses.
         self.coeffs = self._init_coeffs()
+        self._aw_state = self.adaptive_weights.init()
+        self._ema: Optional[Tuple[List[torch.Tensor], int]] = None
         self.history: Dict[str, Any] = {
             "train_loss": [],
             "val_loss": [],
             "learning_rate": [],
             "epoch_time": [],
             "loss_components": {k: [] for k in _COMPONENTS},
+            "adaptive_weights": [],
         }
         for name in pde.trainable_parameters:
             self.history[f"param_{name}"] = []
@@ -214,6 +337,8 @@ class PDETrainer:
             oc.beta1,
             oc.beta2,
             oc.weight_decay,
+            plateau=((self.tcfg.lr_scheduler.factor, int(self.tcfg.lr_scheduler.patience))
+                     if self.tcfg.scheduler_type == "reduce_lr" else None),
         )
 
     def _make_lbfgs(self, params: List[torch.Tensor]) -> LBFGS:
@@ -274,26 +399,81 @@ class PDETrainer:
         done = torch.ones((), device=x.device)
         self._rl_state = self.rl_agent.update(self._rl_state, pts, reward, pts, done, generator)
 
+    def _weighted_total(self, losses: Dict[str, torch.Tensor], w: torch.Tensor) -> torch.Tensor:
+        """The adaptive-weight total: w . [residual, boundary, initial] plus
+        the statically weighted smoothness, gPINN, mass, mu-H2 and data
+        terms, as the JAX package's ``_weighted_total``."""
+        lw = self.pde._loss_weights()
+        smooth_w = float(lw.get("smoothness", 0.0))
+        data_w = float(lw.get("data", 1.0))
+        mode = self.pde._training_mode()
+        physics = 0.0 if mode == "data_only" else 1.0
+        if mode in ("inverse", "data_only", "data_augmented") and data_w <= 0.0:
+            data_w = 1.0
+        return (
+            physics * w[0] * losses["residual"]
+            + physics * w[1] * losses["boundary"]
+            + physics * w[2] * losses["initial"]
+            + smooth_w * losses["smoothness"]
+            + physics * float(lw.get("gpinn", 0.0)) * losses.get("gpinn", 0.0)
+            + physics * float(lw.get("mass", 0.0)) * losses.get("mass", 0.0)
+            + physics * float(lw.get("mu_h2", 0.0)) * losses.get("mu_h2", 0.0)
+            + data_w * losses["data"]
+        )
+
+    def _adaptive_total(self, losses: Dict[str, torch.Tensor], leaves: List[torch.Tensor]):
+        """Advance the adaptive weights on this step's components (RBW: the
+        losses; LRW: the global norms of their gradients over every
+        optimized leaf) and return (the weighted total, the weights). The
+        graph is kept for the weighted backward: kernel 1's gradients are
+        the ones its forward saved, so it launches once per step."""
+        comps = [losses["residual"], losses["boundary"], losses["initial"]]
+        if self.adaptive_weights.strategy == "lrw":
+            sq = []
+            for c in comps:
+                if not c.requires_grad:
+                    sq.append(torch.zeros((), device=c.device))
+                    continue
+                grads = torch.autograd.grad(c, leaves, retain_graph=True, allow_unused=True,
+                                            materialize_grads=True)
+                sq.append(sum(torch.sum(g * g) for g in grads))
+            values = torch.sqrt(torch.stack(sq))
+        else:
+            values = torch.stack(comps).detach()
+        self._aw_state = self.adaptive_weights.update(self._aw_state, values)
+        w = self.adaptive_weights.get_weights(self._aw_state).detach()
+        return self._weighted_total(losses, w), w
+
+    def _row(self, total: torch.Tensor, losses: Dict[str, torch.Tensor],
+             weights: torch.Tensor) -> torch.Tensor:
+        """[total, residual, boundary, initial, smoothness, data, w0, w1, w2],
+        detached, on the device."""
+        return torch.cat([torch.stack([total] + [losses[k] for k in _COMPONENTS]).detach(),
+                          weights.detach()])
+
     def _step(self, params: Dict[str, torch.Tensor], opt: AdamStep, generator: torch.Generator,
               batch_size: int) -> torch.Tensor:
-        """sample -> loss -> backward -> clip -> Adam (-> the agent's update).
-        Returns the detached [total, residual, boundary, initial, smoothness,
-        data] on the device."""
+        """sample -> loss -> backward -> clip -> Adam (-> EMA -> the agent's
+        update). Returns ``_row`` of the step."""
         x, t = self._sample(generator, batch_size, params)
         losses = self._loss_components(params, x, t, generator)
         for p in opt.params:
             p.grad = None
-        losses["total"].backward()
-        opt.step()
+        if self.aw_enabled:
+            total, weights = self._adaptive_total(losses, opt.params)
+        else:
+            total, weights = losses["total"], self.adaptive_weights.get_weights(self._aw_state)
+        total.backward()
+        opt.step(total.detach())
+        self._ema_update(params)
         if self.rl_agent is not None:
             self._rl_update(params, x, t, losses, generator)
-        return torch.stack([losses["total"]] + [losses[k] for k in _COMPONENTS]).detach()
+        return self._row(total, losses, weights)
 
     def _lbfgs_step(self, params: Dict[str, torch.Tensor], opt: LBFGS, batch,
                     generator: torch.Generator) -> torch.Tensor:
         """One L-BFGS iteration on the round's ``batch`` = (x, t, BC/IC seed)
-        (-> the agent's update). Returns the components at the starting
-        point, as ``_step`` does."""
+        (-> the agent's update). Returns ``_row`` at the starting point."""
         x, t, loss_seed = batch
         loss_gen = torch.Generator(device=self.device)
 
@@ -307,7 +487,41 @@ class PDETrainer:
         losses = opt.step(objective)[2]
         if self.rl_agent is not None:
             self._rl_update(params, x, t, losses, generator)
-        return torch.stack([losses["total"]] + [losses[k] for k in _COMPONENTS]).detach()
+        return self._row(losses["total"], losses, self.adaptive_weights.get_weights(self._aw_state))
+
+    # ------------------------------------------------------------------ #
+    # EMA of the network's parameters
+    # ------------------------------------------------------------------ #
+
+    def _ema_init(self, params: Dict[str, torch.Tensor]) -> None:
+        """A zero shadow and a zero count; None when EMA is off."""
+        self._ema = (([torch.zeros_like(p) for p in params.values()], 0)
+                     if self._ema_decay > 0.0 else None)
+
+    @torch.no_grad()
+    def _ema_update(self, params: Dict[str, torch.Tensor]) -> None:
+        if self._ema is None:
+            return
+        d = self._ema_decay
+        shadow, n = self._ema
+        torch._foreach_mul_(shadow, d)
+        torch._foreach_add_(shadow, [p.detach() for p in params.values()], alpha=1.0 - d)
+        self._ema = (shadow, n + 1)
+
+    def _ema_read(self) -> Optional[List[torch.Tensor]]:
+        """The debiased average shadow / (1 - d^n); None before any update."""
+        if self._ema is None or self._ema[1] == 0:
+            return None
+        shadow, n = self._ema
+        denom = 1.0 - self._ema_decay ** n
+        return [s / denom for s in shadow]
+
+    @torch.no_grad()
+    def _ema_apply(self, params: Dict[str, torch.Tensor]) -> None:
+        """Write the debiased average into the network's parameters."""
+        avg = self._ema_read()
+        if avg is not None:
+            torch._foreach_copy_(list(params.values()), avg)
 
     @torch.no_grad()
     def _val_loss(self, params, generator: torch.Generator) -> float:
@@ -323,8 +537,6 @@ class PDETrainer:
     def train(self, num_epochs: Optional[int] = None, batch_size: Optional[int] = None,
               num_points: Optional[int] = None, experiment_dir: Optional[str] = None,
               seed: int = 0, resume_from: Optional[str] = None) -> Dict[str, Any]:
-        if resume_from is not None:
-            raise _unported("checkpoint resume", 9)
         t = self.tcfg
         num_epochs = num_epochs or t.num_epochs
         batch_size = batch_size or t.batch_size
@@ -361,11 +573,19 @@ class PDETrainer:
         adam_epochs = self.switch_epoch or num_epochs
         opt = (self._make_lbfgs(leaves) if lbfgs_mode
                else self._make_adam(adam_epochs, steps_per_epoch, leaves))
+        cosine = t.scheduler_type == "cosine"
         lr_schedule = self._make_lr_schedule(adam_epochs, steps_per_epoch)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         val_gen = torch.Generator(device=self.device).manual_seed(10_000 + seed)
         if self.rl_agent is not None:
             self._rl_state = self._init_rl_state(seed)
+        self._aw_state = self.adaptive_weights.init()
+        self._ema_init(params)
+
+        start_epoch = 0
+        if resume_from:
+            start_epoch = self._load_checkpoint(resume_from, params, opt, gen, val_gen)
+            logger.info("Resumed from %s at epoch %d", resume_from, start_epoch)
 
         switched = lbfgs_mode or self.switch_epoch is None
         phase_start = self.switch_epoch or 0
@@ -377,7 +597,8 @@ class PDETrainer:
         status = "completed"
         start_time = time.time()
         val_every = max(int(t.validation_frequency), 1)
-        epoch = 0
+        epoch = start_epoch
+        profiled = False
         stop = False
         try:
             while epoch < num_epochs and not stop:
@@ -386,6 +607,9 @@ class PDETrainer:
                     steps_per_epoch = 1
                     logger.info("Switching optimizer: adam -> %s at epoch %d",
                                 t.phase2_optimizer, epoch)
+                    # Phase 2 starts from the averaged iterate, with a fresh shadow.
+                    self._ema_apply(params)
+                    self._ema_init(params)
                     if t.phase2_optimizer == "lbfgs":
                         opt, lbfgs_mode = self._make_lbfgs(leaves), True
                     else:
@@ -410,37 +634,62 @@ class PDETrainer:
                 if lbfgs_mode and resample:
                     next_round = phase_start + ((epoch - phase_start) // resample + 1) * resample
                     chunk = min(chunk, max(next_round - epoch, 1))
-                for _ in range(chunk):
-                    t0 = time.time()
-                    if lbfgs_mode:
-                        per_step = [self._lbfgs_step(params, opt, batch, gen)
-                                    for _ in range(steps_per_epoch)]
-                    else:
-                        per_step = [self._step(params, opt, gen, batch_size)
-                                    for _ in range(steps_per_epoch)]
-                    if self.rl_agent is not None:
-                        # Once per epoch, so exploration anneals over the run's horizon.
-                        self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
-                    row = torch.stack(per_step).mean(dim=0)
-                    if names:
-                        row = torch.cat([row, torch.stack([self.coeffs[k].detach() for k in names])])
-                    values = row.tolist()  # one host read per epoch
-                    means, coeff_values = values[:1 + len(_COMPONENTS)], values[1 + len(_COMPONENTS):]
-                    self.history["train_loss"].append(means[0])
-                    for k, v in zip(_COMPONENTS, means[1:]):
-                        self.history["loss_components"][k].append(v)
-                    for k, v in zip(names, coeff_values):
-                        self.history[f"param_{k}"].append(v)
-                    self.history["epoch_time"].append(time.time() - t0)
-                    # As the JAX package records it: the phase-1 schedule at the
-                    # epoch's end, after the switch too (ROADMAP queue 3).
-                    self.history["learning_rate"].append(lr_schedule((epoch + 1) * steps_per_epoch))
-                    epoch += 1
-                    if not np.isfinite(means[0]):
-                        logger.warning("Non-finite loss at epoch %d; stopping", epoch)
-                        status = "failed"
-                        stop = True
-                        break
+                chunk_start = len(self.history["learning_rate"])
+                # One trace, of the first chunk after the start.
+                profile = bool(t.profile_dir) and not profiled and epoch > start_epoch
+                trace_epoch = epoch
+                with (self._profiler() if profile else contextlib.nullcontext()) as prof:
+                    for _ in range(chunk):
+                        t0 = time.time()
+                        if lbfgs_mode:
+                            per_step = [self._lbfgs_step(params, opt, batch, gen)
+                                        for _ in range(steps_per_epoch)]
+                        else:
+                            per_step = [self._step(params, opt, gen, batch_size)
+                                        for _ in range(steps_per_epoch)]
+                        if self.rl_agent is not None:
+                            # Once per epoch, so exploration anneals over the run's horizon.
+                            self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
+                        row = torch.stack(per_step).mean(dim=0)
+                        if names:
+                            row = torch.cat([row, torch.stack([self.coeffs[k].detach()
+                                                               for k in names])])
+                        values = row.tolist()  # one host read per epoch
+                        n_loss = 1 + len(_COMPONENTS)
+                        means, weights = values[:n_loss], values[n_loss:n_loss + 3]
+                        self.history["train_loss"].append(means[0])
+                        for k, v in zip(_COMPONENTS, means[1:]):
+                            self.history["loss_components"][k].append(v)
+                        self.history["adaptive_weights"].append(weights + [0.0])
+                        for k, v in zip(names, values[n_loss + 3:]):
+                            self.history[f"param_{k}"].append(v)
+                        self.history["epoch_time"].append(time.time() - t0)
+                        # As the JAX package records it: the phase-1 cosine at the
+                        # epoch's end, after the switch too (ROADMAP queue 3); other
+                        # schedules at the chunk's end, below.
+                        self.history["learning_rate"].append(
+                            lr_schedule((epoch + 1) * steps_per_epoch) if cosine else None)
+                        epoch += 1
+                        if not np.isfinite(means[0]):
+                            logger.warning("Non-finite loss at epoch %d; stopping", epoch)
+                            status = "failed"
+                            stop = True
+                            break
+                    if profile and self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                if profile:
+                    profiled = True
+                    trace_dir = Path(t.profile_dir)
+                    trace_dir.mkdir(parents=True, exist_ok=True)
+                    prof.export_chrome_trace(str(trace_dir / f"trace_epoch{trace_epoch}.json"))
+                    logger.info("Profiler trace written to %s", trace_dir)
+                if not cosine:
+                    # learning_rate * the plateau scale at the chunk's end, as JAX
+                    # reads its optimizer state (1 for L-BFGS and phase-2 Adam).
+                    scale = opt.plateau_scale() if isinstance(opt, AdamStep) else 1.0
+                    lr_now = t.optimizer_config.learning_rate * scale
+                    lrs = self.history["learning_rate"]
+                    lrs[chunk_start:] = [lr_now] * (len(lrs) - chunk_start)
                 if stop:
                     break
                 val_loss = self._val_loss(params, val_gen)
@@ -453,6 +702,7 @@ class PDETrainer:
                                          current_epoch=epoch)
                     save_live_snapshot(exp, self.pde, self.model,
                                        {"net": params, "coeffs": self.coeffs}, grid=60)
+                    self._save_checkpoint(exp / "checkpoint.npz", epoch, params, opt, gen, val_gen)
                 if es.enabled:
                     if val_loss < best_val - es.min_delta:
                         best_val, patience_count = val_loss, 0
@@ -472,6 +722,10 @@ class PDETrainer:
                 log_handler.close()
 
         wall = time.time() - start_time
+        if not lbfgs_mode:
+            # The averaged iterate is the final model when the last phase is
+            # stochastic (an L-BFGS phase started from it).
+            self._ema_apply(params)
         identified = self.pde.canonicalize_coeffs(
             self.pde.get_trainable_parameter_values(self.coeffs))
         result = {
@@ -500,6 +754,93 @@ class PDETrainer:
             "rl": self._rl_state,
         }
         return result
+
+    def _profiler(self):
+        """``torch.profiler`` over the CPU, and the card when on one."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    # ------------------------------------------------------------------ #
+    # Checkpoint / resume
+    # ------------------------------------------------------------------ #
+
+    def _opt_names(self, params: Dict[str, torch.Tensor]) -> List[str]:
+        """Names of the optimized leaves, in ``_leaves`` order."""
+        return [f"coeffs.{k}" for k in sorted(self.coeffs)] + list(params)
+
+    def _save_checkpoint(self, path: Path, epoch: int, params, opt, gen: torch.Generator,
+                         val_gen: torch.Generator) -> None:
+        """``checkpoint.npz`` and its ``checkpoint.json`` sidecar (the epoch
+        and the history, which an ``.npz`` does not hold)."""
+        from pinnrl_tpu_torch.models.bridge import flat_flax_arrays
+
+        arrays = dict(flat_flax_arrays(self.model.module.state_dict()))
+        for k, v in self.coeffs.items():
+            arrays[f"coeffs/{k}"] = v.detach().cpu().numpy()
+        kind = "lbfgs" if isinstance(opt, LBFGS) else "adam"
+        arrays["opt/kind"] = np.asarray(kind)
+        for k, v in opt.arrays(self._opt_names(params)).items():
+            arrays[f"opt/{k}"] = v
+        for f in _AW_FIELDS:
+            arrays[f"aw/{f}"] = getattr(self._aw_state, f).cpu().numpy()
+        if self._ema is not None:
+            shadow, n = self._ema
+            arrays["ema/n"] = np.asarray(n)
+            for name, v in zip(params, shadow):
+                arrays[f"ema/{name}"] = v.cpu().numpy()
+        if self.rl_agent is not None:
+            for k, v in self.rl_agent.state_arrays(self._rl_state).items():
+                arrays[f"rl/{k}"] = v
+        arrays["gen/train"] = gen.get_state().numpy()
+        arrays["gen/val"] = val_gen.get_state().numpy()
+        path = Path(path)
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+        path.with_suffix(".json").write_text(json.dumps({"epoch": epoch, "history": self.history},
+                                                        default=str))
+
+    @torch.no_grad()
+    def _load_checkpoint(self, path: str, params, opt, gen: torch.Generator,
+                         val_gen: torch.Generator) -> int:
+        """Restore what ``_save_checkpoint`` wrote into this run's state (in
+        place) and return the epoch. An optimizer state of another kind
+        than ``opt`` keeps ``opt`` fresh, logged."""
+        from pinnrl_tpu_torch.models.bridge import state_from_flat_flax
+
+        path = Path(path)
+        with np.load(path) as data:
+            arrays = {k: data[k] for k in data.files}
+        state = state_from_flat_flax({k: v for k, v in arrays.items()
+                                      if k.startswith(("params/", "constants/"))})
+        self.model.module.load_state_dict(state, strict=True)
+        for k, v in self.coeffs.items():
+            v.copy_(torch.as_tensor(arrays[f"coeffs/{k}"]))
+        kind = "lbfgs" if isinstance(opt, LBFGS) else "adam"
+        opt_arrays = {k[len("opt/"):]: v for k, v in arrays.items() if k.startswith("opt/")}
+        try:
+            if str(opt_arrays.pop("kind")) != kind:
+                raise KeyError(f"a {kind} template")
+            opt.load_arrays(opt_arrays, self._opt_names(params))
+        except KeyError as e:
+            # As the JAX package's fallback: e.g. an L-BFGS-phase checkpoint
+            # into the run's first (Adam) optimizer, which the switch replaces.
+            logger.warning("checkpoint: could not restore 'opt_state' (%s); keeping fresh state", e)
+        self._aw_state = AdaptiveWeightState(**{
+            f: torch.as_tensor(arrays[f"aw/{f}"]).to(self.device) for f in _AW_FIELDS})
+        if self._ema is not None and "ema/n" in arrays:
+            shadow = [torch.as_tensor(arrays[f"ema/{name}"]).to(self.device) for name in params]
+            self._ema = (shadow, int(arrays["ema/n"]))
+        if self.rl_agent is not None:
+            self._rl_state = self.rl_agent.load_arrays(
+                {k[len("rl/"):]: v for k, v in arrays.items() if k.startswith("rl/")},
+                self._rl_state)
+        gen.set_state(torch.from_numpy(arrays["gen/train"]))
+        val_gen.set_state(torch.from_numpy(arrays["gen/val"]))
+        side = json.loads(path.with_suffix(".json").read_text())
+        self.history = side["history"]
+        return int(side["epoch"])
 
     # ------------------------------------------------------------------ #
     # Experiment metadata

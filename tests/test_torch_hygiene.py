@@ -35,7 +35,9 @@ def test_port_imports_without_jax():
         "        'pinnrl_tpu_torch.datasets.registry', 'pinnrl_tpu_torch.datasets.well_loader',\n"
         "        'pinnrl_tpu_torch.datasets.synthetic', 'pinnrl_tpu_torch.models.fno',\n"
         "        'pinnrl_tpu_torch.models.fno_grid',\n"
-        "        'pinnrl_tpu_torch.numerical_solvers.heat_fdm'} <= set(mods)\n"
+        "        'pinnrl_tpu_torch.numerical_solvers.heat_fdm',\n"
+        "        'pinnrl_tpu_torch.training.adaptive_weights',\n"
+        "        'pinnrl_tpu_torch.training.multistage'} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton', 'the_well')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
@@ -200,10 +202,11 @@ def test_unported_features_raise():
     n_losses = n_pde.compute_loss(n_model.apply, n_model.params, torch.zeros(8, 1),
                                   torch.zeros(8, 1))
     assert bool(torch.isfinite(n_losses["boundary"]))
-    neumann.training.loss_weights["gpinn"] = 0.1
-    with pytest.raises(NotImplementedError, match="gPINN.*ROADMAP item 10"):
-        create_pde(neumann).compute_loss(n_model.apply, n_model.params, torch.zeros(8, 1),
-                                         torch.zeros(8, 1))
+    # gPINN and the smoothness penalty are ported (item 10.2, item 13).
+    neumann.training.loss_weights.update({"gpinn": 0.1, "smoothness": 0.1})
+    g_losses = create_pde(neumann).compute_loss(n_model.apply, n_model.params, torch.rand(8, 1),
+                                                torch.rand(8, 1))
+    assert float(g_losses["gpinn"]) > 0.0 and float(g_losses["smoothness"]) > 0.0
     cfg = load_config(pde_type="burgers", architecture="fourier", device="cpu")
     cfg.model.hidden_dims = [8]
     cfg.model.arch_params["mapping_size"] = 4
@@ -212,14 +215,25 @@ def test_unported_features_raise():
         PINNModel(cfg)
     cfg.model.arch_params["modified"] = False
     model, pde = PINNModel(cfg), create_pde(cfg)
-    for field, value, item in (("residual_dtype", "float64", 8),
-                               ("scheduler_type", "reduce_lr", 9),
-                               ("param_ema", 0.9, 13), ("ensemble_size", 2, 13)):
+    for field, value, item in (("residual_dtype", "float64", 8), ("ensemble_size", 2, 13)):
         old = getattr(cfg.training, field)
         setattr(cfg.training, field, value)
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             PDETrainer(model, pde, cfg)
         setattr(cfg.training, field, old)
-    trainer = PDETrainer(model, pde, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        trainer.train(num_epochs=1, resume_from="unused")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        PDETrainer(model, pde, cfg, mesh=object())
+    # The plateau scheduler, EMA, adaptive weights, hard-IC and profiler
+    # traces are ported: each trainer builds.
+    for field, value in (("scheduler_type", "reduce_lr"), ("param_ema", 0.9),
+                         ("profile_dir", "unused")):
+        old = getattr(cfg.training, field)
+        setattr(cfg.training, field, value)
+        PDETrainer(model, pde, cfg)
+        setattr(cfg.training, field, old)
+    cfg.training.adaptive_weights.enabled = True
+    assert PDETrainer(model, pde, cfg).aw_enabled
+    cfg.training.adaptive_weights.enabled = False
+    cfg.model.hard_ic = True
+    hard = PINNModel(cfg)
+    assert not PDETrainer(hard, pde, cfg).fused_kernel_active and hard.output_transform is not None

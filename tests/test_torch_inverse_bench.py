@@ -104,9 +104,22 @@ def test_write_csv_appends_as_jax(tmp_path, capsys):
 @pytest.mark.parametrize("argv,item", [
     (["convergence", "--pde", "kdv", "--time-marching", "2", "--device", "cpu"], 13),
 ])
-def test_unported_subcommands_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        cli.main(argv)
+def test_unported_subcommands_raise(argv, item, monkeypatch, capsys):
+    """The subcommand that raised naming ROADMAP item ``item`` (time-marching)
+    is ported: cut to CPU size through ``run_time_marching``'s ``mutate``
+    hook, it prints its ``<key>_tm<N>`` row and raises nothing."""
+    from pinnrl_tpu_torch.benchmarks import convergence
+    from torch_parity_helpers import shrink_recipe
+
+    orig = convergence.run_time_marching
+
+    def tiny(pde_key, seed=0, n_windows=4, epochs_per_window=None, device="cuda"):
+        return orig(pde_key, seed=seed, n_windows=n_windows, epochs_per_window=1,
+                    mutate=shrink_recipe, device=device)
+
+    monkeypatch.setattr(convergence, "run_time_marching", tiny)
+    assert item == 13 and cli.main(argv) == 0
+    assert "kdv_tm2" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("argv,header", [

@@ -95,13 +95,23 @@ def test_recipes_and_configs_equal_jax(key):
     assert a == b
 
 
-def test_harness_raises_for_what_is_not_ported():
+def test_harness_raises_for_what_is_not_ported(monkeypatch, tmp_path):
+    """An unknown recipe raises; resume and time-marching are ported: a
+    missing checkpoint raises before any step, and time-marching runs on the
+    card by default (it raises without one, no fallback)."""
+    from pinnrl_tpu_torch.training import PDETrainer
+
     with pytest.raises(KeyError, match="unknown convergence recipe"):
         convergence.build_recipe_config("no_such_recipe", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        convergence.run_convergence("kdv", epochs=1, resume_from="unused", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        convergence.run_time_marching("kdv")
+    steps = []
+    monkeypatch.setattr(PDETrainer, "_step", lambda self, *a: steps.append(a))
+    with pytest.raises(FileNotFoundError):
+        convergence.run_convergence("kdv", epochs=1, resume_from=str(tmp_path / "none.npz"),
+                                    device="cpu")
+    assert steps == []
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            convergence.run_time_marching("kdv")
 
 
 @pytest.mark.parametrize("key,epochs,lbfgs_epochs", [("burgers", 4, 2), ("heat", 5, 3)])

@@ -1133,3 +1133,48 @@ def test_fourier_features_at_mapping_32(cuda_device, n):
         k = _nested(lambda xx: fourier_feats.fourier_features(xx, B, True), x, v, order)
         p = _nested(lambda xx: fourier_feats.fourier_features_plain(xx, B, True), x, v, order)
         assert _rel(k, p) < 1e-4 * 10 ** (order - 1), order
+
+
+def test_kernel1_under_lrw_component_gradients(cuda_device):
+    """LRW's three per-component ``torch.autograd.grad`` calls and the
+    weighted backward through kernel 1's Function: one launch for all four,
+    and the residual, boundary and initial gradients against the plain
+    path's (kernel 1 off) on the same points: 1e-4 relative to each
+    gradient's max, as kernel 1's gradients."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    cfg = load_config(pde_type="burgers", architecture="fourier", device="cuda")
+    cfg.model.hidden_dims = [256, 256, 256]
+    cfg.model.arch_params.update({"mapping_size": 128, "scale": 2.0})
+    cfg.training.adaptive_weights.enabled = True
+    cfg.training.adaptive_weights.strategy = "lrw"
+    cfg.training.optimizer = "adam"
+    model, pde = PINNModel(cfg, seed=0), create_pde(cfg)
+    tr = PDETrainer(model, pde, cfg)
+    assert tr.fused_kernel_active
+    params = model.params
+    leaves = tr._leaves(params)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x, t = pde.generate_collocation_points(gen, 8192, "uniform")
+
+    def component_grads():
+        losses = tr._loss_components(params, x, t, torch.Generator(device=cuda_device).manual_seed(2))
+        grads = [torch.autograd.grad(losses[k], leaves, retain_graph=True)
+                 for k in ("residual", "boundary", "initial")]
+        total, _ = tr._adaptive_total(losses, leaves)
+        total.backward()
+        return grads
+
+    before = fused_step.fused_residual_loss.launches
+    gk = component_grads()
+    torch.cuda.synchronize()
+    assert fused_step.fused_residual_loss.launches == before + 1
+    pde.attach_fused_residual_kernel(model, enable="off")
+    gp = component_grads()
+    for comp, a, b in zip(("residual", "boundary", "initial"), gk, gp):
+        for name, ga, gb in zip(params, a, b):
+            assert _rel(ga, gb) < 1e-4, (comp, name)

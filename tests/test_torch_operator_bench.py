@@ -278,7 +278,6 @@ def test_train_dataset_runs_on_the_cpu(tmp_path):
     hist = json.loads((texp / "history.json").read_text())
     assert len(hist["train_loss"]) == 2 and all(np.isfinite(hist["train_loss"]))
     assert all(np.isfinite(hist["loss_components"]["data"]))
-    swap = {"final_model.msgpack": "final_model.npz"}
-    want = {swap.get(p.name, p.name) for p in jexp.iterdir()} - {"checkpoint.msgpack",
-                                                                 "checkpoint.json"}
+    swap = {"final_model.msgpack": "final_model.npz", "checkpoint.msgpack": "checkpoint.npz"}
+    want = {swap.get(p.name, p.name) for p in jexp.iterdir()}
     assert {p.name for p in texp.iterdir()} == want

@@ -267,12 +267,15 @@ def test_update_epsilon_follows_the_jax_schedule():
 
 
 def test_unported_agent_parts_raise(tmp_path):
-    """CollocationAgent still raises; saving and loading an agent's state is
+    """CollocationAgent is ported (it builds on the CPU, and defaults to the
+    card, raising without one); saving and loading an agent's state is
     ported: a state after a few updates round-trips exactly (weights,
     Adam moments and counts, replay buffer, epsilon, counters)."""
     _, _, tagent, tstate = agent_pair(batch=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        CollocationAgent()
+    assert CollocationAgent(device="cpu").init(torch.Generator().manual_seed(0)).params
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            CollocationAgent()
     gen = torch.Generator().manual_seed(2)
     for _ in range(3):
         s = torch.rand((8, 2), generator=gen)
@@ -391,3 +394,48 @@ def test_trainer_residual_based_returns_finite_history():
     assert res["status"] == "completed"
     assert all(np.isfinite(res["history"]["train_loss"] + res["history"]["val_loss"]))
     assert trainer._final_state["rl"] is None
+
+
+def test_collocation_agent_matches_jax():
+    """``CollocationAgent`` with bridged weights: its epsilon-greedy scores
+    on JAX's draws exactly as JAX picks them, and the parameters after 3
+    naive Q updates (plain Adam) at 1e-5; epsilon's decay at 1e-6."""
+    from pinnrl_tpu.rl.dqn import CollocationAgent as JaxCollocationAgent
+    from pinnrl_tpu_torch.models.bridge import params_from_flax, params_to_flax
+
+    kw = dict(state_dim=2, hidden_dim=16, num_layers=3, learning_rate=1e-3, gamma=0.9,
+              epsilon_start=0.5, epsilon_decay=0.9, epsilon_end=0.3)
+    jagent = JaxCollocationAgent(**kw)
+    jstate = jagent.init(jax.random.PRNGKey(0))
+    tagent = CollocationAgent(**kw, device="cpu")
+    tstate = tagent.init(torch.Generator().manual_seed(0))
+    assert sorted(params_to_flax({k: v.detach() for k, v in tstate.params.items()})[0]) == \
+        sorted(jstate.params)
+    with torch.no_grad():
+        for k, v in params_from_flax(_np_tree(jstate.params)).items():
+            tstate.params[k].copy_(v)
+
+    rng = np.random.default_rng(3)
+    pts = rng.random((32, 2)).astype(np.float32)
+    for seed in range(4):  # both branches: epsilon 0.5
+        key = jax.random.PRNGKey(seed)
+        ref = jagent.get_action(jstate, jnp.asarray(pts), key)
+        u = torch.tensor(float(jax.random.uniform(key)))
+        r = torch.from_numpy(np.asarray(jax.random.normal(key, ref.shape)))
+        got = tagent._act(tstate, torch.from_numpy(pts), u, r)
+        assert rel_to_max(got, ref) < SCORE_TOL, seed
+
+    for step in range(3):
+        s, s_next = (rng.random((32, 2)).astype(np.float32) for _ in range(2))
+        reward = rng.standard_normal((32, 1)).astype(np.float32)
+        jstate = jagent.update(jstate, jnp.asarray(s), jnp.asarray(reward), jnp.asarray(s_next))
+        tstate = tagent.update(tstate, torch.from_numpy(s), torch.from_numpy(reward),
+                               torch.from_numpy(s_next))
+        jstate = jagent.update_epsilon(jstate)
+        tstate = tagent.update_epsilon(tstate)
+        np.testing.assert_allclose(float(tstate.epsilon), float(jstate.epsilon), rtol=1e-6)
+    got = params_to_flax({k: v.detach() for k, v in tstate.params.items()})[0]
+    for module, leaves in jstate.params.items():
+        for leaf, ref in leaves.items():
+            np.testing.assert_allclose(got[module][leaf], np.asarray(ref), rtol=0, atol=1e-5,
+                                       err_msg=f"{module}/{leaf}")

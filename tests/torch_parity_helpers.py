@@ -153,6 +153,18 @@ def small_recipe_trainer(key: str, epochs: int = 6):
     return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
 
 
+def shrink_recipe(cfg):
+    """Cut a recipe's config to CPU size in place (a ``mutate`` hook): trunk
+    8x8, mapping 4 (a random basis), 64 points in batches of 32, 16 BC and
+    IC points."""
+    cfg.model.hidden_dims = [8, 8]
+    cfg.model.arch_params["mapping_size"] = 4
+    cfg.model.arch_params.pop("feature_seed", None)
+    t = cfg.training
+    t.num_collocation_points, t.batch_size = 64, 32
+    t.num_boundary_points = t.num_initial_points = 16
+
+
 def pde_pair(pde_type, *, arch="fourier", hidden=(32, 24), mapping=16, periodic=True,
              layer_norm=True, scale=1.0, causal_eps=0.0, seed=0, ln_jitter=True, pde=None,
              dim=None, frame=None):
