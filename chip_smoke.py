@@ -205,7 +205,8 @@ Phases (each raises on failure, and the script then exits non-zero):
                (mapping 512) with ``--rl``, 4 epochs each: the experiment
                directory's files, metadata, history and exact launches of
                kernels 1, 2 and 4 (one more kernel-2 launch per validation for
-               the live snapshot), kernel 1 at 512x4 against its plain
+               the live snapshot, and for heat one for ``fdm_comparison.json``;
+               ``report.html`` in both), kernel 1 at 512x4 against its plain
                version, ``final_model.npz`` and ``rl_agent.npz`` loaded back;
                then ``benchmarks.cli inverse --pde heat --epochs 4 --csv``.
  31. sampling — ``benchmarks/sampling.py``'s ``run_sampling_benchmark`` at
@@ -262,6 +263,29 @@ Phases (each raises on failure, and the script then exits non-zero):
                the base unchanged); hard IC on the wave recipe and on the
                Burgers slice, 3 epochs (the IC loss under 1e-10, kernel 1
                never); ``CollocationAgent`` on the card, 5 updates.
+ 36. basis   — the Burgers recipe slice with ``trainable_features``, 2
+               epochs: kernel 1 exactly once per step and validation, B a
+               parameter that moves, the loss falling; kernel 1's dL/dB (and
+               every gradient) through the CUDA launcher against its plain
+               twins (``_TorchOps``) on the same card tensors at N = 8192 and
+               40000 (1e-4 relative to max, bit-identical in two calls);
+               kernel 1 with and without dL/dB and the dB variant's plain
+               version by CUDA-graph replay, beside the added work's bound
+               and cuBLAS's (a) and (c) products.
+ 37. ensemble — the same slice with ``ensemble_size`` 4, 2 epochs: kernel 1
+               exactly 4 times per step and validation, every leaf with a
+               member axis, finite falling member-mean losses; median ms
+               per step at E = 1 and E = 4 in turns; no host sync per step.
+ 38. trunks  — the modified Fourier trunk (256x3, mapping 128), the
+               autoencoder as shipped (124/248/124, latent 64) and the
+               slice with dropout 0.1, 2 epochs each: kernel 1 never on the
+               two trunks (the generic engine; kernel 2 inside it on the
+               modified one) and once per loss under dropout (identity on
+               every trainer path).
+ 39. plots   — ``training.train.main`` for heat (``save_plots`` on, 2
+               epochs) in a temporary directory: ``report.html`` and
+               ``fdm_comparison.json`` written, the run completed, the PNGs
+               present exactly when matplotlib imports.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -332,10 +356,13 @@ launch's own grid, ``ms_gemm_blocks``), and phase 9's A/Bs
 ``product_ab_ms`` and ``split_ab_ms``. Kernel 2's carries ``floor_ms`` (the
 empty kernel on its grid), ``shapes`` (ms, plain, eager and bound at each
 shape timed), ``host_us`` (the split of its eager call) and ``ptxas``.
-A ``[harnesses]`` line before it carries phases 31-33's rows, and a
+A ``[harnesses]`` line before it carries phases 31-33's rows, a
 ``[levers]`` line phases 34-35's (kernel 1's entry carries their launches,
 ``resume`` and, per window, ``kdv_time_marching_launches``; kernel 2's
-its launches there). The last
+its launches there), and a ``[trunks]`` line phases 36-39's (kernel 1's
+entry carries ``trainable_basis_launches``, ``trainable_basis`` (its
+parity and timings), ``ensemble_launches``, ``ensemble_step_ms`` and
+``trunk_launches``; kernel 2's its ``trunk_launches``). The last
 line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -507,7 +534,7 @@ GRIDDED_EPOCHS = 40
 GRID_FNO_TOL = 1e-5
 CLI_FILES = {"checkpoint.json", "checkpoint.npz", "config.yaml", "experiment.log",
              "final_model.json", "final_model.npz", "history.json", "live_snapshot.npz",
-             "metadata.json", "metrics.json", "visualizations"}
+             "metadata.json", "metrics.json", "report.html", "visualizations"}
 # Phase 34: the Burgers recipe slice per lever, 4 epochs of 4 steps (with
 # adam_lbfgs: 2 Adam epochs, then 2 L-BFGS iterations on all 40000 points).
 LEVER_EPOCHS = 4
@@ -519,6 +546,12 @@ MULTISTAGE_EPOCHS = 4
 HARD_IC_EPOCHS = 3
 HARD_IC_TOL = 1e-10
 COLLOCATION_UPDATES = 5
+# Phases 36-39 (the trunk options, ensembles, the experiment's plots).
+TRUNK_EPOCHS = 2      # phases 36-38: epochs of 4 steps of the Burgers slice per run
+ENSEMBLE_E = 4        # phase 37's members
+TIMED_STEPS = 10      # phase 37's steps timed per turn (E = 1 and E = 4, in turns)
+DB_TOL = 1e-4         # dL/dB against _TorchOps: the gradients' bound, rel to max
+EXPECT_DROPOUT = 0.1  # phase 38's dropout rate (identity on the trainer's paths)
 
 
 def nvidia_smi_line() -> str:
@@ -1601,12 +1634,14 @@ def cli_runs(dev, card: str):
             vals = len(hist["val_loss"])
             inverse = name == "heat_inverse"
             # Per loss: heat inverse IC, periodic faces (rule) and data; Burgers
-            # BC and IC; one more launch per validation for the live snapshot.
+            # BC and IC; one more launch per validation for the live snapshot,
+            # and for heat one at the end for the FDM comparison's grid.
             want = {"fused_residual_loss": 0 if inverse else steps + vals,
-                    "fourier_features": (3 if inverse else 2) * (steps + vals) + vals,
+                    "fourier_features": (3 if inverse else 2) * (steps + vals) + vals
+                    + int(inverse),
                     "fused_mlp_score": 0 if inverse else steps,
                     "fourier_features_jvps": (steps + vals) if inverse else 0}
-            want_files = CLI_FILES | (set() if inverse else {"rl_agent.npz"})
+            want_files = CLI_FILES | ({"fdm_comparison.json"} if inverse else {"rl_agent.npz"})
             print(f"[cli] {name}: main({' '.join(argv + common)}) rc {rc}, {wall:.2f} s, {steps} "
                   f"steps, {vals} validation(s), trunk {tr.model.config.hidden_dims}, mapping {tr.model.config.arch_params.get('mapping_size')}; files "
                   f"{sorted(files)}; status {meta['status']}; identified "
@@ -2408,6 +2443,246 @@ def marching_runs(dev, card: str):
     if not (moved > 0 and scores.shape == (4096, 1) and bool(torch.isfinite(scores).all())):
         raise AssertionError("CollocationAgent on the card")
     out["collocation_agent"] = {"updates": COLLOCATION_UPDATES, "moved": moved}
+    return out
+
+
+def _run_counted(tr, **kw):
+    """(result, launches, wall s) of one ``train`` run."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with per_train_launches() as seen:
+        res = tr.train(seed=0, **kw)
+    ((_, launches, _),) = seen
+    return res, launches, time.perf_counter() - t0
+
+
+def _db_bound(n: int, d: int, kx: int, m: int, width: int):
+    """(ms, what bounds it) of the work dL/dB adds to one kernel-1 call:
+    (a) the embedding's cotangent G W0, S N x width x 2m FMAs, reading the
+    layer's cotangent and W0 and writing G; (b) the fold of G with the
+    sin/cos orders, ~8 operations per stream, point and feature, reading G,
+    z and B; (c) dB = z^T A + sum_s v_s colsum(C_s), 2 (d+1) N m operations,
+    writing dB. S = 2 + d kx streams."""
+    S = 2 + d * kx
+    ops = 2.0 * S * n * width * 2 * m + 8.0 * S * n * m + 2.0 * (d + 1) * n * m
+    nbytes = 4.0 * (S * n * width + width * 2 * m + 2 * S * n * 2 * m + n * (d + 1)
+                    + 2 * (d + 1) * m)
+    return bound(ops, nbytes)
+
+
+def trunk_runs(dev, card: str):
+    """Phases 36-39: the trainable basis through kernel 1's dL/dB, deep
+    ensembles, the modified and autoencoder trunks and dropout, and the heat
+    CLI's plots, report and FDM comparison (see the module docstring)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training import train as train_cli
+
+    steps_per_epoch = 40000 // 8192
+    out = {}
+
+    def trainer(cfg):
+        return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+
+    # ---- 36. a trainable basis: kernel 1 with dL/dB ------------------------ #
+    cfg = lever_config("cuda", num_epochs=TRUNK_EPOCHS)
+    cfg.model.arch_params["trainable_features"] = True
+    tr = trainer(cfg)
+    if not tr.fused_kernel_active or "FourierFeatures_0.B" not in tr.model.params:
+        raise AssertionError("trainable basis: kernel 1 not attached or B not a parameter")
+    B0 = tr.model.params["FourierFeatures_0.B"].detach().clone()
+    res, launches, wall = _run_counted(tr)
+    hist = res["history"]
+    steps, vals = TRUNK_EPOCHS * steps_per_epoch, len(hist["val_loss"])
+    moved = float((tr.model.params["FourierFeatures_0.B"] - B0).abs().max())
+    print(f"[trunks] trainable basis (Fourier 256x3, mapping 128, batch 8192): {steps} steps + "
+          f"{vals} validations, kernel 1 {launches['fused_residual_loss']} launches, train "
+          f"{hist['train_loss']}, B moved {moved:.3e}, {wall:.1f} s ({card})", flush=True)
+    if launches["fused_residual_loss"] != steps + vals:
+        raise AssertionError(f"trainable basis: kernel 1 {launches}, want {steps + vals}")
+    if not (all(map(math.isfinite, hist["train_loss"])) and moved > 0.0
+            and hist["train_loss"][-1] < hist["train_loss"][0]):
+        raise AssertionError(f"trainable basis: losses {hist['train_loss']}, B moved {moved}")
+    # dL/dB on the card: the CUDA launcher against its plain twins (_TorchOps)
+    # on the same card tensors, the whole gradient set, bit-identical twice.
+    model, pde = tr.model, tr.pde
+    spec = fused_step._spec(model, pde)
+    P = {k: v.detach() for k, v in model.params.items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    timings = {}
+    db_parity = {}
+    for n in (8192, 40000):
+        x, t = pde.generate_collocation_points(gen, n, "uniform")
+        z = time_sorted(x, t)
+        lk, gk = fused_step._loss_and_grads(fused_step._cuda_ops(dev), spec, z, P)
+        lk2, gk2 = fused_step._loss_and_grads(fused_step._cuda_ops(dev), spec, z, P)
+        lp, gp = fused_step._loss_and_grads(fused_step._TorchOps(), spec, z, P)
+        torch.cuda.synchronize()
+        rels = {k: float((gk[k] - gp[k]).abs().max()) / float(gp[k].abs().max()) for k in gp}
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        same = torch.equal(lk, lk2) and all(torch.equal(gk[k], gk2[k]) for k in gk)
+        db_parity[n] = {"loss_rel": loss_rel, "dB_rel": rels["FourierFeatures_0.B"],
+                        "worst_rel": max(rels.values()), "bit_identical": same,
+                        "max_abs_err": max(float((gk[k] - gp[k]).abs().max()) for k in gp)}
+        print(f"[trunks] kernel 1 with dL/dB N={n}: loss rel {loss_rel:.3e}, dB rel "
+              f"{rels['FourierFeatures_0.B']:.3e}, worst grad rel {max(rels.values()):.3e} "
+              f"(tol {DB_TOL:g}), two calls bit-identical {same}", flush=True)
+        if not (loss_rel < 1e-5 and max(rels.values()) < DB_TOL and same):
+            raise AssertionError(f"kernel 1 with dL/dB disagrees with _TorchOps at N={n}: {rels}")
+        # Kernel 1 with and without dL/dB (the same weights, B fixed), and
+        # the plain version of the dB variant, by CUDA-graph replay.
+        fixed = fused_step._Spec(**{**spec.__dict__, "trainable_basis": False,
+                                    "B": P["FourierFeatures_0.B"].contiguous(),
+                                    "leaf_names": spec.leaf_names[1:]})
+        bundle_fn = make_bundle_fn(model, 1, 2, 1)
+        p_leaf = {k: v.clone().requires_grad_(True) for k, v in P.items()}
+        ops = fused_step._cuda_ops(dev)
+        it = 5 if n > 8192 else 10
+        with_db = graph_ms(lambda: fused_step._loss_and_grads(ops, spec, z, P), iters=it, replays=5)
+        without = graph_ms(lambda: fused_step._loss_and_grads(ops, fixed, z, P), iters=it, replays=5)
+        plain = graph_ms(lambda: torch.autograd.grad(
+            fused_step.fused_residual_loss_plain(bundle_fn, pde, p_leaf, z),
+            list(p_leaf.values())), iters=it, replays=5)
+        S, m, width = 4, P["FourierFeatures_0.B"].shape[1], P["Dense_0.weight"].shape[0]
+        a_lib = cublas_ms([(S * n, width, 2 * m)], dev)
+        c_lib = cublas_ms([(2, n, m)], dev)
+        db_bound = _db_bound(n, 1, 2, m, width)
+        full_bound = kernel1_bound(P, 2, z, P["FourierFeatures_0.B"])
+        timings[n] = {"with_db_ms": with_db, "without_db_ms": without, "plain_ms": plain,
+                      "added_bound_ms": db_bound[0], "added_bound_by": db_bound[1],
+                      "bound_ms": full_bound[0], "bound_by": full_bound[1],
+                      "cublas_a_ms": a_lib, "cublas_c_ms": c_lib}
+        print(f"[trunks] kernel 1 Burgers N={n}: with dL/dB {with_db:.4f} ms, without "
+              f"{without:.4f} ms (added {with_db - without:.4f}; its bound {db_bound[0]:.4f} ms, "
+              f"{db_bound[1]}), plain with B a leaf {plain:.4f} ms, call bound {full_bound[0]:.4f} "
+              f"ms; cuBLAS (a) ({S * n}x{width})x({width}x{2 * m}) {a_lib:.4f} ms, (c) "
+              f"(2x{n})x({n}x{m}) {c_lib:.4f} ms ({card})", flush=True)
+    out["trainable_basis"] = {"launches": launches, "steps": steps, "validations": vals,
+                              "train_loss": hist["train_loss"], "wall_s": wall,
+                              "parity": db_parity, "timings": timings}
+    del tr, model, pde
+
+    # ---- 37. a deep ensemble of 4 ----------------------------------------- #
+    cfg = lever_config("cuda", num_epochs=TRUNK_EPOCHS, ensemble_size=ENSEMBLE_E)
+    tr = trainer(cfg)
+    res, launches, wall = _run_counted(tr)
+    hist = res["history"]
+    vals = len(hist["val_loss"])
+    want = ENSEMBLE_E * (steps + vals)
+    lead = {k: tuple(v.shape[:1]) for k, v in tr.model.params.items()}
+    print(f"[trunks] ensemble E={ENSEMBLE_E}: {steps} steps + {vals} validations, kernel 1 "
+          f"{launches['fused_residual_loss']} launches (want {want}: {ENSEMBLE_E} per step and "
+          f"validation), train {hist['train_loss']}, val {hist['val_loss']}, {wall:.1f} s ({card})",
+          flush=True)
+    if launches["fused_residual_loss"] != want or set(lead.values()) != {(ENSEMBLE_E,)}:
+        raise AssertionError(f"ensemble: kernel 1 {launches}, want {want}; leading axes {lead}")
+    if not (all(map(math.isfinite, hist["train_loss"] + hist["val_loss"]))
+            and hist["train_loss"][-1] < hist["train_loss"][0]):
+        raise AssertionError(f"ensemble: losses {hist['train_loss']}")
+    # Step ms at E = 1 and E = 4, in turns (host clock, synchronized).
+    one = trainer(lever_config("cuda", num_epochs=TRUNK_EPOCHS))
+    ens = tr
+
+    e_params = ens.model.params
+    e_opt = ens._make_adam(TRUNK_EPOCHS, steps_per_epoch, ens._leaves(e_params))
+    e_gens = [torch.Generator(device=dev).manual_seed(20 + m) for m in range(ENSEMBLE_E)]
+
+    def ens_step():
+        ens._ensemble_step(e_params, e_opt, e_gens, 8192)
+
+    def ens_times(n):
+        times = []
+        for i in range(n + 2):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            ens_step()
+            torch.cuda.synchronize()
+            if i >= 2:  # warm-up
+                times.append((time.perf_counter() - s) * 1e3)
+        return times
+
+    turns = {"e1": [], "e4": []}
+    for who in ("e1", "e4", "e4", "e1"):
+        turns[who] += (step_times(one, TIMED_STEPS, TRUNK_EPOCHS, 8192) if who == "e1"
+                       else ens_times(TIMED_STEPS))
+    ms = {k: statistics.median(v) for k, v in turns.items()}
+    sync_sites = record_syncs(ens_step)
+    print(f"[trunks] ensemble step ms (median, host clock, in turns): E=1 {ms['e1']:.3f}, "
+          f"E={ENSEMBLE_E} {ms['e4']:.3f} ({ms['e4'] / ms['e1']:.2f}x); host syncs per "
+          f"E={ENSEMBLE_E} step {len(sync_sites)} {sorted(set(sync_sites))} ({card})", flush=True)
+    if sync_sites:
+        raise AssertionError(f"ensemble: {len(sync_sites)} host syncs per step at {sync_sites}")
+    out["ensemble"] = {"launches": launches, "want": want, "steps": steps, "validations": vals,
+                       "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
+                       "wall_s": wall, "step_ms": ms, "syncs": len(sync_sites)}
+    del tr, ens, one, e_params, e_opt
+
+    # ---- 38. modified trunk, autoencoder, dropout --------------------------- #
+    mod = lever_config("cuda", num_epochs=TRUNK_EPOCHS)
+    mod.model.arch_params["modified"] = True
+    auto = load_config(pde_type="burgers", architecture="autoencoder", device="cuda")
+    slice_cfg = lever_config("cuda", num_epochs=TRUNK_EPOCHS)
+    auto.pde, auto.training = slice_cfg.pde, slice_cfg.training
+    auto.model.input_dim = slice_cfg.model.input_dim
+    drop = lever_config("cuda", num_epochs=TRUNK_EPOCHS)
+    drop.model.dropout = EXPECT_DROPOUT
+    for name, c in (("modified", mod), ("autoencoder", auto), ("dropout", drop)):
+        tr = trainer(c)
+        res, launches, wall = _run_counted(tr)
+        hist = res["history"]
+        vals = len(hist["val_loss"])
+        k1 = launches["fused_residual_loss"]
+        want_k1 = steps + vals if name == "dropout" else 0
+        print(f"[trunks] {name} ({tr.model.architecture_name}, {tr.model.count_parameters()} "
+              f"parameters): {steps} steps, kernel 1 {k1} (want {want_k1}), kernel 2 "
+              f"{launches['fourier_features']} (jvp rule {launches['fourier_features_jvps']}), "
+              f"train {hist['train_loss']}, {wall:.1f} s ({card})", flush=True)
+        if k1 != want_k1 or not all(map(math.isfinite, hist["train_loss"] + hist["val_loss"])):
+            raise AssertionError(f"{name}: launches {launches}, losses {hist['train_loss']}")
+        if name == "modified" and not launches["fourier_features"]:
+            raise AssertionError("modified trunk: kernel 2 never launched")
+        out[name] = {"launches": launches, "train_loss": hist["train_loss"], "wall_s": wall,
+                     "parameters": tr.model.count_parameters()}
+        del tr
+
+    # ---- 39. the heat CLI's plots, report and FDM comparison ---------------- #
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = train_cli.main(["--pde", "heat", "--epochs", "2", "--results-dir", tmp])
+        wall = time.perf_counter() - t0
+        (exp,) = Path(tmp).iterdir()
+        files = {p.relative_to(exp).as_posix() for p in exp.rglob("*")}
+        meta = json.loads((exp / "metadata.json").read_text())
+        fdm = json.loads((exp / "fdm_comparison.json").read_text()) if (
+            exp / "fdm_comparison.json").exists() else None
+        pngs = sorted(f for f in files if f.endswith(".png"))
+        report = (exp / "report.html").read_text() if (exp / "report.html").exists() else ""
+    print(f"[trunks] heat CLI (save_plots on): rc {rc}, status {meta.get('status')}, "
+          f"report.html {len(report)} bytes, fdm_comparison {fdm}, PNGs {pngs} (matplotlib "
+          f"{'present' if has_mpl else 'absent'}), {wall:.1f} s ({card})", flush=True)
+    if rc != 0 or meta.get("status") != "completed" or not report or fdm is None:
+        raise AssertionError(f"heat CLI: rc {rc}, files {sorted(files)}")
+    if not all(map(math.isfinite, fdm.values())) or bool(pngs) != has_mpl:
+        raise AssertionError(f"heat CLI: fdm {fdm}, PNGs {pngs}, matplotlib {has_mpl}")
+    out["heat_cli"] = {"files": sorted(files), "fdm_comparison": fdm, "pngs": pngs,
+                       "matplotlib": has_mpl, "wall_s": wall}
     return out
 
 
@@ -3903,6 +4178,9 @@ def main() -> int:
     levers = lever_runs(dev, card)
     marching = marching_runs(dev, card)
 
+    # ---- 36-39. trainable basis, ensembles, trunks, the heat CLI's plots ---- #
+    trunks = trunk_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -3929,7 +4207,9 @@ def main() -> int:
          "launches": rl_launches["fused_residual_loss"],
          "kdv_launches": kdv_launches["fused_residual_loss"],
          "heat_launches": heat_launches["fused_residual_loss"],
-         "variants": list(FUSED_TOLS), "max_abs_err": max(fused_errs.values()),
+         "variants": list(FUSED_TOLS),
+         "max_abs_err": max(*fused_errs.values(),
+                            *(v["max_abs_err"] for v in trunks["trainable_basis"]["parity"].values())),
          "ms": fused_ms, "plain_ms": fused_plain_ms, "eager_ms": fused_eager_ms,
          "bound_ms": fused_bound[0], "bound_by": fused_bound[1], "library_ms": fused_lib_ms,
          "library_call": "torch.mm (FP32, TF32 off) of the call's GEMM shapes, Burgers N=8192",
@@ -3963,7 +4243,13 @@ def main() -> int:
                                         for w in marching["kdv_tm4"]["windows"]],
          "multistage_launches": marching["multistage"]["kernel1_per_stage"],
          "hard_ic_launches": {k: marching[f"hard_ic_{k}"]["launches"]["fused_residual_loss"]
-                              for k in ("wave", "burgers")}},
+                              for k in ("wave", "burgers")},
+         "trainable_basis_launches": trunks["trainable_basis"]["launches"]["fused_residual_loss"],
+         "trainable_basis": {k: trunks["trainable_basis"][k] for k in ("parity", "timings")},
+         "ensemble_launches": trunks["ensemble"]["launches"]["fused_residual_loss"],
+         "ensemble_step_ms": trunks["ensemble"]["step_ms"],
+         "trunk_launches": {k: trunks[k]["launches"]["fused_residual_loss"]
+                            for k in ("modified", "autoencoder", "dropout")}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -3987,6 +4273,10 @@ def main() -> int:
                             for k, v in levers.items() if "launches" in v},
          "kdv_time_marching_launches": [w["launches"]["fourier_features"]
                                         for w in marching["kdv_tm4"]["windows"]],
+         "trunk_launches": {k: {"launches": trunks[k]["launches"]["fourier_features"],
+                                "jvps": trunks[k]["launches"]["fourier_features_jvps"]}
+                            for k in ("trainable_basis", "ensemble", "modified", "autoencoder",
+                                      "dropout")},
          "multistage_launches": [{"launches": v["fourier_features"],
                                   "jvps": v["fourier_features_jvps"]}
                                  for v in marching["multistage"]["launches"]],
@@ -4028,6 +4318,7 @@ def main() -> int:
     ]
     print(f"[harnesses] {json.dumps({'sampling': samp['runs'], 'fdm': fdm, 'operator': op})}")
     print(f"[levers] {json.dumps({'levers': levers, 'marching': marching}, default=str)}")
+    print(f"[trunks] {json.dumps(trunks, default=str)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -79,8 +79,8 @@ RECIPES: Dict[str, dict] = {
     ),
     "kdv": dict(
         arch="fourier",
-        # feature_seed pins the random-Fourier basis (shipped as data in
-        # config/feature_bases.json).
+        # feature_seed pins the random-Fourier basis (JAX's threefry draw,
+        # utils/prng.py).
         model=dict(hidden_dims=[256, 256, 256], mapping_size=256, scale=0.75,
                    feature_seed=0),
         # Annealed Adam at Fourier scale 0.75, mapping 256, 100k collocation

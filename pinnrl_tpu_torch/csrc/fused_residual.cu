@@ -35,6 +35,11 @@
 //                         ((2+DK)N, 2m) input [value; per axis x1..xK; t1],
 //                         K = 1 (convection), 2 (Burgers, heat, Allen-Cahn,
 //                         Black-Scholes) or 3 (KdV).
+//   embed_bwd_partial_kernel<D,K>  with a trainable basis, dL/dB from the
+//                         embedding's cotangent G = dH W0 ((2+DK)N, 2m): per
+//                         point and feature the cotangents of the phase p and
+//                         of each direction's rate, folded into D+1 rows of
+//                         per-block partials; colsum_final_kernel sums them.
 //   affine_input_kernel<D>  the feedforward trunk's ((2+DK)N, D+1) input: the
 //                         affine map and its constant direction rows; the
 //                         first GEMM then has D+1 input columns (the core's
@@ -245,6 +250,105 @@ __global__ void embed_kernel(const float* __restrict__ z, const float* __restric
     float* rt = r0 + L::T * stride;
     rt[j] = cs * p1t;
     rt[m + j] = -sn * p1t;
+}
+
+// dL/dB of a trainable basis. Stream (g, k) of the embedding is
+// p1^k [sin^(k)(p), cos^(k)(p)] with p = s w.B_j and p1 = s v_g.B_j, v_g the
+// direction (sc_g e_g for an axis, the t-direction for t1), so with G its
+// cotangent (Gs, Gc):
+//   dL/dp   += p1^k (Gs cos^(k)(p) - Gc sin^(k)(p))
+//   dL/dp1  += k p1^(k-1) (Gs sin^(k)(p) + Gc cos^(k)(p))
+// and dL/dB_aj = s sum_points (w_a dL/dp + sum_g v_g[a] dL/dp1_g). One
+// thread per (feature j, 8th row); a block sums COLSUM_ROWS points and
+// writes the D+1 rows of its partial (chunk, (D+1) m) in a fixed order, so
+// the result is identical from run to run. What bounds it: reading G,
+// (2 + D K) N x 2m floats, once; the sincos per (point, feature) is the
+// forward's again.
+template <int D, int KX>
+__global__ void embed_bwd_partial_kernel(const float* __restrict__ z,
+                                         const float* __restrict__ lo,
+                                         const float* __restrict__ sc,
+                                         const float* __restrict__ B,
+                                         const float* __restrict__ G, int n, int m, float s,
+                                         int frame, float c, float* __restrict__ partial) {
+    using L = Layout<D, KX>;
+    __shared__ float sm[D + 1][8][33];
+    const int j = blockIdx.x * 32 + threadIdx.x;
+    const int r0 = blockIdx.y * COLSUM_ROWS;
+    const int r1 = min(n, r0 + COLSUM_ROWS);
+    float acc[D + 1];
+#pragma unroll
+    for (int a = 0; a <= D; ++a) acc[a] = 0.0f;
+    if (j < m) {
+        float p1x[D];
+        for_groups<0, D>([&](auto g_) {
+            constexpr int g = decltype(g_)::value;
+            p1x[g] = s * (sc[g] * B[(long long)g * m + j]);
+        });
+        // The t-direction in input space and its rate, as embed_kernel.
+        float vt[D + 1];
+        for_groups<0, D>([&](auto a_) {
+            constexpr int a = decltype(a_)::value;
+            vt[a] = frame ? -c * sc[a] : 0.0f;
+        });
+        vt[D] = sc[D];
+        float p1t = s * (sc[D] * B[(long long)D * m + j]);
+        if (frame) {
+            float v = (-c * sc[0]) * B[j];
+            for_groups<1, D>([&](auto a_) {
+                constexpr int a = decltype(a_)::value;
+                v = v + (-c * sc[a]) * B[(long long)a * m + j];
+            });
+            p1t = s * (v + sc[D] * B[(long long)D * m + j]);
+        }
+        const long long w2 = 2LL * m;
+        const long long stride = (long long)n * w2;
+        for (int row = r0 + threadIdx.y; row < r1; row += 8) {
+            float w[D + 1];
+            affine_map<D>(z + (long long)(D + 1) * row, lo, sc, frame, c, w);
+            float pj = w[0] * B[j];
+#pragma unroll
+            for (int a = 1; a <= D; ++a) pj = pj + w[a] * B[(long long)a * m + j];
+            float sn, cs;
+            sincosf(s * pj, &sn, &cs);
+            const float* g0 = G + (long long)row * w2;
+            float dp = g0[j] * cs - g0[m + j] * sn;
+            for_groups<0, D>([&](auto g_) {
+                constexpr int g = decltype(g_)::value;
+                float sk = sn, ck = cs, pk = 1.0f, dq = 0.0f;
+#pragma unroll
+                for (int k = 1; k <= KX; ++k) {
+                    const float* gk = g0 + (L::base(g) + k - 1) * stride;
+                    const float gs = gk[j], gc = gk[m + j];
+                    const float s_next = ck, c_next = -sk;  // sin^(k)(p), cos^(k)(p)
+                    sk = s_next;
+                    ck = c_next;
+                    dq += (float)k * pk * (gs * sk + gc * ck);  // pk = p1^(k-1)
+                    pk *= p1x[g];
+                    dp += pk * (gs * ck - gc * sk);
+                }
+                acc[g] += sc[g] * dq;
+            });
+            const float* gt = g0 + L::T * stride;
+            const float gs = gt[j], gc = gt[m + j];
+            dp += p1t * (-gs * sn - gc * cs);
+            const float dqt = gs * cs - gc * sn;
+#pragma unroll
+            for (int a = 0; a <= D; ++a) acc[a] += w[a] * dp + vt[a] * dqt;
+        }
+    }
+#pragma unroll
+    for (int a = 0; a <= D; ++a) sm[a][threadIdx.y][threadIdx.x] = acc[a];
+    __syncthreads();
+    if (threadIdx.y == 0 && j < m) {
+#pragma unroll
+        for (int a = 0; a <= D; ++a) {
+            float t = 0.0f;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) t += sm[a][k][threadIdx.x];
+            partial[(long long)blockIdx.y * (D + 1) * m + (long long)a * m + j] = t;
+        }
+    }
 }
 
 // Feedforward trunk: the stacked ((2 + dim kx) n, dim+1) input of the first
@@ -1143,6 +1247,26 @@ extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const 
     return (int)cudaGetLastError();
 }
 
+// dB ((dim+1), m) of a trainable basis from G ((2 + dim kx) n, 2m), the
+// cotangent of fr_embed's X; partial: ceil(n / COLSUM_ROWS) x (dim+1) m.
+extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, const float* B,
+                            const float* G, int n, int m, int two_pi, int kx, int dim, int frame,
+                            float c, float* partial, float* dB, void* stream) {
+    const float s = two_pi ? 6.283185307179586f : 1.0f;
+    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    const int chunks = (int)cdiv(n, COLSUM_ROWS);
+    const int cols = (dim + 1) * m;
+    if (n > 0 && m > 0) {
+        with_dim_kx(dim, kx, [&](auto d, auto k) {
+            embed_bwd_partial_kernel<decltype(d)::value, decltype(k)::value>
+                <<<dim3(cdiv(m, 32), (unsigned)chunks), dim3(32, 8), 0, (cudaStream_t)stream>>>(
+                    z, lo, sc, B, G, n, m, s, frame, c, partial);
+        });
+        colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks,
+                                                                               cols, s, dB);
+    }
+    return (int)cudaGetLastError();
+}
 // X ((2 + dim kx) n, dim+1): the feedforward trunk's stacked input.
 extern "C" int fr_affine_input(const float* z, const float* lo, const float* sc, float* X, int n,
                                int kx, int dim, int frame, float c, void* stream) {

@@ -1,11 +1,18 @@
 """Model factory and the ``PINNModel`` apply wrapper.
 
 ``PINNModel`` holds an ``nn.Module`` and exposes the JAX package's pure
-``apply(params, x)`` contract: ``params`` is a name -> tensor mapping of the
-trainable parameters (``model.params``), and buffers such as the Fourier
-basis come from the module. Inputs are mapped affinely from the PDE domain
-to [-1, 1]^d (optionally in a co-moving frame) before the network, and an
-optional ``output_transform(z, out)`` runs in physical coordinates after it.
+``apply(params, x, deterministic=True)`` contract: ``params`` is a name ->
+tensor mapping of the trainable parameters (``model.params``), and buffers
+such as a fixed Fourier basis come from the module. Inputs are mapped
+affinely from the PDE domain to [-1, 1]^d (optionally in a co-moving frame)
+before the network, and an optional ``output_transform(z, out)`` runs in
+physical coordinates after it.
+
+``deterministic=False`` turns dropout on, its masks drawn from the
+``generator`` the caller passes (no path of the trainer does, as in the JAX
+package). A deep ensemble's parameters carry a leading member axis on every
+leaf (``is_ensemble_params``); ``apply`` then returns the members' mean
+prediction, and ``model.ensemble``, once a trainer sets it, holds them.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from torch import nn
 
 from pinnrl_tpu_torch.config import Config, ModelConfig, _asdict, resolve_device
 from pinnrl_tpu_torch.models.attention import AttentionNetwork
+from pinnrl_tpu_torch.models.autoencoder import AutoEncoder
 from pinnrl_tpu_torch.models.base import count_parameters
 from pinnrl_tpu_torch.models.feedforward import FeedForwardNetwork
 from pinnrl_tpu_torch.models.fno import FNONetwork
@@ -31,6 +39,7 @@ __all__ = [
     "PINNModel",
     "create_module",
     "AttentionNetwork",
+    "AutoEncoder",
     "FeedForwardNetwork",
     "FNONetwork",
     "FourierNetwork",
@@ -40,7 +49,8 @@ __all__ = [
     "PORTED_ARCHITECTURES",
 ]
 
-PORTED_ARCHITECTURES = ("attention", "feedforward", "fno", "fourier", "resnet", "siren")
+PORTED_ARCHITECTURES = ("attention", "autoencoder", "feedforward", "fno", "fourier", "resnet",
+                        "siren")
 
 
 def _parse_scale(v):
@@ -118,10 +128,17 @@ def create_module(model_cfg: ModelConfig, generator: Optional[torch.Generator] =
             generator=generator,
             **common,
         )
-    raise ValueError(
-        f"architecture {arch!r} is not ported yet (ROADMAP item 12); "
-        f"ported: {PORTED_ARCHITECTURES}"
-    )
+    if arch == "autoencoder":
+        return AutoEncoder(
+            hidden_dims=tuple(model_cfg.hidden_dims),
+            latent_dim=int(ap.get("latent_dim", 64)),
+            activation=model_cfg.activation,
+            dropout=model_cfg.dropout,
+            layer_norm=model_cfg.layer_norm,
+            generator=generator,
+            **common,
+        )
+    raise ValueError(f"Unknown architecture {arch!r}; valid: {PORTED_ARCHITECTURES}")
 
 
 class PINNModel:
@@ -163,10 +180,16 @@ class PINNModel:
         # u(z) = g(z, net(z)) in physical coordinates (e.g. hard IC).
         self.output_transform: Optional[Callable] = None
         self._leaf_ndim = {k: p.ndim for k, p in self.module.named_parameters()}
+        # A deep ensemble's stacked parameters (leading member axis), set by
+        # the trainer or load_state; None for one model.
+        self.ensemble: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The module's trainable parameters, by flax-compatible name."""
+        """The trainable parameters by flax-compatible name: the module's,
+        or an ensemble's stacked leaves."""
+        if self.ensemble is not None:
+            return dict(self.ensemble)
         return dict(self.module.named_parameters())
 
     @property
@@ -184,11 +207,23 @@ class PINNModel:
             x = torch.cat([xs - self._frame_speed * t, t], dim=-1)
         return (x - self._in_lo) * self._in_scale - 1.0
 
-    def apply(self, params, x: torch.Tensor) -> torch.Tensor:
-        """Pure forward pass: ``x`` is (..., input_dim)."""
+    def _net(self, params, x: torch.Tensor, deterministic: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        kwargs = {} if deterministic else {"deterministic": False, "generator": generator}
+        return torch.func.functional_call(self.module, dict(params), (x,), kwargs)
+
+    def apply(self, params, x: torch.Tensor, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Pure forward pass: ``x`` is (..., input_dim). Stacked ensemble
+        parameters give the mean of the members' predictions."""
+        w = self.map_inputs(x)
         if self.is_ensemble_params(params):
-            raise NotImplementedError("ensemble params are not ported yet (ROADMAP item 13)")
-        out = torch.func.functional_call(self.module, dict(params), (self.map_inputs(x),))
+            members = next(iter(params.values())).shape[0]
+            out = torch.stack([
+                self._net({k: v[m] for k, v in params.items()}, w, deterministic, generator)
+                for m in range(members)]).mean(dim=0)
+        else:
+            out = self._net(params, w, deterministic, generator)
         if self.output_transform is not None:
             out = self.output_transform(x, out)
         return out
@@ -201,15 +236,17 @@ class PINNModel:
 
     def save_state(self, path: str) -> None:
         """The weights as ``.npz``, keyed by flax path (``params/Dense_0/kernel``,
-        ``constants/FourierFeatures_0/B``: ``models/bridge.py``'s rules), and
-        the model config beside it (``.json``), as the JAX package's
-        ``final_model.msgpack`` and its sidecar."""
+        ``constants/FourierFeatures_0/B``: ``models/bridge.py``'s rules; an
+        ensemble's stacked leaves), and the model config beside it
+        (``.json``), as the JAX package's ``final_model.msgpack`` and its
+        sidecar."""
         from pinnrl_tpu_torch.models.bridge import flat_flax_arrays
 
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
+        state = {**self.module.state_dict(), **(self.ensemble or {})}
         with open(path, "wb") as f:
-            np.savez(f, **flat_flax_arrays(self.module.state_dict()))
+            np.savez(f, **flat_flax_arrays(state, self._leaf_ndim))
         path.with_suffix(".json").write_text(json.dumps(_asdict(self.config), indent=2, default=str))
 
     def load_state(self, path: str) -> None:
@@ -218,4 +255,9 @@ class PINNModel:
 
         with np.load(path) as data:
             state = state_from_flat_flax({k: data[k] for k in data.files})
+        if self.is_ensemble_params({k: v for k, v in state.items() if k in self._leaf_ndim}):
+            self.ensemble = {k: state.pop(k).to(self.device) for k in self._leaf_ndim}
+            self.module.load_state_dict(state, strict=False)
+            return
+        self.ensemble = None
         self.module.load_state_dict(state, strict=True)

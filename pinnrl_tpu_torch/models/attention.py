@@ -84,8 +84,7 @@ class AttentionNetwork(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if dropout > 0.0:
-            raise NotImplementedError("dropout is not ported yet (ROADMAP item 12)")
+        # dropout is taken and applied nowhere, as in the JAX package.
         self.num_layers = int(num_layers)
         self.Dense_0 = _dense(input_dim, hidden_dim, generator)
         for i in range(self.num_layers):
@@ -94,7 +93,8 @@ class AttentionNetwork(nn.Module):
                             FeedForwardBlock(hidden_dim, activation, generator))
         self.Dense_1 = _dense(hidden_dim, output_dim, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.Dense_0(x)
         for i in range(self.num_layers):
             x = getattr(self, f"SelfAttention_{i}")(x)

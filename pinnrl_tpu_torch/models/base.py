@@ -6,7 +6,7 @@ The activations follow flax's definitions, not torch's defaults: flax's
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +68,25 @@ def layer_norm(norm: torch.nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     c = x - mean
     var = (c * c).mean(dim=-1, keepdim=True)
     return c * torch.rsqrt(var + norm.eps) * norm.weight + norm.bias
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: identity when ``deterministic`` (every path of
+    the trainer, as in the JAX package); otherwise each entry is kept with
+    probability 1 - rate, from ``generator``, and scaled by 1 / (1 - rate).
+    Without a generator it raises, as flax does without a ``"dropout"``
+    rng."""
+    if deterministic or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a torch.Generator "
+                         "(flax needs a 'dropout' rng)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

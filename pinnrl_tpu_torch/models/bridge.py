@@ -1,9 +1,18 @@
 """Parameter bridge between the flax parameter tree and the port's state_dict.
 
-- ``Dense_i/kernel`` (in, out)        <-> ``Dense_i.weight`` (out, in)
+- ``Dense_i/kernel`` (in, out)        <-> ``Dense_i.weight`` (out, in), and so
+  for every Dense under another name: the autoencoder's ``encoder_layers_i``,
+  ``decoder_layers_i``, ``to_latent``, ``to_output``, the modified trunk's
+  ``enc_u``, ``enc_v``, ``gate_i``
 - ``Dense_i/bias``                     <-> ``Dense_i.bias``
-- ``LayerNorm_i/{scale, bias}``        <-> ``LayerNorm_i.{weight, bias}``
-- ``constants/FourierFeatures_0/B``    <-> the ``FourierFeatures_0.B`` buffer
+- ``LayerNorm_i/{scale, bias}``        <-> ``LayerNorm_i.{weight, bias}``, and
+  the autoencoder's ``encoder_norms_i``, ``decoder_norms_i``
+- ``constants/FourierFeatures_0/B``    <-> the ``FourierFeatures_0.B`` buffer;
+  ``params/FourierFeatures_0/B`` (a trainable basis) <-> the parameter of
+  that name (``params_to_flax`` takes the parameters' names to tell them
+  apart)
+- a deep ensemble's stacked leaves (a leading member axis) under the same
+  rules: kernels swap their last two axes
 - ``SIRENLayer_i/{kernel, bias}``      <-> ``SIRENLayer_i.{kernel, bias}`` (flax's
   (in, out) layout kept: it is the SIREN kernel's W); SIREN's final layer is
   ``Dense_0`` under the Dense rule
@@ -24,15 +33,32 @@ into ``"params/Dense_0/kernel"``-style keys (a saved model's ``.npz``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Collection, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 _LN_NAMES = {"scale": "weight", "bias": "bias"}
-# Leaves kept by name and layout: the SIREN kernel's W and the FNOs' spectral weights.
+# Leaves kept by name and layout: the SIREN kernel's W, the FNOs' spectral
+# weights and a trainable Fourier basis.
 _AS_IS = {"SIRENLayer_": ("kernel", "bias"), "SpectralConv2d_": ("w_real", "w_imag"),
-          "SpectralConv_": ("w_re", "w_im")}
+          "SpectralConv_": ("w_re", "w_im"), "FourierFeatures_": ("B",)}
+_DENSE_PREFIXES = ("Dense_", "encoder_layers_", "decoder_layers_", "gate_")
+_DENSE_NAMES = ("to_latent", "to_output", "enc_u", "enc_v")
+_LN_PREFIXES = ("LayerNorm_", "encoder_norms_", "decoder_norms_")
+
+
+def _is_dense(module: str) -> bool:
+    return module.startswith(_DENSE_PREFIXES) or module in _DENSE_NAMES
+
+
+def _is_ln(module: str) -> bool:
+    return module.startswith(_LN_PREFIXES)
+
+
+def _swap(arr: np.ndarray) -> np.ndarray:
+    """A kernel's (in, out) <-> a weight's (out, in), member axis kept."""
+    return np.array(np.swapaxes(arr, -1, -2), order="C")
 
 
 def _as_is(module: str, name: str) -> bool:
@@ -65,11 +91,11 @@ def _leaves_from_flax(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch
         for name, value in leaves.items():
             arr = np.asarray(value, dtype=np.float32)
             path = f"{prefix}{module}"
-            if module.startswith("Dense_") and name == "kernel":
-                out[f"{path}.weight"] = torch.from_numpy(np.array(arr.T, order="C"))
-            elif module.startswith("LayerNorm_"):
+            if _is_dense(module) and name == "kernel":
+                out[f"{path}.weight"] = torch.from_numpy(_swap(arr))
+            elif _is_ln(module):
                 out[f"{path}.{_LN_NAMES[name]}"] = torch.from_numpy(arr.copy())
-            elif module.startswith("Dense_") and name == "bias":
+            elif _is_dense(module) and name == "bias":
                 out[f"{path}.bias"] = torch.from_numpy(arr.copy())
             elif _as_is(module, name):
                 out[f"{path}.{name}"] = torch.from_numpy(arr.copy())
@@ -77,8 +103,10 @@ def _leaves_from_flax(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch
                 raise KeyError(f"no bridge rule for flax leaf {path.replace('.', '/')}/{name}")
 
 
-def params_to_flax(state: Mapping[str, torch.Tensor]):
-    """torch state_dict -> (flax ``params`` tree, ``constants`` tree) of numpy."""
+def params_to_flax(state: Mapping[str, torch.Tensor], param_names: Collection[str] = ()):
+    """torch state_dict -> (flax ``params`` tree, ``constants`` tree) of
+    numpy. A Fourier basis goes to ``params`` when its name is in
+    ``param_names`` (trainable), else to ``constants``."""
     params: Dict[str, Dict[str, np.ndarray]] = {}
     constants: Dict[str, Dict[str, np.ndarray]] = {}
     inv_ln = {v: k for k, v in _LN_NAMES.items()}
@@ -88,15 +116,15 @@ def params_to_flax(state: Mapping[str, torch.Tensor]):
         node = params
         for parent in outer:  # a nested module (ResNetBlock_i.Dense_0.weight)
             node = node.setdefault(parent, {})
-        if module.startswith("Dense_"):
+        if _is_dense(module):
             leaf = "kernel" if name == "weight" else name
-            node.setdefault(module, {})[leaf] = np.ascontiguousarray(arr.T) if name == "weight" else arr
-        elif module.startswith("LayerNorm_"):
+            node.setdefault(module, {})[leaf] = _swap(arr) if name == "weight" else arr
+        elif _is_ln(module):
             node.setdefault(module, {})[inv_ln[name]] = arr
+        elif module.startswith("FourierFeatures_") and not outer and key not in param_names:
+            constants.setdefault(module, {})[name] = arr
         elif _as_is(module, name):
             node.setdefault(module, {})[name] = arr
-        elif module.startswith("FourierFeatures_") and not outer:
-            constants.setdefault(module, {})[name] = arr
         else:
             raise KeyError(f"no bridge rule for state_dict entry {key!r}")
     return params, ({"constants": constants} if constants else {})
@@ -133,9 +161,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]) -
             out[f"{prefix}{k}"] = np.asarray(v)
 
 
-def flat_flax_arrays(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """torch state_dict -> {"params/<flax path>": array, "constants/<...>": array}."""
-    params, constants = params_to_flax(state)
+def flat_flax_arrays(state: Mapping[str, torch.Tensor],
+                     param_names: Collection[str] = ()) -> Dict[str, np.ndarray]:
+    """torch state_dict -> {"params/<flax path>": array, "constants/<...>": array}
+    (``param_names`` as ``params_to_flax``)."""
+    params, constants = params_to_flax(state, param_names)
     out: Dict[str, np.ndarray] = {}
     _flatten({"params": params, **constants}, "", out)
     return out

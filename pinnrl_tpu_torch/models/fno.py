@@ -78,8 +78,7 @@ class FNONetwork(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if dropout > 0.0:
-            raise NotImplementedError("dropout is not ported yet (ROADMAP item 12)")
+        # dropout is taken and applied nowhere, as in the JAX package.
         self.act = get_activation(activation)
         self.num_blocks = int(num_blocks)
         self.Dense_0 = dense(input_dim, hidden_dim, generator)
@@ -89,7 +88,8 @@ class FNONetwork(nn.Module):
         self.Dense_2 = dense(hidden_dim, hidden_dim // 2, generator)
         self.Dense_3 = dense(hidden_dim // 2, output_dim, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.Dense_1(self.act(self.Dense_0(x)))
         for i in range(self.num_blocks):
             x = getattr(self, f"FNOBlock_{i}")(x)

@@ -59,7 +59,8 @@ class SIREN(nn.Module):
                                                   generator).t())
             self.Dense_0.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_hidden):
             x = getattr(self, f"SIRENLayer_{i}")(x)
         return self.Dense_0(x)

@@ -57,7 +57,8 @@ def supports(model, pde=None) -> bool:
 
     The JAX package also covers other smooth activations and orders above 3
     through ``jax.experimental.jet``; the port has only the hand-written
-    tanh transport (the generic route is ROADMAP item 10).
+    tanh transport; other activations and orders run on the generic engine
+    (a bundle for them is ROADMAP item 10.5, a speed lever).
     """
     cfg = model.config
     if cfg.architecture not in ("fourier", "feedforward"):
@@ -163,8 +164,9 @@ def make_bundle_fn(
     """
     cfg = model.config
     if cfg.activation.lower() != "tanh":
-        raise NotImplementedError(
-            "the stacked-jet bundle is ported for tanh only (ROADMAP item 10)"
+        raise ValueError(
+            "the stacked-jet bundle transports tanh only; other activations run on the "
+            "generic engine (supports() is False for them; ROADMAP item 10.5 is the speed lever)"
         )
     ap = cfg.arch_params
     use_ln = bool(cfg.layer_norm)
@@ -177,8 +179,9 @@ def make_bundle_fn(
     groups = [(ax, spatial_order) for ax in range(dimension)] + [(dimension, temporal_order)]
     groups = [(ax, k) for ax, k in groups if k > 0]
     if max((k for _, k in groups), default=0) > _MAX_ORDER:
-        raise NotImplementedError(
-            f"stacked-jet orders above {_MAX_ORDER} are not ported yet (ROADMAP item 10)"
+        raise ValueError(
+            f"the stacked-jet bundle transports orders up to {_MAX_ORDER}; higher orders run on "
+            "the generic engine (supports() is False for them; ROADMAP item 10.5)"
         )
     in_dim = dimension + 1
 

@@ -27,9 +27,11 @@ version on the card.
 
 Scope: d = 1 to 3 space dimensions, temporal order 1, causal or not,
 float32, with or without a co-moving frame (the input (x - c t, t)), on a
-Fourier trunk (the embedding's closed-form phase-rotation streams) or a
-feedforward trunk (the input map's constant direction rows, then a first
-GEMM with d + 1 input columns), with the residual of Burgers, heat or
+Fourier trunk (the embedding's closed-form phase-rotation streams; with a
+trainable basis B is a leaf read per call, and dL/dB comes from the
+embedding's cotangent, ``_embed_bwd_plain``) or a feedforward trunk (the
+input map's constant direction rows, then a first GEMM with d + 1 input
+columns), with the residual of Burgers, heat or
 Allen-Cahn (spatial order K = 2), Black-Scholes (order 2; the one residual
 that reads z, for S along each axis), KdV (order 3) or convection (order 1,
 one velocity per axis). The stacked streams are [value; axis 0: 1..K; ..;
@@ -57,6 +59,7 @@ _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
 _RESIDUALS = ("burgers", "heat", "kdv", "convection", "allen_cahn", "black_scholes")
 _MAX_DIM = 3  # space dimensions the CUDA kernels are instantiated for
 _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
+_BASIS = "FourierFeatures_0.B"
 
 
 # --------------------------------------------------------------------------- #
@@ -86,6 +89,46 @@ def _embed_plain(z, lo, sc, B, two_pi: bool, x_order: int, frame: Optional[float
     p1t = s * (_t_direction(sc, frame) @ B)
     rows.append(torch.cat([cs * p1t, -sn * p1t], dim=-1))
     return torch.cat(rows, dim=0)
+
+
+def _embed_bwd_plain(z, lo, sc, B, G, two_pi: bool, x_order: int,
+                     frame: Optional[float]) -> torch.Tensor:
+    """dL/dB (d+1, m) of a trainable basis from G, the cotangent of
+    ``_embed_plain``'s stacked ((2 + d K) N, 2m) output. Stream (g, k) is
+    p1^k [sin^(k)(p), cos^(k)(p)] with p = s w0 B and p1 = s v_g B (v_g =
+    sc_g e_g along an axis, the t-direction for t1), so with (Gs, Gc) its
+    cotangent
+        dL/dp  += p1^k (Gs cos^(k)(p) - Gc sin^(k)(p))
+        dL/dp1 += k p1^(k-1) (Gs sin^(k)(p) + Gc cos^(k)(p))
+    and dL/dB = s (w0^T dL/dp + sum_g v_g (x) colsum(dL/dp1_g)). The CUDA
+    embed_bwd_partial_kernel<D, KX> evaluates the same terms per point."""
+    s = 2.0 * math.pi if two_pi else 1.0
+    n, d = z.shape[0], z.shape[1] - 1
+    m = B.shape[1]
+    w0 = _affine_map(z, lo, sc, frame)
+    p = s * (w0 @ B)
+    sn, cs = torch.sin(p), torch.cos(p)
+    Gr = G.reshape(-1, n, 2 * m)
+    Gs, Gc = Gr[..., :m], Gr[..., m:]
+    dp = Gs[0] * cs - Gc[0] * sn
+    dB = torch.zeros_like(B)
+    for ax in range(d):
+        p1 = s * (sc[ax] * B[ax])
+        sk, ck, pk = sn, cs, torch.ones_like(p1)
+        dq = torch.zeros_like(p)
+        for k in range(1, x_order + 1):
+            gs, gc = Gs[1 + ax * x_order + k - 1], Gc[1 + ax * x_order + k - 1]
+            sk, ck = ck, -sk
+            dq = dq + k * pk * (gs * sk + gc * ck)
+            pk = pk * p1
+            dp = dp + pk * (gs * ck - gc * sk)
+        dB[ax] = dB[ax] + sc[ax] * dq.sum(dim=0)
+    vt = _t_direction(sc, frame)
+    p1t = s * (vt @ B)
+    gs, gc = Gs[-1], Gc[-1]
+    dp = dp + p1t * (-gs * sn - gc * cs)
+    dB = dB + vt[:, None] * (gs * cs - gc * sn).sum(dim=0)
+    return s * (w0.t() @ dp + dB)
 
 
 def _affine_map(z, lo, sc, frame: Optional[float]) -> torch.Tensor:
@@ -357,6 +400,9 @@ class _TorchOps:
     def affine_input(self, z, lo, sc, x_order, frame):
         return _affine_input_plain(z, lo, sc, x_order, frame)
 
+    def embed_bwd(self, z, lo, sc, B, G, two_pi, x_order, frame):
+        return _embed_bwd_plain(z, lo, sc, B, G, two_pi, x_order, frame)
+
     def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
         _gemm_core.gemm_plain(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
                               k_chunk)
@@ -448,6 +494,8 @@ class _CudaOps:
         "fr_embed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
         "fr_affine_input": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p],
+        "fr_embed_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_float] + [ctypes.c_void_p] * 3,
         "fr_gemm": _gemm_core.GEMM_ARGTYPES,
         "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
@@ -501,6 +549,18 @@ class _CudaOps:
                                        int(frame is not None), float(frame or 0.0), self.stream),
                      "embed_kernel")
         return X
+
+    def embed_bwd(self, z, lo, sc, B, G, two_pi, x_order, frame):
+        (n, d1), m = z.shape, B.shape[1]
+        partial = self._empty(cdiv(n, _COLSUM_ROWS), d1 * m)
+        dB = self._empty(d1, m)
+        _build.check(self.lib.fr_embed_bwd(z.data_ptr(), lo.data_ptr(), sc.data_ptr(),
+                                           B.data_ptr(), G.data_ptr(), n, m, int(two_pi),
+                                           x_order, d1 - 1, int(frame is not None),
+                                           float(frame or 0.0), partial.data_ptr(),
+                                           dB.data_ptr(), self.stream),
+                     "embed_bwd_partial_kernel")
+        return dB
 
     def affine_input(self, z, lo, sc, x_order, frame):
         n, d1 = z.shape
@@ -714,8 +774,9 @@ class _Spec:
     causal_eps: float  # 0 = plain mean r^2
     lo: torch.Tensor
     scale: torch.Tensor
-    B: Optional[torch.Tensor]  # the Fourier basis; None: a feedforward trunk
+    B: Optional[torch.Tensor]  # a fixed Fourier basis; None: trainable, or a feedforward trunk
     leaf_names: List[str]
+    trainable_basis: bool = False  # B is the leaf "FourierFeatures_0.B", with a gradient
     # The residual's coefficients (0 where the PDE has none of them).
     nu: float = 0.0  # Burgers' viscosity
     alpha: float = 0.0  # heat's diffusivity
@@ -735,11 +796,11 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
     L = spec.n_hidden
     causal = spec.causal_eps > 0.0
     d = spec.dimension
-    if spec.B is None:
+    B = P[_BASIS] if spec.trainable_basis else spec.B
+    if B is None:
         X = [ops.affine_input(z, spec.lo, spec.scale, spec.x_order, spec.frame_speed)]
     else:
-        X = [ops.embed(z, spec.lo, spec.scale, spec.B, spec.periodic, spec.x_order,
-                       spec.frame_speed)]
+        X = [ops.embed(z, spec.lo, spec.scale, B, spec.periodic, spec.x_order, spec.frame_speed)]
     Hs = []
     for i in range(L):
         H = _linear(ops, X[-1], P[f"Dense_{i}.weight"], P[f"Dense_{i}.bias"], n)
@@ -778,6 +839,11 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
         grads[f"Dense_{i}.weight"] = _linear_dw(ops, G, X[i])
         grads[f"Dense_{i}.bias"] = ops.colsum(G, n, G.shape[1], G.shape[1], 1.0)
         if i == 0:
+            if spec.trainable_basis:
+                # The embedding's cotangent, then its fold into dL/dB.
+                GX = _linear_dx(ops, G, W)
+                grads[_BASIS] = ops.embed_bwd(z, spec.lo, spec.scale, B, GX, spec.periodic,
+                                              spec.x_order, spec.frame_speed)
             break
         GA = _linear_dx(ops, G, W)
         j = i - 1
@@ -842,7 +908,7 @@ def fused_residual_loss(spec: _Spec, bundle_fn, pde, params, z) -> torch.Tensor:
     leaves = [params[k] for k in spec.leaf_names]
     for name, t in zip(spec.leaf_names, leaves):
         _build.require_cuda_f32(f"fused_residual_loss {name}", t)
-    for name, t in (("lo", spec.lo), ("scale", spec.scale), ("B", spec.B)):
+    for name, t in (("lo", spec.lo), ("scale", spec.scale), ("B", spec.B)):  # B: when fixed
         if t is not None:
             _build.require_cuda_f32(f"fused_residual_loss {name}", t)
     if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
@@ -857,7 +923,9 @@ def _spec(model, pde) -> _Spec:
     cfg = model.config
     use_ln = bool(cfg.layer_norm)
     n_hidden = len(cfg.hidden_dims)
-    names = []
+    fourier = cfg.architecture == "fourier"
+    trainable_basis = fourier and bool(cfg.arch_params.get("trainable_features", False))
+    names = [_BASIS] if trainable_basis else []
     for i in range(n_hidden):
         names += [f"Dense_{i}.weight", f"Dense_{i}.bias"]
         if use_ln:
@@ -887,9 +955,9 @@ def _spec(model, pde) -> _Spec:
         causal_eps=pde.causal_eps(),
         lo=model._in_lo.contiguous(),
         scale=model._in_scale.contiguous(),
-        B=(model.constants["FourierFeatures_0.B"].contiguous()
-           if cfg.architecture == "fourier" else None),
+        B=model.constants[_BASIS].contiguous() if fourier and not trainable_basis else None,
         leaf_names=names,
+        trainable_basis=trainable_basis,
         **coeffs,
     )
 

@@ -14,8 +14,8 @@ test must feed JAX's draws, the public function takes the draws and hands
 them as tensors to a deterministic helper (``_periodic_terms``,
 ``_neumann_terms``, ``_validate_on``).
 
-The ``random`` initial condition is JAX's fixed random Fourier series; its
-threefry draws are shipped as data in ``config/random_ic_bases.json``.
+The ``random`` initial condition is JAX's fixed random Fourier series,
+drawn bit for bit by the threefry replica (``utils/prng.py``).
 
 Inverse and data modes: the coefficients named in ``trainable_parameters``
 are 0-d float32 tensors on the PDE's device (``init_coeffs``, seeded from
@@ -37,16 +37,18 @@ them draws, so the generator's stream is JAX's order of draws.
 
 from __future__ import annotations
 
-import functools
-import json
-from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pinnrl_tpu_torch.config import PDESettings, TrainingConfig, resolve_device
-from pinnrl_tpu_torch.ops.derivatives import _tangent, make_scalar_fn, value_and_derivative
+from pinnrl_tpu_torch.ops.derivatives import (
+    _tangent,
+    derivative_bundle,
+    make_scalar_fn,
+    value_and_derivative,
+)
 from pinnrl_tpu_torch.ops.losses import apply_loss_fn
 from pinnrl_tpu_torch.sampling import (
     sample_adaptive,
@@ -55,6 +57,7 @@ from pinnrl_tpu_torch.sampling import (
     sample_uniform,
 )
 from pinnrl_tpu_torch.sampling.strategies import _bounds
+from pinnrl_tpu_torch.utils import prng
 
 Coeffs = Dict[str, torch.Tensor]
 
@@ -71,27 +74,18 @@ _ALIASES = {
     "blackscholes": "black_scholes",
     "pendulumequation": "pendulum",
 }
-_RANDOM_IC_JSON = Path(__file__).resolve().parents[1] / "config" / "random_ic_bases.json"
-
-
-@functools.lru_cache(maxsize=None)
-def _shipped_random_ic_bases() -> dict:
-    return json.loads(_RANDOM_IC_JSON.read_text())
-
-
 def random_ic_basis(seed: int, n_modes: int, dimension: int):
     """(W (dimension, n_modes), phase (n_modes,), amp (n_modes,)) float32:
     the random Fourier series JAX draws for the ``random`` IC from
-    ``PRNGKey(seed)`` (W scaled by 4, amp by 1/sqrt(n_modes), as JAX does)."""
-    key = f"seed{int(seed)}_modes{int(n_modes)}_d{int(dimension)}"
-    entry = _shipped_random_ic_bases().get(key)
-    if entry is None:
-        raise NotImplementedError(
-            f"no shipped random-IC series {key!r} in config/random_ic_bases.json "
-            f"(have {sorted(_shipped_random_ic_bases())}); other seeds, mode counts and "
-            "dimensions are ROADMAP item 11"
-        )
-    return tuple(torch.tensor(entry[k], dtype=torch.float32) for k in ("W", "phase", "amp"))
+    ``split(PRNGKey(seed), 3)`` (W scaled by 4, phase uniform in [0, 2 pi),
+    amp by 1/sqrt(n_modes), as JAX does)."""
+    n_modes, dimension = int(n_modes), int(dimension)
+    k_w, k_p, k_a = prng.split(prng.PRNGKey(seed), 3)
+    f32 = np.float32
+    W = prng.normal(k_w, (dimension, n_modes)) * f32(4.0)
+    phase = prng.uniform(k_p, (n_modes,), maxval=2 * np.pi)
+    amp = prng.normal(k_a, (n_modes,)) / np.sqrt(f32(n_modes))
+    return tuple(torch.from_numpy(np.asarray(a, f32)) for a in (W, phase, amp))
 
 
 def register_pde(cls):
@@ -265,7 +259,8 @@ class PDEBase:
     def compute_residual(self, apply_fn, params, x, t, coeffs: Optional[Coeffs] = None) -> torch.Tensor:
         """Batched residual: (N, system_size) for an auxiliary system, else
         (N, 1) through the stacked-jet bundle when it is attached or the
-        generic engine (nested jvp of the network)."""
+        generic engine (nested jvp of the network; also for an ensemble's
+        stacked parameters)."""
         z = torch.cat([x, t], dim=-1)
         if self.system_size > 1:
             k = self.system_size
@@ -274,7 +269,11 @@ class PDEBase:
                 return apply_fn(params, zz).reshape(zz.shape[0], -1)[:, :k]
 
             return self.residual_pointwise_system(uvec, z, coeffs).reshape(-1, k)
-        if self._fast_bundle_fn is not None:
+        model = getattr(apply_fn, "__self__", None)
+        ensemble = model is not None and model.is_ensemble_params(params)
+        # An ensemble's stacked parameters: the mean predictor's residual,
+        # through the generic engine (the bundle evaluates one network).
+        if self._fast_bundle_fn is not None and not ensemble:
             from pinnrl_tpu_torch.ops.jet_mlp import BundleView
 
             value, streams = self._fast_bundle_fn(params, z)
@@ -290,6 +289,19 @@ class PDEBase:
         if r.ndim == 2 and r.shape[1] > 1:
             return torch.sqrt(torch.sum(r * r, dim=1))
         return torch.abs(r.reshape(-1))
+
+    def compute_derivatives(self, apply_fn: Callable, params, x: torch.Tensor, t: torch.Tensor,
+                            spatial_derivatives=(1, 2),
+                            temporal_derivatives=(1,)) -> Dict[str, torch.Tensor]:
+        """The JAX package's derivative dictionary (``u``, ``dt``/``dt2``,
+        ``dx``/``dx2``.. in 1-D, ``dx1``, ``dx1x1``.. in N-D, ``laplacian``
+        with order 2), each (N, 1), batched over the points through the
+        derivative engine (nested jvp of the network's channel 0)."""
+        u = self._scalar_u(apply_fn, params)
+        z = torch.cat([x, t], dim=-1)
+        bundle = derivative_bundle(u, z, self.dimension, tuple(spatial_derivatives),
+                                   tuple(temporal_derivatives))
+        return {k: v.reshape(-1, 1) for k, v in bundle.items()}
 
     # ------------------------------------------------------------------ #
     # BC / IC targets

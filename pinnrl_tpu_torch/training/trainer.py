@@ -75,10 +75,26 @@ every ``lbfgs.resample_every`` epochs of the phase. ``phase2_optimizer=
 ends of the JAX package's chunks: every ``validation_frequency`` epochs,
 counted afresh from the switch and from each resample round.
 
+With ``evaluation.save_plots`` the end of a run with an experiment
+directory writes the JAX package's plots under ``visualizations/``
+(training history, solution, collocation evolution from the points of the
+last step before each validation, the agent's Q density; each returns None
+without matplotlib), heat's ``fdm_comparison.json`` in one dimension, and
+``report.html`` (``utils/plotting.py``).
+
+Deep ensembles (``training.ensemble_size`` E > 1) train E members at once
+under the JAX package's constraints (``_validate_ensemble``: Adam only, no
+DQN, no adaptive weights, a cosine or constant schedule): every parameter,
+coefficient, Adam moment and EMA shadow carries a leading member axis;
+member m draws its initial weights from a generator seeded from the run's
+seed and m, and its batches and BC/IC points from its own device generator;
+each member's residual goes through kernel 1 once per step, and clipping
+takes each member's own global norm. The history holds member means,
+validation is the member mean on one shared batch, and the final model
+(``model.ensemble``) predicts the member mean.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-float64 residuals (item 8b), deep ensembles (item 13), the plots, report
-and heat's ``fdm_comparison.json`` of an experiment directory (item 14;
-logged, not raised), and device meshes (item 14).
+float64 residuals (item 8b) and device meshes (item 14c).
 """
 
 from __future__ import annotations
@@ -137,8 +153,10 @@ class AdamStep:
 
     Clipping follows optax: scale = min(1, max_norm / ||g||) with no
     epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6); ``clip_norm``
-    None does not clip (a bare ``optax.adam``). The scale stays on the
-    device, so a step does not wait for the host. A leaf that got no
+    None does not clip (a bare ``optax.adam``). With ``members`` E > 0 every
+    leaf carries a leading member axis, and each member is clipped by its
+    own global norm (Adam is elementwise, so each member steps as alone).
+    The scale stays on the device, so a step does not wait for the host. A leaf that got no
     gradient steps with a zero one, as optax treats it (torch's optimizers
     would skip it).
 
@@ -152,8 +170,10 @@ class AdamStep:
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float],
                  clip_norm: Optional[float], beta1: float, beta2: float,
-                 weight_decay: float, plateau: Optional[Tuple[float, int]] = None) -> None:
+                 weight_decay: float, plateau: Optional[Tuple[float, int]] = None,
+                 members: int = 0) -> None:
         self.params = params
+        self.members = int(members)
         self.schedule = schedule
         self.clip_norm = None if clip_norm is None else float(clip_norm)
         self.plateau = plateau
@@ -189,8 +209,16 @@ class AdamStep:
                 p.grad = torch.zeros_like(p)
         if self.clip_norm is not None:
             grads = [p.grad for p in self.params]
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-            torch._foreach_mul_(grads, torch.clamp(self.clip_norm / norm, max=1.0))
+            if self.members:
+                E = self.members
+                sq = torch.stack([torch.sum(g.reshape(E, -1) ** 2, dim=1) for g in grads]).sum(0)
+                scale = torch.clamp(self.clip_norm / torch.sqrt(sq), max=1.0)
+                for g in grads:
+                    g.mul_(scale.reshape((E,) + (1,) * (g.ndim - 1)))
+            else:
+                norm = torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+                torch._foreach_mul_(grads, torch.clamp(self.clip_norm / norm, max=1.0))
         lr = self.schedule(self.count)
         if self.plateau is not None:
             self._update_scale(value)
@@ -252,9 +280,7 @@ class PDETrainer:
         if rl_agent is not None and rl_agent.device != model.device:
             raise ValueError(f"the RL agent is on {rl_agent.device}, the model on {model.device}")
         if mesh is not None:
-            raise _unported("device-mesh data parallelism", 14)
-        if int(t.ensemble_size) > 1:
-            raise _unported("deep ensembles", 13)
+            raise _unported("device-mesh data parallelism", "14c")
         if t.residual_dtype != "float32":
             raise _unported("float64 residuals", "8b")
         # Adaptive weights are off under pure L-BFGS, as in the JAX package.
@@ -295,6 +321,11 @@ class PDETrainer:
         self.coeffs = self._init_coeffs()
         self._aw_state = self.adaptive_weights.init()
         self._ema: Optional[Tuple[List[torch.Tensor], int]] = None
+        self.members = int(t.ensemble_size) if int(t.ensemble_size) > 1 else 0
+        # The last step's batch (x, t); its first 64 points are kept at each
+        # validation (the collocation-evolution plot).
+        self._last_pts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.points_history: List[np.ndarray] = []
         self.history: Dict[str, Any] = {
             "train_loss": [],
             "val_loss": [],
@@ -339,6 +370,7 @@ class PDETrainer:
             oc.weight_decay,
             plateau=((self.tcfg.lr_scheduler.factor, int(self.tcfg.lr_scheduler.patience))
                      if self.tcfg.scheduler_type == "reduce_lr" else None),
+            members=self.members,
         )
 
     def _make_lbfgs(self, params: List[torch.Tensor]) -> LBFGS:
@@ -362,14 +394,17 @@ class PDETrainer:
     # One step
     # ------------------------------------------------------------------ #
 
-    def _loss_components(self, params: Dict[str, torch.Tensor], x, t, generator):
-        return self.pde.compute_loss(self.model.apply, params, x, t, coeffs=self.coeffs,
+    def _loss_components(self, params: Dict[str, torch.Tensor], x, t, generator, coeffs=None):
+        return self.pde.compute_loss(self.model.apply, params, x, t,
+                                     coeffs=self.coeffs if coeffs is None else coeffs,
                                      generator=generator)
 
-    def _sample(self, generator: torch.Generator, n: int, params: Dict[str, torch.Tensor]):
+    def _sample(self, generator: torch.Generator, n: int, params: Dict[str, torch.Tensor],
+                coeffs=None):
+        coeffs = self.coeffs if coeffs is None else coeffs
         if self.strategy == "residual_based":
             def residual_fn(xx, tt):
-                return self.pde.residual_score(self.model.apply, params, xx, tt, self.coeffs)
+                return self.pde.residual_score(self.model.apply, params, xx, tt, coeffs)
 
             with torch.no_grad():
                 return self.pde.generate_collocation_points(generator, n, "residual_based",
@@ -456,6 +491,7 @@ class PDETrainer:
         """sample -> loss -> backward -> clip -> Adam (-> EMA -> the agent's
         update). Returns ``_row`` of the step."""
         x, t = self._sample(generator, batch_size, params)
+        self._last_pts = (x, t)
         losses = self._loss_components(params, x, t, generator)
         for p in opt.params:
             p.grad = None
@@ -470,11 +506,40 @@ class PDETrainer:
             self._rl_update(params, x, t, losses, generator)
         return self._row(total, losses, weights)
 
+    def _member(self, params: Dict[str, torch.Tensor], m: int):
+        """Member m's parameters and coefficients: views of the stacked
+        leaves, so their gradients land in the stack."""
+        return {k: v[m] for k, v in params.items()}, {k: v[m] for k, v in self.coeffs.items()}
+
+    def _ensemble_step(self, params: Dict[str, torch.Tensor], opt: AdamStep,
+                       gens: List[torch.Generator], batch_size: int) -> torch.Tensor:
+        """One Adam step of every member, each on its own batch and BC/IC
+        points from its own generator: the members' totals are summed for
+        one backward (their gradients are disjoint), then the member-wise
+        clipped Adam step. Returns the members' mean ``_row``."""
+        for p in opt.params:
+            p.grad = None
+        weights = self.adaptive_weights.get_weights(self._aw_state)
+        rows, total = [], 0.0
+        for m, gen in enumerate(gens):
+            pm, cm = self._member(params, m)
+            x, t = self._sample(gen, batch_size, pm, cm)
+            if m == 0:
+                self._last_pts = (x, t)
+            losses = self._loss_components(pm, x, t, gen, cm)
+            total = total + losses["total"]
+            rows.append(self._row(losses["total"], losses, weights))
+        total.backward()
+        opt.step()
+        self._ema_update(params)
+        return torch.stack(rows).mean(dim=0)
+
     def _lbfgs_step(self, params: Dict[str, torch.Tensor], opt: LBFGS, batch,
                     generator: torch.Generator) -> torch.Tensor:
         """One L-BFGS iteration on the round's ``batch`` = (x, t, BC/IC seed)
         (-> the agent's update). Returns ``_row`` at the starting point."""
         x, t, loss_seed = batch
+        self._last_pts = (x, t)
         loss_gen = torch.Generator(device=self.device)
 
         def objective():
@@ -525,10 +590,62 @@ class PDETrainer:
 
     @torch.no_grad()
     def _val_loss(self, params, generator: torch.Generator) -> float:
+        """The validation loss on fresh uniform points; an ensemble's is the
+        members' mean on one shared batch (the same points and BC/IC draws
+        for every member)."""
         x, t = self.pde.generate_collocation_points(
             generator, self.config.evaluation.num_points, "uniform"
         )
-        return float(self._loss_components(params, x, t, generator)["total"])
+        if not self.members:
+            return float(self._loss_components(params, x, t, generator)["total"])
+        start = generator.get_state()
+        totals = []
+        for m in range(self.members):
+            generator.set_state(start)
+            pm, cm = self._member(params, m)
+            totals.append(self._loss_components(pm, x, t, generator, cm)["total"])
+        return float(torch.stack(totals).mean())
+
+    # ------------------------------------------------------------------ #
+    # Deep ensemble (training.ensemble_size > 1)
+    # ------------------------------------------------------------------ #
+
+    def _validate_ensemble(self) -> None:
+        """The JAX package's constraints on ensemble training, with its
+        messages: Adam only, no DQN, no adaptive weights, no mesh, a cosine
+        or constant schedule, float32 residuals."""
+        t = self.tcfg
+        bad = []
+        if self.optimizer_name != "adam":
+            bad.append("optimizer must be 'adam'")
+        if self.strategy == "adaptive":
+            bad.append("collocation_distribution 'adaptive' (DQN) unsupported")
+        if self.aw_enabled:
+            bad.append("adaptive_weights must be disabled")
+        if t.scheduler_type not in ("cosine", "constant"):
+            bad.append(f"scheduler_type {t.scheduler_type!r} unsupported")
+        if t.residual_dtype != "float32":
+            bad.append("residual_dtype must be float32")
+        if bad:
+            raise ValueError("training.ensemble_size > 1 constraints violated: " + "; ".join(bad))
+
+    def _member_seeds(self, seed: int, stream: int) -> List[int]:
+        """One seed per member, derived from the run's seed, the member and
+        the stream (0: initial weights, 1: training draws)."""
+        return [int(np.random.SeedSequence([seed & 0xFFFFFFFF, m, stream]).generate_state(1)[0])
+                for m in range(self.members)]
+
+    def _stack_ensemble(self, seed: int) -> Dict[str, torch.Tensor]:
+        """Fresh stacked members: member m's weights from a CPU generator
+        seeded from (seed, m), as one model's are; the fixed buffers (a
+        non-trainable Fourier basis) stay the model's, shared, as JAX's
+        constants are."""
+        from pinnrl_tpu_torch.models import create_module
+
+        inits = [dict(create_module(self.model.config, torch.Generator().manual_seed(s))
+                      .named_parameters()) for s in self._member_seeds(seed, 0)]
+        return {k: torch.stack([mod[k].detach() for mod in inits]).to(self.device)
+                .requires_grad_(True) for k in inits[0]}
 
     # ------------------------------------------------------------------ #
     # Training loop
@@ -564,8 +681,13 @@ class PDETrainer:
             log_handler = logging.FileHandler(exp / "experiment.log")
             logger.addHandler(log_handler)
 
-        params = self.model.params
         self.coeffs = self._init_coeffs()
+        if self.members:
+            self._validate_ensemble()
+            self.model.ensemble = self._stack_ensemble(seed)
+            self.coeffs = {k: v.detach().repeat(self.members).requires_grad_(True)
+                           for k, v in self.coeffs.items()}
+        params = self.model.params
         leaves = self._leaves(params)
         names = list(self.pde.trainable_parameters)
         lbfgs_mode = self.optimizer_name == "lbfgs"
@@ -576,6 +698,9 @@ class PDETrainer:
         cosine = t.scheduler_type == "cosine"
         lr_schedule = self._make_lr_schedule(adam_epochs, steps_per_epoch)
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        # An ensemble's members draw from their own generators.
+        gens = ([torch.Generator(device=self.device).manual_seed(s)
+                 for s in self._member_seeds(seed, 1)] if self.members else [gen])
         val_gen = torch.Generator(device=self.device).manual_seed(10_000 + seed)
         if self.rl_agent is not None:
             self._rl_state = self._init_rl_state(seed)
@@ -584,7 +709,7 @@ class PDETrainer:
 
         start_epoch = 0
         if resume_from:
-            start_epoch = self._load_checkpoint(resume_from, params, opt, gen, val_gen)
+            start_epoch = self._load_checkpoint(resume_from, params, opt, gens, val_gen)
             logger.info("Resumed from %s at epoch %d", resume_from, start_epoch)
 
         switched = lbfgs_mode or self.switch_epoch is None
@@ -644,6 +769,9 @@ class PDETrainer:
                         if lbfgs_mode:
                             per_step = [self._lbfgs_step(params, opt, batch, gen)
                                         for _ in range(steps_per_epoch)]
+                        elif self.members:
+                            per_step = [self._ensemble_step(params, opt, gens, batch_size)
+                                        for _ in range(steps_per_epoch)]
                         else:
                             per_step = [self._step(params, opt, gen, batch_size)
                                         for _ in range(steps_per_epoch)]
@@ -652,7 +780,8 @@ class PDETrainer:
                             self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
                         row = torch.stack(per_step).mean(dim=0)
                         if names:
-                            row = torch.cat([row, torch.stack([self.coeffs[k].detach()
+                            # An ensemble's coefficients: their member mean.
+                            row = torch.cat([row, torch.stack([self.coeffs[k].detach().mean()
                                                                for k in names])])
                         values = row.tolist()  # one host read per epoch
                         n_loss = 1 + len(_COMPONENTS)
@@ -692,6 +821,10 @@ class PDETrainer:
                     lrs[chunk_start:] = [lr_now] * (len(lrs) - chunk_start)
                 if stop:
                     break
+                if self._last_pts is not None:
+                    x_last, t_last = self._last_pts
+                    self.points_history.append(
+                        torch.cat([x_last[:64], t_last[:64]], dim=-1).detach().cpu().numpy())
                 val_loss = self._val_loss(params, val_gen)
                 self.history["val_loss"].append(val_loss)
                 logger.info("epoch %d/%d train=%.4e val=%.4e", epoch, num_epochs,
@@ -702,7 +835,7 @@ class PDETrainer:
                                          current_epoch=epoch)
                     save_live_snapshot(exp, self.pde, self.model,
                                        {"net": params, "coeffs": self.coeffs}, grid=60)
-                    self._save_checkpoint(exp / "checkpoint.npz", epoch, params, opt, gen, val_gen)
+                    self._save_checkpoint(exp / "checkpoint.npz", epoch, params, opt, gens, val_gen)
                 if es.enabled:
                     if val_loss < best_val - es.min_delta:
                         best_val, patience_count = val_loss, 0
@@ -726,8 +859,9 @@ class PDETrainer:
             # The averaged iterate is the final model when the last phase is
             # stochastic (an L-BFGS phase started from it).
             self._ema_apply(params)
-        identified = self.pde.canonicalize_coeffs(
-            self.pde.get_trainable_parameter_values(self.coeffs))
+        # An ensemble's identified values are the member means.
+        identified = self.pde.canonicalize_coeffs(self.pde.get_trainable_parameter_values(
+            {k: v.detach().mean() for k, v in self.coeffs.items()}))
         result = {
             "history": self.history,
             "final_train_loss": self.history["train_loss"][-1] if self.history["train_loss"] else None,
@@ -739,8 +873,7 @@ class PDETrainer:
         }
         if exp:
             if self.config.evaluation.save_plots:
-                logger.info("evaluation.save_plots: the plots, report.html and heat's "
-                            "fdm_comparison.json are not ported yet (ROADMAP item 14)")
+                self._save_final_plots(exp, params)
             save_training_metrics(exp, self.history)
             self._write_metadata(exp, status=status, num_epochs=num_epochs,
                                  current_epoch=len(self.history["train_loss"]), wall_time_s=wall)
@@ -754,6 +887,36 @@ class PDETrainer:
             "rl": self._rl_state,
         }
         return result
+
+    def _save_final_plots(self, exp: Path, params: Dict[str, torch.Tensor]) -> None:
+        """The JAX package's final plots, heat's FDM cross-check in one
+        dimension, then ``report.html``."""
+        from pinnrl_tpu_torch.utils.plotting import (
+            create_interactive_report,
+            plot_collocation_evolution,
+            plot_q_density,
+            plot_solution,
+            plot_training_history,
+        )
+
+        viz = exp / "visualizations"
+        plot_training_history(self.history, viz / "training_history.png")
+        plot_solution(self.pde, self.model, params, viz / "solution.png")
+        if self.points_history:
+            plot_collocation_evolution(self.points_history, self.pde.domain, self.pde.time_domain,
+                                       viz / "collocation_evolution.png")
+        if self.rl_agent is not None and self._rl_state is not None:
+            plot_q_density(self.rl_agent, self._rl_state, self.pde.domain, self.pde.time_domain,
+                           viz / "rl_q_density.png")
+        if self.pde.pde_type == "heat" and self.pde.dimension == 1:
+            try:
+                from pinnrl_tpu_torch.numerical_solvers import HeatEquationFDM
+
+                cmp = HeatEquationFDM(self.pde, nx=101).compare_with_pinn(self.model.apply, params)
+                (exp / "fdm_comparison.json").write_text(json.dumps(cmp, indent=2))
+            except Exception:
+                logger.exception("FDM comparison failed")
+        create_interactive_report(exp)
 
     def _profiler(self):
         """``torch.profiler`` over the CPU, and the card when on one."""
@@ -770,13 +933,14 @@ class PDETrainer:
         """Names of the optimized leaves, in ``_leaves`` order."""
         return [f"coeffs.{k}" for k in sorted(self.coeffs)] + list(params)
 
-    def _save_checkpoint(self, path: Path, epoch: int, params, opt, gen: torch.Generator,
+    def _save_checkpoint(self, path: Path, epoch: int, params, opt, gens: List[torch.Generator],
                          val_gen: torch.Generator) -> None:
         """``checkpoint.npz`` and its ``checkpoint.json`` sidecar (the epoch
         and the history, which an ``.npz`` does not hold)."""
         from pinnrl_tpu_torch.models.bridge import flat_flax_arrays
 
-        arrays = dict(flat_flax_arrays(self.model.module.state_dict()))
+        arrays = dict(flat_flax_arrays({**self.model.module.state_dict(), **params},
+                                       self.model._leaf_ndim))
         for k, v in self.coeffs.items():
             arrays[f"coeffs/{k}"] = v.detach().cpu().numpy()
         kind = "lbfgs" if isinstance(opt, LBFGS) else "adam"
@@ -787,13 +951,15 @@ class PDETrainer:
             arrays[f"aw/{f}"] = getattr(self._aw_state, f).cpu().numpy()
         if self._ema is not None:
             shadow, n = self._ema
-            arrays["ema/n"] = np.asarray(n)
+            # One count per member (all members step together).
+            arrays["ema/n"] = np.full(self.members, n) if self.members else np.asarray(n)
             for name, v in zip(params, shadow):
                 arrays[f"ema/{name}"] = v.cpu().numpy()
         if self.rl_agent is not None:
             for k, v in self.rl_agent.state_arrays(self._rl_state).items():
                 arrays[f"rl/{k}"] = v
-        arrays["gen/train"] = gen.get_state().numpy()
+        for m, gen in enumerate(gens):
+            arrays["gen/train" if m == 0 else f"gen/train{m}"] = gen.get_state().numpy()
         arrays["gen/val"] = val_gen.get_state().numpy()
         path = Path(path)
         with open(path, "wb") as f:
@@ -802,7 +968,7 @@ class PDETrainer:
                                                         default=str))
 
     @torch.no_grad()
-    def _load_checkpoint(self, path: str, params, opt, gen: torch.Generator,
+    def _load_checkpoint(self, path: str, params, opt, gens: List[torch.Generator],
                          val_gen: torch.Generator) -> int:
         """Restore what ``_save_checkpoint`` wrote into this run's state (in
         place) and return the epoch. An optimizer state of another kind
@@ -814,7 +980,12 @@ class PDETrainer:
             arrays = {k: data[k] for k in data.files}
         state = state_from_flat_flax({k: v for k, v in arrays.items()
                                       if k.startswith(("params/", "constants/"))})
-        self.model.module.load_state_dict(state, strict=True)
+        if self.members:
+            for k, v in params.items():  # in place: the optimizer holds these leaves
+                v.copy_(state.pop(k))
+            self.model.module.load_state_dict(state, strict=False)
+        else:
+            self.model.module.load_state_dict(state, strict=True)
         for k, v in self.coeffs.items():
             v.copy_(torch.as_tensor(arrays[f"coeffs/{k}"]))
         kind = "lbfgs" if isinstance(opt, LBFGS) else "adam"
@@ -831,12 +1002,13 @@ class PDETrainer:
             f: torch.as_tensor(arrays[f"aw/{f}"]).to(self.device) for f in _AW_FIELDS})
         if self._ema is not None and "ema/n" in arrays:
             shadow = [torch.as_tensor(arrays[f"ema/{name}"]).to(self.device) for name in params]
-            self._ema = (shadow, int(arrays["ema/n"]))
+            self._ema = (shadow, int(np.max(arrays["ema/n"])))
         if self.rl_agent is not None:
             self._rl_state = self.rl_agent.load_arrays(
                 {k[len("rl/"):]: v for k, v in arrays.items() if k.startswith("rl/")},
                 self._rl_state)
-        gen.set_state(torch.from_numpy(arrays["gen/train"]))
+        for m, gen in enumerate(gens):
+            gen.set_state(torch.from_numpy(arrays["gen/train" if m == 0 else f"gen/train{m}"]))
         val_gen.set_state(torch.from_numpy(arrays["gen/val"]))
         side = json.loads(path.with_suffix(".json").read_text())
         self.history = side["history"]
@@ -879,7 +1051,8 @@ class PDETrainer:
             "num_model_parameters": self.model.count_parameters(),
         })
         if identified and self.coeffs:
-            meta["identified_parameters"] = self.pde.get_trainable_parameter_values(self.coeffs)
+            meta["identified_parameters"] = self.pde.get_trainable_parameter_values(
+                {k: v.detach().mean() for k, v in self.coeffs.items()})
         if wall_time_s is not None:
             meta["wall_time_s"] = wall_time_s
         meta_path.write_text(json.dumps(meta, indent=2, default=str))

@@ -180,5 +180,9 @@ def test_tanh_maps_to_gelu_and_dropout_raises():
     cfg.model.activation = "tanh"
     cfg.model.arch_params.update({"hidden_dim": 8, "num_layers": 1, "num_heads": 2})
     assert PINNModel(cfg).module.FeedForwardBlock_0.act is ACTIVATIONS["gelu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        AttentionNetwork(2, 1, hidden_dim=8, num_layers=1, num_heads=2, dropout=0.1)
+    # JAX's attention trunk takes dropout and applies none: neither does the
+    # port's, even with deterministic=False.
+    net = AttentionNetwork(2, 1, hidden_dim=8, num_layers=1, num_heads=2, dropout=0.1,
+                           generator=torch.Generator().manual_seed(0))
+    x = torch.rand(6, 2)
+    assert torch.equal(net(x), net(x, deterministic=False))

@@ -21,7 +21,6 @@ Tolerances:
 - recipe configs and generator states: equal.
 """
 
-import json
 from pathlib import Path
 
 import jax
@@ -348,9 +347,17 @@ def test_random_ic_matches_jax(dim):
 
 
 def test_random_ic_outside_the_table_raises():
-    for args in ((1, 16, 1), (0, 8, 1), (0, 16, 4)):
-        with pytest.raises(NotImplementedError, match="random_ic_bases.json.*ROADMAP item 11"):
-            random_ic_basis(*args)
+    """Series outside the former table are JAX's draws (the threefry
+    replica); a negative mode count raises, as jax.random does."""
+    for seed, modes, dim in ((1, 16, 1), (0, 8, 1), (0, 16, 4)):
+        k_w, k_p, k_a = jax.random.split(jax.random.PRNGKey(seed), 3)
+        ref = (jax.random.normal(k_w, (dim, modes)) * 4.0,
+               jax.random.uniform(k_p, (modes,), maxval=2 * jnp.pi),
+               jax.random.normal(k_a, (modes,)) / jnp.sqrt(modes))
+        for got, want in zip(random_ic_basis(seed, modes, dim), ref):
+            assert got.numpy().tobytes() == np.asarray(want, np.float32).tobytes(), (seed, modes)
+        with pytest.raises(ValueError):
+            random_ic_basis(seed, -modes, dim)
     W, phase, amp = random_ic_basis(0, 16, 2)
     assert W.shape == (2, 16) and phase.shape == amp.shape == (16,)
 
@@ -414,10 +421,13 @@ def test_random_ic_table_is_shipped_with_the_package():
 
     repo = Path(__file__).resolve().parent.parent
     data = tomllib.loads((repo / "pyproject.toml").read_text())
-    assert "config/random_ic_bases.json" in data["tool"]["setuptools"]["package-data"][
-        "pinnrl_tpu_torch"]
-    table = json.loads((repo / "pinnrl_tpu_torch/config/random_ic_bases.json").read_text())
-    assert sorted(table) == [f"seed0_modes16_d{d}" for d in (1, 2, 3)]
+    package_data = data["tool"]["setuptools"]["package-data"]["pinnrl_tpu_torch"]
+    # The series are drawn by the threefry replica: no table, and the
+    # replica is a module of the package.
+    assert not any("bases.json" in entry for entry in package_data)
+    assert not (repo / "pinnrl_tpu_torch/config/random_ic_bases.json").exists()
+    assert (repo / "pinnrl_tpu_torch/utils/prng.py").exists()
+    assert [a.shape for a in random_ic_basis(0, 16, 3)] == [(3, 16), (16,), (16,)]
 
 
 

@@ -15,6 +15,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch_parity_helpers  # noqa: F401  (pins torch's CPU threads per worker)
 
 import pinnrl_tpu.datasets as jax_datasets
 import pinnrl_tpu.datasets.synthetic as jax_synthetic

@@ -77,22 +77,22 @@ def test_defaults_snapshot_equals_yaml():
 
 
 def test_random_ic_table_equals_jax_draws():
-    """config/random_ic_bases.json holds, bit for bit, the draws of the
-    JAX package's ``random`` IC: W x 4, phase, amp / sqrt(n_modes)."""
+    """The series the former table held (seed 0, 16 modes, d = 1-3) are,
+    bit for bit, the draws of the JAX package's ``random`` IC: W x 4,
+    phase, amp / sqrt(n_modes), now from the threefry replica."""
     import jax
     import jax.numpy as jnp
 
-    table = json.loads((REPO / "pinnrl_tpu_torch/config/random_ic_bases.json").read_text())
-    assert sorted(table) == ["seed0_modes16_d1", "seed0_modes16_d2", "seed0_modes16_d3"]
-    for key, entry in table.items():
-        seed, modes, dim = (int(part.lstrip("seedmod")) for part in key.split("_"))
+    from pinnrl_tpu_torch.pdes.base import random_ic_basis
+
+    for dim in (1, 2, 3):
+        seed, modes = 0, 16
         k_w, k_p, k_a = jax.random.split(jax.random.PRNGKey(seed), 3)
         ref = {"W": jax.random.normal(k_w, (dim, modes)) * 4.0,
                "phase": jax.random.uniform(k_p, (modes,), maxval=2 * jnp.pi),
                "amp": jax.random.normal(k_a, (modes,)) / jnp.sqrt(modes)}
-        for name, value in ref.items():
-            got = np.asarray(entry[name], np.float32)
-            assert got.tobytes() == np.asarray(value, np.float32).tobytes(), (key, name)
+        for (name, value), got in zip(ref.items(), random_ic_basis(seed, modes, dim)):
+            assert got.numpy().tobytes() == np.asarray(value, np.float32).tobytes(), (dim, name)
 
 
 def test_config_matches_jax_config():
@@ -183,8 +183,13 @@ def test_unported_features_raise():
     assert create_pde(load_config(pde_type="heat", device="cpu")).pde_type == "heat"
     resnet = PINNModel(load_config(pde_type="burgers", architecture="resnet", device="cpu"))
     assert resnet.architecture_name == "resnet" and "ResNetBlock_6.Dense_1.weight" in resnet.params
-    with pytest.raises(ValueError, match="not ported yet.*ROADMAP item 12"):
-        PINNModel(load_config(pde_type="burgers", architecture="autoencoder", device="cpu"))
+    # The autoencoder is ported; an unknown architecture raises JAX's ValueError.
+    auto = PINNModel(load_config(pde_type="burgers", architecture="autoencoder", device="cpu"))
+    assert auto.architecture_name == "autoencoder" and "to_latent.weight" in auto.params
+    bad = load_config(pde_type="burgers", architecture="autoencoder", device="cpu")
+    bad.model.architecture = "transformer"
+    with pytest.raises(ValueError, match="Unknown architecture 'transformer'"):
+        PINNModel(bad)
     assert create_pde(load_config(pde_type="heat_2d", device="cpu")).dimension == 2
     assert create_pde(load_config(pde_type="wave", device="cpu")).pde_type == "wave"
     assert create_pde(load_config(pde_type="pendulum", device="cpu")).pde_type == "pendulum"
@@ -210,18 +215,20 @@ def test_unported_features_raise():
     cfg = load_config(pde_type="burgers", architecture="fourier", device="cpu")
     cfg.model.hidden_dims = [8]
     cfg.model.arch_params["mapping_size"] = 4
+    # The modified trunk and deep ensembles are ported (items 12, 13);
+    # float64 residuals (8b) and meshes (14c) still raise.
     cfg.model.arch_params["modified"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        PINNModel(cfg)
+    assert "enc_u.weight" in PINNModel(cfg).params
     cfg.model.arch_params["modified"] = False
     model, pde = PINNModel(cfg), create_pde(cfg)
-    for field, value, item in (("residual_dtype", "float64", 8), ("ensemble_size", 2, 13)):
-        old = getattr(cfg.training, field)
-        setattr(cfg.training, field, value)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            PDETrainer(model, pde, cfg)
-        setattr(cfg.training, field, old)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    cfg.training.ensemble_size = 2
+    assert PDETrainer(model, pde, cfg).members == 2
+    cfg.training.ensemble_size = 1
+    cfg.training.residual_dtype = "float64"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
+        PDETrainer(model, pde, cfg)
+    cfg.training.residual_dtype = "float32"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
         PDETrainer(model, pde, cfg, mesh=object())
     # The plateau scheduler, EMA, adaptive weights, hard-IC and profiler
     # traces are ported: each trainer builds.

@@ -72,7 +72,9 @@ def test_supports_and_unported_routes():
     assert jet_mlp.supports(pair.tmodel, pair.tpde)
     pair.tmodel.config.activation = "gelu"
     assert not jet_mlp.supports(pair.tmodel)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # make_bundle_fn refuses what supports() refuses (the generic
+    # engine runs it), naming the lever that would widen it.
+    with pytest.raises(ValueError, match="tanh only.*ROADMAP item 10.5"):
         jet_mlp.make_bundle_fn(pair.tmodel, 1, 2, 1)
     # Any other point function takes the generic engine (nested jvp), which
     # names its modes.

@@ -16,8 +16,6 @@ Tolerances:
   2e-3 (the bound and reason of tests/test_torch_trainer.py).
 """
 
-import json
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +37,6 @@ from pinnrl_tpu_torch.pdes import create_pde
 from pinnrl_tpu_torch.training import PDETrainer
 from pinnrl_tpu_torch.training.lbfgs import LBFGS
 
-BASES = Path(convergence.__file__).resolve().parents[1] / "config" / "feature_bases.json"
 
 
 # ---------------------------------------------------------------- feature_seed
@@ -55,15 +52,12 @@ def test_recipe_basis_equals_jax_bit_for_bit():
 
 
 def test_shipped_bases_equal_jax_draws():
-    table = json.loads(BASES.read_text())
-    assert sorted(table) == ["seed0_2x128", "seed0_2x256"]
-    for key, rows in table.items():
-        seed, shape = key.split("_")
-        d, m = (int(v) for v in shape.split("x"))
-        ref = np.asarray(jax.random.normal(jax.random.PRNGKey(int(seed[4:])), (d, m)))
-        got = np.asarray(rows, np.float32)
-        assert got.tobytes() == ref.tobytes(), key
-        assert feature_basis(int(seed[4:]), d, m).numpy().tobytes() == ref.tobytes()
+    """The two bases the recipes use (once shipped as a table) are JAX's
+    draws, bit for bit, from the threefry replica."""
+    for seed, d, m in ((0, 2, 128), (0, 2, 256)):
+        ref = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (d, m)))
+        got = feature_basis(seed, d, m).numpy()
+        assert got.dtype == np.float32 and got.tobytes() == ref.tobytes(), (seed, d, m)
 
 
 def test_anisotropic_scale_multiplies_rows_as_jax():
@@ -78,8 +72,12 @@ def test_anisotropic_scale_multiplies_rows_as_jax():
 
 @pytest.mark.parametrize("seed,in_dim,m", [(1, 2, 256), (0, 3, 256), (0, 2, 64)])
 def test_unknown_basis_raises(seed, in_dim, m):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        feature_basis(seed, in_dim, m)
+    """Bases outside the former table are JAX's draws too; a negative
+    mapping size raises, as jax.random.normal does."""
+    ref = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (in_dim, m)))
+    assert feature_basis(seed, in_dim, m).numpy().tobytes() == ref.tobytes()
+    with pytest.raises(ValueError):
+        feature_basis(seed, in_dim, -m)
 
 
 # ------------------------------------------------------------------- recipes

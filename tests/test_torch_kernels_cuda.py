@@ -43,6 +43,7 @@ orders' bounds.
 import numpy as np
 import pytest
 import torch
+import torch_parity_helpers  # noqa: F401  (pins torch's CPU threads per worker)
 
 pytestmark = pytest.mark.cuda
 
@@ -252,6 +253,55 @@ def test_fused_residual_loss_kdv_causal_matches_plain(cuda_device, hidden, mappi
     assert abs(float(lk.detach()) - float(lp.detach())) / abs(float(lp.detach())) < 2e-4
     for name, a, b in zip(params, gk, gp):
         assert _rel(a, b) < 1e-3, name
+
+
+@pytest.mark.parametrize("case,hidden,mapping,n", [
+    ("burgers", (256, 256, 256), 128, 8192), ("burgers", (32, 24), 16, 300),
+    ("kdv", (32, 24), 16, 300), ("heat_2d", (32, 24), 16, 300), ("frame", (32, 24), 16, 300)])
+def test_fused_residual_loss_with_a_trainable_basis_matches_plain(cuda_device, case, hidden,
+                                                                   mapping, n):
+    """Kernel 1 with ``trainable_features``: B a leaf read per call and its
+    gradient from ``fr_embed_bwd``, against autograd through the plain
+    bundle; loss 1e-5 relative and every gradient (B's included) 1e-4
+    relative to its max (causal KdV 2e-4 and 1e-3), bit-identical in two
+    calls."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    if case in ("kdv", "heat_2d"):
+        cfg = build_recipe_config(case, device="cuda")
+        cfg.model.arch_params.pop("feature_seed", None)
+    else:
+        cfg = load_config(pde_type="burgers", architecture="fourier", device="cuda")
+        cfg.model.arch_params["scale"] = 2.0
+        if case == "frame":
+            cfg.model.arch_params["moving_frame_speed"] = 0.7
+    cfg.model.hidden_dims = list(hidden)
+    cfg.model.arch_params.update({"mapping_size": mapping, "trainable_features": True})
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    fn = fused_step.make_fused_residual_loss(model, pde)
+    bundle_fn = make_bundle_fn(model, pde.dimension, max(pde.spatial_orders), 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x, t = pde.generate_collocation_points(gen, n, "uniform")
+    z = torch.cat([x, t], dim=-1)[torch.argsort(t.reshape(-1), stable=True)]
+    params = model.params
+    assert "FourierFeatures_0.B" in params
+    runs = [(fn(params, z),) for _ in range(2)]
+    lk, lk2 = runs[0][0], runs[1][0]
+    gk = torch.autograd.grad(lk, list(params.values()))
+    gk2 = torch.autograd.grad(lk2, list(params.values()))
+    lp = fused_step.fused_residual_loss_plain(bundle_fn, pde, params, z)
+    gp = torch.autograd.grad(lp, list(params.values()), allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    loss_tol, grad_tol = (2e-4, 1e-3) if case == "kdv" else (1e-5, 1e-4)
+    assert abs(float(lk.detach()) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
+    for name, a, b in zip(params, gk, gp):
+        assert _rel(a, b) < grad_tol, name
+    assert torch.equal(lk, lk2) and all(torch.equal(a, b) for a, b in zip(gk, gk2))
 
 
 @pytest.mark.parametrize("n", [1, 1000, 5000, 8192])

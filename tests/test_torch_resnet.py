@@ -150,5 +150,13 @@ def test_shipped_pendulum_trains_on_the_generic_engine():
 
 
 def test_dropout_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        ResNet(2, 1, hidden_dim=8, num_blocks=1, dropout=0.1)
+    """Dropout is ported: identity when deterministic; without a generator
+    ``deterministic=False`` raises, as flax does without a dropout rng."""
+    net = ResNet(2, 1, hidden_dim=8, num_blocks=1, dropout=0.1,
+                 generator=torch.Generator().manual_seed(0))
+    x = torch.rand(16, 2)
+    assert torch.equal(net(x), net(x, deterministic=True))
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
+        net(x, deterministic=False)
+    out = net(x, deterministic=False, generator=torch.Generator().manual_seed(1))
+    assert out.shape == (16, 1) and not torch.equal(out, net(x))

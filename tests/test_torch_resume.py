@@ -15,6 +15,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch_parity_helpers  # noqa: F401  (pins torch's CPU threads per worker)
 
 from pinnrl_tpu_torch.benchmarks import convergence
 from pinnrl_tpu_torch.models import PINNModel

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_parity_helpers  # noqa: F401  (pins torch's CPU threads per worker)
 
 from pinnrl_tpu.ops import special as jax_special
 from pinnrl_tpu_torch.ops import special

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+import torch_parity_helpers  # noqa: F401  (pins torch's CPU threads per worker)
 
 from pinnrl_tpu.config import Config as JaxConfig
 from pinnrl_tpu.models import PINNModel as JaxModel
