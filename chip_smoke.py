@@ -286,6 +286,30 @@ Phases (each raises on failure, and the script then exits non-zero):
                epochs) in a temporary directory: ``report.html`` and
                ``fdm_comparison.json`` written, the run completed, the PNGs
                present exactly when matplotlib imports.
+ 40. float64 — the Burgers recipe slice with ``adam_lbfgs`` and
+               ``residual_dtype="float64"``, 4 epochs: 2 Adam epochs (kernel
+               1 once and kernel 2 twice per loss), then 2 float64 L-BFGS
+               iterations on all 40000 points (kernel 1 and kernel 2 never;
+               kernel 2's float64 plain calls counted: BC and IC per
+               evaluation and validation); float64 parameters in the phase,
+               float32 ``model.params`` and a float64 final state at the
+               end; one float64 loss and its gradients at N 8192, card
+               against CPU (1e-10 relative); kernels 2 and 3 on float64 and
+               float32 CUDA tensors (the dtype gate); one L-BFGS iteration
+               at N 40000 in float64 and in float32 on the plain bundle, in
+               turns.
+ 41. mesh    — ``make_mesh()`` as a world of 1 under NCCL (a ``file://``
+               store in a temporary directory): the slice for 2 epochs with
+               and without the mesh, histories within 1e-6 and kernel 1's
+               launches equal; then 2 ranks sharing the card through gloo
+               (spawned processes), each against the unsharded run, or the
+               error that gloo gave.
+ 42. dashboard — a ``DashboardServer`` on a free localhost port in a thread:
+               ``POST /api/launch`` a 2-epoch heat run on the card, poll
+               ``/api/experiments`` until it completes (120 s deadline),
+               then fetch its history, snapshot, the solution explorer (9
+               forward calls on the card, one kernel-2 launch each) and the
+               report; the launched process has ended.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -362,8 +386,16 @@ A ``[harnesses]`` line before it carries phases 31-33's rows, a
 its launches there), and a ``[trunks]`` line phases 36-39's (kernel 1's
 entry carries ``trainable_basis_launches``, ``trainable_basis`` (its
 parity and timings), ``ensemble_launches``, ``ensemble_step_ms`` and
-``trunk_launches``; kernel 2's its ``trunk_launches``). The last
-line is ``{"ok": true, "device": {...}}``. Imports no JAX.
+``trunk_launches``; kernel 2's its ``trunk_launches``), and a
+``[slice17]`` line phases 40-42's: kernel 1's entry carries
+``float64_launches`` (before the switch and in the float64 phase),
+``float64_card_vs_cpu``, ``float64_lbfgs`` (iteration ms, float64 and the
+float32 plain bundle) and ``mesh_launches`` (the NCCL world of 1 and each
+gloo rank); kernel 2's ``float64`` (launches before and in the phase, its
+plain calls there, the dtype gate), ``mesh_launches`` and
+``dashboard_solution_launches``; kernel 3's ``float64_gate``; kernel 4's
+``float64_launches`` (0: no agent in phase 40). The last line is
+``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -552,6 +584,22 @@ ENSEMBLE_E = 4        # phase 37's members
 TIMED_STEPS = 10      # phase 37's steps timed per turn (E = 1 and E = 4, in turns)
 DB_TOL = 1e-4         # dL/dB against _TorchOps: the gradients' bound, rel to max
 EXPECT_DROPOUT = 0.1  # phase 38's dropout rate (identity on the trainer's paths)
+# Phase 40: float64 residuals on the Burgers slice: epochs (half Adam, half
+# float64 L-BFGS on all 40000 points); one float64 loss and its gradients,
+# card against CPU, relative (to max for the gradients); L-BFGS iterations
+# timed per turn.
+F64_EPOCHS = 4
+F64_CPU_TOL = 1e-10
+F64_TIMED = 3
+# Phase 41: the Burgers slice's epochs under a mesh; histories against the
+# unsharded run, relative: a world of 1 (the same computation) and 2 gloo
+# ranks on one card (each rank's kernel-1 mean over half the batch).
+MESH_EPOCHS = 2
+MESH_TOL = 1e-6
+MESH_GLOO_TOL = 1e-4
+# Phase 42: the run launched from the dashboard, and its deadline.
+DASHBOARD_EPOCHS = 2
+DASHBOARD_DEADLINE_S = 120
 
 
 def nvidia_smi_line() -> str:
@@ -2686,6 +2734,363 @@ def trunk_runs(dev, card: str):
     return out
 
 
+def _lbfgs_ms_in_turns(trainers: dict, n: int) -> dict:
+    """Median host-clock ms of an L-BFGS iteration of each trainer on its
+    round-0 batch of all 40000 points, in turns (a, b, b, a), and the
+    evaluations per iteration."""
+    turns = list(trainers) + list(trainers)[::-1]
+    batches = {k: tr._lbfgs_batch(0, 0, 40000) for k, tr in trainers.items()}
+    ms = {k: [] for k in trainers}
+    evals = {k: [] for k in trainers}
+    for k in turns:
+        times, per = lbfgs_iteration_times(trainers[k], batches[k], n)
+        ms[k] += times
+        evals[k].append(per)
+    return {k: {"iteration_ms": statistics.median(ms[k]),
+                "evaluations_per_iteration": statistics.mean(evals[k])} for k in trainers}
+
+
+def float64_runs(dev, card: str):
+    """Phase 40: float64 residuals on the Burgers recipe slice (see the
+    module docstring)."""
+    import torch
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    def trainer(cfg):
+        return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+
+    ff = fourier_feats.fourier_features
+    cfg = lever_config("cuda", num_epochs=F64_EPOCHS, optimizer="adam_lbfgs",
+                       residual_dtype="float64")
+    cfg.training.adam_lbfgs_switch_ratio = 0.5
+    tr = trainer(cfg)
+    at_switch, phase_dtypes = {}, []
+    promote, lbfgs_step = tr._maybe_promote_f64, tr._lbfgs_step
+
+    def promoting(params):
+        torch.cuda.synchronize()
+        at_switch.update(_launches(), plain_f64=ff.plain_f64, evaluations=LBFGS.evaluations)
+        promote(params)
+
+    def stepping(params, *args):
+        phase_dtypes.append(next(iter(params.values())).dtype)
+        return lbfgs_step(params, *args)
+
+    tr._maybe_promote_f64, tr._lbfgs_step = promoting, stepping
+    torch.cuda.synchronize()
+    start, plain0, evals0 = _launches(), ff.plain_f64, LBFGS.evaluations
+    res, launches, wall = _run_counted(tr)
+    hist = res["history"]
+    adam_epochs = tr.switch_epoch
+    adam_losses = adam_epochs * (40000 // 8192) + adam_epochs  # steps and validations
+    phase_vals = len(hist["val_loss"]) - adam_epochs
+    evals = LBFGS.evaluations - evals0
+    # Launches before the switch, and in the float64 phase after it.
+    adam = {k: at_switch[k] - start[k] for k in start}
+    phase = {k: launches[k] - adam[k] for k in start}
+    k1_adam, k1_phase = adam["fused_residual_loss"], phase["fused_residual_loss"]
+    plain_phase = ff.plain_f64 - at_switch["plain_f64"]
+    want_plain = 2 * (evals + phase_vals)  # BC and IC per evaluation and validation
+    final = tr._final_state["params"]["net"]
+    dtypes = {"phase": sorted({str(d) for d in phase_dtypes}),
+              "final_state": sorted({str(v.dtype) for v in final.values()}),
+              "model_params": sorted({str(v.dtype) for v in tr.model.params.values()})}
+    print(f"[float64] Burgers slice (Fourier 256x3, mapping 128), adam_lbfgs: {adam_epochs} Adam "
+          f"epochs ({adam_losses} losses), then {len(phase_dtypes)} float64 L-BFGS iterations "
+          f"({evals} evaluations) on all 40000 points; kernel 1 {k1_adam} launches before the "
+          f"switch (want {adam_losses}), {k1_phase} after (want 0); kernel 2 "
+          f"{adam['fourier_features']} launches before (want {2 * adam_losses}), "
+          f"{phase['fourier_features']} after (want 0) and {plain_phase} float64 plain calls "
+          f"(want {want_plain}); "
+          f"dtypes {dtypes}; train {hist['train_loss']}, {wall:.1f} s ({card})", flush=True)
+    if (k1_adam != adam_losses or k1_phase or adam["fourier_features"] != 2 * adam_losses
+            or phase["fourier_features"] or plain_phase != want_plain
+            or ff.plain_f64 - plain0 != want_plain):
+        raise AssertionError(f"float64: launches {launches}, at the switch {at_switch}, "
+                             f"plain {plain_phase} (want {want_plain})")
+    if dtypes != {"phase": ["torch.float64"], "final_state": ["torch.float64"],
+                  "model_params": ["torch.float32"]}:
+        raise AssertionError(f"float64: dtypes {dtypes}")
+    if not all(map(math.isfinite, hist["train_loss"] + hist["val_loss"])):
+        raise AssertionError(f"float64: losses {hist}")
+
+    # One float64 loss and its gradients on the card against the CPU, on the
+    # same points, draws and parameters.
+    def loss_on(device):
+        c = lever_config(device)
+        pde, model = create_pde(c), PINNModel(c, seed=0)
+        # As the trainer attaches them: kernel 1's dtype gate then sends the
+        # float64 residual to the plain bundle.
+        pde.attach_fast_bundle(model)
+        pde.attach_fused_residual_kernel(model)
+        pde.dtype = torch.float64
+        draws = [a.to(device) for a in f64_draws]
+        pde._sample_boundary_points = lambda gen, n: (draws[0], draws[1])
+        pde._sample_initial_points = lambda gen, n: (draws[2], draws[3])
+        p = {k: v.detach().to(device).requires_grad_(True) for k, v in final.items()}
+        losses = pde.compute_loss(model.apply, p, draws[4], draws[5],
+                                  generator=torch.Generator(device=device))
+        grads = torch.autograd.grad(losses["total"], list(p.values()))
+        return float(losses["total"].detach()), {k: g.cpu() for k, g in zip(p, grads)}
+
+    g = torch.Generator().manual_seed(40)
+    cpu_pde = create_pde(lever_config("cpu"))
+    cpu_pde.dtype = torch.float64
+    xb, tb = cpu_pde._sample_boundary_points(g, 4096)
+    xi, ti = cpu_pde._sample_initial_points(g, 4096)
+    x, t = (a.double() for a in cpu_pde.generate_collocation_points(g, 8192, "uniform"))
+    f64_draws = [xb, tb, xi, ti, x, t]
+    torch.cuda.synchronize()
+    plain_before, k1_before = ff.plain_f64, _launches()["fused_residual_loss"]
+    card_loss, card_grads = loss_on("cuda")
+    card_plain = ff.plain_f64 - plain_before
+    card_k1 = _launches()["fused_residual_loss"] - k1_before
+    cpu_loss, cpu_grads = loss_on("cpu")
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = max(float((card_grads[k] - cpu_grads[k]).abs().max()
+                         / cpu_grads[k].abs().max().clamp(min=1e-300)) for k in cpu_grads)
+    print(f"[float64] loss and gradients at N=8192, card against CPU (float64): loss rel "
+          f"{loss_rel:.3e}, worst gradient rel {grad_rel:.3e} (tol {F64_CPU_TOL}); kernel 2 "
+          f"float64 plain calls on the card {card_plain} (BC, IC), kernel 1 launches {card_k1} "
+          f"({card})", flush=True)
+    if not (loss_rel < F64_CPU_TOL and grad_rel < F64_CPU_TOL) or card_plain != 2 or card_k1:
+        raise AssertionError(f"float64 card vs CPU: loss rel {loss_rel}, gradient rel {grad_rel}, "
+                             f"plain calls {card_plain}")
+
+    # Kernels 2 and 3 by the JAX kernels' dtype gate: float64 CUDA tensors
+    # take the plain version, float32 ones the kernel.
+    from pinnrl_tpu_torch.ops.kernels import siren
+
+    gate = {}
+    xg = torch.rand((4096, 2), generator=torch.Generator(device=dev).manual_seed(41), device=dev)
+    Bg, Wg = tr.model.constants["FourierFeatures_0.B"], torch.randn((2, 124), device=dev)
+    for name, fn, plain, args in (
+            ("fourier_features", ff, fourier_feats.fourier_features_plain, (Bg, True)),
+            ("siren_layer", siren.siren_layer, siren.siren_layer_plain,
+             (Wg, torch.zeros(124, device=dev), 30.0))):
+        for dtype in (torch.float64, torch.float32):
+            cast = [a.to(dtype) if torch.is_tensor(a) else a for a in args]
+            n0, p0 = fn.launches, fn.plain_f64
+            got = fn(xg.to(dtype), *cast)
+            torch.cuda.synchronize()
+            ref = plain(xg.to(dtype), *cast)
+            gate[f"{name}_{str(dtype)[6:]}"] = {
+                "launches": fn.launches - n0, "plain": fn.plain_f64 - p0,
+                "dtype": str(got.dtype)[6:], "max_abs_err": float((got - ref).abs().max())}
+    print(f"[float64] dtype gate on the card: {gate} ({card})", flush=True)
+    for key, g_ in gate.items():
+        f64 = key.endswith("float64")
+        if (g_["launches"], g_["plain"]) != ((0, 1) if f64 else (1, 0)) or \
+                g_["dtype"] != key.rsplit("_", 1)[1] or (f64 and g_["max_abs_err"] != 0.0):
+            raise AssertionError(f"dtype gate: {gate}")
+
+    # An L-BFGS iteration at N = 40000: float64 against float32 on the plain
+    # bundle (kernel 1 off), in turns.
+    t64 = trainer(lever_config("cuda", optimizer="lbfgs", residual_dtype="float64"))
+    t64._maybe_promote_f64(t64.model.params)
+    t32 = trainer(lever_config("cuda", optimizer="lbfgs", fused_residual_kernel="off"))
+    timed = _lbfgs_ms_in_turns({"float32_plain": t32, "float64": t64}, F64_TIMED)
+    print(f"[float64] L-BFGS iteration at N=40000 (median ms, host clock, in turns): float64 "
+          f"{timed['float64']['iteration_ms']:.3f} ({timed['float64']['evaluations_per_iteration']:.2f} "
+          f"evaluations), float32 plain bundle {timed['float32_plain']['iteration_ms']:.3f} "
+          f"({timed['float32_plain']['evaluations_per_iteration']:.2f}) ({card})", flush=True)
+    return {"launches": launches, "adam_launches": adam, "phase_launches": phase,
+            "kernel2_plain_f64": plain_phase, "evaluations": evals, "dtypes": dtypes,
+            "train_loss": hist["train_loss"], "wall_s": wall, "card_vs_cpu":
+            {"loss_rel": loss_rel, "grad_rel": grad_rel}, "gate": gate, "lbfgs": timed}
+
+
+def _gloo_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One of phase 41's ranks that share the card through gloo: the Burgers
+    slice under the mesh; writes its history and launches."""
+    import torch
+    import torch.distributed as dist
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.parallel import make_mesh
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(devices=["cuda:0"] * world)
+        cfg = lever_config("cuda", num_epochs=MESH_EPOCHS)
+        tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, mesh=mesh)
+        res, launches, wall = _run_counted(tr)
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump({"train_loss": res["history"]["train_loss"],
+                       "val_loss": res["history"]["val_loss"], "launches": launches,
+                       "wall_s": wall}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def mesh_runs(dev, card: str):
+    """Phase 41: the Burgers slice under a device mesh (see the module
+    docstring)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.parallel import make_mesh
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    def run(mesh=None):
+        cfg = lever_config("cuda", num_epochs=MESH_EPOCHS)
+        tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, mesh=mesh)
+        res, launches, wall = _run_counted(tr)
+        return res["history"], launches, wall
+
+    out = {}
+    steps = MESH_EPOCHS * (40000 // 8192)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            hist_m, launches_m, wall_m = run(mesh)
+        finally:
+            dist.destroy_process_group()
+    hist_s, launches_s, wall_s = run()
+    rel = max(_rel(hist_m["train_loss"], hist_s["train_loss"]),
+              _rel(hist_m["val_loss"], hist_s["val_loss"]))
+    print(f"[mesh] NCCL world of 1 on {mesh.device}: {steps} steps, train {hist_m['train_loss']} "
+          f"against unsharded {hist_s['train_loss']}: worst rel {rel:.3e} (tol {MESH_TOL}); "
+          f"kernel 1 {launches_m['fused_residual_loss']} launches under the mesh, "
+          f"{launches_s['fused_residual_loss']} without; {wall_m:.1f} s and {wall_s:.1f} s ({card})",
+          flush=True)
+    if rel > MESH_TOL or launches_m["fused_residual_loss"] != launches_s["fused_residual_loss"]:
+        raise AssertionError(f"mesh: rel {rel}, launches {launches_m} against {launches_s}")
+    out["nccl_world1"] = {"rel": rel, "launches": launches_m, "wall_s": wall_m,
+                          "unsharded_wall_s": wall_s, "train_loss": hist_m["train_loss"]}
+
+    # Two ranks sharing the card: NCCL refuses two ranks on one device, so
+    # gloo carries the collectives, if its build takes CUDA tensors.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            mp.spawn(_gloo_rank, args=(2, f"{tmp}/pg", tmp), nprocs=2, join=True)
+            ranks = [json.loads(open(f"{tmp}/rank{r}.json").read()) for r in range(2)]
+            error = None
+        except mp.ProcessRaisedException as e:
+            ranks, error = None, str(e).strip().splitlines()[-1]
+        wall = time.perf_counter() - t0
+    if ranks is None:
+        print(f"[mesh] 2 gloo ranks on one card: not supported here: {error} ({card})", flush=True)
+        out["gloo_2ranks"] = {"error": error}
+        return out
+    rel2 = max(_rel(ranks[0]["train_loss"], hist_s["train_loss"]),
+               _rel(ranks[0]["val_loss"], hist_s["val_loss"]))
+    k1 = [r["launches"]["fused_residual_loss"] for r in ranks]
+    print(f"[mesh] 2 gloo ranks sharing the card: train {ranks[0]['train_loss']}, worst rel to "
+          f"unsharded {rel2:.3e} (tol {MESH_GLOO_TOL}); ranks agree "
+          f"{ranks[0]['train_loss'] == ranks[1]['train_loss']}; kernel 1 per rank {k1} (want "
+          f"{launches_s['fused_residual_loss']} each); training {[round(r['wall_s'], 3) for r in ranks]} s "
+          f"per rank against {wall_s:.3f} s unsharded, {wall:.1f} s with process start ({card})",
+          flush=True)
+    if (rel2 > MESH_GLOO_TOL or ranks[0]["train_loss"] != ranks[1]["train_loss"]
+            or k1 != [launches_s["fused_residual_loss"]] * 2):
+        raise AssertionError(f"mesh, 2 gloo ranks: rel {rel2}, launches {k1}")
+    out["gloo_2ranks"] = {"rel": rel2, "launches": [r["launches"] for r in ranks],
+                          "wall_s": wall, "rank_wall_s": [r["wall_s"] for r in ranks]}
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dashboard_runs(dev, card: str):
+    """Phase 42: the dashboard server on the card (see the module
+    docstring)."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    from pinnrl_tpu_torch.dashboard.server import DashboardServer
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats
+
+    def get(url, data=None):
+        with urllib.request.urlopen(url, data=data, timeout=60) as r:
+            return r.read()
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        srv = DashboardServer(results_dir=tmp, port=_free_port(), device="cuda")
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://localhost:{srv.port}"
+        try:
+            t0 = time.perf_counter()
+            launched = json.loads(get(f"{base}/api/launch", json.dumps(
+                {"pde": "heat", "epochs": DASHBOARD_EPOCHS}).encode()))
+            cmd = launched.get("command", [])
+            if not launched.get("ok") or cmd[cmd.index("--device") + 1] != "cuda":
+                raise AssertionError(f"dashboard launch: {launched}")
+            proc, exps = srv.launched[0], []
+            while time.perf_counter() - t0 < DASHBOARD_DEADLINE_S:
+                exps = json.loads(get(f"{base}/api/experiments"))
+                if exps and exps[0]["status"] in ("completed", "failed"):
+                    break
+                if proc.poll() not in (None, 0):
+                    break
+                time.sleep(0.5)
+            rc = proc.wait(timeout=DASHBOARD_DEADLINE_S)
+            wall = time.perf_counter() - t0
+            if rc != 0 or not exps or exps[0]["status"] != "completed":
+                log = (srv.results_dir / "trainer_launch.log").read_text()[-2000:]
+                raise AssertionError(f"dashboard run: rc {rc}, experiments {exps}\n{log}")
+            name = exps[0]["name"]
+            hist = json.loads(get(f"{base}/api/experiment/{name}/history"))
+            snap = json.loads(get(f"{base}/api/experiment/{name}/snapshot"))
+            torch.cuda.synchronize()
+            before = fourier_feats.fourier_features.launches
+            t1 = time.perf_counter()
+            sol = json.loads(get(f"{base}/api/experiment/{name}/solution"))
+            sol_ms = (time.perf_counter() - t1) * 1e3
+            torch.cuda.synchronize()
+            sol_launches = fourier_feats.fourier_features.launches - before
+            report = get(f"{base}/api/experiment/{name}/report")
+        finally:
+            for p in srv.launched:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            srv.shutdown()
+    u = sol.get("u_pred") or []
+    print(f"[dashboard] POST /api/launch heat {DASHBOARD_EPOCHS} epochs on the card: "
+          f"completed in {wall:.1f} s (process start included), history epochs "
+          f"{len(hist.get('train_loss', []))}, snapshot {len(snap.get('u_pred', []))} rows, "
+          f"solution explorer {len(u)} slices x {len(u[0]) if u else 0} points in {sol_ms:.1f} ms "
+          f"with {sol_launches} kernel 2 launches (want {len(u)}), report {len(report)} bytes "
+          f"({card})", flush=True)
+    finite = all(math.isfinite(v) for row in u for v in row)
+    if (len(hist.get("train_loss", [])) != DASHBOARD_EPOCHS or not snap.get("u_pred")
+            or len(u) != 9 or not finite or sol_launches != len(u) or b"<html" not in report.lower()):
+        raise AssertionError(f"dashboard: history {hist}, solution launches {sol_launches}, "
+                             f"finite {finite}, report {report[:200]!r}")
+    return {"wall_s": wall, "solution_ms": sol_ms, "solution_launches": sol_launches,
+            "epochs": len(hist["train_loss"]), "report_bytes": len(report)}
+
+
 def main() -> int:
     import torch
 
@@ -4180,6 +4585,9 @@ def main() -> int:
 
     # ---- 36-39. trainable basis, ensembles, trunks, the heat CLI's plots ---- #
     trunks = trunk_runs(dev, card)
+    f64 = float64_runs(dev, card)
+    meshes = mesh_runs(dev, card)
+    dash = dashboard_runs(dev, card)
 
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
@@ -4249,7 +4657,13 @@ def main() -> int:
          "ensemble_launches": trunks["ensemble"]["launches"]["fused_residual_loss"],
          "ensemble_step_ms": trunks["ensemble"]["step_ms"],
          "trunk_launches": {k: trunks[k]["launches"]["fused_residual_loss"]
-                            for k in ("modified", "autoencoder", "dropout")}},
+                            for k in ("modified", "autoencoder", "dropout")},
+         "float64_launches": {"adam": f64["adam_launches"]["fused_residual_loss"],
+                              "float64_phase": f64["phase_launches"]["fused_residual_loss"]},
+         "float64_card_vs_cpu": f64["card_vs_cpu"], "float64_lbfgs": f64["lbfgs"],
+         "mesh_launches": {"nccl_world1": meshes["nccl_world1"]["launches"]["fused_residual_loss"],
+                           "gloo_2ranks": [r["fused_residual_loss"] for r in
+                                           meshes["gloo_2ranks"].get("launches", [])]}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -4280,6 +4694,12 @@ def main() -> int:
          "multistage_launches": [{"launches": v["fourier_features"],
                                   "jvps": v["fourier_features_jvps"]}
                                  for v in marching["multistage"]["launches"]],
+         "float64": {"adam_launches": f64["adam_launches"]["fourier_features"],
+                     "phase_launches": f64["phase_launches"]["fourier_features"],
+                     "phase_plain_f64": f64["kernel2_plain_f64"],
+                     "gate": {k: v for k, v in f64["gate"].items() if k.startswith("fourier")}},
+         "mesh_launches": meshes["nccl_world1"]["launches"]["fourier_features"],
+         "dashboard_solution_launches": dash["solution_launches"],
          "sampling": {"shapes": samp["kernel2"], "jvp_rel": samp["kernel2_jvp_rel"],
                       "launches": {k: {"launches": r["fourier_features"],
                                        "jvps": r["fourier_features_jvps"]}
@@ -4299,6 +4719,7 @@ def main() -> int:
          "cahn_hilliard_launches": {**{k: r["siren_layer"] for k, r in ch_runs.items()},
                                     "shipped": ch_shipped_run["siren_layer"]},
          "shipped_second_order": shipped_second,
+         "float64_gate": {k: v for k, v in f64["gate"].items() if k.startswith("siren")},
          "ms": siren_ms, "plain_ms": siren_plain_ms, "eager_ms": siren_eager_ms,
          "bound_ms": siren_bound[0], "bound_by": siren_bound[1], "library_ms": siren_lib_ms,
          "library_call": "torch.addmm(b, x, W) (FP32, TF32 off) at (2048,124)x(124,124), no sin"},
@@ -4307,6 +4728,7 @@ def main() -> int:
          "replaces": "pinnrl_tpu/ops/kernels/mlp.py:75",
          "launches": rl_launches["fused_mlp_score"], "max_abs_err": mlp_err,
          "cli_launches": {k: r["fused_mlp_score"] for k, r in cli.items()},
+         "float64_launches": f64["launches"]["fused_mlp_score"],
          "sampling": {"shapes": samp["kernel4"],
                       "launches": {k: r["fused_mlp_score"] for k, r in samp["runs"].items()}},
          "ms": mlp_ms, "plain_ms": mlp_plain_ms, "eager_ms": mlp_eager_ms,
@@ -4319,6 +4741,7 @@ def main() -> int:
     print(f"[harnesses] {json.dumps({'sampling': samp['runs'], 'fdm': fdm, 'operator': op})}")
     print(f"[levers] {json.dumps({'levers': levers, 'marching': marching}, default=str)}")
     print(f"[trunks] {json.dumps(trunks, default=str)}")
+    print(f"[slice17] {json.dumps({'float64': f64, 'mesh': meshes, 'dashboard': dash}, default=str)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -171,9 +171,10 @@ class TrainingConfig(_DictAccess):
     causal_eps: float = 0.0
     # Dtype for loss/residual evaluation during the (deterministic, full
     # batch) L-BFGS phase. "float64" polishes past the f32 noise floor of
-    # high-order derivatives (3rd-order KdV, 4th-order Cahn-Hilliard);
-    # requires jax x64 (the trainer enables it at the phase switch). New
-    # capability beyond the reference.
+    # high-order derivatives (3rd-order KdV, 4th-order Cahn-Hilliard); the
+    # trainer casts the parameters and coefficients to float64 when the
+    # phase starts (PDETrainer._maybe_promote_f64). New capability beyond
+    # the reference.
     residual_dtype: str = "float32"
     # Optimizer for the post-switch phase of adam_lbfgs: "lbfgs" (default,
     # reference parity: deterministic fixed-batch quasi-Newton) or "adam"

@@ -65,6 +65,13 @@ def _as_is(module: str, name: str) -> bool:
     return any(module.startswith(prefix) and name in names for prefix, names in _AS_IS.items())
 
 
+def _float_array(value) -> np.ndarray:
+    """A leaf as float32, or float64 where it is float64 (a float64
+    phase's checkpoint)."""
+    arr = np.asarray(value)
+    return arr if arr.dtype == np.float64 else arr.astype(np.float32)
+
+
 def params_from_flax(
     params_np: Mapping[str, Any], constants_np: Optional[Mapping[str, Any]] = None
 ) -> Dict[str, torch.Tensor]:
@@ -76,7 +83,7 @@ def params_from_flax(
             raise KeyError(f"no bridge rule for flax collection {collection!r}")
         for module, leaves in modules.items():
             for name, value in leaves.items():
-                arr = np.asarray(value, dtype=np.float32)
+                arr = _float_array(value)
                 out[f"{module}.{name}"] = torch.from_numpy(arr.copy())
     return out
 
@@ -89,7 +96,7 @@ def _leaves_from_flax(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch
             _leaves_from_flax(leaves, f"{prefix}{module}.", out)
             continue
         for name, value in leaves.items():
-            arr = np.asarray(value, dtype=np.float32)
+            arr = _float_array(value)
             path = f"{prefix}{module}"
             if _is_dense(module) and name == "kernel":
                 out[f"{path}.weight"] = torch.from_numpy(_swap(arr))

@@ -21,7 +21,6 @@ h starting at x; the hidden widths must be equal.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
@@ -65,14 +64,14 @@ class FourierFeatures(nn.Module):
             self.register_buffer("B", B)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.ndim == 2:
-            from pinnrl_tpu_torch.ops.kernels.fourier_feats import fourier_features
+        from pinnrl_tpu_torch.ops.kernels.fourier_feats import (
+            fourier_features,
+            fourier_features_plain,
+        )
 
+        if x.ndim == 2:
             return fourier_features(x, self.B, self.periodic)
-        proj = x @ self.B
-        if self.periodic:
-            proj = 2.0 * math.pi * proj
-        return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+        return fourier_features_plain(x, self.B, self.periodic)
 
 
 class FourierNetwork(nn.Module):

@@ -204,11 +204,14 @@ def make_bundle_fn(
             if B is None:
                 B = model.constants["FourierFeatures_0.B"]
             s = 2.0 * math.pi if periodic else 1.0
-            p0 = s * (w0 @ B)
+            # Promoted where they meet, as jnp does: float64 inputs meet a
+            # float32 basis in float64; the directions stay in B's dtype.
+            dt = torch.promote_types(w0.dtype, B.dtype)
+            p0 = s * (w0.to(dt) @ B.to(dt))
             sin0, cos0 = torch.sin(p0), torch.cos(p0)
             h_streams: List[List[torch.Tensor]] = []
             for ax, k in groups:
-                p1 = s * (directions[ax] @ B)  # (1, m): constant over the batch
+                p1 = s * (directions[ax].to(B.dtype) @ B)  # (1, m): constant over the batch
                 s_cur, c_cur = sin0, cos0
                 streams_g = []
                 for _ in range(k):

@@ -16,6 +16,11 @@ derivative rules are written on the kernel's own output, as the JAX
 it with ``fourier_features_plain`` in its place. ``fourier_features.jvps``
 counts the jvp rule's runs on CUDA tensors.
 
+The kernel takes float32 alone. As the JAX kernel gates its Pallas call, a
+CUDA call whose x or B is not float32 (the float64 residual phase) runs the
+plain version, which promotes both to a common dtype as ``jnp`` does;
+``fourier_features.plain_f64`` counts those calls.
+
 The launch path is kept short, because a call moves ~4 MB and its device
 time is a few microseconds: a call that no derivative rule can be asked of
 (no input needs a gradient, no ``torch.func`` transform and no forward-AD
@@ -50,7 +55,11 @@ _MAX_GRID_Y = 65535
 
 
 def fourier_features_plain(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
-    """The plain PyTorch version of the kernel."""
+    """The plain PyTorch version of the kernel; x and B are promoted to a
+    common dtype (float32 points into a float64 basis give float64)."""
+    if x.dtype != B.dtype:
+        dt = torch.promote_types(x.dtype, B.dtype)
+        x, B = x.to(dt), B.to(dt)
     proj = x @ B
     if two_pi:
         proj = _TWO_PI * proj
@@ -187,8 +196,12 @@ def needs_rules(x: torch.Tensor, B: torch.Tensor) -> bool:
 
 def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
     """[sin(s x@B), cos(s x@B)] for x (N, d), B (d, m): the CUDA kernel on
-    CUDA tensors, the plain version on CPU tensors; anything else raises."""
+    float32 CUDA tensors, the plain version on CPU tensors and on CUDA
+    tensors of another dtype (the JAX kernel's gate); anything else raises."""
     if x.is_cpu and B.is_cpu:
+        return fourier_features_plain(x, B, two_pi)
+    if x.is_cuda and (x.dtype != torch.float32 or B.dtype != torch.float32):
+        fourier_features.plain_f64 += 1
         return fourier_features_plain(x, B, two_pi)
     if x.is_cuda:
         if needs_rules(x, B):
@@ -199,3 +212,4 @@ def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> t
 
 fourier_features.launches = 0
 fourier_features.jvps = 0
+fourier_features.plain_f64 = 0

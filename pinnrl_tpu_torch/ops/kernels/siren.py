@@ -15,6 +15,11 @@ and a forward without autograd (validation) moves no extra bytes.
 ``_SirenFn`` takes the launch as an argument, so the CPU tests run the
 Function with ``siren_layer_plain`` in its place and hold its ``jvp``,
 ``backward`` and ``vmap`` rules against the plain function.
+
+The kernel takes float32 alone. As the JAX kernel gates its Pallas call, a
+CUDA call whose x or W is not float32 (the float64 residual phase) runs the
+plain version, which promotes to a common dtype as ``jnp`` does;
+``siren_layer.plain_f64`` counts those calls.
 """
 
 from __future__ import annotations
@@ -28,7 +33,11 @@ from pinnrl_tpu_torch.ops.kernels import _build, _jvp
 
 def siren_layer_plain(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                       omega: float = 30.0) -> torch.Tensor:
-    """The plain PyTorch version of the kernel."""
+    """The plain PyTorch version of the kernel; x, W and b are promoted to
+    a common dtype."""
+    if not x.dtype == W.dtype == b.dtype:
+        dt = torch.promote_types(torch.promote_types(x.dtype, W.dtype), b.dtype)
+        x, W, b = x.to(dt), W.to(dt), b.to(dt)
     return torch.sin(omega * (x @ W + b))
 
 
@@ -134,8 +143,13 @@ def siren_layer(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                 omega: float = 30.0) -> torch.Tensor:
     """sin(omega (x @ W + b)) for x (..., k), W (k, m), b (m,): the CUDA
     kernel on CUDA tensors, the plain version on CPU tensors; anything else
-    raises. No width gate: the JAX kernel's %128 gate is a TPU tiling fact."""
+    raises. No width gate: the JAX kernel's %128 gate is a TPU tiling fact;
+    its dtype gate holds: CUDA tensors whose x or W is not float32 take the
+    plain version."""
     if all(t.device.type == "cpu" for t in (x, W, b)):
+        return siren_layer_plain(x, W, b, omega)
+    if x.device.type == "cuda" and (x.dtype != torch.float32 or W.dtype != torch.float32):
+        siren_layer.plain_f64 += 1
         return siren_layer_plain(x, W, b, omega)
     if x.device.type == "cuda":
         return _SirenFn.apply(x, W, b, float(omega), siren_layer_cuda)
@@ -143,3 +157,4 @@ def siren_layer(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
 
 
 siren_layer.launches = 0
+siren_layer.plain_f64 = 0

@@ -27,6 +27,12 @@ path, a dict, an (x, t, u) tuple or a The Well spec ``{"source": "well",
 ``observation_data``, or ``generate_synthetic_observations`` at the true
 coefficients) add the data term, which draws nothing.
 
+``dtype`` is the dtype of the BC/IC points the PDE draws: float32, and
+float64 while the trainer runs a float64 residual phase (as JAX's draws
+follow ``jax_enable_x64``). Coefficients and observations stay float32
+here; the trainer promotes the coefficients, and float32 observations
+promote where they meet float64 parameters, as ``jnp`` promotes them.
+
 The loss's optional terms, as the JAX package computes them: the
 finite-difference smoothness penalty (``loss_weights.smoothness``), the
 gPINN penalty (``loss_weights.gpinn``: mean over points of |dr/dz|^2, one
@@ -141,6 +147,11 @@ class PDEBase:
             )
         self._fast_bundle_fn = None
         self._fused_residual_loss = None
+        # The dtype of the BC/IC draws (float64 in a float64 residual phase).
+        self.dtype = torch.float32
+        # The device mesh while a trainer computes a sharded loss: the causal
+        # weights are then taken over the global batch (parallel/mesh.py).
+        self.mesh = None
 
     @staticmethod
     def create(pde_type: str, settings: PDESettings, training: Optional[TrainingConfig] = None,
@@ -360,8 +371,9 @@ class PDEBase:
                 int(params.get("seed", 0)), int(params.get("n_modes", 16)), self.dimension))
 
             def random_ic(x, t):
-                feats = torch.sin(x[:, : self.dimension] @ W + phase)
-                return amplitude * (feats @ amp).reshape(-1, 1)
+                # float64 points promote the float32 basis, as jnp does.
+                feats = torch.sin(x[:, : self.dimension] @ W.to(x.dtype) + phase)
+                return amplitude * (feats @ amp.to(x.dtype)).reshape(-1, 1)
 
             return random_ic
         if ic_type == "small_angle":
@@ -472,12 +484,13 @@ class PDEBase:
         return lo[:-1], hi[:-1]
 
     def _uniform(self, generator, n: int, lo, hi):
-        u = torch.rand((n, lo.shape[0]), generator=generator, device=generator.device)
+        u = torch.rand((n, lo.shape[0]), generator=generator, device=generator.device,
+                       dtype=self.dtype)
         return lo + (hi - lo) * u
 
     def _sample_boundary_time(self, generator: torch.Generator, n: int) -> torch.Tensor:
         lo, hi = self.time_domain
-        u = torch.rand((n, 1), generator=generator, device=generator.device)
+        u = torch.rand((n, 1), generator=generator, device=generator.device, dtype=self.dtype)
         return lo + (hi - lo) * u
 
     def _sample_face(self, generator: torch.Generator, n: int, axis: int, face_val: float):
@@ -501,7 +514,7 @@ class PDEBase:
         """Fresh spatial points at ``time_domain[0]``."""
         los, his = self._space_bounds(generator.device)
         x = self._uniform(generator, n, los, his)
-        return x, torch.full((n, 1), self.time_domain[0], dtype=torch.float32, device=x.device)
+        return x, torch.full((n, 1), self.time_domain[0], dtype=x.dtype, device=x.device)
 
     # ------------------------------------------------------------------ #
     # Loss assembly
@@ -521,7 +534,7 @@ class PDEBase:
     def _residual_loss(self, residual: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Residual reduction; with ``training.causal_eps > 0`` points are
         sorted by time and weighted w_i = exp(-eps * sum_{t_j < t_i} r_j^2 / N)
-        (weights carry no gradient)."""
+        (weights carry no gradient); under a mesh, over the global batch."""
         eps = self.causal_eps()
         if eps <= 0.0:
             return self._loss(residual)
@@ -529,6 +542,8 @@ class PDEBase:
             r2 = torch.sum(residual**2, dim=1)
         else:
             r2 = residual.reshape(-1) ** 2
+        if self.mesh is not None:
+            return self.mesh.causal_loss(r2, t, eps)
         order = torch.argsort(t.reshape(-1), stable=True)
         r2_sorted = r2[order]
         n = r2_sorted.shape[0]

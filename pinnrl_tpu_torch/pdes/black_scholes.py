@@ -53,7 +53,7 @@ class BlackScholesEquation(PDEBase):
         strike, width = self._strike_focus()
         x_g = torch.minimum(torch.maximum(strike + width * normal, los), his)
         x = torch.cat([los + (his - los) * u_uniform, x_g], dim=0)
-        return x, torch.full((x.shape[0], 1), self.time_domain[0], dtype=torch.float32,
+        return x, torch.full((x.shape[0], 1), self.time_domain[0], dtype=x.dtype,
                              device=x.device)
 
     def _sample_initial_points(self, generator: torch.Generator, n: int):
@@ -66,8 +66,10 @@ class BlackScholesEquation(PDEBase):
             return super()._sample_initial_points(generator, n)
         n_focus = int(round(frac * n))
         dev = generator.device
-        u = torch.rand((n - n_focus, self.dimension), generator=generator, device=dev)
-        g = torch.randn((n_focus, self.dimension), generator=generator, device=dev)
+        u = torch.rand((n - n_focus, self.dimension), generator=generator, device=dev,
+                       dtype=self.dtype)
+        g = torch.randn((n_focus, self.dimension), generator=generator, device=dev,
+                        dtype=self.dtype)
         return self._strike_focused_points(u, g)
 
     def canonicalize_coeffs(self, coeffs):

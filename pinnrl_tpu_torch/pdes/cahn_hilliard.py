@@ -105,7 +105,8 @@ class CahnHilliardEquation(PDEBase):
 
     def _draw_times(self, generator: torch.Generator, k: int) -> torch.Tensor:
         lo, hi = self.time_domain
-        return lo + (hi - lo) * torch.rand((k, 1), generator=generator, device=generator.device)
+        return lo + (hi - lo) * torch.rand((k, 1), generator=generator, device=generator.device,
+                                           dtype=self.dtype)
 
     def compute_loss(self, apply_fn, params, x: torch.Tensor, t: torch.Tensor,
                      coeffs: Optional[Coeffs] = None,

@@ -144,8 +144,8 @@ class HeatEquation(PDEBase):
         """Time-stratified boundary draw: 25% of the times in the first 1%."""
         n_early, n_late = self._time_split(n)
         dev = generator.device
-        u_early = torch.rand((n_early, 1), generator=generator, device=dev)
-        u_late = torch.rand((n_late, 1), generator=generator, device=dev)
+        u_early = torch.rand((n_early, 1), generator=generator, device=dev, dtype=self.dtype)
+        u_late = torch.rand((n_late, 1), generator=generator, device=dev, dtype=self.dtype)
         return self._stratified_times(u_early, u_late, n)
 
     def _initial_split(self, n: int):
@@ -164,7 +164,7 @@ class HeatEquation(PDEBase):
             (x_min + edge) + ((x_max - edge) - (x_min + edge)) * u_mid,
             (x_max - edge) + edge * u_hi,
         ], dim=0)[:n]
-        return x_i, torch.full((x_i.shape[0], 1), self.time_domain[0], dtype=torch.float32,
+        return x_i, torch.full((x_i.shape[0], 1), self.time_domain[0], dtype=x_i.dtype,
                                device=x_i.device)
 
     def _sample_initial_points(self, generator: torch.Generator, n: int):
@@ -174,9 +174,9 @@ class HeatEquation(PDEBase):
             return super()._sample_initial_points(generator, n)
         n_q, n_h = self._initial_split(n)
         dev = generator.device
-        u_lo = torch.rand((n_q, 1), generator=generator, device=dev)
-        u_mid = torch.rand((n_h, 1), generator=generator, device=dev)
-        u_hi = torch.rand((n_q, 1), generator=generator, device=dev)
+        u_lo = torch.rand((n_q, 1), generator=generator, device=dev, dtype=self.dtype)
+        u_mid = torch.rand((n_h, 1), generator=generator, device=dev, dtype=self.dtype)
+        u_hi = torch.rand((n_q, 1), generator=generator, device=dev, dtype=self.dtype)
         return self._edge_initial_points(u_lo, u_mid, u_hi, n)
 
     # ------------------------------------------------------------------ #

@@ -93,8 +93,27 @@ takes each member's own global norm. The history holds member means,
 validation is the member mean on one shared batch, and the final model
 (``model.ensemble``) predicts the member mean.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-float64 residuals (item 8b) and device meshes (item 14c).
+Float64 residuals (``training.residual_dtype="float64"``): when the L-BFGS
+phase starts (at the start under ``optimizer="lbfgs"``, at the switch of
+``adam_lbfgs`` with either phase-2 optimizer), the network's parameters and
+the PDE's coefficients are cast to float64 in place and the phase's
+optimizer and EMA shadow are built on them; the phase's batches, its BC/IC
+draws (``pde.dtype``) and its validation points follow. Kernels 1-3 send
+float64 to their plain versions by the JAX kernels' dtype gate; the DQN
+agent stays float32 (its inputs are cast to it). At the end
+``model.params`` are float32 again; ``_final_state`` keeps the float64
+parameters, which validation reads. Checkpoints keep the dtype, and a run
+resumed in the phase continues in float64. The phase runs on the card:
+the JAX package moves it to the host only because XLA:TPU has no float64.
+
+Device meshes (``mesh=parallel.make_mesh()``): one process per device.
+Every rank draws the same global batch (padded to a multiple of the mesh
+size) and computes the loss on its own rows; the gradient (and, inside the
+L-BFGS objective, the value) is averaged over the ranks before clipping,
+so every rank takes the unsharded step. The parameters start from rank
+0's; rank 0 alone writes the experiment directory. Kernel 1 stays attached
+on each rank, except under causal weights, whose weights need the global
+batch (``Mesh.causal_loss``).
 """
 
 from __future__ import annotations
@@ -113,6 +132,7 @@ import torch
 
 from pinnrl_tpu_torch.config import Config
 from pinnrl_tpu_torch.models import PINNModel
+from pinnrl_tpu_torch.parallel.mesh import Mesh, pad_to_multiple, replicate, shard_batch
 from pinnrl_tpu_torch.pdes.base import PDEBase
 from pinnrl_tpu_torch.training.adaptive_weights import AdaptiveLossWeights, AdaptiveWeightState
 from pinnrl_tpu_torch.training.lbfgs import LBFGS
@@ -130,8 +150,15 @@ _AW_FIELDS = ("running", "weights", "prev_weights", "initialized")
 _PLATEAU_RTOL = 1e-4
 
 
-def _unported(what: str, item):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one ("cuda" without an index is the current
+    card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
 
 
 def cosine_decay(init_value: float, decay_steps: int, alpha: float) -> Callable[[int], float]:
@@ -275,14 +302,15 @@ class PDETrainer:
     points of the Adam steps)."""
 
     def __init__(self, model: PINNModel, pde: PDEBase, config: Config,
-                 rl_agent: Optional[Any] = None, mesh: Optional[Any] = None) -> None:
+                 rl_agent: Optional[Any] = None, mesh: Optional[Mesh] = None) -> None:
         t = config.training
         if rl_agent is not None and rl_agent.device != model.device:
             raise ValueError(f"the RL agent is on {rl_agent.device}, the model on {model.device}")
-        if mesh is not None:
-            raise _unported("device-mesh data parallelism", "14c")
-        if t.residual_dtype != "float32":
-            raise _unported("float64 residuals", "8b")
+        if mesh is not None and not _same_device(mesh.device, model.device):
+            raise ValueError(f"the mesh's device is {mesh.device}, the model's {model.device}")
+        self.mesh = mesh
+        # The parameters' dtype: float64 from the start of a float64 phase.
+        self._dtype = torch.float32
         # Adaptive weights are off under pure L-BFGS, as in the JAX package.
         aw = t.adaptive_weights
         self.aw_enabled = bool(aw.enabled and t.optimizer != "lbfgs")
@@ -313,9 +341,16 @@ class PDETrainer:
         if getattr(config.model, "hard_ic", False) and model.output_transform is None:
             model.output_transform = pde.hard_ic_transform()
         self.fast_bundle_active = pde.attach_fast_bundle(model, enable=t.get("stacked_jet", "auto"))
-        self.fused_kernel_active = pde.attach_fused_residual_kernel(
-            model, enable=t.get("fused_residual_kernel", "auto")
-        )
+        fused_enable = t.get("fused_residual_kernel", "auto")
+        if mesh is not None and pde.causal_eps() > 0.0:
+            # Causal weights take the global batch (Mesh.causal_loss); kernel 1
+            # weighs the points it is given.
+            if fused_enable in (True, "on"):
+                raise ValueError(
+                    "fused_residual_kernel cannot be combined with a device mesh under causal "
+                    "weights: the weights need the global batch")
+            fused_enable = "off"
+        self.fused_kernel_active = pde.attach_fused_residual_kernel(model, enable=fused_enable)
         # The live trainable coefficients (empty in forward mode); train()
         # restarts them from the initial guesses.
         self.coeffs = self._init_coeffs()
@@ -388,7 +423,7 @@ class PDETrainer:
             [(0xF1EED ^ seed) & 0xFFFFFFFF, round_index]).generate_state(2))
         x, t = self.pde.generate_collocation_points(
             torch.Generator(device=self.device).manual_seed(batch_seed), n, "uniform")
-        return x, t, loss_seed
+        return x.to(self._dtype), t.to(self._dtype), loss_seed
 
     # ------------------------------------------------------------------ #
     # One step
@@ -398,6 +433,28 @@ class PDETrainer:
         return self.pde.compute_loss(self.model.apply, params, x, t,
                                      coeffs=self.coeffs if coeffs is None else coeffs,
                                      generator=generator)
+
+    def _sharded_loss(self, params: Dict[str, torch.Tensor], x, t, generator):
+        """The loss components on this rank's rows of the global batch (x,
+        t): the whole batch without a mesh."""
+        if self.mesh is None:
+            return self._loss_components(params, x, t, generator)
+        xs, ts = shard_batch(self.mesh, x, t)
+        self.pde.mesh = self.mesh
+        try:
+            return self._loss_components(params, xs, ts, generator)
+        finally:
+            self.pde.mesh = None
+
+    def _reduce_grads(self, leaves: List[torch.Tensor]) -> None:
+        """Average the leaves' gradients over the mesh (a leaf without one
+        counts zero, as optax treats it)."""
+        if self.mesh is None:
+            return
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.mesh.all_reduce_mean([p.grad for p in leaves])
 
     def _sample(self, generator: torch.Generator, n: int, params: Dict[str, torch.Tensor],
                 coeffs=None):
@@ -426,11 +483,12 @@ class PDETrainer:
         step's BC and IC losses, as bandit transitions (done = 1)."""
         n_push = min(128, x.shape[0])
         with torch.no_grad():
-            pts = torch.cat([x[:n_push], t[:n_push]], dim=-1)
+            # The agent stays float32 when the parameters are float64.
+            pts = torch.cat([x[:n_push], t[:n_push]], dim=-1).float()
             res = self.pde.residual_score(self.model.apply, params, x[:n_push], t[:n_push],
-                                          self.coeffs)
-            reward = self.rl_agent.compute_reward(res, losses["boundary"].detach(),
-                                                  losses["initial"].detach())
+                                          self.coeffs).float()
+            reward = self.rl_agent.compute_reward(res, losses["boundary"].detach().float(),
+                                                  losses["initial"].detach().float())
         done = torch.ones((), device=x.device)
         self._rl_state = self.rl_agent.update(self._rl_state, pts, reward, pts, done, generator)
 
@@ -471,10 +529,14 @@ class PDETrainer:
                     continue
                 grads = torch.autograd.grad(c, leaves, retain_graph=True, allow_unused=True,
                                             materialize_grads=True)
+                if self.mesh is not None:
+                    grads = self.mesh.all_reduce_mean(grads)
                 sq.append(sum(torch.sum(g * g) for g in grads))
             values = torch.sqrt(torch.stack(sq))
         else:
             values = torch.stack(comps).detach()
+            if self.mesh is not None:
+                values = self.mesh.mean(values)
         self._aw_state = self.adaptive_weights.update(self._aw_state, values)
         w = self.adaptive_weights.get_weights(self._aw_state).detach()
         return self._weighted_total(losses, w), w
@@ -491,8 +553,9 @@ class PDETrainer:
         """sample -> loss -> backward -> clip -> Adam (-> EMA -> the agent's
         update). Returns ``_row`` of the step."""
         x, t = self._sample(generator, batch_size, params)
+        x, t = x.to(self._dtype), t.to(self._dtype)
         self._last_pts = (x, t)
-        losses = self._loss_components(params, x, t, generator)
+        losses = self._sharded_loss(params, x, t, generator)
         for p in opt.params:
             p.grad = None
         if self.aw_enabled:
@@ -500,7 +563,11 @@ class PDETrainer:
         else:
             total, weights = losses["total"], self.adaptive_weights.get_weights(self._aw_state)
         total.backward()
-        opt.step(total.detach())
+        self._reduce_grads(opt.params)
+        value = total.detach()
+        if self.mesh is not None and opt.plateau is not None:
+            value = self.mesh.mean(value)  # the plateau reads the global total
+        opt.step(value)
         self._ema_update(params)
         if self.rl_agent is not None:
             self._rl_update(params, x, t, losses, generator)
@@ -544,15 +611,49 @@ class PDETrainer:
 
         def objective():
             # Reseeded at every evaluation: the line search sees one function.
-            losses = self._loss_components(params, x, t, loss_gen.manual_seed(loss_seed))
-            grads = torch.autograd.grad(losses["total"], opt.params, allow_unused=True,
+            losses = self._sharded_loss(params, x, t, loss_gen.manual_seed(loss_seed))
+            value = losses["total"]
+            grads = torch.autograd.grad(value, opt.params, allow_unused=True,
                                         materialize_grads=True)
-            return losses["total"], grads, losses
+            if self.mesh is not None:
+                # Every rank's line search sees the global objective.
+                value, *grads = self.mesh.all_reduce_mean([value.detach()] + list(grads))
+            return value, grads, losses
 
         losses = opt.step(objective)[2]
         if self.rl_agent is not None:
             self._rl_update(params, x, t, losses, generator)
         return self._row(losses["total"], losses, self.adaptive_weights.get_weights(self._aw_state))
+
+    # ------------------------------------------------------------------ #
+    # Float64 phase and mesh rank
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def _maybe_promote_f64(self, params: Dict[str, torch.Tensor]) -> None:
+        """Cast the network's parameters and the coefficients to float64 in
+        place when ``training.residual_dtype == "float64"`` (the JAX
+        package's ``_maybe_promote_f64``); the PDE's draws follow."""
+        if self.tcfg.residual_dtype != "float64":
+            return
+        for p in list(params.values()) + list(self.coeffs.values()):
+            p.grad = None
+            p.data = p.data.to(torch.float64)
+        self._dtype = self.pde.dtype = torch.float64
+
+    @torch.no_grad()
+    def _demote_f32(self, params: Dict[str, torch.Tensor]) -> None:
+        """Cast float64 parameters back to float32 in place."""
+        for p in params.values():
+            if p.dtype == torch.float64:
+                p.grad = None
+                p.data = p.data.to(torch.float32)
+        self._dtype = self.pde.dtype = torch.float32
+
+    def _is_writer(self) -> bool:
+        """Whether this process writes files: always without a mesh, rank 0
+        under one."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # ------------------------------------------------------------------ #
     # EMA of the network's parameters
@@ -596,6 +697,7 @@ class PDETrainer:
         x, t = self.pde.generate_collocation_points(
             generator, self.config.evaluation.num_points, "uniform"
         )
+        x, t = x.to(self._dtype), t.to(self._dtype)
         if not self.members:
             return float(self._loss_components(params, x, t, generator)["total"])
         start = generator.get_state()
@@ -622,6 +724,8 @@ class PDETrainer:
             bad.append("collocation_distribution 'adaptive' (DQN) unsupported")
         if self.aw_enabled:
             bad.append("adaptive_weights must be disabled")
+        if self.mesh is not None:
+            bad.append("device-mesh data parallelism unsupported")
         if t.scheduler_type not in ("cosine", "constant"):
             bad.append(f"scheduler_type {t.scheduler_type!r} unsupported")
         if t.residual_dtype != "float32":
@@ -664,12 +768,17 @@ class PDETrainer:
         if self.optimizer_name == "lbfgs":
             batch_size = lbfgs_bs
         batch_size = min(batch_size, num_points)
+        if self.mesh is not None:
+            # Every rank takes an equal share of the global batch.
+            batch_size = pad_to_multiple(batch_size, self.mesh.size)
+            lbfgs_bs = pad_to_multiple(lbfgs_bs, self.mesh.size)
         steps_per_epoch = max(num_points // batch_size, 1)
         # The switch against the horizon train() was given.
         self.switch_epoch = (int(t.adam_lbfgs_switch_ratio * num_epochs)
                              if self.optimizer_name == "adam_lbfgs" else None)
 
-        exp = Path(experiment_dir) if experiment_dir else None
+        # Under a mesh rank 0 alone writes the experiment directory.
+        exp = Path(experiment_dir) if experiment_dir and self._is_writer() else None
         log_handler = None
         if exp:
             exp.mkdir(parents=True, exist_ok=True)
@@ -681,6 +790,9 @@ class PDETrainer:
             log_handler = logging.FileHandler(exp / "experiment.log")
             logger.addHandler(log_handler)
 
+        # A run starts in float32 (one that failed in its float64 phase left
+        # the parameters float64).
+        self._demote_f32(self.model.params)
         self.coeffs = self._init_coeffs()
         if self.members:
             self._validate_ensemble()
@@ -691,6 +803,8 @@ class PDETrainer:
         leaves = self._leaves(params)
         names = list(self.pde.trainable_parameters)
         lbfgs_mode = self.optimizer_name == "lbfgs"
+        if lbfgs_mode:
+            self._maybe_promote_f64(params)
         # Phase-1 Adam anneals its cosine over its own phase.
         adam_epochs = self.switch_epoch or num_epochs
         opt = (self._make_lbfgs(leaves) if lbfgs_mode
@@ -711,6 +825,8 @@ class PDETrainer:
         if resume_from:
             start_epoch = self._load_checkpoint(resume_from, params, opt, gens, val_gen)
             logger.info("Resumed from %s at epoch %d", resume_from, start_epoch)
+        if self.mesh is not None:
+            replicate(self.mesh, leaves)  # rank 0's parameters on every rank
 
         switched = lbfgs_mode or self.switch_epoch is None
         phase_start = self.switch_epoch or 0
@@ -732,8 +848,10 @@ class PDETrainer:
                     steps_per_epoch = 1
                     logger.info("Switching optimizer: adam -> %s at epoch %d",
                                 t.phase2_optimizer, epoch)
-                    # Phase 2 starts from the averaged iterate, with a fresh shadow.
+                    # Phase 2 starts from the averaged iterate, promoted to
+                    # float64 for a float64 phase, with a fresh shadow.
                     self._ema_apply(params)
+                    self._maybe_promote_f64(params)
                     self._ema_init(params)
                     if t.phase2_optimizer == "lbfgs":
                         opt, lbfgs_mode = self._make_lbfgs(leaves), True
@@ -779,6 +897,8 @@ class PDETrainer:
                             # Once per epoch, so exploration anneals over the run's horizon.
                             self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
                         row = torch.stack(per_step).mean(dim=0)
+                        if self.mesh is not None:
+                            row = self.mesh.mean(row)  # the global batch's losses
                         if names:
                             # An ensemble's coefficients: their member mean.
                             row = torch.cat([row, torch.stack([self.coeffs[k].detach().mean()
@@ -853,12 +973,19 @@ class PDETrainer:
             if log_handler is not None:
                 logger.removeHandler(log_handler)
                 log_handler.close()
+            self.pde.dtype = torch.float32
 
         wall = time.time() - start_time
         if not lbfgs_mode:
             # The averaged iterate is the final model when the last phase is
             # stochastic (an L-BFGS phase started from it).
             self._ema_apply(params)
+        # The final state keeps a float64 phase's precision; the model's
+        # parameters are float32 again, as the JAX package's are.
+        final_net = params
+        if self._dtype == torch.float64:
+            final_net = {k: v.detach().clone() for k, v in params.items()}
+            self._demote_f32(params)
         # An ensemble's identified values are the member means.
         identified = self.pde.canonicalize_coeffs(self.pde.get_trainable_parameter_values(
             {k: v.detach().mean() for k, v in self.coeffs.items()}))
@@ -873,7 +1000,7 @@ class PDETrainer:
         }
         if exp:
             if self.config.evaluation.save_plots:
-                self._save_final_plots(exp, params)
+                self._save_final_plots(exp, final_net)
             save_training_metrics(exp, self.history)
             self._write_metadata(exp, status=status, num_epochs=num_epochs,
                                  current_epoch=len(self.history["train_loss"]), wall_time_s=wall)
@@ -882,7 +1009,7 @@ class PDETrainer:
                 self.rl_agent.save_state(str(exp / "rl_agent.npz"), self._rl_state)
             (exp / ".running").unlink(missing_ok=True)
         self._final_state = {
-            "params": {"net": params, "coeffs": self.coeffs},
+            "params": {"net": final_net, "coeffs": self.coeffs},
             "opt_state": opt.state_dict(),
             "rl": self._rl_state,
         }
@@ -980,6 +1107,9 @@ class PDETrainer:
             arrays = {k: data[k] for k in data.files}
         state = state_from_flat_flax({k: v for k, v in arrays.items()
                                       if k.startswith(("params/", "constants/"))})
+        if any(state[k].dtype == torch.float64 for k in params):
+            # A checkpoint of the float64 phase: the run continues in float64.
+            self._maybe_promote_f64(params)
         if self.members:
             for k, v in params.items():  # in place: the optimizer holds these leaves
                 v.copy_(state.pop(k))

@@ -37,7 +37,8 @@ def test_port_imports_without_jax():
         "        'pinnrl_tpu_torch.models.fno_grid',\n"
         "        'pinnrl_tpu_torch.numerical_solvers.heat_fdm',\n"
         "        'pinnrl_tpu_torch.training.adaptive_weights',\n"
-        "        'pinnrl_tpu_torch.training.multistage'} <= set(mods)\n"
+        "        'pinnrl_tpu_torch.training.multistage', 'pinnrl_tpu_torch.parallel.mesh',\n"
+        "        'pinnrl_tpu_torch.dashboard.server', 'pinnrl_tpu_torch.main'} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pinnrl_tpu', 'triton', 'the_well')]\n"
         "assert not bad, bad\n"
         "from pinnrl_tpu_torch.ops.kernels import _build\n"
@@ -51,14 +52,16 @@ def test_port_imports_without_jax():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    """No module of pinnrl_tpu_torch and not chip_smoke.py imports jax,
-    flax, optax or pinnrl_tpu, at any depth of the file (lazy imports
-    included)."""
+    """No module of pinnrl_tpu_torch, not chip_smoke.py and not the mesh
+    tests' rank module imports jax, flax, optax or pinnrl_tpu, at any depth
+    of the file (lazy imports included)."""
     import ast
 
     banned = {"jax", "jaxlib", "flax", "optax", "pinnrl_tpu"}
-    files = sorted((REPO / "pinnrl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "pinnrl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                 REPO / "tests/torch_mesh_worker.py"]
     assert len(files) > 40
+    assert {"mesh.py", "server.py", "main.py"} <= {p.name for p in files}
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -215,8 +218,8 @@ def test_unported_features_raise():
     cfg = load_config(pde_type="burgers", architecture="fourier", device="cpu")
     cfg.model.hidden_dims = [8]
     cfg.model.arch_params["mapping_size"] = 4
-    # The modified trunk and deep ensembles are ported (items 12, 13);
-    # float64 residuals (8b) and meshes (14c) still raise.
+    # The modified trunk, deep ensembles (items 12, 13), float64 residuals
+    # (8b) and meshes (14c) are ported.
     cfg.model.arch_params["modified"] = True
     assert "enc_u.weight" in PINNModel(cfg).params
     cfg.model.arch_params["modified"] = False
@@ -225,11 +228,15 @@ def test_unported_features_raise():
     assert PDETrainer(model, pde, cfg).members == 2
     cfg.training.ensemble_size = 1
     cfg.training.residual_dtype = "float64"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
-        PDETrainer(model, pde, cfg)
+    assert PDETrainer(model, pde, cfg)._dtype == torch.float32  # float64 from the phase on
     cfg.training.residual_dtype = "float32"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
-        PDETrainer(model, pde, cfg, mesh=object())
+    from pinnrl_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(size=1, rank=0, device=torch.device("cpu"), group=None)
+    assert PDETrainer(model, pde, cfg, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="mesh's device"):
+        PDETrainer(model, pde, cfg, mesh=Mesh(size=1, rank=0, device=torch.device("meta"),
+                                              group=None))
     # The plateau scheduler, EMA, adaptive weights, hard-IC and profiler
     # traces are ported: each trainer builds.
     for field, value in (("scheduler_type", "reduce_lr"), ("param_ema", 0.9),

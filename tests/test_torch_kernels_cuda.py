@@ -1228,3 +1228,30 @@ def test_kernel1_under_lrw_component_gradients(cuda_device):
     for comp, a, b in zip(("residual", "boundary", "initial"), gk, gp):
         for name, ga, gb in zip(params, a, b):
             assert _rel(ga, gb) < 1e-4, (comp, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_float64_takes_the_plain_versions_by_the_jax_gate(cuda_device, dtype):
+    """Kernels 2 and 3 on CUDA tensors: float64 (the float64 residual phase)
+    runs the plain version and launches nothing, float32 launches the
+    kernel."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, siren
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.rand((2048, 2), generator=g, device=cuda_device, dtype=dtype)
+    B = torch.randn((2, 128), generator=g, device=cuda_device, dtype=dtype)
+    W = torch.randn((2, 124), generator=g, device=cuda_device, dtype=dtype)
+    b = torch.zeros(124, device=cuda_device, dtype=dtype)
+    for fn, plain, args in ((fourier_feats.fourier_features, fourier_feats.fourier_features_plain,
+                             (x, B, True)),
+                            (siren.siren_layer, siren.siren_layer_plain, (x, W, b, 30.0))):
+        launches, plain_calls = fn.launches, fn.plain_f64
+        got = fn(*args)
+        ref = plain(*args)
+        assert got.dtype == dtype
+        if dtype == torch.float64:
+            assert (fn.launches, fn.plain_f64) == (launches, plain_calls + 1)
+            assert torch.equal(got, ref)
+        else:
+            assert (fn.launches, fn.plain_f64) == (launches + 1, plain_calls)
+            assert _rel(got, ref) < 1e-5
