@@ -310,6 +310,27 @@ Phases (each raises on failure, and the script then exits non-zero):
                then fetch its history, snapshot, the solution explorer (9
                forward calls on the card, one kernel-2 launch each) and the
                report; the launched process has ended.
+ 43. activations — kernel 1 with gelu (flax's tanh approximation),
+               sigmoid, silu and sin (tanh beside them): the CUDA launcher
+               against its plain twins (``_TorchOps``) run in float64 on the
+               same card tensors, at FUSED_TOLS' bounds, on the Burgers
+               recipe's width (Fourier 256x3, mapping 128) at N = 8192 and
+               40000, with LayerNorm off and with a trainable basis, KdV
+               causal (order 3) and heat_2d (d = 2) at their recipes' widths
+               and Black-Scholes's shipped feedforward 128x7; the float32
+               twins' gap to float64 printed beside, two calls bit-identical;
+               each activation timed at N = 8192 and 40000 by CUDA-graph
+               replay beside the plain version, its bound (the GEMMs and the
+               activation's derivatives) and cuBLAS on its products; ptxas's
+               registers and spills of the transport kernels (one kernel per
+               (D, K) for every activation). Then the Burgers recipe with
+               gelu through ``PDETrainer`` (adam_lbfgs, 6 epochs: kernel 1
+               exactly once per Adam step, L-BFGS evaluation and validation)
+               beside the same run on the plain path, sigmoid and silu on the
+               Burgers slice (2 epochs), sin on the shipped Fourier 512x4
+               (mapping 512; 2 epochs of 2 steps), each with exact kernel-1
+               launches, and silu on the wave recipe (temporal order 2: the
+               bundle, kernel 1 never).
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -394,7 +415,12 @@ float32 plain bundle) and ``mesh_launches`` (the NCCL world of 1 and each
 gloo rank); kernel 2's ``float64`` (launches before and in the phase, its
 plain calls there, the dtype gate), ``mesh_launches`` and
 ``dashboard_solution_launches``; kernel 3's ``float64_gate``; kernel 4's
-``float64_launches`` (0: no agent in phase 40). The last line is
+``float64_launches`` (0: no agent in phase 40). Kernel 1's entry also
+carries phase 43's ``activations`` (per activation: ``launches`` on its
+run, ``max_abs_err`` against the float32 twins and ``max_abs_err_f64``,
+``parity`` per case, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms`` and
+their ``n40000_`` twins, ``ptxas`` per transport kernel, and the run's
+losses). The last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -3091,6 +3117,285 @@ def dashboard_runs(dev, card: str):
             "epochs": len(hist["train_loss"]), "report_bytes": len(report)}
 
 
+# Phase 43: kernel 1 with each activation beyond tanh (tanh timed beside
+# them). Parity cases (name: (config, N)): the Burgers recipe's width
+# (Fourier 256x3, mapping 128) at N 8192 and 40000 and with LayerNorm off and
+# a trainable basis at 8192, KdV causal (order 3) and heat_2d (d = 2) at
+# their recipes' widths, Black-Scholes's shipped feedforward 128x7 with
+# LayerNorm. The reference is the plain twins (``_TorchOps``) run in float64
+# on the same inputs, at FUSED_TOLS' bounds; the float32 twins' own gap to
+# it is printed beside (on the feedforward trunk with sin the float32 twins,
+# not the kernel, are the far ones).
+ACT_KERNEL_ACTS = ("gelu", "sigmoid", "silu", "sin")
+ACT_CASES = {"burgers": ("burgers", 8192), "burgers_n40000": ("burgers", 40000),
+             "no_ln": ("burgers", 8192), "trainable_basis": ("burgers", 8192),
+             "kdv_causal": ("kdv_causal", 8192), "heat_2d": ("heat_2d", 8192),
+             "feedforward": ("black_scholes_ff", 8192)}
+ACT_RUN_EPOCHS = 6     # the gelu Burgers recipe, Adam then L-BFGS (12 Adam steps, 3 iterations)
+ACT_SLICE_EPOCHS = 2   # sigmoid and silu on the Burgers slice: 8 Adam steps + 2 validations
+ACT_SHIPPED_EPOCHS = 2  # sin on the shipped Fourier 512x4: 2 x 2 Adam steps of 2048 + 1 validation
+ACT_WAVE_EPOCHS = 2    # silu on the wave recipe (the t-order-2 bundle): 8 Adam steps
+# Float operations of one evaluation of act_derivs<4> in csrc/fused_residual.cu
+# (d0..d3, Burgers' x-order 2), counted from its source: each +, -, *, / and
+# negation as one, each tanhf, expf, sin or cos as one (its one special-function
+# instruction), constant products folded. The function needs one evaluation per
+# element of the value stream and layer; the reverse's recomputation of them
+# is the kernel's choice and is not counted.
+ACT_DERIV_OPS = {"tanh": 10, "gelu": 49, "sigmoid": 15, "silu": 25, "sin": 4}
+
+
+def _act_case_config(case: str, act: str, device: str):
+    """The configuration of a phase-43 parity case with ``act``."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.config import load_config
+
+    key = ACT_CASES[case][0]
+    if key == "black_scholes_ff":
+        cfg = load_config(pde_type="black_scholes", device=device)
+    elif key == "burgers":
+        cfg = burgers_recipe_config(device)
+    else:
+        cfg = build_recipe_config(key.removesuffix("_causal"), device=device)
+        cfg.training.causal_eps = 1.0 if key.endswith("_causal") else 0.0
+    cfg.model.activation = act
+    if case == "no_ln":
+        cfg.model.layer_norm = False
+    if case == "trainable_basis":
+        cfg.model.arch_params["trainable_features"] = True
+    return cfg
+
+
+def _act_ptxas():
+    """{"transport_fwd_kernel<D,K>": (registers, spill bytes)} and the same
+    for the reverse, from kernel 1's build log."""
+    from pinnrl_tpu_torch.ops.kernels import _build
+
+    out = {}
+    for entry, regs, _smem, spill_st, spill_ld, _stack in ptxas_report(
+            _build.BUILD_LOG.get("fused_residual", "")):
+        m = re.search(r"(transport_(?:fwd|bwd)_kernel)ILi(\d)ELi(\d)E", entry)
+        if m:
+            out[f"{m.group(1)}<{m.group(2)},{m.group(3)}>"] = (regs, spill_st + spill_ld)
+    return out
+
+
+def activation_runs(dev, card: str):
+    """Phase 43: kernel 1 for gelu, sigmoid, silu and sin (see the module
+    docstring)."""
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    t_phase = time.perf_counter()
+    ptx = _act_ptxas()
+    bwd33 = ptx.get("transport_bwd_kernel<3,3>")
+    print(f"[activations] ptxas transport kernels (registers, spill bytes), one kernel per (D, K) "
+          f"for every activation: {ptx} ({card})", flush=True)
+    if len(ptx) != 18 or bwd33 is None:
+        raise AssertionError(f"transport kernels missing from the build log: {sorted(ptx)}")
+    cuda_ops, plain_ops = fused_step._cuda_ops(dev), fused_step._TorchOps()
+    gen = torch.Generator(device=dev).manual_seed(43)
+    out = {act: {"parity": {}} for act in ("tanh",) + ACT_KERNEL_ACTS}
+
+    def f64_spec(spec):
+        return fused_step._Spec(**{**spec.__dict__, "lo": spec.lo.double(),
+                                   "scale": spec.scale.double(),
+                                   "B": None if spec.B is None else spec.B.double()})
+
+    for act in ("tanh",) + ACT_KERNEL_ACTS:
+        for case, (key, n) in ACT_CASES.items():
+            if act == "tanh" and case not in ("burgers", "burgers_n40000"):
+                continue
+            cfg = _act_case_config(case, act, "cuda")
+            pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+            if not fused_step.supports(model, pde, cfg.training):
+                raise AssertionError(f"{act} {case}: kernel 1 does not take it")
+            spec = fused_step._spec(model, pde)
+            P = {k: v.detach() for k, v in model.params.items()}
+            z = time_sorted(*pde.generate_collocation_points(gen, n, "uniform"))
+            lk, gk = fused_step._loss_and_grads(cuda_ops, spec, z, P)
+            lk2, gk2 = fused_step._loss_and_grads(cuda_ops, spec, z, P)
+            lp, gp = fused_step._loss_and_grads(plain_ops, spec, z, P)
+            l64, g64 = fused_step._loss_and_grads(plain_ops, f64_spec(spec), z.double(),
+                                                  {k: v.double() for k, v in P.items()})
+            torch.cuda.synchronize()
+            same = torch.equal(lk, lk2) and all(torch.equal(gk[k], gk2[k]) for k in gk)
+
+            def rels(loss, grads):
+                worst = max(grads, key=lambda k: float((grads[k].double() - g64[k]).abs().max())
+                            / max(float(g64[k].abs().max()), 1e-30))
+                return (abs(float(loss) - float(l64)) / abs(float(l64)),
+                        float((grads[worst].double() - g64[worst]).abs().max())
+                        / max(float(g64[worst].abs().max()), 1e-30), worst)
+
+            k_loss, k_grad, k_name = rels(lk, gk)
+            p_loss, p_grad, _ = rels(lp, gp)
+            abs_err = max(abs(float(lk) - float(lp)),
+                          *(float((gk[k] - gp[k]).abs().max()) for k in gk))
+            abs_err64 = max(abs(float(lk) - float(l64)),
+                            *(float((gk[k].double() - g64[k]).abs().max()) for k in gk))
+            tol_key = "kdv_causal" if key == "kdv_causal" else "burgers"
+            loss_tol, grad_tol = FUSED_TOLS[tol_key]
+            print(f"[activations] kernel 1 {act} {case} N={n}: against the float64 twins loss rel "
+                  f"{k_loss:.3e} (tol {loss_tol:g}), worst grad rel {k_grad:.3e} ({k_name}, tol "
+                  f"{grad_tol:g}); the float32 twins {p_loss:.3e}, {p_grad:.3e}; kernel against the "
+                  f"float32 twins max_abs_err {abs_err:.3e} (float64 {abs_err64:.3e}); two calls "
+                  f"bit-identical {same}",
+                  flush=True)
+            if not (k_loss < loss_tol and k_grad < grad_tol and same
+                    and all(torch.isfinite(g).all() for g in gk.values())):
+                raise AssertionError(f"kernel 1 with {act} disagrees with its plain version ({case})")
+            out[act]["parity"][case] = {"n": n, "loss_rel": k_loss, "grad_rel": k_grad,
+                                        "plain_f32_loss_rel": p_loss, "plain_f32_grad_rel": p_grad,
+                                        "max_abs_err": abs_err, "max_abs_err_f64": abs_err64,
+                                        "bit_identical": same}
+            if case in ("burgers", "burgers_n40000"):
+                # Device ms of the kernels and of the plain version (bundle ->
+                # residual -> autograd), by CUDA-graph replay.
+                bundle_fn = make_bundle_fn(model, 1, 2, 1)
+                p_leaf = {k: v.clone().requires_grad_(True) for k, v in P.items()}
+                it = 5 if n > 8192 else 10
+                ms = graph_ms(lambda: fused_step._loss_and_grads(cuda_ops, spec, z, P), iters=it,
+                              replays=5)
+                plain_ms = graph_ms(lambda: torch.autograd.grad(
+                    fused_step.fused_residual_loss_plain(bundle_fn, pde, p_leaf, z),
+                    list(p_leaf.values())), iters=it, replays=5)
+                gemm = fused_gemms(P, 2, n)
+                n_par = sum(v.numel() for v in P.values())
+                width, layers = P["Dense_0.weight"].shape[0], spec.n_hidden
+                act_ops = ACT_DERIV_OPS[act] * n * width * layers
+                nbytes = 4.0 * (z.numel() + 2 * n_par + spec.B.numel() + 1)
+                gemm_bound = bound(sum(2.0 * a * b * c for a, b, c in gemm), nbytes)
+                full_bound = bound(sum(2.0 * a * b * c for a, b, c in gemm) + act_ops, nbytes)
+                lib = cublas_ms(gemm, dev)
+                tag = "" if n == 8192 else "n40000_"
+                out[act].update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
+                                 f"{tag}bound_ms": full_bound[0], f"{tag}bound_by": full_bound[1],
+                                 f"{tag}gemm_bound_ms": gemm_bound[0], f"{tag}library_ms": lib})
+                print(f"[activations] kernel 1 {act} Burgers N={n}: {ms:.4f} ms, plain {plain_ms:.4f} "
+                      f"ms; bound {full_bound[0]:.4f} ms ({full_bound[1]}; its GEMMs alone "
+                      f"{gemm_bound[0]:.4f}, the activation's derivatives "
+                      f"{act_ops / FP32_FLOPS * 1e3:.4f}); cuBLAS on its products {lib:.4f} ms "
+                      f"({card})", flush=True)
+            del pde, model
+        par = out[act]["parity"].values()
+        out[act].update({"max_abs_err": max(v["max_abs_err"] for v in par),
+                         "max_abs_err_f64": max(v["max_abs_err_f64"] for v in par), "ptxas": {k: list(v) for k, v in ptx.items()},
+                         "ptxas_transport_bwd_3_3": {"registers": bwd33[0],
+                                                     "spill_bytes": bwd33[1]}})
+
+    # ---- runs on the main path ---------------------------------------------- #
+    def run(cfg, label):
+        tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+        fused_step.fused_residual_loss.launches = 0
+        evals0 = LBFGS.evaluations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.train(seed=0)["history"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_step.fused_residual_loss.launches
+        losses = hist["train_loss"]
+        if not all(map(math.isfinite, losses + hist["val_loss"])):
+            raise AssertionError(f"{label}: non-finite losses {losses}")
+        return tr, hist, launches, LBFGS.evaluations - evals0, wall
+
+    # gelu: the Burgers recipe with adam_lbfgs, kernel 1 and the plain path.
+    cfgs = {}
+    for path in ("kernel", "plain"):
+        c = build_recipe_config("burgers", epochs=ACT_RUN_EPOCHS, device="cuda")
+        c.model.activation = "gelu"
+        if path == "plain":
+            c.training.fused_residual_kernel = "off"
+        cfgs[path] = c
+    rt = cfgs["kernel"].training
+    switch = int(rt.adam_lbfgs_switch_ratio * ACT_RUN_EPOCHS)
+    adam_steps = switch * (rt.num_collocation_points // rt.batch_size)
+    tr, hist, launches, evals, wall = run(cfgs["kernel"], "gelu Burgers recipe")
+    n_vals = len(hist["val_loss"])
+    want = adam_steps + evals + n_vals
+    ptr, phist, plaunches, pevals, pwall = run(cfgs["plain"], "gelu Burgers recipe, plain path")
+    final_rel = abs(hist["train_loss"][-1] - phist["train_loss"][-1]) / abs(phist["train_loss"][-1])
+    first_rel = abs(hist["train_loss"][0] - phist["train_loss"][0]) / abs(phist["train_loss"][0])
+    print(f"[activations] gelu Burgers recipe (adam_lbfgs, {ACT_RUN_EPOCHS} epochs: {adam_steps} Adam "
+          f"steps, {evals} L-BFGS evaluations, {n_vals} validations): kernel 1 {launches} launches "
+          f"(want {want}), {wall:.2f} s; epoch losses "
+          f"{' '.join(f'{v:.6e}' for v in hist['train_loss'])}; the plain path "
+          f"{' '.join(f'{v:.6e}' for v in phist['train_loss'])} ({plaunches} launches, {pevals} "
+          f"evaluations, {pwall:.2f} s); first epoch rel {first_rel:.3e}, last rel {final_rel:.3e} "
+          f"({card})", flush=True)
+    if not (tr.fused_kernel_active and not ptr.fused_kernel_active and launches == want > 0
+            and plaunches == 0):
+        raise AssertionError(f"gelu Burgers recipe: kernel 1 {launches}, want {want}; plain path "
+                             f"{plaunches}")
+    if not (hist["train_loss"][-1] < hist["train_loss"][0]
+            and phist["train_loss"][-1] < phist["train_loss"][0]):
+        raise AssertionError(f"gelu Burgers recipe: losses did not fall: {hist['train_loss']}, "
+                             f"{phist['train_loss']}")
+    out["gelu"].update({"launches": launches, "run": {
+        "adam_steps": adam_steps, "lbfgs_evaluations": evals, "validations": n_vals,
+        "train_loss": hist["train_loss"], "plain_train_loss": phist["train_loss"],
+        "first_epoch_rel": first_rel, "last_epoch_rel": final_rel, "wall_s": wall,
+        "plain_wall_s": pwall}})
+    del tr, ptr
+
+    # sigmoid and silu: the Burgers recipe slice, Adam.
+    for act in ("sigmoid", "silu"):
+        c = lever_config("cuda", num_epochs=ACT_SLICE_EPOCHS)
+        c.model.activation = act
+        tr, hist, launches, _, wall = run(c, f"{act} Burgers slice")
+        steps = ACT_SLICE_EPOCHS * (c.training.num_collocation_points // c.training.batch_size)
+        want = steps + len(hist["val_loss"])
+        print(f"[activations] {act} Burgers slice: {steps} Adam steps, {len(hist['val_loss'])} "
+              f"validations, kernel 1 {launches} launches (want {want}), epoch losses "
+              f"{hist['train_loss']}, {wall:.2f} s ({card})", flush=True)
+        if not (tr.fused_kernel_active and launches == want):
+            raise AssertionError(f"{act} Burgers slice: kernel 1 {launches}, want {want}")
+        out[act].update({"launches": launches, "run": {"steps": steps,
+                                                       "train_loss": hist["train_loss"]}})
+        del tr
+
+    # sin: the shipped Fourier 512x4 (mapping 512), Adam.
+    c = load_config(pde_type="burgers", architecture="fourier", device="cuda")
+    c.model.activation = "sin"
+    c.training.num_epochs = ACT_SHIPPED_EPOCHS
+    st = c.training
+    tr, hist, launches, _, wall = run(c, "sin on the shipped Fourier 512x4")
+    steps = ACT_SHIPPED_EPOCHS * (st.num_collocation_points // st.batch_size)
+    want = steps + len(hist["val_loss"])
+    print(f"[activations] sin on the shipped Fourier {list(c.model.hidden_dims)}, mapping "
+          f"{c.model.arch_params['mapping_size']} (batch {st.batch_size} of "
+          f"{st.num_collocation_points}): {steps} Adam steps, {len(hist['val_loss'])} validations, "
+          f"kernel 1 {launches} launches (want {want}), epoch losses {hist['train_loss']}, "
+          f"{wall:.2f} s ({card})", flush=True)
+    if not (tr.fused_kernel_active and launches == want):
+        raise AssertionError(f"sin on the shipped Fourier 512x4: kernel 1 {launches}, want {want}")
+    out["sin"].update({"launches": launches, "run": {"steps": steps, "train_loss": hist["train_loss"]}})
+    del tr
+
+    # silu on wave: temporal order 2 runs the bundle, not kernel 1.
+    c = build_recipe_config("wave", epochs=ACT_WAVE_EPOCHS, device="cuda")
+    c.model.activation = "silu"
+    c.training.optimizer = "adam"
+    tr, hist, launches, _, wall = run(c, "silu on the wave recipe")
+    print(f"[activations] silu on the wave recipe (t-order 2): bundle {tr.fast_bundle_active}, "
+          f"kernel 1 {tr.fused_kernel_active} with {launches} launches (want 0), epoch losses "
+          f"{hist['train_loss']}, {wall:.2f} s ({card})", flush=True)
+    if not (tr.fast_bundle_active and not tr.fused_kernel_active and launches == 0):
+        raise AssertionError(f"silu on wave: bundle {tr.fast_bundle_active}, kernel 1 {launches}")
+    out["silu"]["wave_run"] = {"launches": launches, "train_loss": hist["train_loss"]}
+    del tr
+    print(f"[activations] phase 43: {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4589,6 +4894,9 @@ def main() -> int:
     meshes = mesh_runs(dev, card)
     dash = dashboard_runs(dev, card)
 
+    # ---- 43. kernel 1 with gelu, sigmoid, silu and sin ----------------------- #
+    acts = activation_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -4663,7 +4971,9 @@ def main() -> int:
          "float64_card_vs_cpu": f64["card_vs_cpu"], "float64_lbfgs": f64["lbfgs"],
          "mesh_launches": {"nccl_world1": meshes["nccl_world1"]["launches"]["fused_residual_loss"],
                            "gloo_2ranks": [r["fused_residual_loss"] for r in
-                                           meshes["gloo_2ranks"].get("launches", [])]}},
+                                           meshes["gloo_2ranks"].get("launches", [])]},
+         "activations": {**acts, "tanh": {**acts["tanh"],
+                                          "launches": rl_launches["fused_residual_loss"]}}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",

@@ -18,9 +18,14 @@
 // fused_loss) up to three space dimensions: every residual above, spatial
 // order 1 (convection), 2 or 3 (KdV), causal or not, framed or not, on either
 // trunk. The stacked streams are [value; D x-groups of KX; t1], S = 2 + D KX
-// (jet_mlp's order); the x-groups share the value stream's LayerNorm and tanh
-// factors, so each kernel takes D and KX as template parameters, and D = 1
-// evaluates the one-dimensional expressions unchanged. The TPU program keeps one
+// (jet_mlp's order); the x-groups share the value stream's LayerNorm
+// statistics and activation derivatives, so each kernel takes D and KX as
+// template parameters, and D = 1 evaluates the one-dimensional expressions
+// unchanged. The activation is every one the reference's transport takes
+// (tanh, gelu in flax's tanh approximation, sigmoid, silu/swish, sin),
+// passed to the transport kernels as a runtime code (ACT_*): one switch
+// that every thread takes alike, not a template parameter, so the
+// instantiations stay D x KX per direction. The TPU program keeps one
 // batch tile's whole forward and backward live set in VMEM, takes the
 // backward from jax.vjp inside the kernel, and carries the causal prefix
 // from one grid step to the next because its grid runs in order on one
@@ -56,11 +61,15 @@
 //                         layer's products (out = 1) as row passes: U = X w + b
 //                         one warp per row, dX = dU w an outer product, dW =
 //                         dU^T X a weighted deterministic column sum.
-//   transport_fwd_kernel<D,K>  one warp per point: LayerNorm + tanh Taylor
-//                         transport of the 2+DK streams (ops/jet_mlp.py);
-//                         every term of a group's stream 2 sits behind KX >= 2.
+//   transport_fwd_kernel<D,K>  one warp per point: LayerNorm + activation
+//                         Taylor transport of the 2+DK streams (ops/jet_mlp.py)
+//                         in d_k = f^(k)(y0) at the primal pre-activation
+//                         (act_derivs: closed forms to order 4); every term
+//                         of a group's stream 2 sits behind KX >= 2.
 //   transport_bwd_kernel<D,K>  its hand-derived reverse pass (the formulas are
-//                         in fused_step.py: _transport_bwd_plain). It
+//                         in fused_step.py: _transport_bwd_plain; the value
+//                         stream's cotangent is G_y0 = d1 G_o0 + d2 G_d1 +
+//                         d3 G_d2 + d4 G_d3, d4 only at KX = 3). It
 //                         recomputes the forward quantities from the saved
 //                         pre-activation instead of storing them, and writes
 //                         per-point LayerNorm scale/bias gradient rows.
@@ -473,25 +482,101 @@ __device__ RowStats<D, KX> row_stats(const float* h, long long stride, int W, in
     return st;
 }
 
-// Forward quantities of one element.
+// The activations (ops/kernels/fused_step.py: _ACT_CODES). Every thread of a
+// launch takes the same case, so the switch does not diverge.
+enum : int { ACT_TANH = 0, ACT_GELU = 1, ACT_SIGMOID = 2, ACT_SILU = 3, ACT_SIN = 4 };
+constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float GELU_A = 0.044715f;
+
+// d[k] = tanh^(k)(y), k < N (N <= 5).
+template <int N>
+__device__ __forceinline__ void tanh_derivs(float y, float* d) {
+    const float a = tanhf(y);
+    d[0] = a;
+    d[1] = 1.0f - a * a;
+    if constexpr (N > 2) d[2] = -2.0f * a * d[1];
+    if constexpr (N > 3) d[3] = -2.0f * d[1] * (1.0f - 3.0f * a * a);
+    if constexpr (N > 4) d[4] = 8.0f * a * d[1] * (2.0f - 3.0f * a * a);
+}
+
+// d[k] = sigmoid^(k)(y), k < N (N <= 5).
+template <int N>
+__device__ __forceinline__ void sigmoid_derivs(float y, float* d) {
+    const float s = 1.0f / (1.0f + expf(-y));
+    d[0] = s;
+    d[1] = s * (1.0f - s);
+    if constexpr (N > 2) d[2] = d[1] * (1.0f - 2.0f * s);
+    if constexpr (N > 3) d[3] = d[1] * (1.0f - 6.0f * s + 6.0f * s * s);
+    if constexpr (N > 4) d[4] = d[1] * (1.0f - 2.0f * s) * (1.0f - 12.0f * s + 12.0f * s * s);
+}
+
+// d[k] = f^(k)(y), k < N (N <= 5), of the activation act: the closed forms of
+// ops/jet_mlp.py's ACTIVATION_DERIVATIVES.
+template <int N>
+__device__ __forceinline__ void act_derivs(int act, float y, float* d) {
+    switch (act) {
+        case ACT_GELU: {
+            // 0.5 (y + y h), h = tanh(u), u = c (y + a y^3); h's derivatives
+            // by Faa di Bruno from tanh's at u (u'''' = 0), then
+            // f^(k) = 0.5 (delta_k1 + y h^(k) + k h^(k-1)).
+            float t[N], h[N];
+            tanh_derivs<N>(GELU_C * (y + GELU_A * (y * y * y)), t);
+            const float u1 = GELU_C * (1.0f + 3.0f * GELU_A * y * y);
+            [[maybe_unused]] const float u2 = 6.0f * GELU_A * GELU_C * y;
+            [[maybe_unused]] const float u3 = 6.0f * GELU_A * GELU_C;
+            h[0] = t[0];
+            h[1] = t[1] * u1;
+            if constexpr (N > 2) h[2] = t[1] * u2 + t[2] * u1 * u1;
+            if constexpr (N > 3) h[3] = t[1] * u3 + 3.0f * t[2] * u1 * u2 + t[3] * u1 * u1 * u1;
+            if constexpr (N > 4)
+                h[4] = t[2] * (4.0f * u1 * u3 + 3.0f * u2 * u2) + 6.0f * t[3] * u1 * u1 * u2
+                     + t[4] * u1 * u1 * u1 * u1;
+            d[0] = y * (0.5f * (1.0f + h[0]));
+            d[1] = 0.5f * (1.0f + h[0] + y * h[1]);
+#pragma unroll
+            for (int k = 2; k < N; ++k) d[k] = 0.5f * (y * h[k] + (float)k * h[k - 1]);
+            break;
+        }
+        case ACT_SIGMOID:
+            sigmoid_derivs<N>(y, d);
+            break;
+        case ACT_SILU: {  // y s: f^(k) = y s^(k) + k s^(k-1)
+            float s[N];
+            sigmoid_derivs<N>(y, s);
+            d[0] = y * s[0];
+#pragma unroll
+            for (int k = 1; k < N; ++k) d[k] = y * s[k] + (float)k * s[k - 1];
+            break;
+        }
+        case ACT_SIN: {  // sin(y + k pi/2)
+            float sn, cs;
+            sincosf(y, &sn, &cs);
+            const float cyc[4] = {sn, cs, -sn, -cs};
+#pragma unroll
+            for (int k = 0; k < N; ++k) d[k] = cyc[k & 3];
+            break;
+        }
+        default:
+            tanh_derivs<N>(y, d);
+    }
+}
+
+// Forward quantities of one element: the streams and d_k = f^(k)(y0) for
+// k = 0..KX+1 (the forward reads d0..dKX, its reverse d1..dKX+1).
 template <int D, int KX>
 struct Elem {
     float c[D * KX + 2], q[D * KX + 2], y[D * KX + 2];
-    float a0, d1, d2, d3;
+    float d[KX + 2];
 };
 
 template <int D, int KX>
-__device__ __forceinline__ void activate(Elem<D, KX>& e) {
-    e.a0 = tanhf(e.y[0]);
-    e.d1 = 1.0f - e.a0 * e.a0;
-    e.d2 = -2.0f * e.a0 * e.d1;
-    e.d3 = 0.f;
-    if constexpr (KX >= 3) e.d3 = -2.0f * e.d1 * (1.0f - 3.0f * e.a0 * e.a0);
+__device__ __forceinline__ void activate(Elem<D, KX>& e, int act) {
+    act_derivs<KX + 2>(act, e.y[0], e.d);
 }
 
 template <int D, int KX>
 __device__ __forceinline__ Elem<D, KX> elem_ln(const RowStats<D, KX>& st, const float* hv, float g,
-                                               float b) {
+                                               float b, int act) {
     using L = Layout<D, KX>;
     constexpr int T = L::T;
     Elem<D, KX> e;
@@ -512,16 +597,16 @@ __device__ __forceinline__ Elem<D, KX> elem_ln(const RowStats<D, KX>& st, const 
     e.y[0] = e.q[0] * g + b;
 #pragma unroll
     for (int s = 1; s <= T; ++s) e.y[s] = e.q[s] * g;
-    activate(e);
+    activate(e, act);
     return e;
 }
 
 template <int D, int KX>
-__device__ __forceinline__ Elem<D, KX> elem_plain(const float* hv) {
+__device__ __forceinline__ Elem<D, KX> elem_plain(const float* hv, int act) {
     Elem<D, KX> e;
 #pragma unroll
     for (int s = 0; s <= D * KX + 1; ++s) e.y[s] = hv[s];
-    activate(e);
+    activate(e, act);
     return e;
 }
 
@@ -532,11 +617,11 @@ __device__ __forceinline__ void load_streams(const float* p, long long stride, i
 }
 
 // H: stacked ((2 + D KX) n, W) pre-activations [value; D x-groups of KX; t1]
-// (bias included). A: the stacked outputs [tanh; per group o1..oKX; ot].
+// (bias included). A: the stacked outputs [f(y0); per group o1..oKX; ot].
 template <int D, int KX>
 __global__ void transport_fwd_kernel(const float* __restrict__ H, const float* __restrict__ gamma,
                                      const float* __restrict__ beta, float* __restrict__ A,
-                                     int n, int W, int use_ln) {
+                                     int n, int W, int use_ln, int act) {
     using L = Layout<D, KX>;
     constexpr int T = L::T;
     const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -550,20 +635,20 @@ __global__ void transport_fwd_kernel(const float* __restrict__ H, const float* _
     for (int j = lane; j < W; j += 32) {
         float hv[L::NS];
         load_streams<D, KX>(h, stride, j, hv);
-        const Elem<D, KX> e = use_ln ? elem_ln<D, KX>(st, hv, gamma[j], beta[j])
-                                     : elem_plain<D, KX>(hv);
-        o[j] = e.a0;
+        const Elem<D, KX> e = use_ln ? elem_ln<D, KX>(st, hv, gamma[j], beta[j], act)
+                                     : elem_plain<D, KX>(hv, act);
+        o[j] = e.d[0];
         for_groups<0, D>([&](auto g_) {
             constexpr int g = decltype(g_)::value;
             const int k = L::base(g);
-            o[k * stride + j] = e.d1 * e.y[k];
+            o[k * stride + j] = e.d[1] * e.y[k];
             if constexpr (KX >= 2)
-                o[(k + 1) * stride + j] = e.d1 * e.y[k + 1] + e.d2 * e.y[k] * e.y[k];
+                o[(k + 1) * stride + j] = e.d[1] * e.y[k + 1] + e.d[2] * e.y[k] * e.y[k];
             if constexpr (KX >= 3)
-                o[(k + 2) * stride + j] = e.d1 * e.y[k + 2] + 3.0f * e.d2 * e.y[k] * e.y[k + 1]
-                                        + e.d3 * e.y[k] * e.y[k] * e.y[k];
+                o[(k + 2) * stride + j] = e.d[1] * e.y[k + 2] + 3.0f * e.d[2] * e.y[k] * e.y[k + 1]
+                                        + e.d[3] * e.y[k] * e.y[k] * e.y[k];
         });
-        o[T * stride + j] = e.d1 * e.y[T];
+        o[T * stride + j] = e.d[1] * e.y[T];
     }
 }
 
@@ -584,7 +669,9 @@ __device__ __forceinline__ ElemGrad<D, KX> elem_grad(const Elem<D, KX>& e,
     using L = Layout<D, KX>;
     constexpr int T = L::T;
     ElemGrad<D, KX> r;
-    float Ga;
+    // The outputs are linear in d1..d3: Gd1..Gd3 are their cotangents, and
+    // G_y0 = d1 G_o0 + d2 G_d1 + d3 G_d2 + d4 G_d3 because d_k' = d_(k+1).
+    float Gy0;
     if constexpr (KX >= 2) {
         float Gd1 = Go[1] * e.y[1] + Go[2] * e.y[2];
         for_groups<1, D>([&](auto gr_) {
@@ -602,10 +689,27 @@ __device__ __forceinline__ ElemGrad<D, KX> elem_grad(const Elem<D, KX>& e,
         for_groups<0, D>([&](auto gr_) {
             constexpr int gr = decltype(gr_)::value;
             const int k = L::base(gr);
-            r.Gy[k] = Go[k] * e.d1 + 2.0f * Go[k + 1] * e.d2 * e.y[k];
-            r.Gy[k + 1] = Go[k + 1] * e.d1;
+            r.Gy[k] = Go[k] * e.d[1] + 2.0f * Go[k + 1] * e.d[2] * e.y[k];
+            r.Gy[k + 1] = Go[k + 1] * e.d[1];
         });
-        Ga = Go[0] - 2.0f * e.a0 * Gd1 + Gd2 * (4.0f * e.a0 * e.a0 - 2.0f * e.d1);
+        if constexpr (KX >= 3) {
+            float Gd3 = 0.f;
+            for_groups<0, D>([&](auto gr_) {
+                constexpr int gr = decltype(gr_)::value;
+                const int k = L::base(gr);
+                const float Go3 = Go[k + 2];
+                const float y1 = e.y[k], y2 = e.y[k + 1];
+                Gd1 = Gd1 + Go3 * e.y[k + 2];
+                Gd2 = Gd2 + 3.0f * Go3 * y1 * y2;
+                Gd3 = Gd3 + Go3 * y1 * y1 * y1;
+                r.Gy[k] = r.Gy[k] + Go3 * (3.0f * e.d[2] * y2 + 3.0f * e.d[3] * y1 * y1);
+                r.Gy[k + 1] = r.Gy[k + 1] + 3.0f * Go3 * e.d[2] * y1;
+                r.Gy[k + 2] = Go3 * e.d[1];
+            });
+            Gy0 = Go[0] * e.d[1] + e.d[2] * Gd1 + e.d[3] * Gd2 + e.d[4] * Gd3;
+        } else {
+            Gy0 = Go[0] * e.d[1] + e.d[2] * Gd1 + e.d[3] * Gd2;
+        }
     } else {
         float Gd1 = Go[1] * e.y[1];
         for_groups<1, D>([&](auto gr_) {
@@ -615,26 +719,12 @@ __device__ __forceinline__ ElemGrad<D, KX> elem_grad(const Elem<D, KX>& e,
         Gd1 = Gd1 + Go[T] * e.y[T];
         for_groups<0, D>([&](auto gr_) {
             constexpr int gr = decltype(gr_)::value;
-            r.Gy[1 + gr] = Go[1 + gr] * e.d1;
+            r.Gy[1 + gr] = Go[1 + gr] * e.d[1];
         });
-        Ga = Go[0] - 2.0f * e.a0 * Gd1;
+        Gy0 = Go[0] * e.d[1] + e.d[2] * Gd1;
     }
-    r.Gy[T] = Go[T] * e.d1;
-    if constexpr (KX >= 3) {
-        const float a0 = e.a0;
-        for_groups<0, D>([&](auto gr_) {
-            constexpr int gr = decltype(gr_)::value;
-            const int k = L::base(gr);
-            const float Go3 = Go[k + 2];
-            const float y1 = e.y[k], y2 = e.y[k + 1];
-            Ga = Ga + Go3 * (-2.0f * a0 * e.y[k + 2] + 3.0f * y1 * y2 * (4.0f * a0 * a0 - 2.0f * e.d1)
-                             + y1 * y1 * y1 * (4.0f * a0 * (1.0f - 3.0f * a0 * a0) + 12.0f * a0 * e.d1));
-            r.Gy[k] = r.Gy[k] + Go3 * (3.0f * e.d2 * y2 + 3.0f * e.d3 * y1 * y1);
-            r.Gy[k + 1] = r.Gy[k + 1] + 3.0f * Go3 * e.d2 * y1;
-            r.Gy[k + 2] = Go3 * e.d1;
-        });
-    }
-    r.Gy[0] = Ga * e.d1;
+    r.Gy[T] = Go[T] * e.d[1];
+    r.Gy[0] = Gy0;
     if (use_ln) {
         r.Gq[T] = r.Gy[T] * g;
         for_groups<0, D>([&](auto gr_) {
@@ -718,7 +808,7 @@ template <int D, int KX>
 __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* __restrict__ gamma,
                                      const float* __restrict__ beta, const float* __restrict__ GA,
                                      float* __restrict__ GH, float* __restrict__ Ggamma,
-                                     float* __restrict__ Gbeta, int n, int W, int use_ln) {
+                                     float* __restrict__ Gbeta, int n, int W, int use_ln, int act) {
     using L = Layout<D, KX>;
     constexpr int T = L::T;
     constexpr int NS = L::NS;
@@ -736,7 +826,7 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
             float hv[NS], Go[NS];
             load_streams<D, KX>(h, stride, j, hv);
             load_streams<D, KX>(ga, stride, j, Go);
-            const Elem<D, KX> e = elem_plain<D, KX>(hv);
+            const Elem<D, KX> e = elem_plain<D, KX>(hv, act);
             const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, RowStats<D, KX>{}, 1.0f, Go, 0);
 #pragma unroll
             for (int s = 0; s <= T; ++s) o[s * stride + j] = gr.Gy[s];
@@ -758,7 +848,7 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
         float hv[NS], Go[NS];
         load_streams<D, KX>(h, stride, j, hv);
         load_streams<D, KX>(ga, stride, j, Go);
-        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j]);
+        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j], act);
         const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, st, g, Go, 1);
         Rt0 += gr.Gq[T] * e.q[0]; Rtt += gr.Gq[T] * e.q[T];
         for_groups<0, D>([&](auto x_) {
@@ -855,7 +945,7 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
         float hv[NS], Go[NS], Gc[NS];
         load_streams<D, KX>(h, stride, j, hv);
         load_streams<D, KX>(ga, stride, j, Go);
-        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j]);
+        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j], act);
         const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, st, g, Go, 1);
         centred_grads<D, KX>(e, gr, st, sc, inv_w, Gc);
 #pragma unroll
@@ -870,7 +960,7 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
         float hv[NS], Go[NS], Gc[NS];
         load_streams<D, KX>(h, stride, j, hv);
         load_streams<D, KX>(ga, stride, j, Go);
-        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j]);
+        const Elem<D, KX> e = elem_ln<D, KX>(st, hv, g, beta[j], act);
         const ElemGrad<D, KX> gr = elem_grad<D, KX>(e, st, g, Go, 1);
         centred_grads<D, KX>(e, gr, st, sc, inv_w, Gc);
 #pragma unroll
@@ -1197,11 +1287,12 @@ inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) /
 
 // ------------------------------------------------------- C entry points --
 // Each launches on the given stream and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an x-order other than 1, 2 or 3, or a number of
-// space dimensions other than 1, 2 or 3).
+// cudaErrorInvalidValue for an x-order other than 1, 2 or 3, a number of
+// space dimensions other than 1, 2 or 3, or an unknown activation code).
 
 inline bool kx_ok(int kx) { return kx >= 1 && kx <= 3; }
 inline bool dim_ok(int dim) { return dim >= 1 && dim <= 3; }
+inline bool act_ok(int act) { return act >= ACT_TANH && act <= ACT_SIN; }
 
 template <int V>
 using Int = std::integral_constant<int, V>;
@@ -1312,26 +1403,28 @@ extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K
     return (int)cudaGetLastError();
 }
 
+// act: one of ACT_* (ops/kernels/fused_step.py: _ACT_CODES).
 extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float* beta, float* A,
-                                int n, int W, int use_ln, int kx, int dim, void* stream) {
-    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                                int n, int W, int use_ln, int kx, int dim, int act, void* stream) {
+    if (!kx_ok(kx) || !dim_ok(dim) || !act_ok(act)) return (int)cudaErrorInvalidValue;
     if (n > 0)
         with_dim_kx(dim, kx, [&](auto d, auto k) {
             transport_fwd_kernel<decltype(d)::value, decltype(k)::value>
-                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln);
+                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln,
+                                                               act);
         });
     return (int)cudaGetLastError();
 }
 
 extern "C" int fr_transport_bwd(const float* H, const float* gamma, const float* beta,
                                 const float* GA, float* GH, float* Ggamma, float* Gbeta, int n,
-                                int W, int use_ln, int kx, int dim, void* stream) {
-    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                                int W, int use_ln, int kx, int dim, int act, void* stream) {
+    if (!kx_ok(kx) || !dim_ok(dim) || !act_ok(act)) return (int)cudaErrorInvalidValue;
     if (n > 0)
         with_dim_kx(dim, kx, [&](auto d, auto k) {
             transport_bwd_kernel<decltype(d)::value, decltype(k)::value>
                 <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
-                                                               Gbeta, n, W, use_ln);
+                                                               Gbeta, n, W, use_ln, act);
         });
     return (int)cudaGetLastError();
 }

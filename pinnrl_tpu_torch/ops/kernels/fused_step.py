@@ -20,7 +20,7 @@ carry no gradient: the residual cotangent is 2 w_i r_i / sum w.
 Every kernel has a plain PyTorch twin with the same contract (``_TorchOps``
 beside ``_CudaOps``), and one host-side launcher (``_loss_and_grads``) runs
 either set. The tests run the launcher with the plain twins on the CPU — which
-checks the hand-derived LayerNorm + tanh backward (``_transport_bwd_plain``),
+checks the hand-derived LayerNorm + activation backward (``_transport_bwd_plain``),
 the scan's block arithmetic and all the layout and stride bookkeeping against
 autograd — and the chip smoke test compares the CUDA set with the plain
 version on the card.
@@ -36,8 +36,10 @@ Allen-Cahn (spatial order K = 2), Black-Scholes (order 2; the one residual
 that reads z, for S along each axis), KdV (order 3) or convection (order 1,
 one velocity per axis). The stacked streams are [value; axis 0: 1..K; ..;
 axis d-1: 1..K; t1], S = 2 + d K of them (the bundle's order); the x-groups
-share the value stream's LayerNorm and tanh factors, and the residuals sum
-over the axes.
+share the value stream's LayerNorm statistics and activation derivatives, and
+the residuals sum over the axes. The activation is any of the bundle's
+(``jet_mlp.ACTIVATION_DERIVATIVES``: tanh, gelu, sigmoid, silu/swish, sin),
+passed to the transport kernels as a runtime code (``_ACT_CODES``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from pinnrl_tpu_torch.ops.jet_mlp import BundleView, _transport_block, make_bundle_fn
+from pinnrl_tpu_torch.ops.jet_mlp import (ACTIVATION_DERIVATIVES, BundleView, _transport_block,
+                                          activation_derivatives, make_bundle_fn)
 from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core
 from pinnrl_tpu_torch.ops.kernels._gemm_core import TARGET_BLOCKS, TILE, cdiv, split_chunks
 
@@ -60,6 +63,9 @@ _RESIDUALS = ("burgers", "heat", "kdv", "convection", "allen_cahn", "black_schol
 _MAX_DIM = 3  # space dimensions the CUDA kernels are instantiated for
 _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 _BASIS = "FourierFeatures_0.B"
+# The transport kernels' ``act`` argument (csrc/fused_residual.cu: ACT_*).
+_ACT_CODES = {"tanh": 0, "gelu": 1, "sigmoid": 2, "silu": 3, "swish": 3, "sin": 4}
+assert _ACT_CODES.keys() == ACTIVATION_DERIVATIVES.keys(), "kernel 1 codes every bundle activation"
 
 
 # --------------------------------------------------------------------------- #
@@ -169,12 +175,12 @@ def _split_streams(T: torch.Tensor, n: int, dim: int):
     return hs[0], [list(hs[1 + g * k: 1 + (g + 1) * k]) for g in range(dim)], hs[-1]
 
 
-def _transport_fwd_plain(H, gamma, beta, n: int, dim: int) -> torch.Tensor:
-    """LayerNorm + tanh transport of the stacked (S n, W) pre-activations,
-    S = 2 + dim K streams [value; ``dim`` x-groups of K; t1]."""
+def _transport_fwd_plain(H, gamma, beta, n: int, dim: int, act: str) -> torch.Tensor:
+    """LayerNorm + activation transport of the stacked (S n, W)
+    pre-activations, S = 2 + dim K streams [value; ``dim`` x-groups of K; t1]."""
     h0, hx, ht = _split_streams(H, n, dim)
-    a0, groups = _transport_block(h0, [*hx, [ht]], gamma, beta, "tanh")
-    return torch.cat([a0, *[o for g in groups for o in g]], dim=0)
+    d0, groups = _transport_block(h0, [*hx, [ht]], gamma, beta, act)
+    return torch.cat([d0, *[o for g in groups for o in g]], dim=0)
 
 
 def _mean(v):
@@ -203,23 +209,20 @@ def _ln_group(c0, q0, r, c):
     return S, V, q
 
 
-def _tanh_group_bwd(a0, d1, d2, d3, y, Go):
-    """One x-group's share of the tanh transport's reverse: (its term of
-    G_a0, [G_y1..G_yK])."""
+def _act_group_bwd(d, y, Go):
+    """One x-group's share of the activation transport's reverse: (its terms
+    of [G_d1, G_d2, G_d3], [G_y1..G_yK]); ``d`` = [d0..d(K+1)]."""
     K = len(y)
     if K == 1:
-        return -2.0 * a0 * (Go[0] * y[0]), [Go[0] * d1]
-    Gd1 = Go[0] * y[0] + Go[1] * y[1]
-    Gd2 = Go[1] * y[0] * y[0]
-    Ga = -2.0 * a0 * Gd1 + Gd2 * (4.0 * a0 * a0 - 2.0 * d1)
-    Gy = [Go[0] * d1 + 2.0 * Go[1] * d2 * y[0], Go[1] * d1]
+        return [Go[0] * y[0]], [Go[0] * d[1]]
+    Gd = [Go[0] * y[0] + Go[1] * y[1], Go[1] * y[0] * y[0]]
+    Gy = [Go[0] * d[1] + 2.0 * Go[1] * d[2] * y[0], Go[1] * d[1]]
     if K == 3:
         y1, y2, y3 = y
-        Ga = Ga + Go[2] * (-2.0 * a0 * y3 + 3.0 * y1 * y2 * (4.0 * a0 * a0 - 2.0 * d1)
-                           + y1 * y1 * y1 * (4.0 * a0 * (1.0 - 3.0 * a0 * a0) + 12.0 * a0 * d1))
-        Gy = [Gy[0] + Go[2] * (3.0 * d2 * y2 + 3.0 * d3 * y1 * y1), Gy[1] + 3.0 * Go[2] * d2 * y1,
-              Go[2] * d1]
-    return Ga, Gy
+        Gd = [Gd[0] + Go[2] * y3, Gd[1] + 3.0 * Go[2] * y1 * y2, Go[2] * y1 * y1 * y1]
+        Gy = [Gy[0] + Go[2] * (3.0 * d[2] * y2 + 3.0 * d[3] * y1 * y1),
+              Gy[1] + 3.0 * Go[2] * d[2] * y1, Go[2] * d[1]]
+    return Gd, Gy
 
 
 def _ln_group_bwd(Gy, q0, q, S, r, gamma):
@@ -249,13 +252,14 @@ def _ln_group_bwd(Gy, q0, q, S, r, gamma):
     return Gq, GS, sum(R(k, k) for k in range(1, K + 1))
 
 
-def _transport_bwd_plain(H, gamma, beta, GA, n: int, dim: int):
+def _transport_bwd_plain(H, gamma, beta, GA, n: int, dim: int, act: str):
     """Hand-derived reverse pass of ``_transport_fwd_plain``: ``dim`` x-groups
-    (axes) of x-order K in {1, 2, 3} beside the value and the t-stream.
+    (axes) of x-order K in {1, 2, 3} beside the value and the t-stream, for
+    any activation f of ``jet_mlp.ACTIVATION_DERIVATIVES``.
 
     Forward, per point (row means over the width W; r = 1/sqrt(var0+eps)).
     Shared by every group: c0 = h0 - mean(h0), q0 = c0 r, y0 = q0 g + b,
-    a0 = tanh(y0), d1 = 1 - a0^2, d2 = -2 a0 d1, d3 = -2 d1 (1 - 3 a0^2);
+    d_k = f^(k)(y0) (k = 0..K+1; the value stream's output is o0 = d0);
     St = mean(c0 ct) r, qt = (ct - q0 St) r, yt = qt g, ot = d1 yt. Per
     x-group (its own streams c_k = h_k - mean(h_k), k = 1..K):
         S1 = mean(c0 c1) r ;  V2 = mean(c1^2 + c0 c2) ;  S2 = (V2 - S1^2) r
@@ -264,14 +268,15 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int, dim: int):
         q3 = (c3 - 3 q2 S1 - 3 q1 S2 - q0 S3) r                    (K = 3)
         y_k = q_k g ;  o1 = d1 y1 ;  o2 = d1 y2 + d2 y1^2
         o3 = d1 y3 + 3 d2 y1 y2 + d3 y1^3                          (K = 3)
-    Reverse (G_v is the cotangent of v; sum_x runs over the x-groups):
-        G_a0 += -2 a0 G_ot yt + sum_x [-2 a0 G_d1 + (4 a0^2 - 2 d1) G_d2
-                + (4 a0 (1 - 3 a0^2) + 12 a0 d1) G_d3]
-          per group G_d1 = G_o1 y1 + G_o2 y2 + G_o3 y3,
-          G_d2 = G_o2 y1^2 + 3 G_o3 y1 y2, G_d3 = G_o3 y1^3
+    Reverse (G_v is the cotangent of v; sum_x runs over the x-groups). The
+    outputs are linear in d1..d3, whose cotangents are
+        G_d1 = G_ot yt + sum_x (G_o1 y1 + G_o2 y2 + G_o3 y3)
+        G_d2 = sum_x (G_o2 y1^2 + 3 G_o3 y1 y2) ;  G_d3 = sum_x G_o3 y1^3
+    and d_k' = d_(k+1), so
+        G_y0 = d1 G_o0 + d2 G_d1 + d3 G_d2 + d4 G_d3
+    (d3 only from K = 2 on, d4 only at K = 3), and per group
         G_y1 = G_o1 d1 + 2 G_o2 d2 y1 + G_o3 (3 d2 y2 + 3 d3 y1^2)
         G_y2 = G_o2 d1 + 3 G_o3 d2 y1 ;  G_y3 = G_o3 d1 ;  G_yt = G_ot d1
-        G_y0 = G_a0 d1
     then the complete q cotangents, per group in reverse order,
         G_q3 = G_y3 g ;  G_q2 = G_y2 g - 3 G_q3 S1 r
         G_q1 = G_y1 g - 2 G_q2 S1 r - 3 G_q3 S2 r ;  G_qt = G_yt g
@@ -314,17 +319,16 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int, dim: int):
         yx = [[qk * gamma for qk in q] for _S, _V, q in lns]
     else:
         y0, yx, yt = h0, hx, ht
-    a0 = torch.tanh(y0)
-    d1 = 1.0 - a0 * a0
-    d2 = -2.0 * a0 * d1
-    d3 = -2.0 * d1 * (1.0 - 3.0 * a0 * a0)
-    Ga = Ga0 - 2.0 * a0 * (Got * yt)
+    K = len(hx[0])
+    d = activation_derivatives(act, y0, K + 1)
+    Gd = [Got * yt] + [0.0] * (K - 1)  # [G_d1 .. G_dK]
     Gyx = []
     for y, Go in zip(yx, Gox):
-        Ga_g, Gy = _tanh_group_bwd(a0, d1, d2, d3, y, Go)
-        Ga = Ga + Ga_g
+        Gd_g, Gy = _act_group_bwd(d, y, Go)
+        Gd = [a + b for a, b in zip(Gd, Gd_g)]
         Gyx.append(Gy)
-    Gy0, Gyt = Ga * d1, Got * d1
+    Gy0 = d[1] * Ga0 + sum(dk * g for dk, g in zip(d[2:], Gd))
+    Gyt = Got * d[1]
     if gamma is None:
         return torch.cat([Gy0, *[g for Gy in Gyx for g in Gy], Gyt], dim=0), None, None
 
@@ -407,11 +411,11 @@ class _TorchOps:
         _gemm_core.gemm_plain(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
                               k_chunk)
 
-    def transport_fwd(self, H, gamma, beta, n, dim):
-        return _transport_fwd_plain(H, gamma, beta, n, dim)
+    def transport_fwd(self, H, gamma, beta, n, dim, act):
+        return _transport_fwd_plain(H, gamma, beta, n, dim, act)
 
-    def transport_bwd(self, H, gamma, beta, GA, n, dim):
-        return _transport_bwd_plain(H, gamma, beta, GA, n, dim)
+    def transport_bwd(self, H, gamma, beta, GA, n, dim, act):
+        return _transport_bwd_plain(H, gamma, beta, GA, n, dim, act)
 
     # The residuals: U is the stacked (S n, 1) output [u; per axis u_x..; u_t]
     # (``_split_streams``); each returns (dU, out): plain, 2r/N dr/dU and r^2;
@@ -497,8 +501,8 @@ class _CudaOps:
         "fr_embed_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_float] + [ctypes.c_void_p] * 3,
         "fr_gemm": _gemm_core.GEMM_ARGTYPES,
-        "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-        "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         "fr_burgers": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                                    ctypes.c_void_p],
         "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
@@ -577,15 +581,16 @@ class _CudaOps:
                                       C.data_ptr(), ldc, self._ptr(bias), bias_rows, splits,
                                       k_chunk, M * N, self.stream), "gemm_sm90_kernel")
 
-    def transport_fwd(self, H, gamma, beta, n, dim):
+    def transport_fwd(self, H, gamma, beta, n, dim, act):
         A = torch.empty_like(H)
         _build.check(self.lib.fr_transport_fwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                A.data_ptr(), n, H.shape[1], int(gamma is not None),
-                                               (H.shape[0] // n - 2) // dim, dim, self.stream),
+                                               (H.shape[0] // n - 2) // dim, dim, _ACT_CODES[act],
+                                               self.stream),
                      "transport_fwd_kernel")
         return A
 
-    def transport_bwd(self, H, gamma, beta, GA, n, dim):
+    def transport_bwd(self, H, gamma, beta, GA, n, dim, act):
         GH = torch.empty_like(H)
         use_ln = gamma is not None
         Gg = self._empty(n, H.shape[1]) if use_ln else None
@@ -593,7 +598,8 @@ class _CudaOps:
         _build.check(self.lib.fr_transport_bwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                GA.data_ptr(), GH.data_ptr(), self._ptr(Gg),
                                                self._ptr(Gb), n, H.shape[1], int(use_ln),
-                                               (H.shape[0] // n - 2) // dim, dim, self.stream),
+                                               (H.shape[0] // n - 2) // dim, dim, _ACT_CODES[act],
+                                               self.stream),
                      "transport_bwd_kernel")
         return GH, Gg, Gb
 
@@ -776,6 +782,7 @@ class _Spec:
     scale: torch.Tensor
     B: Optional[torch.Tensor]  # a fixed Fourier basis; None: trainable, or a feedforward trunk
     leaf_names: List[str]
+    activation: str  # one of _ACT_CODES
     trainable_basis: bool = False  # B is the leaf "FourierFeatures_0.B", with a gradient
     # The residual's coefficients (0 where the PDE has none of them).
     nu: float = 0.0  # Burgers' viscosity
@@ -807,7 +814,7 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
         gamma = P[f"LayerNorm_{i}.weight"] if spec.use_ln else None
         beta = P[f"LayerNorm_{i}.bias"] if spec.use_ln else None
         Hs.append(H)
-        X.append(ops.transport_fwd(H, gamma, beta, n, d))
+        X.append(ops.transport_fwd(H, gamma, beta, n, d, spec.activation))
     U = _linear(ops, X[-1], P[f"Dense_{L}.weight"], P[f"Dense_{L}.bias"], n)
     if spec.residual == "burgers":
         G, out = ops.burgers(U, n, d, spec.nu, causal)
@@ -849,7 +856,7 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
         j = i - 1
         gamma = P[f"LayerNorm_{j}.weight"] if spec.use_ln else None
         beta = P[f"LayerNorm_{j}.bias"] if spec.use_ln else None
-        G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n, d)
+        G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n, d, spec.activation)
         if spec.use_ln:
             width = Gg.shape[1]
             grads[f"LayerNorm_{j}.weight"] = ops.colsum(Gg, n, width, width, 1.0)
@@ -958,6 +965,7 @@ def _spec(model, pde) -> _Spec:
         B=model.constants[_BASIS].contiguous() if fourier and not trainable_basis else None,
         leaf_names=names,
         trainable_basis=trainable_basis,
+        activation=cfg.activation.lower(),
         **coeffs,
     )
 
@@ -988,8 +996,11 @@ def supports(model, pde, training=None) -> bool:
     coefficients), temporal order 1 and spatial order at most 3, causal or
     not; and this port's residuals (``_RESIDUALS``) in 1 to 3 space
     dimensions (the kernels are instantiated for d <= 3; more is ROADMAP
-    queue 2's K1e). No width gate: the TPU's gate was a TPU measurement,
-    and no H100 measurement has set one."""
+    queue 2's K1e). The activations are the bundle's: tanh, gelu, sigmoid,
+    silu/swish and sin; softplus, which the reference's gate admits but
+    whose ``jet`` transport fails there, runs on the generic engine. No
+    width gate: the TPU's gate was a TPU measurement, and no H100
+    measurement has set one."""
     from pinnrl_tpu_torch.ops import jet_mlp
 
     if not (pde.bundle_compatible and pde.system_size == 1 and jet_mlp.supports(model, pde)):

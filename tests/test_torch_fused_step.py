@@ -94,12 +94,12 @@ def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order, di
     beta = torch.tensor(0.2 * rng.standard_normal(width), dtype=dtype, requires_grad=True)
     GA = torch.tensor(rng.standard_normal((streams * n, width)), dtype=dtype)
     g, b = (gamma, beta) if layer_norm else (None, None)
-    out = fused_step._transport_fwd_plain(H, g, b, n, dim)
+    out = fused_step._transport_fwd_plain(H, g, b, n, dim, "tanh")
     inputs = [H, gamma, beta] if layer_norm else [H]
     ref = torch.autograd.grad(out, inputs, GA)
     GH, Gg, Gb = fused_step._transport_bwd_plain(
         H.detach(), None if g is None else gamma.detach(), None if b is None else beta.detach(), GA, n,
-        dim)
+        dim, "tanh")
     assert rel_to_max(GH, ref[0]) < tol
     if layer_norm:
         assert rel_to_max(Gg.sum(0), ref[1]) < tol

@@ -70,11 +70,11 @@ def test_supports_and_unported_routes():
 
     pair = burgers_pair()
     assert jet_mlp.supports(pair.tmodel, pair.tpde)
-    pair.tmodel.config.activation = "gelu"
+    pair.tmodel.config.activation = "softplus"
     assert not jet_mlp.supports(pair.tmodel)
     # make_bundle_fn refuses what supports() refuses (the generic
-    # engine runs it), naming the lever that would widen it.
-    with pytest.raises(ValueError, match="tanh only.*ROADMAP item 10.5"):
+    # engine runs it), naming the activations it transports.
+    with pytest.raises(ValueError, match="transports.*'tanh'.*not 'softplus'.*generic engine"):
         jet_mlp.make_bundle_fn(pair.tmodel, 1, 2, 1)
     # Any other point function takes the generic engine (nested jvp), which
     # names its modes.
