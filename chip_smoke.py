@@ -331,6 +331,28 @@ Phases (each raises on failure, and the script then exits non-zero):
                (mapping 512; 2 epochs of 2 steps), each with exact kernel-1
                launches, and silu on the wave recipe (temporal order 2: the
                bundle, kernel 1 never).
+ 44. nd4     — kernel 1 in four or more space dimensions (the ``*_nd``
+               kernels, d a run-time argument): ptxas's registers and spills
+               of each (none may spill); every residual at d = 4 (KdV: 14
+               stacked streams), heat at d = 5 and 8, heat at d = 4 on the
+               feedforward trunk and with causal weights, a frame of speed
+               0.7, a trainable basis and gelu together (64x48, mapping 32,
+               N = 4096), and heat-4D on the shipped Fourier trunk (512x4,
+               mapping 512, tanh + LayerNorm, 10 stacked streams) at N = 8192
+               and 40000, each against its plain twins run in float64 and
+               bit-identical in two calls; heat-4D timed by CUDA-graph replay
+               beside the plain version, its bound, its products on the
+               GEMM core and on cuBLAS and the kernels' peak memory; kernel
+               2 at (8192,5) x (5,512), its edge path, against plain and
+               timed. Then through
+               ``PDETrainer``: heat-4D (heat_2d's block on [0, pi]^4 with the
+               ``sin_exp_decay`` IC, exact solution and Dirichlet BC) with
+               ``adam_lbfgs`` for 4 epochs (8 Adam steps of 8192, 2 L-BFGS
+               iterations on all 40000 points), and Black-Scholes as shipped
+               (feedforward 128x7) on a basket of 4 assets for 3 epochs of 2
+               Adam steps: kernel 1 exactly once per Adam step, L-BFGS
+               evaluation and validation, kernel 2 exactly twice per loss on
+               the heat path, finite losses.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -420,7 +442,12 @@ carries phase 43's ``activations`` (per activation: ``launches`` on its
 run, ``max_abs_err`` against the float32 twins and ``max_abs_err_f64``,
 ``parity`` per case, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms`` and
 their ``n40000_`` twins, ``ptxas`` per transport kernel, and the run's
-losses). The last line is
+losses) and phase 44's ``nd4`` (``ptxas`` per d >= 4 kernel, ``parity`` per
+small case, ``heat_4d`` per N: parity, ``ms``, ``plain_ms``, ``bound_ms``,
+``library_ms``, ``gemm_core_ms`` and peak memory, ``runs`` with their
+launches and losses);
+kernel 2's entry carries ``nd4_edge`` (its time at (8192,5) x (5,512)) and
+``nd4_launches``. The last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -3179,6 +3206,58 @@ def _act_ptxas():
     return out
 
 
+def kernel1_vs_f64_twins(dev, model, pde, gen, n: int, tols, label: str):
+    """Kernel 1 (the CUDA launcher) on ``n`` time-sorted uniform points of
+    ``pde`` drawn from ``gen``, twice, against its plain twins
+    (``_TorchOps``) run in float64 on the same card tensors, at ``tols``
+    (loss, gradient) relative bounds; the float32 twins' own gap to float64
+    printed beside. Raises unless within the bounds, finite and
+    bit-identical in two calls. Returns (spec, params, z, the numbers)."""
+    import torch
+
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    cuda_ops, plain_ops = fused_step._cuda_ops(dev), fused_step._TorchOps()
+    spec = fused_step._spec(model, pde)
+    f64_spec = fused_step._Spec(**{**spec.__dict__, "lo": spec.lo.double(),
+                                   "scale": spec.scale.double(),
+                                   "B": None if spec.B is None else spec.B.double()})
+    P = {k: v.detach() for k, v in model.params.items()}
+    z = time_sorted(*pde.generate_collocation_points(gen, n, "uniform"))
+    lk, gk = fused_step._loss_and_grads(cuda_ops, spec, z, P)
+    lk2, gk2 = fused_step._loss_and_grads(cuda_ops, spec, z, P)
+    lp, gp = fused_step._loss_and_grads(plain_ops, spec, z, P)
+    l64, g64 = fused_step._loss_and_grads(plain_ops, f64_spec, z.double(),
+                                          {k: v.double() for k, v in P.items()})
+    torch.cuda.synchronize()
+    same = torch.equal(lk, lk2) and all(torch.equal(gk[k], gk2[k]) for k in gk)
+
+    def rels(loss, grads):
+        worst = max(grads, key=lambda k: float((grads[k].double() - g64[k]).abs().max())
+                    / max(float(g64[k].abs().max()), 1e-30))
+        return (abs(float(loss) - float(l64)) / abs(float(l64)),
+                float((grads[worst].double() - g64[worst]).abs().max())
+                / max(float(g64[worst].abs().max()), 1e-30), worst)
+
+    k_loss, k_grad, k_name = rels(lk, gk)
+    p_loss, p_grad, _ = rels(lp, gp)
+    abs_err = max(abs(float(lk) - float(lp)), *(float((gk[k] - gp[k]).abs().max()) for k in gk))
+    abs_err64 = max(abs(float(lk) - float(l64)),
+                    *(float((gk[k].double() - g64[k]).abs().max()) for k in gk))
+    loss_tol, grad_tol = tols
+    print(f"{label} N={n}: against the float64 twins loss rel {k_loss:.3e} (tol {loss_tol:g}), "
+          f"worst grad rel {k_grad:.3e} ({k_name}, tol {grad_tol:g}); the float32 twins "
+          f"{p_loss:.3e}, {p_grad:.3e}; kernel against the float32 twins max_abs_err "
+          f"{abs_err:.3e} (float64 {abs_err64:.3e}); two calls bit-identical {same}", flush=True)
+    if not (k_loss < loss_tol and k_grad < grad_tol and same
+            and all(torch.isfinite(g).all() for g in gk.values())):
+        raise AssertionError(f"{label}: kernel 1 disagrees with its plain version")
+    return spec, P, z, {"n": n, "loss_rel": k_loss, "grad_rel": k_grad,
+                        "plain_f32_loss_rel": p_loss, "plain_f32_grad_rel": p_grad,
+                        "max_abs_err": abs_err, "max_abs_err_f64": abs_err64,
+                        "bit_identical": same}
+
+
 def activation_runs(dev, card: str):
     """Phase 43: kernel 1 for gelu, sigmoid, silu and sin (see the module
     docstring)."""
@@ -3200,14 +3279,9 @@ def activation_runs(dev, card: str):
           f"for every activation: {ptx} ({card})", flush=True)
     if len(ptx) != 18 or bwd33 is None:
         raise AssertionError(f"transport kernels missing from the build log: {sorted(ptx)}")
-    cuda_ops, plain_ops = fused_step._cuda_ops(dev), fused_step._TorchOps()
+    cuda_ops = fused_step._cuda_ops(dev)
     gen = torch.Generator(device=dev).manual_seed(43)
     out = {act: {"parity": {}} for act in ("tanh",) + ACT_KERNEL_ACTS}
-
-    def f64_spec(spec):
-        return fused_step._Spec(**{**spec.__dict__, "lo": spec.lo.double(),
-                                   "scale": spec.scale.double(),
-                                   "B": None if spec.B is None else spec.B.double()})
 
     for act in ("tanh",) + ACT_KERNEL_ACTS:
         for case, (key, n) in ACT_CASES.items():
@@ -3217,45 +3291,9 @@ def activation_runs(dev, card: str):
             pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
             if not fused_step.supports(model, pde, cfg.training):
                 raise AssertionError(f"{act} {case}: kernel 1 does not take it")
-            spec = fused_step._spec(model, pde)
-            P = {k: v.detach() for k, v in model.params.items()}
-            z = time_sorted(*pde.generate_collocation_points(gen, n, "uniform"))
-            lk, gk = fused_step._loss_and_grads(cuda_ops, spec, z, P)
-            lk2, gk2 = fused_step._loss_and_grads(cuda_ops, spec, z, P)
-            lp, gp = fused_step._loss_and_grads(plain_ops, spec, z, P)
-            l64, g64 = fused_step._loss_and_grads(plain_ops, f64_spec(spec), z.double(),
-                                                  {k: v.double() for k, v in P.items()})
-            torch.cuda.synchronize()
-            same = torch.equal(lk, lk2) and all(torch.equal(gk[k], gk2[k]) for k in gk)
-
-            def rels(loss, grads):
-                worst = max(grads, key=lambda k: float((grads[k].double() - g64[k]).abs().max())
-                            / max(float(g64[k].abs().max()), 1e-30))
-                return (abs(float(loss) - float(l64)) / abs(float(l64)),
-                        float((grads[worst].double() - g64[worst]).abs().max())
-                        / max(float(g64[worst].abs().max()), 1e-30), worst)
-
-            k_loss, k_grad, k_name = rels(lk, gk)
-            p_loss, p_grad, _ = rels(lp, gp)
-            abs_err = max(abs(float(lk) - float(lp)),
-                          *(float((gk[k] - gp[k]).abs().max()) for k in gk))
-            abs_err64 = max(abs(float(lk) - float(l64)),
-                            *(float((gk[k].double() - g64[k]).abs().max()) for k in gk))
             tol_key = "kdv_causal" if key == "kdv_causal" else "burgers"
-            loss_tol, grad_tol = FUSED_TOLS[tol_key]
-            print(f"[activations] kernel 1 {act} {case} N={n}: against the float64 twins loss rel "
-                  f"{k_loss:.3e} (tol {loss_tol:g}), worst grad rel {k_grad:.3e} ({k_name}, tol "
-                  f"{grad_tol:g}); the float32 twins {p_loss:.3e}, {p_grad:.3e}; kernel against the "
-                  f"float32 twins max_abs_err {abs_err:.3e} (float64 {abs_err64:.3e}); two calls "
-                  f"bit-identical {same}",
-                  flush=True)
-            if not (k_loss < loss_tol and k_grad < grad_tol and same
-                    and all(torch.isfinite(g).all() for g in gk.values())):
-                raise AssertionError(f"kernel 1 with {act} disagrees with its plain version ({case})")
-            out[act]["parity"][case] = {"n": n, "loss_rel": k_loss, "grad_rel": k_grad,
-                                        "plain_f32_loss_rel": p_loss, "plain_f32_grad_rel": p_grad,
-                                        "max_abs_err": abs_err, "max_abs_err_f64": abs_err64,
-                                        "bit_identical": same}
+            spec, P, z, out[act]["parity"][case] = kernel1_vs_f64_twins(
+                dev, model, pde, gen, n, FUSED_TOLS[tol_key], f"[activations] kernel 1 {act} {case}")
             if case in ("burgers", "burgers_n40000"):
                 # Device ms of the kernels and of the plain version (bundle ->
                 # residual -> autograd), by CUDA-graph replay.
@@ -3393,6 +3431,248 @@ def activation_runs(dev, card: str):
     out["silu"]["wave_run"] = {"launches": launches, "train_loss": hist["train_loss"]}
     del tr
     print(f"[activations] phase 43: {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return out
+
+
+# Phase 44: kernel 1 in four or more space dimensions (the *_nd kernels of
+# csrc/fused_residual.cu, which take d at run time). Small (64x48, mapping
+# 32, N 4096; name: (PDE, d)): every residual at d = 4 (KdV: 14 stacked
+# streams, the widest), heat at d = 5 and 8, heat at d = 4 on the
+# feedforward trunk, and heat at d = 4 with causal weights, a frame of speed
+# 0.7, a trainable basis and gelu together. Full width: heat in four
+# dimensions on the shipped Fourier trunk (ND4_HEAT). Each against the plain
+# twins run in float64 at FUSED_TOLS' bounds, bit-identical in two calls.
+ND4_SMALL = {**{f"{p}_4d": (p, 4) for p in ("burgers", "heat", "kdv", "convection", "allen_cahn",
+                                              "black_scholes")},
+             "heat_5d": ("heat", 5), "heat_8d": ("heat", 8), "heat_4d_ff": ("heat", 4),
+             "heat_4d_variants": ("heat", 4)}
+ND4_SMALL_N = 4096
+ND4_VELOCITY = [0.5, -1.5, 1.0, 0.25]
+# The card paths: heat-4D with adam_lbfgs, 4 epochs (2 of 4 Adam steps of
+# 8192, then 2 L-BFGS iterations on all 40000 points; a validation every 2);
+# Black-Scholes as shipped on a basket of 4 assets, 3 epochs of 2 Adam steps.
+ND4_HEAT_EPOCHS = 4
+ND4_BASKET_EPOCHS = 3
+ND4_KERNELS = 19  # the *_nd kernels in the build log
+
+
+def heat4d_config(device: str):
+    """heat_2d's block posed in four space dimensions on [0, pi]^4 with the
+    ``sin_exp_decay`` IC, exact solution and its Dirichlet BC, on the shipped
+    Fourier trunk (512x4, mapping 512, tanh + LayerNorm; 10 stacked
+    streams), with ``adam_lbfgs``: Adam on batches of 8192, then L-BFGS on
+    all 40000 points."""
+    from pinnrl_tpu_torch.config import load_config
+
+    cfg = load_config(pde_type="heat_2d", device=device)
+    cfg.pde.dimension, cfg.model.input_dim = 4, 5
+    cfg.pde.domain = [[0.0, math.pi]] * 4
+    sol = {"type": "sin_exp_decay", "amplitude": 1.0, "frequency": 2.0}
+    cfg.pde.initial_condition, cfg.pde.exact_solution = dict(sol), dict(sol)
+    t = cfg.training
+    t.optimizer, t.num_epochs = "adam_lbfgs", ND4_HEAT_EPOCHS
+    t.num_collocation_points, t.batch_size = LBFGS_N, 8192
+    t.validation_frequency = 2
+    return cfg
+
+
+def basket_config(device: str):
+    """Black-Scholes as shipped (feedforward 128x7, LayerNorm) on a basket
+    of four assets, [0, 200]^4."""
+    from pinnrl_tpu_torch.config import load_config
+
+    cfg = load_config(pde_type="black_scholes", device=device)
+    cfg.pde.dimension, cfg.model.input_dim = 4, 5
+    cfg.pde.domain = [[0.0, 200.0]] * 4
+    cfg.training.num_epochs = ND4_BASKET_EPOCHS
+    return cfg
+
+
+def nd4_small_config(case: str, device: str):
+    """The configuration of a small phase-44 case (``ND4_SMALL``)."""
+    from pinnrl_tpu_torch.config import load_config
+
+    pde_type, dim = ND4_SMALL[case]
+    arch = "feedforward" if case.endswith("_ff") else "fourier"
+    cfg = load_config(pde_type=pde_type, architecture=arch, device=device)
+    cfg.pde.dimension, cfg.model.input_dim = dim, dim + 1
+    cfg.pde.domain = [list(cfg.pde.domain[0])] * dim
+    if pde_type == "convection":
+        cfg.pde.parameters["velocity"] = list(ND4_VELOCITY)
+    cfg.model.hidden_dims = [64, 48]
+    cfg.model.arch_params["mapping_size"] = 32
+    variants = case.endswith("_variants")
+    if variants:
+        cfg.model.activation = "gelu"
+        cfg.model.arch_params.update({"trainable_features": True, "moving_frame_speed": FRAME_SPEED})
+    cfg.training.causal_eps = 1.0 if variants else 0.0
+    return cfg
+
+
+def _nd_ptxas():
+    """{"<name>_nd_kernel[<K>]": (registers, spill bytes)} of kernel 1's
+    d >= 4 kernels, from its build log."""
+    from pinnrl_tpu_torch.ops.kernels import _build
+
+    out = {}
+    for entry, regs, _smem, spill_st, spill_ld, _stack in ptxas_report(
+            _build.BUILD_LOG.get("fused_residual", "")):
+        m = re.search(r"\d([a-z][a-z_]*_nd(?:_partial)?_kernel)(?:ILi(\d)E)?", entry)
+        if m:
+            out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = (regs, spill_st + spill_ld)
+    return out
+
+
+def nd_runs(dev, card: str):
+    """Phase 44: kernel 1 in four or more space dimensions (see the module
+    docstring)."""
+    import torch
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    t_phase = time.perf_counter()
+    ptx = _nd_ptxas()
+    print(f"[nd4] ptxas of the d >= 4 kernels (registers, spill bytes): {ptx} ({card})", flush=True)
+    if len(ptx) != ND4_KERNELS or any(spill for _, spill in ptx.values()):
+        raise AssertionError(f"d >= 4 kernels missing from the build log or spilling: {ptx}")
+    out = {"ptxas": {k: {"registers": r, "spill_bytes": b} for k, (r, b) in ptx.items()},
+           "parity": {}}
+    gen = torch.Generator(device=dev).manual_seed(44)
+    for case in ND4_SMALL:
+        cfg = nd4_small_config(case, "cuda")
+        pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+        if not fused_step.supports(model, pde, cfg.training):
+            raise AssertionError(f"{case}: kernel 1 does not take it")
+        tols = FUSED_TOLS["burgers_causal" if cfg.training.causal_eps > 0 else "burgers"]
+        out["parity"][case] = kernel1_vs_f64_twins(dev, model, pde, gen, ND4_SMALL_N, tols,
+                                                   f"[nd4] kernel 1 {case}")[3]
+        del pde, model
+
+    # Heat-4D at full width: parity, then device ms by CUDA-graph replay of
+    # the kernels, of the plain version (bundle -> residual -> autograd) and
+    # of cuBLAS on the call's products.
+    cfg = heat4d_config("cuda")
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    cuda_ops = fused_step._cuda_ops(dev)
+    bundle_fn = make_bundle_fn(model, 4, 2, 1)
+    out["heat_4d"] = {}
+    for n in (8192, LBFGS_N):
+        spec, P, z, par = kernel1_vs_f64_twins(dev, model, pde, gen, n, FUSED_TOLS["burgers"],
+                                               "[nd4] kernel 1 heat_4d 512x4")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fused_step._loss_and_grads(cuda_ops, spec, z, P)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        small = n == 8192
+        ms = graph_ms(lambda: fused_step._loss_and_grads(cuda_ops, spec, z, P),
+                      iters=10 if small else 3, replays=5 if small else 3)
+        p_leaf = {k: v.clone().requires_grad_(True) for k, v in P.items()}
+        try:
+            plain_ms = graph_ms(lambda: torch.autograd.grad(
+                fused_step.fused_residual_loss_plain(bundle_fn, pde, p_leaf, z),
+                list(p_leaf.values()), allow_unused=True), iters=3 if small else 2, replays=3)
+        except torch.cuda.OutOfMemoryError:
+            plain_ms = None  # written down as not measured
+        del p_leaf
+        torch.cuda.empty_cache()
+        gemm = fused_gemms(P, 2, n, 4)
+        kb = kernel1_bound(P, 2, z, spec.B, 4)
+        lib = cublas_ms(gemm, dev, iters=5 if small else 2)
+        torch.cuda.empty_cache()
+        # The same products on the GEMM core as kernel 1 runs them (seeded
+        # operands): what is left of the call is the transport, embedding,
+        # residual and column-sum passes.
+        prods = gemm_products(P, 2, n, 4)
+        routes = [gemm_routes(kind, *gemm_operands(kind, shape, gen, dev), cuda_ops)[0]
+                  for kind, shape in prods]
+        core_ms = graph_ms(lambda: [r() for r in routes], iters=5 if small else 2, replays=3)
+        del routes
+        torch.cuda.empty_cache()
+        out["heat_4d"][n] = {**par, "streams": 2 + 4 * 2, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": kb[0], "bound_by": kb[1],
+                             "gemm_flop": sum(2.0 * a * b * c for a, b, c in gemm),
+                             "library_ms": lib, "gemm_core_ms": core_ms, "peak_gb": peak_gb}
+        plain_txt = "not measured (out of memory)" if plain_ms is None else f"{plain_ms:.4f} ms"
+        print(f"[nd4] kernel 1 heat_4d (Fourier 512x4, mapping 512, 10 streams) N={n}: "
+              f"{ms:.4f} ms, plain {plain_txt}; bound {kb[0]:.4f} ms ({kb[1]}); its "
+              f"{len(gemm)} products on the GEMM core {core_ms:.4f} ms, on cuBLAS {lib:.4f} ms; "
+              f"kernel peak memory {peak_gb:.2f} GB ({card})", flush=True)
+
+    # Kernel 2 on the path's BC/IC points: (8192, 5) x (5, 512), its edge
+    # path (d > 3), against its plain version.
+    B5 = model.constants["FourierFeatures_0.B"]
+    x5 = torch.rand((8192, 5), generator=gen, device=dev) * math.pi
+    got = fourier_feats.fourier_features(x5, B5, True)
+    ref = fourier_feats.fourier_features_plain(x5, B5, True)
+    torch.cuda.synchronize()
+    ff_err = float((got - ref).abs().max())
+    ff_rel = ff_err / float(ref.abs().max())
+    path = fourier_feats.launch_plan(8192, 5, 512, B5.data_ptr() % 16 == 0,
+                                     fourier_feats._sm_count(x5.get_device()))[0]
+    ff_ms = graph_ms(lambda: fourier_feats.fourier_features(x5, B5, True))
+    ff_plain_ms = graph_ms(lambda: fourier_feats.fourier_features_plain(x5, B5, True))
+    ffb = _ff_bound(8192, 5, 512)
+    out["kernel2_edge"] = {"shape": [8192, 5, 512], "path": path, "max_abs_err": ff_err,
+                           "rel_to_max": ff_rel, "ms": ff_ms, "plain_ms": ff_plain_ms,
+                           "bound_ms": ffb[0], "bound_by": ffb[1]}
+    print(f"[nd4] kernel 2 at (8192,5) x (5,512), path {path}: {ff_ms:.5f} ms, plain "
+          f"{ff_plain_ms:.5f} ms, bound {ffb[0]:.5f} ms ({ffb[1]}); max_abs_err {ff_err:.3e} "
+          f"(rel {ff_rel:.2e}) ({card})", flush=True)
+    if not ff_rel < FF_TOL:
+        raise AssertionError(f"kernel 2 at (8192, 5) disagrees with its plain version: {ff_rel}")
+    del pde, model, got, ref
+
+    # ---- the card paths, each with the counts set to 0 just before ------- #
+    def run(cfg, label):
+        tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+        fused_step.fused_residual_loss.launches = fourier_feats.fourier_features.launches = 0
+        evals0 = LBFGS.evaluations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.train(seed=0)["history"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+                  "fourier_features": fourier_feats.fourier_features.launches}
+        t = cfg.training
+        phase1 = (int(t.adam_lbfgs_switch_ratio * t.num_epochs) if t.optimizer == "adam_lbfgs"
+                  else t.num_epochs)
+        steps = phase1 * (t.num_collocation_points // t.batch_size)
+        evals, vals = LBFGS.evaluations - evals0, len(hist["val_loss"])
+        want = steps + evals + vals
+        losses = hist["train_loss"] + hist["val_loss"]
+        print(f"[nd4] {label}: {steps} Adam steps, {evals} L-BFGS evaluations, {vals} validations; "
+              f"kernel 1 {counts['fused_residual_loss']} launches (want {want}), kernel 2 "
+              f"{counts['fourier_features']}; epoch losses "
+              f"{' '.join(f'{v:.6e}' for v in hist['train_loss'])}, validation "
+              f"{' '.join(f'{v:.6e}' for v in hist['val_loss'])}; {wall:.2f} s ({card})", flush=True)
+        if not (tr.fused_kernel_active and counts["fused_residual_loss"] == want > 0
+                and all(map(math.isfinite, losses))):
+            raise AssertionError(f"{label}: kernel 1 {counts}, want {want}; losses {losses}")
+        return {"launches": counts, "adam_steps": steps, "lbfgs_evaluations": evals,
+                "validations": vals, "train_loss": hist["train_loss"],
+                "val_loss": hist["val_loss"], "wall_s": wall}
+
+    out["runs"] = {"heat_4d": run(heat4d_config("cuda"), "heat-4D on the shipped Fourier 512x4, "
+                                                        "adam_lbfgs"),
+                   "basket_4": run(basket_config("cuda"), "Black-Scholes as shipped on a basket "
+                                                          "of 4 assets")}
+    heat = out["runs"]["heat_4d"]["launches"]
+    # Kernel 2 on the heat path: the Dirichlet faces and the IC, twice per loss.
+    if heat["fourier_features"] != 2 * heat["fused_residual_loss"]:
+        raise AssertionError(f"heat-4D: kernel 2 {heat['fourier_features']} launches, want "
+                             f"{2 * heat['fused_residual_loss']}")
+    out["max_abs_err"] = max(v["max_abs_err"] for v in
+                             (*out["parity"].values(), *out["heat_4d"].values()))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[nd4] phase 44: {out['seconds']:.1f} s ({card})", flush=True)
     return out
 
 
@@ -4897,6 +5177,9 @@ def main() -> int:
     # ---- 43. kernel 1 with gelu, sigmoid, silu and sin ----------------------- #
     acts = activation_runs(dev, card)
 
+    # ---- 44. kernel 1 in four or more space dimensions ----------------------- #
+    nd4 = nd_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -4925,7 +5208,8 @@ def main() -> int:
          "heat_launches": heat_launches["fused_residual_loss"],
          "variants": list(FUSED_TOLS),
          "max_abs_err": max(*fused_errs.values(),
-                            *(v["max_abs_err"] for v in trunks["trainable_basis"]["parity"].values())),
+                            *(v["max_abs_err"] for v in trunks["trainable_basis"]["parity"].values()),
+                            nd4["max_abs_err"]),
          "ms": fused_ms, "plain_ms": fused_plain_ms, "eager_ms": fused_eager_ms,
          "bound_ms": fused_bound[0], "bound_by": fused_bound[1], "library_ms": fused_lib_ms,
          "library_call": "torch.mm (FP32, TF32 off) of the call's GEMM shapes, Burgers N=8192",
@@ -4973,7 +5257,8 @@ def main() -> int:
                            "gloo_2ranks": [r["fused_residual_loss"] for r in
                                            meshes["gloo_2ranks"].get("launches", [])]},
          "activations": {**acts, "tanh": {**acts["tanh"],
-                                          "launches": rl_launches["fused_residual_loss"]}}},
+                                          "launches": rl_launches["fused_residual_loss"]}},
+         "nd4": nd4},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
@@ -5010,6 +5295,8 @@ def main() -> int:
                      "gate": {k: v for k, v in f64["gate"].items() if k.startswith("fourier")}},
          "mesh_launches": meshes["nccl_world1"]["launches"]["fourier_features"],
          "dashboard_solution_launches": dash["solution_launches"],
+         "nd4_edge": nd4["kernel2_edge"],
+         "nd4_launches": {k: r["launches"]["fourier_features"] for k, r in nd4["runs"].items()},
          "sampling": {"shapes": samp["kernel2"], "jvp_rel": samp["kernel2_jvp_rel"],
                       "launches": {k: {"launches": r["fourier_features"],
                                        "jvps": r["fourier_features_jvps"]}

@@ -1,6 +1,6 @@
-// Fused residual loss of a Fourier or feedforward PINN in D = 1, 2 or 3 space
-// dimensions and its gradient with respect to every network parameter, for
-// the residuals (sums over the axes ax)
+// Fused residual loss of a Fourier or feedforward PINN in any number d of
+// space dimensions and its gradient with respect to every network parameter,
+// for the residuals (sums over the axes ax)
 //   Burgers         r = u_t + u sum u_x - nu sum u_xx
 //   heat            r = u_t - alpha sum u_xx
 //   KdV             r = u_t + 6 u sum u_x + sum u_xxx
@@ -15,14 +15,17 @@
 //
 // Replaces the whole of the Pallas kernel pinnrl_tpu/ops/kernels/fused_step.py:277
 // (make_fused_residual_loss: _run / _tile_loss, behind the custom-VJP
-// fused_loss) up to three space dimensions: every residual above, spatial
-// order 1 (convection), 2 or 3 (KdV), causal or not, framed or not, on either
-// trunk. The stacked streams are [value; D x-groups of KX; t1], S = 2 + D KX
+// fused_loss): every residual above, spatial order 1 (convection), 2 or 3
+// (KdV), causal or not, framed or not, on either trunk, in any dimension.
+// The stacked streams are [value; D x-groups of KX; t1], S = 2 + D KX
 // (jet_mlp's order); the x-groups share the value stream's LayerNorm
-// statistics and activation derivatives, so each kernel takes D and KX as
-// template parameters, and D = 1 evaluates the one-dimensional expressions
-// unchanged. The activation is every one the reference's transport takes
-// (tanh, gelu in flax's tanh approximation, sigmoid, silu/swish, sin),
+// statistics and activation derivatives. For D = 1, 2 and 3 each kernel
+// takes D and KX as template parameters, and D = 1 evaluates the
+// one-dimensional expressions unchanged; d >= 4 runs the *_nd kernels
+// (section "d >= 4" below), which take d at run time and walk the x-groups
+// one at a time, so their registers do not grow with d. The activation is
+// every one the reference's transport takes (tanh, gelu in flax's tanh
+// approximation, sigmoid, silu/swish, sin),
 // passed to the transport kernels as a runtime code (ACT_*): one switch
 // that every thread takes alike, not a template parameter, so the
 // instantiations stay D x KX per direction. The TPU program keeps one
@@ -87,6 +90,15 @@
 //                         then a fixed-order second pass; no float atomics),
 //                         so the result is identical from run to run; they
 //                         also give sum w and sum w r^2.
+//   *_nd_kernel           the same work for d >= 4 space dimensions, d a
+//                         run-time argument: embed_nd_kernel<K>,
+//                         embed_bwd_nd_partial_kernel<K> (dynamic shared
+//                         memory, blocks along z over tiles of 32 axes),
+//                         affine_input_nd_kernel, transport_fwd_nd_kernel<K>,
+//                         transport_bwd_nd_kernel<K> (one x-group at a time
+//                         through the D = 1 element code) and one residual
+//                         kernel per PDE (convection reads its d velocities
+//                         from device memory).
 //
 // What bounds it on an H100: at batch 8192 and width 256 each hidden layer's
 // three products are S*8192 x 256 x 256 FMAs, S = 2 + D K: in one dimension 3
@@ -1053,14 +1065,13 @@ __global__ void kdv_kernel(const float* __restrict__ U, float* __restrict__ dU,
 }
 
 // Convection: r = u_t + sum v_ax u_x over U = [u; D x u_x; u_t]
-// (dr/dU = [0, v_0, .., v_{D-1}, 1]).
+// (dr/dU = [0, v_0, .., v_{D-1}, 1]); v: the D velocities in device memory.
 template <int D>
 __global__ void convection_kernel(const float* __restrict__ U, float* __restrict__ dU,
-                                  float* __restrict__ out, int n, float v0, float v1, float v2,
+                                  float* __restrict__ out, int n, const float* __restrict__ v,
                                   float two_over_n, int causal) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float v[3] = {v0, v1, v2};
     float vx = v[0] * U[n + i];
     for_groups<1, D>([&](auto g_) {
         constexpr int g = decltype(g_)::value;
@@ -1281,6 +1292,615 @@ __global__ void colsum_final_kernel(const float* __restrict__ partial, int chunk
     out[col] = s * scale;
 }
 
+// ---------------------------------------------------------------- d >= 4 --
+// Kernel 1 in d >= 4 space dimensions, d a run-time argument: no
+// instantiation per d and no upper limit on it. The transport kernels keep
+// their registers bounded by walking the x-groups one at a time. A group's
+// LayerNorm statistics (its means and S1..S3) and its output streams depend
+// only on its own KX streams and on what every group shares: the value
+// stream's mean and r, the t-stream's mean and St, and the activation
+// derivatives d_k at y0. So each group is evaluated with the one-group
+// element code (RowStats<1,KX>, elem_ln<1,KX>, elem_grad<1,KX>,
+// centred_grads<1,KX>) on the streams [value; group g; t1]; the registers
+// are those of D = 1 whatever d. The price: the value row is read again and
+// its derivatives recomputed once per group (the row stays in L1/L2: it is
+// W floats per warp). The reverse is linear in the output cotangents, so the
+// value stream's cotangent, its LayerNorm row terms and the scale/bias rows
+// are sums over the groups of each group's share, computed with G_o0 and
+// G_ot given to group 0 only; the shares are accumulated in the output rows
+// that the point's warp owns (each lane reads back only what it wrote), and
+// the term that needs every group (G_var0) is added in a last pass.
+
+// The statistics every x-group shares: the value stream's mean and
+// r = 1/sqrt(var0 + eps), the t-stream's mean and St = mean(c0 ct) r.
+struct SharedStats {
+    float mu0, muT, r, St;
+};
+
+__device__ SharedStats shared_stats(const float* h0, const float* ht, int W, int lane) {
+    float a0 = 0.f, at = 0.f;
+    for (int j = lane; j < W; j += 32) {
+        a0 += h0[j];
+        at += ht[j];
+    }
+    const float fw = (float)W;
+    SharedStats sh;
+    sh.mu0 = warp_sum(a0) / fw;
+    sh.muT = warp_sum(at) / fw;
+    float v0 = 0.f, v0t = 0.f;
+    for (int j = lane; j < W; j += 32) {
+        const float c0 = h0[j] - sh.mu0, ct = ht[j] - sh.muT;
+        v0 += c0 * c0;
+        v0t += c0 * ct;
+    }
+    sh.r = 1.0f / sqrtf(warp_sum(v0) / fw + LN_EPS);
+    sh.St = (warp_sum(v0t) / fw) * sh.r;
+    return sh;
+}
+
+// RowStats<1, KX> of the streams [value; the group at hg (KX streams, stride
+// apart); t1]: the shared statistics and the group's own means and S1..S3,
+// as row_stats computes them.
+template <int KX>
+__device__ RowStats<1, KX> group_stats(const SharedStats& sh, const float* h0, const float* hg,
+                                       long long stride, int W, int lane) {
+    constexpr int T = KX + 1;
+    RowStats<1, KX> st;
+    float a[KX];
+#pragma unroll
+    for (int k = 0; k < KX; ++k) a[k] = 0.f;
+    for (int j = lane; j < W; j += 32) {
+#pragma unroll
+        for (int k = 0; k < KX; ++k) a[k] += hg[k * stride + j];
+    }
+    const float fw = (float)W;
+    st.mu[0] = sh.mu0;
+#pragma unroll
+    for (int k = 0; k < KX; ++k) st.mu[1 + k] = warp_sum(a[k]) / fw;
+    st.mu[T] = sh.muT;
+    float v01 = 0.f, v2 = 0.f, v3 = 0.f;
+    for (int j = lane; j < W; j += 32) {
+        const float c0 = h0[j] - st.mu[0];
+        const float c1 = hg[j] - st.mu[1];
+        v01 += c0 * c1;
+        if constexpr (KX >= 2) {
+            const float c2 = hg[stride + j] - st.mu[2];
+            v2 += c1 * c1 + c0 * c2;
+            if constexpr (KX >= 3) {
+                const float c3 = hg[2 * stride + j] - st.mu[3];
+                v3 += 3.0f * c1 * c2 + c0 * c3;
+            }
+        }
+    }
+    st.r = sh.r;
+    st.St = sh.St;
+    st.S1[0] = (warp_sum(v01) / fw) * st.r;
+    st.V2[0] = st.S2[0] = st.V3[0] = st.S3[0] = 0.f;
+    if constexpr (KX >= 2) {
+        st.V2[0] = warp_sum(v2) / fw;
+        st.S2[0] = (st.V2[0] - st.S1[0] * st.S1[0]) * st.r;
+    }
+    if constexpr (KX >= 3) {
+        st.V3[0] = warp_sum(v3) / fw;
+        st.S3[0] = (st.V3[0] - 3.0f * st.S1[0] * st.S2[0]) * st.r;
+    }
+    return st;
+}
+
+// v = [p[j]; the group's KX streams at p + gof; p[tof + j]] (first) or with
+// the value and t entries 0 (the other groups' share of a cotangent).
+template <int KX>
+__device__ __forceinline__ void load_group(const float* p, long long gof, long long tof,
+                                           long long stride, int j, bool ends, float* v) {
+    v[0] = ends ? p[j] : 0.f;
+#pragma unroll
+    for (int k = 0; k < KX; ++k) v[1 + k] = p[gof + k * stride + j];
+    v[KX + 1] = ends ? p[tof + j] : 0.f;
+}
+
+// H: stacked ((2 + dim KX) n, W) pre-activations; A as transport_fwd_kernel.
+template <int KX>
+__global__ void transport_fwd_nd_kernel(const float* __restrict__ H,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ beta, float* __restrict__ A,
+                                        int n, int W, int dim, int use_ln, int act) {
+    constexpr int T = KX + 1;
+    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (warp >= n) return;
+    const long long stride = (long long)n * W;
+    const long long tof = (1LL + (long long)dim * KX) * stride;
+    const float* h = H + (long long)warp * W;
+    float* o = A + (long long)warp * W;
+    SharedStats sh{};
+    if (use_ln) sh = shared_stats(h, h + tof, W, lane);
+#pragma unroll 1
+    for (int g = 0; g < dim; ++g) {
+        const long long gof = (1LL + (long long)g * KX) * stride;
+        RowStats<1, KX> st;
+        if (use_ln) st = group_stats<KX>(sh, h, h + gof, stride, W, lane);
+        for (int j = lane; j < W; j += 32) {
+            float hv[KX + 2];
+            load_group<KX>(h, gof, tof, stride, j, true, hv);
+            const Elem<1, KX> e = use_ln ? elem_ln<1, KX>(st, hv, gamma[j], beta[j], act)
+                                         : elem_plain<1, KX>(hv, act);
+            float* og = o + gof;
+            og[j] = e.d[1] * e.y[1];
+            if constexpr (KX >= 2)
+                og[stride + j] = e.d[1] * e.y[2] + e.d[2] * e.y[1] * e.y[1];
+            if constexpr (KX >= 3)
+                og[2 * stride + j] = e.d[1] * e.y[3] + 3.0f * e.d[2] * e.y[1] * e.y[2]
+                                   + e.d[3] * e.y[1] * e.y[1] * e.y[1];
+            if (g == 0) {
+                o[j] = e.d[0];
+                o[tof + j] = e.d[1] * e.y[T];
+            }
+        }
+    }
+}
+
+// The reverse of transport_fwd_nd_kernel; arguments as transport_bwd_kernel.
+template <int KX>
+__global__ void transport_bwd_nd_kernel(const float* __restrict__ H,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ beta,
+                                        const float* __restrict__ GA, float* __restrict__ GH,
+                                        float* __restrict__ Ggamma, float* __restrict__ Gbeta,
+                                        int n, int W, int dim, int use_ln, int act) {
+    constexpr int T = KX + 1;
+    constexpr int NS = KX + 2;
+    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (warp >= n) return;
+    const long long stride = (long long)n * W;
+    const long long tof = (1LL + (long long)dim * KX) * stride;
+    const long long base = (long long)warp * W;
+    const float* h = H + base;
+    const float* ga = GA + base;
+    float* o = GH + base;
+
+    if (!use_ln) {
+#pragma unroll 1
+        for (int g = 0; g < dim; ++g) {
+            const long long gof = (1LL + (long long)g * KX) * stride;
+            for (int j = lane; j < W; j += 32) {
+                float hv[NS], Go[NS];
+                load_group<KX>(h, gof, tof, stride, j, true, hv);
+                load_group<KX>(ga, gof, tof, stride, j, g == 0, Go);
+                const Elem<1, KX> e = elem_plain<1, KX>(hv, act);
+                const ElemGrad<1, KX> gr = elem_grad<1, KX>(e, RowStats<1, KX>{}, 1.0f, Go, 0);
+#pragma unroll
+                for (int k = 0; k < KX; ++k) o[gof + k * stride + j] = gr.Gy[1 + k];
+                if (g == 0) {
+                    o[j] = gr.Gy[0];
+                    o[tof + j] = gr.Gy[T];
+                } else {
+                    o[j] += gr.Gy[0];
+                }
+            }
+        }
+        return;
+    }
+
+    const SharedStats sh = shared_stats(h, h + tof, W, lane);
+    const float r = sh.r;
+    const float inv_w = 1.0f / (float)W;
+    float GSt = 0.f;
+    // G_r's numerator: Rtt + G_St St + R00 + per group sum_k R_kk + G_Sk S_k.
+    float num = 0.f;
+#pragma unroll 1
+    for (int g = 0; g < dim; ++g) {
+        const bool first = g == 0;
+        const long long gof = (1LL + (long long)g * KX) * stride;
+        const RowStats<1, KX> st = group_stats<KX>(sh, h, h + gof, stride, W, lane);
+        // Pass A: the group's row sums R_kj (as transport_bwd_kernel's, one
+        // group), its share of R00, and (group 0) Rt0 and Rtt; the scale and
+        // bias rows take the group's share.
+        float R00 = 0.f, Rt0 = 0.f, Rtt = 0.f;
+        float R10 = 0.f, R11 = 0.f, R20 = 0.f, R21 = 0.f, R22 = 0.f;
+        float R30 = 0.f, R31 = 0.f, R32 = 0.f, R33 = 0.f;
+        for (int j = lane; j < W; j += 32) {
+            const float gm = gamma[j];
+            float hv[NS], Go[NS];
+            load_group<KX>(h, gof, tof, stride, j, true, hv);
+            load_group<KX>(ga, gof, tof, stride, j, first, Go);
+            const Elem<1, KX> e = elem_ln<1, KX>(st, hv, gm, beta[j], act);
+            const ElemGrad<1, KX> gr = elem_grad<1, KX>(e, st, gm, Go, 1);
+            Rt0 += gr.Gq[T] * e.q[0];
+            Rtt += gr.Gq[T] * e.q[T];
+            R10 += gr.Gq[1] * e.q[0];
+            R11 += gr.Gq[1] * e.q[1];
+            if constexpr (KX >= 2) {
+                R20 += gr.Gq[2] * e.q[0];
+                R21 += gr.Gq[2] * e.q[1];
+                R22 += gr.Gq[2] * e.q[2];
+            }
+            if constexpr (KX >= 3) {
+                R30 += gr.Gq[3] * e.q[0];
+                R31 += gr.Gq[3] * e.q[1];
+                R32 += gr.Gq[3] * e.q[2];
+                R33 += gr.Gq[3] * e.q[3];
+            }
+            R00 += gr.Gq[0] * e.q[0];
+            float gg = 0.f;
+#pragma unroll
+            for (int s = 0; s <= T; ++s) gg += gr.Gy[s] * e.q[s];
+            if (first) {
+                Ggamma[base + j] = gg;
+                Gbeta[base + j] = gr.Gy[0];
+            } else {
+                Ggamma[base + j] += gg;
+                Gbeta[base + j] += gr.Gy[0];
+            }
+        }
+        // The group's row scalars (transport_bwd_kernel's formulas for one
+        // group); G_var0 is left to the last pass.
+        RowScalars<1> sc;
+        if (first) {
+            GSt = -warp_sum(Rt0) * r;
+            num = warp_sum(Rtt) + GSt * st.St;
+        }
+        sc.GSt = first ? GSt : 0.f;
+        sc.Gvar0 = 0.f;
+        R10 = warp_sum(R10);
+        float rdiag = warp_sum(R11);
+        sc.GS1[0] = -R10 * r;
+        sc.GS2[0] = sc.GS3[0] = sc.GV3[0] = 0.f;
+        if constexpr (KX >= 2) {
+            R21 = warp_sum(R21);
+            sc.GS2[0] = -warp_sum(R20) * r;
+            sc.GS1[0] = -2.0f * R21 * r - R10 * r;
+            rdiag += warp_sum(R22);
+        }
+        if constexpr (KX >= 3) {
+            sc.GS3[0] = -warp_sum(R30) * r;
+            sc.GS2[0] = sc.GS2[0] - 3.0f * warp_sum(R31) * r - 3.0f * st.S1[0] * r * sc.GS3[0];
+            sc.GS1[0] = sc.GS1[0] - 3.0f * warp_sum(R32) * r - 3.0f * st.S2[0] * r * sc.GS3[0];
+            sc.GV3[0] = sc.GS3[0] * r;
+            rdiag += warp_sum(R33) + sc.GS3[0] * st.S3[0];
+        }
+        sc.GV2[0] = sc.GS2[0] * r;
+        if constexpr (KX >= 2) sc.GS1[0] = sc.GS1[0] - 2.0f * st.S1[0] * r * sc.GS2[0];
+        num += rdiag + sc.GS2[0] * st.S2[0] + sc.GS1[0] * st.S1[0] + warp_sum(R00);
+
+        // Pass B: means of the group's (and, group 0, the t-stream's) centred
+        // cotangents.
+        float m[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) m[s] = 0.f;
+        for (int j = lane; j < W; j += 32) {
+            const float gm = gamma[j];
+            float hv[NS], Go[NS], Gc[NS];
+            load_group<KX>(h, gof, tof, stride, j, true, hv);
+            load_group<KX>(ga, gof, tof, stride, j, first, Go);
+            const Elem<1, KX> e = elem_ln<1, KX>(st, hv, gm, beta[j], act);
+            const ElemGrad<1, KX> gr = elem_grad<1, KX>(e, st, gm, Go, 1);
+            centred_grads<1, KX>(e, gr, st, sc, inv_w, Gc);
+#pragma unroll
+            for (int s = 1; s < NS; ++s) m[s] += Gc[s];
+        }
+#pragma unroll
+        for (int s = 1; s < NS; ++s) m[s] = warp_sum(m[s]) * inv_w;
+
+        // Pass C: G_h = G_c - mean(G_c) for the group's streams (and the
+        // t-stream); the value stream's share of G_c0 is summed in its row.
+        for (int j = lane; j < W; j += 32) {
+            const float gm = gamma[j];
+            float hv[NS], Go[NS], Gc[NS];
+            load_group<KX>(h, gof, tof, stride, j, true, hv);
+            load_group<KX>(ga, gof, tof, stride, j, first, Go);
+            const Elem<1, KX> e = elem_ln<1, KX>(st, hv, gm, beta[j], act);
+            const ElemGrad<1, KX> gr = elem_grad<1, KX>(e, st, gm, Go, 1);
+            centred_grads<1, KX>(e, gr, st, sc, inv_w, Gc);
+#pragma unroll
+            for (int k = 0; k < KX; ++k) o[gof + k * stride + j] = Gc[1 + k] - m[1 + k];
+            if (first) {
+                o[tof + j] = Gc[T] - m[T];
+                o[j] = Gc[0];
+            } else {
+                o[j] += Gc[0];
+            }
+        }
+    }
+    // The value stream: G_c0 += 2 G_var0 c0 / W, then centring.
+    const float Gvar0 = -0.5f * r * r * r * (num / r);
+    float m0 = 0.f;
+    for (int j = lane; j < W; j += 32) m0 += o[j] + 2.0f * Gvar0 * (h[j] - sh.mu0) * inv_w;
+    m0 = warp_sum(m0) * inv_w;
+    for (int j = lane; j < W; j += 32) o[j] = o[j] + 2.0f * Gvar0 * (h[j] - sh.mu0) * inv_w - m0;
+}
+
+// The affine map of axis a (a < dim) or of t (a = dim) for the point at zr,
+// as affine_map.
+__device__ __forceinline__ float affine_nd(const float* __restrict__ zr,
+                                           const float* __restrict__ lo,
+                                           const float* __restrict__ sc, int dim, int a,
+                                           int frame, float c) {
+    const float t = zr[dim];
+    const float x = a == dim ? t : frame ? __fsub_rn(zr[a], __fmul_rn(c, t)) : zr[a];
+    return (x - lo[a]) * sc[a] - 1.0f;
+}
+
+// d p / dt of feature j (constant over the batch), as embed_kernel: s sc_t
+// B_tj, in a frame also -c s sum_ax sc_ax B_axj.
+__device__ __forceinline__ float t_rate_nd(const float* __restrict__ sc,
+                                           const float* __restrict__ B, int m, int j, int dim,
+                                           float s, int frame, float c) {
+    float v = 0.f;
+    if (frame)
+        for (int a = 0; a < dim; ++a) v = v + (-c * sc[a]) * B[(long long)a * m + j];
+    return s * (v + sc[dim] * B[(long long)dim * m + j]);
+}
+
+template <int KX>
+__global__ void embed_nd_kernel(const float* __restrict__ z, const float* __restrict__ lo,
+                                const float* __restrict__ sc, const float* __restrict__ B,
+                                float* __restrict__ X, int n, int m, int dim, float s, int frame,
+                                float c) {
+    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= (long long)n * m) return;
+    const int row = (int)(idx / m);
+    const int j = (int)(idx % m);
+    const float* zr = z + (long long)(dim + 1) * row;
+    float acc = 0.f;
+    for (int a = 0; a <= dim; ++a)
+        acc = acc + affine_nd(zr, lo, sc, dim, a, frame, c) * B[(long long)a * m + j];
+    const float p1t = t_rate_nd(sc, B, m, j, dim, s, frame, c);
+    float sn, cs;
+    sincosf(s * acc, &sn, &cs);
+    const long long w2 = 2LL * m;
+    const long long stride = (long long)n * w2;
+    float* r0 = X + (long long)row * w2;
+    r0[j] = sn;
+    r0[m + j] = cs;
+    for (int g = 0; g < dim; ++g) {
+        const float p1x = s * (sc[g] * B[(long long)g * m + j]);
+        float sk = sn, ck = cs;
+#pragma unroll
+        for (int k = 1; k <= KX; ++k) {
+            const float s_next = ck * p1x, c_next = -sk * p1x;
+            sk = s_next;
+            ck = c_next;
+            float* rk = r0 + (1LL + (long long)g * KX + k - 1) * stride;
+            rk[j] = sk;
+            rk[m + j] = ck;
+        }
+    }
+    float* rt = r0 + (1LL + (long long)dim * KX) * stride;
+    rt[j] = cs * p1t;
+    rt[m + j] = -sn * p1t;
+}
+
+// Axis rows of dL/dB per block of embed_bwd_nd_partial_kernel: blocks along
+// z take the (d + 1) rows in tiles of this many, so the dynamic shared
+// memory stays at most 32 x 8 x 33 floats (33.8 KB) for any d.
+constexpr int EMBED_BWD_AXES = 32;
+
+// dL/dB of a trainable basis in d >= 4 dimensions: embed_bwd_partial_kernel's
+// terms, accumulated per thread in its slots of shared memory (one per axis
+// row of the block's tile) instead of registers. A block along z recomputes
+// the per-point terms and keeps only its tile's rows.
+template <int KX>
+__global__ void embed_bwd_nd_partial_kernel(const float* __restrict__ z,
+                                            const float* __restrict__ lo,
+                                            const float* __restrict__ sc,
+                                            const float* __restrict__ B,
+                                            const float* __restrict__ G, int n, int m, int dim,
+                                            float s, int frame, float c,
+                                            float* __restrict__ partial) {
+    extern __shared__ float sm[];  // [axis row of the tile][8][33]
+    constexpr int SLOT = 8 * 33;
+    const int j = blockIdx.x * 32 + threadIdx.x;
+    const int r0 = blockIdx.y * COLSUM_ROWS;
+    const int r1 = min(n, r0 + COLSUM_ROWS);
+    const int a0 = blockIdx.z * EMBED_BWD_AXES;
+    const int a1 = min(dim + 1, a0 + EMBED_BWD_AXES);
+    float* mine = sm + threadIdx.y * 33 + threadIdx.x;
+    for (int a = a0; a < a1; ++a) mine[(a - a0) * SLOT] = 0.0f;
+    if (j < m) {
+        const float p1t = t_rate_nd(sc, B, m, j, dim, s, frame, c);
+        const long long w2 = 2LL * m;
+        const long long stride = (long long)n * w2;
+        for (int row = r0 + threadIdx.y; row < r1; row += 8) {
+            const float* zr = z + (long long)(dim + 1) * row;
+            float pj = 0.f;
+            for (int a = 0; a <= dim; ++a)
+                pj = pj + affine_nd(zr, lo, sc, dim, a, frame, c) * B[(long long)a * m + j];
+            float sn, cs;
+            sincosf(s * pj, &sn, &cs);
+            const float* g0 = G + (long long)row * w2;
+            float dp = g0[j] * cs - g0[m + j] * sn;
+            for (int g = 0; g < dim; ++g) {
+                const float p1x = s * (sc[g] * B[(long long)g * m + j]);
+                float sk = sn, ck = cs, pk = 1.0f, dq = 0.0f;
+#pragma unroll
+                for (int k = 1; k <= KX; ++k) {
+                    const float* gk = g0 + (1LL + (long long)g * KX + k - 1) * stride;
+                    const float gs = gk[j], gc = gk[m + j];
+                    const float s_next = ck, c_next = -sk;  // sin^(k)(p), cos^(k)(p)
+                    sk = s_next;
+                    ck = c_next;
+                    dq += (float)k * pk * (gs * sk + gc * ck);  // pk = p1^(k-1)
+                    pk *= p1x;
+                    dp += pk * (gs * ck - gc * sk);
+                }
+                if (g >= a0 && g < a1) mine[(g - a0) * SLOT] += sc[g] * dq;
+            }
+            const float* gt = g0 + (1LL + (long long)dim * KX) * stride;
+            const float gs = gt[j], gc = gt[m + j];
+            dp += p1t * (-gs * sn - gc * cs);
+            const float dqt = gs * cs - gc * sn;
+            for (int a = a0; a < a1; ++a) {
+                // The t-direction in input space: -c sc_ax in a frame, sc_t.
+                const float vt = a == dim ? sc[dim] : frame ? -c * sc[a] : 0.0f;
+                mine[(a - a0) * SLOT] +=
+                    affine_nd(zr, lo, sc, dim, a, frame, c) * dp + vt * dqt;
+            }
+        }
+    }
+    __syncthreads();
+    if (threadIdx.y == 0 && j < m) {
+        for (int a = a0; a < a1; ++a) {
+            float t = 0.0f;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) t += sm[(a - a0) * SLOT + k * 33 + threadIdx.x];
+            partial[(long long)blockIdx.y * (dim + 1) * m + (long long)a * m + j] = t;
+        }
+    }
+}
+
+// The feedforward trunk's stacked ((2 + dim kx) n, dim+1) input, as
+// affine_input_kernel. One thread per point.
+__global__ void affine_input_nd_kernel(const float* __restrict__ z, const float* __restrict__ lo,
+                                       const float* __restrict__ sc, float* __restrict__ X, int n,
+                                       int kx, int dim, int frame, float c) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int C = dim + 1;  // columns
+    const long long stride = (long long)C * n;
+    const float* zr = z + (long long)C * i;
+    float* r = X + (long long)C * i;
+    for (int a = 0; a < C; ++a) r[a] = affine_nd(zr, lo, sc, dim, a, frame, c);
+    for (int g = 0; g < dim; ++g) {
+        float* rg = r + (1 + (long long)g * kx) * stride;
+        for (int a = 0; a < C; ++a) rg[a] = a == g ? sc[a] : 0.0f;
+        for (int k = 2; k <= kx; ++k)
+            for (int a = 0; a < C; ++a) rg[(k - 1) * stride + a] = 0.0f;
+    }
+    float* rt = r + (1 + (long long)dim * kx) * stride;
+    for (int a = 0; a < dim; ++a) rt[a] = frame ? -c * sc[a] : 0.0f;
+    rt[dim] = sc[dim];
+}
+
+// The residuals with d a loop bound (U, dU and out as the templated
+// kernels'); the sums over the axes start from 0 and run in axis order.
+__device__ __forceinline__ long long row_of(int stream, int n) { return (long long)stream * n; }
+
+__global__ void burgers_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                                  float* __restrict__ out, int n, int dim, float nu,
+                                  float two_over_n, int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float u = U[i], ut = U[row_of(2 * dim + 1, n) + i];
+    float ux = 0.f, uxx = 0.f;
+    for (int g = 0; g < dim; ++g) {
+        ux = ux + U[row_of(1 + 2 * g, n) + i];
+        uxx = uxx + U[row_of(2 + 2 * g, n) + i];
+    }
+    const float r = (ut + u * ux) - nu * uxx;
+    const float c = causal ? 1.0f : two_over_n * r;
+    out[i] = causal ? r : r * r;
+    dU[i] = causal ? ux : c * ux;
+    for (int g = 0; g < dim; ++g) {
+        dU[row_of(1 + 2 * g, n) + i] = causal ? u : c * u;
+        dU[row_of(2 + 2 * g, n) + i] = causal ? -nu : -c * nu;
+    }
+    dU[row_of(2 * dim + 1, n) + i] = c;
+}
+
+__global__ void heat_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                               float* __restrict__ out, int n, int dim, float alpha,
+                               float two_over_n, int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    float uxx = 0.f;
+    for (int g = 0; g < dim; ++g) uxx = uxx + U[row_of(2 + 2 * g, n) + i];
+    const float r = U[row_of(2 * dim + 1, n) + i] - alpha * uxx;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = 0.0f;
+    for (int g = 0; g < dim; ++g) {
+        dU[row_of(1 + 2 * g, n) + i] = 0.0f;
+        dU[row_of(2 + 2 * g, n) + i] = -c * alpha;
+    }
+    dU[row_of(2 * dim + 1, n) + i] = c;
+}
+
+__global__ void kdv_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                              float* __restrict__ out, int n, int dim, float two_over_n,
+                              int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float u = U[i], ut = U[row_of(3 * dim + 1, n) + i];
+    float ux = 0.f, uxxx = 0.f;
+    for (int g = 0; g < dim; ++g) {
+        ux = ux + U[row_of(1 + 3 * g, n) + i];
+        uxxx = uxxx + U[row_of(3 + 3 * g, n) + i];
+    }
+    const float r = ut + 6.0f * u * ux + uxxx;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = c * (6.0f * ux);
+    for (int g = 0; g < dim; ++g) {
+        dU[row_of(1 + 3 * g, n) + i] = c * (6.0f * u);
+        dU[row_of(2 + 3 * g, n) + i] = 0.0f;
+        dU[row_of(3 + 3 * g, n) + i] = c;
+    }
+    dU[row_of(3 * dim + 1, n) + i] = c;
+}
+
+// v: the d velocities in device memory.
+__global__ void convection_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                                     float* __restrict__ out, int n, int dim,
+                                     const float* __restrict__ v, float two_over_n, int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    float vx = 0.f;
+    for (int g = 0; g < dim; ++g) vx = vx + v[g] * U[row_of(1 + g, n) + i];
+    const float r = U[row_of(dim + 1, n) + i] + vx;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = 0.0f;
+    for (int g = 0; g < dim; ++g) dU[row_of(1 + g, n) + i] = c * v[g];
+    dU[row_of(dim + 1, n) + i] = c;
+}
+
+__global__ void allen_cahn_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
+                                     float* __restrict__ out, int n, int dim, float eps2,
+                                     float two_over_n, int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float u = U[i], ut = U[row_of(2 * dim + 1, n) + i];
+    float uxx = 0.f;
+    for (int g = 0; g < dim; ++g) uxx = uxx + U[row_of(2 + 2 * g, n) + i];
+    const float r = ((ut - eps2 * uxx) - u) + u * u * u;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = c * (3.0f * u * u - 1.0f);
+    for (int g = 0; g < dim; ++g) {
+        dU[row_of(1 + 2 * g, n) + i] = 0.0f;
+        dU[row_of(2 + 2 * g, n) + i] = -c * eps2;
+    }
+    dU[row_of(2 * dim + 1, n) + i] = c;
+}
+
+// S = z[i, ax] along each axis ax.
+__global__ void black_scholes_nd_kernel(const float* __restrict__ U, const float* __restrict__ z,
+                                        float* __restrict__ dU, float* __restrict__ out, int n,
+                                        int dim, float sign, float half_sigma2, float rate,
+                                        float two_over_n, int causal) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float* zr = z + (long long)(dim + 1) * i;
+    const float V = U[i], Vt = U[row_of(2 * dim + 1, n) + i];
+    float sum = 0.f;
+    for (int g = 0; g < dim; ++g) {
+        const float S = zr[g];
+        sum = sum + (half_sigma2 * (S * S) * U[row_of(2 + 2 * g, n) + i]
+                     + rate * S * U[row_of(1 + 2 * g, n) + i]);
+    }
+    const float r = (Vt - (sign * rate) * V) + sign * sum;
+    out[i] = causal ? r : r * r;
+    const float c = causal ? 1.0f : two_over_n * r;
+    dU[i] = -c * (sign * rate);
+    for (int g = 0; g < dim; ++g) {
+        const float S = zr[g];
+        dU[row_of(1 + 2 * g, n) + i] = c * (sign * (rate * S));
+        dU[row_of(2 + 2 * g, n) + i] = c * (sign * (half_sigma2 * (S * S)));
+    }
+    dU[row_of(2 * dim + 1, n) + i] = c;
+}
+
 inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
 
 }  // namespace
@@ -1288,10 +1908,12 @@ inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) /
 // ------------------------------------------------------- C entry points --
 // Each launches on the given stream and returns cudaGetLastError() (or
 // cudaErrorInvalidValue for an x-order other than 1, 2 or 3, a number of
-// space dimensions other than 1, 2 or 3, or an unknown activation code).
+// space dimensions below 1, or an unknown activation code). dim = 1, 2 or 3
+// runs the kernels templated on D; dim >= 4 the *_nd kernels.
 
 inline bool kx_ok(int kx) { return kx >= 1 && kx <= 3; }
-inline bool dim_ok(int dim) { return dim >= 1 && dim <= 3; }
+inline bool dim_ok(int dim) { return dim >= 1; }
+inline bool use_nd(int dim) { return dim > 3; }
 inline bool act_ok(int act) { return act >= ACT_TANH && act <= ACT_SIN; }
 
 template <int V>
@@ -1308,17 +1930,21 @@ inline void with_dim(int dim, Fn&& fn) {
         fn(Int<1>{});
 }
 
+// fn(Int<KX>{}) for the runtime kx (checked by kx_ok).
+template <typename Fn>
+inline void with_kx(int kx, Fn&& fn) {
+    if (kx == 3)
+        fn(Int<3>{});
+    else if (kx == 2)
+        fn(Int<2>{});
+    else
+        fn(Int<1>{});
+}
+
 // fn(Int<D>{}, Int<KX>{}) for the runtime dim and kx (checked by dim_ok, kx_ok).
 template <typename Fn>
 inline void with_dim_kx(int dim, int kx, Fn&& fn) {
-    with_dim(dim, [&](auto d) {
-        if (kx == 3)
-            fn(d, Int<3>{});
-        else if (kx == 2)
-            fn(d, Int<2>{});
-        else
-            fn(d, Int<1>{});
-    });
+    with_dim(dim, [&](auto d) { with_kx(kx, [&](auto k) { fn(d, k); }); });
 }
 
 // X ((2 + dim kx) n, 2m): the Fourier trunk's stacked input of z (n, dim+1);
@@ -1329,7 +1955,12 @@ extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const 
     const float s = two_pi ? 6.283185307179586f : 1.0f;
     const long long total = (long long)n * m;
     if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (total > 0)
+    if (total > 0 && use_nd(dim))
+        with_kx(kx, [&](auto k) {
+            embed_nd_kernel<decltype(k)::value><<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(
+                z, lo, sc, B, X, n, m, dim, s, frame, c);
+        });
+    else if (total > 0)
         with_dim_kx(dim, kx, [&](auto d, auto k) {
             embed_kernel<decltype(d)::value, decltype(k)::value>
                 <<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m, s,
@@ -1348,11 +1979,22 @@ extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, co
     const int chunks = (int)cdiv(n, COLSUM_ROWS);
     const int cols = (dim + 1) * m;
     if (n > 0 && m > 0) {
-        with_dim_kx(dim, kx, [&](auto d, auto k) {
-            embed_bwd_partial_kernel<decltype(d)::value, decltype(k)::value>
-                <<<dim3(cdiv(m, 32), (unsigned)chunks), dim3(32, 8), 0, (cudaStream_t)stream>>>(
-                    z, lo, sc, B, G, n, m, s, frame, c, partial);
-        });
+        if (use_nd(dim)) {
+            const int tiles = (int)cdiv(dim + 1, EMBED_BWD_AXES);
+            const int rows = dim + 1 < EMBED_BWD_AXES ? dim + 1 : EMBED_BWD_AXES;
+            const size_t smem = sizeof(float) * 8 * 33 * (size_t)rows;
+            with_kx(kx, [&](auto k) {
+                embed_bwd_nd_partial_kernel<decltype(k)::value>
+                    <<<dim3(cdiv(m, 32), (unsigned)chunks, (unsigned)tiles), dim3(32, 8), smem,
+                       (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, dim, s, frame, c, partial);
+            });
+        } else {
+            with_dim_kx(dim, kx, [&](auto d, auto k) {
+                embed_bwd_partial_kernel<decltype(d)::value, decltype(k)::value>
+                    <<<dim3(cdiv(m, 32), (unsigned)chunks), dim3(32, 8), 0,
+                       (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, s, frame, c, partial);
+            });
+        }
         colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks,
                                                                                cols, s, dB);
     }
@@ -1362,7 +2004,10 @@ extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, co
 extern "C" int fr_affine_input(const float* z, const float* lo, const float* sc, float* X, int n,
                                int kx, int dim, int frame, float c, void* stream) {
     if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        affine_input_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx,
+                                                                              dim, frame, c);
+    else if (n > 0)
         with_dim(dim, [&](auto d) {
             affine_input_kernel<decltype(d)::value>
                 <<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx, frame, c);
@@ -1407,7 +2052,13 @@ extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K
 extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float* beta, float* A,
                                 int n, int W, int use_ln, int kx, int dim, int act, void* stream) {
     if (!kx_ok(kx) || !dim_ok(dim) || !act_ok(act)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        with_kx(kx, [&](auto k) {
+            transport_fwd_nd_kernel<decltype(k)::value>
+                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, dim,
+                                                               use_ln, act);
+        });
+    else if (n > 0)
         with_dim_kx(dim, kx, [&](auto d, auto k) {
             transport_fwd_kernel<decltype(d)::value, decltype(k)::value>
                 <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln,
@@ -1420,7 +2071,13 @@ extern "C" int fr_transport_bwd(const float* H, const float* gamma, const float*
                                 const float* GA, float* GH, float* Ggamma, float* Gbeta, int n,
                                 int W, int use_ln, int kx, int dim, int act, void* stream) {
     if (!kx_ok(kx) || !dim_ok(dim) || !act_ok(act)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        with_kx(kx, [&](auto k) {
+            transport_bwd_nd_kernel<decltype(k)::value>
+                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
+                                                               Gbeta, n, W, dim, use_ln, act);
+        });
+    else if (n > 0)
         with_dim_kx(dim, kx, [&](auto d, auto k) {
             transport_bwd_kernel<decltype(d)::value, decltype(k)::value>
                 <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
@@ -1433,7 +2090,10 @@ extern "C" int fr_transport_bwd(const float* H, const float* gamma, const float*
 extern "C" int fr_burgers(const float* U, float* dU, float* out, int n, int dim, float nu,
                           int causal, void* stream) {
     if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        burgers_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            U, dU, out, n, dim, nu, 2.0f / (float)n, causal);
+    else if (n > 0)
         with_dim(dim, [&](auto d) {
             burgers_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, nu, 2.0f / (float)n, causal);
@@ -1444,7 +2104,10 @@ extern "C" int fr_burgers(const float* U, float* dU, float* out, int n, int dim,
 extern "C" int fr_heat(const float* U, float* dU, float* out, int n, int dim, float alpha,
                        int causal, void* stream) {
     if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        heat_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            U, dU, out, n, dim, alpha, 2.0f / (float)n, causal);
+    else if (n > 0)
         with_dim(dim, [&](auto d) {
             heat_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, alpha, 2.0f / (float)n, causal);
@@ -1455,7 +2118,10 @@ extern "C" int fr_heat(const float* U, float* dU, float* out, int n, int dim, fl
 extern "C" int fr_kdv(const float* U, float* dU, float* out, int n, int dim, int causal,
                       void* stream) {
     if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        kdv_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, dim,
+                                                                      2.0f / (float)n, causal);
+    else if (n > 0)
         with_dim(dim, [&](auto d) {
             kdv_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, 2.0f / (float)n, causal);
@@ -1463,14 +2129,17 @@ extern "C" int fr_kdv(const float* U, float* dU, float* out, int n, int dim, int
     return (int)cudaGetLastError();
 }
 
-// v0, v1, v2: the velocity along each axis (those past dim unused).
-extern "C" int fr_convection(const float* U, float* dU, float* out, int n, int dim, float v0,
-                             float v1, float v2, int causal, void* stream) {
+// v: the velocity along each axis, dim floats in device memory.
+extern "C" int fr_convection(const float* U, float* dU, float* out, int n, int dim,
+                             const float* v, int causal, void* stream) {
     if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        convection_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            U, dU, out, n, dim, v, 2.0f / (float)n, causal);
+    else if (n > 0)
         with_dim(dim, [&](auto d) {
             convection_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
-                U, dU, out, n, v0, v1, v2, 2.0f / (float)n, causal);
+                U, dU, out, n, v, 2.0f / (float)n, causal);
         });
     return (int)cudaGetLastError();
 }
@@ -1478,7 +2147,10 @@ extern "C" int fr_convection(const float* U, float* dU, float* out, int n, int d
 extern "C" int fr_allen_cahn(const float* U, float* dU, float* out, int n, int dim, float eps2,
                              int causal, void* stream) {
     if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        allen_cahn_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            U, dU, out, n, dim, eps2, 2.0f / (float)n, causal);
+    else if (n > 0)
         with_dim(dim, [&](auto d) {
             allen_cahn_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, eps2, 2.0f / (float)n, causal);
@@ -1491,7 +2163,10 @@ extern "C" int fr_black_scholes(const float* U, const float* z, float* dU, float
                                 int dim, float sign, float half_sigma2, float rate, int causal,
                                 void* stream) {
     if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
-    if (n > 0)
+    if (n > 0 && use_nd(dim))
+        black_scholes_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            U, z, dU, out, n, dim, sign, half_sigma2, rate, 2.0f / (float)n, causal);
+    else if (n > 0)
         with_dim(dim, [&](auto d) {
             black_scholes_kernel<decltype(d)::value>
                 <<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(

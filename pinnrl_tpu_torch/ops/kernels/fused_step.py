@@ -25,13 +25,14 @@ the scan's block arithmetic and all the layout and stride bookkeeping against
 autograd — and the chip smoke test compares the CUDA set with the plain
 version on the card.
 
-Scope: d = 1 to 3 space dimensions, temporal order 1, causal or not,
-float32, with or without a co-moving frame (the input (x - c t, t)), on a
-Fourier trunk (the embedding's closed-form phase-rotation streams; with a
-trainable basis B is a leaf read per call, and dL/dB comes from the
-embedding's cotangent, ``_embed_bwd_plain``) or a feedforward trunk (the
-input map's constant direction rows, then a first GEMM with d + 1 input
-columns), with the residual of Burgers, heat or
+Scope: any number d of space dimensions (d = 1-3 on kernels templated on
+d, d >= 4 on kernels that take it at run time), temporal order 1, causal
+or not, float32, with or without a co-moving frame (the input (x - c t,
+t)), on a Fourier trunk (the embedding's closed-form phase-rotation
+streams; with a trainable basis B is a leaf read per call, and dL/dB comes
+from the embedding's cotangent, ``_embed_bwd_plain``) or a feedforward
+trunk (the input map's constant direction rows, then a first GEMM with d +
+1 input columns), with the residual of Burgers, heat or
 Allen-Cahn (spatial order K = 2), Black-Scholes (order 2; the one residual
 that reads z, for S along each axis), KdV (order 3) or convection (order 1,
 one velocity per axis). The stacked streams are [value; axis 0: 1..K; ..;
@@ -60,7 +61,6 @@ _LN_EPS = 1e-6
 _COLSUM_ROWS = 256
 _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
 _RESIDUALS = ("burgers", "heat", "kdv", "convection", "allen_cahn", "black_scholes")
-_MAX_DIM = 3  # space dimensions the CUDA kernels are instantiated for
 _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 _BASIS = "FourierFeatures_0.B"
 # The transport kernels' ``act`` argument (csrc/fused_residual.cu: ACT_*).
@@ -508,8 +508,8 @@ class _CudaOps:
         "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                                 ctypes.c_void_p],
         "fr_kdv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        "fr_convection": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_void_p],
+        "fr_convection": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
         "fr_allen_cahn": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                                       ctypes.c_void_p],
         "fr_black_scholes": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
@@ -527,6 +527,7 @@ class _CudaOps:
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
+        self.velocities: Dict[Tuple[float, ...], torch.Tensor] = {}
         self.lib = _build.load_library("fused_residual")
         for name, argtypes in self._ARGTYPES.items():
             fn = getattr(self.lib, name)
@@ -627,9 +628,12 @@ class _CudaOps:
     def convection(self, U, n, velocity, causal):
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
-        v = [float(x) for x in velocity] + [0.0] * (3 - len(velocity))
+        v = self.velocities.get(velocity)
+        if v is None:  # the d velocities on the card, copied there once
+            v = self.velocities[velocity] = torch.tensor(velocity, dtype=torch.float32,
+                                                         device=self.device)
         _build.check(self.lib.fr_convection(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
-                                            len(velocity), *v, int(causal), self.stream),
+                                            len(velocity), v.data_ptr(), int(causal), self.stream),
                      "convection_kernel")
         return dU, out
 
@@ -773,7 +777,7 @@ class _Spec:
     n_hidden: int
     use_ln: bool
     periodic: bool
-    dimension: int  # d space axes, 1..3
+    dimension: int  # d space axes, d >= 1
     x_order: int  # K: the stacked streams are [value; per axis x1..xK; t1]
     frame_speed: Optional[float]  # c of a co-moving frame (x - c t, t); None: none
     residual: str  # one of _RESIDUALS
@@ -994,13 +998,12 @@ def supports(model, pde, training=None) -> bool:
     stacked-jet bundle (a Fourier or feedforward trunk, a co-moving frame
     or none), the reductions the kernel hard-codes (plain MSE, no trainable
     coefficients), temporal order 1 and spatial order at most 3, causal or
-    not; and this port's residuals (``_RESIDUALS``) in 1 to 3 space
-    dimensions (the kernels are instantiated for d <= 3; more is ROADMAP
-    queue 2's K1e). The activations are the bundle's: tanh, gelu, sigmoid,
-    silu/swish and sin; softplus, which the reference's gate admits but
-    whose ``jet`` transport fails there, runs on the generic engine. No
-    width gate: the TPU's gate was a TPU measurement, and no H100
-    measurement has set one."""
+    not; and this port's residuals (``_RESIDUALS``) in any number of space
+    dimensions, as the reference's. The activations are the bundle's: tanh,
+    gelu, sigmoid, silu/swish and sin; softplus, which the reference's gate
+    admits but whose ``jet`` transport fails there, runs on the generic
+    engine. No width gate: the TPU's gate was a TPU measurement, and no
+    H100 measurement has set one."""
     from pinnrl_tpu_torch.ops import jet_mlp
 
     if not (pde.bundle_compatible and pde.system_size == 1 and jet_mlp.supports(model, pde)):
@@ -1009,7 +1012,7 @@ def supports(model, pde, training=None) -> bool:
         return False
     if training is not None and getattr(training, "loss_function", "mse") != "mse":
         return False
-    if pde.pde_type not in _RESIDUALS or not 1 <= pde.dimension <= _MAX_DIM:
+    if pde.pde_type not in _RESIDUALS:
         return False
     if model.config.architecture not in ("fourier", "feedforward"):
         return False

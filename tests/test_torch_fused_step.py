@@ -79,14 +79,14 @@ def test_kernel_launcher_with_plain_twins_matches_autograd(layer_norm):
     assert none == {} and torch.equal(loss_only, loss)
 
 
-@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 5, 8])
 @pytest.mark.parametrize("x_order", [1, 2, 3])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("layer_norm", [True, False])
 def test_transport_backward_matches_autograd(dtype, tol, layer_norm, x_order, dim):
     """The hand-derived reverse pass of the [value; dim x-groups of x1..xK;
     t1] transport, K = 1 (convection), K = 2 (Burgers) and K = 3 (KdV), in
-    1-3 space dimensions."""
+    1-5 and 8 space dimensions."""
     rng = np.random.default_rng(11)
     n, width, streams = 24, 40, 2 + dim * x_order
     H = torch.tensor(rng.standard_normal((streams * n, width)), dtype=dtype, requires_grad=True)
@@ -120,7 +120,7 @@ def _bundle_streams(monkeypatch, arch, x_order, dim=1, frame=None, n=40):
 
     cfg = load_config(pde_type="burgers", architecture=arch, device="cpu")
     cfg.pde.dimension, cfg.model.input_dim = dim, dim + 1
-    cfg.pde.domain = [[-1.0, 1.0], [0.0, 2.0], [-3.0, 0.5]][:dim]
+    cfg.pde.domain = [[-1.0, 1.0], [0.0, 2.0], [-3.0, 0.5], [0.5, 1.5]][:dim]
     cfg.model.hidden_dims = [8]
     cfg.model.arch_params.update({"mapping_size": 8, "scale": 2.0})
     if frame is not None:
@@ -142,13 +142,14 @@ def _bundle_streams(monkeypatch, arch, x_order, dim=1, frame=None, n=40):
     return model, z, stacked
 
 
-@pytest.mark.parametrize("dim,frame", [(1, None), (2, None), (3, None), (1, 0.7), (2, -1.3)])
+@pytest.mark.parametrize("dim,frame", [(1, None), (2, None), (3, None), (4, None), (1, 0.7),
+                                       (2, -1.3), (4, 0.7)])
 @pytest.mark.parametrize("x_order", [1, 2, 3])
 @pytest.mark.parametrize("arch", ["fourier", "feedforward"])
 def test_stacked_input_twins_match_the_bundle(monkeypatch, arch, x_order, dim, frame):
     """``_embed_plain`` (Fourier) and ``_affine_input_plain`` (feedforward):
     the stacked input [value; per axis x1..xK; t1] that the plain bundle
-    feeds the first Dense layer, at x-orders 1-3 in 1-3 space dimensions,
+    feeds the first Dense layer, at x-orders 1-3 in 1-4 space dimensions,
     with and without a co-moving frame. Fourier: 1e-6 relative to max (the
     phase rotations in another order); feedforward: equal."""
     model, z, ref = _bundle_streams(monkeypatch, arch, x_order, dim, frame)
@@ -221,16 +222,16 @@ def test_supports_scope():
     ff = burgers_pair(arch="feedforward")
     assert fused_step.supports(ff.tmodel, ff.tpde)
     assert fused_step._spec(ff.tmodel, ff.tpde).B is None
-    # In: a moving frame and two or three space dimensions. Out: four space
-    # dimensions (past the kernels' instantiations), order 4, temporal order 2.
+    # In: a moving frame and any number of space dimensions (the reference's
+    # gate has no limit on d). Out: order 4, temporal order 2.
     frame = burgers_pair()
     frame.tmodel._frame_speed = 0.5
     assert fused_step.supports(frame.tmodel, frame.tpde)
     assert fused_step._spec(frame.tmodel, frame.tpde).frame_speed == 0.5
-    for dim, admitted in ((2, True), (3, True), (4, False)):
+    for dim in (2, 3, 4, 5, 8):
         wide = burgers_pair()
         wide.tpde.dimension = dim
-        assert fused_step.supports(wide.tmodel, wide.tpde) == admitted, dim
+        assert fused_step.supports(wide.tmodel, wide.tpde), dim
     for orders in (dict(spatial_orders=(4,)), dict(temporal_orders=(2,))):
         odd = burgers_pair()
         for k, v in orders.items():

@@ -82,9 +82,9 @@ def test_kernel1_launcher_matches_autograd(frame, layer_norm):
 
 
 def test_supports_matches_the_reference_beyond_one_dimension():
-    """In two and three dimensions and with a frame the port admits what the
-    reference admits (at the reference's widths); four dimensions are past
-    the kernels' instantiations."""
+    """In two, three and more dimensions and with a frame the port admits
+    what the reference admits (at the reference's widths): the reference's
+    gate has no limit on d, and neither has the port's."""
     from pinnrl_tpu.models import PINNModel as JaxModel
 
     for kw in (dict(pde_type="heat_2d"), dict(pde_type="heat", dim=3),
@@ -94,10 +94,11 @@ def test_supports_matches_the_reference_beyond_one_dimension():
         wide = JaxModel(pair.jcfg, seed=0)
         assert jax_fused.supports(wide, pair.jpde, pair.jcfg.training)
         assert fused_step.supports(pair.tmodel, pair.tpde, pair.tcfg.training)
-    four = pde_pair("heat", hidden=(128, 128), mapping=64, dim=4)
-    assert jax_fused.supports(JaxModel(four.jcfg, seed=0), four.jpde, four.jcfg.training)
-    assert not fused_step.supports(four.tmodel, four.tpde, four.tcfg.training)
-    assert not four.tpde.attach_fused_residual_kernel(four.tmodel)
+    for dim in (4, 5, 8):
+        wide = pde_pair("heat", hidden=(128, 128), mapping=64, dim=dim)
+        assert jax_fused.supports(JaxModel(wide.jcfg, seed=0), wide.jpde, wide.jcfg.training)
+        assert fused_step.supports(wide.tmodel, wide.tpde, wide.tcfg.training)
+        assert wide.tpde.attach_fused_residual_kernel(wide.tmodel)
 
 
 # ---------------------------------------------------------------- the PDE

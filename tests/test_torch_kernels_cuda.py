@@ -41,7 +41,11 @@ orders' bounds. Kernel 1 with gelu, sigmoid, silu and sin: the transport
 kernels with each activation code against their twins at 1e-5 relative to
 max per stacked tensor, and the whole loss against the plain version run
 in float64 at the kernel's bounds (loss 1e-5, gradients 1e-4; causal KdV
-2e-4 and 1e-3).
+2e-4 and 1e-3). Kernel 1 in d >= 4 dimensions (the ``*_nd`` kernels): its
+input, transport and residual kernels at the d = 2-3 bounds above, dL/dB
+(one and two tiles of axis rows) at 1e-4 relative to max against the
+float64 twin, and the whole loss against the plain version run in float64
+at the kernel's bounds (causal 1e-4 and 1e-3).
 """
 
 import numpy as np
@@ -844,7 +848,7 @@ def test_kernel1_entry_points_refuse_an_x_order_out_of_scope(cuda_device, kx):
 
 
 
-@pytest.mark.parametrize("dim", [0, 4])
+@pytest.mark.parametrize("dim", [0, -1])
 def test_kernel1_entry_points_refuse_a_dimension_out_of_scope(cuda_device, dim):
     from pinnrl_tpu_torch.ops.kernels import _build, fused_step
 
@@ -858,14 +862,15 @@ def test_kernel1_entry_points_refuse_a_dimension_out_of_scope(cuda_device, dim):
     assert ops.lib.fr_transport_bwd(p, None, None, p, p, None, None, 8, 4, 0, 2, dim, 0,
                                     stream) != 0
     assert ops.lib.fr_heat(p, p, p, 8, dim, 1.0, 0, stream) != 0
-    assert ops.lib.fr_convection(p, p, p, 8, dim, 1.0, 1.0, 1.0, 0, stream) != 0
+    assert ops.lib.fr_convection(p, p, p, 8, dim, p, 0, stream) != 0
 
 
 @pytest.mark.parametrize("frame", [None, 0.7])
 @pytest.mark.parametrize("x_order", [1, 2, 3])
-@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 5])
 def test_stacked_input_kernels_match_twins(cuda_device, dim, x_order, frame):
-    """embed_kernel<D, KX> and affine_input_kernel<D> against their twins at
+    """embed_kernel<D, KX> and affine_input_kernel<D> (d >= 4:
+    embed_nd_kernel<KX> and affine_input_nd_kernel) against their twins at
     (4999, dim+1) points, mapping 64, with and without a frame."""
     from pinnrl_tpu_torch.ops.kernels import fused_step
 
@@ -893,10 +898,11 @@ def test_stacked_input_kernels_match_twins(cuda_device, dim, x_order, frame):
 
 @pytest.mark.parametrize("layer_norm", [True, False])
 @pytest.mark.parametrize("x_order", [1, 2, 3])
-@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 5, 8])
 def test_transport_kernels_match_twins(cuda_device, dim, x_order, layer_norm):
-    """transport_fwd_kernel<D, KX> and transport_bwd_kernel<D, KX> against
-    the twins on seeded (S n, 256) tensors."""
+    """transport_fwd_kernel<D, KX> and transport_bwd_kernel<D, KX> (d >= 4:
+    the *_nd_kernel<KX> group walk) against the twins on seeded (S n, 256)
+    tensors."""
     from pinnrl_tpu_torch.ops.kernels import fused_step
 
     gen = torch.Generator(device=cuda_device).manual_seed(dim * 10 + x_order)
@@ -918,17 +924,17 @@ def test_transport_kernels_match_twins(cuda_device, dim, x_order, layer_norm):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 8])
 def test_residual_kernels_match_twins(cuda_device, dim, causal):
-    """The six residual kernels at D = 1-3 against their twins on seeded
-    stacked outputs."""
+    """The six residual kernels at D = 1-3 (and their *_nd kernels at d = 4
+    and 8) against their twins on seeded stacked outputs."""
     from pinnrl_tpu_torch.ops.kernels import fused_step
 
     gen = torch.Generator(device=cuda_device).manual_seed(dim)
     n = 5000
     z = torch.rand((n, dim + 1), generator=gen, device=cuda_device) * 2.0
     cuda_ops, plain = fused_step._cuda_ops(cuda_device), fused_step._TorchOps()
-    velocity = (0.5, -1.5, 2.0)[:dim]
+    velocity = (0.5, -1.5, 2.0, 0.25, -0.75, 1.25, 3.0, -2.0)[:dim]
     for name, K, args in (("burgers", 2, (dim, 0.01)), ("heat", 2, (dim, 0.3)), ("kdv", 3, (dim,)),
                           ("convection", 1, (velocity,)), ("allen_cahn", 2, (dim, 0.09))):
         U = torch.randn(((2 + dim * K) * n, 1), generator=gen, device=cuda_device)
@@ -1364,3 +1370,88 @@ def test_fused_residual_loss_matches_plain_for_every_activation(cuda_device, act
     assert abs(float(l1) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
     for name, a, b in zip(params, g1, gp):
         assert torch.isfinite(a).all() and _rel(a, b) < grad_tol, name
+
+
+@pytest.mark.parametrize("frame", [None, 0.7])
+@pytest.mark.parametrize("x_order", [1, 2, 3])
+@pytest.mark.parametrize("dim", [4, 40])
+def test_embed_bwd_nd_kernel_matches_twin(cuda_device, dim, x_order, frame):
+    """dL/dB of a trainable basis in d >= 4 dimensions
+    (embed_bwd_nd_partial_kernel<KX>: d = 40 takes two tiles of axis rows
+    along z) against ``_embed_bwd_plain`` on a seeded cotangent, 1e-4
+    relative to max (the gradients' bound)."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(dim + x_order)
+    n, m = 999, 40
+    z = torch.rand((n, dim + 1), generator=gen, device=cuda_device) * 2.0 - 1.0
+    lo = -torch.ones(dim + 1, device=cuda_device)
+    sc = torch.rand(dim + 1, generator=gen, device=cuda_device) + 0.5
+    B = torch.randn((dim + 1, m), generator=gen, device=cuda_device)
+    G = torch.randn(((2 + dim * x_order) * n, 2 * m), generator=gen, device=cuda_device)
+    got = fused_step._cuda_ops(cuda_device).embed_bwd(z, lo, sc, B, G, True, x_order, frame)
+    ref = fused_step._embed_bwd_plain(z.double(), lo.double(), sc.double(), B.double(),
+                                      G.double(), True, x_order, frame)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (dim + 1, m)
+    assert _rel(got.double(), ref) < 1e-4
+
+
+ND_CASES = {f"{p}_4d": (p, 4) for p in ("burgers", "heat", "kdv", "convection", "allen_cahn",
+                                        "black_scholes")}
+ND_CASES.update({"heat_8d": ("heat", 8), "heat_4d_feedforward": ("heat", 4),
+                 "heat_4d_causal_frame_basis_gelu": ("heat", 4)})
+
+
+@pytest.mark.parametrize("case", sorted(ND_CASES))
+def test_fused_residual_loss_in_four_and_more_dimensions_matches_plain(cuda_device, case):
+    """Kernel 1 in d >= 4 dimensions through ``make_fused_residual_loss``
+    at N = 4096 on narrow trunks (64x48, mapping 32; every residual at d =
+    4, heat at d = 8, the feedforward trunk, and causal weights with a
+    frame, a trainable basis and gelu together) against the plain version
+    run in float64 on the same inputs: loss 1e-5 and gradients 1e-4
+    relative (causal 1e-4 and 1e-3); two calls bit-identical."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    pde_type, dim = ND_CASES[case]
+    arch = "feedforward" if case.endswith("feedforward") else "fourier"
+    cfg = load_config(pde_type=pde_type, architecture=arch, device="cuda")
+    cfg.pde.dimension, cfg.model.input_dim = dim, dim + 1
+    cfg.pde.domain = [list(cfg.pde.domain[0])] * dim
+    if pde_type == "convection":
+        cfg.pde.parameters["velocity"] = [0.5, -1.5, 1.0, 0.25]
+    cfg.model.hidden_dims = [64, 48]
+    cfg.model.arch_params["mapping_size"] = 32
+    causal = case.endswith("gelu")
+    if causal:
+        cfg.model.activation = "gelu"
+        cfg.model.arch_params.update({"trainable_features": True, "moving_frame_speed": 0.7})
+    cfg.training.causal_eps = 1.0 if causal else 0.0
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    assert fused_step.supports(model, pde, cfg.training)
+    fn = fused_step.make_fused_residual_loss(model, pde)
+    bundle_fn = make_bundle_fn(model, pde.dimension, max(pde.spatial_orders), 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x, t = pde.generate_collocation_points(gen, 4096, "uniform")
+    z = torch.cat([x, t], dim=-1)[torch.argsort(t.reshape(-1), stable=True)]
+    params = model.params
+    launches = fused_step.fused_residual_loss.launches
+    runs = []
+    for _ in range(2):
+        lk = fn(params, z)
+        runs.append((lk.detach(), torch.autograd.grad(lk, list(params.values()))))
+    assert fused_step.fused_residual_loss.launches == launches + 2
+    p64 = {k: v.detach().double().requires_grad_(True) for k, v in params.items()}
+    lp = fused_step.fused_residual_loss_plain(bundle_fn, pde, p64, z.double())
+    gp = torch.autograd.grad(lp, list(p64.values()), allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+    loss_tol, grad_tol = (1e-4, 1e-3) if causal else (1e-5, 1e-4)
+    assert abs(float(l1) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
+    for name, a, b in zip(params, g1, gp):
+        assert torch.isfinite(a).all() and _rel(a.double(), b) < grad_tol, name
