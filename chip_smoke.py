@@ -344,7 +344,9 @@ Phases (each raises on failure, and the script then exits non-zero):
                beside the plain version, its bound, its products on the
                GEMM core and on cuBLAS and the kernels' peak memory; kernel
                2 at (8192,5) x (5,512), its edge path, against plain and
-               timed. Then through
+               timed; the basket below (feedforward 128x7) at its Adam batch
+               (2048) and its validation points (1000) against its plain
+               twins in float64. Then through
                ``PDETrainer``: heat-4D (heat_2d's block on [0, pi]^4 with the
                ``sin_exp_decay`` IC, exact solution and Dirichlet BC) with
                ``adam_lbfgs`` for 4 epochs (8 Adam steps of 8192, 2 L-BFGS
@@ -444,7 +446,8 @@ run, ``max_abs_err`` against the float32 twins and ``max_abs_err_f64``,
 their ``n40000_`` twins, ``ptxas`` per transport kernel, and the run's
 losses) and phase 44's ``nd4`` (``ptxas`` per d >= 4 kernel, ``parity`` per
 small case, ``heat_4d`` per N: parity, ``ms``, ``plain_ms``, ``bound_ms``,
-``library_ms``, ``gemm_core_ms`` and peak memory, ``runs`` with their
+``library_ms``, ``gemm_core_ms`` and peak memory, ``basket_4`` per N:
+parity, ``runs`` with their
 launches and losses);
 kernel 2's entry carries ``nd4_edge`` (its time at (8192,5) x (5,512)) and
 ``nd4_launches``. The last line is
@@ -3629,6 +3632,19 @@ def nd_runs(dev, card: str):
         raise AssertionError(f"kernel 2 at (8192, 5) disagrees with its plain version: {ff_rel}")
     del pde, model, got, ref
 
+    # The basket at the shipped feedforward 128x7's full width, on the model
+    # its card path trains (seed 0), at the sizes that path gives kernel 1:
+    # its Adam batch and its validation points. S up to 200 on four axes:
+    # the ill-conditioned float32 case of the feedforward trunk.
+    cfg = basket_config("cuda")
+    pde, model = create_pde(cfg), PINNModel(cfg, seed=0)
+    out["basket_4"] = {}
+    for n in sorted({cfg.training.batch_size, cfg.evaluation.num_points}):
+        out["basket_4"][n] = kernel1_vs_f64_twins(
+            dev, model, pde, gen, n, FUSED_TOLS["black_scholes_ff"],
+            "[nd4] kernel 1 Black-Scholes basket_4 (feedforward 128x7)")[3]
+    del pde, model
+
     # ---- the card paths, each with the counts set to 0 just before ------- #
     def run(cfg, label):
         tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
@@ -3670,7 +3686,8 @@ def nd_runs(dev, card: str):
         raise AssertionError(f"heat-4D: kernel 2 {heat['fourier_features']} launches, want "
                              f"{2 * heat['fused_residual_loss']}")
     out["max_abs_err"] = max(v["max_abs_err"] for v in
-                             (*out["parity"].values(), *out["heat_4d"].values()))
+                             (*out["parity"].values(), *out["heat_4d"].values(),
+                              *out["basket_4"].values()))
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[nd4] phase 44: {out['seconds']:.1f} s ({card})", flush=True)
     return out

@@ -442,7 +442,7 @@ class _TorchOps:
         return _residual_out(r, n, causal,
                              [c * (6.0 * ux), *[v for _ in gx for v in (c * (6.0 * u), zero, c)], c])
 
-    def convection(self, U, n, velocity, causal):
+    def convection(self, U, n, velocity, velocity_dev, causal):
         _u, gx, ut = _split_streams(U.reshape(-1), n, len(velocity))
         r = ut + sum(v * g[0] for v, g in zip(velocity, gx))
         c = _residual_scale(r, n, causal)
@@ -527,7 +527,6 @@ class _CudaOps:
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
-        self.velocities: Dict[Tuple[float, ...], torch.Tensor] = {}
         self.lib = _build.load_library("fused_residual")
         for name, argtypes in self._ARGTYPES.items():
             fn = getattr(self.lib, name)
@@ -625,15 +624,12 @@ class _CudaOps:
                                      int(causal), self.stream), "kdv_kernel")
         return dU, out
 
-    def convection(self, U, n, velocity, causal):
+    def convection(self, U, n, velocity, velocity_dev, causal):
         dU = torch.empty_like(U)
         out = self._empty(n, 1)
-        v = self.velocities.get(velocity)
-        if v is None:  # the d velocities on the card, copied there once
-            v = self.velocities[velocity] = torch.tensor(velocity, dtype=torch.float32,
-                                                         device=self.device)
         _build.check(self.lib.fr_convection(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
-                                            len(velocity), v.data_ptr(), int(causal), self.stream),
+                                            len(velocity), velocity_dev.data_ptr(), int(causal),
+                                            self.stream),
                      "convection_kernel")
         return dU, out
 
@@ -792,6 +788,7 @@ class _Spec:
     nu: float = 0.0  # Burgers' viscosity
     alpha: float = 0.0  # heat's diffusivity
     velocity: Tuple[float, ...] = ()  # convection's v, one per axis
+    velocity_dev: Optional[torch.Tensor] = None  # the same d floats on the model's device
     epsilon: float = 0.0  # Allen-Cahn's interface width
     sigma: float = 0.0  # Black-Scholes' volatility
     rate: float = 0.0  # Black-Scholes' interest rate r
@@ -827,7 +824,7 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
     elif spec.residual == "kdv":
         G, out = ops.kdv(U, n, d, causal)
     elif spec.residual == "convection":
-        G, out = ops.convection(U, n, spec.velocity, causal)
+        G, out = ops.convection(U, n, spec.velocity, spec.velocity_dev, causal)
     elif spec.residual == "allen_cahn":
         G, out = ops.allen_cahn(U, n, d, spec.epsilon**2, causal)
     else:
@@ -950,6 +947,8 @@ def _spec(model, pde) -> _Spec:
         coeffs["alpha"] = float(pde._alpha(None))
     elif kind == "convection":
         coeffs["velocity"] = tuple(float(v) for v in pde._velocity(None))
+        coeffs["velocity_dev"] = torch.tensor(coeffs["velocity"], dtype=torch.float32,
+                                              device=model._in_lo.device)
     elif kind == "allen_cahn":
         coeffs["epsilon"] = float(pde._eps(None))
     elif kind == "black_scholes":

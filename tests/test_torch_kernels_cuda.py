@@ -1400,7 +1400,8 @@ def test_embed_bwd_nd_kernel_matches_twin(cuda_device, dim, x_order, frame):
 ND_CASES = {f"{p}_4d": (p, 4) for p in ("burgers", "heat", "kdv", "convection", "allen_cahn",
                                         "black_scholes")}
 ND_CASES.update({"heat_8d": ("heat", 8), "heat_4d_feedforward": ("heat", 4),
-                 "heat_4d_causal_frame_basis_gelu": ("heat", 4)})
+                 "heat_4d_causal_frame_basis_gelu": ("heat", 4),
+                 "black_scholes_4d_shipped_feedforward": ("black_scholes", 4)})
 
 
 @pytest.mark.parametrize("case", sorted(ND_CASES))
@@ -1408,7 +1409,9 @@ def test_fused_residual_loss_in_four_and_more_dimensions_matches_plain(cuda_devi
     """Kernel 1 in d >= 4 dimensions through ``make_fused_residual_loss``
     at N = 4096 on narrow trunks (64x48, mapping 32; every residual at d =
     4, heat at d = 8, the feedforward trunk, and causal weights with a
-    frame, a trainable basis and gelu together) against the plain version
+    frame, a trainable basis and gelu together), and on Black-Scholes's
+    shipped feedforward 128x7 over a basket of four assets on [0, 200]^4
+    (the ill-conditioned float32 case), against the plain version
     run in float64 on the same inputs: loss 1e-5 and gradients 1e-4
     relative (causal 1e-4 and 1e-3); two calls bit-identical."""
     from pinnrl_tpu_torch.config import load_config
@@ -1424,8 +1427,9 @@ def test_fused_residual_loss_in_four_and_more_dimensions_matches_plain(cuda_devi
     cfg.pde.domain = [list(cfg.pde.domain[0])] * dim
     if pde_type == "convection":
         cfg.pde.parameters["velocity"] = [0.5, -1.5, 1.0, 0.25]
-    cfg.model.hidden_dims = [64, 48]
-    cfg.model.arch_params["mapping_size"] = 32
+    if "shipped" not in case:
+        cfg.model.hidden_dims = [64, 48]
+        cfg.model.arch_params["mapping_size"] = 32
     causal = case.endswith("gelu")
     if causal:
         cfg.model.activation = "gelu"
