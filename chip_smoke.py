@@ -355,6 +355,37 @@ Phases (each raises on failure, and the script then exits non-zero):
                Adam steps: kernel 1 exactly once per Adam step, L-BFGS
                evaluation and validation, kernel 2 exactly twice per loss on
                the heat path, finite losses.
+ 45. generated — kernel 1's generated residual (any registered PDE's
+               ``residual_pointwise`` traced by ``residual_codegen`` and
+               compiled into ``csrc/residual_generated.cuh``'s kernel):
+               user PDEs that subclass shipped classes, registered with
+               ``@register_pde`` (``register_user_pdes``: Fisher-KPP with
+               its Ablowitz-Zeppetella traveling wave, an advection whose
+               velocity sin(x) is read from z, Burgers with a sin(x)
+               forcing that keeps ``pde_type = "burgers"``, a first-order
+               ODE with no x-group, a steady problem); no generated
+               residual launched in phases 1-44, where the six shipped PDEs
+               take their hand residuals. Every program built by nvcc in
+               parallel, ptxas's registers and spills of each (none may
+               spill); each generated kernel alone against its program's
+               float64 twin (N 8192, plain and causal), bit-identical in two
+               calls; kernel 1 through the generated residual against its
+               plain twins run in float64: Fisher-KPP (plain and causal) and
+               the forced Burgers on the Burgers recipe's width (Fourier
+               256x3, mapping 128) at N = 8192 and 40000, Fisher-KPP in two
+               dimensions on heat_2d's trunk, and small (64x48, mapping 32,
+               N = 4096) the z-reading advection at d = 1 and 4, the ODE on
+               both trunks, with a trainable basis and at d = 4, the steady
+               problem. Burgers timed by CUDA-graph replay at N = 8192 and
+               40000 through the generated residual against burgers_kernel
+               (in turns), each residual kernel alone, the plain version
+               and the bounds. Then through ``PDETrainer``: Fisher-KPP on
+               the Burgers recipe's width with ``adam_lbfgs`` for 4 epochs
+               (8 Adam steps of 8192, 2 L-BFGS iterations on all 40000
+               points) and in two dimensions on heat_2d's trunk for 2 Adam
+               epochs: kernel 1 and the generated residual exactly once per
+               Adam step, L-BFGS evaluation and validation, finite losses,
+               the 1-D loss falling.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -448,7 +479,12 @@ losses) and phase 44's ``nd4`` (``ptxas`` per d >= 4 kernel, ``parity`` per
 small case, ``heat_4d`` per N: parity, ``ms``, ``plain_ms``, ``bound_ms``,
 ``library_ms``, ``gemm_core_ms`` and peak memory, ``basket_4`` per N:
 parity, ``runs`` with their
-launches and losses);
+launches and losses) and phase 45's ``generated`` (``ptxas`` and build
+seconds per program, ``residual_alone`` per program, ``parity`` per case,
+``burgers_ab`` per N: kernel 1's ``ms`` with the generated residual and
+``hand_ms`` with burgers_kernel, ``plain_ms``, ``bound_ms``, the residual
+kernels alone, ``fisher_residual`` per N, ``runs`` with their launches and
+losses);
 kernel 2's entry carries ``nd4_edge`` (its time at (8192,5) x (5,512)) and
 ``nd4_launches``. The last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -3280,7 +3316,8 @@ def activation_runs(dev, card: str):
     bwd33 = ptx.get("transport_bwd_kernel<3,3>")
     print(f"[activations] ptxas transport kernels (registers, spill bytes), one kernel per (D, K) "
           f"for every activation: {ptx} ({card})", flush=True)
-    if len(ptx) != 18 or bwd33 is None:
+    # D = 1-3 x K = 1-3, and D = 0 (an ODE: no x-group) at K = 1, each way.
+    if len(ptx) != 20 or bwd33 is None:
         raise AssertionError(f"transport kernels missing from the build log: {sorted(ptx)}")
     cuda_ops = fused_step._cuda_ops(dev)
     gen = torch.Generator(device=dev).manual_seed(43)
@@ -3456,7 +3493,7 @@ ND4_VELOCITY = [0.5, -1.5, 1.0, 0.25]
 # Black-Scholes as shipped on a basket of 4 assets, 3 epochs of 2 Adam steps.
 ND4_HEAT_EPOCHS = 4
 ND4_BASKET_EPOCHS = 3
-ND4_KERNELS = 19  # the *_nd kernels in the build log
+ND4_KERNELS = 21  # the *_nd kernels in the build log (the input kernels at K = 0 too)
 
 
 def heat4d_config(device: str):
@@ -3690,6 +3727,458 @@ def nd_runs(dev, card: str):
                               *out["basket_4"].values()))
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[nd4] phase 44: {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
+# Phase 45: kernel 1's generated residual (ops/kernels/residual_codegen.py):
+# user PDEs that subclass shipped classes, registered with @register_pde
+# (``register_user_pdes``). Fisher-KPP trained through PDETrainer on the
+# Burgers recipe's full width (Fourier 256x3, mapping 128, Adam batches of
+# 8192, then L-BFGS on all 40000 points): adam_lbfgs for GEN_EPOCHS epochs
+# (2 of 4 Adam steps, then 2 L-BFGS iterations; a validation every 2).
+# Fisher-KPP in two dimensions on heat_2d's trunk (its recipe, Fourier
+# 256x3, mapping 128) for GEN_2D_EPOCHS Adam epochs. A first-order ODE (no
+# x-group: the transport at D = 0, the input kernels at K = 0) trained the
+# same way as Fisher-KPP on the Burgers recipe's width (``ode_config``).
+# Parity against the plain twins run in float64 at N 8192 and 40000, the
+# trainer's batches: the forced Burgers and Fisher-KPP on the Burgers
+# recipe's width, plain and causal; the ODE on both trunks (that width, and
+# the shipped feedforward 128x7 with LayerNorm); a steady problem (its
+# t-stream unread) on the heat recipe's Fourier 256x3 (``GEN_FULL``). Small
+# (64x48, mapping 32, N GEN_SMALL_N): the z-reading advection in one and
+# four dimensions (d = 4: the *_nd transport), the ODE with a trainable
+# basis and in four dimensions, and the steady problem.
+GEN_EPOCHS = 4
+GEN_2D_EPOCHS = 2
+GEN_SMALL_N = 4096
+GEN_SMALL = {"var_advection_1d": ("var_advection", "convection", 1, "fourier", False),
+             "var_advection_4d": ("var_advection", "convection", 4, "fourier", False),
+             "relaxation_fourier": ("relaxation", "pendulum", 1, "fourier", False),
+             "relaxation_ff": ("relaxation", "pendulum", 1, "feedforward", False),
+             "relaxation_basis": ("relaxation", "pendulum", 1, "fourier", True),
+             "relaxation_4d": ("relaxation", "pendulum", 4, "feedforward", False),
+             "relaxation_4d_basis": ("relaxation", "pendulum", 4, "fourier", True),
+             "poisson": ("poisson", "heat", 1, "fourier", False)}
+GEN_FULL = ("fisher_kpp", "forced_burgers", "relaxation_fourier_full", "relaxation_ff_full",
+            "poisson_full")
+GEN_TOL = 1e-5  # the generated residual kernel alone against its float64 twin, rel to max
+
+
+def register_user_pdes():
+    """Phase 45's user PDEs, each a subclass of a shipped class registered
+    with ``@register_pde`` (the package's extension point): Fisher-KPP with
+    the Ablowitz-Zeppetella traveling wave as its exact solution, IC and
+    Dirichlet BC; an advection whose velocity sin(x) is read from z; Burgers
+    with a forcing (``pde_type`` stays "burgers"); a first-order ODE; a
+    steady problem. Returns {name: class}."""
+    import torch
+
+    from pinnrl_tpu_torch.ops.derivatives import directional_derivative as dd
+    from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, register_pde
+    from pinnrl_tpu_torch.pdes.burgers import BurgersEquation
+    from pinnrl_tpu_torch.pdes.convection import ConvectionEquation
+    from pinnrl_tpu_torch.pdes.heat import HeatEquation
+    from pinnrl_tpu_torch.pdes.pendulum import PendulumEquation
+
+    names = ("fisher_kpp", "var_advection", "forced_burgers", "relaxation", "poisson")
+    if all(n in PDE_CLASSES for n in names):
+        return {n: PDE_CLASSES[n] for n in names}
+
+    @register_pde
+    class FisherKPP(BurgersEquation):
+        """u_t - D lap u - rho u (1 - u); exact: (1 + exp(a x_0 - 5 rho t / 6))^-2,
+        a = sqrt(rho / (6 D))."""
+
+        pde_type = "fisher_kpp"
+        default_parameters = {"diffusion": 0.1, "rho": 1.0}
+
+        def residual_pointwise(self, u, z, coeffs):
+            val = u(z)
+            lap = 0.0
+            for ax in range(self.dimension):
+                lap = lap + dd(u, z, ax, 2)[1]
+            D, rho = self.parameters["diffusion"], self.parameters["rho"]
+            return dd(u, z, self.dimension, 1)[0] - D * lap - rho * val * (1.0 - val)
+
+        def exact_solution(self, x, t, coeffs=None):
+            D, rho = self.parameters["diffusion"], self.parameters["rho"]
+            a = math.sqrt(rho / (6.0 * D))
+            return (1.0 + torch.exp(a * x[:, 0:1] - (5.0 * rho / 6.0) * t)) ** -2
+
+        def _create_initial_condition(self, params):
+            return lambda x, t: self.exact_solution(x, torch.zeros_like(x[:, 0:1]))
+
+        def _create_boundary_condition(self, bc_type, params):
+            if bc_type == "initial":
+                return self._create_initial_condition(params)
+            return lambda x, t: self.exact_solution(x, t)
+
+    @register_pde
+    class VarAdvection(ConvectionEquation):
+        """u_t + sum_ax sin(x_ax) u_ax."""
+
+        pde_type = "var_advection"
+
+        def residual_pointwise(self, u, z, coeffs):
+            r = dd(u, z, self.dimension, 1)[0]
+            for ax in range(self.dimension):
+                r = r + torch.sin(z[:, ax]) * dd(u, z, ax, 1)[0]
+            return r
+
+    class ForcedBurgers(BurgersEquation):
+        """Burgers' residual minus sin(x_0); pde_type stays "burgers"."""
+
+        def residual_pointwise(self, u, z, coeffs):
+            return super().residual_pointwise(u, z, coeffs) - torch.sin(z[:, 0])
+
+    PDE_CLASSES["forced_burgers"] = ForcedBurgers
+
+    @register_pde
+    class Relaxation(PendulumEquation):
+        """u_t + 0.5 tanh(u) + 0.2 sigmoid(u) - 0.1: first order, no x-group."""
+
+        pde_type = "relaxation"
+        temporal_orders = (1,)
+
+        def residual_pointwise(self, u, z, coeffs):
+            val = u(z)
+            return dd(u, z, self.dimension, 1)[0] + 0.5 * torch.tanh(val) + 0.2 * torch.sigmoid(val) - 0.1
+
+    @register_pde
+    class Poisson(HeatEquation):
+        """lap u + sin(x_0) exp(-u^2): temporal order 0."""
+
+        pde_type = "poisson"
+        temporal_orders = ()
+
+        def residual_pointwise(self, u, z, coeffs):
+            val = u(z)
+            lap = 0.0
+            for ax in range(self.dimension):
+                lap = lap + dd(u, z, ax, 2)[1]
+            return lap + torch.sin(z[:, 0]) * torch.exp(-val * val)
+
+    return {n: PDE_CLASSES[n] for n in names}
+
+
+def fisher_config(device: str, dim: int = 1):
+    """Fisher-KPP (D 0.1, rho 1) on [-4, 4]^d x [0, 2]: in one dimension the
+    Burgers recipe's full width, adam_lbfgs (Adam on batches of 8192, then
+    L-BFGS on all 40000 points); in two, heat_2d's recipe (its trunk, Adam
+    only)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+
+    if dim == 1:
+        cfg = burgers_recipe_config(device)
+        t = cfg.training
+        t.optimizer, t.num_epochs, t.validation_frequency = "adam_lbfgs", GEN_EPOCHS, 2
+    else:
+        cfg = build_recipe_config("heat_2d", epochs=GEN_2D_EPOCHS, device=device)
+        cfg.training.optimizer = "adam"
+        cfg.pde.boundary_conditions = {"dirichlet": {}}
+    cfg.pde_type = "fisher_kpp"
+    cfg.pde.domain = [[-4.0, 4.0]] * dim
+    cfg.pde.time_domain = [0.0, 2.0]
+    return cfg
+
+
+def ode_config(device: str, arch: str = "fourier"):
+    """The relaxation ODE on the pendulum block: on the Burgers recipe's
+    Fourier 256x3 (mapping 128, scale 2) or the shipped feedforward 128x7
+    with LayerNorm, trained as ``fisher_config`` trains Fisher-KPP (Adam on
+    batches of 8192 of 40000 points, then L-BFGS on all of them)."""
+    from pinnrl_tpu_torch.config import load_config
+
+    recipe = fisher_config(device)
+    cfg = load_config(pde_type="pendulum", architecture=arch, device=device)
+    cfg.pde_type = "relaxation"
+    if arch == "fourier":
+        cfg.model.hidden_dims = list(recipe.model.hidden_dims)
+        cfg.model.arch_params.update({k: recipe.model.arch_params[k]
+                                      for k in ("mapping_size", "scale")})
+    cfg.training = recipe.training
+    return cfg
+
+
+def gen_full_config(name: str, device: str):
+    """The configuration of a full-width phase-45 parity case (``GEN_FULL``)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+
+    if name == "fisher_kpp":
+        return fisher_config(device)
+    if name == "forced_burgers":
+        cfg = burgers_recipe_config(device)
+        cfg.pde_type = "forced_burgers"
+        return cfg
+    if name.startswith("relaxation"):
+        return ode_config(device, "fourier" if name == "relaxation_fourier_full" else "feedforward")
+    cfg = build_recipe_config("heat", device=device)
+    cfg.pde_type = "poisson"
+    return cfg
+
+
+def gen_small_config(case: str, device: str):
+    """The configuration of a small phase-45 case (``GEN_SMALL``)."""
+    from pinnrl_tpu_torch.config import load_config
+
+    pde_type, block, dim, arch, basis = GEN_SMALL[case]
+    cfg = load_config(pde_type=block, architecture=arch, device=device)
+    cfg.pde_type = pde_type
+    cfg.pde.dimension, cfg.model.input_dim = dim, dim + 1
+    cfg.pde.domain = [list(cfg.pde.domain[0])] * dim
+    cfg.model.hidden_dims = [64, 48]
+    cfg.model.arch_params["mapping_size"] = 32
+    if basis:
+        cfg.model.arch_params["trainable_features"] = True
+    return cfg
+
+
+def _gen_ptxas(name: str):
+    """(registers, spill bytes) of the generated kernel in library ``name``."""
+    from pinnrl_tpu_torch.ops.kernels import _build
+
+    rows = [(regs, st + ld) for entry, regs, _smem, st, ld, _stack
+            in ptxas_report(_build.BUILD_LOG.get(name, "")) if "generated_residual_kernel" in entry]
+    if len(rows) != 1:
+        raise AssertionError(f"{name}: generated_residual_kernel missing from the build log")
+    return rows[0]
+
+
+def _residual_bound(program, n: int):
+    """(ms, what bounds it) of one generated residual call: U read and dU
+    written ((S n) floats each), the z columns it reads, out written; one
+    operation per table op per point."""
+    live = program._live()
+    cols = sum(1 for k in live if program.instrs[k][0] == "z")
+    ops = sum(1 for k in live if program.instrs[k][0] not in ("u", "z", "const"))
+    return bound(float(ops * n), 4.0 * (2 * program.n_streams * n + cols * n + n))
+
+
+def gen_runs(dev, card: str):
+    """Phase 45: kernel 1's generated residual (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import _build, fourier_feats, fused_step, residual_codegen
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    t_phase = time.perf_counter()
+    # Phases 1-44 ran the six shipped PDEs: their hand residuals, never a generated one.
+    earlier = residual_codegen.launch.launches
+    if earlier:
+        raise AssertionError(f"the generated residual launched {earlier} times before phase 45")
+    register_user_pdes()
+    out = {"earlier_generated_launches": earlier}
+
+    # ---- the programs, built with one nvcc each, all started together ---- #
+    burgers_cfg = burgers_recipe_config("cuda")
+    burgers_pde, burgers_model = create_pde(burgers_cfg), PINNModel(burgers_cfg, seed=0)
+    hand_spec = fused_step._spec(burgers_model, burgers_pde)
+    if hand_spec.residual != "burgers":
+        raise AssertionError(f"Burgers as shipped took {hand_spec.residual}, not its hand kernel")
+    gen_spec = dataclasses.replace(hand_spec, residual="generated",
+                                   program=residual_codegen.trace(burgers_pde, 2, dev))
+    models = {"burgers_generated": (burgers_model, burgers_pde)}
+    for name in GEN_FULL:
+        cfg = gen_full_config(name, "cuda")
+        models[name] = (PINNModel(cfg, seed=0), create_pde(cfg))
+    cfg = fisher_config("cuda", 2)
+    models["fisher_kpp_2d"] = (PINNModel(cfg, seed=0), create_pde(cfg))
+    for case in GEN_SMALL:
+        cfg = gen_small_config(case, "cuda")
+        models[case] = (PINNModel(cfg, seed=0), create_pde(cfg))
+    specs = {"burgers_generated": gen_spec}
+    for name, (model, pde) in models.items():
+        if name != "burgers_generated":
+            if not fused_step.supports(model, pde):
+                raise AssertionError(f"{name}: kernel 1 refuses it: "
+                                     f"{fused_step.refusal(model, pde)}")
+            specs[name] = fused_step._spec(model, pde)
+        if specs[name].residual != "generated":
+            raise AssertionError(f"{name}: took the hand residual {specs[name].residual}")
+    programs = {}
+    for name, spec in specs.items():
+        programs.setdefault(spec.program.digest, (name, spec.program))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(programs)) as pool:
+        libs = dict(zip(programs, pool.map(lambda p: residual_codegen.library(p[1])[0],
+                                           programs.values())))
+    build_s = time.perf_counter() - t0
+    ptx = {}
+    for digest, (name, program) in programs.items():
+        regs, spill = _gen_ptxas(libs[digest])
+        ptx[name] = {"library": libs[digest], "registers": regs, "spill_bytes": spill,
+                     "streams": program.n_streams, "ops": program.ops,
+                     "build_s": _build.BUILD_SECONDS[libs[digest]]}
+    print(f"[generated] {len(programs)} generated residual kernels built in {build_s:.2f} s "
+          f"(one nvcc each, in parallel); ptxas (registers, spill bytes) per program: "
+          f"{ {k: (v['registers'], v['spill_bytes']) for k, v in ptx.items()} } ({card})",
+          flush=True)
+    if any(v["spill_bytes"] for v in ptx.values()):
+        raise AssertionError(f"a generated residual kernel spills: {ptx}")
+    out.update(build_s=build_s, ptxas=ptx)
+
+    # ---- each generated kernel alone against its float64 twin ------------ #
+    gen = torch.Generator(device=dev).manual_seed(45)
+    cuda_ops, plain_ops = fused_step._cuda_ops(dev), fused_step._TorchOps()
+    out["residual_alone"] = {}
+    for digest, (name, program) in programs.items():
+        n = 8192
+        d = program.n_cols - 1
+        U = torch.randn((program.n_streams * n, 1), generator=gen, device=dev)
+        z = torch.rand((n, d + 1), generator=gen, device=dev) * 2.0
+        worst, same = 0.0, True
+        for causal in (False, True):
+            a = residual_codegen.launch(program, U, z, n, causal)
+            b = residual_codegen.launch(program, U, z, n, causal)
+            ref = plain_ops.generated(program, U.double(), z.double(), n, causal)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(x, y) for x, y in zip(a, b))
+            for x, r in zip(a, ref):
+                worst = max(worst, float((x.double() - r).abs().max() / r.abs().max()))
+        out["residual_alone"][name] = {"rel_to_max": worst, "bit_identical": same}
+        if not (worst < GEN_TOL and same):
+            raise AssertionError(f"{name}: the generated residual kernel disagrees with its "
+                                 f"float64 twin ({worst}) or is not deterministic ({same})")
+    alone_txt = ", ".join(f"{k} {v['rel_to_max']:.2e} {v['bit_identical']}"
+                          for k, v in out["residual_alone"].items())
+    print(f"[generated] each generated residual kernel alone (N 8192, plain and causal) against "
+          f"its float64 twin, rel to max (tol {GEN_TOL:g}), bit-identical in two calls: "
+          f"{alone_txt} ({card})", flush=True)
+
+    # ---- kernel 1 through each generated residual, against the float64 twins -- #
+    out["parity"] = {}
+    for name, (model, pde) in models.items():
+        if name == "burgers_generated":
+            continue
+        sizes = (8192, LBFGS_N) if name in GEN_FULL else (GEN_SMALL_N,)
+        for causal in ((False, True) if name == "fisher_kpp" else (False,)):
+            pde.training.causal_eps = 1.0 if causal else 0.0
+            tols = FUSED_TOLS["burgers_causal" if causal else "burgers"]
+            for n in sizes:
+                out["parity"][f"{name}{'_causal' if causal else ''}_{n}"] = kernel1_vs_f64_twins(
+                    dev, model, pde, gen, n, tols,
+                    f"[generated] kernel 1 {name}{' causal' if causal else ''}")[3]
+            pde.training.causal_eps = 0.0
+
+    # ---- Burgers: the generated residual against burgers_kernel, timed ---- #
+    # Kernel 1 by CUDA-graph replay with each residual (in turns: hand,
+    # generated, generated, hand), each residual kernel alone, the plain
+    # version (bundle -> residual -> autograd) and the residual's twin.
+    bundle_fn = make_bundle_fn(burgers_model, 1, 2, 1)
+    P = {k: v.detach() for k, v in burgers_model.params.items()}
+    out["burgers_ab"] = {}
+    for n in (8192, LBFGS_N):
+        small = n == 8192
+        z = time_sorted(*burgers_pde.generate_collocation_points(gen, n, "uniform"))
+        lh, gh = fused_step._loss_and_grads(cuda_ops, hand_spec, z, P)
+        lg, gg = fused_step._loss_and_grads(cuda_ops, gen_spec, z, P)
+        torch.cuda.synchronize()
+        diff = max(abs(float(lh) - float(lg)), *(float((gh[k] - gg[k]).abs().max()) for k in gh))
+        ms = {"hand": [], "generated": []}
+        for which in ("hand", "generated", "generated", "hand"):
+            spec = hand_spec if which == "hand" else gen_spec
+            ms[which].append(graph_ms(lambda: fused_step._loss_and_grads(cuda_ops, spec, z, P),
+                                      iters=10 if small else 3, replays=5 if small else 3))
+        p_leaf = {k: v.clone().requires_grad_(True) for k, v in P.items()}
+        plain_ms = graph_ms(lambda: torch.autograd.grad(
+            fused_step.fused_residual_loss_plain(bundle_fn, burgers_pde, p_leaf, z),
+            list(p_leaf.values())), iters=3 if small else 2, replays=3)
+        del p_leaf
+        torch.cuda.empty_cache()
+        U = torch.randn((4 * n, 1), generator=gen, device=dev)
+        program = gen_spec.program
+        alone = {"hand": [], "generated": []}
+        for which in ("hand", "generated", "generated", "hand"):
+            fn = ((lambda: cuda_ops.burgers(U, n, 1, hand_spec.nu, False)) if which == "hand"
+                  else (lambda: residual_codegen.launch(program, U, z, n, False)))
+            alone[which].append(graph_ms(fn, iters=50, replays=10))
+        twin_ms = graph_ms(lambda: plain_ops.generated(program, U, z, n, False), iters=20,
+                           replays=5)
+        kb = kernel1_bound(P, 2, z, hand_spec.B)
+        rb = _residual_bound(program, n)
+        row = {"ms": statistics.mean(ms["generated"]), "hand_ms": statistics.mean(ms["hand"]),
+               "ms_turns": ms, "plain_ms": plain_ms, "bound_ms": kb[0], "bound_by": kb[1],
+               "hand_vs_generated_max_abs_diff": diff,
+               "residual_ms": statistics.mean(alone["generated"]),
+               "residual_hand_ms": statistics.mean(alone["hand"]), "residual_turns": alone,
+               "residual_plain_ms": twin_ms, "residual_bound_ms": rb[0],
+               "residual_bound_by": rb[1], "residual_library_ms": None}
+        out["burgers_ab"][n] = row
+        print(f"[generated] Burgers recipe (Fourier 256x3) N={n}: kernel 1 with the generated "
+              f"residual {row['ms']:.4f} ms, with burgers_kernel {row['hand_ms']:.4f} ms (turns "
+              f"{ms}), plain {plain_ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]}); hand vs generated "
+              f"max |diff| {diff:.3e}; the residual alone: generated {row['residual_ms']:.5f} ms, "
+              f"burgers_kernel {row['residual_hand_ms']:.5f} ms, twin {twin_ms:.5f} ms, bound "
+              f"{rb[0]:.6f} ms ({rb[1]}) ({card})", flush=True)
+    # Fisher-KPP's generated residual alone at the trainer's batches.
+    program = specs["fisher_kpp"].program
+    out["fisher_residual"] = {}
+    for n in (8192, LBFGS_N):
+        U = torch.randn((program.n_streams * n, 1), generator=gen, device=dev)
+        z = torch.rand((n, 2), generator=gen, device=dev)
+        r_ms = graph_ms(lambda: residual_codegen.launch(program, U, z, n, False))
+        r_twin = graph_ms(lambda: plain_ops.generated(program, U, z, n, False), iters=20,
+                          replays=5)
+        rb = _residual_bound(program, n)
+        out["fisher_residual"][n] = {"ms": r_ms, "plain_ms": r_twin, "bound_ms": rb[0],
+                                     "bound_by": rb[1], "library_ms": None}
+        print(f"[generated] Fisher-KPP's residual kernel alone N={n}: {r_ms:.5f} ms, twin "
+              f"{r_twin:.5f} ms, bound {rb[0]:.6f} ms ({rb[1]}) ({card})", flush=True)
+
+    # ---- the card paths, each with the counts set to 0 just before ------- #
+    def run(cfg, label, falls: bool):
+        tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+        fused_step.fused_residual_loss.launches = fourier_feats.fourier_features.launches = 0
+        residual_codegen.launch.launches = 0
+        evals0 = LBFGS.evaluations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.train(seed=0)["history"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
+                  "generated_residual": residual_codegen.launch.launches,
+                  "fourier_features": fourier_feats.fourier_features.launches}
+        t = cfg.training
+        phase1 = (int(t.adam_lbfgs_switch_ratio * t.num_epochs) if t.optimizer == "adam_lbfgs"
+                  else t.num_epochs)
+        steps = phase1 * (t.num_collocation_points // t.batch_size)
+        evals, vals = LBFGS.evaluations - evals0, len(hist["val_loss"])
+        want = steps + evals + vals
+        losses = hist["train_loss"] + hist["val_loss"]
+        print(f"[generated] {label}: {steps} Adam steps, {evals} L-BFGS evaluations, {vals} "
+              f"validations; kernel 1 {counts['fused_residual_loss']} launches (want {want}), the "
+              f"generated residual {counts['generated_residual']}, kernel 2 "
+              f"{counts['fourier_features']}; epoch losses "
+              f"{' '.join(f'{v:.6e}' for v in hist['train_loss'])}, validation "
+              f"{' '.join(f'{v:.6e}' for v in hist['val_loss'])}; {wall:.2f} s ({card})", flush=True)
+        ok = (tr.fused_kernel_active and counts["fused_residual_loss"] == want > 0
+              and counts["generated_residual"] == want and all(map(math.isfinite, losses)))
+        if falls:
+            ok = ok and hist["train_loss"][-1] < hist["train_loss"][0]
+        if not ok:
+            raise AssertionError(f"{label}: kernel 1 {counts}, want {want}; losses {losses}")
+        return {"launches": counts, "adam_steps": steps, "lbfgs_evaluations": evals,
+                "validations": vals, "train_loss": hist["train_loss"],
+                "val_loss": hist["val_loss"], "wall_s": wall}
+
+    out["runs"] = {
+        "fisher_kpp": run(fisher_config("cuda"), "Fisher-KPP on the Burgers recipe's Fourier "
+                                                 "256x3, adam_lbfgs", True),
+        "fisher_kpp_2d": run(fisher_config("cuda", 2), "Fisher-KPP in two dimensions on "
+                                                       "heat_2d's Fourier 256x3", False),
+        "relaxation": run(ode_config("cuda"), "the relaxation ODE (no x-group) on the Burgers "
+                                              "recipe's Fourier 256x3, adam_lbfgs", True)}
+    out["launches"] = out["runs"]["fisher_kpp"]["launches"]["fused_residual_loss"]
+    out["max_abs_err"] = max(v["max_abs_err"] for v in out["parity"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[generated] phase 45: {out['seconds']:.1f} s ({card})", flush=True)
     return out
 
 
@@ -5197,6 +5686,9 @@ def main() -> int:
     # ---- 44. kernel 1 in four or more space dimensions ----------------------- #
     nd4 = nd_runs(dev, card)
 
+    # ---- 45. kernel 1's generated residual: any registered PDE -------------- #
+    gen45 = gen_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -5226,7 +5718,7 @@ def main() -> int:
          "variants": list(FUSED_TOLS),
          "max_abs_err": max(*fused_errs.values(),
                             *(v["max_abs_err"] for v in trunks["trainable_basis"]["parity"].values()),
-                            nd4["max_abs_err"]),
+                            nd4["max_abs_err"], gen45["max_abs_err"]),
          "ms": fused_ms, "plain_ms": fused_plain_ms, "eager_ms": fused_eager_ms,
          "bound_ms": fused_bound[0], "bound_by": fused_bound[1], "library_ms": fused_lib_ms,
          "library_call": "torch.mm (FP32, TF32 off) of the call's GEMM shapes, Burgers N=8192",
@@ -5275,7 +5767,7 @@ def main() -> int:
                                            meshes["gloo_2ranks"].get("launches", [])]},
          "activations": {**acts, "tanh": {**acts["tanh"],
                                           "launches": rl_launches["fused_residual_loss"]}},
-         "nd4": nd4},
+         "nd4": nd4, "generated": gen45},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",

@@ -197,6 +197,11 @@ __device__ __forceinline__ void for_groups(F&& f) {
     }
 }
 
+// Per-group slots of the transport's arrays: D x-groups, at least one slot
+// so that D = 0 (an ODE: [value; t1], no x-group) declares no empty array.
+template <int D>
+constexpr int kSlots = D > 0 ? D : 1;
+
 template <int D, int KX>
 struct Layout {
     static constexpr int T = D * KX + 1;
@@ -388,6 +393,7 @@ __global__ void affine_input_kernel(const float* __restrict__ z, const float* __
     affine_map<D>(z + (long long)C * i, lo, sc, frame, c, r);
     for_groups<0, D>([&](auto g_) {
         constexpr int g = decltype(g_)::value;
+        if (kx == 0) return;  // an ODE: no x-group
         float* rg = r + (1 + (long long)g * kx) * stride;
 #pragma unroll
         for (int a = 0; a < C; ++a) rg[a] = a == g ? sc[a] : 0.0f;
@@ -412,11 +418,11 @@ template <int D, int KX>
 struct RowStats {
     float mu[D * KX + 2];
     float r;      // 1 / sqrt(var0 + eps)
-    float S1[D];  // mean(c0 c1) r
-    float V2[D];  // mean(c1^2 + c0 c2)            (KX >= 2)
-    float S2[D];  // (V2 - S1^2) r                 (KX >= 2)
-    float V3[D];  // mean(3 c1 c2 + c0 c3)        (KX = 3)
-    float S3[D];  // (V3 - 3 S1 S2) r              (KX = 3)
+    float S1[kSlots<D>];  // mean(c0 c1) r
+    float V2[kSlots<D>];  // mean(c1^2 + c0 c2)            (KX >= 2)
+    float S2[kSlots<D>];  // (V2 - S1^2) r                 (KX >= 2)
+    float V3[kSlots<D>];  // mean(3 c1 c2 + c0 c3)        (KX = 3)
+    float S3[kSlots<D>];  // (V3 - 3 S1 S2) r              (KX = 3)
     float St;     // s1 of the t-group = mean(c0 ct) r
 };
 
@@ -437,13 +443,13 @@ __device__ RowStats<D, KX> row_stats(const float* h, long long stride, int W, in
     for (int s = 0; s <= T; ++s) st.mu[s] = warp_sum(a[s]) / fw;
     // Statements in the one-dimensional kernel's order (the compiler's choice
     // of which product to fuse into an FMA follows it), so D = 1 keeps its bits.
-    float v0 = 0.f, v0t = 0.f, v01[D], v2[D], v3[D];
+    float v0 = 0.f, v0t = 0.f, v01[kSlots<D>], v2[kSlots<D>], v3[kSlots<D>];
     for_groups<0, D>([&](auto g_) {
         constexpr int g = decltype(g_)::value;
         v01[g] = v2[g] = v3[g] = 0.f;
     });
     for (int j = lane; j < W; j += 32) {
-        float c1[D];
+        float c1[kSlots<D>];
         const float c0 = h[j] - st.mu[0];
         for_groups<0, D>([&](auto g_) {
             constexpr int g = decltype(g_)::value;
@@ -723,7 +729,9 @@ __device__ __forceinline__ ElemGrad<D, KX> elem_grad(const Elem<D, KX>& e,
             Gy0 = Go[0] * e.d[1] + e.d[2] * Gd1 + e.d[3] * Gd2;
         }
     } else {
-        float Gd1 = Go[1] * e.y[1];
+        // Group 0's term first (D = 0 has none: index 1 is then the t-stream).
+        float Gd1 = 0.f;
+        if constexpr (D >= 1) Gd1 = Go[1] * e.y[1];
         for_groups<1, D>([&](auto gr_) {
             constexpr int gr = decltype(gr_)::value;
             Gd1 = Gd1 + Go[1 + gr] * e.y[1 + gr];
@@ -770,7 +778,7 @@ __device__ __forceinline__ ElemGrad<D, KX> elem_grad(const Elem<D, KX>& e,
 template <int D>
 struct RowScalars {
     float GSt, Gvar0;
-    float GS1[D], GS2[D], GS3[D], GV2[D], GV3[D];
+    float GS1[kSlots<D>], GS2[kSlots<D>], GS3[kSlots<D>], GV2[kSlots<D>], GV3[kSlots<D>];
 };
 
 // Cotangents of the centred streams c of one element.
@@ -850,7 +858,8 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
     // Pass A: row sums R_kj of the q-stream cotangents against the q streams,
     // per group (k, j = 0..3 within the group; j = 0 is the shared q0).
     float R00 = 0.f, Rt0 = 0.f, Rtt = 0.f;
-    float R10[D], R11[D], R20[D], R21[D], R22[D], R30[D], R31[D], R32[D], R33[D];
+    constexpr int G = kSlots<D>;
+    float R10[G], R11[G], R20[G], R21[G], R22[G], R30[G], R31[G], R32[G], R33[G];
     for_groups<0, D>([&](auto g_) {
         constexpr int g = decltype(g_)::value;
         R10[g] = R11[g] = R20[g] = R21[g] = R22[g] = R30[g] = R31[g] = R32[g] = R33[g] = 0.f;
@@ -1761,7 +1770,7 @@ __global__ void affine_input_nd_kernel(const float* __restrict__ z, const float*
     const float* zr = z + (long long)C * i;
     float* r = X + (long long)C * i;
     for (int a = 0; a < C; ++a) r[a] = affine_nd(zr, lo, sc, dim, a, frame, c);
-    for (int g = 0; g < dim; ++g) {
+    for (int g = 0; g < (kx ? dim : 0); ++g) {
         float* rg = r + (1 + (long long)g * kx) * stride;
         for (int a = 0; a < C; ++a) rg[a] = a == g ? sc[a] : 0.0f;
         for (int k = 2; k <= kx; ++k)
@@ -1907,11 +1916,14 @@ inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) /
 
 // ------------------------------------------------------- C entry points --
 // Each launches on the given stream and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an x-order other than 1, 2 or 3, a number of
-// space dimensions below 1, or an unknown activation code). dim = 1, 2 or 3
-// runs the kernels templated on D; dim >= 4 the *_nd kernels.
+// cudaErrorInvalidValue for an x-order other than 1, 2 or 3 (the input
+// kernels also take 0: an ODE, no x-group), a number of space dimensions
+// below 1 (the transport also takes 0: no x-group), or an unknown activation
+// code). dim = 1, 2 or 3 runs the kernels templated on D; dim >= 4 the *_nd
+// kernels; the transport's dim = 0 its kernels at D = 0.
 
 inline bool kx_ok(int kx) { return kx >= 1 && kx <= 3; }
+inline bool kx0_ok(int kx) { return kx >= 0 && kx <= 3; }  // the inputs: 0 for an ODE
 inline bool dim_ok(int dim) { return dim >= 1; }
 inline bool use_nd(int dim) { return dim > 3; }
 inline bool act_ok(int act) { return act >= ACT_TANH && act <= ACT_SIN; }
@@ -1941,6 +1953,15 @@ inline void with_kx(int kx, Fn&& fn) {
         fn(Int<1>{});
 }
 
+// fn(Int<KX>{}) for the runtime kx, 0 included (checked by kx0_ok).
+template <typename Fn>
+inline void with_kx0(int kx, Fn&& fn) {
+    if (kx == 0)
+        fn(Int<0>{});
+    else
+        with_kx(kx, fn);
+}
+
 // fn(Int<D>{}, Int<KX>{}) for the runtime dim and kx (checked by dim_ok, kx_ok).
 template <typename Fn>
 inline void with_dim_kx(int dim, int kx, Fn&& fn) {
@@ -1954,17 +1975,19 @@ extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const 
                         void* stream) {
     const float s = two_pi ? 6.283185307179586f : 1.0f;
     const long long total = (long long)n * m;
-    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (!kx0_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (total > 0 && use_nd(dim))
-        with_kx(kx, [&](auto k) {
+        with_kx0(kx, [&](auto k) {
             embed_nd_kernel<decltype(k)::value><<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(
                 z, lo, sc, B, X, n, m, dim, s, frame, c);
         });
     else if (total > 0)
-        with_dim_kx(dim, kx, [&](auto d, auto k) {
-            embed_kernel<decltype(d)::value, decltype(k)::value>
-                <<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m, s,
-                                                                     frame, c);
+        with_dim(dim, [&](auto d) {
+            with_kx0(kx, [&](auto k) {
+                embed_kernel<decltype(d)::value, decltype(k)::value>
+                    <<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m,
+                                                                         s, frame, c);
+            });
         });
     return (int)cudaGetLastError();
 }
@@ -1975,7 +1998,7 @@ extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, co
                             const float* G, int n, int m, int two_pi, int kx, int dim, int frame,
                             float c, float* partial, float* dB, void* stream) {
     const float s = two_pi ? 6.283185307179586f : 1.0f;
-    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (!kx0_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
     const int chunks = (int)cdiv(n, COLSUM_ROWS);
     const int cols = (dim + 1) * m;
     if (n > 0 && m > 0) {
@@ -1983,16 +2006,18 @@ extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, co
             const int tiles = (int)cdiv(dim + 1, EMBED_BWD_AXES);
             const int rows = dim + 1 < EMBED_BWD_AXES ? dim + 1 : EMBED_BWD_AXES;
             const size_t smem = sizeof(float) * 8 * 33 * (size_t)rows;
-            with_kx(kx, [&](auto k) {
+            with_kx0(kx, [&](auto k) {
                 embed_bwd_nd_partial_kernel<decltype(k)::value>
                     <<<dim3(cdiv(m, 32), (unsigned)chunks, (unsigned)tiles), dim3(32, 8), smem,
                        (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, dim, s, frame, c, partial);
             });
         } else {
-            with_dim_kx(dim, kx, [&](auto d, auto k) {
-                embed_bwd_partial_kernel<decltype(d)::value, decltype(k)::value>
-                    <<<dim3(cdiv(m, 32), (unsigned)chunks), dim3(32, 8), 0,
-                       (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, s, frame, c, partial);
+            with_dim(dim, [&](auto d) {
+                with_kx0(kx, [&](auto k) {
+                    embed_bwd_partial_kernel<decltype(d)::value, decltype(k)::value>
+                        <<<dim3(cdiv(m, 32), (unsigned)chunks), dim3(32, 8), 0,
+                           (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, s, frame, c, partial);
+                });
             });
         }
         colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks,
@@ -2003,7 +2028,7 @@ extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, co
 // X ((2 + dim kx) n, dim+1): the feedforward trunk's stacked input.
 extern "C" int fr_affine_input(const float* z, const float* lo, const float* sc, float* X, int n,
                                int kx, int dim, int frame, float c, void* stream) {
-    if (!kx_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (!kx0_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
     if (n > 0 && use_nd(dim))
         affine_input_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx,
                                                                               dim, frame, c);
@@ -2051,8 +2076,11 @@ extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K
 // act: one of ACT_* (ops/kernels/fused_step.py: _ACT_CODES).
 extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float* beta, float* A,
                                 int n, int W, int use_ln, int kx, int dim, int act, void* stream) {
-    if (!kx_ok(kx) || !dim_ok(dim) || !act_ok(act)) return (int)cudaErrorInvalidValue;
-    if (n > 0 && use_nd(dim))
+    if (!kx_ok(kx) || dim < 0 || !act_ok(act)) return (int)cudaErrorInvalidValue;
+    if (n > 0 && dim == 0)  // no x-group: [value; t1], d0..d2 as at order 1
+        transport_fwd_kernel<0, 1><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(
+            H, gamma, beta, A, n, W, use_ln, act);
+    else if (n > 0 && use_nd(dim))
         with_kx(kx, [&](auto k) {
             transport_fwd_nd_kernel<decltype(k)::value>
                 <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, dim,
@@ -2070,8 +2098,11 @@ extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float*
 extern "C" int fr_transport_bwd(const float* H, const float* gamma, const float* beta,
                                 const float* GA, float* GH, float* Ggamma, float* Gbeta, int n,
                                 int W, int use_ln, int kx, int dim, int act, void* stream) {
-    if (!kx_ok(kx) || !dim_ok(dim) || !act_ok(act)) return (int)cudaErrorInvalidValue;
-    if (n > 0 && use_nd(dim))
+    if (!kx_ok(kx) || dim < 0 || !act_ok(act)) return (int)cudaErrorInvalidValue;
+    if (n > 0 && dim == 0)
+        transport_bwd_kernel<0, 1><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(
+            H, gamma, beta, GA, GH, Ggamma, Gbeta, n, W, use_ln, act);
+    else if (n > 0 && use_nd(dim))
         with_kx(kx, [&](auto k) {
             transport_bwd_nd_kernel<decltype(k)::value>
                 <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exports a plain C interface. At first use it is
 compiled by ``nvcc`` into ``build/torch_kernels/lib<name>-<hash>.so`` at the
 repository root and loaded with ``ctypes``; the hash covers the sources and
-the flags, so a stale build is never loaded. Nothing is compiled or loaded
-when this module is imported.
+the flags, so a stale build is never loaded. Emitted sources (kernel 1's
+generated residuals, ``residual_codegen.py``) take the same way through
+``load_generated``, their ``.cu`` kept beside the library. Nothing is
+compiled or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -48,22 +50,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built at first use on a CUDA machine")
 
 
-def _digest(source: Path) -> str:
-    h = hashlib.sha256()
-    for path in sorted([source, *CSRC.glob("*.cuh")]):
+def _digest(text: bytes) -> str:
+    """Hash of a source's text, every ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256(text)
+    for path in sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    lib = _LOADED.get(name)
-    if lib is not None:
-        return lib
-    source = CSRC / f"{name}.cu"
-    target = BUILD_DIR / f"lib{name}-{_digest(source)}.so"
+def _compile(name: str, source: Path, target: Path) -> ctypes.CDLL:
+    """Build ``source`` into ``target`` unless it exists, then load it; the
+    compiler's report goes to ``BUILD_LOG[name]``. A failed build raises with
+    nvcc's output."""
     t0 = time.perf_counter()
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,6 +85,34 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(target))
     _LOADED[name] = lib
     return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    source = CSRC / f"{name}.cu"
+    return _compile(name, source, BUILD_DIR / f"lib{name}-{_digest(source.read_bytes())}.so")
+
+
+def load_generated(name: str, text: str) -> ctypes.CDLL:
+    """Compile the emitted CUDA source ``text`` (it includes ``csrc``
+    headers) as ``build/torch_kernels/<name>-<hash>.cu`` beside its
+    ``lib<name>-<hash>.so`` and ``.log``, and return the loaded library.
+    Libraries are keyed by ``name``: one name, one text."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    stem = f"{name}-{_digest(text.encode())}"
+    source = BUILD_DIR / f"{stem}.cu"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not source.exists() or source.read_text() != text:
+        fd, tmp = tempfile.mkstemp(suffix=".cu", dir=BUILD_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, source)  # atomic: a concurrent nvcc never reads half a file
+    return _compile(name, source, BUILD_DIR / f"lib{stem}.so")
 
 
 def stream_handle(device: Union[torch.device, int]) -> int:

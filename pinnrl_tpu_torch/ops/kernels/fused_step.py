@@ -32,13 +32,20 @@ t)), on a Fourier trunk (the embedding's closed-form phase-rotation
 streams; with a trainable basis B is a leaf read per call, and dL/dB comes
 from the embedding's cotangent, ``_embed_bwd_plain``) or a feedforward
 trunk (the input map's constant direction rows, then a first GEMM with d +
-1 input columns), with the residual of Burgers, heat or
-Allen-Cahn (spatial order K = 2), Black-Scholes (order 2; the one residual
-that reads z, for S along each axis), KdV (order 3) or convection (order 1,
-one velocity per axis). The stacked streams are [value; axis 0: 1..K; ..;
-axis d-1: 1..K; t1], S = 2 + d K of them (the bundle's order); the x-groups
-share the value stream's LayerNorm statistics and activation derivatives, and
-the residuals sum over the axes. The activation is any of the bundle's
+1 input columns), with any PDE's residual, as the reference traces any
+``residual_pointwise`` into its kernel. Six residuals have hand-written
+kernels, taken only where the PDE's ``residual_pointwise`` is the shipped
+class's own (``_HAND_RESIDUALS``): Burgers, heat or Allen-Cahn (spatial
+order K = 2), Black-Scholes (order 2; it reads z, for S along each axis),
+KdV (order 3) and convection (order 1, one velocity per axis). Every other
+residual, a subclass that overrides ``residual_pointwise`` included, is
+traced by ``residual_codegen`` into a generated CUDA residual kernel with
+the same contract. The stacked streams are [value; axis 0: 1..K; ..; axis
+d-1: 1..K; t1], S = 2 + d K of them (the bundle's order); K = 0 (an ODE)
+has no x-group, and a PDE without a time derivative has its t-stream
+computed and unread. The x-groups share the value stream's LayerNorm
+statistics and activation derivatives, and the residuals sum over the
+axes. The activation is any of the bundle's
 (``jet_mlp.ACTIVATION_DERIVATIVES``: tanh, gelu, sigmoid, silu/swish, sin),
 passed to the transport kernels as a runtime code (``_ACT_CODES``).
 """
@@ -54,13 +61,22 @@ import torch
 
 from pinnrl_tpu_torch.ops.jet_mlp import (ACTIVATION_DERIVATIVES, BundleView, _transport_block,
                                           activation_derivatives, make_bundle_fn)
-from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core
+from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core, residual_codegen
 from pinnrl_tpu_torch.ops.kernels._gemm_core import TARGET_BLOCKS, TILE, cdiv, split_chunks
 
 _LN_EPS = 1e-6
 _COLSUM_ROWS = 256
 _SCAN_BLOCK = 1024  # points per block of the causal prefix scan
-_RESIDUALS = ("burgers", "heat", "kdv", "convection", "allen_cahn", "black_scholes")
+# The hand residual kernels: name -> (module, class) of the shipped PDE whose
+# residual_pointwise each computes.
+_HAND_RESIDUALS = {
+    "burgers": ("burgers", "BurgersEquation"),
+    "heat": ("heat", "HeatEquation"),
+    "kdv": ("kdv", "KdVEquation"),
+    "convection": ("convection", "ConvectionEquation"),
+    "allen_cahn": ("allen_cahn", "AllenCahnEquation"),
+    "black_scholes": ("black_scholes", "BlackScholesEquation"),
+}
 _MIN_SPLIT_K = 512  # least K per split: the prologue and epilogue stay small
 _BASIS = "FourierFeatures_0.B"
 # The transport kernels' ``act`` argument (csrc/fused_residual.cu: ACT_*).
@@ -161,7 +177,7 @@ def _affine_input_plain(z, lo, sc, x_order: int, frame: Optional[float]) -> torc
     n, d = z.shape[0], z.shape[1] - 1
     dirs = torch.diag(sc)  # row k: sc_k e_k
     rows = [_affine_map(z, lo, sc, frame)]
-    for ax in range(d):
+    for ax in range(d if x_order else 0):
         rows += [dirs[ax].expand(n, d + 1), z.new_zeros(((x_order - 1) * n, d + 1))]
     rows.append(_t_direction(sc, frame).expand(n, d + 1))
     return torch.cat(rows, dim=0)
@@ -169,8 +185,10 @@ def _affine_input_plain(z, lo, sc, x_order: int, frame: Optional[float]) -> torc
 
 def _split_streams(T: torch.Tensor, n: int, dim: int):
     """(value, the ``dim`` x-groups' stream lists, t1) of a stacked (S n, W)
-    tensor, S = 2 + dim K."""
+    tensor, S = 2 + dim K; ``dim`` 0: no x-group."""
     hs = T.split(n, dim=0)
+    if dim == 0:
+        return hs[0], [], hs[-1]
     k = (len(hs) - 2) // dim
     return hs[0], [list(hs[1 + g * k: 1 + (g + 1) * k]) for g in range(dim)], hs[-1]
 
@@ -319,7 +337,7 @@ def _transport_bwd_plain(H, gamma, beta, GA, n: int, dim: int, act: str):
         yx = [[qk * gamma for qk in q] for _S, _V, q in lns]
     else:
         y0, yx, yt = h0, hx, ht
-    K = len(hx[0])
+    K = len(hx[0]) if hx else 1  # no x-group: d0..d2, as order 1
     d = activation_derivatives(act, y0, K + 1)
     Gd = [Got * yt] + [0.0] * (K - 1)  # [G_d1 .. G_dK]
     Gyx = []
@@ -455,6 +473,12 @@ class _TorchOps:
         return _residual_out(r, n, causal,
                              [c * (3.0 * u * u - 1.0), *[v for _ in gx for v in (zero, -c * eps2)], c])
 
+    def generated(self, program, U, z, n, causal):
+        """Any residual, from its traced program (``residual_codegen``)."""
+        r, g = program.evaluate(U, z, n)
+        c = _residual_scale(r, n, causal)
+        return _residual_out(r, n, causal, [c * g_s for g_s in g])
+
     def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal):
         """S = z[:, ax] along each axis ax."""
         V, gx, Vt = _split_streams(U.reshape(-1), n, z.shape[1] - 1)
@@ -585,7 +609,7 @@ class _CudaOps:
         A = torch.empty_like(H)
         _build.check(self.lib.fr_transport_fwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                A.data_ptr(), n, H.shape[1], int(gamma is not None),
-                                               (H.shape[0] // n - 2) // dim, dim, _ACT_CODES[act],
+                                               _group_order(H, n, dim), dim, _ACT_CODES[act],
                                                self.stream),
                      "transport_fwd_kernel")
         return A
@@ -598,7 +622,7 @@ class _CudaOps:
         _build.check(self.lib.fr_transport_bwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                GA.data_ptr(), GH.data_ptr(), self._ptr(Gg),
                                                self._ptr(Gb), n, H.shape[1], int(use_ln),
-                                               (H.shape[0] // n - 2) // dim, dim, _ACT_CODES[act],
+                                               _group_order(H, n, dim), dim, _ACT_CODES[act],
                                                self.stream),
                      "transport_bwd_kernel")
         return GH, Gg, Gb
@@ -640,6 +664,9 @@ class _CudaOps:
                                             float(eps2), int(causal), self.stream),
                      "allen_cahn_kernel")
         return dU, out
+
+    def generated(self, program, U, z, n, causal):
+        return residual_codegen.launch(program, U, z, n, causal)
 
     def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal):
         dU = torch.empty_like(U)
@@ -693,6 +720,12 @@ class _CudaOps:
         _build.check(self.lib.fr_wcolsum(G.data_ptr(), X.data_ptr(), R, K, K, partial.data_ptr(),
                                          out.data_ptr(), self.stream), "weighted colsum kernels")
         return out
+
+
+def _group_order(H: torch.Tensor, n: int, dim: int) -> int:
+    """K of the stacked (2 + dim K) n rows; 1 where there is no x-group
+    (the transport kernels then walk no group and read d0..d2)."""
+    return (H.shape[0] // n - 2) // dim if dim else 1
 
 
 _CUDA_OPS: Dict[torch.device, _CudaOps] = {}
@@ -774,9 +807,9 @@ class _Spec:
     use_ln: bool
     periodic: bool
     dimension: int  # d space axes, d >= 1
-    x_order: int  # K: the stacked streams are [value; per axis x1..xK; t1]
+    x_order: int  # K: the stacked streams are [value; per axis x1..xK; t1]; 0: no x-group
     frame_speed: Optional[float]  # c of a co-moving frame (x - c t, t); None: none
-    residual: str  # one of _RESIDUALS
+    residual: str  # one of _HAND_RESIDUALS, or "generated" (``program``)
     causal_eps: float  # 0 = plain mean r^2
     lo: torch.Tensor
     scale: torch.Tensor
@@ -793,6 +826,7 @@ class _Spec:
     sigma: float = 0.0  # Black-Scholes' volatility
     rate: float = 0.0  # Black-Scholes' interest rate r
     sign: float = 0.0  # Black-Scholes' time sign: +1 calendar, -1 to maturity
+    program: Optional[residual_codegen.ResidualProgram] = None  # the generated residual
 
 
 def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor],
@@ -804,6 +838,7 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
     L = spec.n_hidden
     causal = spec.causal_eps > 0.0
     d = spec.dimension
+    groups = d if spec.x_order else 0  # the transport's x-groups
     B = P[_BASIS] if spec.trainable_basis else spec.B
     if B is None:
         X = [ops.affine_input(z, spec.lo, spec.scale, spec.x_order, spec.frame_speed)]
@@ -815,9 +850,11 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
         gamma = P[f"LayerNorm_{i}.weight"] if spec.use_ln else None
         beta = P[f"LayerNorm_{i}.bias"] if spec.use_ln else None
         Hs.append(H)
-        X.append(ops.transport_fwd(H, gamma, beta, n, d, spec.activation))
+        X.append(ops.transport_fwd(H, gamma, beta, n, groups, spec.activation))
     U = _linear(ops, X[-1], P[f"Dense_{L}.weight"], P[f"Dense_{L}.bias"], n)
-    if spec.residual == "burgers":
+    if spec.program is not None:
+        G, out = ops.generated(spec.program, U, z, n, causal)
+    elif spec.residual == "burgers":
         G, out = ops.burgers(U, n, d, spec.nu, causal)
     elif spec.residual == "heat":
         G, out = ops.heat(U, n, d, spec.alpha, causal)
@@ -857,7 +894,7 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
         j = i - 1
         gamma = P[f"LayerNorm_{j}.weight"] if spec.use_ln else None
         beta = P[f"LayerNorm_{j}.bias"] if spec.use_ln else None
-        G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n, d, spec.activation)
+        G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n, groups, spec.activation)
         if spec.use_ln:
             width = Gg.shape[1]
             grads[f"LayerNorm_{j}.weight"] = ops.colsum(Gg, n, width, width, 1.0)
@@ -927,7 +964,9 @@ def fused_residual_loss(spec: _Spec, bundle_fn, pde, params, z) -> torch.Tensor:
 fused_residual_loss.launches = 0
 
 
-def _spec(model, pde) -> _Spec:
+def _spec(model, pde, program: Optional[residual_codegen.ResidualProgram] = None) -> _Spec:
+    """The kernels' view of ``model`` and ``pde``; ``program`` is the
+    generated residual's, where the caller has traced it already."""
     cfg = model.config
     use_ln = bool(cfg.layer_norm)
     n_hidden = len(cfg.hidden_dims)
@@ -939,8 +978,13 @@ def _spec(model, pde) -> _Spec:
         if use_ln:
             names += [f"LayerNorm_{i}.weight", f"LayerNorm_{i}.bias"]
     names += [f"Dense_{n_hidden}.weight", f"Dense_{n_hidden}.bias"]
-    kind = pde.pde_type
+    x_order = max(pde.spatial_orders, default=0)
+    kind = _hand_residual(pde)
     coeffs = {}  # read once here, as floats: the kernels take them by value
+    if kind is None:
+        kind = "generated"
+        coeffs["program"] = (program if program is not None else
+                             residual_codegen.trace(pde, x_order, device=model._in_lo.device))
     if kind == "burgers":
         coeffs["nu"] = float(pde._nu(None))
     elif kind == "heat":
@@ -959,7 +1003,7 @@ def _spec(model, pde) -> _Spec:
         use_ln=use_ln,
         periodic=bool(cfg.arch_params.get("periodic", True)),
         dimension=pde.dimension,
-        x_order=max(pde.spatial_orders),
+        x_order=x_order,
         frame_speed=model._frame_speed,
         residual=kind,
         causal_eps=pde.causal_eps(),
@@ -973,18 +1017,22 @@ def _spec(model, pde) -> _Spec:
     )
 
 
-def make_fused_residual_loss(model, pde) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]:
+class Refused(ValueError):
+    """Kernel 1 does not take this model and PDE; the message says why."""
+
+
+def make_fused_residual_loss(model, pde, training=None) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]:
     """Build ``fn(params, z) -> residual loss`` whose gradient comes from the
     kernels' own backward. ``z`` is (N, d+1) physical coordinates
-    (x_1..x_d, t), sorted by time when the loss is causal."""
-    if not supports(model, pde):
-        raise ValueError(
-            f"fused residual kernel does not support pde={pde.pde_type}, "
-            f"arch={model.config.architecture}"
-        )
-    spec = _spec(model, pde)
-    bundle_fn = make_bundle_fn(model, pde.dimension, spatial_order=max(pde.spatial_orders),
-                               temporal_order=max(pde.temporal_orders))
+    (x_1..x_d, t), sorted by time when the loss is causal. Raises
+    ``Refused`` where kernel 1 does not take them (``refusal``)."""
+    reason, program = _admit(model, pde, training)
+    if reason is not None:
+        raise Refused(f"kernel 1 does not take pde={pde.pde_type}, "
+                      f"arch={model.config.architecture}: {reason}")
+    spec = _spec(model, pde, program)
+    bundle_fn = make_bundle_fn(model, pde.dimension, spatial_order=spec.x_order,
+                               temporal_order=max(pde.temporal_orders, default=0))
 
     def fn(params, z):
         return fused_residual_loss(spec, bundle_fn, pde, params, z)
@@ -992,29 +1040,62 @@ def make_fused_residual_loss(model, pde) -> Callable[[Dict[str, torch.Tensor], t
     return fn
 
 
-def supports(model, pde, training=None) -> bool:
-    """The reference's ``supports``: the structural conditions of the
-    stacked-jet bundle (a Fourier or feedforward trunk, a co-moving frame
-    or none), the reductions the kernel hard-codes (plain MSE, no trainable
-    coefficients), temporal order 1 and spatial order at most 3, causal or
-    not; and this port's residuals (``_RESIDUALS``) in any number of space
-    dimensions, as the reference's. The activations are the bundle's: tanh,
-    gelu, sigmoid, silu/swish and sin; softplus, which the reference's gate
-    admits but whose ``jet`` transport fails there, runs on the generic
-    engine. No width gate: the TPU's gate was a TPU measurement, and no
-    H100 measurement has set one."""
+def _hand_residual(pde) -> Optional[str]:
+    """The hand residual kernel of ``pde``, or None: a hand kernel computes
+    one shipped class's residual, so it is taken only where the PDE's
+    ``residual_pointwise`` is that class's own function (a subclass that
+    overrides it gets the generated residual)."""
+    import importlib
+
+    for name, (module, cls) in _HAND_RESIDUALS.items():
+        shipped = getattr(importlib.import_module(f"pinnrl_tpu_torch.pdes.{module}"), cls)
+        if type(pde).residual_pointwise is shipped.residual_pointwise:
+            return name
+    return None
+
+
+def _admit(model, pde, training=None) -> Tuple[Optional[str], Optional[residual_codegen.ResidualProgram]]:
+    """(why kernel 1 does not take this model and PDE, None), or (None, the
+    generated residual's program, None where a hand kernel computes it).
+
+    The reference's ``supports``: the structural conditions of the
+    stacked-jet bundle (a Fourier or feedforward trunk, a co-moving frame or
+    none), the reductions the kernel hard-codes (plain MSE, no trainable
+    coefficients), temporal order at most 1 and spatial order at most 3,
+    causal or not, in any number of space dimensions; and here a residual
+    that has a hand kernel or traces into the generated residual's op table
+    (``residual_codegen``). The activations are the bundle's: tanh, gelu,
+    sigmoid, silu/swish and sin; softplus, which the reference's gate admits
+    but whose ``jet`` transport fails there, runs on the generic engine. No
+    width gate: the TPU's gate was a TPU measurement, and no H100
+    measurement has set one."""
     from pinnrl_tpu_torch.ops import jet_mlp
 
     if not (pde.bundle_compatible and pde.system_size == 1 and jet_mlp.supports(model, pde)):
-        return False
+        return "the stacked-jet bundle does not take this model and PDE", None
     if getattr(pde, "trainable_parameters", None):
-        return False
+        return "trainable PDE coefficients", None
     if training is not None and getattr(training, "loss_function", "mse") != "mse":
-        return False
-    if pde.pde_type not in _RESIDUALS:
-        return False
+        return f"loss_function={training.loss_function!r} (the kernel reduces by MSE)", None
     if model.config.architecture not in ("fourier", "feedforward"):
-        return False
-    if max(pde.spatial_orders, default=0) > 3 or max(pde.temporal_orders, default=0) != 1:
-        return False
-    return True
+        return f"architecture={model.config.architecture!r}", None
+    if max(pde.spatial_orders, default=0) > 3 or max(pde.temporal_orders, default=0) > 1:
+        return "spatial order above 3 or temporal order above 1", None
+    if _hand_residual(pde) is not None:
+        return None, None
+    try:
+        return None, residual_codegen.trace(pde, max(pde.spatial_orders, default=0),
+                                            device=model._in_lo.device)
+    except residual_codegen.Unsupported as e:
+        return str(e), None
+
+
+def refusal(model, pde, training=None) -> Optional[str]:
+    """Why kernel 1 does not take this model and PDE, or None where it does
+    (``_admit``)."""
+    return _admit(model, pde, training)[0]
+
+
+def supports(model, pde, training=None) -> bool:
+    """Whether kernel 1 takes this model and PDE (``refusal`` says why not)."""
+    return refusal(model, pde, training) is None

@@ -246,21 +246,21 @@ class PDEBase:
     def attach_fused_residual_kernel(self, model, enable: str | bool = "auto") -> bool:
         """Attach the fused residual-loss kernel (ops/kernels/fused_step.py):
         hand-written CUDA kernels compute the (causally weighted) mean r^2
-        and its parameter gradient. On CPU tensors the same callable runs its plain version."""
+        and its parameter gradient, the residual by its hand kernel or, for
+        any other ``residual_pointwise``, by one generated from its trace.
+        On CPU tensors the same callable runs its plain version."""
         from pinnrl_tpu_torch.ops.kernels import fused_step
 
         if enable in (False, "off", "false"):
             self._fused_residual_loss = None
             return False
-        if not fused_step.supports(model, self, self.training):
-            if enable is True or enable == "on":
-                raise ValueError(
-                    "fused residual kernel requested but unsupported for "
-                    f"pde={self.pde_type}, arch={model.config.architecture}"
-                )
+        try:
+            self._fused_residual_loss = fused_step.make_fused_residual_loss(model, self, self.training)
+        except fused_step.Refused as e:
             self._fused_residual_loss = None
+            if enable is True or enable == "on":
+                raise ValueError(f"fused residual kernel requested but unsupported: {e}") from None
             return False
-        self._fused_residual_loss = fused_step.make_fused_residual_loss(model, self)
         return True
 
     def _scalar_u(self, apply_fn: Callable, params):

@@ -258,9 +258,13 @@ def test_mlp_score_bindings_match_the_c_entry_points():
 def test_one_gemm_core_in_csrc():
     """The port has one FP32 GEMM: every .cu that runs a product includes
     the Hopper core and runs its tile, kernels 1 and 4 through the header's
-    one linear-layer GEMM (``sm90_gemm``), and no other GEMM header is left."""
+    one linear-layer GEMM (``sm90_gemm``), and no other GEMM header is left
+    (the one other header, the generated residual's skeleton, runs no
+    product)."""
     csrc = Path(siren.__file__).resolve().parents[2] / "csrc"
-    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["sgemm_sm90.cuh"]
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["residual_generated.cuh",
+                                                          "sgemm_sm90.cuh"]
+    assert "gemm" not in (csrc / "residual_generated.cuh").read_text().lower()
     assert "gemm_sm90_tile<" in (csrc / "sgemm_sm90.cuh").read_text()
     for name, call in (("fused_residual.cu", "sm90_gemm<true>("),
                        ("mlp_score.cu", "sm90_gemm<false>("), ("siren.cu", "gemm_sm90_tile<")):

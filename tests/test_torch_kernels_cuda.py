@@ -45,7 +45,12 @@ in float64 at the kernel's bounds (loss 1e-5, gradients 1e-4; causal KdV
 input, transport and residual kernels at the d = 2-3 bounds above, dL/dB
 (one and two tiles of axis rows) at 1e-4 relative to max against the
 float64 twin, and the whole loss against the plain version run in float64
-at the kernel's bounds (causal 1e-4 and 1e-3).
+at the kernel's bounds (causal 1e-4 and 1e-3). The generated residual
+kernel (any PDE's residual, traced): 1e-5 relative to max against its
+program's float64 twin (sinf, tanhf and expf against torch's), and 1e-6
+against burgers_kernel on Burgers' own residual; a first-order ODE's input,
+dL/dB and transport kernels (no x-group) at the bounds of their K >= 1
+tests.
 """
 
 import numpy as np
@@ -935,8 +940,10 @@ def test_residual_kernels_match_twins(cuda_device, dim, causal):
     z = torch.rand((n, dim + 1), generator=gen, device=cuda_device) * 2.0
     cuda_ops, plain = fused_step._cuda_ops(cuda_device), fused_step._TorchOps()
     velocity = (0.5, -1.5, 2.0, 0.25, -0.75, 1.25, 3.0, -2.0)[:dim]
+    velocity_dev = torch.tensor(velocity, device=cuda_device)
     for name, K, args in (("burgers", 2, (dim, 0.01)), ("heat", 2, (dim, 0.3)), ("kdv", 3, (dim,)),
-                          ("convection", 1, (velocity,)), ("allen_cahn", 2, (dim, 0.09))):
+                          ("convection", 1, (velocity, velocity_dev)),
+                          ("allen_cahn", 2, (dim, 0.09))):
         U = torch.randn(((2 + dim * K) * n, 1), generator=gen, device=cuda_device)
         got = getattr(cuda_ops, name)(U, n, *args, causal)
         ref = getattr(plain, name)(U, n, *args, causal)
@@ -1459,3 +1466,103 @@ def test_fused_residual_loss_in_four_and_more_dimensions_matches_plain(cuda_devi
     assert abs(float(l1) - float(lp.detach())) / abs(float(lp.detach())) < loss_tol
     for name, a, b in zip(params, g1, gp):
         assert torch.isfinite(a).all() and _rel(a.double(), b) < grad_tol, name
+
+
+def _sin_tanh_program(dim):
+    """A residual through sin, tanh, sigmoid and exp, reading z: traced from
+    a Burgers subclass (the generated residual's op table and its reverse)."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.ops.derivatives import directional_derivative as dd
+    from pinnrl_tpu_torch.ops.kernels import residual_codegen
+    from pinnrl_tpu_torch.pdes.burgers import BurgersEquation
+
+    class Forced(BurgersEquation):
+        def residual_pointwise(self, u, z, coeffs):
+            val = u(z)
+            r = dd(u, z, self.dimension, 1)[0] + 0.5 * torch.tanh(val) + torch.sigmoid(val)
+            for ax in range(self.dimension):
+                r = r + torch.sin(z[:, ax]) * dd(u, z, ax, 2)[1] * torch.exp(-val * val)
+            return r
+
+    cfg = load_config(pde_type="burgers", device="cpu")
+    cfg.pde.dimension = dim
+    cfg.pde.domain = [[-1.0, 1.0]] * dim
+    return residual_codegen.trace(Forced(cfg.pde, cfg.training, device="cpu"), 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dim", [1, 2, 4])
+def test_generated_residual_kernel_matches_twin(cuda_device, dim, causal):
+    """The generated residual kernel (csrc/residual_generated.cuh around the
+    emitted body) against its float64 twin (``_TorchOps.generated``) on seeded stacked
+    outputs, 1e-5 relative to max (sinf, tanhf, expf against torch's), with
+    exactly one launch counted per call and two calls bit-identical; and for
+    Burgers' own residual against burgers_kernel at 1e-6."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.ops.kernels import fused_step, residual_codegen
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    gen = torch.Generator(device=cuda_device).manual_seed(dim)
+    n = 5000
+    program = _sin_tanh_program(dim)
+    U = torch.randn((program.n_streams * n, 1), generator=gen, device=cuda_device)
+    z = torch.rand((n, dim + 1), generator=gen, device=cuda_device) * 2.0
+    before = residual_codegen.launch.launches
+    got = residual_codegen.launch(program, U, z, n, causal)
+    again = residual_codegen.launch(program, U, z, n, causal)
+    ref = fused_step._TorchOps().generated(program, U.double(), z.double(), n, causal)
+    torch.cuda.synchronize()
+    assert residual_codegen.launch.launches == before + 2
+    for a, b, r in zip(got, again, ref):
+        assert a.shape == r.shape and torch.equal(a, b) and _rel(a.double(), r) < 1e-5
+    cfg = load_config(pde_type="burgers", device="cpu")
+    cfg.pde.dimension, cfg.pde.domain = dim, [[-1.0, 1.0]] * dim
+    burgers = residual_codegen.trace(create_pde(cfg), 2)
+    U = torch.randn((burgers.n_streams * n, 1), generator=gen, device=cuda_device)
+    got = residual_codegen.launch(burgers, U, z, n, causal)
+    ref = fused_step._cuda_ops(cuda_device).burgers(U, n, dim, 0.01, causal)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert _rel(a, r) < 1e-6
+
+
+@pytest.mark.parametrize("dim", [1, 2, 4])
+def test_no_x_group_kernels_match_twins(cuda_device, dim):
+    """A first-order ODE's kernels (no x-group): the Fourier and feedforward
+    input kernels at K = 0 (embed_kernel<D, 0>, embed_nd_kernel<0>), dL/dB
+    at K = 0, and the transport at D = 0 (transport_fwd_kernel<0, 1>,
+    transport_bwd_kernel<0, 1>, with and without LayerNorm) against their
+    twins, at the bounds of the K >= 1 tests above."""
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(dim)
+    n, m, width = 2999, 64, 256
+    z = torch.rand((n, dim + 1), generator=gen, device=cuda_device) * 3.0 - 1.0
+    lo = -torch.ones(dim + 1, device=cuda_device)
+    sc = torch.rand(dim + 1, generator=gen, device=cuda_device) + 0.5
+    B = torch.randn((dim + 1, m), generator=gen, device=cuda_device)
+    ops = fused_step._cuda_ops(cuda_device)
+    X = ops.embed(z, lo, sc, B, True, 0, None)
+    X_ff = ops.affine_input(z, lo, sc, 0, None)
+    G = torch.randn((2 * n, 2 * m), generator=gen, device=cuda_device)
+    dB = ops.embed_bwd(z, lo, sc, B, G, True, 0, None)
+    torch.cuda.synchronize()
+    assert X.shape == (2 * n, 2 * m) and X_ff.shape == (2 * n, dim + 1)
+    assert _rel(X, fused_step._embed_plain(z, lo, sc, B, True, 0, None)) < 1e-4
+    assert _rel(X_ff, fused_step._affine_input_plain(z, lo, sc, 0, None)) < 1e-6
+    dB_ref = fused_step._embed_bwd_plain(z.double(), lo.double(), sc.double(), B.double(),
+                                         G.double(), True, 0, None)
+    assert _rel(dB.double(), dB_ref) < 1e-4
+    H = torch.randn((2 * n, width), generator=gen, device=cuda_device)
+    GA = torch.randn((2 * n, width), generator=gen, device=cuda_device)
+    gamma = 1.0 + 0.2 * torch.randn(width, generator=gen, device=cuda_device)
+    beta = 0.2 * torch.randn(width, generator=gen, device=cuda_device)
+    for g, b in ((gamma, beta), (None, None)):
+        A = ops.transport_fwd(H, g, b, n, 0, "tanh")
+        GH, Gg, Gb = ops.transport_bwd(H, g, b, GA, n, 0, "tanh")
+        A_ref = fused_step._transport_fwd_plain(H, g, b, n, 0, "tanh")
+        GH_ref, Gg_ref, Gb_ref = fused_step._transport_bwd_plain(H, g, b, GA, n, 0, "tanh")
+        torch.cuda.synchronize()
+        assert _rel(A, A_ref) < 1e-5 and _rel(GH, GH_ref) < 1e-5
+        if g is not None:
+            assert _rel(Gg, Gg_ref) < 1e-5 and _rel(Gb, Gb_ref) < 1e-5

@@ -177,14 +177,15 @@ def shrink_recipe(cfg):
 
 def pde_pair(pde_type, *, arch="fourier", hidden=(32, 24), mapping=16, periodic=True,
              layer_norm=True, scale=1.0, causal_eps=0.0, seed=0, ln_jitter=True, pde=None,
-             dim=None, frame=None, arch_params=None, activation=None):
+             dim=None, frame=None, arch_params=None, activation=None, as_type=None):
     """The shipped config block of ``pde_type`` on an ``arch`` trunk at small
     width in both packages, bridged; ``pde`` overrides entries of the PDE
     block (``parameters`` merged) in both. ``dim`` poses the problem in that
     many space dimensions (the block's first axis repeated); ``frame`` gives
     the model a co-moving frame of that speed; ``arch_params`` updates the
     model's (``trainable_features``, ``modified``); ``activation`` replaces
-    the trunk's."""
+    the trunk's; ``as_type`` builds the PDE registered under that name (a
+    user's ``@register_pde`` class) from the block."""
     from pinnrl_tpu.config import load_config as jax_load_config
     from pinnrl_tpu_torch.config import load_config
 
@@ -207,6 +208,8 @@ def pde_pair(pde_type, *, arch="fourier", hidden=(32, 24), mapping=16, periodic=
         cfg.model.arch_params.update(arch_params or {})
         if activation is not None:
             cfg.model.activation = activation
+        if as_type is not None:
+            cfg.pde_type = as_type
         _configure_model_training(cfg, **kw)
     return _pair(*cfgs, seed=seed, jitter_ln=ln_jitter and layer_norm)
 
