@@ -385,7 +385,19 @@ Phases (each raises on failure, and the script then exits non-zero):
                points) and in two dimensions on heat_2d's trunk for 2 Adam
                epochs: kernel 1 and the generated residual exactly once per
                Adam step, L-BFGS evaluation and validation, finite losses,
-               the 1-D loss falling.
+               the 1-D loss falling. Selects (``select_runs``): two more user PDEs
+               whose residuals run selects, comparisons and clamps, built in
+               the same parallel nvcc build: Allen-Cahn with u clamped at
+               +-10 on the allen_cahn recipe and Burgers with clamp, where,
+               maximum, minimum, relu, a viscosity switched on x_0, atan2,
+               asinh, log10, erfc and softplus on the Burgers recipe, each
+               against the float64 twins at N = 8192 and 40000 (the select
+               Burgers causal too); the select Burgers kernel alone on NaN
+               and +-inf points, its NaNs and infinities where its twin's;
+               the clamped Allen-Cahn call against the hand allen_cahn call
+               and the select residual alone against the Burgers residuals
+               (its launch floor), in turns; the clamped Allen-Cahn trained
+               as Fisher-KPP is, with exact launches and a falling loss.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -484,7 +496,9 @@ seconds per program, ``residual_alone`` per program, ``parity`` per case,
 ``burgers_ab`` per N: kernel 1's ``ms`` with the generated residual and
 ``hand_ms`` with burgers_kernel, ``plain_ms``, ``bound_ms``, the residual
 kernels alone, ``fisher_residual`` per N, ``runs`` with their launches and
-losses);
+losses, ``k1i``: the select programs' ``ptxas``, ``nan_parity``,
+``allen_cahn_ab`` and ``select_alone`` per N, the clamped Allen-Cahn
+``run``), summed up in kernel 1's ``generated_selects``;
 kernel 2's entry carries ``nd4_edge`` (its time at (8192,5) x (5,512)) and
 ``nd4_launches``. The last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -3760,8 +3774,14 @@ GEN_SMALL = {"var_advection_1d": ("var_advection", "convection", 1, "fourier", F
              "relaxation_4d_basis": ("relaxation", "pendulum", 4, "fourier", True),
              "poisson": ("poisson", "heat", 1, "fourier", False)}
 GEN_FULL = ("fisher_kpp", "forced_burgers", "relaxation_fourier_full", "relaxation_ff_full",
-            "poisson_full")
+            "poisson_full", "clipped_allen_cahn", "select_burgers")
 GEN_TOL = 1e-5  # the generated residual kernel alone against its float64 twin, rel to max
+# Selects: the user PDEs whose residuals run selects, comparisons and clamps
+# (``register_user_pdes``): Allen-Cahn with u clamped at +-10 on the
+# allen_cahn recipe (its trunk, stationary interface, IC and BC), trained
+# for GEN_EPOCHS and timed against the hand allen_cahn kernel; Burgers with
+# selects that switch inside the network's range, on the Burgers recipe.
+GEN_SELECTS = ("clipped_allen_cahn", "select_burgers")
 
 
 def register_user_pdes():
@@ -3770,17 +3790,22 @@ def register_user_pdes():
     the Ablowitz-Zeppetella traveling wave as its exact solution, IC and
     Dirichlet BC; an advection whose velocity sin(x) is read from z; Burgers
     with a forcing (``pde_type`` stays "burgers"); a first-order ODE; a
-    steady problem. Returns {name: class}."""
+    steady problem; Allen-Cahn with u clamped at +-10; Burgers with
+    selects, a piecewise viscosity and atan2, asinh, log10, erfc and
+    softplus. Returns {name: class}."""
     import torch
 
     from pinnrl_tpu_torch.ops.derivatives import directional_derivative as dd
+    from pinnrl_tpu_torch.ops.derivatives import laplacian
+    from pinnrl_tpu_torch.pdes.allen_cahn import AllenCahnEquation
     from pinnrl_tpu_torch.pdes.base import PDE_CLASSES, register_pde
     from pinnrl_tpu_torch.pdes.burgers import BurgersEquation
     from pinnrl_tpu_torch.pdes.convection import ConvectionEquation
     from pinnrl_tpu_torch.pdes.heat import HeatEquation
     from pinnrl_tpu_torch.pdes.pendulum import PendulumEquation
 
-    names = ("fisher_kpp", "var_advection", "forced_burgers", "relaxation", "poisson")
+    names = ("fisher_kpp", "var_advection", "forced_burgers", "relaxation", "poisson",
+             *GEN_SELECTS)
     if all(n in PDE_CLASSES for n in names):
         return {n: PDE_CLASSES[n] for n in names}
 
@@ -3858,7 +3883,54 @@ def register_user_pdes():
                 lap = lap + dd(u, z, ax, 2)[1]
             return lap + torch.sin(z[:, 0]) * torch.exp(-val * val)
 
+    @register_pde
+    class ClippedAllenCahn(AllenCahnEquation):
+        """u_t - eps^2 lap u - u + clamp(u, -10, 10)^3, as the reference's
+        Cahn-Hilliard clips u (pinnrl_tpu/pdes/cahn_hilliard.py:79)."""
+
+        pde_type = "clipped_allen_cahn"
+
+        def residual_pointwise(self, u, z, coeffs):
+            val = u(z)
+            lap = laplacian(u, z, range(self.dimension))
+            return (dd(u, z, self.dimension, 1)[0] - self._eps(coeffs) ** 2 * lap - val
+                    + torch.clamp(val, -10.0, 10.0) ** 3)
+
+    @register_pde
+    class SelectBurgers(BurgersEquation):
+        """Burgers' residual + 0.1 (clamp(u, -.5, .5) + where(u > 0, u, 0)
+        + maximum(u, .2) + minimum(u, -.2) + relu(u - .3)) - where(x_0 > 0,
+        .01/pi, .02/pi) u_x0x0 + 0.01 (atan2(u, 1 + u^2) + asinh(u)
+        + log10(1 + u^2) + erfc(u) + softplus(u))."""
+
+        pde_type = "select_burgers"
+
+        def residual_pointwise(self, u, z, coeffs):
+            val = u(z)
+            selects = (torch.clamp(val, -0.5, 0.5) + torch.where(val > 0, val, 0.0)
+                       + torch.maximum(val, torch.full_like(val, 0.2))
+                       + torch.minimum(val, torch.full_like(val, -0.2)) + torch.relu(val - 0.3))
+            nu_x = torch.where(z[:, 0] > 0, 0.01 / math.pi, 0.02 / math.pi)
+            smooth = (torch.atan2(val, 1.0 + val * val) + torch.asinh(val)
+                      + torch.log10(1.0 + val * val) + torch.erfc(val)
+                      + torch.nn.functional.softplus(val))
+            return (super().residual_pointwise(u, z, coeffs) + 0.1 * selects
+                    - nu_x * dd(u, z, 0, 2)[1] + 0.01 * smooth)
+
     return {n: PDE_CLASSES[n] for n in names}
+
+
+def clipped_ac_config(device: str):
+    """The allen_cahn recipe (Fourier 256x3, mapping 128, scale 2; Adam on
+    batches of 8192 of 40000 points, then L-BFGS on all of them; the
+    stationary interface, its IC and Dirichlet BC) cut to GEN_EPOCHS epochs
+    with a validation every 2, its residual clamped (``clipped_allen_cahn``)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+
+    cfg = build_recipe_config("allen_cahn", epochs=GEN_EPOCHS, device=device)
+    cfg.pde_type = "clipped_allen_cahn"
+    cfg.training.validation_frequency = 2
+    return cfg
 
 
 def fisher_config(device: str, dim: int = 1):
@@ -3906,10 +3978,12 @@ def gen_full_config(name: str, device: str):
 
     if name == "fisher_kpp":
         return fisher_config(device)
-    if name == "forced_burgers":
+    if name in ("forced_burgers", "select_burgers"):
         cfg = burgers_recipe_config(device)
-        cfg.pde_type = "forced_burgers"
+        cfg.pde_type = name
         return cfg
+    if name == "clipped_allen_cahn":
+        return clipped_ac_config(device)
     if name.startswith("relaxation"):
         return ode_config(device, "fourier" if name == "relaxation_fourier_full" else "feedforward")
     cfg = build_recipe_config("heat", device=device)
@@ -3952,6 +4026,124 @@ def _residual_bound(program, n: int):
     cols = sum(1 for k in live if program.instrs[k][0] == "z")
     ops = sum(1 for k in live if program.instrs[k][0] not in ("u", "z", "const"))
     return bound(float(ops * n), 4.0 * (2 * program.n_streams * n + cols * n + n))
+
+
+def select_runs(dev, card: str, models, specs, ptx, burgers_gen, burgers_hand):
+    """Phase 45's checks of the two select programs (``GEN_SELECTS``),
+    built in the phase's one parallel nvcc build: NaN parity of the select
+    Burgers kernel alone against its twin; the clamped Allen-Cahn's kernel-1
+    call against the hand allen_cahn call and the select Burgers residual
+    alone against the Burgers one (its launch floor), each in turns."""
+    import torch
+
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step, residual_codegen
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cuda_ops, plain_ops = fused_step._cuda_ops(dev), fused_step._TorchOps()
+    out = {"ptxas": {k: ptx[k] for k in GEN_SELECTS}}
+    print(f"[k1i] select programs: {out['ptxas']} ({card})", flush=True)
+
+    # ---- NaN parity: the select Burgers kernel alone -------------------------- #
+    program = specs["select_burgers"].program
+    n = 8192
+    U = torch.randn((program.n_streams, n), generator=gen, device=dev)
+    U[:, 0], U[:, 1], U[:, 2] = math.nan, math.inf, -math.inf  # every stream of three points
+    U[0, 3], U[0, 4], U[0, 5] = math.nan, math.inf, -math.inf  # u alone at three more
+    U = U.reshape(-1, 1)
+    z = torch.rand((n, 2), generator=gen, device=dev) * 2.0 - 1.0
+    out["nan_parity"] = {}
+    for causal in (False, True):
+        kd, ko = residual_codegen.launch(program, U, z, n, causal)
+        td, to = plain_ops.generated(program, U, z, n, causal)
+        d64, o64 = plain_ops.generated(program, U.double(), z.double(), n, causal)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, t in ((kd, d64), (ko, o64)):
+            fin = torch.isfinite(t) & torch.isfinite(k)
+            worst = max(worst, float((k.double() - t)[fin].abs().max() / t[fin].abs().max()))
+        row = {"nan_out": int(ko.isnan().sum()), "nan_dU": int(kd.isnan().sum()),
+               "inf_out": int(ko.isinf().sum()), "inf_dU": int(kd.isinf().sum()),
+               "same_nan": torch.equal(ko.isnan(), to.isnan()) and torch.equal(kd.isnan(), td.isnan()),
+               "same_inf": torch.equal(ko.isinf(), to.isinf()) and torch.equal(kd.isinf(), td.isinf()),
+               "same_nan_f64": (torch.equal(ko.isnan(), o64.isnan())
+                                and torch.equal(kd.isnan(), d64.isnan())),
+               "finite_rel_to_max_f64": worst}
+        out["nan_parity"]["causal" if causal else "plain"] = row
+        print(f"[k1i] select Burgers kernel alone on NaN and +-inf points, "
+              f"{'causal' if causal else 'plain'}: {row} ({card})", flush=True)
+        if not (row["same_nan"] and row["same_inf"] and row["nan_out"] and worst < GEN_TOL):
+            raise AssertionError(f"the select kernel's NaNs or infinities differ from its twin's: "
+                                 f"{row}")
+
+    # ---- the clamped Allen-Cahn call against the hand allen_cahn call -------- #
+    model, pde = models["clipped_allen_cahn"]
+    gen_spec = specs["clipped_allen_cahn"]
+    hand_cfg = clipped_ac_config("cuda")
+    hand_cfg.pde_type = "allen_cahn"
+    hand_spec = fused_step._spec(model, create_pde(hand_cfg))
+    if hand_spec.residual != "allen_cahn":
+        raise AssertionError(f"Allen-Cahn as shipped took {hand_spec.residual}")
+    bundle_fn = make_bundle_fn(model, 1, 2, 1)
+    P = {k: v.detach() for k, v in model.params.items()}
+    out["allen_cahn_ab"] = {}
+    for n in (8192, LBFGS_N):
+        small = n == 8192
+        z = time_sorted(*pde.generate_collocation_points(gen, n, "uniform"))
+        lh, gh = fused_step._loss_and_grads(cuda_ops, hand_spec, z, P)
+        lg, gg = fused_step._loss_and_grads(cuda_ops, gen_spec, z, P)
+        torch.cuda.synchronize()
+        diff = max(abs(float(lh) - float(lg)), *(float((gh[k] - gg[k]).abs().max()) for k in gh))
+        ms = {"hand": [], "generated": []}
+        for which in ("hand", "generated", "generated", "hand"):
+            spec = hand_spec if which == "hand" else gen_spec
+            ms[which].append(graph_ms(lambda: fused_step._loss_and_grads(cuda_ops, spec, z, P),
+                                      iters=10 if small else 3, replays=5 if small else 3))
+        p_leaf = {k: v.clone().requires_grad_(True) for k, v in P.items()}
+        plain_ms = graph_ms(lambda: torch.autograd.grad(
+            fused_step.fused_residual_loss_plain(bundle_fn, pde, p_leaf, z),
+            list(p_leaf.values())), iters=3 if small else 2, replays=3)
+        del p_leaf
+        torch.cuda.empty_cache()
+        kb = kernel1_bound(P, 2, z, hand_spec.B)
+        row = {"ms": statistics.mean(ms["generated"]), "hand_ms": statistics.mean(ms["hand"]),
+               "ms_turns": ms, "plain_ms": plain_ms, "bound_ms": kb[0], "bound_by": kb[1],
+               "library_ms": None, "hand_vs_generated_max_abs_diff": diff}
+        out["allen_cahn_ab"][n] = row
+        print(f"[k1i] allen_cahn recipe (Fourier 256x3) N={n}: kernel 1 with the clamped "
+              f"generated residual {row['ms']:.4f} ms, with the hand allen_cahn residual "
+              f"{row['hand_ms']:.4f} ms (turns {ms}), plain {plain_ms:.4f} ms, bound "
+              f"{kb[0]:.4f} ms ({kb[1]}); hand vs generated max |diff| {diff:.3e} ({card})",
+              flush=True)
+
+    # ---- the select Burgers residual alone against the Burgers one ----------- #
+    out["select_alone"] = {}
+    for n in (8192, LBFGS_N):
+        U = torch.randn((program.n_streams * n, 1), generator=gen, device=dev)
+        z = torch.rand((n, 2), generator=gen, device=dev) * 2.0 - 1.0
+        alone = {"select": [], "burgers_generated": [], "burgers_kernel": []}
+        for which in ("select", "burgers_generated", "burgers_kernel", "burgers_kernel",
+                      "burgers_generated", "select"):
+            fn = {"select": lambda: residual_codegen.launch(program, U, z, n, False),
+                  "burgers_generated": lambda: residual_codegen.launch(burgers_gen.program, U, z,
+                                                                       n, False),
+                  "burgers_kernel": lambda: cuda_ops.burgers(U, n, 1, burgers_hand.nu, False)}[which]
+            alone[which].append(graph_ms(fn, iters=50, replays=10))
+        twin_ms = graph_ms(lambda: plain_ops.generated(program, U, z, n, False), iters=20,
+                           replays=5)
+        rb = _residual_bound(program, n)
+        row = {"ms": statistics.mean(alone["select"]),
+               "burgers_generated_ms": statistics.mean(alone["burgers_generated"]),
+               "burgers_kernel_ms": statistics.mean(alone["burgers_kernel"]), "turns": alone,
+               "plain_ms": twin_ms, "bound_ms": rb[0], "bound_by": rb[1], "library_ms": None}
+        out["select_alone"][n] = row
+        print(f"[k1i] the select Burgers residual kernel alone N={n}: {row['ms']:.5f} ms; the "
+              f"Burgers generated residual {row['burgers_generated_ms']:.5f} ms and "
+              f"burgers_kernel {row['burgers_kernel_ms']:.5f} ms in the same turns (the launch "
+              f"floor); twin {twin_ms:.5f} ms, bound {rb[0]:.6f} ms ({rb[1]}) ({card})",
+              flush=True)
+    return out
 
 
 def gen_runs(dev, card: str):
@@ -4057,7 +4249,7 @@ def gen_runs(dev, card: str):
         if name == "burgers_generated":
             continue
         sizes = (8192, LBFGS_N) if name in GEN_FULL else (GEN_SMALL_N,)
-        for causal in ((False, True) if name == "fisher_kpp" else (False,)):
+        for causal in ((False, True) if name in ("fisher_kpp", "select_burgers") else (False,)):
             pde.training.causal_eps = 1.0 if causal else 0.0
             tols = FUSED_TOLS["burgers_causal" if causal else "burgers"]
             for n in sizes:
@@ -4130,6 +4322,7 @@ def gen_runs(dev, card: str):
                                      "bound_by": rb[1], "library_ms": None}
         print(f"[generated] Fisher-KPP's residual kernel alone N={n}: {r_ms:.5f} ms, twin "
               f"{r_twin:.5f} ms, bound {rb[0]:.6f} ms ({rb[1]}) ({card})", flush=True)
+    out["k1i"] = select_runs(dev, card, models, specs, ptx, gen_spec, hand_spec)
 
     # ---- the card paths, each with the counts set to 0 just before ------- #
     def run(cfg, label, falls: bool):
@@ -4174,7 +4367,10 @@ def gen_runs(dev, card: str):
         "fisher_kpp_2d": run(fisher_config("cuda", 2), "Fisher-KPP in two dimensions on "
                                                        "heat_2d's Fourier 256x3", False),
         "relaxation": run(ode_config("cuda"), "the relaxation ODE (no x-group) on the Burgers "
-                                              "recipe's Fourier 256x3, adam_lbfgs", True)}
+                                              "recipe's Fourier 256x3, adam_lbfgs", True),
+        "clipped_allen_cahn": run(clipped_ac_config("cuda"), "Allen-Cahn clamped at +-10 on the "
+                                  "allen_cahn recipe's Fourier 256x3, adam_lbfgs", True)}
+    out["k1i"]["run"] = out["runs"]["clipped_allen_cahn"]
     out["launches"] = out["runs"]["fisher_kpp"]["launches"]["fused_residual_loss"]
     out["max_abs_err"] = max(v["max_abs_err"] for v in out["parity"].values())
     out["seconds"] = time.perf_counter() - t_phase
@@ -5767,7 +5963,20 @@ def main() -> int:
                                            meshes["gloo_2ranks"].get("launches", [])]},
          "activations": {**acts, "tanh": {**acts["tanh"],
                                           "launches": rl_launches["fused_residual_loss"]}},
-         "nd4": nd4, "generated": gen45},
+         "nd4": nd4, "generated": gen45,
+         "generated_selects": {
+             "programs": gen45["k1i"]["ptxas"],
+             "nan_parity": gen45["k1i"]["nan_parity"],
+             "parity": {k: v for k, v in gen45["parity"].items()
+                        if k.startswith(GEN_SELECTS)},
+             "allen_cahn_clamped_ms": {n: {k: r[k] for k in ("ms", "hand_ms", "plain_ms",
+                                                            "bound_ms", "bound_by", "library_ms")}
+                                       for n, r in gen45["k1i"]["allen_cahn_ab"].items()},
+             "select_residual_alone_ms": {
+                 n: {k: r[k] for k in ("ms", "burgers_generated_ms", "burgers_kernel_ms",
+                                       "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                 for n, r in gen45["k1i"]["select_alone"].items()},
+             "launches": gen45["k1i"]["run"]["launches"]}},
         {"name": "fourier_features", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",

@@ -16,10 +16,17 @@ once, when the kernel is attached:
 - The graph is lowered to a ``ResidualProgram``: per-point values, scalar
   constants (the coefficients, read once here: the JAX kernel bakes them at
   trace time too), z column reads and a fixed table of elementwise ops
-  (``UNARY``, ``BINARY``), with the ops autograd's reverse emits lowered
-  into them (``tanh_backward``, ``sigmoid_backward``, ...). An op outside
-  the table raises ``Unsupported`` with its name, and kernel 1 is not
-  attached for that PDE.
+  (``UNARY``, ``BINARY``, ``TERNARY``), with the ops autograd's reverse
+  emits lowered into them (``tanh_backward``, ``sigmoid_backward``, ...).
+  A comparison is a value of 0.0 or 1.0, and one select, ``where(c, a,
+  b)``, carries every branch: the logical ops, ``masked_fill``, the clamp
+  family, ``maximum``/``minimum``, ``relu`` and ``softplus`` are lowered to
+  selects with torch's NaN rules (``maximum``, ``minimum``, ``clamp`` and
+  ``relu`` propagate a NaN, ``fmax``/``fmin`` drop it), so the emitted code
+  never calls ``fmaxf``/``fminf``, which drop it. In-place ops of
+  autograd's reverse (``logical_and_``, ``masked_fill_``) are lowered as
+  their functional twins. An op outside the table raises ``Unsupported``
+  with its name, and kernel 1 is not attached for that PDE.
 - ``ResidualProgram.evaluate`` runs the program with torch ops (float32 or
   float64), the plain twin's arithmetic (``fused_step._TorchOps.generated``
   adds the contract below); ``ResidualProgram.source`` emits the body of a
@@ -67,6 +74,7 @@ UNARY = {
     "log": (torch.log, "logf({0})"),
     "log1p": (torch.log1p, "log1pf({0})"),
     "sqrt": (torch.sqrt, "sqrtf({0})"),
+    "rsqrt": (torch.rsqrt, "rsqrtf({0})"),
     "reciprocal": (torch.reciprocal, "1.0f / {0}"),
     "tanh": (torch.tanh, "tanhf({0})"),
     "sigmoid": (torch.sigmoid, "1.0f / (1.0f + expf(-{0}))"),
@@ -76,22 +84,44 @@ UNARY = {
     "erf": (torch.erf, "erff({0})"),
     "abs": (torch.abs, "fabsf({0})"),
     "sign": (torch.sign, "(float)(({0} > 0.0f) - ({0} < 0.0f))"),
+    "asinh": (torch.asinh, "asinhf({0})"),
+    "log10": (torch.log10, "log10f({0})"),
+    "erfc": (torch.erfc, "erfcf({0})"),
 }
+# A comparison is 1.0 where it holds and 0.0 elsewhere (a NaN compares
+# false, except under ne), in the twin and on the card alike.
+_COMPARISONS = {"gt": ">", "ge": ">=", "lt": "<", "le": "<=", "eq": "==", "ne": "!="}
 BINARY = {
     "add": (operator.add, "{0} + {1}"),
     "sub": (operator.sub, "{0} - {1}"),
     "mul": (operator.mul, "{0} * {1}"),
     "div": (operator.truediv, "{0} / {1}"),
     "pow": (operator.pow, "powf({0}, {1})"),
+    "atan2": (torch.atan2, "atan2f({0}, {1})"),
+    **{name: (getattr(operator, name), f"({{0}} {sym} {{1}}) ? 1.0f : 0.0f")
+       for name, sym in _COMPARISONS.items()},
 }
+# The select: b where c is 0, else a (a NaN c selects a, as torch.where(c != 0) does).
+TERNARY = {
+    "where": (lambda c, a, b: torch.where(c != 0, a, b), "({0} != 0.0f) ? {1} : {2}"),
+}
+_TABLE = {**UNARY, **BINARY, **TERNARY}
+# Ops whose twin takes a Python float as it is: torch's scalar paths (x * c,
+# x ** 2) are the traced residual's own. Every other op's constants become
+# 0-d tensors of the program's dtype.
+_SCALAR_TWINS = {"add", "sub", "mul", "div", "pow"}
 _FOLD = {
     "neg": lambda a: -a, "sin": math.sin, "cos": math.cos, "tan": math.tan, "exp": math.exp,
     "expm1": math.expm1, "log": math.log, "log1p": math.log1p, "sqrt": math.sqrt,
+    "rsqrt": lambda a: 1.0 / math.sqrt(a),
     "reciprocal": lambda a: 1.0 / a, "tanh": math.tanh, "sigmoid": lambda a: 1.0 / (1.0 + math.exp(-a)),
     "sinh": math.sinh, "cosh": math.cosh, "atan": math.atan, "erf": math.erf, "abs": abs,
     "sign": lambda a: float((a > 0) - (a < 0)),
     "add": lambda a, b: a + b, "sub": lambda a, b: a - b, "mul": lambda a, b: a * b,
     "div": lambda a, b: a / b, "pow": lambda a, b: a**b,
+    "asinh": math.asinh, "log10": math.log10, "erfc": math.erfc, "atan2": math.atan2,
+    **{name: (lambda f: lambda a, b: float(f(a, b)))(getattr(operator, name)) for name in _COMPARISONS},
+    "where": lambda c, a, b: a if c != 0 else b,
 }
 
 
@@ -100,8 +130,9 @@ class ResidualProgram:
     """A residual and its per-stream derivative as straight-line code.
 
     ``instrs[k]`` defines value k: ``("u", s)`` stream s of U, ``("z", j)``
-    column j of z, ``("const", x)``, or ``(op, a[, b])`` with a, b earlier
-    values. ``r`` is the residual's value, ``g[s]`` that of dr/dU_s."""
+    column j of z, ``("const", x)``, or ``(op, a[, b[, c]])`` with a, b, c
+    earlier values and op in ``UNARY``, ``BINARY`` or ``TERNARY``. ``r`` is
+    the residual's value, ``g[s]`` that of dr/dU_s."""
 
     n_streams: int
     n_cols: int
@@ -126,6 +157,10 @@ class ResidualProgram:
         (S n or (S, n)) and the points z (n, d+1), with torch ops in U's dtype."""
         rows = U.reshape(self.n_streams, n)
         vals: List[object] = []
+
+        def tensor(v):  # a fill, not a host copy: the twin runs inside CUDA graphs too
+            return v if isinstance(v, torch.Tensor) else torch.full((), v, dtype=U.dtype,
+                                                                      device=U.device)
         for ins in self.instrs:
             op = ins[0]
             if op == "u":
@@ -134,18 +169,17 @@ class ResidualProgram:
                 vals.append(z[:, ins[1]].to(U.dtype))
             elif op == "const":
                 vals.append(ins[1])
-            elif op in UNARY:
-                a = vals[ins[1]]
-                a = a if isinstance(a, torch.Tensor) else torch.tensor(a, dtype=U.dtype,
-                                                                         device=U.device)
-                vals.append(UNARY[op][0](a))
             else:
-                vals.append(BINARY[op][0](vals[ins[1]], vals[ins[2]]))
+                args = [vals[a] for a in ins[1:]]
+                scalar = op in _SCALAR_TWINS and any(isinstance(a, torch.Tensor) for a in args)
+                v = _TABLE[op][0](*(args if scalar else map(tensor, args)))
+                vals.append(v.to(U.dtype) if v.dtype == torch.bool else v)
 
         def field_of(k):
             v = vals[k]
-            return v if isinstance(v, torch.Tensor) else torch.full((n,), v, dtype=U.dtype,
-                                                                     device=U.device)
+            if isinstance(v, torch.Tensor) and v.dim():
+                return v
+            return torch.full((n,), float(v), dtype=U.dtype, device=U.device)
         return field_of(self.r), [field_of(k) for k in self.g]
 
     # ---------------------------------------------------------- emitter --
@@ -169,10 +203,8 @@ class ResidualProgram:
                 expr = f"U[{ins[1]}LL * n + i]"
             elif op == "z":
                 expr = f"z[(long long)i * GEN_COLS + {ins[1]}]"
-            elif op in UNARY:
-                expr = UNARY[op][1].format(names[ins[1]])
             else:
-                expr = BINARY[op][1].format(names[ins[1]], names[ins[2]])
+                expr = _TABLE[op][1].format(*(names[a] for a in ins[1:]))
             lines.append(f"    const float v{k} = {expr};")
         lines += [f"    g[{s}] = {names[k]};" for s, k in enumerate(self.g)]
         lines.append(f"    return {names[self.r]};")
@@ -205,7 +237,7 @@ class ResidualProgram:
                 continue
             live.add(k)
             ins = self.instrs[k]
-            if ins[0] in UNARY or ins[0] in BINARY:
+            if ins[0] in _TABLE:
                 stack.extend(ins[1:])
         return live
 
@@ -296,14 +328,40 @@ class _SSA:
         ins = self.instrs[k]
         return ins[1] if ins[0] == "const" else None
 
+    def is_bool(self, k: int) -> bool:
+        """Whether value k is 0.0 or 1.0 at every point."""
+        ins = self.instrs[k]
+        if ins[0] in _COMPARISONS:
+            return True
+        if ins[0] == "const":
+            return ins[1] in (0.0, 1.0)
+        if ins[0] in ("where", "mul"):
+            return all(self.is_bool(a) for a in ins[-2:])
+        return False
+
+    def truth(self, k: int) -> int:
+        """Value k as 0/1: 1.0 where it is nonzero (a NaN included), as
+        torch's logical ops read a float."""
+        return k if self.is_bool(k) else self.op("ne", k, self.const(0.0))
+
     def op(self, name: str, *args: int) -> int:
         consts = [self._cval(a) for a in args]
+        if name == "where":
+            c, a, b = args
+            if consts[0] is not None:
+                return a if consts[0] != 0 else b
+            if a == b:
+                return a
+            if consts[1] == 1.0 and consts[2] == 0.0 and self.is_bool(c):
+                return c
+        if name == "ne" and consts[1] == 0.0 and self.is_bool(args[0]):
+            return args[0]
         if all(c is not None for c in consts):
             try:
                 return self.const(_FOLD[name](*consts))
             except (ValueError, ZeroDivisionError, OverflowError):
                 pass  # left to the device, as the traced code would compute it
-        if len(args) == 1:
+        if len(args) != 2:
             if name == "neg" and self.instrs[args[0]][0] == "neg":
                 return self.instrs[args[0]][1]
             return self._add((name, *args))
@@ -338,6 +396,8 @@ class _SSA:
             return self.op("mul", self.op("mul", a, a), a)
         if p == 0.5:
             return self.op("sqrt", a)
+        if p == -0.5:
+            return self.op("rsqrt", a)
         if p == -1.0:
             return self.op("reciprocal", a)
         if p == -2.0:
@@ -368,12 +428,23 @@ def _collapsed(shape: Sequence[int], paxis: Optional[int]) -> Tuple[int, ...]:
 
 
 def _meta_shape(node) -> Tuple[int, ...]:
+    """The node's shape; raises unless it is a float tensor, or a bool one
+    from an op that makes or carries 0/1 values (``_BOOL_OK``)."""
     val = node.meta.get("val")
     if not isinstance(val, torch.Tensor):
         raise Unsupported(f"{node.target}: no tensor metadata")
-    if not val.dtype.is_floating_point:
+    if not (val.dtype.is_floating_point
+            or (val.dtype == torch.bool and _functional(_op_name(node)) in _BOOL_OK)):
         raise Unsupported(f"{_op_name(node)} makes a {val.dtype} tensor")
     return tuple(int(s) for s in val.shape)
+
+
+def _functional(name: str) -> str:
+    """The functional twin of an in-place op's name (``_INPLACE``)."""
+    if name not in _INPLACE:
+        return name
+    packet, overload = name.split(".")
+    return f"{packet[:-1]}.{overload}"
 
 
 def _op_name(node) -> str:
@@ -392,7 +463,91 @@ _SAME = {"detach.default", "alias.default", "clone.default", "lift_fresh_copy.de
 _FILLS = {"zeros_like.default": 0.0, "ones_like.default": 1.0, "zeros.default": 0.0,
           "ones.default": 1.0, "new_zeros.default": 0.0, "new_ones.default": 1.0}
 _ELEMENTWISE_1 = {f"{k}.default": k for k in UNARY}
-_ELEMENTWISE_1.update({"sgn.default": "sign", "rsqrt.default": "rsqrt", "square.default": "square"})
+_ELEMENTWISE_1.update({"sgn.default": "sign", "square.default": "square"})
+
+
+# Per-point lowerings onto the table, each (b: _SSA, operand values...) ->
+# value.
+def _extremum(larger: bool, nan_wins: bool):
+    """torch's maximum/minimum (nan_wins: NaN if either operand is NaN) or
+    fmax/fmin (the other operand where one is NaN), else (x < y) ? y : x
+    for the larger and (y < x) ? y : x for the smaller. A constant
+    operand's NaN test folds away."""
+
+    def fn(b, x, y):
+        pick = b.op("where", b.op("lt", x, y) if larger else b.op("lt", y, x), y, x)
+        x_nan, y_nan = b.op("ne", x, x), b.op("ne", y, y)
+        if nan_wins:
+            return b.op("where", y_nan, y, b.op("where", x_nan, x, pick))
+        return b.op("where", y_nan, x, b.op("where", x_nan, y, pick))
+
+    return fn
+
+
+_maximum, _minimum = _extremum(True, True), _extremum(False, True)
+
+
+def _softplus(b, x, beta=None, threshold=None):
+    """torch's: x where beta x > threshold, else log1p(exp(beta x)) / beta
+    (make_fx leaves out beta = 1 and threshold = 20)."""
+    beta = b.const(1.0) if beta is None else beta
+    threshold = b.const(20.0) if threshold is None else threshold
+    bx = b.op("mul", x, beta)
+    return b.op("where", b.op("gt", bx, threshold), x,
+                b.op("div", b.op("log1p", b.op("exp", bx)), beta))
+
+
+def _softplus_backward(b, grad, x, beta, threshold):
+    """torch's: grad where beta x > threshold, else grad e / (e + 1), e = exp(beta x)."""
+    bx = b.op("mul", x, beta)
+    e = b.op("exp", bx)
+    return b.op("where", b.op("gt", bx, threshold), grad,
+                b.op("div", b.op("mul", grad, e), b.op("add", e, b.const(1.0))))
+
+
+# torch's logical ops read a float as true where it is nonzero (NaN included).
+_LOGICAL = {"and": lambda b, x, y: b.op("mul", b.truth(x), b.truth(y)),
+            "or": lambda b, x, y: b.op("where", x, b.const(1.0), b.truth(y)),
+            "xor": lambda b, x, y: b.op("ne", b.truth(x), b.truth(y))}
+
+
+_POINTWISE = {
+    **{f"{c}.{k}": (lambda c: lambda b, x, y: b.op(c, x, y))(c)
+       for c in _COMPARISONS for k in ("Scalar", "Tensor")},
+    "logical_not.default": lambda b, x: b.op("eq", x, b.const(0.0)),
+    "bitwise_not.default": lambda b, x: b.op("eq", x, b.const(0.0)),
+    **{f"{pre}_{kind}.{k}": fn for kind, fn in _LOGICAL.items()
+       for pre, k in (("logical", "default"), ("bitwise", "Tensor"), ("bitwise", "Scalar"))},
+    "isnan.default": lambda b, x: b.op("ne", x, x),
+    **{f"where.{k}": lambda b, c, x, y: b.op("where", c, x, y)
+       for k in ("self", "ScalarSelf", "ScalarOther", "Scalar")},
+    **{f"masked_fill.{k}": lambda b, x, m, v: b.op("where", m, v, x) for k in ("Scalar", "Tensor")},
+    "maximum.default": _maximum, "minimum.default": _minimum,
+    "fmax.default": _extremum(True, False), "fmin.default": _extremum(False, False),
+    "clamp_min.default": _maximum, "clamp_min.Tensor": _maximum,
+    "clamp_max.default": _minimum, "clamp_max.Tensor": _minimum,
+    "relu.default": lambda b, x: _maximum(b, x, b.const(0.0)),
+    "threshold_backward.default": lambda b, grad, x, threshold: b.op(
+        "where", b.op("le", x, threshold), b.const(0.0), grad),
+    "atan2.default": lambda b, y, x: b.op("atan2", y, x),
+    "softplus.default": _softplus,
+    "softplus_backward.default": _softplus_backward,
+}
+# In-place ops of autograd's reverse: lowered as their functional twins, the
+# result bound to the mutated operand's node too.
+_INPLACE = {"logical_and_.default", "logical_or_.default", "logical_xor_.default",
+            "logical_not_.default", "masked_fill_.Scalar", "masked_fill_.Tensor"}
+# Ops whose reads share the operand's storage: an in-place op on such a
+# tensor would reach values this lowering keeps apart.
+_ALIASING = _VIEWS | {"detach.default", "alias.default", "select.int", "slice.Tensor",
+                      "unbind.int", "permute.default", "transpose.int", "t.default"}
+# Ops that may make a bool tensor: each makes or carries 0/1 values.
+_BOOL_OK = {name for name in _POINTWISE if name.split(".")[0] in (
+    *_COMPARISONS, "logical_not", "logical_and", "logical_or", "logical_xor", "bitwise_not",
+    "bitwise_and", "bitwise_or", "bitwise_xor", "isnan", "where", "masked_fill")} | {
+    *_VIEWS, *_SAME, *_FILLS, "unbind.int", "unbind_copy.int", "select.int", "select_copy.int",
+    "slice.Tensor", "slice_copy.Tensor", "stack.default", "cat.default", "permute.default",
+    "transpose.int", "t.default", "full_like.default", "full.default", "new_full.default"}
 
 
 def _lower(gm, n_streams: int, n_cols: int) -> Tuple[_SSA, _Val, _Val]:
@@ -418,7 +573,11 @@ def _lower(gm, n_streams: int, n_cols: int) -> Tuple[_SSA, _Val, _Val]:
         raise Unsupported(f"an operand of type {type(x).__name__}")
 
     def elementwise(node, name, operands):
+        """``name`` (a table op, or a per-point lowering ``fn(b, *values)``)
+        over the broadcast operands; a bool result is made 0/1."""
+        fn = name if callable(name) else (lambda _b, *a: b.op(name, *a))
         shape = _meta_shape(node)
+        boolean = node.meta["val"].dtype == torch.bool
         paxis = _point_axis(shape, _op_name(node))
         out_shape = _collapsed(shape, paxis)
         vals = [as_val(x) for x in operands]
@@ -429,12 +588,16 @@ def _lower(gm, n_streams: int, n_cols: int) -> Tuple[_SSA, _Val, _Val]:
             raise Unsupported(f"{_op_name(node)}: operands do not broadcast ({e})") from None
         out = np.empty(out_shape, object)
         for idx in np.ndindex(*out_shape):
-            out[idx] = b.op(name, *[a[idx] for a in arrs])
+            v = fn(b, *[a[idx] for a in arrs])
+            out[idx] = b.truth(v) if boolean else v
         return _Val(out, paxis)
 
     def fill(node, value):
+        """A tensor of one value, rounded to the node's dtype (a float32
+        ``scalar_tensor`` of a Python float in a float64 trace)."""
         shape = _meta_shape(node)
         paxis = _point_axis(shape, _op_name(node))
+        value = float(torch.tensor(float(value), dtype=node.meta["val"].dtype))
         return _Val(np.full(_collapsed(shape, paxis), b.const(value), object), paxis)
 
     def reshaped(node, x: _Val):
@@ -471,10 +634,18 @@ def _lower(gm, n_streams: int, n_cols: int) -> Tuple[_SSA, _Val, _Val]:
         if node.op != "call_function":
             raise Unsupported(f"a graph node of kind {node.op}")
         name = _op_name(node)
+        mutated = node.args[0] if name in _INPLACE else None
+        if mutated is not None:
+            _check_unaliased(mutated, node)
+            name = _functional(name)
         args = arg(list(node.args))
         kw = node.kwargs
         if name == "getitem":
             env[node] = args[0][args[1]]
+        elif name in ("_to_copy.default", "to.dtype"):  # a cast to bool makes 0/1 values
+            _meta_shape(node)
+            env[node] = (elementwise(node, "ne", [args[0], 0.0])
+                         if node.meta["val"].dtype == torch.bool else args[0])
         elif name in _SAME:
             env[node] = args[0]
         elif name in _VIEWS:
@@ -547,9 +718,7 @@ def _lower(gm, n_streams: int, n_cols: int) -> Tuple[_SSA, _Val, _Val]:
             env[node] = _reduce(b, node, name, args)
         elif name in _ELEMENTWISE_1:
             op = _ELEMENTWISE_1[name]
-            if op == "rsqrt":
-                env[node] = elementwise(node, "reciprocal", [elementwise(node, "sqrt", args[:1])])
-            elif op == "square":
+            if op == "square":
                 env[node] = elementwise(node, "mul", [args[0], args[0]])
             else:
                 env[node] = elementwise(node, op, args[:1])
@@ -577,9 +746,31 @@ def _lower(gm, n_streams: int, n_cols: int) -> Tuple[_SSA, _Val, _Val]:
             grad, y = args[0], args[1]
             dy = elementwise(node, "mul", [y, elementwise(node, "sub", [1.0, y])])
             env[node] = elementwise(node, "mul", [grad, dy])
+        elif name in ("clamp.default", "clamp.Tensor"):  # minimum(maximum(x, lo), hi)
+            lo, hi = (args + [None, None])[1:3]
+            lo, hi = kw.get("min", lo), kw.get("max", hi)
+            if lo is None and hi is None:
+                raise Unsupported(f"{name} with neither bound")
+            x = args[0]
+            if lo is not None:
+                x = elementwise(node, _maximum, [x, lo])
+            env[node] = x if hi is None else elementwise(node, _minimum, [x, hi])
+        elif name in _POINTWISE:
+            env[node] = elementwise(node, _POINTWISE[name], args)
         else:
             raise Unsupported(f"the op {name} is not in kernel 1's residual op table")
+        if mutated is not None:
+            env[mutated] = env[node]
     raise Unsupported("the traced graph has no output")
+
+
+def _check_unaliased(mutated, node) -> None:
+    """Refuse an in-place op on a graph input or on a tensor that shares its
+    storage with another node: the lowering binds the new value to the
+    mutated node alone."""
+    sharing = [n for n in mutated.users if n is not node and _op_name(n) in _ALIASING]
+    if (mutated.op != "call_function" or _op_name(mutated) in _ALIASING or sharing):
+        raise Unsupported(f"{_op_name(node)} writes into a tensor that shares its storage")
 
 
 def _reduce(b: _SSA, node, name: str, args) -> _Val:
@@ -628,6 +819,18 @@ def _stream_layout(pde, x_order: int) -> Tuple[int, Dict[int, List[int]]]:
 def trace(pde, x_order: int, device=None) -> ResidualProgram:
     """Trace ``pde.residual_pointwise`` and its dr/dU into a program; raises
     ``Unsupported`` with the reason where it does not lower."""
+    origin = f"{type(pde).__module__}.{type(pde).__qualname__}.residual_pointwise"
+    try:
+        return _program(*_graph(pde, x_order, device), origin)
+    except Unsupported:
+        raise
+    except Exception as e:  # noqa: BLE001 — any failure to trace or lower is a refusal
+        raise Unsupported(f"{origin} does not trace: {type(e).__name__}: {e}") from None
+
+
+def _graph(pde, x_order: int, device=None):
+    """(graph, S, d + 1): ``fn(U, z) -> (r, dr/dU)`` traced by ``make_fx``
+    on fake float64 tensors of ``_TRACE_POINTS`` points."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     from pinnrl_tpu_torch.ops.jet_mlp import BundleView
@@ -652,17 +855,16 @@ def trace(pde, x_order: int, device=None) -> ResidualProgram:
             (g,) = torch.autograd.grad(r, U, grad_outputs=torch.ones_like(r))
         return r.detach(), g
 
-    origin = f"{type(pde).__module__}.{type(pde).__qualname__}.residual_pointwise"
     dev = torch.device(device) if device is not None else torch.device("cpu")
-    try:
-        gm = make_fx(fn, tracing_mode="fake")(
-            torch.zeros(n_streams, _TRACE_POINTS, dtype=torch.float64, device=dev),
-            torch.zeros(_TRACE_POINTS, n_cols, dtype=torch.float64, device=dev))
-        b, r, g = _lower(gm, n_streams, n_cols)
-    except Unsupported:
-        raise
-    except Exception as e:  # noqa: BLE001 — any failure to trace or lower is a refusal
-        raise Unsupported(f"{origin} does not trace: {type(e).__name__}: {e}") from None
+    gm = make_fx(fn, tracing_mode="fake")(
+        torch.zeros(n_streams, _TRACE_POINTS, dtype=torch.float64, device=dev),
+        torch.zeros(_TRACE_POINTS, n_cols, dtype=torch.float64, device=dev))
+    return gm, n_streams, n_cols
+
+
+def _program(gm, n_streams: int, n_cols: int, origin: str) -> ResidualProgram:
+    """The program of a traced graph (``_graph``)."""
+    b, r, g = _lower(gm, n_streams, n_cols)
     if r.paxis is None or r.arr.size != 1 or g.arr.shape[0] != n_streams:
         raise Unsupported("the traced residual is not one value per point")
     return ResidualProgram(n_streams=n_streams, n_cols=n_cols, instrs=tuple(b.instrs),

@@ -16,16 +16,21 @@ The program against the hand residuals' twins in float64: 1e-12 relative to
 max (the two evaluate the same expressions, up to the order of a sum).
 """
 
+import math
 import os
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
+import jax.scipy.special
 import numpy as np
 import pytest
 import torch
 from torch_parity_helpers import FUSED_TOLS, launcher_vs_jax_kernel, pde_pair, sorted_z
 
 from pinnrl_tpu.ops.derivatives import directional_derivative as j_dd
+from pinnrl_tpu.ops.derivatives import laplacian as j_laplacian
+from pinnrl_tpu.pdes import allen_cahn as j_allen_cahn
 from pinnrl_tpu.pdes import base as j_base
 from pinnrl_tpu.pdes import burgers as j_burgers
 from pinnrl_tpu.pdes import convection as j_convection
@@ -34,7 +39,9 @@ from pinnrl_tpu.pdes import kdv as j_kdv
 from pinnrl_tpu.pdes import pendulum as j_pendulum
 from pinnrl_tpu_torch.config import load_config
 from pinnrl_tpu_torch.ops.derivatives import directional_derivative as t_dd
+from pinnrl_tpu_torch.ops.derivatives import laplacian as t_laplacian
 from pinnrl_tpu_torch.ops.kernels import fused_step, residual_codegen
+from pinnrl_tpu_torch.pdes import allen_cahn as t_allen_cahn
 from pinnrl_tpu_torch.pdes import base as t_base
 from pinnrl_tpu_torch.pdes import burgers as t_burgers
 from pinnrl_tpu_torch.pdes import convection as t_convection
@@ -186,6 +193,67 @@ class TPoisson(t_heat.HeatEquation):
         return lap + torch.sin(z[:, 0]) * torch.exp(-val * val)
 
 
+class JClippedAllenCahn(j_allen_cahn.AllenCahnEquation):
+    """Allen-Cahn with u clamped at +-10 before the cubic term, as the
+    reference's Cahn-Hilliard clips it (``pinnrl_tpu/pdes/cahn_hilliard.py``)."""
+
+    pde_type = "clipped_allen_cahn"
+
+    def residual_pointwise(self, u, z, coeffs):
+        val = u(z)
+        u_t = j_dd(u, z, self.dimension, 1)[0]
+        lap = j_laplacian(u, z, range(self.dimension))
+        return u_t - self._eps(coeffs) ** 2 * lap - val + jnp.clip(val, -10.0, 10.0) ** 3
+
+
+class TClippedAllenCahn(t_allen_cahn.AllenCahnEquation):
+    pde_type = "clipped_allen_cahn"
+
+    def residual_pointwise(self, u, z, coeffs):
+        val = u(z)
+        u_t = t_dd(u, z, self.dimension, 1)[0]
+        lap = t_laplacian(u, z, range(self.dimension))
+        return u_t - self._eps(coeffs) ** 2 * lap - val + torch.clamp(val, -10.0, 10.0) ** 3
+
+
+# The kinks of the select Burgers residual in u: where its selects switch.
+SELECT_KINKS = (-0.5, -0.2, 0.0, 0.2, 0.3, 0.5)
+
+
+class JSelectBurgers(j_burgers.BurgersEquation):
+    """Burgers' residual plus selects that switch inside the network's range
+    (clamp, where on u, maximum, minimum, relu), a piecewise viscosity
+    switched on x_0 and the elementwise functions atan2, asinh, log10, erfc
+    and softplus."""
+
+    pde_type = "select_burgers"
+
+    def residual_pointwise(self, u, z, coeffs):
+        val = u(z)
+        selects = (jnp.clip(val, -0.5, 0.5) + jnp.where(val > 0, val, 0.0)
+                   + jnp.maximum(val, 0.2) + jnp.minimum(val, -0.2) + jax.nn.relu(val - 0.3))
+        nu_x = jnp.where(z[0] > 0, 0.01 / math.pi, 0.02 / math.pi)
+        smooth = (jnp.arctan2(val, 1.0 + val * val) + jnp.arcsinh(val) + jnp.log10(1.0 + val * val)
+                  + jax.scipy.special.erfc(val) + jax.nn.softplus(val))
+        return (super().residual_pointwise(u, z, coeffs) + 0.1 * selects
+                - nu_x * j_dd(u, z, 0, 2)[1] + 0.01 * smooth)
+
+
+class TSelectBurgers(t_burgers.BurgersEquation):
+    pde_type = "select_burgers"
+
+    def residual_pointwise(self, u, z, coeffs):
+        val = u(z)
+        selects = (torch.clamp(val, -0.5, 0.5) + torch.where(val > 0, val, 0.0)
+                   + torch.maximum(val, torch.full_like(val, 0.2))
+                   + torch.minimum(val, torch.full_like(val, -0.2)) + torch.relu(val - 0.3))
+        nu_x = torch.where(z[:, 0] > 0, 0.01 / math.pi, 0.02 / math.pi)
+        smooth = (torch.atan2(val, 1.0 + val * val) + torch.asinh(val) + torch.log10(1.0 + val * val)
+                  + torch.erfc(val) + torch.nn.functional.softplus(val))
+        return (super().residual_pointwise(u, z, coeffs) + 0.1 * selects
+                - nu_x * t_dd(u, z, 0, 2)[1] + 0.01 * smooth)
+
+
 # (JAX class, port class, shipped block it is built from)
 USER_PDES = {
     "forced_burgers": (JForcedBurgers, TForcedBurgers, "burgers"),
@@ -194,6 +262,8 @@ USER_PDES = {
     "kdv_burgers": (JKdVBurgers, TKdVBurgers, "kdv"),
     "relaxation": (JRelaxation, TRelaxation, "pendulum"),
     "poisson": (JPoisson, TPoisson, "heat"),
+    "clipped_allen_cahn": (JClippedAllenCahn, TClippedAllenCahn, "allen_cahn"),
+    "select_burgers": (JSelectBurgers, TSelectBurgers, "burgers"),
 }
 
 
@@ -341,11 +411,11 @@ def test_program_equals_hand_residual_in_float64(key, dim):
 # --------------------------------------------------------------------------- #
 
 
-class TClipped(t_burgers.BurgersEquation):
-    """A residual through an op outside the table (a comparison)."""
+class TLgamma(t_burgers.BurgersEquation):
+    """A residual through an op outside the table (log-gamma)."""
 
     def residual_pointwise(self, u, z, coeffs):
-        return torch.where(u(z) > 0.0, u(z), 0.0) + t_dd(u, z, self.dimension, 1)[0]
+        return torch.lgamma(u(z)) + t_dd(u, z, self.dimension, 1)[0]
 
 
 class TCoupled(t_burgers.BurgersEquation):
@@ -355,7 +425,7 @@ class TCoupled(t_burgers.BurgersEquation):
         return super().residual_pointwise(u, z, coeffs) - u(z).mean()
 
 
-@pytest.mark.parametrize("cls,needle", [(TClipped, "gt.Scalar"),
+@pytest.mark.parametrize("cls,needle", [(TLgamma, "lgamma.default"),
                                         (TCoupled, "couples points")])
 def test_refused_residuals(cls, needle):
     pair = pde_pair("burgers", hidden=(16, 16), mapping=8)

@@ -50,7 +50,10 @@ kernel (any PDE's residual, traced): 1e-5 relative to max against its
 program's float64 twin (sinf, tanhf and expf against torch's), and 1e-6
 against burgers_kernel on Burgers' own residual; a first-order ODE's input,
 dL/dB and transport kernels (no x-group) at the bounds of their K >= 1
-tests.
+tests. Its selects (clamp, where, maximum, minimum, relu, fmax, softplus and
+atan2, asinh, log10, erfc): 1e-5 relative to max against the float64 twin
+on finite entries, with NaNs and infinities where the float32 twin has
+them.
 """
 
 import numpy as np
@@ -1524,6 +1527,55 @@ def test_generated_residual_kernel_matches_twin(cuda_device, dim, causal):
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
         assert _rel(a, r) < 1e-6
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_select_residual_kernel_keeps_twins_nans(cuda_device, causal):
+    """A residual through every select of the op table, traced from a
+    Burgers subclass: on points with u at its clamp bounds and at 0, NaN and
+    +-inf, the
+    kernel's NaNs and infinities are the float32 twin's and its finite
+    entries within 1e-5 of the float64 twin's."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.ops.derivatives import directional_derivative as dd
+    from pinnrl_tpu_torch.ops.kernels import fused_step, residual_codegen
+    from pinnrl_tpu_torch.pdes.burgers import BurgersEquation
+
+    class Selects(BurgersEquation):
+        def residual_pointwise(self, u, z, coeffs):
+            val = u(z)
+            sel = (torch.clamp(val, -0.5, 0.5) + torch.where(val > 0, val, 0.0)
+                   + torch.maximum(val, torch.full_like(val, 0.2))
+                   + torch.minimum(val, z[:, 0]) + torch.relu(val - 0.3)
+                   + torch.fmax(val, z[:, 1] - 1.0) + torch.nn.functional.softplus(val))
+            smooth = (torch.atan2(val, 1.0 + val * val) + torch.asinh(val)
+                      + torch.log10(1.0 + val * val) + torch.erfc(val))
+            return (dd(u, z, self.dimension, 1)[0] + val * dd(u, z, 0, 1)[0] + 0.1 * sel
+                    + 0.01 * smooth)
+
+    cfg = load_config(pde_type="burgers", device="cpu")
+    program = residual_codegen.trace(Selects(cfg.pde, cfg.training, device="cpu"), 2)
+    assert "fmaxf" not in program.source and "fminf" not in program.source
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    n = 5000
+    U = torch.randn((program.n_streams, n), generator=gen, device=cuda_device)
+    # Kinks exact in float32 and float64 alike (0.2 is not: the two twins
+    # would take the two sides of maximum's tie), then NaN and +-inf.
+    special = torch.tensor([-0.5, 0.5, 0.0, float("nan"), float("inf"), -float("inf")],
+                           device=cuda_device)
+    U[0, :special.numel()] = special
+    U[:, -1] = float("nan")
+    U[:, -2] = float("inf")
+    U = U.reshape(-1, 1)
+    z = torch.rand((n, 2), generator=gen, device=cuda_device) * 2.0 - 1.0
+    got = residual_codegen.launch(program, U, z, n, causal)
+    twin = fused_step._TorchOps().generated(program, U, z, n, causal)
+    ref = fused_step._TorchOps().generated(program, U.double(), z.double(), n, causal)
+    torch.cuda.synchronize()
+    for a, t, r in zip(got, twin, ref):
+        assert torch.equal(a.isnan(), t.isnan()) and torch.equal(a.isinf(), t.isinf())
+        fin = torch.isfinite(r) & torch.isfinite(a)
+        assert _rel(a.double()[fin], r[fin]) < 1e-5
 
 
 @pytest.mark.parametrize("dim", [1, 2, 4])
