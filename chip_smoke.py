@@ -273,9 +273,22 @@ Phases (each raises on failure, and the script then exits non-zero):
                version by CUDA-graph replay, beside the added work's bound
                and cuBLAS's (a) and (c) products.
  37. ensemble — the same slice with ``ensemble_size`` 4, 2 epochs: kernel 1
-               exactly 4 times per step and validation, every leaf with a
-               member axis, finite falling member-mean losses; median ms
-               per step at E = 1 and E = 4 in turns; no host sync per step.
+               exactly once per step and validation for all 4 members (one
+               member-batched call, serving 4 members each; every kernel
+               runs the members on its member axis), every leaf with a
+               member axis, finite falling member-mean losses; that call at
+               N = 8192 per member against 4 single calls (bit-identical)
+               and the float64 twins (FUSED_TOLS), bit-identical in two
+               calls, timed by CUDA-graph replay beside the 4 single calls,
+               the plain (vmapped) version, cuBLAS's torch.bmm of the same
+               products and its bound; median ms per step at E = 1 and E = 4
+               in turns; no host sync per step; kernel 1 on 3 small stacked
+               members of every kind of entry point (``MEMBER_CASES``);
+               kernels 2 and 3 member-batched (B (4, 2, 128), W (4, 124,
+               124)) against their plain versions and per-member launches,
+               one launch through their vmap rules, timed; and the vmapped
+               residual path of a SIREN and a trainable-basis ensemble (one
+               launch per layer for all members, one epoch trained).
  38. trunks  — the modified Fourier trunk (256x3, mapping 128), the
                autoencoder as shipped (124/248/124, latent 64) and the
                slice with dropout 0.1, 2 epochs each: kernel 1 never on the
@@ -688,6 +701,14 @@ COLLOCATION_UPDATES = 5
 TRUNK_EPOCHS = 2      # phases 36-38: epochs of 4 steps of the Burgers slice per run
 ENSEMBLE_E = 4        # phase 37's members
 TIMED_STEPS = 10      # phase 37's steps timed per turn (E = 1 and E = 4, in turns)
+# Phase 37's member axis at small size: kernel 1 on MEMBER_SMALL_E stacked
+# members of N MEMBER_SMALL_N points per case (64x48, mapping 32, LayerNorm
+# off for the generated residual; Black-Scholes as shipped and phase 44's
+# 4-D case as they are), and the vmapped residual path's ensembles.
+MEMBER_SMALL_E = 3
+MEMBER_SMALL_N = 2048
+MEMBER_CASES = ("burgers_causal_basis", "kdv_causal", "black_scholes_ff", "heat_4d_variants",
+                "burgers_generated")
 DB_TOL = 1e-4         # dL/dB against _TorchOps: the gradients' bound, rel to max
 EXPECT_DROPOUT = 0.1  # phase 38's dropout rate (identity on the trainer's paths)
 # Phase 40: float64 residuals on the Burgers slice: epochs (half Adam, half
@@ -1062,7 +1083,8 @@ def ff_host_split(x, B, calls: int = 1000):
         "stream": lambda: _build.stream_handle(index),
         "alloc": lambda: x.new_empty((n, 2 * m)),
         "launch": lambda: _build.check(lib.ff_forward(x.data_ptr(), B.data_ptr(), out.data_ptr(), n, d,
-                                                      m, path, rows, 1, stream), "ff_forward"),
+                                                      m, path, rows, 1, 1, 0, 0, stream),
+                                       "ff_forward"),
     }
     split = {"call": host_us(lambda: ff.fourier_features(x, B, True), calls)}
     split.update({k: host_us(f, calls) for k, f in pieces.items()})
@@ -2626,6 +2648,396 @@ def _db_bound(n: int, d: int, kx: int, m: int, width: int):
     return bound(ops, nbytes)
 
 
+def _stacked_members(cfg, members: int):
+    """(the first model, the PDE, the members' leaves stacked (E, ...)):
+    ``members`` models of ``cfg`` from seeds 0.., sharing the first's fixed
+    basis (as ``PDETrainer._stack_ensemble``)."""
+    import torch
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    models = [PINNModel(cfg, seed=e) for e in range(members)]
+    P = {k: torch.stack([m.params[k].detach() for m in models]) for k in models[0].params}
+    return models[0], create_pde(cfg), P
+
+
+def member_case_config(case: str, device: str):
+    """The configuration of a small member-axis case (``MEMBER_CASES``)."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+    from pinnrl_tpu_torch.config import load_config
+
+    if case == "black_scholes_ff":
+        return load_config(pde_type="black_scholes", device=device)
+    if case == "heat_4d_variants":
+        return nd4_small_config(case, device)
+    cfg = (build_recipe_config("kdv", device=device) if case == "kdv_causal"
+           else load_config(pde_type="burgers", architecture="fourier", device=device))
+    cfg.model.hidden_dims = [64, 48]
+    cfg.model.arch_params["mapping_size"] = 32
+    cfg.model.arch_params.pop("feature_seed", None)
+    cfg.model.layer_norm = case != "burgers_generated"
+    cfg.model.arch_params["trainable_features"] = case == "burgers_causal_basis"
+    cfg.training.causal_eps = 1.0 if "causal" in case else 0.0
+    return cfg
+
+
+def member_parity(dev, spec, P, z, tols, label: str):
+    """Kernel 1 on E stacked members (z (E, N, d+1), leaves (E, ...)) in one
+    sequence of launches: twice (bit-identical), against E single-member
+    calls on copies of each member's tensors (bit-identical: the member axis
+    changes which block computes, not the order of any sum), and against
+    its plain twins run in float64 on the same card tensors, member by
+    member, within ``tols`` (loss, gradients; relative, the gradients to
+    each member's max). Raises otherwise. Returns (loss, grads, numbers)."""
+    import torch
+
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+
+    ops, plain = fused_step._cuda_ops(dev), fused_step._TorchOps()
+    E = z.shape[0]
+    lk, gk = fused_step._loss_and_grads(ops, spec, z, P)
+    lk2, gk2 = fused_step._loss_and_grads(ops, spec, z, P)
+    single = [fused_step._loss_and_grads(ops, spec, z[e].clone(),
+                                         {k: v[e].clone() for k, v in P.items()})
+              for e in range(E)]
+    f64 = fused_step._Spec(**{**spec.__dict__, "lo": spec.lo.double(),
+                              "scale": spec.scale.double(),
+                              "B": None if spec.B is None else spec.B.double()})
+    l64, g64 = fused_step._loss_and_grads(plain, f64, z.double(),
+                                          {k: v.double() for k, v in P.items()})
+    torch.cuda.synchronize()
+    twice = torch.equal(lk, lk2) and all(torch.equal(gk[k], gk2[k]) for k in gk)
+    diff = max([abs(float(lk[e]) - float(ls)) for e, (ls, _) in enumerate(single)]
+               + [float((gk[k][e] - gs[k]).abs().max()) for e, (_, gs) in enumerate(single)
+                  for k in gs])
+    loss_rel = max(abs(float(lk[e]) - float(l64[e])) / abs(float(l64[e])) for e in range(E))
+    grad_rel = max(float((gk[k][e].double() - g64[k][e]).abs().max())
+                   / max(float(g64[k][e].abs().max()), 1e-30) for k in gk for e in range(E))
+    abs_err = max(float((lk.double() - l64).abs().max()),
+                  *(float((gk[k].double() - g64[k]).abs().max()) for k in gk))
+    shapes_ok = all(gk[k].shape == P[k].shape for k in P) and lk.shape == (E,)
+    print(f"[members] {label} E={E} N={z.shape[1]}: one member-batched call against {E} single "
+          f"calls max diff {diff:.3e} (bit-identical {diff == 0.0}); against the float64 twins "
+          f"loss rel {loss_rel:.3e} (tol {tols[0]:g}), grad rel {grad_rel:.3e} (tol {tols[1]:g}); "
+          f"two calls bit-identical {twice}", flush=True)
+    if not (diff == 0.0 and twice and shapes_ok and loss_rel < tols[0] and grad_rel < tols[1]
+            and all(torch.isfinite(g).all() for g in gk.values())):
+        raise AssertionError(f"{label}: the member-batched kernel 1 disagrees")
+    return lk, gk, {"members": E, "n": z.shape[1], "single_max_diff": diff, "loss_rel": loss_rel,
+                    "grad_rel": grad_rel, "max_abs_err": abs_err, "bit_identical": twice}
+
+
+def member_points(pde, gen, members: int, n: int, causal: bool):
+    """z (E, n, d+1): each member's own uniform points, sorted by time under
+    causal weights."""
+    import torch
+
+    zs = []
+    for _ in range(members):
+        x, t = pde.generate_collocation_points(gen, n, "uniform")
+        zs.append(time_sorted(x, t) if causal else torch.cat([x, t], dim=-1))
+    return torch.stack(zs)
+
+
+def cublas_bmm_ms(shapes, members: int, device, iters: int = 20) -> float:
+    """Device ms of one FP32 cuBLAS batched product (``torch.bmm``, TF32
+    off) over ``members`` of each (M, K, N) in ``shapes``, in sequence, by
+    CUDA-graph replay."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    ops = [(torch.randn((members, m, k), generator=gen, device=device),
+            torch.randn((members, k, n), generator=gen, device=device)) for m, k, n in shapes]
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return graph_ms(lambda: [torch.bmm(a, b) for a, b in ops], iters=iters)
+
+
+def member_kernel_runs(dev, card: str):
+    """Phase 37's member axis of kernels 1-3 outside the trainer: kernel 1
+    on small stacked members of every kind of entry point (``MEMBER_CASES``:
+    trainable basis and causal scan, x-order 3, the feedforward trunk's
+    input and z-reading residual, d >= 4 with its run-time-d kernels, the
+    generated residual); kernels 2 and 3 member-batched (a trainable
+    basis's B (E, d, m), SIREN layers' W (E, k, m)) against their plain
+    versions and per-member launches, through their vmap rules in one
+    launch, timed beside the per-member launches."""
+    import torch
+
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, residual_codegen, siren
+
+    out = {"cases": {}}
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for case in MEMBER_CASES:
+        cfg = member_case_config(case, "cuda")
+        model, pde, P = _stacked_members(cfg, MEMBER_SMALL_E)
+        spec = fused_step._spec(model, pde)
+        if case == "burgers_generated":
+            spec = fused_step._Spec(**{**spec.__dict__, "residual": "generated",
+                                       "program": residual_codegen.trace(pde, 2, device=dev)})
+        causal = spec.causal_eps > 0.0
+        z = member_points(pde, gen, MEMBER_SMALL_E, MEMBER_SMALL_N, causal)
+        key = {"kdv_causal": "kdv_causal", "black_scholes_ff": "black_scholes_ff"}.get(
+            case, "burgers_causal" if causal else "burgers")
+        generated = residual_codegen.launch.launches
+        out["cases"][case] = member_parity(dev, spec, P, z, FUSED_TOLS[key], case)[2]
+        # These launches hold the kernels against single calls and their
+        # twins, no main path's: phase 45 counts the generated residual from 0.
+        residual_codegen.launch.launches = generated
+
+    # Kernel 2: a trainable basis's B per member, the Burgers recipe's rows.
+    cfg = lever_config("cuda")
+    cfg.model.arch_params["trainable_features"] = True
+    model, pde, P = _stacked_members(cfg, ENSEMBLE_E)
+    B = P["FourierFeatures_0.B"].contiguous()
+    x = model.map_inputs(member_points(pde, gen, ENSEMBLE_E, 8192, False)).contiguous()
+    ff = fourier_feats
+    (E, n, d), m = x.shape, B.shape[-1]
+    before = ff.fourier_features.launches
+    got = ff.fourier_features_cuda(x, B)
+    via_vmap = torch.func.vmap(ff.fourier_features)(x, B)
+    torch.cuda.synchronize()
+    vmap_launches = ff.fourier_features.launches - before - 1
+    each = [ff.fourier_features_cuda(x[e].clone(), B[e].clone()) for e in range(E)]
+    ref = ff.fourier_features_plain(x, B)
+    ff_err = float((got - ref).abs().max())
+    ff_same = all(torch.equal(got[e], each[e]) for e in range(E)) and torch.equal(got, via_vmap)
+    singles = [(x[e].clone(), B[e].clone()) for e in range(E)]
+    ff_ms = graph_ms(lambda: ff.fourier_features_cuda(x, B))
+    ff_each_ms = graph_ms(lambda: [ff.fourier_features_cuda(a, b) for a, b in singles])
+    ff_plain_ms = graph_ms(lambda: ff.fourier_features_plain(x, B))
+    ff_bound = bound(E * (2.0 * n * d * m + 3.0 * n * m), 4.0 * E * (n * d + d * m + 2 * n * m))
+    print(f"[members] kernel 2 E={E} x ({n},{d}) B ({d},{m}): one launch {ff_ms:.5f} ms against "
+          f"{E} launches {ff_each_ms:.5f} ms, plain {ff_plain_ms:.5f} ms, bound {ff_bound[0]:.5f} "
+          f"ms ({ff_bound[1]}); max_abs_err {ff_err:.3e}, equal to the per-member launches and "
+          f"to vmap {ff_same}, vmap launches {vmap_launches} ({card})", flush=True)
+    if not (ff_err < 1e-4 and ff_same and vmap_launches == 1):
+        raise AssertionError("kernel 2's member axis disagrees or its vmap rule launches per member")
+    out["kernel2"] = {"members": E, "shape": [n, d, m], "ms": ff_ms, "per_member_ms": ff_each_ms,
+                      "plain_ms": ff_plain_ms, "bound_ms": ff_bound[0], "bound_by": ff_bound[1],
+                      "library_ms": None, "max_abs_err": ff_err, "vmap_launches": vmap_launches}
+
+    # Kernel 3: SIREN layers per member at the shipped 124 width, batch 2048.
+    cfg = siren_kdv_config("cuda")
+    model, pde, P = _stacked_members(cfg, ENSEMBLE_E)
+    W, b = P["SIRENLayer_1.kernel"].contiguous(), P["SIRENLayer_1.bias"].contiguous()
+    E, k, m = W.shape
+    xs = torch.rand((E, 2048, k), generator=gen, device=dev) * 2.0 - 1.0
+    omega = float(cfg.model.arch_params.get("omega_0", 30.0))
+    before = siren.siren_layer.launches
+    got = siren.siren_layer_cuda(xs, W, b, omega)
+    via_vmap = torch.func.vmap(lambda a, w, c: siren.siren_layer(a, w, c, omega))(xs, W, b)
+    torch.cuda.synchronize()
+    s_vmap_launches = siren.siren_layer.launches - before - 1
+    singles = [(xs[e].clone(), W[e].clone(), b[e].clone()) for e in range(E)]
+    each = [siren.siren_layer_cuda(*s, omega) for s in singles]
+    ref = siren.siren_layer_plain(xs, W, b, omega)
+    s_err = float((got - ref).abs().max())
+    s_same = all(torch.equal(got[e], each[e]) for e in range(E)) and torch.equal(got, via_vmap)
+    s_ms = graph_ms(lambda: siren.siren_layer_cuda(xs, W, b, omega))
+    s_each_ms = graph_ms(lambda: [siren.siren_layer_cuda(*s, omega) for s in singles])
+    s_plain_ms = graph_ms(lambda: siren.siren_layer_plain(xs, W, b, omega))
+    s_lib_ms = graph_ms(lambda: torch.baddbmm(b[:, None, :], xs, W))
+    n = xs.shape[1]
+    s_bound = bound(E * (2.0 * n * k * m + 3.0 * n * m), 4.0 * E * (n * k + k * m + m + n * m))
+    print(f"[members] kernel 3 E={E} x ({n},{k}) W ({k},{m}): one launch {s_ms:.5f} ms against "
+          f"{E} launches {s_each_ms:.5f} ms, plain {s_plain_ms:.5f} ms, torch.baddbmm "
+          f"{s_lib_ms:.5f} ms, bound {s_bound[0]:.5f} ms ({s_bound[1]}); max_abs_err "
+          f"{s_err:.3e}, equal to the per-member launches and to vmap {s_same}, vmap launches "
+          f"{s_vmap_launches} ({card})", flush=True)
+    if not (s_err < 1e-4 and s_same and s_vmap_launches == 1):
+        raise AssertionError("kernel 3's member axis disagrees or its vmap rule launches per member")
+    out["kernel3"] = {"members": E, "shape": [n, k, m], "ms": s_ms, "per_member_ms": s_each_ms,
+                      "plain_ms": s_plain_ms, "bound_ms": s_bound[0], "bound_by": s_bound[1],
+                      "library_ms": s_lib_ms, "max_abs_err": s_err,
+                      "vmap_launches": s_vmap_launches}
+    out["vmapped_path"] = member_vmap_path_runs(dev, card, gen)
+    return out
+
+
+def member_vmap_path_runs(dev, card: str, gen):
+    """The trainer's vmapped residual path (``PDETrainer.member_path ==
+    "vmap"``, where kernel 1 is not attached) on a SIREN ensemble (KdV's
+    shipped 124-wide SIREN cut to 3 layers) and a trainable basis on the
+    modified Fourier trunk (Burgers, 64x64, mapping 32; kernel 1 takes
+    neither, and the residual runs kernel 2 inside the nested jvps): one
+    vmapped residual term of all members launches kernel 3, or kernel 2, as
+    often as one member's residual does (one launch per layer for all
+    members), and agrees with the members' own residual terms; then one
+    epoch trains."""
+    import torch
+
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    siren_cfg = siren_kdv_config("cuda")
+    siren_cfg.model.hidden_dims = [124] * 3
+    basis_cfg = load_config(pde_type="burgers", architecture="fourier", device="cuda")
+    basis_cfg.model.hidden_dims = [64, 64]
+    basis_cfg.model.arch_params.update({"mapping_size": 32, "modified": True,
+                                        "trainable_features": True})
+    out = {}
+    for name, cfg, counter in (("siren", siren_cfg, "siren_layer"),
+                               ("modified_basis", basis_cfg, "fourier_features")):
+        t = cfg.training
+        t.ensemble_size, t.num_epochs, t.validation_frequency = MEMBER_SMALL_E, 1, 1
+        t.optimizer, t.scheduler_type = "adam", "cosine"
+        t.num_collocation_points, t.batch_size = 4096, 2048
+        tr = PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+        params = tr._stack_ensemble(0)
+        batches = [tr.pde.generate_collocation_points(gen, 2048, "uniform")
+                   for _ in range(MEMBER_SMALL_E)]
+        torch.cuda.synchronize()
+        before = _launches()
+        terms = tr._member_residual_losses(params, batches)
+        torch.cuda.synchronize()
+        mid = _launches()
+        x0, t0 = batches[0]
+        one = tr.pde._residual_loss(
+            tr.pde.compute_residual(tr.model.apply, {k: v[0] for k, v in params.items()}, x0, t0,
+                                    {}), t0)
+        torch.cuda.synchronize()
+        after = _launches()
+        all_members, one_member = mid[counter] - before[counter], after[counter] - mid[counter]
+        rel = abs(float(terms[0].detach()) - float(one.detach())) / abs(float(one.detach()))
+        res, launches, wall = _run_counted(tr)
+        hist = res["history"]
+        print(f"[members] vmapped residual path, {name} ({tr.model.architecture_name}) E="
+              f"{MEMBER_SMALL_E}: path {tr.member_path}, {counter} launches for all members' "
+              f"residual terms {all_members}, for one member's {one_member}; member 0 against its "
+              f"own residual term rel {rel:.3e}; 1 epoch: train {hist['train_loss']}, kernel 1 "
+              f"{launches['fused_residual_loss']} launches, {wall:.1f} s ({card})", flush=True)
+        if not (tr.member_path == "vmap" and all_members == one_member > 0 and rel < 1e-5
+                and launches["fused_residual_loss"] == 0
+                and all(map(math.isfinite, hist["train_loss"] + hist["val_loss"]))):
+            raise AssertionError(f"the vmapped residual path of {name}: {all_members} launches "
+                                 f"against {one_member}, rel {rel}, {launches}")
+        out[name] = {"launches_all_members": all_members, "launches_one_member": one_member,
+                     "rel": rel, "train_launches": launches, "train_loss": hist["train_loss"]}
+    return out
+
+
+def ensemble_runs(dev, card: str):
+    """Phase 37: a deep ensemble of ``ENSEMBLE_E`` members on the Burgers
+    recipe slice. The trainer's run (kernel 1 once per step and per
+    validation for all members: ``steps + vals`` launches serving ``E (steps
+    + vals)`` members); the member-batched call at the recipe's width (N
+    8192 per member) against E single calls (bit-identical) and the float64
+    twins, timed by CUDA-graph replay beside the E single calls, the plain
+    version, the same products on cuBLAS (``torch.bmm`` over the members)
+    and its bound; the step's ms at E = 1 and E = ``ENSEMBLE_E`` in turns;
+    and ``member_kernel_runs``."""
+    import torch
+
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.jet_mlp import make_bundle_fn
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    def trainer(cfg):
+        return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg)
+
+    steps_per_epoch = 40000 // 8192
+    steps = TRUNK_EPOCHS * steps_per_epoch
+    cfg = lever_config("cuda", num_epochs=TRUNK_EPOCHS, ensemble_size=ENSEMBLE_E)
+    tr = trainer(cfg)
+    served = fused_step.fused_residual_loss.members
+    res, launches, wall = _run_counted(tr)
+    served = fused_step.fused_residual_loss.members - served
+    hist = res["history"]
+    vals = len(hist["val_loss"])
+    want = steps + vals
+    lead = {k: tuple(v.shape[:1]) for k, v in tr.model.params.items()}
+    print(f"[trunks] ensemble E={ENSEMBLE_E}: {steps} steps + {vals} validations, path "
+          f"{tr.member_path}, kernel 1 {launches['fused_residual_loss']} launches serving {served} "
+          f"members (want {want} and {ENSEMBLE_E * want}: one member-batched call per step and "
+          f"validation), train {hist['train_loss']}, val {hist['val_loss']}, {wall:.1f} s ({card})",
+          flush=True)
+    if (tr.member_path != "kernel1" or launches["fused_residual_loss"] != want
+            or served != ENSEMBLE_E * want or set(lead.values()) != {(ENSEMBLE_E,)}):
+        raise AssertionError(f"ensemble: kernel 1 {launches}, {served} members, want {want}; "
+                             f"leading axes {lead}")
+    if not (all(map(math.isfinite, hist["train_loss"] + hist["val_loss"]))
+            and hist["train_loss"][-1] < hist["train_loss"][0]):
+        raise AssertionError(f"ensemble: losses {hist['train_loss']}")
+
+    # The member-batched call at the recipe's width, on the trained members.
+    E, n = ENSEMBLE_E, 8192
+    P = {k: v.detach() for k, v in tr.model.params.items()}
+    spec = fused_step._spec(tr.model, tr.pde)
+    causal = spec.causal_eps > 0.0
+    gen = torch.Generator(device=dev).manual_seed(8)
+    z = member_points(tr.pde, gen, E, n, causal)
+    _, _, parity = member_parity(dev, spec, P, z, FUSED_TOLS["burgers_causal" if causal else
+                                                            "burgers"], "Burgers recipe width")
+    ops = fused_step._cuda_ops(dev)
+    singles = [(z[e].clone(), {k: v[e].clone() for k, v in P.items()}) for e in range(E)]
+    batched_ms = graph_ms(lambda: fused_step._loss_and_grads(ops, spec, z, P), iters=10, replays=5)
+    singles_ms = graph_ms(lambda: [fused_step._loss_and_grads(ops, spec, zz, pp)
+                                   for zz, pp in singles], iters=10, replays=5)
+    bundle_fn = make_bundle_fn(tr.model, 1, 2, 1)
+    p_leaf = {k: v.clone().requires_grad_(True) for k, v in P.items()}
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        fused_step.fused_residual_loss_plain(bundle_fn, tr.pde, p_leaf, z).sum(),
+        list(p_leaf.values())), iters=5, warmup=2)
+    one = singles[0][1]
+    lib_ms = cublas_bmm_ms(fused_gemms(one, 2, n), E, dev)
+    one_bound = kernel1_bound(one, 2, singles[0][0], spec.B)
+    m_bound = (E * one_bound[0], one_bound[1])
+    print(f"[trunks] kernel 1, {E} members in one call (Fourier 256x3, mapping 128, N={n} each): "
+          f"{batched_ms:.4f} ms against {E} single calls {singles_ms:.4f} ms "
+          f"({singles_ms / batched_ms:.2f}x), plain (vmapped) {plain_ms:.4f} ms, the same "
+          f"products on cuBLAS (torch.bmm over the members) {lib_ms:.4f} ms, bound "
+          f"{m_bound[0]:.4f} ms ({m_bound[1]}; {E} x {one_bound[0]:.4f}) ({card})", flush=True)
+
+    # Step ms at E = 1 and E = 4, in turns (host clock, synchronized).
+    one_tr = trainer(lever_config("cuda", num_epochs=TRUNK_EPOCHS))
+    ens = tr
+    e_params = ens.model.params
+    e_opt = ens._make_adam(TRUNK_EPOCHS, steps_per_epoch, ens._leaves(e_params))
+    e_gens = [torch.Generator(device=dev).manual_seed(20 + m) for m in range(ENSEMBLE_E)]
+
+    def ens_step():
+        ens._ensemble_step(e_params, e_opt, e_gens, 8192)
+
+    def ens_times(count):
+        times = []
+        for i in range(count + 2):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            ens_step()
+            torch.cuda.synchronize()
+            if i >= 2:  # warm-up
+                times.append((time.perf_counter() - s) * 1e3)
+        return times
+
+    turns = {"e1": [], "e4": []}
+    for who in ("e1", "e4", "e4", "e1"):
+        turns[who] += (step_times(one_tr, TIMED_STEPS, TRUNK_EPOCHS, 8192) if who == "e1"
+                       else ens_times(TIMED_STEPS))
+    ms = {k: statistics.median(v) for k, v in turns.items()}
+    sync_sites = record_syncs(ens_step)
+    print(f"[trunks] ensemble step ms (median, host clock, in turns): E=1 {ms['e1']:.3f}, "
+          f"E={ENSEMBLE_E} {ms['e4']:.3f} ({ms['e4'] / ms['e1']:.2f}x); host syncs per "
+          f"E={ENSEMBLE_E} step {len(sync_sites)} {sorted(set(sync_sites))} ({card})", flush=True)
+    if sync_sites:
+        raise AssertionError(f"ensemble: {len(sync_sites)} host syncs per step at {sync_sites}")
+    del tr, ens, one_tr, e_params, e_opt
+    kernels = member_kernel_runs(dev, card)
+    return {"launches": launches, "want": want, "members_served": served, "steps": steps,
+            "validations": vals, "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
+            "wall_s": wall, "step_ms": ms, "syncs": len(sync_sites),
+            "member_call": {**parity, "ms": batched_ms, "single_calls_ms": singles_ms,
+                            "plain_ms": plain_ms, "bound_ms": m_bound[0], "bound_by": m_bound[1],
+                            "single_bound_ms": one_bound[0], "library_ms": lib_ms,
+                            "library_call": "torch.bmm (FP32, TF32 off) over the members of the "
+                                            "call's GEMM shapes"},
+            **kernels}
+
+
 def trunk_runs(dev, card: str):
     """Phases 36-39: the trainable basis through kernel 1's dL/dB, deep
     ensembles, the modified and autoencoder trunks and dropout, and the heat
@@ -2728,59 +3140,7 @@ def trunk_runs(dev, card: str):
     del tr, model, pde
 
     # ---- 37. a deep ensemble of 4 ----------------------------------------- #
-    cfg = lever_config("cuda", num_epochs=TRUNK_EPOCHS, ensemble_size=ENSEMBLE_E)
-    tr = trainer(cfg)
-    res, launches, wall = _run_counted(tr)
-    hist = res["history"]
-    vals = len(hist["val_loss"])
-    want = ENSEMBLE_E * (steps + vals)
-    lead = {k: tuple(v.shape[:1]) for k, v in tr.model.params.items()}
-    print(f"[trunks] ensemble E={ENSEMBLE_E}: {steps} steps + {vals} validations, kernel 1 "
-          f"{launches['fused_residual_loss']} launches (want {want}: {ENSEMBLE_E} per step and "
-          f"validation), train {hist['train_loss']}, val {hist['val_loss']}, {wall:.1f} s ({card})",
-          flush=True)
-    if launches["fused_residual_loss"] != want or set(lead.values()) != {(ENSEMBLE_E,)}:
-        raise AssertionError(f"ensemble: kernel 1 {launches}, want {want}; leading axes {lead}")
-    if not (all(map(math.isfinite, hist["train_loss"] + hist["val_loss"]))
-            and hist["train_loss"][-1] < hist["train_loss"][0]):
-        raise AssertionError(f"ensemble: losses {hist['train_loss']}")
-    # Step ms at E = 1 and E = 4, in turns (host clock, synchronized).
-    one = trainer(lever_config("cuda", num_epochs=TRUNK_EPOCHS))
-    ens = tr
-
-    e_params = ens.model.params
-    e_opt = ens._make_adam(TRUNK_EPOCHS, steps_per_epoch, ens._leaves(e_params))
-    e_gens = [torch.Generator(device=dev).manual_seed(20 + m) for m in range(ENSEMBLE_E)]
-
-    def ens_step():
-        ens._ensemble_step(e_params, e_opt, e_gens, 8192)
-
-    def ens_times(n):
-        times = []
-        for i in range(n + 2):
-            torch.cuda.synchronize()
-            s = time.perf_counter()
-            ens_step()
-            torch.cuda.synchronize()
-            if i >= 2:  # warm-up
-                times.append((time.perf_counter() - s) * 1e3)
-        return times
-
-    turns = {"e1": [], "e4": []}
-    for who in ("e1", "e4", "e4", "e1"):
-        turns[who] += (step_times(one, TIMED_STEPS, TRUNK_EPOCHS, 8192) if who == "e1"
-                       else ens_times(TIMED_STEPS))
-    ms = {k: statistics.median(v) for k, v in turns.items()}
-    sync_sites = record_syncs(ens_step)
-    print(f"[trunks] ensemble step ms (median, host clock, in turns): E=1 {ms['e1']:.3f}, "
-          f"E={ENSEMBLE_E} {ms['e4']:.3f} ({ms['e4'] / ms['e1']:.2f}x); host syncs per "
-          f"E={ENSEMBLE_E} step {len(sync_sites)} {sorted(set(sync_sites))} ({card})", flush=True)
-    if sync_sites:
-        raise AssertionError(f"ensemble: {len(sync_sites)} host syncs per step at {sync_sites}")
-    out["ensemble"] = {"launches": launches, "want": want, "steps": steps, "validations": vals,
-                       "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
-                       "wall_s": wall, "step_ms": ms, "syncs": len(sync_sites)}
-    del tr, ens, one, e_params, e_opt
+    out["ensemble"] = ensemble_runs(dev, card)
 
     # ---- 38. modified trunk, autoencoder, dropout --------------------------- #
     mod = lever_config("cuda", num_epochs=TRUNK_EPOCHS)
@@ -5952,7 +6312,10 @@ def main() -> int:
          "trainable_basis_launches": trunks["trainable_basis"]["launches"]["fused_residual_loss"],
          "trainable_basis": {k: trunks["trainable_basis"][k] for k in ("parity", "timings")},
          "ensemble_launches": trunks["ensemble"]["launches"]["fused_residual_loss"],
+         "ensemble_members_served": trunks["ensemble"]["members_served"],
          "ensemble_step_ms": trunks["ensemble"]["step_ms"],
+         "member_axis": {**trunks["ensemble"]["member_call"],
+                         "cases": trunks["ensemble"]["cases"]},
          "trunk_launches": {k: trunks[k]["launches"]["fused_residual_loss"]
                             for k in ("modified", "autoencoder", "dropout")},
          "float64_launches": {"adam": f64["adam_launches"]["fused_residual_loss"],
@@ -5983,7 +6346,8 @@ def main() -> int:
          "launches": rl_launches["fourier_features"],
          "kdv_launches": kdv_launches["fourier_features"],
          "heat_launches": heat_launches["fourier_features"],
-         "heat_jvps": heat_launches["fourier_features_jvps"], "max_abs_err": ff_err,
+         "heat_jvps": heat_launches["fourier_features_jvps"],
+         "max_abs_err": max(ff_err, trunks["ensemble"]["kernel2"]["max_abs_err"]),
          "lbfgs_launches": {k: {"launches": r["fourier_features"], "jvps": r["fourier_features_jvps"]}
                             for k, (r, _) in lbfgs_runs.items()},
          "heat_2d_launches": heat_2d_run["fourier_features"],
@@ -6020,6 +6384,8 @@ def main() -> int:
                                        "jvps": r["fourier_features_jvps"]}
                                    for k, r in samp["runs"].items()},
                       "harness": samp["runs"], "syncs_per_step": samp["syncs_per_step"]},
+         "member_axis": trunks["ensemble"]["kernel2"],
+         "vmapped_ensemble": trunks["ensemble"]["vmapped_path"]["modified_basis"],
          "ms": ff_ms, "plain_ms": ff_plain_ms, "eager_ms": ff_eager_ms,
          "bound_ms": ff_bound_ms, "bound_by": ff_bound_by, "library_ms": None,
          "floor_ms": ff_floor_ms, "shapes": ff_times, "host_us": ff_host,
@@ -6029,12 +6395,16 @@ def main() -> int:
         {"name": "siren_layer", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/siren.cu",
          "replaces": "pinnrl_tpu/ops/kernels/siren.py:29",
-         "launches": siren_launches, "max_abs_err": siren_err, "blocks": siren_blocks,
+         "launches": siren_launches,
+         "max_abs_err": max(siren_err, trunks["ensemble"]["kernel3"]["max_abs_err"]),
+         "blocks": siren_blocks,
          "wave_launches": shipped_second["wave"]["siren_layer"], "wave_max_abs_err": wave_siren_err,
          "cahn_hilliard_launches": {**{k: r["siren_layer"] for k, r in ch_runs.items()},
                                     "shipped": ch_shipped_run["siren_layer"]},
          "shipped_second_order": shipped_second,
          "float64_gate": {k: v for k, v in f64["gate"].items() if k.startswith("siren")},
+         "member_axis": trunks["ensemble"]["kernel3"],
+         "vmapped_ensemble": trunks["ensemble"]["vmapped_path"]["siren"],
          "ms": siren_ms, "plain_ms": siren_plain_ms, "eager_ms": siren_eager_ms,
          "bound_ms": siren_bound[0], "bound_by": siren_bound[1], "library_ms": siren_lib_ms,
          "library_call": "torch.addmm(b, x, W) (FP32, TF32 off) at (2048,124)x(124,124), no sin"},

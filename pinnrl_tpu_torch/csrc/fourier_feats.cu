@@ -29,6 +29,10 @@
 //     ragged shapes, not a fallback.
 //   - Grid: gridDim.y is a small multiple of the SM count (the host sizes
 //     it), so each block reuses its B registers over several rows.
+//   - Members: blockIdx.z is a deep ensemble's member, with its own x (or a
+//     shared one, stride 0), its own B and its own output; each member's
+//     blocks do what a single call's do (the reference's vmap of this
+//     kernel under a trainable basis, one pallas_call with a member axis).
 // Precision: the phase is formed as the plain version forms it, the product
 // x @ B by fmaf over k from 0, then times s, then full-range sincosf. Never
 // __sinf/__cosf and never --use_fast_math: with s = 2 pi and scale 2 the
@@ -48,7 +52,11 @@ constexpr float TWO_PI = 6.283185307179586f;
 template <int D>
 __global__ void __launch_bounds__(QUADS * ROWS)
 fourier_features_kernel(const float* __restrict__ x, const float* __restrict__ B,
-                        float* __restrict__ out, int n, int d, int m, float s) {
+                        float* __restrict__ out, int n, int d, int m, float s, long long sx,
+                        long long sB) {
+    x += blockIdx.z * sx;
+    B += blockIdx.z * sB;
+    out += blockIdx.z * (2LL * m) * n;
     const int col = blockIdx.x * QUADS + threadIdx.x;
     const int row0 = blockIdx.y * ROWS + threadIdx.y;
     const int row_step = gridDim.y * ROWS;
@@ -104,22 +112,27 @@ int grid_cols(int m, int path) { return ((path > 0 ? m / 4 : m) + QUADS - 1) / Q
 
 // path: d (1..3) for the vector path, 0 for the edge path; grid_rows: blocks
 // along the rows (the host's launch_plan). A path the inputs do not admit is
-// refused (cudaErrorInvalidValue), never run on the wrong layout.
+// refused (cudaErrorInvalidValue), never run on the wrong layout. members:
+// x, B and out hold that many members at strides sx, sB (0: shared) and
+// n 2m; every member has the single call's grid.
 extern "C" int ff_forward(const float* x, const float* B, float* out, int n, int d, int m,
-                          int path, int grid_rows, int two_pi, void* stream) {
-    if (n < 0 || d < 0 || m < 0 || grid_rows < 1 || grid_rows > 65535) return (int)cudaErrorInvalidValue;
+                          int path, int grid_rows, int two_pi, int members, long long sx,
+                          long long sB, void* stream) {
+    if (n < 0 || d < 0 || m < 0 || grid_rows < 1 || grid_rows > 65535 || members < 1 ||
+        members > 65535)
+        return (int)cudaErrorInvalidValue;
     if (path != 0 && (path != d || d > MAX_VEC_D || m % 4 != 0 || (reinterpret_cast<uintptr_t>(B) & 15)
-                      || (reinterpret_cast<uintptr_t>(out) & 15)))
+                      || (reinterpret_cast<uintptr_t>(out) & 15) || sB % 4 != 0))
         return (int)cudaErrorInvalidValue;
     if (n == 0 || m == 0) return 0;
     const float s = two_pi ? TWO_PI : 1.0f;
-    const dim3 grid(grid_cols(m, path), grid_rows), block(QUADS, ROWS);
+    const dim3 grid(grid_cols(m, path), grid_rows, members), block(QUADS, ROWS);
     cudaStream_t st = (cudaStream_t)stream;
     switch (path) {
-        case 1: fourier_features_kernel<1><<<grid, block, 0, st>>>(x, B, out, n, d, m, s); break;
-        case 2: fourier_features_kernel<2><<<grid, block, 0, st>>>(x, B, out, n, d, m, s); break;
-        case 3: fourier_features_kernel<3><<<grid, block, 0, st>>>(x, B, out, n, d, m, s); break;
-        default: fourier_features_kernel<0><<<grid, block, 0, st>>>(x, B, out, n, d, m, s); break;
+        case 1: fourier_features_kernel<1><<<grid, block, 0, st>>>(x, B, out, n, d, m, s, sx, sB); break;
+        case 2: fourier_features_kernel<2><<<grid, block, 0, st>>>(x, B, out, n, d, m, s, sx, sB); break;
+        case 3: fourier_features_kernel<3><<<grid, block, 0, st>>>(x, B, out, n, d, m, s, sx, sB); break;
+        default: fourier_features_kernel<0><<<grid, block, 0, st>>>(x, B, out, n, d, m, s, sx, sB); break;
     }
     return (int)cudaGetLastError();
 }

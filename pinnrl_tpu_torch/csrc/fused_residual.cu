@@ -133,6 +133,15 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+// The member axis. A deep ensemble's E members run in one launch of each
+// kernel: their tensors are stacked [member][stream][point] (each member's
+// block is the single-member layout), and the member is a grid axis
+// (blockIdx.y, or blockIdx.z where y is taken), so a block computes exactly
+// what it computes for one member, at the member's offsets. The reference
+// gets the same from jax.vmap of its pallas_call, which adds a member axis
+// to the grid. Members = 1 is the single call.
+__device__ __forceinline__ long long member_y() { return (long long)blockIdx.y; }
+
 // ------------------------------------------------- output layer (out = 1) --
 // Y[r] = X[r, :] . w (+ b[0] for r < bias_rows), one warp per row;
 // vec: X's rows and w allow float4 loads.
@@ -140,6 +149,11 @@ __global__ void __launch_bounds__(ROW_THREADS)
 rowdot_kernel(const float* __restrict__ X, const float* __restrict__ w,
               const float* __restrict__ b, float* __restrict__ Y, int R, int K, int bias_rows,
               int vec) {
+    const long long e = member_y();  // member e: its R rows, w and b
+    X += e * R * K;
+    w += e * K;
+    if (b != nullptr) b += e;
+    Y += e * R;
     const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= R) return;
@@ -165,6 +179,10 @@ rowdot_kernel(const float* __restrict__ X, const float* __restrict__ w,
 // out[r, k] = g[r] * w[k] over (R, K); vec: four columns per thread.
 __global__ void outer_kernel(const float* __restrict__ g, const float* __restrict__ w,
                              float* __restrict__ out, int R, int K, int vec) {
+    const long long e = member_y();
+    g += e * R;
+    w += e * K;
+    out += e * R * K;
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (vec) {
         const int kq = K / 4;
@@ -229,8 +247,13 @@ __device__ __forceinline__ void affine_map(const float* __restrict__ zr, const f
 template <int D, int KX>
 __global__ void embed_kernel(const float* __restrict__ z, const float* __restrict__ lo,
                              const float* __restrict__ sc, const float* __restrict__ B,
-                             float* __restrict__ X, int n, int m, float s, int frame, float c) {
+                             float* __restrict__ X, int n, int m, float s, int frame, float c,
+                             long long sB) {
     using L = Layout<D, KX>;
+    const long long e = member_y();  // sB = 0: a basis the members share
+    z += e * n * (D + 1);
+    B += e * sB;
+    X += e * L::NS * n * 2 * m;
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= (long long)n * m) return;
     const int row = (int)(idx / m);
@@ -296,9 +319,15 @@ __global__ void embed_bwd_partial_kernel(const float* __restrict__ z,
                                          const float* __restrict__ sc,
                                          const float* __restrict__ B,
                                          const float* __restrict__ G, int n, int m, float s,
-                                         int frame, float c, float* __restrict__ partial) {
+                                         int frame, float c, float* __restrict__ partial,
+                                         long long sB) {
     using L = Layout<D, KX>;
     __shared__ float sm[D + 1][8][33];
+    const long long e = blockIdx.z;  // the member
+    z += e * n * (D + 1);
+    B += e * sB;
+    G += e * L::NS * n * 2 * m;
+    partial += e * gridDim.y * (D + 1) * m;
     const int j = blockIdx.x * 32 + threadIdx.x;
     const int r0 = blockIdx.y * COLSUM_ROWS;
     const int r1 = min(n, r0 + COLSUM_ROWS);
@@ -385,9 +414,12 @@ template <int D>
 __global__ void affine_input_kernel(const float* __restrict__ z, const float* __restrict__ lo,
                                     const float* __restrict__ sc, float* __restrict__ X, int n,
                                     int kx, int frame, float c) {
+    constexpr int C = D + 1;  // columns
+    const long long e = member_y();
+    z += e * n * C;
+    X += e * (2 + D * kx) * n * C;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    constexpr int C = D + 1;  // columns
     const long long stride = (long long)C * n;
     float* r = X + (long long)C * i;
     affine_map<D>(z + (long long)C * i, lo, sc, frame, c, r);
@@ -642,6 +674,13 @@ __global__ void transport_fwd_kernel(const float* __restrict__ H, const float* _
                                      int n, int W, int use_ln, int act) {
     using L = Layout<D, KX>;
     constexpr int T = L::T;
+    const long long e = member_y();  // member e: its streams, its LayerNorm scale and bias
+    H += e * L::NS * n * W;
+    A += e * L::NS * n * W;
+    if (use_ln) {
+        gamma += e * W;
+        beta += e * W;
+    }
     const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (warp >= n) return;
@@ -832,6 +871,16 @@ __global__ void transport_bwd_kernel(const float* __restrict__ H, const float* _
     using L = Layout<D, KX>;
     constexpr int T = L::T;
     constexpr int NS = L::NS;
+    const long long e = member_y();
+    H += e * NS * n * W;
+    GA += e * NS * n * W;
+    GH += e * NS * n * W;
+    if (use_ln) {
+        gamma += e * W;
+        beta += e * W;
+        Ggamma += e * n * W;
+        Gbeta += e * n * W;
+    }
     const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (warp >= n) return;
@@ -1001,6 +1050,10 @@ template <int D>
 __global__ void burgers_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                float* __restrict__ out, int n, float nu, float two_over_n,
                                int causal) {
+    const long long mo = member_y() * (2 * D + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float u = U[i], ut = U[(2 * D + 1) * n + i];
@@ -1027,6 +1080,10 @@ template <int D>
 __global__ void heat_kernel(const float* __restrict__ U, float* __restrict__ dU,
                             float* __restrict__ out, int n, float alpha, float two_over_n,
                             int causal) {
+    const long long mo = member_y() * (2 * D + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float uxx = U[2 * n + i];
@@ -1051,6 +1108,10 @@ __global__ void heat_kernel(const float* __restrict__ U, float* __restrict__ dU,
 template <int D>
 __global__ void kdv_kernel(const float* __restrict__ U, float* __restrict__ dU,
                            float* __restrict__ out, int n, float two_over_n, int causal) {
+    const long long mo = member_y() * (3 * D + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float u = U[i], ut = U[(3 * D + 1) * n + i];
@@ -1079,6 +1140,10 @@ template <int D>
 __global__ void convection_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                   float* __restrict__ out, int n, const float* __restrict__ v,
                                   float two_over_n, int causal) {
+    const long long mo = member_y() * (D + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float vx = v[0] * U[n + i];
@@ -1103,6 +1168,10 @@ template <int D>
 __global__ void allen_cahn_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                   float* __restrict__ out, int n, float eps2, float two_over_n,
                                   int causal) {
+    const long long mo = member_y() * (2 * D + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float u = U[i], ut = U[(2 * D + 1) * n + i];
@@ -1132,6 +1201,11 @@ __global__ void black_scholes_kernel(const float* __restrict__ U, const float* _
                                      float* __restrict__ dU, float* __restrict__ out, int n,
                                      float sign, float half_sigma2, float rate, float two_over_n,
                                      int causal) {
+    const long long mo = member_y() * (2 * D + 2) * n;  // member: its streams and points
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
+    z += member_y() * n * (D + 1);
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float VS[D], VSS[D], cSS[D], cS[D];
@@ -1205,6 +1279,8 @@ __device__ float block_exclusive_scan(float x, float* warp_tot, float& total) {
 __global__ void __launch_bounds__(SCAN_BLOCK)
 scan_block_sums_kernel(const float* __restrict__ r, int n, float* __restrict__ sums) {
     __shared__ float warp_tot[33];
+    r += member_y() * n;  // one scan per member
+    sums += member_y() * gridDim.x;
     const int i = blockIdx.x * SCAN_BLOCK + threadIdx.x;
     float x = 0.0f;
     if (i < n) {
@@ -1220,6 +1296,7 @@ scan_block_sums_kernel(const float* __restrict__ r, int n, float* __restrict__ s
 __global__ void __launch_bounds__(SCAN_BLOCK)
 scan_offsets_kernel(float* __restrict__ sums, int nb) {
     __shared__ float warp_tot[33];
+    sums += member_y() * nb;
     float carry = 0.0f;
     for (int first = 0; first < nb; first += SCAN_BLOCK) {
         const int i = first + threadIdx.x;
@@ -1237,6 +1314,9 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
 causal_weights_kernel(const float* __restrict__ r, int n, float eps,
                       const float* __restrict__ offsets, float* __restrict__ WR) {
     __shared__ float warp_tot[33];
+    r += member_y() * n;
+    offsets += member_y() * gridDim.x;
+    WR += member_y() * 2 * n;
     const int i = blockIdx.x * SCAN_BLOCK + threadIdx.x;
     float x = 0.0f;
     if (i < n) {
@@ -1257,6 +1337,11 @@ causal_weights_kernel(const float* __restrict__ r, int n, float eps,
 __global__ void causal_scale_kernel(float* __restrict__ dU, const float* __restrict__ r,
                                     const float* __restrict__ WR, const float* __restrict__ sums,
                                     int n, int S) {
+    const long long e = member_y();
+    dU += e * S * n;
+    r += e * n;
+    WR += e * 2 * n;
+    sums += e * 2;
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= (long long)S * n) return;
     const int i = (int)(idx % n);
@@ -1269,8 +1354,12 @@ __global__ void causal_scale_kernel(float* __restrict__ dU, const float* __restr
 template <bool WEIGHTED>
 __global__ void colsum_partial_kernel(const float* __restrict__ A, const float* __restrict__ g,
                                       int rows, int cols, long long ld,
-                                      float* __restrict__ partial) {
+                                      float* __restrict__ partial, long long member_stride) {
     __shared__ float sm[8][33];
+    const long long e = blockIdx.z;  // the member: A at e member_stride, g at e rows
+    A += e * member_stride;
+    if constexpr (WEIGHTED) g += e * rows;
+    partial += e * gridDim.y * cols;
     const int col = blockIdx.x * 32 + threadIdx.x;
     const int r0 = blockIdx.y * COLSUM_ROWS;
     const int r1 = min(rows, r0 + COLSUM_ROWS);
@@ -1294,6 +1383,8 @@ __global__ void colsum_partial_kernel(const float* __restrict__ A, const float* 
 
 __global__ void colsum_final_kernel(const float* __restrict__ partial, int chunks, int cols,
                                     float scale, float* __restrict__ out) {
+    partial += member_y() * chunks * cols;
+    out += member_y() * cols;
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     if (col >= cols) return;
     float s = 0.0f;
@@ -1414,6 +1505,13 @@ __global__ void transport_fwd_nd_kernel(const float* __restrict__ H,
                                         const float* __restrict__ beta, float* __restrict__ A,
                                         int n, int W, int dim, int use_ln, int act) {
     constexpr int T = KX + 1;
+    const long long e = member_y(), ns = 2 + (long long)dim * KX;
+    H += e * ns * n * W;
+    A += e * ns * n * W;
+    if (use_ln) {
+        gamma += e * W;
+        beta += e * W;
+    }
     const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (warp >= n) return;
@@ -1458,6 +1556,16 @@ __global__ void transport_bwd_nd_kernel(const float* __restrict__ H,
                                         int n, int W, int dim, int use_ln, int act) {
     constexpr int T = KX + 1;
     constexpr int NS = KX + 2;
+    const long long e = member_y(), ns = 2 + (long long)dim * KX;
+    H += e * ns * n * W;
+    GA += e * ns * n * W;
+    GH += e * ns * n * W;
+    if (use_ln) {
+        gamma += e * W;
+        beta += e * W;
+        Ggamma += e * n * W;
+        Gbeta += e * n * W;
+    }
     const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (warp >= n) return;
@@ -1645,7 +1753,11 @@ template <int KX>
 __global__ void embed_nd_kernel(const float* __restrict__ z, const float* __restrict__ lo,
                                 const float* __restrict__ sc, const float* __restrict__ B,
                                 float* __restrict__ X, int n, int m, int dim, float s, int frame,
-                                float c) {
+                                float c, long long sB) {
+    const long long e = member_y();
+    z += e * n * (dim + 1);
+    B += e * sB;
+    X += e * (2 + (long long)dim * KX) * n * 2 * m;
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= (long long)n * m) return;
     const int row = (int)(idx / m);
@@ -1696,13 +1808,19 @@ __global__ void embed_bwd_nd_partial_kernel(const float* __restrict__ z,
                                             const float* __restrict__ B,
                                             const float* __restrict__ G, int n, int m, int dim,
                                             float s, int frame, float c,
-                                            float* __restrict__ partial) {
+                                            float* __restrict__ partial, long long sB) {
     extern __shared__ float sm[];  // [axis row of the tile][8][33]
     constexpr int SLOT = 8 * 33;
+    const int tiles = (dim + EMBED_BWD_AXES) / EMBED_BWD_AXES;  // blockIdx.z = member * tiles + tile
+    const long long e = blockIdx.z / tiles;
+    z += e * n * (dim + 1);
+    B += e * sB;
+    G += e * (2 + (long long)dim * KX) * n * 2 * m;
+    partial += e * gridDim.y * (dim + 1) * m;
     const int j = blockIdx.x * 32 + threadIdx.x;
     const int r0 = blockIdx.y * COLSUM_ROWS;
     const int r1 = min(n, r0 + COLSUM_ROWS);
-    const int a0 = blockIdx.z * EMBED_BWD_AXES;
+    const int a0 = (blockIdx.z % tiles) * EMBED_BWD_AXES;
     const int a1 = min(dim + 1, a0 + EMBED_BWD_AXES);
     float* mine = sm + threadIdx.y * 33 + threadIdx.x;
     for (int a = a0; a < a1; ++a) mine[(a - a0) * SLOT] = 0.0f;
@@ -1763,9 +1881,12 @@ __global__ void embed_bwd_nd_partial_kernel(const float* __restrict__ z,
 __global__ void affine_input_nd_kernel(const float* __restrict__ z, const float* __restrict__ lo,
                                        const float* __restrict__ sc, float* __restrict__ X, int n,
                                        int kx, int dim, int frame, float c) {
+    const int C = dim + 1;  // columns
+    const long long e = member_y();
+    z += e * n * C;
+    X += e * (2 + (long long)dim * kx) * n * C;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const int C = dim + 1;  // columns
     const long long stride = (long long)C * n;
     const float* zr = z + (long long)C * i;
     float* r = X + (long long)C * i;
@@ -1788,6 +1909,10 @@ __device__ __forceinline__ long long row_of(int stream, int n) { return (long lo
 __global__ void burgers_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                   float* __restrict__ out, int n, int dim, float nu,
                                   float two_over_n, int causal) {
+    const long long mo = member_y() * (2 * dim + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float u = U[i], ut = U[row_of(2 * dim + 1, n) + i];
@@ -1810,6 +1935,10 @@ __global__ void burgers_nd_kernel(const float* __restrict__ U, float* __restrict
 __global__ void heat_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                float* __restrict__ out, int n, int dim, float alpha,
                                float two_over_n, int causal) {
+    const long long mo = member_y() * (2 * dim + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float uxx = 0.f;
@@ -1828,6 +1957,10 @@ __global__ void heat_nd_kernel(const float* __restrict__ U, float* __restrict__ 
 __global__ void kdv_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
                               float* __restrict__ out, int n, int dim, float two_over_n,
                               int causal) {
+    const long long mo = member_y() * (3 * dim + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float u = U[i], ut = U[row_of(3 * dim + 1, n) + i];
@@ -1852,6 +1985,10 @@ __global__ void kdv_nd_kernel(const float* __restrict__ U, float* __restrict__ d
 __global__ void convection_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                      float* __restrict__ out, int n, int dim,
                                      const float* __restrict__ v, float two_over_n, int causal) {
+    const long long mo = member_y() * (dim + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float vx = 0.f;
@@ -1867,6 +2004,10 @@ __global__ void convection_nd_kernel(const float* __restrict__ U, float* __restr
 __global__ void allen_cahn_nd_kernel(const float* __restrict__ U, float* __restrict__ dU,
                                      float* __restrict__ out, int n, int dim, float eps2,
                                      float two_over_n, int causal) {
+    const long long mo = member_y() * (2 * dim + 2) * n;  // member: its streams
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float u = U[i], ut = U[row_of(2 * dim + 1, n) + i];
@@ -1888,6 +2029,11 @@ __global__ void black_scholes_nd_kernel(const float* __restrict__ U, const float
                                         float* __restrict__ dU, float* __restrict__ out, int n,
                                         int dim, float sign, float half_sigma2, float rate,
                                         float two_over_n, int causal) {
+    const long long mo = member_y() * (2 * dim + 2) * n;  // member: its streams and points
+    U += mo;
+    dU += mo;
+    out += member_y() * n;
+    z += member_y() * n * (dim + 1);
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float* zr = z + (long long)(dim + 1) * i;
@@ -1920,13 +2066,17 @@ inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) /
 // kernels also take 0: an ODE, no x-group), a number of space dimensions
 // below 1 (the transport also takes 0: no x-group), or an unknown activation
 // code). dim = 1, 2 or 3 runs the kernels templated on D; dim >= 4 the *_nd
-// kernels; the transport's dim = 0 its kernels at D = 0.
+// kernels; the transport's dim = 0 its kernels at D = 0. `members` (>= 1)
+// stacked members run in the one launch of each kernel: every tensor holds
+// the members' single-member layouts one after another, and a shared
+// operand (a fixed basis) has a member stride of 0.
 
 inline bool kx_ok(int kx) { return kx >= 1 && kx <= 3; }
 inline bool kx0_ok(int kx) { return kx >= 0 && kx <= 3; }  // the inputs: 0 for an ODE
 inline bool dim_ok(int dim) { return dim >= 1; }
 inline bool use_nd(int dim) { return dim > 3; }
 inline bool act_ok(int act) { return act >= ACT_TANH && act <= ACT_SIN; }
+inline bool members_ok(int members) { return members >= 1 && members <= 65535; }
 
 template <int V>
 using Int = std::integral_constant<int, V>;
@@ -1972,33 +2122,36 @@ inline void with_dim_kx(int dim, int kx, Fn&& fn) {
 // frame != 0: a co-moving frame of speed c.
 extern "C" int fr_embed(const float* z, const float* lo, const float* sc, const float* B,
                         float* X, int n, int m, int two_pi, int kx, int dim, int frame, float c,
-                        void* stream) {
+                        int members, long long sB, void* stream) {
     const float s = two_pi ? 6.283185307179586f : 1.0f;
     const long long total = (long long)n * m;
-    if (!kx0_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (!kx0_ok(kx) || !dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(total, 256), (unsigned)members);
     if (total > 0 && use_nd(dim))
         with_kx0(kx, [&](auto k) {
-            embed_nd_kernel<decltype(k)::value><<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(
-                z, lo, sc, B, X, n, m, dim, s, frame, c);
+            embed_nd_kernel<decltype(k)::value><<<grid, 256, 0, (cudaStream_t)stream>>>(
+                z, lo, sc, B, X, n, m, dim, s, frame, c, sB);
         });
     else if (total > 0)
         with_dim(dim, [&](auto d) {
             with_kx0(kx, [&](auto k) {
                 embed_kernel<decltype(d)::value, decltype(k)::value>
-                    <<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m,
-                                                                         s, frame, c);
+                    <<<grid, 256, 0, (cudaStream_t)stream>>>(z, lo, sc, B, X, n, m, s, frame, c,
+                                                             sB);
             });
         });
     return (int)cudaGetLastError();
 }
 
 // dB ((dim+1), m) of a trainable basis from G ((2 + dim kx) n, 2m), the
-// cotangent of fr_embed's X; partial: ceil(n / COLSUM_ROWS) x (dim+1) m.
+// cotangent of fr_embed's X; partial: ceil(n / COLSUM_ROWS) x (dim+1) m;
+// each per member.
 extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, const float* B,
                             const float* G, int n, int m, int two_pi, int kx, int dim, int frame,
-                            float c, float* partial, float* dB, void* stream) {
+                            float c, float* partial, float* dB, int members, long long sB,
+                            void* stream) {
     const float s = two_pi ? 6.283185307179586f : 1.0f;
-    if (!kx0_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+    if (!kx0_ok(kx) || !dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
     const int chunks = (int)cdiv(n, COLSUM_ROWS);
     const int cols = (dim + 1) * m;
     if (n > 0 && m > 0) {
@@ -2008,88 +2161,109 @@ extern "C" int fr_embed_bwd(const float* z, const float* lo, const float* sc, co
             const size_t smem = sizeof(float) * 8 * 33 * (size_t)rows;
             with_kx0(kx, [&](auto k) {
                 embed_bwd_nd_partial_kernel<decltype(k)::value>
-                    <<<dim3(cdiv(m, 32), (unsigned)chunks, (unsigned)tiles), dim3(32, 8), smem,
-                       (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, dim, s, frame, c, partial);
+                    <<<dim3(cdiv(m, 32), (unsigned)chunks, (unsigned)(tiles * members)),
+                       dim3(32, 8), smem, (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, dim, s,
+                                                                  frame, c, partial, sB);
             });
         } else {
             with_dim(dim, [&](auto d) {
                 with_kx0(kx, [&](auto k) {
                     embed_bwd_partial_kernel<decltype(d)::value, decltype(k)::value>
-                        <<<dim3(cdiv(m, 32), (unsigned)chunks), dim3(32, 8), 0,
-                           (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, s, frame, c, partial);
+                        <<<dim3(cdiv(m, 32), (unsigned)chunks, (unsigned)members), dim3(32, 8), 0,
+                           (cudaStream_t)stream>>>(z, lo, sc, B, G, n, m, s, frame, c, partial,
+                                                   sB);
                 });
             });
         }
-        colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks,
-                                                                               cols, s, dB);
+        colsum_final_kernel<<<dim3(cdiv(cols, 256), (unsigned)members), 256, 0,
+                              (cudaStream_t)stream>>>(partial, chunks, cols, s, dB);
     }
     return (int)cudaGetLastError();
 }
 // X ((2 + dim kx) n, dim+1): the feedforward trunk's stacked input.
 extern "C" int fr_affine_input(const float* z, const float* lo, const float* sc, float* X, int n,
-                               int kx, int dim, int frame, float c, void* stream) {
-    if (!kx0_ok(kx) || !dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                               int kx, int dim, int frame, float c, int members, void* stream) {
+    if (!kx0_ok(kx) || !dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 256), (unsigned)members);
     if (n > 0 && use_nd(dim))
-        affine_input_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx,
-                                                                              dim, frame, c);
+        affine_input_nd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx, dim,
+                                                                       frame, c);
     else if (n > 0)
         with_dim(dim, [&](auto d) {
             affine_input_kernel<decltype(d)::value>
-                <<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx, frame, c);
+                <<<grid, 256, 0, (cudaStream_t)stream>>>(z, lo, sc, X, n, kx, frame, c);
         });
     return (int)cudaGetLastError();
 }
 
 // The layouts pick the kernel (sm90_gemm): kernel 1's forward (A and B
 // k-contiguous), dX (A k-contiguous, B n-contiguous) and dW (A m-contiguous,
-// B n-contiguous).
+// B n-contiguous). Member e's product: A + e sae, B + e sbe, C + e sce, bias
+// + e s_bias.
 extern "C" int fr_gemm(int M, int N, int K, const float* A, long long sam, long long sak,
                        const float* B, long long sbk, long long sbn, float* C, long long ldc,
                        const float* bias, int bias_rows, int splits, int k_chunk,
-                       long long split_stride, void* stream) {
-    sm90_gemm<true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk,
-                    split_stride, (cudaStream_t)stream);
+                       long long split_stride, int members, long long sae, long long sbe,
+                       long long sce, long long s_bias, void* stream) {
+    if (members == 1) {
+        sm90_gemm<true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
+                        k_chunk, split_stride, (cudaStream_t)stream);
+        return (int)cudaGetLastError();
+    }
+    if (!members_ok(members) || (long long)splits * members > 65535 ||
+        !sm90_gemm_members_ok(M, N, sam, sbn, sae, sbe, members))
+        return (int)cudaErrorInvalidValue;
+    sm90_gemm_members<true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
+                            k_chunk, split_stride, members, sae, sbe, sce, s_bias,
+                            (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 
-// Y (R, 1) = X (R, K) w^T (+ b on the first bias_rows rows).
+// Y (R, 1) = X (R, K) w^T (+ b on the first bias_rows rows), per member.
 extern "C" int fr_rowdot(const float* X, const float* w, const float* b, float* Y, int R, int K,
-                         int bias_rows, void* stream) {
+                         int bias_rows, int members, void* stream) {
+    if (!members_ok(members)) return (int)cudaErrorInvalidValue;
     const int vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
                     (reinterpret_cast<uintptr_t>(w) & 15) == 0;
     if (R > 0)
-        rowdot_kernel<<<cdiv(R, ROW_THREADS / 32), ROW_THREADS, 0, (cudaStream_t)stream>>>(
-            X, w, b, Y, R, K, bias_rows, vec);
+        rowdot_kernel<<<dim3(cdiv(R, ROW_THREADS / 32), (unsigned)members), ROW_THREADS, 0,
+                        (cudaStream_t)stream>>>(X, w, b, Y, R, K, bias_rows, vec);
     return (int)cudaGetLastError();
 }
 
-// out (R, K) = g (R, 1) w (1, K).
-extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K, void* stream) {
+// out (R, K) = g (R, 1) w (1, K), per member.
+extern "C" int fr_outer(const float* g, const float* w, float* out, int R, int K, int members,
+                        void* stream) {
+    if (!members_ok(members)) return (int)cudaErrorInvalidValue;
     const int vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
                     (reinterpret_cast<uintptr_t>(out) & 15) == 0;
     const long long total = (long long)R * (vec ? K / 4 : K);
     if (total > 0)
-        outer_kernel<<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(g, w, out, R, K, vec);
+        outer_kernel<<<dim3(cdiv(total, 256), (unsigned)members), 256, 0, (cudaStream_t)stream>>>(
+            g, w, out, R, K, vec);
     return (int)cudaGetLastError();
 }
 
 // act: one of ACT_* (ops/kernels/fused_step.py: _ACT_CODES).
 extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float* beta, float* A,
-                                int n, int W, int use_ln, int kx, int dim, int act, void* stream) {
-    if (!kx_ok(kx) || dim < 0 || !act_ok(act)) return (int)cudaErrorInvalidValue;
+                                int n, int W, int use_ln, int kx, int dim, int act, int members,
+                                void* stream) {
+    if (!kx_ok(kx) || dim < 0 || !act_ok(act) || !members_ok(members))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 8), (unsigned)members);
     if (n > 0 && dim == 0)  // no x-group: [value; t1], d0..d2 as at order 1
-        transport_fwd_kernel<0, 1><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(
+        transport_fwd_kernel<0, 1><<<grid, 256, 0, (cudaStream_t)stream>>>(
             H, gamma, beta, A, n, W, use_ln, act);
     else if (n > 0 && use_nd(dim))
         with_kx(kx, [&](auto k) {
             transport_fwd_nd_kernel<decltype(k)::value>
-                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, dim,
+                <<<grid, 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, dim,
                                                                use_ln, act);
         });
     else if (n > 0)
         with_dim_kx(dim, kx, [&](auto d, auto k) {
             transport_fwd_kernel<decltype(d)::value, decltype(k)::value>
-                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln,
+                <<<grid, 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, A, n, W, use_ln,
                                                                act);
         });
     return (int)cudaGetLastError();
@@ -2097,64 +2271,70 @@ extern "C" int fr_transport_fwd(const float* H, const float* gamma, const float*
 
 extern "C" int fr_transport_bwd(const float* H, const float* gamma, const float* beta,
                                 const float* GA, float* GH, float* Ggamma, float* Gbeta, int n,
-                                int W, int use_ln, int kx, int dim, int act, void* stream) {
-    if (!kx_ok(kx) || dim < 0 || !act_ok(act)) return (int)cudaErrorInvalidValue;
+                                int W, int use_ln, int kx, int dim, int act, int members,
+                                void* stream) {
+    if (!kx_ok(kx) || dim < 0 || !act_ok(act) || !members_ok(members))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 8), (unsigned)members);
     if (n > 0 && dim == 0)
-        transport_bwd_kernel<0, 1><<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(
+        transport_bwd_kernel<0, 1><<<grid, 256, 0, (cudaStream_t)stream>>>(
             H, gamma, beta, GA, GH, Ggamma, Gbeta, n, W, use_ln, act);
     else if (n > 0 && use_nd(dim))
         with_kx(kx, [&](auto k) {
             transport_bwd_nd_kernel<decltype(k)::value>
-                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
+                <<<grid, 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
                                                                Gbeta, n, W, dim, use_ln, act);
         });
     else if (n > 0)
         with_dim_kx(dim, kx, [&](auto d, auto k) {
             transport_bwd_kernel<decltype(d)::value, decltype(k)::value>
-                <<<cdiv(n, 8), 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
+                <<<grid, 256, 0, (cudaStream_t)stream>>>(H, gamma, beta, GA, GH, Ggamma,
                                                                Gbeta, n, W, use_ln, act);
         });
     return (int)cudaGetLastError();
 }
 
-// The residuals over U ((2 + dim K) n, 1); out (n, 1) and dU as U.
+// The residuals over U ((2 + dim K) n, 1); out (n, 1) and dU as U; each per member.
 extern "C" int fr_burgers(const float* U, float* dU, float* out, int n, int dim, float nu,
-                          int causal, void* stream) {
-    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                          int causal, int members, void* stream) {
+    if (!dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 256), (unsigned)members);
     if (n > 0 && use_nd(dim))
-        burgers_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        burgers_nd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
             U, dU, out, n, dim, nu, 2.0f / (float)n, causal);
     else if (n > 0)
         with_dim(dim, [&](auto d) {
-            burgers_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            burgers_kernel<decltype(d)::value><<<grid, 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, nu, 2.0f / (float)n, causal);
         });
     return (int)cudaGetLastError();
 }
 
 extern "C" int fr_heat(const float* U, float* dU, float* out, int n, int dim, float alpha,
-                       int causal, void* stream) {
-    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                       int causal, int members, void* stream) {
+    if (!dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 256), (unsigned)members);
     if (n > 0 && use_nd(dim))
-        heat_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        heat_nd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
             U, dU, out, n, dim, alpha, 2.0f / (float)n, causal);
     else if (n > 0)
         with_dim(dim, [&](auto d) {
-            heat_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            heat_kernel<decltype(d)::value><<<grid, 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, alpha, 2.0f / (float)n, causal);
         });
     return (int)cudaGetLastError();
 }
 
 extern "C" int fr_kdv(const float* U, float* dU, float* out, int n, int dim, int causal,
-                      void* stream) {
-    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                      int members, void* stream) {
+    if (!dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 256), (unsigned)members);
     if (n > 0 && use_nd(dim))
-        kdv_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, dim,
+        kdv_nd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(U, dU, out, n, dim,
                                                                       2.0f / (float)n, causal);
     else if (n > 0)
         with_dim(dim, [&](auto d) {
-            kdv_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            kdv_kernel<decltype(d)::value><<<grid, 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, 2.0f / (float)n, causal);
         });
     return (int)cudaGetLastError();
@@ -2162,28 +2342,30 @@ extern "C" int fr_kdv(const float* U, float* dU, float* out, int n, int dim, int
 
 // v: the velocity along each axis, dim floats in device memory.
 extern "C" int fr_convection(const float* U, float* dU, float* out, int n, int dim,
-                             const float* v, int causal, void* stream) {
-    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                             const float* v, int causal, int members, void* stream) {
+    if (!dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 256), (unsigned)members);
     if (n > 0 && use_nd(dim))
-        convection_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        convection_nd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
             U, dU, out, n, dim, v, 2.0f / (float)n, causal);
     else if (n > 0)
         with_dim(dim, [&](auto d) {
-            convection_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            convection_kernel<decltype(d)::value><<<grid, 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, v, 2.0f / (float)n, causal);
         });
     return (int)cudaGetLastError();
 }
 
 extern "C" int fr_allen_cahn(const float* U, float* dU, float* out, int n, int dim, float eps2,
-                             int causal, void* stream) {
-    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                             int causal, int members, void* stream) {
+    if (!dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 256), (unsigned)members);
     if (n > 0 && use_nd(dim))
-        allen_cahn_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        allen_cahn_nd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
             U, dU, out, n, dim, eps2, 2.0f / (float)n, causal);
     else if (n > 0)
         with_dim(dim, [&](auto d) {
-            allen_cahn_kernel<decltype(d)::value><<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+            allen_cahn_kernel<decltype(d)::value><<<grid, 256, 0, (cudaStream_t)stream>>>(
                 U, dU, out, n, eps2, 2.0f / (float)n, causal);
         });
     return (int)cudaGetLastError();
@@ -2192,63 +2374,78 @@ extern "C" int fr_allen_cahn(const float* U, float* dU, float* out, int n, int d
 // z: the (n, dim+1) points, S = z[i, ax] along axis ax.
 extern "C" int fr_black_scholes(const float* U, const float* z, float* dU, float* out, int n,
                                 int dim, float sign, float half_sigma2, float rate, int causal,
-                                void* stream) {
-    if (!dim_ok(dim)) return (int)cudaErrorInvalidValue;
+                                int members, void* stream) {
+    if (!dim_ok(dim) || !members_ok(members)) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)cdiv(n, 256), (unsigned)members);
     if (n > 0 && use_nd(dim))
-        black_scholes_nd_kernel<<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        black_scholes_nd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
             U, z, dU, out, n, dim, sign, half_sigma2, rate, 2.0f / (float)n, causal);
     else if (n > 0)
         with_dim(dim, [&](auto d) {
             black_scholes_kernel<decltype(d)::value>
-                <<<cdiv(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                <<<grid, 256, 0, (cudaStream_t)stream>>>(
                     U, z, dU, out, n, sign, half_sigma2, rate, 2.0f / (float)n, causal);
         });
     return (int)cudaGetLastError();
 }
 
-// block_sums: scratch of ceil(n / SCAN_BLOCK) floats; WR: (n, 2) output.
+// block_sums: scratch of ceil(n / SCAN_BLOCK) floats; WR: (n, 2) output;
+// each per member, one scan per member.
 extern "C" int fr_causal_weights(const float* r, int n, float eps, float* block_sums, float* WR,
-                                 void* stream) {
+                                 int members, void* stream) {
+    if (!members_ok(members)) return (int)cudaErrorInvalidValue;
     if (n > 0) {
         const int nb = (int)cdiv(n, SCAN_BLOCK);
         cudaStream_t st = (cudaStream_t)stream;
-        scan_block_sums_kernel<<<nb, SCAN_BLOCK, 0, st>>>(r, n, block_sums);
-        scan_offsets_kernel<<<1, SCAN_BLOCK, 0, st>>>(block_sums, nb);
-        causal_weights_kernel<<<nb, SCAN_BLOCK, 0, st>>>(r, n, eps, block_sums, WR);
+        const dim3 grid((unsigned)nb, (unsigned)members);
+        scan_block_sums_kernel<<<grid, SCAN_BLOCK, 0, st>>>(r, n, block_sums);
+        scan_offsets_kernel<<<dim3(1, (unsigned)members), SCAN_BLOCK, 0, st>>>(block_sums, nb);
+        causal_weights_kernel<<<grid, SCAN_BLOCK, 0, st>>>(r, n, eps, block_sums, WR);
     }
     return (int)cudaGetLastError();
 }
 
+// sums: [sum w, sum w r^2] per member.
 extern "C" int fr_causal_scale(float* dU, const float* r, const float* WR, const float* sums,
-                               int n, int S, void* stream) {
+                               int n, int S, int members, void* stream) {
+    if (!members_ok(members)) return (int)cudaErrorInvalidValue;
     const long long total = (long long)S * n;
     if (total > 0)
-        causal_scale_kernel<<<cdiv(total, 256), 256, 0, (cudaStream_t)stream>>>(dU, r, WR, sums, n, S);
+        causal_scale_kernel<<<dim3(cdiv(total, 256), (unsigned)members), 256, 0,
+                              (cudaStream_t)stream>>>(dU, r, WR, sums, n, S);
     return (int)cudaGetLastError();
 }
 
+// out (members, cols): member e sums the rows of A + e member_stride;
+// partial: members x ceil(rows / COLSUM_ROWS) x cols scratch.
 extern "C" int fr_colsum(const float* A, int rows, int cols, long long ld, float scale,
-                         float* partial, float* out, void* stream) {
+                         float* partial, float* out, int members, long long member_stride,
+                         void* stream) {
+    if (!members_ok(members)) return (int)cudaErrorInvalidValue;
     const int chunks = (int)cdiv(rows, COLSUM_ROWS);
     if (cols > 0 && rows > 0) {
-        dim3 grid(cdiv(cols, 32), (unsigned)chunks);
+        dim3 grid(cdiv(cols, 32), (unsigned)chunks, (unsigned)members);
         colsum_partial_kernel<false><<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
-            A, nullptr, rows, cols, ld, partial);
-        colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks, cols, scale, out);
+            A, nullptr, rows, cols, ld, partial, member_stride);
+        colsum_final_kernel<<<dim3(cdiv(cols, 256), (unsigned)members), 256, 0,
+                              (cudaStream_t)stream>>>(partial, chunks, cols, scale, out);
     }
     return (int)cudaGetLastError();
 }
 
 // out (cols) = sum_r g[r] A[r, :], the fixed-order two passes of fr_colsum;
-// partial: ceil(rows / COLSUM_ROWS) x cols scratch.
+// partial: ceil(rows / COLSUM_ROWS) x cols scratch; each per member (g at e
+// rows, A at e rows ld).
 extern "C" int fr_wcolsum(const float* g, const float* A, int rows, int cols, long long ld,
-                          float* partial, float* out, void* stream) {
+                          float* partial, float* out, int members, void* stream) {
+    if (!members_ok(members)) return (int)cudaErrorInvalidValue;
     const int chunks = (int)cdiv(rows, COLSUM_ROWS);
     if (cols > 0 && rows > 0) {
-        dim3 grid(cdiv(cols, 32), (unsigned)chunks);
+        dim3 grid(cdiv(cols, 32), (unsigned)chunks, (unsigned)members);
         colsum_partial_kernel<true><<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
-            A, g, rows, cols, ld, partial);
-        colsum_final_kernel<<<cdiv(cols, 256), 256, 0, (cudaStream_t)stream>>>(partial, chunks, cols, 1.0f, out);
+            A, g, rows, cols, ld, partial, (long long)rows * ld);
+        colsum_final_kernel<<<dim3(cdiv(cols, 256), (unsigned)members), 256, 0,
+                              (cudaStream_t)stream>>>(partial, chunks, cols, 1.0f, out);
     }
     return (int)cudaGetLastError();
 }

@@ -23,6 +23,13 @@ __global__ void generated_residual_kernel(const float* __restrict__ U,
                                           const float* __restrict__ z, float* __restrict__ dU,
                                           float* __restrict__ out, int n, float two_over_n,
                                           int causal) {
+    // Member blockIdx.y of a deep ensemble's stacked members: its streams,
+    // points and outputs (fused_residual.cu's member axis).
+    const long long e = blockIdx.y;
+    U += e * GEN_STREAMS * n;
+    dU += e * GEN_STREAMS * n;
+    z += e * GEN_COLS * n;
+    out += e * n;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float g[GEN_STREAMS];
@@ -35,12 +42,14 @@ __global__ void generated_residual_kernel(const float* __restrict__ U,
 
 }  // namespace
 
-// U, dU ((GEN_STREAMS n), 1); z (n, GEN_COLS); out (n, 1). Launches on the
-// given stream and returns cudaGetLastError().
+// U, dU ((GEN_STREAMS n), 1); z (n, GEN_COLS); out (n, 1); each per member.
+// Launches on the given stream and returns cudaGetLastError().
 extern "C" int gr_residual(const float* U, const float* z, float* dU, float* out, int n,
-                           int causal, void* stream) {
+                           int causal, int members, void* stream) {
+    if (members < 1 || members > 65535) return (int)cudaErrorInvalidValue;
     if (n > 0)
-        generated_residual_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-            U, z, dU, out, n, 2.0f / (float)n, causal);
+        generated_residual_kernel<<<dim3((n + 255) / 256, members), 256, 0,
+                                    (cudaStream_t)stream>>>(U, z, dU, out, n, 2.0f / (float)n,
+                                                            causal);
     return (int)cudaGetLastError();
 }

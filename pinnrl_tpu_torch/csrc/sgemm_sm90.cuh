@@ -331,6 +331,48 @@ gemm_sm90_kernel(int M, int N, int K, const float* __restrict__ A, long long sam
     gemm_sm90_store<TileLarge>(acc, M, N, m0, n0, epi);
 }
 
+// The same products for `members` stacked members in one launch (kernel 1
+// batched over a deep ensemble's members, as the reference's vmapped
+// pallas_call adds a member axis to its grid): blockIdx.z = member * splits
+// + split, and member e's product is the single product of A + e sae, B + e
+// sbe, C + e sce and bias + e s_bias (a stride of 0: an operand the members
+// share), cut into the same K splits, so the member axis changes which
+// block does the work and not the order of any sum. A member's A and B are
+// reached by shifting the operands' rows (a_rows = sae / sam rows of A,
+// b_rows = sbe / sbn of B per member), C and bias only after the main loop.
+// A kernel of its own: the single product's dX instantiation sits at the
+// 128-register cap of two blocks per SM, and the member's state spilled
+// it. Here the float4 paths keep two blocks per SM without spilling; the
+// guarded scalar paths, the fallback for odd shapes, take one.
+template <bool A_KFAST, bool B_KFAST, bool VEC, bool ROW_BIAS>
+__global__ void __launch_bounds__(TileLarge::THREADS, VEC ? 2 : 1)
+gemm_sm90_kernel_members(int M, int N, int K, const float* __restrict__ A, long long sam,
+                         long long sak, const float* __restrict__ B, long long sbk, long long sbn,
+                         float* __restrict__ C, long long ldc, const float* __restrict__ bias,
+                         int bias_rows, int k_chunk, long long split_stride, int vec_store,
+                         int splits, int a_rows, int b_rows, long long sce, long long s_bias) {
+    const int m0 = blockIdx.y * TileLarge::BM, n0 = blockIdx.x * TileLarge::BN;
+    int member = (int)blockIdx.z / splits;
+    const int kbeg = ((int)blockIdx.z - member * splits) * k_chunk;
+    const int kend = min(K, kbeg + k_chunk);
+    const int ma = member * a_rows, nb = member * b_rows;
+    float acc[4 * TileLarge::QM][4 * TileLarge::QN];
+#pragma unroll
+    for (int i = 0; i < 4 * TileLarge::QM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * TileLarge::QN; ++j) acc[i][j] = 0.0f;
+    gemm_sm90_tile<TileLarge, A_KFAST, B_KFAST, VEC>(M + ma, N + nb, A, sam, sak, B, sbk, sbn,
+                                                     m0 + ma, n0 + nb, kbeg, kend, acc);
+    // The output's member and split, formed again from blockIdx.z read anew.
+    unsigned z;
+    asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+    member = (int)z / splits;
+    const LinearEpi<ROW_BIAS> epi{
+        C + member * sce + (long long)((int)z - member * splits) * split_stride, ldc,
+        bias == nullptr ? bias : bias + member * s_bias, bias_rows, N, vec_store != 0};
+    gemm_sm90_store<TileLarge>(acc, M, N, m0, n0, epi);
+}
+
 // Host side: may the float4 paths take this operand? The contiguous stride
 // is 1, the other stride and the contiguous extent are multiples of 4, and
 // the base is 16-byte aligned.
@@ -339,40 +381,30 @@ inline bool sm90_vec_ok(const float* p, long long s_contig, long long s_other, l
            (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Host side: the grid gemm_sm90_kernel runs for an (M, N) product split in
-// `splits` over K.
-inline dim3 sm90_grid(int M, int N, int splits) {
+// Host side: the grid gemm_sm90_kernel runs for `members` (M, N) products
+// split in `splits` over K.
+inline dim3 sm90_grid(int M, int N, int splits, int members = 1) {
     return dim3((unsigned)((N + TileLarge::BN - 1) / TileLarge::BN),
-                (unsigned)((M + TileLarge::BM - 1) / TileLarge::BM), (unsigned)splits);
+                (unsigned)((M + TileLarge::BM - 1) / TileLarge::BM),
+                (unsigned)splits * (unsigned)members);
 }
 
-// Host side: launches gemm_sm90_kernel on `stream`. The layouts pick the
-// instantiation: A and B k-contiguous (X W^T), A k-contiguous and B
-// n-contiguous (G W), A m-contiguous and B n-contiguous (G^T X); any other
-// strides take the last one's guarded scalar path. The float4 / cp.async
-// paths run where both operands allow them and k_chunk keeps splits on
-// float4 boundaries, the guarded scalar path otherwise. Each library that calls
-// it instantiates six kernels, for its own ROW_BIAS.
-template <bool ROW_BIAS>
-inline void sm90_gemm(int M, int N, int K, const float* A, long long sam, long long sak,
-                      const float* B, long long sbk, long long sbn, float* C, long long ldc,
-                      const float* bias, int bias_rows, int splits, int k_chunk,
-                      long long split_stride, cudaStream_t stream) {
-    if (M <= 0 || N <= 0) return;
+// Host side: calls launch(A_KFAST, B_KFAST, VEC) for the layouts. A and B
+// k-contiguous (X W^T), A k-contiguous and B n-contiguous (G W), A
+// m-contiguous and B n-contiguous (G^T X); any other strides take the last
+// one's guarded scalar path. The float4 / cp.async paths run where both
+// operands allow them and k_chunk keeps splits on float4 boundaries
+// (`vec_extra`: what the caller adds to that), the guarded scalar path
+// otherwise.
+template <class Launch>
+inline void sm90_dispatch(const Launch& launch, int M, int N, int K, const float* A,
+                          long long sam, long long sak, const float* B, long long sbk,
+                          long long sbn, int k_chunk, bool vec_extra) {
     using T = std::true_type;
     using F = std::false_type;
-    const int vec_store =
-        (reinterpret_cast<uintptr_t>(C) & 15) == 0 && ldc % 4 == 0 && split_stride % 4 == 0;
-    const dim3 grid = sm90_grid(M, N, splits);
-    const auto launch = [&](auto a, auto b, auto v) {
-        gemm_sm90_kernel<decltype(a)::value, decltype(b)::value, decltype(v)::value, ROW_BIAS>
-            <<<grid, TileLarge::THREADS, 0, stream>>>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc,
-                                                      bias, bias_rows, k_chunk, split_stride,
-                                                      vec_store);
-    };
     const bool a_kfast = sak == 1;
     const bool b_kfast = sbn != 1 && sbk == 1;
-    const bool vec = k_chunk % 4 == 0 &&
+    const bool vec = vec_extra && k_chunk % 4 == 0 &&
                      (a_kfast ? sm90_vec_ok(A, sak, sam, K) : sm90_vec_ok(A, sam, sak, M)) &&
                      (b_kfast ? sm90_vec_ok(B, sbk, sbn, K) : sm90_vec_ok(B, sbn, sbk, N));
     if (a_kfast && b_kfast) {
@@ -382,6 +414,63 @@ inline void sm90_gemm(int M, int N, int K, const float* A, long long sam, long l
     } else {
         if (vec && !b_kfast) launch(F{}, F{}, T{}); else launch(F{}, F{}, F{});
     }
+}
+
+// Host side: launches gemm_sm90_kernel on `stream` (the layouts pick the
+// instantiation, ``sm90_dispatch``). Each library that calls it
+// instantiates six kernels, for its own ROW_BIAS.
+template <bool ROW_BIAS>
+inline void sm90_gemm(int M, int N, int K, const float* A, long long sam, long long sak,
+                      const float* B, long long sbk, long long sbn, float* C, long long ldc,
+                      const float* bias, int bias_rows, int splits, int k_chunk,
+                      long long split_stride, cudaStream_t stream) {
+    if (M <= 0 || N <= 0) return;
+    const int vec_store =
+        (reinterpret_cast<uintptr_t>(C) & 15) == 0 && ldc % 4 == 0 && split_stride % 4 == 0;
+    const dim3 grid = sm90_grid(M, N, splits);
+    const auto launch = [&](auto a, auto b, auto v) {
+        gemm_sm90_kernel<decltype(a)::value, decltype(b)::value, decltype(v)::value, ROW_BIAS>
+            <<<grid, TileLarge::THREADS, 0, stream>>>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc,
+                                                      bias, bias_rows, k_chunk, split_stride,
+                                                      vec_store);
+    };
+    sm90_dispatch(launch, M, N, K, A, sam, sak, B, sbk, sbn, k_chunk, true);
+}
+
+// Host side: may gemm_sm90_kernel_members take `members` products at member
+// strides sae and sbe? Each must be a whole number of its operand's rows
+// (sam, sbn), and the last member's shifted rows must fit an int.
+inline bool sm90_gemm_members_ok(int M, int N, long long sam, long long sbn, long long sae,
+                                 long long sbe, int members) {
+    if (sam <= 0 || sbn <= 0 || sae < 0 || sbe < 0 || sae % sam || sbe % sbn) return false;
+    const long long last = members - 1;
+    return M + last * (sae / sam) < (1LL << 31) && N + last * (sbe / sbn) < (1LL << 31);
+}
+
+// Host side: `members` products at member strides sae, sbe, sce and s_bias
+// in one launch of gemm_sm90_kernel_members (checked first by
+// sm90_gemm_members_ok); the float4 paths then also need every member's
+// operands and output on 16-byte boundaries.
+template <bool ROW_BIAS>
+inline void sm90_gemm_members(int M, int N, int K, const float* A, long long sam, long long sak,
+                              const float* B, long long sbk, long long sbn, float* C,
+                              long long ldc, const float* bias, int bias_rows, int splits,
+                              int k_chunk, long long split_stride, int members, long long sae,
+                              long long sbe, long long sce, long long s_bias,
+                              cudaStream_t stream) {
+    if (M <= 0 || N <= 0) return;
+    const int vec_store = (reinterpret_cast<uintptr_t>(C) & 15) == 0 && ldc % 4 == 0 &&
+                          split_stride % 4 == 0 && sce % 4 == 0;
+    const dim3 grid = sm90_grid(M, N, splits, members);
+    const int a_rows = (int)(sae / sam), b_rows = (int)(sbe / sbn);
+    const auto launch = [&](auto a, auto b, auto v) {
+        gemm_sm90_kernel_members<decltype(a)::value, decltype(b)::value, decltype(v)::value,
+                                 ROW_BIAS><<<grid, TileLarge::THREADS, 0, stream>>>(
+            M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, k_chunk, split_stride,
+            vec_store, splits, a_rows, b_rows, sce, s_bias);
+    };
+    sm90_dispatch(launch, M, N, K, A, sam, sak, B, sbk, sbn, k_chunk,
+                  sae % 4 == 0 && sbe % 4 == 0);
 }
 
 }  // namespace

@@ -16,6 +16,10 @@
 // that is not 16-byte aligned. Bias, scale and sin run in the epilogue, so
 // the pre-activation never goes to memory. The reverse pass and the jvp rule
 // recompute it in plain ops, as the JAX rule does (ops/kernels/siren.py).
+// Members: blockIdx.z is a deep ensemble's member, with its own x (or a
+// shared one, stride 0), W, b and output; each member's blocks do what a
+// single call's do (the reference's vmap of this kernel over stacked
+// members, one pallas_call with a member axis).
 // Precision: full-range sinf, never __sinf and never --use_fast_math: at
 // omega = 30 the phases reach tens of radians.
 
@@ -50,7 +54,12 @@ struct SirenEpi {
 template <bool VEC>
 __global__ void __launch_bounds__(TileSmall::THREADS)
 siren_sm90_kernel(int n, int k, int m, const float* __restrict__ x, const float* __restrict__ W,
-                  const float* __restrict__ b, float omega, float* __restrict__ out, int vec_store) {
+                  const float* __restrict__ b, float omega, float* __restrict__ out, int vec_store,
+                  long long sx, long long sW, long long sb) {
+    x += blockIdx.z * sx;
+    W += blockIdx.z * sW;
+    b += blockIdx.z * sb;
+    out += blockIdx.z * (long long)n * m;
     const int m0 = blockIdx.y * TileSmall::BM, n0 = blockIdx.x * TileSmall::BN;  // rows, features
     float acc[4][4];
 #pragma unroll
@@ -70,19 +79,24 @@ extern "C" int siren_blocks(int n, int m) {
     return (int)(cdiv(m, TileSmall::BN) * cdiv(n, TileSmall::BM));
 }
 
-// Launches on the given stream and returns cudaGetLastError().
+// Launches on the given stream and returns cudaGetLastError(). members: x,
+// W, b and out hold that many members at strides sx (0: shared), sW, sb and
+// n m.
 extern "C" int siren_forward(const float* x, const float* W, const float* b, float* out, int n,
-                             int k, int m, float omega, void* stream) {
+                             int k, int m, float omega, int members, long long sx, long long sW,
+                             long long sb, void* stream) {
+    if (members < 1 || members > 65535) return (int)cudaErrorInvalidValue;
     if (n > 0 && m > 0) {
-        const dim3 grid(cdiv(m, TileSmall::BN), cdiv(n, TileSmall::BM));
-        const bool vec = sm90_vec_ok(x, 1, k, k) && sm90_vec_ok(W, 1, m, m);
+        const dim3 grid(cdiv(m, TileSmall::BN), cdiv(n, TileSmall::BM), (unsigned)members);
+        const bool vec = sm90_vec_ok(x, 1, k, k) && sm90_vec_ok(W, 1, m, m) && sx % 4 == 0 &&
+                         sW % 4 == 0;
         const int vec_store = m % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
         if (vec)
             siren_sm90_kernel<true><<<grid, TileSmall::THREADS, 0, (cudaStream_t)stream>>>(
-                n, k, m, x, W, b, omega, out, vec_store);
+                n, k, m, x, W, b, omega, out, vec_store, sx, sW, sb);
         else
             siren_sm90_kernel<false><<<grid, TileSmall::THREADS, 0, (cudaStream_t)stream>>>(
-                n, k, m, x, W, b, omega, out, vec_store);
+                n, k, m, x, W, b, omega, out, vec_store, sx, sW, sb);
     }
     return (int)cudaGetLastError();
 }

@@ -16,6 +16,12 @@ derivative rules are written on the kernel's own output, as the JAX
 it with ``fourier_features_plain`` in its place. ``fourier_features.jvps``
 counts the jvp rule's runs on CUDA tensors.
 
+Its vmap rule launches once for the whole batch: with B unbatched the batch
+folds into x's rows; with a member axis on B (a deep ensemble's trainable
+basis, B (E, d, m)) the kernel runs the E members on its member axis, x
+(E, n, d) (or one x for all, member stride 0) and out (E, n, 2m), as the
+reference's vmap of its kernel gives one pallas_call with a member axis.
+
 The kernel takes float32 alone. As the JAX kernel gates its Pallas call, a
 CUDA call whose x or B is not float32 (the float64 residual phase) runs the
 plain version, which promotes both to a common dtype as ``jnp`` does;
@@ -67,7 +73,8 @@ def fourier_features_plain(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True
 
 
 _ARGTYPES = {
-    "ff_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "ff_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+    + [ctypes.c_void_p],
     "ff_empty": [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
@@ -100,34 +107,45 @@ def launch_plan(n: int, d: int, m: int, b_aligned: bool, sms: int) -> Tuple[int,
     return path, cols, max(rows, 1)
 
 
+def _chains(x: torch.Tensor, B: torch.Tensor) -> bool:
+    """x (n, d) @ B (d, m), or E members: x (E, n, d) @ B (E, d, m)."""
+    return ((x.ndim == B.ndim == 2 and x.shape[1] == B.shape[0])
+            or (x.ndim == B.ndim == 3 and x.shape[0] == B.shape[0] and x.shape[2] == B.shape[1]))
+
+
 def _accepts(x: torch.Tensor, B: torch.Tensor) -> bool:
-    """x (n, d) and B (d, m): contiguous float32 on one CUDA device."""
-    return (x.ndim == 2 and B.ndim == 2 and x.shape[1] == B.shape[0] and x.is_cuda
-            and x.dtype == torch.float32 and B.dtype == torch.float32 and x.is_contiguous()
+    """Shapes that chain, float32 on one CUDA device, B contiguous and each
+    member's x contiguous (the members' x at any stride, 0 included)."""
+    return (_chains(x, B) and x.is_cuda and x.dtype == torch.float32
+            and B.dtype == torch.float32 and x[(0,) * (x.ndim - 2)].is_contiguous()
             and B.is_contiguous() and B.get_device() == x.get_device())
 
 
 def _reject(x: torch.Tensor, B: torch.Tensor) -> None:
     """Raise for the first of ``_accepts``'s conditions that x, B fail."""
-    if x.ndim != 2 or B.ndim != 2 or x.shape[1] != B.shape[0]:
+    if not _chains(x, B):
         raise ValueError(f"fourier_features: shapes {tuple(x.shape)} @ {tuple(B.shape)} do not chain")
-    _build.require_cuda_f32("fourier_features x", x)
+    _build.require_cuda_f32("fourier_features x", x[(0,) * (x.ndim - 2)])
     _build.require_cuda_f32("fourier_features B", B)
     raise ValueError(f"fourier_features: x on {x.device}, B on {B.device}")
 
 
 def fourier_features_cuda(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel (forward only); counts one launch."""
+    """Launch the CUDA kernel (forward only) on x (n, d), B (d, m), or on E
+    members at once, x (E, n, d), B (E, d, m) -> (E, n, 2m), each member on
+    the single call's grid; counts one launch."""
     if not _accepts(x, B):
         _reject(x, B)
-    n, d = x.shape
-    m = B.shape[1]
+    n, d = x.shape[-2:]
+    m = B.shape[-1]
+    members = x.shape[0] if x.ndim == 3 else 1
     index = x.get_device()
     b_ptr = B.data_ptr()
     path, _, rows = launch_plan(n, d, m, b_ptr % 16 == 0, _sm_count(index))
-    out = x.new_empty((n, 2 * m))
+    out = x.new_empty((*x.shape[:-1], 2 * m))
     status = _lib().ff_forward(x.data_ptr(), b_ptr, out.data_ptr(), n, d, m, path, rows,
-                               1 if two_pi else 0, _build.stream_handle(index))
+                               1 if two_pi else 0, members, x.stride(0) if members > 1 else 0,
+                               d * m if members > 1 else 0, _build.stream_handle(index))
     _build.check(status, "fourier_features_kernel")
     fourier_features.launches += 1
     return out
@@ -150,11 +168,11 @@ class _FourierFeaturesFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, B, out = ctx.saved_tensors
-        m = B.shape[1]
+        m = B.shape[-1]
         s = _TWO_PI if ctx.two_pi else 1.0
-        g_proj = s * (g[:, :m] * out[:, m:] - g[:, m:] * out[:, :m])
-        gx = g_proj @ B.t() if ctx.needs_input_grad[0] else None
-        gB = x.t() @ g_proj if ctx.needs_input_grad[1] else None
+        g_proj = s * (g[..., :m] * out[..., m:] - g[..., m:] * out[..., :m])
+        gx = g_proj @ B.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        gB = x.transpose(-1, -2) @ g_proj if ctx.needs_input_grad[1] else None
         return gx, gB, None, None
 
     @staticmethod
@@ -162,7 +180,7 @@ class _FourierFeaturesFn(torch.autograd.Function):
         level, (x, B, out, dx, dB) = _jvp.lower(*ctx.saved_tensors, dx, dB)
         if out.device.type == "cuda":
             fourier_features.jvps += 1
-        m = B.shape[1]
+        m = B.shape[-1]
         s = _TWO_PI if ctx.two_pi else 1.0
         with _jvp.forward_mode(level):
             terms = [t for t in (None if dx is None else dx @ B,
@@ -174,15 +192,20 @@ class _FourierFeaturesFn(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, B, two_pi, launch):
         x_bd, B_bd = in_dims[:2]
+        m = B.shape[-1]
         if B_bd is None:
             # Rows are independent: fold the batch into x's rows, one call.
             xb = x.movedim(x_bd, 0)
             out = _FourierFeaturesFn.apply(xb.reshape(-1, xb.shape[-1]), B, two_pi, launch)
-            return out.reshape(*xb.shape[:-1], 2 * B.shape[-1]), 0
-        outs = [_FourierFeaturesFn.apply(x if x_bd is None else x.select(x_bd, i),
-                                         B.select(B_bd, i), two_pi, launch)
-                for i in range(info.batch_size)]
-        return torch.stack(outs), 0
+            return out.reshape(*xb.shape[:-1], 2 * m), 0
+        # A member axis on B: one call with the members on the kernel's member
+        # axis (an unbatched x is shared at member stride 0).
+        E = info.batch_size
+        xb = x.movedim(x_bd, 0) if x_bd is not None else x.expand(E, *x.shape)
+        lead = xb.shape[1:-1]
+        out = _FourierFeaturesFn.apply(xb.reshape(E, -1, xb.shape[-1]), B.movedim(B_bd, 0),
+                                       two_pi, launch)
+        return out.reshape(E, *lead, 2 * m), 0
 
 
 def needs_rules(x: torch.Tensor, B: torch.Tensor) -> bool:
@@ -210,6 +233,6 @@ def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> t
     raise ValueError(f"fourier_features: unsupported devices x={x.device}, B={B.device}")
 
 
-fourier_features.launches = 0
+fourier_features.launches = 0  # kernel launches, a member-batched one counting once
 fourier_features.jvps = 0
 fourier_features.plain_f64 = 0

@@ -12,6 +12,14 @@ gradient is wanted (validation) the same kernels run without their reverse
 pass. On a CPU tensor ``fn`` runs the plain version: the stacked-jet
 bundle, the residual, ``PDEBase._residual_loss`` and ``torch.autograd``.
 
+A deep ensemble's E members run in one call: z (E, N, d+1) with every leaf
+stacked (E, ...) gives the members' losses (E,) and gradients of the
+leaves' shapes from one launch of each kernel, the member a grid axis of
+every kernel (``_loss_and_grads``), as the reference's ``jax.vmap`` over
+its members turns its kernel into one pallas_call with a member axis.
+``fused_residual_loss.launches`` counts such a call once and
+``fused_residual_loss.members`` the members it served.
+
 With ``training.causal_eps > 0`` the loss is sum_i w_i r_i^2 / sum_i w_i,
 w_i = exp(-eps sum_{j<i} r_j^2 / N) over the points in the order given, so
 the caller passes ``z`` sorted by time (``compute_loss`` does). The weights
@@ -413,140 +421,210 @@ def _residual_out(r, n: int, causal: bool, dU_rows) -> Tuple[torch.Tensor, torch
     return torch.cat(dU_rows).reshape(-1, 1), (r if causal else r * r).reshape(n, 1)
 
 
+def _member(t: Optional[torch.Tensor], e: int, ndim: int) -> Optional[torch.Tensor]:
+    """Member e's view of ``t``: its slice of a stacked (E, ...) tensor, or
+    ``t`` itself where it has the single-member ``ndim`` (an operand the
+    members share, or a single call's)."""
+    return t if t is None or t.ndim == ndim else t[e]
+
+
+def _rows(t: torch.Tensor, e: int, members: int) -> torch.Tensor:
+    """Member e's block of a tensor stacked [member][rows]: its rows, or its
+    slice of z (E, n, d+1)."""
+    return t[e] if t.ndim == 3 else t.chunk(members)[e]
+
+
+def _over_members(members: int, fn, *tensors):
+    """``fn`` on each member's blocks of ``tensors``, its outputs stacked
+    by rows again: the plain twin of a kernel's member axis."""
+    outs = [fn(*(_rows(t, e, members) for t in tensors)) for e in range(members)]
+    if not isinstance(outs[0], tuple):
+        return torch.cat(outs, dim=0)
+    return tuple(torch.cat(o, dim=0) for o in zip(*outs))
+
+
 class _TorchOps:
-    """Plain PyTorch twins of the kernels, one method per C entry point."""
+    """Plain PyTorch twins of the kernels, one method per C entry point.
+    Each takes the entry point's ``members``: E stacked members, each
+    member's tensors in the single-member layout one after another
+    ([member][stream][point]), computed member by member."""
 
-    def embed(self, z, lo, sc, B, two_pi, x_order, frame):
-        return _embed_plain(z, lo, sc, B, two_pi, x_order, frame)
+    def embed(self, z, lo, sc, B, two_pi, x_order, frame, members=1):
+        return torch.cat([_embed_plain(_member(z, e, 2), lo, sc, _member(B, e, 2), two_pi, x_order,
+                                       frame) for e in range(members)])
 
-    def affine_input(self, z, lo, sc, x_order, frame):
-        return _affine_input_plain(z, lo, sc, x_order, frame)
+    def affine_input(self, z, lo, sc, x_order, frame, members=1):
+        return torch.cat([_affine_input_plain(_member(z, e, 2), lo, sc, x_order, frame)
+                          for e in range(members)])
 
-    def embed_bwd(self, z, lo, sc, B, G, two_pi, x_order, frame):
-        return _embed_bwd_plain(z, lo, sc, B, G, two_pi, x_order, frame)
+    def embed_bwd(self, z, lo, sc, B, G, two_pi, x_order, frame, members=None):
+        """dL/dB (d+1, m); with ``members``, (members, d+1, m)."""
+        dB = [_embed_bwd_plain(_member(z, e, 2), lo, sc, _member(B, e, 2), _rows(G, e, members or 1),
+                               two_pi, x_order, frame) for e in range(members or 1)]
+        return dB[0] if members is None else torch.stack(dB)
 
-    def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
+    def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk,
+             members=1, sae=0, sbe=0, sce=0, s_bias=0):
         _gemm_core.gemm_plain(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits,
-                              k_chunk)
+                              k_chunk, members, sae, sbe, sce, s_bias)
 
-    def transport_fwd(self, H, gamma, beta, n, dim, act):
-        return _transport_fwd_plain(H, gamma, beta, n, dim, act)
+    def transport_fwd(self, H, gamma, beta, n, dim, act, members=1):
+        return torch.cat([_transport_fwd_plain(_rows(H, e, members), _member(gamma, e, 1),
+                                               _member(beta, e, 1), n, dim, act)
+                          for e in range(members)])
 
-    def transport_bwd(self, H, gamma, beta, GA, n, dim, act):
-        return _transport_bwd_plain(H, gamma, beta, GA, n, dim, act)
+    def transport_bwd(self, H, gamma, beta, GA, n, dim, act, members=1):
+        outs = [_transport_bwd_plain(_rows(H, e, members), _member(gamma, e, 1), _member(beta, e, 1),
+                                     _rows(GA, e, members), n, dim, act) for e in range(members)]
+        return tuple(None if o[0] is None else torch.cat(o, dim=0) for o in zip(*outs))
 
     # The residuals: U is the stacked (S n, 1) output [u; per axis u_x..; u_t]
     # (``_split_streams``); each returns (dU, out): plain, 2r/N dr/dU and r^2;
     # causal, dr/dU and r. Sums over the axes run in axis order.
 
-    def burgers(self, U, n, dim, nu, causal):
-        u, gx, ut = _split_streams(U.reshape(-1), n, dim)
-        ux, uxx = sum(g[0] for g in gx), sum(g[1] for g in gx)
-        r = (ut + u * ux) - nu * uxx
-        c = _residual_scale(r, n, causal)
-        return _residual_out(r, n, causal, [c * ux, *[v for _ in gx for v in (c * u, -c * nu)], c])
+    def burgers(self, U, n, dim, nu, causal, members=1):
+        def one(U):
+            u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+            ux, uxx = sum(g[0] for g in gx), sum(g[1] for g in gx)
+            r = (ut + u * ux) - nu * uxx
+            c = _residual_scale(r, n, causal)
+            return _residual_out(r, n, causal,
+                                 [c * ux, *[v for _ in gx for v in (c * u, -c * nu)], c])
+        return _over_members(members, one, U)
 
-    def heat(self, U, n, dim, alpha, causal):
-        _u, gx, ut = _split_streams(U.reshape(-1), n, dim)
-        r = ut - alpha * sum(g[1] for g in gx)
-        c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
-        return _residual_out(r, n, causal, [zero, *[v for _ in gx for v in (zero, -c * alpha)], c])
+    def heat(self, U, n, dim, alpha, causal, members=1):
+        def one(U):
+            _u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+            r = ut - alpha * sum(g[1] for g in gx)
+            c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
+            return _residual_out(r, n, causal,
+                                 [zero, *[v for _ in gx for v in (zero, -c * alpha)], c])
+        return _over_members(members, one, U)
 
-    def kdv(self, U, n, dim, causal):
-        u, gx, ut = _split_streams(U.reshape(-1), n, dim)
-        ux = sum(g[0] for g in gx)
-        r = ut + 6.0 * u * ux + sum(g[2] for g in gx)
-        c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
-        return _residual_out(r, n, causal,
-                             [c * (6.0 * ux), *[v for _ in gx for v in (c * (6.0 * u), zero, c)], c])
+    def kdv(self, U, n, dim, causal, members=1):
+        def one(U):
+            u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+            ux = sum(g[0] for g in gx)
+            r = ut + 6.0 * u * ux + sum(g[2] for g in gx)
+            c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
+            return _residual_out(r, n, causal,
+                                 [c * (6.0 * ux), *[v for _ in gx for v in (c * (6.0 * u), zero, c)],
+                                  c])
+        return _over_members(members, one, U)
 
-    def convection(self, U, n, velocity, velocity_dev, causal):
-        _u, gx, ut = _split_streams(U.reshape(-1), n, len(velocity))
-        r = ut + sum(v * g[0] for v, g in zip(velocity, gx))
-        c = _residual_scale(r, n, causal)
-        return _residual_out(r, n, causal, [torch.zeros_like(r), *[c * v for v in velocity], c])
+    def convection(self, U, n, velocity, velocity_dev, causal, members=1):
+        def one(U):
+            _u, gx, ut = _split_streams(U.reshape(-1), n, len(velocity))
+            r = ut + sum(v * g[0] for v, g in zip(velocity, gx))
+            c = _residual_scale(r, n, causal)
+            return _residual_out(r, n, causal,
+                                 [torch.zeros_like(r), *[c * v for v in velocity], c])
+        return _over_members(members, one, U)
 
-    def allen_cahn(self, U, n, dim, eps2, causal):
-        u, gx, ut = _split_streams(U.reshape(-1), n, dim)
-        r = ((ut - eps2 * sum(g[1] for g in gx)) - u) + u * u * u
-        c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
-        return _residual_out(r, n, causal,
-                             [c * (3.0 * u * u - 1.0), *[v for _ in gx for v in (zero, -c * eps2)], c])
+    def allen_cahn(self, U, n, dim, eps2, causal, members=1):
+        def one(U):
+            u, gx, ut = _split_streams(U.reshape(-1), n, dim)
+            r = ((ut - eps2 * sum(g[1] for g in gx)) - u) + u * u * u
+            c, zero = _residual_scale(r, n, causal), torch.zeros_like(r)
+            return _residual_out(r, n, causal,
+                                 [c * (3.0 * u * u - 1.0),
+                                  *[v for _ in gx for v in (zero, -c * eps2)], c])
+        return _over_members(members, one, U)
 
-    def generated(self, program, U, z, n, causal):
+    def generated(self, program, U, z, n, causal, members=1):
         """Any residual, from its traced program (``residual_codegen``)."""
-        r, g = program.evaluate(U, z, n)
-        c = _residual_scale(r, n, causal)
-        return _residual_out(r, n, causal, [c * g_s for g_s in g])
+        def one(U, z):
+            r, g = program.evaluate(U, z, n)
+            c = _residual_scale(r, n, causal)
+            return _residual_out(r, n, causal, [c * g_s for g_s in g])
+        return _over_members(members, one, U, z)
 
-    def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal):
+    def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal, members=1):
         """S = z[:, ax] along each axis ax."""
-        V, gx, Vt = _split_streams(U.reshape(-1), n, z.shape[1] - 1)
-        S = z[:, :-1].t()
-        cSS, cS = half_sigma2 * (S * S), rate * S
-        r = (Vt - (sign * rate) * V) + sign * sum(cSS[ax] * g[1] + cS[ax] * g[0]
-                                                  for ax, g in enumerate(gx))
-        c = _residual_scale(r, n, causal)
-        per_axis = [v for ax in range(len(gx)) for v in (c * (sign * cS[ax]), c * (sign * cSS[ax]))]
-        return _residual_out(r, n, causal, [-c * (sign * rate), *per_axis, c])
+        def one(U, z):
+            V, gx, Vt = _split_streams(U.reshape(-1), n, z.shape[1] - 1)
+            S = z[:, :-1].t()
+            cSS, cS = half_sigma2 * (S * S), rate * S
+            r = (Vt - (sign * rate) * V) + sign * sum(cSS[ax] * g[1] + cS[ax] * g[0]
+                                                      for ax, g in enumerate(gx))
+            c = _residual_scale(r, n, causal)
+            per_axis = [v for ax in range(len(gx))
+                        for v in (c * (sign * cS[ax]), c * (sign * cSS[ax]))]
+            return _residual_out(r, n, causal, [-c * (sign * rate), *per_axis, c])
+        return _over_members(members, one, U, z)
 
-    def causal_weights(self, r, n, eps):
-        r2 = (r * r).reshape(-1)
-        w = torch.exp(-eps * _exclusive_scan_plain(r2, _SCAN_BLOCK) / n)
-        return torch.stack([w, w * r2], dim=1)
+    def causal_weights(self, r, n, eps, members=1):
+        def one(r):
+            r2 = (r * r).reshape(-1)
+            w = torch.exp(-eps * _exclusive_scan_plain(r2, _SCAN_BLOCK) / n)
+            return torch.stack([w, w * r2], dim=1)
+        return _over_members(members, one, r)
 
-    def causal_scale(self, dU, r, WR, sums, n):
-        dU.view(-1, n).mul_(2.0 * WR[:, 0] * r.reshape(-1) / sums[0])
+    def causal_scale(self, dU, r, WR, sums, n, members=1):
+        """sums: [sum w, sum w r^2], (2,) or one row per member."""
+        scale = (2.0 * WR[:, 0] * r.reshape(-1)).view(members, 1, n)
+        dU.view(members, -1, n).mul_(scale / sums.reshape(members, 2)[:, :1, None])
         return dU
 
-    def colsum(self, A, rows, cols, ld, scale):
-        return A.as_strided((rows, cols), (ld, 1), A.storage_offset()).sum(dim=0) * scale
+    def colsum(self, A, rows, cols, ld, scale, members=None, stride=0):
+        """Column sums (cols,); with ``members``, (members, cols): member e
+        sums the rows at A + e ``stride``."""
+        sums = [A.as_strided((rows, cols), (ld, 1), A.storage_offset() + e * stride).sum(dim=0)
+                * scale for e in range(members or 1)]
+        return sums[0] if members is None else torch.stack(sums)
 
-    def rowdot(self, X, w, b, bias_rows):
-        Y = X @ w.t()
-        if b is not None:
-            Y[:bias_rows] += b
-        return Y
+    def rowdot(self, X, w, b, bias_rows, members=1):
+        def one(e):
+            Y = _rows(X, e, members) @ _member(w, e, 2).t()
+            if b is not None:
+                Y[:bias_rows] += _member(b, e, 1)
+            return Y
+        return torch.cat([one(e) for e in range(members)])
 
-    def outer(self, G, w):
-        return G @ w
+    def outer(self, G, w, members=1):
+        return torch.cat([_rows(G, e, members) @ _member(w, e, 2) for e in range(members)])
 
-    def wcolsum(self, G, X):
-        return G.t() @ X
+    def wcolsum(self, G, X, members=None):
+        """G^T X (1, K); with ``members``, (members, 1, K)."""
+        sums = [_rows(G, e, members or 1).t() @ _rows(X, e, members or 1)
+                for e in range(members or 1)]
+        return sums[0] if members is None else torch.stack(sums)
 
 
 class _CudaOps:
     """The CUDA kernels of ``csrc/fused_residual.cu`` behind the same methods."""
 
     _ARGTYPES = {
-        "fr_embed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+        "fr_embed": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
         "fr_affine_input": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p],
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         "fr_embed_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-        + [ctypes.c_float] + [ctypes.c_void_p] * 3,
-        "fr_gemm": _gemm_core.GEMM_ARGTYPES,
-        "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        "fr_burgers": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
-                                                                   ctypes.c_void_p],
-        "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
-                                                                ctypes.c_void_p],
-        "fr_kdv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+        "fr_gemm": _gemm_core.MEMBER_GEMM_ARGTYPES,
+        "fr_transport_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        "fr_transport_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        "fr_burgers": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "fr_heat": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "fr_kdv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "fr_convection": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-        "fr_allen_cahn": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
-                                                                      ctypes.c_void_p],
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "fr_allen_cahn": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "fr_black_scholes": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "fr_causal_weights": [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_void_p],
-        "fr_causal_scale": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+        "fr_causal_scale": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "fr_colsum": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
-        "fr_rowdot": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        "fr_outer": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                      ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_void_p],
+        "fr_rowdot": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "fr_outer": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "fr_wcolsum": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     }
 
     def __init__(self, device: torch.device) -> None:
@@ -569,163 +647,177 @@ class _CudaOps:
     def _ptr(t: Optional[torch.Tensor]):
         return None if t is None else t.data_ptr()
 
-    def embed(self, z, lo, sc, B, two_pi, x_order, frame):
-        (n, d1), m = z.shape, B.shape[1]
-        X = self._empty((2 + (d1 - 1) * x_order) * n, 2 * m)
+    @staticmethod
+    def _basis_stride(B: torch.Tensor) -> int:
+        """The member stride of a basis: 0 where the members share it."""
+        return 0 if B.ndim == 2 else B.shape[-2] * B.shape[-1]
+
+    def embed(self, z, lo, sc, B, two_pi, x_order, frame, members=1):
+        (n, d1), m = z.shape[-2:], B.shape[-1]
+        X = self._empty(members * (2 + (d1 - 1) * x_order) * n, 2 * m)
         _build.check(self.lib.fr_embed(z.data_ptr(), lo.data_ptr(), sc.data_ptr(), B.data_ptr(),
                                        X.data_ptr(), n, m, int(two_pi), x_order, d1 - 1,
-                                       int(frame is not None), float(frame or 0.0), self.stream),
+                                       int(frame is not None), float(frame or 0.0), members,
+                                       self._basis_stride(B), self.stream),
                      "embed_kernel")
         return X
 
-    def embed_bwd(self, z, lo, sc, B, G, two_pi, x_order, frame):
-        (n, d1), m = z.shape, B.shape[1]
-        partial = self._empty(cdiv(n, _COLSUM_ROWS), d1 * m)
-        dB = self._empty(d1, m)
+    def embed_bwd(self, z, lo, sc, B, G, two_pi, x_order, frame, members=None):
+        (n, d1), m = z.shape[-2:], B.shape[-1]
+        E = members or 1
+        partial = self._empty(E * cdiv(n, _COLSUM_ROWS), d1 * m)
+        dB = self._empty(E, d1, m)
         _build.check(self.lib.fr_embed_bwd(z.data_ptr(), lo.data_ptr(), sc.data_ptr(),
                                            B.data_ptr(), G.data_ptr(), n, m, int(two_pi),
                                            x_order, d1 - 1, int(frame is not None),
                                            float(frame or 0.0), partial.data_ptr(),
-                                           dB.data_ptr(), self.stream),
+                                           dB.data_ptr(), E, self._basis_stride(B), self.stream),
                      "embed_bwd_partial_kernel")
-        return dB
+        return dB[0] if members is None else dB
 
-    def affine_input(self, z, lo, sc, x_order, frame):
-        n, d1 = z.shape
-        X = self._empty((2 + (d1 - 1) * x_order) * n, d1)
+    def affine_input(self, z, lo, sc, x_order, frame, members=1):
+        n, d1 = z.shape[-2:]
+        X = self._empty(members * (2 + (d1 - 1) * x_order) * n, d1)
         _build.check(self.lib.fr_affine_input(z.data_ptr(), lo.data_ptr(), sc.data_ptr(),
                                               X.data_ptr(), n, x_order, d1 - 1,
                                               int(frame is not None), float(frame or 0.0),
-                                              self.stream),
+                                              members, self.stream),
                      "affine_input_kernel")
         return X
 
-    def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk):
+    def gemm(self, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, bias_rows, splits, k_chunk,
+             members=1, sae=0, sbe=0, sce=0, s_bias=0):
         _build.check(self.lib.fr_gemm(M, N, K, A.data_ptr(), sam, sak, B.data_ptr(), sbk, sbn,
                                       C.data_ptr(), ldc, self._ptr(bias), bias_rows, splits,
-                                      k_chunk, M * N, self.stream), "gemm_sm90_kernel")
+                                      k_chunk, M * N, members, sae, sbe, sce, s_bias, self.stream),
+                     "gemm_sm90_kernel")
 
-    def transport_fwd(self, H, gamma, beta, n, dim, act):
+    def transport_fwd(self, H, gamma, beta, n, dim, act, members=1):
         A = torch.empty_like(H)
         _build.check(self.lib.fr_transport_fwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                A.data_ptr(), n, H.shape[1], int(gamma is not None),
-                                               _group_order(H, n, dim), dim, _ACT_CODES[act],
-                                               self.stream),
+                                               _group_order(H, n, dim, members), dim,
+                                               _ACT_CODES[act], members, self.stream),
                      "transport_fwd_kernel")
         return A
 
-    def transport_bwd(self, H, gamma, beta, GA, n, dim, act):
+    def transport_bwd(self, H, gamma, beta, GA, n, dim, act, members=1):
         GH = torch.empty_like(H)
         use_ln = gamma is not None
-        Gg = self._empty(n, H.shape[1]) if use_ln else None
-        Gb = self._empty(n, H.shape[1]) if use_ln else None
+        Gg = self._empty(members * n, H.shape[1]) if use_ln else None
+        Gb = self._empty(members * n, H.shape[1]) if use_ln else None
         _build.check(self.lib.fr_transport_bwd(H.data_ptr(), self._ptr(gamma), self._ptr(beta),
                                                GA.data_ptr(), GH.data_ptr(), self._ptr(Gg),
                                                self._ptr(Gb), n, H.shape[1], int(use_ln),
-                                               _group_order(H, n, dim), dim, _ACT_CODES[act],
-                                               self.stream),
+                                               _group_order(H, n, dim, members), dim,
+                                               _ACT_CODES[act], members, self.stream),
                      "transport_bwd_kernel")
         return GH, Gg, Gb
 
-    def burgers(self, U, n, dim, nu, causal):
-        dU = torch.empty_like(U)
-        out = self._empty(n, 1)
+    def _residual(self, U, n, members):
+        return torch.empty_like(U), self._empty(members * n, 1)
+
+    def burgers(self, U, n, dim, nu, causal, members=1):
+        dU, out = self._residual(U, n, members)
         _build.check(self.lib.fr_burgers(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
-                                         float(nu), int(causal), self.stream), "burgers_kernel")
+                                         float(nu), int(causal), members, self.stream),
+                     "burgers_kernel")
         return dU, out
 
-    def heat(self, U, n, dim, alpha, causal):
-        dU = torch.empty_like(U)
-        out = self._empty(n, 1)
+    def heat(self, U, n, dim, alpha, causal, members=1):
+        dU, out = self._residual(U, n, members)
         _build.check(self.lib.fr_heat(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
-                                      float(alpha), int(causal), self.stream), "heat_kernel")
+                                      float(alpha), int(causal), members, self.stream),
+                     "heat_kernel")
         return dU, out
 
-    def kdv(self, U, n, dim, causal):
-        dU = torch.empty_like(U)
-        out = self._empty(n, 1)
+    def kdv(self, U, n, dim, causal, members=1):
+        dU, out = self._residual(U, n, members)
         _build.check(self.lib.fr_kdv(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
-                                     int(causal), self.stream), "kdv_kernel")
+                                     int(causal), members, self.stream), "kdv_kernel")
         return dU, out
 
-    def convection(self, U, n, velocity, velocity_dev, causal):
-        dU = torch.empty_like(U)
-        out = self._empty(n, 1)
+    def convection(self, U, n, velocity, velocity_dev, causal, members=1):
+        dU, out = self._residual(U, n, members)
         _build.check(self.lib.fr_convection(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
                                             len(velocity), velocity_dev.data_ptr(), int(causal),
-                                            self.stream),
+                                            members, self.stream),
                      "convection_kernel")
         return dU, out
 
-    def allen_cahn(self, U, n, dim, eps2, causal):
-        dU = torch.empty_like(U)
-        out = self._empty(n, 1)
+    def allen_cahn(self, U, n, dim, eps2, causal, members=1):
+        dU, out = self._residual(U, n, members)
         _build.check(self.lib.fr_allen_cahn(U.data_ptr(), dU.data_ptr(), out.data_ptr(), n, dim,
-                                            float(eps2), int(causal), self.stream),
+                                            float(eps2), int(causal), members, self.stream),
                      "allen_cahn_kernel")
         return dU, out
 
-    def generated(self, program, U, z, n, causal):
-        return residual_codegen.launch(program, U, z, n, causal)
+    def generated(self, program, U, z, n, causal, members=1):
+        return residual_codegen.launch(program, U, z, n, causal, members)
 
-    def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal):
-        dU = torch.empty_like(U)
-        out = self._empty(n, 1)
+    def black_scholes(self, U, z, n, sign, half_sigma2, rate, causal, members=1):
+        dU, out = self._residual(U, n, members)
         _build.check(self.lib.fr_black_scholes(U.data_ptr(), z.data_ptr(), dU.data_ptr(),
-                                               out.data_ptr(), n, z.shape[1] - 1, float(sign),
+                                               out.data_ptr(), n, z.shape[-1] - 1, float(sign),
                                                float(half_sigma2), float(rate), int(causal),
-                                               self.stream),
+                                               members, self.stream),
                      "black_scholes_kernel")
         return dU, out
 
-    def causal_weights(self, r, n, eps):
-        block_sums = self._empty(cdiv(n, _SCAN_BLOCK))
-        WR = self._empty(n, 2)
+    def causal_weights(self, r, n, eps, members=1):
+        block_sums = self._empty(members * cdiv(n, _SCAN_BLOCK))
+        WR = self._empty(members * n, 2)
         _build.check(self.lib.fr_causal_weights(r.data_ptr(), n, float(eps), block_sums.data_ptr(),
-                                                WR.data_ptr(), self.stream), "causal scan kernels")
+                                                WR.data_ptr(), members, self.stream),
+                     "causal scan kernels")
         return WR
 
-    def causal_scale(self, dU, r, WR, sums, n):
+    def causal_scale(self, dU, r, WR, sums, n, members=1):
         _build.check(self.lib.fr_causal_scale(dU.data_ptr(), r.data_ptr(), WR.data_ptr(),
-                                              sums.data_ptr(), n, dU.shape[0] // n, self.stream),
+                                              sums.data_ptr(), n, dU.shape[0] // (n * members),
+                                              members, self.stream),
                      "causal_scale_kernel")
         return dU
 
-    def colsum(self, A, rows, cols, ld, scale):
-        partial = self._empty(cdiv(rows, _COLSUM_ROWS), cols)
-        out = self._empty(cols)
+    def colsum(self, A, rows, cols, ld, scale, members=None, stride=0):
+        E = members or 1
+        partial = self._empty(E * cdiv(rows, _COLSUM_ROWS), cols)
+        out = self._empty(E, cols)
         _build.check(self.lib.fr_colsum(A.data_ptr(), rows, cols, ld, float(scale),
-                                        partial.data_ptr(), out.data_ptr(), self.stream),
+                                        partial.data_ptr(), out.data_ptr(), E, stride,
+                                        self.stream),
                      "colsum kernels")
-        return out
+        return out[0] if members is None else out
 
-    def rowdot(self, X, w, b, bias_rows):
-        R, K = X.shape
-        Y = self._empty(R, 1)
+    def rowdot(self, X, w, b, bias_rows, members=1):
+        R, K = X.shape[0] // members, X.shape[1]
+        Y = self._empty(members * R, 1)
         _build.check(self.lib.fr_rowdot(X.data_ptr(), w.data_ptr(), self._ptr(b), Y.data_ptr(), R,
-                                        K, bias_rows, self.stream), "rowdot_kernel")
+                                        K, bias_rows, members, self.stream), "rowdot_kernel")
         return Y
 
-    def outer(self, G, w):
-        R, K = G.shape[0], w.shape[1]
-        out = self._empty(R, K)
-        _build.check(self.lib.fr_outer(G.data_ptr(), w.data_ptr(), out.data_ptr(), R, K,
+    def outer(self, G, w, members=1):
+        R, K = G.shape[0] // members, w.shape[-1]
+        out = self._empty(members * R, K)
+        _build.check(self.lib.fr_outer(G.data_ptr(), w.data_ptr(), out.data_ptr(), R, K, members,
                                        self.stream), "outer_kernel")
         return out
 
-    def wcolsum(self, G, X):
-        R, K = X.shape
-        partial = self._empty(cdiv(R, _COLSUM_ROWS), K)
-        out = self._empty(1, K)
+    def wcolsum(self, G, X, members=None):
+        E = members or 1
+        R, K = X.shape[0] // E, X.shape[1]
+        partial = self._empty(E * cdiv(R, _COLSUM_ROWS), K)
+        out = self._empty(E, 1, K)
         _build.check(self.lib.fr_wcolsum(G.data_ptr(), X.data_ptr(), R, K, K, partial.data_ptr(),
-                                         out.data_ptr(), self.stream), "weighted colsum kernels")
-        return out
+                                         out.data_ptr(), E, self.stream),
+                     "weighted colsum kernels")
+        return out[0] if members is None else out
 
 
-def _group_order(H: torch.Tensor, n: int, dim: int) -> int:
-    """K of the stacked (2 + dim K) n rows; 1 where there is no x-group
-    (the transport kernels then walk no group and read d0..d2)."""
-    return (H.shape[0] // n - 2) // dim if dim else 1
+def _group_order(H: torch.Tensor, n: int, dim: int, members: int = 1) -> int:
+    """K of each member's stacked (2 + dim K) n rows; 1 where there is no
+    x-group (the transport kernels then walk no group and read d0..d2)."""
+    return (H.shape[0] // (n * members) - 2) // dim if dim else 1
 
 
 _CUDA_OPS: Dict[torch.device, _CudaOps] = {}
@@ -744,13 +836,18 @@ def _cuda_ops(device: torch.device) -> _CudaOps:
 # --------------------------------------------------------------------------- #
 
 
-def _gemm_linear(ops, X, W, b, bias_rows: int):
-    """X (R, K) @ W^T (W: (out, K)) + b on the first ``bias_rows`` rows, as
-    one GEMM (``ops.gemm``)."""
-    R, K = X.shape
-    out = W.shape[0]
-    Y = torch.empty((R, out), dtype=X.dtype, device=X.device)
-    ops.gemm(R, out, K, X, K, 1, W, 1, K, Y, out, b, bias_rows, 1, K)
+# The products below take ``members``: None for one network's tensors, E for
+# E stacked members (row-stacked operands, leaves (E, ...)), one launch.
+
+
+def _gemm_linear(ops, X, W, b, bias_rows: int, members: int = 1):
+    """Each member's X (R, K) @ W^T (W: (out, K)) + b on its first
+    ``bias_rows`` rows, as one GEMM launch (``ops.gemm``)."""
+    R, K = X.shape[0] // members, X.shape[1]
+    out = W.shape[-2]
+    Y = torch.empty((members * R, out), dtype=X.dtype, device=X.device)
+    ops.gemm(R, out, K, X, K, 1, W, 1, K, Y, out, b, bias_rows, 1, K,
+             members=members, sae=R * K, sbe=out * K, sce=R * out, s_bias=out)
     return Y
 
 
@@ -758,45 +855,56 @@ def _gemm_linear(ops, X, W, b, bias_rows: int):
 # bytes, so it runs as a row pass (rowdot, outer, wcolsum) and not as a tile.
 
 
-def _linear(ops, X, W, b, bias_rows: int):
-    """X (R, K) @ W^T (W: (out, K)) + b on the first ``bias_rows`` rows."""
-    if W.shape[0] == 1:
-        return ops.rowdot(X, W, b, bias_rows)
-    return _gemm_linear(ops, X, W, b, bias_rows)
+def _linear(ops, X, W, b, bias_rows: int, members: Optional[int] = None):
+    """Each member's X (R, K) @ W^T (W: (out, K)) + b on its first
+    ``bias_rows`` rows."""
+    members = members or 1
+    if W.shape[-2] == 1:
+        return ops.rowdot(X, W, b, bias_rows, members=members)
+    return _gemm_linear(ops, X, W, b, bias_rows, members)
 
 
-def _linear_dx(ops, G, W):
-    """G (R, out) @ W (out, K) -> (R, K)."""
-    R, out = G.shape
+def _linear_dx(ops, G, W, members: Optional[int] = None):
+    """Each member's G (R, out) @ W (out, K) -> (R, K)."""
+    members = members or 1
+    R, out = G.shape[0] // members, G.shape[1]
     if out == 1:
-        return ops.outer(G, W)
-    K = W.shape[1]
-    dX = torch.empty((R, K), dtype=G.dtype, device=G.device)
-    ops.gemm(R, K, out, G, out, 1, W, K, 1, dX, K, None, 0, 1, out)
+        return ops.outer(G, W, members=members)
+    K = W.shape[-1]
+    dX = torch.empty((members * R, K), dtype=G.dtype, device=G.device)
+    ops.gemm(R, K, out, G, out, 1, W, K, 1, dX, K, None, 0, 1, out,
+             members=members, sae=R * out, sbe=out * K, sce=R * K)
     return dX
 
 
 def _split_k(M: int, N: int, K: int) -> Tuple[int, int]:
     """(splits, k_chunk) for an (M, N) product with a long K: about
     ``TARGET_BLOCKS`` blocks of the core's tile, at least ``_MIN_SPLIT_K`` of
-    K per split, chunks a multiple of BK."""
+    K per split, chunks a multiple of BK. A member-batched call keeps each
+    member's split, so every member's sums run as a single call's."""
     tiles = cdiv(M, TILE) * cdiv(N, TILE)
     return split_chunks(K, max(1, min(cdiv(TARGET_BLOCKS, tiles), cdiv(K, _MIN_SPLIT_K))))
 
 
-def _linear_dw(ops, G, X):
-    """G^T (out, R) @ X (R, K) -> (out, K), split over R with a
-    deterministic reduction of the split partials."""
-    R, out = G.shape
+def _linear_dw(ops, G, X, members: Optional[int] = None):
+    """Each member's G^T (out, R) @ X (R, K) -> (out, K), (members, out,
+    K) with ``members``, split over R with a deterministic reduction of the
+    split partials."""
+    E = members or 1
+    R, out = G.shape[0] // E, G.shape[1]
     if out == 1:
-        return ops.wcolsum(G, X)
+        return ops.wcolsum(G, X, members=members)
     K = X.shape[1]
     splits, k_chunk = _split_k(out, K, R)
-    buf = torch.empty((splits, out, K), dtype=G.dtype, device=G.device)
-    ops.gemm(out, K, R, G, 1, out, X, K, 1, buf, K, None, 0, splits, k_chunk)
+    buf = torch.empty((E, splits, out, K), dtype=G.dtype, device=G.device)
+    ops.gemm(out, K, R, G, 1, out, X, K, 1, buf, K, None, 0, splits, k_chunk,
+             members=E, sae=R * out, sbe=R * K, sce=splits * out * K)
     if splits == 1:
-        return buf[0]
-    return ops.colsum(buf, splits, out * K, out * K, 1.0).reshape(out, K)
+        dW = buf[:, 0]
+    else:
+        dW = ops.colsum(buf, splits, out * K, out * K, 1.0, members=E,
+                        stride=splits * out * K).reshape(E, out, K)
+    return dW if members else dW[0]
 
 
 @dataclass
@@ -833,86 +941,109 @@ def _loss_and_grads(ops, spec: _Spec, z: torch.Tensor, P: Dict[str, torch.Tensor
                     need_grads: bool = True):
     """(loss, {name: d loss / d param}) through ``ops``' kernels; with
     ``need_grads=False`` it stops before the reverse pass and the dict is
-    empty. The loss stays on the device: nothing here reads it back."""
-    n = z.shape[0]
+    empty. The loss stays on the device: nothing here reads it back.
+
+    z (N, d+1) with one network's leaves gives a scalar loss; z (E, N, d+1)
+    with every leaf stacked (E, ...) gives the E members' losses (E,) and
+    gradients of the leaves' shapes from ONE sequence of launches, each
+    kernel running every member on its member axis (the reference's
+    ``jax.vmap`` over a deep ensemble turns its kernel into one pallas_call
+    with a member axis in its grid). The tensors between kernels hold the
+    members one after another ([member][stream][point]); a fixed basis is
+    shared (member stride 0)."""
+    single = z.ndim == 2
+    if single:
+        z, P = z.unsqueeze(0), {k: v.unsqueeze(0) for k, v in P.items()}
+    E, n = z.shape[0], z.shape[1]
     L = spec.n_hidden
     causal = spec.causal_eps > 0.0
     d = spec.dimension
     groups = d if spec.x_order else 0  # the transport's x-groups
     B = P[_BASIS] if spec.trainable_basis else spec.B
     if B is None:
-        X = [ops.affine_input(z, spec.lo, spec.scale, spec.x_order, spec.frame_speed)]
+        X = [ops.affine_input(z, spec.lo, spec.scale, spec.x_order, spec.frame_speed, members=E)]
     else:
-        X = [ops.embed(z, spec.lo, spec.scale, B, spec.periodic, spec.x_order, spec.frame_speed)]
+        X = [ops.embed(z, spec.lo, spec.scale, B, spec.periodic, spec.x_order, spec.frame_speed,
+                       members=E)]
     Hs = []
     for i in range(L):
-        H = _linear(ops, X[-1], P[f"Dense_{i}.weight"], P[f"Dense_{i}.bias"], n)
+        H = _linear(ops, X[-1], P[f"Dense_{i}.weight"], P[f"Dense_{i}.bias"], n, E)
         gamma = P[f"LayerNorm_{i}.weight"] if spec.use_ln else None
         beta = P[f"LayerNorm_{i}.bias"] if spec.use_ln else None
         Hs.append(H)
-        X.append(ops.transport_fwd(H, gamma, beta, n, groups, spec.activation))
-    U = _linear(ops, X[-1], P[f"Dense_{L}.weight"], P[f"Dense_{L}.bias"], n)
+        X.append(ops.transport_fwd(H, gamma, beta, n, groups, spec.activation, members=E))
+    U = _linear(ops, X[-1], P[f"Dense_{L}.weight"], P[f"Dense_{L}.bias"], n, E)
     if spec.program is not None:
-        G, out = ops.generated(spec.program, U, z, n, causal)
+        G, out = ops.generated(spec.program, U, z, n, causal, members=E)
     elif spec.residual == "burgers":
-        G, out = ops.burgers(U, n, d, spec.nu, causal)
+        G, out = ops.burgers(U, n, d, spec.nu, causal, members=E)
     elif spec.residual == "heat":
-        G, out = ops.heat(U, n, d, spec.alpha, causal)
+        G, out = ops.heat(U, n, d, spec.alpha, causal, members=E)
     elif spec.residual == "kdv":
-        G, out = ops.kdv(U, n, d, causal)
+        G, out = ops.kdv(U, n, d, causal, members=E)
     elif spec.residual == "convection":
-        G, out = ops.convection(U, n, spec.velocity, spec.velocity_dev, causal)
+        G, out = ops.convection(U, n, spec.velocity, spec.velocity_dev, causal, members=E)
     elif spec.residual == "allen_cahn":
-        G, out = ops.allen_cahn(U, n, d, spec.epsilon**2, causal)
+        G, out = ops.allen_cahn(U, n, d, spec.epsilon**2, causal, members=E)
     else:
-        G, out = ops.black_scholes(U, z, n, spec.sign, 0.5 * spec.sigma**2, spec.rate, causal)
+        G, out = ops.black_scholes(U, z, n, spec.sign, 0.5 * spec.sigma**2, spec.rate, causal,
+                                   members=E)
     if causal:
         # out is r, G the unscaled dr/dU: weights, then [sum w, sum w r^2].
-        WR = ops.causal_weights(out, n, spec.causal_eps)
-        sums = ops.colsum(WR, n, 2, 2, 1.0)
-        loss = sums[1] / sums[0]
+        WR = ops.causal_weights(out, n, spec.causal_eps, members=E)
+        sums = ops.colsum(WR, n, 2, 2, 1.0, members=E, stride=2 * n)
+        loss = sums[:, 1] / sums[:, 0]
     else:
-        loss = ops.colsum(out, n, 1, 1, 1.0 / n).reshape(())
+        loss = ops.colsum(out, n, 1, 1, 1.0 / n, members=E, stride=n).reshape(E)
 
     grads: Dict[str, torch.Tensor] = {}
-    if not need_grads:
-        return loss, grads
-    if causal:
-        G = ops.causal_scale(G, out, WR, sums, n)
-    for i in range(L, -1, -1):
-        W = P[f"Dense_{i}.weight"]
-        grads[f"Dense_{i}.weight"] = _linear_dw(ops, G, X[i])
-        grads[f"Dense_{i}.bias"] = ops.colsum(G, n, G.shape[1], G.shape[1], 1.0)
-        if i == 0:
-            if spec.trainable_basis:
-                # The embedding's cotangent, then its fold into dL/dB.
-                GX = _linear_dx(ops, G, W)
-                grads[_BASIS] = ops.embed_bwd(z, spec.lo, spec.scale, B, GX, spec.periodic,
-                                              spec.x_order, spec.frame_speed)
-            break
-        GA = _linear_dx(ops, G, W)
-        j = i - 1
-        gamma = P[f"LayerNorm_{j}.weight"] if spec.use_ln else None
-        beta = P[f"LayerNorm_{j}.bias"] if spec.use_ln else None
-        G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n, groups, spec.activation)
-        if spec.use_ln:
-            width = Gg.shape[1]
-            grads[f"LayerNorm_{j}.weight"] = ops.colsum(Gg, n, width, width, 1.0)
-            grads[f"LayerNorm_{j}.bias"] = ops.colsum(Gb, n, width, width, 1.0)
+    if need_grads:
+        if causal:
+            G = ops.causal_scale(G, out, WR, sums, n, members=E)
+        for i in range(L, -1, -1):
+            W = P[f"Dense_{i}.weight"]
+            width = G.shape[1]
+            grads[f"Dense_{i}.weight"] = _linear_dw(ops, G, X[i], E)
+            grads[f"Dense_{i}.bias"] = ops.colsum(G, n, width, width, 1.0, members=E,
+                                                  stride=G.shape[0] // E * width)
+            if i == 0:
+                if spec.trainable_basis:
+                    # The embedding's cotangent, then its fold into dL/dB.
+                    GX = _linear_dx(ops, G, W, E)
+                    grads[_BASIS] = ops.embed_bwd(z, spec.lo, spec.scale, B, GX, spec.periodic,
+                                                  spec.x_order, spec.frame_speed, members=E)
+                break
+            GA = _linear_dx(ops, G, W, E)
+            j = i - 1
+            gamma = P[f"LayerNorm_{j}.weight"] if spec.use_ln else None
+            beta = P[f"LayerNorm_{j}.bias"] if spec.use_ln else None
+            G, Gg, Gb = ops.transport_bwd(Hs[j], gamma, beta, GA, n, groups, spec.activation,
+                                          members=E)
+            if spec.use_ln:
+                width = Gg.shape[1]
+                grads[f"LayerNorm_{j}.weight"] = ops.colsum(Gg, n, width, width, 1.0, members=E,
+                                                            stride=n * width)
+                grads[f"LayerNorm_{j}.bias"] = ops.colsum(Gb, n, width, width, 1.0, members=E,
+                                                          stride=n * width)
+    if single:
+        return loss[0], {k: v[0] for k, v in grads.items()}
     return loss, grads
 
 
 def _launch(spec: _Spec, z, leaves, need_grads: bool):
-    """Run the CUDA kernels once; counts one launch."""
+    """Run the CUDA kernels once; counts one launch, and the members it
+    served (1 without a member axis)."""
     loss, grads = _loss_and_grads(_cuda_ops(z.device), spec, z, dict(zip(spec.leaf_names, leaves)),
                                   need_grads)
     fused_residual_loss.launches += 1
+    fused_residual_loss.members += z.shape[0] if z.ndim == 3 else 1
     return loss, grads
 
 
 class _FusedResidualFn(torch.autograd.Function):
-    """Forward: loss and every parameter gradient from the CUDA kernels.
-    Backward: the stored gradients times the incoming cotangent."""
+    """Forward: loss (or the members' losses) and every parameter gradient
+    from the CUDA kernels. Backward: the stored gradients times the
+    incoming cotangent (member by member)."""
 
     @staticmethod
     def forward(ctx, spec: _Spec, z, *leaves):
@@ -922,7 +1053,8 @@ class _FusedResidualFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (None, None, *[gr * g for gr in ctx.saved_tensors])
+        return (None, None, *[gr * g.reshape(g.shape + (1,) * (gr.ndim - g.ndim))
+                              for gr in ctx.saved_tensors])
 
 
 # --------------------------------------------------------------------------- #
@@ -930,29 +1062,43 @@ class _FusedResidualFn(torch.autograd.Function):
 # --------------------------------------------------------------------------- #
 
 
-def fused_residual_loss_plain(bundle_fn, pde, params, z) -> torch.Tensor:
-    """The plain version: stacked-jet bundle -> residual -> the PDE's own
-    residual reduction (causal when configured)."""
+def _plain_loss(bundle_fn, pde, params, z) -> torch.Tensor:
+    """One network's plain loss: stacked-jet bundle -> residual -> the
+    PDE's own residual reduction (causal when configured)."""
     value, streams = bundle_fn(params, z)
     r = pde.residual_pointwise(BundleView(value, streams), z, None)
     return pde._residual_loss(r.reshape(-1, 1), z[:, -1:])
 
 
+def fused_residual_loss_plain(bundle_fn, pde, params, z) -> torch.Tensor:
+    """The plain version (``_plain_loss``). Stacked members (z (E, N, d+1),
+    leaves (E, ...)) give the members' losses (E,), by ``torch.func.vmap``
+    of the one-network version."""
+    if z.ndim == 3:
+        return torch.func.vmap(lambda p, zz: _plain_loss(bundle_fn, pde, p, zz))(params, z)
+    return _plain_loss(bundle_fn, pde, params, z)
+
+
 def fused_residual_loss(spec: _Spec, bundle_fn, pde, params, z) -> torch.Tensor:
     """The kernels on a CUDA tensor, the plain version on a CPU tensor.
-    Where no gradient is wanted (validation), the kernels stop before the
-    reverse pass."""
+    z (N, d+1) gives the loss; z (E, N, d+1) with every leaf stacked (E,
+    ...) gives a deep ensemble's E losses (E,) from one launch of each
+    kernel (``_loss_and_grads``). Where no gradient is wanted (validation),
+    the kernels stop before the reverse pass."""
     if z.device.type == "cpu":
         return fused_residual_loss_plain(bundle_fn, pde, params, z)
     if z.device.type != "cuda":
         raise ValueError(f"fused_residual_loss: unsupported device {z.device}")
     _build.require_cuda_f32("fused_residual_loss z", z)
-    if z.ndim != 2 or z.shape[1] != spec.dimension + 1:
-        raise ValueError(f"fused_residual_loss: z must be (N, {spec.dimension + 1}), "
-                         f"got {tuple(z.shape)}")
+    if z.ndim not in (2, 3) or z.shape[-1] != spec.dimension + 1:
+        raise ValueError(f"fused_residual_loss: z must be (N, {spec.dimension + 1}) or (E, N, "
+                         f"{spec.dimension + 1}), got {tuple(z.shape)}")
     leaves = [params[k] for k in spec.leaf_names]
     for name, t in zip(spec.leaf_names, leaves):
         _build.require_cuda_f32(f"fused_residual_loss {name}", t)
+        if z.ndim == 3 and (t.ndim < 2 or t.shape[0] != z.shape[0]):
+            raise ValueError(f"fused_residual_loss: {z.shape[0]} members in z, leaf {name} has "
+                             f"shape {tuple(t.shape)}")
     for name, t in (("lo", spec.lo), ("scale", spec.scale), ("B", spec.B)):  # B: when fixed
         if t is not None:
             _build.require_cuda_f32(f"fused_residual_loss {name}", t)
@@ -962,6 +1108,7 @@ def fused_residual_loss(spec: _Spec, bundle_fn, pde, params, z) -> torch.Tensor:
 
 
 fused_residual_loss.launches = 0
+fused_residual_loss.members = 0
 
 
 def _spec(model, pde, program: Optional[residual_codegen.ResidualProgram] = None) -> _Spec:
@@ -1024,8 +1171,10 @@ class Refused(ValueError):
 def make_fused_residual_loss(model, pde, training=None) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]:
     """Build ``fn(params, z) -> residual loss`` whose gradient comes from the
     kernels' own backward. ``z`` is (N, d+1) physical coordinates
-    (x_1..x_d, t), sorted by time when the loss is causal. Raises
-    ``Refused`` where kernel 1 does not take them (``refusal``)."""
+    (x_1..x_d, t), sorted by time when the loss is causal; or (E, N, d+1)
+    with every leaf of ``params`` stacked (E, ...), giving a deep ensemble's
+    E losses from one call. Raises ``Refused`` where kernel 1 does not take
+    them (``refusal``)."""
     reason, program = _admit(model, pde, training)
     if reason is not None:
         raise Refused(f"kernel 1 does not take pde={pde.pde_type}, "

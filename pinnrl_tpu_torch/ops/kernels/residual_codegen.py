@@ -256,7 +256,7 @@ def _literal(x: float) -> str:
 # The CUDA kernel
 # --------------------------------------------------------------------------- #
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _LIBRARIES: Dict[str, Tuple[str, ctypes.CDLL]] = {}
 
 
@@ -275,22 +275,26 @@ def library(program: ResidualProgram) -> Tuple[str, ctypes.CDLL]:
     return bound
 
 
-def launch(program: ResidualProgram, U: torch.Tensor, z: torch.Tensor, n: int, causal: bool):
+def launch(program: ResidualProgram, U: torch.Tensor, z: torch.Tensor, n: int, causal: bool,
+           members: int = 1):
     """The generated kernel on torch's current stream: (dU (S n, 1), out
-    (n, 1)) as its plain twin ``fused_step._TorchOps.generated``. Counts one
-    launch."""
+    (n, 1)) as its plain twin ``fused_step._TorchOps.generated``, for
+    ``members`` stacked members in one launch (U (members S n, 1), z
+    (members, n, d+1); out (members n, 1)). Counts one launch."""
     from pinnrl_tpu_torch.ops.kernels import _build
 
     for what, t in (("U", U), ("z", z)):
         _build.require_cuda_f32(f"generated residual {what}", t)
-    if U.numel() != program.n_streams * n or tuple(z.shape) != (n, program.n_cols):
+    if (U.numel() != members * program.n_streams * n
+            or z.numel() != members * n * program.n_cols or z.shape[-1] != program.n_cols):
         raise ValueError(f"generated residual: U {tuple(U.shape)} and z {tuple(z.shape)} do not "
-                         f"match {program.n_streams} streams and {program.n_cols} columns")
+                         f"match {members} x {program.n_streams} streams and {program.n_cols} "
+                         f"columns")
     name, lib = library(program)
     dU = torch.empty_like(U)
-    out = torch.empty((n, 1), dtype=torch.float32, device=U.device)
+    out = torch.empty((members * n, 1), dtype=torch.float32, device=U.device)
     _build.check(lib.gr_residual(U.data_ptr(), z.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
-                                 int(causal), _build.stream_handle(U.device)), name)
+                                 int(causal), members, _build.stream_handle(U.device)), name)
     launch.launches += 1
     return dU, out
 

@@ -14,7 +14,12 @@ and a forward without autograd (validation) moves no extra bytes.
 
 ``_SirenFn`` takes the launch as an argument, so the CPU tests run the
 Function with ``siren_layer_plain`` in its place and hold its ``jvp``,
-``backward`` and ``vmap`` rules against the plain function.
+``backward`` and ``vmap`` rules against the plain function. The vmap rule
+launches once for the whole batch: with W and b unbatched the batch folds
+into x's rows; with a member axis on W or b (a deep ensemble's stacked
+layers) the kernel runs the E members on its member axis, x (E, n, k),
+W (E, k, m), b (E, m) -> (E, n, m), as the reference's vmap of its kernel
+gives one pallas_call with a member axis.
 
 The kernel takes float32 alone. As the JAX kernel gates its Pallas call, a
 CUDA call whose x or W is not float32 (the float64 residual phase) runs the
@@ -31,14 +36,20 @@ import torch
 from pinnrl_tpu_torch.ops.kernels import _build, _jvp
 
 
+def _row(b: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """The bias as a row of the pre-activation: b (m,), or each member's
+    (E, 1, m) when W is stacked (E, k, m)."""
+    return b.unsqueeze(-2) if W.ndim == 3 else b
+
+
 def siren_layer_plain(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                       omega: float = 30.0) -> torch.Tensor:
-    """The plain PyTorch version of the kernel; x, W and b are promoted to
-    a common dtype."""
+    """The plain PyTorch version of the kernel (members too: x (E, n, k),
+    W (E, k, m), b (E, m)); x, W and b are promoted to a common dtype."""
     if not x.dtype == W.dtype == b.dtype:
         dt = torch.promote_types(torch.promote_types(x.dtype, W.dtype), b.dtype)
         x, W, b = x.to(dt), W.to(dt), b.to(dt)
-    return torch.sin(omega * (x @ W + b))
+    return torch.sin(omega * (x @ W + _row(b, W)))
 
 
 def _lib():
@@ -52,7 +63,8 @@ def _lib():
 
 
 _ARGTYPES = {
-    "siren_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+    "siren_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
+    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
     "siren_blocks": [ctypes.c_int] * 2,
 }
 
@@ -62,23 +74,36 @@ def launch_blocks(n: int, m: int) -> int:
     return _lib().siren_blocks(n, m)
 
 
+def _chains(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> bool:
+    """x (..., k), W (k, m), b (m,); or E members: x (E, n, k), W (E, k, m),
+    b (E, m)."""
+    if W.ndim == 3:
+        return (x.ndim == 3 and b.shape == (W.shape[0], W.shape[2]) and x.shape[0] == W.shape[0]
+                and x.shape[2] == W.shape[1] >= 1)
+    return (W.ndim == 2 and W.shape[0] >= 1 and b.shape == (W.shape[1],) and x.ndim >= 1
+            and x.shape[-1] == W.shape[0])
+
+
 def siren_layer_cuda(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                      omega: float = 30.0) -> torch.Tensor:
-    """Launch the CUDA kernel on x (..., k), W (k, m), b (m,); counts one
-    launch."""
-    if (W.ndim != 2 or W.shape[0] < 1 or b.shape != (W.shape[1],) or x.ndim < 1
-            or x.shape[-1] != W.shape[0]):
+    """Launch the CUDA kernel on x (..., k), W (k, m), b (m,), or on E
+    members at once (``_chains``; each member's x, W and b contiguous, the
+    members at any stride, 0 included); counts one launch."""
+    if not _chains(x, W, b):
         raise ValueError(f"siren_layer: shapes x {tuple(x.shape)}, W {tuple(W.shape)}, "
                          f"b {tuple(b.shape)} do not chain")
+    members = W.shape[0] if W.ndim == 3 else 1
     for name, t in (("x", x), ("W", W), ("b", b)):
-        _build.require_cuda_f32(f"siren_layer {name}", t)
+        _build.require_cuda_f32(f"siren_layer {name}", t[0] if members > 1 else t)
         if t.device != x.device:
             raise ValueError(f"siren_layer: {name} on {t.device}, x on {x.device}")
-    k, m = W.shape
-    n = x.numel() // k
+    k, m = W.shape[-2:]
+    n = x.numel() // (k * members)
     out = torch.empty((*x.shape[:-1], m), dtype=torch.float32, device=x.device)
+    sx, sW, sb = ((x.stride(0), W.stride(0), b.stride(0)) if members > 1 else (0, 0, 0))
     status = _lib().siren_forward(x.data_ptr(), W.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  n, k, m, float(omega), _build.stream_handle(x.device))
+                                  n, k, m, float(omega), members, sx, sW, sb,
+                                  _build.stream_handle(x.device))
     _build.check(status, "siren_sm90_kernel")
     siren_layer.launches += 1
     return out
@@ -102,9 +127,13 @@ class _SirenFn(torch.autograd.Function):
     def backward(ctx, g):
         x, W, b = ctx.saved_tensors
         om = ctx.omega
-        g_pre = g * (om * torch.cos(om * (x @ W + b)))
+        g_pre = g * (om * torch.cos(om * (x @ W + _row(b, W))))
+        gx = g_pre @ W.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        if W.ndim == 3:  # members: x (E, n, k), g_pre (E, n, m)
+            gW = x.transpose(1, 2) @ g_pre if ctx.needs_input_grad[1] else None
+            gb = g_pre.sum(dim=1) if ctx.needs_input_grad[2] else None
+            return gx, gW, gb, None, None
         g2 = g_pre.reshape(-1, W.shape[1])
-        gx = g_pre @ W.t() if ctx.needs_input_grad[0] else None
         gW = x.reshape(-1, W.shape[0]).t() @ g2 if ctx.needs_input_grad[1] else None
         gb = g2.sum(dim=0) if ctx.needs_input_grad[2] else None
         return gx, gW, gb, None, None
@@ -114,9 +143,10 @@ class _SirenFn(torch.autograd.Function):
         level, (x, W, b, dx, dW, db) = _jvp.lower(*ctx.saved_tensors, dx, dW, db)
         om = ctx.omega
         with _jvp.forward_mode(level):
-            pre = x @ W + b
+            pre = x @ W + _row(b, W)
             terms = [t for t in (None if dx is None else dx @ W,
-                                 None if dW is None else x @ dW, db) if t is not None]
+                                 None if dW is None else x @ dW,
+                                 None if db is None else _row(db, W)) if t is not None]
             dpre = terms[0]
             for t in terms[1:]:
                 dpre = dpre + t
@@ -131,12 +161,18 @@ class _SirenFn(torch.autograd.Function):
             out = _SirenFn.apply(xb.reshape(-1, xb.shape[-1]), W, b, omega, launch)
             return out.reshape(*xb.shape[:-1], W.shape[1]), 0
 
-        def pick(t, bd, i):
-            return t if bd is None else t.select(bd, i)
+        # A member axis on W or b: one call with the members on the kernel's
+        # member axis (an unbatched operand is shared at member stride 0).
+        E = info.batch_size
 
-        outs = [_SirenFn.apply(pick(x, x_bd, i), pick(W, W_bd, i), pick(b, b_bd, i), omega, launch)
-                for i in range(info.batch_size)]
-        return torch.stack(outs), 0
+        def members(t, bd):
+            return t.movedim(bd, 0) if bd is not None else t.expand(E, *t.shape)
+
+        xb = members(x, x_bd)
+        lead = xb.shape[1:-1]
+        out = _SirenFn.apply(xb.reshape(E, -1, xb.shape[-1]), members(W, W_bd), members(b, b_bd),
+                             omega, launch)
+        return out.reshape(E, *lead, W.shape[-1]), 0
 
 
 def siren_layer(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,

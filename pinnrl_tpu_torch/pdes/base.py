@@ -639,14 +639,17 @@ class PDEBase:
 
     def compute_loss(self, apply_fn, params, x: torch.Tensor, t: torch.Tensor,
                      coeffs: Optional[Coeffs] = None,
-                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                     generator: Optional[torch.Generator] = None,
+                     residual_loss: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """All loss components on fresh BC/IC points drawn from ``generator``.
 
-        The residual term goes through the fused kernel whenever it is
-        attached and no live coefficients are given (``coeffs`` empty, as the
-        JAX package gates it), validation included (there the kernel skips
-        its reverse pass); with causal weighting the points reach it sorted
-        by time. The data term, on the observations, comes after every draw.
+        The residual term is ``residual_loss`` where the caller gives it (a
+        deep ensemble computes every member's in one call); otherwise it goes
+        through the fused kernel whenever that is attached and no live
+        coefficients are given (``coeffs`` empty, as the JAX package gates
+        it), validation included (there the kernel skips its reverse pass);
+        with causal weighting the points reach it sorted by time. The data
+        term, on the observations, comes after every draw.
         """
         lw = self._loss_weights()
         generator = generator if generator is not None else _default_generator(x.device)
@@ -656,14 +659,14 @@ class PDEBase:
             and x.dtype == torch.float32
             and all(p.dtype == torch.float32 for p in params.values())
         )
-        if use_fused:
+        if residual_loss is None and use_fused:
             z = torch.cat([x, t], dim=-1)
             if self.causal_eps() > 0.0:
                 # The kernel weights the points in the order given: sort by
                 # time here, outside it, as the JAX package does in XLA.
                 z = torch.index_select(z, 0, torch.argsort(t.reshape(-1), stable=True))
             residual_loss = self._fused_residual_loss(params, z)
-        else:
+        elif residual_loss is None:
             residual = self.compute_residual(apply_fn, params, x, t, coeffs)
             residual_loss = self._residual_loss(residual, t)
 

@@ -110,12 +110,14 @@ class CahnHilliardEquation(PDEBase):
 
     def compute_loss(self, apply_fn, params, x: torch.Tensor, t: torch.Tensor,
                      coeffs: Optional[Coeffs] = None,
-                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                     generator: Optional[torch.Generator] = None,
+                     residual_loss: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The base loss, then the ``mass`` penalty when ``loss_weights.mass
         > 0`` in one space dimension and the ``mu_h2`` penalty after it.
         As in the reference, ``mass <= 0`` skips both."""
         generator = generator if generator is not None else _default_generator(x.device)
-        losses = super().compute_loss(apply_fn, params, x, t, coeffs=coeffs, generator=generator)
+        losses = super().compute_loss(apply_fn, params, x, t, coeffs=coeffs, generator=generator,
+                                      residual_loss=residual_loss)
         w_mass = float(self._loss_weights().get("mass", 0.0))
         if w_mass <= 0.0 or self.dimension != 1:
             return losses

@@ -71,12 +71,14 @@ class PendulumEquation(PDEBase):
             return pendulum_theta(t, theta0, omega) * torch.ones_like(x[:, 0:1])
         raise ValueError(f"Unknown exact solution type: {sol_type!r}")
 
-    def compute_loss(self, apply_fn, params, x, t, coeffs=None, generator=None):
+    def compute_loss(self, apply_fn, params, x, t, coeffs=None, generator=None,
+                     residual_loss=None):
         """Adds the angular-velocity IC theta_t(t0) = d/dt theta_exact(t0),
         the target by ``torch.func.jvp`` of ``exact_solution`` in t (a value-
         only IC leaves the B sin(omega t) mode free)."""
         generator = generator if generator is not None else _default_generator(x.device)
-        losses = super().compute_loss(apply_fn, params, x, t, coeffs=coeffs, generator=generator)
+        losses = super().compute_loss(apply_fn, params, x, t, coeffs=coeffs, generator=generator,
+                                      residual_loss=residual_loss)
         if not self.settings.exact_solution:
             return losses
 

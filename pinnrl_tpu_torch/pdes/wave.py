@@ -71,10 +71,12 @@ class WaveEquation(PDEBase):
             return lambda x, t: self.exact_solution(x, t)
         return super()._create_boundary_condition(bc_type, params)
 
-    def compute_loss(self, apply_fn, params, x, t, coeffs=None, generator=None):
+    def compute_loss(self, apply_fn, params, x, t, coeffs=None, generator=None,
+                     residual_loss=None):
         """Adds the velocity IC u_t(x, 0) = d/dt u_exact = -2 pi c cos(2 pi x_0)."""
         generator = generator if generator is not None else _default_generator(x.device)
-        losses = super().compute_loss(apply_fn, params, x, t, coeffs=coeffs, generator=generator)
+        losses = super().compute_loss(apply_fn, params, x, t, coeffs=coeffs, generator=generator,
+                                      residual_loss=residual_loss)
         if not self.settings.exact_solution:
             return losses
         c = self._c(coeffs)

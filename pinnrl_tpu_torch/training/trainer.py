@@ -88,10 +88,16 @@ DQN, no adaptive weights, a cosine or constant schedule): every parameter,
 coefficient, Adam moment and EMA shadow carries a leading member axis;
 member m draws its initial weights from a generator seeded from the run's
 seed and m, and its batches and BC/IC points from its own device generator;
-each member's residual goes through kernel 1 once per step, and clipping
-takes each member's own global norm. The history holds member means,
-validation is the member mean on one shared batch, and the final model
-(``model.ensemble``) predicts the member mean.
+the members' residual terms come from one call for all of them, as the JAX
+package vmaps its step over the member axis: where kernel 1 is attached,
+one member-batched kernel-1 call per step and per validation (each kernel
+runs every member on its member axis, ``fused_step._loss_and_grads``);
+otherwise one ``torch.func.vmap`` of the residual loss over the stacked
+members, where kernels 2 and 3 launch once per layer for all members
+(``member_path``, fixed at construction). The BC and IC terms run member
+by member, and clipping takes each member's own global norm. The history
+holds member means, validation is the member mean on one shared batch, and
+the final model (``model.ensemble``) predicts the member mean.
 
 Float64 residuals (``training.residual_dtype="float64"``): when the L-BFGS
 phase starts (at the start under ``optimizer="lbfgs"``, at the switch of
@@ -357,6 +363,12 @@ class PDETrainer:
         self._aw_state = self.adaptive_weights.init()
         self._ema: Optional[Tuple[List[torch.Tensor], int]] = None
         self.members = int(t.ensemble_size) if int(t.ensemble_size) > 1 else 0
+        # How an ensemble's residual terms are computed, all members at once:
+        # "kernel1", one member-batched kernel-1 call (kernel 1 attached and no
+        # live coefficients, compute_loss's own condition), or "vmap", one
+        # torch.func.vmap of the residual loss over the stacked members.
+        self.member_path = (("kernel1" if self.fused_kernel_active and not self.coeffs else "vmap")
+                            if self.members else None)
         # The last step's batch (x, t); its first 64 points are kept at each
         # validation (the collocation-evolution plot).
         self._last_pts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -429,10 +441,11 @@ class PDETrainer:
     # One step
     # ------------------------------------------------------------------ #
 
-    def _loss_components(self, params: Dict[str, torch.Tensor], x, t, generator, coeffs=None):
+    def _loss_components(self, params: Dict[str, torch.Tensor], x, t, generator, coeffs=None,
+                         residual_loss=None):
         return self.pde.compute_loss(self.model.apply, params, x, t,
                                      coeffs=self.coeffs if coeffs is None else coeffs,
-                                     generator=generator)
+                                     generator=generator, residual_loss=residual_loss)
 
     def _sharded_loss(self, params: Dict[str, torch.Tensor], x, t, generator):
         """The loss components on this rank's rows of the global batch (x,
@@ -578,22 +591,49 @@ class PDETrainer:
         leaves, so their gradients land in the stack."""
         return {k: v[m] for k, v in params.items()}, {k: v[m] for k, v in self.coeffs.items()}
 
+    def _member_residual_losses(self, params: Dict[str, torch.Tensor],
+                                batches: List[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+        """Every member's residual term (E,) on its batch (x, t), from one
+        call for all members (``member_path``): the member-batched kernel-1
+        call on z (E, N, d+1), each member's points sorted by time under
+        causal weights as ``compute_loss`` sorts them; or one
+        ``torch.func.vmap`` of the residual loss over the stacked leaves,
+        coefficients and batches."""
+        xs = torch.stack([x for x, _ in batches])
+        ts = torch.stack([t for _, t in batches])
+        if self.member_path == "kernel1":
+            z = torch.cat([xs, ts], dim=-1)
+            if self.pde.causal_eps() > 0.0:
+                order = torch.argsort(ts[..., 0], dim=1, stable=True)
+                z = torch.gather(z, 1, order[..., None].expand_as(z))
+            return self.pde._fused_residual_loss(params, z)
+
+        def residual_loss(p, c, x, t):
+            return self.pde._residual_loss(
+                self.pde.compute_residual(self.model.apply, p, x, t, c), t)
+
+        return torch.func.vmap(residual_loss)(params, self.coeffs, xs, ts)
+
     def _ensemble_step(self, params: Dict[str, torch.Tensor], opt: AdamStep,
                        gens: List[torch.Generator], batch_size: int) -> torch.Tensor:
         """One Adam step of every member, each on its own batch and BC/IC
-        points from its own generator: the members' totals are summed for
-        one backward (their gradients are disjoint), then the member-wise
-        clipped Adam step. Returns the members' mean ``_row``."""
+        points from its own generator (each generator draws the batch, then
+        the BC and IC points, as a single model's does): the residual terms of
+        all members from one call (``_member_residual_losses``), the BC/IC
+        terms member by member, the members' totals summed for one backward
+        (their gradients are disjoint), then the member-wise clipped Adam
+        step. Returns the members' mean ``_row``."""
         for p in opt.params:
             p.grad = None
         weights = self.adaptive_weights.get_weights(self._aw_state)
+        members = [self._member(params, m) for m in range(len(gens))]
+        batches = [self._sample(gen, batch_size, pm, cm) for gen, (pm, cm) in zip(gens, members)]
+        self._last_pts = batches[0]
+        residuals = self._member_residual_losses(params, batches)
         rows, total = [], 0.0
         for m, gen in enumerate(gens):
-            pm, cm = self._member(params, m)
-            x, t = self._sample(gen, batch_size, pm, cm)
-            if m == 0:
-                self._last_pts = (x, t)
-            losses = self._loss_components(pm, x, t, gen, cm)
+            (pm, cm), (x, t) = members[m], batches[m]
+            losses = self._loss_components(pm, x, t, gen, cm, residual_loss=residuals[m])
             total = total + losses["total"]
             rows.append(self._row(losses["total"], losses, weights))
         total.backward()
@@ -693,19 +733,22 @@ class PDETrainer:
     def _val_loss(self, params, generator: torch.Generator) -> float:
         """The validation loss on fresh uniform points; an ensemble's is the
         members' mean on one shared batch (the same points and BC/IC draws
-        for every member)."""
+        for every member), the residual terms from one call for all members
+        (``_member_residual_losses``)."""
         x, t = self.pde.generate_collocation_points(
             generator, self.config.evaluation.num_points, "uniform"
         )
         x, t = x.to(self._dtype), t.to(self._dtype)
         if not self.members:
             return float(self._loss_components(params, x, t, generator)["total"])
+        residuals = self._member_residual_losses(params, [(x, t)] * self.members)
         start = generator.get_state()
         totals = []
         for m in range(self.members):
             generator.set_state(start)
             pm, cm = self._member(params, m)
-            totals.append(self._loss_components(pm, x, t, generator, cm)["total"])
+            totals.append(self._loss_components(pm, x, t, generator, cm,
+                                                residual_loss=residuals[m])["total"])
         return float(torch.stack(totals).mean())
 
     # ------------------------------------------------------------------ #

@@ -3,8 +3,9 @@ package on the CPU: its ``_validate_ensemble`` refusals with its messages;
 one stacked Adam step of E members equal to E single-member JAX steps
 (optax's clip_by_global_norm + adam) on the same parameters and batches,
 each member clipped by its own norm; the mean prediction; the stacked
-leaves through ``final_model.npz``; kernel 1 once per member per step
-(counted through its plain version here); E = 1 unchanged.
+leaves through ``final_model.npz``; kernel 1 once per step and per
+validation for all members (counted through its plain version here); E = 1
+unchanged.
 
 Tolerances: losses 1e-5 relative; Adam's moments after the step 1e-4
 relative to each leaf's max (they are the clipped gradients: the
@@ -194,18 +195,19 @@ def test_stacked_leaves_save_and_load(tmp_path):
 # -------------------------------------------------------- training
 
 
-def test_ensemble_trains_with_kernel_1_once_per_member(monkeypatch, tmp_path):
+def test_ensemble_trains_with_one_kernel_1_call_per_step(monkeypatch, tmp_path):
     """Three members of the Burgers trunk at CPU size for 2 epochs of 2
-    steps: the plain version of kernel 1 runs once per member per step and
-    per member per validation; member means in the history; the final
-    model predicts the member mean and saves stacked leaves."""
+    steps: the plain version of kernel 1 runs once per step and once per
+    validation, each time on all members' stacked leaves; member means in
+    the history; the final model predicts the member mean and saves stacked
+    leaves."""
     pairs = members()
     cfg = pairs[0].tcfg
     t = cfg.training
     t.num_collocation_points, t.batch_size, t.validation_frequency = 128, 64, 1
     cfg.evaluation.num_points = 64
     trainer = PDETrainer(pairs[0].tmodel, pairs[0].tpde, cfg)
-    assert trainer.fused_kernel_active
+    assert trainer.fused_kernel_active and trainer.member_path == "kernel1"
     calls = []
     plain = fused_step.fused_residual_loss_plain
     monkeypatch.setattr(fused_step, "fused_residual_loss_plain",
@@ -214,8 +216,8 @@ def test_ensemble_trains_with_kernel_1_once_per_member(monkeypatch, tmp_path):
     hist = res["history"]
     assert res["status"] == "completed" and len(hist["train_loss"]) == 2
     assert all(np.isfinite(hist["train_loss"] + hist["val_loss"]))
-    assert len(calls) == E * 2 * 2 + E * 2  # steps and validations, per member
-    assert all(s == (16, 16) for s in calls)  # one member's leaves each time
+    assert len(calls) == 2 * 2 + 2  # steps and validations, all members in each call
+    assert all(s == (E, 16, 16) for s in calls)  # the stacked members' leaves each time
     model = trainer.model
     assert model.ensemble is not None and model.params["Dense_0.weight"].shape == (E, 16, 16)
     members_differ = not torch.equal(model.params["Dense_0.weight"][0],

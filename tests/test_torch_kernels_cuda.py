@@ -151,7 +151,7 @@ def test_fourier_features_bit_identical_and_paths_agree(cuda_device):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _, _, rows = fourier_feats.launch_plan(4096, 2, 128, False, sms)
     _build.check(fourier_feats._lib().ff_forward(
-        x.data_ptr(), B.data_ptr(), edge.data_ptr(), 4096, 2, 128, 0, rows, 1,
+        x.data_ptr(), B.data_ptr(), edge.data_ptr(), 4096, 2, 128, 0, rows, 1, 1, 0, 0,
         _build.stream_handle(x.device)), "fourier_features_kernel")
     torch.cuda.synchronize()
     assert torch.equal(first, second) and torch.equal(first, edge)
@@ -171,7 +171,7 @@ def test_fourier_features_launcher_refuses_a_wrong_plan(cuda_device, path, d, m,
     x, B = _ff_inputs(16, d, m, gen, cuda_device, 0, b_offset)
     out = torch.empty((16, 2 * m), device=cuda_device)
     status = fourier_feats._lib().ff_forward(x.data_ptr(), B.data_ptr(), out.data_ptr(), 16, d, m,
-                                             path, rows, 1, _build.stream_handle(x.device))
+                                             path, rows, 1, 1, 0, 0, _build.stream_handle(x.device))
     assert status != 0
 
 
@@ -848,10 +848,12 @@ def test_kernel1_entry_points_refuse_an_x_order_out_of_scope(cuda_device, kx):
     X = torch.empty((6 * 8, 2), device=cuda_device)
     one = torch.ones(2, device=cuda_device)
     stream = _build.stream_handle(cuda_device)
-    assert ops.lib.fr_affine_input(z.data_ptr(), one.data_ptr(), one.data_ptr(), X.data_ptr(), 8,
-                                   kx, 1, 0, 0.0, stream) != 0
+    # The input kernels take x-order 0 (an ODE: no x-group); the transport does not.
+    status = ops.lib.fr_affine_input(z.data_ptr(), one.data_ptr(), one.data_ptr(), X.data_ptr(), 8,
+                                     kx, 1, 0, 0.0, 1, stream)
+    assert (status == 0) == (kx == 0)
     H = torch.zeros((6 * 8, 4), device=cuda_device)
-    assert ops.lib.fr_transport_fwd(H.data_ptr(), None, None, H.data_ptr(), 8, 4, 0, kx, 1, 0,
+    assert ops.lib.fr_transport_fwd(H.data_ptr(), None, None, H.data_ptr(), 8, 4, 0, kx, 1, 0, 1,
                                     stream) != 0
 
 
@@ -864,13 +866,14 @@ def test_kernel1_entry_points_refuse_a_dimension_out_of_scope(cuda_device, dim):
     stream = _build.stream_handle(cuda_device)
     buf = torch.zeros(4096, device=cuda_device)
     p = buf.data_ptr()
-    assert ops.lib.fr_embed(p, p, p, p, p, 8, 4, 1, 2, dim, 0, 0.0, stream) != 0
-    assert ops.lib.fr_affine_input(p, p, p, p, 8, 2, dim, 0, 0.0, stream) != 0
-    assert ops.lib.fr_transport_fwd(p, None, None, p, 8, 4, 0, 2, dim, 0, stream) != 0
-    assert ops.lib.fr_transport_bwd(p, None, None, p, p, None, None, 8, 4, 0, 2, dim, 0,
-                                    stream) != 0
-    assert ops.lib.fr_heat(p, p, p, 8, dim, 1.0, 0, stream) != 0
-    assert ops.lib.fr_convection(p, p, p, 8, dim, p, 0, stream) != 0
+    assert ops.lib.fr_embed(p, p, p, p, p, 8, 4, 1, 2, dim, 0, 0.0, 1, 0, stream) != 0
+    assert ops.lib.fr_affine_input(p, p, p, p, 8, 2, dim, 0, 0.0, 1, stream) != 0
+    # The transport takes dim 0 (an ODE: no x-group); the other entry points do not.
+    fwd = ops.lib.fr_transport_fwd(p, None, None, p, 8, 4, 0, 2, dim, 0, 1, stream)
+    bwd = ops.lib.fr_transport_bwd(p, None, None, p, p, None, None, 8, 4, 0, 2, dim, 0, 1, stream)
+    assert (fwd == 0) == (bwd == 0) == (dim == 0)
+    assert ops.lib.fr_heat(p, p, p, 8, dim, 1.0, 0, 1, stream) != 0
+    assert ops.lib.fr_convection(p, p, p, 8, dim, p, 0, 1, stream) != 0
 
 
 @pytest.mark.parametrize("frame", [None, 0.7])
@@ -1321,8 +1324,8 @@ def test_transport_entry_points_refuse_an_unknown_activation(cuda_device):
     stream = _build.stream_handle(cuda_device)
     p = torch.zeros(4096, device=cuda_device).data_ptr()
     for act in (-1, 5):
-        assert ops.lib.fr_transport_fwd(p, None, None, p, 8, 4, 0, 2, 1, act, stream) != 0
-        assert ops.lib.fr_transport_bwd(p, None, None, p, p, None, None, 8, 4, 0, 2, 1, act,
+        assert ops.lib.fr_transport_fwd(p, None, None, p, 8, 4, 0, 2, 1, act, 1, stream) != 0
+        assert ops.lib.fr_transport_bwd(p, None, None, p, p, None, None, 8, 4, 0, 2, 1, act, 1,
                                         stream) != 0
 
 
@@ -1618,3 +1621,73 @@ def test_no_x_group_kernels_match_twins(cuda_device, dim):
         assert _rel(A, A_ref) < 1e-5 and _rel(GH, GH_ref) < 1e-5
         if g is not None:
             assert _rel(Gg, Gg_ref) < 1e-5 and _rel(Gb, Gb_ref) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["layer_norm", "causal_basis", "feedforward", "four_dims"])
+def test_member_batched_kernel1_equals_single_member_calls(cuda_device, case):
+    """Kernel 1 on 3 stacked members (z (3, N, d+1), leaves (3, ...)) in one
+    launch of each kernel, bit-identical to 3 single-member calls on copies
+    of each member's tensors (the member axis changes which block computes,
+    not the order of any sum), and bit-identical in two calls."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.pdes import create_pde
+
+    arch = "feedforward" if case == "feedforward" else "fourier"
+    cfg = load_config(pde_type="heat" if case == "four_dims" else "burgers", architecture=arch,
+                      device="cuda")
+    if case == "four_dims":
+        cfg.pde.dimension, cfg.model.input_dim = 4, 5
+        cfg.pde.domain = [list(cfg.pde.domain[0])] * 4
+    cfg.model.hidden_dims = [64, 48]
+    cfg.model.arch_params["mapping_size"] = 32
+    cfg.model.arch_params["trainable_features"] = case == "causal_basis"
+    cfg.training.causal_eps = 1.0 if case == "causal_basis" else 0.0
+    models = [PINNModel(cfg, seed=e) for e in range(3)]
+    pde = create_pde(cfg)
+    P = {k: torch.stack([m.params[k].detach() for m in models]) for k in models[0].params}
+    spec = fused_step._spec(models[0], pde)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    z = torch.stack([torch.cat(pde.generate_collocation_points(gen, 1000, "uniform"), dim=-1)
+                     for _ in range(3)])
+    z = torch.gather(z, 1, torch.argsort(z[..., -1], dim=1, stable=True)[..., None].expand_as(z))
+    ops = fused_step._cuda_ops(cuda_device)
+    loss, grads = fused_step._loss_and_grads(ops, spec, z, P)
+    loss2, grads2 = fused_step._loss_and_grads(ops, spec, z, P)
+    torch.cuda.synchronize()
+    assert loss.shape == (3,) and all(grads[k].shape == P[k].shape for k in P)
+    assert torch.equal(loss, loss2) and all(torch.equal(grads[k], grads2[k]) for k in grads)
+    for e in range(3):
+        l1, g1 = fused_step._loss_and_grads(ops, spec, z[e].clone(),
+                                            {k: v[e].clone() for k, v in P.items()})
+        torch.cuda.synchronize()
+        assert torch.equal(loss[e], l1) and all(torch.equal(grads[k][e], g1[k]) for k in g1), e
+
+
+def test_member_batched_kernels_2_and_3_equal_single_launches(cuda_device):
+    """Kernels 2 and 3 on 4 members (B (4, d, m); W (4, k, m), b (4, m)) in
+    one launch, equal to per-member launches and within the plain versions'
+    bounds; through their vmap rules the same one launch."""
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, siren
+
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.rand((4, 3000, 2), generator=gen, device=cuda_device) * 2.0 - 1.0
+    B = torch.randn((4, 2, 64), generator=gen, device=cuda_device)
+    before = fourier_feats.fourier_features.launches
+    out = torch.func.vmap(fourier_feats.fourier_features)(x, B)
+    assert fourier_feats.fourier_features.launches == before + 1
+    each = [fourier_feats.fourier_features_cuda(x[e].clone(), B[e].clone()) for e in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(out[e], each[e]) for e in range(4))
+    assert _rel(out, fourier_feats.fourier_features_plain(x, B)) < 1e-5
+    xs = torch.rand((4, 3000, 40), generator=gen, device=cuda_device) * 2.0 - 1.0
+    W = torch.randn((4, 40, 36), generator=gen, device=cuda_device) * 0.05
+    b = torch.randn((4, 36), generator=gen, device=cuda_device) * 0.05
+    before = siren.siren_layer.launches
+    out = torch.func.vmap(siren.siren_layer)(xs, W, b)
+    assert siren.siren_layer.launches == before + 1
+    each = [siren.siren_layer_cuda(xs[e].clone(), W[e].clone(), b[e].clone()) for e in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(out[e], each[e]) for e in range(4))
+    assert _rel(out, siren.siren_layer_plain(xs, W, b)) < 1e-5

@@ -203,7 +203,8 @@ def main() -> int:
 
         def direct(path, rows, lib_=lib):
             return lambda: _build.check(lib_.ff_forward(x.data_ptr(), B.data_ptr(), out.data_ptr(), n, d,
-                                                        m, path, rows, 1, _build.stream_handle(dev)),
+                                                        m, path, rows, 1, 1, 0, 0,
+                                                        _build.stream_handle(dev)),
                                         "ff_forward")
 
         cols = m // 4 // ff.QUADS
