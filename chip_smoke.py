@@ -411,6 +411,35 @@ Phases (each raises on failure, and the script then exits non-zero):
                and the select residual alone against the Burgers residuals
                (its launch floor), in turns; the clamped Allen-Cahn trained
                as Fisher-KPP is, with exact launches and a falling loss.
+ 46. graph   — every Adam phase of ``PDETrainer.train`` runs from one
+               captured CUDA graph of its step, replayed once per step
+               (``training/step_program.py``), in every phase above too.
+               Here, each against the same run on the eager step program
+               (``eager_steps``: it never captures), same seed: the
+               Burgers recipe at full width with RAR, 2 chunks of 5 epochs
+               (40 Adam steps), and cut to 2 chunks of 2 epochs uniform
+               with the DQN agent, 4 members, the plateau (patience 1, lr
+               1e-2) with EMA 0.99 and LRW, KdV on a SIREN 124x3, and
+               Fisher-KPP through the generated residual. Each run is
+               profiled: the device launches of kernels 1-4 and the
+               generated residual are counted by kernel name in its trace
+               (``GRAPH_KERNELS``). Each must capture after its warm-up
+               step and replay the rest; count every kernel's launches as
+               the eager run does, kernel 1 once per step and validation,
+               with the trace witnessing each count (never more, at most
+               ``TRACE_LOSS`` fewer: the profiler can drop an event);
+               read the host once per chunk and never in a replayed step
+               (``set_sync_debug_mode``; an eager step's syncs, such as a
+               process's first fill of the samplers' caches, are listed
+               apart); and equal the eager run bit for
+               bit (the largest differences printed). Then ms per step of
+               the RAR step in turns: the
+               replayed step, the eager program, and the eager program with
+               the Adam class it replaced (``parent_adam``); a graph run
+               resumed from its first chunk's checkpoint against the
+               uninterrupted one; and, in a subprocess, a step with a host
+               read forced into it, which must raise at the capture after
+               one eager step (no fallback).
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -431,7 +460,12 @@ split as chosen and forced to each setting, bit-identical in two calls.
 
 The second-to-last line is a JSON object describing each kernel: its
 ``launches`` are those of the RL slice for kernels 1, 2 and 4 (the path
-that runs all three) and of the siren-kdv slice for kernel 3;
+that runs all three) and of the siren-kdv slice for kernel 3, as the
+wrappers count them (a replayed step counts on the device, in the step
+program's tally); ``launches_in_trace`` the same runs' launches counted
+by kernel name in a ``torch.profiler`` trace (``device_launches``), which
+must witness the counts (``trace_agrees``: never more, at most
+``TRACE_LOSS`` fewer, as a trace can drop an event);
 ``kdv_launches`` and ``heat_launches`` those of the KdV and heat slices;
 ``ms`` and ``plain_ms`` device time per call by CUDA-graph replay (the
 kernels' eager calls are host-bound: ``eager_ms``); ``bound_ms`` the larger
@@ -513,7 +547,12 @@ losses, ``k1i``: the select programs' ``ptxas``, ``nan_parity``,
 ``allen_cahn_ab`` and ``select_alone`` per N, the clamped Allen-Cahn
 ``run``), summed up in kernel 1's ``generated_selects``;
 kernel 2's entry carries ``nd4_edge`` (its time at (8192,5) x (5,512)) and
-``nd4_launches``. The last line is
+``nd4_launches``. Kernel 1's entry carries phase 46's ``graph`` (per case:
+the device launches counted in the trace and per step, bit-identity, host
+reads per chunk, the step program's path, eager steps, replays, capture
+seconds and bytes) and
+``graph_ms_per_step``; a ``[graph]`` line before the last two carries
+the whole phase. The last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -2374,18 +2413,19 @@ def lever_runs(dev, card: str):
     cfg.training.optimizer_config.learning_rate = 1e-2
     tr = trainer(cfg)
     scales = []
-    step = AdamStep.step
+    advance = AdamStep.advance
 
-    def recording_step(self, value=None):
-        step(self, value)
+    def recording_advance(self):
+        # After every step, eager or replayed (a replay runs no step()).
+        advance(self)
         if self.plateau is not None:
             scales.append(self.scale.clone())
 
-    AdamStep.step = recording_step
+    AdamStep.advance = recording_advance
     try:
         res, e = run("reduce_lr", tr)
     finally:
-        AdamStep.step = step
+        AdamStep.advance = advance
     traj = [float(s) for s in scales]
     e["scales"] = traj
     print(f"[levers] reduce_lr (factor {cfg.training.lr_scheduler.factor}, patience 1, lr "
@@ -4738,6 +4778,408 @@ def gen_runs(dev, card: str):
     return out
 
 
+# Phase 46: every Adam phase replays one captured CUDA graph of its step
+# (training/step_program.py). The Burgers recipe with RAR: 2 chunks of 5
+# epochs (40 Adam steps); the other cases 2 chunks of 2 epochs.
+GRAPH_EPOCHS, GRAPH_CHUNK = 10, 5
+GRAPH_CUT_EPOCHS = 4
+GRAPH_TIMED, GRAPH_ROUNDS = 20, 3   # steps per side per round, rounds in turns
+GRAPH_CASES = ("rar", "rl", "ensemble", "levers", "siren", "generated")
+TRACE_MARGIN_S = 0.5  # idle host time at each end of a counted trace
+# Launches a trace may lose (at least; 2% of the count above 100): late in a
+# long process the profiler dropped one kernel event from a run now and
+# then (phase 46: one of 16 scorer launches in both RL runs, one of 18
+# kernel-1 launches in the eager E = 4 run), while the wrappers' counters
+# and the runs' bits agreed.
+TRACE_LOSS = 2
+
+
+def trace_agrees(trace: int, counted: int) -> bool:
+    """Whether a kernel's launches found in a profiler trace witness its
+    counter: never more, and fewer by at most the events a trace loses."""
+    return counted - max(TRACE_LOSS, counted // 50) <= trace <= counted
+# A device kernel that runs once per launch of each wrapper: phase 46 counts
+# them by name in a profiler trace of each run.
+GRAPH_KERNELS = {
+    "fused_residual_loss": re.compile(r"(?<![A-Za-z0-9_])((burgers|heat|kdv|convection|allen_cahn|"
+                                      r"black_scholes)(_nd)?|generated_residual)_kernel\b"),
+    "generated_residual": re.compile(r"(?<![A-Za-z0-9_])generated_residual_kernel\b"),
+    "fourier_features": re.compile(r"(?<![A-Za-z0-9_])fourier_features_kernel\b"),
+    "siren_layer": re.compile(r"(?<![A-Za-z0-9_])siren_sm90_kernel\b"),
+    "fused_mlp_score": re.compile(r"(?<![A-Za-z0-9_])ln_relu_head_kernel\b"),
+}
+
+
+def graph_config(case: str, device: str):
+    """Phase 46's cases: the Burgers recipe at full width with RAR (``rar``),
+    uniform with the DQN agent (``rl``), 4 members (``ensemble``), the
+    plateau at patience 1 with EMA 0.99 and LRW (``levers``), KdV on a
+    SIREN 124x3 (``siren``), and Fisher-KPP through kernel 1's generated
+    residual on the same trunk, Adam only (``generated``)."""
+    if case == "siren":
+        cfg = siren_kdv_config(device)
+        cfg.model.hidden_dims = [124] * 3
+        cfg.training.num_epochs, cfg.training.validation_frequency = 2, 1
+        return cfg
+    cfg = fisher_config(device) if case == "generated" else burgers_recipe_config(device)
+    cfg.training.optimizer = "adam"
+    t = cfg.training
+    t.num_epochs, t.validation_frequency = GRAPH_CUT_EPOCHS, GRAPH_CUT_EPOCHS // 2
+    if case == "rar":
+        t.num_epochs, t.validation_frequency = GRAPH_EPOCHS, GRAPH_CHUNK
+        t.collocation_distribution = "residual_based"
+    elif case == "rl":
+        cfg.rl.enabled = True
+    elif case == "ensemble":
+        t.ensemble_size, t.scheduler_type = 4, "cosine"
+    elif case == "levers":
+        t.scheduler_type, t.lr_scheduler.patience = "reduce_lr", 1
+        t.optimizer_config.learning_rate = 1e-2
+        t.param_ema = 0.99
+        t.adaptive_weights.enabled, t.adaptive_weights.strategy = True, "lrw"
+    return cfg
+
+
+def graph_trainer(case: str):
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.train import make_agent
+
+    if case == "generated":
+        register_user_pdes()  # Fisher-KPP
+    cfg = graph_config(case, "cuda")
+    return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg,
+                      rl_agent=make_agent(cfg) if cfg.rl.enabled else None)
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """The step program never leaves its warm-up: every step of a run in
+    this block is eager (on the warm-up's stream, with the same capturable
+    Adam), the graph runs' reference."""
+    from pinnrl_tpu_torch.training import step_program
+
+    warm, step_program.WARMUP_STEPS = step_program.WARMUP_STEPS, sys.maxsize
+    try:
+        yield
+    finally:
+        step_program.WARMUP_STEPS = warm
+
+
+def device_launches(fn):
+    """Run ``fn`` under ``torch.profiler`` (device activity only); return
+    its result, the device launches of each kernel of ``GRAPH_KERNELS`` by
+    name, and all the device kernels it ran."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # Margins at both ends: a kernel launched just after the start
+            # went missing from the trace late in a long process (phase 46's
+            # RL case, one of its 16 scorer launches, in the eager run and
+            # the graph run alike), as if the trace's mapping of the card's
+            # clock onto the host's had put it outside the window.
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+            out = fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    names = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    found = {k: sum(n for name, n in names.items() if rx.search(name))
+             for k, rx in GRAPH_KERNELS.items()}
+    return out, found, sum(names.values())
+
+
+def sync_stacks(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; each
+    host round trip as the names of the port's frames that led to it, the
+    innermost one last with its file and line."""
+    import torch
+
+    torch.cuda.synchronize()
+    stacks = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1] if "pinnrl_tpu_torch" in f.filename]
+            where = (f"{frames[-1].filename.rsplit('pinnrl_tpu_torch', 1)[-1]}:{frames[-1].lineno}"
+                     if frames else "?")
+            stacks.append(tuple(f.name for f in frames) + (where,))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, stacks
+
+
+def parent_adam(opt) -> None:
+    """Make ``opt`` step as before the step program: torch's Adam not
+    capturable, its learning rate a host float (the other steps' code is
+    the eager program's)."""
+    import torch
+
+    o = opt.optimizer
+    opt.optimizer = torch.optim.Adam(opt.params, lr=opt.schedule(0), betas=o.defaults["betas"],
+                                     eps=o.defaults["eps"], capturable=False)
+    opt.lr = opt._group_lr = None
+
+
+def program_for(tr, capacity: int, parent: bool = False, graph: bool = True):
+    """The trainer's step program, set up as ``train`` sets it up (one step
+    per ``run()``; its rows restart when full); with ``graph`` False it runs
+    every step eagerly."""
+    import torch
+
+    t = tr.tcfg
+    if tr.members:
+        tr.model.ensemble = tr._stack_ensemble(7)
+    params = tr.model.params
+    opt = tr._make_adam(t.num_epochs, t.num_collocation_points // t.batch_size, tr._leaves(params))
+    if parent:
+        parent_adam(opt)
+    gens = [torch.Generator(device=tr.device).manual_seed(s)
+            for s in (tr._member_seeds(7, 1) if tr.members else [7])]
+    if tr.rl_agent is not None:
+        tr._rl_state = tr._init_rl_state(0)
+    tr._aw_state = tr.adaptive_weights.init()
+    tr._ema_init(params)
+    program = tr._start_program(params, opt, gens, t.batch_size, None, 0, capacity, 1)
+    if not graph:
+        program.path = "eager"
+
+    def step():
+        if (program.eager_steps + program.replays) % capacity == 0:
+            program.start_chunk()
+        program.run()
+
+    return step, program
+
+
+def graph_runs(dev, card: str):
+    """Phase 46: the step program captured against eager (see the module
+    docstring)."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp, residual_codegen, siren
+    from pinnrl_tpu_torch.training import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    counters = {"fused_residual_loss": fused_step.fused_residual_loss,
+                "generated_residual": residual_codegen.launch,
+                "fourier_features": fourier_feats.fourier_features,
+                "siren_layer": siren.siren_layer, "fused_mlp_score": mlp.fused_mlp_score}
+    out = {"card": card}
+    for case in GRAPH_CASES:
+        # The graph run twice, unprofiled (its host syncs, its wall time) and
+        # profiled (the device's launches), then the eager run, profiled.
+        runs = {}
+        for side in ("graph", "graph_traced", "eager"):
+            tr = graph_trainer(case)
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if side == "eager":
+                    stack.enter_context(eager_steps())
+                if side == "graph":
+                    (res, stacks), device, kernels = sync_stacks(lambda: tr.train(seed=0)), None, None
+                else:
+                    (res, stacks), device, kernels = device_launches(
+                        lambda: sync_stacks(lambda: tr.train(seed=0)))
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            params = tr.model.ensemble if tr.members else tr.model.params
+            # A replay's syncs are "step"; an eager step's (the warm-up's, or
+            # every step of the eager run) "eager_step": a process's first
+            # step fills the samplers' per-device caches by a copy to the card.
+            kinds = {"chunk_read": 0, "validation": 0, "capture": 0, "step": 0, "eager_step": 0,
+                     "setup": 0}
+            sites = {}
+            for names in stacks:
+                kind = ("capture" if "_capture" in names else "chunk_read" if "_read_chunk" in names
+                        else "validation" if "_val_loss" in names
+                        else "eager_step" if "_call" in names else "step" if "run" in names
+                        else "setup")
+                kinds[kind] += 1
+                if kind in ("step", "eager_step", "setup"):
+                    sites[names[-1]] = sites.get(names[-1], 0) + 1
+            runs[side] = {"trainer": tr, "history": res["history"], "launches": launches,
+                          "device": device, "kernels": kernels,
+                          "params": {k: v.detach().clone() for k, v in params.items()},
+                          "syncs": kinds, "sync_sites": sites, "wall_s": wall,
+                          "programs": [p.stats() for p in tr.programs]}
+        g, gt, e = runs["graph"], runs["graph_traced"], runs["eager"]
+        traced_bits = (gt["history"]["train_loss"] == g["history"]["train_loss"]
+                       and all(torch.equal(v, g["params"][k]) for k, v in gt["params"].items()))
+        g = {**g, "device": gt["device"], "kernels": gt["kernels"]}
+        tr = g["trainer"]
+        t = tr.tcfg
+        steps = t.num_epochs * (t.num_collocation_points // t.batch_size)
+        chunks = len(g["history"]["val_loss"])
+        (prog,), (eprog,) = g["programs"], e["programs"]
+        bits = (g["history"]["train_loss"] == e["history"]["train_loss"]
+                and all(torch.equal(v, e["params"][k]) for k, v in g["params"].items()))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["history"]["train_loss"],
+                                                          e["history"]["train_loss"]))
+        param_rel = max(float((v - e["params"][k]).abs().max()) / float(e["params"][k].abs().max())
+                        for k, v in g["params"].items())
+        # ``launches``: the device's own, found by kernel name in the trace;
+        # ``counted``: the wrappers' counters, which the trace must witness.
+        per_step = {k: v / steps for k, v in g["device"].items()}
+        entry = {"steps": steps, "chunks": chunks, "bit_identical": bits,
+                 "max_loss_rel": loss_rel, "max_param_rel": param_rel,
+                 "launches": g["device"], "eager_launches": e["device"],
+                 "counted": g["launches"], "eager_counted": e["launches"],
+                 "launches_per_step": per_step, "device_kernels": g["kernels"],
+                 "eager_device_kernels": e["kernels"],
+                 "host_reads_per_chunk": g["syncs"]["chunk_read"] / chunks,
+                 "syncs": g["syncs"], "eager_syncs": e["syncs"], "traced_syncs": gt["syncs"],
+                 "sync_sites": {"graph": g["sync_sites"], "traced": gt["sync_sites"],
+                                "eager": e["sync_sites"]},
+                 "traced_counted": gt["launches"], "traced_bit_identical": traced_bits,
+                 "traced_wall_s": gt["wall_s"], "program": prog,
+                 "eager_program": eprog, "wall_s": g["wall_s"], "eager_wall_s": e["wall_s"],
+                 "train_loss": g["history"]["train_loss"]}
+        out[case] = entry
+        print(f"[graph] {case}: {steps} Adam steps in {chunks} chunks; captured after "
+              f"{prog['eager_steps']} eager step(s), {prog['replays']} replays, capture "
+              f"{prog['capture_s']:.3f} s, {prog['pool_bytes']} bytes reserved; bit-identical to "
+              f"the eager program's run: {bits} (largest train_loss rel difference {loss_rel:.3e}, "
+              f"parameter rel {param_rel:.3e}); device launches in the trace {g['device']} (eager "
+              f"{e['device']}), counted {g['launches']} (eager {e['launches']}); device kernels "
+              f"{g['kernels']} (eager {e['kernels']}); host syncs {g['syncs']} (eager "
+              f"{e['syncs']}; under the profiler {gt['syncs']}, sites {entry['sync_sites']}); wall "
+              f"{g['wall_s']:.2f} s, profiled {gt['wall_s']:.2f} s, eager profiled "
+              f"{e['wall_s']:.2f} s ({card})", flush=True)
+        want_k1 = steps + chunks if tr.fused_kernel_active else 0
+        if not (prog["path"] == "graph" and prog["replays"] == steps - prog["eager_steps"] >= 1
+                and eprog["replays"] == 0 and eprog["eager_steps"] == steps
+                and gt["launches"] == g["launches"] == e["launches"] and traced_bits
+                and all(trace_agrees(g["device"][k], v) for k, v in g["launches"].items())
+                and all(trace_agrees(e["device"][k], v) for k, v in e["launches"].items())
+                and g["launches"]["fused_residual_loss"] == want_k1
+                and (case != "rl" or g["launches"]["fused_mlp_score"] == steps)
+                and (case != "siren" or g["device"]["siren_layer"] > 0)
+                and (case != "generated" or g["launches"]["generated_residual"] == want_k1 > 0)
+                and g["syncs"]["chunk_read"] == chunks and g["syncs"]["step"] == 0
+                and gt["syncs"]["step"] == 0
+                and all(map(math.isfinite, g["history"]["train_loss"])) and bits):
+            raise AssertionError(f"graph {case}: {entry}")
+
+    # ms per step in turns: the replayed step, the eager program, and the
+    # eager program with the Adam class it replaced.
+    sides = {}
+    for side in ("graph", "eager", "parent_eager"):
+        tr = graph_trainer("rar")
+        sides[side] = program_for(tr, GRAPH_TIMED, parent=side == "parent_eager",
+                                  graph=side == "graph") + (tr,)
+        for _ in range(3):
+            sides[side][0]()
+    times = {side: [] for side in sides}
+    for r in range(GRAPH_ROUNDS):
+        order = list(sides) if r % 2 == 0 else list(reversed(sides))
+        for side in order:
+            step = sides[side][0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_TIMED):
+                step()
+            torch.cuda.synchronize()
+            times[side].append((time.perf_counter() - t0) * 1e3 / GRAPH_TIMED)
+    ms = {side: statistics.median(v) for side, v in times.items()}
+    out["rar"]["ms_per_step"] = ms
+    out["rar"]["ms_per_step_rounds"] = times
+    print(f"[graph] rar: ms per Adam step, {GRAPH_TIMED} steps back to back, median of "
+          f"{GRAPH_ROUNDS} rounds in turns: graph {ms['graph']:.3f}, eager program "
+          f"{ms['eager']:.3f}, eager with the replaced Adam {ms['parent_eager']:.3f} ({card})",
+          flush=True)
+    for side in sides:
+        sides[side][1].release()
+
+    # Resume: the graph run resumed from its first chunk's checkpoint.
+    with tempfile.TemporaryDirectory() as tmp:
+        keep = Path(tmp) / "ck"
+        tr = graph_trainer("rar")
+        save = tr._save_checkpoint
+
+        def saving(path, epoch, *args):
+            save(path, epoch, *args)
+            if epoch == GRAPH_CHUNK:
+                keep.mkdir()
+                for f in ("checkpoint.npz", "checkpoint.json"):
+                    shutil.copy(str(path.parent / f), str(keep / f))
+
+        tr._save_checkpoint = saving
+        full = tr.train(seed=0, experiment_dir=str(Path(tmp) / "a"))
+        tr2 = graph_trainer("rar")
+        resumed = tr2.train(seed=0, experiment_dir=str(Path(tmp) / "b"),
+                            resume_from=str(keep / "checkpoint.npz"))
+        bits = (full["history"]["train_loss"] == resumed["history"]["train_loss"]
+                and all(torch.equal(v, tr2.model.params[k]) for k, v in tr.model.params.items()))
+        p_rel = max(float((v - tr2.model.params[k]).abs().max()) / float(v.abs().max())
+                    for k, v in tr.model.params.items())
+        out["resume"] = {"bit_identical": bits, "max_param_rel": p_rel,
+                         "resumed_program": tr2.programs[0].stats()}
+        print(f"[graph] resume at epoch {GRAPH_CHUNK} of {GRAPH_EPOCHS}: equal to the "
+              f"uninterrupted graph run bit for bit: {bits} (largest parameter rel difference "
+              f"{p_rel:.3e}); resumed program {tr2.programs[0].stats()} ({card})", flush=True)
+        if not (bits and tr2.programs[0].path == "graph" and tr2.programs[0].replays > 0):
+            raise AssertionError(f"graph resume: {out['resume']}")
+
+    # No fallback: a step that reads a value back raises at the capture.
+    probe = (
+        "import chip_smoke as c, torch\n"
+        "tr = c.graph_trainer('rar')\n"
+        "step = tr._step\n"
+        "def reading(*a):\n"
+        "    row = step(*a)\n"
+        "    float(row[0])\n"
+        "    return row\n"
+        "tr._step = reading\n"
+        "try:\n"
+        "    tr.train(seed=0)\n"
+        "    print('NO_RAISE')\n"
+        "except RuntimeError as exc:\n"
+        "    p = tr.programs[0]\n"
+        "    print('RAISED', p.eager_steps, p.replays, type(exc).__name__)\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    done = subprocess.run([sys.executable, "-c", probe], cwd=here, capture_output=True, text=True,
+                          timeout=300)
+    line = [ln for ln in done.stdout.splitlines() if ln.startswith(("RAISED", "NO_RAISE"))]
+    out["no_fallback"] = line[-1] if line else done.stderr[-500:]
+    print(f"[graph] a host read forced into the step: {out['no_fallback']} ({card})", flush=True)
+    if not (line and line[-1].startswith("RAISED 1 0")):
+        raise AssertionError(f"graph no fallback: {out['no_fallback']}")
+    if trainer_mod.step_path(dev, False, None)[0] != "graph":
+        raise AssertionError("the capture rule does not take the graph on the card")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[graph] phase 46: {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5086,12 +5528,16 @@ def main() -> int:
     mlp.fused_mlp_score.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rl_res = rl_trainer.train(seed=0)
-    torch.cuda.synchronize()
+    # Profiled: the device's own launches of kernels 1, 2 and 4, by name in
+    # the trace, which the counters must equal.
+    rl_res, rl_trace, _ = device_launches(lambda: rl_trainer.train(seed=0))
     rl_s = time.perf_counter() - t0
     rl_launches = {"fused_residual_loss": fused_step.fused_residual_loss.launches,
                    "fourier_features": fourier_feats.fourier_features.launches,
                    "fused_mlp_score": mlp.fused_mlp_score.launches}
+    if not all(trace_agrees(rl_trace[k], v) for k, v in rl_launches.items()):
+        raise AssertionError(f"RL slice: device launches in the trace {rl_trace}, counted "
+                             f"{rl_launches}")
     st = rl_trainer._final_state["rl"]
     stats = agent.get_statistics(st)
     hist = rl_res["history"]["train_loss"]
@@ -5400,10 +5846,13 @@ def main() -> int:
     fused_step.fused_residual_loss.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s_res = strainer.train(seed=0)
-    torch.cuda.synchronize()
+    # Profiled: the device's own launches of kernel 3, by name in the trace.
+    s_res, s_trace, _ = device_launches(lambda: strainer.train(seed=0))
     s_s = time.perf_counter() - t0
     siren_launches = siren.siren_layer.launches
+    if not trace_agrees(s_trace["siren_layer"], siren_launches):
+        raise AssertionError(f"SIREN slice: kernel 3 ran {s_trace['siren_layer']} times on the "
+                             f"device, its counter says {siren_launches}")
     s_hist = s_res["history"]["train_loss"]
     print(f"[siren-kdv] generic engine (bundle {strainer.fast_bundle_active}, kernel 1 "
           f"{strainer.fused_kernel_active}); steps={s_steps} ({SIREN_EPOCHS} epochs x "
@@ -6245,6 +6694,9 @@ def main() -> int:
     # ---- 45. kernel 1's generated residual: any registered PDE -------------- #
     gen45 = gen_runs(dev, card)
 
+    # ---- 46. every Adam phase replays one captured graph of its step -------- #
+    graph46 = graph_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -6269,6 +6721,7 @@ def main() -> int:
          "source": "pinnrl_tpu_torch/csrc/fused_residual.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fused_step.py:277",
          "launches": rl_launches["fused_residual_loss"],
+         "launches_in_trace": rl_trace["fused_residual_loss"],
          "kdv_launches": kdv_launches["fused_residual_loss"],
          "heat_launches": heat_launches["fused_residual_loss"],
          "variants": list(FUSED_TOLS),
@@ -6327,6 +6780,10 @@ def main() -> int:
          "activations": {**acts, "tanh": {**acts["tanh"],
                                           "launches": rl_launches["fused_residual_loss"]}},
          "nd4": nd4, "generated": gen45,
+         "graph": {k: {kk: v[kk] for kk in ("launches", "launches_per_step", "bit_identical",
+                                            "host_reads_per_chunk", "program")}
+                   for k, v in graph46.items() if isinstance(v, dict) and "program" in v},
+         "graph_ms_per_step": graph46["rar"]["ms_per_step"],
          "generated_selects": {
              "programs": gen45["k1i"]["ptxas"],
              "nan_parity": gen45["k1i"]["nan_parity"],
@@ -6344,6 +6801,7 @@ def main() -> int:
          "source": "pinnrl_tpu_torch/csrc/fourier_feats.cu",
          "replaces": "pinnrl_tpu/ops/kernels/fourier_feats.py:36",
          "launches": rl_launches["fourier_features"],
+         "launches_in_trace": rl_trace["fourier_features"],
          "kdv_launches": kdv_launches["fourier_features"],
          "heat_launches": heat_launches["fourier_features"],
          "heat_jvps": heat_launches["fourier_features_jvps"],
@@ -6395,7 +6853,7 @@ def main() -> int:
         {"name": "siren_layer", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/siren.cu",
          "replaces": "pinnrl_tpu/ops/kernels/siren.py:29",
-         "launches": siren_launches,
+         "launches": siren_launches, "launches_in_trace": s_trace["siren_layer"],
          "max_abs_err": max(siren_err, trunks["ensemble"]["kernel3"]["max_abs_err"]),
          "blocks": siren_blocks,
          "wave_launches": shipped_second["wave"]["siren_layer"], "wave_max_abs_err": wave_siren_err,
@@ -6411,7 +6869,8 @@ def main() -> int:
         {"name": "fused_mlp_score", "route": "cuda",
          "source": "pinnrl_tpu_torch/csrc/mlp_score.cu",
          "replaces": "pinnrl_tpu/ops/kernels/mlp.py:75",
-         "launches": rl_launches["fused_mlp_score"], "max_abs_err": mlp_err,
+         "launches": rl_launches["fused_mlp_score"], "launches_in_trace": rl_trace["fused_mlp_score"],
+         "max_abs_err": mlp_err,
          "cli_launches": {k: r["fused_mlp_score"] for k, r in cli.items()},
          "float64_launches": f64["launches"]["fused_mlp_score"],
          "sampling": {"shapes": samp["kernel4"],
@@ -6427,6 +6886,7 @@ def main() -> int:
     print(f"[levers] {json.dumps({'levers': levers, 'marching': marching}, default=str)}")
     print(f"[trunks] {json.dumps(trunks, default=str)}")
     print(f"[slice17] {json.dumps({'float64': f64, 'mesh': meshes, 'dashboard': dash}, default=str)}")
+    print(f"[graph] {json.dumps(graph46, default=str)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

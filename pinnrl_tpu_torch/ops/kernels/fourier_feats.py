@@ -47,7 +47,7 @@ from typing import Tuple
 import torch
 import torch.autograd.forward_ad as _fwad
 
-from pinnrl_tpu_torch.ops.kernels import _build, _jvp
+from pinnrl_tpu_torch.ops.kernels import _build, _jvp, counts
 
 _TWO_PI = 2.0 * math.pi
 
@@ -147,7 +147,7 @@ def fourier_features_cuda(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True)
                                1 if two_pi else 0, members, x.stride(0) if members > 1 else 0,
                                d * m if members > 1 else 0, _build.stream_handle(index))
     _build.check(status, "fourier_features_kernel")
-    fourier_features.launches += 1
+    counts.add(fourier_features, "launches")
     return out
 
 
@@ -179,7 +179,7 @@ class _FourierFeaturesFn(torch.autograd.Function):
     def jvp(ctx, dx, dB, _two_pi, _launch):
         level, (x, B, out, dx, dB) = _jvp.lower(*ctx.saved_tensors, dx, dB)
         if out.device.type == "cuda":
-            fourier_features.jvps += 1
+            counts.add(fourier_features, "jvps")
         m = B.shape[-1]
         s = _TWO_PI if ctx.two_pi else 1.0
         with _jvp.forward_mode(level):
@@ -224,7 +224,7 @@ def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> t
     if x.is_cpu and B.is_cpu:
         return fourier_features_plain(x, B, two_pi)
     if x.is_cuda and (x.dtype != torch.float32 or B.dtype != torch.float32):
-        fourier_features.plain_f64 += 1
+        counts.add(fourier_features, "plain_f64")
         return fourier_features_plain(x, B, two_pi)
     if x.is_cuda:
         if needs_rules(x, B):
@@ -233,6 +233,6 @@ def fourier_features(x: torch.Tensor, B: torch.Tensor, two_pi: bool = True) -> t
     raise ValueError(f"fourier_features: unsupported devices x={x.device}, B={B.device}")
 
 
-fourier_features.launches = 0  # kernel launches, a member-batched one counting once
-fourier_features.jvps = 0
-fourier_features.plain_f64 = 0
+# Kernel launches (a member-batched one counting once), jvp-rule calls on the
+# card, and float64 calls on the card's plain version.
+counts.register(fourier_features, "launches", "jvps", "plain_f64")

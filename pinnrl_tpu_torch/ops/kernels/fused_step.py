@@ -69,7 +69,7 @@ import torch
 
 from pinnrl_tpu_torch.ops.jet_mlp import (ACTIVATION_DERIVATIVES, BundleView, _transport_block,
                                           activation_derivatives, make_bundle_fn)
-from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core, residual_codegen
+from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core, counts, residual_codegen
 from pinnrl_tpu_torch.ops.kernels._gemm_core import TARGET_BLOCKS, TILE, cdiv, split_chunks
 
 _LN_EPS = 1e-6
@@ -1035,8 +1035,8 @@ def _launch(spec: _Spec, z, leaves, need_grads: bool):
     served (1 without a member axis)."""
     loss, grads = _loss_and_grads(_cuda_ops(z.device), spec, z, dict(zip(spec.leaf_names, leaves)),
                                   need_grads)
-    fused_residual_loss.launches += 1
-    fused_residual_loss.members += z.shape[0] if z.ndim == 3 else 1
+    counts.add(fused_residual_loss, "launches")
+    counts.add(fused_residual_loss, "members", z.shape[0] if z.ndim == 3 else 1)
     return loss, grads
 
 
@@ -1107,8 +1107,7 @@ def fused_residual_loss(spec: _Spec, bundle_fn, pde, params, z) -> torch.Tensor:
     return _launch(spec, z, leaves, need_grads=False)[0]
 
 
-fused_residual_loss.launches = 0
-fused_residual_loss.members = 0
+counts.register(fused_residual_loss, "launches", "members")
 
 
 def _spec(model, pde, program: Optional[residual_codegen.ResidualProgram] = None) -> _Spec:

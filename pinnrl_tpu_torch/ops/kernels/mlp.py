@@ -23,7 +23,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core
+from pinnrl_tpu_torch.ops.kernels import _build, _gemm_core, counts
 from pinnrl_tpu_torch.ops.kernels._gemm_core import TARGET_BLOCKS, TILE, cdiv, split_chunks
 
 _NAMES = (
@@ -223,8 +223,8 @@ def fused_mlp_score(x: torch.Tensor, params: Mapping[str, torch.Tensor],
         if t.device != x.device:
             raise ValueError(f"fused_mlp_score: {name} on {t.device}, x on {x.device}")
     out = _score(_cuda_ops(x.device), x, params, float(eps))
-    fused_mlp_score.launches += 1
+    counts.add(fused_mlp_score, "launches")
     return out
 
 
-fused_mlp_score.launches = 0
+counts.register(fused_mlp_score, "launches")

@@ -53,6 +53,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pinnrl_tpu_torch.ops.kernels import counts
+
 # Points in the trace: a prime larger than any stream or column count, so the
 # point axis of every traced tensor is the one dimension of this size.
 _TRACE_POINTS = 1009
@@ -295,11 +297,11 @@ def launch(program: ResidualProgram, U: torch.Tensor, z: torch.Tensor, n: int, c
     out = torch.empty((members * n, 1), dtype=torch.float32, device=U.device)
     _build.check(lib.gr_residual(U.data_ptr(), z.data_ptr(), dU.data_ptr(), out.data_ptr(), n,
                                  int(causal), members, _build.stream_handle(U.device)), name)
-    launch.launches += 1
+    counts.add(launch, "launches")
     return dU, out
 
 
-launch.launches = 0
+counts.register(launch, "launches")
 
 
 # --------------------------------------------------------------------------- #

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from pinnrl_tpu_torch.ops.kernels import _build, _jvp
+from pinnrl_tpu_torch.ops.kernels import _build, _jvp, counts
 
 
 def _row(b: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -105,7 +105,7 @@ def siren_layer_cuda(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                                   n, k, m, float(omega), members, sx, sW, sb,
                                   _build.stream_handle(x.device))
     _build.check(status, "siren_sm90_kernel")
-    siren_layer.launches += 1
+    counts.add(siren_layer, "launches")
     return out
 
 
@@ -185,12 +185,11 @@ def siren_layer(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     if all(t.device.type == "cpu" for t in (x, W, b)):
         return siren_layer_plain(x, W, b, omega)
     if x.device.type == "cuda" and (x.dtype != torch.float32 or W.dtype != torch.float32):
-        siren_layer.plain_f64 += 1
+        counts.add(siren_layer, "plain_f64")
         return siren_layer_plain(x, W, b, omega)
     if x.device.type == "cuda":
         return _SirenFn.apply(x, W, b, float(omega), siren_layer_cuda)
     raise ValueError(f"siren_layer: unsupported devices x={x.device}, W={W.device}, b={b.device}")
 
 
-siren_layer.launches = 0
-siren_layer.plain_f64 = 0
+counts.register(siren_layer, "launches", "plain_f64")

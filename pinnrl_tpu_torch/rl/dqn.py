@@ -4,11 +4,16 @@ The port of ``pinnrl_tpu.rl.dqn``. The replay buffer, the TD update, the
 target sync and the epsilon-greedy choice run on the agent's device:
 
 - ``RLAgentState`` holds the policy and target parameter dicts, the Adam
-  state, the ring buffers, and ``epsilon`` and ``episode_reward`` as device
-  tensors. ``ptr``, ``size`` and ``steps`` are Python ints: each is a
-  function of the step count, so keeping them on the host costs no sync,
-  and "enough samples to train" and "time to sync the target" are host
-  comparisons of ints.
+  state, the ring buffers, and ``ptr``, ``size``, ``steps``, ``epsilon`` and
+  ``episode_reward`` as device tensors, each updated in place (as JAX's
+  device-side state), so that a replayed CUDA graph of the trainer's step
+  advances them: the push writes at the device ``ptr``, the target sync is
+  a ``torch.where`` on the device ``steps`` (JAX's ``jnp.where``) and the
+  replay draw takes its bound from the device ``size``. JAX's ``lax.cond``
+  on ``size >= batch_size`` is decided on the host from ``filled``, the
+  transitions the host has seen pushed, counted up to ``min(batch_size,
+  memory_size)``: ``size`` never falls, so once ``settled`` the branch
+  never changes (the trainer captures its step only then).
 - ``select_action`` scores the candidate points with the ``fused_mlp_score``
   kernel on every call and picks Q or uniform random scores with
   ``torch.where`` on a device-side Bernoulli draw, exploring or not.
@@ -84,11 +89,12 @@ class RLAgentState:
     buf_reward: torch.Tensor  # (capacity,)
     buf_next: torch.Tensor  # (capacity, state_dim)
     buf_done: torch.Tensor  # (capacity,)
-    ptr: int
-    size: int
+    ptr: torch.Tensor  # () int64, on the device
+    size: torch.Tensor  # () int64, on the device
     epsilon: torch.Tensor  # () float32, on the device
-    steps: int
+    steps: torch.Tensor  # () int64, on the device
     episode_reward: torch.Tensor  # () float32, on the device
+    filled: int = 0  # host: min(size, batch_size, memory_size), counted without a read
 
 
 class RLAgent:
@@ -132,31 +138,33 @@ class RLAgent:
         # The structure that functional_call evaluates; its own weights are unused.
         self.network = DQNNetwork(state_dim, action_dim, hidden_dim).to(self.device)
 
-    def init(self, generator: torch.Generator) -> RLAgentState:
+    def init(self, generator: torch.Generator, capturable: bool = False) -> RLAgentState:
         """A fresh state; the weights are drawn from ``generator`` on the CPU
-        (so a seed gives the same weights on every device) and moved."""
+        (so a seed gives the same weights on every device) and moved. With
+        ``capturable`` its Adam can be captured in a CUDA graph (the
+        trainer's replayed step)."""
         net = DQNNetwork(self.state_dim, self.action_dim, self.hidden_dim, generator)
         policy = {k: v.detach().to(self.device).requires_grad_(True)
                   for k, v in net.named_parameters()}
         target = {k: v.detach().clone() for k, v in policy.items()}
         cap, dev = self.memory_size, self.device
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
 
         return RLAgentState(
             policy_params=policy,
             target_params=target,
             opt_state=AdamStep(list(policy.values()), lambda count: self.learning_rate,
-                               1.0, 0.9, 0.999, 0.0),
+                               1.0, 0.9, 0.999, 0.0, capturable=capturable),
             buf_state=zeros(cap, self.state_dim),
             buf_reward=zeros(cap),
             buf_next=zeros(cap, self.state_dim),
             buf_done=zeros(cap),
-            ptr=0,
-            size=0,
+            ptr=zeros(dtype=torch.int64),
+            size=zeros(dtype=torch.int64),
             epsilon=torch.full((), self.epsilon_start, dtype=torch.float32, device=dev),
-            steps=0,
+            steps=zeros(dtype=torch.int64),
             episode_reward=zeros(),
         )
 
@@ -211,9 +219,15 @@ class RLAgent:
         state.buf_reward.index_copy_(0, idx, torch.broadcast_to(r, (n,)).to(state.buf_reward.dtype))
         state.buf_next.index_copy_(0, idx, s_next.to(state.buf_next.dtype))
         state.buf_done.index_copy_(0, idx, torch.broadcast_to(done, (n,)).to(state.buf_done.dtype))
-        state.ptr = (state.ptr + n) % cap
-        state.size = min(state.size + n, cap)
+        state.ptr.copy_((state.ptr + n) % cap)
+        state.size.copy_(torch.clamp(state.size + n, max=cap))
+        state.filled = min(state.filled + n, self.batch_size, cap)
         return state
+
+    def settled(self, state: RLAgentState) -> bool:
+        """Whether ``update``'s train branch can no longer change: the
+        buffer holds a batch, or is full below one."""
+        return state.filled >= min(self.batch_size, self.memory_size)
 
     def _td_loss(self, policy_params, target_params,
                  batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -227,9 +241,10 @@ class RLAgent:
         return F.huber_loss(q, target, delta=1.0)
 
     def _train(self, state: RLAgentState, generator: torch.Generator) -> RLAgentState:
-        idx = torch.randint(0, max(state.size, 1), (self.batch_size,), generator=generator,
-                            device=state.buf_state.device)
-        return self._train_on(state, idx)
+        # Uniform over [0, size) with the bound on the device.
+        u = torch.rand((self.batch_size,), generator=generator, dtype=torch.float64,
+                       device=state.buf_state.device)
+        return self._train_on(state, (u * torch.clamp(state.size, min=1)).long())
 
     def _train_on(self, state: RLAgentState, idx: torch.Tensor) -> RLAgentState:
         """One clipped Adam step on the TD loss of the transitions at ``idx``."""
@@ -251,18 +266,19 @@ class RLAgent:
         buffer holds at least ``batch_size``. Epsilon decays once per epoch
         in the trainer (``update_epsilon``), not here."""
         state = self.push(state, s, reward, s_next, done)
-        state.steps += 1
-        state.episode_reward = state.episode_reward + torch.mean(reward)
-        if state.steps % self.target_update == 0:
-            with torch.no_grad():
-                for k, p in state.policy_params.items():
-                    state.target_params[k].copy_(p)
-        if state.size >= self.batch_size:
+        state.steps.add_(1)
+        state.episode_reward.add_(torch.mean(reward))
+        sync = (state.steps % self.target_update) == 0
+        with torch.no_grad():
+            for k, p in state.policy_params.items():
+                target = state.target_params[k]
+                target.copy_(torch.where(sync, p, target))
+        if state.filled >= self.batch_size:
             state = self._train(state, generator)
         return state
 
     def update_epsilon(self, state: RLAgentState) -> RLAgentState:
-        state.epsilon = torch.clamp(state.epsilon * self.epsilon_decay, min=self.epsilon_end)
+        state.epsilon.copy_(torch.clamp(state.epsilon * self.epsilon_decay, min=self.epsilon_end))
         return state
 
     def get_statistics(self, state: RLAgentState) -> Dict[str, float]:
@@ -295,10 +311,8 @@ class RLAgent:
             for key, value in opt.optimizer.state.get(p, {}).items():
                 out[f"adam/{name}/{key}"] = value.detach().cpu().numpy()
         out["adam_count"] = np.asarray(opt.count)
-        for name in self._BUFFERS:
+        for name in self._BUFFERS + self._COUNTERS:
             out[name] = getattr(state, name).detach().cpu().numpy()
-        for name in self._COUNTERS:
-            out[name] = np.asarray(getattr(state, name))
         return out
 
     def save_state(self, path: str, state: RLAgentState) -> None:
@@ -325,13 +339,11 @@ class RLAgent:
                 saved = {key.rsplit("/", 1)[1]: v for key, v in arrays.items()
                          if key.startswith(f"adam/{name}/")}
                 if saved:
-                    opt.optimizer.state[p] = {k: torch.as_tensor(v).to(
-                        p.device if k != "step" else "cpu") for k, v in saved.items()}
+                    opt.load_state(p, saved)
             opt.count = int(arrays["adam_count"])
-            for name in self._BUFFERS:
+            for name in self._BUFFERS + self._COUNTERS:
                 getattr(template, name).copy_(torch.as_tensor(arrays[name]))
-        for name in self._COUNTERS:
-            setattr(template, name, int(arrays[name]))
+        template.filled = min(int(arrays["size"]), self.batch_size, self.memory_size)
         return template
 
     def load_state(self, path: str, template: RLAgentState) -> RLAgentState:

@@ -5,10 +5,16 @@ An Adam step samples collocation points (uniform, stratified, RAR, or
 RL-adaptive through the DQN agent's scores), computes the loss components
 (the residual through the fused kernel when attached, BC and IC through
 ``model.apply``), back-propagates, clips by global norm and takes an Adam
-step — the JAX package's scanned step, run eagerly. With an agent, the step
-then rewards the agent on the updated parameters and takes its DQN update.
-Losses stay on the device during an epoch; the host reads them once per
-epoch, and nothing in an Adam step reads a device value back.
+step — the JAX package's scanned step. With an agent, the step then
+rewards the agent on the updated parameters and takes its DQN update.
+Each phase runs its steps through a step program
+(``training/step_program.py``): on the card every Adam phase captures one
+step as a CUDA graph and replays it once per step (``step_path`` says
+which phases: L-BFGS and device meshes stay eager). Each step's row of
+losses and weights goes into a device buffer; nothing in a step reads a
+device value back, and the host reads a chunk's epoch rows, the plateau
+scale and the last points once, at the chunk's end, as the JAX package
+reads its chunk's metrics; a non-finite loss stops the run there.
 
 In the inverse and data modes the PDE's trainable coefficients
 (``pde.init_coeffs()``, 0-d tensors) are optimized with the network: Adam
@@ -142,6 +148,7 @@ from pinnrl_tpu_torch.parallel.mesh import Mesh, pad_to_multiple, replicate, sha
 from pinnrl_tpu_torch.pdes.base import PDEBase
 from pinnrl_tpu_torch.training.adaptive_weights import AdaptiveLossWeights, AdaptiveWeightState
 from pinnrl_tpu_torch.training.lbfgs import LBFGS
+from pinnrl_tpu_torch.training.step_program import StepProgram, step_path
 from pinnrl_tpu_torch.utils.io import (
     save_live_snapshot,
     save_training_metrics,
@@ -193,18 +200,29 @@ class AdamStep:
     gradient steps with a zero one, as optax treats it (torch's optimizers
     would skip it).
 
-    The plateau state (scale, best value, plateau count) is device tensors.
-    Each step reads the value handed to ``step`` (accumulation size 1),
-    updates the scale first and steps at ``scale * lr``: scaling the Adam
-    update, AdamW's decay term included, as optax scales the chain's
-    output. On the card the optimizer is then ``capturable`` (its learning
-    rate a device tensor, which a non-capturable torch Adam reads back).
+    The plateau state (scale, best value, plateau count) is device tensors,
+    updated in place. Each step reads the value handed to ``step``
+    (accumulation size 1), updates the scale first and steps at ``scale *
+    lr``: scaling the Adam update, AdamW's decay term included, as optax
+    scales the chain's output.
+
+    A step is ``prepare`` (the host writes the learning rate of step
+    ``count``), ``apply`` (the device work) and ``advance`` (``count`` + 1, a
+    host int that the checkpoint reads). With ``capturable`` and under a
+    plateau, on the card, the optimizer is torch's ``capturable`` Adam and
+    its learning rate the device tensor ``lr``, so a captured ``apply``
+    replays at every count: inside a capture ``step`` records ``apply``
+    alone and sets ``captured``, and the step program prepares and advances
+    around each replay. The trainer asks for it on every path, so that its
+    eager phases (a mesh, L-BFGS's agent) compute what its replayed ones
+    do; the harnesses, which never capture, keep the host-lr Adam, as does
+    the CPU, where torch's capturable Adam is not available.
     """
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float],
                  clip_norm: Optional[float], beta1: float, beta2: float,
                  weight_decay: float, plateau: Optional[Tuple[float, int]] = None,
-                 members: int = 0) -> None:
+                 members: int = 0, capturable: bool = False) -> None:
         self.params = params
         self.members = int(members)
         self.schedule = schedule
@@ -212,31 +230,52 @@ class AdamStep:
         self.plateau = plateau
         cls = torch.optim.AdamW if weight_decay and weight_decay > 0 else torch.optim.Adam
         device = params[0].device
-        self.optimizer = cls(params, lr=schedule(0), betas=(beta1, beta2), eps=1e-8,
-                             weight_decay=float(weight_decay or 0.0),
-                             capturable=plateau is not None and device.type == "cuda")
-        self.count = 0
+        capturable = device.type == "cuda" and (capturable or plateau is not None)
+        # The learning rate of the step at ``count``, and what the optimizer
+        # reads (scale * lr under a plateau): device tensors when capturable.
+        self.lr = torch.full((), schedule(0), device=device) if capturable else None
+        self._host_lr = schedule(0)
+        self._group_lr = self.lr
         if plateau is not None:
             self.scale = torch.ones((), device=device)
             self.best = torch.full((), float("inf"), device=device)
             self.plateau_count = torch.zeros((), dtype=torch.int32, device=device)
+            if capturable:
+                self._group_lr = self.lr.clone()
+        self.optimizer = cls(params, lr=schedule(0), betas=(beta1, beta2), eps=1e-8,
+                             weight_decay=float(weight_decay or 0.0), capturable=capturable)
+        if capturable:
+            for group in self.optimizer.param_groups:
+                group["lr"] = self._group_lr
+        self.count = 0
+        self.captured = False
 
     def state_dict(self) -> dict:
         return self.optimizer.state_dict()
 
     def _update_scale(self, value: torch.Tensor) -> None:
         """reduce_on_plateau's ``_update_scale`` (cooldown 0, atol 0,
-        min_scale 0) on one value."""
+        min_scale 0) on one value, in place."""
         factor, patience = self.plateau
         value = value.detach().to(self.best.dtype)
         improved = value < (1 - _PLATEAU_RTOL) * self.best
-        self.best = torch.where(improved, value, self.best)
         count = torch.where(improved, 0, self.plateau_count + 1)
         hit = count == patience
-        self.plateau_count = torch.where(hit, 0, count)
-        self.scale = torch.clamp(torch.where(hit, self.scale * factor, self.scale), min=0.0)
+        self.best.copy_(torch.where(improved, value, self.best))
+        self.plateau_count.copy_(torch.where(hit, 0, count))
+        self.scale.copy_(torch.clamp(torch.where(hit, self.scale * factor, self.scale), min=0.0))
 
-    def step(self, value: Optional[torch.Tensor] = None) -> None:
+    def prepare(self) -> None:
+        """Write the learning rate of the step at ``count``."""
+        value = self.schedule(self.count)
+        if self.lr is not None:
+            self.lr.fill_(value)
+        else:
+            self._host_lr = value
+
+    def apply(self, value: Optional[torch.Tensor] = None) -> None:
+        """Clip, update the plateau scale on ``value`` and step, on the
+        device."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -252,18 +291,31 @@ class AdamStep:
                 norm = torch.linalg.vector_norm(
                     torch.stack([torch.linalg.vector_norm(g) for g in grads]))
                 torch._foreach_mul_(grads, torch.clamp(self.clip_norm / norm, max=1.0))
-        lr = self.schedule(self.count)
         if self.plateau is not None:
             self._update_scale(value)
-            lr = self.scale * lr
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        if self.lr is not None:
+            if self.plateau is not None:
+                self._group_lr.copy_(self.scale * self.lr)
+        else:
+            lr = self.scale * self._host_lr if self.plateau is not None else self._host_lr
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
         self.optimizer.step()
+
+    def advance(self) -> None:
         self.count += 1
 
-    def plateau_scale(self) -> float:
-        """The plateau's scale (a host read), 1 without a plateau."""
-        return float(self.scale) if self.plateau is not None else 1.0
+    def step(self, value: Optional[torch.Tensor] = None) -> None:
+        """``prepare``, ``apply``, ``advance``; inside a CUDA-graph capture
+        ``apply`` alone (and ``captured`` is set)."""
+        capturing = self.lr is not None and torch.cuda.is_current_stream_capturing()
+        if not capturing:
+            self.prepare()
+        self.apply(value)
+        if capturing:
+            self.captured = True
+        else:
+            self.advance()
 
     def arrays(self, names: List[str]) -> Dict[str, np.ndarray]:
         """The state as numpy arrays: per leaf (``names``, in the order of
@@ -279,12 +331,19 @@ class AdamStep:
         return out
 
     @torch.no_grad()
+    def load_state(self, p: torch.Tensor, saved: Dict[str, np.ndarray]) -> None:
+        """Leaf ``p``'s Adam state from numpy arrays: the step count on the
+        device where the optimizer is capturable, on the host otherwise."""
+        capturable = self.optimizer.param_groups[0]["capturable"]
+        self.optimizer.state[p] = {k: torch.as_tensor(v).to(p.device if k != "step" or capturable
+                                                            else "cpu") for k, v in saved.items()}
+
+    @torch.no_grad()
     def load_arrays(self, arrays: Dict[str, np.ndarray], names: List[str]) -> None:
         """Restore what ``arrays`` wrote; raises KeyError on a state of
         another shape of optimizer."""
         if (self.plateau is not None) != ("plateau/scale" in arrays):
             raise KeyError("the plateau state does not match")
-        capturable = self.optimizer.param_groups[0]["capturable"]
         state = {}
         for name, p in zip(names, self.params):
             saved = {key.rsplit("/", 1)[1]: v for key, v in arrays.items()
@@ -292,14 +351,13 @@ class AdamStep:
             if not saved and int(arrays["count"]) > 0:
                 raise KeyError(f"no Adam state for {name}")
             if saved:
-                state[p] = {k: torch.as_tensor(v).to(p.device if k != "step" or capturable
-                                                     else "cpu") for k, v in saved.items()}
-        for p, st in state.items():
-            self.optimizer.state[p] = st
+                state[p] = saved
+        for p, saved in state.items():
+            self.load_state(p, saved)
         self.count = int(arrays["count"])
         if self.plateau is not None:
             for key in ("scale", "best", "plateau_count"):
-                setattr(self, key, torch.as_tensor(arrays[f"plateau/{key}"]).to(self.scale.device))
+                getattr(self, key).copy_(torch.as_tensor(arrays[f"plateau/{key}"]))
 
 
 class PDETrainer:
@@ -361,7 +419,9 @@ class PDETrainer:
         # restarts them from the initial guesses.
         self.coeffs = self._init_coeffs()
         self._aw_state = self.adaptive_weights.init()
-        self._ema: Optional[Tuple[List[torch.Tensor], int]] = None
+        # The EMA shadow (None when EMA is off) and its count, a host int.
+        self._ema_shadow: Optional[List[torch.Tensor]] = None
+        self._ema_n = 0
         self.members = int(t.ensemble_size) if int(t.ensemble_size) > 1 else 0
         # How an ensemble's residual terms are computed, all members at once:
         # "kernel1", one member-batched kernel-1 call (kernel 1 attached and no
@@ -369,10 +429,13 @@ class PDETrainer:
         # torch.func.vmap of the residual loss over the stacked members.
         self.member_path = (("kernel1" if self.fused_kernel_active and not self.coeffs else "vmap")
                             if self.members else None)
-        # The last step's batch (x, t); its first 64 points are kept at each
+        # The last step's first 64 points (64, d + 1), kept at each
         # validation (the collocation-evolution plot).
-        self._last_pts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._last_pts: Optional[torch.Tensor] = None
         self.points_history: List[np.ndarray] = []
+        # The last run's step programs, in order (``step_program.step_path``
+        # says which capture their step).
+        self.programs: List[StepProgram] = []
         self.history: Dict[str, Any] = {
             "train_loss": [],
             "val_loss": [],
@@ -418,6 +481,7 @@ class PDETrainer:
             plateau=((self.tcfg.lr_scheduler.factor, int(self.tcfg.lr_scheduler.patience))
                      if self.tcfg.scheduler_type == "reduce_lr" else None),
             members=self.members,
+            capturable=True,
         )
 
     def _make_lbfgs(self, params: List[torch.Tensor]) -> LBFGS:
@@ -488,7 +552,7 @@ class PDETrainer:
     def _init_rl_state(self, seed: int):
         """The agent's initial state: weights from a CPU generator seeded
         with ``seed``."""
-        return self.rl_agent.init(torch.Generator().manual_seed(seed))
+        return self.rl_agent.init(torch.Generator().manual_seed(seed), capturable=True)
 
     def _rl_update(self, params, x, t, losses, generator: torch.Generator) -> None:
         """Reward the agent on the updated parameters and take its update:
@@ -550,7 +614,9 @@ class PDETrainer:
             values = torch.stack(comps).detach()
             if self.mesh is not None:
                 values = self.mesh.mean(values)
-        self._aw_state = self.adaptive_weights.update(self._aw_state, values)
+        new = self.adaptive_weights.update(self._aw_state, values)
+        for f in _AW_FIELDS:  # in place: a replayed step reads these buffers
+            getattr(self._aw_state, f).copy_(getattr(new, f))
         w = self.adaptive_weights.get_weights(self._aw_state).detach()
         return self._weighted_total(losses, w), w
 
@@ -561,13 +627,24 @@ class PDETrainer:
         return torch.cat([torch.stack([total] + [losses[k] for k in _COMPONENTS]).detach(),
                           weights.detach()])
 
+    @torch.no_grad()
+    def _keep_points(self, x: torch.Tensor, t: torch.Tensor) -> None:
+        """The batch's first 64 points (x, t), into ``_last_pts`` in place
+        (a replayed step refreshes them)."""
+        pts = torch.cat([x[:64], t[:64]], dim=-1)
+        last = self._last_pts
+        if last is None or last.shape != pts.shape or last.dtype != pts.dtype:
+            self._last_pts = pts
+        else:
+            last.copy_(pts)
+
     def _step(self, params: Dict[str, torch.Tensor], opt: AdamStep, generator: torch.Generator,
               batch_size: int) -> torch.Tensor:
         """sample -> loss -> backward -> clip -> Adam (-> EMA -> the agent's
         update). Returns ``_row`` of the step."""
         x, t = self._sample(generator, batch_size, params)
         x, t = x.to(self._dtype), t.to(self._dtype)
-        self._last_pts = (x, t)
+        self._keep_points(x, t)
         losses = self._sharded_loss(params, x, t, generator)
         for p in opt.params:
             p.grad = None
@@ -628,7 +705,7 @@ class PDETrainer:
         weights = self.adaptive_weights.get_weights(self._aw_state)
         members = [self._member(params, m) for m in range(len(gens))]
         batches = [self._sample(gen, batch_size, pm, cm) for gen, (pm, cm) in zip(gens, members)]
-        self._last_pts = batches[0]
+        self._keep_points(*batches[0])
         residuals = self._member_residual_losses(params, batches)
         rows, total = [], 0.0
         for m, gen in enumerate(gens):
@@ -641,12 +718,81 @@ class PDETrainer:
         self._ema_update(params)
         return torch.stack(rows).mean(dim=0)
 
+    def _start_program(self, params: Dict[str, torch.Tensor], opt, gens: List[torch.Generator],
+                       batch_size: int, batch, epoch: int, val_every: int,
+                       steps_per_epoch: int) -> StepProgram:
+        """The step program of a phase (or an L-BFGS round) that starts at
+        ``epoch``: its path by ``step_path``, logged."""
+        lbfgs = isinstance(opt, LBFGS)
+        path, why = step_path(self.device, lbfgs, self.mesh)
+        if lbfgs:
+            name = "L-BFGS"
+
+            def body():
+                return self._lbfgs_step(params, opt, batch, gens[0])
+        elif self.members:
+            name = "ensemble Adam"
+
+            def body():
+                return self._ensemble_step(params, opt, gens, batch_size)
+        else:
+            name = "Adam"
+
+            def body():
+                return self._step(params, opt, gens[0], batch_size)
+        agent = self.rl_agent
+        optimizers = [opt] + ([self._rl_state.opt_state] if agent is not None else [])
+        program = StepProgram(
+            body, path, self.device, capacity=val_every * steps_per_epoch, epochs=val_every,
+            generators=gens, optimizers=optimizers,
+            counters=[(self, "_ema_n")],
+            ready=(lambda: agent.settled(self._rl_state)) if agent is not None else (lambda: True),
+            name=name)
+        logger.info("%s phase at epoch %d: %s steps (%s)", name, epoch, path, why)
+        self.programs.append(program)
+        return program
+
+    def _end_program(self, program: Optional[StepProgram], leaves: List[torch.Tensor]) -> None:
+        """Release a phase's program; a captured one's gradients live in its
+        graph's memory."""
+        if program is None:
+            return
+        if program.graph is not None:
+            for p in leaves + (list(self._rl_state.policy_params.values())
+                               if self._rl_state is not None else []):
+                p.grad = None
+        program.release()
+
+    def _read_chunk(self, program: StepProgram, chunk: int, opt):
+        """The chunk's epoch rows, the plateau scale (1 without one) and the
+        last step's first 64 points, in one host read; the replays' kernel
+        launches (the program's tally) are read with them and settled."""
+        plateau = isinstance(opt, AdamStep) and opt.plateau is not None
+        pts = self._last_pts
+        tally = program.tally
+        parts = [program.epochs[:chunk].reshape(-1)]
+        parts += [opt.scale.reshape(1)] if plateau else []
+        parts += [pts.reshape(-1)] if pts is not None else []
+        parts += [tally] if tally is not None else []
+        flat = torch.cat([v.double() for v in parts]).tolist()
+        if tally is not None:
+            program.settle(flat[len(flat) - tally.numel():])
+            flat = flat[:len(flat) - tally.numel()]
+        width = program.epochs.shape[1]
+        rows = [flat[i * width:(i + 1) * width] for i in range(chunk)]
+        k = chunk * width
+        scale = flat[k] if plateau else 1.0
+        if pts is not None:
+            dtype = np.float64 if pts.dtype == torch.float64 else np.float32
+            pts = np.asarray(flat[k + plateau:], dtype=dtype).reshape(tuple(pts.shape))
+        return rows, scale, pts
+
     def _lbfgs_step(self, params: Dict[str, torch.Tensor], opt: LBFGS, batch,
                     generator: torch.Generator) -> torch.Tensor:
         """One L-BFGS iteration on the round's ``batch`` = (x, t, BC/IC seed)
         (-> the agent's update). Returns ``_row`` at the starting point."""
         x, t, loss_seed = batch
-        self._last_pts = (x, t)
+        self._keep_points(x, t)
         loss_gen = torch.Generator(device=self.device)
 
         def objective():
@@ -700,27 +846,29 @@ class PDETrainer:
     # ------------------------------------------------------------------ #
 
     def _ema_init(self, params: Dict[str, torch.Tensor]) -> None:
-        """A zero shadow and a zero count; None when EMA is off."""
-        self._ema = (([torch.zeros_like(p) for p in params.values()], 0)
-                     if self._ema_decay > 0.0 else None)
+        """A zero shadow (None when EMA is off) and a zero count."""
+        self._ema_shadow = ([torch.zeros_like(p) for p in params.values()]
+                            if self._ema_decay > 0.0 else None)
+        self._ema_n = 0
 
     @torch.no_grad()
     def _ema_update(self, params: Dict[str, torch.Tensor]) -> None:
-        if self._ema is None:
+        """The shadow in place; the count on the host (the step program
+        advances it per replay)."""
+        if self._ema_shadow is None:
             return
         d = self._ema_decay
-        shadow, n = self._ema
-        torch._foreach_mul_(shadow, d)
-        torch._foreach_add_(shadow, [p.detach() for p in params.values()], alpha=1.0 - d)
-        self._ema = (shadow, n + 1)
+        torch._foreach_mul_(self._ema_shadow, d)
+        torch._foreach_add_(self._ema_shadow, [p.detach() for p in params.values()],
+                            alpha=1.0 - d)
+        self._ema_n += 1
 
     def _ema_read(self) -> Optional[List[torch.Tensor]]:
         """The debiased average shadow / (1 - d^n); None before any update."""
-        if self._ema is None or self._ema[1] == 0:
+        if self._ema_shadow is None or self._ema_n == 0:
             return None
-        shadow, n = self._ema
-        denom = 1.0 - self._ema_decay ** n
-        return [s / denom for s in shadow]
+        denom = 1.0 - self._ema_decay ** self._ema_n
+        return [s / denom for s in self._ema_shadow]
 
     @torch.no_grad()
     def _ema_apply(self, params: Dict[str, torch.Tensor]) -> None:
@@ -884,6 +1032,10 @@ class PDETrainer:
         epoch = start_epoch
         profiled = False
         stop = False
+        program, program_for = None, None
+        self.programs = []
+        n_loss = 1 + len(_COMPONENTS)
+        reduce = self.mesh.mean if self.mesh is not None else (lambda row: row)
         try:
             while epoch < num_epochs and not stop:
                 if not switched and epoch >= self.switch_epoch:
@@ -903,7 +1055,7 @@ class PDETrainer:
                         batch_size = lbfgs_bs
                         opt = AdamStep(leaves, cosine_decay(t.phase2_learning_rate,
                                                             max(num_epochs - epoch, 1), 0.0),
-                                       t.gradient_clip_norm, 0.9, 0.999, 0.0)
+                                       t.gradient_clip_norm, 0.9, 0.999, 0.0, capturable=True)
                 if lbfgs_mode:
                     done_in_phase = epoch - phase_start
                     if batch is None or (resample and done_in_phase > 0
@@ -920,74 +1072,62 @@ class PDETrainer:
                 if lbfgs_mode and resample:
                     next_round = phase_start + ((epoch - phase_start) // resample + 1) * resample
                     chunk = min(chunk, max(next_round - epoch, 1))
-                chunk_start = len(self.history["learning_rate"])
+                if program_for is None or program_for[0] is not opt or program_for[1] is not batch:
+                    # A phase (or an L-BFGS round) starts: its own step program.
+                    self._end_program(program, leaves)
+                    program = self._start_program(params, opt, gens, batch_size, batch, epoch,
+                                                  val_every, steps_per_epoch)
+                    program_for = (opt, batch)
                 # One trace, of the first chunk after the start.
                 profile = bool(t.profile_dir) and not profiled and epoch > start_epoch
                 trace_epoch = epoch
+                program.start_chunk()
+                t0 = time.time()
                 with (self._profiler() if profile else contextlib.nullcontext()) as prof:
-                    for _ in range(chunk):
-                        t0 = time.time()
-                        if lbfgs_mode:
-                            per_step = [self._lbfgs_step(params, opt, batch, gen)
-                                        for _ in range(steps_per_epoch)]
-                        elif self.members:
-                            per_step = [self._ensemble_step(params, opt, gens, batch_size)
-                                        for _ in range(steps_per_epoch)]
-                        else:
-                            per_step = [self._step(params, opt, gen, batch_size)
-                                        for _ in range(steps_per_epoch)]
+                    for e in range(chunk):
+                        for _ in range(steps_per_epoch):
+                            program.run()
                         if self.rl_agent is not None:
                             # Once per epoch, so exploration anneals over the run's horizon.
-                            self._rl_state = self.rl_agent.update_epsilon(self._rl_state)
-                        row = torch.stack(per_step).mean(dim=0)
-                        if self.mesh is not None:
-                            row = self.mesh.mean(row)  # the global batch's losses
-                        if names:
-                            # An ensemble's coefficients: their member mean.
-                            row = torch.cat([row, torch.stack([self.coeffs[k].detach().mean()
-                                                               for k in names])])
-                        values = row.tolist()  # one host read per epoch
-                        n_loss = 1 + len(_COMPONENTS)
-                        means, weights = values[:n_loss], values[n_loss:n_loss + 3]
-                        self.history["train_loss"].append(means[0])
-                        for k, v in zip(_COMPONENTS, means[1:]):
-                            self.history["loss_components"][k].append(v)
-                        self.history["adaptive_weights"].append(weights + [0.0])
-                        for k, v in zip(names, values[n_loss + 3:]):
-                            self.history[f"param_{k}"].append(v)
-                        self.history["epoch_time"].append(time.time() - t0)
-                        # As the JAX package records it: the phase-1 cosine at the
-                        # epoch's end, after the switch too (ROADMAP queue 3); other
-                        # schedules at the chunk's end, below.
-                        self.history["learning_rate"].append(
-                            lr_schedule((epoch + 1) * steps_per_epoch) if cosine else None)
-                        epoch += 1
-                        if not np.isfinite(means[0]):
-                            logger.warning("Non-finite loss at epoch %d; stopping", epoch)
-                            status = "failed"
-                            stop = True
-                            break
+                            self.rl_agent.update_epsilon(self._rl_state)
+                        # An ensemble's coefficients: their member mean.
+                        program.end_epoch(e, steps_per_epoch, reduce,
+                                          torch.stack([self.coeffs[k].detach().mean()
+                                                       for k in names]) if names else None)
+                    rows, scale, pts = self._read_chunk(program, chunk, opt)
                     if profile and self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
+                chunk_time = time.time() - t0
                 if profile:
                     profiled = True
                     trace_dir = Path(t.profile_dir)
                     trace_dir.mkdir(parents=True, exist_ok=True)
                     prof.export_chrome_trace(str(trace_dir / f"trace_epoch{trace_epoch}.json"))
                     logger.info("Profiler trace written to %s", trace_dir)
-                if not cosine:
-                    # learning_rate * the plateau scale at the chunk's end, as JAX
-                    # reads its optimizer state (1 for L-BFGS and phase-2 Adam).
-                    scale = opt.plateau_scale() if isinstance(opt, AdamStep) else 1.0
-                    lr_now = t.optimizer_config.learning_rate * scale
-                    lrs = self.history["learning_rate"]
-                    lrs[chunk_start:] = [lr_now] * (len(lrs) - chunk_start)
-                if stop:
+                # learning_rate * the plateau scale at the chunk's end, as JAX reads
+                # its optimizer state (1 for L-BFGS and phase-2 Adam).
+                lr_now = t.optimizer_config.learning_rate * scale
+                for values in rows:
+                    means, weights = values[:n_loss], values[n_loss:n_loss + 3]
+                    self.history["train_loss"].append(means[0])
+                    for k, v in zip(_COMPONENTS, means[1:]):
+                        self.history["loss_components"][k].append(v)
+                    self.history["adaptive_weights"].append(weights + [0.0])
+                    for k, v in zip(names, values[n_loss + 3:]):
+                        self.history[f"param_{k}"].append(v)
+                    self.history["epoch_time"].append(chunk_time / chunk)
+                    # As the JAX package records it: the phase-1 cosine at the
+                    # epoch's end, after the switch too (ROADMAP queue 3).
+                    self.history["learning_rate"].append(
+                        lr_schedule((epoch + 1) * steps_per_epoch) if cosine else lr_now)
+                    epoch += 1
+                # As the JAX package's loop: the chunk's last loss, at its end.
+                if not np.isfinite(self.history["train_loss"][-1]):
+                    logger.warning("Non-finite loss at epoch %d; stopping", epoch)
+                    status = "failed"
                     break
-                if self._last_pts is not None:
-                    x_last, t_last = self._last_pts
-                    self.points_history.append(
-                        torch.cat([x_last[:64], t_last[:64]], dim=-1).detach().cpu().numpy())
+                if pts is not None:
+                    self.points_history.append(pts)
                 val_loss = self._val_loss(params, val_gen)
                 self.history["val_loss"].append(val_loss)
                 logger.info("epoch %d/%d train=%.4e val=%.4e", epoch, num_epochs,
@@ -1012,6 +1152,7 @@ class PDETrainer:
                 (exp / ".running").unlink(missing_ok=True)
             raise
         finally:
+            self._end_program(program, leaves)
             # Detach the run's log handler: one per call would pile up.
             if log_handler is not None:
                 logger.removeHandler(log_handler)
@@ -1119,11 +1260,11 @@ class PDETrainer:
             arrays[f"opt/{k}"] = v
         for f in _AW_FIELDS:
             arrays[f"aw/{f}"] = getattr(self._aw_state, f).cpu().numpy()
-        if self._ema is not None:
-            shadow, n = self._ema
+        if self._ema_shadow is not None:
+            n = self._ema_n
             # One count per member (all members step together).
             arrays["ema/n"] = np.full(self.members, n) if self.members else np.asarray(n)
-            for name, v in zip(params, shadow):
+            for name, v in zip(params, self._ema_shadow):
                 arrays[f"ema/{name}"] = v.cpu().numpy()
         if self.rl_agent is not None:
             for k, v in self.rl_agent.state_arrays(self._rl_state).items():
@@ -1173,9 +1314,10 @@ class PDETrainer:
             logger.warning("checkpoint: could not restore 'opt_state' (%s); keeping fresh state", e)
         self._aw_state = AdaptiveWeightState(**{
             f: torch.as_tensor(arrays[f"aw/{f}"]).to(self.device) for f in _AW_FIELDS})
-        if self._ema is not None and "ema/n" in arrays:
-            shadow = [torch.as_tensor(arrays[f"ema/{name}"]).to(self.device) for name in params]
-            self._ema = (shadow, int(np.max(arrays["ema/n"])))
+        if self._ema_shadow is not None and "ema/n" in arrays:
+            self._ema_shadow = [torch.as_tensor(arrays[f"ema/{name}"]).to(self.device)
+                                for name in params]
+            self._ema_n = int(np.max(arrays["ema/n"]))
         if self.rl_agent is not None:
             self._rl_state = self.rl_agent.load_arrays(
                 {k[len("rl/"):]: v for k, v in arrays.items() if k.startswith("rl/")},

@@ -53,7 +53,11 @@ dL/dB and transport kernels (no x-group) at the bounds of their K >= 1
 tests. Its selects (clamp, where, maximum, minimum, relu, fmax, softplus and
 atan2, asinh, log10, erfc): 1e-5 relative to max against the float64 twin
 on finite entries, with NaNs and infinities where the float32 twin has
-them.
+them. The trainer's step program: a run of the small Burgers slice (RAR,
+and uniform with the DQN agent) replayed from its captured step equals the
+eager program's run bit for bit (the same kernels on the same draws), with
+the same launch counts: a launch captured into a step program's tally is
+counted on the device at every replay.
 """
 
 import numpy as np
@@ -1691,3 +1695,107 @@ def test_member_batched_kernels_2_and_3_equal_single_launches(cuda_device):
     torch.cuda.synchronize()
     assert all(torch.equal(out[e], each[e]) for e in range(4))
     assert _rel(out, siren.siren_layer_plain(xs, W, b)) < 1e-5
+
+
+def _graph_slice(device, rl: bool = False):
+    """The Burgers slice at a small width (Fourier 64x2, mapping 32; 2048
+    points in batches of 512; RAR, or uniform with the DQN agent), to train
+    2 chunks of 2 epochs."""
+    from pinnrl_tpu_torch.config import load_config
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.rl import RLAgent
+    from pinnrl_tpu_torch.training import PDETrainer
+
+    cfg = load_config(pde_type="burgers", architecture="fourier", device=str(device))
+    cfg.pde.exact_solution = {"type": "traveling_wave", "amplitude": 0.5, "speed": 0.5,
+                              "center": -0.25}
+    cfg.pde.initial_condition = {"type": "traveling_wave"}
+    cfg.model.hidden_dims = [64, 64]
+    cfg.model.arch_params.update({"mapping_size": 32, "scale": 2.0})
+    t = cfg.training
+    t.optimizer, t.num_epochs, t.validation_frequency = "adam", 4, 2
+    t.num_collocation_points, t.batch_size = 2048, 512
+    t.num_boundary_points = t.num_initial_points = 256
+    t.collocation_distribution = "uniform" if rl else "residual_based"
+    t.early_stopping.enabled = False
+    agent = RLAgent(hidden_dim=64, batch_size=124, device=device) if rl else None
+    return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, rl_agent=agent)
+
+
+@pytest.mark.parametrize("rl", [False, True])
+def test_graph_run_equals_eager_step_program(cuda_device, rl, monkeypatch):
+    import sys
+
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp
+    from pinnrl_tpu_torch.training import step_program
+
+    runs = []
+    for graphs in (True, False):
+        if not graphs:  # the program never leaves its warm-up: every step eager
+            monkeypatch.setattr(step_program, "WARMUP_STEPS", sys.maxsize)
+        tr = _graph_slice(cuda_device, rl)
+        counters = (fused_step.fused_residual_loss, fourier_feats.fourier_features,
+                    mlp.fused_mlp_score)
+        before = [c.launches for c in counters]
+        res = tr.train(seed=0)
+        torch.cuda.synchronize()
+        launches = [c.launches - b for c, b in zip(counters, before)]
+        runs.append((tr, res["history"], launches))
+    (g, gh, gl), (e, eh, el) = runs
+    (program,) = g.programs
+    assert program.path == "graph" and program.graph is None  # released at the end
+    assert program.eager_steps >= 1 and program.eager_steps + program.replays == 16
+    assert e.programs[0].replays == 0 and e.programs[0].eager_steps == 16
+    assert gh["train_loss"] == eh["train_loss"] and gh["val_loss"] == eh["val_loss"]
+    for k, v in g.model.params.items():
+        assert torch.equal(v, e.model.params[k]), k
+    # Kernel 1 once per step and per validation, counted per replay; the
+    # same counts as the eager run's.
+    assert gl == el and gl[0] == 16 + 2
+    if rl:
+        assert gl[2] == 16
+        st, se = g._rl_state, e._rl_state
+        assert (int(st.size), int(st.steps)) == (int(se.size), int(se.steps)) == (2048, 16)
+        assert st.opt_state.count == se.opt_state.count == 16
+
+
+def test_a_failed_capture_raises(cuda_device):
+    """A step that reads a value back cannot be captured: the run raises and
+    takes no eager step in its place."""
+    tr = _graph_slice(cuda_device)
+    step = tr._step
+
+    def reading(*args):
+        row = step(*args)
+        float(row[0])  # a host read inside the step
+        return row
+
+    tr._step = reading
+    with pytest.raises(RuntimeError):
+        tr.train(seed=0)
+    (program,) = tr.programs
+    assert program.eager_steps == 1 and program.replays == 0
+
+
+def test_a_replayed_launch_counts_on_the_device(cuda_device):
+    """A kernel launch captured into a tally adds one to its counter at each
+    replay (read and settled by the host), none at the capture."""
+    from pinnrl_tpu_torch.ops.kernels import counts, fourier_feats
+
+    ff = fourier_feats.fourier_features
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((512, 2), generator=gen, device=cuda_device)
+    B = torch.randn((2, 32), generator=gen, device=cuda_device)
+    ff(x, B)  # built before the capture
+    torch.cuda.synchronize()
+    tally, graph = counts.tally(cuda_device), torch.cuda.CUDAGraph()
+    before = ff.launches
+    with counts.tallying(tally), torch.cuda.graph(graph):
+        out = ff(x, B)
+    assert ff.launches == before
+    for _ in range(3):
+        graph.replay()
+    counts.settle(tally, tally.tolist())
+    assert ff.launches == before + 3 and int(tally.sum()) == 0
+    assert torch.equal(out, fourier_feats.fourier_features_cuda(x, B))

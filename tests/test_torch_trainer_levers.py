@@ -208,7 +208,7 @@ def test_ema_matches_jax_after_each_step_and_at_the_switch(monkeypatch, optimize
         assert _max_rel(_flax(dict(zip(names, r_port))), r_jax) < 1e-5
     if optimizer == "adam_lbfgs":
         assert _max_rel(starts[0], ref[-1]) < 1e-5  # phase 2 starts from the average
-        assert ttr._ema[1] == 0  # a fresh shadow, never updated by L-BFGS
+        assert ttr._ema_n == 0  # a fresh shadow, never updated by L-BFGS
     else:
         assert _max_rel(_flax(pair.tmodel.params), ref[-1]) < 1e-5  # it ends on the average
 

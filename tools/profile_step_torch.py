@@ -3,8 +3,8 @@
 CUDA card.
 
     python3 tools/profile_step_torch.py [--steps 20] [--profiled 10] [--out chiprun_out/profile]
-        [--rl | --kdv | --siren-kdv | --heat | --recipe KEY [--alternate ROUNDS]
-         | --inverse KEY] [--lbfgs]
+        [--rl | --rar | --ensemble E | --kdv | --siren-kdv | --heat
+         | --recipe KEY [--alternate ROUNDS] | --inverse KEY] [--lbfgs] [--graph]
 
 For the Burgers recipe slice of ``chip_smoke.py`` (Fourier 256x3, mapping
 128, batch 8192, BC/IC 4096), once with the hand-written kernels and once on
@@ -22,6 +22,9 @@ it prints:
 
 With ``--rl`` the step is the RL-driven one: the DQN agent of the shipped
 defaults scores the 100x100 grid and takes its update on every step. With
+``--rar`` it is the Burgers recipe's own step: RAR sampling (a pool of
+32768 scored in 4 chunks of 8192, 8192 drawn). With ``--ensemble E`` it is
+a step of E members (one member-batched kernel-1 call). With
 ``--kdv`` it is a step of the KdV recipe (``build_recipe_config("kdv")``:
 Fourier 256x3, mapping 256, batch 8192, causal eps 1.0, order-3 residual).
 With ``--siren-kdv`` it is a step of KdV as shipped
@@ -60,7 +63,17 @@ caching allocator's new segments and retries on each side, and the
 functions with the most host time in a ``cProfile`` of one step of each;
 no trace is taken.
 
-The chrome traces go to ``--out``, gzipped. The script imports no JAX.
+With ``--graph`` the step is the trainer's step program
+(``training/step_program.py``) on the kernels' path, run eagerly and then
+captured once and replayed per step (``chip_smoke.program_for`` with
+``graph`` False and True: the same capturable Adam; plateau, EMA and agent
+state as ``train`` sets them up): the same
+numbers for each, the capture's seconds and the bytes it reserved, and
+the ms per step of ``--steps`` steps issued back to back (one
+``torch.cuda.synchronize()`` at the end), for both.
+
+Every run also prints the back-to-back ms per step. The chrome traces go
+to ``--out``, gzipped. The script imports no JAX.
 """
 
 from __future__ import annotations
@@ -99,7 +112,7 @@ def _union_us(intervals) -> float:
 
 
 def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card: str,
-            lbfgs: bool = False):
+            lbfgs: bool = False, step=None):
     import torch
 
     from pinnrl_tpu_torch.training.lbfgs import LBFGS
@@ -108,7 +121,9 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
     steps_per_epoch = cfg.training.num_collocation_points // cfg.training.batch_size
     params = trainer.model.params
     gen = torch.Generator(device=dev).manual_seed(7)
-    if lbfgs:
+    if step is not None:
+        pass
+    elif lbfgs:
         opt = trainer._make_lbfgs(trainer._leaves(params))
         batch = trainer._lbfgs_batch(7, 0, cfg.training.num_collocation_points)
 
@@ -131,6 +146,12 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
             times.append((time.perf_counter() - t0) * 1e3)
     q1, med, q3 = statistics.quantiles(times, n=4)
     evals_timed = (LBFGS.evaluations - evals) / (5 + steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    back_to_back = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     evals = LBFGS.evaluations
@@ -154,7 +175,7 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
         per_kernel[name][0] += dur / 1e3 / profiled
         per_kernel[name][1] += 1
     print(f"[{label}] step ms (host clock, {steps} steps): median {med:.3f} q1 {q1:.3f} "
-          f"q3 {q3:.3f} ({card})")
+          f"q3 {q3:.3f}; back to back {back_to_back:.3f} ms/step ({card})")
     print(f"[{label}] device busy {busy:.3f} ms/step over {profiled} profiled steps; "
           f"idle share of the median step {1.0 - busy / med:.3f}; "
           f"{len(ivs) / profiled:.1f} device launches/step ({card})")
@@ -164,7 +185,8 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (ms, count) in rows[:15]:
         print(f"[{label}]   {ms:8.4f} ms/step  {count / profiled:6.1f} launches/step  {name[:90]}")
-    return {"label": label, "median_ms": med, "q1_ms": q1, "q3_ms": q3, "busy_ms": busy,
+    return {"label": label, "median_ms": med, "q1_ms": q1, "q3_ms": q3,
+            "back_to_back_ms": back_to_back, "busy_ms": busy,
             "idle_share": 1.0 - busy / med, "launches_per_step": len(ivs) / profiled,
             **({"evaluations_per_step": evals_timed, "evaluations_per_profiled_step": evals_profiled}
                if lbfgs else {}),
@@ -258,6 +280,9 @@ def main() -> int:
                     help="directory for the chrome traces and summary.json")
     kind = ap.add_mutually_exclusive_group()
     kind.add_argument("--rl", action="store_true", help="profile the RL-driven step")
+    kind.add_argument("--rar", action="store_true", help="profile the Burgers recipe's RAR step")
+    kind.add_argument("--ensemble", type=int, default=0, metavar="E",
+                      help="profile a step of E members of the Burgers slice")
     kind.add_argument("--kdv", action="store_true", help="profile the KdV recipe's causal step")
     kind.add_argument("--siren-kdv", action="store_true",
                       help="profile a step of KdV as shipped (SIREN 124x7, nested jvp)")
@@ -270,6 +295,8 @@ def main() -> int:
                       help="profile a step of this inverse recipe (kernel 1 off its path)")
     ap.add_argument("--alternate", type=int, default=0, metavar="ROUNDS",
                     help="with --recipe: kernel 2 and its plain version in turns on one trainer")
+    ap.add_argument("--graph", action="store_true",
+                    help="the step program, eager against captured and replayed")
     ap.add_argument("--lbfgs", action="store_true",
                     help="profile one L-BFGS iteration on all 40000 points (Burgers, or with --heat "
                          "the heat recipe)")
@@ -282,7 +309,7 @@ def main() -> int:
         return 2
     from chip_smoke import (burgers_recipe_config, heat_recipe_config, kdv_recipe_config,
                             nvidia_smi_line, plain_fourier_features, plain_mlp_score,
-                            plain_siren, siren_kdv_config)
+                            plain_siren, program_for, siren_kdv_config)
     from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
     from pinnrl_tpu_torch.benchmarks.inverse import RECIPES as INVERSE_RECIPES
     from pinnrl_tpu_torch.benchmarks.inverse import build_inverse_config
@@ -294,8 +321,11 @@ def main() -> int:
     card = nvidia_smi_line()
     out = Path(args.out)
     results = []
-    prefix = ("lbfgs_" if args.lbfgs else "") + (
-        "rl_" if args.rl else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
+    if args.graph and (args.lbfgs or args.alternate):
+        ap.error("--graph takes Adam steps")
+    prefix = ("lbfgs_" if args.lbfgs else "graph_" if args.graph else "") + (
+        "rl_" if args.rl else "rar_" if args.rar else f"ensemble{args.ensemble}_" if args.ensemble
+        else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
         else "heat_" if args.heat else f"{args.recipe}_" if args.recipe
         else f"inverse_{args.inverse}_" if args.inverse else "")
     configs = {"kdv_": kdv_recipe_config, "siren_kdv_": siren_kdv_config, "heat_": heat_recipe_config}
@@ -319,9 +349,15 @@ def main() -> int:
     # Kernel 1 takes neither the SIREN, nor a residual second order in time,
     # nor Cahn-Hilliard.
     kernel1 = not (args.siren_kdv or args.recipe or args.inverse)
-    for label in ("kernels", "plain"):
-        cfg = configs.get(prefix.removeprefix("lbfgs_"), burgers_recipe_config)("cuda")
+    for label in (("eager", "graph") if args.graph else ("kernels", "plain")):
+        cfg = configs.get(prefix.removeprefix("lbfgs_").removeprefix("graph_"),
+                          burgers_recipe_config)("cuda")
         cfg.rl.enabled = args.rl
+        if args.rar:
+            cfg.training.collocation_distribution = "residual_based"
+        if args.ensemble:
+            cfg.training.ensemble_size = args.ensemble
+            cfg.training.scheduler_type = "cosine"
         if label == "plain":
             cfg.training.fused_residual_kernel = "off"
         agent = make_agent(cfg) if args.rl else None
@@ -331,17 +367,25 @@ def main() -> int:
             pde.generate_synthetic_observations(torch.Generator(device="cuda").manual_seed(1000),
                                                 obs["num_points"], obs["noise"])
         trainer = PDETrainer(PINNModel(cfg, seed=0), pde, cfg, rl_agent=agent)
-        if trainer.fused_kernel_active != (label == "kernels" and kernel1):
+        if trainer.fused_kernel_active != (label != "plain" and kernel1):
             raise AssertionError(f"{label}: fused_kernel_active={trainer.fused_kernel_active}")
         if agent is not None:
             trainer._rl_state = trainer._init_rl_state(0)
+        step = program = None
+        if args.graph:
+            step, program = program_for(trainer, 5 + 2 * args.steps + args.profiled,
+                                        graph=label == "graph")
         with contextlib.ExitStack() as plain:
             if label == "plain":
                 plain.enter_context(plain_fourier_features())
                 plain.enter_context(plain_mlp_score())
                 plain.enter_context(plain_siren())
             results.append(profile(trainer, cfg, prefix + label, args.steps, args.profiled, out, card,
-                                   lbfgs=args.lbfgs))
+                                   lbfgs=args.lbfgs, step=step))
+        if program is not None:
+            results[-1]["program"] = program.stats()
+            print(f"[{prefix + label}] step program: {program.stats()} ({card})", flush=True)
+            program.release()
     (out / f"{prefix}summary.json").write_text(json.dumps({"card": card, "runs": results}, indent=1))
     if "jax" in sys.modules:
         raise AssertionError("profile_step_torch imported jax")
