@@ -86,12 +86,14 @@ Phases (each raises on failure, and the script then exits non-zero):
                per L-BFGS evaluation and per validation; for heat, kernel 2's
                jvp rule too; the L-BFGS train loss must be finite and must not
                rise within the round (optax's approximate-decrease slack,
-               1e-6 of the loss, aside).
+               1e-6 of the loss, aside); the phase replays its iterations,
+               so its search makes no host read (``LBFGS.host_reads``).
  18. lbfgs timing — median ms per L-BFGS iteration of the Burgers recipe
                (N = 40000) with the kernels and on the plain path, in turns;
                the objective's evaluations per iteration; host syncs of one
-               iteration under ``set_sync_debug_mode("warn")``, which must be
-               its host reads (one per evaluation); kernel 1 at N = 40000
+               eager iteration under ``set_sync_debug_mode("warn")``, which
+               must be its search's host reads (one per trial after the
+               first, and one to stop: at most one per evaluation); kernel 1 at N = 40000
                against its plain version by CUDA-graph replay, with its bound
                and cuBLAS on its products.
  19. scope     — kernel 1's one-dimensional scope: its convection (x-order
@@ -170,7 +172,8 @@ Phases (each raises on failure, and the script then exits non-zero):
                never; kernel 2 exactly ``CH_FF_PER_LOSS`` per loss (launches,
                jvp-rule calls) and once per ``validate``, also counted alone
                for one Adam step, one L-BFGS iteration and one ``validate``;
-               host syncs 0 per Adam step and one per L-BFGS evaluation;
+               host syncs 0 per Adam step and at most one per evaluation of
+               an eager L-BFGS iteration (none in the replayed runs);
                median ms per Adam step and per L-BFGS iteration with kernel 2
                and on its plain version, in turns.
  26. order 4  — kernel 2's jvp rule nested to order 4 along x on the
@@ -440,6 +443,31 @@ Phases (each raises on failure, and the script then exits non-zero):
                uninterrupted one; and, in a subprocess, a step with a host
                read forced into it, which must raise at the capture after
                one eager step (no fallback).
+ 47. lbfgs graph — every L-BFGS phase replays its iteration
+               (``training/step_program.py``, ``Search``): start, the
+               line-search trial under a CUDA-graph IF node on ``active``
+               (``csrc/graph_cond.cu``) 25 times, finish. The Burgers
+               recipe at full width (RAR Adam 3 epochs, then 3 L-BFGS
+               iterations on all 40000 points, chunks of 2 and 1), heat
+               (kernel 2's jvp rule), wave (the plain t-order-2 bundle),
+               Burgers with a float64 L-BFGS phase, with the DQN agent
+               (its update after every iteration) and with a new round
+               every 2 iterations (4 iterations), each against the eager
+               program (``eager_steps``: every trial guarded by a host
+               read), same seed: bit-identical histories, parameters,
+               accepted stepsizes and trial counts per iteration (recorded
+               on the device by ``finish``, ``search_record``),
+               evaluations and launches; each kernel's device launches in a
+               traced graph run, in a process of its own
+               (``lbfgs_traced_case``), witnessing its counter; one host read per
+               chunk and none in a replay; no search read
+               (``LBFGS.host_reads``) on the graph path. Then a pure
+               L-BFGS run resumed from its first chunk's checkpoint
+               against the uninterrupted one, and ms per iteration of
+               Burgers, heat and wave in turns (graph, eager, eager,
+               graph; ``lbfgs_program_for``) with each side's device busy
+               share and launches under the profiler, capture seconds and
+               bytes.
 
 Phase 2 prints ``ptxas``'s report (registers, shared memory, stack frame,
 spills) for every kernel and fails unless each library that runs the GEMM
@@ -551,8 +579,12 @@ kernel 2's entry carries ``nd4_edge`` (its time at (8192,5) x (5,512)) and
 the device launches counted in the trace and per step, bit-identity, host
 reads per chunk, the step program's path, eager steps, replays, capture
 seconds and bytes) and
-``graph_ms_per_step``; a ``[graph]`` line before the last two carries
-the whole phase. The last line is
+``graph_ms_per_step``, and phase 47's ``lbfgs_graph`` (per case: traced
+and counted launches, evaluations, trials per iteration, bit-identity,
+host reads per chunk, the L-BFGS programs' stats) and ``lbfgs_graph_ms``
+(per timed case and side: ms, busy ms, idle share, device launches per
+iteration); ``[graph]`` and ``[lbfgs graph]`` lines before the last two
+carry the whole phases. The last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -1273,6 +1305,14 @@ def record_syncs(fn):
     return sites
 
 
+def eager_search_reads(reads: int, evals: int) -> bool:
+    """Whether an eager L-BFGS iteration's host reads are its search's: one
+    per trial after the first, and one that stops the search unless it ran
+    out of steps; its evaluations are the start's and one per trial. At most
+    one read per evaluation."""
+    return evals - 2 <= reads <= evals - 1
+
+
 def count_syncs(tr, batch: int):
     """Host round trips of one warm training step (see ``record_syncs``)."""
     import torch
@@ -1349,7 +1389,7 @@ def ch_recipe_runs(dev, card: str):
         for a, b in zip(lbfgs_losses, lbfgs_losses[1:]):
             if not b <= a + APPROX_DEC_RTOL * abs(a):
                 raise AssertionError(f"{key}: the L-BFGS loss rose within its round: {lbfgs_losses}")
-        if (any(run[k] != w for k, w in want.items()) or run["host_reads"] != run["evaluations"]
+        if (any(run[k] != w for k, w in want.items()) or run["host_reads"] != 0
                 or (has_lbfgs and run["evaluations"] < 2)):
             raise AssertionError(f"{key}: launches {run}, want {want} ({adam_steps} Adam steps + "
                                  f"{run['evaluations']} L-BFGS evaluations + {n_vals} validations)")
@@ -1402,7 +1442,8 @@ def ch_recipe_runs(dev, card: str):
         print(f"[syncs] {key}: one warm Adam step {adam_syncs} {adam_sites}; one L-BFGS iteration "
               f"{len(l_sites)} {sorted(set(l_sites))}, {l_evals} evaluations, {l_reads} host reads",
               flush=True)
-        if adam_syncs or len(l_sites) != l_reads or l_reads != l_evals:
+        if adam_syncs or len(l_sites) != l_reads or (has_lbfgs
+                                                     and not eager_search_reads(l_reads, l_evals)):
             raise AssertionError(f"{key}: {adam_syncs} host syncs per Adam step; {len(l_sites)} "
                                  f"per L-BFGS iteration of {l_evals} evaluations")
 
@@ -2441,19 +2482,21 @@ def lever_runs(dev, card: str):
                        adam_lbfgs_switch_ratio=0.5)
     tr = trainer(cfg)
     at_switch, starts = [], []
-    ema_apply, lbfgs_step = tr._ema_apply, tr._lbfgs_step
+    ema_apply, lbfgs_pieces = tr._ema_apply, tr._lbfgs_pieces
 
     def recording_apply(params):
         if not at_switch:
             at_switch.append([a.clone() for a in tr._ema_read()])
         ema_apply(params)
 
-    def recording_lbfgs(params, opt, batch, generator):
+    def recording_lbfgs(params, *args):
+        # The phase's iterations replay one capture: its first point is the
+        # parameters when its pieces are built.
         if not starts:
             starts.append([p.detach().clone() for p in params.values()])
-        return lbfgs_step(params, opt, batch, generator)
+        return lbfgs_pieces(params, *args)
 
-    tr._ema_apply, tr._lbfgs_step = recording_apply, recording_lbfgs
+    tr._ema_apply, tr._lbfgs_pieces = recording_apply, recording_lbfgs
     evals0 = LBFGS.evaluations
     res, e = run("ema_adam_lbfgs", tr)
     evals = LBFGS.evaluations - evals0
@@ -3276,18 +3319,19 @@ def float64_runs(dev, card: str):
     cfg.training.adam_lbfgs_switch_ratio = 0.5
     tr = trainer(cfg)
     at_switch, phase_dtypes = {}, []
-    promote, lbfgs_step = tr._maybe_promote_f64, tr._lbfgs_step
+    promote, lbfgs_pieces = tr._maybe_promote_f64, tr._lbfgs_pieces
 
     def promoting(params):
         torch.cuda.synchronize()
         at_switch.update(_launches(), plain_f64=ff.plain_f64, evaluations=LBFGS.evaluations)
         promote(params)
 
-    def stepping(params, *args):
+    def building(params, *args):
+        # The phase's iterations replay one capture: its dtype, per round.
         phase_dtypes.append(next(iter(params.values())).dtype)
-        return lbfgs_step(params, *args)
+        return lbfgs_pieces(params, *args)
 
-    tr._maybe_promote_f64, tr._lbfgs_step = promoting, stepping
+    tr._maybe_promote_f64, tr._lbfgs_pieces = promoting, building
     torch.cuda.synchronize()
     start, plain0, evals0 = _launches(), ff.plain_f64, LBFGS.evaluations
     res, launches, wall = _run_counted(tr)
@@ -3307,7 +3351,8 @@ def float64_runs(dev, card: str):
               "final_state": sorted({str(v.dtype) for v in final.values()}),
               "model_params": sorted({str(v.dtype) for v in tr.model.params.values()})}
     print(f"[float64] Burgers slice (Fourier 256x3, mapping 128), adam_lbfgs: {adam_epochs} Adam "
-          f"epochs ({adam_losses} losses), then {len(phase_dtypes)} float64 L-BFGS iterations "
+          f"epochs ({adam_losses} losses), then {len(hist['train_loss']) - adam_epochs} float64 "
+          f"L-BFGS iterations "
           f"({evals} evaluations) on all 40000 points; kernel 1 {k1_adam} launches before the "
           f"switch (want {adam_losses}), {k1_phase} after (want 0); kernel 2 "
           f"{adam['fourier_features']} launches before (want {2 * adam_losses}), "
@@ -4867,10 +4912,11 @@ def eager_steps():
         step_program.WARMUP_STEPS = warm
 
 
-def device_launches(fn):
+def device_launches(fn, names_into=None):
     """Run ``fn`` under ``torch.profiler`` (device activity only); return
     its result, the device launches of each kernel of ``GRAPH_KERNELS`` by
-    name, and all the device kernels it ran."""
+    name, and all the device kernels it ran (``names_into``, a dict, takes
+    the launches of every kernel name)."""
     import tempfile
     from pathlib import Path
 
@@ -4898,6 +4944,8 @@ def device_launches(fn):
             names[e["name"]] = names.get(e["name"], 0) + 1
     found = {k: sum(n for name, n in names.items() if rx.search(name))
              for k, rx in GRAPH_KERNELS.items()}
+    if names_into is not None:
+        names_into.update(names)
     return out, found, sum(names.values())
 
 
@@ -5015,17 +5063,7 @@ def graph_runs(dev, card: str):
             # A replay's syncs are "step"; an eager step's (the warm-up's, or
             # every step of the eager run) "eager_step": a process's first
             # step fills the samplers' per-device caches by a copy to the card.
-            kinds = {"chunk_read": 0, "validation": 0, "capture": 0, "step": 0, "eager_step": 0,
-                     "setup": 0}
-            sites = {}
-            for names in stacks:
-                kind = ("capture" if "_capture" in names else "chunk_read" if "_read_chunk" in names
-                        else "validation" if "_val_loss" in names
-                        else "eager_step" if "_call" in names else "step" if "run" in names
-                        else "setup")
-                kinds[kind] += 1
-                if kind in ("step", "eager_step", "setup"):
-                    sites[names[-1]] = sites.get(names[-1], 0) + 1
+            kinds, sites = classify_syncs(stacks)
             runs[side] = {"trainer": tr, "history": res["history"], "launches": launches,
                           "device": device, "kernels": kernels,
                           "params": {k: v.detach().clone() for k, v in params.items()},
@@ -5177,6 +5215,368 @@ def graph_runs(dev, card: str):
         raise AssertionError("the capture rule does not take the graph on the card")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[graph] phase 46: {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
+
+# Phase 47: every L-BFGS phase replays its iteration (training/step_program.py,
+# ``Search``): the recipes' Adam then L-BFGS at full width, cut to 3 Adam
+# epochs and 3 L-BFGS iterations (chunks of 2 and 1; the round case 4 in 2
+# rounds of 2), each graph run against the eager program's.
+LBFGS_GRAPH_CASES = ("burgers", "heat", "wave", "float64", "rl", "round")
+LBFGS_GRAPH_EPOCHS = 6
+LBFGS_TIMED_CASES = ("burgers", "heat", "wave")
+LBFGS_TIMED, LBFGS_ROUNDS, LBFGS_PROFILED = 4, 2, 2  # iterations per side per round; profiled
+
+
+def lbfgs_graph_config(case: str, device: str):
+    """Phase 47's cases: the Burgers recipe (RAR Adam, then L-BFGS on all
+    40000 points), heat (kernel 2's jvp rule), wave (the plain bundle at
+    temporal order 2), Burgers with its L-BFGS phase in float64, Burgers
+    with the DQN agent (uniform Adam draws; the agent's update after every
+    iteration) and Burgers with a new round every 2 iterations."""
+    from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
+
+    cfg = build_recipe_config(case if case in ("heat", "wave") else "burgers",
+                              epochs=LBFGS_GRAPH_EPOCHS, device=device)
+    t = cfg.training
+    t.adam_lbfgs_switch_ratio, t.validation_frequency = 0.5, 2
+    if case == "float64":
+        t.residual_dtype = "float64"
+    elif case == "rl":
+        cfg.rl.enabled = True
+        t.collocation_distribution = "uniform"
+    elif case == "round":
+        t.num_epochs, t.lbfgs.resample_every = LBFGS_GRAPH_EPOCHS + 2, 2
+    elif case == "resume":  # pure L-BFGS, its memory in the checkpoint
+        t.optimizer, t.num_epochs = "lbfgs", 4
+    return cfg
+
+
+def lbfgs_graph_trainer(case: str):
+    from pinnrl_tpu_torch.models import PINNModel
+    from pinnrl_tpu_torch.pdes import create_pde
+    from pinnrl_tpu_torch.training import PDETrainer
+    from pinnrl_tpu_torch.training.train import make_agent
+
+    cfg = lbfgs_graph_config(case, "cuda")
+    return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg,
+                      rl_agent=make_agent(cfg) if cfg.rl.enabled else None)
+
+
+@contextlib.contextmanager
+def search_record():
+    """Each L-BFGS iteration's accepted stepsize and trial count, written on
+    the device by its ``finish`` (so a replayed finish writes them too) into
+    ``record`` of its optimizer; yields the optimizers, in order."""
+    import torch
+
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    seen = []
+    finish = LBFGS.finish
+
+    def recording(self):
+        finish(self)
+        if not hasattr(self, "record"):  # the first finish runs eagerly
+            self.record = torch.zeros((64, 2), dtype=torch.float64, device=self._guess.device)
+            seen.append(self)
+        row = torch.stack([self._guess.double(), self._trials.double()]).reshape(1, 2)
+        self.record.index_copy_(0, (self._count - 1).reshape(1), row)
+
+    LBFGS.finish = recording
+    try:
+        yield seen
+    finally:
+        LBFGS.finish = finish
+
+
+def classify_syncs(stacks):
+    """A run's host syncs by where they came from: the capture, the chunk
+    read, validation, an eager step or piece, a replayed step, the rest."""
+    kinds = {"chunk_read": 0, "validation": 0, "capture": 0, "step": 0, "eager_step": 0,
+             "setup": 0}
+    sites = {}
+    for names in stacks:
+        kind = ("capture" if "_capture" in names else "chunk_read" if "_read_chunk" in names
+                else "validation" if "_val_loss" in names
+                else "eager_step" if ("_call" in names or "_eager" in names)
+                else "step" if "run" in names else "setup")
+        kinds[kind] += 1
+        if kind in ("step", "eager_step", "setup"):
+            sites[names[-1]] = sites.get(names[-1], 0) + 1
+    return kinds, sites
+
+
+def lbfgs_program_for(tr, capacity: int, graph: bool = True):
+    """An L-BFGS program of ``tr`` on one fixed batch of the recipe's
+    points, set up as ``train`` sets up a round (one iteration per
+    ``run()``; its rows restart when full); with ``graph`` False every
+    iteration runs eagerly."""
+    import torch
+
+    t = tr.tcfg
+    params = tr.model.params
+    tr._maybe_promote_f64(params)
+    opt = tr._make_lbfgs(tr._leaves(params))
+    gens = [torch.Generator(device=tr.device).manual_seed(7)]
+    if tr.rl_agent is not None:
+        tr._rl_state = tr._init_rl_state(0)
+    n = t.num_collocation_points
+    program = tr._start_program(params, opt, gens, n, tr._lbfgs_batch(7, 0, n), 0, capacity, 1)
+    if not graph:
+        program.path = "eager"
+
+    def step():
+        if (program.eager_steps + program.replays) % capacity == 0:
+            program.start_chunk()
+        program.run()
+
+    return step, program
+
+
+def device_busy(step, n: int):
+    """``step()`` ``n`` times under ``torch.profiler``: the device's busy ms
+    per step (the union of its kernel, memcpy and memset intervals) and its
+    device launches per step."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    ivs = sorted((float(e["ts"]), float(e["dur"])) for e in events if e.get("ph") == "X"
+                 and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for ts, dur in ivs:
+        lo, hi = max(ts, end), ts + dur
+        if hi > lo:
+            busy += hi - lo
+        end = max(end, hi)
+    return busy / 1e3 / n, len(ivs) / n
+
+
+def lbfgs_case_run(case: str, side: str) -> dict:
+    """One phase-47 run of ``case`` from a fresh trainer: ``graph``,
+    ``eager`` (the eager program) or ``graph_traced`` (under
+    ``torch.profiler``); its history, the stepsizes and trials it recorded,
+    evaluations, launches, host syncs, search reads, parameters and
+    programs."""
+    import hashlib
+
+    import torch
+
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp, residual_codegen, siren
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    counters = {"fused_residual_loss": fused_step.fused_residual_loss,
+                "generated_residual": residual_codegen.launch,
+                "fourier_features": fourier_feats.fourier_features,
+                "siren_layer": siren.siren_layer, "fused_mlp_score": mlp.fused_mlp_score}
+    tr = lbfgs_graph_trainer(case)
+    for c in counters.values():
+        c.launches = 0
+    e0, r0 = LBFGS.evaluations, LBFGS.host_reads
+    names = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if side == "eager":
+            stack.enter_context(eager_steps())
+        seen = stack.enter_context(search_record())
+        if side == "graph_traced":
+            (res, stacks), device, _ = device_launches(
+                lambda: sync_stacks(lambda: tr.train(seed=0)), names_into=names)
+        else:
+            (res, stacks), device = sync_stacks(lambda: tr.train(seed=0)), None
+    wall = time.perf_counter() - t0
+    kinds, sites = classify_syncs(stacks)
+    final = tr._final_state["params"]["net"]
+    digest = hashlib.sha256()
+    for k in sorted(final):
+        digest.update(final[k].detach().cpu().numpy().tobytes())
+    return {"trainer": tr, "history": res["history"], "wall_s": wall,
+            "launches": {k: c.launches for k, c in counters.items()},
+            "device": device, "names": names, "syncs": kinds, "sync_sites": sites,
+            "evaluations": LBFGS.evaluations - e0, "search_reads": LBFGS.host_reads - r0,
+            "record": [row for o in seen for row in o.record[:o.count].tolist()],
+            "params": digest.hexdigest(), "programs": [p.stats() for p in tr.programs]}
+
+
+def lbfgs_traced_case(case: str) -> None:
+    """Phase 47's traced graph run of ``case``, in a process of its own:
+    prints it as one JSON line. A trace late in a long process named
+    kernels the run never launched (8 of kernel 1's heat kernel and 8 of
+    kernel 2's in a float64 Burgers run after the heat and wave cases,
+    reproducibly, inside the run's window, with the counters, the eager run
+    and the bits agreeing); in a fresh process its names were right."""
+    run = lbfgs_case_run(case, "graph_traced")
+    del run["trainer"]
+    print("TRACED " + json.dumps(run), flush=True)
+
+
+def lbfgs_graph_runs(dev, card: str):
+    """Phase 47: the L-BFGS phase captured against eager (see the module
+    docstring)."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pinnrl_tpu_torch.training import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"card": card}
+    for case in LBFGS_GRAPH_CASES:
+        runs = {side: lbfgs_case_run(case, side) for side in ("graph", "eager")}
+        done = subprocess.run([sys.executable, "-c",
+                               f"import chip_smoke as c; c.lbfgs_traced_case({case!r})"],
+                              cwd=here, capture_output=True, text=True, timeout=300)
+        line = [ln for ln in done.stdout.splitlines() if ln.startswith("TRACED ")]
+        if not line:
+            raise AssertionError(f"lbfgs graph {case}: the traced run failed: "
+                                 f"{done.stderr[-2000:]}")
+        runs["graph_traced"] = json.loads(line[-1][len("TRACED "):])
+        names = runs["graph_traced"]["names"]
+        g, gt, e = runs["graph"], runs["graph_traced"], runs["eager"]
+        tr = g["trainer"]
+        t = tr.tcfg
+        chunks = len(g["history"]["val_loss"])
+        adam_steps = tr.switch_epoch * (t.num_collocation_points // t.batch_size)
+        iterations = t.num_epochs - tr.switch_epoch
+        lprogs = [p for p in g["programs"] if p["name"] == "L-BFGS"]
+        eprogs = [p for p in e["programs"] if p["name"] == "L-BFGS"]
+
+        def same(a, b):
+            return all(a[k] == b[k] for k in ("record", "evaluations", "launches", "params")) \
+                and all(a["history"][k] == b["history"][k] for k in ("train_loss", "val_loss"))
+
+        bits, traced_bits = same(g, e), same(gt, g)
+        evals_recorded = sum(1 + int(n) for _, n in g["record"])
+        k1_f32 = tr.fused_kernel_active and case != "float64"
+        want_k1 = adam_steps + g["evaluations"] + chunks if k1_f32 else None
+        entry = {"iterations": iterations, "chunks": chunks, "bit_identical": bits,
+                 "stepsizes": [s for s, _ in g["record"]],
+                 "trials": [int(n) for _, n in g["record"]], "evaluations": g["evaluations"],
+                 "launches": gt["device"], "counted": g["launches"],
+                 "eager_counted": e["launches"], "syncs": g["syncs"],
+                 "traced_syncs": gt["syncs"], "eager_syncs": e["syncs"],
+                 "sync_sites": {"graph": g["sync_sites"], "eager": e["sync_sites"]},
+                 "host_reads_per_chunk": g["syncs"]["chunk_read"] / chunks,
+                 "search_reads": g["search_reads"], "eager_search_reads": e["search_reads"],
+                 "programs": lprogs, "eager_programs": eprogs, "wall_s": g["wall_s"],
+                 "eager_wall_s": e["wall_s"], "train_loss": g["history"]["train_loss"]}
+        out[case] = entry
+        print(f"[lbfgs graph] {case}: {adam_steps} Adam steps, then {iterations} L-BFGS "
+              f"iterations (stepsizes {entry['stepsizes']}, trials {entry['trials']}, "
+              f"{g['evaluations']} evaluations) in {chunks} chunks; L-BFGS programs {lprogs}; "
+              f"bit-identical to the eager program's run: {bits} (traced run {traced_bits}); "
+              f"device launches in the trace {gt['device']}, counted {g['launches']} (eager "
+              f"{e['launches']}); host syncs {g['syncs']} (eager {e['syncs']}; sites "
+              f"{entry['sync_sites']}); search host reads {g['search_reads']} (eager "
+              f"{e['search_reads']}); wall {g['wall_s']:.2f} s, eager {e['wall_s']:.2f} s "
+              f"({card})", flush=True)
+        rounds = 2 if case == "round" else 1
+        if not (bits and traced_bits and len(lprogs) == rounds
+                and all(p["path"] == "graph" and p["eager_steps"] == 0 for p in lprogs)
+                and sum(p["replays"] for p in lprogs) == iterations == len(g["record"])
+                and all(p["eager_steps"] > 0 and p["replays"] == 0 for p in eprogs)
+                and g["evaluations"] == evals_recorded >= 2 * iterations
+                and all(trace_agrees(gt["device"][k], v) for k, v in g["launches"].items())
+                and (want_k1 is None or g["launches"]["fused_residual_loss"] == want_k1)
+                and (case != "rl" or g["launches"]["fused_mlp_score"] > 0)
+                and g["syncs"]["chunk_read"] == chunks and g["syncs"]["step"] == 0
+                and gt["syncs"]["step"] == 0 and g["search_reads"] == 0
+                and 0 < e["search_reads"] < e["evaluations"]
+                and all(map(math.isfinite, g["history"]["train_loss"]))):
+            traced = {name: n for name, n in names.items()
+                      if any(rx.search(name) for rx in GRAPH_KERNELS.values())}
+            raise AssertionError(f"lbfgs graph {case}: {entry}; the trace's kernels {traced}")
+
+    # Resume inside a pure L-BFGS run: from its first chunk's checkpoint
+    # (the memory restored), against the uninterrupted graph run.
+    with tempfile.TemporaryDirectory() as tmp:
+        keep = Path(tmp) / "ck"
+        tr = lbfgs_graph_trainer("resume")
+        save = tr._save_checkpoint
+
+        def saving(path, epoch, *args):
+            save(path, epoch, *args)
+            if epoch == 2:
+                keep.mkdir()
+                for f in ("checkpoint.npz", "checkpoint.json"):
+                    shutil.copy(str(path.parent / f), str(keep / f))
+
+        tr._save_checkpoint = saving
+        full = tr.train(seed=0, experiment_dir=str(Path(tmp) / "a"))
+        tr2 = lbfgs_graph_trainer("resume")
+        resumed = tr2.train(seed=0, experiment_dir=str(Path(tmp) / "b"),
+                            resume_from=str(keep / "checkpoint.npz"))
+        bits = (full["history"]["train_loss"] == resumed["history"]["train_loss"]
+                and all(torch.equal(v, tr2.model.params[k]) for k, v in tr.model.params.items()))
+        out["resume"] = {"bit_identical": bits, "programs": [p.stats() for p in tr2.programs]}
+        print(f"[lbfgs graph] resume of a pure L-BFGS run at epoch 2 of 4 (its memory restored): "
+              f"equal to the uninterrupted graph run bit for bit: {bits}; resumed program "
+              f"{out['resume']['programs']} ({card})", flush=True)
+        (prog,) = tr2.programs
+        if not (bits and prog.path == "graph" and prog.replays == 2):
+            raise AssertionError(f"lbfgs graph resume: {out['resume']}")
+
+    # ms per iteration in turns (graph, eager, eager, graph) on one fixed
+    # batch from a fresh optimizer, then each side's busy share under the
+    # profiler.
+    timed = {}
+    for case in LBFGS_TIMED_CASES:
+        sides = {}
+        for side in ("graph", "eager"):
+            tr = lbfgs_graph_trainer(case)
+            sides[side] = lbfgs_program_for(tr, 64, graph=side == "graph")
+            for _ in range(2):
+                sides[side][0]()
+        times = {side: [] for side in sides}
+        for r in range(LBFGS_ROUNDS):
+            for side in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+                step = sides[side][0]
+                for _ in range(LBFGS_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    times[side].append((time.perf_counter() - t0) * 1e3)
+        res = {}
+        for side, (step, program) in sides.items():
+            ms = statistics.median(times[side])
+            busy, launches = device_busy(step, LBFGS_PROFILED)
+            res[side] = {"ms": ms, "ms_all": times[side], "busy_ms": busy,
+                         "idle_share": 1.0 - busy / ms, "device_launches": launches,
+                         "program": program.stats()}
+            program.release()
+        res["launch_difference"] = res["graph"]["device_launches"] - res["eager"]["device_launches"]
+        timed[case] = res
+        print(f"[lbfgs graph] {case}: ms per L-BFGS iteration at N=40000, median of "
+              f"{LBFGS_ROUNDS * LBFGS_TIMED} in turns: graph {res['graph']['ms']:.3f} (busy "
+              f"{res['graph']['busy_ms']:.3f}, idle {res['graph']['idle_share']:.3f}, "
+              f"{res['graph']['device_launches']:.1f} launches), eager {res['eager']['ms']:.3f} "
+              f"(busy {res['eager']['busy_ms']:.3f}, idle {res['eager']['idle_share']:.3f}, "
+              f"{res['eager']['device_launches']:.1f} launches); capture "
+              f"{res['graph']['program']['capture_s']:.3f} s, "
+              f"{res['graph']['program']['pool_bytes']} bytes reserved ({card})", flush=True)
+    out["timed"] = timed
+    if trainer_mod.step_path(dev, True, None)[0] != "graph":
+        raise AssertionError("the capture rule does not take the graph for L-BFGS on the card")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[lbfgs graph] phase 47: {out['seconds']:.1f} s ({card})", flush=True)
     return out
 
 
@@ -6078,9 +6478,11 @@ def main() -> int:
             raise AssertionError(f"{key}: kernel 1 launched {run['fused_residual_loss']} times, want "
                                  f"{adam_steps} Adam steps + {run['evaluations']} L-BFGS evaluations "
                                  f"+ {n_vals} validations = {want}")
-        if run["evaluations"] < 2 * len(lbfgs_losses) or run["host_reads"] != run["evaluations"]:
+        # The phase replays its iterations: the search reads nothing (the
+        # chunk's one read is phase 47's check).
+        if run["evaluations"] < 2 * len(lbfgs_losses) or run["host_reads"] != 0:
             raise AssertionError(f"{key}: {run['evaluations']} evaluations and {run['host_reads']} "
-                                 f"host reads in {len(lbfgs_losses)} iterations")
+                                 f"search host reads in {len(lbfgs_losses)} iterations")
         if key == "heat" and run["fourier_features_jvps"] != want:
             raise AssertionError(f"heat: kernel 2's jvp rule ran {run['fourier_features_jvps']} "
                                  f"times, want one per loss ({want})")
@@ -6119,7 +6521,7 @@ def main() -> int:
           f"{lbfgs_evals['kernels']:.2f}, plain {lbfgs_evals['plain']:.2f} ({card})", flush=True)
     print(f"[syncs] one warm L-BFGS iteration: {len(sync_sites)} {sorted(set(sync_sites))}; "
           f"{sync_evals} evaluations, {sync_reads} host reads", flush=True)
-    if len(sync_sites) != sync_reads or sync_reads != sync_evals:
+    if len(sync_sites) != sync_reads or not eager_search_reads(sync_reads, sync_evals):
         raise AssertionError(f"an L-BFGS iteration made {len(sync_sites)} host syncs for "
                              f"{sync_evals} evaluations and {sync_reads} host reads")
     v = variants["burgers"]
@@ -6462,7 +6864,7 @@ def main() -> int:
         for a, b in zip(lbfgs_losses, lbfgs_losses[1:]):
             if not b <= a + APPROX_DEC_RTOL * abs(a):
                 raise AssertionError(f"{key}: the L-BFGS loss rose within its round: {lbfgs_losses}")
-        if any(run[k] != w for k, w in want.items()) or run["host_reads"] != run["evaluations"]:
+        if any(run[k] != w for k, w in want.items()) or run["host_reads"] != 0:
             raise AssertionError(f"{key}: launches {run}, want {want} ({adam_steps} Adam steps + "
                                  f"{run['evaluations']} L-BFGS evaluations + {n_vals} validations)")
         if not all(math.isfinite(x_) for x_ in (conv.rel_l2, conv.max_error, conv.points_per_sec)):
@@ -6501,7 +6903,7 @@ def main() -> int:
         print(f"[syncs] {key}: one warm Adam step {adam_syncs} {adam_sites}; one L-BFGS iteration "
               f"{len(l_sites)} {sorted(set(l_sites))}, {l_evals} evaluations, {l_reads} host reads",
               flush=True)
-        if adam_syncs or len(l_sites) != l_reads or l_reads != l_evals:
+        if adam_syncs or len(l_sites) != l_reads or not eager_search_reads(l_reads, l_evals):
             raise AssertionError(f"{key}: {adam_syncs} host syncs per Adam step; {len(l_sites)} "
                                  f"per L-BFGS iteration of {l_evals} evaluations")
         timed = {"kernels": {"adam": [], "lbfgs": [], "evals": []},
@@ -6697,6 +7099,9 @@ def main() -> int:
     # ---- 46. every Adam phase replays one captured graph of its step -------- #
     graph46 = graph_runs(dev, card)
 
+    # ---- 47. every L-BFGS phase replays its iteration ------------------------ #
+    lbfgs47 = lbfgs_graph_runs(dev, card)
+
     # ---- bounds and cuBLAS yardsticks --------------------------------------- #
     bp = variants["burgers"].model.params
     fused_shapes = fused_gemms(bp, 2, 8192)  # the Burgers call timed in phase 5
@@ -6784,6 +7189,15 @@ def main() -> int:
                                             "host_reads_per_chunk", "program")}
                    for k, v in graph46.items() if isinstance(v, dict) and "program" in v},
          "graph_ms_per_step": graph46["rar"]["ms_per_step"],
+         "lbfgs_graph": {k: {kk: v[kk] for kk in ("launches", "counted", "evaluations", "trials",
+                                                  "bit_identical", "host_reads_per_chunk",
+                                                  "programs")}
+                         for k, v in lbfgs47.items() if isinstance(v, dict) and "programs" in v
+                         and "launches" in v},
+         "lbfgs_graph_ms": {k: {s: {kk: v[s][kk] for kk in ("ms", "busy_ms", "idle_share",
+                                                            "device_launches")}
+                                for s in ("graph", "eager")}
+                            for k, v in lbfgs47["timed"].items()},
          "generated_selects": {
              "programs": gen45["k1i"]["ptxas"],
              "nan_parity": gen45["k1i"]["nan_parity"],

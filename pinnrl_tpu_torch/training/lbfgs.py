@@ -10,12 +10,12 @@ iteration per ``step``:
 
 - the memory is a ring of the last ``memory_size`` differences
   s = w_k - w_{k-1}, y = g_k - g_{k-1} with weights rho = 1 / (y.s), 0 where
-  y.s == 0 (there is no curvature test);
+  y.s == 0 (there is no curvature test); the first iteration writes zeros;
 - the initial inverse Hessian is gamma I: gamma = min(1, 1 / ||g||) on the
   first iteration, y.s / y.y (1 where y.y == 0) after it;
-- the direction is the two-loop recursion, newest entry to oldest and back,
-  in optax's index order; entries never written are skipped (their weight
-  is 0, so optax's pass over them changes nothing);
+- the direction is the two-loop recursion over every slot of the ring,
+  newest to oldest and back, in optax's index order (a slot never written
+  has weight 0 and changes nothing);
 - the zoom search (Nocedal and Wright, algorithms 3.5 and 3.6) expands the
   step by 2 until it brackets a point, then zooms by cubic, quadratic or
   bisection steps; a point is accepted on the Armijo or Hager-Zhang
@@ -24,12 +24,34 @@ iteration per ``step``:
   test (the "safe" step), if any;
 - the accepted stepsize is the next search's first guess ("keep").
 
-Vectors stay on the parameters' device: the memory is two
-``(memory_size, P)`` tensors and the two-loop runs on device scalars. The
-search decides on the host, in the parameters' dtype (numpy scalars, whose
-IEEE rules match XLA's): each evaluation's value and slope come back in one
-transfer. ``LBFGS.evaluations`` counts the objective's evaluations and
-``LBFGS.host_reads`` those transfers, over every instance.
+Everything lives on the parameters' device, in their dtype, in buffers
+updated in place: the memory (two ``(memory_size, P)`` tensors, the weights,
+the count and the last iterate and gradient), the iteration's start point,
+gradient and direction, and the search's state (0-d tensors: the first
+guess, the trial count, low/high/cubic reference with their values and
+slopes, the safe step and its value, the decrease error, the flags
+``interval_found``/``done``/``failed`` and ``active``, whether the search
+takes another trial). An iteration is three pieces with no host read:
+
+- ``start``: one evaluation at w0, the two-loop, the initial value and
+  slope, the search's initial state;
+- ``trial``: one evaluation at w0 + s u, its slope, and the search's
+  decision, written once on 0-d tensors with ``torch.where``,
+  ``torch.maximum`` and ``torch.minimum`` (separate binary operations, which
+  round as numpy and XLA round them), which updates the state and
+  ``active``;
+- ``finish``: the accepted point (the safe step where the search failed),
+  the ring's newest entry, the count and the next first guess.
+
+``step`` runs them eagerly: ``start``, then trials while ``active`` holds
+(``search``: one host read per trial after the first, the only reads of
+an iteration), then ``finish``. The trainer's step program on the card
+replays a captured ``trial`` under an IF node on ``active``
+``max_linesearch_steps`` times instead, and reads nothing
+(``training/step_program.py``). ``LBFGS.evaluations`` counts the
+objective's evaluations (a registered counter of ``ops.kernels.counts``:
+a captured evaluation counts on the device, where its trial runs) and
+``LBFGS.host_reads`` the eager search's reads, over every instance.
 
 This is not ``torch.optim.LBFGS``: its strong-Wolfe search, inner
 ``max_iter`` loop and tolerance exits are another algorithm.
@@ -37,41 +59,56 @@ This is not ``torch.optim.LBFGS``: its strong-Wolfe search, inner
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-_HOST_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+from pinnrl_tpu_torch.ops.kernels import counts
+
 # optax.scale_by_zoom_linesearch's defaults, as the JAX package runs it.
 _INCREASE_FACTOR = 2.0
 _SLOPE_RTOL = 1e-4
 _CURV_RTOL = 0.9
 _APPROX_DEC_RTOL = 1e-6
+_APPROX_SLOPE = 2 * _SLOPE_RTOL - 1.0
 _STEPSIZE_PRECISION = 1e-5
+
+# The search's scalar state, in the parameters' dtype, and its flags.
+_VALUES = ("value_init", "slope_init", "stepsize", "value", "slope", "low", "value_low",
+           "slope_low", "high", "value_high", "slope_high", "cubic_ref", "value_cubic_ref",
+           "safe_stepsize", "safe_value", "dec_err")
+_FLAGS = ("interval_found", "done", "failed")
 
 
 def _cubicmin(a, fa, fpa, b, fb, c, fc):
     """A critical point of the cubic through (a, fa), (b, fb), (c, fc) with
-    slope fpa at a; NaN where it has none (optax's ``_cubicmin``)."""
+    slope fpa at a; NaN where it has none (optax's ``_cubicmin``; powers as
+    XLA's ``integer_pow`` forms them)."""
     C = fpa
     db = b - a
     dc = c - a
-    denom = (db * dc) ** 2 * (db - dc)
+    dbc = db * dc
+    denom = dbc * dbc * (db - dc)
     r_b = fb - fa - C * db
     r_c = fc - fa - C * dc
-    A = (dc**2 * r_b + -(db**2) * r_c) / denom
-    B = (-(dc**3) * r_b + db**3 * r_c) / denom
-    radical = B * B - type(a)(3.0) * A * C
-    return a + (-B + np.sqrt(radical)) / (type(a)(3.0) * A)
+    db2, dc2 = db * db, dc * dc
+    A = (dc2 * r_b + -db2 * r_c) / denom
+    B = (-(dc2 * dc) * r_b + db2 * db * r_c) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + torch.sqrt(radical)) / (3.0 * A)
 
 
 def _quadmin(a, fa, fpa, b, fb):
     """The critical point of the quadratic through (a, fa), (b, fb) with
     slope fpa at a (optax's ``_quadmin``)."""
     db = b - a
-    B = (fb - fa - fpa * db) / (db**2)
-    return a - fpa / (type(a)(2.0) * B)
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (2.0 * B)
+
+
+def _nan_to_inf(err: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isnan(err), torch.full_like(err, float("inf")), err)
 
 
 class LBFGS:
@@ -84,7 +121,6 @@ class LBFGS:
     returns what the closure returned at the starting point.
     """
 
-    evaluations = 0
     host_reads = 0
 
     def __init__(self, params: Sequence[torch.Tensor], memory_size: int,
@@ -93,227 +129,291 @@ class LBFGS:
             raise ValueError("memory_size must be >= 1")
         self.params: List[torch.Tensor] = list(params)
         dtype = self.params[0].dtype
-        if dtype not in _HOST_DTYPES or any(p.dtype != dtype for p in self.params):
+        if dtype not in (torch.float32, torch.float64) or any(p.dtype != dtype
+                                                              for p in self.params):
             raise ValueError(f"LBFGS needs float32 or float64 parameters of one dtype, got {dtype}")
-        self.F = F = _HOST_DTYPES[dtype]
         self._sizes = [p.numel() for p in self.params]
         n = sum(self._sizes)
         self.memory_size = memory_size
         self.max_linesearch_steps = max_linesearch_steps
-        # The search's constants in the parameters' dtype, as optax's weak types.
-        self.increase_factor = F(_INCREASE_FACTOR)
-        self.slope_rtol = F(_SLOPE_RTOL)
-        self.curv_rtol = F(_CURV_RTOL)
-        self.approx_dec_rtol = F(_APPROX_DEC_RTOL)
-        self.approx_slope = F(2 * _SLOPE_RTOL - 1.0)
-        self.stepsize_precision = F(_STEPSIZE_PRECISION)
-        kw = dict(dtype=dtype, device=self.params[0].device)
+        device = self.params[0].device
+        kw = dict(dtype=dtype, device=device)
         self.s_memory = torch.zeros((memory_size, n), **kw)
         self.y_memory = torch.zeros((memory_size, n), **kw)
         self.rho = torch.zeros(memory_size, **kw)
-        self.count = 0
-        self.stepsize = F(1.0)  # the next search's first guess
-        self._w_prev: Optional[torch.Tensor] = None
-        self._g_prev: Optional[torch.Tensor] = None
-        self.trials = 0  # line-search evaluations of the last step
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self._slots = torch.arange(memory_size, device=device)
+        self._w_prev = torch.zeros(n, **kw)
+        self._g_prev = torch.zeros(n, **kw)
+        # The iteration's start point, its gradient and the search direction.
+        self._w0 = torch.zeros(n, **kw)
+        self._g0 = torch.zeros(n, **kw)
+        self._u = torch.zeros(n, **kw)
+        self._guess = torch.ones((), **kw)  # the next search's first guess
+        self._zero = torch.zeros((), **kw)
+        self._inf = torch.full((), float("inf"), **kw)
+        self._state = {k: torch.zeros((), **kw) for k in _VALUES}
+        self._flags = {k: torch.zeros((), dtype=torch.bool, device=device) for k in _FLAGS}
+        self.active = torch.zeros((), dtype=torch.bool, device=device)
+        self._trials = torch.zeros((), dtype=torch.int64, device=device)
+
+    # ------------------------------------------------------------------ #
+    # What the host reads (outside an iteration)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def count(self) -> int:
+        """Iterations taken."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(value)
+
+    @property
+    def stepsize(self) -> float:
+        """The last accepted stepsize: the next search's first guess."""
+        return float(self._guess)
+
+    @property
+    def trials(self) -> int:
+        """The line-search evaluations of the last iteration."""
+        return int(self._trials)
 
     # ------------------------------------------------------------------ #
     # Device side
     # ------------------------------------------------------------------ #
 
-    def _flat(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    @staticmethod
+    def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.cat([t.detach().reshape(-1) for t in tensors])
 
     @torch.no_grad()
-    def _assign(self, w: torch.Tensor) -> None:
+    def _assign(self, stepsize: torch.Tensor) -> None:
+        """The parameters <- w0 + stepsize u (a product, then a sum)."""
+        w = torch.add(self._w0, torch.mul(self._u, stepsize))
         views = [v.view_as(p) for v, p in zip(w.split(self._sizes), self.params)]
         torch._foreach_copy_(self.params, views)
 
-    def _evaluate(self, closure: Callable[[], Tuple], w: Optional[torch.Tensor] = None):
-        """(closure's output, flat gradient), at ``w`` if given."""
-        if w is not None:
-            self._assign(w)
+    def _evaluate(self, closure: Callable[[], Tuple]):
+        """(closure's output, its value in the parameters' dtype, flat
+        gradient)."""
         out = closure()
-        LBFGS.evaluations += 1
-        return out, self._flat(out[1])
-
-    def _read(self, *scalars: torch.Tensor):
-        """0-d device tensors -> host scalars, in one transfer."""
-        LBFGS.host_reads += 1
-        vals = torch.stack([s.detach().reshape(()).to(self.s_memory.dtype) for s in scalars]).cpu()
-        return [self.F(v) for v in vals.numpy()]
+        counts.add(LBFGS, "evaluations")
+        return out, out[0].detach().reshape(()).to(self._w0.dtype), self._flat(out[1])
 
     @torch.no_grad()
-    def _direction(self, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        """Write (w - w_prev, g - g_prev) into the ring, then the two-loop
-        recursion: H g."""
-        k, m = self.count, self.memory_size
-        if k > 0:
-            s, y = w - self._w_prev, g - self._g_prev
-            ys = torch.dot(y, s)
-            i = (k - 1) % m
-            self.s_memory[i].copy_(s)
-            self.y_memory[i].copy_(y)
-            self.rho[i] = torch.where(ys == 0.0, torch.zeros_like(ys), 1.0 / ys)
-            yy = torch.dot(y, y)
-            gamma = torch.where(yy > 0.0, ys / yy, torch.ones_like(yy))
-        else:
-            gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
-        order = [(k - 1 - j) % m for j in range(min(k, m))]  # newest first
-        q = g.clone()
+    def _direction(self) -> torch.Tensor:
+        """Write (w0 - w_prev, g0 - g_prev) into the ring's slot count - 1
+        (zeros on the first iteration, as optax), then the two-loop
+        recursion over every slot: H g0."""
+        m, k = self.memory_size, self._count
+        first = k == 0
+        s = torch.where(first, self._zero, self._w0 - self._w_prev)
+        y = torch.where(first, self._zero, self._g0 - self._g_prev)
+        ys = torch.dot(y, s)
+        i = torch.remainder(k - 1, m).reshape(1)
+        self.s_memory.index_copy_(0, i, s.unsqueeze(0))
+        self.y_memory.index_copy_(0, i, y.unsqueeze(0))
+        self.rho.index_copy_(0, i, torch.where(ys == 0.0, self._zero, 1.0 / ys).reshape(1))
+        yy = torch.dot(y, y)
+        gamma = torch.where(first, torch.clamp(1.0 / torch.linalg.vector_norm(self._g0), max=1.0),
+                            torch.where(yy > 0.0, ys / yy, torch.ones_like(yy)))
+        order = torch.remainder(k - 1 - self._slots, m)  # newest first
+        S, Y, rho = (t.index_select(0, order) for t in (self.s_memory, self.y_memory, self.rho))
+        q = self._g0.clone()
         alphas = []
-        for i in order:
-            alpha = self.rho[i] * torch.dot(self.s_memory[i], q)
-            q.addcmul_(self.y_memory[i], alpha, value=-1.0)
+        for j in range(m):
+            alpha = rho[j] * torch.dot(S[j], q)
+            q.addcmul_(Y[j], alpha, value=-1.0)
             alphas.append(alpha)
         q.mul_(gamma)
-        for i, alpha in zip(reversed(order), reversed(alphas)):
-            beta = self.rho[i] * torch.dot(self.y_memory[i], q)
-            q.addcmul_(self.s_memory[i], alpha - beta)
+        for j in reversed(range(m)):
+            beta = rho[j] * torch.dot(Y[j], q)
+            q.addcmul_(S[j], alphas[j] - beta)
         return q
 
-    def _trial(self, closure, w0: torch.Tensor, u: torch.Tensor, stepsize):
-        """(value, slope) at w0 + stepsize u."""
-        out, g = self._evaluate(closure, torch.add(w0, u, alpha=float(stepsize)))
-        return self._read(out[0], torch.dot(g, u))
-
-    # ------------------------------------------------------------------ #
-    # Host side: the zoom line search
-    # ------------------------------------------------------------------ #
-
-    def _decrease_error(self, stepsize, value, slope, value_init, slope_init):
-        """How far the Armijo test, or failing it the approximate decrease
-        test, is from holding (0 where one holds; inf for NaN)."""
-        err = value - value_init - self.slope_rtol * stepsize * slope_init
-        approx = slope - self.approx_slope * slope_init
-        approx = np.maximum(approx, value - value_init - self.approx_dec_rtol * np.abs(value_init))
-        err = np.maximum(np.minimum(approx, err), self.F(0.0))
-        return self.F(np.inf) if np.isnan(err) else err
-
-    def _curvature_error(self, slope, slope_init):
-        err = np.maximum(np.abs(slope) - self.curv_rtol * np.abs(slope_init), self.F(0.0))
-        return self.F(np.inf) if np.isnan(err) else err
-
-    def _line_search(self, closure, w0, u, value_init, slope_init):
-        """The accepted stepsize along ``u`` and the number of trials."""
-        F = self.F
-        zero = F(0.0)
-        count = 0
-        stepsize, value, slope = zero, value_init, slope_init
-        dec_err = F(np.inf)
-        interval_found = done = failed = False
-        low = high = cubic_ref = zero
-        value_low = value_high = value_cubic_ref = value_init
-        slope_low = slope_high = slope_init
-        safe_stepsize, safe_value = zero, value_init
-        while not (done or failed):
-            last = count + 1 >= self.max_linesearch_steps
-            if not interval_found:
-                # Expand until an interval holds a point that meets both tests.
-                new = self.stepsize if count == 0 else self.increase_factor * stepsize
-                v, s = self._trial(closure, w0, u, new)
-                dec_err = self._decrease_error(new, v, s, value_init, slope_init)
-                err = np.maximum(dec_err, self._curvature_error(s, slope_init))
-                if dec_err <= 0.0:
-                    safe_stepsize, safe_value = new, v
-                set_high = bool(dec_err > 0.0) or bool(v >= value and count > 0)
-                set_low = bool(s >= 0.0) and not set_high
-                if set_low:
-                    low, value_low, slope_low, high, value_high, slope_high = (
-                        new, v, s, stepsize, value, slope)
-                else:
-                    low, value_low, slope_low, high, value_high, slope_high = (
-                        stepsize, value, slope, new, v, s)
-                done = bool(err <= 0.0)
-                interval_found = set_high or set_low or done
-                failed = last and not done
-                cubic_ref, value_cubic_ref = low, value_low
-                stepsize, value, slope = new, v, s
-            else:
-                # Zoom into [low, high] by cubic, quadratic or bisection steps.
-                delta = np.abs(high - low)
-                left, right = np.minimum(high, low), np.maximum(high, low)
-                cubic_chk, quad_chk = F(0.2) * delta, F(0.1) * delta
-                too_small = bool(delta <= self.stepsize_precision)
-                middle = _cubicmin(low, value_low, slope_low, high, value_high, cubic_ref,
-                                   value_cubic_ref)
-                if not (middle > left + cubic_chk and middle < right - cubic_chk):
-                    middle = _quadmin(low, value_low, slope_low, high, value_high)
-                    if not (middle > left + quad_chk and middle < right - quad_chk):
-                        middle = (low + high) / F(2.0)
-                v, s = self._trial(closure, w0, u, middle)
-                dec_err = self._decrease_error(middle, v, s, value_init, slope_init)
-                err = np.maximum(dec_err, self._curvature_error(s, slope_init))
-                if dec_err <= 0.0 and v < safe_value:
-                    safe_stepsize, safe_value = middle, v
-                done = bool(err <= 0.0)
-                set_high_to_middle = bool(dec_err > 0.0) or bool(v >= value_low)
-                set_high_to_low = bool(s * (high - low) >= 0.0) and not set_high_to_middle
-                if set_high_to_middle or set_high_to_low:
-                    cubic_ref, value_cubic_ref = high, value_high
-                else:
-                    cubic_ref, value_cubic_ref = low, value_low
-                if set_high_to_middle:
-                    high, value_high, slope_high = middle, v, s
-                elif set_high_to_low:
-                    high, value_high, slope_high = low, value_low, slope_low
-                if not set_high_to_middle:
-                    low, value_low, slope_low = middle, v, s
-                failed = (last or (too_small and bool(safe_stepsize > 0.0))) and not done
-                stepsize, value, slope = middle, v, s
-            count += 1
-        if failed and (safe_stepsize > 0.0 or np.isinf(dec_err)):
-            stepsize = safe_stepsize
-        return stepsize, count
-
-    # ------------------------------------------------------------------ #
-    # One iteration
-    # ------------------------------------------------------------------ #
-
-    def step(self, closure: Callable[[], Tuple]) -> Tuple:
-        w0 = self._flat(self.params)
-        out, g0 = self._evaluate(closure)
-        u = self._direction(w0, g0).neg_()
-        value_init, slope_init = self._read(out[0], torch.dot(u, g0))
-        with np.errstate(all="ignore"):
-            stepsize, self.trials = self._line_search(closure, w0, u, value_init, slope_init)
-        self._assign(torch.add(w0, u, alpha=float(stepsize)))
-        self._w_prev, self._g_prev = w0, g0
-        self.count += 1
-        self.stepsize = stepsize
+    def start(self, closure: Callable[[], Tuple]) -> Tuple:
+        """One evaluation at the parameters (w0), the direction, the
+        search's initial state. Returns the closure's output."""
+        with torch.no_grad():
+            torch.cat([p.detach().reshape(-1) for p in self.params], out=self._w0)
+        out, value, g = self._evaluate(closure)
+        with torch.no_grad():
+            self._g0.copy_(g)
+            torch.neg(self._direction(), out=self._u)
+            slope = torch.dot(self._u, self._g0)
+            st, zero = self._state, self._zero
+            init = {"value_init": value, "slope_init": slope, "stepsize": zero, "value": value,
+                    "slope": slope, "low": zero, "value_low": value, "slope_low": slope,
+                    "high": zero, "value_high": value, "slope_high": slope, "cubic_ref": zero,
+                    "value_cubic_ref": value, "safe_stepsize": zero, "safe_value": value,
+                    "dec_err": self._inf}
+            torch._foreach_copy_([st[k] for k in _VALUES], [init[k] for k in _VALUES])
+            torch._foreach_zero_(list(self._flags.values()) + [self._trials])
+            self.active.fill_(True)
         return out
 
+    def _decrease_error(self, stepsize, value, slope):
+        """How far the Armijo test, or failing it the approximate decrease
+        test, is from holding (0 where one holds; inf for NaN)."""
+        st = self._state
+        value_init, slope_init = st["value_init"], st["slope_init"]
+        err = value - value_init - _SLOPE_RTOL * stepsize * slope_init
+        approx = slope - _APPROX_SLOPE * slope_init
+        approx = torch.maximum(approx, value - value_init - _APPROX_DEC_RTOL * torch.abs(value_init))
+        return _nan_to_inf(torch.clamp_min(torch.minimum(approx, err), 0.0))
+
+    def _curvature_error(self, slope):
+        err = torch.abs(slope) - _CURV_RTOL * torch.abs(self._state["slope_init"])
+        return _nan_to_inf(torch.clamp_min(err, 0.0))
+
+    def trial(self, closure: Callable[[], Tuple]) -> None:
+        """One trial of the search: its stepsize (the expansion's next, or
+        the zoom's middle), one evaluation there, its slope, and the
+        decision, written into the state in place."""
+        st, fl = self._state, self._flags
+        found = fl["interval_found"]
+        with torch.no_grad():
+            stepsize, low, high = st["stepsize"], st["low"], st["high"]
+            value_low, slope_low = st["value_low"], st["slope_low"]
+            value_high, slope_high = st["value_high"], st["slope_high"]
+            expand = torch.where(self._trials == 0, self._guess, _INCREASE_FACTOR * stepsize)
+            # Zoom into [low, high] by a cubic, quadratic or bisection step.
+            delta = torch.abs(high - low)
+            left, right = torch.minimum(high, low), torch.maximum(high, low)
+            cubic_chk, quad_chk = 0.2 * delta, 0.1 * delta
+            cubic = _cubicmin(low, value_low, slope_low, high, value_high, st["cubic_ref"],
+                              st["value_cubic_ref"])
+            use_cubic = (cubic > left + cubic_chk) & (cubic < right - cubic_chk)
+            quad = _quadmin(low, value_low, slope_low, high, value_high)
+            use_quad = ~use_cubic & (quad > left + quad_chk) & (quad < right - quad_chk)
+            middle = torch.where(use_cubic, cubic, torch.where(use_quad, quad, (low + high) / 2.0))
+            new = torch.where(found, middle, expand)
+            self._assign(new)
+        _, v, g = self._evaluate(closure)
+        with torch.no_grad():
+            s = torch.dot(g, self._u)
+            dec = self._decrease_error(new, v, s)
+            done = torch.maximum(dec, self._curvature_error(s)) <= 0.0
+            last = self._trials + 1 >= self.max_linesearch_steps
+            # Expansion (no interval yet): bracket from the previous trial.
+            safe_e = dec <= 0.0
+            set_high = (dec > 0.0) | ((v >= st["value"]) & (self._trials > 0))
+            set_low = (s >= 0.0) & ~set_high
+            low_e = torch.where(set_low, new, stepsize)
+            value_low_e = torch.where(set_low, v, st["value"])
+            slope_low_e = torch.where(set_low, s, st["slope"])
+            # Zoom: shrink the interval around the middle.
+            safe_z = (dec <= 0.0) & (v < st["safe_value"])
+            to_middle = (dec > 0.0) | (v >= value_low)
+            to_low = (s * (high - low) >= 0.0) & ~to_middle
+            take_safe = torch.where(found, safe_z, safe_e)
+            safe_stepsize = torch.where(take_safe, new, st["safe_stepsize"])
+            failed_z = (last | ((delta <= _STEPSIZE_PRECISION) & (safe_stepsize > 0.0))) & ~done
+            ref_high = to_middle | to_low
+
+            def pick(zoom, expansion):
+                return torch.where(found, zoom, expansion)
+
+            new_state = {
+                "stepsize": new, "value": v, "slope": s, "dec_err": dec,
+                "low": pick(torch.where(to_middle, low, new), low_e),
+                "value_low": pick(torch.where(to_middle, value_low, v), value_low_e),
+                "slope_low": pick(torch.where(to_middle, slope_low, s), slope_low_e),
+                "high": pick(torch.where(to_middle, new, torch.where(to_low, low, high)),
+                             torch.where(set_low, stepsize, new)),
+                "value_high": pick(torch.where(to_middle, v, torch.where(to_low, value_low,
+                                                                         value_high)),
+                                   torch.where(set_low, st["value"], v)),
+                "slope_high": pick(torch.where(to_middle, s, torch.where(to_low, slope_low,
+                                                                         slope_high)),
+                                   torch.where(set_low, st["slope"], s)),
+                "cubic_ref": pick(torch.where(ref_high, high, low), low_e),
+                "value_cubic_ref": pick(torch.where(ref_high, value_high, value_low), value_low_e),
+                "safe_stepsize": safe_stepsize,
+                "safe_value": torch.where(take_safe, v, st["safe_value"]),
+            }
+            failed = pick(failed_z, last & ~done)
+            new_flags = {"interval_found": found | set_high | set_low | done, "done": done,
+                         "failed": failed}
+            keys = [k for k in _VALUES if k in new_state]
+            torch._foreach_copy_([st[k] for k in keys], [new_state[k] for k in keys])
+            torch._foreach_copy_([fl[k] for k in _FLAGS], [new_flags[k] for k in _FLAGS])
+            self.active.copy_(~(done | failed))
+            self._trials.add_(1)
+
+    @torch.no_grad()
+    def finish(self) -> None:
+        """Take the accepted stepsize (the safe one where the search failed
+        and has one, or left the domain), keep this iteration's point and
+        gradient for the next ring entry, and keep the stepsize as the next
+        first guess."""
+        st = self._state
+        use_safe = self._flags["failed"] & ((st["safe_stepsize"] > 0.0)
+                                            | torch.isinf(st["dec_err"]))
+        stepsize = torch.where(use_safe, st["safe_stepsize"], st["stepsize"])
+        self._assign(stepsize)
+        torch._foreach_copy_([self._w_prev, self._g_prev, self._guess],
+                             [self._w0, self._g0, stepsize])
+        self._count.add_(1)
+
+    def more(self) -> bool:
+        """Whether the search takes another trial: one host read."""
+        LBFGS.host_reads += 1
+        return bool(self.active)
+
+    def search(self, trial: Callable[[], None]) -> None:
+        """The eager line search: ``trial()`` while ``more()`` (the first
+        trial always runs)."""
+        for k in range(self.max_linesearch_steps):
+            if k and not self.more():
+                break
+            trial()
+
+    def step(self, closure: Callable[[], Tuple]) -> Tuple:
+        out = self.start(closure)
+        self.search(lambda: self.trial(closure))
+        self.finish()
+        return out
+
+    # ------------------------------------------------------------------ #
+    # State
+    # ------------------------------------------------------------------ #
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "stepsize": float(self.stepsize), "s_memory": self.s_memory,
-                "y_memory": self.y_memory, "rho": self.rho, "params": self._w_prev,
-                "grads": self._g_prev}
+        count = self.count
+        return {"count": count, "stepsize": self.stepsize, "s_memory": self.s_memory,
+                "y_memory": self.y_memory, "rho": self.rho,
+                "params": self._w_prev if count else None,
+                "grads": self._g_prev if count else None}
 
     def arrays(self, names: Sequence[str]) -> dict:
         """The state as numpy arrays (a checkpoint's): the memory, the
         step count and first guess, and the last iterate and gradient."""
-        out = {"lbfgs/count": np.asarray(self.count), "lbfgs/stepsize": np.asarray(self.stepsize),
+        count = self.count
+        out = {"lbfgs/count": np.asarray(count), "lbfgs/stepsize": self._guess.cpu().numpy(),
                "lbfgs/names": np.asarray(list(names))}
         for key in ("s_memory", "y_memory", "rho"):
             out[f"lbfgs/{key}"] = getattr(self, key).cpu().numpy()
-        if self._w_prev is not None:
+        if count:
             out["lbfgs/w_prev"] = self._w_prev.cpu().numpy()
             out["lbfgs/g_prev"] = self._g_prev.cpu().numpy()
         return out
 
+    @torch.no_grad()
     def load_arrays(self, arrays: dict, names: Sequence[str]) -> None:
-        """Restore what ``arrays`` wrote; raises KeyError on the state of
-        another problem."""
+        """Restore what ``arrays`` wrote, in place; raises KeyError on the
+        state of another problem."""
         if list(arrays["lbfgs/names"]) != list(names) or \
                 arrays["lbfgs/s_memory"].shape != tuple(self.s_memory.shape):
             raise KeyError("the L-BFGS memory does not match these parameters")
-        dev = self.s_memory.device
+        targets = {"s_memory": self.s_memory, "y_memory": self.y_memory, "rho": self.rho,
+                   "count": self._count, "stepsize": self._guess, "w_prev": self._w_prev,
+                   "g_prev": self._g_prev}
+        for key, target in targets.items():
+            if f"lbfgs/{key}" in arrays:
+                target.copy_(torch.as_tensor(arrays[f"lbfgs/{key}"]).reshape(target.shape))
 
-        def load(key):
-            return torch.as_tensor(arrays[key]).to(dev)
 
-        for key in ("s_memory", "y_memory", "rho"):
-            setattr(self, key, load(f"lbfgs/{key}"))
-        self.count = int(arrays["lbfgs/count"])
-        self.stepsize = self.F(arrays["lbfgs/stepsize"])
-        if "lbfgs/w_prev" in arrays:
-            self._w_prev, self._g_prev = load("lbfgs/w_prev"), load("lbfgs/g_prev")
+counts.register(LBFGS, "evaluations")

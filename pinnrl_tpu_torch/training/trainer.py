@@ -8,9 +8,10 @@ RL-adaptive through the DQN agent's scores), computes the loss components
 step — the JAX package's scanned step. With an agent, the step then
 rewards the agent on the updated parameters and takes its DQN update.
 Each phase runs its steps through a step program
-(``training/step_program.py``): on the card every Adam phase captures one
-step as a CUDA graph and replays it once per step (``step_path`` says
-which phases: L-BFGS and device meshes stay eager). Each step's row of
+(``training/step_program.py``): on the card every phase captures its step
+as CUDA graphs and replays them once per step, an L-BFGS iteration as its
+start, its line-search trial under an IF node (replayed 25 times) and its
+finish (``step_path`` says which phases: device meshes stay eager). Each step's row of
 losses and weights goes into a device buffer; nothing in a step reads a
 device value back, and the host reads a chunk's epoch rows, the plateau
 scale and the last points once, at the chunk's end, as the JAX package
@@ -148,7 +149,7 @@ from pinnrl_tpu_torch.parallel.mesh import Mesh, pad_to_multiple, replicate, sha
 from pinnrl_tpu_torch.pdes.base import PDEBase
 from pinnrl_tpu_torch.training.adaptive_weights import AdaptiveLossWeights, AdaptiveWeightState
 from pinnrl_tpu_torch.training.lbfgs import LBFGS
-from pinnrl_tpu_torch.training.step_program import StepProgram, step_path
+from pinnrl_tpu_torch.training.step_program import Search, StepProgram, step_path
 from pinnrl_tpu_torch.utils.io import (
     save_live_snapshot,
     save_training_metrics,
@@ -725,8 +726,12 @@ class PDETrainer:
         ``epoch``: its path by ``step_path``, logged."""
         lbfgs = isinstance(opt, LBFGS)
         path, why = step_path(self.device, lbfgs, self.mesh)
+        search = None
         if lbfgs:
             name = "L-BFGS"
+            start, trial, finish, reseed, loss_gen = self._lbfgs_pieces(params, opt, batch, gens[0])
+            search = Search(start, trial, finish, opt.active, opt.max_linesearch_steps, reseed,
+                            [loss_gen])
 
             def body():
                 return self._lbfgs_step(params, opt, batch, gens[0])
@@ -741,13 +746,14 @@ class PDETrainer:
             def body():
                 return self._step(params, opt, gens[0], batch_size)
         agent = self.rl_agent
-        optimizers = [opt] + ([self._rl_state.opt_state] if agent is not None else [])
+        optimizers = ([] if lbfgs else [opt]) + ([self._rl_state.opt_state] if agent is not None
+                                                 else [])
         program = StepProgram(
             body, path, self.device, capacity=val_every * steps_per_epoch, epochs=val_every,
             generators=gens, optimizers=optimizers,
             counters=[(self, "_ema_n")],
             ready=(lambda: agent.settled(self._rl_state)) if agent is not None else (lambda: True),
-            name=name)
+            name=name, search=search)
         logger.info("%s phase at epoch %d: %s steps (%s)", name, epoch, path, why)
         self.programs.append(program)
         return program
@@ -787,17 +793,27 @@ class PDETrainer:
             pts = np.asarray(flat[k + plateau:], dtype=dtype).reshape(tuple(pts.shape))
         return rows, scale, pts
 
-    def _lbfgs_step(self, params: Dict[str, torch.Tensor], opt: LBFGS, batch,
-                    generator: torch.Generator) -> torch.Tensor:
+    def _lbfgs_pieces(self, params: Dict[str, torch.Tensor], opt: LBFGS, batch,
+                      generator: torch.Generator):
         """One L-BFGS iteration on the round's ``batch`` = (x, t, BC/IC seed)
-        (-> the agent's update). Returns ``_row`` at the starting point."""
+        as ``LBFGS``'s pieces: ``start`` (the objective at the iteration's
+        point, whose ``_row`` it keeps in a buffer), ``trial``, and ``finish``
+        (-> the agent's update; returns the row); then ``reseed`` and the
+        objective's generator. The objective draws its BC/IC points from that
+        generator reseeded at every evaluation, so the line search sees one
+        function; a captured evaluation cannot reseed, and the step program
+        calls ``reseed`` before each replay instead."""
         x, t, loss_seed = batch
-        self._keep_points(x, t)
         loss_gen = torch.Generator(device=self.device)
+        row: List[torch.Tensor] = []  # the iteration's row, a buffer written in place
+
+        def reseed():
+            loss_gen.manual_seed(loss_seed)
 
         def objective():
-            # Reseeded at every evaluation: the line search sees one function.
-            losses = self._sharded_loss(params, x, t, loss_gen.manual_seed(loss_seed))
+            if not (self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+                reseed()
+            losses = self._sharded_loss(params, x, t, loss_gen)
             value = losses["total"]
             grads = torch.autograd.grad(value, opt.params, allow_unused=True,
                                         materialize_grads=True)
@@ -806,10 +822,37 @@ class PDETrainer:
                 value, *grads = self.mesh.all_reduce_mean([value.detach()] + list(grads))
             return value, grads, losses
 
-        losses = opt.step(objective)[2]
-        if self.rl_agent is not None:
-            self._rl_update(params, x, t, losses, generator)
-        return self._row(losses["total"], losses, self.adaptive_weights.get_weights(self._aw_state))
+        def start():
+            self._keep_points(x, t)
+            losses = opt.start(objective)[2]
+            new = self._row(losses["total"], losses,
+                            self.adaptive_weights.get_weights(self._aw_state))
+            if row:
+                row[0].copy_(new)
+            else:
+                row.append(new)
+
+        def trial():
+            opt.trial(objective)
+
+        def finish():
+            opt.finish()
+            if self.rl_agent is not None:
+                # The BC and IC losses at the iteration's start: the row's.
+                self._rl_update(params, x, t, {k: row[0][1 + _COMPONENTS.index(k)]
+                                               for k in ("boundary", "initial")}, generator)
+            return row[0]
+
+        return start, trial, finish, reseed, loss_gen
+
+    def _lbfgs_step(self, params: Dict[str, torch.Tensor], opt: LBFGS, batch,
+                    generator: torch.Generator) -> torch.Tensor:
+        """One eager L-BFGS iteration on the round's ``batch`` (-> the agent's
+        update). Returns ``_row`` at the starting point."""
+        start, trial, finish, _, _ = self._lbfgs_pieces(params, opt, batch, generator)
+        start()
+        opt.search(trial)
+        return finish()
 
     # ------------------------------------------------------------------ #
     # Float64 phase and mesh rank

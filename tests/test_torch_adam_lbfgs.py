@@ -291,7 +291,11 @@ def test_lbfgs_counts_evaluations_and_host_reads():
     e0, r0 = LBFGS.evaluations, LBFGS.host_reads
     ttr.train(num_epochs=2, seed=0)
     evals, reads = LBFGS.evaluations - e0, LBFGS.host_reads - r0
-    assert evals == reads and evals >= 4  # one initial evaluation and >= 1 trial per iteration
+    assert evals >= 4  # one initial evaluation and >= 1 trial per iteration
+    # The eager search reads ``active`` once per trial after the first, and
+    # once more unless it ran out of steps: at most one read per evaluation.
+    iterations = 2
+    assert evals - 2 * iterations <= reads <= evals - iterations
 
 
 def test_the_agent_updates_after_every_lbfgs_step_on_the_fixed_batch():

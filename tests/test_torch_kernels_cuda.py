@@ -1697,10 +1697,11 @@ def test_member_batched_kernels_2_and_3_equal_single_launches(cuda_device):
     assert _rel(out, siren.siren_layer_plain(xs, W, b)) < 1e-5
 
 
-def _graph_slice(device, rl: bool = False):
+def _graph_slice(device, rl: bool = False, **training):
     """The Burgers slice at a small width (Fourier 64x2, mapping 32; 2048
     points in batches of 512; RAR, or uniform with the DQN agent), to train
-    2 chunks of 2 epochs."""
+    2 chunks of 2 epochs (``training``: settings of ``cfg.training`` to
+    change first)."""
     from pinnrl_tpu_torch.config import load_config
     from pinnrl_tpu_torch.models import PINNModel
     from pinnrl_tpu_torch.pdes import create_pde
@@ -1719,6 +1720,8 @@ def _graph_slice(device, rl: bool = False):
     t.num_boundary_points = t.num_initial_points = 256
     t.collocation_distribution = "uniform" if rl else "residual_based"
     t.early_stopping.enabled = False
+    for key, value in training.items():
+        setattr(t, key, value)
     agent = RLAgent(hidden_dim=64, batch_size=124, device=device) if rl else None
     return PDETrainer(PINNModel(cfg, seed=0), create_pde(cfg), cfg, rl_agent=agent)
 
@@ -1799,3 +1802,67 @@ def test_a_replayed_launch_counts_on_the_device(cuda_device):
     counts.settle(tally, tally.tolist())
     assert ff.launches == before + 3 and int(tally.sum()) == 0
     assert torch.equal(out, fourier_feats.fourier_features_cuda(x, B))
+
+
+def _lbfgs_slice(device, rl: bool = False, dtype: str = "float32"):
+    """``_graph_slice`` through Adam then L-BFGS: 6 epochs, the switch at 3,
+    validation every 2 epochs (the L-BFGS phase's chunks: 1 and 2
+    iterations)."""
+    return _graph_slice(device, rl, optimizer="adam_lbfgs", num_epochs=6,
+                        adam_lbfgs_switch_ratio=0.5, residual_dtype=dtype)
+
+
+@pytest.mark.parametrize("rl,dtype", [(False, "float32"), (True, "float32"), (False, "float64")])
+def test_graph_lbfgs_run_equals_eager(cuda_device, rl, dtype, monkeypatch):
+    """The L-BFGS phase replayed (start, 25 trials under the IF node,
+    finish) against the eager program's (every trial guarded by a host
+    read), bit for bit: history, parameters, evaluations, kernel-1
+    launches; the graph run's phase makes no host read inside a chunk."""
+    import sys
+
+    from pinnrl_tpu_torch.ops.kernels import fused_step
+    from pinnrl_tpu_torch.training import step_program
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    runs = []
+    for graphs in (True, False):
+        if not graphs:
+            monkeypatch.setattr(step_program, "WARMUP_STEPS", sys.maxsize)
+        tr = _lbfgs_slice(cuda_device, rl, dtype)
+        k1 = fused_step.fused_residual_loss
+        e0, l0, r0 = LBFGS.evaluations, k1.launches, LBFGS.host_reads
+        res = tr.train(seed=0)
+        torch.cuda.synchronize()
+        runs.append((tr, res["history"], LBFGS.evaluations - e0, k1.launches - l0,
+                     LBFGS.host_reads - r0))
+    (g, gh, ge, gl, gr), (e, eh, ee, el, er) = runs
+    assert [p.path for p in g.programs] == ["graph", "graph"]
+    adam, lbfgs = g.programs
+    assert lbfgs.replays == 3 and lbfgs.eager_steps == 0 and e.programs[1].eager_steps == 3
+    assert gh["train_loss"] == eh["train_loss"] and gh["val_loss"] == eh["val_loss"]
+    for k, v in g.model.params.items():
+        assert torch.equal(v, e.model.params[k]), k
+    assert ge == ee >= 6 and gl == el
+    assert gr == 0 and er > 0  # the graph run's search reads nothing on the host
+
+
+def test_a_failed_lbfgs_capture_raises(cuda_device):
+    """A trial that reads a value back cannot be captured: the run raises
+    and takes no eager trial in its place."""
+    from pinnrl_tpu_torch.training.lbfgs import LBFGS
+
+    tr = _graph_slice(cuda_device, optimizer="lbfgs", num_epochs=2)
+    trial = LBFGS.trial
+
+    def reading(self, closure):
+        trial(self, closure)
+        float(self._state["value"])  # a host read inside the trial
+
+    LBFGS.trial = reading
+    try:
+        with pytest.raises(RuntimeError):
+            tr.train(seed=0)
+    finally:
+        LBFGS.trial = trial
+    (program,) = tr.programs
+    assert program.path == "graph" and program.replays == 0 and "trial" not in program.graphs

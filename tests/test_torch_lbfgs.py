@@ -70,8 +70,12 @@ def test_two_loop_direction_matches_optax(memory, iters):
     opt = LBFGS([torch.zeros(n, dtype=torch.float64)], memory)
     for k, (w, g, r) in enumerate(zip(ws, gs, ref)):
         wt, gt = torch.from_numpy(w), torch.from_numpy(g)
-        d = opt._direction(wt, gt)
-        opt._w_prev, opt._g_prev, opt.count = wt, gt, k + 1
+        opt._w0.copy_(wt)
+        opt._g0.copy_(gt)
+        d = opt._direction()
+        opt._w_prev.copy_(wt)
+        opt._g_prev.copy_(gt)
+        opt._count.fill_(k + 1)
         assert rel_to_max(d, r) < DIR_TOL, k
 
 
@@ -189,7 +193,11 @@ def test_lbfgs_is_not_torch_optim(monkeypatch):
     before = LBFGS.evaluations, LBFGS.host_reads
     opt.step(lambda: (f(x), torch.autograd.grad(f(x), [x])))
     evals, reads = LBFGS.evaluations - before[0], LBFGS.host_reads - before[1]
-    assert evals == reads == 1 + opt.trials and opt.trials >= 1
+    # One evaluation at the start and one per trial; the eager search reads
+    # ``active`` once per trial after the first, and once more to stop
+    # before it runs out of steps.
+    assert evals == 1 + opt.trials and opt.trials >= 1
+    assert reads == min(opt.trials, opt.max_linesearch_steps - 1)
 
 
 # ------------------------------------------------------ (d) the Burgers pair

@@ -449,9 +449,9 @@ RULE_CASES = {
     "data_augmented": ({"mode": "data_augmented"}, ["graph"]),
     "ensemble": ({"ensemble_size": 2}, ["graph"]),
     "siren": ({"arch": "siren"}, ["graph"]),
-    "adam_lbfgs": ({"optimizer": "adam_lbfgs"}, ["graph", "eager"]),
+    "adam_lbfgs": ({"optimizer": "adam_lbfgs"}, ["graph", "graph"]),
     "phase2_adam": ({"optimizer": "adam_lbfgs", "phase2_optimizer": "adam"}, ["graph", "graph"]),
-    "lbfgs": ({"optimizer": "lbfgs"}, ["eager"]),
+    "lbfgs": ({"optimizer": "lbfgs"}, ["graph"]),
 }
 
 
@@ -500,8 +500,9 @@ def test_capture_rule_on_each_device():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert step_path(cuda, False, None)[0] == "graph"
     assert step_path(cuda, True, None) == (
-        "eager", "L-BFGS: the line search reads its step size on the host")
+        "graph", "an L-BFGS phase on the card: the line search on the device")
     assert step_path(cuda, False, object())[0] == "eager"  # a device mesh
+    assert step_path(cuda, True, object())[0] == "eager"
     assert step_path(cpu, False, None)[0] == "eager"
 
 

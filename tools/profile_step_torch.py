@@ -70,7 +70,14 @@ captured once and replayed per step (``chip_smoke.program_for`` with
 state as ``train`` sets them up): the same
 numbers for each, the capture's seconds and the bytes it reserved, and
 the ms per step of ``--steps`` steps issued back to back (one
-``torch.cuda.synchronize()`` at the end), for both.
+``torch.cuda.synchronize()`` at the end), for both; before those, the two
+sides' host-clock ms per step in turns (2 rounds of ``--steps`` steps
+each, eager first, then graph first). With ``--lbfgs
+--graph`` the step is one L-BFGS iteration of the program
+(``chip_smoke.lbfgs_program_for``: a fresh optimizer on one fixed batch of
+the recipe's points), eager (every trial guarded by a host read) and then
+replayed (start, 25 trials under the IF node, finish); the evaluations are
+counted on the device and settled outside the timed steps.
 
 Every run also prints the back-to-back ms per step. The chrome traces go
 to ``--out``, gzipped. The script imports no JAX.
@@ -112,7 +119,7 @@ def _union_us(intervals) -> float:
 
 
 def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card: str,
-            lbfgs: bool = False, step=None):
+            lbfgs: bool = False, step=None, settle=lambda: None):
     import torch
 
     from pinnrl_tpu_torch.training.lbfgs import LBFGS
@@ -136,6 +143,7 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
             trainer._step(params, opt, gen, cfg.training.batch_size)
 
     times = []
+    settle()
     evals = LBFGS.evaluations
     for i in range(5 + steps):
         torch.cuda.synchronize()
@@ -145,6 +153,7 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
         if i >= 5:
             times.append((time.perf_counter() - t0) * 1e3)
     q1, med, q3 = statistics.quantiles(times, n=4)
+    settle()  # a replayed program's evaluations are counted on the device
     evals_timed = (LBFGS.evaluations - evals) / (5 + steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -154,11 +163,13 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
     back_to_back = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    settle()
     evals = LBFGS.evaluations
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(profiled):
             step()
         torch.cuda.synchronize()
+    settle()
     evals_profiled = (LBFGS.evaluations - evals) / profiled
     out.mkdir(parents=True, exist_ok=True)
     trace = out / f"trace_{label}.json"
@@ -192,6 +203,32 @@ def profile(trainer, cfg, label: str, steps: int, profiled: int, out: Path, card
                if lbfgs else {}),
             "kernels": [{"name": n, "ms_per_step": v[0], "launches_per_step": v[1] / profiled}
                         for n, v in rows]}
+
+
+def in_turns(steps_by_side, steps: int, prefix: str, card: str, rounds: int = 2):
+    """Host-clock ms per step of each side (eager and graph), ``steps``
+    steps per side in each of ``rounds`` rounds, the sides in turns (eager
+    first in even rounds) after 2 warm-up steps each."""
+    import torch
+
+    times = {side: [] for side in steps_by_side}
+    for step in steps_by_side.values():
+        for _ in range(2):
+            step()
+    for r in range(rounds):
+        order = list(steps_by_side) if r % 2 == 0 else list(reversed(steps_by_side))
+        for side in order:
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps_by_side[side]()
+                torch.cuda.synchronize()
+                times[side].append((time.perf_counter() - t0) * 1e3)
+    medians = {side: statistics.median(v) for side, v in times.items()}
+    print(f"[{prefix}turns] ms per step, {steps} per side in each of {rounds} rounds in turns: "
+          + ", ".join(f"{side} median {ms:.3f}" for side, ms in medians.items()) + f" ({card})",
+          flush=True)
+    return {"label": f"{prefix}turns", "rounds": rounds, "median_ms": medians, "ms": times}
 
 
 def alternate(trainer, cfg, label: str, rounds: int, steps: int, card: str, lbfgs: bool = False):
@@ -308,8 +345,8 @@ def main() -> int:
         print("profile_step_torch: no CUDA card", file=sys.stderr)
         return 2
     from chip_smoke import (burgers_recipe_config, heat_recipe_config, kdv_recipe_config,
-                            nvidia_smi_line, plain_fourier_features, plain_mlp_score,
-                            plain_siren, program_for, siren_kdv_config)
+                            lbfgs_program_for, nvidia_smi_line, plain_fourier_features,
+                            plain_mlp_score, plain_siren, program_for, siren_kdv_config)
     from pinnrl_tpu_torch.benchmarks.convergence import build_recipe_config
     from pinnrl_tpu_torch.benchmarks.inverse import RECIPES as INVERSE_RECIPES
     from pinnrl_tpu_torch.benchmarks.inverse import build_inverse_config
@@ -321,9 +358,10 @@ def main() -> int:
     card = nvidia_smi_line()
     out = Path(args.out)
     results = []
-    if args.graph and (args.lbfgs or args.alternate):
-        ap.error("--graph takes Adam steps")
-    prefix = ("lbfgs_" if args.lbfgs else "graph_" if args.graph else "") + (
+    if args.graph and args.alternate:
+        ap.error("--graph takes no --alternate")
+    prefix = ("lbfgs_graph_" if args.lbfgs and args.graph else "lbfgs_" if args.lbfgs
+              else "graph_" if args.graph else "") + (
         "rl_" if args.rl else "rar_" if args.rar else f"ensemble{args.ensemble}_" if args.ensemble
         else "kdv_" if args.kdv else "siren_kdv_" if args.siren_kdv
         else "heat_" if args.heat else f"{args.recipe}_" if args.recipe
@@ -349,6 +387,7 @@ def main() -> int:
     # Kernel 1 takes neither the SIREN, nor a residual second order in time,
     # nor Cahn-Hilliard.
     kernel1 = not (args.siren_kdv or args.recipe or args.inverse)
+    sides = []
     for label in (("eager", "graph") if args.graph else ("kernels", "plain")):
         cfg = configs.get(prefix.removeprefix("lbfgs_").removeprefix("graph_"),
                           burgers_recipe_config)("cuda")
@@ -373,15 +412,22 @@ def main() -> int:
             trainer._rl_state = trainer._init_rl_state(0)
         step = program = None
         if args.graph:
-            step, program = program_for(trainer, 5 + 2 * args.steps + args.profiled,
-                                        graph=label == "graph")
+            make = lbfgs_program_for if args.lbfgs else program_for
+            step, program = make(trainer, 5 + 2 * args.steps + args.profiled,
+                                 graph=label == "graph")
+        sides.append((label, cfg, trainer, step, program))
+    if args.graph:
+        results.append(in_turns({label: step for label, _, _, step, _ in sides}, args.steps,
+                                prefix, card))
+    for label, cfg, trainer, step, program in sides:
         with contextlib.ExitStack() as plain:
             if label == "plain":
                 plain.enter_context(plain_fourier_features())
                 plain.enter_context(plain_mlp_score())
                 plain.enter_context(plain_siren())
             results.append(profile(trainer, cfg, prefix + label, args.steps, args.profiled, out, card,
-                                   lbfgs=args.lbfgs, step=step))
+                                   lbfgs=args.lbfgs, step=step,
+                                   settle=program.settle if program is not None else lambda: None))
         if program is not None:
             results[-1]["program"] = program.stats()
             print(f"[{prefix + label}] step program: {program.stats()} ({card})", flush=True)
