@@ -174,8 +174,9 @@ Phases (each raises on failure, and the script then exits non-zero):
                for one Adam step, one L-BFGS iteration and one ``validate``;
                host syncs 0 per Adam step and at most one per evaluation of
                an eager L-BFGS iteration (none in the replayed runs);
-               median ms per Adam step and per L-BFGS iteration with kernel 2
-               and on its plain version, in turns.
+               median ms per Adam step (and per L-BFGS iteration of the
+               dynamics recipe, ``CH_LBFGS_TIMED``) with kernel 2 and on its
+               plain version, in turns.
  26. order 4  — kernel 2's jvp rule nested to order 4 along x on the
                biharmonic recipe's network (its basis's t-row zero) against
                the plain version at each order, and kernel 2 timed there at
@@ -217,10 +218,16 @@ Phases (each raises on failure, and the script then exits non-zero):
                hidden 64, replay 4096, batch 64), batch 1024: Burgers under
                every strategy, ``adaptive[resfeat_improve]`` and a
                ``windows=2`` run, and wave (kernel 2's jvp rule), 30 and 12
-               steps: kernel 1 never, kernel 4 once per adaptive step,
-               kernel 2 per BC/IC loss and per ``_evaluate`` (the warm-up
-               copy's steps counted too), each strategy's loss falling; ms
-               per step, points/s and host syncs per step per strategy;
+               steps, each on the harness's graph path (its step replayed)
+               and on the eager path from the same seed, the two runs' rows,
+               step losses and final parameters bit for bit equal: kernel 1
+               never, kernel 4 once per adaptive step, kernel 2 per BC/IC
+               loss and per ``_evaluate`` (each phase's warm-up step counted
+               too), on both paths, and in a fresh process per case equal
+               to the kernels' launches in a ``torch.profiler`` trace of the
+               graph run (``sampling_traced_case``); each strategy's loss
+               falling; ms per step replayed and eager, points/s and host
+               syncs inside the replays per strategy;
                kernel 4 at (10000, 2) and (10000, 3) -> 64 on the harness's
                agents and kernel 2 at mapping 32 on its BC, IC and
                evaluation rows against their plain versions (and kernel 2's
@@ -233,7 +240,9 @@ Phases (each raises on failure, and the script then exits non-zero):
                ``run_operator_benchmark("synthetic_heat_2d")`` (the
                registry's FNO 256x4, 16 modes, 8192 points, 6 epochs; no
                kernel; the training loss falls), the gridded run (width 32,
-               12 modes, 4 blocks, 40 steps, a 96^2 transfer row),
+               12 modes, 4 blocks, 40 steps, a 96^2 transfer row) replayed
+               and eager, rows and final weights bit for bit equal, and ms
+               per epoch of each in turns,
                ``GridFNO2D`` on the card against the CPU on the same weights
                (48^2 and 96^2), and ``training.train --pde heat_2d
                --dataset synthetic_heat_2d --epochs 2``.
@@ -458,8 +467,8 @@ Phases (each raises on failure, and the script then exits non-zero):
                accepted stepsizes and trial counts per iteration (recorded
                on the device by ``finish``, ``search_record``),
                evaluations and launches; each kernel's device launches in a
-               traced graph run, in a process of its own
-               (``lbfgs_traced_case``), witnessing its counter; one host read per
+               traced graph run, in a process of its own, all started at
+               once (``lbfgs_traced_case``), witnessing its counter; one host read per
                chunk and none in a replay; no search read
                (``LBFGS.host_reads``) on the graph path. Then a pure
                L-BFGS run resumed from its first chunk's checkpoint
@@ -708,6 +717,7 @@ CH_EPOCHS = {"cahn_hilliard": 3, "cahn_hilliard_dynamics": 6, "cahn_hilliard_bih
 CH_FF_PER_LOSS = {"cahn_hilliard": (0, 0), "cahn_hilliard_dynamics": (9, 7),
                   "cahn_hilliard_biharmonic": (5, 7)}
 CH_TIMED = 3        # Adam steps and L-BFGS iterations timed per turn
+CH_LBFGS_TIMED = ("cahn_hilliard_dynamics",)  # recipes whose L-BFGS iteration is timed
 # Phase 26: kernel 2 under nested jvp to order 4 (orders k = 1..4 at
 # JVP_TOL x 10^(k-1), the JAX suite's progression); the direct residual, its
 # loss and each parameter gradient, and the mixed residual and gradients, at
@@ -735,10 +745,11 @@ DATA_AUG_OBS = 2000
 CLI_EPOCHS = 4
 # Phase 31: the sampling harness (``benchmarks/sampling.py``) at its own
 # width (64x3, mapping 32; DQN hidden 64, replay 4096, batch 64), batch 1024:
-# (pde, strategy, windows), SAMPLING_EPOCHS steps each, after the harness's
-# warm-up copy. Kernel 2 per step (launches, jvp-rule calls): Burgers BC and
-# IC; wave BC, IC and the velocity IC through the rule; one launch per
-# ``_evaluate``.
+# (pde, strategy, windows), SAMPLING_EPOCHS steps each, after one warm-up
+# step per curriculum phase. Kernel 2 per step (launches, jvp-rule calls):
+# Burgers BC and IC; wave BC, IC and the velocity IC through the rule; one
+# launch per ``_evaluate``. SAMPLING_SYNC_STEPS replays per strategy under
+# the sync debug mode.
 SAMPLING_BATCH = 1024
 SAMPLING_EPOCHS = {"burgers": 30, "wave": 12}
 SAMPLING_CASES = (("burgers", "uniform", 0), ("burgers", "stratified", 0),
@@ -746,13 +757,16 @@ SAMPLING_CASES = (("burgers", "uniform", 0), ("burgers", "stratified", 0),
                   ("burgers", "adaptive[resfeat_improve]", 0), ("burgers", "adaptive", 2),
                   ("wave", "uniform", 0))
 SAMPLING_FF_PER_STEP = {"burgers": (2, 0), "wave": (3, 1)}
+SAMPLING_SYNC_STEPS = 3
 # Phase 32: the FDM L2 errors and fields, card against CPU.
 FDM_TOL = 1e-5
 # Phase 33: the point-wise operator run's epochs (2 steps of 4096 each) and
 # the gridded run's steps; GridFNO2D card against CPU, rel to max (cuFFT and
-# pocketfft sum in other orders).
+# pocketfft sum in other orders). The gridded epoch replayed and eager in
+# turns: GRIDDED_TIMED epochs per side in each of GRIDDED_ROUNDS rounds.
 OPERATOR_EPOCHS = 6
 GRIDDED_EPOCHS = 40
+GRIDDED_TIMED, GRIDDED_ROUNDS = 20, 2
 GRID_FNO_TOL = 1e-5
 CLI_FILES = {"checkpoint.json", "checkpoint.npz", "config.yaml", "experiment.log",
              "final_model.json", "final_model.npz", "history.json", "live_snapshot.npz",
@@ -1451,7 +1465,7 @@ def ch_recipe_runs(dev, card: str):
         for order in ("plain", "kernels", "kernels", "plain"):
             with plain_fourier_features() if order == "plain" else contextlib.nullcontext():
                 timed[order]["adam"] += step_times(ltr, CH_TIMED, 1, rt.batch_size)
-                if has_lbfgs:
+                if has_lbfgs and key in CH_LBFGS_TIMED:
                     times, evals = lbfgs_iteration_times(ltr, lbatch, CH_TIMED)
                     timed[order]["lbfgs"] += times
                     timed[order]["evals"].append(evals)
@@ -1988,84 +2002,194 @@ def _ff_bound(n: int, d: int, m: int):
     return bound(2.0 * n * d * m + 3.0 * n * m, 4.0 * (n * d + d * m + 2 * n * m))
 
 
-def sampling_runs(dev, card: str):
-    """Phase 31 (see the module docstring): the sampling harness's
-    strategies, their exact launches, falling losses, ms per step, points/s
-    and host syncs per step; kernel 4 at h = 64, d = 2 and 3, and kernel 2
-    at mapping 32 on the harness's own shapes and weights."""
+def _reset_launches() -> None:
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp, siren
+
+    for c in (fused_step.fused_residual_loss, fourier_feats.fourier_features, mlp.fused_mlp_score,
+              siren.siren_layer):
+        c.launches = 0
+    fourier_feats.fourier_features.jvps = 0
+
+
+@contextlib.contextmanager
+def harness_eager(*modules):
+    """The harnesses in ``modules`` take the eager path on the card (their
+    graph runs' reference: the same step, the same capturable Adam)."""
+    saved = [m.step_path for m in modules]
+    for m in modules:
+        m.step_path = lambda device, **kw: ("eager", "the eager reference")
+    try:
+        yield
+    finally:
+        for m, path in zip(modules, saved):
+            m.step_path = path
+
+
+def params_digest(*nets) -> str:
+    """sha256 of the tensors of ``nets`` (dicts), in name order."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for net in nets:
+        for k in sorted(net):
+            digest.update(net[k].detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def sampling_case(index: int, graph: bool = True) -> dict:
+    """``SAMPLING_CASES[index]`` through ``run_sampling_benchmark``, on the
+    harness's graph path or (``graph`` False) its eager path: the row, each
+    step's loss, a digest of the final network and agent, each phase's
+    program's stats, and the kernels' launches in the run."""
+    import dataclasses
+
     import torch
 
     from pinnrl_tpu_torch.benchmarks import sampling
-    from pinnrl_tpu_torch.ops.kernels import fourier_feats, fused_step, mlp
+
+    pde_key, strategy, windows = SAMPLING_CASES[index]
+    seen = {}
+    read = sampling._Run.read
+
+    def reading(self, programs, per_phase):
+        out = read(self, programs, per_phase)
+        seen["losses"] = torch.cat([p.rows[:n, 0] for p, n in zip(programs, per_phase)]).tolist()
+        seen["params"] = params_digest(self.params, *([self.rl_state.policy_params]
+                                                      if self.agent is not None else []))
+        seen["programs"] = [p.stats() for p in programs]
+        return out
+
+    _reset_launches()
+    sampling._Run.read = reading
+    try:
+        with harness_eager(sampling) if not graph else contextlib.nullcontext():
+            (r,) = sampling.run_sampling_benchmark(pde=pde_key, strategies=[strategy],
+                                                   epochs=SAMPLING_EPOCHS[pde_key],
+                                                   batch=SAMPLING_BATCH, seed=0, windows=windows,
+                                                   device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        sampling._Run.read = read
+    return {"row": dataclasses.asdict(r), **seen, "launches": _launches()}
+
+
+def sampling_traced_case(index: int) -> None:
+    """Phase 31's graph run of ``SAMPLING_CASES[index]`` under
+    ``torch.profiler``, in a process of its own (as phase 47's traced cases):
+    prints the launches counted and those in the trace as one JSON line."""
+    run, found, total = device_launches(lambda: sampling_case(index))
+    print("TRACED " + json.dumps({"counted": run["launches"], "device": found, "total": total,
+                                  "programs": run["programs"]}), flush=True)
+
+
+def sampling_runs(dev, card: str):
+    """Phase 31 (see the module docstring): the sampling harness's
+    strategies replayed against eager, bit for bit, their exact launches (a
+    fresh process's trace of each graph run), falling losses, ms per step,
+    points/s and host syncs inside the replays; kernel 4 at h = 64, d = 2 and
+    3, and kernel 2 at mapping 32 on the harness's own shapes and weights."""
+    import os
+
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks import sampling
+    from pinnrl_tpu_torch.ops.kernels import fourier_feats, mlp
     from pinnrl_tpu_torch.sampling import make_grid
 
-    ff = fourier_feats.fourier_features
-    counters = {"fused_residual_loss": fused_step.fused_residual_loss, "fourier_features": ff,
-                "fused_mlp_score": mlp.fused_mlp_score}
-    seen = {}  # id(_Run) -> its losses, step by step (device tensors)
-    step_on = sampling._Run.step_on
-
-    def recording(self, *args, **kwargs):
-        loss = step_on(self, *args, **kwargs)
-        seen.setdefault(id(self), []).append(loss)
-        return loss
-
-    sampling._Run.step_on = recording
+    t_phase = time.perf_counter()
     rows = {}
-    try:
-        for pde_key, strategy, windows in SAMPLING_CASES:
-            epochs = SAMPLING_EPOCHS[pde_key]
-            for c in counters.values():
-                c.launches = 0
-            ff.jvps = 0
-            seen.clear()
-            (r,) = sampling.run_sampling_benchmark(pde=pde_key, strategies=[strategy],
-                                                   epochs=epochs, batch=SAMPLING_BATCH, seed=0,
-                                                   windows=windows, device="cuda")
-            torch.cuda.synchronize()
-            run = {k: c.launches for k, c in counters.items()}
-            run["fourier_features_jvps"] = ff.jvps
-            per_phase = sampling._phase_epochs(epochs, windows)
-            steps = epochs + min(per_phase[0], sampling.WARMUP_STEPS)  # the warm-up copy's too
-            adaptive = strategy.startswith("adaptive")
-            per_step = SAMPLING_FF_PER_STEP[pde_key]
-            want = {"fused_residual_loss": 0, "fourier_features": per_step[0] * steps + 1,
-                    "fused_mlp_score": steps if adaptive else 0,
-                    "fourier_features_jvps": per_step[1] * steps}
-            (losses,) = [torch.stack(v).tolist() for v in seen.values() if len(v) == epochs]
-            head, tail = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
-            label = f"{pde_key} {r.strategy}" + (f" windows={windows}" if windows else "")
-            print(f"[sampling] {label}: {epochs} steps of {SAMPLING_BATCH} (+ {steps - epochs} "
-                  f"warm-up), {r.wall_time_s * 1e3 / epochs:.3f} ms per step, "
-                  f"{r.points_per_sec:.1f} points/s; loss {head:.4e} -> {tail:.4e} (mean of the "
-                  f"first and last 3), final {r.final_loss:.4e}, rel_l2 {r.rel_l2:.4e}, l2 "
-                  f"{r.l2_error:.4e}; launches {run} (want {want}) ({card})", flush=True)
-            if not (all(map(math.isfinite, losses)) and math.isfinite(r.rel_l2)
-                    and math.isfinite(r.l2_error) and r.epochs == epochs and tail < head):
-                raise AssertionError(f"{label}: losses {losses}, row {r}")
-            if run != want:
-                raise AssertionError(f"{label}: launches {run}, want {want}")
-            rows[label] = {**run, "steps": epochs, "warmup_steps": steps - epochs,
-                           "ms_per_step": r.wall_time_s * 1e3 / epochs,
-                           "points_per_sec": r.points_per_sec, "wall_s": r.wall_time_s,
-                           "loss_head": head, "loss_tail": tail, "rel_l2": r.rel_l2}
-    finally:
-        sampling._Run.step_on = step_on
+    runs = []
+    for i, (pde_key, strategy, windows) in enumerate(SAMPLING_CASES):
+        runs.append({side: sampling_case(i, graph=side == "graph") for side in ("graph", "eager")})
+    # Each graph run again under the profiler, each in a fresh process, all at
+    # once (their times are not read).
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               f"import chip_smoke as c; c.sampling_traced_case({i})"],
+                              cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(len(SAMPLING_CASES))]
+    traced = []
+    for i, proc in enumerate(procs):
+        stdout, stderr = proc.communicate(timeout=600)
+        line = [ln for ln in stdout.splitlines() if ln.startswith("TRACED ")]
+        if proc.returncode or not line:
+            raise AssertionError(f"sampling case {SAMPLING_CASES[i]}: the traced run failed "
+                                 f"(rc {proc.returncode}): {stderr[-2000:]}")
+        traced.append(json.loads(line[-1][len("TRACED "):]))
+    for (pde_key, strategy, windows), sides, tr in zip(SAMPLING_CASES, runs, traced):
+        g, e = sides["graph"], sides["eager"]
+        r = g["row"]
+        epochs = SAMPLING_EPOCHS[pde_key]
+        phases = len(sampling._phase_epochs(epochs, windows))
+        adaptive = strategy.startswith("adaptive")
+        steps = epochs + phases  # each phase's warm-up step too
+        per_step = SAMPLING_FF_PER_STEP[pde_key]
+        want = {"fused_residual_loss": 0, "fourier_features": per_step[0] * steps + 1,
+                "fourier_features_jvps": per_step[1] * steps, "siren_layer": 0,
+                "fused_mlp_score": steps if adaptive else 0}
+        bits = (all(g["row"][k] == e["row"][k] for k in ("final_loss", "l2_error", "rel_l2"))
+                and g["params"] == e["params"] and g["losses"] == e["losses"])
+        # The trace: kernel 2's and kernel 4's launches, exactly.
+        in_trace = {k: tr["device"][k] for k in ("fused_residual_loss", "fourier_features",
+                                                  "fused_mlp_score")}
+        trace_exact = all(tr["counted"][k] == v for k, v in in_trace.items())
+        losses = g["losses"]
+        head, tail = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        replays = sum(p["replays"] for p in g["programs"])
+        eager_steps = sum(p["eager_steps"] for p in g["programs"])
+        label = f"{pde_key} {r['strategy']}" + (f" windows={windows}" if windows else "")
+        ms, eager_ms = r["wall_time_s"] * 1e3 / epochs, e["row"]["wall_time_s"] * 1e3 / epochs
+        print(f"[sampling] {label}: {epochs} steps of {SAMPLING_BATCH} (+ {phases} warm-up), "
+              f"replayed {ms:.3f} ms per step ({r['points_per_sec']:.1f} points/s), eager "
+              f"{eager_ms:.3f} ({e['row']['points_per_sec']:.1f} points/s); graph bit-identical "
+              f"to eager (row, {len(losses)} step losses, final network and agent): {bits}; "
+              f"programs {g['programs']}; loss {head:.4e} -> {tail:.4e} (mean of the first and "
+              f"last 3), final {r['final_loss']:.4e}, rel_l2 {r['rel_l2']:.4e}, l2 "
+              f"{r['l2_error']:.4e}; launches graph {g['launches']}, eager {e['launches']} (want "
+              f"{want}); in a fresh process's trace {in_trace} against its counters "
+              f"{tr['counted']}: equal {trace_exact} ({card})", flush=True)
+        if not (bits and all(map(math.isfinite, losses)) and math.isfinite(r["rel_l2"])
+                and math.isfinite(r["l2_error"]) and r["epochs"] == epochs and tail < head):
+            raise AssertionError(f"{label}: graph {g}, eager {e}")
+        if not (len(g["programs"]) == phases
+                and all(p["path"] == "graph" for p in g["programs"])
+                and all(p["path"] == "eager" and p["replays"] == 0 for p in e["programs"])
+                and replays == epochs - adaptive and eager_steps == phases + adaptive):
+            raise AssertionError(f"{label}: programs {g['programs']}, eager {e['programs']}")
+        if not (g["launches"] == e["launches"] == tr["counted"] == want and trace_exact):
+            raise AssertionError(f"{label}: launches graph {g['launches']}, eager "
+                                 f"{e['launches']}, traced {tr}, want {want}")
+        rows[label] = {**{k: g["launches"][k] for k in ("fused_residual_loss", "fourier_features",
+                                                         "fourier_features_jvps",
+                                                         "fused_mlp_score")},
+                       "launches_in_trace": in_trace, "steps": epochs, "warmup_steps": phases,
+                       "ms_per_step": ms, "eager_ms_per_step": eager_ms,
+                       "points_per_sec": r["points_per_sec"],
+                       "eager_points_per_sec": e["row"]["points_per_sec"], "wall_s": r["wall_time_s"],
+                       "eager_wall_s": e["row"]["wall_time_s"], "bit_identical": bits,
+                       "programs": g["programs"], "loss_head": head, "loss_tail": tail,
+                       "rel_l2": r["rel_l2"]}
 
-    # Host syncs of one warm step, per strategy.
+    # Host syncs inside the replays, per strategy: a program past its warm-up
+    # and capture replays SAMPLING_SYNC_STEPS steps under the debug mode.
     syncs = {}
     for strategy in ("uniform", "stratified", "residual_based", "adaptive",
                      "adaptive[resfeat_improve]"):
         ((base, variant),) = sampling.parse_strategies([strategy])
         run = sampling._Run("burgers", base, 10, SAMPLING_BATCH, 2e-3, 0, rl_variant=variant,
                             device="cuda")
-        g = torch.Generator(device=dev).manual_seed(31)
-        for _ in range(2):
-            run.step(run.pde, g)
-        sites = record_syncs(lambda: run.step(run.pde, g))
-        syncs[strategy] = len(sites)
-        print(f"[syncs] sampling {strategy}: one warm step {len(sites)} {sorted(set(sites))}",
-              flush=True)
+        program = run.program(run.pde, SAMPLING_SYNC_STEPS)
+        program.warm_up()
+        sites = record_syncs(lambda: [program.run() for _ in range(SAMPLING_SYNC_STEPS)])
+        if program.replays != SAMPLING_SYNC_STEPS:
+            raise AssertionError(f"sampling {strategy}: {program.stats()} (want "
+                                 f"{SAMPLING_SYNC_STEPS} replays)")
+        run.release([program])
+        syncs[strategy] = len(sites) / SAMPLING_SYNC_STEPS
+        print(f"[syncs] sampling {strategy}: {len(sites)} in {SAMPLING_SYNC_STEPS} replayed steps "
+              f"{sorted(set(sites))}", flush=True)
+        if sites:
+            raise AssertionError(f"sampling {strategy}: host syncs inside the replays: {sites}")
 
     # Kernel 4 at the harness's width on its agents' weights (after 10 steps),
     # on the 100 x 100 grid and the grid with the residual feature.
@@ -2159,8 +2283,10 @@ def sampling_runs(dev, card: str):
           f"along t: rel {jvp_err} (tol JVP_TOL x 10^(k-1), {JVP_TOL:g})", flush=True)
     if not all(e < JVP_TOL * 10 ** (k - 1) for k, e in jvp_err.items()):
         raise AssertionError("fourier_features' jvp rule disagrees with its plain version at m = 32")
+    seconds = time.perf_counter() - t_phase
+    print(f"[sampling] phase 31: {seconds:.1f} s ({card})", flush=True)
     return {"runs": rows, "syncs_per_step": syncs, "kernel4": k4, "kernel2": k2,
-            "kernel2_jvp_rel": jvp_err}
+            "kernel2_jvp_rel": jvp_err, "seconds": seconds}
 
 
 def fdm_runs(dev, card: str):
@@ -2224,6 +2350,7 @@ def operator_runs(dev, card: str):
     96^2 transfer row, ``GridFNO2D`` on the card against the CPU on the same
     weights, and ``train --dataset synthetic_heat_2d`` for 2 epochs; the
     Well cache in a temporary directory."""
+    import dataclasses
     import os
     import tempfile
     from pathlib import Path
@@ -2272,19 +2399,57 @@ def operator_runs(dev, card: str):
                                 "ms_per_step": r.wall_time_s * 1e3 / steps, "losses": hist,
                                 "launches": launches}
 
-            rs = operator.run_gridded_operator_benchmark(epochs=GRIDDED_EPOCHS,
-                                                         transfer_resolutions=(96,), seed=0,
-                                                         device="cuda")
-            print(f"[operator] gridded ({rs[0].epochs} steps of 16 pairs, width 32, 12 modes, 4 "
-                  f"blocks): {rs[0].wall_time_s:.2f} s, {rs[0].wall_time_s * 1e3 / rs[0].epochs:.2f} "
-                  f"ms per step, final loss {rs[0].final_train_loss:.4e}; "
-                  + "; ".join(f"{x.dataset} rel_l2 {x.test_rel_l2:.4e} max {x.test_max_error:.4e}"
-                              for x in rs) + f" ({card})", flush=True)
-            if not (len(rs) == 2 and all(math.isfinite(x.test_rel_l2) for x in rs)
-                    and math.isfinite(rs[0].final_train_loss)):
-                raise AssertionError(f"gridded operator: rows {rs}")
-            out["gridded"] = {x.dataset: {"rel_l2": x.test_rel_l2, "epochs": x.epochs,
-                                          "wall_s": x.wall_time_s} for x in rs}
+            # The gridded run replayed (the harness's path on the card) and
+            # eager, from the same seed: rows, losses and final weights.
+            sides = {}
+            made = operator.gridded_program
+            for side in ("graph", "eager"):
+                kept = []
+
+                def keeping(fno, opt, *args, **kwargs):
+                    program = made(fno, opt, *args, **kwargs)
+                    kept.append((opt.params, program))
+                    return program
+
+                operator.gridded_program = keeping
+                try:
+                    with harness_eager(operator) if side == "eager" else contextlib.nullcontext():
+                        rs = operator.run_gridded_operator_benchmark(
+                            epochs=GRIDDED_EPOCHS, transfer_resolutions=(96,), seed=0,
+                            device="cuda")
+                finally:
+                    operator.gridded_program = made
+                ((leaves, program),) = kept
+                sides[side] = {"rows": [dataclasses.asdict(x) for x in rs],
+                               "params": params_digest(dict(enumerate(leaves))),
+                               "program": program.stats()}
+            rs = sides["graph"]["rows"]
+            e_rs = sides["eager"]["rows"]
+            keys = ("final_train_loss", "test_rel_l2", "test_max_error")
+            bits = (all(a[k] == b[k] for a, b in zip(rs, e_rs) for k in keys)
+                    and sides["graph"]["params"] == sides["eager"]["params"])
+            gp, ep = sides["graph"]["program"], sides["eager"]["program"]
+            epochs_run = rs[0]["epochs"]
+            print(f"[operator] gridded ({epochs_run} steps of 16 pairs, width 32, 12 modes, 4 "
+                  f"blocks): replayed {rs[0]['wall_time_s']:.2f} s (set-up and capture inside, "
+                  f"program {gp}), eager {e_rs[0]['wall_time_s']:.2f} s (program {ep}); final "
+                  f"loss {rs[0]['final_train_loss']:.4e}; "
+                  + "; ".join(f"{x['dataset']} rel_l2 {x['test_rel_l2']:.4e} max "
+                              f"{x['test_max_error']:.4e}" for x in rs)
+                  + f"; replayed bit-identical to eager (rows and weights): {bits} ({card})",
+                  flush=True)
+            if not (len(rs) == 2 and all(math.isfinite(x["test_rel_l2"]) for x in rs)
+                    and math.isfinite(rs[0]["final_train_loss"]) and bits
+                    and gp["path"] == "graph" and gp["eager_steps"] == 1
+                    and gp["replays"] == epochs_run - 1 and ep["path"] == "eager"
+                    and ep["eager_steps"] == epochs_run):
+                raise AssertionError(f"gridded operator: {sides}")
+            out["gridded"] = {x["dataset"]: {"rel_l2": x["test_rel_l2"], "epochs": x["epochs"],
+                                             "wall_s": x["wall_time_s"]} for x in rs}
+            out["gridded_eager_wall_s"] = e_rs[0]["wall_time_s"]
+            out["gridded_bit_identical"] = bits
+            out["gridded_program"] = gp
+            out["gridded_epoch_ms"] = gridded_epoch_ms(dev, card)
 
             # GridFNO2D on the card against the CPU, the same weights, at the
             # training grid and the transfer grid.
@@ -2326,6 +2491,67 @@ def operator_runs(dev, card: str):
                 os.environ.pop("PINNRL_WELL_CACHE", None)
             else:
                 os.environ["PINNRL_WELL_CACHE"] = old_cache
+    return out
+
+
+def gridded_epoch_ms(dev, card: str) -> dict:
+    """Host-clock ms per epoch of the gridded harness's default FNO (width 32,
+    12 modes, 4 blocks, batch 16 of 230 pairs on the 48^2 grid), replayed and
+    eager (the same program on the eager path), in turns; each side's device
+    busy time, launches per epoch and the graph's capture."""
+    import torch
+
+    from pinnrl_tpu_torch.benchmarks import operator
+    from pinnrl_tpu_torch.models.fno_grid import GridFNO2D
+    from pinnrl_tpu_torch.training.trainer import AdamStep, cosine_decay
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    a_all = torch.randn((230, 48, 48, 1), generator=g, device=dev)
+    u_all = torch.randn((230, 48, 48, 1), generator=g, device=dev)
+    capacity = 2 + GRIDDED_ROUNDS * GRIDDED_TIMED + GRIDDED_TIMED
+    sides = {}
+    for side in ("graph", "eager"):
+        fno = GridFNO2D(grid=(48, 48), generator=torch.Generator().manual_seed(0)).to(dev)
+        opt = AdamStep(list(fno.parameters()), cosine_decay(2e-3, 400, 0.0), None, 0.9, 0.999,
+                       0.0, capturable=True)
+        program = operator.gridded_program(fno, opt, a_all, u_all, 16,
+                                           torch.Generator(device=dev).manual_seed(1), capacity)
+        if side == "eager":
+            program.path = "eager"
+
+        def step(program=program):
+            if (program.eager_steps + program.replays) % capacity == 0:
+                program.start_chunk()
+            program.run()
+
+        for _ in range(2):
+            step()
+        sides[side] = (step, program)
+    times = {side: [] for side in sides}
+    for r in range(GRIDDED_ROUNDS):
+        for side in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+            step = sides[side][0]
+            for _ in range(GRIDDED_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times[side].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for side, (step, program) in sides.items():
+        busy, launches = device_busy(step, GRIDDED_TIMED)
+        ms = statistics.median(times[side])
+        out[side] = {"ms": ms, "busy_ms": busy, "idle_share": 1.0 - busy / ms,
+                     "device_launches": launches, "program": program.stats()}
+        program.release()
+    print(f"[operator] gridded epoch (width 32, 12 modes, 4 blocks, 16 pairs of 48^2), median of "
+          f"{GRIDDED_ROUNDS * GRIDDED_TIMED} in turns: replayed {out['graph']['ms']:.3f} ms (busy "
+          f"{out['graph']['busy_ms']:.3f}, idle {out['graph']['idle_share']:.3f}, "
+          f"{out['graph']['device_launches']:.1f} launches), eager {out['eager']['ms']:.3f} (busy "
+          f"{out['eager']['busy_ms']:.3f}, idle {out['eager']['idle_share']:.3f}, "
+          f"{out['eager']['device_launches']:.1f} launches); capture "
+          f"{out['graph']['program']['capture_s']:.3f} s, "
+          f"{out['graph']['program']['pool_bytes']} bytes reserved ({card})", flush=True)
     return out
 
 
@@ -5438,15 +5664,19 @@ def lbfgs_graph_runs(dev, card: str):
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     out = {"card": card}
+    # The traced runs, each in a fresh process, all started at once (their
+    # times are not read).
+    procs = {case: subprocess.Popen([sys.executable, "-c",
+                                     f"import chip_smoke as c; c.lbfgs_traced_case({case!r})"],
+                                    cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for case in LBFGS_GRAPH_CASES}
     for case in LBFGS_GRAPH_CASES:
         runs = {side: lbfgs_case_run(case, side) for side in ("graph", "eager")}
-        done = subprocess.run([sys.executable, "-c",
-                               f"import chip_smoke as c; c.lbfgs_traced_case({case!r})"],
-                              cwd=here, capture_output=True, text=True, timeout=300)
-        line = [ln for ln in done.stdout.splitlines() if ln.startswith("TRACED ")]
+        stdout, stderr = procs[case].communicate(timeout=600)
+        line = [ln for ln in stdout.splitlines() if ln.startswith("TRACED ")]
         if not line:
-            raise AssertionError(f"lbfgs graph {case}: the traced run failed: "
-                                 f"{done.stderr[-2000:]}")
+            raise AssertionError(f"lbfgs graph {case}: the traced run failed: {stderr[-2000:]}")
         runs["graph_traced"] = json.loads(line[-1][len("TRACED "):])
         names = runs["graph_traced"]["names"]
         g, gt, e = runs["graph"], runs["graph_traced"], runs["eager"]

@@ -12,13 +12,25 @@ residual kernel is not attached, as in the JAX harness), takes a clipped
 Adam step on a cosine schedule over the whole run, and, for ``adaptive``,
 rewards the DQN agent (hidden 64, replay 4096, batch 64; kernel 4 scores its
 100 x 100 grid in every sampling call) and takes its update and one epsilon
-decay. The JAX harness scans 100 steps per device call; here every step is
-eager and reads nothing back: the loss stays on the device and the last one
-is read once, after the timed loop.
+decay. The JAX harness scans 100 steps per device call and compiles each
+phase's chunk outside its timed window. Here each curriculum phase's step
+is a step program (``training/step_program.py``): on the card it is
+captured once as a CUDA graph and replayed at every step (the agent's
+steps before its buffer holds a batch run eagerly, as in the trainer), on
+the CPU it runs eagerly. A step keeps every tensor it reads in place (the
+parameters and gradients, both Adams' state, ``prev_loss``, the agent's
+networks, buffers, counters and epsilon) and writes its loss into the
+program's rows on the device.
 
-Before the timed loop a throwaway copy of the run (the same seed) takes
-``WARMUP_STEPS`` steps, so the timed steps pay no kernel build, cuBLAS or
-allocator set-up and the reported state is not advanced by them.
+Before the timed loop each phase's program takes its warm-up steps and its
+capture (``StepProgram.warm_up``), and the run is then put back to its
+initial state in place (``_Run.checkpoint``: every buffer, the optimizers'
+step counts, the agent's host count, the generator), so the timed steps pay
+no kernel build, cuBLAS, allocator or capture set-up and the reported state
+is not advanced by the warm-up. The timed window covers exactly ``epochs``
+steps and one synchronize, and on the card it raises on any host read
+(``torch.cuda.set_sync_debug_mode("error")``). One host read follows it: the
+last loss, the validation errors and the replays' kernel launches.
 ``points_per_sec = epochs * batch / wall``.
 
 ``rl_variant`` (adaptive only): "coord" Q(x, t) with reward -(weighted
@@ -33,10 +45,11 @@ by zero there: ROADMAP §3).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -44,12 +57,12 @@ from pinnrl_tpu_torch.config import load_config
 from pinnrl_tpu_torch.models import PINNModel
 from pinnrl_tpu_torch.pdes import create_pde
 from pinnrl_tpu_torch.rl import RLAgent
+from pinnrl_tpu_torch.training.step_program import StepProgram, step_path
 from pinnrl_tpu_torch.training.trainer import AdamStep, cosine_decay
 
 STRATEGIES = ("uniform", "stratified", "residual_based", "adaptive")
 PDE_CHOICES = ("heat", "wave", "burgers", "kdv")
 RL_VARIANTS = ("coord", "resfeat", "improve", "resfeat_improve")
-WARMUP_STEPS = 5
 # The agent's push per step: the first min(RL_PUSH, batch) points.
 RL_PUSH = 128
 
@@ -79,18 +92,39 @@ def _fixed_validation_grid(pde, n_side: int = 64, device=None):
 
 
 @torch.no_grad()
-def _evaluate(pde, model, params, x_grid, t_grid) -> Dict[str, float]:
+def _errors(pde, model, params, x_grid, t_grid) -> torch.Tensor:
+    """[l2, rel_l2] of the network against the exact solution on the grid,
+    on the device (NaNs without an exact solution)."""
     u = model.apply(params, torch.cat([x_grid, t_grid], dim=-1))
     u = u.reshape(x_grid.shape[0], -1)[:, 0:1]
     exact = pde.exact_solution(x_grid, t_grid)
     if exact is None:
-        return {"l2": float("nan"), "rel_l2": float("nan")}
+        return torch.full((2,), float("nan"), device=u.device)
     exact = exact.reshape(u.shape)
     err = u - exact
     l2 = torch.sqrt(torch.mean(err**2))
     rel = torch.sqrt(torch.sum(err**2)) / (torch.sqrt(torch.sum(exact**2)) + 1e-12)
-    l2, rel = torch.stack([l2, rel]).tolist()  # one host read
-    return {"l2": l2, "rel_l2": rel}
+    return torch.stack([l2, rel])
+
+
+def _adam_state(prefix: str, opt: AdamStep) -> Dict[str, torch.Tensor]:
+    """Adam's per-leaf state tensors (made at its first step), by name."""
+    return {f"{prefix}/{i}/{key}": v for i, p in enumerate(opt.params)
+            for key, v in opt.optimizer.state.get(p, {}).items()}
+
+
+@contextlib.contextmanager
+def _host_reads_raise(device: torch.device) -> Iterator[None]:
+    """On the card, raise at any operation that waits for the device."""
+    if device.type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def _build_benchmark_model(pde_key: str, seed: int, arch: str = "fourier", device: str = "cuda"):
@@ -138,16 +172,124 @@ class _Run:
         self.improve = "improve" in rl_variant
         self.device = self.model.device
         self.params = self.model.params
+        # The capturable Adams (the host-lr ones on the CPU): an eager step
+        # on the card computes what a replayed one does.
         self.opt = AdamStep(list(self.params.values()), cosine_decay(lr, epochs, 0.0),
-                            1.0, 0.9, 0.999, 0.0)
+                            1.0, 0.9, 0.999, 0.0, capturable=True)
         self.agent = self.rl_state = None
         if strategy == "adaptive":
             self.agent = RLAgent(state_dim=self.cfg.model.input_dim + (1 if self.resfeat else 0),
                                  hidden_dim=64, memory_size=4096, batch_size=64,
                                  device=self.device)
-            self.rl_state = self.agent.init(torch.Generator().manual_seed(seed + 1))
+            self.rl_state = self.agent.init(torch.Generator().manual_seed(seed + 1),
+                                            capturable=True)
         self.prev_loss = torch.zeros((), device=self.device)
         self._done = torch.ones((), device=self.device)
+        # Every draw of the run's steps: points, BC/IC points, the agent's.
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def optimizers(self) -> List[AdamStep]:
+        return [self.opt] + ([self.rl_state.opt_state] if self.agent is not None else [])
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        """Every tensor a step reads at its start, by name: the buffers that
+        a step updates in place and a replayed one reads where its capture
+        saw them."""
+        out = {f"param/{k}": v for k, v in self.params.items()}
+        out.update(_adam_state("adam", self.opt))
+        out["prev_loss"] = self.prev_loss
+        if self.agent is not None:
+            st = self.rl_state
+            for tag, net in (("policy", st.policy_params), ("target", st.target_params)):
+                out.update({f"rl/{tag}/{k}": v for k, v in net.items()})
+            for name in RLAgent._BUFFERS + RLAgent._COUNTERS:
+                out[f"rl/{name}"] = getattr(st, name)
+            out.update(_adam_state("rl/adam", st.opt_state))
+        return out
+
+    def checkpoint(self) -> Callable[[], None]:
+        """A function that puts the run back, in place, where it is now:
+        every tensor of ``state()`` (one made since, Adam's moments and step
+        count at its first step, to zero, as a fresh Adam's), the
+        optimizers' step counts, the agent's host count and the generator."""
+        saved = {k: v.detach().clone() for k, v in self.state().items()}
+        counts = [opt.count for opt in self.optimizers()]
+        filled = self.rl_state.filled if self.agent is not None else 0
+        gen_state = self.gen.get_state()
+
+        def restore() -> None:
+            with torch.no_grad():
+                for k, v in self.state().items():
+                    if k in saved:
+                        v.copy_(saved[k])
+                    else:
+                        v.zero_()
+            for opt, count in zip(self.optimizers(), counts):
+                opt.count = count
+            if self.agent is not None:
+                self.rl_state.filled = filled
+            self.gen.set_state(gen_state)
+
+        return restore
+
+    def program(self, pde, steps: int) -> StepProgram:
+        """The step on ``pde`` as a step program (its path by ``step_path``)
+        whose rows keep ``steps`` losses."""
+        path, _ = step_path(self.device, harness="sampling")
+        agent = self.agent
+        return StepProgram(
+            lambda: self.step(pde, self.gen), path, self.device, capacity=max(steps, 1),
+            generators=[self.gen], optimizers=self.optimizers(),
+            counters=[(self.rl_state, "filled")] if agent is not None else [],
+            ready=(lambda: agent.settled(self.rl_state)) if agent is not None else (lambda: True),
+            name="sampling step")
+
+    def warm_up(self, programs: Sequence[StepProgram]) -> None:
+        """Each program's warm-up steps and capture, then the run put back
+        where it started."""
+        restore = self.checkpoint()
+        for program in programs:
+            program.warm_up()
+        restore()
+
+    def timed(self, programs: Sequence[StepProgram], per_phase: Sequence[int]) -> float:
+        """Seconds of ``per_phase[w]`` steps of each phase's program, and one
+        synchronize; no host read in between."""
+        _sync(self.device)
+        t0 = time.perf_counter()
+        with _host_reads_raise(self.device):
+            for program, n_ep in zip(programs, per_phase):
+                program.start_chunk()
+                for _ in range(n_ep):
+                    program.run()
+        _sync(self.device)
+        return time.perf_counter() - t0
+
+    def read(self, programs: Sequence[StepProgram], per_phase: Sequence[int]):
+        """One host read after the timed steps: the last loss, the
+        validation grid's l2 and rel_l2, and the replays' kernel launches
+        (each program's tally, settled into the counters)."""
+        x_grid, t_grid = _fixed_validation_grid(self.pde)
+        errors = _errors(self.pde, self.model, self.params, x_grid, t_grid)
+        tallies = [p.tally for p in programs if p.tally is not None]
+        last = programs[-1].rows[per_phase[-1] - 1]
+        flat = torch.cat([last.double(), errors.double()] + [t.double() for t in tallies]).tolist()
+        k = 3
+        for p in programs:
+            if p.tally is not None:
+                p.settle(flat[k:k + p.tally.numel()])
+                k += p.tally.numel()
+        return flat[0], flat[1], flat[2]
+
+    def release(self, programs: Sequence[StepProgram]) -> None:
+        """Free the programs; a captured step's gradients live in its
+        graph's memory."""
+        for program in programs:
+            program.release()
+        nets = [self.params] + ([self.rl_state.policy_params] if self.agent is not None else [])
+        for net in nets:
+            for p in net.values():
+                p.grad = None
 
     def phase_pde(self, w: int, phases: int):
         """The PDE of curriculum phase ``w``: the time domain cut to its
@@ -225,7 +367,7 @@ class _Run:
             self.rl_state = self.agent.update(self.rl_state, pts, reward, pts, self._done,
                                               generator)
             self.rl_state = self.agent.update_epsilon(self.rl_state)
-        self.prev_loss = loss
+        self.prev_loss.copy_(loss)
         return loss
 
     def step(self, pde, generator: torch.Generator) -> torch.Tensor:
@@ -254,40 +396,25 @@ def _train_one(
     """One strategy's row (see the module docstring for ``rl_variant`` and
     ``windows``)."""
     per_phase = _phase_epochs(epochs, windows)
-    args = (pde_key, strategy, epochs, batch, lr, seed, arch, rar, rl_variant, device)
-    run = _Run(*args)
+    run = _Run(pde_key, strategy, epochs, batch, lr, seed, arch, rar, rl_variant, device)
     phases = len(per_phase)
-    pdes = [run.phase_pde(w, phases) for w in range(phases)]
-
-    # Warm-up on a throwaway copy of the run: the same seed, another stream.
-    warm = _Run(*args)
-    warm_gen = torch.Generator(device=warm.device).manual_seed(seed + 7919)
-    warm_pde = warm.phase_pde(0, phases)
-    for _ in range(min(per_phase[0], WARMUP_STEPS)):
-        warm.step(warm_pde, warm_gen)
-    _sync(warm.device)
-    del warm, warm_pde
-
-    gen = torch.Generator(device=run.device).manual_seed(seed)
-    loss = None
-    _sync(run.device)
-    t0 = time.perf_counter()
-    for pde_w, n_ep in zip(pdes, per_phase):
-        for _ in range(n_ep):
-            loss = run.step(pde_w, gen)
-    _sync(run.device)
-    wall = time.perf_counter() - t0
-
-    x_grid, t_grid = _fixed_validation_grid(run.pde)
-    ev = _evaluate(run.pde, run.model, run.params, x_grid, t_grid)
+    # Each curriculum phase has its own PDE, so its own program (JAX builds
+    # one chunk per phase).
+    programs = [run.program(run.phase_pde(w, phases), n_ep) for w, n_ep in enumerate(per_phase)]
+    try:
+        run.warm_up(programs)
+        wall = run.timed(programs, per_phase)
+        loss, l2, rel_l2 = run.read(programs, per_phase)
+    finally:
+        run.release(programs)
     return SamplingResult(
         pde=pde_key,
         architecture=arch,
         strategy=(strategy if rl_variant == "coord" or strategy != "adaptive"
                   else f"adaptive[{rl_variant}]"),
-        final_loss=float(loss),
-        l2_error=ev["l2"],
-        rel_l2=ev["rel_l2"],
+        final_loss=loss,
+        l2_error=l2,
+        rel_l2=rel_l2,
         wall_time_s=wall,
         points_per_sec=epochs * batch / max(wall, 1e-9),
         epochs=epochs,

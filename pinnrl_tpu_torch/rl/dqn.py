@@ -13,7 +13,8 @@ target sync and the epsilon-greedy choice run on the agent's device:
   on ``size >= batch_size`` is decided on the host from ``filled``, the
   transitions the host has seen pushed, counted up to ``min(batch_size,
   memory_size)``: ``size`` never falls, so once ``settled`` the branch
-  never changes (the trainer captures its step only then).
+  never changes (the trainer and the sampling harness replay a captured
+  step only then).
 - ``select_action`` scores the candidate points with the ``fused_mlp_score``
   kernel on every call and picks Q or uniform random scores with
   ``torch.where`` on a device-side Bernoulli draw, exploring or not.
@@ -142,7 +143,7 @@ class RLAgent:
         """A fresh state; the weights are drawn from ``generator`` on the CPU
         (so a seed gives the same weights on every device) and moved. With
         ``capturable`` its Adam can be captured in a CUDA graph (the
-        trainer's replayed step)."""
+        trainer's and the sampling harness's replayed steps)."""
         net = DQNNetwork(self.state_dim, self.action_dim, self.hidden_dim, generator)
         policy = {k: v.detach().to(self.device).requires_grad_(True)
                   for k, v in net.named_parameters()}

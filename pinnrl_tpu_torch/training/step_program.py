@@ -51,7 +51,17 @@ host code, so the step keeps its state where the capture saw it:
 An Adam phase's first steps run eagerly on a side stream (as torch
 documents whole-step capture); they are real steps of the run. The capture
 follows once ``ready()`` holds (the agent's buffer holds a batch, so its
-train branch is fixed from then on). An L-BFGS program warms each piece up
+train branch is fixed from then on), and a step replays only while it
+holds.
+
+The benchmark harnesses drive the same program outside the trainer: a
+body, the generators it draws from, the optimizers it steps and a
+``ready`` predicate. The gridded operator harness runs it as the trainer
+does. The sampling harness keeps its set-up out of its timed window as the
+JAX harness compiles its chunk outside it: ``warm_up`` takes the eager
+steps and the capture first, the harness then puts its state back to where
+the run starts (every buffer in place, the host counts, the generators),
+and its timed steps replay the captured step from there. An L-BFGS program warms each piece up
 inside its first iteration instead, with no host read: ``start`` and the
 first trial (which always runs) eagerly, then the trial's capture and
 replays, then ``finish`` eagerly; the next iteration captures ``start`` and
@@ -83,12 +93,16 @@ logger = logging.getLogger(__name__)
 WARMUP_STEPS = 1
 
 
-def step_path(device: torch.device, lbfgs: bool, mesh: Any) -> Tuple[str, str]:
+def step_path(device: torch.device, lbfgs: bool = False, mesh: Any = None,
+              harness: Optional[str] = None) -> Tuple[str, str]:
     """How a phase's steps run, and why: ``"graph"`` (captured once, replayed
-    per step) for every phase on the card, Adam and L-BFGS; ``"eager"``
+    per step) for every phase on the card, Adam and L-BFGS, and for a
+    benchmark harness's step (``harness``, its name) there; ``"eager"``
     otherwise."""
     if device.type != "cuda":
         return "eager", "not on a card"
+    if harness is not None:
+        return "graph", f"the {harness} harness's step on the card"
     if mesh is not None:
         return "eager", "device mesh: the collectives are not captured"
     if lbfgs:
@@ -129,7 +143,12 @@ def if_node(pred: torch.Tensor, pool: Tuple[int, int]) -> Iterator[None]:
     device = pred.device
     index = torch.cuda.current_device() if device.index is None else device.index
     outer = torch.cuda.current_stream(device)
+    # torch hands out its pooled streams round robin (32 per priority), so a
+    # new stream can be the capturing one itself, which cannot begin a
+    # second capture (cudaErrorIllegalState): take the next one then.
     body = torch.cuda.Stream(device)
+    while body.cuda_stream == outer.cuda_stream:
+        body = torch.cuda.Stream(device)
     check(lib.gc_begin_if(outer.cuda_stream, pred.data_ptr(), body.cuda_stream), "gc_begin_if")
     # A synchronizing call inside the body would invalidate its capture, and
     # CUDA then leaves the outer graph unusable (its end crashes the
@@ -176,7 +195,7 @@ class StepProgram:
     and the graph path captures its pieces."""
 
     def __init__(self, body: Callable[[], torch.Tensor], path: str, device: torch.device,
-                 capacity: int, epochs: int, generators: Sequence[torch.Generator] = (),
+                 capacity: int, epochs: int = 0, generators: Sequence[torch.Generator] = (),
                  optimizers: Sequence[Any] = (), counters: Sequence[Tuple[Any, str]] = (),
                  ready: Callable[[], bool] = lambda: True, name: str = "adam",
                  search: Optional[Search] = None) -> None:
@@ -223,7 +242,7 @@ class StepProgram:
 
     def run(self) -> None:
         """One step: eager, or a replay of the captured step (captured first
-        once the warm-up is done)."""
+        once the warm-up is done) while ``ready()`` holds."""
         if self.search is not None and self.path == "graph" \
                 and self.eager_steps >= WARMUP_STEPS - 1:
             self._search_step()
@@ -231,7 +250,7 @@ class StepProgram:
         if self.search is None and self.path == "graph" and not self.graphs \
                 and self.eager_steps >= WARMUP_STEPS and self.ready():
             self.graphs["step"] = self._capture(self._call, self.generators)
-        if "step" in self.graphs:
+        if "step" in self.graphs and self.ready():
             self._replay(self.graphs["step"])
             self.replays += 1
             self.unsettled += 1
@@ -241,6 +260,20 @@ class StepProgram:
         else:
             self._call()
         self.eager_steps += 1
+
+    def warm_up(self) -> None:
+        """The steps a harness takes before its timed ones: eager steps
+        until ``WARMUP_STEPS`` are done and ``ready()`` holds, then, on the
+        graph path, the capture (which runs nothing). Every step writes row
+        0, and the rows restart afterwards. The steps are real: the caller
+        puts its state back before the steps it times, which replay the
+        captured step wherever ``ready()`` holds (an Adam step only)."""
+        while self.eager_steps < WARMUP_STEPS or not self.ready():
+            self.start_chunk()
+            self.run()
+        if self.path == "graph" and not self.graphs:
+            self.graphs["step"] = self._capture(self._call, self.generators)
+        self.start_chunk()
 
     def _eager(self, fn: Callable[[], Any]) -> None:
         """``fn()`` on the warm-up's side stream, ordered after and before

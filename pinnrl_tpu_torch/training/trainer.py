@@ -214,10 +214,12 @@ class AdamStep:
     its learning rate the device tensor ``lr``, so a captured ``apply``
     replays at every count: inside a capture ``step`` records ``apply``
     alone and sets ``captured``, and the step program prepares and advances
-    around each replay. The trainer asks for it on every path, so that its
-    eager phases (a mesh, L-BFGS's agent) compute what its replayed ones
-    do; the harnesses, which never capture, keep the host-lr Adam, as does
-    the CPU, where torch's capturable Adam is not available.
+    around each replay. The trainer and the benchmark harnesses (the
+    sampling harness's network and agent, the gridded FNO) ask for it on
+    every path, so that their eager steps (a mesh, L-BFGS's agent, the
+    steps before a capture, an eager reference run) compute what their
+    replayed ones do; the CPU keeps the host-lr Adam, as torch's
+    capturable Adam is not available there.
     """
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable[[int], float],

@@ -1866,3 +1866,68 @@ def test_a_failed_lbfgs_capture_raises(cuda_device):
         LBFGS.trial = trial
     (program,) = tr.programs
     assert program.path == "graph" and program.replays == 0 and "trial" not in program.graphs
+
+
+@pytest.mark.parametrize("strategy,windows", [("stratified", 0), ("adaptive[resfeat_improve]", 2)])
+def test_a_replayed_sampling_run_equals_its_eager_run(cuda_device, monkeypatch, strategy,
+                                                      windows):
+    """The sampling harness on its graph path (each phase's step captured
+    and replayed) against its eager path from the same seed: the rows, every
+    step's loss and the final network bit for bit."""
+    from pinnrl_tpu_torch.benchmarks import sampling
+
+    runs = []
+    read = sampling._Run.read
+    for graph in (True, False):
+        seen = {}
+
+        def reading(self, programs, per_phase, seen=seen):
+            out = read(self, programs, per_phase)
+            seen["losses"] = torch.cat([p.rows[:n, 0] for p, n in zip(programs, per_phase)])
+            seen["params"] = {k: v.detach().clone() for k, v in self.params.items()}
+            seen["paths"] = [p.path for p in programs]
+            seen["replays"] = sum(p.replays for p in programs)
+            return out
+
+        with monkeypatch.context() as m:
+            m.setattr(sampling._Run, "read", reading)
+            if not graph:
+                m.setattr(sampling, "step_path", lambda device, **kw: ("eager", "reference"))
+            (r,) = sampling.run_sampling_benchmark(pde="burgers", strategies=[strategy],
+                                                   epochs=8, batch=256, windows=windows,
+                                                   device="cuda")
+        runs.append((r, seen))
+    (g, gs), (e, es) = runs
+    assert gs["paths"] == ["graph"] * max(windows, 1) and gs["replays"] >= 7
+    assert es["paths"] == ["eager"] * max(windows, 1) and es["replays"] == 0
+    assert (g.final_loss, g.l2_error, g.rel_l2) == (e.final_loss, e.l2_error, e.rel_l2)
+    assert torch.equal(gs["losses"], es["losses"])
+    for k, v in gs["params"].items():
+        assert torch.equal(v, es["params"][k]), k
+
+
+def test_an_if_node_captures_whichever_pooled_stream_comes_next(cuda_device):
+    """torch hands out its pooled streams round robin (32 per priority): over
+    33 captures the IF node's body stream takes every place in the pool, the
+    capturing stream's too, and each capture must hold and replay."""
+    from pinnrl_tpu_torch.training.step_program import _graph_cond, if_node
+
+    _graph_cond()  # built and loaded before the captures
+    pred = torch.ones((), dtype=torch.bool, device=cuda_device)
+    x = torch.zeros(4, device=cuda_device)
+    pool = torch.cuda.graph_pool_handle()
+    index = torch.cuda.current_device()
+    graphs = []
+    for _ in range(33):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with if_node(pred, pool):
+                x.add_(1.0)
+        graphs.append(graph)
+    for graph in graphs:
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full((4,), 33.0, device=cuda_device))
+    del graphs, graph
+    for _ in range(33):
+        torch._C._cuda_releasePool(index, pool)

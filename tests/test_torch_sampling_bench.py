@@ -10,8 +10,8 @@ IC points, and the agent's TD batch indices.
 
 Tolerances (each with its reason):
 - configs equal field by field (the device aside);
-- the validation grid and ``_evaluate`` 1e-6 relative: float32 linspace and
-  the same network;
+- the validation grid and ``_evaluate`` (the port's ``_errors``) 1e-6
+  relative: float32 linspace and the same network;
 - one step's loss 1e-5 relative; its clipped gradients, the updated
   parameters and the agent's weights after its Adam step 1e-4 (relative to
   max for the gradients, absolute for parameters: float32 sums in another
@@ -232,7 +232,8 @@ def test_validation_grid_and_evaluate_match_jax():
     tx, tt = sampling._fixed_validation_grid(run.pde)
     assert tx.shape == (4096, 1) and rel_to_max(tx, jx) < GRID_TOL and rel_to_max(tt, jt) < GRID_TOL
     ref = jax_sampling._evaluate(pair.jpde, pair.jmodel, pair.jmodel.params, jx, jt)
-    got = sampling._evaluate(run.pde, run.model, run.params, tx, tt)
+    got = dict(zip(("l2", "rel_l2"), sampling._errors(run.pde, run.model, run.params, tx,
+                                                      tt).tolist()))
     for k in ("l2", "rel_l2"):
         assert abs(got[k] - ref[k]) / abs(ref[k]) < GRID_TOL, k
 

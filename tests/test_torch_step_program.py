@@ -543,16 +543,23 @@ def test_the_trainers_adams_ask_for_the_capturable_adam(monkeypatch, case):
     assert not any(opt.optimizer.param_groups[0]["capturable"] for _, opt in made)
 
 
-@pytest.mark.parametrize("strategy", ["uniform", "adaptive"])
+@pytest.mark.parametrize("strategy", ["uniform", "adaptive", "gridded"])
 def test_the_sampling_harness_keeps_the_host_lr_adam(monkeypatch, strategy):
-    """The sampling harness never captures: its network's and its agent's
-    Adams ask for the host-lr Adam."""
-    from pinnrl_tpu_torch.benchmarks import sampling
+    """The harnesses capture their steps on the card: the sampling
+    harness's network and agent and the gridded FNO ask for torch's
+    capturable Adam, so their eager steps compute what the replayed ones do;
+    on the CPU each keeps the host-lr Adam."""
+    from pinnrl_tpu_torch.benchmarks import operator, sampling
 
     made = _adam_recorder(monkeypatch, "pinnrl_tpu_torch.benchmarks.sampling",
-                          "pinnrl_tpu_torch.rl.dqn")
-    sampling._Run("burgers", strategy, 2, 16, 2e-3, 0, device="cpu")
-    assert made and [c for c, _ in made] == [False] * len(made)
+                          "pinnrl_tpu_torch.benchmarks.operator", "pinnrl_tpu_torch.rl.dqn")
+    if strategy == "gridded":
+        operator.run_gridded_operator_benchmark(epochs=1, n_traj_train=1, n_traj_test=1, width=4,
+                                                modes=2, num_blocks=1, device="cpu")
+    else:
+        sampling._Run("burgers", strategy, 2, 16, 2e-3, 0, device="cpu")
+    assert [c for c, _ in made] == [True] * (2 if strategy == "adaptive" else 1)
+    assert not any(opt.optimizer.param_groups[0]["capturable"] for _, opt in made)
 
 
 def test_a_program_slot_restarts_each_chunk():

@@ -4,7 +4,8 @@ CUDA card.
 
     python3 tools/profile_step_torch.py [--steps 20] [--profiled 10] [--out chiprun_out/profile]
         [--rl | --rar | --ensemble E | --kdv | --siren-kdv | --heat
-         | --recipe KEY [--alternate ROUNDS] | --inverse KEY] [--lbfgs] [--graph]
+         | --recipe KEY [--alternate ROUNDS] | --inverse KEY
+         | --sampling STRATEGY [STRATEGY ...] [--batch N [N ...]]] [--lbfgs] [--graph]
 
 For the Burgers recipe slice of ``chip_smoke.py`` (Fourier 256x3, mapping
 128, batch 8192, BC/IC 4096), once with the hand-written kernels and once on
@@ -78,6 +79,15 @@ each, eager first, then graph first). With ``--lbfgs
 the recipe's points), eager (every trial guarded by a host read) and then
 replayed (start, 25 trials under the IF node, finish); the evaluations are
 counted on the device and settled outside the timed steps.
+
+With ``--sampling`` the step is the sampling harness's
+(``benchmarks/sampling.py``: Burgers, the 64x3 Fourier MLP at mapping 32,
+the DQN at hidden 64 for ``adaptive[...]``) at each ``--batch`` (default
+1024) under each strategy, as its step program (``_Run.program``) after
+its warm-up; with ``--graph`` eager against captured and replayed (the
+same capturable Adams), otherwise eager with the kernels against eager on
+their plain versions; each side's points per second (batch / median ms)
+too.
 
 Every run also prints the back-to-back ms per step. The chrome traces go
 to ``--out``, gzipped. The script imports no JAX.
@@ -309,6 +319,57 @@ def alternate(trainer, cfg, label: str, rounds: int, steps: int, card: str, lbfg
     return summary
 
 
+def sampling_side(strategy: str, batch: int, label: str, capacity: int):
+    """A sampling-harness run and the step of its program (Burgers, seed 0)
+    past its warm-up (and capture, on the graph side)."""
+    from pinnrl_tpu_torch.benchmarks import sampling
+
+    ((base, variant),) = sampling.parse_strategies([strategy])
+    run = sampling._Run("burgers", base, 10000, batch, 2e-3, 0, rl_variant=variant, device="cuda")
+    program = run.program(run.pde, capacity)
+    if label != "graph":
+        program.path = "eager"
+    program.warm_up()
+
+    def step():
+        if (program.eager_steps + program.replays) % capacity == 0:
+            program.start_chunk()
+        program.run()
+
+    return run, step, program
+
+
+def sampling_main(args, card: str, out: Path) -> list:
+    """``--sampling``: each strategy at each batch, the two sides in turns
+    (with ``--graph``) and profiled (see the module docstring)."""
+    from chip_smoke import plain_fourier_features, plain_mlp_score
+
+    results = []
+    capacity = 64
+    labels = ("eager", "graph") if args.graph else ("kernels", "plain")
+    for batch in args.batch:
+        for strategy in args.sampling:
+            prefix = f"{'graph_' if args.graph else ''}sampling_{strategy}_b{batch}_"
+            sides = {label: sampling_side(strategy, batch, label, capacity) for label in labels}
+            if args.graph:
+                results.append(in_turns({label: side[1] for label, side in sides.items()},
+                                        args.steps, prefix, card))
+            for label, (run, step, program) in sides.items():
+                with contextlib.ExitStack() as plain:
+                    if label == "plain":
+                        plain.enter_context(plain_fourier_features())
+                        plain.enter_context(plain_mlp_score())
+                    res = profile(run, run.cfg, prefix + label, args.steps, args.profiled, out,
+                                  card, step=step, settle=program.settle)
+                res.update(strategy=strategy, batch=batch,
+                           points_per_sec=batch / res["median_ms"] * 1e3, program=program.stats())
+                print(f"[{prefix + label}] {res['points_per_sec']:.1f} points/s; step program: "
+                      f"{program.stats()} ({card})", flush=True)
+                run.release([program])
+                results.append(res)
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20, help="unprofiled steps timed after warm-up")
@@ -330,6 +391,11 @@ def main() -> int:
                       help="profile a step of this recipe (kernel 1 off its path)")
     kind.add_argument("--inverse", choices=("heat", "black_scholes"),
                       help="profile a step of this inverse recipe (kernel 1 off its path)")
+    kind.add_argument("--sampling", nargs="+", metavar="STRATEGY",
+                      help="profile the sampling harness's Burgers step under each strategy "
+                           "(e.g. uniform 'adaptive[resfeat_improve]')")
+    ap.add_argument("--batch", nargs="+", type=int, default=[1024],
+                    help="with --sampling: the harness's batches")
     ap.add_argument("--alternate", type=int, default=0, metavar="ROUNDS",
                     help="with --recipe: kernel 2 and its plain version in turns on one trainer")
     ap.add_argument("--graph", action="store_true",
@@ -360,6 +426,15 @@ def main() -> int:
     results = []
     if args.graph and args.alternate:
         ap.error("--graph takes no --alternate")
+    if args.sampling:
+        if args.lbfgs or args.alternate:
+            ap.error("--sampling takes no --lbfgs or --alternate")
+        results = sampling_main(args, card, out)
+        name = f"{'graph_' if args.graph else ''}sampling_summary.json"
+        (out / name).write_text(json.dumps({"card": card, "runs": results}, indent=1))
+        if "jax" in sys.modules:
+            raise AssertionError("profile_step_torch imported jax")
+        return 0
     prefix = ("lbfgs_graph_" if args.lbfgs and args.graph else "lbfgs_" if args.lbfgs
               else "graph_" if args.graph else "") + (
         "rl_" if args.rl else "rar_" if args.rar else f"ensemble{args.ensemble}_" if args.ensemble
